@@ -1,0 +1,62 @@
+"""flax CLIP variables -> OpenAI-schema state_dict.
+
+``state_dict_from_jax`` is the exact inverse of
+uml_tpu.models.port_torch.port_clip_state_dict: it takes the flax variable
+tree of uml_tpu.models.clip.CLIP as numpy arrays and returns the
+state_dict the port's CLIP (and an OpenAI ``.pt``) uses, so the tests can
+give both packages the same weights.  Pure numpy + torch: no jax import.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _t(a) -> torch.Tensor:
+    return torch.tensor(np.ascontiguousarray(np.asarray(a, np.float32)))
+
+
+def _ln(sd, prefix, tree):
+    sd[f"{prefix}.weight"] = _t(tree["ln"]["scale"])
+    sd[f"{prefix}.bias"] = _t(tree["ln"]["bias"])
+
+
+def _linear(sd, prefix, tree):
+    sd[f"{prefix}.weight"] = _t(np.asarray(tree["kernel"]).T)   # [in,out] -> [out,in]
+    sd[f"{prefix}.bias"] = _t(tree["bias"])
+
+
+def _transformer(sd, prefix, tree):
+    n = len([k for k in tree if k.startswith("resblocks_")])
+    for i in range(n):
+        blk, p = tree[f"resblocks_{i}"], f"{prefix}.resblocks.{i}"
+        _ln(sd, f"{p}.ln_1", blk["ln_1"])
+        _ln(sd, f"{p}.ln_2", blk["ln_2"])
+        sd[f"{p}.attn.in_proj_weight"] = _t(np.asarray(blk["qkv"]["kernel"]).T)
+        sd[f"{p}.attn.in_proj_bias"] = _t(blk["qkv"]["bias"])
+        _linear(sd, f"{p}.attn.out_proj", blk["out_proj"])
+        _linear(sd, f"{p}.mlp.c_fc", blk["c_fc"])
+        _linear(sd, f"{p}.mlp.c_proj", blk["c_proj"])
+
+
+def state_dict_from_jax(variables) -> dict:
+    """{'params': {...}} of uml_tpu's ViT CLIP -> {key: fp32 tensor}."""
+    params = variables["params"]
+    v, t = params["visual"], params["text"]
+    sd = {}
+    # HWIO -> OIHW
+    sd["visual.conv1.weight"] = _t(np.asarray(v["patch_embed"]["kernel"]).transpose(3, 2, 0, 1))
+    sd["visual.class_embedding"] = _t(v["class_embedding"])
+    sd["visual.positional_embedding"] = _t(v["positional_embedding"])
+    _ln(sd, "visual.ln_pre", v["ln_pre"])
+    _transformer(sd, "visual.transformer", v["transformer"])
+    _ln(sd, "visual.ln_post", v["ln_post"])
+    sd["visual.proj"] = _t(v["proj"])
+    sd["token_embedding.weight"] = _t(t["token_embedding"]["embedding"])
+    sd["positional_embedding"] = _t(t["positional_embedding"])
+    _transformer(sd, "transformer", t["transformer"])
+    _ln(sd, "ln_final", t["ln_final"])
+    sd["text_projection"] = _t(t["text_projection"])
+    sd["logit_scale"] = _t(params["logit_scale"])
+    return sd

@@ -1,0 +1,132 @@
+"""Build and load the hand-written Hopper kernels (``uml_tpu_torch/csrc``).
+
+``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain
+C interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
+seconds).  The build runs at first use, never at import, into
+``build/uml_tpu_torch/<hash of the sources>/`` under the repository root;
+a changed source gets a new directory, and a finished build is reused.
+The compiler's report (``-Xptxas -v``: registers, shared memory, spills)
+is kept beside the library as ``build.log``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                    "csrc")
+BUILD_ROOT = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build",
+                          "uml_tpu_torch")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# name -> argtypes; every function returns a cudaError_t as int
+SIGNATURES = {
+    # x, w_eff, b_eff, wo, bo, qkv, attn, out, B, S, K, H, causal, q_rows,
+    # eps, stream
+    "uml_attn_block": [_P] * 8 + [_I] * 6 + [_F, _P],
+    # x, w1, b1, w2, b2, hidden, out, rows, K, M, eps, stream
+    "uml_mlp_block": [_P] * 7 + [_I] * 3 + [_F, _P],
+    # x, w_eff, b_eff, wo, bo, w1, b1, w2, b2, qkv, attn, hidden, mid, out,
+    # B, S, K, H, M, L, eps, stream
+    "uml_text_tower": [_P] * 14 + [_I] * 6 + [_F, _P],
+}
+
+
+def _sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu"))
+                  + glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin): the CUDA "
+                       "kernels of uml_tpu_torch build on a machine with the "
+                       "CUDA toolkit")
+
+
+def build() -> str:
+    """Compile the kernels if this source hash has no library yet; return
+    the library's path."""
+    out_dir = os.path.join(BUILD_ROOT, source_hash())
+    lib_path = os.path.join(out_dir, "libuml_kernels.so")
+    if os.path.exists(lib_path):
+        return lib_path
+    os.makedirs(out_dir, exist_ok=True)
+    units = [p for p in _sources() if p.endswith(".cu")]
+    # build under a temporary name and rename: a concurrent build never
+    # loads a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *units]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with open(os.path.join(out_dir, "build.log"), "w") as f:
+        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, lib_path)
+    return lib_path
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    lib = ctypes.CDLL(build())
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def launch(name: str, *args) -> None:
+    """Call one C entry point on the current stream's arguments; raise on
+    a nonzero cudaError_t (a refused launch never runs, and a later
+    synchronize would not report it)."""
+    err = getattr(library(), name)(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} failed: cudaError_t {err}")
+
+
+def check_tensor(name: str, t, dtype, shape, device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device`` — what the C entry points assume of every pointer."""
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, the kernel takes {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def check_dims(**dims: int) -> None:
+    """The kernels tile the model width and the MLP width by 64."""
+    for name, v in dims.items():
+        if v % 64 != 0:
+            raise ValueError(f"{name}={v}: the CUDA kernels need a multiple of 64")
