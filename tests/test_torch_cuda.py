@@ -93,6 +93,61 @@ def test_text_tower_kernel(dev):
     _close(got, tt.text_tower_plain(x, *w, heads=HEADS))
 
 
+def _close_all(got, want):
+    for a, b in zip(got, want):
+        _close(a, b)
+
+
+def _g(dev, shape, seed=2):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(shape, generator=g).to(torch.bfloat16).to(dev)
+
+
+@pytest.mark.parametrize("s", [9, 17, 197])
+@pytest.mark.parametrize("causal", [False, True])
+def test_attn_block_stash_kernel(dev, s, causal):
+    x, w = _x(dev, s), _weights(dev)
+    n = fa.attn_block_stash.launches
+    got = fa.attn_block_stash(x, *w[:4], heads=HEADS, causal=causal)
+    assert fa.attn_block_stash.launches == n + 1
+    _close_all(got, fa.attn_block_stash_plain(x, *w[:4], heads=HEADS,
+                                              causal=causal))
+
+
+@pytest.mark.parametrize("s", [9, 17, 197])
+@pytest.mark.parametrize("causal", [False, True])
+def test_attn_block_bwd_kernel(dev, s, causal):
+    x, w = _x(dev, s), _weights(dev)
+    _, qkv, _ = fa.attn_block_stash_plain(x, *w[:4], heads=HEADS, causal=causal)
+    g = _g(dev, x.shape)
+    n = fa.attn_block_bwd.launches
+    got = fa.attn_block_bwd(x, g, qkv, w[0], w[2], heads=HEADS, causal=causal)
+    assert fa.attn_block_bwd.launches == n + 1
+    _close_all(got, fa.attn_block_bwd_plain(x, g, qkv, w[0], w[2], heads=HEADS,
+                                            causal=causal))
+
+
+@pytest.mark.parametrize("s", [9, 17, 197])
+def test_attn_block_cls_bwd_kernel(dev, s):
+    x, w = _x(dev, s), _weights(dev)
+    _, qkv, _ = fa.attn_block_stash_plain(x, *w[:4], heads=HEADS, q_rows=1)
+    g = _g(dev, (B, 1, K))
+    n = fa.attn_block_cls_bwd.launches
+    got = fa.attn_block_cls_bwd(x, g, qkv, w[0], w[2], heads=HEADS)
+    assert fa.attn_block_cls_bwd.launches == n + 1
+    _close_all(got, fa.attn_block_cls_bwd_plain(x, g, qkv, w[0], w[2],
+                                                heads=HEADS))
+
+
+@pytest.mark.parametrize("s", [9, 197])
+def test_mlp_block_stash_kernel(dev, s):
+    x, w = _x(dev, s), _weights(dev)
+    n = lm.mlp_block_stash.launches
+    got = lm.mlp_block_stash(x, *w[4:])
+    assert lm.mlp_block_stash.launches == n + 1
+    _close_all(got, lm.mlp_block_stash_plain(x, *w[4:]))
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     x, w = _x(dev, 17), _weights(dev)
     with pytest.raises(TypeError):
@@ -101,6 +156,12 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         lm.mlp_block(x.transpose(0, 1), *w[4:])
     with pytest.raises(ValueError):
         fa.attn_block(x, w[0].cpu(), *w[1:4], heads=HEADS)
+    _, qkv, _ = fa.attn_block_stash(x, *w[:4], heads=HEADS)
+    with pytest.raises(ValueError):
+        fa.attn_block_bwd(x, x[:, :1].contiguous(), qkv, w[0], w[2], heads=HEADS)
+    with pytest.raises(ValueError):
+        fa.attn_block_bwd(_x(dev, 300), _x(dev, 300), qkv, w[0], w[2],
+                          heads=HEADS)
 
 
 @pytest.mark.parametrize("return_tokens", [False, True])

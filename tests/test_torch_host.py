@@ -1,9 +1,11 @@
 """Host-side modules of the port pinned to their uml_tpu originals: BPE
 token ids, few-shot JSON bytes, templates and descriptors, decoded pixels,
-feature-cache round trips and the features flag parser.  All comparisons
-are exact."""
+feature-cache round trips, the features and finetune flag parsers, the
+finetune sweep grids (HYPER_DICT), the metrics log (JsonlLogger) and the
+finetune / collect_results naming helpers.  All comparisons are exact."""
 
 import argparse
+import json
 
 import numpy as np
 import pytest
@@ -155,3 +157,65 @@ def test_features_parsers_give_the_same_namespace(argv):
     theirs = jax_features.build_parser().parse_args(argv)
     assert isinstance(ours, argparse.Namespace)
     assert vars(ours) == vars(theirs)
+
+
+def test_hyper_dict_pinned():
+    from uml_tpu.train.optim import HYPER_DICT as jax_grids
+    from uml_tpu_torch.train.optim import HYPER_DICT as torch_grids
+
+    assert torch_grids == jax_grids
+
+
+def test_jsonl_logger_output_pinned(tmp_path):
+    """The same calls write the same lines (the wall-clock ``_t`` of the
+    config line aside), numpy and torch scalars included."""
+    from uml_tpu.utils import logging as jax_logging
+    from uml_tpu_torch.utils import logging as torch_logging
+
+    config = {"lr": 1e-3, "name": "x", "tags": ["a"], "obj": object,
+              "np": np.float32(0.5)}
+    calls = [{"train/loss": np.float32(1.25), "n": np.int64(3)},
+             {"val/acc": 0.5, "iter": 0, "t": torch.tensor(2.0)}]
+    lines = {}
+    for name, mod in (("jax", jax_logging), ("torch", torch_logging)):
+        path = tmp_path / name / "metrics.jsonl"
+        with mod.JsonlLogger(str(path), config=config) as log:
+            for c in calls:
+                log.log(c)
+        lines[name] = [json.loads(l) for l in path.read_text().splitlines()]
+        lines[name][0].pop("_t")
+        assert isinstance(mod.init_logger("p", {}, logdir=str(tmp_path / name)),
+                          mod.JsonlLogger)
+    assert lines["torch"] == lines["jax"]
+
+
+@pytest.mark.parametrize("args", [
+    ("adamw", 5e-05, 0.0, 64, 12800, 0.0, False),
+    ("sgd", 0.1, 0.01, 8, 200, None, True)])
+def test_finetune_naming_equal(args):
+    from uml_tpu.cli import collect_results as jax_collect
+    from uml_tpu.cli import finetune as jax_ft
+    from uml_tpu_torch.cli import collect_results as torch_collect
+    from uml_tpu_torch.cli import finetune as torch_ft
+
+    assert torch_ft.hparam_str(*args) == jax_ft.hparam_str(*args)
+    assert torch_collect.hparam_str(*args, model_str="m") == \
+        jax_collect.hparam_str(*args, model_str="m")
+    for mode in ("crossmodal", "image", "text"):
+        ns = argparse.Namespace(common_dim=128)
+        kw = dict(init_mode="zeroshot", alpha=0.5, text_bs=4, custom_name="c",
+                  args=ns)
+        assert torch_ft.savedir("out", "caltech101", "ViT-B/16", 16, 1,
+                                "hand_crafted", 2, "crop", mode, **kw) == \
+            jax_ft.savedir("out", "caltech101", "ViT-B/16", 16, 1,
+                           "hand_crafted", 2, "crop", mode, **kw)
+
+
+def test_finetune_parsers_give_the_same_namespace():
+    from uml_tpu.cli import finetune as jax_ft
+    from uml_tpu_torch.cli import finetune as torch_ft
+
+    argv = ["--dataset", "caltech101", "--modality", "crossmodal", "--alpha",
+            "0.5", "--hyperparams", "smoke_full", "--text_shot", "average"]
+    assert vars(torch_ft.build_parser().parse_args(argv)) == \
+        vars(jax_ft.build_parser().parse_args(argv))

@@ -57,3 +57,12 @@ def test_module_source_imports_no_jax_or_uml_tpu(module):
         for name in names:
             top = name.split(".")[0]
             assert top not in ("jax", "flax", "uml_tpu"), (module, name)
+
+
+def test_module_list_covers_the_training_slice():
+    """The walk above reaches the modules of the training path."""
+    for name in ("uml_tpu_torch.cli.finetune", "uml_tpu_torch.cli.collect_results",
+                 "uml_tpu_torch.train.supervised", "uml_tpu_torch.train.optim",
+                 "uml_tpu_torch.metrics.alignment", "uml_tpu_torch.models.uml_head",
+                 "uml_tpu_torch.utils.logging"):
+        assert name in MODULES, name

@@ -1,4 +1,4 @@
-// Host-side compositions of the two hand-written kernels into the CLIP
+// Host-side compositions of the hand-written kernels into the CLIP
 // half-blocks.  Each returns the first launch error (cudaGetLastError()
 // after every launch) or cudaSuccess; nothing here synchronises or
 // allocates: the Python wrappers pass every buffer in.
@@ -46,6 +46,21 @@ static inline cudaError_t run_mlp_block(const __nv_bfloat16* x, const __nv_bfloa
                                         cudaStream_t stream) {
   UML_TRY(launch_ln_gemm(x, w1, b1, nullptr, hidden, rows, M, K, 0, true, EPI_QUICK_GELU, eps,
                          stream));
+  return launch_ln_gemm(hidden, w2, b2, x, out, rows, K, M, K, false, EPI_RESIDUAL, eps,
+                        stream);
+}
+
+// MLP half with the pre-activation stash (training forward):
+//   out = x + quick_gelu(pre) . w2 + b2,  pre = rawLN(x) . w1 + b1 -> bf16
+//   hidden [rows, M] is scratch; pre [rows, M] is kept for the backward.
+static inline cudaError_t run_mlp_block_stash(const __nv_bfloat16* x, const __nv_bfloat16* w1,
+                                              const float* b1, const __nv_bfloat16* w2,
+                                              const float* b2, __nv_bfloat16* pre,
+                                              __nv_bfloat16* hidden, __nv_bfloat16* out,
+                                              int rows, int K, int M, float eps,
+                                              cudaStream_t stream) {
+  UML_TRY(launch_ln_gemm(x, w1, b1, nullptr, hidden, rows, M, K, 0, true, EPI_GELU_STASH, eps,
+                         stream, false, pre));
   return launch_ln_gemm(hidden, w2, b2, x, out, rows, K, M, K, false, EPI_RESIDUAL, eps,
                         stream);
 }

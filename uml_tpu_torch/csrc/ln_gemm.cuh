@@ -1,25 +1,33 @@
 // ln_gemm: out = epi(prologue(A) . W + b), bf16 operands, fp32 accumulation.
 //
-// The building block of every projection on the CLIP serving path.  It
-// replaces the matmuls that the TPU kernels compute in their own bodies:
-// the QKV and out-projections of uml_tpu/ops/fused_attention.py
-// (_block_kernel, _block_cls_kernel) and both MLP matmuls of
-// uml_tpu/ops/ln_matmul.py (_mlp_block_kernel).
+// The building block of every projection of the CLIP layers.  It replaces
+// the matmuls that the TPU kernels compute in their own bodies: the QKV
+// and out-projections of uml_tpu/ops/fused_attention.py (_block_kernel,
+// _block_cls_kernel, _block_kernel_stash), both MLP matmuls of
+// uml_tpu/ops/ln_matmul.py (_mlp_block_kernel, _mlp_block_kernel_stash),
+// and the two products with a transposed weight inside the attention
+// backward kernels (dattn = g . wo^T and dxn = dqkv . W_eff^T of
+// _block_bwd_stash_kernel, _block_bwd_cls_kernel).
 //
 //   A   [M, K] bf16, row-major, contiguous
-//   W   [K, N] bf16, row-major (the JAX / flax kernel layout)
-//   b   [N] fp32
+//   W   [K, N] bf16, row-major (the JAX / flax kernel layout), or with
+//       TRANS_B [N, K] row-major (the product then takes W^T)
+//   b   [N] fp32, or null for no bias
 //   res [M, N] bf16 with row stride ldres (EPI_RESIDUAL only)
-//   out [M, N] bf16, contiguous
+//   out [M, N] bf16, contiguous (fp32 for EPI_F32)
+//   aux [M, N] bf16, contiguous (EPI_GELU_STASH only)
 //
 // prologue (LN=true): the raw LayerNorm of each A row, statistics in fp32
 //   with var = max(E[x^2] - E[x]^2, 0); the LN scale/bias are folded into
 //   W and b by the caller (fold_ln_into_matmul), as on the TPU.  The
 //   normalized row is rounded to bf16 before the product, as the TPU
 //   kernels round it before the MXU dot.
-// epilogue: EPI_NONE, EPI_QUICK_GELU (y * sigmoid(1.702 y)) or
-//   EPI_RESIDUAL (y + res), always after the fp32 bias add; one bf16
-//   rounding at the end.
+// epilogue, always after the fp32 bias add, one rounding at the end:
+//   EPI_NONE, EPI_QUICK_GELU (y * sigmoid(1.702 y)), EPI_RESIDUAL (y + res),
+//   EPI_GELU_STASH (out = quick_gelu(y) and aux = y, the pre-activation
+//   the MLP backward reads; the activation is taken of the unrounded fp32
+//   y, the order of _mlp_block_kernel_stash, ln_matmul.py:199-204), and
+//   EPI_F32 (y stored in fp32, for the LN backward that follows).
 //
 // What bounds it on the H100: at ViT-B/16 B=64 the QKV product is
 // 12608 x 768 x 2304 (44.6 GFLOP) over 16 MB of A and 3.5 MB of W, far
@@ -38,9 +46,11 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace uml {
 
-enum { EPI_NONE = 0, EPI_QUICK_GELU = 1, EPI_RESIDUAL = 2 };
+enum { EPI_NONE = 0, EPI_QUICK_GELU = 1, EPI_RESIDUAL = 2, EPI_GELU_STASH = 3, EPI_F32 = 4 };
 
 constexpr int GEMM_BM = 64;
 constexpr int GEMM_BN = 64;
@@ -55,17 +65,23 @@ union Pack8 {
   __nv_bfloat16 h[8];
 };
 
-template <bool LN, int EPI>
+// bf16 elements of the W tile in shared memory: [BK][LDB], or with
+// TRANS_B [BN][LDA] (the tile of W^T stored column-major)
+constexpr int GEMM_BS_ELEMS =
+    (GEMM_BK * GEMM_LDB > GEMM_BN * GEMM_LDA) ? GEMM_BK * GEMM_LDB : GEMM_BN * GEMM_LDA;
+
+template <bool LN, int EPI, bool TRANS_B>
 __global__ void __launch_bounds__(GEMM_THREADS)
 ln_gemm_kernel(const __nv_bfloat16* __restrict__ a,
                const __nv_bfloat16* __restrict__ w,
                const float* __restrict__ bias,
                const __nv_bfloat16* __restrict__ res,
-               __nv_bfloat16* __restrict__ out,
+               void* __restrict__ out_ptr,
+               __nv_bfloat16* __restrict__ aux,
                int M, int N, int K, long long ldres, float eps) {
   using namespace nvcuda;
   __shared__ __align__(128) __nv_bfloat16 As[GEMM_BM * GEMM_LDA];
-  __shared__ __align__(128) __nv_bfloat16 Bs[GEMM_BK * GEMM_LDB];
+  __shared__ __align__(128) __nv_bfloat16 Bs[GEMM_BS_ELEMS];
   __shared__ __align__(128) float Cs[GEMM_BM * GEMM_LDC];
   __shared__ float row_mean[GEMM_BM];
   __shared__ float row_rstd[GEMM_BM];
@@ -128,8 +144,14 @@ ln_gemm_kernel(const __nv_bfloat16* __restrict__ a,
       } else {
         ra[i].u = make_uint4(0, 0, 0, 0);
       }
-      rb[i].u = *reinterpret_cast<const uint4*>(
-          w + (long long)(k0 + br) * N + n0 + bc + 8 * i);
+      if (TRANS_B) {
+        // W^T tile = rows n0..n0+63 of the [N, K] weight, columns k0..k0+31
+        rb[i].u = *reinterpret_cast<const uint4*>(
+            w + (long long)(n0 + ar) * K + k0 + ac + 8 * i);
+      } else {
+        rb[i].u = *reinterpret_cast<const uint4*>(
+            w + (long long)(k0 + br) * N + n0 + bc + 8 * i);
+      }
     }
   };
   auto store_shared = [&]() {
@@ -144,7 +166,11 @@ ln_gemm_kernel(const __nv_bfloat16* __restrict__ a,
           p.h[j] = __float2bfloat16((__bfloat162float(p.h[j]) - mean) * rstd);
       }
       *reinterpret_cast<uint4*>(&As[ar * GEMM_LDA + ac + 8 * i]) = p.u;
-      *reinterpret_cast<uint4*>(&Bs[br * GEMM_LDB + bc + 8 * i]) = rb[i].u;
+      if (TRANS_B) {
+        *reinterpret_cast<uint4*>(&Bs[ar * GEMM_LDA + ac + 8 * i]) = rb[i].u;
+      } else {
+        *reinterpret_cast<uint4*>(&Bs[br * GEMM_LDB + bc + 8 * i]) = rb[i].u;
+      }
     }
   };
 
@@ -165,13 +191,19 @@ ln_gemm_kernel(const __nv_bfloat16* __restrict__ a,
 #pragma unroll
     for (int kk = 0; kk < GEMM_BK; kk += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[2];
+      using BLayout = typename std::conditional<TRANS_B, wmma::col_major, wmma::row_major>::type;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, BLayout> fb[2];
 #pragma unroll
       for (int i = 0; i < 2; ++i)
         wmma::load_matrix_sync(fa[i], &As[(wm + 16 * i) * GEMM_LDA + kk], GEMM_LDA);
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], &Bs[kk * GEMM_LDB + wn + 16 * j], GEMM_LDB);
+      for (int j = 0; j < 2; ++j) {
+        if (TRANS_B) {
+          wmma::load_matrix_sync(fb[j], &Bs[(wn + 16 * j) * GEMM_LDA + kk], GEMM_LDA);
+        } else {
+          wmma::load_matrix_sync(fb[j], &Bs[kk * GEMM_LDB + wn + 16 * j], GEMM_LDB);
+        }
+      }
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -196,8 +228,21 @@ ln_gemm_kernel(const __nv_bfloat16* __restrict__ a,
     if (gm >= M) continue;
     float v[8];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) v[j] = Cs[r * GEMM_LDC + cc + j] + bias[n0 + cc + j];
-    if (EPI == EPI_QUICK_GELU) {
+    for (int j = 0; j < 8; ++j)
+      v[j] = Cs[r * GEMM_LDC + cc + j] + (bias != nullptr ? bias[n0 + cc + j] : 0.f);
+    if (EPI == EPI_F32) {
+      float* o32 = static_cast<float*>(out_ptr) + (long long)gm * N + n0 + cc;
+      *reinterpret_cast<float4*>(o32) = make_float4(v[0], v[1], v[2], v[3]);
+      *reinterpret_cast<float4*>(o32 + 4) = make_float4(v[4], v[5], v[6], v[7]);
+      continue;
+    }
+    if (EPI == EPI_GELU_STASH) {
+      Pack8 p;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) p.h[j] = __float2bfloat16(v[j]);
+      *reinterpret_cast<uint4*>(aux + (long long)gm * N + n0 + cc) = p.u;
+    }
+    if (EPI == EPI_QUICK_GELU || EPI == EPI_GELU_STASH) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) v[j] = v[j] * (1.f / (1.f + expf(-1.702f * v[j])));
     } else if (EPI == EPI_RESIDUAL) {
@@ -209,7 +254,8 @@ ln_gemm_kernel(const __nv_bfloat16* __restrict__ a,
     Pack8 o;
 #pragma unroll
     for (int j = 0; j < 8; ++j) o.h[j] = __float2bfloat16(v[j]);
-    *reinterpret_cast<uint4*>(out + (long long)gm * N + n0 + cc) = o.u;
+    *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(out_ptr) + (long long)gm * N + n0 +
+                              cc) = o.u;
   }
 }
 
@@ -218,17 +264,27 @@ ln_gemm_kernel(const __nv_bfloat16* __restrict__ a,
 // (the Python wrappers check them and raise first).
 static inline cudaError_t launch_ln_gemm(const __nv_bfloat16* a, const __nv_bfloat16* w,
                                          const float* bias, const __nv_bfloat16* res,
-                                         __nv_bfloat16* out, int M, int N, int K,
-                                         long long ldres, bool ln, int epi, float eps,
-                                         cudaStream_t stream) {
+                                         void* out, int M, int N, int K, long long ldres,
+                                         bool ln, int epi, float eps, cudaStream_t stream,
+                                         bool trans_b = false, __nv_bfloat16* aux = nullptr) {
+  if (N % GEMM_BN != 0 || K % GEMM_BK != 0) return cudaErrorInvalidValue;
   const dim3 grid((M + GEMM_BM - 1) / GEMM_BM, N / GEMM_BN);
   const dim3 block(GEMM_THREADS);
-#define UML_GEMM_LAUNCH(L, E) \
-  ln_gemm_kernel<L, E><<<grid, block, 0, stream>>>(a, w, bias, res, out, M, N, K, ldres, eps)
-  // the three (prologue, epilogue) pairs the serving path uses
-  if (ln && epi == EPI_NONE) UML_GEMM_LAUNCH(true, EPI_NONE);             // QKV
-  else if (ln && epi == EPI_QUICK_GELU) UML_GEMM_LAUNCH(true, EPI_QUICK_GELU);  // MLP in
-  else if (!ln && epi == EPI_RESIDUAL) UML_GEMM_LAUNCH(false, EPI_RESIDUAL);    // out-proj, MLP out
+#define UML_GEMM_LAUNCH(L, E, T)                                                           \
+  ln_gemm_kernel<L, E, T><<<grid, block, 0, stream>>>(a, w, bias, res, out, aux, M, N, K, \
+                                                      ldres, eps)
+  // the (prologue, epilogue, layout) triples the CLIP layers use
+  if (!trans_b && ln && epi == EPI_NONE) UML_GEMM_LAUNCH(true, EPI_NONE, false);  // QKV
+  else if (!trans_b && ln && epi == EPI_QUICK_GELU)
+    UML_GEMM_LAUNCH(true, EPI_QUICK_GELU, false);                               // MLP in
+  else if (!trans_b && ln && epi == EPI_GELU_STASH)
+    UML_GEMM_LAUNCH(true, EPI_GELU_STASH, false);                               // MLP in + pre
+  else if (!trans_b && !ln && epi == EPI_RESIDUAL)
+    UML_GEMM_LAUNCH(false, EPI_RESIDUAL, false);                                // out-proj, MLP out
+  else if (trans_b && !ln && epi == EPI_NONE)
+    UML_GEMM_LAUNCH(false, EPI_NONE, true);                                     // g . wo^T
+  else if (trans_b && !ln && epi == EPI_F32)
+    UML_GEMM_LAUNCH(false, EPI_F32, true);                                      // dqkv . W_eff^T
   else return cudaErrorInvalidValue;
 #undef UML_GEMM_LAUNCH
   return cudaGetLastError();

@@ -19,10 +19,22 @@ Parameters are kept in fp32; the forward runs in the model's compute
   text_tower, the EOT row (argmax of the token ids) pooled BEFORE
   ``ln_final`` (clip.py:556-574), ``text_projection``.
 
-The LN-folded, compute-dtype weights are derived once and cached; the
-cache is keyed on every source parameter's storage and version counter,
-so loading a state_dict or moving the model rebuilds it.  This slice is
-forward-only: the cached weights are computed without autograd.
+Training (the full-model finetune): when autograd needs a gradient
+(grad mode on and a parameter that requires one), the image tower derives
+the LN-folded weights with autograd on every call, and each layer runs
+through the autograd Functions of the ops (AttnBlockFn, AttnBlockClsFn,
+MlpBlockFn: the stash forward kernels and their backward kernels), so the
+gradient reaches every parameter of the tower: patch embedding, class
+and positional embeddings, ln_pre, the layers, ln_post and proj.  The
+towers have no dropout or BatchNorm, so ``model.train()`` and
+``model.eval()`` compute the same; freezing is ``requires_grad_(False)``.
+
+Inference (``torch.no_grad()``, or frozen parameters): the folded,
+compute-dtype weights are derived once and cached; the cache is keyed on
+every source parameter's storage and version counter, so loading a
+state_dict, an optimizer step or moving the model rebuilds it.  The text
+tower runs forward only (text_tower has no backward yet) and raises if a
+gradient is asked of it.
 """
 
 from __future__ import annotations
@@ -33,9 +45,10 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
-from uml_tpu_torch.ops.fused_attention import (attn_block, attn_block_cls,
+from uml_tpu_torch.ops.fused_attention import (AttnBlockClsFn, AttnBlockFn,
+                                               attn_block, attn_block_cls,
                                                fold_ln_into_matmul)
-from uml_tpu_torch.ops.ln_matmul import mlp_block, raw_layer_norm
+from uml_tpu_torch.ops.ln_matmul import MlpBlockFn, mlp_block, raw_layer_norm
 from uml_tpu_torch.ops.patch_embed import patch_embed_u8
 from uml_tpu_torch.ops.text_tower import text_tower
 
@@ -114,10 +127,16 @@ class MLP(nn.Module):
         self.c_proj = Linear(4 * width, width)
 
 
+def _needs_grad(*tensors) -> bool:
+    """Autograd will want a gradient through these tensors."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 class _Cached:
     """One derived value, rebuilt when any source parameter was replaced
     (storage) or modified in place (version counter), or the dtype
-    changed."""
+    changed.  For the inference path only: the value carries no autograd
+    history."""
 
     def __init__(self):
         self._key = None
@@ -142,24 +161,30 @@ class ResidualAttentionBlock(nn.Module):
         self.ln_2 = LayerNorm(width)
         self._folded = _Cached()
 
+    def _fold(self, dtype):
+        w_eff, b_eff = fold_ln_into_matmul(
+            self.ln_1.weight, self.ln_1.bias,
+            self.attn.in_proj_weight.to(dtype).t(), self.attn.in_proj_bias)
+        w1_eff, b1_eff = fold_ln_into_matmul(
+            self.ln_2.weight, self.ln_2.bias,
+            self.mlp.c_fc.weight.to(dtype).t(), self.mlp.c_fc.bias)
+        return (w_eff.contiguous(), b_eff,
+                self.attn.out_proj.weight.to(dtype).t().contiguous(),
+                self.attn.out_proj.bias.float(),
+                w1_eff.contiguous(), b1_eff,
+                self.mlp.c_proj.weight.to(dtype).t().contiguous(),
+                self.mlp.c_proj.bias.float())
+
     def folded(self, dtype):
         """(w_eff, b_eff, wo, bo, w1_eff, b1_eff, w2, b2): weights in the
         JAX [in, out] layout, cast to ``dtype`` before the fold as uml_tpu
-        does (clip.py:192-199), biases fp32."""
-        def build():
-            w_eff, b_eff = fold_ln_into_matmul(
-                self.ln_1.weight, self.ln_1.bias,
-                self.attn.in_proj_weight.to(dtype).t(), self.attn.in_proj_bias)
-            w1_eff, b1_eff = fold_ln_into_matmul(
-                self.ln_2.weight, self.ln_2.bias,
-                self.mlp.c_fc.weight.to(dtype).t(), self.mlp.c_fc.bias)
-            return (w_eff.contiguous(), b_eff,
-                    self.attn.out_proj.weight.to(dtype).t().contiguous(),
-                    self.attn.out_proj.bias.float(),
-                    w1_eff.contiguous(), b1_eff,
-                    self.mlp.c_proj.weight.to(dtype).t().contiguous(),
-                    self.mlp.c_proj.bias.float())
-        return self._folded.get(list(self.parameters()), dtype, build)
+        does (clip.py:192-199), biases fp32.  With autograd (training)
+        they are derived anew, with a gradient to the parameters;
+        otherwise from the cache."""
+        params = list(self.parameters())
+        if _needs_grad(*params):
+            return self._fold(dtype)
+        return self._folded.get(params, dtype, lambda: self._fold(dtype))
 
     def forward(self, x, cls_only: bool = False):
         """Non-causal layer (image tower; the causal text layers run
@@ -167,6 +192,14 @@ class ResidualAttentionBlock(nn.Module):
         the CLS row, so the output is [B, 1, K] (row 0 of the full
         layer)."""
         w_eff, b_eff, wo, bo, w1, b1, w2, b2 = self.folded(x.dtype)
+        if _needs_grad(x, w_eff, b_eff, wo, bo, w1, b1, w2, b2):
+            if cls_only:
+                x = AttnBlockClsFn.apply(x, w_eff, b_eff, wo, bo, self.heads,
+                                         1e-5)
+            else:
+                x = AttnBlockFn.apply(x, w_eff, b_eff, wo, bo, self.heads,
+                                      False, 1e-5)
+            return MlpBlockFn.apply(x, w1, b1, w2, b2, 1e-5)
         if cls_only:
             x = attn_block_cls(x, w_eff, b_eff, wo, bo, heads=self.heads)
         else:
@@ -191,7 +224,14 @@ class Transformer(nn.Module):
 
     def stacked(self, dtype):
         """Every layer's folded weights stacked on a leading layer axis —
-        the operands of text_tower."""
+        the operands of text_tower (forward only)."""
+        if _needs_grad(*self.parameters()):
+            raise NotImplementedError(
+                "the text tower has no backward in uml_tpu_torch yet (the "
+                "causal backward kernel comes with the unfrozen text tower); "
+                "run encode_text under torch.no_grad() or freeze its "
+                "parameters")
+
         def build():
             per_layer = [b.folded(dtype) for b in self.resblocks]
             return tuple(torch.stack(t) for t in zip(*per_layer))

@@ -1,10 +1,12 @@
-"""flax CLIP variables -> OpenAI-schema state_dict.
+"""flax CLIP variables -> OpenAI-schema state_dict; UML head trees.
 
 ``state_dict_from_jax`` is the exact inverse of
 uml_tpu.models.port_torch.port_clip_state_dict: it takes the flax variable
 tree of uml_tpu.models.clip.CLIP as numpy arrays and returns the
 state_dict the port's CLIP (and an OpenAI ``.pt``) uses, so the tests can
-give both packages the same weights.  Pure numpy + torch: no jax import.
+give both packages the same weights.  ``uml_head_params_from_jax`` does
+the same for the trainable tree of a uml_tpu UMLHead.  Pure numpy +
+torch: no jax import.
 """
 
 from __future__ import annotations
@@ -60,3 +62,14 @@ def state_dict_from_jax(variables) -> dict:
     sd["text_projection"] = _t(t["text_projection"])
     sd["logit_scale"] = _t(params["logit_scale"])
     return sd
+
+
+def uml_head_params_from_jax(params) -> dict:
+    """uml_tpu's UMLHead trainable tree (numpy leaves: head_w, img_proj_w,
+    img_scale, txt_scale, and ``backbone`` = the CLIP variables on the
+    full-model path) -> the tree ``UMLHead.load_state_tree`` reads."""
+    tree = {k: torch.tensor(np.asarray(v, np.float32))   # keeps 0-d scales
+            for k, v in params.items() if k != "backbone"}
+    if "backbone" in params:
+        tree["backbone"] = state_dict_from_jax(params["backbone"])
+    return tree

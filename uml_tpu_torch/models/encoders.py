@@ -90,6 +90,9 @@ class ClipEncoder:
     returns the device output unfetched; ``encode_images`` /
     ``encode_texts`` do both and return numpy.  ``check_finite`` raises at
     the first batch with a non-finite feature (``--debug_nans``).
+
+    ``model`` is the CLIP on ``device`` (fp32 parameters, forward in
+    ``dtype``); the finetune CLI trains a copy of it on the full-model path.
     """
 
     def __init__(self, name: str, dtype=torch.bfloat16,

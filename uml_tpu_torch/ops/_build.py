@@ -1,8 +1,9 @@
 """Build and load the hand-written Hopper kernels (``uml_tpu_torch/csrc``).
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain
-C interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
-seconds).  The build runs at first use, never at import, into
+``nvcc`` compiles every ``csrc/*.cu`` into an object, one process per
+source, all started together, and links them into one shared library with
+a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a
+build takes seconds).  The build runs at first use, never at import, into
 ``build/uml_tpu_torch/<hash of the sources>/`` under the repository root;
 a changed source gets a new directory, and a finished build is reused.
 The compiler's report (``-Xptxas -v``: registers, shared memory, spills)
@@ -25,7 +26,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 BUILD_ROOT = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build",
                           "uml_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,8 +36,19 @@ SIGNATURES = {
     # x, w_eff, b_eff, wo, bo, qkv, attn, out, B, S, K, H, causal, q_rows,
     # eps, stream
     "uml_attn_block": [_P] * 8 + [_I] * 6 + [_F, _P],
+    # x, w_eff, b_eff, wo, bo, qkv, attn, out, B, S, K, H, causal, eps,
+    # stream
+    "uml_attn_block_stash": [_P] * 8 + [_I] * 5 + [_F, _P],
+    # x, g, qkv, w_eff, wo, dattn, stats, dxn, dqkv, dx, xn, B, S, K, H,
+    # causal, eps, stream
+    "uml_attn_block_bwd": [_P] * 11 + [_I] * 5 + [_F, _P],
+    # x, g, qkv, w_eff, wo, dattn, dxn, dqkv, dx, xn, B, S, K, H, eps,
+    # stream
+    "uml_attn_block_cls_bwd": [_P] * 10 + [_I] * 4 + [_F, _P],
     # x, w1, b1, w2, b2, hidden, out, rows, K, M, eps, stream
     "uml_mlp_block": [_P] * 7 + [_I] * 3 + [_F, _P],
+    # x, w1, b1, w2, b2, pre, hidden, out, rows, K, M, eps, stream
+    "uml_mlp_block_stash": [_P] * 8 + [_I] * 3 + [_F, _P],
     # x, w_eff, b_eff, wo, bo, w1, b1, w2, b2, qkv, attn, hidden, mid, out,
     # B, S, K, H, M, L, eps, stream
     "uml_text_tower": [_P] * 14 + [_I] * 6 + [_F, _P],
@@ -70,25 +82,43 @@ def _nvcc() -> str:
 
 def build() -> str:
     """Compile the kernels if this source hash has no library yet; return
-    the library's path."""
+    the library's path.  A failed compile raises with nvcc's messages."""
     out_dir = os.path.join(BUILD_ROOT, source_hash())
     lib_path = os.path.join(out_dir, "libuml_kernels.so")
     if os.path.exists(lib_path):
         return lib_path
     os.makedirs(out_dir, exist_ok=True)
-    units = [p for p in _sources() if p.endswith(".cu")]
-    # build under a temporary name and rename: a concurrent build never
+    # build under temporary names and rename: a concurrent build never
     # loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *units]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    tmp_dir = tempfile.mkdtemp(dir=out_dir)
+    nvcc = _nvcc()
+    log = []
+    procs = []
+    for src in (p for p in _sources() if p.endswith(".cu")):
+        obj = os.path.join(tmp_dir, os.path.basename(src) + ".o")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", "-o", obj, src]
+        procs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for cmd, _, proc in procs:
+        out = proc.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(out)
+    if not failed:
+        tmp_lib = os.path.join(tmp_dir, "lib.so")
+        cmd = [nvcc, "-shared", "-o", tmp_lib, *(obj for _, obj, _ in procs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(proc.stderr)
     with open(os.path.join(out_dir, "build.log"), "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, lib_path)
+        f.write("\n".join(log))
+    if failed:
+        shutil.rmtree(tmp_dir, ignore_errors=True)
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    os.replace(tmp_lib, lib_path)
+    shutil.rmtree(tmp_dir, ignore_errors=True)
     return lib_path
 
 

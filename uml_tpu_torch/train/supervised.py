@@ -1,0 +1,318 @@
+"""Supervised UML training: alternating image/text batches into a shared head.
+
+The port of uml_tpu/train/supervised.py (behavioural parity with the
+reference's finetune.py:120-315):
+
+  * per iteration one image batch AND one text-feature batch (independent
+    cyclic shuffled streams), forward through the shared head, loss =
+    img_alpha * CE_img + alpha * CE_txt, one optimizer step;
+  * per-iteration diagnostics: the head-weight gradient of each modality
+    in closed form (softmax(logits) - onehot contracted with the
+    features, with the PRE-step scales), their cosine / sign agreement /
+    norms, the feature-direction similarity with weighted means, and the
+    CKA / mutual-kNN of a fixed capture set (with the post-step head);
+  * every ``eval_freq`` iterations: validation, a best-state snapshot,
+    early stopping with ``patience``;
+  * returns {'iter', 'val_acc', 'val_loss', 'model', ...} like uml_tpu.
+
+Batches keep uml_tpu's fixed shapes: a ragged final batch is padded with
+zero sample weights, and every loss and metric is weighted.  Snapshots
+are detached CPU clones (``UMLHead.state_tree``): the optimizer updates
+the parameters in place.  Mid-run checkpoints (uml_tpu's
+``checkpointer`` / ``ckpt_every``) and the data-parallel ``mesh`` are not
+ported yet; the finetune CLI rejects their flags.
+"""
+
+from __future__ import annotations
+
+from typing import Iterator
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from uml_tpu_torch.metrics.alignment import cka as cka_fn
+from uml_tpu_torch.metrics.alignment import mutual_knn as mknn_fn
+
+EVAL_FREQ = 100  # parity: finetune.py:30
+
+
+class CyclicBatcher:
+    """Shuffled epoch batches over aligned arrays, cycling forever.
+
+    DataLoader(shuffle=True, drop_last=False) semantics: each epoch is a
+    fresh permutation from ``np.random.default_rng(seed)`` (the same
+    stream as uml_tpu's); the final partial batch is padded to
+    batch_size with zero weights.  Yields (inputs, labels, weights).
+    """
+
+    def __init__(self, inputs: np.ndarray, labels: np.ndarray,
+                 batch_size: int, seed: int = 0):
+        self.inputs = inputs
+        self.labels = labels
+        self.batch_size = batch_size
+        self.rng = np.random.default_rng(seed)
+
+    def __iter__(self) -> Iterator:
+        return self._iterate(0)
+
+    def skip(self, n_batches: int) -> Iterator:
+        """An iterator aligned with batch ``n_batches`` without gathering
+        the skipped batches (one permutation draw per skipped epoch)."""
+        return self._iterate(n_batches)
+
+    def _iterate(self, skip_batches: int) -> Iterator:
+        n = len(self.inputs)
+        bs = self.batch_size
+        bpe = (n + bs - 1) // bs
+        while skip_batches >= bpe:
+            self.rng.permutation(n)
+            skip_batches -= bpe
+        while True:
+            perm = self.rng.permutation(n)
+            for i in range(skip_batches * bs, n, bs):
+                idx = perm[i : i + bs]
+                pad = bs - len(idx)
+                weights = np.ones(bs, np.float32)
+                if pad:
+                    weights[len(idx):] = 0.0
+                    idx = np.concatenate([idx, np.zeros(pad, idx.dtype)])
+                yield self.inputs[idx], self.labels[idx], weights
+            skip_batches = 0
+
+
+def eval_batches(inputs, labels, batch_size):
+    """Fixed-shape padded batches over a split: full batches are views,
+    only the final partial batch is padded into a copy."""
+    out = []
+    n = len(inputs)
+    for i in range(0, n, batch_size):
+        stop = min(i + batch_size, n)
+        weights = np.ones(batch_size, np.float32)
+        if stop - i == batch_size:
+            out.append((inputs[i:stop], labels[i:stop], weights))
+            continue
+        pad = batch_size - (stop - i)
+        weights[stop - i:] = 0.0
+        x = np.concatenate([inputs[i:stop], np.zeros(
+            (pad, *np.shape(inputs)[1:]), np.asarray(inputs).dtype)])
+        y = np.concatenate([labels[i:stop], np.zeros(pad, np.asarray(labels).dtype)])
+        out.append((x, y, weights))
+    return out
+
+
+def weighted_ce(logits, labels, weights):
+    """Sample-weighted mean cross-entropy (padded rows weigh 0)."""
+    ce = F.cross_entropy(logits, labels, reduction="none")
+    return torch.sum(ce * weights) / torch.clamp(weights.sum(), min=1.0)
+
+
+def _to_device(batch, device):
+    """numpy (inputs, labels, weights) -> tensors on ``device``; labels
+    int64, weights fp32, inputs keep their dtype (uint8 images, float
+    features)."""
+    inputs, labels, weights = batch
+    return (torch.as_tensor(np.ascontiguousarray(inputs)).to(device),
+            torch.as_tensor(np.asarray(labels, np.int64)).to(device),
+            torch.as_tensor(np.asarray(weights, np.float32)).to(device))
+
+
+def make_validate(model):
+    """-> validate(params, batches) -> (mean batch loss, weighted accuracy)
+    over fixed-shape ``eval_batches``.
+
+    ``params`` is a state tree to load first (``None``: the model's
+    current parameters).  Runs under ``torch.no_grad()``, so a backbone
+    takes its inference kernels."""
+
+    def validate(params, batches):
+        if params is not None:
+            model.load_state_tree(params)
+        device = model.head_w.device
+        losses, correct, total = [], 0.0, 0.0
+        with torch.no_grad():
+            for batch in batches:
+                inputs, labels, weights = _to_device(batch, device)
+                logits, _ = model(inputs)
+                losses.append(float(weighted_ce(logits, labels, weights)))
+                correct += float(((logits.argmax(-1) == labels) * weights).sum())
+                total += float(weights.sum())
+        return float(np.mean(losses)), correct / max(total, 1.0)
+
+    return validate
+
+
+def _modality_metrics(logits, labels, weights, feats, scale):
+    """(closed-form head-weight gradient of this modality's CE, weighted
+    accuracy): (feats * w)^T (softmax - onehot) * scale / sum(w)."""
+    denom = torch.clamp(weights.sum(), min=1.0)
+    p = torch.softmax(logits, -1)
+    onehot = F.one_hot(labels, logits.shape[-1]).float()
+    grad = (feats * weights[:, None]).T @ (p - onehot) * scale / denom
+    acc = ((logits.argmax(-1) == labels) * weights).sum() / denom
+    return grad, acc
+
+
+def _weighted_mean(feats, weights):
+    return (feats * weights[:, None]).sum(0) / torch.clamp(weights.sum(), min=1.0)
+
+
+def _cos(a, b):
+    return torch.dot(a, b) / (torch.linalg.norm(a) * torch.linalg.norm(b) + 1e-12)
+
+
+def train(
+    model,
+    image_stream,            # iterable of (inputs, labels, weights) or None
+    text_stream,             # iterable of (feats, labels, weights) or None
+    val_batches,
+    test_batches=None,
+    *,
+    optimizer,
+    max_iters: int = 1000,
+    alpha: float = 1.0,
+    img_alpha: float = 1.0,
+    eval_freq: int = EVAL_FREQ,
+    patience: int = 5,
+    capture: dict | None = None,   # {'image_feats', 'text_feats', 'image_labels'}
+    logger=None,
+    validate_fn=None,
+    init_params: dict | None = None,
+):
+    """Train ``model`` (a UMLHead) in place; see the module docstring.
+    ``optimizer`` is a train.optim.Optimizer spec, bound here to the
+    parameters that require a gradient."""
+    if image_stream is None and text_stream is None:
+        raise ValueError("train needs an image stream, a text stream or both")
+    if init_params is not None:
+        model.load_state_tree(init_params)
+    device = model.head_w.device
+    optimizer.init([p for p in model.parameters() if p.requires_grad])
+
+    has_image = image_stream is not None
+    has_text = text_stream is not None
+    n_class = model.num_classes
+    if capture is not None:
+        cap_img = torch.as_tensor(np.asarray(capture["image_feats"])).to(device)
+        cap_txt = torch.as_tensor(np.asarray(capture["text_feats"])).to(device)
+        cap_lab = torch.as_tensor(np.asarray(capture["image_labels"],
+                                             np.int64)).to(device)
+
+    def step(i, img_b, txt_b):
+        optimizer.zero_grad()
+        img_scale, txt_scale = model.scales()
+        zero = torch.zeros((), device=device)
+        image_loss = text_loss = zero
+        if has_image:
+            img_in, img_labels, img_w = img_b
+            img_feats = model.image_features(img_in)
+            img_logits = img_feats @ model.head_w * img_scale
+            image_loss = weighted_ce(img_logits, img_labels, img_w)
+        if has_text:
+            txt_feats, txt_labels, txt_w = txt_b
+            txt_feats = txt_feats.float()
+            txt_logits = txt_feats @ model.head_w * txt_scale
+            text_loss = weighted_ce(txt_logits, txt_labels, txt_w)
+        loss = img_alpha * image_loss + alpha * text_loss
+        loss.backward()
+        # the diagnostics use the PRE-step scales, like the reference's
+        # autograd.grad before optimizer.step (finetune.py:190-195)
+        img_scale, txt_scale = img_scale.detach().clone(), txt_scale.detach().clone()
+        optimizer.step(i)
+
+        metrics = {"train/image_loss": image_loss.detach(),
+                   "train/text_loss": text_loss.detach()}
+        with torch.no_grad():
+            if has_image:
+                img_feats, img_logits = img_feats.detach(), img_logits.detach()
+                grad_img, acc = _modality_metrics(img_logits, img_labels, img_w,
+                                                  img_feats, img_scale)
+                metrics["train/image_acc"] = acc
+                metrics["train/img_grad_norm"] = torch.linalg.norm(grad_img)
+            if has_text:
+                txt_logits = txt_logits.detach()
+                grad_txt, acc = _modality_metrics(txt_logits, txt_labels, txt_w,
+                                                  txt_feats, txt_scale)
+                metrics["train/text_acc"] = acc
+                metrics["train/txt_grad_norm"] = torch.linalg.norm(grad_txt)
+            if has_image and has_text:
+                gi, gt = grad_img.ravel(), grad_txt.ravel()
+                metrics["train/grad_direction_sim"] = _cos(gi, gt)
+                metrics["train/grad_agreement_rate"] = (
+                    torch.sign(gi) == torch.sign(gt)).float().mean()
+                # weighted means: padded rows of a ragged final batch must
+                # not enter the reference's batch mean (finetune.py:239)
+                metrics["train/feature_direction_sim"] = _cos(
+                    _weighted_mean(img_feats, img_w),
+                    _weighted_mean(txt_feats, txt_w))
+            if capture is not None:
+                # finetune.py:209-233: alignment of a fixed capture set
+                # under the post-step head; cka takes class-mean image
+                # features against text samples
+                cap_feats = model.image_features(cap_img)
+                n_common = min(cap_img.shape[0], cap_txt.shape[0])
+                topk = min(10, n_common - 1)
+                if topk >= 1:
+                    metrics["train/mknn_score"] = mknn_fn(
+                        cap_feats[:n_common], cap_txt[:n_common], topk)
+                sums = torch.zeros(n_class, cap_feats.shape[1], device=device)
+                sums.index_add_(0, cap_lab, cap_feats)
+                counts = torch.zeros(n_class, device=device)
+                counts.index_add_(0, cap_lab, torch.ones_like(cap_lab, dtype=torch.float32))
+                class_means = sums / torch.clamp(counts[:, None], min=1.0)
+                n_common = min(n_class, cap_txt.shape[0])
+                metrics["train/cka_score"] = cka_fn(
+                    class_means[:n_common], cap_txt[:n_common], "ip")
+        return loss.detach(), metrics
+
+    validate = validate_fn or make_validate(model)
+    image_iter = iter(image_stream) if has_image else None
+    text_iter = iter(text_stream) if has_text else None
+
+    out = {"iter": None, "val_acc": None, "model": None, "val_loss": None,
+           "model_records": []}
+    no_improve = 0
+    stopped_at = max_iters
+    for i in range(max_iters):
+        img_b = _to_device(next(image_iter), device) if has_image else None
+        txt_b = _to_device(next(text_iter), device) if has_text else None
+        loss, metrics = step(i, img_b, txt_b)
+
+        if logger is not None:
+            logger.log({k: float(v) for k, v in metrics.items()})
+
+        if i % eval_freq == 0:
+            snapshot = model.state_tree()
+            val_loss, val_acc = validate(None, val_batches)
+            testlog = ""
+            if test_batches is not None:
+                _, test_acc = validate(None, test_batches)
+                testlog = f" | Test Acc: {test_acc:.4f}"
+            if out["val_acc"] is None or val_acc > out["val_acc"]:
+                out.update(iter=i, val_acc=val_acc, val_loss=val_loss,
+                           model=snapshot)
+                no_improve = 0
+            else:
+                no_improve += 1
+            if logger is not None:
+                logger.log({"val/val_loss": val_loss, "val/val_acc": val_acc,
+                            "iter": i})
+            print(f"Iter {i} | Loss {float(loss):.4f} | Val Loss {val_loss:.4f}"
+                  f" | Val Acc {val_acc:.4f}{testlog}"
+                  f" | Count {no_improve}/{patience}")
+            if no_improve >= patience:
+                print(f"=> Early stopping at Iter {i}")
+                stopped_at = i
+                break
+
+    if out["model"] is None:
+        out["model"] = model.state_tree()
+    val_loss, val_acc = validate(out["model"], val_batches)
+    if logger is not None:
+        logger.log({"val/best_val_loss": val_loss, "val/best_val_acc": val_acc,
+                    "iter": out["iter"]})
+    print(f"=> Best Val Loss {val_loss:.4f}, Val Acc {val_acc:.4f} "
+          f"at Iter {out['iter']}")
+    out["final_params"] = out["model"]
+    out["stopped_at"] = stopped_at
+    return out
