@@ -9,13 +9,26 @@ Phases (any failure exits non-zero; no phase is caught):
    every hand-written kernel from ``uml_tpu_torch/csrc`` (nvcc, sm_90a).
 2. kernels: each port (attn_block non-causal, attn_block_cls, mlp_block at
    ViT-B/16 widths; causal attn_block and the 12-layer text_tower at the
-   CLIP text widths) against its plain PyTorch version on the same bf16
-   inputs, within the stated bounds, timed with CUDA events.
+   CLIP text widths; the training ports; the int8 attn_block_q8 with an
+   int8 and a bf16 out-projection, mlp_block_q8 and the 11-layer tower_q8
+   at ViT-B/16 widths, causal attn_block_q8 at the text widths) against
+   its plain PyTorch version on the same inputs, within the stated
+   bounds, timed with CUDA events, with its bound (the least time the card
+   could take) and a cuBLAS GEMM yardstick at its largest product.  The
+   int8 halves also compare their activation integers with the plain
+   version's: no integer may differ by more than one step.
 3. main path: generate_fewshot and features on a synthetic caltech-layout
    fixture with a random-init ViT-B/16; the .pth caches must hold finite
    width-512 features, the encoder must live on the card, every port's
    launch counter must have moved by the expected count, and the card's
    features must agree with the same model run on the CPU (plain path).
+3b. int8 main path: features --quant int8 on the same fixture with the
+   same checks (per image batch 11 attn_block_q8, 11 mlp_block_q8, 1
+   attn_block_cls, 1 mlp_block; per prompt batch 12 causal attn_block_q8
+   and 12 mlp_block_q8, no text_tower); then one encode under
+   UML_TOWER_Q8=1 launches tower_q8 once and equals the per-layer int8
+   output; the int8-vs-bf16 feature cosine (recorded) and the img/s of
+   the bf16, int8 and int8-tower image encoders in the same run.
 4. training path: the finetune CLI on the phase-3 fixture and text cache,
    frozen (``--hyperparams smoke``) and full-model (``smoke_full``: the
    ViT-B/16 tower at full width, bs 8, 30 steps), then collect_results
@@ -64,9 +77,16 @@ PORTS = [
      "uml_tpu/ops/fused_attention.py:1298"),
     ("mlp_block_stash", "uml_tpu_torch/csrc/mlp_block.cu",
      "uml_tpu/ops/ln_matmul.py:186"),
+    ("attn_block_q8", "uml_tpu_torch/csrc/attn_block_q8.cu",
+     "uml_tpu/ops/quant.py:168"),
+    ("mlp_block_q8", "uml_tpu_torch/csrc/mlp_block_q8.cu",
+     "uml_tpu/ops/quant.py:228"),
+    ("tower_q8", "uml_tpu_torch/csrc/tower_q8.cu",
+     "uml_tpu/ops/tower_q8.py:49"),
 ]
 TRAIN_PORTS = ("attn_block_stash", "attn_block_bwd", "attn_block_cls_bwd",
                "mlp_block_stash")
+Q8_PORTS = ("attn_block_q8", "mlp_block_q8", "tower_q8")
 
 # Kernel vs plain version, bf16 on the card.  Both compute the same math
 # with fp32 accumulation; they differ in summation order, so an
@@ -76,12 +96,23 @@ TRAIN_PORTS = ("attn_block_stash", "attn_block_bwd", "attn_block_cls_bwd",
 # the largest output) for one half-block, 1/16 for the 12-layer tower,
 # where such flips compound through 24 residual roundings.
 # The training kernels are held to the same 1/64 on every output (out,
-# qkv, attn; dx, dqkv, xn; out, pre), each against its own max.
+# qkv, attn; dx, dqkv, xn; out, pre), each against its own max.  The int8
+# halves too: their integer products are exact on both sides, and the row
+# statistics summed in another order move an activation at a .5 tie by one
+# step (~1/254 of its row's range); 1/16 for the 11-layer int8 tower.
 REL_BOUND = {"attn_block": 1 / 64, "attn_block_cls": 1 / 64,
              "mlp_block": 1 / 64, "attn_block_causal": 1 / 64,
              "text_tower": 1 / 16, "attn_block_stash": 1 / 64,
              "attn_block_bwd": 1 / 64, "attn_block_cls_bwd": 1 / 64,
-             "mlp_block_stash": 1 / 64}
+             "mlp_block_stash": 1 / 64, "attn_block_q8": 1 / 64,
+             "attn_block_q8_qkv": 1 / 64, "attn_block_q8_causal": 1 / 64,
+             "mlp_block_q8": 1 / 64, "tower_q8": 1 / 16}
+# dense peaks of an H100 SXM at 700 W (NVIDIA's data sheet): the bound of a
+# kernel is max(bytes / PEAK_BYTES, int8 ops / PEAK_INT8 + bf16 FLOPs /
+# PEAK_BF16), bytes = every input read once and every output written once
+PEAK_BYTES = 3.35e12
+PEAK_BF16 = 989e12
+PEAK_INT8 = 1979e12
 # card vs CPU plain path on the same random-init ViT-B/16 (bf16 both):
 # per-row cosine of the features
 MIN_COSINE = 0.999
@@ -162,12 +193,99 @@ def _block_weights(gen, k, m, hd, dev):
     )
 
 
+def _bound(inputs, outputs, int8_ops=0.0, bf16_flops=0.0):
+    """-> (bound ms, "bytes" or "operations") for one call."""
+    nbytes = sum(t.numel() * t.element_size() for t in (*inputs, *outputs))
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = int8_ops / PEAK_INT8 + bf16_flops / PEAK_BF16
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
+                                       else "operations")
+
+
+def _attn_flops(b, s, heads, causal=False, q_rows=None):
+    """4 * D per (query, key) pair: the scores and P.V of every head."""
+    pairs = (s * (s + 1) // 2 if causal else
+             s * (s if q_rows is None else q_rows))
+    return 4.0 * b * heads * pairs * 64
+
+
+def _yardstick(m, k, n, int8, dev):
+    """One cuBLAS product at a kernel's largest shape, timed: torch.matmul
+    in bf16 or torch._int_mm in int8 (never called by the port)."""
+    import torch
+
+    if int8:
+        a = torch.randint(-127, 128, (m, k), dtype=torch.int8, device=dev)
+        w = torch.randint(-127, 128, (k, n), dtype=torch.int8, device=dev)
+        ms = _time_ms(lambda: torch._int_mm(a, w))
+        return f"torch._int_mm [{m},{k}]x[{k},{n}] int8", ms
+    a = torch.randn(m, k, device=dev).to(torch.bfloat16)
+    w = torch.randn(k, n, device=dev).to(torch.bfloat16)
+    return (f"torch.matmul [{m},{k}]x[{k},{n}] bf16",
+            _time_ms(lambda: torch.matmul(a, w)))
+
+
+def _q8_case_weights(gen, k, m, hd, dev, layers=None):
+    """int8 weights as the model quantizes them: quantize_weight of random
+    fp32 weights; fp32 biases.  Stacked on a layer axis when ``layers``."""
+    import torch
+
+    from uml_tpu_torch.ops.quant import quantize_weight
+
+    def one():
+        out = []
+        for shape in ((k, 3 * hd), (hd, k), (k, m), (m, k)):
+            w = torch.randn(*shape, generator=gen, device=dev) * shape[0] ** -0.5
+            out += [*quantize_weight(w),
+                    torch.randn(shape[1], generator=gen, device=dev) * 0.02]
+        return tuple(out)   # wq, wsc, b_eff, woq, wosc, bo, w1q, ..., b2
+
+    if layers is None:
+        return one()
+    per_layer = [one() for _ in range(layers)]
+    return tuple(torch.stack(t) for t in zip(*per_layer))
+
+
+def _int8_flips(xv, q8v, eps=1e-5):
+    """The activation integers of the int8 halves on the card against the
+    plain version's on the same inputs: the attention output quantized for
+    the int8 out-projection, and quick_gelu(pre) for c_proj.  -> {half:
+    (share of integers that differ, largest difference)}."""
+    import torch
+
+    from uml_tpu_torch.ops import quant as q8
+    from uml_tpu_torch.ops.fused_attention import _qkv_heads, attention_plain
+
+    wq, wsc, b_eff, woq, wosc, bo, w1q, w1sc, b1, w2q, w2sc, b2 = q8v
+    b, s, k = xv.shape
+    xf = xv.float()
+    xq, xs = q8.ln_quantize_rows(xf, eps)
+    qkv = (q8.q8_dot(xq, xs, wq, wsc) + b_eff).to(torch.bfloat16)
+    attn = attention_plain(*_qkv_heads(qkv, 12), causal=False)
+    attn = attn.transpose(1, 2).reshape(b * s, -1)
+    want_attn = q8.quantize_rows(attn.float())[0]
+    got_attn = q8._launch_attn_block_q8(xv, wq, wsc, b_eff, (woq, wosc), bo,
+                                        12, False, True, eps)[1]
+    pre = q8.q8_dot(xq, xs, w1q, w1sc) + b1
+    want_act = q8.act_quantize_rows(pre.reshape(b * s, -1), "quick_gelu")[0]
+    got_act = q8._launch_mlp_block_q8(xv, w1q, w1sc, b1, w2q, w2sc, b2, eps)[1]
+    flips = {}
+    for name, got, want in (("attn_out", got_attn, want_attn),
+                            ("mlp_hidden", got_act, want_act)):
+        diff = (got[:want.numel()].view_as(want).int() - want.int()).abs()
+        flips[name] = ((diff > 0).float().mean().item(), diff.max().item())
+    return flips
+
+
 def phase_kernels():
-    """-> {port name: {max_abs_err, ms, plain_ms}} at the main path's shapes."""
+    """-> {port name: {max_abs_err, ms, plain_ms, bound_ms, bound_by,
+    yardstick, yardstick_ms}} at the main path's shapes."""
     import torch
 
     from uml_tpu_torch.ops import fused_attention as fa
     from uml_tpu_torch.ops import ln_matmul as lm
+    from uml_tpu_torch.ops import quant as q8
+    from uml_tpu_torch.ops import tower_q8 as tq8
     from uml_tpu_torch.ops.fused_attention import (attn_block, attn_block_cls,
                                                    attn_block_cls_plain,
                                                    attn_block_plain)
@@ -178,12 +296,16 @@ def phase_kernels():
     gen = torch.Generator(device=dev).manual_seed(0)
     bf = torch.bfloat16
     # ViT-B/16 image layer: B=64, S=197, K=768, 12 heads, M=3072
-    xv = torch.randn(64, 197, 768, generator=gen, device=dev).to(bf)
+    b, s, k, m = 64, 197, 768, 3072
+    rows = b * s
+    xv = torch.randn(b, s, k, generator=gen, device=dev).to(bf)
     wv = _block_weights(gen, 768, 3072, 768, dev)
     attn_v = (wv["w_eff"], wv["b_eff"], wv["wo"], wv["bo"])
     mlp_v = (wv["w1"], wv["b1"], wv["w2"], wv["b2"])
     # CLIP text tower: B=64, S=77, K=512, 8 heads, M=2048, 12 layers
-    xt = torch.randn(64, 77, 512, generator=gen, device=dev).to(bf)
+    bt, st, kt = 64, 77, 512
+    rows_t = bt * st
+    xt = torch.randn(bt, st, kt, generator=gen, device=dev).to(bf)
     layers = [_block_weights(gen, 512, 2048, 512, dev) for _ in range(12)]
     tower = tuple(torch.stack([l[n] for l in layers]) for n in
                   ("w_eff", "b_eff", "wo", "bo", "w1", "b1", "w2", "b2"))
@@ -195,54 +317,151 @@ def phase_kernels():
     g_v = torch.randn(64, 197, 768, generator=gen, device=dev).to(bf)
     g_c = torch.randn(64, 1, 768, generator=gen, device=dev).to(bf)
     w_eff, wo = wv["w_eff"], wv["wo"]
+    # the int8 ports: one quantized ViT-B/16 layer, the 11 full layers of
+    # the image tower, one quantized text layer
+    q8v = _q8_case_weights(gen, k, m, k, dev)
+    q8_attn = (*q8v[:3], q8v[3:5], q8v[5])
+    q8_attn_qkv = (*q8v[:3], (wo,), q8v[5])
+    q8t = _q8_case_weights(gen, kt, 4 * kt, kt, dev)
+    q8_attn_t = (*q8t[:3], q8t[3:5], q8t[5])
+    q8_tower = _q8_case_weights(gen, k, m, k, dev, layers=11)
 
+    # GEMM work of one ViT-B/16 layer (FLOPs, or int8 ops)
+    qkv_f, out_f, mlp_f = 2.0 * rows * k * 3 * k, 2.0 * rows * k * k, 4.0 * rows * k * m
+    attn_f = _attn_flops(b, s, 12)
+    text_layer_f = (2.0 * rows_t * kt * 3 * kt + 2.0 * rows_t * kt * kt
+                    + 4.0 * rows_t * kt * 4 * kt)
+    text_attn_f = _attn_flops(bt, st, 8, causal=True)
+    # (name, kernel, plain, inputs, int8 ops, bf16 FLOPs, yardstick shape)
+    vit_qkv = (rows, k, 3 * k, False)
+    vit_fc = (rows, k, m, False)
     cases = [
         ("attn_block", lambda: attn_block(xv, *attn_v, heads=12),
-         lambda: attn_block_plain(xv, *attn_v, heads=12)),
+         lambda: attn_block_plain(xv, *attn_v, heads=12),
+         (xv, *attn_v), 0, qkv_f + out_f + attn_f, vit_qkv),
+        # K and V of every row, q, attention and out-projection of the CLS row
         ("attn_block_cls", lambda: attn_block_cls(xv, *attn_v, heads=12),
-         lambda: attn_block_cls_plain(xv, *attn_v, heads=12)),
+         lambda: attn_block_cls_plain(xv, *attn_v, heads=12),
+         (xv, *attn_v), 0,
+         2.0 * rows * k * 2 * k + 4.0 * b * k * k + _attn_flops(b, s, 12, q_rows=1),
+         vit_qkv),
         ("mlp_block", lambda: mlp_block(xv, *mlp_v),
-         lambda: mlp_block_plain(xv, *mlp_v)),
+         lambda: mlp_block_plain(xv, *mlp_v), (xv, *mlp_v), 0, mlp_f, vit_fc),
         ("attn_block_causal",
          lambda: attn_block(xt, *attn_t, heads=8, causal=True),
-         lambda: attn_block_plain(xt, *attn_t, heads=8, causal=True)),
+         lambda: attn_block_plain(xt, *attn_t, heads=8, causal=True),
+         (xt, *attn_t), 0,
+         2.0 * rows_t * kt * 4 * kt + text_attn_f, (rows_t, kt, 3 * kt, False)),
         ("text_tower", lambda: text_tower(xt, *tower, heads=8),
-         lambda: text_tower_plain(xt, *tower, heads=8)),
+         lambda: text_tower_plain(xt, *tower, heads=8), (xt, *tower), 0,
+         12 * (text_layer_f + text_attn_f), (rows_t, kt, 4 * kt, False)),
         ("attn_block_stash", lambda: fa.attn_block_stash(xv, *attn_v, heads=12),
-         lambda: fa.attn_block_stash_plain(xv, *attn_v, heads=12)),
+         lambda: fa.attn_block_stash_plain(xv, *attn_v, heads=12),
+         (xv, *attn_v), 0, qkv_f + out_f + attn_f, vit_qkv),
+        # dattn = g . wo^T, the attention backward (the recomputed scores,
+        # dP, dS . K, dS^T . Q and P^T . dO: 10 S^2 D per head), dxn
         ("attn_block_bwd",
          lambda: fa.attn_block_bwd(xv, g_v, qkv_v, w_eff, wo, heads=12),
-         lambda: fa.attn_block_bwd_plain(xv, g_v, qkv_v, w_eff, wo, heads=12)),
+         lambda: fa.attn_block_bwd_plain(xv, g_v, qkv_v, w_eff, wo, heads=12),
+         (xv, g_v, qkv_v, w_eff, wo), 0, out_f + 2.5 * attn_f + qkv_f, vit_qkv),
+        # one live query row: dqkv is nonzero in K and V of every row and q
+        # of the CLS row, so dxn is a [rows, 2K] x [2K, K] product
         ("attn_block_cls_bwd",
          lambda: fa.attn_block_cls_bwd(xv, g_c, qkv_c, w_eff, wo, heads=12),
          lambda: fa.attn_block_cls_bwd_plain(xv, g_c, qkv_c, w_eff, wo,
-                                             heads=12)),
+                                             heads=12),
+         (xv, g_c, qkv_c, w_eff, wo), 0,
+         2.0 * rows * 2 * k * k + 4.0 * b * k * k
+         + 2.5 * _attn_flops(b, s, 12, q_rows=1), (rows, k, 2 * k, False)),
         ("mlp_block_stash", lambda: lm.mlp_block_stash(xv, *mlp_v),
-         lambda: lm.mlp_block_stash_plain(xv, *mlp_v)),
+         lambda: lm.mlp_block_stash_plain(xv, *mlp_v), (xv, *mlp_v), 0, mlp_f,
+         vit_fc),
+        ("attn_block_q8", lambda: q8.attn_block_q8(xv, *q8_attn, heads=12),
+         lambda: q8.attn_block_q8_plain(xv, *q8_attn, heads=12),
+         (xv, *q8v[:6]), qkv_f + out_f, attn_f, (rows, k, 3 * k, True)),
+        ("attn_block_q8_qkv",
+         lambda: q8.attn_block_q8(xv, *q8_attn_qkv, heads=12, q8_out=False),
+         lambda: q8.attn_block_q8_plain(xv, *q8_attn_qkv, heads=12,
+                                        q8_out=False),
+         (xv, *q8v[:3], wo, q8v[5]), qkv_f, out_f + attn_f,
+         (rows, k, 3 * k, True)),
+        ("attn_block_q8_causal",
+         lambda: q8.attn_block_q8(xt, *q8_attn_t, heads=8, causal=True),
+         lambda: q8.attn_block_q8_plain(xt, *q8_attn_t, heads=8, causal=True),
+         (xt, *q8t[:6]), 2.0 * rows_t * kt * 4 * kt, text_attn_f,
+         (rows_t, kt, 3 * kt, True)),
+        ("mlp_block_q8", lambda: q8.mlp_block_q8(xv, *q8v[6:]),
+         lambda: q8.mlp_block_q8_plain(xv, *q8v[6:]), (xv, *q8v[6:]), mlp_f, 0,
+         (rows, k, m, True)),
+        ("tower_q8", lambda: tq8.tower_q8(xv, *q8_tower, heads=12),
+         lambda: tq8.tower_q8_plain(xv, *q8_tower, heads=12), (xv, *q8_tower),
+         11 * (qkv_f + out_f + mlp_f), 11 * attn_f, (rows, k, m, True)),
     ]
     results = {}
-    for name, kernel_fn, plain_fn in cases:
+    for name, kernel_fn, plain_fn, inputs, ops8, flops16, yard in cases:
         got = kernel_fn()
         want = plain_fn()
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         err, rel = 0.0, 0.0
-        for a, b in zip(got, want, strict=True):
-            _check(a.shape == b.shape, (name, a.shape, b.shape))
+        for a, b_ in zip(got, want, strict=True):
+            _check(a.shape == b_.shape, (name, a.shape, b_.shape))
             _check(bool(torch.isfinite(a.float()).all()), f"{name}: non-finite")
-            e = (a.float() - b.float()).abs().max().item()
-            scale = b.float().abs().max().item()
+            e = (a.float() - b_.float()).abs().max().item()
+            scale = b_.float().abs().max().item()
             _check(e <= REL_BOUND[name] * scale, f"{name}: {e} > bound of {scale}")
             err, rel = max(err, e), max(rel, e / scale)
         ms = _time_ms(kernel_fn)
-        plain_ms = _time_ms(plain_fn)
-        print(f"[kernels] {name:18s} shapes {[tuple(a.shape) for a in got]} "
+        plain_ms = _time_ms(plain_fn, iters=5 if name == "tower_q8" else 20)
+        bound_ms, bound_by = _bound(inputs, got, ops8, flops16)
+        yard_call, yard_ms = _yardstick(*yard[:3], yard[3], dev)
+        print(f"[kernels] {name:20s} shapes {[tuple(a.shape) for a in got]} "
               f"max_abs_err {err:.5f} max_rel_err {rel:.5f} (bound "
               f"{REL_BOUND[name]:.5f}) kernel {ms:.4f} ms plain "
-              f"{plain_ms:.4f} ms")
-        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+              f"{plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) "
+              f"yardstick {yard_call} {yard_ms:.4f} ms")
+        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "yardstick": yard_call, "yardstick_ms": yard_ms}
+    flips = _int8_flips(xv, q8v)
+    for half, (share, worst) in flips.items():
+        print(f"[kernels] int8 integers, {half}: {100 * share:.4f}% differ "
+              f"from the plain version's, largest difference {worst}")
+        _check(worst <= 1, (half, "integer differs by more than one step", worst))
     return results
+
+
+def _wrappers():
+    """Every port's wrapper by its name in PORTS: each counts its launches
+    on ``.launches``."""
+    from uml_tpu_torch.ops import fused_attention as fa
+    from uml_tpu_torch.ops import ln_matmul as lm
+    from uml_tpu_torch.ops import quant as q8
+    from uml_tpu_torch.ops import text_tower as tt
+    from uml_tpu_torch.ops import tower_q8 as tq8
+
+    return {"attn_block": fa.attn_block, "attn_block_cls": fa.attn_block_cls,
+            "mlp_block": lm.mlp_block, "text_tower": tt.text_tower,
+            "attn_block_stash": fa.attn_block_stash,
+            "attn_block_bwd": fa.attn_block_bwd,
+            "attn_block_cls_bwd": fa.attn_block_cls_bwd,
+            "mlp_block_stash": lm.mlp_block_stash,
+            "attn_block_q8": q8.attn_block_q8, "mlp_block_q8": q8.mlp_block_q8,
+            "tower_q8": tq8.tower_q8}
+
+
+def _counted(fn):
+    """Run ``fn`` with every launch counter set to 0 just before it ->
+    (its result, {port: launches} read just after)."""
+    import torch
+
+    wrappers = _wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: w.launches for name, w in wrappers.items()}
 
 
 def make_fixture(root, n_classes=8, per_class=(16, 4, 8)):
@@ -272,63 +491,33 @@ def make_fixture(root, n_classes=8, per_class=(16, 4, 8)):
     return {part: len(v) for part, v in split.items()}
 
 
-def phase_main_path():
-    """-> ({port name: launches}, images/s numbers)."""
-    import numpy as np
-    import torch
-
+def _features_args(root, batch, feature_dir, quant="none"):
     from uml_tpu_torch.cli import features as feat
-    from uml_tpu_torch.cli import generate_fewshot as gf
-    from uml_tpu_torch.data.feature_cache import img_outdir, load_cache, text_outdir
-    from uml_tpu_torch.ops.fused_attention import attn_block, attn_block_cls
-    from uml_tpu_torch.ops.ln_matmul import mlp_block
-    from uml_tpu_torch.ops.text_tower import text_tower
 
-    root = os.path.join(ROOT, "build", "chip_smoke")
-    shutil.rmtree(root, ignore_errors=True)
-    os.makedirs(root)
-    sizes = make_fixture(root)
-    gf.main(gf.build_parser().parse_args([
-        "--data_dir", root, "--indices_dir", f"{root}/indices",
-        "--dataset", "caltech101", "--train-shot", "16", "--seed", "1"]))
-    batch = 64
     args = feat.build_parser().parse_args([
         "--data_dir", root, "--indices_dir", f"{root}/indices",
-        "--feature_dir", f"{root}/features", "--dataset", "caltech101",
+        "--feature_dir", feature_dir, "--dataset", "caltech101",
         "--clip-encoder", "ViT-B/16", "--allow-random-init",
         "--train-shot", "16", "--seed", "1",
-        "--text-augmentation", "hand_crafted", "--batch-size", str(batch)])
+        "--text-augmentation", "hand_crafted", "--batch-size", str(batch),
+        "--quant", quant])
     args.overwrite = False
     args.force_rerun = False
+    return args
 
-    wrappers = {"attn_block": attn_block, "attn_block_cls": attn_block_cls,
-                "mlp_block": mlp_block, "text_tower": text_tower}
-    for w in wrappers.values():
-        w.launches = 0
-    t0 = time.perf_counter()
-    encoder = feat.main(args)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {name: w.launches for name, w in wrappers.items()}
-    print(f"[main] features CLI {wall:.2f} s (random init, decode, 3 splits, "
-          f"text); launches {launches}")
 
-    # expected counts: per image batch 11 full attention halves, 1 CLS
-    # half and 12 MLP halves; one text_tower call per class prompt batch
-    n_batches = sum(-(-n // batch) for n in (sizes["train"], sizes["val"],
-                                           sizes["test"]))
-    n_classes = 8
-    want = {"attn_block": 11 * n_batches, "attn_block_cls": n_batches,
-            "mlp_block": 12 * n_batches, "text_tower": n_classes}
-    _check(launches == want, (launches, want))
-    _check(all(p.device.type == "cuda" for p in encoder.model.parameters()),
-           "encoder parameters on the card")
+def _check_caches(feature_dir, sizes, n_classes):
+    """The image caches of the three splits and the text cache hold finite
+    width-512 features -> (train, test, text) caches."""
+    import numpy as np
 
-    img_path = img_outdir(args.feature_dir, "ViT-B/16", "caltech101", "crop",
+    from uml_tpu_torch.data.feature_cache import img_outdir, load_cache, text_outdir
+
+    img_path = img_outdir(feature_dir, "ViT-B/16", "caltech101", "crop",
                           16, 1, "train")
-    test_path = img_outdir(args.feature_dir, "ViT-B/16", "caltech101", "crop",
+    test_path = img_outdir(feature_dir, "ViT-B/16", "caltech101", "crop",
                            16, 1, "test")
-    txt_path = text_outdir(args.feature_dir, "ViT-B/16", "caltech101",
+    txt_path = text_outdir(feature_dir, "ViT-B/16", "caltech101",
                            "hand_crafted")
     img, test, txt = load_cache(img_path), load_cache(test_path), load_cache(txt_path)
     for name, split, n in (("train", img["train"], sizes["train"]),
@@ -339,37 +528,82 @@ def phase_main_path():
     _check(txt["features"].shape == (n_classes, 512)
            and np.isfinite(txt["features"]).all(),
            ("text", txt["features"].shape))
-    print(f"[main] caches written: {img_path} {test_path} {txt_path}")
+    print(f"[caches] written: {img_path} {test_path} {txt_path}")
+    return img, test, txt
 
-    # the card against the same model on the CPU (plain path), 4 images
-    # and 2 prompts
+
+def _cos_min(a, b):
+    import numpy as np
+
+    return float(((a * b).sum(-1) / (np.linalg.norm(a, axis=-1)
+                                      * np.linalg.norm(b, axis=-1))).min())
+
+
+def _card_vs_cpu_features(encoder, test_paths, tag):
+    """The card's features against the same model on the CPU (plain
+    path): 4 images and 2 prompts -> (min cosine image, text)."""
+    import numpy as np
+    import torch
+
     from uml_tpu_torch.data.loader import ImageBatchLoader
+    from uml_tpu_torch.models.tokenizer import tokenize
 
     cpu_model = copy.deepcopy(encoder.model).to("cpu")
     imgs, _, _ = next(iter(ImageBatchLoader(
-        [{"impath": p, "label": 0} for p in test["paths"][:4]], batch_size=4,
+        [{"impath": p, "label": 0} for p in test_paths[:4]], batch_size=4,
         num_workers=1)))
     gpu_f = encoder.encode_images(imgs)
+    prompts = ["a photo of a class_0.", "a photo of a class_1."]
+    gpu_t, _ = encoder.encode_texts(prompts)
     with torch.no_grad():
         cpu_f = cpu_model.encode_image_u8(
             torch.from_numpy(imgs.reshape(4, -1))).numpy()
-    prompts = ["a photo of a class_0.", "a photo of a class_1."]
-    gpu_t, _ = encoder.encode_texts(prompts)
-    from uml_tpu_torch.models.tokenizer import tokenize
-
-    with torch.no_grad():
         cpu_t = cpu_model.encode_text(
             torch.from_numpy(tokenize(prompts).astype(np.int64))).numpy()
-
-    def cos(a, b):
-        return (a * b).sum(-1) / (np.linalg.norm(a, axis=-1)
-                                  * np.linalg.norm(b, axis=-1))
-
-    cos_img, cos_txt = cos(gpu_f, cpu_f).min(), cos(gpu_t, cpu_t).min()
-    print(f"[main] card vs CPU plain path: min cosine image {cos_img:.6f} "
+    cos_img, cos_txt = _cos_min(gpu_f, cpu_f), _cos_min(gpu_t, cpu_t)
+    print(f"[{tag}] card vs CPU plain path: min cosine image {cos_img:.6f} "
           f"text {cos_txt:.6f} (bound {MIN_COSINE})")
     _check(cos_img >= MIN_COSINE and cos_txt >= MIN_COSINE,
-           f"card vs CPU cosine {cos_img}, {cos_txt}")
+           f"{tag}: card vs CPU cosine {cos_img}, {cos_txt}")
+    return cos_img, cos_txt
+
+
+def phase_main_path():
+    """-> ({port name: launches}, images/s numbers, fixture root, split
+    sizes, the bf16 encoder)."""
+    import numpy as np
+
+    from uml_tpu_torch.cli import features as feat
+    from uml_tpu_torch.cli import generate_fewshot as gf
+
+    root = os.path.join(ROOT, "build", "chip_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    sizes = make_fixture(root)
+    gf.main(gf.build_parser().parse_args([
+        "--data_dir", root, "--indices_dir", f"{root}/indices",
+        "--dataset", "caltech101", "--train-shot", "16", "--seed", "1"]))
+    batch = 64
+    args = _features_args(root, batch, f"{root}/features")
+    t0 = time.perf_counter()
+    encoder, launches = _counted(lambda: feat.main(args))
+    wall = time.perf_counter() - t0
+    print(f"[main] features CLI {wall:.2f} s (random init, decode, 3 splits, "
+          f"text); launches {launches}")
+
+    # expected counts: per image batch 11 full attention halves, 1 CLS
+    # half and 12 MLP halves; one text_tower call per class prompt batch
+    n_batches = sum(-(-n // batch) for n in (sizes["train"], sizes["val"],
+                                           sizes["test"]))
+    n_classes = 8
+    want = dict.fromkeys(launches, 0)
+    want.update({"attn_block": 11 * n_batches, "attn_block_cls": n_batches,
+                 "mlp_block": 12 * n_batches, "text_tower": n_classes})
+    _check(launches == want, (launches, want))
+    _check(all(p.device.type == "cuda" for p in encoder.model.parameters()),
+           "encoder parameters on the card")
+    _, test, _ = _check_caches(args.feature_dir, sizes, n_classes)
+    _card_vs_cpu_features(encoder, test["paths"], "main")
 
     # steady-state encoder throughput on a staged batch (decode excluded)
     rng = np.random.default_rng(0)
@@ -388,7 +622,81 @@ def phase_main_path():
           f"H2D, tower, D2H) = {rate['text_prompts_per_s_bs64']:.1f} prompts/s")
     _profile("image encoder", lambda: encoder.encode_staged(staged, n))
     _profile("text encoder", lambda: encoder.encode_texts(prompts))
-    return launches, rate, root, sizes
+    return launches, rate, root, sizes, encoder
+
+
+def phase_int8_path(root, sizes, bf16_encoder):
+    """The features CLI with --quant int8 on the phase-3 fixture, then the
+    whole-tower path -> ({port name: launches}, numbers)."""
+    import numpy as np
+    import torch
+
+    from uml_tpu_torch.cli import features as feat
+
+    batch, n_classes = 64, 8
+    args = _features_args(root, batch, f"{root}/features_int8", quant="int8")
+    t0 = time.perf_counter()
+    encoder, launches = _counted(lambda: feat.main(args))
+    wall = time.perf_counter() - t0
+    print(f"[int8] features --quant int8 CLI {wall:.2f} s; launches {launches}")
+    # per image batch 11 int8 halves of each kind and the bf16 CLS layer;
+    # per class prompt batch 12 causal int8 layers, no text_tower
+    n_batches = sum(-(-n // batch) for n in (sizes["train"], sizes["val"],
+                                           sizes["test"]))
+    want = dict.fromkeys(launches, 0)
+    want.update({"attn_block_q8": 11 * n_batches + 12 * n_classes,
+                 "mlp_block_q8": 11 * n_batches + 12 * n_classes,
+                 "attn_block_cls": n_batches, "mlp_block": n_batches})
+    _check(launches == want, (launches, want))
+    _check(all(p.device.type == "cuda" for p in encoder.model.parameters()),
+           "int8 encoder parameters on the card")
+    _, test, _ = _check_caches(args.feature_dir, sizes, n_classes)
+    cos_img, cos_txt = _card_vs_cpu_features(encoder, test["paths"], "int8")
+
+    rng = np.random.default_rng(1)
+    staged, n = encoder.stage_images(
+        rng.integers(0, 256, (batch, 224, 224, 3), dtype=np.uint8))
+    with torch.no_grad():
+        per_layer = encoder.encode_staged(staged, n)[0].clone()
+        bf16 = bf16_encoder.encode_staged(staged, n)[0]
+    # the whole-tower path: one encode under UML_TOWER_Q8=1
+    os.environ["UML_TOWER_Q8"] = "1"
+    try:
+        (towered, _), tower_launches = _counted(
+            lambda: encoder.encode_staged(staged, n))
+    finally:
+        os.environ.pop("UML_TOWER_Q8")
+    want_tower = dict.fromkeys(tower_launches, 0)
+    want_tower.update({"tower_q8": 1, "attn_block_cls": 1, "mlp_block": 1})
+    _check(tower_launches == want_tower, (tower_launches, want_tower))
+    _check(torch.equal(towered, per_layer), "tower_q8 equals the per-layer path")
+    launches["tower_q8"] = tower_launches["tower_q8"]
+    cos_q8 = _cos_min(per_layer.float().cpu().numpy(), bf16.float().cpu().numpy())
+    print(f"[int8] UML_TOWER_Q8=1: tower_q8 launched once, features equal "
+          f"the per-layer int8 path's; int8 vs bf16 features of the same "
+          f"model, min cosine {cos_q8:.6f} (recorded, not checked)")
+
+    # steady state at bs 64: bf16, int8 per layer, int8 tower, in turns
+    def rate(enc, tower):
+        os.environ["UML_TOWER_Q8"] = "1" if tower else "0"
+        try:
+            ms = _time_ms(lambda: enc.encode_staged(staged, n), iters=10)
+        finally:
+            os.environ.pop("UML_TOWER_Q8")
+        return ms, batch / (ms / 1e3)
+
+    numbers = {"int8_features_wall_s": wall, "int8_card_vs_cpu_cos_image": cos_img,
+               "int8_card_vs_cpu_cos_text": cos_txt,
+               "int8_vs_bf16_cos_image": cos_q8}
+    for key, enc, tower in (("bf16", bf16_encoder, False),
+                            ("int8", encoder, False),
+                            ("int8_tower", encoder, True)):
+        ms, r = rate(enc, tower)
+        numbers[f"encoder_img_per_s_bs64_{key}"] = r
+        print(f"[int8] image encoder {key}: {ms:.3f} ms per batch of {batch} "
+              f"= {r:.1f} img/s")
+    _profile("int8 image encoder", lambda: encoder.encode_staged(staged, n))
+    return launches, numbers
 
 
 def _finetune(root, grid, wrappers):
@@ -690,13 +998,19 @@ def main() -> int:
         return 2
     phase_setup()
     kernels = phase_kernels()
-    launches, rate, root, sizes = phase_main_path()
+    launches, rate, root, sizes, encoder = phase_main_path()
+    int8_launches, int8_numbers = phase_int8_path(root, sizes, encoder)
+    rate.update(int8_numbers)
+    del encoder
     train_launches, train_numbers = phase_train(root, sizes)
     rate.update(train_numbers)
-    # each port's launches come from the path it belongs to: the serving
-    # kernels from the features run, the training kernels from the
-    # full-model finetune run
-    launches = {**launches, **{k: train_launches[k] for k in TRAIN_PORTS}}
+    # each port's launches come from the path it belongs to: the bf16
+    # serving kernels from the features run, the int8 ones from the
+    # features --quant int8 run and its tower encode, the training kernels
+    # from the full-model finetune run
+    launches = {**launches,
+                **{k: int8_launches[k] for k in Q8_PORTS},
+                **{k: train_launches[k] for k in TRAIN_PORTS}}
     _check(all(launches[name] > 0 for name, _, _ in PORTS), launches)
     table = []
     for name, source, replaces in PORTS:
@@ -704,7 +1018,12 @@ def main() -> int:
         table.append({"name": name, "route": "cuda", "source": source,
                       "replaces": replaces, "launches": launches[name],
                       "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-                      "plain_ms": row["plain_ms"]})
+                      "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                      "bound_by": row["bound_by"],
+                      # no one PyTorch call computes a half-block or a tower
+                      "library_ms": None,
+                      "gemm_yardstick": row["yardstick"],
+                      "gemm_yardstick_ms": row["yardstick_ms"]})
     print(json.dumps({"throughput": rate}))
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

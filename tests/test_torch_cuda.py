@@ -5,7 +5,11 @@ run on the card with ``python -m pytest tests/test_torch_cuda.py -q``.
 
 Bound: max |kernel - plain| <= 2^-6 * max|plain| (two bf16 ulps of the
 largest output; the kernel and the plain version sum in other orders, so
-an intermediate can round to the neighbouring bf16 value).
+an intermediate can round to the neighbouring bf16 value).  The int8
+ports are held to the same bound per half-block (an int8 activation at a
+.5 tie can move by one step, ~1/254 of its row's range) and to 2^-4 for
+the 2-layer int8 tower, whose output must also equal the per-layer int8
+kernels' bit for bit.
 """
 
 import numpy as np
@@ -14,7 +18,9 @@ import torch
 
 from uml_tpu_torch.ops import fused_attention as fa
 from uml_tpu_torch.ops import ln_matmul as lm
+from uml_tpu_torch.ops import quant as q8
 from uml_tpu_torch.ops import text_tower as tt
+from uml_tpu_torch.ops import tower_q8 as tq8
 
 pytestmark = pytest.mark.cuda
 
@@ -91,6 +97,106 @@ def test_text_tower_kernel(dev):
     got = tt.text_tower(x, *w, heads=HEADS)
     assert tt.text_tower.launches == n + 1
     _close(got, tt.text_tower_plain(x, *w, heads=HEADS))
+
+
+def _q8_weights(dev, layers=None, seed=0):
+    """(wq, wsc, b_eff, woq, wosc, bo, w1q, w1sc, b1, w2q, w2sc, b2):
+    quantize_weight of random fp32 weights, stacked when ``layers``."""
+    g = torch.Generator().manual_seed(seed)
+
+    def one():
+        def rnd(*shape, std):
+            return torch.randn(shape, generator=g) * std
+
+        out = []
+        for shape in ((K, 3 * K), (K, K), (K, M), (M, K)):
+            out.append(q8.quantize_weight(rnd(*shape, std=shape[0] ** -0.5)))
+            out.append(rnd(shape[1], std=0.1))
+        (wq, wsc), b_eff, (woq, wosc), bo, (w1q, w1sc), b1, (w2q, w2sc), b2 = out
+        return (wq, wsc, b_eff, woq, wosc, bo, w1q, w1sc, b1, w2q, w2sc, b2)
+
+    if layers is None:
+        return tuple(t.contiguous().to(dev) for t in one())
+    per_layer = [one() for _ in range(layers)]
+    return tuple(torch.stack(t).to(dev) for t in zip(*per_layer))
+
+
+@pytest.mark.parametrize("s", [9, 17, 197])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("q8_out", [True, False])
+def test_attn_block_q8_kernel(dev, s, causal, q8_out):
+    x, w = _x(dev, s), _q8_weights(dev)
+    wo_ops = w[3:5] if q8_out else (_weights(dev)[2],)
+    n = q8.attn_block_q8.launches
+    got = q8.attn_block_q8(x, *w[:3], wo_ops, w[5], heads=HEADS, causal=causal,
+                           q8_out=q8_out)
+    assert q8.attn_block_q8.launches == n + 1
+    _close(got, q8.attn_block_q8_plain(x, *w[:3], wo_ops, w[5], heads=HEADS,
+                                       causal=causal, q8_out=q8_out))
+
+
+@pytest.mark.parametrize("s", [9, 17, 197])
+def test_mlp_block_q8_kernel(dev, s):
+    x, w = _x(dev, s), _q8_weights(dev)
+    n = q8.mlp_block_q8.launches
+    got = q8.mlp_block_q8(x, *w[6:])
+    assert q8.mlp_block_q8.launches == n + 1
+    _close(got, q8.mlp_block_q8_plain(x, *w[6:]))
+
+
+@pytest.mark.parametrize("s", [9, 17, 197])
+def test_tower_q8_kernel(dev, s):
+    x, w = _x(dev, s), _q8_weights(dev, layers=2)
+    n = tq8.tower_q8.launches
+    got = tq8.tower_q8(x, *w, heads=HEADS)
+    assert tq8.tower_q8.launches == n + 1
+    torch.cuda.synchronize()
+    want = tq8.tower_q8_plain(x, *w, heads=HEADS)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 2.0 ** -4 * want.float().abs().max().item(), err
+    per_layer = x
+    for l in range(2):
+        per_layer = q8.attn_block_q8(per_layer, w[0][l], w[1][l], w[2][l],
+                                     (w[3][l], w[4][l]), w[5][l], heads=HEADS)
+        per_layer = q8.mlp_block_q8(per_layer, *(t[l] for t in w[6:]))
+    assert torch.equal(got, per_layer)
+
+
+def test_q8_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    x, w = _x(dev, 17), _q8_weights(dev)
+    with pytest.raises(TypeError):
+        q8.attn_block_q8(x, w[0].float(), *w[1:3], w[3:5], w[5], heads=HEADS)
+    with pytest.raises(ValueError):
+        q8.mlp_block_q8(x, *w[6:], activation="gelu_exact")
+    with pytest.raises(RuntimeError, match="inference-only"):
+        q8.mlp_block_q8(x.float().requires_grad_(), *w[6:])
+
+
+@pytest.mark.parametrize("quant", ["int8", "int8_mlp", "int8_attn", "int8_qkv"])
+def test_tiny_clip_int8_on_the_card_matches_the_cpu(dev, quant):
+    """A tiny CLIP in each int8 mode on the card against the same weights
+    on the CPU (plain path): per-row cosine >= 0.999."""
+    from uml_tpu_torch.models.clip import CLIP, ClipConfig
+    from uml_tpu_torch.models.tokenizer import tokenize
+
+    cfg = ClipConfig(embed_dim=64, image_resolution=64, vision_layers=2,
+                     vision_width=128, vision_patch_size=16,
+                     transformer_width=128, transformer_heads=2,
+                     transformer_layers=2)
+    cpu = CLIP(cfg, dtype=torch.bfloat16, quant=quant).init_random(
+        torch.Generator().manual_seed(0))
+    gpu = CLIP(cfg, dtype=torch.bfloat16, quant=quant).to(dev)
+    gpu.load_state_dict(cpu.state_dict())
+    u8 = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (4, 64 * 64 * 3), dtype=np.uint8))
+    toks = torch.from_numpy(tokenize(["a photo of a cat.", "a dog"]).astype(np.int64))
+    with torch.no_grad():
+        pairs = [(cpu.encode_image_u8(u8), gpu.encode_image_u8(u8.to(dev))),
+                 (cpu.encode_text(toks), gpu.encode_text(toks.to(dev)))]
+    for a, b in pairs:
+        cos = torch.nn.functional.cosine_similarity(a.float(), b.float().cpu(),
+                                                    dim=-1)
+        assert cos.min().item() >= 0.999
 
 
 def _close_all(got, want):

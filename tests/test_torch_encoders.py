@@ -1,5 +1,6 @@
-"""Encoder loading, the features CLI's refusals, and the kernel build's
-failure mode on a machine without the CUDA toolkit (all on the CPU)."""
+"""Encoder loading, the default device, the features CLI's refusals, and
+the kernel build's failure mode on a machine without the CUDA toolkit
+(all on the CPU)."""
 
 import hashlib
 
@@ -7,6 +8,7 @@ import pytest
 import torch
 
 from uml_tpu_torch.cli import features
+from uml_tpu_torch.core import device
 from uml_tpu_torch.models import encoders
 from uml_tpu_torch.models.clip import CLIP, ClipConfig
 from uml_tpu_torch.ops import _build
@@ -57,7 +59,9 @@ def test_checkpoint_loads_with_sha_check(tmp_path, monkeypatch):
 @pytest.mark.parametrize("flags,message", [
     (["--vision_model", "vit_base_patch16_224_dino"], "not ported"),
     (["--language_model", "gpt2"], "not ported"),
-    (["--clip-encoder", "ViT-B/16", "--quant", "int8"], "int8"),
+    # uml_tpu's early refusal of a mixed int8 mode for a non-CLIP tower
+    (["--vision_model", "vit_base_patch16_224_dino", "--quant", "int8_qkv"],
+     "int8_qkv"),
     (["--clip-encoder", "RN50"], "RN towers"),
 ])
 def test_features_refuses_what_is_not_ported(flags, message):
@@ -65,6 +69,23 @@ def test_features_refuses_what_is_not_ported(flags, message):
         ["--clip-encoder", "ViT-B/16"] + flags)
     with pytest.raises(SystemExit, match=message):
         features.main(args)
+
+
+def test_default_device_is_the_card_unless_the_cpu_is_asked_for(monkeypatch):
+    """No card: default_device() raises (no quiet CPU fallback) unless
+    UML_TORCH_DEVICE=cpu asks for the CPU; a card gives cuda."""
+    monkeypatch.delenv("UML_TORCH_DEVICE", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="UML_TORCH_DEVICE=cpu"):
+        device.default_device()
+    monkeypatch.setenv("UML_TORCH_DEVICE", "cpu")
+    assert device.default_device() == torch.device("cpu")
+    monkeypatch.setenv("UML_TORCH_DEVICE", "tpu")
+    with pytest.raises(ValueError, match="UML_TORCH_DEVICE"):
+        device.default_device()
+    monkeypatch.delenv("UML_TORCH_DEVICE")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert device.default_device() == torch.device("cuda")
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):

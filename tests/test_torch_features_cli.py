@@ -6,7 +6,10 @@ layers in each tower); both loaders infer that config from its shapes.
 uml_tpu decodes with PIL here (its native decoder is switched off), as
 the port does.  Labels, paths, prompts and EOT indices must be equal;
 the features, bf16 in both packages, must agree to a per-row cosine of
-0.999 (the packages round intermediates to bf16 at different points).
+0.999 (the packages round intermediates to bf16 at different points), in
+bf16 and in the int8 serving mode (``--quant int8``; the integers of the
+two packages can differ by a step where those roundings meet a tie).
+The port runs on the CPU (``UML_TORCH_DEVICE=cpu``).
 """
 
 import numpy as np
@@ -35,8 +38,10 @@ def _cosine_min(a, b):
 
 
 @pytest.mark.heavy
+@pytest.mark.parametrize("quant", ["none", "int8"])
 @pytest.mark.parametrize("return_tokens", [False, True])
-def test_features_cli_caches_agree(tmp_path, monkeypatch, return_tokens):
+def test_features_cli_caches_agree(tmp_path, monkeypatch, return_tokens,
+                                   quant):
     torch.set_num_threads(1)
     root = make_caltech_fixture(str(tmp_path / "data"))
     weights = tmp_path / "weights"
@@ -45,6 +50,7 @@ def test_features_cli_caches_agree(tmp_path, monkeypatch, return_tokens):
     torch.save(model.state_dict(), str(weights / "ViT-B-32.pt"))
     monkeypatch.setenv("UML_CLIP_WEIGHTS_DIR", str(weights))
     monkeypatch.setenv("UML_CLIP_VERIFY_SHA", "0")
+    monkeypatch.setenv("UML_TORCH_DEVICE", "cpu")
     import uml_tpu.native
 
     monkeypatch.setattr(uml_tpu.native, "native_available", lambda: False)
@@ -56,7 +62,8 @@ def test_features_cli_caches_agree(tmp_path, monkeypatch, return_tokens):
             "--dataset", "caltech101", "--clip-encoder", "ViT-B/32",
             "--train-shot", "2", "--seed", "1", "--text-augmentation",
             "hand_crafted", "--batch-size", "8", "--num-workers", "2",
-            "--mesh", "off"] + (["--return_tokens"] if return_tokens else [])
+            "--mesh", "off", "--quant", quant] + (
+                ["--return_tokens"] if return_tokens else [])
     dirs = {}
     for name, cli in (("jax", jax_features), ("torch", torch_features)):
         dirs[name] = str(tmp_path / f"features_{name}")

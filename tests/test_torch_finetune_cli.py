@@ -87,6 +87,7 @@ def test_finetune_cli_both_packages(tmp_path, monkeypatch, grid):
     torch.save(model.state_dict(), str(weights / "ViT-B-32.pt"))
     monkeypatch.setenv("UML_CLIP_WEIGHTS_DIR", str(weights))
     monkeypatch.setenv("UML_CLIP_VERIFY_SHA", "0")
+    monkeypatch.setenv("UML_TORCH_DEVICE", "cpu")
     import uml_tpu.native
 
     monkeypatch.setattr(uml_tpu.native, "native_available", lambda: False)

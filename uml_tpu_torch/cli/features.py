@@ -9,15 +9,18 @@ idempotent skip-unless-overwrite semantics.
 
 Pipeline: threaded PIL decode -> uint8 batch -> pinned host->device copy
 -> CLIP forward (bf16, hand-written kernels on the card) -> device->host
-copy, one batch in flight while the loader decodes ahead.
+copy, one batch in flight while the loader decodes ahead.  ``--quant
+int8|int8_mlp|int8_attn|int8_qkv`` serves the CLIP towers in int8 (W8A8:
+ops.quant, ops.tower_q8 under ``UML_TOWER_Q8=1``); the last image layer
+stays bf16.  The encoder runs on the card; ``UML_TORCH_DEVICE=cpu`` asks
+for the CPU (the kernels' plain PyTorch versions).
 
     python -m uml_tpu_torch.cli.features -d --dataset caltech101 \\
-        --clip-encoder ViT-B/16 --allow-random-init ...
+        --clip-encoder ViT-B/16 --allow-random-init [--quant int8] ...
     python -m uml_tpu_torch.cli.features -c configs/features.yaml
 
 Not ported yet (each raises): the DINO / HF language-model encoders
-(``--vision_model`` / ``--language_model``), ``--quant`` int8 modes, and a
-multi-device ``--mesh``.
+(``--vision_model`` / ``--language_model``) and a multi-device ``--mesh``.
 """
 
 from __future__ import annotations
@@ -206,14 +209,18 @@ def prepare_text_features(encoder, args, ds):
 def check_ported(args) -> None:
     """Raise for flags whose code is not ported yet, before any dataset
     or model work."""
+    # uml_tpu's early refusal (features.py:452-457) comes first
+    quant = getattr(args, "quant", "none")
+    if args.vision_model and quant not in ("none", "int8"):
+        raise SystemExit(
+            f"--quant {quant}: the mixed int8 modes (int8_mlp/int8_attn/"
+            f"int8_qkv) are CLIP-tower serving modes; "
+            f"{args.vision_model} supports --quant none|int8")
     if args.vision_model or args.language_model:
         raise SystemExit(
             "--vision_model/--language_model: the DINO and HF language-model "
             "encoders are not ported to uml_tpu_torch yet; use the CLIP "
             "encoders (--clip-encoder)")
-    if args.quant != "none":
-        raise SystemExit(f"--quant {args.quant}: the int8 serving modes are "
-                         "not ported to uml_tpu_torch yet")
     if args.clip_encoder not in ("ViT-B/16", "ViT-B/32"):
         raise SystemExit(f"--clip-encoder {args.clip_encoder}: the RN towers "
                          "are not ported to uml_tpu_torch yet")
@@ -240,8 +247,8 @@ def main(args):
     print("=> Using CLIP model")
     encoder = ClipEncoder(args.clip_encoder,
                           allow_random_init=args.allow_random_init,
-                          check_finite=args.debug_nans)
-    print(f"=> Encoder on {encoder.device}")
+                          check_finite=args.debug_nans, quant=args.quant)
+    print(f"=> Encoder on {encoder.device}, quant {args.quant}")
 
     if args.dataset not in IMAGENET_TESTSETS:
         prepare_image_features(encoder, args, datasets, mode="train")

@@ -34,7 +34,9 @@ uml_tpu/models/port_torch.py reads), where uml_tpu saves its flax tree.
         --hyperparams smoke_full ...
 
 Not ported yet (each raises before any work): the DINO / HF encoders,
-the RN towers, ``--quant``, a multi-device ``--mesh`` and ``--ckpt_every``.
+the RN towers, a multi-device ``--mesh`` and ``--ckpt_every``.
+``--quant`` other than none raises too: the int8 modes are inference-only
+serving modes of the features CLI (uml_tpu's finetune ignores the flag).
 """
 
 from __future__ import annotations
@@ -269,6 +271,10 @@ def sweep(datasets, hyperparams, args):
 def check_ported(args) -> None:
     """Raise for flags whose code is not ported yet, before any work."""
     check_encoder_ported(args)
+    if getattr(args, "quant", "none") != "none":
+        raise SystemExit(f"--quant {args.quant}: the int8 modes serve the "
+                         "features CLI (inference-only); finetune trains in "
+                         "bf16")
     if getattr(args, "ckpt_every", 0):
         raise SystemExit("--ckpt_every: mid-run checkpoints (orbax resume in "
                          "uml_tpu) are not ported to uml_tpu_torch yet")

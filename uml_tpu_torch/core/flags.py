@@ -119,8 +119,8 @@ def build_shared_parser() -> argparse.ArgumentParser:
     p.add_argument("--quant", type=str, default="none",
                    choices=["none", "int8", "int8_mlp", "int8_attn",
                             "int8_qkv"],
-                   help="int8 serving modes; only 'none' is ported so far "
-                        "(the others raise)")
+                   help="int8 (W8A8) serving modes of the CLIP towers "
+                        "(features CLI)")
     p.add_argument("--ckpt_every", type=int, default=0,
                    help="mid-run checkpoint interval in iterations (0 = off)")
     p.add_argument("--strict_reference_parity", action="store_true",

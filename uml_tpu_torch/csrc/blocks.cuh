@@ -7,6 +7,8 @@
 
 #include "attention.cuh"
 #include "ln_gemm.cuh"
+#include "q8_gemm.cuh"
+#include "quantize.cuh"
 
 namespace uml {
 
@@ -63,6 +65,51 @@ static inline cudaError_t run_mlp_block_stash(const __nv_bfloat16* x, const __nv
                          stream, false, pre));
   return launch_ln_gemm(hidden, w2, b2, x, out, rows, K, M, K, false, EPI_RESIDUAL, eps,
                         stream);
+}
+
+// Int8 attention half: out = x + MHA(LNquant(x) . wq -> bf16 qkv + b_eff)
+// . wo + bo, wo int8 (q8_out: the attention output row-quantized, wosc its
+// column scales) or bf16 (q8_out false: ln_gemm, wosc unused).
+//   x [B, S, K]; wq [K, 3*H*64] int8; q8 [B*S*max(K, H*64)] int8 and
+//   qscale [B*S] are scratch for the row-quantized activations (the LN'd x,
+//   then the attention output); qkv [B*S, 3*H*64] and attn [B*S, H*64] are
+//   scratch; out [B, S, K].
+static inline cudaError_t run_attn_block_q8(const __nv_bfloat16* x, const int8_t* wq,
+                                            const float* wsc, const float* b_eff, const void* wo,
+                                            const float* wosc, const float* bo, int8_t* q8,
+                                            float* qscale, __nv_bfloat16* qkv,
+                                            __nv_bfloat16* attn, __nv_bfloat16* out, int B,
+                                            int S, int K, int H, bool causal, bool q8_out,
+                                            float eps, cudaStream_t stream) {
+  const int rows = B * S;
+  const int hd = H * ATT_D;
+  UML_TRY(launch_ln_quantize_rows(x, q8, qscale, rows, K, eps, stream));
+  UML_TRY(launch_q8_gemm(q8, wq, qscale, wsc, b_eff, nullptr, qkv, rows, 3 * hd, K, Q8_EPI_BF16,
+                         stream));
+  UML_TRY(launch_attention(qkv, attn, B, S, H, S, causal, stream));
+  if (q8_out) {
+    UML_TRY(launch_quantize_rows(attn, q8, qscale, rows, hd, stream));
+    return launch_q8_gemm(q8, static_cast<const int8_t*>(wo), qscale, wosc, bo, x, out, rows, K,
+                          hd, Q8_EPI_RESIDUAL, stream);
+  }
+  return launch_ln_gemm(attn, static_cast<const __nv_bfloat16*>(wo), bo, x, out, rows, K, hd, K,
+                        false, EPI_RESIDUAL, eps, stream);
+}
+
+// Int8 MLP half: out = x + actquant(LNquant(x) . w1q + b1) . w2q + b2
+//   x [rows, K]; w1q [K, M], w2q [M, K] int8; q8 [rows*max(K, M)] int8 and
+//   qscale [rows] are scratch; pre [rows, M] fp32 is scratch.
+static inline cudaError_t run_mlp_block_q8(const __nv_bfloat16* x, const int8_t* w1q,
+                                           const float* w1sc, const float* b1,
+                                           const int8_t* w2q, const float* w2sc,
+                                           const float* b2, int8_t* q8, float* qscale,
+                                           float* pre, __nv_bfloat16* out, int rows, int K,
+                                           int M, float eps, cudaStream_t stream) {
+  UML_TRY(launch_ln_quantize_rows(x, q8, qscale, rows, K, eps, stream));
+  UML_TRY(launch_q8_gemm(q8, w1q, qscale, w1sc, b1, nullptr, pre, rows, M, K, Q8_EPI_F32,
+                         stream));
+  UML_TRY(launch_act_quantize_rows(pre, q8, qscale, rows, M, stream));
+  return launch_q8_gemm(q8, w2q, qscale, w2sc, b2, x, out, rows, K, M, Q8_EPI_RESIDUAL, stream);
 }
 
 }  // namespace uml

@@ -1,0 +1,61 @@
+// uml_tower_q8: every full int8 (W8A8) layer of a tower in one call.
+//
+// Replaces uml_tpu/ops/tower_q8.py::_tower_q8_kernel.  The TPU kernel runs
+// all L layers in one program (grid: batch groups x layers) with the
+// residual stream resident in VMEM and the next layer's int8 weights
+// streamed under the current layer's compute.  This first version is a
+// host loop over the layers that makes, per layer, the launches of
+// uml_attn_block_q8 (non-causal, int8 out-projection) and
+// uml_mlp_block_q8, 9 per layer: the same kernels on the same inputs, so
+// its output equals the per-layer int8 path bit for bit.  The residual is
+// bf16 between halves and between layers, the rounding the TPU kernel
+// applies (tower_q8.py:83-86).  The TPU's batch grouping (UML_TOWER_Q8_G)
+// is a VMEM choice and is not carried.
+//
+// What bounds it on the H100: 11 ViT-B/16 layers at B=64 are 1,963 G int8
+// ops and 84 GFLOP bf16 attention, ~1.08 ms at the int8 and bf16 peaks.  A
+// persistent kernel that keeps the residual on chip would remove the
+// 2L round trips of the residual (19.4 MB written and read back per half
+// at B=64) and the 9L launches; that is a later PR.
+//
+//   x [B, S, K]; stacked wq [L, K, 3HD], wsc, b_eff [L, 3HD], woq [L, HD, K],
+//   wosc, bo [L, K], w1q [L, K, M], w1sc, b1 [L, M], w2q [L, M, K],
+//   w2sc, b2 [L, K] with HD = H*64; q8 [B*S*max(K, HD, M)], qscale [B*S],
+//   qkv, attn, pre, mid are scratch; out [B, S, K].
+
+#include "blocks.cuh"
+
+extern "C" int uml_tower_q8(const void* x, const void* wq, const void* wsc, const void* b_eff,
+                            const void* woq, const void* wosc, const void* bo, const void* w1q,
+                            const void* w1sc, const void* b1, const void* w2q,
+                            const void* w2sc, const void* b2, void* q8, void* qscale,
+                            void* qkv, void* attn, void* pre, void* mid, void* out, int B,
+                            int S, int K, int H, int M, int L, float eps, void* stream) {
+  using bf16 = __nv_bfloat16;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long hd = (long long)H * uml::ATT_D;
+  const long long k = K, m = M;
+  const int rows = B * S;
+  const bf16* cur = static_cast<const bf16*>(x);
+  bf16* o = static_cast<bf16*>(out);
+  bf16* md = static_cast<bf16*>(mid);
+  int8_t* q = static_cast<int8_t*>(q8);
+  float* qs = static_cast<float*>(qscale);
+  for (int l = 0; l < L; ++l) {
+    const cudaError_t e1 = uml::run_attn_block_q8(
+        cur, static_cast<const int8_t*>(wq) + l * k * 3 * hd,
+        static_cast<const float*>(wsc) + l * 3 * hd, static_cast<const float*>(b_eff) + l * 3 * hd,
+        static_cast<const int8_t*>(woq) + l * hd * k, static_cast<const float*>(wosc) + l * k,
+        static_cast<const float*>(bo) + l * k, q, qs, static_cast<bf16*>(qkv),
+        static_cast<bf16*>(attn), md, B, S, K, H, false, true, eps, st);
+    if (e1 != cudaSuccess) return (int)e1;
+    const cudaError_t e2 = uml::run_mlp_block_q8(
+        md, static_cast<const int8_t*>(w1q) + l * k * m, static_cast<const float*>(w1sc) + l * m,
+        static_cast<const float*>(b1) + l * m, static_cast<const int8_t*>(w2q) + l * m * k,
+        static_cast<const float*>(w2sc) + l * k, static_cast<const float*>(b2) + l * k, q, qs,
+        static_cast<float*>(pre), o, rows, K, M, eps, st);
+    if (e2 != cudaSuccess) return (int)e2;
+    cur = o;
+  }
+  return (int)cudaSuccess;
+}

@@ -1,7 +1,7 @@
 """CLIP ViT in PyTorch: image tower on uint8 pixels, causal text tower.
 
-The port of uml_tpu/models/clip.py for the ViT configs (the RN towers and
-the int8 serving modes come later).  Parameter names and shapes follow
+The port of uml_tpu/models/clip.py for the ViT configs (the RN towers come
+later).  Parameter names and shapes follow
 the OpenAI CLIP state_dict schema (``visual.conv1.weight``,
 ``visual.transformer.resblocks.0.attn.in_proj_weight``, ...), the schema
 that uml_tpu/models/port_torch.py reads, so an OpenAI ``.pt`` loads as is.
@@ -35,11 +35,26 @@ every source parameter's storage and version counter, so loading a
 state_dict, an optimizer step or moving the model rebuilds it.  The text
 tower runs forward only (text_tower has no backward yet) and raises if a
 gradient is asked of it.
+
+Int8 serving (``quant``, clip.py:204-263, 351-438): ``int8`` runs both
+half-blocks of every full layer W8A8 (ops.quant), ``int8_mlp`` /
+``int8_attn`` one half with the other bf16, ``int8_qkv`` the int8 MLP and
+an attention half whose out-projection stays bf16.  The last image layer
+(CLS row only), ``ln_post`` and ``proj`` stay bf16 in every mode.  The
+text tower runs per layer, causal, through the same halves (never
+text_tower).  The int8 path folds the LN into the fp32 QKV and c_fc
+weights and quantizes those; out_proj and c_proj are cast to the compute
+dtype first (clip.py:192-199, 234-257); the quantized weights are cached
+like the folded ones.  ``UML_TOWER_Q8=1`` runs the L-1 full int8 image
+layers through tower_q8 in one call ("0" and "auto": per layer, as
+uml_tpu's gate has it).  Inference-only: a quant mode raises when autograd
+would want a gradient.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass
 
 import torch
@@ -50,7 +65,15 @@ from uml_tpu_torch.ops.fused_attention import (AttnBlockClsFn, AttnBlockFn,
                                                fold_ln_into_matmul)
 from uml_tpu_torch.ops.ln_matmul import MlpBlockFn, mlp_block, raw_layer_norm
 from uml_tpu_torch.ops.patch_embed import patch_embed_u8
+from uml_tpu_torch.ops.quant import (attn_block_q8, check_inference,
+                                     mlp_block_q8, quantize_weight)
 from uml_tpu_torch.ops.text_tower import text_tower
+from uml_tpu_torch.ops.tower_q8 import supports_tower_q8, tower_q8
+
+# which half-blocks run W8A8 in each serving mode (clip.py:209-212):
+# "attn_qkv" is the int8 QKV with a bf16 out-projection (q8_out=False)
+Q8_HALVES = {"none": (), "int8": ("attn", "mlp"), "int8_mlp": ("mlp",),
+             "int8_attn": ("attn",), "int8_qkv": ("attn_qkv", "mlp")}
 
 
 @dataclass(frozen=True)
@@ -160,6 +183,7 @@ class ResidualAttentionBlock(nn.Module):
         self.mlp = MLP(width)
         self.ln_2 = LayerNorm(width)
         self._folded = _Cached()
+        self._q8 = _Cached()
 
     def _fold(self, dtype):
         w_eff, b_eff = fold_ln_into_matmul(
@@ -186,11 +210,62 @@ class ResidualAttentionBlock(nn.Module):
             return self._fold(dtype)
         return self._folded.get(params, dtype, lambda: self._fold(dtype))
 
-    def forward(self, x, cls_only: bool = False):
-        """Non-causal layer (image tower; the causal text layers run
-        through text_tower).  ``cls_only``: the attention half keeps only
-        the CLS row, so the output is [B, 1, K] (row 0 of the full
-        layer)."""
+    def _quantize(self, dtype):
+        """The int8 path's weights: the LN folded into the fp32 QKV and
+        c_fc weights, out_proj and c_proj cast to ``dtype``, each
+        quantized per output column (quant.py:480-535)."""
+        w_eff, b_eff = fold_ln_into_matmul(
+            self.ln_1.weight, self.ln_1.bias, self.attn.in_proj_weight.t(),
+            self.attn.in_proj_bias)
+        w1_eff, b1_eff = fold_ln_into_matmul(
+            self.ln_2.weight, self.ln_2.bias, self.mlp.c_fc.weight.t(),
+            self.mlp.c_fc.bias)
+        quantized = (quantize_weight(w_eff)
+                     + quantize_weight(self.attn.out_proj.weight.to(dtype).t())
+                     + quantize_weight(w1_eff)
+                     + quantize_weight(self.mlp.c_proj.weight.to(dtype).t()))
+        wq, wsc, woq, wosc, w1q, w1sc, w2q, w2sc = (t.contiguous()
+                                                    for t in quantized)
+        return (wq, wsc, b_eff, woq, wosc, self.attn.out_proj.bias.float(),
+                w1q, w1sc, b1_eff, w2q, w2sc, self.mlp.c_proj.bias.float())
+
+    def quantized(self, dtype):
+        """(wq, wsc, b_eff, woq, wosc, bo, w1q, w1sc, b1, w2q, w2sc, b2):
+        int8 weights [in, out] with fp32 column scales, fp32 biases;
+        cached, and inference-only."""
+        params = list(self.parameters())
+        check_inference("the int8 serving modes", *params)
+        return self._q8.get(params, dtype, lambda: self._quantize(dtype))
+
+    def _forward_q8(self, x, causal: bool, halves):
+        """A full layer with the int8 halves of ``halves`` (Q8_HALVES); the
+        other half, and the bf16 out-projection of int8_qkv, run on the
+        bf16 folded weights."""
+        (wq, wsc, b_eff, woq, wosc, bo, w1q, w1sc, b1, w2q, w2sc,
+         b2) = self.quantized(x.dtype)
+        folded = None if halves == Q8_HALVES["int8"] else self.folded(x.dtype)
+        if "attn" in halves:
+            x = attn_block_q8(x, wq, wsc, b_eff, (woq, wosc), bo,
+                              heads=self.heads, causal=causal)
+        elif "attn_qkv" in halves:
+            wo = folded[2].to(torch.bfloat16)  # bf16 whatever the dtype
+            x = attn_block_q8(x, wq, wsc, b_eff, (wo,), bo,
+                              heads=self.heads, causal=causal, q8_out=False)
+        else:
+            x = attn_block(x, *folded[:4], heads=self.heads, causal=causal)
+        if "mlp" in halves:
+            return mlp_block_q8(x, w1q, w1sc, b1, w2q, w2sc, b2)
+        return mlp_block(x, *folded[4:])
+
+    def forward(self, x, cls_only: bool = False, causal: bool = False,
+                quant: str = "none"):
+        """One layer.  ``cls_only``: the attention half keeps only the
+        CLS row, so the output is [B, 1, K] (row 0 of the full layer).
+        ``causal``: the text tower's mask (the int8 text path; the bf16
+        text layers run through text_tower).  ``quant``: a serving mode
+        of Q8_HALVES for a full layer; the CLS layer stays bf16."""
+        if Q8_HALVES[quant] and not cls_only:
+            return self._forward_q8(x, causal, Q8_HALVES[quant])
         w_eff, b_eff, wo, bo, w1, b1, w2, b2 = self.folded(x.dtype)
         if _needs_grad(x, w_eff, b_eff, wo, bo, w1, b1, w2, b2):
             if cls_only:
@@ -198,12 +273,13 @@ class ResidualAttentionBlock(nn.Module):
                                          1e-5)
             else:
                 x = AttnBlockFn.apply(x, w_eff, b_eff, wo, bo, self.heads,
-                                      False, 1e-5)
+                                      causal, 1e-5)
             return MlpBlockFn.apply(x, w1, b1, w2, b2, 1e-5)
         if cls_only:
             x = attn_block_cls(x, w_eff, b_eff, wo, bo, heads=self.heads)
         else:
-            x = attn_block(x, w_eff, b_eff, wo, bo, heads=self.heads)
+            x = attn_block(x, w_eff, b_eff, wo, bo, heads=self.heads,
+                           causal=causal)
         return mlp_block(x, w1, b1, w2, b2)
 
 
@@ -214,13 +290,48 @@ class Transformer(nn.Module):
         self.resblocks = nn.ModuleList(
             [ResidualAttentionBlock(width, heads) for _ in range(layers)])
         self._stacked = _Cached()
+        self._stacked_q8 = _Cached()
 
-    def forward(self, x, cls_only_last: bool = False):
-        """The image tower's per-layer path."""
+    def forward(self, x, cls_only_last: bool = False, causal: bool = False,
+                quant: str = "none"):
+        """The per-layer path (the image tower; the text tower under a
+        quant mode), or tower_q8 over the full int8 layers under
+        ``UML_TOWER_Q8=1``."""
         last = len(self.resblocks) - 1
+        if self._use_tower_q8(x, causal, cls_only_last, quant):
+            n_full = len(self.resblocks) - (1 if cls_only_last else 0)
+            x = tower_q8(x, *self.stacked_q8(x.dtype, n_full),
+                         heads=self.heads)
+            if cls_only_last:
+                x = self.resblocks[last](x, cls_only=True)
+            return x
         for i, block in enumerate(self.resblocks):
-            x = block(x, cls_only=cls_only_last and i == last)
+            x = block(x, cls_only=cls_only_last and i == last, causal=causal,
+                      quant=quant)
         return x
+
+    def _use_tower_q8(self, x, causal, cls_only_last, quant) -> bool:
+        """uml_tpu's UML_TOWER_Q8 gate (clip.py:411-438): "1" runs the
+        tower when the mode is int8, the tower non-causal, a full layer
+        exists and the kernels take the shape; "0" and "auto" (the
+        default) keep the per-layer path."""
+        if os.environ.get("UML_TOWER_Q8", "auto") != "1":
+            return False
+        width = x.shape[-1]
+        return (not causal and quant == "int8" and x.ndim == 3
+                and len(self.resblocks) > (1 if cls_only_last else 0)
+                and supports_tower_q8(width, self.heads, width // self.heads,
+                                      x.shape[1], 4 * width))
+
+    def stacked_q8(self, dtype, n_layers: int):
+        """The first ``n_layers`` layers' int8 weights stacked on a
+        leading layer axis — the operands of tower_q8 (cached)."""
+        def build():
+            per_layer = [b.quantized(dtype) for b in self.resblocks[:n_layers]]
+            return tuple(torch.stack(t) for t in zip(*per_layer))
+        params = list(self.parameters())
+        check_inference("the int8 serving modes", *params)
+        return self._stacked_q8.get(params, (dtype, n_layers), build)
 
     def stacked(self, dtype):
         """Every layer's folded weights stacked on a leading layer axis —
@@ -253,7 +364,8 @@ class VisionTransformer(nn.Module):
         self.ln_post = LayerNorm(w)
         self.proj = nn.Parameter(torch.empty(w, cfg.embed_dim))
 
-    def forward(self, images_u8, dtype, return_tokens: bool = False):
+    def forward(self, images_u8, dtype, return_tokens: bool = False,
+                quant: str = "none"):
         """uint8 [B, H*W*3] (flat) or [B, H, W, 3] -> features [B, E] fp32,
         or with ``return_tokens`` all tokens [B, g*g+1, W] in ``dtype``."""
         cfg = self.cfg
@@ -265,7 +377,7 @@ class VisionTransformer(nn.Module):
         cls = self.class_embedding.to(dtype).expand(b, 1, -1)
         x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(dtype)
         x = self.ln_pre(x)
-        x = self.transformer(x, cls_only_last=not return_tokens)
+        x = self.transformer(x, cls_only_last=not return_tokens, quant=quant)
         if return_tokens:
             return x
         x = self.ln_post(x[:, 0])
@@ -276,10 +388,15 @@ class CLIP(nn.Module):
     """Image tower ``visual`` + the text tower's parameters at the top
     level, as in the OpenAI schema."""
 
-    def __init__(self, config: ClipConfig, dtype=torch.float32):
+    def __init__(self, config: ClipConfig, dtype=torch.float32,
+                 quant: str = "none"):
         super().__init__()
+        if quant not in Q8_HALVES:
+            raise ValueError(f"Unknown quant mode {quant!r}; have "
+                             f"{'/'.join(Q8_HALVES)}")
         self.config = config
         self.dtype = dtype
+        self.quant = quant
         cfg = config
         self.visual = VisionTransformer(cfg)
         self.transformer = Transformer(cfg.transformer_width,
@@ -322,7 +439,8 @@ class CLIP(nn.Module):
 
     def encode_image_u8(self, images_u8, return_tokens: bool = False):
         """uint8 images: CLIP normalization folded into the patch embed."""
-        return self.visual(images_u8, self.dtype, return_tokens=return_tokens)
+        return self.visual(images_u8, self.dtype, return_tokens=return_tokens,
+                           quant=self.quant)
 
     def encode_text(self, tokens, return_eot: bool = False,
                     return_tokens: bool = False):
@@ -334,8 +452,13 @@ class CLIP(nn.Module):
         # gather, then cast: the same values as casting the whole table
         x = (self.token_embedding.weight[tokens].to(dt)
              + self.positional_embedding[:s].to(dt))
-        x = text_tower(x, *self.transformer.stacked(dt),
-                       heads=self.transformer.heads)
+        if self.quant == "none":
+            x = text_tower(x, *self.transformer.stacked(dt),
+                           heads=self.transformer.heads)
+        else:
+            # under a quant mode the text layers run one by one, causal
+            # (uml_tpu's whole-tower text kernel is bf16 only, clip.py:447)
+            x = self.transformer(x, causal=True, quant=self.quant)
         eot = tokens.argmax(dim=-1)
         if return_tokens:
             x = self.ln_final(x)
@@ -347,10 +470,11 @@ class CLIP(nn.Module):
         return (out, eot) if return_eot else out
 
 
-def build_clip(name: str, dtype=torch.float32) -> CLIP:
+def build_clip(name: str, dtype=torch.float32, quant: str = "none") -> CLIP:
     """An uninitialised CLIP of a named ViT config (fill it with
-    ``init_random`` or ``load_state_dict``)."""
+    ``init_random`` or ``load_state_dict``); ``quant`` a serving mode of
+    Q8_HALVES (unknown modes raise)."""
     if name not in CLIP_CONFIGS:
         raise ValueError(f"Unknown CLIP encoder {name!r}; the port has "
                          f"{list(CLIP_CONFIGS)} (RN50/RN101 come later)")
-    return CLIP(CLIP_CONFIGS[name], dtype=dtype)
+    return CLIP(CLIP_CONFIGS[name], dtype=dtype, quant=quant)

@@ -62,15 +62,16 @@ def clip_weights_path(name: str) -> str | None:
 
 
 def load_clip(name: str, dtype=torch.bfloat16,
-              allow_random_init: bool = False) -> CLIP:
-    """-> CLIP (fp32 parameters on the CPU, forward in ``dtype``), from
+              allow_random_init: bool = False, quant: str = "none") -> CLIP:
+    """-> CLIP (fp32 parameters on the CPU, forward in ``dtype``, serving
+    mode ``quant``: none or an int8 mode of models.clip.Q8_HALVES), from
     the local checkpoint when there is one, else random init from a
     generator seeded with 0."""
     path = clip_weights_path(name)
     if path is not None:
         verify_clip_sha256(name, path)
         print(f"=> Loading CLIP weights from {path}")
-        return load_clip_checkpoint(path, dtype=dtype)
+        return load_clip_checkpoint(path, dtype=dtype, quant=quant)
     if not allow_random_init:
         raise FileNotFoundError(
             f"No CLIP weights for {name!r}. Set UML_CLIP_WEIGHTS_DIR to a "
@@ -78,7 +79,7 @@ def load_clip(name: str, dtype=torch.bfloat16,
             f"({name.replace('/', '-')}.pt), or pass --allow-random-init "
             "for smoke testing.")
     print(f"=> [random-init] CLIP {name} (no pretrained weights found)")
-    return build_clip(name, dtype=dtype).init_random(
+    return build_clip(name, dtype=dtype, quant=quant).init_random(
         torch.Generator().manual_seed(0))
 
 
@@ -93,14 +94,17 @@ class ClipEncoder:
 
     ``model`` is the CLIP on ``device`` (fp32 parameters, forward in
     ``dtype``); the finetune CLI trains a copy of it on the full-model path.
+    ``device`` defaults to the card (core.device.default_device);
+    ``quant`` is the int8 serving mode (inference-only).
     """
 
     def __init__(self, name: str, dtype=torch.bfloat16,
                  allow_random_init: bool = False, device=None,
-                 check_finite: bool = False):
+                 check_finite: bool = False, quant: str = "none"):
         self.name = name
         self.device = torch.device(device) if device is not None else default_device()
-        self.model = load_clip(name, dtype, allow_random_init).to(self.device).eval()
+        self.model = load_clip(name, dtype, allow_random_init,
+                               quant=quant).to(self.device).eval()
         self.check_finite = check_finite
 
     def stage_images(self, imgs_uint8: np.ndarray):

@@ -58,10 +58,11 @@ def read_state_dict(path: str) -> dict:
     return {k: v for k, v in obj.items() if k not in _NON_PARAM_KEYS}
 
 
-def load_clip_checkpoint(path: str, dtype=torch.float32) -> CLIP:
+def load_clip_checkpoint(path: str, dtype=torch.float32,
+                         quant: str = "none") -> CLIP:
     """Read a CLIP checkpoint -> CLIP (fp32 parameters on the CPU) whose
-    forward runs in ``dtype``."""
+    forward runs in ``dtype`` and the serving mode ``quant``."""
     sd = read_state_dict(path)
-    model = CLIP(config_from_state_dict(sd), dtype=dtype)
+    model = CLIP(config_from_state_dict(sd), dtype=dtype, quant=quant)
     model.load_state_dict(sd)
     return model

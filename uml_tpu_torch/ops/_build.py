@@ -52,6 +52,15 @@ SIGNATURES = {
     # x, w_eff, b_eff, wo, bo, w1, b1, w2, b2, qkv, attn, hidden, mid, out,
     # B, S, K, H, M, L, eps, stream
     "uml_text_tower": [_P] * 14 + [_I] * 6 + [_F, _P],
+    # x, wq, wsc, b_eff, wo, wosc, bo, q8, qscale, qkv, attn, out, B, S, K,
+    # H, causal, q8_out, eps, stream
+    "uml_attn_block_q8": [_P] * 12 + [_I] * 6 + [_F, _P],
+    # x, w1q, w1sc, b1, w2q, w2sc, b2, q8, qscale, pre, out, rows, K, M,
+    # eps, stream
+    "uml_mlp_block_q8": [_P] * 11 + [_I] * 3 + [_F, _P],
+    # x, wq, wsc, b_eff, woq, wosc, bo, w1q, w1sc, b1, w2q, w2sc, b2, q8,
+    # qscale, qkv, attn, pre, mid, out, B, S, K, H, M, L, eps, stream
+    "uml_tower_q8": [_P] * 20 + [_I] * 6 + [_F, _P],
 }
 
 
