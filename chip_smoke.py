@@ -9,14 +9,16 @@ Phases (any failure exits non-zero; no phase is caught):
    every hand-written kernel from ``uml_tpu_torch/csrc`` (nvcc, sm_90a).
 2. kernels: each port (attn_block non-causal, attn_block_cls, mlp_block at
    ViT-B/16 widths; causal attn_block and the 12-layer text_tower at the
-   CLIP text widths; the training ports; the int8 attn_block_q8 with an
-   int8 and a bf16 out-projection, mlp_block_q8 and the 11-layer tower_q8
-   at ViT-B/16 widths, causal attn_block_q8 at the text widths) against
-   its plain PyTorch version on the same inputs, within the stated
-   bounds, timed with CUDA events, with its bound (the least time the card
-   could take) and a cuBLAS GEMM yardstick at its largest product.  The
-   int8 halves also compare their activation integers with the plain
-   version's: no integer may differ by more than one step.
+   CLIP text widths; the training ports, the recompute backwards
+   attn_block_bwd_recompute (also causal at the text widths), mlp_bwd and
+   mlp_bwd_dw among them; the int8 attn_block_q8 with an int8 and a bf16
+   out-projection, mlp_block_q8 and the 11-layer tower_q8 at ViT-B/16
+   widths, causal attn_block_q8 at the text widths) against its plain
+   PyTorch version on the same inputs, within the stated bounds, timed
+   with CUDA events, with its bound (the least time the card could take)
+   and a cuBLAS GEMM yardstick at its largest product.  The int8 halves
+   also compare their activation integers with the plain version's: no
+   integer may differ by more than one step.
 3. main path: generate_fewshot and features on a synthetic caltech-layout
    fixture with a random-init ViT-B/16; the .pth caches must hold finite
    width-512 features, the encoder must live on the card, every port's
@@ -35,11 +37,21 @@ Phases (any failure exits non-zero; no phase is caught):
    over the tree.  The artifacts must hold finite scalars, each path's
    launch counters must have moved by the expected count (per full-model
    step 11 attn_block_stash, 11 attn_block_bwd, 1 attn_block_cls_bwd and
-   12 mlp_block_stash), and the tower must have moved.  One bs-4 train step
-   of a random-init ViT-B/16 head on the card against the same model and
-   batch on the CPU (plain path): loss and per-tensor gradient cosines
-   within the stated bounds.  Then the steady-state full-model train step
-   (forward, backward, adamw) at bs 64 in img/s, with a profile.
+   12 mlp_block_stash), and the tower must have moved.  Then smoke_full
+   twice more with both stashes off (UML_BWD_STASH=0 UML_MLP_STASH=0),
+   under UML_MLP_BWD=kernel and =dw: per step 11 attn_block, 11
+   attn_block_bwd_recompute, 1 attn_block_cls, 1 attn_block_cls_bwd, 12
+   mlp_block and 12 mlp_bwd (or mlp_bwd_dw), no stash launch, and the
+   tower moved.  One bs-4 train step of a random-init ViT-B/16 head on
+   the card against the same model and batch on the CPU (plain path):
+   loss and per-tensor gradient cosines within the stated bounds, in the
+   default mode and in both recompute modes.  Then the steady-state
+   full-model train step (forward, backward, adamw) in img/s with its
+   peak memory and a profile: at bs 64 with the stashes and in the three
+   recompute modes (plain MLP backward, kernel, dw); at bs 256 under the
+   default gate (the MLP stash turns itself off) with the plain MLP
+   backward, kernel and dw; and bs 256 as 2 x 128 through
+   train/accum.py with both stashes on.
 5. the kernel table as one JSON line, the device line last.
 
 The script needs nothing of JAX.  Without a CUDA device, or outside a
@@ -48,6 +60,7 @@ checkout of the repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
@@ -83,10 +96,21 @@ PORTS = [
      "uml_tpu/ops/quant.py:228"),
     ("tower_q8", "uml_tpu_torch/csrc/tower_q8.cu",
      "uml_tpu/ops/tower_q8.py:49"),
+    ("attn_block_bwd_recompute", "uml_tpu_torch/csrc/attn_block_bwd.cu",
+     "uml_tpu/ops/fused_attention.py:722"),
+    ("mlp_bwd", "uml_tpu_torch/csrc/mlp_block_bwd.cu",
+     "uml_tpu/ops/ln_matmul.py:310"),
+    ("mlp_bwd_dw", "uml_tpu_torch/csrc/mlp_block_bwd.cu",
+     "uml_tpu/ops/ln_matmul.py:417"),
 ]
 TRAIN_PORTS = ("attn_block_stash", "attn_block_bwd", "attn_block_cls_bwd",
                "mlp_block_stash")
 Q8_PORTS = ("attn_block_q8", "mlp_block_q8", "tower_q8")
+RECOMPUTE_PORTS = ("attn_block_bwd_recompute", "mlp_bwd", "mlp_bwd_dw")
+# the backward modes of the full-model train step: the environment of each
+RECOMPUTE = {"UML_BWD_STASH": "0", "UML_MLP_STASH": "0"}
+RECOMPUTE_MODES = {"kernel": {**RECOMPUTE, "UML_MLP_BWD": "kernel"},
+                   "dw": {**RECOMPUTE, "UML_MLP_BWD": "dw"}}
 
 # Kernel vs plain version, bf16 on the card.  Both compute the same math
 # with fp32 accumulation; they differ in summation order, so an
@@ -106,7 +130,10 @@ REL_BOUND = {"attn_block": 1 / 64, "attn_block_cls": 1 / 64,
              "attn_block_bwd": 1 / 64, "attn_block_cls_bwd": 1 / 64,
              "mlp_block_stash": 1 / 64, "attn_block_q8": 1 / 64,
              "attn_block_q8_qkv": 1 / 64, "attn_block_q8_causal": 1 / 64,
-             "mlp_block_q8": 1 / 64, "tower_q8": 1 / 16}
+             "mlp_block_q8": 1 / 64, "tower_q8": 1 / 16,
+             "attn_block_bwd_recompute": 1 / 64,
+             "attn_block_bwd_recompute_causal": 1 / 64, "mlp_bwd": 1 / 64,
+             "mlp_bwd_dw": 1 / 64}
 # dense peaks of an H100 SXM at 700 W (NVIDIA's data sheet): the bound of a
 # kernel is max(bytes / PEAK_BYTES, int8 ops / PEAK_INT8 + bf16 FLOPs /
 # PEAK_BF16), bytes = every input read once and every output written once
@@ -129,6 +156,21 @@ def _check(ok, what) -> None:
     ``python -O`` too)."""
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+@contextlib.contextmanager
+def _env(changes):
+    """Set the environment variables of ``changes`` for the block."""
+    old = {k: os.environ.get(k) for k in changes}
+    os.environ.update(changes)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def _gpu_line() -> str:
@@ -316,7 +358,11 @@ def phase_kernels():
     _, qkv_c, _ = fa.attn_block_stash_plain(xv, *attn_v, heads=12, q_rows=1)
     g_v = torch.randn(64, 197, 768, generator=gen, device=dev).to(bf)
     g_c = torch.randn(64, 1, 768, generator=gen, device=dev).to(bf)
+    g_t = torch.randn(bt, st, kt, generator=gen, device=dev).to(bf)
     w_eff, wo = wv["w_eff"], wv["wo"]
+    # the MLP backward kernels: dy = g . w2^T in bf16 (what mlp_bwd takes)
+    dy_v = torch.matmul(g_v, wv["w2"].t())
+    mlp_bwd_v = (wv["b1"], wv["w1"])
     # the int8 ports: one quantized ViT-B/16 layer, the 11 full layers of
     # the image tower, one quantized text layer
     q8v = _q8_case_weights(gen, k, m, k, dev)
@@ -376,6 +422,29 @@ def phase_kernels():
         ("mlp_block_stash", lambda: lm.mlp_block_stash(xv, *mlp_v),
          lambda: lm.mlp_block_stash_plain(xv, *mlp_v), (xv, *mlp_v), 0, mlp_f,
          vit_fc),
+        # the recompute (the QKV product and the attention forward), then
+        # the stash backward's work
+        ("attn_block_bwd_recompute",
+         lambda: fa.attn_block_bwd_recompute(xv, g_v, *attn_v[:3], heads=12),
+         lambda: fa.attn_block_bwd_recompute_plain(xv, g_v, *attn_v[:3],
+                                                   heads=12),
+         (xv, g_v, *attn_v[:3]), 0, 2 * qkv_f + out_f + 3.5 * attn_f, vit_qkv),
+        ("attn_block_bwd_recompute_causal",
+         lambda: fa.attn_block_bwd_recompute(xt, g_t, *attn_t[:3], heads=8,
+                                             causal=True),
+         lambda: fa.attn_block_bwd_recompute_plain(xt, g_t, *attn_t[:3],
+                                                   heads=8, causal=True),
+         (xt, g_t, *attn_t[:3]), 0,
+         4.0 * rows_t * kt * 3 * kt + 2.0 * rows_t * kt * kt + 3.5 * text_attn_f,
+         (rows_t, kt, 3 * kt, False)),
+        # pre = xn . w1 and dxn = dpre . w1^T
+        ("mlp_bwd", lambda: lm.mlp_bwd(xv, dy_v, *mlp_bwd_v),
+         lambda: lm.mlp_bwd_plain(xv, dy_v, *mlp_bwd_v), (xv, dy_v, *mlp_bwd_v),
+         0, mlp_f, vit_fc),
+        # dy, pre, dxn, dw1 and dw2: five [rows] x [K] x [M] products
+        ("mlp_bwd_dw", lambda: lm.mlp_bwd_dw(xv, g_v, *mlp_bwd_v, wv["w2"]),
+         lambda: lm.mlp_bwd_dw_plain(xv, g_v, *mlp_bwd_v, wv["w2"]),
+         (xv, g_v, *mlp_bwd_v, wv["w2"]), 0, 2.5 * mlp_f, vit_fc),
         ("attn_block_q8", lambda: q8.attn_block_q8(xv, *q8_attn, heads=12),
          lambda: q8.attn_block_q8_plain(xv, *q8_attn, heads=12),
          (xv, *q8v[:6]), qkv_f + out_f, attn_f, (rows, k, 3 * k, True)),
@@ -404,26 +473,30 @@ def phase_kernels():
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
-        err, rel = 0.0, 0.0
+        err, rels = 0.0, []
         for a, b_ in zip(got, want, strict=True):
             _check(a.shape == b_.shape, (name, a.shape, b_.shape))
             _check(bool(torch.isfinite(a.float()).all()), f"{name}: non-finite")
             e = (a.float() - b_.float()).abs().max().item()
             scale = b_.float().abs().max().item()
             _check(e <= REL_BOUND[name] * scale, f"{name}: {e} > bound of {scale}")
-            err, rel = max(err, e), max(rel, e / scale)
+            err = max(err, e)
+            rels.append(e / scale)
+        rel = max(rels)
         ms = _time_ms(kernel_fn)
         plain_ms = _time_ms(plain_fn, iters=5 if name == "tower_q8" else 20)
         bound_ms, bound_by = _bound(inputs, got, ops8, flops16)
         yard_call, yard_ms = _yardstick(*yard[:3], yard[3], dev)
         print(f"[kernels] {name:20s} shapes {[tuple(a.shape) for a in got]} "
               f"max_abs_err {err:.5f} max_rel_err {rel:.5f} (bound "
-              f"{REL_BOUND[name]:.5f}) kernel {ms:.4f} ms plain "
-              f"{plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) "
+              f"{REL_BOUND[name]:.5f}; per output "
+              f"{', '.join(f'{r:.2e}' for r in rels)}) kernel {ms:.4f} ms "
+              f"plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) "
               f"yardstick {yard_call} {yard_ms:.4f} ms")
-        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                         "bound_ms": bound_ms, "bound_by": bound_by,
-                         "yardstick": yard_call, "yardstick_ms": yard_ms}
+        results[name] = {"max_abs_err": err, "max_rel_err": rel, "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "yardstick": yard_call,
+                         "yardstick_ms": yard_ms}
     flips = _int8_flips(xv, q8v)
     for half, (share, worst) in flips.items():
         print(f"[kernels] int8 integers, {half}: {100 * share:.4f}% differ "
@@ -448,7 +521,9 @@ def _wrappers():
             "attn_block_cls_bwd": fa.attn_block_cls_bwd,
             "mlp_block_stash": lm.mlp_block_stash,
             "attn_block_q8": q8.attn_block_q8, "mlp_block_q8": q8.mlp_block_q8,
-            "tower_q8": tq8.tower_q8}
+            "tower_q8": tq8.tower_q8,
+            "attn_block_bwd_recompute": fa.attn_block_bwd_recompute,
+            "mlp_bwd": lm.mlp_bwd, "mlp_bwd_dw": lm.mlp_bwd_dw}
 
 
 def _counted(fn):
@@ -699,9 +774,9 @@ def phase_int8_path(root, sizes, bf16_encoder):
     return launches, numbers
 
 
-def _finetune(root, grid, wrappers):
-    """One finetune CLI run -> (launch counts, wall seconds, the combo's
-    test_result, the sweep's results)."""
+def _finetune(root, grid, wrappers, result_dir="experiments"):
+    """One finetune CLI run into ``root/result_dir`` -> (launch counts,
+    wall seconds, the combo's test_result)."""
     import torch
 
     from uml_tpu_torch.cli import finetune as ft
@@ -710,7 +785,7 @@ def _finetune(root, grid, wrappers):
     args = ft.build_parser().parse_args([
         "--data_dir", root, "--indices_dir", f"{root}/indices",
         "--feature_dir", f"{root}/features", "--result_dir",
-        f"{root}/experiments", "--dataset", "caltech101",
+        f"{root}/{result_dir}", "--dataset", "caltech101",
         "--clip-encoder", "ViT-B/16", "--allow-random-init",
         "--train-shot", "16", "--seed", "1", "--text_type", "hand_crafted",
         "--modality", "crossmodal", "--alpha", "1", "--hyperparams", grid])
@@ -746,12 +821,30 @@ def np_flat(v):
     return [float(x) for x in np.asarray(v, np.float64).reshape(-1)]
 
 
-def phase_train(root, sizes):
-    """-> ({port name: launches} of the full-model run, numbers)."""
+def _check_tower_moved(result, what):
+    """The saved best model is the iter-0 snapshot: one adamw step from the
+    encoder's random init (generator seed 0); every image-tower tensor
+    must differ from the init."""
     import torch
 
-    from uml_tpu_torch.cli import collect_results as cr
     from uml_tpu_torch.models.clip import build_clip
+
+    init = build_clip("ViT-B/16").init_random(
+        torch.Generator().manual_seed(0)).state_dict()
+    trained = result["model"]["backbone"]
+    visual = [k for k in init if k.startswith("visual.")]
+    moved = [k for k in visual
+             if (torch.as_tensor(trained[k]) - init[k]).abs().max().item() > 0]
+    _check(len(moved) == len(visual), (what, "tower tensors moved", len(moved),
+                                       len(visual)))
+    print(f"[train] {what}: every one of the {len(visual)} image-tower "
+          f"tensors moved")
+
+
+def phase_train(root, sizes):
+    """-> ({port name: launches} of the stash full-model run, {port name:
+    launches} of the recompute runs, numbers)."""
+    from uml_tpu_torch.cli import collect_results as cr
     from uml_tpu_torch.ops import fused_attention as fa
     from uml_tpu_torch.ops import ln_matmul as lm
 
@@ -760,15 +853,16 @@ def phase_train(root, sizes):
                 "attn_block_stash": fa.attn_block_stash,
                 "attn_block_bwd": fa.attn_block_bwd,
                 "attn_block_cls_bwd": fa.attn_block_cls_bwd,
-                "mlp_block_stash": lm.mlp_block_stash}
+                "mlp_block_stash": lm.mlp_block_stash,
+                "attn_block_bwd_recompute": fa.attn_block_bwd_recompute,
+                "mlp_bwd": lm.mlp_bwd, "mlp_bwd_dw": lm.mlp_bwd_dw}
+    none = dict.fromkeys(wrappers, 0)
     # frozen path: the three splits encoded once in batches of 128, then
     # head-only steps on the features
     frozen, frozen_wall, _ = _finetune(root, "smoke", wrappers)
     n_enc = sum(-(-sizes[p] // 128) for p in ("train", "val", "test"))
-    _check(frozen == {"attn_block": 11 * n_enc, "attn_block_cls": n_enc,
-                      "mlp_block": 12 * n_enc, "attn_block_stash": 0,
-                      "attn_block_bwd": 0, "attn_block_cls_bwd": 0,
-                      "mlp_block_stash": 0}, ("smoke launches", frozen))
+    _check(frozen == {**none, "attn_block": 11 * n_enc, "attn_block_cls": n_enc,
+                      "mlp_block": 12 * n_enc}, ("smoke launches", frozen))
 
     # full path: 30 steps at bs 8 through the training kernels; the forward
     # kernels validate (val at iter 0 and for the best model, test at the
@@ -776,22 +870,31 @@ def phase_train(root, sizes):
     full, full_wall, result = _finetune(root, "smoke_full", wrappers)
     steps = 30
     n_eval = 2 * -(-sizes["val"] // 8) + -(-sizes["test"] // 8)
-    want = {"attn_block": 11 * n_eval, "attn_block_cls": steps + n_eval,
-            "mlp_block": 12 * n_eval, "attn_block_stash": 11 * steps,
-            "attn_block_bwd": 11 * steps, "attn_block_cls_bwd": steps,
-            "mlp_block_stash": 12 * steps}
+    evals = {"attn_block": 11 * n_eval, "attn_block_cls": steps + n_eval,
+             "mlp_block": 12 * n_eval, "attn_block_cls_bwd": steps}
+    want = {**none, **evals, "attn_block_stash": 11 * steps,
+            "attn_block_bwd": 11 * steps, "mlp_block_stash": 12 * steps}
     _check(full == want, ("smoke_full launches", full, want))
-    # the saved best model is the iter-0 snapshot: one adamw step from the
-    # encoder's random init (generator seed 0)
-    init = build_clip("ViT-B/16").init_random(
-        torch.Generator().manual_seed(0)).state_dict()
-    trained = result["model"]["backbone"]
-    visual = [k for k in init if k.startswith("visual.")]
-    moved = [k for k in visual
-             if (torch.as_tensor(trained[k]) - init[k]).abs().max().item() > 0]
-    _check(len(moved) == len(visual), ("tower tensors moved", len(moved),
-                                       len(visual)))
-    print(f"[train] every one of the {len(visual)} image-tower tensors moved")
+    _check_tower_moved(result, "smoke_full")
+
+    # the same run with both stashes off: the forward kernels train, the
+    # recompute backwards run, and no stash kernel launches
+    numbers = {"finetune_smoke_wall_s": frozen_wall,
+               "finetune_smoke_full_wall_s": full_wall}
+    recompute = {}
+    for mode, env in RECOMPUTE_MODES.items():
+        with _env(env):
+            launches, wall, result = _finetune(root, "smoke_full", wrappers,
+                                               f"experiments_recompute_{mode}")
+        mlp_port = "mlp_bwd" if mode == "kernel" else "mlp_bwd_dw"
+        want = {**none, **evals, "attn_block": 11 * (n_eval + steps),
+                "mlp_block": 12 * (n_eval + steps),
+                "attn_block_bwd_recompute": 11 * steps, mlp_port: 12 * steps}
+        _check(launches == want, (f"smoke_full {mode} launches", launches, want))
+        _check_tower_moved(result, f"smoke_full UML_MLP_BWD={mode}")
+        recompute[mlp_port] = launches[mlp_port]
+        recompute["attn_block_bwd_recompute"] = launches["attn_block_bwd_recompute"]
+        numbers[f"finetune_smoke_full_{mode}_wall_s"] = wall
 
     summary = cr.collect_results(
         datasets="caltech101", seeds=1, encoders="ViT-B-16", train_shots=16,
@@ -807,11 +910,22 @@ def phase_train(root, sizes):
           f"{row['best_hparams']['max_iter']}: test "
           f"{row['mean_test_acc']:.4f} val {row['mean_val_acc']:.4f}")
 
-    numbers = {"finetune_smoke_wall_s": frozen_wall,
-               "finetune_smoke_full_wall_s": full_wall}
-    numbers.update(_card_vs_cpu_step())
-    numbers.update(_train_step_rate())
-    return full, numbers
+    numbers.update(_card_vs_cpu_step("default"))
+    for mode, env in RECOMPUTE_MODES.items():
+        with _env(env):
+            numbers.update(_card_vs_cpu_step(f"recompute_{mode}"))
+    # (tag, environment, microbatch) at bs 64, then at bs 256
+    numbers.update(_train_step_rates(64, [
+        ("stash", {}, None),
+        ("recompute_plain", RECOMPUTE, None),
+        ("recompute_kernel", RECOMPUTE_MODES["kernel"], None),
+        ("recompute_dw", RECOMPUTE_MODES["dw"], None)]))
+    numbers.update(_train_step_rates(256, [
+        ("gate_plain", {}, None),
+        ("gate_kernel", {"UML_MLP_BWD": "kernel"}, None),
+        ("gate_dw", {"UML_MLP_BWD": "dw"}, None),
+        ("accum_2x128", {}, 128)]))
+    return full, recompute, numbers
 
 
 def _head_and_batch(bsz, gen_seed=0):
@@ -848,9 +962,9 @@ def _loss(model, batch):
             + weighted_ce(txt @ model.head_w * s_txt, tlab, tw))
 
 
-def _card_vs_cpu_step():
+def _card_vs_cpu_step(mode):
     """One bs-4 forward + backward on the card and on the CPU plain path,
-    same weights and batch."""
+    same weights and batch, in the backward mode the environment sets."""
     import torch
 
     cpu_model, cpu_batch = _head_and_batch(4)
@@ -873,21 +987,26 @@ def _card_vs_cpu_step():
         cosines[key] = float((a * b).sum() / (a.norm() * b.norm() + 1e-30))
     worst = min(cosines, key=cosines.get)
     rel = abs(losses[0] - losses[1]) / abs(losses[1])
-    print(f"[train] bs-4 step card vs CPU: loss {losses[0]:.6f} vs "
+    print(f"[train] bs-4 step card vs CPU ({mode}): loss {losses[0]:.6f} vs "
           f"{losses[1]:.6f} (rel {rel:.2e}, bound {STEP_LOSS_RTOL}); "
           f"{len(cosines)} gradient tensors, min cosine "
           f"{cosines[worst]:.6f} ({worst}), bound {STEP_MIN_GRAD_COSINE}")
-    _check(rel <= STEP_LOSS_RTOL, ("bs-4 loss", losses))
-    _check(cosines[worst] >= STEP_MIN_GRAD_COSINE, ("gradient cosine", worst,
-                                                     cosines[worst]))
-    return {"step_loss_rel_err": rel, "step_min_grad_cosine": cosines[worst]}
+    _check(rel <= STEP_LOSS_RTOL, (mode, "bs-4 loss", losses))
+    _check(cosines[worst] >= STEP_MIN_GRAD_COSINE, (mode, "gradient cosine",
+                                                     worst, cosines[worst]))
+    suffix = "" if mode == "default" else f"_{mode}"
+    return {f"step_loss_rel_err{suffix}": rel,
+            f"step_min_grad_cosine{suffix}": cosines[worst]}
 
 
-def _train_step_rate(bsz=64, iters=10):
+def _train_step_rates(bsz, modes, iters=10):
     """Steady-state full-model train step (forward, backward, adamw) at
-    ``bsz`` on a staged batch, and its profile."""
+    ``bsz`` on a staged batch, in each mode of ``modes`` ((tag, environment,
+    microbatch or None), run in turn on one model), with its peak memory,
+    its phases and a profile."""
     import torch
 
+    from uml_tpu_torch.train.accum import microbatched_step
     from uml_tpu_torch.train.optim import build_optimizer, build_schedule
 
     model, batch = _head_and_batch(bsz)
@@ -895,50 +1014,73 @@ def _train_step_rate(bsz=64, iters=10):
     batch = tuple(t.to("cuda") for t in batch)
     opt = build_optimizer("adamw", build_schedule(5e-5, "cosine", 50, 12800),
                           0.01)
-    opt.init([p for p in model.parameters() if p.requires_grad])
+    params = [p for p in model.parameters() if p.requires_grad]
+    opt.init(params)
     it = iter(range(10 ** 6))
+    numbers = {}
+    for tag, env, micro in modes:
+        def step(marks=None):
+            """One step; ``marks``: four CUDA events recorded before the
+            forward, the backward and adamw, and after adamw (the
+            backward's kernels run on the forward's stream, from
+            autograd's thread).  With a microbatch the forward and the
+            backward of each slice alternate: their sum is the second
+            phase."""
+            def mark(i):
+                if marks is not None:
+                    marks[i].record()
 
-    def step(marks=None):
-        """One step; ``marks``: four CUDA events recorded before the
-        forward, the backward and adamw, and after adamw (the backward's
-        kernels run on the forward's stream, from autograd's thread)."""
-        def mark(i):
-            if marks is not None:
-                marks[i].record()
+            mark(0)
+            opt.zero_grad()
+            if micro is None:
+                loss = _loss(model, batch)
+                mark(1)
+                loss.backward()
+            else:
+                mark(1)
+                _, grads = microbatched_step(lambda *b: _loss(model, b), params,
+                                             *batch, microbatch=micro)
+                for p, g in zip(params, grads):
+                    p.grad.copy_(g)
+            mark(2)
+            opt.step(next(it))
+            mark(3)
 
-        mark(0)
-        opt.zero_grad()
-        loss = _loss(model, batch)
-        mark(1)
-        loss.backward()
-        mark(2)
-        opt.step(next(it))
-        mark(3)
-
-    for _ in range(3):
-        step()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    marks = [[torch.cuda.Event(enable_timing=True) for _ in range(4)]
-             for _ in range(iters)]
-    t0 = time.perf_counter()
-    for m in marks:
-        step(m)
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) / iters * 1e3
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    rate = bsz / (ms / 1e3)
-    phases = [sum(m[i].elapsed_time(m[i + 1]) for m in marks) / iters
-              for i in range(3)]
-    print(f"[train] full-model train step bs {bsz}: {ms:.3f} ms = {rate:.1f} "
-          f"img/s (forward, backward, adamw; peak memory {peak:.2f} GiB)")
-    print(f"[train] phases on the card's stream (CUDA events): forward "
-          f"{phases[0]:.3f} ms, backward {phases[1]:.3f} ms, adamw "
-          f"{phases[2]:.3f} ms")
-    _profile(f"train step bs {bsz}", step, top=16, by_op=True)
-    return {"train_step_ms_bs64": ms, "train_img_per_s_bs64": rate,
-            "train_peak_gib_bs64": peak, "train_forward_ms_bs64": phases[0],
-            "train_backward_ms_bs64": phases[1], "train_adamw_ms_bs64": phases[2]}
+        with _env(env):
+            for _ in range(3):
+                step()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            marks = [[torch.cuda.Event(enable_timing=True) for _ in range(4)]
+                     for _ in range(iters)]
+            t0 = time.perf_counter()
+            for m in marks:
+                step(m)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / iters * 1e3
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            rate = bsz / (ms / 1e3)
+            phases = [sum(m[i].elapsed_time(m[i + 1]) for m in marks) / iters
+                      for i in range(3)]
+            env_s = " ".join(f"{k}={v}" for k, v in env.items()) or "default env"
+            how = f", {bsz // micro} x {micro} through train/accum.py" if micro else ""
+            print(f"[train] full-model train step bs {bsz} {tag} ({env_s}"
+                  f"{how}): {ms:.3f} ms = {rate:.1f} img/s (forward, backward, "
+                  f"adamw; peak memory {peak:.2f} GiB)")
+            print(f"[train] phases on the card's stream (CUDA events): forward "
+                  f"{phases[0]:.3f} ms, backward {phases[1]:.3f} ms, adamw "
+                  f"{phases[2]:.3f} ms")
+            first = tag == "stash"
+            _profile(f"train step bs {bsz} {tag}", step, top=16 if first else 10,
+                     by_op=first)
+        # the bs-64 stash step keeps the keys of the earlier runs
+        key = f"bs{bsz}" if first else f"bs{bsz}_{tag}"
+        numbers.update({f"train_step_ms_{key}": ms, f"train_img_per_s_{key}": rate,
+                        f"train_peak_gib_{key}": peak,
+                        f"train_forward_ms_{key}": phases[0],
+                        f"train_backward_ms_{key}": phases[1],
+                        f"train_adamw_ms_{key}": phases[2]})
+    return numbers
 
 
 def _profile(what, fn, reps=3, top=10, by_op=False):
@@ -1002,25 +1144,29 @@ def main() -> int:
     int8_launches, int8_numbers = phase_int8_path(root, sizes, encoder)
     rate.update(int8_numbers)
     del encoder
-    train_launches, train_numbers = phase_train(root, sizes)
+    train_launches, recompute_launches, train_numbers = phase_train(root, sizes)
     rate.update(train_numbers)
     # each port's launches come from the path it belongs to: the bf16
     # serving kernels from the features run, the int8 ones from the
     # features --quant int8 run and its tower encode, the training kernels
-    # from the full-model finetune run
+    # from the full-model finetune run, the recompute backwards from the
+    # finetune runs with both stashes off
     launches = {**launches,
                 **{k: int8_launches[k] for k in Q8_PORTS},
-                **{k: train_launches[k] for k in TRAIN_PORTS}}
+                **{k: train_launches[k] for k in TRAIN_PORTS},
+                **{k: recompute_launches[k] for k in RECOMPUTE_PORTS}}
     _check(all(launches[name] > 0 for name, _, _ in PORTS), launches)
     table = []
     for name, source, replaces in PORTS:
         row = kernels[name]
         table.append({"name": name, "route": "cuda", "source": source,
                       "replaces": replaces, "launches": launches[name],
-                      "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                      "max_abs_err": row["max_abs_err"],
+                      "max_rel_err": row["max_rel_err"], "ms": row["ms"],
                       "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                       "bound_by": row["bound_by"],
-                      # no one PyTorch call computes a half-block or a tower
+                      # no one PyTorch call computes a half-block, a tower
+                      # or a half-block's backward
                       "library_ms": None,
                       "gemm_yardstick": row["yardstick"],
                       "gemm_yardstick_ms": row["yardstick_ms"]})

@@ -254,6 +254,48 @@ def test_mlp_block_stash_kernel(dev, s):
     _close_all(got, lm.mlp_block_stash_plain(x, *w[4:]))
 
 
+@pytest.mark.parametrize("s", [9, 17, 197])
+@pytest.mark.parametrize("causal", [False, True])
+def test_attn_block_bwd_recompute_kernel(dev, s, causal):
+    """#7, and its recompute equals the forward kernels' qkv and attention
+    output bit for bit."""
+    x, w = _x(dev, s), _weights(dev)
+    g = _g(dev, x.shape)
+    n = fa.attn_block_bwd_recompute.launches
+    got = fa.attn_block_bwd_recompute(x, g, *w[:3], heads=HEADS, causal=causal)
+    assert fa.attn_block_bwd_recompute.launches == n + 1
+    _close_all(got, fa.attn_block_bwd_recompute_plain(x, g, *w[:3], heads=HEADS,
+                                                      causal=causal))
+    _, qkv, attn = fa.attn_block_stash(x, *w[:4], heads=HEADS, causal=causal)
+    assert torch.equal(got[3], attn)
+    stash_bwd = fa.attn_block_bwd(x, g, qkv, w[0], w[2], heads=HEADS, causal=causal)
+    assert all(torch.equal(a, b) for a, b in zip(got[:3], stash_bwd))
+
+
+@pytest.mark.parametrize("s", [9, 17, 197])
+def test_mlp_bwd_kernel(dev, s):
+    """#19 at B*S rows that are not a multiple of 64."""
+    x, w = _x(dev, s), _weights(dev)
+    dy = _g(dev, (B, s, M))
+    n = lm.mlp_bwd.launches
+    got = lm.mlp_bwd(x, dy, w[5], w[4])
+    assert lm.mlp_bwd.launches == n + 1
+    _close_all(got, lm.mlp_bwd_plain(x, dy, w[5], w[4]))
+
+
+@pytest.mark.parametrize("s", [9, 17, 197])
+def test_mlp_bwd_dw_kernel(dev, s):
+    """#20 at B*S rows that are not a multiple of 64 (nor of 32)."""
+    x, w = _x(dev, s), _weights(dev)
+    g = _g(dev, x.shape)
+    n = lm.mlp_bwd_dw.launches
+    got = lm.mlp_bwd_dw(x, g, w[5], w[4], w[6])
+    assert lm.mlp_bwd_dw.launches == n + 1
+    want = lm.mlp_bwd_dw_plain(x, g, w[5], w[4], w[6])
+    _close_all(got, want)
+    assert [t.dtype for t in got] == [torch.bfloat16] + [torch.float32] * 3
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     x, w = _x(dev, 17), _weights(dev)
     with pytest.raises(TypeError):
@@ -268,6 +310,15 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):
         fa.attn_block_bwd(_x(dev, 300), _x(dev, 300), qkv, w[0], w[2],
                           heads=HEADS)
+    with pytest.raises(ValueError):
+        fa.attn_block_bwd_recompute(_x(dev, 300), _x(dev, 300), *w[:3],
+                                    heads=HEADS)
+    with pytest.raises(TypeError):
+        fa.attn_block_bwd_recompute(x, x, w[0], w[1].bfloat16(), w[2], heads=HEADS)
+    with pytest.raises(TypeError):
+        lm.mlp_bwd(x, _g(dev, (B, 17, M)).float(), w[5], w[4])
+    with pytest.raises(ValueError):
+        lm.mlp_bwd_dw(x, x[:, :1].contiguous(), w[5], w[4], w[6])
 
 
 @pytest.mark.parametrize("return_tokens", [False, True])

@@ -16,7 +16,10 @@
 * The full model: a tiny fp32 CLIP (width 128, 2 heads, 2 layers, 64 px,
   patch 16) with the JAX weights carried across by models/convert.py, a
   RawImageStream over a JPEG fixture, a text stream, 10 adamw steps with
-  weight decay.  Per-step losses agree within rtol 1e-4; every parameter
+  weight decay, in each backward mode of the port: the default (the
+  stash backwards), and with both stashes off under UML_MLP_BWD=kernel
+  and =dw (the plain versions of the recompute backwards #7, #19, #20;
+  uml_tpu on the CPU takes its plain VJP in every mode).  Per-step losses agree within rtol 1e-4; every parameter
   tensor of the CLIP after the 10 steps (the unused text tower included,
   which only decays) within 1e-4 of its largest entry.  The attention
   k-biases are the exception: their exact gradient is zero, so adam
@@ -46,6 +49,8 @@ from uml_tpu_torch.metrics import alignment as tal
 from uml_tpu_torch.models.clip import CLIP, ClipConfig
 from uml_tpu_torch.models import uml_head as thead
 from uml_tpu_torch.models.convert import state_dict_from_jax, uml_head_params_from_jax
+from uml_tpu_torch.ops import fused_attention as tfa
+from uml_tpu_torch.ops import ln_matmul as tlm
 from uml_tpu_torch.train import optim as toptim
 from uml_tpu_torch.train import supervised as tsup
 
@@ -309,8 +314,41 @@ class RisingValidate:
         return 1.0, float(self.calls)
 
 
+RECOMPUTE = {"UML_BWD_STASH": "0", "UML_MLP_STASH": "0"}
+# environment of each backward mode -> the backward ops it must run
+BWD_MODES = {
+    "default": ({}, ("attn_block_bwd", "mlp_bwd_via_stash")),
+    "recompute_kernel": ({**RECOMPUTE, "UML_MLP_BWD": "kernel"},
+                         ("attn_block_bwd_recompute", "mlp_bwd")),
+    "recompute_dw": ({**RECOMPUTE, "UML_MLP_BWD": "dw"},
+                     ("attn_block_bwd_recompute", "mlp_bwd_dw")),
+}
+
+
+def _spy_backwards(monkeypatch):
+    """Count the calls of the backward ops the autograd Functions pick."""
+    calls = {}
+    for module, name in ((tfa, "attn_block_bwd"), (tfa, "attn_block_bwd_recompute"),
+                         (tlm, "mlp_bwd_via_stash"), (tlm, "mlp_bwd"),
+                         (tlm, "mlp_bwd_dw")):
+        calls[name] = 0
+
+        def counted(*args, _fn=getattr(module, name), _name=name, **kwargs):
+            calls[_name] += 1
+            return _fn(*args, **kwargs)
+        monkeypatch.setattr(module, name, counted)
+    return calls
+
+
 @pytest.mark.heavy
-def test_full_model_steps_match_jax(tmp_path, pil_only):
+@pytest.mark.parametrize("mode", list(BWD_MODES))
+def test_full_model_steps_match_jax(tmp_path, pil_only, monkeypatch, mode):
+    env, want_ops = BWD_MODES[mode]
+    for var in ("UML_BWD_STASH", "UML_MLP_STASH", "UML_MLP_BWD"):
+        monkeypatch.delenv(var, raising=False)
+    for var, value in env.items():
+        monkeypatch.setenv(var, value)
+    calls = _spy_backwards(monkeypatch)
     items = _image_items(str(tmp_path), per_class=6, size=80)   # 18 items
     rng = np.random.default_rng(5)
     txt = rng.standard_normal((10, TINY["embed_dim"])).astype(np.float32)
@@ -371,4 +409,9 @@ def test_full_model_steps_match_jax(tmp_path, pil_only):
     np.testing.assert_allclose(tout["model"]["head_w"].numpy(),
                                np.asarray(jout["model"]["head_w"]), rtol=FULL_RTOL,
                                atol=FULL_RTOL)
+    # 10 steps of 1 full layer (+ the CLS layer's own backward) and 2 MLPs
+    assert calls == {name: {"attn_block_bwd": 10, "attn_block_bwd_recompute": 10,
+                            "mlp_bwd_via_stash": 20, "mlp_bwd": 20,
+                            "mlp_bwd_dw": 20}[name] * (name in want_ops)
+                     for name in calls}, calls
 

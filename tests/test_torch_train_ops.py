@@ -16,7 +16,15 @@ tests/test_fused_attention.py and tests/test_ln_matmul.py run them.
   zero in rows 1-7 (its [B, 8, K] tile is sublane padding);
 * #9 the MLP stash forward + ``mlp_bwd_via_stash`` vs
   ``_mlp_block_fwd_stash`` + ``_mlp_bwd_via_stash``, each side on its own
-  stash.
+  stash;
+* #7 the recompute backward vs ``_block_bwd_call`` (dx, dqkv, xn, attn,
+  and dW/db assembled as tests/test_fused_attention.py does), causal and
+  not; #19 ``mlp_bwd`` vs ``_mlp_bwd_call`` on the same dy, and
+  ``mlp_bwd_via_kernel``'s five grads vs the assembly of
+  tests/test_ln_matmul.py; #20 ``mlp_bwd_dw`` vs ``_mlp_bwd_dw_call``.
+  These hold each output to a share of the reference's largest entry:
+  2e-3 (#7, the bound of the JAX package's own test of that kernel) or
+  1e-4 (#19, #20) in fp32, 2^-6 in bf16.
 
 Bounds are the JAX package's own: fp32 ``assert_allclose`` with atol =
 rtol = 2e-3 (tests/test_fused_attention.py:297-299), bf16 max abs error
@@ -28,7 +36,9 @@ bf16: that kernel drops the k-bias and adds the v-bias after the
 normalization (fused_attention.py:195-200), so at S=9 a single attention
 output of the stash lands 1.1% of the largest one away.  The autograd
 Functions' plain backward is held to ``torch.autograd`` of the plain
-forward in fp32 with atol = rtol = 1e-4 (the same math in another order).
+forward in fp32 with atol = rtol = 1e-4 (the same math in another order),
+on every backward route that UML_BWD_STASH, UML_MLP_STASH and UML_MLP_BWD
+select (a spy on the ops shows which ran).
 """
 
 import jax
@@ -198,6 +208,106 @@ def test_mlp_stash_gate_matches_jax(monkeypatch, bsz, s, m):
             jlm._mlp_stash_enabled(bsz, s, m, 2)
 
 
+def _close_rel(got, want, rel, name=""):
+    """max |got - want| <= rel * max |want|."""
+    got = got.float().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    want = np.asarray(jnp.asarray(want, jnp.float32))
+    assert got.shape == want.shape, (name, got.shape, want.shape)
+    err, bound = np.abs(got - want).max(), rel * np.abs(want).max()
+    assert err <= bound, f"{name}: max abs err {err} > {bound}"
+
+
+RECOMPUTE_REL = {"fp32": 2e-3, "bf16": 2.0 ** -6}
+MLP_BWD_REL = {"fp32": 1e-4, "bf16": 2.0 ** -6}
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s", [9, 17, 33])
+def test_attn_recompute_backward_matches_pallas(dtype, causal, s):
+    """#7: dq, dk and dv do not depend on the k-bias (the softmax cancels
+    it), so dqkv compares directly although the TPU kernel recomputes qkv
+    without it."""
+    jw, tw = _inputs(500 + s, s, dtype)
+    dx, dqkv, xn, attn = tfa.attn_block_bwd_recompute(
+        tw["x"], tw["g"], tw["w_eff"], tw["b_eff"], tw["wo"], heads=HEADS,
+        causal=causal)
+    want = jfa._block_bwd_call(jw["x"], jw["g"], jw["w_eff"], jw["b_eff"],
+                               jw["wo"], 1e-5, HEADS, 64, causal, True, il=0)
+    rel = RECOMPUTE_REL[dtype]
+    for name, got, w in zip(("dx", "dqkv", "xn", "attn"), (dx, dqkv, xn, attn),
+                            want):
+        _close_rel(got, w, rel, name)
+    jdx, jdqkv, jxn, jattn = want
+    nums = (((0, 1), (0, 1)), ((), ()))
+    f32 = jnp.float32
+    jgrads = (jax.lax.dot_general(jxn, jdqkv, nums, preferred_element_type=f32),
+              jnp.sum(jdqkv.astype(f32), axis=(0, 1)),
+              jax.lax.dot_general(jattn, jw["g"], nums, preferred_element_type=f32),
+              jnp.sum(jw["g"].astype(f32), axis=(0, 1)))
+    grads = tfa._param_grads(xn, dqkv, attn, tw["g"], *_attn_args(tw))
+    for name, got, w in zip(("dw_eff", "db_eff", "dwo", "dbo"), grads, jgrads):
+        _close_rel(got, w, rel, name)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("s", [9, 17])
+def test_mlp_bwd_kernel_matches_pallas(dtype, s):
+    """#19 on the same dy = g @ w2^T rounded to the compute dtype, then
+    the five grads of mlp_bwd_via_kernel against the assembly of
+    tests/test_ln_matmul.py around the Pallas kernel."""
+    jw, tw = _inputs(600 + s, s, dtype)
+    dy_np = np.asarray(jnp.asarray(jax.lax.dot_general(
+        jw["g"], jw["w2"], (((2,), (1,)), ((), ())),
+        preferred_element_type=jnp.float32).astype(jw["x"].dtype), jnp.float32))
+    jdy = jnp.asarray(dy_np, jw["x"].dtype)
+    tdy = torch.tensor(dy_np).to(tw["x"].dtype)
+    got = tlm.mlp_bwd(tw["x"], tdy, tw["b1"], tw["w1"])
+    want = jlm._mlp_bwd_call(jw["x"], jdy, jw["b1"], jw["w1"], 1e-5,
+                             "quick_gelu", True)
+    rel = MLP_BWD_REL[dtype]
+    for name, a, b in zip(("dx_ln", "xn", "dpre", "yact"), got, want):
+        _close_rel(a, b, rel, name)
+
+    dx_ln, xn, dpre, yact = want
+    nums = (((0, 1), (0, 1)), ((), ()))
+    f32 = jnp.float32
+    jgrads = ((dx_ln.astype(f32) + jw["g"].astype(f32)).astype(jw["x"].dtype),
+              jax.lax.dot_general(xn, dpre, nums, preferred_element_type=f32),
+              jnp.sum(dpre.astype(f32), axis=(0, 1)),
+              jax.lax.dot_general(yact, jw["g"], nums, preferred_element_type=f32),
+              jnp.sum(jw["g"].astype(f32), axis=(0, 1)))
+    grads = tlm.mlp_bwd_via_kernel(tw["x"], tw["g"], *_mlp_args(tw))
+    for name, a, b in zip(("dx", "dw1", "db1", "dw2", "db2"), grads, jgrads):
+        _close_rel(a, b, rel, name)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("s", [9, 17])
+def test_mlp_bwd_dw_kernel_matches_pallas(monkeypatch, dtype, s):
+    """#20: dx and the fp32 weight gradients summed over every row."""
+    monkeypatch.delenv("UML_MLP_BWD_G", raising=False)
+    jw, tw = _inputs(700 + s, s, dtype)
+    got = tlm.mlp_bwd_dw(tw["x"], tw["g"], tw["b1"], tw["w1"], tw["w2"])
+    want = jlm._mlp_bwd_dw_call(jw["x"], jw["g"], jw["b1"], jw["w1"], jw["w2"],
+                                1e-5, "quick_gelu", True)
+    for name, a, b in zip(("dx", "dw1", "db1", "dw2"), got, want):
+        _close_rel(a, b, MLP_BWD_REL[dtype], name)
+    assert all(t.dtype == torch.float32 for t in got[1:])
+
+
+def _spy(monkeypatch, module, names):
+    """Count the calls of ``module.<name>`` for each name (the autograd
+    Functions look the ops up in their module at call time)."""
+    calls = dict.fromkeys(names, 0)
+    for name in names:
+        def counted(*args, _fn=getattr(module, name), _name=name, **kwargs):
+            calls[_name] += 1
+            return _fn(*args, **kwargs)
+        monkeypatch.setattr(module, name, counted)
+    return calls
+
+
 def _leaves(seed, s, g_rows=None):
     """fp32 torch leaves that require a gradient: x, g and the weights."""
     _, tw = _inputs(seed, s, "fp32", g_rows)
@@ -212,13 +322,23 @@ def _autograd_close(fn_out, plain_out, g, leaves):
                                    rtol=AUTOGRAD_TOL)
 
 
+@pytest.mark.parametrize("stash", ["1", "0"])
 @pytest.mark.parametrize("causal", [False, True])
-def test_attn_block_fn_matches_autograd_of_plain(causal):
+def test_attn_block_fn_matches_autograd_of_plain(monkeypatch, causal, stash):
+    """UML_BWD_STASH=1 stashes a non-causal half and reads the stash back;
+    "0", or any causal half, runs attn_block and the recompute backward."""
+    monkeypatch.setenv("UML_BWD_STASH", stash)
+    calls = _spy(monkeypatch, tfa, ("attn_block_stash", "attn_block_bwd",
+                                    "attn_block", "attn_block_bwd_recompute"))
     t = _leaves(400, 17)
     leaves = [t["x"], *_attn_args(t)]
     out = tfa.AttnBlockFn.apply(*leaves, HEADS, causal, 1e-5)
     ref = tfa.attn_block_plain(*leaves, heads=HEADS, causal=causal)
     _autograd_close(out, ref, t["g"], leaves)
+    stashed = stash == "1" and not causal
+    assert calls == {"attn_block_stash": int(stashed), "attn_block_bwd": int(stashed),
+                     "attn_block": int(not stashed),
+                     "attn_block_bwd_recompute": int(not stashed)}
 
 
 def test_attn_block_cls_fn_matches_autograd_of_plain():
@@ -229,13 +349,32 @@ def test_attn_block_cls_fn_matches_autograd_of_plain():
     _autograd_close(out, ref, t["g"], leaves)
 
 
+@pytest.mark.parametrize("mlp_bwd", [None, "kernel", "dw"])
 @pytest.mark.parametrize("stash", ["0", "1"])
-def test_mlp_block_fn_matches_autograd_of_plain(monkeypatch, stash):
-    """Both branches of the memory gate: the stash backward, and the
-    recompute VJP of the plain twin."""
+def test_mlp_block_fn_matches_autograd_of_plain(monkeypatch, stash, mlp_bwd):
+    """Both branches of the memory gate: the stash backward (whatever
+    UML_MLP_BWD says), and without the stash the backward UML_MLP_BWD
+    picks: the recompute VJP of the plain twin (unset), mlp_bwd
+    ("kernel") or mlp_bwd_dw ("dw")."""
     monkeypatch.setenv("UML_MLP_STASH", stash)
+    if mlp_bwd is None:
+        monkeypatch.delenv("UML_MLP_BWD", raising=False)
+    else:
+        monkeypatch.setenv("UML_MLP_BWD", mlp_bwd)
+    calls = _spy(monkeypatch, tlm, ("mlp_block_stash", "mlp_bwd_via_stash",
+                                    "mlp_block", "mlp_bwd", "mlp_bwd_dw"))
     t = _leaves(402, 17)
     leaves = [t["x"], *_mlp_args(t)]
     out = tlm.MlpBlockFn.apply(*leaves, 1e-5)
     ref = tlm.mlp_block_plain(*leaves)
     _autograd_close(out, ref, t["g"], leaves)
+    want = dict.fromkeys(calls, 0)
+    if stash == "1":
+        want.update(mlp_block_stash=1, mlp_bwd_via_stash=1)
+    else:
+        want["mlp_block"] = 1
+        if mlp_bwd == "kernel":
+            want["mlp_bwd"] = 1
+        elif mlp_bwd == "dw":
+            want["mlp_bwd_dw"] = 1
+    assert calls == want

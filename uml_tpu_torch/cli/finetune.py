@@ -18,8 +18,14 @@ full-finetune ones) encodes each split once with the frozen CLIP and
 trains the head on the features.  The full path
 (``full_ds_full_model_finetune``, ``smoke_full``) streams raw uint8
 batches through the trainable image tower: on the card its layers run the
-training kernels (the stash forwards and the attention backwards of
-``uml_tpu_torch/csrc``).  ``--strict_reference_parity`` freezes exactly as
+training kernels of ``uml_tpu_torch/csrc``.  Which ones is set, as in
+uml_tpu, by environment variables, not flags: ``UML_BWD_STASH`` ("1", the
+default: the attention halves stash qkv and the attention output; "0":
+they recompute them in the backward), ``UML_MLP_STASH`` ("auto", the
+default: the MLP halves stash their pre-activation while one layer's
+stash stays under 256 MiB; "1" / "0" force it) and, with the MLP stash
+off, ``UML_MLP_BWD`` (unset: the plain VJP; "kernel" or "dw": the MLP
+backward kernels).  ``--strict_reference_parity`` freezes exactly as
 the reference does (only for ``linear``).
 
 ``test_result.pth["model"]`` holds the head leaves under uml_tpu's names

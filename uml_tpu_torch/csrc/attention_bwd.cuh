@@ -41,7 +41,12 @@
 // ln_bwd: dx = rstd * (dxn - mean(dxn) - xn * mean(dxn * xn)) + g, the LN
 // backward of the prologue (the LN scale/bias are folded into W_eff, so
 // the raw LN's backward is all that is left), one warp per row; it also
-// writes xn (bf16), which the dW_eff product outside reads.
+// writes xn (bf16), which the dW_eff product outside reads.  With g null
+// it leaves the residual out (the MLP backward of _mlp_bwd_kernel, whose
+// residual is added outside).
+//
+// The __global__ functions here are static or templates: the header is
+// included by more than one .cu file (attn_block_bwd.cu, mlp_block_bwd.cu).
 
 #pragma once
 
@@ -416,7 +421,7 @@ __device__ inline float block_max(float v, float* red) {
 
 // CLS-only attention backward, one block per (image, head).
 //   dattn [B, H*64] bf16: dO of each image's CLS row
-__global__ void __launch_bounds__(CLSB_THREADS)
+static __global__ void __launch_bounds__(CLSB_THREADS)
 cls_bwd_kernel(const __nv_bfloat16* __restrict__ qkv, const __nv_bfloat16* __restrict__ dattn,
                __nv_bfloat16* __restrict__ dqkv, int S, int H, float scale) {
   __shared__ float q0[ATT_D], dO[ATT_D], dq_part[CLSB_THREADS];
@@ -503,8 +508,8 @@ constexpr int LNB_THREADS = 128;  // 4 rows per block, one warp each
 // LN backward of the raw-LN prologue, one warp per row of x [rows, K]:
 //   dx = rstd * (dxn - mean(dxn) - xn * mean(dxn * xn)) + g;  xn -> bf16
 // g_every = 1: g has one row per x row; g_every = S: only row 0 of each
-// image has a cotangent (the CLS layer), g [rows / S, K].
-__global__ void __launch_bounds__(LNB_THREADS)
+// image has a cotangent (the CLS layer), g [rows / S, K]; g null: none.
+static __global__ void __launch_bounds__(LNB_THREADS)
 ln_bwd_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ dxn,
               const __nv_bfloat16* __restrict__ g, __nv_bfloat16* __restrict__ dx,
               __nv_bfloat16* __restrict__ xn, int rows, int K, int g_every, float eps) {
@@ -552,8 +557,8 @@ ln_bwd_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ dxn
   }
   m1 /= K;
   m2 /= K;
-  const bool has_g = (row % g_every) == 0;
-  const __nv_bfloat16* gr = g + (long long)(row / g_every) * K;
+  const bool has_g = g != nullptr && (row % g_every) == 0;
+  const __nv_bfloat16* gr = has_g ? g + (long long)(row / g_every) * K : nullptr;
   for (int c = lane * 8; c < K; c += 32 * 8) {
     Pack8 p, gp, o;
     p.u = *reinterpret_cast<const uint4*>(xr + c);

@@ -17,6 +17,19 @@
 // rows), so K and V are not recomputed; dq is nonzero in row 0 only and
 // g enters dx in row 0 only.
 //
+// uml_attn_block_bwd_recompute replaces ::_block_bwd_kernel (via
+// _block_bwd_call), the backward with no stash (UML_BWD_STASH=0, and every
+// causal layer): it first recomputes qkv and the attention output with
+// the forward's own launches (run_qkv_attention: the LN-prologue QKV
+// ln_gemm and the attention kernel, on the same inputs, so both equal the
+// forward's bit for bit and the softmax statistics the backward rebuilds
+// are the forward's), then runs the stash backward above on them.  The
+// attention output goes out too, as the TPU kernel's fourth output: dwo =
+// attn^T g reads it.  The TPU kernel keeps the recomputed qkv and scores
+// in VMEM; here qkv (58 MB at ViT-B/16 B=64) and attn (19 MB) make a round
+// trip through device memory, and the recompute adds the QKV product
+// (44.6 GFLOP) and the attention forward to the stash backward's work.
+//
 // dW_eff = xn^T dqkv, dwo = attn^T g and the bias sums stay outside, as
 // the TPU package leaves them to XLA dots (fused_attention.py:1586-1594).
 //
@@ -50,6 +63,18 @@ static inline cudaError_t run_attn_block_bwd(const __nv_bfloat16* x, const __nv_
   UML_TRY(launch_ln_gemm(dqkv, w_eff, nullptr, nullptr, dxn, rows, K, 3 * hd, 0, false,
                          EPI_F32, eps, stream, true));
   return launch_ln_bwd(x, dxn, g, dx, xn, rows, K, 1, eps, stream);
+}
+
+// Attention half backward with no stash: recompute qkv [B*S, 3*H*64] and
+// attn [B*S, H*64] (outputs) from x as the forward does, then as above.
+static inline cudaError_t run_attn_block_bwd_recompute(
+    const __nv_bfloat16* x, const __nv_bfloat16* g, const __nv_bfloat16* w_eff,
+    const float* b_eff, const __nv_bfloat16* wo, __nv_bfloat16* qkv, __nv_bfloat16* attn,
+    __nv_bfloat16* dattn, float4* stats, float* dxn, __nv_bfloat16* dqkv, __nv_bfloat16* dx,
+    __nv_bfloat16* xn, int B, int S, int K, int H, bool causal, float eps, cudaStream_t stream) {
+  UML_TRY(run_qkv_attention(x, w_eff, b_eff, qkv, attn, B, S, K, H, causal, S, eps, stream));
+  return run_attn_block_bwd(x, g, qkv, w_eff, wo, dattn, stats, dxn, dqkv, dx, xn, B, S, K, H,
+                            causal, eps, stream);
 }
 
 // CLS-only attention half backward: g [B, 1, K] (the CLS row of each
@@ -86,6 +111,20 @@ extern "C" int uml_attn_block_bwd(const void* x, const void* g, const void* qkv,
       static_cast<float4*>(stats), static_cast<float*>(dxn), static_cast<bf16*>(dqkv),
       static_cast<bf16*>(dx), static_cast<bf16*>(xn), B, S, K, H, causal != 0, eps,
       static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int uml_attn_block_bwd_recompute(const void* x, const void* g, const void* w_eff,
+                                            const void* b_eff, const void* wo, void* qkv,
+                                            void* attn, void* dattn, void* stats, void* dxn,
+                                            void* dqkv, void* dx, void* xn, int B, int S, int K,
+                                            int H, int causal, float eps, void* stream) {
+  using bf16 = __nv_bfloat16;
+  return (int)uml::run_attn_block_bwd_recompute(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(g), static_cast<const bf16*>(w_eff),
+      static_cast<const float*>(b_eff), static_cast<const bf16*>(wo), static_cast<bf16*>(qkv),
+      static_cast<bf16*>(attn), static_cast<bf16*>(dattn), static_cast<float4*>(stats),
+      static_cast<float*>(dxn), static_cast<bf16*>(dqkv), static_cast<bf16*>(dx),
+      static_cast<bf16*>(xn), B, S, K, H, causal != 0, eps, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int uml_attn_block_cls_bwd(const void* x, const void* g, const void* qkv,

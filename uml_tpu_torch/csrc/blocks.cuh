@@ -22,6 +22,20 @@ namespace uml {
 //   x [B, S, K]; w_eff [K, 3*H*64]; wo [H*64, K]; qkv [B*S, 3*H*64] and
 //   attn [B*q_rows, H*64] are scratch; out [B, q_rows, K].
 //   q_rows is S (every query row) or 1 (the CLS row of the last image layer).
+// The first two launches of the attention half: qkv = rawLN(x) . w_eff +
+// b_eff and attn = MHA(qkv) for the first q_rows query rows.  The
+// recompute backward (attn_block_bwd.cu) runs exactly these launches on the
+// forward's inputs, so its qkv and attn equal the forward's bit for bit.
+static inline cudaError_t run_qkv_attention(const __nv_bfloat16* x, const __nv_bfloat16* w_eff,
+                                            const float* b_eff, __nv_bfloat16* qkv,
+                                            __nv_bfloat16* attn, int B, int S, int K, int H,
+                                            bool causal, int q_rows, float eps,
+                                            cudaStream_t stream) {
+  UML_TRY(launch_ln_gemm(x, w_eff, b_eff, nullptr, qkv, B * S, 3 * H * ATT_D, K, 0, true,
+                         EPI_NONE, eps, stream));
+  return launch_attention(qkv, attn, B, S, H, q_rows, causal, stream);
+}
+
 static inline cudaError_t run_attn_block(const __nv_bfloat16* x, const __nv_bfloat16* w_eff,
                                          const float* b_eff, const __nv_bfloat16* wo,
                                          const float* bo, __nv_bfloat16* qkv,
@@ -29,9 +43,8 @@ static inline cudaError_t run_attn_block(const __nv_bfloat16* x, const __nv_bflo
                                          int K, int H, bool causal, int q_rows, float eps,
                                          cudaStream_t stream) {
   const int hd = H * ATT_D;
-  UML_TRY(launch_ln_gemm(x, w_eff, b_eff, nullptr, qkv, B * S, 3 * hd, K, 0, true, EPI_NONE,
-                         eps, stream));
-  UML_TRY(launch_attention(qkv, attn, B, S, H, q_rows, causal, stream));
+  UML_TRY(run_qkv_attention(x, w_eff, b_eff, qkv, attn, B, S, K, H, causal, q_rows, eps,
+                            stream));
   // residual row i of image b is x[b, i]: stride K when every row is kept,
   // stride S*K when only row 0 is (q_rows == 1)
   const long long ldres = (q_rows == S) ? (long long)K : (long long)S * K;

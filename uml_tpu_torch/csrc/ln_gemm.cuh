@@ -13,9 +13,11 @@
 //   W   [K, N] bf16, row-major (the JAX / flax kernel layout), or with
 //       TRANS_B [N, K] row-major (the product then takes W^T)
 //   b   [N] fp32, or null for no bias
-//   res [M, N] bf16 with row stride ldres (EPI_RESIDUAL only)
+//   res [M, N] bf16 with row stride ldres (EPI_RESIDUAL, EPI_DACT), or
+//       fp32 (EPI_DACT_F32)
 //   out [M, N] bf16, contiguous (fp32 for EPI_F32)
-//   aux [M, N] bf16, contiguous (EPI_GELU_STASH only)
+//   aux [M, N] bf16, contiguous (EPI_GELU_STASH, EPI_DACT, EPI_DACT_F32)
+//   colsum_part [gridDim.x, N] fp32, or null (EPI_DACT_F32 only)
 //
 // prologue (LN=true): the raw LayerNorm of each A row, statistics in fp32
 //   with var = max(E[x^2] - E[x]^2, 0); the LN scale/bias are folded into
@@ -27,7 +29,16 @@
 //   EPI_GELU_STASH (out = quick_gelu(y) and aux = y, the pre-activation
 //   the MLP backward reads; the activation is taken of the unrounded fp32
 //   y, the order of _mlp_block_kernel_stash, ln_matmul.py:199-204), and
-//   EPI_F32 (y stored in fp32, for the LN backward that follows).
+//   EPI_F32 (y stored in fp32, for the LN backward that follows), and
+//   EPI_DACT / EPI_DACT_F32, the MLP backward's recompute (the bodies of
+//   _mlp_bwd_kernel and _mlp_bwd_dw_kernel, ln_matmul.py:310-533): y is
+//   the unrounded fp32 pre-activation, res the cotangent dy of the
+//   activation (bf16, or fp32), aux = quick_gelu(y) and out = dpre =
+//   dy * quick_gelu'(y), both rounded to bf16 once, with one sigmoid
+//   s: quick_gelu'(y) = s (1 + 1.702 y (1 - s)) (ln_matmul.py:296-302).
+//   EPI_DACT_F32 also writes the column sums of the fp32 dpre over the
+//   block's rows to colsum_part[blockIdx.x] (db1 is their sum over the
+//   row tiles: a second pass, in a fixed order).
 //
 // What bounds it on the H100: at ViT-B/16 B=64 the QKV product is
 // 12608 x 768 x 2304 (44.6 GFLOP) over 16 MB of A and 3.5 MB of W, far
@@ -50,7 +61,15 @@
 
 namespace uml {
 
-enum { EPI_NONE = 0, EPI_QUICK_GELU = 1, EPI_RESIDUAL = 2, EPI_GELU_STASH = 3, EPI_F32 = 4 };
+enum {
+  EPI_NONE = 0,
+  EPI_QUICK_GELU = 1,
+  EPI_RESIDUAL = 2,
+  EPI_GELU_STASH = 3,
+  EPI_F32 = 4,
+  EPI_DACT = 5,
+  EPI_DACT_F32 = 6
+};
 
 constexpr int GEMM_BM = 64;
 constexpr int GEMM_BN = 64;
@@ -75,9 +94,10 @@ __global__ void __launch_bounds__(GEMM_THREADS)
 ln_gemm_kernel(const __nv_bfloat16* __restrict__ a,
                const __nv_bfloat16* __restrict__ w,
                const float* __restrict__ bias,
-               const __nv_bfloat16* __restrict__ res,
+               const void* __restrict__ res_ptr,
                void* __restrict__ out_ptr,
                __nv_bfloat16* __restrict__ aux,
+               float* __restrict__ colsum_part,
                int M, int N, int K, long long ldres, float eps) {
   using namespace nvcuda;
   __shared__ __align__(128) __nv_bfloat16 As[GEMM_BM * GEMM_LDA];
@@ -220,7 +240,11 @@ ln_gemm_kernel(const __nv_bfloat16* __restrict__ a,
                               GEMM_LDC, wmma::mem_row_major);
   __syncthreads();
 
-  // epilogue: 8 consecutive columns per thread per step, 16-byte stores
+  // epilogue: 8 consecutive columns per thread per step, 16-byte stores;
+  // a thread's columns are the same at every step (tid % 8), its rows
+  // tid / 8 + 16 i
+  const __nv_bfloat16* res = static_cast<const __nv_bfloat16*>(res_ptr);
+  float colsum[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   for (int c = tid; c < GEMM_BM * GEMM_BN / 8; c += GEMM_THREADS) {
     const int r = c / (GEMM_BN / 8);
     const int cc = (c % (GEMM_BN / 8)) * 8;
@@ -234,6 +258,34 @@ ln_gemm_kernel(const __nv_bfloat16* __restrict__ a,
       float* o32 = static_cast<float*>(out_ptr) + (long long)gm * N + n0 + cc;
       *reinterpret_cast<float4*>(o32) = make_float4(v[0], v[1], v[2], v[3]);
       *reinterpret_cast<float4*>(o32 + 4) = make_float4(v[4], v[5], v[6], v[7]);
+      continue;
+    }
+    if (EPI == EPI_DACT || EPI == EPI_DACT_F32) {
+      float dy[8];
+      if (EPI == EPI_DACT) {
+        Pack8 dp;
+        dp.u = *reinterpret_cast<const uint4*>(res + (long long)gm * ldres + n0 + cc);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) dy[j] = __bfloat162float(dp.h[j]);
+      } else {
+        const float* d32 = static_cast<const float*>(res_ptr) + (long long)gm * ldres + n0 + cc;
+        const float4 lo = *reinterpret_cast<const float4*>(d32);
+        const float4 hi = *reinterpret_cast<const float4*>(d32 + 4);
+        dy[0] = lo.x; dy[1] = lo.y; dy[2] = lo.z; dy[3] = lo.w;
+        dy[4] = hi.x; dy[5] = hi.y; dy[6] = hi.z; dy[7] = hi.w;
+      }
+      Pack8 act, dpre;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float s = 1.f / (1.f + expf(-1.702f * v[j]));
+        const float d = dy[j] * (s * (1.f + 1.702f * v[j] * (1.f - s)));
+        act.h[j] = __float2bfloat16(v[j] * s);
+        dpre.h[j] = __float2bfloat16(d);
+        colsum[j] += d;
+      }
+      *reinterpret_cast<uint4*>(aux + (long long)gm * N + n0 + cc) = act.u;
+      *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(out_ptr) + (long long)gm * N + n0 +
+                                cc) = dpre.u;
       continue;
     }
     if (EPI == EPI_GELU_STASH) {
@@ -257,22 +309,37 @@ ln_gemm_kernel(const __nv_bfloat16* __restrict__ a,
     *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(out_ptr) + (long long)gm * N + n0 +
                               cc) = o.u;
   }
+  if (EPI == EPI_DACT_F32 && colsum_part != nullptr) {
+    // the 16 threads of a column group add their rows in a fixed order; As
+    // is free since the K loop's last __syncthreads
+    float* red = reinterpret_cast<float*>(As);  // [16][64]
+#pragma unroll
+    for (int j = 0; j < 8; ++j) red[(tid >> 3) * GEMM_BN + (tid & 7) * 8 + j] = colsum[j];
+    __syncthreads();
+    if (tid < GEMM_BN) {
+      float t = 0.f;
+#pragma unroll
+      for (int i = 0; i < GEMM_THREADS / 8; ++i) t += red[i * GEMM_BN + tid];
+      colsum_part[(long long)blockIdx.x * N + n0 + tid] = t;
+    }
+  }
 }
 
 // Launch one ln_gemm on `stream`; returns cudaGetLastError() after the
 // launch.  Shapes must satisfy N % 64 == 0, K % 32 == 0, ldres % 8 == 0
 // (the Python wrappers check them and raise first).
 static inline cudaError_t launch_ln_gemm(const __nv_bfloat16* a, const __nv_bfloat16* w,
-                                         const float* bias, const __nv_bfloat16* res,
-                                         void* out, int M, int N, int K, long long ldres,
-                                         bool ln, int epi, float eps, cudaStream_t stream,
-                                         bool trans_b = false, __nv_bfloat16* aux = nullptr) {
+                                         const float* bias, const void* res, void* out, int M,
+                                         int N, int K, long long ldres, bool ln, int epi,
+                                         float eps, cudaStream_t stream, bool trans_b = false,
+                                         __nv_bfloat16* aux = nullptr,
+                                         float* colsum_part = nullptr) {
   if (N % GEMM_BN != 0 || K % GEMM_BK != 0) return cudaErrorInvalidValue;
   const dim3 grid((M + GEMM_BM - 1) / GEMM_BM, N / GEMM_BN);
   const dim3 block(GEMM_THREADS);
 #define UML_GEMM_LAUNCH(L, E, T)                                                           \
-  ln_gemm_kernel<L, E, T><<<grid, block, 0, stream>>>(a, w, bias, res, out, aux, M, N, K, \
-                                                      ldres, eps)
+  ln_gemm_kernel<L, E, T><<<grid, block, 0, stream>>>(a, w, bias, res, out, aux, colsum_part, \
+                                                      M, N, K, ldres, eps)
   // the (prologue, epilogue, layout) triples the CLIP layers use
   if (!trans_b && ln && epi == EPI_NONE) UML_GEMM_LAUNCH(true, EPI_NONE, false);  // QKV
   else if (!trans_b && ln && epi == EPI_QUICK_GELU)
@@ -284,7 +351,11 @@ static inline cudaError_t launch_ln_gemm(const __nv_bfloat16* a, const __nv_bflo
   else if (trans_b && !ln && epi == EPI_NONE)
     UML_GEMM_LAUNCH(false, EPI_NONE, true);                                     // g . wo^T
   else if (trans_b && !ln && epi == EPI_F32)
-    UML_GEMM_LAUNCH(false, EPI_F32, true);                                      // dqkv . W_eff^T
+    UML_GEMM_LAUNCH(false, EPI_F32, true);                    // dqkv . W_eff^T, dpre . w1^T
+  else if (!trans_b && ln && epi == EPI_DACT)
+    UML_GEMM_LAUNCH(true, EPI_DACT, false);                                     // MLP bwd
+  else if (!trans_b && ln && epi == EPI_DACT_F32)
+    UML_GEMM_LAUNCH(true, EPI_DACT_F32, false);                                 // MLP bwd, dW
   else return cudaErrorInvalidValue;
 #undef UML_GEMM_LAUNCH
   return cudaGetLastError();

@@ -23,18 +23,25 @@ Training (the full-model finetune): when autograd needs a gradient
 (grad mode on and a parameter that requires one), the image tower derives
 the LN-folded weights with autograd on every call, and each layer runs
 through the autograd Functions of the ops (AttnBlockFn, AttnBlockClsFn,
-MlpBlockFn: the stash forward kernels and their backward kernels), so the
-gradient reaches every parameter of the tower: patch embedding, class
-and positional embeddings, ln_pre, the layers, ln_post and proj.  The
-towers have no dropout or BatchNorm, so ``model.train()`` and
-``model.eval()`` compute the same; freezing is ``requires_grad_(False)``.
+MlpBlockFn), so the gradient reaches every parameter of the tower: patch
+embedding, class and positional embeddings, ln_pre, the layers, ln_post
+and proj.  Which kernels a layer runs is the ops' choice, under uml_tpu's
+switches: by default the stash forwards and the backwards from their
+stashes; with UML_BWD_STASH=0 the full attention halves run the
+inference forward and the recompute backward; with the MLP stash off
+(UML_MLP_STASH=0, or the memory gate from ViT-B/16 batch 212 up) the MLP
+halves run the inference forward and the backward UML_MLP_BWD picks
+(kernel, dw, or the plain twin's VJP); the CLS layer always keeps the
+qkv its forward computed.  The towers have no dropout or BatchNorm, so
+``model.train()`` and ``model.eval()`` compute the same; freezing is
+``requires_grad_(False)``.
 
 Inference (``torch.no_grad()``, or frozen parameters): the folded,
 compute-dtype weights are derived once and cached; the cache is keyed on
 every source parameter's storage and version counter, so loading a
 state_dict, an optimizer step or moving the model rebuilds it.  The text
-tower runs forward only (text_tower has no backward yet) and raises if a
-gradient is asked of it.
+tower runs forward only (text_tower has no backward, and training the
+text tower is not ported) and raises if a gradient is asked of it.
 
 Int8 serving (``quant``, clip.py:204-263, 351-438): ``int8`` runs both
 half-blocks of every full layer W8A8 (ops.quant), ``int8_mlp`` /
@@ -338,10 +345,9 @@ class Transformer(nn.Module):
         the operands of text_tower (forward only)."""
         if _needs_grad(*self.parameters()):
             raise NotImplementedError(
-                "the text tower has no backward in uml_tpu_torch yet (the "
-                "causal backward kernel comes with the unfrozen text tower); "
-                "run encode_text under torch.no_grad() or freeze its "
-                "parameters")
+                "training the text tower is not ported to uml_tpu_torch "
+                "(text_tower runs forward only); run encode_text under "
+                "torch.no_grad() or freeze its parameters")
 
         def build():
             per_layer = [b.folded(dtype) for b in self.resblocks]

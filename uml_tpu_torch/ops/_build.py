@@ -45,6 +45,14 @@ SIGNATURES = {
     # x, g, qkv, w_eff, wo, dattn, dxn, dqkv, dx, xn, B, S, K, H, eps,
     # stream
     "uml_attn_block_cls_bwd": [_P] * 10 + [_I] * 4 + [_F, _P],
+    # x, g, w_eff, b_eff, wo, qkv, attn, dattn, stats, dxn, dqkv, dx, xn,
+    # B, S, K, H, causal, eps, stream
+    "uml_attn_block_bwd_recompute": [_P] * 13 + [_I] * 5 + [_F, _P],
+    # x, dy, b1, w1, dpre, yact, dxn, dx_ln, xn, rows, K, M, eps, stream
+    "uml_mlp_bwd": [_P] * 9 + [_I] * 3 + [_F, _P],
+    # x, g, b1, w1, w2, dy, dpre, yact, dxn, db1_part, dx, xn, dw1, db1,
+    # dw2, rows, K, M, eps, stream
+    "uml_mlp_bwd_dw": [_P] * 15 + [_I] * 3 + [_F, _P],
     # x, w1, b1, w2, b2, hidden, out, rows, K, M, eps, stream
     "uml_mlp_block": [_P] * 7 + [_I] * 3 + [_F, _P],
     # x, w1, b1, w2, b2, pre, hidden, out, rows, K, M, eps, stream

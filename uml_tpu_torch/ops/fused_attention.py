@@ -4,7 +4,8 @@ The port of uml_tpu/ops/fused_attention.py::_block_kernel (every query
 row, causal or not) and ::_block_cls_kernel (the last image layer, whose
 only consumer is the CLS row), and of their training twins:
 ``_block_kernel_stash`` (the forward that keeps qkv and the attention
-output), ``_block_bwd_stash_kernel`` (the backward from that stash) and
+output), ``_block_bwd_stash_kernel`` (the backward from that stash),
+``_block_bwd_kernel`` (the backward that recomputes them) and
 ``_block_bwd_cls_kernel`` (the backward of the CLS layer).
 
 Every op takes the post-fold weights (fold_ln_into_matmul): on a CPU
@@ -29,10 +30,19 @@ in ``csrc/`` or raises, and counts the launch.
   return them; the CLS backward reads the qkv that the CLS forward
   computes for every row (``attn_block_cls`` projects all S rows), so K
   and V are not recomputed.
+* ``attn_block_bwd_recompute``: ``csrc/attn_block_bwd.cu`` -> (dx, dqkv,
+  xn, attn), as ``_block_bwd_call`` returns them: it recomputes qkv and
+  attn from x with the forward's own launches (so they equal the
+  forward's bit for bit), then runs the stash backward on them.
 * ``AttnBlockFn`` / ``AttnBlockClsFn``: the autograd Functions of the two
   halves; they assemble dW_eff, db_eff, dwo and dbo from the backward's
   outputs as ``_bwd_via_kernel`` does (fused_attention.py:1586-1594), as
-  plain large products outside the kernels.
+  plain large products outside the kernels.  ``AttnBlockFn`` stashes as
+  uml_tpu's ``_fused_block_fwd`` does (:1558-1566): only a non-causal
+  half under ``stash_enabled()`` (UML_BWD_STASH, default "1"); otherwise
+  its forward is ``attn_block`` and its backward
+  ``attn_block_bwd_recompute``.  The CLS half always keeps the qkv its
+  forward computed.
 
 Numerics, as in the twin: fp32 LN statistics, bf16 operands with fp32
 accumulation, the full b_eff added to qkv before its bf16 rounding, an
@@ -45,6 +55,8 @@ products, dattn = g @ wo^T rounds to it once, dxn stays fp32.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -91,6 +103,19 @@ def _qkv_heads(qkv, heads):
     return qkv.view(b, s, 3, heads, d).permute(2, 0, 3, 1, 4)
 
 
+def _qkv_attention_plain(x, w_eff, b_eff, *, heads, causal, eps, q_rows=None):
+    """-> (qkv [B, S, 3*H*D] with b_eff, attn [B, sq, H*D]): the first
+    two steps of the half-block, which the recompute backward repeats."""
+    b, s, _ = x.shape
+    sq = s if q_rows is None else q_rows
+    dt = w_eff.dtype
+    xn = raw_layer_norm(x.float(), eps).to(dt)
+    qkv = (xn.float() @ w_eff.float() + b_eff.float()).to(dt)
+    q, k, v = _qkv_heads(qkv, heads)
+    attn = attention_plain(q[:, :, :sq], k, v, causal=causal)
+    return qkv, attn.transpose(1, 2).reshape(b, sq, -1)
+
+
 def attn_block_stash_plain(x, w_eff, b_eff, wo, bo, *, heads: int,
                            causal: bool = False, eps: float = 1e-5,
                            q_rows=None):
@@ -98,17 +123,10 @@ def attn_block_stash_plain(x, w_eff, b_eff, wo, bo, *, heads: int,
     also returns its stash: (out [B, sq, K], qkv [B, S, 3*H*D] with
     b_eff, attn [B, sq, H*D]).  ``q_rows`` keeps only the first query
     rows (1 for the CLS block)."""
-    b, s, _ = x.shape
-    sq = s if q_rows is None else q_rows
-    dt = w_eff.dtype
-    xf = x.float()
-    xn = raw_layer_norm(xf, eps).to(dt)
-    qkv = (xn.float() @ w_eff.float() + b_eff.float()).to(dt)
-    q, k, v = _qkv_heads(qkv, heads)
-    attn = attention_plain(q[:, :, :sq], k, v, causal=causal)
-    attn = attn.transpose(1, 2).reshape(b, sq, -1)
+    qkv, attn = _qkv_attention_plain(x, w_eff, b_eff, heads=heads,
+                                     causal=causal, eps=eps, q_rows=q_rows)
     delta = attn.float() @ wo.float()
-    out = (xf[:, :sq] + delta + bo.float()).to(x.dtype)
+    out = (x.float()[:, :attn.shape[1]] + delta + bo.float()).to(x.dtype)
     return out, qkv, attn
 
 
@@ -173,6 +191,18 @@ def attn_block_cls_bwd_plain(x, g, qkv, w_eff, wo, *, heads: int,
     """attn_block_bwd_plain for the CLS block: g [B, 1, K]."""
     return attn_block_bwd_plain(x, g, qkv, w_eff, wo, heads=heads,
                                 causal=False, eps=eps)
+
+
+def attn_block_bwd_recompute_plain(x, g, w_eff, b_eff, wo, *, heads: int,
+                                   causal: bool = False, eps: float = 1e-5):
+    """Plain PyTorch version of the backward with no stash: recompute qkv
+    and attn as attn_block_stash_plain computes them, then
+    attn_block_bwd_plain -> (dx, dqkv, xn, attn [B, S, H*D])."""
+    qkv, attn = _qkv_attention_plain(x, w_eff, b_eff, heads=heads,
+                                     causal=causal, eps=eps)
+    dx, dqkv, xn = attn_block_bwd_plain(x, g, qkv, w_eff, wo, heads=heads,
+                                        causal=causal, eps=eps)
+    return dx, dqkv, xn, attn
 
 
 def _launch_attn_block(x, w_eff, b_eff, wo, bo, heads, causal, eps, q_rows,
@@ -265,6 +295,8 @@ attn_block_stash.launches = 0
 
 
 def _check_bwd(x, g, qkv, w_eff, wo, heads, q_rows):
+    """What the backward kernels take; ``qkv`` None for the recompute
+    backward, which takes no stash."""
     b, s, k = x.shape
     hd = heads * HEAD_DIM
     _build.check_dims(K=k)
@@ -273,7 +305,8 @@ def _check_bwd(x, g, qkv, w_eff, wo, heads, q_rows):
     bf16, dev = torch.bfloat16, x.device
     _build.check_tensor("x", x, bf16, (b, s, k), dev)
     _build.check_tensor("g", g, bf16, (b, q_rows, k), dev)
-    _build.check_tensor("qkv", qkv, bf16, (b, s, 3 * hd), dev)
+    if qkv is not None:
+        _build.check_tensor("qkv", qkv, bf16, (b, s, 3 * hd), dev)
     _build.check_tensor("w_eff", w_eff, bf16, (k, 3 * hd), dev)
     _build.check_tensor("wo", wo, bf16, (hd, k), dev)
     return b, s, k, hd, bf16, dev
@@ -332,6 +365,46 @@ def attn_block_cls_bwd(x, g, qkv, w_eff, wo, *, heads: int, eps: float = 1e-5):
 attn_block_cls_bwd.launches = 0
 
 
+def attn_block_bwd_recompute(x, g, w_eff, b_eff, wo, *, heads: int,
+                             causal: bool = False, eps: float = 1e-5):
+    """Backward of attn_block with no stash: x [B,S,K], g [B,S,K] ->
+    (dx [B,S,K], dqkv [B,S,3*H*64], xn [B,S,K], attn [B,S,H*64])."""
+    if x.device.type == "cpu":
+        return attn_block_bwd_recompute_plain(x, g, w_eff, b_eff, wo,
+                                              heads=heads, causal=causal,
+                                              eps=eps)
+    b, s, k, hd, bf16, dev = _check_bwd(x, g, None, w_eff, wo, heads, x.shape[1])
+    _build.check_tensor("b_eff", b_eff, torch.float32, (3 * hd,), dev)
+    with torch.cuda.device(dev):
+        qkv = torch.empty((b * s, 3 * hd), dtype=bf16, device=dev)
+        attn = torch.empty((b, s, hd), dtype=bf16, device=dev)
+        dattn = torch.empty((b * s, hd), dtype=bf16, device=dev)
+        stats = torch.empty((b * heads * s, 4), dtype=torch.float32, device=dev)
+        dxn = torch.empty((b * s, k), dtype=torch.float32, device=dev)
+        dqkv = torch.empty((b, s, 3 * hd), dtype=bf16, device=dev)
+        dx = torch.empty_like(x)
+        xn = torch.empty_like(x)
+        _build.launch("uml_attn_block_bwd_recompute", x.data_ptr(), g.data_ptr(),
+                      w_eff.data_ptr(), b_eff.data_ptr(), wo.data_ptr(),
+                      qkv.data_ptr(), attn.data_ptr(), dattn.data_ptr(),
+                      stats.data_ptr(), dxn.data_ptr(), dqkv.data_ptr(),
+                      dx.data_ptr(), xn.data_ptr(), b, s, k, heads, int(causal),
+                      eps, torch.cuda.current_stream(dev).cuda_stream)
+    attn_block_bwd_recompute.launches += 1
+    return dx, dqkv, xn, attn
+
+
+attn_block_bwd_recompute.launches = 0
+
+
+def stash_enabled() -> bool:
+    """Stash qkv and the attention output of a non-causal attention half
+    for its backward (UML_BWD_STASH, default "1"; anything else
+    recomputes them from x), the switch of uml_tpu's _stash_enabled
+    (fused_attention.py:373-391).  A causal half never stashes."""
+    return os.environ.get("UML_BWD_STASH", "1") == "1"
+
+
 def _param_grads(xn, dqkv, attn, g, w_eff, b_eff, wo, bo):
     """dW_eff = xn^T dqkv, db_eff, dwo = attn^T g, dbo: contractions over
     (batch, seq) with fp32 accumulation, each cast to its parameter's
@@ -345,23 +418,35 @@ def _param_grads(xn, dqkv, attn, g, w_eff, b_eff, wo, bo):
 
 
 class AttnBlockFn(torch.autograd.Function):
-    """attn_block with a gradient: the stash forward, the stash backward."""
+    """attn_block with a gradient: the stash forward and the stash
+    backward for a non-causal half under stash_enabled(), else the
+    inference forward and the recompute backward."""
 
     @staticmethod
     def forward(ctx, x, w_eff, b_eff, wo, bo, heads, causal, eps):
-        out, qkv, attn = attn_block_stash(x, w_eff, b_eff, wo, bo, heads=heads,
-                                          causal=causal, eps=eps)
-        ctx.save_for_backward(x, w_eff, b_eff, wo, bo, qkv, attn)
         ctx.cfg = (heads, causal, eps)
+        if stash_enabled() and not causal:
+            out, qkv, attn = attn_block_stash(x, w_eff, b_eff, wo, bo,
+                                              heads=heads, causal=causal, eps=eps)
+            ctx.save_for_backward(x, w_eff, b_eff, wo, bo, qkv, attn)
+        else:
+            out = attn_block(x, w_eff, b_eff, wo, bo, heads=heads,
+                             causal=causal, eps=eps)
+            ctx.save_for_backward(x, w_eff, b_eff, wo, bo)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        x, w_eff, b_eff, wo, bo, qkv, attn = ctx.saved_tensors
         heads, causal, eps = ctx.cfg
         g = g.contiguous()
-        dx, dqkv, xn = attn_block_bwd(x, g, qkv, w_eff, wo, heads=heads,
-                                      causal=causal, eps=eps)
+        if len(ctx.saved_tensors) == 7:
+            x, w_eff, b_eff, wo, bo, qkv, attn = ctx.saved_tensors
+            dx, dqkv, xn = attn_block_bwd(x, g, qkv, w_eff, wo, heads=heads,
+                                          causal=causal, eps=eps)
+        else:
+            x, w_eff, b_eff, wo, bo = ctx.saved_tensors
+            dx, dqkv, xn, attn = attn_block_bwd_recompute(
+                x, g, w_eff, b_eff, wo, heads=heads, causal=causal, eps=eps)
         return (dx, *_param_grads(xn, dqkv, attn, g, w_eff, b_eff, wo, bo),
                 None, None, None)
 

@@ -1,12 +1,13 @@
 """MLP half-block: x + quick_gelu(rawLN(x) @ w1 + b1) @ w2 + b2.
 
 The port of uml_tpu/ops/ln_matmul.py::_mlp_block_kernel (its jnp twin is
-``_raw_mlp_block_reference``) and of its training twin
-``_mlp_block_kernel_stash``.  The ops take the post-fold weights (the LN
+``_raw_mlp_block_reference``) and of its training twins
+``_mlp_block_kernel_stash``, ``_mlp_bwd_kernel`` and
+``_mlp_bwd_dw_kernel``.  The ops take the post-fold weights (the LN
 scale/bias folded into w1/b1 by fold_ln_into_matmul): on a CPU tensor
 they run the plain PyTorch versions below, on a CUDA tensor they launch
-``csrc/mlp_block.cu`` (two ln_gemm launches) or raise, and count the
-launch.
+``csrc/mlp_block.cu`` (two ln_gemm launches) or ``csrc/mlp_block_bwd.cu``
+or raise, and count the launch.
 
 * ``mlp_block``: the inference forward.
 * ``mlp_block_stash``: the training forward -> (out, pre), pre =
@@ -16,10 +17,24 @@ launch.
   the TPU package leaves it to XLA (``_mlp_bwd_via_stash``,
   ln_matmul.py:256-293): act and act' are evaluated at the bf16-rounded
   pre, as the reference does.
+* ``mlp_bwd`` (``_mlp_bwd_kernel``, UML_MLP_BWD=kernel): from x and dy =
+  g @ w2^T, rounded to bf16 outside, it recomputes pre and returns
+  (dx_ln, xn, dpre, yact); ``mlp_bwd_via_kernel`` assembles the five
+  grads around it as ``_mlp_bwd_via_kernel`` does (ln_matmul.py:397-414):
+  dy, the residual, the dW products and the bias sums outside.
+* ``mlp_bwd_dw`` (``_mlp_bwd_dw_kernel``, UML_MLP_BWD=dw): from x and g,
+  dy in fp32 inside, the residual inside, and dw1, db1, dw2 as fp32 sums
+  over every row inside -> (dx, dw1, db1, dw2); ``mlp_bwd_dw_via_kernel``
+  adds db2 and casts the dW to the weight dtype (ln_matmul.py:536-543).
+  Both take act and act' of the fp32 pre (b1 included), where the stash
+  backward takes them of the bf16-rounded pre.
 * ``MlpBlockFn``: the autograd Function.  Under the memory gate
   ``mlp_stash_enabled`` (the reference's ``_mlp_stash_enabled`` and
-  MLP_STASH_MAX_BYTES) it stashes pre; otherwise it runs ``mlp_block``
-  and its backward is the autograd of the plain twin, recomputed.
+  MLP_STASH_MAX_BYTES) it stashes pre; otherwise it runs ``mlp_block``,
+  and its backward is picked by UML_MLP_BWD as uml_tpu's
+  ``_mlp_block_vjp_bwd`` picks it (ln_matmul.py:577-604): "dw" (3-d x)
+  ``mlp_bwd_dw_via_kernel``, "kernel" ``mlp_bwd_via_kernel``, anything
+  else (the default) the autograd of the plain twin, recomputed.
 
 The activation is CLIP's quick_gelu, x * sigmoid(1.702 x)
 (ln_matmul.py:678-679); DINO's exact GELU comes with the DINO encoders.
@@ -186,9 +201,141 @@ def mlp_bwd_via_stash(x, g, pre, w1, b1, w2, b2, *, eps: float = 1e-5):
             db2.to(b2.dtype))
 
 
+def _mlp_rows(x, w1, b1, eps):
+    """The recompute shared by the two backward kernels' plain versions:
+    -> (xn32, rstd, xnb, act, dact) with pre = xnb @ w1 + b1 in fp32."""
+    xn32, rstd = raw_layer_norm_rstd(x.float(), eps)
+    xnb = xn32.to(w1.dtype)
+    act, dact = act_and_grad(xnb.float() @ w1.float() + b1.float())
+    return xn32, rstd, xnb, act, dact
+
+
+def mlp_bwd_plain(x, dy, b1, w1, *, eps: float = 1e-5):
+    """Plain PyTorch version of _mlp_bwd_kernel: x [..., K], dy [..., M]
+    -> (dx_ln, xn, dpre, yact) in x's dtype; dx_ln has no residual."""
+    xn32, rstd, xnb, act, dact = _mlp_rows(x, w1, b1, eps)
+    dpre = (dy.float() * dact).to(w1.dtype)
+    dxn = dpre.float() @ w1.float().t()
+    dx_ln = raw_layer_norm_bwd(dxn, xn32, rstd)
+    return (dx_ln.to(x.dtype), xnb.to(x.dtype), dpre.to(x.dtype),
+            act.to(x.dtype))
+
+
+def mlp_bwd_dw_plain(x, g, b1, w1, w2, *, eps: float = 1e-5):
+    """Plain PyTorch version of _mlp_bwd_dw_kernel: x, g [B, S, K] ->
+    (dx [B, S, K] with the residual, dw1 [K, M], db1 [M], dw2 [M, K]),
+    the three weight gradients fp32 sums over every row."""
+    k, m = w1.shape
+    xn32, rstd, xnb, act, dact = _mlp_rows(x, w1, b1, eps)
+    dpre = (g.float() @ w2.float().t()) * dact
+    dpreb = dpre.to(w1.dtype)
+    dxn = dpreb.float() @ w1.float().t()
+    dx = (raw_layer_norm_bwd(dxn, xn32, rstd) + g.float()).to(x.dtype)
+    dw1 = xnb.reshape(-1, k).float().t() @ dpreb.reshape(-1, m).float()
+    db1 = dpre.reshape(-1, m).sum(0)
+    dw2 = act.to(w1.dtype).reshape(-1, m).float().t() @ g.reshape(-1, k).float()
+    return dx, dw1, db1, dw2
+
+
+def mlp_bwd(x, dy, b1, w1, *, eps: float = 1e-5):
+    """The MLP half's backward kernel with dy = g @ w2^T given: x [..., K]
+    bf16; dy [..., M] bf16; b1 [M] fp32; w1 [K, M] bf16 -> (dx_ln, xn
+    [..., K], dpre, yact [..., M])."""
+    if x.device.type == "cpu":
+        return mlp_bwd_plain(x, dy, b1, w1, eps=eps)
+    k, m = w1.shape
+    _build.check_dims(K=k, M=m)
+    bf16, dev = torch.bfloat16, x.device
+    rows = x.numel() // k
+    _build.check_tensor("x", x, bf16, x.shape, dev)
+    _build.check_tensor("dy", dy, bf16, (*x.shape[:-1], m), dev)
+    _build.check_tensor("b1", b1, torch.float32, (m,), dev)
+    _build.check_tensor("w1", w1, bf16, (k, m), dev)
+    with torch.cuda.device(dev):
+        dpre = torch.empty_like(dy)
+        yact = torch.empty_like(dy)
+        dxn = torch.empty((rows, k), dtype=torch.float32, device=dev)
+        dx_ln = torch.empty_like(x)
+        xn = torch.empty_like(x)
+        _build.launch("uml_mlp_bwd", x.data_ptr(), dy.data_ptr(), b1.data_ptr(),
+                      w1.data_ptr(), dpre.data_ptr(), yact.data_ptr(),
+                      dxn.data_ptr(), dx_ln.data_ptr(), xn.data_ptr(), rows, k,
+                      m, eps, torch.cuda.current_stream(dev).cuda_stream)
+    mlp_bwd.launches += 1
+    return dx_ln, xn, dpre, yact
+
+
+mlp_bwd.launches = 0
+
+
+def mlp_bwd_dw(x, g, b1, w1, w2, *, eps: float = 1e-5):
+    """The MLP half's backward kernel with the weight gradients inside:
+    x, g [B, S, K] bf16; b1 [M] fp32; w1 [K, M], w2 [M, K] bf16 -> (dx
+    [B, S, K] bf16, dw1 [K, M], db1 [M], dw2 [M, K] fp32)."""
+    if x.device.type == "cpu":
+        return mlp_bwd_dw_plain(x, g, b1, w1, w2, eps=eps)
+    k, m = w1.shape
+    _build.check_dims(K=k, M=m)
+    f32, bf16, dev = torch.float32, torch.bfloat16, x.device
+    rows = x.numel() // k
+    _build.check_tensor("x", x, bf16, x.shape, dev)
+    _build.check_tensor("g", g, bf16, x.shape, dev)
+    _build.check_tensor("b1", b1, f32, (m,), dev)
+    _build.check_tensor("w1", w1, bf16, (k, m), dev)
+    _build.check_tensor("w2", w2, bf16, (m, k), dev)
+    with torch.cuda.device(dev):
+        dy = torch.empty((rows, m), dtype=f32, device=dev)
+        dpre = torch.empty((rows, m), dtype=bf16, device=dev)
+        yact = torch.empty((rows, m), dtype=bf16, device=dev)
+        dxn = torch.empty((rows, k), dtype=f32, device=dev)
+        db1_part = torch.empty((-(-rows // 64), m), dtype=f32, device=dev)
+        dx = torch.empty_like(x)
+        xn = torch.empty_like(x)
+        dw1 = torch.empty((k, m), dtype=f32, device=dev)
+        db1 = torch.empty((m,), dtype=f32, device=dev)
+        dw2 = torch.empty((m, k), dtype=f32, device=dev)
+        _build.launch("uml_mlp_bwd_dw", x.data_ptr(), g.data_ptr(), b1.data_ptr(),
+                      w1.data_ptr(), w2.data_ptr(), dy.data_ptr(),
+                      dpre.data_ptr(), yact.data_ptr(), dxn.data_ptr(),
+                      db1_part.data_ptr(), dx.data_ptr(), xn.data_ptr(),
+                      dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(), rows, k, m,
+                      eps, torch.cuda.current_stream(dev).cuda_stream)
+    mlp_bwd_dw.launches += 1
+    return dx, dw1, db1, dw2
+
+
+mlp_bwd_dw.launches = 0
+
+
+def mlp_bwd_via_kernel(x, g, w1, b1, w2, b2, *, eps: float = 1e-5):
+    """All five grads around mlp_bwd, as _mlp_bwd_via_kernel assembles
+    them: dy = g @ w2^T rounded to x's dtype, the residual added in fp32
+    and rounded once, the dW products over (batch, seq) with fp32
+    accumulation cast to the weight dtype -> (dx, dw1, db1, dw2, db2)."""
+    k, m = w1.shape
+    dy = torch.matmul(g, w2.t()).to(x.dtype)
+    dx_ln, xn, dpre, yact = mlp_bwd(x, dy, b1, w1, eps=eps)
+    dx = (dx_ln.float() + g.float()).to(x.dtype)
+    g2, dpre2 = g.reshape(-1, k), dpre.reshape(-1, m)
+    return (dx, torch.matmul(xn.reshape(-1, k).t(), dpre2).to(w1.dtype),
+            dpre2.sum(0, dtype=torch.float32).to(b1.dtype),
+            torch.matmul(yact.reshape(-1, m).t(), g2).to(w2.dtype),
+            g2.sum(0, dtype=torch.float32).to(b2.dtype))
+
+
+def mlp_bwd_dw_via_kernel(x, g, w1, b1, w2, b2, *, eps: float = 1e-5):
+    """All five grads around mlp_bwd_dw (_mlp_bwd_dw_via_kernel): only
+    db2 outside; the fp32 dW cast to the weight dtype."""
+    dx, dw1, db1, dw2 = mlp_bwd_dw(x, g, b1, w1, w2, eps=eps)
+    db2 = g.reshape(-1, g.shape[-1]).sum(0, dtype=torch.float32)
+    return (dx, dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype),
+            db2.to(b2.dtype))
+
+
 class MlpBlockFn(torch.autograd.Function):
     """mlp_block with a gradient: the stash forward and backward under the
-    memory gate, else the inference forward and the plain twin's VJP."""
+    memory gate, else the inference forward and the backward UML_MLP_BWD
+    picks."""
 
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2, eps):
@@ -208,6 +355,14 @@ class MlpBlockFn(torch.autograd.Function):
         if len(ctx.saved_tensors) == 6:
             x, w1, b1, w2, b2, pre = ctx.saved_tensors
             return (*mlp_bwd_via_stash(x, g, pre, w1, b1, w2, b2, eps=ctx.eps),
+                    None)
+        x, w1, b1, w2, b2 = ctx.saved_tensors
+        mode = os.environ.get("UML_MLP_BWD")
+        if mode == "dw" and x.dim() == 3:
+            return (*mlp_bwd_dw_via_kernel(x, g, w1, b1, w2, b2, eps=ctx.eps),
+                    None)
+        if mode == "kernel":
+            return (*mlp_bwd_via_kernel(x, g, w1, b1, w2, b2, eps=ctx.eps),
                     None)
         inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
         with torch.enable_grad():
