@@ -13,10 +13,17 @@ Phases (any failure exits non-zero; no phase is caught):
    attn_block_bwd_recompute (also causal at the text widths), mlp_bwd and
    mlp_bwd_dw among them; the int8 attn_block_q8 with an int8 and a bf16
    out-projection, mlp_block_q8 and the 11-layer tower_q8 at ViT-B/16
-   widths, causal attn_block_q8 at the text widths) against its plain
+   widths, causal attn_block_q8 at the text widths; the stand-alone ops
+   of the non-fused branch: ln_matmul 3-d and 2-d with each activation,
+   add_ln_matmul, ln_qkv_attention at both towers' widths, layer_norm in
+   bf16 and fp32, flash_attention at S=197 and at [8,16,2048,64] causal
+   and not, and at head dim 128) against its plain
    PyTorch version on the same inputs, within the stated bounds, timed
    with CUDA events, with its bound (the least time the card could take)
-   and a cuBLAS GEMM yardstick at its largest product.  The int8 halves
+   and a cuBLAS GEMM yardstick at its largest product (layer_norm and
+   flash_attention: the one PyTorch call that computes the same function,
+   F.layer_norm and F.scaled_dot_product_attention, timed as library_ms
+   and used nowhere in the port).  The int8 halves
    also compare their activation integers with the plain version's: no
    integer may differ by more than one step.
 3. main path: generate_fewshot and features on a synthetic caltech-layout
@@ -31,6 +38,16 @@ Phases (any failure exits non-zero; no phase is caught):
    UML_TOWER_Q8=1 launches tower_q8 once and equals the per-layer int8
    output; the int8-vs-bf16 feature cosine (recorded) and the img/s of
    the bf16, int8 and int8-tower image encoders in the same run.
+3c. non-fused path: build_clip("ViT-B/16", bf16, attn_impl=...) with the
+   phase-3 model's weights; one batch of 64 images through
+   encode_image_u8 under attn_impl="reference" (12 ln_matmul and 12
+   add_ln_matmul, no fused port) and "pallas" (12 flash_attention more),
+   64 prompts through encode_text under "reference" (12 and 12, no
+   text_tower); per-row cosine against the fused path's features and
+   against the same model on the CPU; the img/s of both modes beside the
+   fused encoder's.  Then the public exports of uml_tpu_torch.ops on the
+   card: layer_norm, ln_qkv_attention, multi_head_attention ("auto" at
+   S=2048) and a 2-d ln_matmul; their counters must move.
 4. training path: the finetune CLI on the phase-3 fixture and text cache,
    frozen (``--hyperparams smoke``) and full-model (``smoke_full``: the
    ViT-B/16 tower at full width, bs 8, 30 steps), then collect_results
@@ -51,7 +68,10 @@ Phases (any failure exits non-zero; no phase is caught):
    recompute modes (plain MLP backward, kernel, dw); at bs 256 under the
    default gate (the MLP stash turns itself off) with the plain MLP
    backward, kernel and dw; and bs 256 as 2 x 128 through
-   train/accum.py with both stashes on.
+   train/accum.py with both stashes on.  The non-fused branch
+   (attn_impl="reference"): the bs-4 step against the CPU and the bs-64
+   rate with its peak memory; and one gradient of encode_text through
+   TextTowerFn on the card against the CPU.
 5. the kernel table as one JSON line, the device line last.
 
 The script needs nothing of JAX.  Without a CUDA device, or outside a
@@ -102,11 +122,28 @@ PORTS = [
      "uml_tpu/ops/ln_matmul.py:310"),
     ("mlp_bwd_dw", "uml_tpu_torch/csrc/mlp_block_bwd.cu",
      "uml_tpu/ops/ln_matmul.py:417"),
+    ("flash_attention", "uml_tpu_torch/csrc/flash_attention.cu",
+     "uml_tpu/ops/attention.py:90"),
+    # one C entry, uml_ln_matmul, for the TPU's 2-d and 3-d kernels
+    ("ln_matmul_2d", "uml_tpu_torch/csrc/ln_matmul.cu",
+     "uml_tpu/ops/ln_matmul.py:58"),
+    ("ln_matmul", "uml_tpu_torch/csrc/ln_matmul.cu",
+     "uml_tpu/ops/ln_matmul.py:74"),
+    ("add_ln_matmul", "uml_tpu_torch/csrc/ln_matmul.cu",
+     "uml_tpu/ops/ln_matmul.py:734"),
+    ("ln_qkv_attention", "uml_tpu_torch/csrc/ln_qkv_attention.cu",
+     "uml_tpu/ops/fused_attention.py:143"),
+    ("layer_norm", "uml_tpu_torch/csrc/layer_norm.cu",
+     "uml_tpu/ops/layer_norm.py:33"),
 ]
 TRAIN_PORTS = ("attn_block_stash", "attn_block_bwd", "attn_block_cls_bwd",
                "mlp_block_stash")
 Q8_PORTS = ("attn_block_q8", "mlp_block_q8", "tower_q8")
 RECOMPUTE_PORTS = ("attn_block_bwd_recompute", "mlp_bwd", "mlp_bwd_dw")
+# the non-fused image encode launches the first three; the public ops
+# called on the card the rest (the 2-d ln_matmul is the same wrapper)
+UNFUSED_PORTS = ("flash_attention", "ln_matmul", "add_ln_matmul")
+OPS_PORTS = ("ln_matmul_2d", "ln_qkv_attention", "layer_norm")
 # the backward modes of the full-model train step: the environment of each
 RECOMPUTE = {"UML_BWD_STASH": "0", "UML_MLP_STASH": "0"}
 RECOMPUTE_MODES = {"kernel": {**RECOMPUTE, "UML_MLP_BWD": "kernel"},
@@ -133,7 +170,18 @@ REL_BOUND = {"attn_block": 1 / 64, "attn_block_cls": 1 / 64,
              "mlp_block_q8": 1 / 64, "tower_q8": 1 / 16,
              "attn_block_bwd_recompute": 1 / 64,
              "attn_block_bwd_recompute_causal": 1 / 64, "mlp_bwd": 1 / 64,
-             "mlp_bwd_dw": 1 / 64}
+             "mlp_bwd_dw": 1 / 64,
+             # the stand-alone ops: 1/64 like the half-blocks; t of
+             # add_ln_matmul is one rounding of the same fp32 sum, and the
+             # fp32 layer_norm differs in summation order only: 1e-5
+             "ln_matmul": 1 / 64, "ln_matmul_2d": 1 / 64,
+             "ln_matmul_2d_gelu_exact": 1 / 64,
+             "add_ln_matmul": (1e-5, 1 / 64), "ln_qkv_attention": 1 / 64,
+             "ln_qkv_attention_causal": 1 / 64, "layer_norm": 1 / 64,
+             "layer_norm_f32": 1e-5, "flash_attention": 1 / 64,
+             "flash_attention_2048": 1 / 64,
+             "flash_attention_2048_causal": 1 / 64,
+             "flash_attention_d128": 1 / 64}
 # dense peaks of an H100 SXM at 700 W (NVIDIA's data sheet): the bound of a
 # kernel is max(bytes / PEAK_BYTES, int8 ops / PEAK_INT8 + bf16 FLOPs /
 # PEAK_BF16), bytes = every input read once and every output written once
@@ -244,11 +292,11 @@ def _bound(inputs, outputs, int8_ops=0.0, bf16_flops=0.0):
                                        else "operations")
 
 
-def _attn_flops(b, s, heads, causal=False, q_rows=None):
+def _attn_flops(b, s, heads, causal=False, q_rows=None, d=64):
     """4 * D per (query, key) pair: the scores and P.V of every head."""
     pairs = (s * (s + 1) // 2 if causal else
              s * (s if q_rows is None else q_rows))
-    return 4.0 * b * heads * pairs * 64
+    return 4.0 * b * heads * pairs * d
 
 
 def _yardstick(m, k, n, int8, dev):
@@ -256,6 +304,8 @@ def _yardstick(m, k, n, int8, dev):
     in bf16 or torch._int_mm in int8 (never called by the port)."""
     import torch
 
+    if m is None:
+        return None, None
     if int8:
         a = torch.randint(-127, 128, (m, k), dtype=torch.int8, device=dev)
         w = torch.randint(-127, 128, (k, n), dtype=torch.int8, device=dev)
@@ -332,8 +382,11 @@ def phase_kernels():
                                                    attn_block_cls_plain,
                                                    attn_block_plain)
     from uml_tpu_torch.ops.ln_matmul import mlp_block, mlp_block_plain
+    from uml_tpu_torch.ops import attention as at
+    from uml_tpu_torch.ops.layer_norm import layer_norm, layer_norm_plain
     from uml_tpu_torch.ops.text_tower import text_tower, text_tower_plain
 
+    F = torch.nn.functional
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     bf = torch.bfloat16
@@ -371,6 +424,27 @@ def phase_kernels():
     q8t = _q8_case_weights(gen, kt, 4 * kt, kt, dev)
     q8_attn_t = (*q8t[:3], q8t[3:5], q8t[5])
     q8_tower = _q8_case_weights(gen, k, m, k, dev, layers=11)
+
+    # the stand-alone ops: unfolded LN params, a second residual operand,
+    # q, k, v in [B, H, S, D]
+    def ln_params(width):
+        return (1 + 0.1 * torch.randn(width, generator=gen, device=dev),
+                0.1 * torch.randn(width, generator=gen, device=dev))
+
+    ln_v, ln_t = ln_params(k), ln_params(kt)
+    qkv_w = (wv["w_eff"], wv["b_eff"])      # used as plain [K, 3K] weights
+    fc_w = (wv["w1"], wv["b1"])
+    x2d = xv.reshape(rows, k)
+    delta_v = torch.randn(b, s, k, generator=gen, device=dev).to(bf)
+    x32 = xv.float()
+
+    def heads_qkv(bb, hh, ss, dd):
+        return tuple(torch.randn(bb, hh, ss, dd, generator=gen, device=dev).to(bf)
+                     for _ in range(3))
+
+    qkv_197 = heads_qkv(b, 12, s, 64)
+    qkv_2048 = heads_qkv(8, 16, 2048, 64)
+    qkv_d128 = heads_qkv(8, 8, 1024, 128)
 
     # GEMM work of one ViT-B/16 layer (FLOPs, or int8 ops)
     qkv_f, out_f, mlp_f = 2.0 * rows * k * 3 * k, 2.0 * rows * k * k, 4.0 * rows * k * m
@@ -465,38 +539,102 @@ def phase_kernels():
         ("tower_q8", lambda: tq8.tower_q8(xv, *q8_tower, heads=12),
          lambda: tq8.tower_q8_plain(xv, *q8_tower, heads=12), (xv, *q8_tower),
          11 * (qkv_f + out_f + mlp_f), 11 * attn_f, (rows, k, m, True)),
+        # the LN affine is applied in the kernel: nothing is folded per call
+        ("ln_matmul", lambda: lm.ln_matmul(xv, *ln_v, *qkv_w),
+         lambda: lm.ln_matmul_plain(xv, *ln_v, *qkv_w), (xv, *ln_v, *qkv_w), 0,
+         qkv_f, vit_qkv),
+        ("ln_matmul_2d",
+         lambda: lm.ln_matmul(x2d, *ln_v, *fc_w, activation="quick_gelu"),
+         lambda: lm.ln_matmul_plain(x2d, *ln_v, *fc_w, activation="quick_gelu"),
+         (x2d, *ln_v, *fc_w), 0, mlp_f / 2, vit_fc),
+        ("ln_matmul_2d_gelu_exact",
+         lambda: lm.ln_matmul(x2d, *ln_v, *fc_w, activation="gelu_exact"),
+         lambda: lm.ln_matmul_plain(x2d, *ln_v, *fc_w, activation="gelu_exact"),
+         (x2d, *ln_v, *fc_w), 0, mlp_f / 2, vit_fc),
+        ("add_ln_matmul",
+         lambda: lm.add_ln_matmul(xv, delta_v, *ln_v, *fc_w, gelu=True),
+         lambda: lm.add_ln_matmul_plain(xv, delta_v, *ln_v, *fc_w,
+                                        activation="quick_gelu"),
+         (xv, delta_v, *ln_v, *fc_w), 0, mlp_f / 2, vit_fc),
+        ("ln_qkv_attention",
+         lambda: fa.ln_qkv_attention(xv, *ln_v, *qkv_w, heads=12),
+         lambda: fa.ln_qkv_attention_plain(xv, *ln_v, *qkv_w, heads=12),
+         (xv, *ln_v, *qkv_w), 0, qkv_f + attn_f, vit_qkv),
+        ("ln_qkv_attention_causal",
+         lambda: fa.ln_qkv_attention(xt, *ln_t, *attn_t[:2], heads=8, causal=True),
+         lambda: fa.ln_qkv_attention_plain(xt, *ln_t, *attn_t[:2], heads=8,
+                                           causal=True),
+         (xt, *ln_t, *attn_t[:2]), 0,
+         2.0 * rows_t * kt * 3 * kt + text_attn_f, (rows_t, kt, 3 * kt, False)),
+        ("layer_norm", lambda: layer_norm(xv, *ln_v),
+         lambda: layer_norm_plain(xv, *ln_v), (xv, *ln_v), 0, 0, (None,) * 4,
+         lambda: F.layer_norm(xv, (k,), ln_v[0].to(bf), ln_v[1].to(bf))),
+        ("layer_norm_f32", lambda: layer_norm(x32, *ln_v),
+         lambda: layer_norm_plain(x32, *ln_v), (x32, *ln_v), 0, 0, (None,) * 4,
+         lambda: F.layer_norm(x32, (k,), *ln_v)),
+        ("flash_attention", lambda: at.flash_attention(*qkv_197),
+         lambda: at.attention_plain(*qkv_197), qkv_197, 0,
+         _attn_flops(b, s, 12), (None,) * 4,
+         lambda: F.scaled_dot_product_attention(*qkv_197)),
+        ("flash_attention_2048", lambda: at.flash_attention(*qkv_2048),
+         lambda: at.attention_plain(*qkv_2048), qkv_2048, 0,
+         _attn_flops(8, 2048, 16), (None,) * 4,
+         lambda: F.scaled_dot_product_attention(*qkv_2048)),
+        ("flash_attention_2048_causal",
+         lambda: at.flash_attention(*qkv_2048, causal=True),
+         lambda: at.attention_plain(*qkv_2048, causal=True), qkv_2048, 0,
+         _attn_flops(8, 2048, 16, causal=True), (None,) * 4,
+         lambda: F.scaled_dot_product_attention(*qkv_2048, is_causal=True)),
+        ("flash_attention_d128", lambda: at.flash_attention(*qkv_d128),
+         lambda: at.attention_plain(*qkv_d128), qkv_d128, 0,
+         _attn_flops(8, 1024, 8, d=128), (None,) * 4,
+         lambda: F.scaled_dot_product_attention(*qkv_d128)),
     ]
     results = {}
-    for name, kernel_fn, plain_fn, inputs, ops8, flops16, yard in cases:
+    for name, kernel_fn, plain_fn, inputs, ops8, flops16, yard, *library in cases:
         got = kernel_fn()
         want = plain_fn()
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         err, rels = 0.0, []
-        for a, b_ in zip(got, want, strict=True):
+        bounds = REL_BOUND[name]
+        bounds = bounds if isinstance(bounds, tuple) else (bounds,) * len(got)
+        for a, b_, bound in zip(got, want, bounds, strict=True):
             _check(a.shape == b_.shape, (name, a.shape, b_.shape))
             _check(bool(torch.isfinite(a.float()).all()), f"{name}: non-finite")
             e = (a.float() - b_.float()).abs().max().item()
             scale = b_.float().abs().max().item()
-            _check(e <= REL_BOUND[name] * scale, f"{name}: {e} > bound of {scale}")
+            _check(e <= bound * scale, f"{name}: {e} > {bound} of {scale}")
             err = max(err, e)
             rels.append(e / scale)
+        del want
         rel = max(rels)
         ms = _time_ms(kernel_fn)
-        plain_ms = _time_ms(plain_fn, iters=5 if name == "tower_q8" else 20)
+        slow_plain = name == "tower_q8" or name.startswith("flash_attention_")
+        plain_ms = _time_ms(plain_fn, iters=5 if slow_plain else 20)
         bound_ms, bound_by = _bound(inputs, got, ops8, flops16)
         yard_call, yard_ms = _yardstick(*yard[:3], yard[3], dev)
+        library_ms = _time_ms(library[0]) if library else None
         print(f"[kernels] {name:20s} shapes {[tuple(a.shape) for a in got]} "
-              f"max_abs_err {err:.5f} max_rel_err {rel:.5f} (bound "
-              f"{REL_BOUND[name]:.5f}; per output "
+              f"max_abs_err {err:.5f} max_rel_err {rel:.5f} (bounds "
+              f"{', '.join(f'{x:.1e}' for x in bounds)}; per output "
               f"{', '.join(f'{r:.2e}' for r in rels)}) kernel {ms:.4f} ms "
               f"plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) "
-              f"yardstick {yard_call} {yard_ms:.4f} ms")
+              + (f"yardstick {yard_call} {yard_ms:.4f} ms" if yard_call else
+                 f"library call {library_ms:.4f} ms"))
         results[name] = {"max_abs_err": err, "max_rel_err": rel, "ms": ms,
                          "plain_ms": plain_ms, "bound_ms": bound_ms,
                          "bound_by": bound_by, "yardstick": yard_call,
-                         "yardstick_ms": yard_ms}
+                         "yardstick_ms": yard_ms, "library_ms": library_ms}
+        del got
+    # the streaming kernel against the dense twin that keeps its scores in
+    # bf16 (mha_plain, the backward's function): recorded, not held
+    for tag, qkv in (("S=197", qkv_197), ("S=2048", qkv_2048)):
+        a, b_ = at.flash_attention(*qkv).float(), at.mha_plain(*qkv).float()
+        print(f"[kernels] flash_attention vs mha_plain {tag}: max_rel_err "
+              f"{((a - b_).abs().max() / b_.abs().max()).item():.5f}")
+        del a, b_
     flips = _int8_flips(xv, q8v)
     for half, (share, worst) in flips.items():
         print(f"[kernels] int8 integers, {half}: {100 * share:.4f}% differ "
@@ -512,9 +650,14 @@ def _wrappers():
     from uml_tpu_torch.ops import ln_matmul as lm
     from uml_tpu_torch.ops import quant as q8
     from uml_tpu_torch.ops import text_tower as tt
+    from uml_tpu_torch.ops import attention as at
+    from uml_tpu_torch.ops import layer_norm
     from uml_tpu_torch.ops import tower_q8 as tq8
 
-    return {"attn_block": fa.attn_block, "attn_block_cls": fa.attn_block_cls,
+    return {"flash_attention": at.flash_attention, "ln_matmul": lm.ln_matmul,
+            "add_ln_matmul": lm.add_ln_matmul,
+            "ln_qkv_attention": fa.ln_qkv_attention, "layer_norm": layer_norm,
+            "attn_block": fa.attn_block, "attn_block_cls": fa.attn_block_cls,
             "mlp_block": lm.mlp_block, "text_tower": tt.text_tower,
             "attn_block_stash": fa.attn_block_stash,
             "attn_block_bwd": fa.attn_block_bwd,
@@ -774,6 +917,200 @@ def phase_int8_path(root, sizes, bf16_encoder):
     return launches, numbers
 
 
+def _rows_cos_min(a, b):
+    """Smallest per-row cosine of two feature tensors (any device)."""
+    return _cos_min(a.float().cpu().numpy(), b.float().cpu().numpy())
+
+
+def phase_unfused(fused_encoder):
+    """The non-fused CLIP branch and the public ops on the card ->
+    ({port name: launches}, numbers)."""
+    import numpy as np
+    import torch
+
+    from uml_tpu_torch import ops
+    from uml_tpu_torch.models.clip import build_clip
+    from uml_tpu_torch.models.tokenizer import tokenize
+    from uml_tpu_torch.ops import ln_matmul as lm
+
+    dev = torch.device("cuda")
+    batch = 64
+    state = fused_encoder.model.state_dict()
+    models = {}
+    for attn_impl in ("reference", "pallas"):
+        models[attn_impl] = build_clip("ViT-B/16", torch.bfloat16,
+                                       attn_impl=attn_impl)
+        models[attn_impl].load_state_dict(state)
+        models[attn_impl].to(dev).eval()
+    rng = np.random.default_rng(2)
+    u8 = torch.from_numpy(rng.integers(0, 256, (batch, 224 * 224 * 3),
+                                       dtype=np.uint8)).to(dev)
+    prompts = [f"a photo of a class_{i}." for i in range(batch)]
+    tokens = torch.from_numpy(tokenize(prompts).astype(np.int64)).to(dev)
+    cpu_model = copy.deepcopy(models["reference"]).to("cpu")
+    numbers, launches = {}, {}
+    with torch.no_grad():
+        fused_img = fused_encoder.model.encode_image_u8(u8)
+        fused_txt = fused_encoder.model.encode_text(tokens)
+        cpu_img = cpu_model.encode_image_u8(u8[:4].cpu())
+        cpu_txt = cpu_model.encode_text(tokens[:2].cpu())
+        # per image batch 12 ln_matmul and 12 add_ln_matmul (and, with
+        # attn_impl="pallas", 12 flash_attention), no fused port
+        for attn_impl, model in models.items():
+            feats, counts = _counted(lambda: model.encode_image_u8(u8))
+            want = dict.fromkeys(counts, 0)
+            want.update({"ln_matmul": 12, "add_ln_matmul": 12})
+            if attn_impl == "pallas":
+                want["flash_attention"] = 12
+            _check(counts == want, (attn_impl, counts, want))
+            _check(feats.shape == (batch, 512)
+                   and bool(torch.isfinite(feats).all()), (attn_impl, feats.shape))
+            cos_f, cos_c = _rows_cos_min(feats, fused_img), _rows_cos_min(feats[:4], cpu_img)
+            print(f"[unfused] encode_image_u8 attn_impl={attn_impl}: launches "
+                  f"{ {k: v for k, v in counts.items() if v} }; min cosine vs "
+                  f"the fused path {cos_f:.6f}, vs the CPU {cos_c:.6f} (bound "
+                  f"{MIN_COSINE})")
+            _check(cos_f >= MIN_COSINE and cos_c >= MIN_COSINE,
+                   (attn_impl, cos_f, cos_c))
+            numbers[f"unfused_{attn_impl}_cos_vs_fused"] = cos_f
+            numbers[f"unfused_{attn_impl}_cos_vs_cpu"] = cos_c
+            launches[attn_impl] = counts
+        # per prompt batch 12 and 12, no text_tower
+        feats, counts = _counted(lambda: models["reference"].encode_text(tokens))
+        want = dict.fromkeys(counts, 0)
+        want.update({"ln_matmul": 12, "add_ln_matmul": 12})
+        _check(counts == want, ("text", counts, want))
+        cos_f, cos_c = _rows_cos_min(feats, fused_txt), _rows_cos_min(feats[:2], cpu_txt)
+        print(f"[unfused] encode_text attn_impl=reference: launches "
+              f"{ {k: v for k, v in counts.items() if v} }; min cosine vs the "
+              f"fused path {cos_f:.6f}, vs the CPU {cos_c:.6f}")
+        _check(cos_f >= MIN_COSINE and cos_c >= MIN_COSINE, ("text", cos_f, cos_c))
+        numbers["unfused_text_cos_vs_fused"] = cos_f
+        numbers["unfused_text_cos_vs_cpu"] = cos_c
+
+        # steady state at bs 64 in turns: fused, reference, pallas
+        for key, model in (("fused", fused_encoder.model), *models.items()):
+            ms = _time_ms(lambda: model.encode_image_u8(u8), iters=10)
+            numbers[f"unfused_phase_img_per_s_bs64_{key}"] = batch / (ms / 1e3)
+            print(f"[unfused] image encoder {key}: {ms:.3f} ms per batch of "
+                  f"{batch} = {batch / (ms / 1e3):.1f} img/s")
+        _profile("non-fused image encoder (reference)",
+                 lambda: models["reference"].encode_image_u8(u8))
+        _profile("non-fused image encoder (pallas)",
+                 lambda: models["pallas"].encode_image_u8(u8))
+
+        # the public exports on the card
+        gen = torch.Generator(device=dev).manual_seed(3)
+
+        def rnd(*shape, std=1.0, dtype=torch.bfloat16):
+            return (torch.randn(*shape, generator=gen, device=dev) * std).to(dtype)
+
+        x = rnd(batch, 197, 768)
+        scale, bias = 1 + rnd(768, std=0.1, dtype=torch.float32), rnd(
+            768, std=0.1, dtype=torch.float32)
+        w, wb = rnd(768, 2304, std=768 ** -0.5), rnd(2304, std=0.02,
+                                                     dtype=torch.float32)
+        q, k, v = (rnd(2, 4, 2048, 64) for _ in range(3))
+
+        def public_ops():
+            return (ops.layer_norm(x, scale, bias),
+                    ops.ln_qkv_attention(x, scale, bias, w, wb, heads=12),
+                    ops.multi_head_attention(q, k, v, causal=True),
+                    lm.ln_matmul(x.reshape(-1, 768), scale, bias, w, wb))
+
+        outs, counts = _counted(public_ops)
+        want = dict.fromkeys(counts, 0)
+        want.update({"layer_norm": 1, "ln_qkv_attention": 1,
+                     "flash_attention": 1, "ln_matmul": 1})
+        _check(counts == want, ("public ops", counts, want))
+        _check(all(bool(torch.isfinite(o.float()).all()) for o in outs),
+               "public ops: non-finite")
+        _check([tuple(o.shape) for o in outs] == [
+            (batch, 197, 768), (batch, 197, 768), (2, 4, 2048, 64),
+            (batch * 197, 2304)], [o.shape for o in outs])
+        print(f"[unfused] public ops on the card (layer_norm, ln_qkv_attention, "
+              f"multi_head_attention auto S=2048, 2-d ln_matmul): launches "
+              f"{ {k: v for k, v in counts.items() if v} }")
+
+        # on the card the default impl="auto" launches or raises: what the
+        # kernels do not take (fp32, fp16, S > 400) never runs the plain
+        # version unasked, neither in an op nor in the fp32 non-fused model
+        def refused(fn):
+            try:
+                fn()
+            except (TypeError, ValueError):
+                return True
+            return False
+
+        fp32_model = build_clip("ViT-B/16", attn_impl="reference").to(dev).eval()
+        long_x = rnd(2, 401, 768)
+        refusals, stray = _counted(lambda: [refused(fn) for fn in (
+            lambda: lm.ln_matmul(x.float(), scale, bias, w.float(), wb),
+            lambda: lm.add_ln_matmul(x.float(), x.float(), scale, bias,
+                                     w.float(), wb),
+            lambda: ops.ln_qkv_attention(x.float(), scale, bias, w.float(), wb,
+                                         heads=12),
+            lambda: ops.ln_qkv_attention(long_x, scale, bias, w, wb, heads=12),
+            lambda: ops.layer_norm(x.half(), scale, bias),
+            lambda: ops.multi_head_attention(q.float(), k.float(), v.float()),
+            lambda: fp32_model.encode_image_u8(u8[:2]))])
+        _check(all(refusals) and not any(stray.values()),
+               ("auto on the card must raise where the kernel does not take "
+                "the input", refusals, stray))
+        del fp32_model
+        print(f"[unfused] impl=auto on the card: {len(refusals)} inputs the "
+              f"kernels do not take all raised, no launch, no plain version")
+    path = {**{k: launches["pallas"][k] for k in UNFUSED_PORTS},
+            "ln_matmul_2d": counts["ln_matmul"],
+            "ln_qkv_attention": counts["ln_qkv_attention"],
+            "layer_norm": counts["layer_norm"]}
+    return path, numbers
+
+
+def _text_grad_card_vs_cpu():
+    """One gradient of encode_text through TextTowerFn on the card (the
+    kernel forward, the backward through text_tower_plain) against the same
+    model on the CPU: 4 prompts, per-tensor gradient cosines."""
+    import numpy as np
+    import torch
+
+    from uml_tpu_torch.models.clip import build_clip
+    from uml_tpu_torch.models.tokenizer import tokenize
+    from uml_tpu_torch.ops.text_tower import text_tower
+
+    cpu_model = build_clip("ViT-B/16", torch.bfloat16).init_random(
+        torch.Generator().manual_seed(0))
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    tokens = torch.from_numpy(tokenize(
+        [f"a photo of a class_{i}." for i in range(4)]).astype(np.int64))
+    cot = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (4, 512)).astype(np.float32))
+    grads = []
+    text_tower.launches = 0
+    for model, dev in ((gpu_model, "cuda"), (cpu_model, "cpu")):
+        (model.encode_text(tokens.to(dev)) * cot.to(dev)).sum().backward()
+        grads.append({k: p.grad.float().cpu() for k, p in model.named_parameters()
+                      if p.grad is not None})
+    torch.cuda.synchronize()
+    _check(text_tower.launches == 1, ("text_tower under autograd",
+                                      text_tower.launches))
+    _check(grads[0].keys() == grads[1].keys() and len(grads[0]) > 12 * 12,
+           "text gradients reach the same parameters")
+    cosines = {}
+    for key, b in grads[1].items():
+        a = grads[0][key]
+        if key.endswith("attn.in_proj_bias"):
+            a, b = (torch.cat([t.chunk(3)[0], t.chunk(3)[2]]) for t in (a, b))
+        cosines[key] = float((a * b).sum() / (a.norm() * b.norm() + 1e-30))
+    worst = min(cosines, key=cosines.get)
+    print(f"[train] encode_text gradient through TextTowerFn, card vs CPU: "
+          f"{len(cosines)} tensors, min cosine {cosines[worst]:.6f} ({worst}), "
+          f"bound {STEP_MIN_GRAD_COSINE}")
+    _check(cosines[worst] >= STEP_MIN_GRAD_COSINE, ("text gradient", worst,
+                                                     cosines[worst]))
+    return {"text_tower_min_grad_cosine": cosines[worst]}
+
+
 def _finetune(root, grid, wrappers, result_dir="experiments"):
     """One finetune CLI run into ``root/result_dir`` -> (launch counts,
     wall seconds, the combo's test_result)."""
@@ -925,19 +1262,28 @@ def phase_train(root, sizes):
         ("gate_kernel", {"UML_MLP_BWD": "kernel"}, None),
         ("gate_dw", {"UML_MLP_BWD": "dw"}, None),
         ("accum_2x128", {}, 128)]))
+    # the non-fused branch trains too (its ops' backwards differentiate
+    # their plain versions): the configuration of uml_tpu's dry run
+    unfused = {"attn_impl": "reference"}
+    numbers.update(_card_vs_cpu_step("unfused_reference", unfused))
+    numbers.update(_train_step_rates(64, [("unfused_reference", {}, None)],
+                                     clip_kw=unfused))
+    numbers.update(_text_grad_card_vs_cpu())
     return full, recompute, numbers
 
 
-def _head_and_batch(bsz, gen_seed=0):
+def _head_and_batch(bsz, gen_seed=0, clip_kw=None):
     """A random-init ViT-B/16 UML head (bf16 compute, every CLIP leaf
-    trainable) and one crossmodal batch of ``bsz`` on the CPU."""
+    trainable; ``clip_kw``: build_clip's attn_impl / ln_matmul_impl) and
+    one crossmodal batch of ``bsz`` on the CPU."""
     import numpy as np
     import torch
 
     from uml_tpu_torch.models.clip import build_clip
     from uml_tpu_torch.models.uml_head import make_uml_clip_head
 
-    clip = build_clip("ViT-B/16", dtype=torch.bfloat16).init_random(
+    clip = build_clip("ViT-B/16", dtype=torch.bfloat16,
+                      **(clip_kw or {})).init_random(
         torch.Generator().manual_seed(gen_seed))
     model = make_uml_clip_head(clip, 8, freeze_backbone=False,
                                generator=torch.Generator().manual_seed(1))
@@ -962,12 +1308,12 @@ def _loss(model, batch):
             + weighted_ce(txt @ model.head_w * s_txt, tlab, tw))
 
 
-def _card_vs_cpu_step(mode):
+def _card_vs_cpu_step(mode, clip_kw=None):
     """One bs-4 forward + backward on the card and on the CPU plain path,
     same weights and batch, in the backward mode the environment sets."""
     import torch
 
-    cpu_model, cpu_batch = _head_and_batch(4)
+    cpu_model, cpu_batch = _head_and_batch(4, clip_kw=clip_kw)
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
     gpu_batch = tuple(t.to("cuda") for t in cpu_batch)
     losses, grads = [], []
@@ -999,7 +1345,7 @@ def _card_vs_cpu_step(mode):
             f"step_min_grad_cosine{suffix}": cosines[worst]}
 
 
-def _train_step_rates(bsz, modes, iters=10):
+def _train_step_rates(bsz, modes, iters=10, clip_kw=None):
     """Steady-state full-model train step (forward, backward, adamw) at
     ``bsz`` on a staged batch, in each mode of ``modes`` ((tag, environment,
     microbatch or None), run in turn on one model), with its peak memory,
@@ -1009,7 +1355,7 @@ def _train_step_rates(bsz, modes, iters=10):
     from uml_tpu_torch.train.accum import microbatched_step
     from uml_tpu_torch.train.optim import build_optimizer, build_schedule
 
-    model, batch = _head_and_batch(bsz)
+    model, batch = _head_and_batch(bsz, clip_kw=clip_kw)
     model.to("cuda")
     batch = tuple(t.to("cuda") for t in batch)
     opt = build_optimizer("adamw", build_schedule(5e-5, "cosine", 50, 12800),
@@ -1143,6 +1489,8 @@ def main() -> int:
     launches, rate, root, sizes, encoder = phase_main_path()
     int8_launches, int8_numbers = phase_int8_path(root, sizes, encoder)
     rate.update(int8_numbers)
+    unfused_launches, unfused_numbers = phase_unfused(encoder)
+    rate.update(unfused_numbers)
     del encoder
     train_launches, recompute_launches, train_numbers = phase_train(root, sizes)
     rate.update(train_numbers)
@@ -1150,8 +1498,9 @@ def main() -> int:
     # serving kernels from the features run, the int8 ones from the
     # features --quant int8 run and its tower encode, the training kernels
     # from the full-model finetune run, the recompute backwards from the
-    # finetune runs with both stashes off
-    launches = {**launches,
+    # finetune runs with both stashes off, the stand-alone ops from the
+    # non-fused image encode (attn_impl="pallas") and the public ops' calls
+    launches = {**launches, **unfused_launches,
                 **{k: int8_launches[k] for k in Q8_PORTS},
                 **{k: train_launches[k] for k in TRAIN_PORTS},
                 **{k: recompute_launches[k] for k in RECOMPUTE_PORTS}}
@@ -1165,9 +1514,11 @@ def main() -> int:
                       "max_rel_err": row["max_rel_err"], "ms": row["ms"],
                       "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                       "bound_by": row["bound_by"],
-                      # no one PyTorch call computes a half-block, a tower
-                      # or a half-block's backward
-                      "library_ms": None,
+                      # F.layer_norm and scaled_dot_product_attention for
+                      # layer_norm and flash_attention; no one PyTorch call
+                      # computes a half-block, a tower, a backward or an
+                      # LN -> matmul
+                      "library_ms": row["library_ms"],
                       "gemm_yardstick": row["yardstick"],
                       "gemm_yardstick_ms": row["yardstick_ms"]})
     print(json.dumps({"throughput": rate}))

@@ -1,6 +1,6 @@
 """The CUDA kernels of uml_tpu_torch on the card, against their plain
 PyTorch versions (bf16, small shapes: K=128, 2 heads of 64, S in {9, 17,
-197}).  Marked ``cuda``: they skip without an NVIDIA GPU (sm_90a) and
+197}; the streaming attention also at S=1030 and head dim 128).  Marked ``cuda``: they skip without an NVIDIA GPU (sm_90a) and
 run on the card with ``python -m pytest tests/test_torch_cuda.py -q``.
 
 Bound: max |kernel - plain| <= 2^-6 * max|plain| (two bf16 ulps of the
@@ -351,4 +351,195 @@ def test_tiny_clip_on_the_card_matches_the_cpu(dev, return_tokens):
         a = a.float().reshape(-1, a.shape[-1])
         b = b.float().cpu().reshape(-1, b.shape[-1])
         cos = torch.nn.functional.cosine_similarity(a, b, dim=-1)
+        assert cos.min().item() >= 0.999
+
+
+# -- the stand-alone ops: ln_matmul, add_ln_matmul, ln_qkv_attention,
+#    layer_norm, flash_attention ----------------------------------------------
+
+def _ln_params(dev, k, seed=3):
+    g = torch.Generator().manual_seed(seed)
+    return ((1 + 0.1 * torch.randn(k, generator=g)).to(dev),
+            (0.1 * torch.randn(k, generator=g)).to(dev))
+
+
+@pytest.mark.parametrize("act", [None, "quick_gelu", "gelu_exact"])
+@pytest.mark.parametrize("shape", [(37, K), (B, 17, K), (B, 197, K)])
+def test_ln_matmul_kernel(dev, shape, act):
+    """2-d and 3-d x through one entry, rows not a multiple of the 64-row
+    tile; a 4-d x is rows all the same."""
+    x = _g(dev, shape, seed=4)
+    w = _weights(dev)
+    scale, bias = _ln_params(dev, K)
+    n = lm.ln_matmul.launches
+    got = lm.ln_matmul(x, scale, bias, w[4], w[5], activation=act)
+    assert lm.ln_matmul.launches == n + 1
+    assert got.shape == (*shape[:-1], M)
+    _close(got, lm.ln_matmul_plain(x, scale, bias, w[4], w[5], activation=act))
+    assert torch.equal(got, lm.ln_matmul(x, scale, bias, w[4], w[5],
+                                         activation=act, impl="pallas"))
+    x4 = x.reshape(1, 1, -1, K)
+    assert torch.equal(got.reshape(1, 1, -1, M),
+                       lm.ln_matmul(x4, scale, bias, w[4], w[5], activation=act))
+    assert lm.ln_matmul.launches == n + 3
+
+
+@pytest.mark.parametrize("act", [None, "quick_gelu", "gelu_exact"])
+@pytest.mark.parametrize("s", [9, 17, 197])
+def test_add_ln_matmul_kernel(dev, s, act):
+    x, delta = _x(dev, s), _g(dev, (B, s, K), seed=5)
+    w = _weights(dev)
+    scale, bias = _ln_params(dev, K)
+    n = lm.add_ln_matmul.launches
+    t, out = lm.add_ln_matmul(x, delta, scale, bias, w[4], w[5], activation=act)
+    assert lm.add_ln_matmul.launches == n + 1
+    t_want, out_want = lm.add_ln_matmul_plain(x, delta, scale, bias, w[4], w[5],
+                                              activation=act)
+    torch.cuda.synchronize()
+    # t is one bf16 rounding of the same fp32 sum: bit for bit
+    assert torch.equal(t, t_want)
+    _close(out, out_want)
+
+
+@pytest.mark.parametrize("s", [9, 17, 197])
+@pytest.mark.parametrize("causal", [False, True])
+def test_ln_qkv_attention_kernel(dev, s, causal):
+    x, w = _x(dev, s), _weights(dev)
+    scale, bias = _ln_params(dev, K)
+    n = fa.ln_qkv_attention.launches
+    got = fa.ln_qkv_attention(x, scale, bias, w[0], w[1], heads=HEADS,
+                              causal=causal)
+    assert fa.ln_qkv_attention.launches == n + 1
+    _close(got, fa.ln_qkv_attention_plain(x, scale, bias, w[0], w[1],
+                                          heads=HEADS, causal=causal))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(5, 96), (B, 197, K), (3, 2, 7, 1024),
+                                   (9, 2056)])
+def test_layer_norm_kernel(dev, shape, dtype):
+    """Rows kept in registers (K <= 2048) and re-read (K = 2056); fp32
+    within 1e-5 of the largest output, bf16 within one rounding."""
+    from uml_tpu_torch.ops import layer_norm as layer_norm_op
+    from uml_tpu_torch.ops.layer_norm import layer_norm_plain
+
+    g = torch.Generator().manual_seed(6)
+    x = (3 + 2 * torch.randn(shape, generator=g)).to(dtype).to(dev)
+    scale, bias = _ln_params(dev, shape[-1])
+    n = layer_norm_op.launches
+    got = layer_norm_op(x, scale, bias)
+    assert layer_norm_op.launches == n + 1
+    assert got.dtype == dtype and got.shape == tuple(shape)
+    want = layer_norm_plain(x, scale, bias)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    rel = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    assert err <= rel * want.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("s", [9, 17, 197, 1030])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_kernel(dev, s, d, causal):
+    """Any S (a ragged last key tile, padded query rows), both head dims."""
+    from uml_tpu_torch.ops import attention as at
+
+    q, k, v = (_g(dev, (2, 3, s, d), seed=7 + i) for i in range(3))
+    n = at.flash_attention.launches
+    got = at.flash_attention(q, k, v, causal=causal)
+    assert at.flash_attention.launches == n + 1
+    _close(got, at.attention_plain(q, k, v, causal=causal))
+    _close(got, at.mha_plain(q, k, v, causal=causal))
+    # multi_head_attention: the kernel from S = 1024 up under "auto"
+    auto = at.multi_head_attention(q, k, v, causal=causal)
+    assert at.flash_attention.launches == n + 1 + (s >= at.FLASH_MIN_SEQ)
+    _close(auto, got)
+
+
+def test_stand_alone_ops_raise_on_what_the_kernels_do_not_take(dev):
+    from uml_tpu_torch.ops import attention as at
+    from uml_tpu_torch.ops import layer_norm as layer_norm_op
+
+    x, w = _x(dev, 17), _weights(dev)
+    scale, bias = _ln_params(dev, K)
+    with pytest.raises(TypeError):      # "pallas" with an fp32 tensor
+        lm.ln_matmul(x.float(), scale, bias, w[4].float(), w[5], impl="pallas")
+    with pytest.raises(ValueError):     # S > 400 under "pallas"
+        fa.ln_qkv_attention(_x(dev, 401), scale, bias, w[0], w[1], heads=HEADS,
+                            impl="pallas")
+    with pytest.raises(ValueError):     # head dim 96
+        at.flash_attention(*(_g(dev, (1, 1, 9, 96)) for _ in range(3)))
+    with pytest.raises(ValueError):     # K not a multiple of 8
+        layer_norm_op(_g(dev, (4, 100)), *_ln_params(dev, 100), impl="pallas")
+
+
+def test_auto_raises_on_the_card_where_the_kernel_does_not_take_the_input(dev):
+    """Under the default impl="auto" a tensor on the card launches the
+    kernel or raises: it never takes the plain version unasked.  Only an
+    explicit impl="reference" runs the plain version there."""
+    from uml_tpu_torch.ops import attention as at
+    from uml_tpu_torch.ops import layer_norm as layer_norm_op
+
+    x, w = _x(dev, 17), _weights(dev)
+    scale, bias = _ln_params(dev, K)
+    ops = (lm.ln_matmul, lm.add_ln_matmul, fa.ln_qkv_attention, layer_norm_op,
+           at.flash_attention)
+    before = [op.launches for op in ops]
+    with pytest.raises(TypeError):      # fp32
+        lm.ln_matmul(x.float(), scale, bias, w[4].float(), w[5])
+    with pytest.raises(TypeError):
+        lm.add_ln_matmul(x.float(), x.float(), scale, bias, w[4].float(), w[5])
+    with pytest.raises(ValueError):
+        fa.ln_qkv_attention(x.float(), scale, bias, w[0].float(), w[1],
+                            heads=HEADS)
+    with pytest.raises(ValueError):     # K, M not multiples of 64
+        lm.ln_matmul(_g(dev, (B, 17, 96)), *_ln_params(dev, 96),
+                     _g(dev, (96, 128)), torch.zeros(128, device=dev))
+    with pytest.raises(ValueError):
+        lm.add_ln_matmul(x, x, scale, bias, _g(dev, (K, 100)),
+                         torch.zeros(100, device=dev))
+    with pytest.raises(ValueError):     # S > 400
+        fa.ln_qkv_attention(_x(dev, 401), scale, bias, w[0], w[1], heads=HEADS)
+    with pytest.raises(ValueError):     # x not [B, S, K]
+        fa.ln_qkv_attention(x[0], scale, bias, w[0], w[1], heads=HEADS)
+    with pytest.raises(ValueError):     # K not a multiple of 8; fp16
+        layer_norm_op(_g(dev, (4, 100)), *_ln_params(dev, 100))
+    with pytest.raises(ValueError):
+        layer_norm_op(x.half(), scale, bias)
+    q32 = _g(dev, (1, 1, at.FLASH_MIN_SEQ, 64)).float()
+    with pytest.raises(ValueError):     # fp32 from S = 1024 up
+        at.multi_head_attention(q32, q32, q32)
+    assert [op.launches for op in ops] == before
+    # the explicit request for the plain version
+    got = lm.ln_matmul(x.float(), scale, bias, w[4].float(), w[5],
+                       impl="reference")
+    assert got.dtype == torch.float32 and got.is_cuda
+    assert [op.launches for op in ops] == before
+
+
+@pytest.mark.parametrize("attn_impl", ["reference", "pallas", "dense_bshd"])
+def test_tiny_non_fused_clip_on_the_card_matches_the_cpu(dev, attn_impl):
+    from uml_tpu_torch.models.clip import CLIP, ClipConfig
+    from uml_tpu_torch.models.tokenizer import tokenize
+
+    cfg = ClipConfig(embed_dim=64, image_resolution=64, vision_layers=2,
+                     vision_width=128, vision_patch_size=16,
+                     transformer_width=128, transformer_heads=2,
+                     transformer_layers=2)
+    cpu = CLIP(cfg, dtype=torch.bfloat16, attn_impl=attn_impl).init_random(
+        torch.Generator().manual_seed(0))
+    gpu = CLIP(cfg, dtype=torch.bfloat16, attn_impl=attn_impl).to(dev)
+    gpu.load_state_dict(cpu.state_dict())
+    u8 = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (4, 64 * 64 * 3), dtype=np.uint8))
+    toks = torch.from_numpy(tokenize(["a photo of a cat.", "a dog"]).astype(np.int64))
+    n = lm.ln_matmul.launches, lm.add_ln_matmul.launches
+    with torch.no_grad():
+        pairs = [(cpu.encode_image_u8(u8), gpu.encode_image_u8(u8.to(dev))),
+                 (cpu.encode_text(toks), gpu.encode_text(toks.to(dev)))]
+    assert (lm.ln_matmul.launches, lm.add_ln_matmul.launches) == (n[0] + 4,
+                                                                  n[1] + 4)
+    for a, b in pairs:
+        cos = torch.nn.functional.cosine_similarity(a.float(), b.float().cpu(),
+                                                    dim=-1)
         assert cos.min().item() >= 0.999

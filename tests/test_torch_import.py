@@ -66,3 +66,23 @@ def test_module_list_covers_the_training_slice():
                  "uml_tpu_torch.metrics.alignment", "uml_tpu_torch.models.uml_head",
                  "uml_tpu_torch.utils.logging"):
         assert name in MODULES, name
+
+
+def test_module_list_covers_the_stand_alone_ops():
+    """... and the modules of the non-fused branch's ops."""
+    for name in ("uml_tpu_torch.ops.attention", "uml_tpu_torch.ops.layer_norm",
+                 "uml_tpu_torch.ops._vjp"):
+        assert name in MODULES, name
+
+
+def test_chip_smoke_source_imports_no_jax_or_uml_tpu():
+    tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in ("jax", "flax", "uml_tpu"), name

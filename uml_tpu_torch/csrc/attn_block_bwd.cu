@@ -57,10 +57,10 @@ static inline cudaError_t run_attn_block_bwd(const __nv_bfloat16* x, const __nv_
                                              cudaStream_t stream) {
   const int hd = H * ATT_D;
   const int rows = B * S;
-  UML_TRY(launch_ln_gemm(g, wo, nullptr, nullptr, dattn, rows, hd, K, 0, false, EPI_NONE, eps,
+  UML_TRY(launch_ln_gemm(g, wo, nullptr, nullptr, dattn, rows, hd, K, 0, PRO_NONE, EPI_NONE, eps,
                          stream, true));
   UML_TRY(launch_attn_bwd(qkv, dattn, stats, dqkv, B, S, H, causal, stream));
-  UML_TRY(launch_ln_gemm(dqkv, w_eff, nullptr, nullptr, dxn, rows, K, 3 * hd, 0, false,
+  UML_TRY(launch_ln_gemm(dqkv, w_eff, nullptr, nullptr, dxn, rows, K, 3 * hd, 0, PRO_NONE,
                          EPI_F32, eps, stream, true));
   return launch_ln_bwd(x, dxn, g, dx, xn, rows, K, 1, eps, stream);
 }
@@ -90,10 +90,10 @@ static inline cudaError_t run_attn_block_cls_bwd(const __nv_bfloat16* x,
                                                  int S, int K, int H, float eps,
                                                  cudaStream_t stream) {
   const int hd = H * ATT_D;
-  UML_TRY(launch_ln_gemm(g, wo, nullptr, nullptr, dattn, B, hd, K, 0, false, EPI_NONE, eps,
+  UML_TRY(launch_ln_gemm(g, wo, nullptr, nullptr, dattn, B, hd, K, 0, PRO_NONE, EPI_NONE, eps,
                          stream, true));
   UML_TRY(launch_cls_bwd(qkv, dattn, dqkv, B, S, H, stream));
-  UML_TRY(launch_ln_gemm(dqkv, w_eff, nullptr, nullptr, dxn, B * S, K, 3 * hd, 0, false,
+  UML_TRY(launch_ln_gemm(dqkv, w_eff, nullptr, nullptr, dxn, B * S, K, 3 * hd, 0, PRO_NONE,
                          EPI_F32, eps, stream, true));
   return launch_ln_bwd(x, dxn, g, dx, xn, B * S, K, S, eps, stream);
 }

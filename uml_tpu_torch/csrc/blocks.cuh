@@ -31,7 +31,7 @@ static inline cudaError_t run_qkv_attention(const __nv_bfloat16* x, const __nv_b
                                             __nv_bfloat16* attn, int B, int S, int K, int H,
                                             bool causal, int q_rows, float eps,
                                             cudaStream_t stream) {
-  UML_TRY(launch_ln_gemm(x, w_eff, b_eff, nullptr, qkv, B * S, 3 * H * ATT_D, K, 0, true,
+  UML_TRY(launch_ln_gemm(x, w_eff, b_eff, nullptr, qkv, B * S, 3 * H * ATT_D, K, 0, PRO_LN,
                          EPI_NONE, eps, stream));
   return launch_attention(qkv, attn, B, S, H, q_rows, causal, stream);
 }
@@ -48,7 +48,7 @@ static inline cudaError_t run_attn_block(const __nv_bfloat16* x, const __nv_bflo
   // residual row i of image b is x[b, i]: stride K when every row is kept,
   // stride S*K when only row 0 is (q_rows == 1)
   const long long ldres = (q_rows == S) ? (long long)K : (long long)S * K;
-  return launch_ln_gemm(attn, wo, bo, x, out, B * q_rows, K, hd, ldres, false, EPI_RESIDUAL,
+  return launch_ln_gemm(attn, wo, bo, x, out, B * q_rows, K, hd, ldres, PRO_NONE, EPI_RESIDUAL,
                         eps, stream);
 }
 
@@ -59,9 +59,9 @@ static inline cudaError_t run_mlp_block(const __nv_bfloat16* x, const __nv_bfloa
                                         const float* b2, __nv_bfloat16* hidden,
                                         __nv_bfloat16* out, int rows, int K, int M, float eps,
                                         cudaStream_t stream) {
-  UML_TRY(launch_ln_gemm(x, w1, b1, nullptr, hidden, rows, M, K, 0, true, EPI_QUICK_GELU, eps,
+  UML_TRY(launch_ln_gemm(x, w1, b1, nullptr, hidden, rows, M, K, 0, PRO_LN, EPI_QUICK_GELU, eps,
                          stream));
-  return launch_ln_gemm(hidden, w2, b2, x, out, rows, K, M, K, false, EPI_RESIDUAL, eps,
+  return launch_ln_gemm(hidden, w2, b2, x, out, rows, K, M, K, PRO_NONE, EPI_RESIDUAL, eps,
                         stream);
 }
 
@@ -74,9 +74,9 @@ static inline cudaError_t run_mlp_block_stash(const __nv_bfloat16* x, const __nv
                                               __nv_bfloat16* hidden, __nv_bfloat16* out,
                                               int rows, int K, int M, float eps,
                                               cudaStream_t stream) {
-  UML_TRY(launch_ln_gemm(x, w1, b1, nullptr, hidden, rows, M, K, 0, true, EPI_GELU_STASH, eps,
+  UML_TRY(launch_ln_gemm(x, w1, b1, nullptr, hidden, rows, M, K, 0, PRO_LN, EPI_GELU_STASH, eps,
                          stream, false, pre));
-  return launch_ln_gemm(hidden, w2, b2, x, out, rows, K, M, K, false, EPI_RESIDUAL, eps,
+  return launch_ln_gemm(hidden, w2, b2, x, out, rows, K, M, K, PRO_NONE, EPI_RESIDUAL, eps,
                         stream);
 }
 
@@ -106,7 +106,7 @@ static inline cudaError_t run_attn_block_q8(const __nv_bfloat16* x, const int8_t
                           hd, Q8_EPI_RESIDUAL, stream);
   }
   return launch_ln_gemm(attn, static_cast<const __nv_bfloat16*>(wo), bo, x, out, rows, K, hd, K,
-                        false, EPI_RESIDUAL, eps, stream);
+                        PRO_NONE, EPI_RESIDUAL, eps, stream);
 }
 
 // Int8 MLP half: out = x + actquant(LNquant(x) . w1q + b1) . w2q + b2

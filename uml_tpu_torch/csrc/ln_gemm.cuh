@@ -19,13 +19,26 @@
 //   aux [M, N] bf16, contiguous (EPI_GELU_STASH, EPI_DACT, EPI_DACT_F32)
 //   colsum_part [gridDim.x, N] fp32, or null (EPI_DACT_F32 only)
 //
-// prologue (LN=true): the raw LayerNorm of each A row, statistics in fp32
+// prologue (PRO_LN): the raw LayerNorm of each A row, statistics in fp32
 //   with var = max(E[x^2] - E[x]^2, 0); the LN scale/bias are folded into
 //   W and b by the caller (fold_ln_into_matmul), as on the TPU.  The
 //   normalized row is rounded to bf16 before the product, as the TPU
 //   kernels round it before the MXU dot.
+//   PRO_LN_AFFINE applies the LN scale and bias (fp32 [K]) in the kernel,
+//   in fp32, before that rounding (uml_tpu/ops/fused_attention.py::_kernel
+//   and ln_matmul.py::_add_ln_matmul_kernel do not fold them; the
+//   stand-alone ln_matmul takes this form too, so that its wrapper folds
+//   nothing per call).
+//   PRO_ADD_LN_AFFINE first adds a second operand: t = A + delta in fp32,
+//   the statistics taken of the unrounded sum (ln_matmul.py:739-744), t
+//   rounded to bf16 and written to t_out by the first column block of each
+//   row tile; every column block forms the same fp32 sum again in its K
+//   loop (delta is read N/64 times, as A is).
 // epilogue, always after the fp32 bias add, one rounding at the end:
-//   EPI_NONE, EPI_QUICK_GELU (y * sigmoid(1.702 y)), EPI_RESIDUAL (y + res),
+//   EPI_NONE, EPI_QUICK_GELU (y * sigmoid(1.702 y)), EPI_GELU_EXACT
+//   (y * 0.5 * (1 + erf(y / sqrt 2)), with the card's erff: the TPU kernel's
+//   sigmoid-quintic fit stands in for an erf that Mosaic lacks),
+//   EPI_RESIDUAL (y + res),
 //   EPI_GELU_STASH (out = quick_gelu(y) and aux = y, the pre-activation
 //   the MLP backward reads; the activation is taken of the unrounded fp32
 //   y, the order of _mlp_block_kernel_stash, ln_matmul.py:199-204), and
@@ -68,7 +81,18 @@ enum {
   EPI_GELU_STASH = 3,
   EPI_F32 = 4,
   EPI_DACT = 5,
-  EPI_DACT_F32 = 6
+  EPI_DACT_F32 = 6,
+  EPI_GELU_EXACT = 7
+};
+
+enum { PRO_NONE = 0, PRO_LN = 1, PRO_LN_AFFINE = 2, PRO_ADD_LN_AFFINE = 3 };
+
+// the extra operands of the affine and add prologues (null for the others)
+struct LnPrologue {
+  const __nv_bfloat16* delta;  // [M, K], PRO_ADD_LN_AFFINE
+  const float* scale;          // [K] LN scale
+  const float* bias;           // [K] LN bias
+  __nv_bfloat16* t_out;        // [M, K] = bf16(A + delta), PRO_ADD_LN_AFFINE
 };
 
 constexpr int GEMM_BM = 64;
@@ -89,7 +113,7 @@ union Pack8 {
 constexpr int GEMM_BS_ELEMS =
     (GEMM_BK * GEMM_LDB > GEMM_BN * GEMM_LDA) ? GEMM_BK * GEMM_LDB : GEMM_BN * GEMM_LDA;
 
-template <bool LN, int EPI, bool TRANS_B>
+template <int PRO, int EPI, bool TRANS_B>
 __global__ void __launch_bounds__(GEMM_THREADS)
 ln_gemm_kernel(const __nv_bfloat16* __restrict__ a,
                const __nv_bfloat16* __restrict__ w,
@@ -98,8 +122,9 @@ ln_gemm_kernel(const __nv_bfloat16* __restrict__ a,
                void* __restrict__ out_ptr,
                __nv_bfloat16* __restrict__ aux,
                float* __restrict__ colsum_part,
-               int M, int N, int K, long long ldres, float eps) {
+               int M, int N, int K, long long ldres, float eps, LnPrologue pro) {
   using namespace nvcuda;
+  constexpr bool LN = PRO != PRO_NONE;
   __shared__ __align__(128) __nv_bfloat16 As[GEMM_BM * GEMM_LDA];
   __shared__ __align__(128) __nv_bfloat16 Bs[GEMM_BS_ELEMS];
   __shared__ __align__(128) float Cs[GEMM_BM * GEMM_LDC];
@@ -123,11 +148,25 @@ ln_gemm_kernel(const __nv_bfloat16* __restrict__ a,
         for (int c = lane * 8; c < K; c += 32 * 8) {
           Pack8 p;
           p.u = *reinterpret_cast<const uint4*>(row + c);
+          if (PRO == PRO_ADD_LN_AFFINE) {
+            Pack8 d, t;
+            d.u = *reinterpret_cast<const uint4*>(pro.delta + (long long)gm * K + c);
 #pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            const float v = __bfloat162float(p.h[i]);
-            s += v;
-            ss += v * v;
+            for (int i = 0; i < 8; ++i) {
+              const float v = __bfloat162float(p.h[i]) + __bfloat162float(d.h[i]);
+              t.h[i] = __float2bfloat16(v);
+              s += v;
+              ss += v * v;
+            }
+            if (blockIdx.y == 0)
+              *reinterpret_cast<uint4*>(pro.t_out + (long long)gm * K + c) = t.u;
+          } else {
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              const float v = __bfloat162float(p.h[i]);
+              s += v;
+              ss += v * v;
+            }
           }
         }
       }
@@ -154,15 +193,21 @@ ln_gemm_kernel(const __nv_bfloat16* __restrict__ a,
   const int bc = (tid & 3) * 16;
   const int gar = m0 + ar;
 
-  Pack8 ra[2], rb[2];
+  Pack8 ra[2], rb[2], rd[2];
+  int k_cur = 0;  // the k offset of the tile held in ra / rb / rd
   auto load_global = [&](int k0) {
+    k_cur = k0;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       if (gar < M) {
         ra[i].u = *reinterpret_cast<const uint4*>(
             a + (long long)gar * K + k0 + ac + 8 * i);
+        if (PRO == PRO_ADD_LN_AFFINE)
+          rd[i].u = *reinterpret_cast<const uint4*>(
+              pro.delta + (long long)gar * K + k0 + ac + 8 * i);
       } else {
         ra[i].u = make_uint4(0, 0, 0, 0);
+        if (PRO == PRO_ADD_LN_AFFINE) rd[i].u = make_uint4(0, 0, 0, 0);
       }
       if (TRANS_B) {
         // W^T tile = rows n0..n0+63 of the [N, K] weight, columns k0..k0+31
@@ -182,8 +227,17 @@ ln_gemm_kernel(const __nv_bfloat16* __restrict__ a,
         const float mean = row_mean[ar];
         const float rstd = row_rstd[ar];
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          p.h[j] = __float2bfloat16((__bfloat162float(p.h[j]) - mean) * rstd);
+        for (int j = 0; j < 8; ++j) {
+          float v = __bfloat162float(p.h[j]);
+          if (PRO == PRO_ADD_LN_AFFINE) v += __bfloat162float(rd[i].h[j]);
+          v = (v - mean) * rstd;
+          if (PRO == PRO_LN_AFFINE || PRO == PRO_ADD_LN_AFFINE) {
+            // a padded row (rstd 0) becomes the LN bias: it is never stored
+            const int kc = k_cur + ac + 8 * i + j;
+            v = v * pro.scale[kc] + pro.bias[kc];
+          }
+          p.h[j] = __float2bfloat16(v);
+        }
       }
       *reinterpret_cast<uint4*>(&As[ar * GEMM_LDA + ac + 8 * i]) = p.u;
       if (TRANS_B) {
@@ -297,6 +351,9 @@ ln_gemm_kernel(const __nv_bfloat16* __restrict__ a,
     if (EPI == EPI_QUICK_GELU || EPI == EPI_GELU_STASH) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) v[j] = v[j] * (1.f / (1.f + expf(-1.702f * v[j])));
+    } else if (EPI == EPI_GELU_EXACT) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] = v[j] * 0.5f * (1.f + erff(v[j] * 0.70710678118654752f));
     } else if (EPI == EPI_RESIDUAL) {
       Pack8 rp;
       rp.u = *reinterpret_cast<const uint4*>(res + (long long)gm * ldres + n0 + cc);
@@ -326,39 +383,44 @@ ln_gemm_kernel(const __nv_bfloat16* __restrict__ a,
 }
 
 // Launch one ln_gemm on `stream`; returns cudaGetLastError() after the
-// launch.  Shapes must satisfy N % 64 == 0, K % 32 == 0, ldres % 8 == 0
-// (the Python wrappers check them and raise first).
+// launch.  `pro` is one of PRO_*, `ops` the extra operands of the affine
+// and add prologues (empty for the others).  Shapes must satisfy
+// N % 64 == 0, K % 32 == 0, ldres % 8 == 0 (the Python wrappers check them
+// and raise first).
 static inline cudaError_t launch_ln_gemm(const __nv_bfloat16* a, const __nv_bfloat16* w,
                                          const float* bias, const void* res, void* out, int M,
-                                         int N, int K, long long ldres, bool ln, int epi,
+                                         int N, int K, long long ldres, int pro, int epi,
                                          float eps, cudaStream_t stream, bool trans_b = false,
                                          __nv_bfloat16* aux = nullptr,
-                                         float* colsum_part = nullptr) {
+                                         float* colsum_part = nullptr,
+                                         LnPrologue ops = LnPrologue{}) {
   if (N % GEMM_BN != 0 || K % GEMM_BK != 0) return cudaErrorInvalidValue;
   const dim3 grid((M + GEMM_BM - 1) / GEMM_BM, N / GEMM_BN);
   const dim3 block(GEMM_THREADS);
-#define UML_GEMM_LAUNCH(L, E, T)                                                           \
-  ln_gemm_kernel<L, E, T><<<grid, block, 0, stream>>>(a, w, bias, res, out, aux, colsum_part, \
-                                                      M, N, K, ldres, eps)
-  // the (prologue, epilogue, layout) triples the CLIP layers use
-  if (!trans_b && ln && epi == EPI_NONE) UML_GEMM_LAUNCH(true, EPI_NONE, false);  // QKV
-  else if (!trans_b && ln && epi == EPI_QUICK_GELU)
-    UML_GEMM_LAUNCH(true, EPI_QUICK_GELU, false);                               // MLP in
-  else if (!trans_b && ln && epi == EPI_GELU_STASH)
-    UML_GEMM_LAUNCH(true, EPI_GELU_STASH, false);                               // MLP in + pre
-  else if (!trans_b && !ln && epi == EPI_RESIDUAL)
-    UML_GEMM_LAUNCH(false, EPI_RESIDUAL, false);                                // out-proj, MLP out
-  else if (trans_b && !ln && epi == EPI_NONE)
-    UML_GEMM_LAUNCH(false, EPI_NONE, true);                                     // g . wo^T
-  else if (trans_b && !ln && epi == EPI_F32)
-    UML_GEMM_LAUNCH(false, EPI_F32, true);                    // dqkv . W_eff^T, dpre . w1^T
-  else if (!trans_b && ln && epi == EPI_DACT)
-    UML_GEMM_LAUNCH(true, EPI_DACT, false);                                     // MLP bwd
-  else if (!trans_b && ln && epi == EPI_DACT_F32)
-    UML_GEMM_LAUNCH(true, EPI_DACT_F32, false);                                 // MLP bwd, dW
-  else return cudaErrorInvalidValue;
-#undef UML_GEMM_LAUNCH
-  return cudaGetLastError();
+#define UML_GEMM_CASE(P, E, T)                                                              \
+  if (pro == P && epi == E && trans_b == T) {                                               \
+    ln_gemm_kernel<P, E, T><<<grid, block, 0, stream>>>(a, w, bias, res, out, aux,          \
+                                                        colsum_part, M, N, K, ldres, eps,   \
+                                                        ops);                               \
+    return cudaGetLastError();                                                              \
+  }
+  // the (prologue, epilogue, layout) triples the CLIP layers and ops use
+  UML_GEMM_CASE(PRO_LN, EPI_NONE, false)                 // QKV
+  UML_GEMM_CASE(PRO_LN, EPI_QUICK_GELU, false)           // MLP in
+  UML_GEMM_CASE(PRO_LN, EPI_GELU_STASH, false)           // MLP in + pre
+  UML_GEMM_CASE(PRO_NONE, EPI_RESIDUAL, false)           // out-proj, MLP out
+  UML_GEMM_CASE(PRO_NONE, EPI_NONE, true)                // g . wo^T
+  UML_GEMM_CASE(PRO_NONE, EPI_F32, true)                 // dqkv . W_eff^T, dpre . w1^T
+  UML_GEMM_CASE(PRO_LN, EPI_DACT, false)                 // MLP bwd
+  UML_GEMM_CASE(PRO_LN, EPI_DACT_F32, false)             // MLP bwd, dW
+  UML_GEMM_CASE(PRO_LN_AFFINE, EPI_NONE, false)          // ln_matmul, ln_qkv_attention
+  UML_GEMM_CASE(PRO_LN_AFFINE, EPI_QUICK_GELU, false)    // ln_matmul
+  UML_GEMM_CASE(PRO_LN_AFFINE, EPI_GELU_EXACT, false)
+  UML_GEMM_CASE(PRO_ADD_LN_AFFINE, EPI_NONE, false)      // add_ln_matmul
+  UML_GEMM_CASE(PRO_ADD_LN_AFFINE, EPI_QUICK_GELU, false)
+  UML_GEMM_CASE(PRO_ADD_LN_AFFINE, EPI_GELU_EXACT, false)
+#undef UML_GEMM_CASE
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace uml

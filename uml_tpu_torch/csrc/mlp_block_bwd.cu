@@ -46,9 +46,9 @@ static inline cudaError_t run_mlp_bwd(const __nv_bfloat16* x, const __nv_bfloat1
                                       __nv_bfloat16* dpre, __nv_bfloat16* yact, float* dxn,
                                       __nv_bfloat16* dx_ln, __nv_bfloat16* xn, int rows, int K,
                                       int M, float eps, cudaStream_t stream) {
-  UML_TRY(launch_ln_gemm(x, w1, b1, dy, dpre, rows, M, K, M, true, EPI_DACT, eps, stream, false,
+  UML_TRY(launch_ln_gemm(x, w1, b1, dy, dpre, rows, M, K, M, PRO_LN, EPI_DACT, eps, stream, false,
                          yact));
-  UML_TRY(launch_ln_gemm(dpre, w1, nullptr, nullptr, dxn, rows, K, M, 0, false, EPI_F32, eps,
+  UML_TRY(launch_ln_gemm(dpre, w1, nullptr, nullptr, dxn, rows, K, M, 0, PRO_NONE, EPI_F32, eps,
                          stream, true));
   return launch_ln_bwd(x, dxn, nullptr, dx_ln, xn, rows, K, 1, eps, stream);
 }
@@ -63,11 +63,11 @@ static inline cudaError_t run_mlp_bwd_dw(const __nv_bfloat16* x, const __nv_bflo
                                          float* db1_part, __nv_bfloat16* dx, __nv_bfloat16* xn,
                                          float* dw1, float* db1, float* dw2, int rows, int K,
                                          int M, float eps, cudaStream_t stream) {
-  UML_TRY(launch_ln_gemm(g, w2, nullptr, nullptr, dy, rows, M, K, 0, false, EPI_F32, eps, stream,
+  UML_TRY(launch_ln_gemm(g, w2, nullptr, nullptr, dy, rows, M, K, 0, PRO_NONE, EPI_F32, eps, stream,
                          true));
-  UML_TRY(launch_ln_gemm(x, w1, b1, dy, dpre, rows, M, K, M, true, EPI_DACT_F32, eps, stream,
+  UML_TRY(launch_ln_gemm(x, w1, b1, dy, dpre, rows, M, K, M, PRO_LN, EPI_DACT_F32, eps, stream,
                          false, yact, db1_part));
-  UML_TRY(launch_ln_gemm(dpre, w1, nullptr, nullptr, dxn, rows, K, M, 0, false, EPI_F32, eps,
+  UML_TRY(launch_ln_gemm(dpre, w1, nullptr, nullptr, dxn, rows, K, M, 0, PRO_NONE, EPI_F32, eps,
                          stream, true));
   UML_TRY(launch_ln_bwd(x, dxn, g, dx, xn, rows, K, 1, eps, stream));
   UML_TRY(launch_gemm_at(xn, dpre, dw1, rows, K, M, stream));

@@ -15,9 +15,24 @@ Parameters are kept in fp32; the forward runs in the model's compute
   (attn_block_cls + mlp_block), ``ln_post`` and ``proj``
   (clip.py:460-525); ``return_tokens`` runs every layer in full and
   returns all tokens;
-* text tower: token + positional embedding, all layers through
-  text_tower, the EOT row (argmax of the token ids) pooled BEFORE
-  ``ln_final`` (clip.py:556-574), ``text_projection``.
+* text tower: token + positional embedding, the causal layers (all
+  through text_tower under the ``UML_TEXT_TOWER`` gate, else one by one),
+  the EOT row (argmax of the token ids) pooled BEFORE ``ln_final``
+  (clip.py:556-574), ``text_projection``.
+
+``attn_impl`` / ``ln_matmul_impl`` (uml_tpu's knobs, clip.py:272,
+:305-334) pick a layer's route: ``attn_impl`` "auto" or "fused" with
+``ln_matmul_impl`` anything but "reference" is the fused half-block path
+above; anything else takes the non-fused branch: ``ln_matmul`` for the
+QKV product, the attention ``attn_impl`` names ("dense_bshd", "pallas" =
+the streaming kernel, "reference" and any other value = the plain dense
+attention), a plain out-projection, ``add_ln_matmul`` for the residual
+add, ln_2, c_fc and the QuickGELU, a plain c_proj; ``ln_matmul_impl`` is
+the ``impl`` of those two ops (on the card "auto" is their kernels, which
+take bf16: an fp32 non-fused model raises there rather than run the plain
+versions unasked, as the fused path does).  Both branches declare the same
+parameters, and both train: the non-fused ops' backwards differentiate
+their plain versions.
 
 Training (the full-model finetune): when autograd needs a gradient
 (grad mode on and a parameter that requires one), the image tower derives
@@ -39,9 +54,15 @@ qkv its forward computed.  The towers have no dropout or BatchNorm, so
 Inference (``torch.no_grad()``, or frozen parameters): the folded,
 compute-dtype weights are derived once and cached; the cache is keyed on
 every source parameter's storage and version counter, so loading a
-state_dict, an optimizer step or moving the model rebuilds it.  The text
-tower runs forward only (text_tower has no backward, and training the
-text tower is not ported) and raises if a gradient is asked of it.
+state_dict, an optimizer step or moving the model rebuilds it.
+
+The text tower gate (``Transformer._use_tower``, clip.py:440-457):
+``UML_TEXT_TOWER=0`` runs the text layers one by one, "1" through
+text_tower wherever the shapes allow, "auto" (the default) through
+text_tower on the card only.  Under autograd the tower runs through
+``TextTowerFn`` (the kernel forward, the backward through the plain
+tower, as uml_tpu's custom_vjp), the per-layer route through the
+half-blocks' Functions.
 
 Int8 serving (``quant``, clip.py:204-263, 351-438): ``int8`` runs both
 half-blocks of every full layer W8A8 (ops.quant), ``int8_mlp`` /
@@ -66,15 +87,23 @@ from dataclasses import dataclass
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
+from uml_tpu_torch.ops.attention import (dense_attention_bshd,
+                                         multi_head_attention)
 from uml_tpu_torch.ops.fused_attention import (AttnBlockClsFn, AttnBlockFn,
                                                attn_block, attn_block_cls,
+                                               attn_block_plain,
                                                fold_ln_into_matmul)
-from uml_tpu_torch.ops.ln_matmul import MlpBlockFn, mlp_block, raw_layer_norm
+from uml_tpu_torch.ops.ln_matmul import (MlpBlockFn, add_ln_matmul, ln_matmul,
+                                         mlp_block, mlp_block_plain,
+                                         raw_layer_norm)
 from uml_tpu_torch.ops.patch_embed import patch_embed_u8
-from uml_tpu_torch.ops.quant import (attn_block_q8, check_inference,
-                                     mlp_block_q8, quantize_weight)
-from uml_tpu_torch.ops.text_tower import text_tower
+from uml_tpu_torch.ops.quant import (attn_block_q8, attn_block_q8_plain,
+                                     check_inference, mlp_block_q8,
+                                     mlp_block_q8_plain, quantize_weight)
+from uml_tpu_torch.ops.text_tower import (TextTowerFn, supports_text_tower,
+                                          text_tower)
 from uml_tpu_torch.ops.tower_q8 import supports_tower_q8, tower_q8
 
 # which half-blocks run W8A8 in each serving mode (clip.py:209-212):
@@ -181,16 +210,27 @@ class _Cached:
         return self._value
 
 
+def _is_fused(attn_impl: str, ln_matmul_impl: str) -> bool:
+    """The half-block kernels run the layers (clip.py:272); otherwise the
+    non-fused branch does."""
+    return attn_impl in ("auto", "fused") and ln_matmul_impl != "reference"
+
+
 class ResidualAttentionBlock(nn.Module):
-    def __init__(self, width: int, heads: int):
+    def __init__(self, width: int, heads: int, attn_impl: str = "auto",
+                 ln_matmul_impl: str = "auto"):
         super().__init__()
         self.heads = heads
+        self.attn_impl = attn_impl
+        self.ln_matmul_impl = ln_matmul_impl
+        self.fused = _is_fused(attn_impl, ln_matmul_impl)
         self.attn = MultiheadAttention(width)
         self.ln_1 = LayerNorm(width)
         self.mlp = MLP(width)
         self.ln_2 = LayerNorm(width)
         self._folded = _Cached()
         self._q8 = _Cached()
+        self._cast = _Cached()
 
     def _fold(self, dtype):
         w_eff, b_eff = fold_ln_into_matmul(
@@ -247,32 +287,87 @@ class ResidualAttentionBlock(nn.Module):
     def _forward_q8(self, x, causal: bool, halves):
         """A full layer with the int8 halves of ``halves`` (Q8_HALVES); the
         other half, and the bf16 out-projection of int8_qkv, run on the
-        bf16 folded weights."""
+        bf16 folded weights.  "reference" on either impl knob is the
+        caller's request for the plain math (clip.py:225-227): every half
+        then runs its plain version, wherever the tensor lies."""
         (wq, wsc, b_eff, woq, wosc, bo, w1q, w1sc, b1, w2q, w2sc,
          b2) = self.quantized(x.dtype)
         folded = None if halves == Q8_HALVES["int8"] else self.folded(x.dtype)
+        plain = "reference" in (self.attn_impl, self.ln_matmul_impl)
+        attn_q8, attn, mlp_q8, mlp = (
+            (attn_block_q8_plain, attn_block_plain, mlp_block_q8_plain,
+             mlp_block_plain) if plain else
+            (attn_block_q8, attn_block, mlp_block_q8, mlp_block))
         if "attn" in halves:
-            x = attn_block_q8(x, wq, wsc, b_eff, (woq, wosc), bo,
-                              heads=self.heads, causal=causal)
+            x = attn_q8(x, wq, wsc, b_eff, (woq, wosc), bo,
+                        heads=self.heads, causal=causal)
         elif "attn_qkv" in halves:
             wo = folded[2].to(torch.bfloat16)  # bf16 whatever the dtype
-            x = attn_block_q8(x, wq, wsc, b_eff, (wo,), bo,
-                              heads=self.heads, causal=causal, q8_out=False)
+            x = attn_q8(x, wq, wsc, b_eff, (wo,), bo,
+                        heads=self.heads, causal=causal, q8_out=False)
         else:
-            x = attn_block(x, *folded[:4], heads=self.heads, causal=causal)
+            x = attn(x, *folded[:4], heads=self.heads, causal=causal)
         if "mlp" in halves:
-            return mlp_block_q8(x, w1q, w1sc, b1, w2q, w2sc, b2)
-        return mlp_block(x, *folded[4:])
+            return mlp_q8(x, w1q, w1sc, b1, w2q, w2sc, b2)
+        return mlp(x, *folded[4:])
+
+    def _cast_weights(self, dtype):
+        return (self.attn.in_proj_weight.to(dtype).t().contiguous(),
+                self.attn.out_proj.weight.to(dtype),
+                self.attn.out_proj.bias.to(dtype),
+                self.mlp.c_fc.weight.to(dtype).t().contiguous(),
+                self.mlp.c_proj.weight.to(dtype),
+                self.mlp.c_proj.bias.to(dtype))
+
+    def cast_weights(self, dtype):
+        """(wqkv [K, 3K], wo [K, K], bo, w1 [K, 4K], w2 [K, 4K], b2) in
+        ``dtype`` for the non-fused branch: the QKV and c_fc weights in the
+        JAX [in, out] layout the ops take, out_proj and c_proj as torch
+        keeps them ([out, in], for F.linear).  Cached like ``folded``."""
+        params = list(self.parameters())
+        if _needs_grad(*params):
+            return self._cast_weights(dtype)
+        return self._cast.get(params, dtype, lambda: self._cast_weights(dtype))
+
+    def _forward_unfused(self, x, cls_only: bool, causal: bool):
+        """The non-fused branch (clip.py:305-334): ln_matmul for the QKV
+        product, the attention ``attn_impl`` names ("dense_bshd" the
+        layout-preserving dense one, "pallas" the streaming kernel,
+        anything else multi_head_attention's choice), a plain
+        out-projection, add_ln_matmul for the residual, ln_2, c_fc and
+        the QuickGELU, a plain c_proj.  ``cls_only`` computes the whole
+        layer and keeps row 0."""
+        wqkv, wo, bo, w1, w2, b2 = self.cast_weights(x.dtype)
+        b, s, width = x.shape
+        h = self.heads
+        qkv = ln_matmul(x, self.ln_1.weight, self.ln_1.bias, wqkv,
+                        self.attn.in_proj_bias, impl=self.ln_matmul_impl)
+        qkv = qkv.reshape(b, s, 3, h, width // h)
+        if self.attn_impl == "dense_bshd":
+            attn = dense_attention_bshd(qkv[:, :, 0], qkv[:, :, 1],
+                                        qkv[:, :, 2], causal=causal)
+        else:
+            q, k, v = qkv.permute(2, 0, 3, 1, 4)
+            attn = multi_head_attention(q, k, v, causal=causal,
+                                        impl=self.attn_impl).transpose(1, 2)
+        delta = F.linear(attn.reshape(b, s, width), wo, bo)
+        x, y = add_ln_matmul(x, delta, self.ln_2.weight, self.ln_2.bias, w1,
+                             self.mlp.c_fc.bias, gelu=True,
+                             impl=self.ln_matmul_impl)
+        out = x + F.linear(y, w2, b2)
+        return out[:, :1] if cls_only else out
 
     def forward(self, x, cls_only: bool = False, causal: bool = False,
                 quant: str = "none"):
         """One layer.  ``cls_only``: the attention half keeps only the
         CLS row, so the output is [B, 1, K] (row 0 of the full layer).
-        ``causal``: the text tower's mask (the int8 text path; the bf16
-        text layers run through text_tower).  ``quant``: a serving mode
-        of Q8_HALVES for a full layer; the CLS layer stays bf16."""
+        ``causal``: the text tower's mask (the per-layer text routes).
+        ``quant``: a serving mode of Q8_HALVES for a full layer; the CLS
+        layer stays bf16."""
         if Q8_HALVES[quant] and not cls_only:
             return self._forward_q8(x, causal, Q8_HALVES[quant])
+        if not self.fused:
+            return self._forward_unfused(x, cls_only, causal)
         w_eff, b_eff, wo, bo, w1, b1, w2, b2 = self.folded(x.dtype)
         if _needs_grad(x, w_eff, b_eff, wo, bo, w1, b1, w2, b2):
             if cls_only:
@@ -291,19 +386,22 @@ class ResidualAttentionBlock(nn.Module):
 
 
 class Transformer(nn.Module):
-    def __init__(self, width: int, layers: int, heads: int):
+    def __init__(self, width: int, layers: int, heads: int,
+                 attn_impl: str = "auto", ln_matmul_impl: str = "auto"):
         super().__init__()
         self.heads = heads
+        self.fused = _is_fused(attn_impl, ln_matmul_impl)
         self.resblocks = nn.ModuleList(
-            [ResidualAttentionBlock(width, heads) for _ in range(layers)])
+            [ResidualAttentionBlock(width, heads, attn_impl, ln_matmul_impl)
+             for _ in range(layers)])
         self._stacked = _Cached()
         self._stacked_q8 = _Cached()
 
     def forward(self, x, cls_only_last: bool = False, causal: bool = False,
                 quant: str = "none"):
-        """The per-layer path (the image tower; the text tower under a
-        quant mode), or tower_q8 over the full int8 layers under
-        ``UML_TOWER_Q8=1``."""
+        """The per-layer path, or tower_q8 over the full int8 layers under
+        ``UML_TOWER_Q8=1``, or text_tower over every layer of a causal
+        tower under the ``UML_TEXT_TOWER`` gate."""
         last = len(self.resblocks) - 1
         if self._use_tower_q8(x, causal, cls_only_last, quant):
             n_full = len(self.resblocks) - (1 if cls_only_last else 0)
@@ -312,6 +410,11 @@ class Transformer(nn.Module):
             if cls_only_last:
                 x = self.resblocks[last](x, cls_only=True)
             return x
+        if self._use_tower(x, causal, cls_only_last, quant):
+            stacked = self.stacked(x.dtype)
+            if _needs_grad(x, *stacked):
+                return TextTowerFn.apply(x, *stacked, self.heads, 1e-5)
+            return text_tower(x, *stacked, heads=self.heads)
         for i, block in enumerate(self.resblocks):
             x = block(x, cls_only=cls_only_last and i == last, causal=causal,
                       quant=quant)
@@ -325,10 +428,26 @@ class Transformer(nn.Module):
         if os.environ.get("UML_TOWER_Q8", "auto") != "1":
             return False
         width = x.shape[-1]
-        return (not causal and quant == "int8" and x.ndim == 3
+        return (not causal and quant == "int8" and self.fused and x.ndim == 3
                 and len(self.resblocks) > (1 if cls_only_last else 0)
                 and supports_tower_q8(width, self.heads, width // self.heads,
                                       x.shape[1], 4 * width))
+
+    def _use_tower(self, x, causal, cls_only_last, quant) -> bool:
+        """uml_tpu's UML_TEXT_TOWER gate (clip.py:440-457): "0" keeps the
+        per-layer path; "1" runs text_tower when the tower is causal, every
+        layer full, no quant mode, the fused path selected and the kernels
+        take the shape; "auto" (the default) also wants the tensor on the
+        card (on the CPU the per-layer plain halves compute the same)."""
+        env = os.environ.get("UML_TEXT_TOWER", "auto")
+        if env == "0":
+            return False
+        width = x.shape[-1]
+        ok = (causal and not cls_only_last and quant == "none" and self.fused
+              and x.ndim == 3
+              and supports_text_tower(width, self.heads, width // self.heads,
+                                      x.shape[1], 4 * width))
+        return ok if env == "1" else ok and x.is_cuda
 
     def stacked_q8(self, dtype, n_layers: int):
         """The first ``n_layers`` layers' int8 weights stacked on a
@@ -342,21 +461,20 @@ class Transformer(nn.Module):
 
     def stacked(self, dtype):
         """Every layer's folded weights stacked on a leading layer axis —
-        the operands of text_tower (forward only)."""
-        if _needs_grad(*self.parameters()):
-            raise NotImplementedError(
-                "training the text tower is not ported to uml_tpu_torch "
-                "(text_tower runs forward only); run encode_text under "
-                "torch.no_grad() or freeze its parameters")
-
+        the operands of text_tower.  With autograd they are derived anew,
+        with a gradient to the parameters; otherwise from the cache."""
         def build():
             per_layer = [b.folded(dtype) for b in self.resblocks]
             return tuple(torch.stack(t) for t in zip(*per_layer))
-        return self._stacked.get(list(self.parameters()), dtype, build)
+        params = list(self.parameters())
+        if _needs_grad(*params):
+            return build()
+        return self._stacked.get(params, dtype, build)
 
 
 class VisionTransformer(nn.Module):
-    def __init__(self, cfg: ClipConfig):
+    def __init__(self, cfg: ClipConfig, attn_impl: str = "auto",
+                 ln_matmul_impl: str = "auto"):
         super().__init__()
         self.cfg = cfg
         w, p = cfg.vision_width, cfg.vision_patch_size
@@ -366,7 +484,8 @@ class VisionTransformer(nn.Module):
         self.positional_embedding = nn.Parameter(
             torch.empty(cfg.grid_size ** 2 + 1, w))
         self.ln_pre = LayerNorm(w)
-        self.transformer = Transformer(w, cfg.vision_layers, cfg.vision_heads)
+        self.transformer = Transformer(w, cfg.vision_layers, cfg.vision_heads,
+                                       attn_impl, ln_matmul_impl)
         self.ln_post = LayerNorm(w)
         self.proj = nn.Parameter(torch.empty(w, cfg.embed_dim))
 
@@ -395,6 +514,7 @@ class CLIP(nn.Module):
     level, as in the OpenAI schema."""
 
     def __init__(self, config: ClipConfig, dtype=torch.float32,
+                 attn_impl: str = "auto", ln_matmul_impl: str = "auto",
                  quant: str = "none"):
         super().__init__()
         if quant not in Q8_HALVES:
@@ -404,10 +524,11 @@ class CLIP(nn.Module):
         self.dtype = dtype
         self.quant = quant
         cfg = config
-        self.visual = VisionTransformer(cfg)
+        self.visual = VisionTransformer(cfg, attn_impl, ln_matmul_impl)
         self.transformer = Transformer(cfg.transformer_width,
                                        cfg.transformer_layers,
-                                       cfg.transformer_heads)
+                                       cfg.transformer_heads, attn_impl,
+                                       ln_matmul_impl)
         self.token_embedding = nn.Embedding(cfg.vocab_size,
                                             cfg.transformer_width)
         self.positional_embedding = nn.Parameter(
@@ -458,13 +579,9 @@ class CLIP(nn.Module):
         # gather, then cast: the same values as casting the whole table
         x = (self.token_embedding.weight[tokens].to(dt)
              + self.positional_embedding[:s].to(dt))
-        if self.quant == "none":
-            x = text_tower(x, *self.transformer.stacked(dt),
-                           heads=self.transformer.heads)
-        else:
-            # under a quant mode the text layers run one by one, causal
-            # (uml_tpu's whole-tower text kernel is bf16 only, clip.py:447)
-            x = self.transformer(x, causal=True, quant=self.quant)
+        # text_tower under the UML_TEXT_TOWER gate, else layer by layer,
+        # causal (a quant mode, the non-fused branch, UML_TEXT_TOWER=0)
+        x = self.transformer(x, causal=True, quant=self.quant)
         eot = tokens.argmax(dim=-1)
         if return_tokens:
             x = self.ln_final(x)
@@ -476,11 +593,16 @@ class CLIP(nn.Module):
         return (out, eot) if return_eot else out
 
 
-def build_clip(name: str, dtype=torch.float32, quant: str = "none") -> CLIP:
+def build_clip(name: str, dtype=torch.float32, attn_impl: str = "auto",
+               ln_matmul_impl: str = "auto", quant: str = "none") -> CLIP:
     """An uninitialised CLIP of a named ViT config (fill it with
-    ``init_random`` or ``load_state_dict``); ``quant`` a serving mode of
-    Q8_HALVES (unknown modes raise)."""
+    ``init_random`` or ``load_state_dict``).  ``attn_impl`` /
+    ``ln_matmul_impl`` as in uml_tpu's build_clip: ("auto" | "fused",
+    anything but "reference") keeps the fused half-block path, anything
+    else the non-fused branch; ``quant`` a serving mode of Q8_HALVES
+    (unknown modes raise)."""
     if name not in CLIP_CONFIGS:
         raise ValueError(f"Unknown CLIP encoder {name!r}; the port has "
                          f"{list(CLIP_CONFIGS)} (RN50/RN101 come later)")
-    return CLIP(CLIP_CONFIGS[name], dtype=dtype, quant=quant)
+    return CLIP(CLIP_CONFIGS[name], dtype=dtype, attn_impl=attn_impl,
+                ln_matmul_impl=ln_matmul_impl, quant=quant)

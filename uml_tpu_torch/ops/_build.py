@@ -31,6 +31,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # name -> argtypes; every function returns a cudaError_t as int
 SIGNATURES = {
     # x, w_eff, b_eff, wo, bo, qkv, attn, out, B, S, K, H, causal, q_rows,
@@ -69,6 +70,16 @@ SIGNATURES = {
     # x, wq, wsc, b_eff, woq, wosc, bo, w1q, w1sc, b1, w2q, w2sc, b2, q8,
     # qscale, qkv, attn, pre, mid, out, B, S, K, H, M, L, eps, stream
     "uml_tower_q8": [_P] * 20 + [_I] * 6 + [_F, _P],
+    # x, scale, bias, w, b, out, rows, K, M, act, eps, stream
+    "uml_ln_matmul": [_P] * 6 + [_I] * 4 + [_F, _P],
+    # x, delta, scale, bias, w, b, t, out, rows, K, M, act, eps, stream
+    "uml_add_ln_matmul": [_P] * 8 + [_I] * 4 + [_F, _P],
+    # x, scale, bias, w, b, qkv, out, B, S, K, H, causal, eps, stream
+    "uml_ln_qkv_attention": [_P] * 7 + [_I] * 5 + [_F, _P],
+    # x, scale, bias, out, rows, K, is_f32, eps, stream
+    "uml_layer_norm": [_P] * 4 + [_L, _I, _I, _F, _P],
+    # q, k, v, out, B*H, S, D, causal, stream
+    "uml_flash_attention": [_P] * 4 + [_L, _I, _I, _I, _P],
 }
 
 
@@ -177,3 +188,13 @@ def check_dims(**dims: int) -> None:
     for name, v in dims.items():
         if v % 64 != 0:
             raise ValueError(f"{name}={v}: the CUDA kernels need a multiple of 64")
+
+
+def wants_kernel(impl: str, x) -> bool:
+    """The ``impl`` knob of the stand-alone ops.  "pallas" (uml_tpu's name
+    for the hand-written kernel) and "auto" on a CUDA tensor take the op's
+    kernel wrapper, which launches or raises where the kernel does not take
+    the shape or dtype: a tensor on the card never runs the plain version
+    unasked.  "auto" on a CPU tensor, and any other value ("reference"),
+    is the plain version."""
+    return impl == "pallas" or (impl == "auto" and x.is_cuda)

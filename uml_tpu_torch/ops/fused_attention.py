@@ -44,6 +44,18 @@ in ``csrc/`` or raises, and counts the launch.
   ``attn_block_bwd_recompute``.  The CLS half always keeps the qkv its
   forward computed.
 
+* ``ln_qkv_attention``: LN (affine) -> packed QKV -> MHA with no
+  out-projection, [B, S, K] -> [B, S, H*64]: the port of ``_kernel``
+  (fused_attention.py:143) as ``csrc/ln_qkv_attention.cu`` (the
+  affine-prologue ln_gemm, then the attention kernel).  ``impl`` as in
+  uml_tpu: "auto" runs ``ln_qkv_attention_plain`` for a CPU tensor and the
+  kernel for a CUDA tensor, "pallas" is the kernel; both raise on a CUDA
+  tensor ``supports_fused_attention`` does not take (it takes bf16, head
+  dim 64, S <= 400: the attention kernel keeps one head's K/V in shared
+  memory); anything else is the plain version.  No model calls it (nor in
+  uml_tpu); its backward differentiates the plain version
+  (fused_attention.py:697-707).
+
 Numerics, as in the twin: fp32 LN statistics, bf16 operands with fp32
 accumulation, the full b_eff added to qkv before its bf16 rounding, an
 fp32 softmax with the row max, bf16 probabilities.  (The TPU kernel
@@ -61,7 +73,9 @@ import os
 import torch
 
 from uml_tpu_torch.ops import _build
-from uml_tpu_torch.ops.ln_matmul import (raw_layer_norm, raw_layer_norm_bwd,
+from uml_tpu_torch.ops._vjp import plain_vjp
+from uml_tpu_torch.ops.ln_matmul import (ln_matmul_plain, raw_layer_norm,
+                                         raw_layer_norm_bwd,
                                          raw_layer_norm_rstd)
 
 HEAD_DIM = 64  # the kernels' head dim (every CLIP tower)
@@ -81,7 +95,7 @@ def fold_ln_into_matmul(scale, bias, kernel, kbias):
     return w_eff, b_eff
 
 
-def attention_plain(q, k, v, *, causal: bool):
+def attention_plain(q, k, v, *, causal: bool = False):
     """q [B,H,Sq,D], k/v [B,H,S,D] -> [B,H,Sq,D]: fp32 scores and softmax
     (row max), probabilities rounded to the input dtype unnormalized, the
     1/rowsum applied to the fp32 P.V — the CUDA kernel's order."""
@@ -489,3 +503,92 @@ def ln_attn_block_cls(x, scale, bias, kernel, kbias, wo, bo, *, heads: int,
     w_eff, b_eff = fold_ln_into_matmul(scale, bias, kernel, kbias)
     return attn_block_cls(x, w_eff, b_eff, wo, bo.float(), heads=heads,
                           eps=eps)
+
+
+def ln_qkv_attention_plain(x, scale, bias, kernel, kbias, *, heads: int,
+                           causal: bool = False, eps: float = 1e-5):
+    """Plain PyTorch version of ln_qkv_attention: the affine LN, the packed
+    QKV product with its bias rounded to x's dtype, then the attention of
+    attention_plain per head -> [B, S, H*D]."""
+    b, s, _ = x.shape
+    qkv = ln_matmul_plain(x, scale, bias, kernel, kbias, eps=eps)
+    attn = attention_plain(*_qkv_heads(qkv, heads), causal=causal)
+    return attn.transpose(1, 2).reshape(b, s, -1)
+
+
+def supports_fused_attention(k: int, heads: int, head_dim: int, seq_len: int,
+                             dtype=torch.bfloat16) -> bool:
+    """What ln_qkv_attention's kernels take: bf16, head dim 64, K a
+    multiple of the 64-wide GEMM tiles (H*64 always is), and S <= MAX_SEQ."""
+    return (dtype == torch.bfloat16 and head_dim == HEAD_DIM and k % 64 == 0
+            and seq_len <= MAX_SEQ)
+
+
+def _ln_qkv_attention_fwd(x, scale, bias, kernel, kbias, heads, causal, eps):
+    """The plain version for a CPU tensor, the kernel for a CUDA tensor
+    (x [B, S, K] bf16, kernel [K, 3*H*64] bf16; scale, bias, kbias go in
+    as fp32)."""
+    if x.device.type == "cpu":
+        return ln_qkv_attention_plain(x, scale, bias, kernel, kbias,
+                                      heads=heads, causal=causal, eps=eps)
+    b, s, k = x.shape
+    hd = heads * HEAD_DIM
+    if not supports_fused_attention(k, heads, kernel.shape[1] // (3 * heads),
+                                    s, x.dtype):
+        raise ValueError(
+            f"ln_qkv_attention kernel: K={k} S={s} head dim "
+            f"{kernel.shape[1] // (3 * heads)} {x.dtype}; it takes bf16, head "
+            f"dim {HEAD_DIM}, K a multiple of 64 and S <= {MAX_SEQ}")
+    bf16, f32, dev = torch.bfloat16, torch.float32, x.device
+    scale, bias, kbias = scale.float(), bias.float(), kbias.float()
+    _build.check_tensor("x", x, bf16, (b, s, k), dev)
+    _build.check_tensor("scale", scale, f32, (k,), dev)
+    _build.check_tensor("bias", bias, f32, (k,), dev)
+    _build.check_tensor("kernel", kernel, bf16, (k, 3 * hd), dev)
+    _build.check_tensor("kbias", kbias, f32, (3 * hd,), dev)
+    with torch.cuda.device(dev):
+        qkv = torch.empty((b * s, 3 * hd), dtype=bf16, device=dev)
+        out = torch.empty((b, s, hd), dtype=bf16, device=dev)
+        _build.launch("uml_ln_qkv_attention", x.data_ptr(), scale.data_ptr(),
+                      bias.data_ptr(), kernel.data_ptr(), kbias.data_ptr(),
+                      qkv.data_ptr(), out.data_ptr(), b, s, k, heads,
+                      int(causal), eps,
+                      torch.cuda.current_stream(dev).cuda_stream)
+    ln_qkv_attention.launches += 1
+    return out
+
+
+class LnQkvAttentionFn(torch.autograd.Function):
+    """ln_qkv_attention with a gradient: the kernel forward, the backward
+    through ln_qkv_attention_plain."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, kernel, kbias, heads, causal, eps):
+        ctx.cfg = (heads, causal, eps)
+        ctx.save_for_backward(x, scale, bias, kernel, kbias)
+        return _ln_qkv_attention_fwd(x, scale, bias, kernel, kbias, heads,
+                                     causal, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        heads, causal, eps = ctx.cfg
+        return (*plain_vjp(
+            lambda *a: ln_qkv_attention_plain(*a, heads=heads, causal=causal,
+                                              eps=eps),
+            ctx.saved_tensors, (g,), ctx.needs_input_grad[:5]),
+            None, None, None)
+
+
+def ln_qkv_attention(x, scale, bias, kernel, kbias, *, heads: int,
+                     causal: bool = False, eps: float = 1e-5,
+                     impl: str = "auto"):
+    """LN(x) -> packed QKV -> MHA; x [B, S, K], kernel [K, 3*H*D], output
+    [B, S, H*D] on every path."""
+    if _build.wants_kernel(impl, x):
+        return LnQkvAttentionFn.apply(x, scale, bias, kernel, kbias, heads,
+                                      causal, eps)
+    return ln_qkv_attention_plain(x, scale, bias, kernel, kbias, heads=heads,
+                                  causal=causal, eps=eps)
+
+
+ln_qkv_attention.launches = 0

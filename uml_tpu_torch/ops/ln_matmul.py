@@ -1,4 +1,6 @@
-"""MLP half-block: x + quick_gelu(rawLN(x) @ w1 + b1) @ w2 + b2.
+"""LayerNorm -> matmul ops: the MLP half-block
+x + quick_gelu(rawLN(x) @ w1 + b1) @ w2 + b2 and the stand-alone
+``ln_matmul`` / ``add_ln_matmul`` of the non-fused CLIP branch.
 
 The port of uml_tpu/ops/ln_matmul.py::_mlp_block_kernel (its jnp twin is
 ``_raw_mlp_block_reference``) and of its training twins
@@ -36,8 +38,30 @@ or raise, and count the launch.
   ``mlp_bwd_dw_via_kernel``, "kernel" ``mlp_bwd_via_kernel``, anything
   else (the default) the autograd of the plain twin, recomputed.
 
-The activation is CLIP's quick_gelu, x * sigmoid(1.702 x)
-(ln_matmul.py:678-679); DINO's exact GELU comes with the DINO encoders.
+The MLP half-block's activation is CLIP's quick_gelu, x * sigmoid(1.702 x)
+(ln_matmul.py:678-679).
+
+The stand-alone ops (``csrc/ln_matmul.cu``), with uml_tpu's signatures and
+``impl`` values ("auto": the plain version for a CPU tensor, the kernel for
+a CUDA tensor; "pallas": the hand-written kernel; both raise on a CUDA
+tensor the gate ``supports_ln_matmul`` does not take, and never run the
+plain version there; anything else, e.g. "reference": the plain version):
+
+* ``ln_matmul``: act(LN(x) @ w + b), the port of ``_ln_matmul_kernel`` and
+  ``_ln_matmul_kernel_3d`` (one entry: a contiguous [B, S, K] is [B*S, K]
+  here).  Where the TPU wrapper folds the LN affine into w and b on every
+  call, the kernel applies it in its prologue; ``ln_matmul_plain``, the
+  unfolded ``ln_matmul_reference``, is its twin.
+* ``add_ln_matmul``: (t, act(LN(t) @ w + b)) with t = x + delta, the port
+  of ``_add_ln_matmul_kernel``: the LN affine applied in the kernel, the
+  statistics those of the unrounded fp32 sum.
+* activations: None, "quick_gelu" (CLIP), "gelu_exact" (DINO; erf on the
+  card, where the TPU kernel fits a sigmoid of a quintic because Mosaic has
+  no erf).  The VMEM gate of uml_tpu's ``supports_ln_matmul`` (k*m*2 <=
+  8 MB) is not carried: the kernel streams the weight in tiles.
+* gradients: ``LnMatmulFn`` / ``AddLnMatmulFn`` run the kernel forward and
+  differentiate the plain twin, recomputed, as uml_tpu's custom_vjp do
+  (ln_matmul.py:824-833, :962-971).
 """
 
 from __future__ import annotations
@@ -47,6 +71,7 @@ import os
 import torch
 
 from uml_tpu_torch.ops import _build
+from uml_tpu_torch.ops._vjp import plain_vjp
 
 
 def raw_layer_norm_rstd(xf: torch.Tensor, eps: float):
@@ -364,7 +389,166 @@ class MlpBlockFn(torch.autograd.Function):
         if mode == "kernel":
             return (*mlp_bwd_via_kernel(x, g, w1, b1, w2, b2, eps=ctx.eps),
                     None)
-        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-        with torch.enable_grad():
-            out = mlp_block_plain(*inputs, eps=ctx.eps)
-        return (*torch.autograd.grad(out, inputs, g), None)
+        eps = ctx.eps
+        return (*plain_vjp(lambda *a: mlp_block_plain(*a, eps=eps),
+                           ctx.saved_tensors, (g,), ctx.needs_input_grad[:5]),
+                None)
+
+
+def gelu_exact_f32(x: torch.Tensor) -> torch.Tensor:
+    """erf-based GELU (ln_matmul.py:682-684)."""
+    return x * 0.5 * (1.0 + torch.erf(x * 2.0 ** -0.5))
+
+
+ACTIVATIONS = {None: lambda x: x, "quick_gelu": quick_gelu_f32,
+               "gelu_exact": gelu_exact_f32}
+_ACT_CODE = {None: 0, "quick_gelu": 1, "gelu_exact": 2}  # csrc/ln_matmul.cu
+
+
+def supports_ln_matmul(k: int, m: int, dtype=torch.bfloat16) -> bool:
+    """What the ln_gemm kernel takes: bf16, K and M multiples of its 64-wide
+    tiles."""
+    return dtype == torch.bfloat16 and k % 64 == 0 and m % 64 == 0
+
+
+def ln_matmul_plain(x, scale, bias, w, b, *, eps: float = 1e-5,
+                    activation: str | None = None):
+    """Plain PyTorch twin of ln_matmul_reference: fp32-statistics LN with
+    its affine, rounded to the weight dtype, then act(xn @ w + b)."""
+    xn = raw_layer_norm(x.float(), eps) * scale.float() + bias.float()
+    out = xn.to(w.dtype).float() @ w.float() + b.float()
+    return ACTIVATIONS[activation](out).to(x.dtype)
+
+
+def _ln_matmul_fwd(x, scale, bias, w, b, eps, activation):
+    """The plain twin for a CPU tensor, the kernel for a CUDA tensor (x
+    [..., K] bf16, w [K, M] bf16; scale, bias, b go in as fp32)."""
+    if x.device.type == "cpu":
+        return ln_matmul_plain(x, scale, bias, w, b, eps=eps,
+                               activation=activation)
+    k, m = w.shape
+    _build.check_dims(K=k, M=m)
+    bf16, f32, dev = torch.bfloat16, torch.float32, x.device
+    scale, bias, b = scale.float(), bias.float(), b.float()
+    _build.check_tensor("x", x, bf16, (*x.shape[:-1], k), dev)
+    _build.check_tensor("scale", scale, f32, (k,), dev)
+    _build.check_tensor("bias", bias, f32, (k,), dev)
+    _build.check_tensor("w", w, bf16, (k, m), dev)
+    _build.check_tensor("b", b, f32, (m,), dev)
+    with torch.cuda.device(dev):
+        out = torch.empty((*x.shape[:-1], m), dtype=bf16, device=dev)
+        _build.launch("uml_ln_matmul", x.data_ptr(), scale.data_ptr(),
+                      bias.data_ptr(), w.data_ptr(), b.data_ptr(),
+                      out.data_ptr(), x.numel() // k, k, m,
+                      _ACT_CODE[activation], eps,
+                      torch.cuda.current_stream(dev).cuda_stream)
+    ln_matmul.launches += 1
+    return out
+
+
+class LnMatmulFn(torch.autograd.Function):
+    """ln_matmul with a gradient: the kernel forward, the backward through
+    ln_matmul_plain."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, w, b, eps, activation):
+        ctx.cfg = (eps, activation)
+        ctx.save_for_backward(x, scale, bias, w, b)
+        return _ln_matmul_fwd(x, scale, bias, w, b, eps, activation)
+
+    @staticmethod
+    def backward(ctx, g):
+        eps, activation = ctx.cfg
+        return (*plain_vjp(
+            lambda *a: ln_matmul_plain(*a, eps=eps, activation=activation),
+            ctx.saved_tensors, (g,), ctx.needs_input_grad[:5]), None, None)
+
+
+def ln_matmul(x, scale, bias, w, b, *, eps: float = 1e-5,
+              activation: str | None = None, impl: str = "auto"):
+    """act(LayerNorm(x) @ w + b) over the last axis of x.
+
+    x: [..., K]; scale/bias: [K]; w: [K, M]; b: [M].  ``activation``:
+    None | 'quick_gelu' | 'gelu_exact'.  The kernel takes every rank: the
+    leading axes are its rows."""
+    if _build.wants_kernel(impl, x):
+        return LnMatmulFn.apply(x, scale, bias, w, b, eps, activation)
+    return ln_matmul_plain(x, scale, bias, w, b, eps=eps, activation=activation)
+
+
+ln_matmul.launches = 0
+
+
+def add_ln_matmul_plain(x, delta, scale, bias, w, b, *, eps: float = 1e-5,
+                        activation: str | None = None):
+    """Plain PyTorch twin of add_ln_matmul_reference -> (t, out): t =
+    x + delta rounded to x's dtype, the LN statistics and the normalized
+    row taken of the unrounded fp32 sum."""
+    t32 = x.float() + delta.float()
+    xn = raw_layer_norm(t32, eps) * scale.float() + bias.float()
+    out = xn.to(w.dtype).float() @ w.float() + b.float()
+    return t32.to(x.dtype), ACTIVATIONS[activation](out).to(x.dtype)
+
+
+def _add_ln_matmul_fwd(x, delta, scale, bias, w, b, eps, activation):
+    """The plain twin for a CPU tensor, the kernel for a CUDA tensor (x,
+    delta [..., K] bf16, w [K, M] bf16; scale, bias, b go in as fp32)."""
+    if x.device.type == "cpu":
+        return add_ln_matmul_plain(x, delta, scale, bias, w, b, eps=eps,
+                                   activation=activation)
+    k, m = w.shape
+    _build.check_dims(K=k, M=m)
+    bf16, f32, dev = torch.bfloat16, torch.float32, x.device
+    scale, bias, b = scale.float(), bias.float(), b.float()
+    _build.check_tensor("x", x, bf16, (*x.shape[:-1], k), dev)
+    _build.check_tensor("delta", delta, bf16, x.shape, dev)
+    _build.check_tensor("scale", scale, f32, (k,), dev)
+    _build.check_tensor("bias", bias, f32, (k,), dev)
+    _build.check_tensor("w", w, bf16, (k, m), dev)
+    _build.check_tensor("b", b, f32, (m,), dev)
+    with torch.cuda.device(dev):
+        t = torch.empty_like(x)
+        out = torch.empty((*x.shape[:-1], m), dtype=bf16, device=dev)
+        _build.launch("uml_add_ln_matmul", x.data_ptr(), delta.data_ptr(),
+                      scale.data_ptr(), bias.data_ptr(), w.data_ptr(),
+                      b.data_ptr(), t.data_ptr(), out.data_ptr(),
+                      x.numel() // k, k, m, _ACT_CODE[activation], eps,
+                      torch.cuda.current_stream(dev).cuda_stream)
+    add_ln_matmul.launches += 1
+    return t, out
+
+
+class AddLnMatmulFn(torch.autograd.Function):
+    """add_ln_matmul with a gradient: the kernel forward, the backward
+    through add_ln_matmul_plain against both outputs' cotangents."""
+
+    @staticmethod
+    def forward(ctx, x, delta, scale, bias, w, b, eps, activation):
+        ctx.cfg = (eps, activation)
+        ctx.save_for_backward(x, delta, scale, bias, w, b)
+        return _add_ln_matmul_fwd(x, delta, scale, bias, w, b, eps, activation)
+
+    @staticmethod
+    def backward(ctx, gt, gout):
+        eps, activation = ctx.cfg
+        return (*plain_vjp(
+            lambda *a: add_ln_matmul_plain(*a, eps=eps, activation=activation),
+            ctx.saved_tensors, (gt, gout), ctx.needs_input_grad[:6]), None, None)
+
+
+def add_ln_matmul(x, delta, scale, bias, w, b, *, eps: float = 1e-5,
+                  gelu: bool = False, activation: str | None = None,
+                  impl: str = "auto"):
+    """(x + delta, act(LN(x + delta) @ w + b)) over the last axis: the
+    second half of a pre-LN residual block up to the activation, in one
+    launch.  ``gelu=True`` is shorthand for 'quick_gelu'.  The kernel takes
+    every rank: the leading axes are its rows."""
+    if gelu and activation is None:
+        activation = "quick_gelu"
+    if _build.wants_kernel(impl, x):
+        return AddLnMatmulFn.apply(x, delta, scale, bias, w, b, eps, activation)
+    return add_ln_matmul_plain(x, delta, scale, bias, w, b, eps=eps,
+                               activation=activation)
+
+
+add_ln_matmul.launches = 0

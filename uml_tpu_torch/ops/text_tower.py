@@ -8,6 +8,12 @@ over the layers and launches the causal attention half and the MLP half
 of each, or raises.  The residual is rounded to the activation dtype
 between halves and between layers, as in the TPU kernel.
 
+``TextTowerFn`` gives the tower a gradient as uml_tpu's custom_vjp does
+(text_tower.py:246-264): the kernel forward, the backward by autograd
+through ``text_tower_plain``, recomputed from the saved inputs.
+``supports_text_tower`` is the shape gate of the model's UML_TEXT_TOWER
+switch.
+
     w_eff [L,K,3*H*64], b_eff [L,3*H*64]  ln_1-folded QKV
     wo [L,H*64,K], bo [L,K]                attention out-projection
     w1 [L,K,M], b1 [L,M]                   ln_2-folded c_fc (M = 4K)
@@ -19,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from uml_tpu_torch.ops import _build
+from uml_tpu_torch.ops._vjp import plain_vjp
 from uml_tpu_torch.ops.fused_attention import HEAD_DIM, MAX_SEQ, attn_block_plain
 from uml_tpu_torch.ops.ln_matmul import mlp_block_plain
 
@@ -73,3 +80,29 @@ def text_tower(x, w_eff, b_eff, wo, bo, w1, b1, w2, b2, *, heads: int,
 
 
 text_tower.launches = 0
+
+
+def supports_text_tower(k: int, heads: int, head_dim: int, s: int,
+                        m: int) -> bool:
+    """What the tower's kernels take: head dim 64, K and M multiples of the
+    64-wide GEMM tiles, S <= MAX_SEQ."""
+    return (head_dim == HEAD_DIM and k % 64 == 0 and m % 64 == 0
+            and s <= MAX_SEQ)
+
+
+class TextTowerFn(torch.autograd.Function):
+    """text_tower with a gradient to x and every stacked weight."""
+
+    @staticmethod
+    def forward(ctx, x, w_eff, b_eff, wo, bo, w1, b1, w2, b2, heads, eps):
+        ctx.cfg = (heads, eps)
+        ctx.save_for_backward(x, w_eff, b_eff, wo, bo, w1, b1, w2, b2)
+        return text_tower(x, w_eff, b_eff, wo, bo, w1, b1, w2, b2,
+                          heads=heads, eps=eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        heads, eps = ctx.cfg
+        return (*plain_vjp(
+            lambda *a: text_tower_plain(*a, heads=heads, eps=eps),
+            ctx.saved_tensors, (g,), ctx.needs_input_grad[:9]), None, None)
