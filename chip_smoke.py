@@ -17,13 +17,20 @@ Phases (any failure exits non-zero; no phase is caught):
    of the non-fused branch: ln_matmul 3-d and 2-d with each activation,
    add_ln_matmul, ln_qkv_attention at both towers' widths, layer_norm in
    bf16 and fp32, flash_attention at S=197 and at [8,16,2048,64] causal
-   and not, and at head dim 128) against its plain
-   PyTorch version on the same inputs, within the stated bounds, timed
-   with CUDA events, with its bound (the least time the card could take)
-   and a cuBLAS GEMM yardstick at its largest product (layer_norm and
-   flash_attention: the one PyTorch call that computes the same function,
-   F.layer_norm and F.scaled_dot_product_attention, timed as library_ms
-   and used nowhere in the port).  The int8 halves
+   and not, at head dim 128, and on the ViT layer's packed qkv [B, S, 3,
+   H, D] read in place by the strided entry) against its plain PyTorch
+   version on the same inputs, within the stated bounds, with its bound
+   (the least time the card could take) and a cuBLAS GEMM yardstick at its
+   largest product (layer_norm and flash_attention: the one PyTorch call
+   that computes the same function, F.layer_norm and
+   F.scaled_dot_product_attention, timed as library_ms and used nowhere in
+   the port).  Kernel, plain, library and yardstick are timed alike, on
+   the card alone (``_graph_time_ms``): up to 100 calls captured in one
+   CUDA graph, rotating over copies of the inputs that together exceed
+   the 50 MB L2, replayed between two CUDA events, the median of five
+   replays per call; no host work lies inside the interval.  The
+   end-to-end rates below are host-inclusive on purpose (``_time_ms``).
+   The int8 halves
    also compare their activation integers with the plain version's: no
    integer may differ by more than one step.
 3. main path: generate_fewshot and features on a synthetic caltech-layout
@@ -62,13 +69,16 @@ Phases (any failure exits non-zero; no phase is caught):
    tower moved.  One bs-4 train step of a random-init ViT-B/16 head on
    the card against the same model and batch on the CPU (plain path):
    loss and per-tensor gradient cosines within the stated bounds, in the
-   default mode and in both recompute modes.  Then the steady-state
-   full-model train step (forward, backward, adamw) in img/s with its
-   peak memory and a profile: at bs 64 with the stashes and in the three
-   recompute modes (plain MLP backward, kernel, dw); at bs 256 under the
-   default gate (the MLP stash turns itself off) with the plain MLP
-   backward, kernel and dw; and bs 256 as 2 x 128 through
-   train/accum.py with both stashes on.  The non-fused branch
+   default mode and with both stashes off under UML_MLP_BWD unset (row 19
+   on the card), kernel, dw and plain (the plain VJP, TF32 products on
+   the card).  Then the steady-state full-model train step (forward,
+   backward, adamw) in img/s with its peak memory, a profile and its
+   library GEMMs by product format (TF32, bf16, fp32 SIMT): at bs 64 with
+   the stashes and in the three recompute modes (plain MLP backward,
+   kernel, dw); at bs 256 under the default gate (the MLP stash turns
+   itself off; the mlp_bwd counter must move) with UML_MLP_BWD unset,
+   plain and dw; and bs 256 as 2 x 128 through train/accum.py with both
+   stashes on.  The non-fused branch
    (attn_impl="reference"): the bs-4 step against the CPU and the bs-64
    rate with its peak memory; and one gradient of encode_text through
    TextTowerFn on the card against the CPU.
@@ -82,6 +92,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import json
 import math
 import os
@@ -147,7 +158,9 @@ OPS_PORTS = ("ln_matmul_2d", "ln_qkv_attention", "layer_norm")
 # the backward modes of the full-model train step: the environment of each
 RECOMPUTE = {"UML_BWD_STASH": "0", "UML_MLP_STASH": "0"}
 RECOMPUTE_MODES = {"kernel": {**RECOMPUTE, "UML_MLP_BWD": "kernel"},
-                   "dw": {**RECOMPUTE, "UML_MLP_BWD": "dw"}}
+                   "dw": {**RECOMPUTE, "UML_MLP_BWD": "dw"},
+                   # the plain VJP (TF32 products on the card)
+                   "plain": {**RECOMPUTE, "UML_MLP_BWD": "plain"}}
 
 # Kernel vs plain version, bf16 on the card.  Both compute the same math
 # with fp32 accumulation; they differ in summation order, so an
@@ -181,13 +194,14 @@ REL_BOUND = {"attn_block": 1 / 64, "attn_block_cls": 1 / 64,
              "layer_norm_f32": 1e-5, "flash_attention": 1 / 64,
              "flash_attention_2048": 1 / 64,
              "flash_attention_2048_causal": 1 / 64,
-             "flash_attention_d128": 1 / 64}
+             "flash_attention_d128": 1 / 64, "flash_attention_packed": 1 / 64}
 # dense peaks of an H100 SXM at 700 W (NVIDIA's data sheet): the bound of a
 # kernel is max(bytes / PEAK_BYTES, int8 ops / PEAK_INT8 + bf16 FLOPs /
 # PEAK_BF16), bytes = every input read once and every output written once
 PEAK_BYTES = 3.35e12
 PEAK_BF16 = 989e12
 PEAK_INT8 = 1979e12
+L2_BYTES = 50 * 2 ** 20
 # card vs CPU plain path on the same random-init ViT-B/16 (bf16 both):
 # per-row cosine of the features
 MIN_COSINE = 0.999
@@ -208,9 +222,14 @@ def _check(ok, what) -> None:
 
 @contextlib.contextmanager
 def _env(changes):
-    """Set the environment variables of ``changes`` for the block."""
+    """Set the environment variables of ``changes`` for the block (the
+    value "unset" removes the variable)."""
     old = {k: os.environ.get(k) for k in changes}
-    os.environ.update(changes)
+    for k, v in changes.items():
+        if v == "unset":
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
     try:
         yield
     finally:
@@ -229,6 +248,9 @@ def _gpu_line() -> str:
 
 
 def _time_ms(fn, iters=20, warmup=3) -> float:
+    """Mean wall time of ``fn`` on the card's clock (CUDA events around
+    ``iters`` calls from Python): host work included, as in the
+    end-to-end rates."""
     import torch
 
     for _ in range(warmup):
@@ -242,6 +264,65 @@ def _time_ms(fn, iters=20, warmup=3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _input_copies(inputs):
+    """``inputs`` and clones of its tensors, enough sets that together they
+    hold more than twice the 50 MB L2: a timed call rotating over them
+    finds its inputs in device memory, as the main path does."""
+    import torch
+
+    nbytes = sum(t.numel() * t.element_size() for t in inputs
+                 if isinstance(t, torch.Tensor))
+    n = min(64, max(1, math.ceil(2 * L2_BYTES / max(nbytes, 1))))
+    return [tuple(inputs)] + [
+        tuple(t.clone() if isinstance(t, torch.Tensor) else t for t in inputs)
+        for _ in range(n - 1)]
+
+
+@functools.cache
+def _capture_stream():
+    """The one stream of every timing warm-up and graph capture: cuBLAS
+    keeps a workspace per stream it has run on, for the whole process."""
+    import torch
+
+    return torch.cuda.Stream()
+
+
+def _graph_time_ms(fn, copies, reps=5) -> float:
+    """Device time of one call ``fn(*inputs)``: N calls, rotating over the
+    input ``copies``, captured in one CUDA graph and replayed between two
+    CUDA events, the median of ``reps`` replays divided by N.  N is 100,
+    or fewer calls that still hold 5 ms of work, never fewer than the
+    copies.  No host work (argument checks, allocation, the ctypes launch)
+    lies inside the interval."""
+    import torch
+
+    side = _capture_stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for c in copies[:3]:
+            fn(*c)
+    torch.cuda.current_stream().wait_stream(side)
+    est = _time_ms(lambda: fn(*copies[0]), iters=3, warmup=1)
+    n = max(len(copies), min(100, math.ceil(5.0 / max(est, 1e-3))))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for i in range(n):
+            fn(*copies[i % len(copies)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(reps):
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    del graph
+    return sorted(times)[reps // 2]
 
 
 def phase_setup():
@@ -309,12 +390,12 @@ def _yardstick(m, k, n, int8, dev):
     if int8:
         a = torch.randint(-127, 128, (m, k), dtype=torch.int8, device=dev)
         w = torch.randint(-127, 128, (k, n), dtype=torch.int8, device=dev)
-        ms = _time_ms(lambda: torch._int_mm(a, w))
+        ms = _graph_time_ms(torch._int_mm, _input_copies((a, w)))
         return f"torch._int_mm [{m},{k}]x[{k},{n}] int8", ms
     a = torch.randn(m, k, device=dev).to(torch.bfloat16)
     w = torch.randn(k, n, device=dev).to(torch.bfloat16)
     return (f"torch.matmul [{m},{k}]x[{k},{n}] bf16",
-            _time_ms(lambda: torch.matmul(a, w)))
+            _graph_time_ms(torch.matmul, _input_copies((a, w))))
 
 
 def _q8_case_weights(gen, k, m, hd, dev, layers=None):
@@ -419,10 +500,7 @@ def phase_kernels():
     # the int8 ports: one quantized ViT-B/16 layer, the 11 full layers of
     # the image tower, one quantized text layer
     q8v = _q8_case_weights(gen, k, m, k, dev)
-    q8_attn = (*q8v[:3], q8v[3:5], q8v[5])
-    q8_attn_qkv = (*q8v[:3], (wo,), q8v[5])
     q8t = _q8_case_weights(gen, kt, 4 * kt, kt, dev)
-    q8_attn_t = (*q8t[:3], q8t[3:5], q8t[5])
     q8_tower = _q8_case_weights(gen, k, m, k, dev, layers=11)
 
     # the stand-alone ops: unfolded LN params, a second residual operand,
@@ -452,148 +530,149 @@ def phase_kernels():
     text_layer_f = (2.0 * rows_t * kt * 3 * kt + 2.0 * rows_t * kt * kt
                     + 4.0 * rows_t * kt * 4 * kt)
     text_attn_f = _attn_flops(bt, st, 8, causal=True)
-    # (name, kernel, plain, inputs, int8 ops, bf16 FLOPs, yardstick shape)
+    # the ViT layer's qkv as the fused blocks pack it, [B, S, 3, H, D]: the
+    # strided flash entry reads q, k, v in place and writes [B, S, H, D]
+    qkv_packed = torch.randn(b, s, 3, 12, 64, generator=gen, device=dev).to(bf)
+
+    def packed_views(p):
+        return [p[:, :, i].transpose(1, 2) for i in range(3)]
+
+    def flash_packed(p):
+        out = torch.empty(b, s, 12, 64, dtype=bf, device=dev)
+        at._flash_attention_strided(*packed_views(p), out=out.transpose(1, 2))
+        return out
+
+    ln_bf = tuple(t.to(bf) for t in ln_v)   # F.layer_norm takes x's dtype
+
+    # (name, kernel(*inputs), plain(*inputs), inputs, int8 ops, bf16 FLOPs,
+    # yardstick shape[, library call(*inputs)])
     vit_qkv = (rows, k, 3 * k, False)
     vit_fc = (rows, k, m, False)
+
+    def q8_attn_call(fn, **kw):
+        # (x, wq, wsc, b_eff, woq, wosc, bo) or, with a bf16
+        # out-projection, (x, wq, wsc, b_eff, wo, bo)
+        return lambda x, wq, wsc, be, *rest: fn(x, wq, wsc, be, tuple(rest[:-1]),
+                                                rest[-1], **kw)
+
     cases = [
-        ("attn_block", lambda: attn_block(xv, *attn_v, heads=12),
-         lambda: attn_block_plain(xv, *attn_v, heads=12),
+        ("attn_block", lambda *a: attn_block(*a, heads=12),
+         lambda *a: attn_block_plain(*a, heads=12),
          (xv, *attn_v), 0, qkv_f + out_f + attn_f, vit_qkv),
         # K and V of every row, q, attention and out-projection of the CLS row
-        ("attn_block_cls", lambda: attn_block_cls(xv, *attn_v, heads=12),
-         lambda: attn_block_cls_plain(xv, *attn_v, heads=12),
+        ("attn_block_cls", lambda *a: attn_block_cls(*a, heads=12),
+         lambda *a: attn_block_cls_plain(*a, heads=12),
          (xv, *attn_v), 0,
          2.0 * rows * k * 2 * k + 4.0 * b * k * k + _attn_flops(b, s, 12, q_rows=1),
          vit_qkv),
-        ("mlp_block", lambda: mlp_block(xv, *mlp_v),
-         lambda: mlp_block_plain(xv, *mlp_v), (xv, *mlp_v), 0, mlp_f, vit_fc),
-        ("attn_block_causal",
-         lambda: attn_block(xt, *attn_t, heads=8, causal=True),
-         lambda: attn_block_plain(xt, *attn_t, heads=8, causal=True),
+        ("mlp_block", mlp_block, mlp_block_plain, (xv, *mlp_v), 0, mlp_f, vit_fc),
+        ("attn_block_causal", lambda *a: attn_block(*a, heads=8, causal=True),
+         lambda *a: attn_block_plain(*a, heads=8, causal=True),
          (xt, *attn_t), 0,
          2.0 * rows_t * kt * 4 * kt + text_attn_f, (rows_t, kt, 3 * kt, False)),
-        ("text_tower", lambda: text_tower(xt, *tower, heads=8),
-         lambda: text_tower_plain(xt, *tower, heads=8), (xt, *tower), 0,
+        ("text_tower", lambda *a: text_tower(*a, heads=8),
+         lambda *a: text_tower_plain(*a, heads=8), (xt, *tower), 0,
          12 * (text_layer_f + text_attn_f), (rows_t, kt, 4 * kt, False)),
-        ("attn_block_stash", lambda: fa.attn_block_stash(xv, *attn_v, heads=12),
-         lambda: fa.attn_block_stash_plain(xv, *attn_v, heads=12),
+        ("attn_block_stash", lambda *a: fa.attn_block_stash(*a, heads=12),
+         lambda *a: fa.attn_block_stash_plain(*a, heads=12),
          (xv, *attn_v), 0, qkv_f + out_f + attn_f, vit_qkv),
         # dattn = g . wo^T, the attention backward (the recomputed scores,
         # dP, dS . K, dS^T . Q and P^T . dO: 10 S^2 D per head), dxn
-        ("attn_block_bwd",
-         lambda: fa.attn_block_bwd(xv, g_v, qkv_v, w_eff, wo, heads=12),
-         lambda: fa.attn_block_bwd_plain(xv, g_v, qkv_v, w_eff, wo, heads=12),
+        ("attn_block_bwd", lambda *a: fa.attn_block_bwd(*a, heads=12),
+         lambda *a: fa.attn_block_bwd_plain(*a, heads=12),
          (xv, g_v, qkv_v, w_eff, wo), 0, out_f + 2.5 * attn_f + qkv_f, vit_qkv),
         # one live query row: dqkv is nonzero in K and V of every row and q
         # of the CLS row, so dxn is a [rows, 2K] x [2K, K] product
-        ("attn_block_cls_bwd",
-         lambda: fa.attn_block_cls_bwd(xv, g_c, qkv_c, w_eff, wo, heads=12),
-         lambda: fa.attn_block_cls_bwd_plain(xv, g_c, qkv_c, w_eff, wo,
-                                             heads=12),
+        ("attn_block_cls_bwd", lambda *a: fa.attn_block_cls_bwd(*a, heads=12),
+         lambda *a: fa.attn_block_cls_bwd_plain(*a, heads=12),
          (xv, g_c, qkv_c, w_eff, wo), 0,
          2.0 * rows * 2 * k * k + 4.0 * b * k * k
          + 2.5 * _attn_flops(b, s, 12, q_rows=1), (rows, k, 2 * k, False)),
-        ("mlp_block_stash", lambda: lm.mlp_block_stash(xv, *mlp_v),
-         lambda: lm.mlp_block_stash_plain(xv, *mlp_v), (xv, *mlp_v), 0, mlp_f,
-         vit_fc),
+        ("mlp_block_stash", lm.mlp_block_stash, lm.mlp_block_stash_plain,
+         (xv, *mlp_v), 0, mlp_f, vit_fc),
         # the recompute (the QKV product and the attention forward), then
         # the stash backward's work
         ("attn_block_bwd_recompute",
-         lambda: fa.attn_block_bwd_recompute(xv, g_v, *attn_v[:3], heads=12),
-         lambda: fa.attn_block_bwd_recompute_plain(xv, g_v, *attn_v[:3],
-                                                   heads=12),
+         lambda *a: fa.attn_block_bwd_recompute(*a, heads=12),
+         lambda *a: fa.attn_block_bwd_recompute_plain(*a, heads=12),
          (xv, g_v, *attn_v[:3]), 0, 2 * qkv_f + out_f + 3.5 * attn_f, vit_qkv),
         ("attn_block_bwd_recompute_causal",
-         lambda: fa.attn_block_bwd_recompute(xt, g_t, *attn_t[:3], heads=8,
-                                             causal=True),
-         lambda: fa.attn_block_bwd_recompute_plain(xt, g_t, *attn_t[:3],
-                                                   heads=8, causal=True),
+         lambda *a: fa.attn_block_bwd_recompute(*a, heads=8, causal=True),
+         lambda *a: fa.attn_block_bwd_recompute_plain(*a, heads=8, causal=True),
          (xt, g_t, *attn_t[:3]), 0,
          4.0 * rows_t * kt * 3 * kt + 2.0 * rows_t * kt * kt + 3.5 * text_attn_f,
          (rows_t, kt, 3 * kt, False)),
         # pre = xn . w1 and dxn = dpre . w1^T
-        ("mlp_bwd", lambda: lm.mlp_bwd(xv, dy_v, *mlp_bwd_v),
-         lambda: lm.mlp_bwd_plain(xv, dy_v, *mlp_bwd_v), (xv, dy_v, *mlp_bwd_v),
+        ("mlp_bwd", lm.mlp_bwd, lm.mlp_bwd_plain, (xv, dy_v, *mlp_bwd_v),
          0, mlp_f, vit_fc),
         # dy, pre, dxn, dw1 and dw2: five [rows] x [K] x [M] products
-        ("mlp_bwd_dw", lambda: lm.mlp_bwd_dw(xv, g_v, *mlp_bwd_v, wv["w2"]),
-         lambda: lm.mlp_bwd_dw_plain(xv, g_v, *mlp_bwd_v, wv["w2"]),
+        ("mlp_bwd_dw", lm.mlp_bwd_dw, lm.mlp_bwd_dw_plain,
          (xv, g_v, *mlp_bwd_v, wv["w2"]), 0, 2.5 * mlp_f, vit_fc),
-        ("attn_block_q8", lambda: q8.attn_block_q8(xv, *q8_attn, heads=12),
-         lambda: q8.attn_block_q8_plain(xv, *q8_attn, heads=12),
+        ("attn_block_q8", q8_attn_call(q8.attn_block_q8, heads=12),
+         q8_attn_call(q8.attn_block_q8_plain, heads=12),
          (xv, *q8v[:6]), qkv_f + out_f, attn_f, (rows, k, 3 * k, True)),
         ("attn_block_q8_qkv",
-         lambda: q8.attn_block_q8(xv, *q8_attn_qkv, heads=12, q8_out=False),
-         lambda: q8.attn_block_q8_plain(xv, *q8_attn_qkv, heads=12,
-                                        q8_out=False),
+         q8_attn_call(q8.attn_block_q8, heads=12, q8_out=False),
+         q8_attn_call(q8.attn_block_q8_plain, heads=12, q8_out=False),
          (xv, *q8v[:3], wo, q8v[5]), qkv_f, out_f + attn_f,
          (rows, k, 3 * k, True)),
         ("attn_block_q8_causal",
-         lambda: q8.attn_block_q8(xt, *q8_attn_t, heads=8, causal=True),
-         lambda: q8.attn_block_q8_plain(xt, *q8_attn_t, heads=8, causal=True),
+         q8_attn_call(q8.attn_block_q8, heads=8, causal=True),
+         q8_attn_call(q8.attn_block_q8_plain, heads=8, causal=True),
          (xt, *q8t[:6]), 2.0 * rows_t * kt * 4 * kt, text_attn_f,
          (rows_t, kt, 3 * kt, True)),
-        ("mlp_block_q8", lambda: q8.mlp_block_q8(xv, *q8v[6:]),
-         lambda: q8.mlp_block_q8_plain(xv, *q8v[6:]), (xv, *q8v[6:]), mlp_f, 0,
-         (rows, k, m, True)),
-        ("tower_q8", lambda: tq8.tower_q8(xv, *q8_tower, heads=12),
-         lambda: tq8.tower_q8_plain(xv, *q8_tower, heads=12), (xv, *q8_tower),
+        ("mlp_block_q8", q8.mlp_block_q8, q8.mlp_block_q8_plain,
+         (xv, *q8v[6:]), mlp_f, 0, (rows, k, m, True)),
+        ("tower_q8", lambda *a: tq8.tower_q8(*a, heads=12),
+         lambda *a: tq8.tower_q8_plain(*a, heads=12), (xv, *q8_tower),
          11 * (qkv_f + out_f + mlp_f), 11 * attn_f, (rows, k, m, True)),
         # the LN affine is applied in the kernel: nothing is folded per call
-        ("ln_matmul", lambda: lm.ln_matmul(xv, *ln_v, *qkv_w),
-         lambda: lm.ln_matmul_plain(xv, *ln_v, *qkv_w), (xv, *ln_v, *qkv_w), 0,
+        ("ln_matmul", lm.ln_matmul, lm.ln_matmul_plain, (xv, *ln_v, *qkv_w), 0,
          qkv_f, vit_qkv),
-        ("ln_matmul_2d",
-         lambda: lm.ln_matmul(x2d, *ln_v, *fc_w, activation="quick_gelu"),
-         lambda: lm.ln_matmul_plain(x2d, *ln_v, *fc_w, activation="quick_gelu"),
+        ("ln_matmul_2d", lambda *a: lm.ln_matmul(*a, activation="quick_gelu"),
+         lambda *a: lm.ln_matmul_plain(*a, activation="quick_gelu"),
          (x2d, *ln_v, *fc_w), 0, mlp_f / 2, vit_fc),
         ("ln_matmul_2d_gelu_exact",
-         lambda: lm.ln_matmul(x2d, *ln_v, *fc_w, activation="gelu_exact"),
-         lambda: lm.ln_matmul_plain(x2d, *ln_v, *fc_w, activation="gelu_exact"),
+         lambda *a: lm.ln_matmul(*a, activation="gelu_exact"),
+         lambda *a: lm.ln_matmul_plain(*a, activation="gelu_exact"),
          (x2d, *ln_v, *fc_w), 0, mlp_f / 2, vit_fc),
-        ("add_ln_matmul",
-         lambda: lm.add_ln_matmul(xv, delta_v, *ln_v, *fc_w, gelu=True),
-         lambda: lm.add_ln_matmul_plain(xv, delta_v, *ln_v, *fc_w,
-                                        activation="quick_gelu"),
+        ("add_ln_matmul", lambda *a: lm.add_ln_matmul(*a, gelu=True),
+         lambda *a: lm.add_ln_matmul_plain(*a, activation="quick_gelu"),
          (xv, delta_v, *ln_v, *fc_w), 0, mlp_f / 2, vit_fc),
-        ("ln_qkv_attention",
-         lambda: fa.ln_qkv_attention(xv, *ln_v, *qkv_w, heads=12),
-         lambda: fa.ln_qkv_attention_plain(xv, *ln_v, *qkv_w, heads=12),
+        ("ln_qkv_attention", lambda *a: fa.ln_qkv_attention(*a, heads=12),
+         lambda *a: fa.ln_qkv_attention_plain(*a, heads=12),
          (xv, *ln_v, *qkv_w), 0, qkv_f + attn_f, vit_qkv),
         ("ln_qkv_attention_causal",
-         lambda: fa.ln_qkv_attention(xt, *ln_t, *attn_t[:2], heads=8, causal=True),
-         lambda: fa.ln_qkv_attention_plain(xt, *ln_t, *attn_t[:2], heads=8,
-                                           causal=True),
+         lambda *a: fa.ln_qkv_attention(*a, heads=8, causal=True),
+         lambda *a: fa.ln_qkv_attention_plain(*a, heads=8, causal=True),
          (xt, *ln_t, *attn_t[:2]), 0,
          2.0 * rows_t * kt * 3 * kt + text_attn_f, (rows_t, kt, 3 * kt, False)),
-        ("layer_norm", lambda: layer_norm(xv, *ln_v),
-         lambda: layer_norm_plain(xv, *ln_v), (xv, *ln_v), 0, 0, (None,) * 4,
-         lambda: F.layer_norm(xv, (k,), ln_v[0].to(bf), ln_v[1].to(bf))),
-        ("layer_norm_f32", lambda: layer_norm(x32, *ln_v),
-         lambda: layer_norm_plain(x32, *ln_v), (x32, *ln_v), 0, 0, (None,) * 4,
-         lambda: F.layer_norm(x32, (k,), *ln_v)),
-        ("flash_attention", lambda: at.flash_attention(*qkv_197),
-         lambda: at.attention_plain(*qkv_197), qkv_197, 0,
-         _attn_flops(b, s, 12), (None,) * 4,
-         lambda: F.scaled_dot_product_attention(*qkv_197)),
-        ("flash_attention_2048", lambda: at.flash_attention(*qkv_2048),
-         lambda: at.attention_plain(*qkv_2048), qkv_2048, 0,
-         _attn_flops(8, 2048, 16), (None,) * 4,
-         lambda: F.scaled_dot_product_attention(*qkv_2048)),
+        ("layer_norm", layer_norm, layer_norm_plain, (xv, *ln_v), 0, 0,
+         (None,) * 4, lambda x, *_: F.layer_norm(x, (k,), *ln_bf)),
+        ("layer_norm_f32", layer_norm, layer_norm_plain, (x32, *ln_v), 0, 0,
+         (None,) * 4, lambda x, sc, bi: F.layer_norm(x, (k,), sc, bi)),
+        ("flash_attention", at.flash_attention, at.attention_plain, qkv_197, 0,
+         _attn_flops(b, s, 12), (None,) * 4, F.scaled_dot_product_attention),
+        ("flash_attention_2048", at.flash_attention, at.attention_plain,
+         qkv_2048, 0, _attn_flops(8, 2048, 16), (None,) * 4,
+         F.scaled_dot_product_attention),
         ("flash_attention_2048_causal",
-         lambda: at.flash_attention(*qkv_2048, causal=True),
-         lambda: at.attention_plain(*qkv_2048, causal=True), qkv_2048, 0,
+         lambda *a: at.flash_attention(*a, causal=True),
+         lambda *a: at.attention_plain(*a, causal=True), qkv_2048, 0,
          _attn_flops(8, 2048, 16, causal=True), (None,) * 4,
-         lambda: F.scaled_dot_product_attention(*qkv_2048, is_causal=True)),
-        ("flash_attention_d128", lambda: at.flash_attention(*qkv_d128),
-         lambda: at.attention_plain(*qkv_d128), qkv_d128, 0,
-         _attn_flops(8, 1024, 8, d=128), (None,) * 4,
-         lambda: F.scaled_dot_product_attention(*qkv_d128)),
+         lambda *a: F.scaled_dot_product_attention(*a, is_causal=True)),
+        ("flash_attention_d128", at.flash_attention, at.attention_plain,
+         qkv_d128, 0, _attn_flops(8, 1024, 8, d=128), (None,) * 4,
+         F.scaled_dot_product_attention),
+        ("flash_attention_packed", flash_packed,
+         lambda p: at.attention_plain(*packed_views(p)).transpose(1, 2),
+         (qkv_packed,), 0, _attn_flops(b, s, 12), (None,) * 4,
+         lambda p: F.scaled_dot_product_attention(*packed_views(p))),
     ]
     results = {}
     for name, kernel_fn, plain_fn, inputs, ops8, flops16, yard, *library in cases:
-        got = kernel_fn()
-        want = plain_fn()
+        got = kernel_fn(*inputs)
+        want = plain_fn(*inputs)
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
@@ -610,12 +689,13 @@ def phase_kernels():
             rels.append(e / scale)
         del want
         rel = max(rels)
-        ms = _time_ms(kernel_fn)
-        slow_plain = name == "tower_q8" or name.startswith("flash_attention_")
-        plain_ms = _time_ms(plain_fn, iters=5 if slow_plain else 20)
+        copies = _input_copies(inputs)
+        ms = _graph_time_ms(kernel_fn, copies)
+        plain_ms = _graph_time_ms(plain_fn, copies)
+        library_ms = _graph_time_ms(library[0], copies) if library else None
+        del copies
         bound_ms, bound_by = _bound(inputs, got, ops8, flops16)
         yard_call, yard_ms = _yardstick(*yard[:3], yard[3], dev)
-        library_ms = _time_ms(library[0]) if library else None
         print(f"[kernels] {name:20s} shapes {[tuple(a.shape) for a in got]} "
               f"max_abs_err {err:.5f} max_rel_err {rel:.5f} (bounds "
               f"{', '.join(f'{x:.1e}' for x in bounds)}; per output "
@@ -1219,8 +1299,8 @@ def phase_train(root, sizes):
     numbers = {"finetune_smoke_wall_s": frozen_wall,
                "finetune_smoke_full_wall_s": full_wall}
     recompute = {}
-    for mode, env in RECOMPUTE_MODES.items():
-        with _env(env):
+    for mode in ("kernel", "dw"):
+        with _env(RECOMPUTE_MODES[mode]):
             launches, wall, result = _finetune(root, "smoke_full", wrappers,
                                                f"experiments_recompute_{mode}")
         mlp_port = "mlp_bwd" if mode == "kernel" else "mlp_bwd_dw"
@@ -1248,18 +1328,23 @@ def phase_train(root, sizes):
           f"{row['mean_test_acc']:.4f} val {row['mean_val_acc']:.4f}")
 
     numbers.update(_card_vs_cpu_step("default"))
+    # with the stashes off: UML_MLP_BWD unset (row 19 on the card, the
+    # plain VJP on the CPU), then each value
+    with _env({**RECOMPUTE, "UML_MLP_BWD": "unset"}):
+        numbers.update(_card_vs_cpu_step("recompute_unset"))
     for mode, env in RECOMPUTE_MODES.items():
         with _env(env):
             numbers.update(_card_vs_cpu_step(f"recompute_{mode}"))
-    # (tag, environment, microbatch) at bs 64, then at bs 256
+    # (tag, environment, microbatch) at bs 64, then at bs 256; "unset"
+    # drops UML_MLP_BWD from the environment
     numbers.update(_train_step_rates(64, [
         ("stash", {}, None),
-        ("recompute_plain", RECOMPUTE, None),
+        ("recompute_plain", RECOMPUTE_MODES["plain"], None),
         ("recompute_kernel", RECOMPUTE_MODES["kernel"], None),
         ("recompute_dw", RECOMPUTE_MODES["dw"], None)]))
     numbers.update(_train_step_rates(256, [
-        ("gate_plain", {}, None),
-        ("gate_kernel", {"UML_MLP_BWD": "kernel"}, None),
+        ("gate_default", {"UML_MLP_BWD": "unset"}, None),
+        ("gate_plain", {"UML_MLP_BWD": "plain"}, None),
         ("gate_dw", {"UML_MLP_BWD": "dw"}, None),
         ("accum_2x128", {}, 128)]))
     # the non-fused branch trains too (its ops' backwards differentiate
@@ -1352,6 +1437,7 @@ def _train_step_rates(bsz, modes, iters=10, clip_kw=None):
     its phases and a profile."""
     import torch
 
+    from uml_tpu_torch.ops import ln_matmul as lm
     from uml_tpu_torch.train.accum import microbatched_step
     from uml_tpu_torch.train.optim import build_optimizer, build_schedule
 
@@ -1399,10 +1485,12 @@ def _train_step_rates(bsz, modes, iters=10, clip_kw=None):
             torch.cuda.reset_peak_memory_stats()
             marks = [[torch.cuda.Event(enable_timing=True) for _ in range(4)]
                      for _ in range(iters)]
+            lm.mlp_bwd.launches = lm.mlp_bwd_dw.launches = 0
             t0 = time.perf_counter()
             for m in marks:
                 step(m)
             torch.cuda.synchronize()
+            mlp_launches = (lm.mlp_bwd.launches, lm.mlp_bwd_dw.launches)
             ms = (time.perf_counter() - t0) / iters * 1e3
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
             rate = bsz / (ms / 1e3)
@@ -1415,10 +1503,16 @@ def _train_step_rates(bsz, modes, iters=10, clip_kw=None):
                   f"adamw; peak memory {peak:.2f} GiB)")
             print(f"[train] phases on the card's stream (CUDA events): forward "
                   f"{phases[0]:.3f} ms, backward {phases[1]:.3f} ms, adamw "
-                  f"{phases[2]:.3f} ms")
+                  f"{phases[2]:.3f} ms; launches over the {iters} steps: mlp_bwd "
+                  f"{mlp_launches[0]}, mlp_bwd_dw {mlp_launches[1]}")
+            if tag == "gate_default":
+                # F1: above the gate the default MLP backward is row 19
+                _check(mlp_launches[0] > 0 and mlp_launches[1] == 0,
+                       ("bs-256 default gate: mlp_bwd", mlp_launches))
             first = tag == "stash"
-            _profile(f"train step bs {bsz} {tag}", step, top=16 if first else 10,
-                     by_op=first)
+            _gemm_classes(f"train step bs {bsz} {tag}",
+                          _profile(f"train step bs {bsz} {tag}", step,
+                                   top=16 if first else 10, by_op=first))
         # the bs-64 stash step keeps the keys of the earlier runs
         key = f"bs{bsz}" if first else f"bs{bsz}_{tag}"
         numbers.update({f"train_step_ms_{key}": ms, f"train_img_per_s_{key}": rate,
@@ -1469,6 +1563,30 @@ def _profile(what, fn, reps=3, top=10, by_op=False):
         for key, t, count in sorted(ops, key=lambda r: -r[1])[:top]:
             print(f"[profile]   op {100 * t / busy:5.1f}%  {t / reps / 1e3:8.3f} ms"
                   f"  x{count // reps:<4d} {key}")
+    return rows
+
+
+def _gemm_classes(what, rows):
+    """The device time of a profile's library GEMM kernels (cuBLAS, CUTLASS;
+    not the port's ln_gemm / gemm_at) by the number format of their
+    products: TF32 and bf16 run on the tensor cores, fp32 as SIMT FMAs."""
+    busy = sum(t for _, t, _ in rows) or 1.0
+    shares = dict.fromkeys(("tf32", "bf16", "fp32 SIMT", "other"), 0.0)
+    for key, t, _ in rows:
+        name = key.lower()
+        if "gemm" not in name or "ln_gemm" in name or "gemm_at" in name:
+            continue
+        if "tf32" in name:
+            shares["tf32"] += t
+        elif "bf16" in name or "s16816" in name:
+            shares["bf16"] += t
+        elif "sgemm" in name or "f32f32_f32f32" in name or "simt" in name:
+            shares["fp32 SIMT"] += t
+        else:
+            shares["other"] += t
+    print(f"[profile] {what}: library GEMMs by product format, share of device "
+          f"time: " + ", ".join(f"{k} {100 * v / busy:.1f}%"
+                                for k, v in shares.items()))
 
 
 def main() -> int:

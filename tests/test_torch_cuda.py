@@ -1,6 +1,8 @@
 """The CUDA kernels of uml_tpu_torch on the card, against their plain
 PyTorch versions (bf16, small shapes: K=128, 2 heads of 64, S in {9, 17,
-197}; the streaming attention also at S=1030 and head dim 128).  Marked ``cuda``: they skip without an NVIDIA GPU (sm_90a) and
+197}; the streaming attention at S from 1 to 2048, head dims 64 and 128,
+also on strided views of a packed qkv; layer_norm at row counts up to
+40,000).  Marked ``cuda``: they skip without an NVIDIA GPU (sm_90a) and
 run on the card with ``python -m pytest tests/test_torch_cuda.py -q``.
 
 Bound: max |kernel - plain| <= 2^-6 * max|plain| (two bf16 ulps of the
@@ -416,9 +418,11 @@ def test_ln_qkv_attention_kernel(dev, s, causal):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape", [(5, 96), (B, 197, K), (3, 2, 7, 1024),
-                                   (9, 2056)])
+                                   (9, 2056), (12609, 768), (1057, 2048),
+                                   (2113, 8), (40000, 16)])
 def test_layer_norm_kernel(dev, shape, dtype):
-    """Rows kept in registers (K <= 2048) and re-read (K = 2056); fp32
+    """Rows kept in registers (K <= 2048) and re-read (K = 2056); row
+    counts from 5 to 40,000, not a multiple of the 4-row block; fp32
     within 1e-5 of the largest output, bf16 within one rounding."""
     from uml_tpu_torch.ops import layer_norm as layer_norm_op
     from uml_tpu_torch.ops.layer_norm import layer_norm_plain
@@ -437,11 +441,12 @@ def test_layer_norm_kernel(dev, shape, dtype):
     assert err <= rel * want.float().abs().max().item(), err
 
 
-@pytest.mark.parametrize("s", [9, 17, 197, 1030])
+@pytest.mark.parametrize("s", [1, 9, 17, 63, 64, 65, 129, 197, 1030, 2048])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_attention_kernel(dev, s, d, causal):
-    """Any S (a ragged last key tile, padded query rows), both head dims."""
+    """Any S (a ragged last key tile, padded query rows, one query tile or
+    many), both head dims."""
     from uml_tpu_torch.ops import attention as at
 
     q, k, v = (_g(dev, (2, 3, s, d), seed=7 + i) for i in range(3))
@@ -454,6 +459,34 @@ def test_flash_attention_kernel(dev, s, d, causal):
     auto = at.multi_head_attention(q, k, v, causal=causal)
     assert at.flash_attention.launches == n + 1 + (s >= at.FLASH_MIN_SEQ)
     _close(auto, got)
+
+
+@pytest.mark.parametrize("s", [1, 65, 197])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_strided_reads_packed_qkv_in_place(dev, s, d, causal):
+    """q, k, v as views of a packed [B, S, 3, H, D] qkv, the output written
+    into a [B, S, H, D] buffer: bit for bit the contiguous call's result."""
+    from uml_tpu_torch.ops import attention as at
+
+    heads = 3
+    qkv = _g(dev, (2, s, 3, heads, d), seed=11)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    attn = torch.full((2, s, heads, d), float("nan"), dtype=torch.bfloat16,
+                      device=dev)
+    n = at.flash_attention.launches
+    got = at._flash_attention_strided(q, k, v, causal=causal,
+                                      out=attn.transpose(1, 2))
+    assert at.flash_attention.launches == n + 1
+    assert got.data_ptr() == attn.data_ptr()
+    want = at.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                              causal=causal)
+    torch.cuda.synchronize()
+    assert torch.equal(attn.transpose(1, 2), want)
+    _close(want, at.attention_plain(q, k, v, causal=causal))
+    with pytest.raises(ValueError):     # the last axis strided
+        at._flash_attention_strided(*(_g(dev, (1, 1, 9, 128))[..., ::2]
+                                      for _ in range(3)))
 
 
 def test_stand_alone_ops_raise_on_what_the_kernels_do_not_take(dev):

@@ -378,3 +378,81 @@ def test_mlp_block_fn_matches_autograd_of_plain(monkeypatch, stash, mlp_bwd):
         elif mlp_bwd == "dw":
             want["mlp_bwd_dw"] = 1
     assert calls == want
+
+
+# -- the MLP backward's default on the card, TF32 plain VJPs (fault F1) -----
+
+def test_mlp_bwd_mode_defaults_to_the_kernel_on_the_card(monkeypatch):
+    """UML_MLP_BWD unset: row 19 ("kernel") for a tensor on the card, the
+    plain VJP (None) on the CPU; a value set is taken on both."""
+    from types import SimpleNamespace
+
+    card, cpu = SimpleNamespace(is_cuda=True), torch.zeros(1)
+    monkeypatch.delenv("UML_MLP_BWD", raising=False)
+    assert tlm.mlp_bwd_mode(card) == "kernel"
+    assert tlm.mlp_bwd_mode(cpu) is None
+    for mode in ("kernel", "dw", "plain"):
+        monkeypatch.setenv("UML_MLP_BWD", mode)
+        assert tlm.mlp_bwd_mode(card) == mode == tlm.mlp_bwd_mode(cpu)
+
+
+@pytest.mark.parametrize("flag", [False, True])
+def test_tf32_products_restore_the_global_flag(flag):
+    from uml_tpu_torch.ops._vjp import tf32_products
+
+    matmul = torch.backends.cuda.matmul
+    old = matmul.allow_tf32
+    try:
+        matmul.allow_tf32 = flag
+        with tf32_products(True):
+            assert matmul.allow_tf32
+        assert matmul.allow_tf32 is flag
+        with tf32_products(False):
+            assert matmul.allow_tf32 is flag
+        with pytest.raises(RuntimeError), tf32_products(True):
+            raise RuntimeError("inside")
+        assert matmul.allow_tf32 is flag
+    finally:
+        matmul.allow_tf32 = old
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plain_vjp_keeps_fp32_products_on_the_cpu(dtype):
+    """TF32 is for bf16 activations on the card only: a CPU tensor of
+    either dtype runs its plain VJP with the global flag as it is."""
+    from uml_tpu_torch.ops._vjp import plain_vjp
+
+    seen = []
+
+    def fn(x, w):
+        seen.append(torch.backends.cuda.matmul.allow_tf32)
+        return x.float() @ w
+
+    x = torch.ones(2, 3, dtype=dtype)
+    w = torch.ones(3, 4)
+    gx, gw = plain_vjp(fn, (x, w), (torch.ones(2, 4),), (True, True))
+    assert seen == [torch.backends.cuda.matmul.allow_tf32]
+    assert gx.dtype == dtype and gw.shape == (3, 4)
+
+
+@pytest.mark.parametrize("mlp_bwd", [None, "plain"])
+def test_mlp_block_fn_plain_backward_matches_jax_vjp(monkeypatch, mlp_bwd):
+    """With the stash off, the CPU's default backward (and UML_MLP_BWD=
+    plain anywhere) is the plain VJP: its five gradients against jax.vjp
+    of uml_tpu's _mlp_block (whose CPU backward is the VJP of its jnp
+    twin), fp32 at the file's bound."""
+    monkeypatch.setenv("UML_MLP_STASH", "0")
+    if mlp_bwd is None:
+        monkeypatch.delenv("UML_MLP_BWD", raising=False)
+    else:
+        monkeypatch.setenv("UML_MLP_BWD", mlp_bwd)
+    calls = _spy(monkeypatch, tlm, ("mlp_bwd", "mlp_bwd_dw"))
+    jw, tw = _inputs(404, 17, "fp32")
+    _, vjp = jax.vjp(lambda *a: jlm._mlp_block(*a, 1e-5, "quick_gelu"),
+                     jw["x"], *_mlp_args(jw))
+    want = vjp(jw["g"])
+    leaves = [tw["x"].requires_grad_(), *(t.requires_grad_() for t in _mlp_args(tw))]
+    tlm.MlpBlockFn.apply(*leaves, 1e-5).backward(tw["g"])
+    for name, leaf, w in zip(("x", "w1", "b1", "w2", "b2"), leaves, want):
+        _close(leaf.grad, w, "fp32", name)
+    assert calls == {"mlp_bwd": 0, "mlp_bwd_dw": 0}

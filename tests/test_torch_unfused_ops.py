@@ -275,6 +275,18 @@ def test_layer_norm_grads_match_jax(impl):
         _close(a.grad, w, GRAD_TOL, GRAD_TOL)
 
 
+def test_layer_norm_takes_bf16_scale_and_bias():
+    """bf16 scale and bias give the output of their fp32 values."""
+    rng = np.random.default_rng(11)
+    x = torch.tensor(rng.standard_normal((3, 5, 64)).astype(np.float32))
+    scale = torch.tensor((1 + 0.1 * rng.standard_normal(64)).astype(np.float32))
+    bias = torch.tensor((0.1 * rng.standard_normal(64)).astype(np.float32))
+    want = tops.layer_norm(x, scale, bias)
+    got = tops.layer_norm(x, scale.bfloat16().float(), bias.bfloat16().float())
+    assert got.shape == want.shape
+    _close(tops.layer_norm(x, scale.bfloat16(), bias.bfloat16()), got, 0.0)
+
+
 def test_supports_layer_norm():
     assert supports_layer_norm(768, torch.bfloat16)
     assert supports_layer_norm(4096, torch.float32)

@@ -24,8 +24,9 @@ default: the attention halves stash qkv and the attention output; "0":
 they recompute them in the backward), ``UML_MLP_STASH`` ("auto", the
 default: the MLP halves stash their pre-activation while one layer's
 stash stays under 256 MiB; "1" / "0" force it) and, with the MLP stash
-off, ``UML_MLP_BWD`` (unset: the plain VJP; "kernel" or "dw": the MLP
-backward kernels).  ``--strict_reference_parity`` freezes exactly as
+off, ``UML_MLP_BWD`` ("kernel" or "dw": the MLP backward kernels; any
+other value: the plain VJP; unset: "kernel" on the card, the plain VJP
+on the CPU).  ``--strict_reference_parity`` freezes exactly as
 the reference does (only for ``linear``).
 
 ``test_result.pth["model"]`` holds the head leaves under uml_tpu's names

@@ -1,266 +1,387 @@
 // uml_flash_attention: softmax(q k^T / sqrt(D)) v with an online softmax,
-// q, k, v, out [B, H, S, D] bf16, D 64 or 128, any S, causal or not.
+// q, k, v, out [B, H, S, D] views with any batch, head and row strides (the
+// last axis contiguous), bf16, D 64 or 128, any S, causal or not.
 //
-// Replaces uml_tpu/ops/attention.py::_flash_kernel.  One block per
-// (batch*head, 64-query tile); K and V stream through shared memory in
-// 64-key tiles, so shared memory does not grow with S (attention.cuh keeps
-// a whole head's K/V there and stops at S = 400).  Four warps, each owning
-// 16 query rows: per key tile a warp computes its 16 x 64 scores on the
-// tensor cores (nvcuda::wmma bf16, fp32 accumulation), updates the rows'
-// running max m and sum l in fp32, rounds P = exp(s - m) to bf16 and adds
-// P . V to the output accumulators, which stay in registers as wmma
-// fragments.  The accumulators are rescaled by exp(m_old - m_new) through a
-// 16 x 16 fragment loaded from a tile holding that factor per row (two
-// accumulator fragments of one type map elements to threads alike, so the
-// product is elementwise).  At the end out = acc / max(l, 1e-30)
-// (attention.py:147).
+// Replaces uml_tpu/ops/attention.py::_flash_kernel.  What bounds it on the
+// H100: per (batch, head) it reads q, k, v and writes out once (4 S D 2
+// bytes) for 4 S^2 D FLOPs (half when causal), S/4 FLOP per byte: the
+// bytes at S = 197 ([64,12,197,64]: 77.5 MB, 23 us), the tensor cores from
+// S ~ 1200 up ([8,16,2048,64]: 137 GFLOP, 139 us at 989 TFLOP/s).  So the
+// products have to run at the wgmma rate and nothing may stall them:
 //
-// Masking as the TPU kernel's (attention.py:119-122): key columns >= S and,
-// when causal, columns above the diagonal contribute nothing; a causal
-// block stops at its diagonal tile (query and key tiles are both 64 wide,
-// so that is tile blockIdx.y), the skip of attention.py:136-141.  Padded
-// query rows (>= S) are computed on zeros and never written.  The TPU
-// kernel pads S to 128 and keeps P in fp32; here the ragged last tile is
-// masked in place and P is bf16, as in mha_plain and attention.cuh.
+// * One block per (batch*head, 128-query tile), three warpgroups' worth of
+//   roles: two consumer warpgroups of 64 query rows each, one producer
+//   warp.  The producer issues TMA loads (cp.async.bulk.tensor, 128-byte
+//   swizzle) of Q once and of K/V tiles into a ring of FA_STAGES stages,
+//   each stage with a "full" mbarrier (TMA bytes landed) and an "empty"
+//   one (both consumers done), so tile t+1.. load while tile t computes.
+//   TMA's zero fill covers the ragged last tile and the query rows >= S;
+//   the masks still apply.  The tensor maps carry the strides, so a packed
+//   qkv [B, S, 3, H, D] is read in place.
+// * S = Q K^T is one wgmma chain per key tile (m64nBKk16, Q and K from
+//   shared memory, K-major both), the fp32 scores in registers.
+// * The softmax runs on those registers: in the wgmma accumulator layout a
+//   thread holds two fixed rows, so a row max or sum is a thread-local
+//   reduction and two __shfl_xor within the quad; the rescale by
+//   exp(m_old - m_new) multiplies the thread's own output registers.
+//   exp2 with log2(e) folded into the scale.
+// * O += P V is a second wgmma chain with P as the register A operand,
+//   converted in place from the score fragment to bf16 (the accumulator
+//   and A fragments map rows and columns to threads alike), and V from
+//   shared memory MN-major.  No score, P or factor tile touches shared
+//   memory.
+// * The softmax costs about as much as the products (an exp per score on
+//   the special-function unit), so it must overlap them: iteration t
+//   issues S(t) and P(t-1) V(t-1) together and computes the softmax of
+//   tile t while P V runs, and the two warpgroups take turns at issuing
+//   (named barriers), so one's softmax runs under the other's products.
+// * Key tile: 128 keys at D = 64, 64 at D = 128 (scores 64xBK and output
+//   64xD fp32 per warpgroup, P as bf16: ~130 registers a thread either way).
 //
-// What bounds it on the H100: per (batch, head) it reads q, k, v and writes
-// out once (4 S D 2 bytes) for 4 S^2 D FLOPs (half when causal): S/4
-// FLOP/byte, so bytes at S = 197 (77.5 MB at B=64, H=12: 23 us) and the
-// tensor cores from S ~ 1200 up (137 GFLOP at B=8, H=16, S=2048: 139 us).
-// This first version is single-buffered (load tile, barrier, compute,
-// barrier) and re-reads K/V once per query tile from L2.
+// Numerics as attention.py:90-147 and attention_plain: fp32 scores and
+// statistics, key columns >= S (and, causal, above the diagonal) masked,
+// P rounded to bf16 before P.V, l the sum of the unrounded P, out = acc /
+// max(l, 1e-30).  A row with no valid key yet keeps m = -inf, l = 0, P = 0.
+// The causal block skip of attention.py:136-141: a block stops at the key
+// tile of its last row (at D = 128 the first warpgroup also takes that
+// tile, all masked, to keep the turns of the two in step); causal blocks
+// start heavy tiles first (the last query tile is scheduled first).
 
+#include <cuda.h>  // CUtensorMap and the encoder's types, no symbol of libcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
-#include <mma.h>
 #include <stdint.h>
+
+#include <initializer_list>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int FA_BQ = 64;        // query rows per block
-constexpr int FA_BK = 64;        // keys per streamed tile
-constexpr int FA_THREADS = 128;  // 4 warps x 16 query rows
-constexpr int FA_WARPS = FA_THREADS / 32;
-constexpr int FA_LDS = FA_BK + 4;  // fp32 scores, per warp [16][FA_LDS]
-constexpr int FA_LDP = FA_BK + 8;  // bf16 P, per warp [16][FA_LDP]
+constexpr int FA_BQ = 128;                      // query rows per block
+constexpr int FA_CONSUMERS = 256;               // two warpgroups x 64 rows
+constexpr int FA_THREADS = FA_CONSUMERS + 32;   // + the producer warp
+constexpr int FA_STAGES = 4;                    // K/V ring depth (2 and 3 measured slower)
 
 template <int D>
-struct FaSmem {
-  static constexpr int LDQ = D + 8;      // bf16 row stride of the Q, K, V tiles
-  static constexpr int LDO = D + 4;      // fp32 row stride of the output staging
-  static constexpr int STAGE = 16 * (LDO > FA_LDS ? LDO : FA_LDS);  // floats per warp
-  static constexpr size_t BYTES =
-      (size_t)(FA_BQ + 2 * FA_BK) * LDQ * 2   // Q, K, V tiles
-      + (size_t)FA_WARPS * STAGE * 4          // scores, later the output staging
-      + (size_t)FA_WARPS * 16 * FA_LDP * 2    // P
-      + (size_t)FA_WARPS * 16 * 16 * 4        // per-row factor tiles
-      + (size_t)2 * FA_BQ * 4;                // m, l
+struct FaCfg {
+  static constexpr int BK = D == 64 ? 128 : 64;  // keys per tile
+  static constexpr int PANELS = D / 64;          // 128-byte column panels of a row
+  static constexpr int Q_PANEL = FA_BQ * 128;    // bytes of one panel of the Q tile
+  static constexpr int KV_PANEL = BK * 128;      // ... of a K or V tile
+  static constexpr int Q_BYTES = Q_PANEL * PANELS;
+  static constexpr int KV_BYTES = KV_PANEL * PANELS;
+  // the base is aligned up to 1024 bytes (the swizzle atom) in the kernel
+  static constexpr size_t SMEM = 1024 + Q_BYTES + (size_t)FA_STAGES * 2 * KV_BYTES
+                                 + 8 * (2 * FA_STAGES + 1);
 };
 
-template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(FA_THREADS)
-flash_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                       int S, float scale) {
-  using namespace nvcuda;
-  using Sm = FaSmem<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Ks = Qs + FA_BQ * Sm::LDQ;
-  __nv_bfloat16* Vs = Ks + FA_BK * Sm::LDQ;
-  float* stage = reinterpret_cast<float*>(Vs + FA_BK * Sm::LDQ);
-  __nv_bfloat16* Ps = reinterpret_cast<__nv_bfloat16*>(stage + FA_WARPS * Sm::STAGE);
-  float* factor = reinterpret_cast<float*>(Ps + FA_WARPS * 16 * FA_LDP);
-  float* row_m = factor + FA_WARPS * 16 * 16;
-  float* row_l = row_m + FA_BQ;
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  // batch*head on grid.x (no 65535 cap), query tiles on grid.y
-  const long long head = (long long)blockIdx.x * S * D;
-  const int q0 = blockIdx.y * FA_BQ;
-  const __nv_bfloat16* qh = q + head;
-  const __nv_bfloat16* kh = k + head;
-  const __nv_bfloat16* vh = v + head;
-  constexpr int CPR = D / 8;  // 16-byte chunks per row
-
-  for (int idx = tid; idx < FA_BQ * CPR; idx += FA_THREADS) {
-    const int r = idx / CPR, c = (idx % CPR) * 8;
-    uint4 qv = make_uint4(0, 0, 0, 0);
-    if (q0 + r < S) qv = *reinterpret_cast<const uint4*>(qh + (long long)(q0 + r) * D + c);
-    *reinterpret_cast<uint4*>(Qs + r * Sm::LDQ + c) = qv;
-  }
-  if (tid < FA_BQ) {
-    row_m[tid] = -CUDART_INF_F;
-    row_l[tid] = 0.f;
-  }
-
-  // the warp's 16 query rows: tile rows wr .. wr+15; a warp with no live
-  // row still loads tiles and meets the barriers, but computes nothing
-  const int wr = warp * 16;
-  const bool live = q0 + wr < S;
-  float* Sw = stage + warp * Sm::STAGE;
-  __nv_bfloat16* Pw = Ps + warp * 16 * FA_LDP;
-  float* Fw = factor + warp * 16 * 16;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[D / 16];
+template <int D>
+__device__ __forceinline__ void scores_mma(float (&s)[FaCfg<D>::BK / 2], uint32_t q,
+                                           uint32_t k) {
+  using C = FaCfg<D>;
 #pragma unroll
-  for (int c = 0; c < D / 16; ++c) wmma::fill_fragment(acc[c], 0.f);
-
-  const int tiles_all = (S + FA_BK - 1) / FA_BK;
-  const int n_tiles = CAUSAL ? min(tiles_all, (int)blockIdx.y + 1) : tiles_all;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * FA_BK;
-    __syncthreads();  // the previous tile's K/V are no longer read (and Q, m, l are set)
-    for (int idx = tid; idx < FA_BK * CPR; idx += FA_THREADS) {
-      const int r = idx / CPR, c = (idx % CPR) * 8;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-      if (k0 + r < S) {
-        kv = *reinterpret_cast<const uint4*>(kh + (long long)(k0 + r) * D + c);
-        vv = *reinterpret_cast<const uint4*>(vh + (long long)(k0 + r) * D + c);
-      }
-      *reinterpret_cast<uint4*>(Ks + r * Sm::LDQ + c) = kv;
-      *reinterpret_cast<uint4*>(Vs + r * Sm::LDQ + c) = vv;
-    }
-    __syncthreads();
-    if (!live) continue;
-
-    // scores of the warp's rows against the tile's 64 keys
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sc[FA_BK / 16];
-#pragma unroll
-      for (int n = 0; n < FA_BK / 16; ++n) wmma::fill_fragment(sc[n], 0.f);
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fq;
-        wmma::load_matrix_sync(fq, Qs + wr * Sm::LDQ + 16 * kk, Sm::LDQ);
-#pragma unroll
-        for (int n = 0; n < FA_BK / 16; ++n) {
-          // K^T as a column-major B operand is K row-major
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fk;
-          wmma::load_matrix_sync(fk, Ks + 16 * n * Sm::LDQ + 16 * kk, Sm::LDQ);
-          wmma::mma_sync(sc[n], fq, fk, sc[n]);
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < FA_BK / 16; ++n)
-        wmma::store_matrix_sync(Sw + 16 * n, sc[n], FA_LDS, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // online softmax, a row at a time: lane owns key columns lane, lane + 32
-    for (int rr = 0; rr < 16; ++rr) {
-      const int qi = q0 + wr + rr;
-      float sv[2];
-      float mx = -CUDART_INF_F;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int j = k0 + lane + 32 * h;
-        const bool valid = j < S && (!CAUSAL || j <= qi);
-        sv[h] = valid ? Sw[rr * FA_LDS + lane + 32 * h] * scale : -CUDART_INF_F;
-        mx = fmaxf(mx, sv[h]);
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_old = row_m[wr + rr];
-      const float m_new = fmaxf(m_old, mx);
-      // a row with no valid key so far keeps m = -inf, l = 0 and P = 0
-      const float alpha = (m_new == -CUDART_INF_F) ? 1.f : expf(m_old - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float p = (sv[h] == -CUDART_INF_F) ? 0.f : expf(sv[h] - m_new);
-        Pw[rr * FA_LDP + lane + 32 * h] = __float2bfloat16(p);
-        psum += p;
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) psum += __shfl_xor_sync(0xffffffffu, psum, o);
-      __syncwarp();  // every lane has read m before lane 0 replaces it
-      if (lane == 0) {
-        row_m[wr + rr] = m_new;
-        row_l[wr + rr] = row_l[wr + rr] * alpha + psum;
-      }
-      if (lane < 16) Fw[rr * 16 + lane] = alpha;
-    }
-    __syncwarp();
-
-    // acc = acc * alpha (per row) + P . V
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> fa;
-      wmma::load_matrix_sync(fa, Fw, 16, wmma::mem_row_major);
-#pragma unroll
-      for (int c = 0; c < D / 16; ++c)
-#pragma unroll
-        for (int i = 0; i < fa.num_elements; ++i) acc[c].x[i] *= fa.x[i];
-#pragma unroll
-      for (int kt = 0; kt < FA_BK / 16; ++kt) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fp;
-        wmma::load_matrix_sync(fp, Pw + 16 * kt, FA_LDP);
-#pragma unroll
-        for (int c = 0; c < D / 16; ++c) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fv;
-          wmma::load_matrix_sync(fv, Vs + 16 * kt * Sm::LDQ + 16 * c, Sm::LDQ);
-          wmma::mma_sync(acc[c], fp, fv, acc[c]);
-        }
-      }
-    }
-    __syncwarp();  // P, the scores and the factor tile are free for the next tile
-  }
-  if (!live) return;
-
-  // out = acc / max(l, 1e-30): staged through shared memory, 8 columns a lane
-#pragma unroll
-  for (int c = 0; c < D / 16; ++c)
-    wmma::store_matrix_sync(Sw + 16 * c, acc[c], Sm::LDO, wmma::mem_row_major);
-  __syncwarp();
-  for (int idx = lane; idx < 16 * CPR; idx += 32) {
-    const int rr = idx / CPR, c = (idx % CPR) * 8;
-    const int qi = q0 + wr + rr;
-    if (qi >= S) continue;
-    const float inv = 1.f / fmaxf(row_l[wr + rr], 1e-30f);
-    union {
-      uint4 u;
-      __nv_bfloat16 h[8];
-    } o;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) o.h[j] = __float2bfloat16(Sw[rr * Sm::LDO + c + j] * inv);
-    *reinterpret_cast<uint4*>(out + head + (long long)qi * D + c) = o.u;
+  for (int kk = 0; kk < D / 16; ++kk) {
+    // 16 columns of D: panel kk/4, 32 bytes into its swizzled rows
+    const uint32_t off_q = (kk / 4) * C::Q_PANEL + (kk % 4) * 32;
+    const uint32_t off_k = (kk / 4) * C::KV_PANEL + (kk % 4) * 32;
+    const uint64_t da = wgmma_desc(q + off_q, 16, 1024);
+    const uint64_t db = wgmma_desc(k + off_k, 16, 1024);
+    if constexpr (C::BK == 128)
+      wgmma_ss_n128(s, da, db, kk > 0);
+    else
+      wgmma_ss_n64(s, da, db, kk > 0);
   }
 }
 
 template <int D>
-cudaError_t launch_flash(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-                         __nv_bfloat16* out, long long BH, int S, bool causal,
-                         cudaStream_t stream) {
-  const int q_tiles = (S + FA_BQ - 1) / FA_BQ;
-  if (BH < 1 || BH > 2147483647LL || S < 1 || q_tiles > 65535) return cudaErrorInvalidValue;
-  const dim3 grid((unsigned)BH, q_tiles);
-  const int smem = (int)FaSmem<D>::BYTES;
-  const float scale = D == 64 ? 0.125f : 0.08838834764831845f;  // 1 / sqrt(D)
-  if (causal) {
-    cudaFuncSetAttribute(flash_attention_kernel<D, true>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    flash_attention_kernel<D, true><<<grid, FA_THREADS, smem, stream>>>(q, k, v, out, S, scale);
-  } else {
-    cudaFuncSetAttribute(flash_attention_kernel<D, false>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    flash_attention_kernel<D, false><<<grid, FA_THREADS, smem, stream>>>(q, k, v, out, S, scale);
+__device__ __forceinline__ void pv_mma(float (&o)[D / 2],
+                                       const uint32_t (&p)[FaCfg<D>::BK / 16][4],
+                                       uint32_t v) {
+  using C = FaCfg<D>;
+#pragma unroll
+  for (int kk = 0; kk < C::BK / 16; ++kk) {
+    // 16 key rows of V (2048 bytes); N = D spans PANELS panels
+    const uint64_t db = wgmma_desc(v + kk * 16 * 128, C::KV_PANEL, 1024);
+    if constexpr (D == 64)
+      wgmma_rs_n64(o, p[kk], db);
+    else
+      wgmma_rs_n128(o, p[kk], db);
   }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(FA_THREADS, 1)
+flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
+                       int H, int S, long long o_b, long long o_h, long long o_r,
+                       float scale_log2) {
+  using C = FaCfg<D>;
+  constexpr int BK = C::BK;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base;
+  const uint32_t sKV = sQ + C::Q_BYTES;  // stage s: K at sKV + 2 s KV_BYTES, V after it
+  const uint32_t sBar = sKV + FA_STAGES * 2 * C::KV_BYTES;
+  const uint32_t q_bar = sBar + 8 * 2 * FA_STAGES;
+  // full[s] at sBar + 8 s, empty[s] at sBar + 8 (FA_STAGES + s)
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int qt = CAUSAL ? (int)gridDim.y - 1 - (int)blockIdx.y : (int)blockIdx.y;
+  const int q0 = qt * FA_BQ;
+  const int tiles_all = (S + BK - 1) / BK;
+  const int n_tiles = CAUSAL ? min(tiles_all, (q0 + FA_BQ - 1) / BK + 1) : tiles_all;
+
+  if (tid == 0) {
+    for (int s = 0; s < FA_STAGES; ++s) {
+      mbar_init(sBar + 8 * s, 1);
+      mbar_init(sBar + 8 * (FA_STAGES + s), FA_CONSUMERS);
+    }
+    mbar_init(q_bar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= FA_CONSUMERS) {
+    // the producer warp: one lane issues every copy
+    if (tid == FA_CONSUMERS) {
+      mbar_arrive_expect_tx(q_bar, C::Q_BYTES);
+      for (int p = 0; p < C::PANELS; ++p)
+        tma_load_4d(sQ + p * C::Q_PANEL, &tq, q_bar, 64 * p, q0, h, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % FA_STAGES;
+        mbar_wait(sBar + 8 * (FA_STAGES + s), ((t / FA_STAGES) & 1) ^ 1);
+        const uint32_t full = sBar + 8 * s;
+        const uint32_t k_dst = sKV + s * 2 * C::KV_BYTES;
+        mbar_arrive_expect_tx(full, 2 * C::KV_BYTES);
+        for (int p = 0; p < C::PANELS; ++p) {
+          tma_load_4d(k_dst + p * C::KV_PANEL, &tk, full, 64 * p, t * BK, h, b);
+          tma_load_4d(k_dst + C::KV_BYTES + p * C::KV_PANEL, &tv, full, 64 * p, t * BK, h, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: rows q0 + 64 wg .. + 63 of the block's tile.
+  // Iteration t issues S(t) = Q K(t)^T and O += P(t-1) V(t-1) back to back,
+  // then runs the softmax of tile t while P V still runs; the two
+  // warpgroups take turns at issuing (named barriers 1 and 2), so one's
+  // softmax overlaps the other's products.
+  const int wg = tid / 128;
+  const int lane = tid & 31;
+  const int row0 = q0 + wg * 64 + ((tid % 128) / 32) * 16 + (lane >> 2);  // and row0 + 8
+  const int col0 = 2 * (lane & 3);
+  const int wg_first = q0 + wg * 64;
+  const uint32_t q_wg = sQ + wg * 64 * 128;  // the warpgroup's rows in each panel
+  auto stage_kv = [&](int t) { return sKV + (t % FA_STAGES) * 2 * C::KV_BYTES; };
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  // m in log2 units (the scores times scale_log2); alpha rescales O to the
+  // newest m before the next P V
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f}, alpha[2] = {1.f, 1.f};
+  uint32_t pa[BK / 16][4];
+  float sc[BK / 2];
+  mbar_wait(q_bar, 0);
+  if (wg == 1) named_bar_arrive(1, FA_CONSUMERS);  // warpgroup 0 issues first
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * BK;
+    mbar_wait(sBar + 8 * (t % FA_STAGES), (t / FA_STAGES) & 1);
+    named_bar_sync(1 + wg, FA_CONSUMERS);
+    wgmma_fence();
+    scores_mma<D>(sc, q_wg, stage_kv(t));
+    wgmma_commit();
+    if (t > 0) {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+      wgmma_fence_regs(o);
+      wgmma_fence();
+      pv_mma<D>(o, pa, stage_kv(t - 1) + C::KV_BYTES);
+      wgmma_commit();
+    }
+    if (wg == 1 ? t + 1 < n_tiles : true) named_bar_arrive(2 - wg, FA_CONSUMERS);
+    if (t > 0)
+      wgmma_wait<1>();  // S(t) done; P(t-1) V(t-1) may still run
+    else
+      wgmma_wait<0>();
+    wgmma_fence_regs(sc);
+
+    // mask (edge tiles only), row max over the thread's columns
+    if (k0 + BK > S || (CAUSAL && k0 + BK - 1 > wg_first)) {
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        const int col = k0 + 8 * (i / 4) + col0 + (i & 1);
+        const int row = row0 + 8 * ((i >> 1) & 1);
+        if (col >= S || (CAUSAL && col > row)) sc[i] = -CUDART_INF_F;
+      }
+    }
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+    float m_use[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r] * scale_log2);
+      // a row with no valid key so far: m stays -inf, P = 0, l = 0
+      m_use[r] = m_new == -CUDART_INF_F ? 0.f : m_new;
+      alpha[r] = ex2_approx(m[r] - m_use[r]);
+      m[r] = m_new;
+    }
+    // P = 2^(s scale_log2 - m); l sums the fp32 P (over the thread's
+    // columns: the quad's partial sums are added once, at the end)
+    float ps[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const int r = (i >> 1) & 1;
+      sc[i] = ex2_approx(fmaf(sc[i], scale_log2, -m_use[r]));
+      ps[r] += sc[i];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + ps[r];
+
+    wgmma_wait<0>();  // P(t-1) V(t-1) done: its registers and stage are free
+    wgmma_fence_regs(o);
+    if (t > 0) mbar_arrive(sBar + 8 * (FA_STAGES + (t - 1) % FA_STAGES));
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) pa[kk][j] = pack_bf16(sc[8 * kk + 2 * j], sc[8 * kk + 2 * j + 1]);
+  }
+  // the last tile's P V
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+  wgmma_fence_regs(o);
+  wgmma_fence();
+  pv_mma<D>(o, pa, stage_kv(n_tiles - 1) + C::KV_BYTES);
+  wgmma_commit();
+  wgmma_wait<0>();
+  wgmma_fence_regs(o);
+  mbar_arrive(sBar + 8 * (FA_STAGES + (n_tiles - 1) % FA_STAGES));
+
+  // out = acc / max(l, 1e-30), two bf16 a store, rows < S only
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = row0 + 8 * r;
+    if (row >= S) continue;
+    const float inv = 1.f / fmaxf(l[r], 1e-30f);
+    __nv_bfloat16* orow = out + b * o_b + h * o_h + row * o_r + col0;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+          __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+  }
+}
+
+// -- host --------------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda, which the CUDA runtime has already
+// loaded: the library links no -lcuda
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a [B, H, S, D] bf16 view (strides in elements) as a 4-d tensor map of
+// (D, S, H, B), boxes of 64 columns x box_rows rows, 128-byte swizzle;
+// out-of-bounds rows read as zeros
+bool make_map(CUtensorMap* map, const void* ptr, long long B, int H, int S, int D,
+              long long sb, long long sh, long long sr, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sr * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D, bool CAUSAL>
+cudaError_t launch_flash(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+                         __nv_bfloat16* out, long long B, int H, int S, long long o_b,
+                         long long o_h, long long o_r, cudaStream_t stream) {
+  const int smem = (int)FaCfg<D>::SMEM;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_attention_kernel<D, CAUSAL>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((unsigned)(B * H), (unsigned)((S + FA_BQ - 1) / FA_BQ));
+  // 1 / sqrt(D) and log2(e) in one factor
+  const float scale_log2 = (D == 64 ? 0.125f : 0.08838834764831845f) * 1.4426950408889634f;
+  flash_attention_kernel<D, CAUSAL><<<grid, FA_THREADS, smem, stream>>>(
+      tq, tk, tv, out, H, S, o_b, o_h, o_r, scale_log2);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// q, k, v, out: [B, H, S, D] bf16 views; *_b, *_h, *_r their batch, head
+// and row strides in elements (multiples of 8; the last axis contiguous;
+// every pointer 16-byte aligned)
 extern "C" int uml_flash_attention(const void* q, const void* k, const void* v, void* out,
-                                   long long BH, int S, int D, int causal, void* stream) {
-  const __nv_bfloat16* qp = static_cast<const __nv_bfloat16*>(q);
-  const __nv_bfloat16* kp = static_cast<const __nv_bfloat16*>(k);
-  const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(v);
+                                   long long B, int H, int S, int D, int causal,
+                                   long long q_b, long long q_h, long long q_r, long long k_b,
+                                   long long k_h, long long k_r, long long v_b, long long v_h,
+                                   long long v_r, long long o_b, long long o_h, long long o_r,
+                                   void* stream) {
+  const long long q_tiles = (S + FA_BQ - 1) / FA_BQ;
+  if ((D != 64 && D != 128) || B < 1 || H < 1 || S < 1 || B * H > 2147483647LL ||
+      q_tiles > 65535)
+    return (int)cudaErrorInvalidValue;
+  const long long strides[12] = {q_b, q_h, q_r, k_b, k_h, k_r, v_b, v_h, v_r, o_b, o_h, o_r};
+  for (long long st : strides)
+    if (st % 8 != 0) return (int)cudaErrorInvalidValue;
+  for (const void* p : {q, k, v, static_cast<const void*>(out)})
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return (int)cudaErrorInvalidValue;
+  const int bk = D == 64 ? FaCfg<64>::BK : FaCfg<128>::BK;
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, q, B, H, S, D, q_b, q_h, q_r, FA_BQ) ||
+      !make_map(&tk, k, B, H, S, D, k_b, k_h, k_r, bk) ||
+      !make_map(&tv, v, B, H, S, D, v_b, v_h, v_r, bk))
+    return (int)cudaErrorInvalidValue;
   __nv_bfloat16* op = static_cast<__nv_bfloat16*>(out);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64) return (int)launch_flash<64>(qp, kp, vp, op, BH, S, causal != 0, st);
-  if (D == 128) return (int)launch_flash<128>(qp, kp, vp, op, BH, S, causal != 0, st);
-  return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  if (D == 64)
+    err = causal ? launch_flash<64, true>(tq, tk, tv, op, B, H, S, o_b, o_h, o_r, st)
+                 : launch_flash<64, false>(tq, tk, tv, op, B, H, S, o_b, o_h, o_r, st);
+  else
+    err = causal ? launch_flash<128, true>(tq, tk, tv, op, B, H, S, o_b, o_h, o_r, st)
+                 : launch_flash<128, false>(tq, tk, tv, op, B, H, S, o_b, o_h, o_r, st);
+  return (int)err;
 }

@@ -46,7 +46,8 @@ stashes; with UML_BWD_STASH=0 the full attention halves run the
 inference forward and the recompute backward; with the MLP stash off
 (UML_MLP_STASH=0, or the memory gate from ViT-B/16 batch 212 up) the MLP
 halves run the inference forward and the backward UML_MLP_BWD picks
-(kernel, dw, or the plain twin's VJP); the CLS layer always keeps the
+(kernel, dw, or any other value the plain twin's VJP; unset, kernel on
+the card and the plain VJP on the CPU); the CLS layer always keeps the
 qkv its forward computed.  The towers have no dropout or BatchNorm, so
 ``model.train()`` and ``model.eval()`` compute the same; freezing is
 ``requires_grad_(False)``.

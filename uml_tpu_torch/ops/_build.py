@@ -78,8 +78,9 @@ SIGNATURES = {
     "uml_ln_qkv_attention": [_P] * 7 + [_I] * 5 + [_F, _P],
     # x, scale, bias, out, rows, K, is_f32, eps, stream
     "uml_layer_norm": [_P] * 4 + [_L, _I, _I, _F, _P],
-    # q, k, v, out, B*H, S, D, causal, stream
-    "uml_flash_attention": [_P] * 4 + [_L, _I, _I, _I, _P],
+    # q, k, v, out, B, H, S, D, causal, then the batch, head and row
+    # strides of q, k, v and out (elements), stream
+    "uml_flash_attention": [_P] * 4 + [_L, _I, _I, _I, _I] + [_L] * 12 + [_P],
 }
 
 

@@ -11,12 +11,15 @@ whatever the input dtype.
 * ``dense_attention_bshd``: the same scheme with the (b, h) axes left where
   the packed-QKV reshape puts them.
 * ``flash_attention``: the port of ``_flash_kernel``
-  (``csrc/flash_attention.cu``): K/V streamed in tiles with an online
-  softmax, any S, D 64 or 128, causal or not.  For a CPU tensor it runs
-  the half-blocks' ``attention_plain``, which has the kernel's numerics:
-  the online softmax equals the one-pass softmax with the row max, and
-  what remains is fp32 scores, P rounded to the input dtype unnormalized,
-  1 / rowsum applied to the fp32 P.V.
+  (``csrc/flash_attention.cu``, wgmma + TMA): K/V streamed in tiles with
+  an online softmax, any S, D 64 or 128, causal or not.  For a CPU tensor
+  it runs the half-blocks' ``attention_plain``, which has the kernel's
+  numerics: the online softmax equals the one-pass softmax with the row
+  max, and what remains is fp32 scores, P rounded to the input dtype
+  unnormalized, 1 / rowsum applied to the fp32 P.V.
+  ``_flash_attention_strided`` is the same kernel on strided views (a
+  packed qkv read in place, the output written into a [B, S, H, D]
+  buffer); both count their launches on ``flash_attention.launches``.
 * ``multi_head_attention``: impl "auto" | "pallas" | anything else (the
   plain ``mha_plain``).  "auto" keeps the dense ``mha_plain`` below
   S = 1024 (uml_tpu's ``_FLASH_MIN_SEQ``, its own routing) and on the CPU,
@@ -78,20 +81,49 @@ def flash_attention(q, k, v, *, causal: bool = False):
     """Streaming attention. q, k, v: [B, H, S, D] bf16 -> [B, H, S, D]."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, causal=causal)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention: {name} must be contiguous")
+    return _flash_attention_strided(q, k, v, causal=causal)
+
+
+def _strided_ok(t) -> bool:
+    """What the kernel's tensor maps take of a view: the last axis
+    contiguous, the other strides and the address 16-byte multiples."""
+    return (t.stride(3) == 1 and all(st % 8 == 0 for st in t.stride()[:3])
+            and t.data_ptr() % 16 == 0)
+
+
+def _flash_attention_strided(q, k, v, *, causal: bool = False, out=None):
+    """flash_attention on [B, H, S, D] VIEWS with any batch, head and row
+    strides, e.g. q, k, v of a packed qkv [B, S, 3, H, D] permuted, written
+    into ``out`` (a [B, H, S, D] view, e.g. of attention [B, S, H, D]; a
+    new contiguous tensor when None), with no copy on the card.  -> out."""
+    if out is None:
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if q.device.type == "cpu":
+        return out.copy_(attention_plain(q, k, v, causal=causal))
     b, h, s, d = q.shape
     if not supports_flash_attention(d, q.dtype):
         raise ValueError(f"flash_attention kernel: D={d} {q.dtype}; it takes "
                          "bf16 and head dims 64 and 128")
-    dev = q.device
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _build.check_tensor(name, t, torch.bfloat16, (b, h, s, d), dev)
-    out = torch.empty_like(q)
+    for name, t in (("k", k), ("v", v), ("out", out)):
+        if t.device != q.device or t.dtype != q.dtype or t.shape != q.shape:
+            raise ValueError(f"flash_attention: {name} {t.dtype} {tuple(t.shape)} "
+                             f"on {t.device}, q {q.dtype} {tuple(q.shape)} on "
+                             f"{q.device}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+        if not _strided_ok(t):
+            raise ValueError(f"flash_attention: {name} strides {t.stride()}: the "
+                             "kernel takes a contiguous last axis and strides "
+                             "and addresses of 16 bytes")
     if q.numel() == 0:
         return out
-    with torch.cuda.device(dev):
+    strides = [st for t in (q, k, v, out) for st in t.stride()[:3]]
+    with torch.cuda.device(q.device):
         _build.launch("uml_flash_attention", q.data_ptr(), k.data_ptr(),
-                      v.data_ptr(), out.data_ptr(), b * h, s, d, int(causal),
-                      torch.cuda.current_stream(dev).cuda_stream)
+                      v.data_ptr(), out.data_ptr(), b, h, s, d, int(causal),
+                      *strides, torch.cuda.current_stream(q.device).cuda_stream)
     flash_attention.launches += 1
     return out
 

@@ -36,7 +36,9 @@ or raise, and count the launch.
   and its backward is picked by UML_MLP_BWD as uml_tpu's
   ``_mlp_block_vjp_bwd`` picks it (ln_matmul.py:577-604): "dw" (3-d x)
   ``mlp_bwd_dw_via_kernel``, "kernel" ``mlp_bwd_via_kernel``, anything
-  else (the default) the autograd of the plain twin, recomputed.
+  else the autograd of the plain twin, recomputed (TF32 products on the
+  card, ``_vjp.py``).  Unset, it is "kernel" on the card and the plain
+  twin on the CPU (``mlp_bwd_mode``).
 
 The MLP half-block's activation is CLIP's quick_gelu, x * sigmoid(1.702 x)
 (ln_matmul.py:678-679).
@@ -357,6 +359,18 @@ def mlp_bwd_dw_via_kernel(x, g, w1, b1, w2, b2, *, eps: float = 1e-5):
             db2.to(b2.dtype))
 
 
+def mlp_bwd_mode(x) -> str | None:
+    """The backward of MlpBlockFn with the stash off: UML_MLP_BWD as set
+    ("dw", "kernel"; anything else is the plain VJP); unset, row 19
+    ("kernel") for a tensor on the card, where the plain VJP's products
+    would run 2x slower (fault F1 of ROADMAP.md), and the plain VJP on the
+    CPU, as uml_tpu's default."""
+    mode = os.environ.get("UML_MLP_BWD")
+    if mode is None and x.is_cuda:
+        return "kernel"
+    return mode
+
+
 class MlpBlockFn(torch.autograd.Function):
     """mlp_block with a gradient: the stash forward and backward under the
     memory gate, else the inference forward and the backward UML_MLP_BWD
@@ -382,7 +396,7 @@ class MlpBlockFn(torch.autograd.Function):
             return (*mlp_bwd_via_stash(x, g, pre, w1, b1, w2, b2, eps=ctx.eps),
                     None)
         x, w1, b1, w2, b2 = ctx.saved_tensors
-        mode = os.environ.get("UML_MLP_BWD")
+        mode = mlp_bwd_mode(x)
         if mode == "dw" and x.dim() == 3:
             return (*mlp_bwd_dw_via_kernel(x, g, w1, b1, w2, b2, eps=ctx.eps),
                     None)
