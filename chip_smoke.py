@@ -18,7 +18,11 @@ Phases (any failure exits non-zero; no phase is caught):
    add_ln_matmul, ln_qkv_attention at both towers' widths, layer_norm in
    bf16 and fp32, flash_attention at S=197 and at [8,16,2048,64] causal
    and not, at head dim 128, and on the ViT layer's packed qkv [B, S, 3,
-   H, D] read in place by the strided entry) against its plain PyTorch
+   H, D] read in place by the strided entry; the attention halves, the
+   CLS half and the attention backwards at S = 257 (ViT-L/14 widths) and
+   S = 785 (ViT-B/16 widths), past the old shared-memory gates; each
+   product that rows 6, 7, 8, 19 and 20 launch on the wgmma engine, and
+   gemm_at, on its own through ops/gemm.py) against its plain PyTorch
    version on the same inputs, within the stated bounds, with its bound
    (the least time the card could take) and a cuBLAS GEMM yardstick at its
    largest product (layer_norm and flash_attention: the one PyTorch call
@@ -33,7 +37,9 @@ Phases (any failure exits non-zero; no phase is caught):
    The int8 halves
    also compare their activation integers with the plain version's: no
    integer may differ by more than one step.
-3. main path: generate_fewshot and features on a synthetic caltech-layout
+3. main path: the PIL decode rate of data/loader.py on the fixture's
+   JPEGs (one worker and one per core), then generate_fewshot and
+   features on a synthetic caltech-layout
    fixture with a random-init ViT-B/16; the .pth caches must hold finite
    width-512 features, the encoder must live on the card, every port's
    launch counter must have moved by the expected count, and the card's
@@ -80,9 +86,13 @@ Phases (any failure exits non-zero; no phase is caught):
    plain and dw; and bs 256 as 2 x 128 through train/accum.py with both
    stashes on.  The non-fused branch
    (attn_impl="reference"): the bs-4 step against the CPU and the bs-64
-   rate with its peak memory; and one gradient of encode_text through
-   TextTowerFn on the card against the CPU.
-5. the kernel table as one JSON line, the device line last.
+   rate with its peak memory; one gradient of encode_text through
+   TextTowerFn on the card against the CPU; and the bs-4 step of a
+   ViT-L/14 at full width (S = 257), cut to 4 image layers, against the
+   CPU, in the default mode and with both stashes off under
+   UML_MLP_BWD=dw.
+5. the products of the engine as one JSON line, the kernel table as one
+   JSON line, the device line last.
 
 The script needs nothing of JAX.  Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -194,7 +204,24 @@ REL_BOUND = {"attn_block": 1 / 64, "attn_block_cls": 1 / 64,
              "layer_norm_f32": 1e-5, "flash_attention": 1 / 64,
              "flash_attention_2048": 1 / 64,
              "flash_attention_2048_causal": 1 / 64,
-             "flash_attention_d128": 1 / 64, "flash_attention_packed": 1 / 64}
+             "flash_attention_d128": 1 / 64, "flash_attention_packed": 1 / 64,
+             # past the old gates: the halves and backwards at long S
+             "attn_block_s257": 1 / 64, "attn_block_cls_s257": 1 / 64,
+             "attn_block_s785": 1 / 64, "attn_block_cls_s785": 1 / 64,
+             "attn_block_bwd_recompute_s257": 1 / 64,
+             "attn_block_bwd_recompute_s785": 1 / 64,
+             "attn_block_bwd_s785": 1 / 64, "attn_block_cls_bwd_s785": 1 / 64,
+             # the engine's products against fp32 products of the same
+             # bf16 operands: a bf16 output 1/64, an fp32 output 1e-3
+             # (summation order, and an LN'd operand that may round to
+             # the neighbouring bf16 value)
+             "gemm_qkv": 1 / 64, "gemm_g_wo_t": 1 / 64,
+             "gemm_dqkv_weff_t": 1e-3, "gemm_g_w2_t": 1e-3,
+             "gemm_dpre_w1_t": 1e-3, "gemm_dact": (1 / 64, 1 / 64, 1e-3),
+             "gemm_at_xn_dpre": 1e-3, "gemm_at_yact_g": 1e-3}
+# the products of the wgmma engine timed on their own (phase 2)
+PRODUCTS = ("gemm_qkv", "gemm_g_wo_t", "gemm_dqkv_weff_t", "gemm_g_w2_t",
+            "gemm_dpre_w1_t", "gemm_dact", "gemm_at_xn_dpre", "gemm_at_yact_g")
 # dense peaks of an H100 SXM at 700 W (NVIDIA's data sheet): the bound of a
 # kernel is max(bytes / PEAK_BYTES, int8 ops / PEAK_INT8 + bf16 FLOPs /
 # PEAK_BF16), bytes = every input read once and every output written once
@@ -211,6 +238,18 @@ MIN_COSINE = 0.999
 # aside: their exact gradient is zero, so both are rounding noise)
 STEP_LOSS_RTOL = 1e-2
 STEP_MIN_GRAD_COSINE = 0.99
+
+
+def _vit_l14_cut():
+    """CLIP ViT-L/14 at its published widths (image tower 1024 wide, 16
+    heads, patch 14 at 224 px: S = 257), cut to 4 image layers and 1 text
+    layer for the card-vs-CPU step."""
+    import dataclasses
+
+    from uml_tpu_torch.models.clip import CLIP_CONFIGS
+
+    return dataclasses.replace(CLIP_CONFIGS["ViT-L/14"], vision_layers=4,
+                               transformer_layers=1)
 
 
 def _check(ok, what) -> None:
@@ -669,6 +708,7 @@ def phase_kernels():
          (qkv_packed,), 0, _attn_flops(b, s, 12), (None,) * 4,
          lambda p: F.scaled_dot_product_attention(*packed_views(p))),
     ]
+    cases += _long_seq_cases(gen, dev, attn_v) + _product_cases(gen, dev, xv, g_v, wv)
     results = {}
     for name, kernel_fn, plain_fn, inputs, ops8, flops16, yard, *library in cases:
         got = kernel_fn(*inputs)
@@ -721,6 +761,102 @@ def phase_kernels():
               f"from the plain version's, largest difference {worst}")
         _check(worst <= 1, (half, "integer differs by more than one step", worst))
     return results
+
+
+def _long_seq_cases(gen, dev, attn_v):
+    """Phase-2 cases past the old shared-memory gates: the attention
+    halves, the CLS half and the backwards at S = 257 (ViT-L/14: K = 1024,
+    16 heads, B = 48) and S = 785 (ViT-B/16 widths, B = 16), ~12,500 rows
+    each like the ViT-B/16 layer at B = 64."""
+    import torch
+
+    from uml_tpu_torch.ops import fused_attention as fa
+
+    bf = torch.bfloat16
+    wl = _block_weights(gen, 1024, 4096, 1024, dev)
+    attn_l = (wl["w_eff"], wl["b_eff"], wl["wo"], wl["bo"])
+    cases = []
+    for tag, b, s, k, heads, attn in (("s257", 48, 257, 1024, 16, attn_l),
+                                      ("s785", 16, 785, 768, 12, attn_v)):
+        x = torch.randn(b, s, k, generator=gen, device=dev).to(bf)
+        g = torch.randn(b, s, k, generator=gen, device=dev).to(bf)
+        g1 = torch.randn(b, 1, k, generator=gen, device=dev).to(bf)
+        rows = b * s
+        qkv_f, out_f = 2.0 * rows * k * 3 * k, 2.0 * rows * k * k
+        attn_f = _attn_flops(b, s, heads)
+        yard = (rows, k, 3 * k, False)
+        cases += [
+            (f"attn_block_{tag}", lambda *a, h=heads: fa.attn_block(*a, heads=h),
+             lambda *a, h=heads: fa.attn_block_plain(*a, heads=h), (x, *attn), 0,
+             qkv_f + out_f + attn_f, yard),
+            (f"attn_block_cls_{tag}", lambda *a, h=heads: fa.attn_block_cls(*a, heads=h),
+             lambda *a, h=heads: fa.attn_block_cls_plain(*a, heads=h), (x, *attn), 0,
+             2.0 * rows * k * 2 * k + 4.0 * b * k * k
+             + _attn_flops(b, s, heads, q_rows=1), yard),
+            (f"attn_block_bwd_recompute_{tag}",
+             lambda *a, h=heads: fa.attn_block_bwd_recompute(*a, heads=h),
+             lambda *a, h=heads: fa.attn_block_bwd_recompute_plain(*a, heads=h),
+             (x, g, *attn[:3]), 0, 2 * qkv_f + out_f + 3.5 * attn_f, yard),
+        ]
+        if tag == "s785":
+            _, qkv, _ = fa.attn_block_stash_plain(x, *attn, heads=heads)
+            _, qkv_c, _ = fa.attn_block_stash_plain(x, *attn, heads=heads, q_rows=1)
+            cases += [
+                ("attn_block_bwd_s785", lambda *a: fa.attn_block_bwd(*a, heads=12),
+                 lambda *a: fa.attn_block_bwd_plain(*a, heads=12),
+                 (x, g, qkv, attn[0], attn[2]), 0, out_f + 2.5 * attn_f + qkv_f, yard),
+                ("attn_block_cls_bwd_s785", lambda *a: fa.attn_block_cls_bwd(*a, heads=12),
+                 lambda *a: fa.attn_block_cls_bwd_plain(*a, heads=12),
+                 (x, g1, qkv_c, attn[0], attn[2]), 0,
+                 2.0 * rows * 2 * k * k + 4.0 * b * k * k
+                 + 2.5 * _attn_flops(b, s, heads, q_rows=1), (rows, k, 2 * k, False)),
+            ]
+    return cases
+
+
+def _product_cases(gen, dev, xv, g_v, wv):
+    """Phase-2 cases of the products that rows 6, 7, 8, 19 and 20 launch on
+    the wgmma engine, one by one through ops/gemm.py, at ViT-B/16 B=64
+    (12,608 rows, K = 768, M = 3072), each with cuBLAS at its shape as the
+    yardstick: the QKV triple (with its LN pre-pass), g . wo^T, the three
+    fp32 products with a transposed weight, the dW recompute (with its LN
+    pre-pass, the fp32 dy read and two outputs written) and both
+    gemm_at."""
+    import torch
+
+    from uml_tpu_torch.ops import gemm as gm
+
+    bf = torch.bfloat16
+    b, s, k = xv.shape
+    rows, m = b * s, wv["w1"].shape[1]
+    x2d, g2d = xv.reshape(rows, k), g_v.reshape(rows, k)
+    dqkv = torch.randn(rows, 3 * k, generator=gen, device=dev).to(bf)
+    dpre = torch.randn(rows, m, generator=gen, device=dev).to(bf)
+    dy = torch.randn(rows, m, generator=gen, device=dev)
+
+    def triple(name):
+        return (lambda *a: gm.ln_gemm(*a, triple=name),
+                lambda *a: gm.ln_gemm_plain(*a, triple=name))
+
+    qkv_f, out_f, fc_f = 2.0 * rows * k * 3 * k, 2.0 * rows * k * k, 2.0 * rows * k * m
+    return [
+        ("gemm_qkv", *triple("QKV"), (x2d, wv["w_eff"], wv["b_eff"]), 0, qkv_f,
+         (rows, k, 3 * k, False)),
+        ("gemm_g_wo_t", *triple("TRANS_B"), (g2d, wv["wo"]), 0, out_f,
+         (rows, k, k, False)),
+        ("gemm_dqkv_weff_t", *triple("TRANS_B_F32"), (dqkv, wv["w_eff"]), 0, qkv_f,
+         (rows, 3 * k, k, False)),
+        ("gemm_g_w2_t", *triple("TRANS_B_F32"), (g2d, wv["w2"]), 0, fc_f,
+         (rows, k, m, False)),
+        ("gemm_dpre_w1_t", *triple("TRANS_B_F32"), (dpre, wv["w1"]), 0, fc_f,
+         (rows, m, k, False)),
+        ("gemm_dact", *triple("DACT_F32"), (x2d, wv["w1"], wv["b1"], dy), 0, fc_f,
+         (rows, k, m, False)),
+        ("gemm_at_xn_dpre", gm.gemm_at, gm.gemm_at_plain, (x2d, dpre), 0, fc_f,
+         (k, rows, m, False)),
+        ("gemm_at_yact_g", gm.gemm_at, gm.gemm_at_plain, (dpre, g2d), 0, fc_f,
+         (m, rows, k, False)),
+    ]
 
 
 def _wrappers():
@@ -787,6 +923,33 @@ def make_fixture(root, n_classes=8, per_class=(16, 4, 8)):
     save_as_json(split, os.path.join(root, "caltech-101",
                                      "split_zhou_Caltech101.json"))
     return {part: len(v) for part, v in split.items()}
+
+
+def _decode_rates(root, passes=3):
+    """The host's decode rate: data/loader.py's ImageBatchLoader (threaded
+    PIL decode, resize and center crop to 224 x 224 uint8) over every JPEG
+    of the fixture (240 x 320 noise), ``passes`` times, batches of 64, with
+    one worker and with one per core -> {key: img/s}."""
+    import glob
+
+    from uml_tpu_torch.data.loader import ImageBatchLoader
+
+    items = [{"impath": p, "label": 0} for p in sorted(glob.glob(
+        os.path.join(root, "caltech-101", "101_ObjectCategories", "*", "*.jpg")))]
+    _check(len(items) > 0, "fixture JPEGs")
+    out = {}
+    for workers in (1, os.cpu_count() or 1):
+        t0 = time.perf_counter()
+        n = 0
+        for _ in range(passes):
+            for imgs, _, _ in ImageBatchLoader(items, "crop", 64, num_workers=workers):
+                n += len(imgs)
+        rate = n / (time.perf_counter() - t0)
+        out[f"pil_decode_img_per_s_{workers}w"] = rate
+        print(f"[main] PIL decode (data/loader.py ImageBatchLoader, 240x320 JPEG "
+              f"-> 224x224 crop, batches of 64), {workers} worker(s): {n} images, "
+              f"{rate:.1f} img/s")
+    return out
 
 
 def _features_args(root, batch, feature_dir, quant="none"):
@@ -878,6 +1041,7 @@ def phase_main_path():
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
     sizes = make_fixture(root)
+    decode = _decode_rates(root)
     gf.main(gf.build_parser().parse_args([
         "--data_dir", root, "--indices_dir", f"{root}/indices",
         "--dataset", "caltech101", "--train-shot", "16", "--seed", "1"]))
@@ -910,7 +1074,7 @@ def phase_main_path():
     ms = _time_ms(lambda: encoder.encode_staged(staged, n), iters=10)
     rate = {"features_wall_s": wall,
             "features_images": sum(sizes.values()),
-            "encoder_img_per_s_bs64": batch / (ms / 1e3)}
+            "encoder_img_per_s_bs64": batch / (ms / 1e3), **decode}
     print(f"[main] image encoder forward {ms:.3f} ms per batch of {batch} "
           f"= {rate['encoder_img_per_s_bs64']:.1f} img/s")
     prompts = [f"a photo of a class_{i}." for i in range(batch)]
@@ -1113,8 +1277,9 @@ def phase_unfused(fused_encoder):
               f"{ {k: v for k, v in counts.items() if v} }")
 
         # on the card the default impl="auto" launches or raises: what the
-        # kernels do not take (fp32, fp16, S > 400) never runs the plain
-        # version unasked, neither in an op nor in the fp32 non-fused model
+        # kernels do not take (fp32, fp16, a width that is not a multiple
+        # of 64) never runs the plain version unasked, neither in an op nor
+        # in the fp32 non-fused model; any S is taken
         def refused(fn):
             try:
                 fn()
@@ -1124,13 +1289,21 @@ def phase_unfused(fused_encoder):
 
         fp32_model = build_clip("ViT-B/16", attn_impl="reference").to(dev).eval()
         long_x = rnd(2, 401, 768)
+        long_out, long_counts = _counted(
+            lambda: ops.ln_qkv_attention(long_x, scale, bias, w, wb, heads=12))
+        _check(tuple(long_out.shape) == (2, 401, 768)
+               and bool(torch.isfinite(long_out.float()).all())
+               and long_counts["ln_qkv_attention"] == 1, ("S=401", long_counts))
+        narrow = rnd(2, 401, 96)
         refusals, stray = _counted(lambda: [refused(fn) for fn in (
             lambda: lm.ln_matmul(x.float(), scale, bias, w.float(), wb),
             lambda: lm.add_ln_matmul(x.float(), x.float(), scale, bias,
                                      w.float(), wb),
             lambda: ops.ln_qkv_attention(x.float(), scale, bias, w.float(), wb,
                                          heads=12),
-            lambda: ops.ln_qkv_attention(long_x, scale, bias, w, wb, heads=12),
+            lambda: ops.ln_qkv_attention(narrow, scale[:96], bias[:96],
+                                         w[:96, :384].contiguous(), wb[:384],
+                                         heads=2),
             lambda: ops.layer_norm(x.half(), scale, bias),
             lambda: ops.multi_head_attention(q.float(), k.float(), v.float()),
             lambda: fp32_model.encode_image_u8(u8[:2]))])
@@ -1354,30 +1527,39 @@ def phase_train(root, sizes):
     numbers.update(_train_step_rates(64, [("unfused_reference", {}, None)],
                                      clip_kw=unfused))
     numbers.update(_text_grad_card_vs_cpu())
+    # F2: ViT-L/14 at full width (S = 257) trains on the card, cut to 4
+    # image layers (3 full, the CLS layer) and 1 text layer (unused)
+    vit_l = {"config": _vit_l14_cut()}
+    numbers.update(_card_vs_cpu_step("vit_l14", **vit_l))
+    with _env(RECOMPUTE_MODES["dw"]):
+        numbers.update(_card_vs_cpu_step("vit_l14_recompute_dw", **vit_l))
     return full, recompute, numbers
 
 
-def _head_and_batch(bsz, gen_seed=0, clip_kw=None):
+def _head_and_batch(bsz, gen_seed=0, clip_kw=None, config=None):
     """A random-init ViT-B/16 UML head (bf16 compute, every CLIP leaf
-    trainable; ``clip_kw``: build_clip's attn_impl / ln_matmul_impl) and
-    one crossmodal batch of ``bsz`` on the CPU."""
+    trainable; ``clip_kw``: build_clip's attn_impl / ln_matmul_impl;
+    ``config``: a ClipConfig in place of ViT-B/16's) and one crossmodal
+    batch of ``bsz`` on the CPU."""
     import numpy as np
     import torch
 
-    from uml_tpu_torch.models.clip import build_clip
+    from uml_tpu_torch.models.clip import CLIP, build_clip
     from uml_tpu_torch.models.uml_head import make_uml_clip_head
 
-    clip = build_clip("ViT-B/16", dtype=torch.bfloat16,
-                      **(clip_kw or {})).init_random(
+    clip = (build_clip("ViT-B/16", dtype=torch.bfloat16, **(clip_kw or {}))
+            if config is None else
+            CLIP(config, dtype=torch.bfloat16, **(clip_kw or {}))).init_random(
         torch.Generator().manual_seed(gen_seed))
+    res, width = clip.config.image_resolution, clip.config.embed_dim
     model = make_uml_clip_head(clip, 8, freeze_backbone=False,
                                generator=torch.Generator().manual_seed(1))
     rng = np.random.default_rng(gen_seed)
-    batch = (torch.from_numpy(rng.integers(0, 256, (bsz, 224 * 224 * 3),
+    batch = (torch.from_numpy(rng.integers(0, 256, (bsz, res * res * 3),
                                            dtype=np.uint8)),
              torch.from_numpy(rng.integers(0, 8, bsz)),
              torch.ones(bsz),
-             torch.from_numpy(rng.standard_normal((bsz, 512)).astype(np.float32)),
+             torch.from_numpy(rng.standard_normal((bsz, width)).astype(np.float32)),
              torch.from_numpy(rng.integers(0, 8, bsz)),
              torch.ones(bsz))
     return model, batch
@@ -1393,12 +1575,12 @@ def _loss(model, batch):
             + weighted_ce(txt @ model.head_w * s_txt, tlab, tw))
 
 
-def _card_vs_cpu_step(mode, clip_kw=None):
+def _card_vs_cpu_step(mode, clip_kw=None, config=None):
     """One bs-4 forward + backward on the card and on the CPU plain path,
     same weights and batch, in the backward mode the environment sets."""
     import torch
 
-    cpu_model, cpu_batch = _head_and_batch(4, clip_kw=clip_kw)
+    cpu_model, cpu_batch = _head_and_batch(4, clip_kw=clip_kw, config=config)
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
     gpu_batch = tuple(t.to("cuda") for t in cpu_batch)
     losses, grads = [], []
@@ -1639,7 +1821,15 @@ def main() -> int:
                       "library_ms": row["library_ms"],
                       "gemm_yardstick": row["yardstick"],
                       "gemm_yardstick_ms": row["yardstick_ms"]})
+    products = [{"name": name, "max_abs_err": kernels[name]["max_abs_err"],
+                 "max_rel_err": kernels[name]["max_rel_err"], "ms": kernels[name]["ms"],
+                 "plain_ms": kernels[name]["plain_ms"],
+                 "bound_ms": kernels[name]["bound_ms"],
+                 "bound_by": kernels[name]["bound_by"],
+                 "cublas": kernels[name]["yardstick"],
+                 "cublas_ms": kernels[name]["yardstick_ms"]} for name in PRODUCTS]
     print(json.dumps({"throughput": rate}))
+    print(json.dumps({"products": products}))
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,11 @@
 """The CUDA kernels of uml_tpu_torch on the card, against their plain
 PyTorch versions (bf16, small shapes: K=128, 2 heads of 64, S in {9, 17,
-197}; the streaming attention at S from 1 to 2048, head dims 64 and 128,
+197}, and S = 257 and 785 for the attention halves and the training
+rows; the streaming attention at S from 1 to 2048, head dims 64 and 128,
 also on strided views of a packed qkv; layer_norm at row counts up to
-40,000).  Marked ``cuda``: they skip without an NVIDIA GPU (sm_90a) and
+40,000; each product triple of the wgmma engine and gemm_at at ragged
+row counts and both towers' widths, against an fp32 product of the same
+bf16 operands).  Marked ``cuda``: they skip without an NVIDIA GPU (sm_90a) and
 run on the card with ``python -m pytest tests/test_torch_cuda.py -q``.
 
 Bound: max |kernel - plain| <= 2^-6 * max|plain| (two bf16 ulps of the
@@ -65,7 +68,7 @@ def _close(got, want):
     assert err <= REL * want.float().abs().max().item(), err
 
 
-@pytest.mark.parametrize("s", [9, 17, 197])
+@pytest.mark.parametrize("s", [9, 17, 197, 257, 785])
 @pytest.mark.parametrize("causal", [False, True])
 def test_attn_block_kernel(dev, s, causal):
     x, w = _x(dev, s), _weights(dev)
@@ -75,7 +78,7 @@ def test_attn_block_kernel(dev, s, causal):
     _close(got, fa.attn_block_plain(x, *w[:4], heads=HEADS, causal=causal))
 
 
-@pytest.mark.parametrize("s", [9, 17, 197])
+@pytest.mark.parametrize("s", [9, 17, 197, 257, 785])
 def test_attn_block_cls_kernel(dev, s):
     x, w = _x(dev, s), _weights(dev)
     n = fa.attn_block_cls.launches
@@ -222,7 +225,7 @@ def test_attn_block_stash_kernel(dev, s, causal):
                                               causal=causal))
 
 
-@pytest.mark.parametrize("s", [9, 17, 197])
+@pytest.mark.parametrize("s", [9, 17, 197, 257, 785])
 @pytest.mark.parametrize("causal", [False, True])
 def test_attn_block_bwd_kernel(dev, s, causal):
     x, w = _x(dev, s), _weights(dev)
@@ -235,7 +238,7 @@ def test_attn_block_bwd_kernel(dev, s, causal):
                                             causal=causal))
 
 
-@pytest.mark.parametrize("s", [9, 17, 197])
+@pytest.mark.parametrize("s", [9, 17, 197, 257, 785])
 def test_attn_block_cls_bwd_kernel(dev, s):
     x, w = _x(dev, s), _weights(dev)
     _, qkv, _ = fa.attn_block_stash_plain(x, *w[:4], heads=HEADS, q_rows=1)
@@ -256,7 +259,7 @@ def test_mlp_block_stash_kernel(dev, s):
     _close_all(got, lm.mlp_block_stash_plain(x, *w[4:]))
 
 
-@pytest.mark.parametrize("s", [9, 17, 197])
+@pytest.mark.parametrize("s", [9, 17, 197, 257, 785])
 @pytest.mark.parametrize("causal", [False, True])
 def test_attn_block_bwd_recompute_kernel(dev, s, causal):
     """#7, and its recompute equals the forward kernels' qkv and attention
@@ -285,7 +288,7 @@ def test_mlp_bwd_kernel(dev, s):
     _close_all(got, lm.mlp_bwd_plain(x, dy, w[5], w[4]))
 
 
-@pytest.mark.parametrize("s", [9, 17, 197])
+@pytest.mark.parametrize("s", [9, 17, 197, 257, 785])
 def test_mlp_bwd_dw_kernel(dev, s):
     """#20 at B*S rows that are not a multiple of 64 (nor of 32)."""
     x, w = _x(dev, s), _weights(dev)
@@ -309,12 +312,13 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     _, qkv, _ = fa.attn_block_stash(x, *w[:4], heads=HEADS)
     with pytest.raises(ValueError):
         fa.attn_block_bwd(x, x[:, :1].contiguous(), qkv, w[0], w[2], heads=HEADS)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError):     # a stash of another S
         fa.attn_block_bwd(_x(dev, 300), _x(dev, 300), qkv, w[0], w[2],
                           heads=HEADS)
-    with pytest.raises(ValueError):
-        fa.attn_block_bwd_recompute(_x(dev, 300), _x(dev, 300), *w[:3],
-                                    heads=HEADS)
+    with pytest.raises(ValueError):     # K not a multiple of 64
+        fa.attn_block_bwd_recompute(_g(dev, (B, 300, 96)), _g(dev, (B, 300, 96)),
+                                    _g(dev, (96, 3 * HEADS * 64)), w[1],
+                                    _g(dev, (HEADS * 64, 96)), heads=HEADS)
     with pytest.raises(TypeError):
         fa.attn_block_bwd_recompute(x, x, w[0], w[1].bfloat16(), w[2], heads=HEADS)
     with pytest.raises(TypeError):
@@ -497,8 +501,9 @@ def test_stand_alone_ops_raise_on_what_the_kernels_do_not_take(dev):
     scale, bias = _ln_params(dev, K)
     with pytest.raises(TypeError):      # "pallas" with an fp32 tensor
         lm.ln_matmul(x.float(), scale, bias, w[4].float(), w[5], impl="pallas")
-    with pytest.raises(ValueError):     # S > 400 under "pallas"
-        fa.ln_qkv_attention(_x(dev, 401), scale, bias, w[0], w[1], heads=HEADS,
+    with pytest.raises(ValueError):     # K not a multiple of 64, "pallas"
+        fa.ln_qkv_attention(_g(dev, (B, 401, 96)), *_ln_params(dev, 96),
+                            _g(dev, (96, 3 * HEADS * 64)), w[1], heads=HEADS,
                             impl="pallas")
     with pytest.raises(ValueError):     # head dim 96
         at.flash_attention(*(_g(dev, (1, 1, 9, 96)) for _ in range(3)))
@@ -531,8 +536,9 @@ def test_auto_raises_on_the_card_where_the_kernel_does_not_take_the_input(dev):
     with pytest.raises(ValueError):
         lm.add_ln_matmul(x, x, scale, bias, _g(dev, (K, 100)),
                          torch.zeros(100, device=dev))
-    with pytest.raises(ValueError):     # S > 400
-        fa.ln_qkv_attention(_x(dev, 401), scale, bias, w[0], w[1], heads=HEADS)
+    with pytest.raises(ValueError):     # K not a multiple of 64
+        fa.ln_qkv_attention(_g(dev, (B, 401, 96)), *_ln_params(dev, 96),
+                            _g(dev, (96, 3 * HEADS * 64)), w[1], heads=HEADS)
     with pytest.raises(ValueError):     # x not [B, S, K]
         fa.ln_qkv_attention(x[0], scale, bias, w[0], w[1], heads=HEADS)
     with pytest.raises(ValueError):     # K not a multiple of 8; fp16
@@ -576,3 +582,81 @@ def test_tiny_non_fused_clip_on_the_card_matches_the_cpu(dev, attn_impl):
         cos = torch.nn.functional.cosine_similarity(a.float(), b.float().cpu(),
                                                     dim=-1)
         assert cos.min().item() >= 0.999
+
+
+# the wgmma engine's products on their own (ops/gemm.py), at ragged row
+# counts and both towers' widths (ViT-B/16 K=768, the text tower K=512),
+# against fp32 products of the same bf16 operands: a bf16 output within
+# REL of its largest entry; an fp32 output (summation order only, and an
+# LN'd operand that may round to the neighbouring bf16 value) within 1e-3
+GEMM_ROWS = [9, 17 * 64, 12608]
+GEMM_F32_REL = 1e-3
+
+
+def _triple_operands(dev, triple, rows, k):
+    """a, w, bias, dy of one triple as the layer launches it: QKV x [rows,
+    K] . W_eff [K, 3K]; TRANS_B g . wo^T; TRANS_B_F32 dqkv [rows, 3K] .
+    W_eff^T; DACT_F32 x . w1 [K, 4K] with an fp32 dy."""
+    g = torch.Generator().manual_seed(rows + k)
+
+    def rnd(*shape, std=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=g) * std).to(dtype).to(dev)
+
+    bias = rnd(4 * k if triple == "DACT_F32" else 3 * k, std=0.1,
+               dtype=torch.float32)
+    if triple == "QKV":
+        return rnd(rows, k), rnd(k, 3 * k, std=k ** -0.5), bias, None
+    if triple == "TRANS_B":
+        return rnd(rows, k), rnd(k, k, std=k ** -0.5), None, None
+    if triple == "TRANS_B_F32":
+        return rnd(rows, 3 * k), rnd(k, 3 * k, std=k ** -0.5), None, None
+    return (rnd(rows, k), rnd(k, 4 * k, std=k ** -0.5), bias,
+            rnd(rows, 4 * k, dtype=torch.float32))
+
+
+@pytest.mark.parametrize("k", [768, 512])
+@pytest.mark.parametrize("rows", GEMM_ROWS)
+@pytest.mark.parametrize("triple", ["QKV", "TRANS_B", "TRANS_B_F32", "DACT_F32"])
+def test_engine_triple_kernel(dev, triple, rows, k):
+    from uml_tpu_torch.ops import gemm
+
+    ops = _triple_operands(dev, triple, rows, k)
+    n = gemm.ln_gemm.launches
+    got = gemm.ln_gemm(*ops, triple=triple)
+    assert gemm.ln_gemm.launches == n + 1
+    want = gemm.ln_gemm_plain(*ops, triple=triple)
+    torch.cuda.synchronize()
+    for a, b in zip(*((t if isinstance(t, tuple) else (t,)) for t in (got, want))):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        rel = REL if a.dtype == torch.bfloat16 else GEMM_F32_REL
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= rel * b.float().abs().max().item(), (triple, err)
+
+
+@pytest.mark.parametrize("pn", [(768, 3072), (3072, 768), (512, 2048)])
+@pytest.mark.parametrize("rows", GEMM_ROWS)
+def test_gemm_at_kernel(dev, rows, pn):
+    """A^T B over every row, split into chunks that add in a fixed order:
+    two calls give the same bits."""
+    from uml_tpu_torch.ops import gemm
+
+    p, n = pn
+    a, b = _g(dev, (rows, p), seed=5), _g(dev, (rows, n), seed=6)
+    got = gemm.gemm_at(a, b)
+    want = gemm.gemm_at_plain(a, b)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    assert err <= 1e-4 * want.abs().max().item(), err
+    assert torch.equal(got, gemm.gemm_at(a, b))
+
+
+def test_engine_refuses_what_it_does_not_take(dev):
+    from uml_tpu_torch.ops import gemm
+
+    a = _g(dev, (17, 128))
+    with pytest.raises(ValueError):     # N not a multiple of 64
+        gemm.ln_gemm(a, _g(dev, (128, 96)), triple="QKV")
+    with pytest.raises(TypeError):      # fp32 operands
+        gemm.ln_gemm(a.float(), _g(dev, (128, 128)).float(), triple="TRANS_B")
+    with pytest.raises(ValueError):     # P not a multiple of 64
+        gemm.gemm_at(_g(dev, (17, 96)), a)

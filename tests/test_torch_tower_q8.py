@@ -123,4 +123,5 @@ def test_supports_gate():
     assert tt.supports_tower_q8(768, 12, 64, 197, 3072)      # ViT-B/16
     assert not tt.supports_tower_q8(768, 12, 32, 197, 3072)  # head dim 32
     assert not tt.supports_tower_q8(760, 12, 64, 197, 3072)  # K % 64
-    assert not tt.supports_tower_q8(768, 12, 64, 577, 3072)  # S > 400
+    # any S: the attention streams K/V (ViT-L/14 at 336 px, S = 577)
+    assert tt.supports_tower_q8(768, 12, 64, 577, 3072)

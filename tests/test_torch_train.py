@@ -27,6 +27,7 @@
   of their change is bounded.
 """
 
+import functools
 import os
 
 import jax
@@ -415,3 +416,92 @@ def test_full_model_steps_match_jax(tmp_path, pil_only, monkeypatch, mode):
                             "mlp_bwd_dw": 20}[name] * (name in want_ops)
                      for name in calls}, calls
 
+
+
+# CLIP ViT-L/14 at its published widths (image tower 1024 wide, 16 heads,
+# patch 14 at 224 px: S = 257; text tower 768 wide, 12 heads), cut to two
+# layers a tower: a sequence length the port's kernels refused before they
+# streamed K/V
+VIT_L14_DEPTH2 = dict(embed_dim=768, image_resolution=224, vision_layers=2,
+                      vision_width=1024, vision_patch_size=14,
+                      transformer_width=768, transformer_heads=12,
+                      transformer_layers=2)
+# per parameter tensor: max |port - JAX| of the gradient <= 1e-3 of the JAX
+# gradient's largest entry (fp32 both; the packages sum in other orders)
+VIT_L14_GRAD_RTOL = 1e-3
+
+
+def _vit_l14_batch():
+    rng = np.random.default_rng(9)
+    img = rng.integers(0, 256, (2, 224 * 224 * 3), dtype=np.uint8)
+    return img, np.array([0, 2], np.int64), np.ones(2, np.float32)
+
+
+@functools.lru_cache(maxsize=1)
+def _vit_l14_jax_grads():
+    """(head params as numpy, the image loss, its gradient by jax.grad)."""
+    jclip = JaxCLIP(JaxConfig(**VIT_L14_DEPTH2), dtype=jnp.float32)
+    variables = _np_tree(jax.jit(jclip.init)(
+        jax.random.key(0), jnp.zeros((1, 224, 224, 3), jnp.float32),
+        jnp.zeros((1, 77), jnp.int32)))
+    jm = jhead.make_uml_clip_head(jclip, variables, 3, logit_scale=1.0,
+                                  freeze_backbone=False)
+    rng = np.random.default_rng(5)
+    txt = rng.standard_normal((10, 768)).astype(np.float32)
+    params = jm.zero_shot_init(jm.init_params(seed=0), txt,
+                               rng.integers(0, 3, 10).astype(np.int64))
+    img, lab, w = _vit_l14_batch()
+
+    def loss_fn(p):
+        feats, _ = jm.image_features_train(p, jnp.asarray(img))
+        return jsup._weighted_ce(feats @ p["head_w"] * jm._scales(p)[0],
+                                 jnp.asarray(lab), jnp.asarray(w))
+
+    loss, grads = jax.jit(jax.value_and_grad(loss_fn))(params)
+    return _np_tree(params), float(loss), _np_tree(grads)
+
+
+@pytest.mark.heavy
+@pytest.mark.parametrize("mode", list(BWD_MODES))
+def test_vit_l14_full_model_gradients_match_jax(monkeypatch, mode):
+    """One forward and backward of the image loss through the depth-2,
+    full-width ViT-L/14 in fp32, port against JAX, in each backward mode
+    (the plain versions of the stash rows 5, 6, 8, 9, or of the recompute
+    rows 7, 19, 20, at S = 257): the loss within rtol 1e-5, every
+    parameter gradient of the image tower and the head within
+    VIT_L14_GRAD_RTOL (the k-biases aside: their exact gradient is zero)."""
+    env, want_ops = BWD_MODES[mode]
+    for var in ("UML_BWD_STASH", "UML_MLP_STASH", "UML_MLP_BWD"):
+        monkeypatch.delenv(var, raising=False)
+    for var, value in env.items():
+        monkeypatch.setenv(var, value)
+    calls = _spy_backwards(monkeypatch)
+    params, jloss, jgrads = _vit_l14_jax_grads()
+    clip = CLIP(ClipConfig(**VIT_L14_DEPTH2), dtype=torch.float32)
+    tm = thead.make_uml_clip_head(clip, 3, logit_scale=1.0, freeze_backbone=False)
+    tm.load_state_tree(uml_head_params_from_jax(params))
+    img, lab, w = _vit_l14_batch()
+    loss = tsup.weighted_ce(
+        tm.image_features(torch.from_numpy(img)) @ tm.head_w * tm.scales()[0],
+        torch.from_numpy(lab), torch.from_numpy(w))
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), jloss, rtol=1e-5)
+    want = state_dict_from_jax(jgrads["backbone"])
+    got = {k: p.grad for k, p in tm.backbone.named_parameters()
+           if k.startswith("visual.")}
+    assert got and all(g is not None for g in got.values())
+    for key, g in got.items():
+        wg = want[key]
+        if key.endswith("attn.in_proj_bias"):
+            wg, g = torch.cat([wg.chunk(3)[0], wg.chunk(3)[2]]), torch.cat(
+                [g.chunk(3)[0], g.chunk(3)[2]])
+        err = (g - wg).abs().max().item()
+        assert err <= VIT_L14_GRAD_RTOL * wg.abs().max().item(), (key, err)
+    np.testing.assert_allclose(tm.head_w.grad.numpy(), jgrads["head_w"],
+                               rtol=VIT_L14_GRAD_RTOL,
+                               atol=VIT_L14_GRAD_RTOL * np.abs(jgrads["head_w"]).max())
+    # 1 full layer (+ the CLS layer's own backward) and 2 MLPs
+    assert calls == {name: {"attn_block_bwd": 1, "attn_block_bwd_recompute": 1,
+                            "mlp_bwd_via_stash": 2, "mlp_bwd": 2,
+                            "mlp_bwd_dw": 2}[name] * (name in want_ops)
+                     for name in calls}, calls

@@ -451,8 +451,9 @@ def test_supports_fused_attention_gate():
     assert tfa.supports_fused_attention(768, 12, 64, 197)
     assert tfa.supports_fused_attention(512, 8, 64, 77)
     assert tfa.supports_fused_attention(768, 12, 64, 400)
-    # the attention kernel keeps one head's K/V in shared memory
-    assert not tfa.supports_fused_attention(768, 12, 64, 401)
+    # any S: the attention streams K/V
+    assert tfa.supports_fused_attention(768, 12, 64, 401)
+    assert tfa.supports_fused_attention(1024, 16, 64, 785)
     assert not tfa.supports_fused_attention(768, 6, 128, 197)
     assert not tfa.supports_fused_attention(768, 12, 64, 197, torch.float32)
 

@@ -1,18 +1,29 @@
 #!/usr/bin/env python3
-"""Time the stand-alone ``layer_norm`` and ``flash_attention`` of one
-checkout of ``uml_tpu_torch`` with ``chip_smoke.py``'s graph harness
-(``_graph_time_ms``: calls captured in a CUDA graph over input copies
-larger than the L2, no host work in the interval), beside the PyTorch
-call that computes the same function.  Run it on two checkouts one after
-the other on the same card to set an earlier commit's kernels beside the
-current ones:
+"""Time the kernels of one checkout of ``uml_tpu_torch`` with
+``chip_smoke.py``'s graph harness (``_graph_time_ms``: calls captured in a
+CUDA graph over input copies larger than the L2, no host work in the
+interval), beside the PyTorch call that computes the same function:
+
+* the stand-alone ``layer_norm`` and ``flash_attention`` (rows 18, 13);
+* the training rows at ViT-B/16 B=64 (rows 6, 7, 8, 19, 20, and row 7
+  causal at the text tower's widths) and the forward halves (rows 1, 2);
+* where the checkout has ``ops/gemm.py``: each product triple of the
+  wgmma engine and ``gemm_at`` at the shapes rows 7 and 20 launch them,
+  each beside one cuBLAS call (``torch.matmul``) at the same shape;
+* the device time by kernel of rows 7 and 20 (torch.profiler, printed as
+  ``[profile]`` lines);
+* the bf16 image encoder's img/s at batch 64 (random-init ViT-B/16, a
+  staged batch, host work included as in chip_smoke.py).
+
+Run it on two checkouts one after the other on the same card to set an
+earlier commit's kernels beside the current ones:
 
     git archive <commit> | tar -x -C build/parent
     python3 tools/exp_torch_retime.py --root build/parent
     python3 tools/exp_torch_retime.py            # this checkout
 
-Needs a CUDA card; prints one JSON line (milliseconds per call, and the
-card's name and power limit).
+Needs a CUDA card; prints one JSON line (milliseconds per call, img/s,
+and the card's name and power limit).
 """
 
 from __future__ import annotations
@@ -27,18 +38,67 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def _products(gemm, dev, gen):
+    """(name, fn, inputs, FLOPs, cuBLAS call) of each product rows 7 and
+    20 launch, at ViT-B/16 B=64 (12,608 rows, K=768, M=3072)."""
+    import torch
+
+    bf = torch.bfloat16
+    rows, k, m = 64 * 197, 768, 3072
+
+    def rnd(*shape, std=1.0, dtype=bf):
+        return (torch.randn(*shape, generator=gen, device=dev) * std).to(dtype)
+
+    x, g = rnd(rows, k), rnd(rows, k)
+    dqkv, dpre = rnd(rows, 3 * k), rnd(rows, m)
+    w_eff, wo = rnd(k, 3 * k, std=k ** -0.5), rnd(k, k, std=k ** -0.5)
+    w1, w2 = rnd(k, m, std=k ** -0.5), rnd(m, k, std=m ** -0.5)
+    b_eff, b1 = rnd(3 * k, dtype=torch.float32), rnd(m, dtype=torch.float32)
+    dy = rnd(rows, m, dtype=torch.float32)
+
+    def triple(name):
+        return lambda *a: gemm.ln_gemm(*a, triple=name)
+
+    mm = torch.matmul
+    return [
+        ("QKV [12608,768]x[768,2304] (LN pre-pass + engine)", triple("QKV"),
+         (x, w_eff, b_eff), 2.0 * rows * k * 3 * k, lambda a, w, *_: mm(a, w)),
+        ("TRANS_B g.wo^T [12608,768]x[768,768]^T", triple("TRANS_B"),
+         (g, wo), 2.0 * rows * k * k, lambda a, w: mm(a, w.t())),
+        ("TRANS_B_F32 dqkv.W_eff^T [12608,2304]x[768,2304]^T",
+         triple("TRANS_B_F32"), (dqkv, w_eff), 2.0 * rows * k * 3 * k,
+         lambda a, w: mm(a, w.t())),
+        ("TRANS_B_F32 g.w2^T [12608,768]x[3072,768]^T", triple("TRANS_B_F32"),
+         (g, w2), 2.0 * rows * k * m, lambda a, w: mm(a, w.t())),
+        ("TRANS_B_F32 dpre.w1^T [12608,3072]x[768,3072]^T",
+         triple("TRANS_B_F32"), (dpre, w1), 2.0 * rows * k * m,
+         lambda a, w: mm(a, w.t())),
+        ("DACT_F32 [12608,768]x[768,3072] (LN pre-pass + engine)",
+         lambda a, w, b, d: gemm.ln_gemm(a, w, b, d, triple="DACT_F32"),
+         (x, w1, b1, dy), 2.0 * rows * k * m, lambda a, w, *_: mm(a, w)),
+        ("gemm_at xn^T.dpre [12608,768]^T x [12608,3072]", gemm.gemm_at,
+         (x, dpre), 2.0 * rows * k * m, lambda a, b: mm(a.t(), b)),
+        ("gemm_at yact^T.g [12608,3072]^T x [12608,768]", gemm.gemm_at,
+         (dpre, g), 2.0 * rows * k * m, lambda a, b: mm(a.t(), b)),
+    ]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=HERE,
                     help="the checkout whose uml_tpu_torch is timed")
     args = ap.parse_args()
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         print("exp_torch_retime: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.abspath(args.root))
+    from uml_tpu_torch.models.encoders import ClipEncoder
     from uml_tpu_torch.ops import attention as at
+    from uml_tpu_torch.ops import fused_attention as fa
+    from uml_tpu_torch.ops import ln_matmul as lm
     from uml_tpu_torch.ops.layer_norm import layer_norm
 
     spec = importlib.util.spec_from_file_location(
@@ -59,6 +119,21 @@ def main() -> int:
                      for _ in range(3))
 
     q197, q2048, q128 = qkv(64, 12, 197, 64), qkv(8, 16, 2048, 64), qkv(8, 8, 1024, 128)
+    # one ViT-B/16 layer's weights and cotangents, and the text widths
+    wv = harness._block_weights(gen, 768, 3072, 768, dev)
+    attn_v = (wv["w_eff"], wv["b_eff"], wv["wo"], wv["bo"])
+    g = torch.randn(64, 197, 768, generator=gen, device=dev).to(bf)
+    g_cls = torch.randn(64, 1, 768, generator=gen, device=dev).to(bf)
+    dy = torch.matmul(g, wv["w2"].t())
+    _, qkv_v, _ = fa.attn_block_stash_plain(x, *attn_v, heads=12)
+    _, qkv_c, _ = fa.attn_block_stash_plain(x, *attn_v, heads=12, q_rows=1)
+    wt = harness._block_weights(gen, 512, 2048, 512, dev)
+    xt = torch.randn(64, 77, 512, generator=gen, device=dev).to(bf)
+    gt = torch.randn(64, 77, 512, generator=gen, device=dev).to(bf)
+    row7 = lambda *a: fa.attn_block_bwd_recompute(*a, heads=12)  # noqa: E731
+    row20 = lm.mlp_bwd_dw
+    row7_in = (x, g, *attn_v[:3])
+    row20_in = (x, g, wv["b1"], wv["w1"], wv["w2"])
     cases = {
         "layer_norm [64,197,768] bf16": (layer_norm, (x, scale, bias)),
         "F.layer_norm [64,197,768] bf16": (
@@ -71,6 +146,19 @@ def main() -> int:
         "flash_attention [8,8,1024,128]": (at.flash_attention, q128),
         "sdpa [64,12,197,64]": (F.scaled_dot_product_attention, q197),
         "sdpa [8,16,2048,64]": (F.scaled_dot_product_attention, q2048),
+        "row 1 attn_block": (lambda *a: fa.attn_block(*a, heads=12), (x, *attn_v)),
+        "row 2 attn_block_cls": (lambda *a: fa.attn_block_cls(*a, heads=12),
+                                 (x, *attn_v)),
+        "row 6 attn_block_bwd": (lambda *a: fa.attn_block_bwd(*a, heads=12),
+                                 (x, g, qkv_v, wv["w_eff"], wv["wo"])),
+        "row 7 attn_block_bwd_recompute": (row7, row7_in),
+        "row 7 causal, text widths": (
+            lambda *a: fa.attn_block_bwd_recompute(*a, heads=8, causal=True),
+            (xt, gt, wt["w_eff"], wt["b_eff"], wt["wo"])),
+        "row 8 attn_block_cls_bwd": (lambda *a: fa.attn_block_cls_bwd(*a, heads=12),
+                                     (x, g_cls, qkv_c, wv["w_eff"], wv["wo"])),
+        "row 19 mlp_bwd": (lm.mlp_bwd, (x, dy, wv["b1"], wv["w1"])),
+        "row 20 mlp_bwd_dw": (row20, row20_in),
     }
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -78,6 +166,32 @@ def main() -> int:
     out = {"card": card, "root": os.path.abspath(args.root)}
     for name, (fn, inputs) in cases.items():
         out[name] = harness._graph_time_ms(fn, harness._input_copies(inputs))
+    try:
+        from uml_tpu_torch.ops import gemm
+    except ImportError:     # a checkout from before the wgmma engine
+        gemm = None
+    if gemm is not None:
+        for name, fn, inputs, flops, cublas in _products(gemm, dev, gen):
+            copies = harness._input_copies(inputs)
+            ms = harness._graph_time_ms(fn, copies)
+            ref = harness._graph_time_ms(cublas, copies)
+            del copies
+            out[name] = ms
+            out[f"cuBLAS {name}"] = ref
+            print(f"[products] {name}: {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+                  f"TFLOP/s), cuBLAS {ref:.4f} ms ({flops / ref / 1e9:.1f}), "
+                  f"ratio {ms / ref:.2f}")
+    harness._profile("row 7 attn_block_bwd_recompute", lambda: row7(*row7_in),
+                     top=12)
+    harness._profile("row 20 mlp_bwd_dw", lambda: row20(*row20_in), top=12)
+
+    encoder = ClipEncoder("ViT-B/16", allow_random_init=True)
+    u8 = np.random.default_rng(0).integers(0, 256, (64, 224, 224, 3),
+                                           dtype=np.uint8)
+    staged, n = encoder.stage_images(u8)
+    ms = harness._time_ms(lambda: encoder.encode_staged(staged, n), iters=10)
+    out["encoder img/s bs64 bf16"] = 64 / (ms / 1e3)
+    harness._profile("image encoder", lambda: encoder.encode_staged(staged, n))
     print(json.dumps(out))
     return 0
 

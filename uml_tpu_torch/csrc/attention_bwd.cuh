@@ -9,9 +9,10 @@
 //   dattn [B, S, H*64] bf16, dO = g . wo^T (ln_gemm with TRANS_B)
 //   dqkv  [B, S, 3*H*64] bf16, written here
 //
-// The softmax statistics are recomputed from the stash exactly as the
-// forward kernel (attention.cuh) computes them: fp32 scores, fp32 row max,
-// e = exp(s - max) in fp32, 1/rowsum(e) in fp32.  With p = e / rowsum:
+// The softmax statistics are recomputed from the stash in fp32: the
+// scores, the row max m, l = rowsum(exp(s - m)), exact expf (the forward
+// takes the same statistics online with ex2.approx; the backward holds to
+// the plain version's exp).  With p = exp(s - m) / l:
 //   dV = p^T dO,  dP = dO V^T,  D = rowsum(p * dP),  dS = p * (dP - D),
 //   dQ = scale * dS K,  dK = scale * dS^T Q
 // p and dS are rounded to bf16 before their products (the tensor cores
@@ -21,29 +22,43 @@
 //
 // Two kernels split the work the FlashAttention-2 way, because Hopper's
 // blocks cannot carry a sum between them as the TPU's sequential grid
-// does:
-//   attn_bwd_dq:  one block per (image, head, 64 query rows): K and V of
-//     the head in shared memory (as in the forward), the fp32 scores and
-//     dP of the block's rows; writes dQ and each row's (max, 1/sum, D).
+// does; both stream the other side in 64-row tiles, so S has no bound:
+//   attn_bwd_dq:  one block per (image, head, 64 query rows), Q and dO of
+//     its rows in shared memory; it walks the key tiles twice, two lanes
+//     per query row (each every other key, one shuffle to combine), the
+//     row's statistics in registers.  Pass 1 takes them online: m, l and
+//     the numerator of D = rowsum(p * dP) = sum_j exp(s_j - m) dP_j / l,
+//     rescaled like l when m grows (the scores S = Q K^T and dP = dO V^T
+//     of each tile).  Pass 2 forms p and dS = p (dP - D) of each tile
+//     again and accumulates dQ = dS K in registers (wmma fragments); it
+//     writes dQ and each row's (m, 1/l, D).  D is the reference's
+//     rowsum(p * dP) in fp32, not FlashAttention-2's rowsum(dO * O) of
+//     the bf16 output.
 //   attn_bwd_dkv: one block per (image, head, 64 key rows): walks the
 //     query tiles, recomputes p and dS of its keys from those statistics,
 //     and accumulates dK and dV in registers (wmma fragments).
 // What bounds them on the H100: per (image, head) at S = 197 they do
-// ~5 x 2 x S x S x 64 FLOPs (25 MFLOP) over ~100 KB of qkv/dO, so they are
-// compute- and latency-bound; attn_bwd_dq takes ~188 KB of shared memory
-// at S = 197 (one block of 4 warps per SM), the first thing a faster
-// version would change.
+// ~6 x 2 x S x S x 64 FLOPs (30 MFLOP, the dq pass's two walks included)
+// over ~100 KB of qkv/dO, so they are compute- and latency-bound on
+// nvcuda::wmma; a wgmma attention backward is queued (ROADMAP).  attn_bwd_dq
+// takes ~79 KB of shared memory (two blocks per SM) for any S.
 //
 // cls_bwd: the CLS-only layer has one live query row per image, so per
 // (image, head) the scores are one [S] row, dV and dK are outer products
-// and dQ is one row; one block per (image, head) on the CUDA cores.
+// and dQ is one row; one block per (image, head) on the CUDA cores,
+// walking S three times (the max; the sum and D; then p, dS, dK, dV and
+// dQ in chunks of 128 keys): any S.
 //
 // ln_bwd: dx = rstd * (dxn - mean(dxn) - xn * mean(dxn * xn)) + g, the LN
 // backward of the prologue (the LN scale/bias are folded into W_eff, so
-// the raw LN's backward is all that is left), one warp per row; it also
-// writes xn (bf16), which the dW_eff product outside reads.  With g null
-// it leaves the residual out (the MLP backward of _mlp_bwd_kernel, whose
-// residual is added outside).
+// the raw LN's backward is all that is left), one warp per row, with the
+// statistics of ln_gemm.cuh's ln_row_stats.  It writes xn (bf16), which
+// the dW_eff product outside reads, unless the caller passes no xn
+// buffer: where the LN pre-pass of the engine already wrote it (the
+// recompute backward, the MLP dW backward), ln_bwd skips the copy, and the
+// two are the same values (the same statistics, the same rounding).
+// With g null it leaves the residual out (the MLP backward of
+// _mlp_bwd_kernel, whose residual is added outside).
 //
 // The __global__ functions here are static or templates: the header is
 // included by more than one .cu file (attn_block_bwd.cu, mlp_block_bwd.cu).
@@ -61,16 +76,15 @@
 
 namespace uml {
 
-constexpr int ATTB_MAX_SPAD = 256;  // shared-memory bound of attn_bwd_dq, see below
-constexpr int ATTB_MAXT = ATTB_MAX_SPAD / 32;
-constexpr int ATTB_LDT = ATT_BQ + 4;  // fp32 row stride of the dkv kernel's per-warp tiles
+constexpr int ATTB_BK = 64;                 // keys per tile of the dq pass
+constexpr int ATTB_LDS = ATTB_BK + 4;       // fp32 row stride of its score tiles
+constexpr int ATTB_LDT = ATT_BQ + 4;        // fp32 row stride of the dkv kernel's per-warp tiles
 
-static inline size_t attn_bwd_dq_smem_bytes(int s) {
-  const int sp = attention_spad(s);
-  return (size_t)2 * sp * ATT_LDK * 2            // K, V
-         + (size_t)2 * ATT_BQ * ATT_LDK * 2      // Q, dO
-         + (size_t)2 * ATT_BQ * attention_lds(s) * 4;  // fp32 scores/p, dP (dS aliases dP)
-}
+// shared memory of attn_bwd_dq: Q, dO, K, V tiles (bf16), the fp32 scores
+// and dP of the block's rows against one key tile, the bf16 dS tile
+constexpr size_t ATTB_DQ_SMEM = (size_t)4 * ATT_BQ * ATT_LDK * 2 +
+                                (size_t)2 * ATT_BQ * ATTB_LDS * 4 +
+                                (size_t)ATT_BQ * ATT_LDK * 2;
 
 template <bool CAUSAL>
 __global__ void __launch_bounds__(ATT_THREADS)
@@ -80,15 +94,13 @@ attn_bwd_dq_kernel(const __nv_bfloat16* __restrict__ qkv,
                    int H, float scale) {
   using namespace nvcuda;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int sp = attention_spad(S);
-  const int lds = attention_lds(S);
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Vs = Ks + sp * ATT_LDK;
-  __nv_bfloat16* Qs = Vs + sp * ATT_LDK;
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* dOs = Qs + ATT_BQ * ATT_LDK;
-  float* Ps = reinterpret_cast<float*>(dOs + ATT_BQ * ATT_LDK);  // scores, then p
-  float* dPs = Ps + ATT_BQ * lds;                                  // dP
-  __nv_bfloat16* dSs = reinterpret_cast<__nv_bfloat16*>(dPs);      // dS, row stride 2*lds
+  __nv_bfloat16* Ks = dOs + ATT_BQ * ATT_LDK;
+  __nv_bfloat16* Vs = Ks + ATTB_BK * ATT_LDK;
+  float* Ss = reinterpret_cast<float*>(Vs + ATTB_BK * ATT_LDK);  // scores, later dQ
+  float* dPs = Ss + ATT_BQ * ATTB_LDS;
+  __nv_bfloat16* dSs = reinterpret_cast<__nv_bfloat16*>(dPs + ATT_BQ * ATTB_LDS);
 
   const int b = blockIdx.x;
   const int h = blockIdx.y;
@@ -101,17 +113,6 @@ attn_bwd_dq_kernel(const __nv_bfloat16* __restrict__ qkv,
   const int warp = tid >> 5;
   const int lane = tid & 31;
 
-  for (int idx = tid; idx < sp * 8; idx += ATT_THREADS) {
-    const int r = idx >> 3, c = (idx & 7) * 8;
-    uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-    if (r < S) {
-      const __nv_bfloat16* src = base + r * row_stride + h * ATT_D + c;
-      kv = *reinterpret_cast<const uint4*>(src + hd);
-      vv = *reinterpret_cast<const uint4*>(src + 2 * hd);
-    }
-    *reinterpret_cast<uint4*>(Ks + r * ATT_LDK + c) = kv;
-    *reinterpret_cast<uint4*>(Vs + r * ATT_LDK + c) = vv;
-  }
   for (int idx = tid; idx < ATT_BQ * 8; idx += ATT_THREADS) {
     const int r = idx >> 3, c = (idx & 7) * 8;
     const int qi = q0 + r;
@@ -123,116 +124,150 @@ attn_bwd_dq_kernel(const __nv_bfloat16* __restrict__ qkv,
     *reinterpret_cast<uint4*>(Qs + r * ATT_LDK + c) = qv;
     *reinterpret_cast<uint4*>(dOs + r * ATT_LDK + c) = ov;
   }
-  __syncthreads();
-
-  // warp w owns query rows 16w .. 16w+15 of the tile; warp-local from here
+  // the statistics of the lane's row (lanes 2r, 2r+1 hold the same):
+  // the running max, the sum of exp(s - m) and that of exp(s - m) dP
+  float row_m = -CUDART_INF_F, row_l = 0.f, row_dn = 0.f;
+  // causal: key tiles past the block's last query row have p = 0
+  const int q_last = min(S, q0 + ATT_BQ) - 1;
+  const int n_tiles = CAUSAL ? q_last / ATTB_BK + 1 : (S + ATTB_BK - 1) / ATTB_BK;
+  // warp w owns query rows 16w .. 16w+15 of the tile
   const int wr = warp * 16;
-  if (q0 + wr >= S) return;
-  {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fq[ATT_D / 16];
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fo[ATT_D / 16];
-#pragma unroll
-    for (int kk = 0; kk < ATT_D / 16; ++kk) {
-      wmma::load_matrix_sync(fq[kk], Qs + wr * ATT_LDK + 16 * kk, ATT_LDK);
-      wmma::load_matrix_sync(fo[kk], dOs + wr * ATT_LDK + 16 * kk, ATT_LDK);
-    }
-    for (int n = 0; n < sp / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc_s, acc_p;
-      wmma::fill_fragment(acc_s, 0.f);
-      wmma::fill_fragment(acc_p, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < ATT_D / 16; ++kk) {
-        // K^T and V^T as column-major B operands are K and V row-major
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fk, fv;
-        wmma::load_matrix_sync(fk, Ks + 16 * n * ATT_LDK + 16 * kk, ATT_LDK);
-        wmma::load_matrix_sync(fv, Vs + 16 * n * ATT_LDK + 16 * kk, ATT_LDK);
-        wmma::mma_sync(acc_s, fq[kk], fk, acc_s);
-        wmma::mma_sync(acc_p, fo[kk], fv, acc_p);
-      }
-      wmma::store_matrix_sync(Ps + wr * lds + 16 * n, acc_s, lds, wmma::mem_row_major);
-      wmma::store_matrix_sync(dPs + wr * lds + 16 * n, acc_p, lds, wmma::mem_row_major);
-    }
-  }
-  __syncwarp();
+  const bool live = q0 + wr < S;
 
-  // per row: the forward's softmax statistics, D = rowsum(p * dP), dS
-  for (int rr = 0; rr < 16; ++rr) {
-    const int r = wr + rr;
-    const int qi = q0 + r;
-    float sv[ATTB_MAXT], dp[ATTB_MAXT];
-    float mx = -CUDART_INF_F;
+  wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fq[ATT_D / 16];
+  wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fo[ATT_D / 16];
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> dq[ATT_D / 16];
 #pragma unroll
-    for (int t = 0; t < ATTB_MAXT; ++t) {
-      const int j = lane + 32 * t;
-      float v = -CUDART_INF_F;
-      dp[t] = 0.f;
-      if (qi < S && j < S && (!CAUSAL || j <= qi)) {
-        v = Ps[r * lds + j] * scale;
-        dp[t] = dPs[r * lds + j];
-      }
-      sv[t] = v;
-      mx = fmaxf(mx, v);
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    float sum = 0.f;
-#pragma unroll
-    for (int t = 0; t < ATTB_MAXT; ++t) {
-      const float e = (sv[t] == -CUDART_INF_F) ? 0.f : expf(sv[t] - mx);
-      sv[t] = e;
-      sum += e;
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    const float linv = sum > 0.f ? 1.f / sum : 0.f;
-    float dsum = 0.f;
-#pragma unroll
-    for (int t = 0; t < ATTB_MAXT; ++t) {
-      sv[t] *= linv;  // p
-      dsum += sv[t] * dp[t];
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) dsum += __shfl_xor_sync(0xffffffffu, dsum, o);
-    __syncwarp();  // every lane has read the fp32 dP row before dS overwrites it
-    __nv_bfloat16* dsrow = dSs + r * (2 * lds);
-#pragma unroll
-    for (int t = 0; t < ATTB_MAXT; ++t) {
-      const int j = lane + 32 * t;
-      if (j < sp) dsrow[j] = __float2bfloat16(sv[t] * (dp[t] - dsum));
-    }
-    if (lane == 0 && qi < S)
-      stats[((long long)b * H + h) * S + qi] = make_float4(mx, linv, dsum, 0.f);
-    __syncwarp();
-  }
+  for (int c = 0; c < ATT_D / 16; ++c) wmma::fill_fragment(dq[c], 0.f);
 
-  // dQ = scale * dS . K for the warp's 16 rows
-  {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[ATT_D / 16];
+  for (int pass = 0; pass < 2; ++pass) {
+    for (int t = 0; t < n_tiles; ++t) {
+      const int k0 = t * ATTB_BK;
+      __syncthreads();  // the previous tile's K / V reads (and the Q / dO stores) are done
+      for (int idx = tid; idx < ATTB_BK * 8; idx += ATT_THREADS) {
+        const int r = idx >> 3, c = (idx & 7) * 8;
+        uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
+        if (k0 + r < S) {
+          const __nv_bfloat16* src = base + (k0 + r) * row_stride + h * ATT_D + c;
+          kv = *reinterpret_cast<const uint4*>(src + hd);
+          vv = *reinterpret_cast<const uint4*>(src + 2 * hd);
+        }
+        *reinterpret_cast<uint4*>(Ks + r * ATT_LDK + c) = kv;
+        *reinterpret_cast<uint4*>(Vs + r * ATT_LDK + c) = vv;
+      }
+      __syncthreads();
+      if (!live) continue;
+      if (pass == 0 && t == 0) {
 #pragma unroll
-    for (int c = 0; c < ATT_D / 16; ++c) wmma::fill_fragment(acc[c], 0.f);
-    for (int kt = 0; kt < sp / 16; ++kt) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fs;
-      wmma::load_matrix_sync(fs, dSs + wr * (2 * lds) + 16 * kt, 2 * lds);
+        for (int kk = 0; kk < ATT_D / 16; ++kk) {
+          wmma::load_matrix_sync(fq[kk], Qs + wr * ATT_LDK + 16 * kk, ATT_LDK);
+          wmma::load_matrix_sync(fo[kk], dOs + wr * ATT_LDK + 16 * kk, ATT_LDK);
+        }
+      }
+      // S = Q K^T and dP = dO V^T of the warp's 16 rows against the tile
 #pragma unroll
-      for (int c = 0; c < ATT_D / 16; ++c) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fk;
-        wmma::load_matrix_sync(fk, Ks + 16 * kt * ATT_LDK + 16 * c, ATT_LDK);
-        wmma::mma_sync(acc[c], fs, fk, acc[c]);
+      for (int n = 0; n < ATTB_BK / 16; ++n) {
+        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc_s, acc_p;
+        wmma::fill_fragment(acc_s, 0.f);
+        wmma::fill_fragment(acc_p, 0.f);
+#pragma unroll
+        for (int kk = 0; kk < ATT_D / 16; ++kk) {
+          // K^T and V^T as column-major B operands are K and V row-major
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fk, fv;
+          wmma::load_matrix_sync(fk, Ks + 16 * n * ATT_LDK + 16 * kk, ATT_LDK);
+          wmma::load_matrix_sync(fv, Vs + 16 * n * ATT_LDK + 16 * kk, ATT_LDK);
+          wmma::mma_sync(acc_s, fq[kk], fk, acc_s);
+          wmma::mma_sync(acc_p, fo[kk], fv, acc_p);
+        }
+        wmma::store_matrix_sync(Ss + wr * ATTB_LDS + 16 * n, acc_s, ATTB_LDS,
+                                wmma::mem_row_major);
+        wmma::store_matrix_sync(dPs + wr * ATTB_LDS + 16 * n, acc_p, ATTB_LDS,
+                                wmma::mem_row_major);
+      }
+      __syncwarp();
+      // the lane's row: lanes 2r and 2r+1 share row r of the warp's 16,
+      // each taking every other key of the tile (32 each)
+      {
+        const int r = wr + (lane >> 1);
+        const int qi = q0 + r;
+        const int h2 = lane & 1;
+        const float* srow = Ss + r * ATTB_LDS + h2;
+        const float* prow = dPs + r * ATTB_LDS + h2;
+        // keys k0 + 2c + h2 < S (and, causal, <= qi) are valid
+        const int lim = min(S, CAUSAL ? qi + 1 : S) - k0 - h2;  // 2c < lim
+        if (pass == 0) {
+          float mx = -CUDART_INF_F;
+#pragma unroll 8
+          for (int c = 0; c < ATTB_BK / 2; ++c)
+            if (qi < S && 2 * c < lim) mx = fmaxf(mx, srow[2 * c] * scale);
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          const float m_new = fmaxf(row_m, mx);
+          // a row with no valid key so far keeps m = -inf, l = 0
+          const float m_use = m_new == -CUDART_INF_F ? 0.f : m_new;
+          float e = 0.f, ed = 0.f;
+#pragma unroll 8
+          for (int c = 0; c < ATTB_BK / 2; ++c) {
+            if (qi < S && 2 * c < lim) {
+              const float x = expf(srow[2 * c] * scale - m_use);
+              e += x;
+              ed += x * prow[2 * c];
+            }
+          }
+          e += __shfl_xor_sync(0xffffffffu, e, 1);
+          ed += __shfl_xor_sync(0xffffffffu, ed, 1);
+          const float alpha = row_m == -CUDART_INF_F ? 0.f : expf(row_m - m_use);
+          row_l = row_l * alpha + e;
+          row_dn = row_dn * alpha + ed;
+          row_m = m_new;
+        } else {
+          const float linv = row_l > 0.f ? 1.f / row_l : 0.f;
+          const float dsum = row_dn * linv;
+          __nv_bfloat16* dsrow = dSs + r * ATT_LDK + h2;
+#pragma unroll 8
+          for (int c = 0; c < ATTB_BK / 2; ++c) {
+            float ds = 0.f;
+            if (qi < S && 2 * c < lim)
+              ds = expf(srow[2 * c] * scale - row_m) * linv * (prow[2 * c] - dsum);
+            dsrow[2 * c] = __float2bfloat16(ds);
+          }
+        }
+      }
+      if (pass == 1) {
+        __syncwarp();
+        // dQ += dS K for the warp's 16 rows
+#pragma unroll
+        for (int kt = 0; kt < ATTB_BK / 16; ++kt) {
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fs;
+          wmma::load_matrix_sync(fs, dSs + wr * ATT_LDK + 16 * kt, ATT_LDK);
+#pragma unroll
+          for (int c = 0; c < ATT_D / 16; ++c) {
+            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fk;
+            wmma::load_matrix_sync(fk, Ks + 16 * kt * ATT_LDK + 16 * c, ATT_LDK);
+            wmma::mma_sync(dq[c], fs, fk, dq[c]);
+          }
+        }
+        __syncwarp();  // dS is read before the next tile's rows overwrite it
       }
     }
-    // the scores/p buffer is free: the warp's dQ rows go there
-#pragma unroll
-    for (int c = 0; c < ATT_D / 16; ++c)
-      wmma::store_matrix_sync(Ps + wr * lds + 16 * c, acc[c], lds, wmma::mem_row_major);
   }
+  if (!live) return;
+  // the score tile is free: the warp's dQ rows go there
+#pragma unroll
+  for (int c = 0; c < ATT_D / 16; ++c)
+    wmma::store_matrix_sync(Ss + wr * ATTB_LDS + 16 * c, dq[c], ATTB_LDS, wmma::mem_row_major);
   __syncwarp();
   for (int rr = 0; rr < 16; ++rr) {
     const int qi = q0 + wr + rr;
     if (qi >= S) break;
-    const float2 o = *reinterpret_cast<const float2*>(Ps + (wr + rr) * lds + 2 * lane);
+    const float2 o = *reinterpret_cast<const float2*>(Ss + (wr + rr) * ATTB_LDS + 2 * lane);
     *reinterpret_cast<__nv_bfloat162*>(dqkv + ((long long)b * S + qi) * row_stride + h * ATT_D +
                                        2 * lane) =
         __floats2bfloat162_rn(o.x * scale, o.y * scale);
+  }
+  const int qi = q0 + wr + (lane >> 1);
+  if ((lane & 1) == 0 && qi < S) {
+    const float linv = row_l > 0.f ? 1.f / row_l : 0.f;
+    stats[((long long)b * H + h) * S + qi] = make_float4(row_m, linv, row_dn * linv, 0.f);
   }
 }
 
@@ -392,8 +427,7 @@ attn_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ qkv,
   }
 }
 
-constexpr int CLSB_THREADS = 128;
-constexpr int CLSB_MAX_S = 512;
+constexpr int CLSB_THREADS = 128;  // and keys per chunk of the last walk
 
 __device__ inline float block_sum(float v, float* red) {
 #pragma unroll
@@ -419,14 +453,14 @@ __device__ inline float block_max(float v, float* red) {
   return t;
 }
 
-// CLS-only attention backward, one block per (image, head).
+// CLS-only attention backward, one block per (image, head), any S.
 //   dattn [B, H*64] bf16: dO of each image's CLS row
 static __global__ void __launch_bounds__(CLSB_THREADS)
 cls_bwd_kernel(const __nv_bfloat16* __restrict__ qkv, const __nv_bfloat16* __restrict__ dattn,
                __nv_bfloat16* __restrict__ dqkv, int S, int H, float scale) {
   __shared__ float q0[ATT_D], dO[ATT_D], dq_part[CLSB_THREADS];
-  // p and dS hold bf16-rounded values (the operands of the products)
-  __shared__ float sc[CLSB_MAX_S], dp[CLSB_MAX_S], pb[CLSB_MAX_S], dsb[CLSB_MAX_S];
+  // p and dS of the chunk's keys, rounded to bf16 (the operands of the products)
+  __shared__ float pb[CLSB_THREADS], dsb[CLSB_THREADS];
   __shared__ float red[CLSB_THREADS / 32];
   const int b = blockIdx.x;
   const int h = blockIdx.y;
@@ -441,8 +475,8 @@ cls_bwd_kernel(const __nv_bfloat16* __restrict__ qkv, const __nv_bfloat16* __res
     dO[tid] = __bfloat162float(dattn[(long long)b * hd + h * ATT_D + tid]);
   }
   __syncthreads();
-  float mx = -CUDART_INF_F;
-  for (int j = tid; j < S; j += CLSB_THREADS) {
+  // key j's scaled score and dP = dO . v_j
+  auto score = [&](int j, float& sc, float& dp) {
     const __nv_bfloat16* kr = base + j * row_stride + hd + h * ATT_D;
     const __nv_bfloat16* vr = kr + hd;
     float s = 0.f, d = 0.f;
@@ -456,57 +490,69 @@ cls_bwd_kernel(const __nv_bfloat16* __restrict__ qkv, const __nv_bfloat16* __res
         d += dO[c + i] * __bfloat162float(vp.h[i]);
       }
     }
-    sc[j] = s * scale;
-    dp[j] = d;
-    mx = fmaxf(mx, s * scale);
+    sc = s * scale;
+    dp = d;
+  };
+  float mx = -CUDART_INF_F;
+  for (int j = tid; j < S; j += CLSB_THREADS) {
+    float sc, dp;
+    score(j, sc, dp);
+    mx = fmaxf(mx, sc);
   }
   mx = block_max(mx, red);
-  float sum = 0.f;
+  float sum = 0.f, dn = 0.f;
   for (int j = tid; j < S; j += CLSB_THREADS) {
-    const float e = expf(sc[j] - mx);
-    sc[j] = e;
+    float sc, dp;
+    score(j, sc, dp);
+    const float e = expf(sc - mx);
     sum += e;
+    dn += e * dp;
   }
   sum = block_sum(sum, red);
+  dn = block_sum(dn, red);
   const float linv = 1.f / sum;
-  float dsum = 0.f;
-  for (int j = tid; j < S; j += CLSB_THREADS) {
-    const float p = sc[j] * linv;
-    sc[j] = p;
-    dsum += p * dp[j];
-  }
-  dsum = block_sum(dsum, red);
-  for (int j = tid; j < S; j += CLSB_THREADS) {
-    pb[j] = __bfloat162float(__float2bfloat16(sc[j]));
-    dsb[j] = __bfloat162float(__float2bfloat16(sc[j] * (dp[j] - dsum)));
-  }
-  __syncthreads();
+  const float dsum = dn * linv;  // D = rowsum(p * dP)
 
-  // dQ (row 0): thread pair (c, half) sums half of the keys for column c
-  {
-    const int c = tid & (ATT_D - 1), half = tid >> 6;
-    float acc = 0.f;
-    for (int j = half; j < S; j += 2)
-      acc += dsb[j] * __bfloat162float(base[j * row_stride + hd + h * ATT_D + c]);
-    dq_part[tid] = acc;
+  // in chunks of CLSB_THREADS keys: p and dS, dK and dV rows (outer
+  // products; the q section of rows 1.. is zero), dQ (row 0): thread pair
+  // (c, half) sums half of the keys for column c
+  const int c = tid & (ATT_D - 1), half = tid >> 6;
+  float dq_acc = 0.f;
+  for (int j0 = 0; j0 < S; j0 += CLSB_THREADS) {
+    const int j = j0 + tid;
+    float p = 0.f, ds = 0.f;
+    if (j < S) {
+      float sc, dp;
+      score(j, sc, dp);
+      p = expf(sc - mx) * linv;
+      ds = p * (dp - dsum);
+    }
+    __syncthreads();  // the previous chunk's pb / dsb reads are done
+    pb[tid] = __bfloat162float(__float2bfloat16(p));
+    dsb[tid] = __bfloat162float(__float2bfloat16(ds));
+    __syncthreads();
+    const int n = min(CLSB_THREADS, S - j0);
+    for (int i = half; i < n; i += 2)
+      dq_acc += dsb[i] * __bfloat162float(base[(j0 + i) * row_stride + hd + h * ATT_D + c]);
+    for (int idx = tid; idx < n * ATT_D; idx += CLSB_THREADS) {
+      const int i = idx / ATT_D, cc = idx % ATT_D;
+      __nv_bfloat16* dst = dbase + (j0 + i) * row_stride + h * ATT_D + cc;
+      if (j0 + i > 0) dst[0] = __float2bfloat16(0.f);
+      dst[hd] = __float2bfloat16(dsb[i] * q0[cc] * scale);
+      dst[2 * hd] = __float2bfloat16(pb[i] * dO[cc]);
+    }
   }
+  dq_part[tid] = dq_acc;
   __syncthreads();
   if (tid < ATT_D)
     dbase[h * ATT_D + tid] = __float2bfloat16((dq_part[tid] + dq_part[tid + ATT_D]) * scale);
-  // dK, dV: outer products; the q section of rows 1.. is zero
-  for (int idx = tid; idx < S * ATT_D; idx += CLSB_THREADS) {
-    const int j = idx / ATT_D, c = idx % ATT_D;
-    __nv_bfloat16* dst = dbase + j * row_stride + h * ATT_D + c;
-    if (j > 0) dst[0] = __float2bfloat16(0.f);
-    dst[hd] = __float2bfloat16(dsb[j] * q0[c] * scale);
-    dst[2 * hd] = __float2bfloat16(pb[j] * dO[c]);
-  }
 }
 
 constexpr int LNB_THREADS = 128;  // 4 rows per block, one warp each
 
 // LN backward of the raw-LN prologue, one warp per row of x [rows, K]:
 //   dx = rstd * (dxn - mean(dxn) - xn * mean(dxn * xn)) + g;  xn -> bf16
+//   unless xn is null
 // g_every = 1: g has one row per x row; g_every = S: only row 0 of each
 // image has a cotangent (the CLS layer), g [rows / S, K]; g null: none.
 static __global__ void __launch_bounds__(LNB_THREADS)
@@ -518,24 +564,8 @@ ln_bwd_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ dxn
   if (row >= rows) return;
   const __nv_bfloat16* xr = x + (long long)row * K;
   const float* dr = dxn + (long long)row * K;
-  float s = 0.f, ss = 0.f;
-  for (int c = lane * 8; c < K; c += 32 * 8) {
-    Pack8 p;
-    p.u = *reinterpret_cast<const uint4*>(xr + c);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float v = __bfloat162float(p.h[i]);
-      s += v;
-      ss += v * v;
-    }
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    s += __shfl_xor_sync(0xffffffffu, s, o);
-    ss += __shfl_xor_sync(0xffffffffu, ss, o);
-  }
-  const float mean = s / K;
-  const float rstd = rsqrtf(fmaxf(ss / K - mean * mean, 0.f) + eps);
+  float mean, rstd;
+  ln_row_stats(xr, K, eps, mean, rstd);
   float m1 = 0.f, m2 = 0.f;
   for (int c = lane * 8; c < K; c += 32 * 8) {
     Pack8 p, o;
@@ -548,7 +578,7 @@ ln_bwd_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ dxn
       m2 += d * n;
       o.h[i] = __float2bfloat16(n);
     }
-    *reinterpret_cast<uint4*>(xn + (long long)row * K + c) = o.u;
+    if (xn != nullptr) *reinterpret_cast<uint4*>(xn + (long long)row * K + c) = o.u;
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
@@ -575,8 +605,7 @@ ln_bwd_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ dxn
 static inline cudaError_t launch_attn_bwd(const __nv_bfloat16* qkv, const __nv_bfloat16* dattn,
                                           float4* stats, __nv_bfloat16* dqkv, int B, int S,
                                           int H, bool causal, cudaStream_t stream) {
-  if (attention_spad(S) > ATTB_MAX_SPAD) return cudaErrorInvalidValue;
-  const size_t smem = attn_bwd_dq_smem_bytes(S);
+  const size_t smem = ATTB_DQ_SMEM;
   const dim3 grid(B, H, (S + ATT_BQ - 1) / ATT_BQ);
   const float scale = 0.125f;  // 1 / sqrt(64)
 #define UML_ATTB_LAUNCH(C)                                                                    \
@@ -601,7 +630,6 @@ static inline cudaError_t launch_attn_bwd(const __nv_bfloat16* qkv, const __nv_b
 static inline cudaError_t launch_cls_bwd(const __nv_bfloat16* qkv, const __nv_bfloat16* dattn,
                                          __nv_bfloat16* dqkv, int B, int S, int H,
                                          cudaStream_t stream) {
-  if (S > CLSB_MAX_S) return cudaErrorInvalidValue;
   cls_bwd_kernel<<<dim3(B, H), CLSB_THREADS, 0, stream>>>(qkv, dattn, dqkv, S, H, 0.125f);
   return cudaGetLastError();
 }

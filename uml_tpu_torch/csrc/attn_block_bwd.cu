@@ -19,11 +19,13 @@
 //
 // uml_attn_block_bwd_recompute replaces ::_block_bwd_kernel (via
 // _block_bwd_call), the backward with no stash (UML_BWD_STASH=0, and every
-// causal layer): it first recomputes qkv and the attention output with
-// the forward's own launches (run_qkv_attention: the LN-prologue QKV
-// ln_gemm and the attention kernel, on the same inputs, so both equal the
-// forward's bit for bit and the softmax statistics the backward rebuilds
-// are the forward's), then runs the stash backward above on them.  The
+// causal layer): it first recomputes xn, qkv and the attention output with
+// the forward's own launches (run_qkv_attention: the LN row pre-pass, the
+// QKV product on the wgmma engine and flash_attention.cu, on the same
+// inputs, so all three equal the forward's bit for bit), then runs the
+// stash backward above on them; its LN backward skips writing xn, which
+// the pre-pass wrote (the same values: ln_gemm.cuh's ln_row_stats and one
+// rounding).  The
 // attention output goes out too, as the TPU kernel's fourth output: dwo =
 // attn^T g reads it.  The TPU kernel keeps the recomputed qkv and scores
 // in VMEM; here qkv (58 MB at ViT-B/16 B=64) and attn (19 MB) make a round
@@ -33,10 +35,13 @@
 // dW_eff = xn^T dqkv, dwo = attn^T g and the bias sums stay outside, as
 // the TPU package leaves them to XLA dots (fused_attention.py:1586-1594).
 //
-// At ViT-B/16 B=64 the four launches read and write ~0.2 GB per layer
-// (qkv and dqkv 58 MB each, dxn 39 MB in fp32, x, g, dx, xn 19 MB each)
-// beside ~110 GFLOP (the two projections 89, attention 21): the
-// projections run on ln_gemm's wmma tiles and bound the time.
+// At ViT-B/16 B=64 the recompute's eight launches read and write ~0.35 GB
+// per layer (qkv and dqkv 58 MB each, dxn 39 MB in fp32, x, g, dx, xn,
+// attn, dattn 19 MB each) beside ~150 GFLOP (the three projections 104,
+// attention 7.6 forward and 19 backward).  Every product runs on the
+// wgmma engine (wgmma_gemm.cuh through ln_gemm.cuh's triples), the
+// attention forward on flash_attention.cu; the attention backward
+// (attention_bwd.cuh, wmma) is what bounds the time now.
 
 #include "attention_bwd.cuh"
 #include "blocks.cuh"
@@ -44,9 +49,9 @@
 namespace uml {
 
 // Attention half backward from the stash (every query row live):
-//   g [B, S, K] -> dx [B, S, K], dqkv [B*S, 3*H*64], xn [B, S, K];
-//   dattn [B*S, H*64] bf16, stats [B*H*S] float4 and dxn [B*S, K] fp32
-//   are scratch.
+//   g [B, S, K] -> dx [B, S, K], dqkv [B*S, 3*H*64], xn [B, S, K] (unless
+//   write_xn is false: the caller's pre-pass wrote it); dattn [B*S, H*64]
+//   bf16, stats [B*H*S] float4 and dxn [B*S, K] fp32 are scratch.
 static inline cudaError_t run_attn_block_bwd(const __nv_bfloat16* x, const __nv_bfloat16* g,
                                              const __nv_bfloat16* qkv,
                                              const __nv_bfloat16* w_eff,
@@ -54,7 +59,7 @@ static inline cudaError_t run_attn_block_bwd(const __nv_bfloat16* x, const __nv_
                                              float4* stats, float* dxn, __nv_bfloat16* dqkv,
                                              __nv_bfloat16* dx, __nv_bfloat16* xn, int B, int S,
                                              int K, int H, bool causal, float eps,
-                                             cudaStream_t stream) {
+                                             cudaStream_t stream, bool write_xn = true) {
   const int hd = H * ATT_D;
   const int rows = B * S;
   UML_TRY(launch_ln_gemm(g, wo, nullptr, nullptr, dattn, rows, hd, K, 0, PRO_NONE, EPI_NONE, eps,
@@ -62,19 +67,21 @@ static inline cudaError_t run_attn_block_bwd(const __nv_bfloat16* x, const __nv_
   UML_TRY(launch_attn_bwd(qkv, dattn, stats, dqkv, B, S, H, causal, stream));
   UML_TRY(launch_ln_gemm(dqkv, w_eff, nullptr, nullptr, dxn, rows, K, 3 * hd, 0, PRO_NONE,
                          EPI_F32, eps, stream, true));
-  return launch_ln_bwd(x, dxn, g, dx, xn, rows, K, 1, eps, stream);
+  return launch_ln_bwd(x, dxn, g, dx, write_xn ? xn : nullptr, rows, K, 1, eps, stream);
 }
 
-// Attention half backward with no stash: recompute qkv [B*S, 3*H*64] and
-// attn [B*S, H*64] (outputs) from x as the forward does, then as above.
+// Attention half backward with no stash: recompute xn [B*S, K], qkv
+// [B*S, 3*H*64] and attn [B*S, H*64] (outputs) from x as the forward
+// does, then as above.
 static inline cudaError_t run_attn_block_bwd_recompute(
     const __nv_bfloat16* x, const __nv_bfloat16* g, const __nv_bfloat16* w_eff,
     const float* b_eff, const __nv_bfloat16* wo, __nv_bfloat16* qkv, __nv_bfloat16* attn,
     __nv_bfloat16* dattn, float4* stats, float* dxn, __nv_bfloat16* dqkv, __nv_bfloat16* dx,
     __nv_bfloat16* xn, int B, int S, int K, int H, bool causal, float eps, cudaStream_t stream) {
-  UML_TRY(run_qkv_attention(x, w_eff, b_eff, qkv, attn, B, S, K, H, causal, S, eps, stream));
+  UML_TRY(run_qkv_attention(x, w_eff, b_eff, xn, qkv, attn, B, S, K, H, causal, S, eps,
+                            stream));
   return run_attn_block_bwd(x, g, qkv, w_eff, wo, dattn, stats, dxn, dqkv, dx, xn, B, S, K, H,
-                            causal, eps, stream);
+                            causal, eps, stream, false);
 }
 
 // CLS-only attention half backward: g [B, 1, K] (the CLS row of each

@@ -5,9 +5,10 @@
 // not, with the out-projection int8 (q8_out: the attention output
 // row-quantized, the serving default) or bf16 (q8_out = 0, the int8_qkv
 // mode).  Launches (blocks.cuh::run_attn_block_q8): ln_quantize_rows, the
-// QKV q8_gemm (bf16 epilogue with b_eff), the attention kernel of the bf16
-// path (attention.cuh), then quantize_rows + the out-projection q8_gemm
-// with the residual epilogue, or the bf16 out-projection ln_gemm.
+// QKV q8_gemm (bf16 epilogue with b_eff), the attention of the bf16 path
+// (flash_attention.cu through attention.cuh), then quantize_rows + the
+// out-projection q8_gemm with the residual epilogue, or the bf16
+// out-projection ln_gemm.
 //
 // The quantized attention output is the attention kernel's bf16 output,
 // as in uml_tpu's jnp reference (mha_reference returns bf16); the Pallas

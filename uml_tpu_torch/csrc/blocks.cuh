@@ -1,5 +1,5 @@
 // Host-side compositions of the hand-written kernels into the CLIP
-// half-blocks.  Each returns the first launch error (cudaGetLastError()
+// half-blocks (UML_TRY, in ln_gemm.cuh, returns the first launch error).  Each returns the first launch error (cudaGetLastError()
 // after every launch) or cudaSuccess; nothing here synchronises or
 // allocates: the Python wrappers pass every buffer in.
 
@@ -12,38 +12,36 @@
 
 namespace uml {
 
-#define UML_TRY(call)                        \
-  do {                                       \
-    const cudaError_t uml_err_ = (call);     \
-    if (uml_err_ != cudaSuccess) return uml_err_; \
-  } while (0)
-
 // Attention half: out = x[:, :q_rows] + MHA(rawLN(x) . w_eff + b_eff) . wo + bo
-//   x [B, S, K]; w_eff [K, 3*H*64]; wo [H*64, K]; qkv [B*S, 3*H*64] and
-//   attn [B*q_rows, H*64] are scratch; out [B, q_rows, K].
+//   x [B, S, K]; w_eff [K, 3*H*64]; wo [H*64, K]; xn [B*S, K], qkv
+//   [B*S, 3*H*64] and attn [B*q_rows, H*64] are scratch; out [B, q_rows, K].
 //   q_rows is S (every query row) or 1 (the CLS row of the last image layer).
-// The first two launches of the attention half: qkv = rawLN(x) . w_eff +
-// b_eff and attn = MHA(qkv) for the first q_rows query rows.  The
+// The first launches of the attention half: xn = bf16(rawLN(x)) (the row
+// pre-pass), qkv = xn . w_eff + b_eff (the wgmma engine) and attn =
+// MHA(qkv) for the first q_rows query rows (flash_attention.cu).  The
 // recompute backward (attn_block_bwd.cu) runs exactly these launches on the
-// forward's inputs, so its qkv and attn equal the forward's bit for bit.
+// forward's inputs, so its xn, qkv and attn equal the forward's bit for bit.
 static inline cudaError_t run_qkv_attention(const __nv_bfloat16* x, const __nv_bfloat16* w_eff,
-                                            const float* b_eff, __nv_bfloat16* qkv,
-                                            __nv_bfloat16* attn, int B, int S, int K, int H,
-                                            bool causal, int q_rows, float eps,
-                                            cudaStream_t stream) {
+                                            const float* b_eff, __nv_bfloat16* xn,
+                                            __nv_bfloat16* qkv, __nv_bfloat16* attn, int B,
+                                            int S, int K, int H, bool causal, int q_rows,
+                                            float eps, cudaStream_t stream) {
+  LnPrologue ops;
+  ops.xn = xn;
   UML_TRY(launch_ln_gemm(x, w_eff, b_eff, nullptr, qkv, B * S, 3 * H * ATT_D, K, 0, PRO_LN,
-                         EPI_NONE, eps, stream));
+                         EPI_NONE, eps, stream, false, nullptr, nullptr, ops));
   return launch_attention(qkv, attn, B, S, H, q_rows, causal, stream);
 }
 
 static inline cudaError_t run_attn_block(const __nv_bfloat16* x, const __nv_bfloat16* w_eff,
                                          const float* b_eff, const __nv_bfloat16* wo,
-                                         const float* bo, __nv_bfloat16* qkv,
-                                         __nv_bfloat16* attn, __nv_bfloat16* out, int B, int S,
-                                         int K, int H, bool causal, int q_rows, float eps,
+                                         const float* bo, __nv_bfloat16* xn,
+                                         __nv_bfloat16* qkv, __nv_bfloat16* attn,
+                                         __nv_bfloat16* out, int B, int S, int K, int H,
+                                         bool causal, int q_rows, float eps,
                                          cudaStream_t stream) {
   const int hd = H * ATT_D;
-  UML_TRY(run_qkv_attention(x, w_eff, b_eff, qkv, attn, B, S, K, H, causal, q_rows, eps,
+  UML_TRY(run_qkv_attention(x, w_eff, b_eff, xn, qkv, attn, B, S, K, H, causal, q_rows, eps,
                             stream));
   // residual row i of image b is x[b, i]: stride K when every row is kept,
   // stride S*K when only row 0 is (q_rows == 1)

@@ -2,7 +2,15 @@
 // q, k, v, out [B, H, S, D] views with any batch, head and row strides (the
 // last axis contiguous), bf16, D 64 or 128, any S, causal or not.
 //
-// Replaces uml_tpu/ops/attention.py::_flash_kernel.  What bounds it on the
+// Replaces uml_tpu/ops/attention.py::_flash_kernel, and is the one
+// attention core of the fused blocks too (uml::launch_flash_attention,
+// declared in attention.cuh): the attention of _block_kernel,
+// _block_cls_kernel, _block_kernel_stash, _block_bwd_kernel's recompute,
+// _tower_kernel, _block_q8_kernel, _tower_q8_kernel and _kernel, read in
+// place from the packed qkv [B, S, 3*H*64].  The CLS block takes a
+// one-row query view (Sq = 1 query rows against S keys): one 128-row query
+// tile per (image, head), TMA's zero fill for its rows 1..127, only row 0
+// stored.  What bounds it on the
 // H100: per (batch, head) it reads q, k, v and writes out once (4 S D 2
 // bytes) for 4 S^2 D FLOPs (half when causal), S/4 FLOP per byte: the
 // bytes at S = 197 ([64,12,197,64]: 77.5 MB, 23 us), the tensor cores from
@@ -47,7 +55,6 @@
 // tile, all masked, to keep the turns of the two in step); causal blocks
 // start heavy tiles first (the last query tile is scheduled first).
 
-#include <cuda.h>  // CUtensorMap and the encoder's types, no symbol of libcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -55,6 +62,7 @@
 
 #include <initializer_list>
 
+#include "attention.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -121,7 +129,7 @@ __global__ void __launch_bounds__(FA_THREADS, 1)
 flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
-                       int H, int S, long long o_b, long long o_h, long long o_r,
+                       int H, int Sq, int S, long long o_b, long long o_h, long long o_r,
                        float scale_log2) {
   using C = FaCfg<D>;
   constexpr int BK = C::BK;
@@ -272,13 +280,13 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
   wgmma_fence_regs(o);
   mbar_arrive(sBar + 8 * (FA_STAGES + (n_tiles - 1) % FA_STAGES));
 
-  // out = acc / max(l, 1e-30), two bf16 a store, rows < S only
+  // out = acc / max(l, 1e-30), two bf16 a store, query rows < Sq only
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     const int row = row0 + 8 * r;
-    if (row >= S) continue;
+    if (row >= Sq) continue;
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
     __nv_bfloat16* orow = out + b * o_b + h * o_h + row * o_r + col0;
 #pragma unroll
@@ -290,65 +298,67 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
 
 // -- host --------------------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from libcuda, which the CUDA runtime has already
-// loaded: the library links no -lcuda
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // a [B, H, S, D] bf16 view (strides in elements) as a 4-d tensor map of
 // (D, S, H, B), boxes of 64 columns x box_rows rows, 128-byte swizzle;
 // out-of-bounds rows read as zeros
 bool make_map(CUtensorMap* map, const void* ptr, long long B, int H, int S, int D,
               long long sb, long long sh, long long sr, int box_rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)sr * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
   const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return make_tensor_map(map, ptr, 4, dims, strides, box);
 }
 
 template <int D, bool CAUSAL>
 cudaError_t launch_flash(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
-                         __nv_bfloat16* out, long long B, int H, int S, long long o_b,
+                         __nv_bfloat16* out, long long B, int H, int Sq, int S, long long o_b,
                          long long o_h, long long o_r, cudaStream_t stream) {
   const int smem = (int)FaCfg<D>::SMEM;
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_attention_kernel<D, CAUSAL>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
-  const dim3 grid((unsigned)(B * H), (unsigned)((S + FA_BQ - 1) / FA_BQ));
+  const dim3 grid((unsigned)(B * H), (unsigned)((Sq + FA_BQ - 1) / FA_BQ));
   // 1 / sqrt(D) and log2(e) in one factor
   const float scale_log2 = (D == 64 ? 0.125f : 0.08838834764831845f) * 1.4426950408889634f;
   flash_attention_kernel<D, CAUSAL><<<grid, FA_THREADS, smem, stream>>>(
-      tq, tk, tv, out, H, S, o_b, o_h, o_r, scale_log2);
+      tq, tk, tv, out, H, Sq, S, o_b, o_h, o_r, scale_log2);
   return cudaGetLastError();
 }
 
 }  // namespace
+
+namespace uml {
+
+cudaError_t launch_flash_attention(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                                   const __nv_bfloat16* v, __nv_bfloat16* out, long long B, int H,
+                                   int Sq, int S, int D, bool causal, long long q_b, long long q_h,
+                                   long long q_r, long long k_b, long long k_h, long long k_r,
+                                   long long v_b, long long v_h, long long v_r, long long o_b,
+                                   long long o_h, long long o_r, cudaStream_t stream) {
+  const long long q_tiles = (Sq + FA_BQ - 1) / FA_BQ;
+  if ((D != 64 && D != 128) || B < 1 || H < 1 || S < 1 || Sq < 1 || Sq > S ||
+      (causal && Sq != S) || B * H > 2147483647LL || q_tiles > 65535)
+    return cudaErrorInvalidValue;
+  const long long strides[12] = {q_b, q_h, q_r, k_b, k_h, k_r, v_b, v_h, v_r, o_b, o_h, o_r};
+  for (long long st : strides)
+    if (st % 8 != 0) return cudaErrorInvalidValue;
+  for (const void* p : {static_cast<const void*>(q), static_cast<const void*>(k),
+                        static_cast<const void*>(v), static_cast<const void*>(out)})
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return cudaErrorInvalidValue;
+  const int bk = D == 64 ? FaCfg<64>::BK : FaCfg<128>::BK;
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, q, B, H, Sq, D, q_b, q_h, q_r, FA_BQ) ||
+      !make_map(&tk, k, B, H, S, D, k_b, k_h, k_r, bk) ||
+      !make_map(&tv, v, B, H, S, D, v_b, v_h, v_r, bk))
+    return cudaErrorInvalidValue;
+  if (D == 64)
+    return causal ? launch_flash<64, true>(tq, tk, tv, out, B, H, Sq, S, o_b, o_h, o_r, stream)
+                  : launch_flash<64, false>(tq, tk, tv, out, B, H, Sq, S, o_b, o_h, o_r, stream);
+  return causal ? launch_flash<128, true>(tq, tk, tv, out, B, H, Sq, S, o_b, o_h, o_r, stream)
+                : launch_flash<128, false>(tq, tk, tv, out, B, H, Sq, S, o_b, o_h, o_r, stream);
+}
+
+}  // namespace uml
 
 // q, k, v, out: [B, H, S, D] bf16 views; *_b, *_h, *_r their batch, head
 // and row strides in elements (multiples of 8; the last axis contiguous;
@@ -359,29 +369,9 @@ extern "C" int uml_flash_attention(const void* q, const void* k, const void* v, 
                                    long long k_h, long long k_r, long long v_b, long long v_h,
                                    long long v_r, long long o_b, long long o_h, long long o_r,
                                    void* stream) {
-  const long long q_tiles = (S + FA_BQ - 1) / FA_BQ;
-  if ((D != 64 && D != 128) || B < 1 || H < 1 || S < 1 || B * H > 2147483647LL ||
-      q_tiles > 65535)
-    return (int)cudaErrorInvalidValue;
-  const long long strides[12] = {q_b, q_h, q_r, k_b, k_h, k_r, v_b, v_h, v_r, o_b, o_h, o_r};
-  for (long long st : strides)
-    if (st % 8 != 0) return (int)cudaErrorInvalidValue;
-  for (const void* p : {q, k, v, static_cast<const void*>(out)})
-    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return (int)cudaErrorInvalidValue;
-  const int bk = D == 64 ? FaCfg<64>::BK : FaCfg<128>::BK;
-  CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, B, H, S, D, q_b, q_h, q_r, FA_BQ) ||
-      !make_map(&tk, k, B, H, S, D, k_b, k_h, k_r, bk) ||
-      !make_map(&tv, v, B, H, S, D, v_b, v_h, v_r, bk))
-    return (int)cudaErrorInvalidValue;
-  __nv_bfloat16* op = static_cast<__nv_bfloat16*>(out);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (D == 64)
-    err = causal ? launch_flash<64, true>(tq, tk, tv, op, B, H, S, o_b, o_h, o_r, st)
-                 : launch_flash<64, false>(tq, tk, tv, op, B, H, S, o_b, o_h, o_r, st);
-  else
-    err = causal ? launch_flash<128, true>(tq, tk, tv, op, B, H, S, o_b, o_h, o_r, st)
-                 : launch_flash<128, false>(tq, tk, tv, op, B, H, S, o_b, o_h, o_r, st);
-  return (int)err;
+  using bf16 = __nv_bfloat16;
+  return (int)uml::launch_flash_attention(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(out), B, H, S, S, D, causal != 0, q_b, q_h, q_r, k_b, k_h, k_r, v_b,
+      v_h, v_r, o_b, o_h, o_r, static_cast<cudaStream_t>(stream));
 }

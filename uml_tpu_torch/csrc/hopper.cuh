@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks written out in PTX: shared-memory
 // mbarriers, TMA tile loads (cp.async.bulk.tensor) and warpgroup MMAs
 // (wgmma.mma_async, bf16 in, fp32 accumulation) with their shared-memory
-// matrix descriptors.  Used by flash_attention.cu.
+// matrix descriptors, and the host side of TMA (the tensor-map encoder).
+// Used by flash_attention.cu and wgmma_gemm.cuh.
 //
 // wgmma accumulator layout (m64nN, fp32): warp w of the warpgroup holds
 // rows 16w .. 16w+15; lane l holds, for each 8-column block j, d[4j],
@@ -12,7 +13,9 @@
 // column in the low half).
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and the encoder's types, no symbol of libcuda
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 static __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -74,6 +77,17 @@ static __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* tma
       : "memory");
 }
 
+// one box of a 2-d tensor map into shared memory (coordinates innermost
+// first); out-of-bounds elements read as zeros and count as bytes landed
+static __device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* tmap, uint32_t bar,
+                                                   int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(tmap)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 // -- named barriers (ids 1..15; 0 is __syncthreads) --------------------------
 
 static __device__ __forceinline__ void named_bar_sync(int id, int threads) {
@@ -127,7 +141,11 @@ static __device__ __forceinline__ void wgmma_fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d (+)= A . B, m64n64k16: A and B from shared memory (descriptors)
+// d (+)= A . B, m64n64k16: A and B from shared memory (descriptors).
+// TRANS_A / TRANS_B are the instruction's transpose bits: 0 for a K-major
+// operand (the contraction axis contiguous), 1 for an MN-major one (M or N
+// contiguous); both are legal for bf16.
+template <int TRANS_A = 0, int TRANS_B = 0>
 static __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
                                               int accumulate) {
   asm volatile(
@@ -135,13 +153,13 @@ static __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
       "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_A), "n"(TRANS_B));
 }
 
 // d += A . B, m64n64k16: A from registers, B from shared memory, MN-major
@@ -161,7 +179,9 @@ static __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// d (+)= A . B, m64n128k16: A and B from shared memory (descriptors)
+// d (+)= A . B, m64n128k16: A and B from shared memory (descriptors);
+// the transpose bits as in wgmma_ss_n64
+template <int TRANS_A = 0, int TRANS_B = 0>
 static __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
                                               int accumulate) {
   asm volatile(
@@ -171,7 +191,7 @@ static __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da
       "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
       "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
       "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
@@ -183,7 +203,7 @@ static __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
         "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_A), "n"(TRANS_B));
 }
 
 // d += A . B, m64n128k16: A from registers, B from shared memory, MN-major
@@ -209,4 +229,47 @@ static __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint3
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
         "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// -- host: tensor maps ---------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda, which the CUDA runtime has already
+// loaded: the library links no -lcuda
+static inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a bf16 tensor of `rank` dims (innermost first; strides in bytes of
+// dims 1..rank-1) as a tensor map with boxes of box[] elements, 128-byte
+// swizzle (box[0] = 64 columns = 128 bytes); out-of-bounds elements read
+// as zeros.  False if cuTensorMapEncodeTiled refuses it.
+static inline bool make_tensor_map(CUtensorMap* map, const void* ptr, int rank,
+                                   const cuuint64_t* dims, const cuuint64_t* strides,
+                                   const cuuint32_t* box) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank, const_cast<void*>(ptr),
+                dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

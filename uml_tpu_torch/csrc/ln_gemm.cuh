@@ -5,9 +5,10 @@
 // and out-projections of uml_tpu/ops/fused_attention.py (_block_kernel,
 // _block_cls_kernel, _block_kernel_stash), both MLP matmuls of
 // uml_tpu/ops/ln_matmul.py (_mlp_block_kernel, _mlp_block_kernel_stash),
-// and the two products with a transposed weight inside the attention
+// the two products with a transposed weight inside the attention
 // backward kernels (dattn = g . wo^T and dxn = dqkv . W_eff^T of
-// _block_bwd_stash_kernel, _block_bwd_cls_kernel).
+// _block_bwd_stash_kernel, _block_bwd_cls_kernel, _block_bwd_kernel) and
+// the MLP backward's (_mlp_bwd_kernel, _mlp_bwd_dw_kernel).
 //
 //   A   [M, K] bf16, row-major, contiguous
 //   W   [K, N] bf16, row-major (the JAX / flax kernel layout), or with
@@ -17,7 +18,7 @@
 //       fp32 (EPI_DACT_F32)
 //   out [M, N] bf16, contiguous (fp32 for EPI_F32)
 //   aux [M, N] bf16, contiguous (EPI_GELU_STASH, EPI_DACT, EPI_DACT_F32)
-//   colsum_part [gridDim.x, N] fp32, or null (EPI_DACT_F32 only)
+//   colsum_part [ceil(M / 128), N] fp32, or null (EPI_DACT_F32 only)
 //
 // prologue (PRO_LN): the raw LayerNorm of each A row, statistics in fp32
 //   with var = max(E[x^2] - E[x]^2, 0); the LN scale/bias are folded into
@@ -49,19 +50,31 @@
 //   activation (bf16, or fp32), aux = quick_gelu(y) and out = dpre =
 //   dy * quick_gelu'(y), both rounded to bf16 once, with one sigmoid
 //   s: quick_gelu'(y) = s (1 + 1.702 y (1 - s)) (ln_matmul.py:296-302).
-//   EPI_DACT_F32 also writes the column sums of the fp32 dpre over the
-//   block's rows to colsum_part[blockIdx.x] (db1 is their sum over the
-//   row tiles: a second pass, in a fixed order).
+//   EPI_DACT_F32 also writes the column sums of the fp32 dpre over each
+//   128-row tile to colsum_part[row tile] (db1 is their sum over the row
+//   tiles: a second pass, in a fixed order).
+//
+// Two mainloops, chosen by the (prologue, epilogue, layout) triple in
+// launch_ln_gemm, for every caller alike (so the stash and the recompute
+// backwards, which share their launches, stay bit-equal):
+// * the wgmma + TMA engine of wgmma_gemm.cuh for the triples of the
+//   training rows: (PRO_LN, EPI_NONE) QKV, (PRO_NONE, EPI_NONE, TRANS_B)
+//   g . wo^T, (PRO_NONE, EPI_F32, TRANS_B) dqkv . W_eff^T, g . w2^T and
+//   dpre . w1^T, (PRO_LN, EPI_DACT_F32) the dW recompute.  Their PRO_LN
+//   prologue is a row pre-pass (ln_rows_kernel, one warp per row): xn =
+//   bf16((x - mean) rstd) written once to the caller's xn buffer
+//   (LnPrologue::xn), with the statistics and the single rounding of the
+//   wmma prologue below, then read by TMA like any operand; the dW
+//   products and the LN backward read that same xn.
+// * nvcuda::wmma (mma.sync 16x16x16) on 64x64 block tiles with a
+//   register-prefetched K loop for the others (the MLP forward, the
+//   residual out-projections, the affine and add prologues, EPI_DACT),
+//   which recompute the LN statistics in every block column (N/64 reads of
+//   the same rows).  They are queued for the engine (ROADMAP K1).
 //
 // What bounds it on the H100: at ViT-B/16 B=64 the QKV product is
 // 12608 x 768 x 2304 (44.6 GFLOP) over 16 MB of A and 3.5 MB of W, far
 // above the card's ~295 FLOP/byte ridge, so the tensor cores bound it.
-// This first version uses nvcuda::wmma (mma.sync, 16x16x16 bf16) on 64x64
-// block tiles with a register-prefetched K loop; it does not reach wgmma /
-// TMA rates (those need sm_90a warpgroup code, a later PR).  The LN
-// statistics are recomputed by every block column of the grid (N/64
-// blocks read the same 64 rows of A); that is N/64 extra reads of A that a
-// fused kernel would not make.
 
 #pragma once
 
@@ -72,7 +85,16 @@
 
 #include <type_traits>
 
+#include "wgmma_gemm.cuh"
+
 namespace uml {
+
+// return the first launch error of a composition
+#define UML_TRY(call)                             \
+  do {                                            \
+    const cudaError_t uml_err_ = (call);          \
+    if (uml_err_ != cudaSuccess) return uml_err_; \
+  } while (0)
 
 enum {
   EPI_NONE = 0,
@@ -87,12 +109,13 @@ enum {
 
 enum { PRO_NONE = 0, PRO_LN = 1, PRO_LN_AFFINE = 2, PRO_ADD_LN_AFFINE = 3 };
 
-// the extra operands of the affine and add prologues (null for the others)
+// the extra operands of the prologues (null where a triple takes none)
 struct LnPrologue {
-  const __nv_bfloat16* delta;  // [M, K], PRO_ADD_LN_AFFINE
-  const float* scale;          // [K] LN scale
-  const float* bias;           // [K] LN bias
-  __nv_bfloat16* t_out;        // [M, K] = bf16(A + delta), PRO_ADD_LN_AFFINE
+  const __nv_bfloat16* delta = nullptr;  // [M, K], PRO_ADD_LN_AFFINE
+  const float* scale = nullptr;          // [K] LN scale
+  const float* bias = nullptr;           // [K] LN bias
+  __nv_bfloat16* t_out = nullptr;        // [M, K] = bf16(A + delta), PRO_ADD_LN_AFFINE
+  __nv_bfloat16* xn = nullptr;           // [M, K] = bf16(rawLN(A)), PRO_LN on the engine
 };
 
 constexpr int GEMM_BM = 64;
@@ -113,6 +136,64 @@ union Pack8 {
 constexpr int GEMM_BS_ELEMS =
     (GEMM_BK * GEMM_LDB > GEMM_BN * GEMM_LDA) ? GEMM_BK * GEMM_LDB : GEMM_BN * GEMM_LDA;
 
+// The fp32 statistics of one row of x [., K] (K a multiple of 8), one
+// warp: lane l sums columns 8l .. 8l+7 of every 256, then a butterfly.
+// mean = E[x], rstd = rsqrt(max(E[x^2] - mean^2, 0) + eps).  The LN
+// pre-pass and the LN backward (attention_bwd.cuh) both take them from
+// here, so the xn they form is the same.
+static __device__ __forceinline__ void ln_row_stats(const __nv_bfloat16* __restrict__ row, int K,
+                                                    float eps, float& mean, float& rstd) {
+  const int lane = threadIdx.x & 31;
+  float s = 0.f, ss = 0.f;
+  for (int c = lane * 8; c < K; c += 32 * 8) {
+    Pack8 p;
+    p.u = *reinterpret_cast<const uint4*>(row + c);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float v = __bfloat162float(p.h[i]);
+      s += v;
+      ss += v * v;
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    s += __shfl_xor_sync(0xffffffffu, s, o);
+    ss += __shfl_xor_sync(0xffffffffu, ss, o);
+  }
+  mean = s / K;
+  rstd = rsqrtf(fmaxf(ss / K - mean * mean, 0.f) + eps);
+}
+
+constexpr int LNR_THREADS = 128;  // 4 rows per block, one warp each
+
+// The LN pre-pass of the engine's PRO_LN triples: xn = bf16((x - mean)
+// rstd), one warp per row of x [rows, K].
+static __global__ void __launch_bounds__(LNR_THREADS)
+ln_rows_kernel(const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ xn, int rows,
+               int K, float eps) {
+  const int row = blockIdx.x * (LNR_THREADS / 32) + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const __nv_bfloat16* xr = x + (long long)row * K;
+  float mean, rstd;
+  ln_row_stats(xr, K, eps, mean, rstd);
+  for (int c = (threadIdx.x & 31) * 8; c < K; c += 32 * 8) {
+    Pack8 p, o;
+    p.u = *reinterpret_cast<const uint4*>(xr + c);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) o.h[i] = __float2bfloat16((__bfloat162float(p.h[i]) - mean) * rstd);
+    *reinterpret_cast<uint4*>(xn + (long long)row * K + c) = o.u;
+  }
+}
+
+static inline cudaError_t launch_ln_rows(const __nv_bfloat16* x, __nv_bfloat16* xn, int rows,
+                                         int K, float eps, cudaStream_t stream) {
+  if (K % 8 != 0 || xn == nullptr) return cudaErrorInvalidValue;
+  const int per_block = LNR_THREADS / 32;
+  ln_rows_kernel<<<(rows + per_block - 1) / per_block, LNR_THREADS, 0, stream>>>(x, xn, rows, K,
+                                                                                 eps);
+  return cudaGetLastError();
+}
+
 template <int PRO, int EPI, bool TRANS_B>
 __global__ void __launch_bounds__(GEMM_THREADS)
 ln_gemm_kernel(const __nv_bfloat16* __restrict__ a,
@@ -121,7 +202,6 @@ ln_gemm_kernel(const __nv_bfloat16* __restrict__ a,
                const void* __restrict__ res_ptr,
                void* __restrict__ out_ptr,
                __nv_bfloat16* __restrict__ aux,
-               float* __restrict__ colsum_part,
                int M, int N, int K, long long ldres, float eps, LnPrologue pro) {
   using namespace nvcuda;
   constexpr bool LN = PRO != PRO_NONE;
@@ -294,11 +374,8 @@ ln_gemm_kernel(const __nv_bfloat16* __restrict__ a,
                               GEMM_LDC, wmma::mem_row_major);
   __syncthreads();
 
-  // epilogue: 8 consecutive columns per thread per step, 16-byte stores;
-  // a thread's columns are the same at every step (tid % 8), its rows
-  // tid / 8 + 16 i
+  // epilogue: 8 consecutive columns per thread per step, 16-byte stores
   const __nv_bfloat16* res = static_cast<const __nv_bfloat16*>(res_ptr);
-  float colsum[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   for (int c = tid; c < GEMM_BM * GEMM_BN / 8; c += GEMM_THREADS) {
     const int r = c / (GEMM_BN / 8);
     const int cc = (c % (GEMM_BN / 8)) * 8;
@@ -308,34 +385,17 @@ ln_gemm_kernel(const __nv_bfloat16* __restrict__ a,
 #pragma unroll
     for (int j = 0; j < 8; ++j)
       v[j] = Cs[r * GEMM_LDC + cc + j] + (bias != nullptr ? bias[n0 + cc + j] : 0.f);
-    if (EPI == EPI_F32) {
-      float* o32 = static_cast<float*>(out_ptr) + (long long)gm * N + n0 + cc;
-      *reinterpret_cast<float4*>(o32) = make_float4(v[0], v[1], v[2], v[3]);
-      *reinterpret_cast<float4*>(o32 + 4) = make_float4(v[4], v[5], v[6], v[7]);
-      continue;
-    }
-    if (EPI == EPI_DACT || EPI == EPI_DACT_F32) {
-      float dy[8];
-      if (EPI == EPI_DACT) {
-        Pack8 dp;
-        dp.u = *reinterpret_cast<const uint4*>(res + (long long)gm * ldres + n0 + cc);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) dy[j] = __bfloat162float(dp.h[j]);
-      } else {
-        const float* d32 = static_cast<const float*>(res_ptr) + (long long)gm * ldres + n0 + cc;
-        const float4 lo = *reinterpret_cast<const float4*>(d32);
-        const float4 hi = *reinterpret_cast<const float4*>(d32 + 4);
-        dy[0] = lo.x; dy[1] = lo.y; dy[2] = lo.z; dy[3] = lo.w;
-        dy[4] = hi.x; dy[5] = hi.y; dy[6] = hi.z; dy[7] = hi.w;
-      }
+    if (EPI == EPI_DACT) {
+      Pack8 dp;
+      dp.u = *reinterpret_cast<const uint4*>(res + (long long)gm * ldres + n0 + cc);
       Pack8 act, dpre;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
+        const float dy = __bfloat162float(dp.h[j]);
         const float s = 1.f / (1.f + expf(-1.702f * v[j]));
-        const float d = dy[j] * (s * (1.f + 1.702f * v[j] * (1.f - s)));
+        const float d = dy * (s * (1.f + 1.702f * v[j] * (1.f - s)));
         act.h[j] = __float2bfloat16(v[j] * s);
         dpre.h[j] = __float2bfloat16(d);
-        colsum[j] += d;
       }
       *reinterpret_cast<uint4*>(aux + (long long)gm * N + n0 + cc) = act.u;
       *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(out_ptr) + (long long)gm * N + n0 +
@@ -366,27 +426,13 @@ ln_gemm_kernel(const __nv_bfloat16* __restrict__ a,
     *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(out_ptr) + (long long)gm * N + n0 +
                               cc) = o.u;
   }
-  if (EPI == EPI_DACT_F32 && colsum_part != nullptr) {
-    // the 16 threads of a column group add their rows in a fixed order; As
-    // is free since the K loop's last __syncthreads
-    float* red = reinterpret_cast<float*>(As);  // [16][64]
-#pragma unroll
-    for (int j = 0; j < 8; ++j) red[(tid >> 3) * GEMM_BN + (tid & 7) * 8 + j] = colsum[j];
-    __syncthreads();
-    if (tid < GEMM_BN) {
-      float t = 0.f;
-#pragma unroll
-      for (int i = 0; i < GEMM_THREADS / 8; ++i) t += red[i * GEMM_BN + tid];
-      colsum_part[(long long)blockIdx.x * N + n0 + tid] = t;
-    }
-  }
 }
 
-// Launch one ln_gemm on `stream`; returns cudaGetLastError() after the
-// launch.  `pro` is one of PRO_*, `ops` the extra operands of the affine
-// and add prologues (empty for the others).  Shapes must satisfy
-// N % 64 == 0, K % 32 == 0, ldres % 8 == 0 (the Python wrappers check them
-// and raise first).
+// Launch one ln_gemm on `stream`; returns the first launch error.  `pro`
+// is one of PRO_*, `ops` the extra operands of the prologues (for PRO_LN
+// on the engine, the xn buffer [M, K] it writes and reads).  The engine's
+// triples take N and K multiples of 64; the wmma ones N % 64 == 0, K % 32
+// == 0, ldres % 8 == 0 (the Python wrappers check them and raise first).
 static inline cudaError_t launch_ln_gemm(const __nv_bfloat16* a, const __nv_bfloat16* w,
                                          const float* bias, const void* res, void* out, int M,
                                          int N, int K, long long ldres, int pro, int epi,
@@ -394,25 +440,40 @@ static inline cudaError_t launch_ln_gemm(const __nv_bfloat16* a, const __nv_bflo
                                          __nv_bfloat16* aux = nullptr,
                                          float* colsum_part = nullptr,
                                          LnPrologue ops = LnPrologue{}) {
+  // the training rows' triples: the wgmma + TMA engine
+  WggEpilogue ep;
+  ep.bias = bias;
+  ep.out = out;
+  if (pro == PRO_LN && epi == EPI_NONE && !trans_b) {  // QKV
+    UML_TRY(launch_ln_rows(a, ops.xn, M, K, eps, stream));
+    return launch_wgmma_gemm<false, true, WGG_OUT_BF16>(ops.xn, w, ep, M, N, K, stream);
+  }
+  if (pro == PRO_NONE && epi == EPI_NONE && trans_b)  // g . wo^T
+    return launch_wgmma_gemm<false, false, WGG_OUT_BF16>(a, w, ep, M, N, K, stream);
+  if (pro == PRO_NONE && epi == EPI_F32 && trans_b)  // dqkv . W_eff^T, g . w2^T, dpre . w1^T
+    return launch_wgmma_gemm<false, false, WGG_OUT_F32>(a, w, ep, M, N, K, stream);
+  if (pro == PRO_LN && epi == EPI_DACT_F32 && !trans_b) {  // MLP bwd, dW
+    UML_TRY(launch_ln_rows(a, ops.xn, M, K, eps, stream));
+    ep.dy = static_cast<const float*>(res);
+    ep.lddy = ldres;
+    ep.aux = aux;
+    ep.colsum_part = colsum_part;
+    return launch_wgmma_gemm<false, true, WGG_OUT_DACT>(ops.xn, w, ep, M, N, K, stream);
+  }
+  // the others: wmma
   if (N % GEMM_BN != 0 || K % GEMM_BK != 0) return cudaErrorInvalidValue;
   const dim3 grid((M + GEMM_BM - 1) / GEMM_BM, N / GEMM_BN);
   const dim3 block(GEMM_THREADS);
 #define UML_GEMM_CASE(P, E, T)                                                              \
   if (pro == P && epi == E && trans_b == T) {                                               \
-    ln_gemm_kernel<P, E, T><<<grid, block, 0, stream>>>(a, w, bias, res, out, aux,          \
-                                                        colsum_part, M, N, K, ldres, eps,   \
-                                                        ops);                               \
+    ln_gemm_kernel<P, E, T><<<grid, block, 0, stream>>>(a, w, bias, res, out, aux, M, N, K, \
+                                                        ldres, eps, ops);                   \
     return cudaGetLastError();                                                              \
   }
-  // the (prologue, epilogue, layout) triples the CLIP layers and ops use
-  UML_GEMM_CASE(PRO_LN, EPI_NONE, false)                 // QKV
   UML_GEMM_CASE(PRO_LN, EPI_QUICK_GELU, false)           // MLP in
   UML_GEMM_CASE(PRO_LN, EPI_GELU_STASH, false)           // MLP in + pre
   UML_GEMM_CASE(PRO_NONE, EPI_RESIDUAL, false)           // out-proj, MLP out
-  UML_GEMM_CASE(PRO_NONE, EPI_NONE, true)                // g . wo^T
-  UML_GEMM_CASE(PRO_NONE, EPI_F32, true)                 // dqkv . W_eff^T, dpre . w1^T
   UML_GEMM_CASE(PRO_LN, EPI_DACT, false)                 // MLP bwd
-  UML_GEMM_CASE(PRO_LN, EPI_DACT_F32, false)             // MLP bwd, dW
   UML_GEMM_CASE(PRO_LN_AFFINE, EPI_NONE, false)          // ln_matmul, ln_qkv_attention
   UML_GEMM_CASE(PRO_LN_AFFINE, EPI_QUICK_GELU, false)    // ln_matmul
   UML_GEMM_CASE(PRO_LN_AFFINE, EPI_GELU_EXACT, false)

@@ -5,10 +5,9 @@
 // ln_qkv_attention), which applies the LN scale and bias in the kernel,
 // rounds the qkv with its bias to the activation dtype and runs the
 // per-head attention on it.  Two launches: the affine-prologue ln_gemm
-// into the packed qkv scratch [B*S, 3*H*64], then the attention kernel of
-// attention.cuh over every query row, causal or not.  That kernel keeps
-// K and V of one head in shared memory, so S <= 400 (ATT_MAX_SPAD); the
-// wrapper's supports_fused_attention gate says so.
+// into the packed qkv scratch [B*S, 3*H*64], then the attention over every
+// query row, causal or not (flash_attention.cu through attention.cuh,
+// reading the packed qkv in place: any S).
 //
 // What bounds it on the H100: the QKV product (44.6 GFLOP at ViT-B/16
 // B=64) and the attention (7.6 GFLOP) against ~40 MB of operands: the

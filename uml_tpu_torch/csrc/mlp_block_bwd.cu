@@ -14,11 +14,13 @@
 //
 // uml_mlp_bwd_dw replaces ::_mlp_bwd_dw_kernel (via _mlp_bwd_dw_call,
 // UML_MLP_BWD=dw), which also computes dy and the weight gradients in its
-// own body:
+// own body; every product on the wgmma engine (wgmma_gemm.cuh):
 //   1. dy = g . w2^T in fp32                     (ln_gemm, TRANS_B, EPI_F32)
-//   2. as 1. above with the fp32 dy, and the column sums of the fp32 dpre
-//      per row tile                              (ln_gemm, EPI_DACT_F32)
+//   2. xn = bf16(rawLN(x)) (the row pre-pass), then as 1. above with the
+//      fp32 dy, and the column sums of the fp32 dpre per 128-row tile
+//                                                (ln_gemm, EPI_DACT_F32)
 //   3. dxn = dpre . w1^T, then the LN backward WITH the residual g -> dx
+//      (it does not write xn again: the pre-pass's is the same)
 //   4. dw1 = xn^T . dpre and dw2 = yact^T . g in fp32 (gemm_at), db1 = the
 //      sum of the row tiles' column sums (colsum_parts)
 // -> (dx, dw1, db1, dw2) in fp32 dW; only db2 = sum(g) stays outside
@@ -28,10 +30,11 @@
 // M=3072): uml_mlp_bwd does two 59.5 GFLOP products (119 GFLOP, ~0.12 ms
 // at the bf16 peak) and uml_mlp_bwd_dw five (298 GFLOP, ~0.30 ms), so the
 // tensor cores bound both.  The TPU kernels keep the hidden-width tensors
-// in VMEM; this first version makes them round trips through device
-// memory: dpre and yact bf16 (77.5 MB each) and, in uml_mlp_bwd_dw, the
-// fp32 dy (155 MB), ~0.3 GB a layer.  Keeping the hidden on chip is a later
-// PR's work.
+// in VMEM; here they make round trips through device memory: dpre and
+// yact bf16 (77.5 MB each) and, in uml_mlp_bwd_dw, the fp32 dy (155 MB),
+// ~0.3 GB a layer.  Keeping the hidden on chip is queued (ROADMAP K8).
+// uml_mlp_bwd's first launch (PRO_LN, EPI_DACT) stays on ln_gemm's wmma
+// tiles; its dxn product runs on the engine.
 
 #include "attention_bwd.cuh"
 #include "blocks.cuh"
@@ -55,7 +58,7 @@ static inline cudaError_t run_mlp_bwd(const __nv_bfloat16* x, const __nv_bfloat1
 
 // x, g [rows, K] -> dx [rows, K], dw1 [K, M], db1 [M], dw2 [M, K] (fp32);
 // dy [rows, M] fp32, dpre and yact [rows, M] bf16, dxn [rows, K] fp32,
-// db1_part [ceil(rows / 64), M] fp32 and xn [rows, K] bf16 are scratch.
+// db1_part [ceil(rows / 128), M] fp32 and xn [rows, K] bf16 are scratch.
 static inline cudaError_t run_mlp_bwd_dw(const __nv_bfloat16* x, const __nv_bfloat16* g,
                                          const float* b1, const __nv_bfloat16* w1,
                                          const __nv_bfloat16* w2, float* dy,
@@ -65,14 +68,16 @@ static inline cudaError_t run_mlp_bwd_dw(const __nv_bfloat16* x, const __nv_bflo
                                          int M, float eps, cudaStream_t stream) {
   UML_TRY(launch_ln_gemm(g, w2, nullptr, nullptr, dy, rows, M, K, 0, PRO_NONE, EPI_F32, eps, stream,
                          true));
+  LnPrologue ops;
+  ops.xn = xn;
   UML_TRY(launch_ln_gemm(x, w1, b1, dy, dpre, rows, M, K, M, PRO_LN, EPI_DACT_F32, eps, stream,
-                         false, yact, db1_part));
+                         false, yact, db1_part, ops));
   UML_TRY(launch_ln_gemm(dpre, w1, nullptr, nullptr, dxn, rows, K, M, 0, PRO_NONE, EPI_F32, eps,
                          stream, true));
-  UML_TRY(launch_ln_bwd(x, dxn, g, dx, xn, rows, K, 1, eps, stream));
+  UML_TRY(launch_ln_bwd(x, dxn, g, dx, nullptr, rows, K, 1, eps, stream));
   UML_TRY(launch_gemm_at(xn, dpre, dw1, rows, K, M, stream));
   UML_TRY(launch_gemm_at(yact, g, dw2, rows, M, K, stream));
-  return launch_colsum_parts(db1_part, db1, (rows + GEMM_BM - 1) / GEMM_BM, M, stream);
+  return launch_colsum_parts(db1_part, db1, (rows + WGG_BM - 1) / WGG_BM, M, stream);
 }
 
 }  // namespace uml

@@ -34,12 +34,12 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 # name -> argtypes; every function returns a cudaError_t as int
 SIGNATURES = {
-    # x, w_eff, b_eff, wo, bo, qkv, attn, out, B, S, K, H, causal, q_rows,
-    # eps, stream
-    "uml_attn_block": [_P] * 8 + [_I] * 6 + [_F, _P],
-    # x, w_eff, b_eff, wo, bo, qkv, attn, out, B, S, K, H, causal, eps,
+    # x, w_eff, b_eff, wo, bo, xn, qkv, attn, out, B, S, K, H, causal,
+    # q_rows, eps, stream
+    "uml_attn_block": [_P] * 9 + [_I] * 6 + [_F, _P],
+    # x, w_eff, b_eff, wo, bo, xn, qkv, attn, out, B, S, K, H, causal, eps,
     # stream
-    "uml_attn_block_stash": [_P] * 8 + [_I] * 5 + [_F, _P],
+    "uml_attn_block_stash": [_P] * 9 + [_I] * 5 + [_F, _P],
     # x, g, qkv, w_eff, wo, dattn, stats, dxn, dqkv, dx, xn, B, S, K, H,
     # causal, eps, stream
     "uml_attn_block_bwd": [_P] * 11 + [_I] * 5 + [_F, _P],
@@ -58,9 +58,9 @@ SIGNATURES = {
     "uml_mlp_block": [_P] * 7 + [_I] * 3 + [_F, _P],
     # x, w1, b1, w2, b2, pre, hidden, out, rows, K, M, eps, stream
     "uml_mlp_block_stash": [_P] * 8 + [_I] * 3 + [_F, _P],
-    # x, w_eff, b_eff, wo, bo, w1, b1, w2, b2, qkv, attn, hidden, mid, out,
-    # B, S, K, H, M, L, eps, stream
-    "uml_text_tower": [_P] * 14 + [_I] * 6 + [_F, _P],
+    # x, w_eff, b_eff, wo, bo, w1, b1, w2, b2, xn, qkv, attn, hidden, mid,
+    # out, B, S, K, H, M, L, eps, stream
+    "uml_text_tower": [_P] * 15 + [_I] * 6 + [_F, _P],
     # x, wq, wsc, b_eff, wo, wosc, bo, q8, qscale, qkv, attn, out, B, S, K,
     # H, causal, q8_out, eps, stream
     "uml_attn_block_q8": [_P] * 12 + [_I] * 6 + [_F, _P],
@@ -78,6 +78,11 @@ SIGNATURES = {
     "uml_ln_qkv_attention": [_P] * 7 + [_I] * 5 + [_F, _P],
     # x, scale, bias, out, rows, K, is_f32, eps, stream
     "uml_layer_norm": [_P] * 4 + [_L, _I, _I, _F, _P],
+    # a, w, bias, res, out, aux, colsum_part, xn, M, N, K, ldres, pro, epi,
+    # trans_b, eps, stream
+    "uml_ln_gemm": [_P] * 8 + [_I] * 3 + [_L] + [_I] * 3 + [_F, _P],
+    # a, b, c, R, P, N, stream
+    "uml_gemm_at": [_P] * 3 + [_I] * 3 + [_P],
     # q, k, v, out, B, H, S, D, causal, then the batch, head and row
     # strides of q, k, v and out (elements), stream
     "uml_flash_attention": [_P] * 4 + [_L, _I, _I, _I, _I] + [_L] * 12 + [_P],

@@ -13,8 +13,9 @@ tensor it runs the plain PyTorch version below, written from the jnp twin
 ``_raw_block_reference``; on a CUDA tensor it launches its C entry point
 in ``csrc/`` or raises, and counts the launch.
 
-* ``attn_block`` / ``attn_block_cls``: ``csrc/attn_block.cu`` (LN-prologue
-  QKV ln_gemm, the attention kernel, the out-projection ln_gemm with the
+* ``attn_block`` / ``attn_block_cls``: ``csrc/attn_block.cu`` (the LN
+  row pre-pass and the QKV product on the wgmma engine, the attention of
+  ``csrc/flash_attention.cu``, the out-projection ln_gemm with the
   residual).  The CLS variant returns [B, 1, K]: the TPU kernel's
   [B, 8, K] (CLS_ROWS = 8) is a sublane tile, and only its row 0 is used.
 * ``attn_block_stash``: the same launches, returning (out, qkv, attn).
@@ -47,18 +48,19 @@ in ``csrc/`` or raises, and counts the launch.
 * ``ln_qkv_attention``: LN (affine) -> packed QKV -> MHA with no
   out-projection, [B, S, K] -> [B, S, H*64]: the port of ``_kernel``
   (fused_attention.py:143) as ``csrc/ln_qkv_attention.cu`` (the
-  affine-prologue ln_gemm, then the attention kernel).  ``impl`` as in
-  uml_tpu: "auto" runs ``ln_qkv_attention_plain`` for a CPU tensor and the
-  kernel for a CUDA tensor, "pallas" is the kernel; both raise on a CUDA
-  tensor ``supports_fused_attention`` does not take (it takes bf16, head
-  dim 64, S <= 400: the attention kernel keeps one head's K/V in shared
-  memory); anything else is the plain version.  No model calls it (nor in
+  affine-prologue ln_gemm, then the attention of flash_attention.cu).
+  ``impl`` as in uml_tpu: "auto" runs ``ln_qkv_attention_plain`` for a CPU
+  tensor and the kernel for a CUDA tensor, "pallas" is the kernel; both
+  raise on a CUDA tensor ``supports_fused_attention`` does not take (it
+  takes bf16, head dim 64, K a multiple of 64, any S); anything else is
+  the plain version.  No model calls it (nor in
   uml_tpu); its backward differentiates the plain version
   (fused_attention.py:697-707).
 
 Numerics, as in the twin: fp32 LN statistics, bf16 operands with fp32
 accumulation, the full b_eff added to qkv before its bf16 rounding, an
-fp32 softmax with the row max, bf16 probabilities.  (The TPU kernel
+fp32 online softmax over key tiles (the attention core's order), bf16
+probabilities.  (The TPU kernel
 instead drops the k-bias, which the softmax cancels exactly, and adds the
 v-bias after normalization; in bf16 the two orders round differently.)
 The backward recomputes the softmax statistics from the stash as the
@@ -79,8 +81,6 @@ from uml_tpu_torch.ops.ln_matmul import (ln_matmul_plain, raw_layer_norm,
                                          raw_layer_norm_rstd)
 
 HEAD_DIM = 64  # the kernels' head dim (every CLIP tower)
-MAX_SEQ = 400  # the attention kernel keeps K/V of one head in shared memory
-BWD_MAX_SEQ = 256  # the backward's dq kernel also keeps the fp32 scores and dP
 
 
 def fold_ln_into_matmul(scale, bias, kernel, kbias):
@@ -96,18 +96,36 @@ def fold_ln_into_matmul(scale, bias, kernel, kbias):
 
 
 def attention_plain(q, k, v, *, causal: bool = False):
-    """q [B,H,Sq,D], k/v [B,H,S,D] -> [B,H,Sq,D]: fp32 scores and softmax
-    (row max), probabilities rounded to the input dtype unnormalized, the
-    1/rowsum applied to the fp32 P.V — the CUDA kernel's order."""
+    """q [B,H,Sq,D], k/v [B,H,S,D] -> [B,H,Sq,D] in flash_attention.cu's
+    order: an online softmax over key tiles of 128 (D = 64) or 64 keys,
+    fp32 scores and statistics; per tile the running row max m grows to
+    m' and the running sum l and the fp32 output rescale by exp(m - m'),
+    P = exp(s - m') is rounded to the input dtype before P.V and l sums the
+    unrounded P; out = acc / max(l, 1e-30).  A row with no valid key yet
+    keeps m = -inf, l = 0.  Causal rows see keys up to their own index
+    (offset S - Sq)."""
     d = q.shape[-1]
-    s = (q.float() @ k.float().transpose(-1, -2)) * d ** -0.5
-    if causal:
-        sq, sk = s.shape[-2:]
-        keep = torch.ones(sq, sk, dtype=torch.bool, device=s.device).tril(sk - sq)
-        s = s.masked_fill(~keep, float("-inf"))
-    e = torch.exp(s - s.amax(-1, keepdim=True))
-    inv = 1.0 / e.sum(-1, keepdim=True)
-    return ((e.to(q.dtype).float() @ v.float()) * inv).to(q.dtype)
+    sq, sk = q.shape[-2], k.shape[-2]
+    bk = 128 if d == 64 else 64
+    qf = q.float() * d ** -0.5
+    shape = (*q.shape[:-1], 1)
+    m = torch.full(shape, float("-inf"), device=q.device)
+    l = torch.zeros(shape, device=q.device)
+    acc = torch.zeros(*q.shape[:-1], v.shape[-1], device=q.device)
+    rows = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+    for k0 in range(0, sk, bk):
+        s = qf @ k[..., k0:k0 + bk, :].float().transpose(-1, -2)
+        if causal:
+            cols = torch.arange(k0, k0 + s.shape[-1], device=q.device)[None, :]
+            s = s.masked_fill(cols > rows, float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        m_use = torch.where(m_new == float("-inf"), 0.0, m_new)
+        p = torch.exp(s - m_use)
+        alpha = torch.exp(m - m_use)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p.to(q.dtype).float() @ v[..., k0:k0 + bk, :].float()
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).to(q.dtype)
 
 
 def _qkv_heads(qkv, heads):
@@ -219,27 +237,33 @@ def attn_block_bwd_recompute_plain(x, g, w_eff, b_eff, wo, *, heads: int,
     return dx, dqkv, xn, attn
 
 
-def _launch_attn_block(x, w_eff, b_eff, wo, bo, heads, causal, eps, q_rows,
-                       entry="uml_attn_block"):
-    """-> (out, qkv, attn): the output and the scratch the launches wrote."""
+def _check_fwd(x, w_eff, b_eff, wo, bo, heads):
+    """What the forward kernels take (any S) -> (B, S, K, H*64)."""
     b, s, k = x.shape
     hd = heads * HEAD_DIM
     _build.check_dims(K=k)
-    if s > MAX_SEQ:
-        raise ValueError(f"S={s}: the attention kernel takes S <= {MAX_SEQ}")
     bf16, dev = torch.bfloat16, x.device
     _build.check_tensor("x", x, bf16, (b, s, k), dev)
     _build.check_tensor("w_eff", w_eff, bf16, (k, 3 * hd), dev)
     _build.check_tensor("b_eff", b_eff, torch.float32, (3 * hd,), dev)
     _build.check_tensor("wo", wo, bf16, (hd, k), dev)
     _build.check_tensor("bo", bo, torch.float32, (k,), dev)
+    return b, s, k, hd
+
+
+def _launch_attn_block(x, w_eff, b_eff, wo, bo, heads, causal, eps, q_rows,
+                       entry="uml_attn_block"):
+    """-> (out, qkv, attn): the output and the scratch the launches wrote."""
+    b, s, k, hd = _check_fwd(x, w_eff, b_eff, wo, bo, heads)
+    bf16, dev = torch.bfloat16, x.device
     with torch.cuda.device(dev):
+        xn = torch.empty_like(x)
         qkv = torch.empty((b * s, 3 * hd), dtype=bf16, device=dev)
         attn = torch.empty((b * q_rows, hd), dtype=bf16, device=dev)
         out = torch.empty((b, q_rows, k), dtype=bf16, device=dev)
         ptrs = (x.data_ptr(), w_eff.data_ptr(), b_eff.data_ptr(),
-                wo.data_ptr(), bo.data_ptr(), qkv.data_ptr(), attn.data_ptr(),
-                out.data_ptr(), b, s, k, heads, int(causal))
+                wo.data_ptr(), bo.data_ptr(), xn.data_ptr(), qkv.data_ptr(),
+                attn.data_ptr(), out.data_ptr(), b, s, k, heads, int(causal))
         stream = torch.cuda.current_stream(dev).cuda_stream
         if entry == "uml_attn_block":
             _build.launch(entry, *ptrs, q_rows, eps, stream)
@@ -309,13 +333,11 @@ attn_block_stash.launches = 0
 
 
 def _check_bwd(x, g, qkv, w_eff, wo, heads, q_rows):
-    """What the backward kernels take; ``qkv`` None for the recompute
-    backward, which takes no stash."""
+    """What the backward kernels take (any S); ``qkv`` None for the
+    recompute backward, which takes no stash."""
     b, s, k = x.shape
     hd = heads * HEAD_DIM
     _build.check_dims(K=k)
-    if s > BWD_MAX_SEQ:
-        raise ValueError(f"S={s}: the attention backward takes S <= {BWD_MAX_SEQ}")
     bf16, dev = torch.bfloat16, x.device
     _build.check_tensor("x", x, bf16, (b, s, k), dev)
     _build.check_tensor("g", g, bf16, (b, q_rows, k), dev)
@@ -519,9 +541,9 @@ def ln_qkv_attention_plain(x, scale, bias, kernel, kbias, *, heads: int,
 def supports_fused_attention(k: int, heads: int, head_dim: int, seq_len: int,
                              dtype=torch.bfloat16) -> bool:
     """What ln_qkv_attention's kernels take: bf16, head dim 64, K a
-    multiple of the 64-wide GEMM tiles (H*64 always is), and S <= MAX_SEQ."""
-    return (dtype == torch.bfloat16 and head_dim == HEAD_DIM and k % 64 == 0
-            and seq_len <= MAX_SEQ)
+    multiple of the 64-wide GEMM tiles (H*64 always is); any ``seq_len``
+    (the attention streams K/V), kept for uml_tpu's signature."""
+    return dtype == torch.bfloat16 and head_dim == HEAD_DIM and k % 64 == 0
 
 
 def _ln_qkv_attention_fwd(x, scale, bias, kernel, kbias, heads, causal, eps):
@@ -538,7 +560,7 @@ def _ln_qkv_attention_fwd(x, scale, bias, kernel, kbias, heads, causal, eps):
         raise ValueError(
             f"ln_qkv_attention kernel: K={k} S={s} head dim "
             f"{kernel.shape[1] // (3 * heads)} {x.dtype}; it takes bf16, head "
-            f"dim {HEAD_DIM}, K a multiple of 64 and S <= {MAX_SEQ}")
+            f"dim {HEAD_DIM} and K a multiple of 64")
     bf16, f32, dev = torch.bfloat16, torch.float32, x.device
     scale, bias, kbias = scale.float(), bias.float(), kbias.float()
     _build.check_tensor("x", x, bf16, (b, s, k), dev)

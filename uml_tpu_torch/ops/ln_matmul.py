@@ -90,6 +90,14 @@ def raw_layer_norm(xf: torch.Tensor, eps: float) -> torch.Tensor:
     return raw_layer_norm_rstd(xf, eps)[0]
 
 
+def ln_rows_plain(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Plain version of the LN row pre-pass of the CUDA kernels
+    (csrc/ln_gemm.cuh::ln_rows_kernel): the raw LayerNorm of each row with
+    fp32 statistics, rounded once to x's dtype — the operand the wgmma
+    engine's QKV and MLP dW products read."""
+    return raw_layer_norm(x.float(), eps).to(x.dtype)
+
+
 def raw_layer_norm_bwd(dxn, xn, rstd):
     """The backward of raw_layer_norm in fp32:
     rstd * (dxn - mean(dxn) - xn * mean(dxn * xn))."""
@@ -315,7 +323,8 @@ def mlp_bwd_dw(x, g, b1, w1, w2, *, eps: float = 1e-5):
         dpre = torch.empty((rows, m), dtype=bf16, device=dev)
         yact = torch.empty((rows, m), dtype=bf16, device=dev)
         dxn = torch.empty((rows, k), dtype=f32, device=dev)
-        db1_part = torch.empty((-(-rows // 64), m), dtype=f32, device=dev)
+        # the column sums of dpre per 128-row tile of the wgmma engine
+        db1_part = torch.empty((-(-rows // 128), m), dtype=f32, device=dev)
         dx = torch.empty_like(x)
         xn = torch.empty_like(x)
         dw1 = torch.empty((k, m), dtype=f32, device=dev)

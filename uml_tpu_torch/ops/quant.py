@@ -36,8 +36,8 @@ from __future__ import annotations
 import torch
 
 from uml_tpu_torch.ops import _build
-from uml_tpu_torch.ops.fused_attention import (HEAD_DIM, MAX_SEQ,
-                                               _qkv_heads, attention_plain,
+from uml_tpu_torch.ops.fused_attention import (HEAD_DIM, _qkv_heads,
+                                               attention_plain,
                                                fold_ln_into_matmul)
 from uml_tpu_torch.ops.ln_matmul import quick_gelu_f32
 
@@ -163,8 +163,6 @@ def _launch_attn_block_q8(x, wq, wsc, b_eff, wo_ops, bo, heads, causal,
     b, s, k = x.shape
     hd = heads * HEAD_DIM
     _build.check_dims(K=k)
-    if s > MAX_SEQ:
-        raise ValueError(f"S={s}: the attention kernel takes S <= {MAX_SEQ}")
     bf16, f32, dev = torch.bfloat16, torch.float32, x.device
     _build.check_tensor("x", x, bf16, (b, s, k), dev)
     _build.check_tensor("wq", wq, torch.int8, (k, 3 * hd), dev)

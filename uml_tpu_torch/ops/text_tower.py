@@ -26,7 +26,7 @@ import torch
 
 from uml_tpu_torch.ops import _build
 from uml_tpu_torch.ops._vjp import plain_vjp
-from uml_tpu_torch.ops.fused_attention import HEAD_DIM, MAX_SEQ, attn_block_plain
+from uml_tpu_torch.ops.fused_attention import HEAD_DIM, attn_block_plain
 from uml_tpu_torch.ops.ln_matmul import mlp_block_plain
 
 
@@ -51,8 +51,6 @@ def text_tower(x, w_eff, b_eff, wo, bo, w1, b1, w2, b2, *, heads: int,
     _build.check_dims(K=k, M=m)
     if layers < 1:
         raise ValueError("text_tower needs at least one layer")
-    if s > MAX_SEQ:
-        raise ValueError(f"S={s}: the attention kernel takes S <= {MAX_SEQ}")
     bf16, f32, dev = torch.bfloat16, torch.float32, x.device
     for name, t, dtype, shape in (
             ("x", x, bf16, (b, s, k)),
@@ -66,14 +64,15 @@ def text_tower(x, w_eff, b_eff, wo, bo, w1, b1, w2, b2, *, heads: int,
             ("b2", b2, f32, (layers, k))):
         _build.check_tensor(name, t, dtype, shape, dev)
     with torch.cuda.device(dev):
+        xn = torch.empty_like(x)
         qkv = torch.empty((b * s, 3 * hd), dtype=bf16, device=dev)
         attn = torch.empty((b * s, hd), dtype=bf16, device=dev)
         hidden = torch.empty((b * s, m), dtype=bf16, device=dev)
         mid = torch.empty_like(x)
         out = torch.empty_like(x)
         _build.launch("uml_text_tower", *(t.data_ptr() for t in (
-            x, w_eff, b_eff, wo, bo, w1, b1, w2, b2, qkv, attn, hidden, mid,
-            out)), b, s, k, heads, m, layers, eps,
+            x, w_eff, b_eff, wo, bo, w1, b1, w2, b2, xn, qkv, attn, hidden,
+            mid, out)), b, s, k, heads, m, layers, eps,
             torch.cuda.current_stream(dev).cuda_stream)
     text_tower.launches += 1
     return out
@@ -85,9 +84,8 @@ text_tower.launches = 0
 def supports_text_tower(k: int, heads: int, head_dim: int, s: int,
                         m: int) -> bool:
     """What the tower's kernels take: head dim 64, K and M multiples of the
-    64-wide GEMM tiles, S <= MAX_SEQ."""
-    return (head_dim == HEAD_DIM and k % 64 == 0 and m % 64 == 0
-            and s <= MAX_SEQ)
+    64-wide GEMM tiles; any S (the attention streams K/V)."""
+    return head_dim == HEAD_DIM and k % 64 == 0 and m % 64 == 0
 
 
 class TextTowerFn(torch.autograd.Function):

@@ -25,16 +25,16 @@ from __future__ import annotations
 import torch
 
 from uml_tpu_torch.ops import _build
-from uml_tpu_torch.ops.fused_attention import HEAD_DIM, MAX_SEQ
+from uml_tpu_torch.ops.fused_attention import HEAD_DIM
 from uml_tpu_torch.ops.quant import (attn_block_q8_plain, check_inference,
                                      mlp_block_q8_plain)
 
 
 def supports_tower_q8(k: int, heads: int, head_dim: int, s: int, m: int) -> bool:
     """The shapes the CUDA kernels take: head dim 64, widths a multiple of
-    64, S within the attention kernel's shared memory."""
+    64; any S (the attention streams K/V)."""
     return (head_dim == HEAD_DIM and k % 64 == 0 and m % 64 == 0
-            and heads * head_dim % 64 == 0 and s <= MAX_SEQ)
+            and heads * head_dim % 64 == 0)
 
 
 def tower_q8_plain(x, wq, wsc, b_eff, woq, wosc, bo, w1q, w1sc, b1, w2q, w2sc,
@@ -60,8 +60,6 @@ def tower_q8(x, wq, wsc, b_eff, woq, wosc, bo, w1q, w1sc, b1, w2q, w2sc, b2, *,
     _build.check_dims(K=k, M=m)
     if layers < 1:
         raise ValueError("tower_q8 needs at least one layer")
-    if s > MAX_SEQ:
-        raise ValueError(f"S={s}: the attention kernel takes S <= {MAX_SEQ}")
     i8, f32, dev = torch.int8, torch.float32, x.device
     for name, t, dtype, shape in (
             ("x", x, torch.bfloat16, (b, s, k)),
