@@ -458,11 +458,28 @@ def _q8_case_weights(gen, k, m, hd, dev, layers=None):
     return tuple(torch.stack(t) for t in zip(*per_layer))
 
 
+def _attention_fp32(qkv, heads):
+    """The witness: attention of a packed qkv [B, S, 3*H*64] in fp32 with
+    unrounded probabilities, the inputs' bf16 rounding the only one ->
+    [B*S, H*64] fp32."""
+    import torch
+
+    from uml_tpu_torch.ops.fused_attention import _qkv_heads
+
+    b, s, _ = qkv.shape
+    q, k, v = (t.float() for t in _qkv_heads(qkv, heads))
+    p = torch.softmax((q @ k.transpose(-1, -2)) * q.shape[-1] ** -0.5, -1)
+    return (p @ v).transpose(1, 2).reshape(b * s, -1)
+
+
 def _int8_flips(xv, q8v, eps=1e-5):
     """The activation integers of the int8 halves on the card against the
     plain version's on the same inputs: the attention output quantized for
     the int8 out-projection, and quick_gelu(pre) for c_proj.  -> {half:
-    (share of integers that differ, largest difference)}."""
+    (share of integers that differ, largest difference)}; "attn_out vs
+    fp32" and "plain vs fp32" hold the card's and the plain version's
+    attention integers against those of the fp32 witness (unrounded
+    probabilities, _attention_fp32)."""
     import torch
 
     from uml_tpu_torch.ops import quant as q8
@@ -476,6 +493,7 @@ def _int8_flips(xv, q8v, eps=1e-5):
     attn = attention_plain(*_qkv_heads(qkv, 12), causal=False)
     attn = attn.transpose(1, 2).reshape(b * s, -1)
     want_attn = q8.quantize_rows(attn.float())[0]
+    exact_attn = q8.quantize_rows(_attention_fp32(qkv, 12))[0]
     got_attn = q8._launch_attn_block_q8(xv, wq, wsc, b_eff, (woq, wosc), bo,
                                         12, False, True, eps)[1]
     pre = q8.q8_dot(xq, xs, w1q, w1sc) + b1
@@ -483,10 +501,32 @@ def _int8_flips(xv, q8v, eps=1e-5):
     got_act = q8._launch_mlp_block_q8(xv, w1q, w1sc, b1, w2q, w2sc, b2, eps)[1]
     flips = {}
     for name, got, want in (("attn_out", got_attn, want_attn),
-                            ("mlp_hidden", got_act, want_act)):
+                            ("mlp_hidden", got_act, want_act),
+                            ("attn_out vs fp32", got_attn, exact_attn),
+                            ("plain vs fp32", want_attn, exact_attn)):
         diff = (got[:want.numel()].view_as(want).int() - want.int()).abs()
         flips[name] = ((diff > 0).float().mean().item(), diff.max().item())
     return flips
+
+
+def _attention_witness(xv, attn_w, heads=12):
+    """The bf16 attention output of the fused half on the card (its stash)
+    and of attention_plain, each against the fp32 witness of the card's own
+    qkv -> {"card": err, "plain": err}, err = max |a - w| / max |w|."""
+    import torch
+
+    from uml_tpu_torch.ops import fused_attention as fa
+
+    b, s, _ = xv.shape
+    _, qkv, attn = fa._launch_attn_block(xv, *attn_w, heads, False, 1e-5, s,
+                                         entry="uml_attn_block_stash")
+    qkv = qkv.view(b, s, -1)
+    w = _attention_fp32(qkv, heads)
+    plain = fa.attention_plain(*fa._qkv_heads(qkv, heads), causal=False)
+    plain = plain.transpose(1, 2).reshape(b * s, -1)
+    scale = w.abs().max()
+    return {name: ((a.float().view_as(w) - w).abs().max() / scale).item()
+            for name, a in (("card", attn), ("plain", plain))}
 
 
 def phase_kernels():
@@ -756,10 +796,20 @@ def phase_kernels():
               f"{((a - b_).abs().max() / b_.abs().max()).item():.5f}")
         del a, b_
     flips = _int8_flips(xv, q8v)
-    for half, (share, worst) in flips.items():
+    for half in ("attn_out", "mlp_hidden"):
+        share, worst = flips[half]
         print(f"[kernels] int8 integers, {half}: {100 * share:.4f}% differ "
               f"from the plain version's, largest difference {worst}")
         _check(worst <= 1, (half, "integer differs by more than one step", worst))
+    # the second witness: both sides against fp32 attention with unrounded
+    # probabilities (recorded, not held)
+    for half in ("attn_out vs fp32", "plain vs fp32"):
+        share, worst = flips[half]
+        print(f"[kernels] int8 integers, {half}: {100 * share:.4f}% differ, "
+              f"largest difference {worst}")
+    wit = _attention_witness(xv, attn_v)
+    print(f"[kernels] bf16 attention vs the fp32 witness, max |err| / max: "
+          f"card {wit['card']:.6f}, attention_plain {wit['plain']:.6f}")
     return results
 
 

@@ -19,6 +19,10 @@ M = 3072).  Inputs are numpy draws from a seed handed to both packages.
   fp32, 2^-6 in bf16).
 * The wrappers' checks take S = 257 and 785 and still refuse an fp32
   operand and a width that is not a multiple of 64.
+* ``attention_plain`` (P rounded once, against the row's final max) at
+  S = 257 and 785 against ``mha_reference`` run in fp32 (unrounded
+  probabilities), and ``gemm_at`` on the CPU against jnp at every row-chunk
+  count it takes.
 """
 
 import jax.numpy as jnp
@@ -144,3 +148,51 @@ def test_wrapper_checks_take_long_seq(shape):
         tfa._check_fwd(narrow, *attn, heads)
     with pytest.raises(ValueError):
         tfa._check_bwd(narrow, narrow, None, tw["w_eff"], tw["wo"], heads, s)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s", [257, 785])
+def test_attention_plain_long_seq_matches_fp32_witness(s, causal, dtype):
+    """The fused halves' plain attention (one rounding of P, against the
+    row's final max) against uml_tpu's mha_reference run in fp32 on the
+    same inputs, whose probabilities are not rounded: in fp32 within 2e-5
+    of the largest entry, in bf16 within 2^-7 (P and the output rounded
+    once each)."""
+    from uml_tpu.ops.attention import mha_reference
+
+    jdt, tdt = DTYPES[dtype]
+    rng = np.random.default_rng(s + causal)
+    q, k, v = (rng.standard_normal((1, 2, s, 64)).astype(np.float32)
+               for _ in range(3))
+    tq, tk, tv = (torch.tensor(a).to(tdt) for a in (q, k, v))
+    got = tfa.attention_plain(tq, tk, tv, causal=causal)
+    assert got.dtype == tdt
+    want = mha_reference(*(jnp.asarray(t.float().numpy()) for t in (tq, tk, tv)),
+                         causal=causal)
+    _close_rel(got, want, 2e-5 if dtype == "fp32" else 2.0 ** -7, "attn")
+
+
+@pytest.mark.parametrize("splits", [0, 1, 3, 8])
+def test_gemm_at_plain_matches_jnp(splits):
+    """gemm_at on the CPU (its plain version, whatever the chunk count)
+    against jnp's fp32-accumulated a^T b of the same bf16 operands."""
+    from uml_tpu_torch.ops import gemm
+
+    rng = np.random.default_rng(splits)
+    a, b = (rng.standard_normal((785, n)).astype(np.float32) for n in (128, 192))
+    ta, tb = (torch.tensor(t).to(torch.bfloat16) for t in (a, b))
+    got = gemm.gemm_at(ta, tb, splits=splits)
+    want = jnp.dot(jnp.asarray(ta.float().numpy()).T,
+                   jnp.asarray(tb.float().numpy()),
+                   preferred_element_type=jnp.float32)
+    _close_rel(got, want, 1e-5, "gemm_at")
+
+
+@pytest.mark.parametrize("splits", [-1, 9])
+def test_gemm_at_refuses_chunk_counts_it_does_not_take(splits):
+    from uml_tpu_torch.ops import gemm
+
+    a = torch.zeros(9, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        gemm.gemm_at(a, a, splits=splits)

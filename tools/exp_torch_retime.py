@@ -10,6 +10,12 @@ interval), beside the PyTorch call that computes the same function:
 * where the checkout has ``ops/gemm.py``: each product triple of the
   wgmma engine and ``gemm_at`` at the shapes rows 7 and 20 launch them,
   each beside one cuBLAS call (``torch.matmul``) at the same shape;
+* where the checkout's ``gemm_at`` takes ``splits``: each row-chunk
+  count at both of row 20's shapes;
+* the fused attention against the fp32 witness (``chip_smoke.py``'s
+  ``_attention_fp32``: unrounded probabilities): the bf16 output's
+  error, and the int8 block's activation integers that differ from the
+  witness's and from the plain version's (``_int8_flips``);
 * the device time by kernel of rows 7 and 20 (torch.profiler, printed as
   ``[profile]`` lines);
 * the bf16 image encoder's img/s at batch 64 (random-init ViT-B/16, a
@@ -30,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import importlib.util
+import inspect
 import json
 import os
 import subprocess
@@ -181,6 +188,21 @@ def main() -> int:
             print(f"[products] {name}: {ms:.4f} ms ({flops / ms / 1e9:.1f} "
                   f"TFLOP/s), cuBLAS {ref:.4f} ms ({flops / ref / 1e9:.1f}), "
                   f"ratio {ms / ref:.2f}")
+    if gemm is not None and "splits" in inspect.signature(gemm.gemm_at).parameters:
+        for (a, b_), tag in (((x.view(-1, 768), dy.view(-1, 3072)), "768x3072"),
+                             ((dy.view(-1, 3072), g.view(-1, 768)), "3072x768")):
+            for sp in range(1, gemm.MAX_SPLITS + 1):
+                fn = lambda a, b, sp=sp: gemm.gemm_at(a, b, splits=sp)  # noqa: E731
+                out[f"gemm_at {tag} splits={sp}"] = harness._graph_time_ms(
+                    fn, harness._input_copies((a, b_)))
+            out[f"gemm_at {tag} splits=auto"] = harness._graph_time_ms(
+                gemm.gemm_at, harness._input_copies((a, b_)))
+    q8v = harness._q8_case_weights(gen, 768, 3072, 768, dev)
+    for half, (share, worst) in harness._int8_flips(x, q8v).items():
+        out[f"int8 {half}: share differing"] = share
+        out[f"int8 {half}: largest difference"] = worst
+    for side, err in harness._attention_witness(x, attn_v).items():
+        out[f"attention vs fp32 witness, {side}"] = err
     harness._profile("row 7 attn_block_bwd_recompute", lambda: row7(*row7_in),
                      top=12)
     harness._profile("row 20 mlp_bwd_dw", lambda: row20(*row20_in), top=12)

@@ -46,10 +46,19 @@
 // * Key tile: 128 keys at D = 64, 64 at D = 128 (scores 64xBK and output
 //   64xD fp32 per warpgroup, P as bf16: ~130 registers a thread either way).
 //
-// Numerics as attention.py:90-147 and attention_plain: fp32 scores and
-// statistics, key columns >= S (and, causal, above the diagonal) masked,
-// P rounded to bf16 before P.V, l the sum of the unrounded P, out = acc /
-// max(l, 1e-30).  A row with no valid key yet keeps m = -inf, l = 0, P = 0.
+// Numerics as attention.py:90-147: fp32 scores and statistics, key
+// columns >= S (and, causal, above the diagonal) masked, P rounded to bf16
+// before P.V, l the sum of the unrounded P, out = acc / max(l, 1e-30).  A
+// row with no valid key yet keeps m = -inf, l = 0, P = 0.
+// * MAX_FIRST (the fused blocks): the TPU block kernels take the softmax
+//   of a whole row at once, so P is rounded to bf16 once, against the
+//   row's final max, and attention_plain computes it so.  The online order
+//   rounds P(t) against the running max and rescales it later: the same
+//   error in size, but other roundings, and the int8 blocks' quantized
+//   output moves by up to two steps with them.  So these blocks first walk
+//   the K tiles alone for each row's max (the scores once more, no V), and
+//   the second walk's m never grows (alpha = 1).  The stand-alone row 13
+//   keeps the one online walk.
 // The causal block skip of attention.py:136-141: a block stops at the key
 // tile of its last row (at D = 128 the first warpgroup also takes that
 // tile, all masked, to keep the turns of the two in step); causal blocks
@@ -124,7 +133,23 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
+// the scores of edge tiles: key columns >= S and, causal, above the
+// diagonal to -inf
 template <int D, bool CAUSAL>
+__device__ __forceinline__ void mask_tile(float (&sc)[FaCfg<D>::BK / 2], int k0, int S,
+                                          int wg_first, int row0, int col0) {
+  constexpr int BK = FaCfg<D>::BK;
+  if (k0 + BK > S || (CAUSAL && k0 + BK - 1 > wg_first)) {
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const int col = k0 + 8 * (i / 4) + col0 + (i & 1);
+      const int row = row0 + 8 * ((i >> 1) & 1);
+      if (col >= S || (CAUSAL && col > row)) sc[i] = -CUDART_INF_F;
+    }
+  }
+}
+
+template <int D, bool CAUSAL, bool MAX_FIRST>
 __global__ void __launch_bounds__(FA_THREADS, 1)
 flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
@@ -148,6 +173,7 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
   const int q0 = qt * FA_BQ;
   const int tiles_all = (S + BK - 1) / BK;
   const int n_tiles = CAUSAL ? min(tiles_all, (q0 + FA_BQ - 1) / BK + 1) : tiles_all;
+  const int u0 = MAX_FIRST ? n_tiles : 0;  // ring slots of the max walk
 
   if (tid == 0) {
     for (int s = 0; s < FA_STAGES; ++s) {
@@ -160,20 +186,23 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
   __syncthreads();
 
   if (tid >= FA_CONSUMERS) {
-    // the producer warp: one lane issues every copy
+    // the producer warp: one lane issues every copy; ring slot u holds
+    // K tile u of the max walk (u < u0), then K and V tile u - u0
     if (tid == FA_CONSUMERS) {
       mbar_arrive_expect_tx(q_bar, C::Q_BYTES);
       for (int p = 0; p < C::PANELS; ++p)
         tma_load_4d(sQ + p * C::Q_PANEL, &tq, q_bar, 64 * p, q0, h, b);
-      for (int t = 0; t < n_tiles; ++t) {
-        const int s = t % FA_STAGES;
-        mbar_wait(sBar + 8 * (FA_STAGES + s), ((t / FA_STAGES) & 1) ^ 1);
+      for (int u = 0; u < u0 + n_tiles; ++u) {
+        const int s = u % FA_STAGES, t = u < u0 ? u : u - u0;
+        const bool with_v = u >= u0;
+        mbar_wait(sBar + 8 * (FA_STAGES + s), ((u / FA_STAGES) & 1) ^ 1);
         const uint32_t full = sBar + 8 * s;
         const uint32_t k_dst = sKV + s * 2 * C::KV_BYTES;
-        mbar_arrive_expect_tx(full, 2 * C::KV_BYTES);
+        mbar_arrive_expect_tx(full, (with_v ? 2 : 1) * C::KV_BYTES);
         for (int p = 0; p < C::PANELS; ++p) {
           tma_load_4d(k_dst + p * C::KV_PANEL, &tk, full, 64 * p, t * BK, h, b);
-          tma_load_4d(k_dst + C::KV_BYTES + p * C::KV_PANEL, &tv, full, 64 * p, t * BK, h, b);
+          if (with_v)
+            tma_load_4d(k_dst + C::KV_BYTES + p * C::KV_PANEL, &tv, full, 64 * p, t * BK, h, b);
         }
       }
     }
@@ -191,7 +220,9 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
   const int col0 = 2 * (lane & 3);
   const int wg_first = q0 + wg * 64;
   const uint32_t q_wg = sQ + wg * 64 * 128;  // the warpgroup's rows in each panel
-  auto stage_kv = [&](int t) { return sKV + (t % FA_STAGES) * 2 * C::KV_BYTES; };
+  // ring slot u0 + t holds K and V tile t of the softmax walk
+  auto stage_kv = [&](int t) { return sKV + ((u0 + t) % FA_STAGES) * 2 * C::KV_BYTES; };
+  auto empty_bar = [&](int t) { return sBar + 8 * (FA_STAGES + (u0 + t) % FA_STAGES); };
 
   float o[D / 2];
 #pragma unroll
@@ -202,11 +233,33 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
   uint32_t pa[BK / 16][4];
   float sc[BK / 2];
   mbar_wait(q_bar, 0);
+  if constexpr (MAX_FIRST) {
+    // the max walk: each row's max over all its keys, in log2 units
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+    for (int u = 0; u < u0; ++u) {
+      mbar_wait(sBar + 8 * (u % FA_STAGES), (u / FA_STAGES) & 1);
+      wgmma_fence();
+      scores_mma<D>(sc, q_wg, sKV + (u % FA_STAGES) * 2 * C::KV_BYTES);
+      wgmma_commit();
+      wgmma_wait<0>();
+      wgmma_fence_regs(sc);
+      mbar_arrive(sBar + 8 * (FA_STAGES + u % FA_STAGES));
+      mask_tile<D, CAUSAL>(sc, u * BK, S, wg_first, row0, col0);
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      m[r] = mx[r] * scale_log2;
+    }
+  }
   if (wg == 1) named_bar_arrive(1, FA_CONSUMERS);  // warpgroup 0 issues first
 
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * BK;
-    mbar_wait(sBar + 8 * (t % FA_STAGES), (t / FA_STAGES) & 1);
+    mbar_wait(sBar + 8 * ((u0 + t) % FA_STAGES), ((u0 + t) / FA_STAGES) & 1);
     named_bar_sync(1 + wg, FA_CONSUMERS);
     wgmma_fence();
     scores_mma<D>(sc, q_wg, stage_kv(t));
@@ -227,14 +280,7 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
     wgmma_fence_regs(sc);
 
     // mask (edge tiles only), row max over the thread's columns
-    if (k0 + BK > S || (CAUSAL && k0 + BK - 1 > wg_first)) {
-#pragma unroll
-      for (int i = 0; i < BK / 2; ++i) {
-        const int col = k0 + 8 * (i / 4) + col0 + (i & 1);
-        const int row = row0 + 8 * ((i >> 1) & 1);
-        if (col >= S || (CAUSAL && col > row)) sc[i] = -CUDART_INF_F;
-      }
-    }
+    mask_tile<D, CAUSAL>(sc, k0, S, wg_first, row0, col0);
     float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
     for (int i = 0; i < BK / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
@@ -246,7 +292,8 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
       const float m_new = fmaxf(m[r], mx[r] * scale_log2);
       // a row with no valid key so far: m stays -inf, P = 0, l = 0
       m_use[r] = m_new == -CUDART_INF_F ? 0.f : m_new;
-      alpha[r] = ex2_approx(m[r] - m_use[r]);
+      // MAX_FIRST: m is the row's max already
+      alpha[r] = MAX_FIRST ? 1.f : ex2_approx(m[r] - m_use[r]);
       m[r] = m_new;
     }
     // P = 2^(s scale_log2 - m); l sums the fp32 P (over the thread's
@@ -263,7 +310,7 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
 
     wgmma_wait<0>();  // P(t-1) V(t-1) done: its registers and stage are free
     wgmma_fence_regs(o);
-    if (t > 0) mbar_arrive(sBar + 8 * (FA_STAGES + (t - 1) % FA_STAGES));
+    if (t > 0) mbar_arrive(empty_bar(t - 1));
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
@@ -278,7 +325,7 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
   wgmma_commit();
   wgmma_wait<0>();
   wgmma_fence_regs(o);
-  mbar_arrive(sBar + 8 * (FA_STAGES + (n_tiles - 1) % FA_STAGES));
+  mbar_arrive(empty_bar(n_tiles - 1));
 
   // out = acc / max(l, 1e-30), two bf16 a store, query rows < Sq only
 #pragma unroll
@@ -309,18 +356,19 @@ bool make_map(CUtensorMap* map, const void* ptr, long long B, int H, int S, int 
   return make_tensor_map(map, ptr, 4, dims, strides, box);
 }
 
-template <int D, bool CAUSAL>
+template <int D, bool CAUSAL, bool MAX_FIRST>
 cudaError_t launch_flash(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
                          __nv_bfloat16* out, long long B, int H, int Sq, int S, long long o_b,
                          long long o_h, long long o_r, cudaStream_t stream) {
   const int smem = (int)FaCfg<D>::SMEM;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_attention_kernel<D, CAUSAL>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_attention_kernel<D, CAUSAL, MAX_FIRST>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (attr != cudaSuccess) return attr;
   const dim3 grid((unsigned)(B * H), (unsigned)((Sq + FA_BQ - 1) / FA_BQ));
   // 1 / sqrt(D) and log2(e) in one factor
   const float scale_log2 = (D == 64 ? 0.125f : 0.08838834764831845f) * 1.4426950408889634f;
-  flash_attention_kernel<D, CAUSAL><<<grid, FA_THREADS, smem, stream>>>(
+  flash_attention_kernel<D, CAUSAL, MAX_FIRST><<<grid, FA_THREADS, smem, stream>>>(
       tq, tk, tv, out, H, Sq, S, o_b, o_h, o_r, scale_log2);
   return cudaGetLastError();
 }
@@ -334,7 +382,8 @@ cudaError_t launch_flash_attention(const __nv_bfloat16* q, const __nv_bfloat16* 
                                    int Sq, int S, int D, bool causal, long long q_b, long long q_h,
                                    long long q_r, long long k_b, long long k_h, long long k_r,
                                    long long v_b, long long v_h, long long v_r, long long o_b,
-                                   long long o_h, long long o_r, cudaStream_t stream) {
+                                   long long o_h, long long o_r, bool max_first,
+                                   cudaStream_t stream) {
   const long long q_tiles = (Sq + FA_BQ - 1) / FA_BQ;
   if ((D != 64 && D != 128) || B < 1 || H < 1 || S < 1 || Sq < 1 || Sq > S ||
       (causal && Sq != S) || B * H > 2147483647LL || q_tiles > 65535)
@@ -351,11 +400,18 @@ cudaError_t launch_flash_attention(const __nv_bfloat16* q, const __nv_bfloat16* 
       !make_map(&tk, k, B, H, S, D, k_b, k_h, k_r, bk) ||
       !make_map(&tv, v, B, H, S, D, v_b, v_h, v_r, bk))
     return cudaErrorInvalidValue;
-  if (D == 64)
-    return causal ? launch_flash<64, true>(tq, tk, tv, out, B, H, Sq, S, o_b, o_h, o_r, stream)
-                  : launch_flash<64, false>(tq, tk, tv, out, B, H, Sq, S, o_b, o_h, o_r, stream);
-  return causal ? launch_flash<128, true>(tq, tk, tv, out, B, H, Sq, S, o_b, o_h, o_r, stream)
-                : launch_flash<128, false>(tq, tk, tv, out, B, H, Sq, S, o_b, o_h, o_r, stream);
+#define UML_FLASH(d, c, mf)                                                          \
+  if (D == d && causal == c && max_first == mf)                                      \
+    return launch_flash<d, c, mf>(tq, tk, tv, out, B, H, Sq, S, o_b, o_h, o_r, stream);
+  UML_FLASH(64, false, false)
+  UML_FLASH(64, true, false)
+  UML_FLASH(128, false, false)
+  UML_FLASH(128, true, false)
+  // the fused blocks' head dim
+  UML_FLASH(64, false, true)
+  UML_FLASH(64, true, true)
+#undef UML_FLASH
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace uml
@@ -373,5 +429,5 @@ extern "C" int uml_flash_attention(const void* q, const void* k, const void* v, 
   return (int)uml::launch_flash_attention(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(out), B, H, S, S, D, causal != 0, q_b, q_h, q_r, k_b, k_h, k_r, v_b,
-      v_h, v_r, o_b, o_h, o_r, static_cast<cudaStream_t>(stream));
+      v_h, v_r, o_b, o_h, o_r, false, static_cast<cudaStream_t>(stream));
 }

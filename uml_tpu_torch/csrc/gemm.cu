@@ -21,10 +21,12 @@ extern "C" int uml_ln_gemm(const void* a, const void* w, const void* bias, const
                                   static_cast<bf16*>(aux), static_cast<float*>(colsum_part), ops);
 }
 
-extern "C" int uml_gemm_at(const void* a, const void* b, void* c, int R, int P, int N,
-                           void* stream) {
+// ws: fp32 scratch of ws_floats for the row chunks' partials; splits: the
+// chunk count, or 0 for the launcher's choice
+extern "C" int uml_gemm_at(const void* a, const void* b, void* c, void* ws, long long ws_floats,
+                           int R, int P, int N, int splits, void* stream) {
   using bf16 = __nv_bfloat16;
   return (int)uml::launch_gemm_at(static_cast<const bf16*>(a), static_cast<const bf16*>(b),
-                                  static_cast<float*>(c), R, P, N,
-                                  static_cast<cudaStream_t>(stream));
+                                  static_cast<float*>(c), static_cast<float*>(ws), ws_floats, R,
+                                  P, N, splits, static_cast<cudaStream_t>(stream));
 }

@@ -15,11 +15,11 @@
 // the ~295 FLOP/byte ridge, so the tensor cores bound it.  It runs on the
 // wgmma engine (wgmma_gemm.cuh) with A as an M-major and B as an N-major
 // operand, read in place.  C has few tiles (6 x 24 = 144 of 128 x 128 at
-// that shape, a wave and a ninth of the 132 SMs' 264 block slots) and a
-// long contraction, so the rows are split into chunks: `splits` is chosen
-// so that tiles x splits fills whole waves, and the chunks of a tile add
-// into C one after the other (a counter per tile, in order), the same sums
-// in the same order on every run.
+// that shape, a wave and a ninth of the 132 SMs) and a long contraction,
+// so the rows are split into `splits` chunks: chunk 0 writes C, chunk z >
+// 0 its fp32 partial to slab z-1 of a workspace the caller provides, and a
+// second launch adds the slabs into C in chunk order, the same sums in the
+// same order on every run.  Nothing waits on another block.
 
 #pragma once
 
@@ -27,52 +27,87 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 #include "wgmma_gemm.cuh"
 
 namespace uml {
 
-constexpr int GAT_MAX_TILES = 4096;
-// one counter per tile of C for the serial split; each launch leaves them
-// at zero (static: one set per source file that launches gemm_at)
-static __device__ int gemm_at_sem[GAT_MAX_TILES];
+constexpr int GAT_MAX_SPLITS = 8;  // row chunks at most (workspace: 7 slabs of P x N)
 
-// the number of contraction chunks: the fewest (of 1..16, at least 8
-// k-steps each) that fill the card's block slots within 2% of the best
-static inline int gemm_at_splits(int tiles, int k_steps) {
-  const int slots = wgmma_block_slots();
-  if (tiles > GAT_MAX_TILES) return 1;
+// the number of row chunks (1..GAT_MAX_SPLITS, at least 8 k-steps each)
+// that minimizes a cost in microseconds: the busiest SM's share of the
+// products (tiles x s items, each 1/s of a tile, over the SMs) plus the
+// partials' round trip (8 P N bytes a chunk past the first).  The rates
+// are the H100's as the engine runs: a 64-row step of a 128 x 128 tile
+// 0.42 us (one chunk, 144 tiles: 0.167 ms at 197 steps, two tiles on the
+// busiest SM), the partials at ~2.5 TB/s; at row 20's shapes this picks 3
+// chunks, the fastest of 1..8 there (0.133 and 0.123 ms against 0.167 and
+// 0.156 for one chunk)
+static inline int gemm_at_splits(int tiles, int k_steps, long long pn) {
+  const int sms = wgmma_block_slots() / WGG_BLOCKS_PER_SM;
+  const double tile_us = 0.42 * k_steps, slab_us = 8.0 * (double)pn / 2.5e6;
   double best = 0.0;
   int pick = 1;
-  for (int s = 1; s <= 16 && (s == 1 || k_steps / s >= 8); ++s) {
-    const long long blocks = (long long)tiles * s;
-    const double fill = (double)blocks / (double)(((blocks + slots - 1) / slots) * slots);
-    if (fill > best + 0.02) {
-      best = fill;
+  for (int s = 1; s <= GAT_MAX_SPLITS && (s == 1 || k_steps / s >= 8); ++s) {
+    const long long per_sm = ((long long)tiles * s + sms - 1) / sms;
+    const double cost = tile_us * (double)per_sm / s + slab_us * (s - 1);
+    if (s == 1 || cost < best) {
+      best = cost;
       pick = s;
     }
   }
   return pick;
 }
 
-// Launch one gemm_at on `stream`; returns the launch error.
+// c[i] += part[0][i] + part[1][i] + ..., added in slab order; n4 float4s
+static __global__ void gemm_at_add_parts_kernel(float4* __restrict__ c,
+                                                const float4* __restrict__ part, int parts,
+                                                long long n4) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n4;
+       i += (long long)gridDim.x * blockDim.x) {
+    float4 t = c[i];
+    for (int z = 0; z < parts; ++z) {
+      const float4 p = __ldcs(part + (long long)z * n4 + i);
+      t.x += p.x;
+      t.y += p.y;
+      t.z += p.z;
+      t.w += p.w;
+    }
+    c[i] = t;
+  }
+}
+
+// Launch one gemm_at on `stream`; returns the launch error.  ws: fp32
+// scratch of ws_floats for the partials (chunks are cut to what fits: up
+// to (GAT_MAX_SPLITS - 1) P N floats are used), or null; splits: the row
+// chunks, or 0 for gemm_at_splits' choice.
 static inline cudaError_t launch_gemm_at(const __nv_bfloat16* a, const __nv_bfloat16* b,
-                                         float* c, int R, int P, int N, cudaStream_t stream) {
-  if (P % 64 != 0 || N % 64 != 0) return cudaErrorInvalidValue;
+                                         float* c, float* ws, long long ws_floats, int R, int P,
+                                         int N, int splits, cudaStream_t stream) {
+  if (P % 64 != 0 || N % 64 != 0 || splits < 0 || splits > GAT_MAX_SPLITS ||
+      reinterpret_cast<uintptr_t>(c) % 16 != 0 || reinterpret_cast<uintptr_t>(ws) % 16 != 0)
+    return cudaErrorInvalidValue;
   const int tiles = ((P + WGG_BM - 1) / WGG_BM) * ((N + WGG_BN - 1) / WGG_BN);
   const int k_steps = (R + WGG_BK - 1) / WGG_BK;
+  const long long pn = (long long)P * N;
+  int s = splits > 0 ? splits : gemm_at_splits(tiles, k_steps, pn);
+  s = (int)std::min<long long>(s, 1 + (ws != nullptr ? ws_floats / pn : 0));
+  s = std::max(1, std::min(s, k_steps));
+  const int per = (k_steps + s - 1) / s;
+  s = (k_steps + per - 1) / per;  // every chunk non-empty
   WggEpilogue ep;
   ep.out = c;
-  ep.splits = gemm_at_splits(tiles, k_steps);
-  if (ep.splits > 1) {
-    // every chunk non-empty
-    const int per = (k_steps + ep.splits - 1) / ep.splits;
-    ep.splits = (k_steps + per - 1) / per;
-    void* sem = nullptr;
-    const cudaError_t e = cudaGetSymbolAddress(&sem, gemm_at_sem);
-    if (e != cudaSuccess) return e;
-    ep.sem = static_cast<int*>(sem);
-  }
-  return launch_wgmma_gemm<true, true, WGG_OUT_F32>(a, b, ep, P, N, R, stream);
+  ep.splits = s;
+  ep.part = ws;
+  const cudaError_t e = launch_wgmma_gemm<true, true, WGG_OUT_F32>(a, b, ep, P, N, R, stream);
+  if (e != cudaSuccess || s == 1) return e;
+  const long long n4 = pn / 4;
+  const int blocks = (int)std::min<long long>((n4 + 255) / 256, 4LL * wgmma_block_slots());
+  gemm_at_add_parts_kernel<<<blocks, 256, 0, stream>>>(reinterpret_cast<float4*>(c),
+                                                       reinterpret_cast<const float4*>(ws),
+                                                       s - 1, n4);
+  return cudaGetLastError();
 }
 
 // db1 = the column sums of dpre: the per-row-tile partial sums that

@@ -21,8 +21,9 @@
 //                                                (ln_gemm, EPI_DACT_F32)
 //   3. dxn = dpre . w1^T, then the LN backward WITH the residual g -> dx
 //      (it does not write xn again: the pre-pass's is the same)
-//   4. dw1 = xn^T . dpre and dw2 = yact^T . g in fp32 (gemm_at), db1 = the
-//      sum of the row tiles' column sums (colsum_parts)
+//   4. dw1 = xn^T . dpre and dw2 = yact^T . g in fp32 (gemm_at, its row
+//      chunks' partials in dy's buffer, dead by then), db1 = the sum of the
+//      row tiles' column sums (colsum_parts)
 // -> (dx, dw1, db1, dw2) in fp32 dW; only db2 = sum(g) stays outside
 // (ln_matmul.py:541).
 //
@@ -75,8 +76,10 @@ static inline cudaError_t run_mlp_bwd_dw(const __nv_bfloat16* x, const __nv_bflo
   UML_TRY(launch_ln_gemm(dpre, w1, nullptr, nullptr, dxn, rows, K, M, 0, PRO_NONE, EPI_F32, eps,
                          stream, true));
   UML_TRY(launch_ln_bwd(x, dxn, g, dx, nullptr, rows, K, 1, eps, stream));
-  UML_TRY(launch_gemm_at(xn, dpre, dw1, rows, K, M, stream));
-  UML_TRY(launch_gemm_at(yact, g, dw2, rows, M, K, stream));
+  // dy is dead after the recompute: it holds gemm_at's partials
+  const long long ws = (long long)rows * M;
+  UML_TRY(launch_gemm_at(xn, dpre, dw1, dy, ws, rows, K, M, 0, stream));
+  UML_TRY(launch_gemm_at(yact, g, dw2, dy, ws, rows, M, K, 0, stream));
   return launch_colsum_parts(db1_part, db1, (rows + WGG_BM - 1) / WGG_BM, M, stream);
 }
 

@@ -46,12 +46,9 @@
 //   quick_gelu'(y) as bf16, and the column sums of the fp32 dpre over the
 //   block's 128 rows, reduced in a fixed order, to colsum_part[row tile]).
 // * Split contraction (gemm_at, whose C has few tiles and long K): the
-//   work items z = 0 .. splits-1 of a tile each take a chunk of K; chunk z
-//   waits until chunk z-1 of its tile has stored, adds its sum to C and
-//   lets z+1 in (a counter per tile in device memory, reset by the last
-//   chunk): a fixed order, so the sums are the same run to run, and C
-//   stays in L2.  Items run in order, so chunk z-1 is done or running
-//   on another block when chunk z waits for it.
+//   work items z = 0 .. splits-1 of a tile each take a chunk of K; chunk 0
+//   stores to out, chunk z > 0 to slab z-1 of `part`, and the caller adds
+//   the slabs in order (gemm_at.cuh).  No item waits on another.
 
 #pragma once
 
@@ -89,24 +86,14 @@ struct WggEpilogue {
   long long lddy = 0;
   __nv_bfloat16* aux = nullptr;        // OUT_DACT: [M, N] quick_gelu(y)
   float* colsum_part = nullptr;        // OUT_DACT: [ceil(M / 128), N], or null
-  int* sem = nullptr;                  // split contraction: a zeroed counter per tile
-  int splits = 1;                      // contraction chunks (gridDim.z)
+  int splits = 1;                      // contraction chunks (OUT_F32, no bias)
+  float* part = nullptr;               // splits > 1: [splits - 1, M, N] fp32 partials
 };
 
 // two floats as the bits of a bf16 pair (the lower column in the low half)
 static __device__ __forceinline__ uint32_t bf16x2_bits(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&h);
-}
-
-static __device__ __forceinline__ int ld_acquire(const int* p) {
-  int v;
-  asm volatile("ld.global.acquire.gpu.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-static __device__ __forceinline__ void st_release(int* p, int v) {
-  asm volatile("st.global.release.gpu.b32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
 }
 
 template <bool A_MN, bool B_MN, int OUT>
@@ -213,24 +200,12 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
     if (lane == 0) mbar_arrive(sBar + 8 * (WGG_STAGES + (it - 1) % WGG_STAGES));
 
     // epilogue on the accumulator registers, two 8-column blocks at a
-    // time: the pair's loads (dy, or the earlier chunks' sum) are issued
-    // before its stores, so they are in flight together (a larger group
-    // spills under the 96 registers that two blocks per SM leave), and
-    // its bf16 results are exchanged within each quad of lanes so that
-    // every store writes whole sectors
+    // time: the pair's dy loads are issued before its stores, so they are
+    // in flight together (a larger group spills under the 96 registers
+    // that two blocks per SM leave), and its bf16 results are exchanged
+    // within each quad of lanes so that every store writes whole sectors
     const int row_a = m0 + 64 * wg + 16 * warp + (lane >> 2);  // and row_a + 8
     const int col_a = n0 + 2 * (lane & 3);                     // + 8 j, + {0, 1}
-    if (OUT == WGG_OUT_F32 && ep.splits > 1 && split > 0) {
-      // chunk split-1 of this tile has stored its sum
-      if (tid == 0) {
-        const long long start = clock64();
-        while (ld_acquire(ep.sem + tile) != split) {
-          __nanosleep(64);
-          if (clock64() - start > (1LL << 34)) __trap();
-        }
-      }
-      named_bar_sync(1, WGG_CONSUMERS);
-    }
 #pragma unroll
     for (int j0 = 0; j0 < WGG_BN / 8; j0 += 2) {
       float2 in[2][2];
@@ -240,23 +215,22 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
         for (int r = 0; r < 2; ++r) {
           const int row = row_a + 8 * r, col = col_a + 8 * (j0 + jj);
           in[jj][r] = make_float2(0.f, 0.f);
-          if (row >= M || col >= N) continue;
-          const long long o = (long long)row * N + col;
-          if (OUT == WGG_OUT_DACT)
+          if (OUT == WGG_OUT_DACT && row < M && col < N)
             in[jj][r] = __ldg(reinterpret_cast<const float2*>(ep.dy + (long long)row * ep.lddy +
                                                                col));
-          else if (OUT == WGG_OUT_F32 && split > 0)
-            in[jj][r] = __ldcg(reinterpret_cast<const float2*>(static_cast<float*>(ep.out) + o));
         }
       }
       if constexpr (OUT == WGG_OUT_F32) {
-        // fp32: a quad's 8-byte stores fill whole sectors as they stand
+        // fp32: a quad's 8-byte stores fill whole sectors as they stand;
+        // chunk z > 0 stores to its slab of the partials
+        float* dst = split == 0 ? static_cast<float*>(ep.out)
+                                : ep.part + (long long)(split - 1) * M * N;
 #pragma unroll
         for (int jj = 0; jj < 2; ++jj) {
           const int col = col_a + 8 * (j0 + jj);
           if (col >= N) continue;
           float b0 = 0.f, b1 = 0.f;
-          if (ep.bias != nullptr && split == 0) {
+          if (ep.bias != nullptr) {
             b0 = ep.bias[col];
             b1 = ep.bias[col + 1];
           }
@@ -264,9 +238,8 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
           for (int r = 0; r < 2; ++r) {
             const int row = row_a + 8 * r;
             if (row >= M) continue;
-            *reinterpret_cast<float2*>(static_cast<float*>(ep.out) + (long long)row * N + col) =
-                make_float2(acc[4 * (j0 + jj) + 2 * r] + b0 + in[jj][r].x,
-                            acc[4 * (j0 + jj) + 2 * r + 1] + b1 + in[jj][r].y);
+            *reinterpret_cast<float2*>(dst + (long long)row * N + col) =
+                make_float2(acc[4 * (j0 + jj) + 2 * r] + b0, acc[4 * (j0 + jj) + 2 * r + 1] + b1);
           }
         }
       } else {
@@ -279,7 +252,7 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
           const int col = col_a + 8 * j;
           const bool col_ok = col < N;
           float b0 = 0.f, b1 = 0.f;
-          if (col_ok && ep.bias != nullptr && split == 0) {
+          if (col_ok && ep.bias != nullptr) {
             b0 = ep.bias[col];
             b1 = ep.bias[col + 1];
           }
@@ -351,12 +324,6 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
       }
       named_bar_sync(1, WGG_CONSUMERS);
     }
-    if (OUT == WGG_OUT_F32 && ep.splits > 1) {
-      // this chunk's stores are visible before the next chunk may read them
-      __threadfence();
-      named_bar_sync(1, WGG_CONSUMERS);
-      if (tid == 0) st_release(ep.sem + tile, split + 1 == ep.splits ? 0 : split + 1);
-    }
   }
 }
 
@@ -381,7 +348,8 @@ static cudaError_t launch_wgmma_gemm(const __nv_bfloat16* a, const __nv_bfloat16
                                      const WggEpilogue& ep, int M, int N, int K,
                                      cudaStream_t stream) {
   if (M < 1 || N < 64 || K < 1 || N % 64 != 0 || (A_MN ? M % 64 != 0 : K % 64 != 0) ||
-      ep.splits < 1 || ep.splits > 64 || (ep.splits > 1 && ep.sem == nullptr) ||
+      ep.splits < 1 || ep.splits > 64 ||
+      (ep.splits > 1 && (OUT != WGG_OUT_F32 || ep.part == nullptr || ep.bias != nullptr)) ||
       reinterpret_cast<uintptr_t>(a) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(b) % 16 != 0)
     return cudaErrorInvalidValue;

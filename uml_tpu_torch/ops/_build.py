@@ -81,8 +81,8 @@ SIGNATURES = {
     # a, w, bias, res, out, aux, colsum_part, xn, M, N, K, ldres, pro, epi,
     # trans_b, eps, stream
     "uml_ln_gemm": [_P] * 8 + [_I] * 3 + [_L] + [_I] * 3 + [_F, _P],
-    # a, b, c, R, P, N, stream
-    "uml_gemm_at": [_P] * 3 + [_I] * 3 + [_P],
+    # a, b, c, ws, ws_floats, R, P, N, splits, stream
+    "uml_gemm_at": [_P] * 4 + [_L] + [_I] * 4 + [_P],
     # q, k, v, out, B, H, S, D, causal, then the batch, head and row
     # strides of q, k, v and out (elements), stream
     "uml_flash_attention": [_P] * 4 + [_L, _I, _I, _I, _I] + [_L] * 12 + [_P],

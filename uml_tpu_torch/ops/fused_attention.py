@@ -59,8 +59,7 @@ in ``csrc/`` or raises, and counts the launch.
 
 Numerics, as in the twin: fp32 LN statistics, bf16 operands with fp32
 accumulation, the full b_eff added to qkv before its bf16 rounding, an
-fp32 online softmax over key tiles (the attention core's order), bf16
-probabilities.  (The TPU kernel
+fp32 softmax with the row max, bf16 probabilities.  (The TPU kernel
 instead drops the k-bias, which the softmax cancels exactly, and adds the
 v-bias after normalization; in bf16 the two orders round differently.)
 The backward recomputes the softmax statistics from the stash as the
@@ -96,36 +95,18 @@ def fold_ln_into_matmul(scale, bias, kernel, kbias):
 
 
 def attention_plain(q, k, v, *, causal: bool = False):
-    """q [B,H,Sq,D], k/v [B,H,S,D] -> [B,H,Sq,D] in flash_attention.cu's
-    order: an online softmax over key tiles of 128 (D = 64) or 64 keys,
-    fp32 scores and statistics; per tile the running row max m grows to
-    m' and the running sum l and the fp32 output rescale by exp(m - m'),
-    P = exp(s - m') is rounded to the input dtype before P.V and l sums the
-    unrounded P; out = acc / max(l, 1e-30).  A row with no valid key yet
-    keeps m = -inf, l = 0.  Causal rows see keys up to their own index
-    (offset S - Sq)."""
+    """q [B,H,Sq,D], k/v [B,H,S,D] -> [B,H,Sq,D]: fp32 scores and softmax
+    (row max), probabilities rounded to the input dtype unnormalized, the
+    1/rowsum applied to the fp32 P.V — the CUDA kernel's order."""
     d = q.shape[-1]
-    sq, sk = q.shape[-2], k.shape[-2]
-    bk = 128 if d == 64 else 64
-    qf = q.float() * d ** -0.5
-    shape = (*q.shape[:-1], 1)
-    m = torch.full(shape, float("-inf"), device=q.device)
-    l = torch.zeros(shape, device=q.device)
-    acc = torch.zeros(*q.shape[:-1], v.shape[-1], device=q.device)
-    rows = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
-    for k0 in range(0, sk, bk):
-        s = qf @ k[..., k0:k0 + bk, :].float().transpose(-1, -2)
-        if causal:
-            cols = torch.arange(k0, k0 + s.shape[-1], device=q.device)[None, :]
-            s = s.masked_fill(cols > rows, float("-inf"))
-        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-        m_use = torch.where(m_new == float("-inf"), 0.0, m_new)
-        p = torch.exp(s - m_use)
-        alpha = torch.exp(m - m_use)
-        l = l * alpha + p.sum(-1, keepdim=True)
-        acc = acc * alpha + p.to(q.dtype).float() @ v[..., k0:k0 + bk, :].float()
-        m = m_new
-    return (acc / l.clamp_min(1e-30)).to(q.dtype)
+    s = (q.float() @ k.float().transpose(-1, -2)) * d ** -0.5
+    if causal:
+        sq, sk = s.shape[-2:]
+        keep = torch.ones(sq, sk, dtype=torch.bool, device=s.device).tril(sk - sq)
+        s = s.masked_fill(~keep, float("-inf"))
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    inv = 1.0 / e.sum(-1, keepdim=True)
+    return ((e.to(q.dtype).float() @ v.float()) * inv).to(q.dtype)
 
 
 def _qkv_heads(qkv, heads):

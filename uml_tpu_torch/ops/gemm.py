@@ -38,6 +38,7 @@ TRIPLES = {"QKV": (PRO_LN, EPI_NONE, False),
            "TRANS_B_F32": (PRO_NONE, EPI_F32, True),
            "DACT_F32": (PRO_LN, EPI_DACT_F32, False)}
 ROW_TILE = 128  # rows of the engine's tile: one column-sum partial each
+MAX_SPLITS = 8  # gemm_at's row chunks at most (GAT_MAX_SPLITS, gemm_at.cuh)
 
 
 def ln_gemm_plain(a, w, bias=None, dy=None, *, triple: str, eps: float = 1e-5):
@@ -106,9 +107,13 @@ def gemm_at_plain(a, b):
     return a.float().t() @ b.float()
 
 
-def gemm_at(a, b):
+def gemm_at(a, b, *, splits: int = 0):
     """a^T b with fp32 accumulation: a [R, P], b [R, N] bf16 -> [P, N]
-    fp32."""
+    fp32.  ``splits``: the row chunks the kernel adds in order (1 ..
+    MAX_SPLITS), or 0 for the launcher's choice; a workspace for the
+    chunks' partials is allocated here."""
+    if not 0 <= splits <= MAX_SPLITS:
+        raise ValueError(f"splits={splits}: takes 0 .. {MAX_SPLITS}")
     if a.device.type == "cpu":
         return gemm_at_plain(a, b)
     r, p = a.shape
@@ -119,8 +124,11 @@ def gemm_at(a, b):
     _build.check_tensor("b", b, torch.bfloat16, (r, n), dev)
     with torch.cuda.device(dev):
         c = torch.empty((p, n), dtype=torch.float32, device=dev)
+        slabs = (splits or MAX_SPLITS) - 1
+        ws = torch.empty((max(slabs, 1), p, n), dtype=torch.float32, device=dev)
         _build.launch("uml_gemm_at", a.data_ptr(), b.data_ptr(), c.data_ptr(),
-                      r, p, n, torch.cuda.current_stream(dev).cuda_stream)
+                      ws.data_ptr(), slabs * p * n, r, p, n, splits,
+                      torch.cuda.current_stream(dev).cuda_stream)
     gemm_at.launches += 1
     return c
 
