@@ -21,8 +21,11 @@ Phases (any failure exits non-zero; no phase is caught):
    H, D] read in place by the strided entry; the attention halves, the
    CLS half and the attention backwards at S = 257 (ViT-L/14 widths) and
    S = 785 (ViT-B/16 widths), past the old shared-memory gates; each
-   product that rows 6, 7, 8, 19 and 20 launch on the wgmma engine, and
-   gemm_at, on its own through ops/gemm.py) against its plain PyTorch
+   product that the half-blocks (the MLP in with and without its stash,
+   the MLP out and the out-projections with the residual) and rows 6, 7,
+   8, 19 and 20 launch on the wgmma engine, and gemm_at, on its own
+   through ops/gemm.py; the attention backward's dq and dkv passes on
+   their own through ops/fused_attention.py::attn_bwd) against its plain PyTorch
    version on the same inputs, within the stated bounds, with its bound
    (the least time the card could take) and a cuBLAS GEMM yardstick at its
    largest product (layer_norm and flash_attention: the one PyTorch call
@@ -91,8 +94,8 @@ Phases (any failure exits non-zero; no phase is caught):
    ViT-L/14 at full width (S = 257), cut to 4 image layers, against the
    CPU, in the default mode and with both stashes off under
    UML_MLP_BWD=dw.
-5. the products of the engine as one JSON line, the kernel table as one
-   JSON line, the device line last.
+5. the products of the engine and the attention backward's passes as
+   one JSON line, the kernel table as one JSON line, the device line last.
 
 The script needs nothing of JAX.  Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -218,10 +221,19 @@ REL_BOUND = {"attn_block": 1 / 64, "attn_block_cls": 1 / 64,
              "gemm_qkv": 1 / 64, "gemm_g_wo_t": 1 / 64,
              "gemm_dqkv_weff_t": 1e-3, "gemm_g_w2_t": 1e-3,
              "gemm_dpre_w1_t": 1e-3, "gemm_dact": (1 / 64, 1 / 64, 1e-3),
-             "gemm_at_xn_dpre": 1e-3, "gemm_at_yact_g": 1e-3}
-# the products of the wgmma engine timed on their own (phase 2)
+             "gemm_at_xn_dpre": 1e-3, "gemm_at_yact_g": 1e-3,
+             "gemm_mlp_in": (1 / 64, 1 / 64), "gemm_mlp_out": 1 / 64,
+             "gemm_out_proj": 1 / 64,
+             # the attention backward's passes on their own: dq, dk, dv
+             # 1/64 like the half-blocks; the fp32 statistics (m, 1/l, D)
+             # differ in summation order only
+             "attn_bwd_dq": (1 / 64, 1e-3), "attn_bwd_dkv": (1 / 64, 1 / 64)}
+# the products of the wgmma engine and the attention backward's two
+# passes, timed on their own (phase 2)
 PRODUCTS = ("gemm_qkv", "gemm_g_wo_t", "gemm_dqkv_weff_t", "gemm_g_w2_t",
-            "gemm_dpre_w1_t", "gemm_dact", "gemm_at_xn_dpre", "gemm_at_yact_g")
+            "gemm_dpre_w1_t", "gemm_dact", "gemm_at_xn_dpre", "gemm_at_yact_g",
+            "gemm_mlp_in", "gemm_mlp_out", "gemm_out_proj", "attn_bwd_dq",
+            "attn_bwd_dkv")
 # dense peaks of an H100 SXM at 700 W (NVIDIA's data sheet): the bound of a
 # kernel is max(bytes / PEAK_BYTES, int8 ops / PEAK_INT8 + bf16 FLOPs /
 # PEAK_BF16), bytes = every input read once and every output written once
@@ -748,7 +760,8 @@ def phase_kernels():
          (qkv_packed,), 0, _attn_flops(b, s, 12), (None,) * 4,
          lambda p: F.scaled_dot_product_attention(*packed_views(p))),
     ]
-    cases += _long_seq_cases(gen, dev, attn_v) + _product_cases(gen, dev, xv, g_v, wv)
+    cases += (_long_seq_cases(gen, dev, attn_v)
+              + _product_cases(gen, dev, xv, g_v, wv, qkv_v))
     results = {}
     for name, kernel_fn, plain_fn, inputs, ops8, flops16, yard, *library in cases:
         got = kernel_fn(*inputs)
@@ -782,7 +795,8 @@ def phase_kernels():
               f"{', '.join(f'{r:.2e}' for r in rels)}) kernel {ms:.4f} ms "
               f"plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) "
               + (f"yardstick {yard_call} {yard_ms:.4f} ms" if yard_call else
-                 f"library call {library_ms:.4f} ms"))
+                 f"library call {library_ms:.4f} ms" if library else
+                 "no yardstick"))
         results[name] = {"max_abs_err": err, "max_rel_err": rel, "ms": ms,
                          "plain_ms": plain_ms, "bound_ms": bound_ms,
                          "bound_by": bound_by, "yardstick": yard_call,
@@ -864,16 +878,21 @@ def _long_seq_cases(gen, dev, attn_v):
     return cases
 
 
-def _product_cases(gen, dev, xv, g_v, wv):
-    """Phase-2 cases of the products that rows 6, 7, 8, 19 and 20 launch on
-    the wgmma engine, one by one through ops/gemm.py, at ViT-B/16 B=64
-    (12,608 rows, K = 768, M = 3072), each with cuBLAS at its shape as the
-    yardstick: the QKV triple (with its LN pre-pass), g . wo^T, the three
-    fp32 products with a transposed weight, the dW recompute (with its LN
-    pre-pass, the fp32 dy read and two outputs written) and both
-    gemm_at."""
+def _product_cases(gen, dev, xv, g_v, wv, qkv_v):
+    """Phase-2 cases of the products that the half-blocks and the training
+    rows launch on the wgmma engine, one by one through ops/gemm.py, at
+    ViT-B/16 B=64 (12,608 rows, K = 768, M = 3072), each with cuBLAS at its
+    shape as the yardstick: the QKV triple (with its LN pre-pass), g .
+    wo^T, the three fp32 products with a transposed weight, the dW
+    recompute (with its LN pre-pass, the fp32 dy read and two outputs
+    written), both gemm_at, the MLP in with its pre-activation stash (with
+    its LN pre-pass, two outputs written), the MLP out and the
+    out-projection with the residual; then the attention backward's dq
+    pass and dkv pass (ops/fused_attention.py::attn_bwd) on the plain
+    stash's qkv, the dkv pass from the plain dq pass's statistics."""
     import torch
 
+    from uml_tpu_torch.ops import fused_attention as fa
     from uml_tpu_torch.ops import gemm as gm
 
     bf = torch.bfloat16
@@ -883,6 +902,15 @@ def _product_cases(gen, dev, xv, g_v, wv):
     dqkv = torch.randn(rows, 3 * k, generator=gen, device=dev).to(bf)
     dpre = torch.randn(rows, m, generator=gen, device=dev).to(bf)
     dy = torch.randn(rows, m, generator=gen, device=dev)
+    hidden = torch.randn(rows, m, generator=gen, device=dev).to(bf)
+    attn = torch.randn(rows, k, generator=gen, device=dev).to(bf)
+    dattn = torch.matmul(g_v, wv["wo"].t())
+    _, stats = fa.attn_bwd_plain(qkv_v, dattn, heads=12)
+
+    def bwd_pass(fn):
+        return lambda qkv, do, *st: fn(qkv, do, heads=12, stats=st[0] if st else None)
+
+    attn_f = _attn_flops(b, s, 12)
 
     def triple(name):
         return (lambda *a: gm.ln_gemm(*a, triple=name),
@@ -906,6 +934,19 @@ def _product_cases(gen, dev, xv, g_v, wv):
          (k, rows, m, False)),
         ("gemm_at_yact_g", gm.gemm_at, gm.gemm_at_plain, (dpre, g2d), 0, fc_f,
          (m, rows, k, False)),
+        ("gemm_mlp_in", *triple("GELU_STASH"), (x2d, wv["w1"], wv["b1"]), 0, fc_f,
+         (rows, k, m, False)),
+        ("gemm_mlp_out", *triple("RESIDUAL"), (hidden, wv["w2"], wv["b2"], x2d), 0,
+         fc_f, (rows, m, k, False)),
+        ("gemm_out_proj", *triple("RESIDUAL"), (attn, wv["wo"], wv["bo"], x2d), 0,
+         out_f, (rows, k, k, False)),
+        # the least work of each pass: S, dP and dS . K (dq), S^T, dP^T,
+        # P^T . dO and dS^T . Q (dkv), 2 S^2 D FLOPs each a head; the dq
+        # pass walks the keys twice (S and dP again), which is not counted
+        ("attn_bwd_dq", bwd_pass(fa.attn_bwd), bwd_pass(fa.attn_bwd_plain),
+         (qkv_v, dattn), 0, 1.5 * attn_f, (None,) * 4),
+        ("attn_bwd_dkv", bwd_pass(fa.attn_bwd), bwd_pass(fa.attn_bwd_plain),
+         (qkv_v, dattn, stats), 0, 2.0 * attn_f, (None,) * 4),
     ]
 
 

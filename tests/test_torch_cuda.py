@@ -1,7 +1,9 @@
 """The CUDA kernels of uml_tpu_torch on the card, against their plain
 PyTorch versions (bf16, small shapes: K=128, 2 heads of 64, S in {9, 17,
 197}, and S = 257 and 785 for the attention halves and the training
-rows; the streaming attention at S from 1 to 2048, head dims 64 and 128,
+rows, and the 64-row tile edges S in {63, 64, 65, 128, 129} for the MLP
+halves, the attention backwards and the attention backward's two passes
+on their own; the streaming attention at S from 1 to 2048, head dims 64 and 128,
 also on strided views of a packed qkv; layer_norm at row counts up to
 40,000; each product triple of the wgmma engine and gemm_at at ragged
 row counts and both towers' widths, against an fp32 product of the same
@@ -88,7 +90,7 @@ def test_attn_block_cls_kernel(dev, s):
     _close(got, fa.attn_block_cls_plain(x, *w[:4], heads=HEADS))
 
 
-@pytest.mark.parametrize("s", [9, 197])
+@pytest.mark.parametrize("s", [9, 63, 64, 65, 128, 129, 197])
 def test_mlp_block_kernel(dev, s):
     x, w = _x(dev, s), _weights(dev)
     n = lm.mlp_block.launches
@@ -246,7 +248,7 @@ def test_attn_block_stash_kernel(dev, s, causal):
                                               causal=causal))
 
 
-@pytest.mark.parametrize("s", [9, 17, 197, 257, 785])
+@pytest.mark.parametrize("s", [9, 17, 63, 64, 65, 128, 129, 197, 257, 785])
 @pytest.mark.parametrize("causal", [False, True])
 def test_attn_block_bwd_kernel(dev, s, causal):
     x, w = _x(dev, s), _weights(dev)
@@ -271,16 +273,19 @@ def test_attn_block_cls_bwd_kernel(dev, s):
                                                 heads=HEADS))
 
 
-@pytest.mark.parametrize("s", [9, 197])
+@pytest.mark.parametrize("s", [9, 63, 64, 65, 128, 129, 197])
 def test_mlp_block_stash_kernel(dev, s):
+    """#9, and its out equals mlp_block's (#3) bit for bit: the two share
+    their launches, the stash aside."""
     x, w = _x(dev, s), _weights(dev)
     n = lm.mlp_block_stash.launches
     got = lm.mlp_block_stash(x, *w[4:])
     assert lm.mlp_block_stash.launches == n + 1
     _close_all(got, lm.mlp_block_stash_plain(x, *w[4:]))
+    assert torch.equal(got[0], lm.mlp_block(x, *w[4:]))
 
 
-@pytest.mark.parametrize("s", [9, 17, 197, 257, 785])
+@pytest.mark.parametrize("s", [9, 17, 63, 64, 65, 128, 129, 197, 257, 785])
 @pytest.mark.parametrize("causal", [False, True])
 def test_attn_block_bwd_recompute_kernel(dev, s, causal):
     """#7, and its recompute equals the forward kernels' qkv and attention
@@ -296,6 +301,31 @@ def test_attn_block_bwd_recompute_kernel(dev, s, causal):
     assert torch.equal(got[3], attn)
     stash_bwd = fa.attn_block_bwd(x, g, qkv, w[0], w[2], heads=HEADS, causal=causal)
     assert all(torch.equal(a, b) for a, b in zip(got[:3], stash_bwd))
+
+
+@pytest.mark.parametrize("s", [9, 17, 63, 64, 65, 128, 129, 197, 785])
+@pytest.mark.parametrize("causal", [False, True])
+def test_attn_bwd_passes_kernel(dev, s, causal):
+    """The attention backward's dq pass (dq and the statistics (m, 1/l,
+    D), fp32 within 1e-3 of their largest entry: summation order only) and
+    its dkv pass from the plain statistics, each on its own; both passes
+    give the same bits on a second call."""
+    x, w = _x(dev, s), _weights(dev)
+    _, qkv, _ = fa.attn_block_stash_plain(x, *w[:4], heads=HEADS, causal=causal)
+    dattn = _g(dev, (B, s, HEADS * 64))
+    n = fa.attn_bwd.launches
+    dq, st = fa.attn_bwd(qkv, dattn, heads=HEADS, causal=causal)
+    assert fa.attn_bwd.launches == n + 1
+    want_dq, want_st = fa.attn_bwd_plain(qkv, dattn, heads=HEADS, causal=causal)
+    _close(dq, want_dq)
+    err = (st - want_st).abs().max().item()
+    assert err <= 1e-3 * want_st.abs().max().item(), err
+    got = fa.attn_bwd(qkv, dattn, heads=HEADS, causal=causal, stats=want_st)
+    _close_all(got, fa.attn_bwd_plain(qkv, dattn, heads=HEADS, causal=causal,
+                                      stats=want_st))
+    again = fa.attn_bwd(qkv, dattn, heads=HEADS, causal=causal, stats=want_st)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(dq, fa.attn_bwd(qkv, dattn, heads=HEADS, causal=causal)[0])
 
 
 @pytest.mark.parametrize("s", [9, 17, 197])
@@ -615,18 +645,25 @@ GEMM_F32_REL = 1e-3
 
 
 def _triple_operands(dev, triple, rows, k):
-    """a, w, bias, dy of one triple as the layer launches it: QKV x [rows,
+    """a, w, bias, res of one triple as the layer launches it: QKV x [rows,
     K] . W_eff [K, 3K]; TRANS_B g . wo^T; TRANS_B_F32 dqkv [rows, 3K] .
-    W_eff^T; DACT_F32 x . w1 [K, 4K] with an fp32 dy."""
+    W_eff^T; DACT_F32 x . w1 [K, 4K] with an fp32 dy; QUICK_GELU and
+    GELU_STASH x . w1 (the MLP in); RESIDUAL hidden [rows, 4K] . w2 [4K,
+    K] + x (the MLP out)."""
     g = torch.Generator().manual_seed(rows + k)
 
     def rnd(*shape, std=1.0, dtype=torch.bfloat16):
         return (torch.randn(*shape, generator=g) * std).to(dtype).to(dev)
 
-    bias = rnd(4 * k if triple == "DACT_F32" else 3 * k, std=0.1,
-               dtype=torch.float32)
+    wide = triple in ("DACT_F32", "QUICK_GELU", "GELU_STASH")
+    bias = rnd(4 * k if wide else 3 * k, std=0.1, dtype=torch.float32)
     if triple == "QKV":
         return rnd(rows, k), rnd(k, 3 * k, std=k ** -0.5), bias, None
+    if triple in ("QUICK_GELU", "GELU_STASH"):
+        return rnd(rows, k), rnd(k, 4 * k, std=k ** -0.5), bias, None
+    if triple == "RESIDUAL":
+        return (rnd(rows, 4 * k), rnd(4 * k, k, std=(4 * k) ** -0.5),
+                bias[:k], rnd(rows, k))
     if triple == "TRANS_B":
         return rnd(rows, k), rnd(k, k, std=k ** -0.5), None, None
     if triple == "TRANS_B_F32":
@@ -637,7 +674,8 @@ def _triple_operands(dev, triple, rows, k):
 
 @pytest.mark.parametrize("k", [768, 512])
 @pytest.mark.parametrize("rows", GEMM_ROWS)
-@pytest.mark.parametrize("triple", ["QKV", "TRANS_B", "TRANS_B_F32", "DACT_F32"])
+@pytest.mark.parametrize("triple", ["QKV", "TRANS_B", "TRANS_B_F32", "DACT_F32",
+                                    "QUICK_GELU", "GELU_STASH", "RESIDUAL"])
 def test_engine_triple_kernel(dev, triple, rows, k):
     from uml_tpu_torch.ops import gemm
 

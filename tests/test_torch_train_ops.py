@@ -30,7 +30,11 @@ Bounds are the JAX package's own: fp32 ``assert_allclose`` with atol =
 rtol = 2e-3 (tests/test_fused_attention.py:297-299), bf16 max abs error
 <= 1e-2 * max|reference| (tests/test_ln_matmul.py:283-318): the two
 packages round intermediates (qkv with or without the bias, the dO and
-p products) to bf16 at different points.  The #5 forward against the
+p products) to bf16 at different points.  S runs over {9, 17} and the
+64-row tile edges {64, 65, 129} of the CUDA kernels.  At S = 129 the bf16
+dqkv against ``_block_bwd_stash_call`` takes 2^-6 (LONG_S_DQKV_BF16_REL:
+the two roundings drift apart with the number of keys), and the port's
+dqkv is held within 1e-2 of a float64 evaluation besides.  The #5 forward against the
 TPU kernel takes tests/test_torch_ops.py's 2^-6 * max|reference| in
 bf16: that kernel drops the k-bias and adds the v-bias after the
 normalization (fused_attention.py:195-200), so at S=9 a single attention
@@ -57,6 +61,14 @@ M = 4 * K
 FP32_TOL = 2e-3
 BF16_REL = 1e-2
 FWD_BF16_REL = 2.0 ** -6
+# bf16 dqkv against the TPU stash backward at S >= LONG_S keys: each
+# package rounds p, dO and dS (the TPU kernel also q * scale * log2(e)) to
+# bf16 at its own points, and over 129 keys both drift up to ~1% of the
+# largest entry from the float64 values, in other directions.  Held to
+# the forward's 2^-6 there; the port alone stays within BF16_REL of a
+# float64 evaluation (checked beside it).
+LONG_S = 129
+LONG_S_DQKV_BF16_REL = FWD_BF16_REL
 AUTOGRAD_TOL = 1e-4
 DTYPES = {"fp32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
@@ -138,7 +150,7 @@ def _port_attn_grads(tw, causal):
 
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("s", [9, 17])
+@pytest.mark.parametrize("s", [9, 17, 64, 65, 129])
 def test_attn_stash_backward_matches_vjp_and_pallas(dtype, causal, s):
     jw, tw = _inputs(100 + s, s, dtype)
     grads, (dx, dqkv, xn) = _port_attn_grads(tw, causal)
@@ -156,8 +168,32 @@ def test_attn_stash_backward_matches_vjp_and_pallas(dtype, causal, s):
     want = jfa._block_bwd_stash_call(jw["x"], jw["g"], jqkv, jw["w_eff"],
                                      jw["b_eff"], jw["wo"], 1e-5, HEADS, 64,
                                      causal, True)
+    long_bf16 = dtype == "bf16" and s >= LONG_S
     for name, got, w in zip(("dx", "dqkv", "xn"), (dx, dqkv, xn), want):
-        _close(got, w, dtype, name)
+        _close(got, w, dtype, name,
+               LONG_S_DQKV_BF16_REL if long_bf16 and name == "dqkv" else BF16_REL)
+    if long_bf16:
+        # the port's own rounding stays within BF16_REL of the exact values
+        _close(dqkv, _dqkv_f64(tw, causal), dtype, "dqkv vs float64")
+
+
+def _dqkv_f64(tw, causal):
+    """The attention backward's dqkv evaluated in float64 from the same
+    bf16 inputs (no intermediate rounding), as numpy."""
+    d = {n: t.double() for n, t in tw.items()}
+    s = d["x"].shape[1]
+    qkv = tlm.raw_layer_norm(d["x"], 1e-5) @ d["w_eff"] + d["b_eff"]
+    q, k, v = qkv.view(B, s, 3, HEADS, 64).permute(2, 0, 3, 1, 4)
+    do = (d["g"] @ d["wo"].t()).view(B, s, HEADS, 64).transpose(1, 2)
+    sc = q @ k.transpose(-1, -2) / 8
+    if causal:
+        sc = sc.masked_fill(~torch.ones(s, s, dtype=torch.bool).tril(), float("-inf"))
+    p = torch.softmax(sc, -1)
+    dp = do @ v.transpose(-1, -2)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    dqkv = torch.stack([ds @ k / 8, ds.transpose(-1, -2) @ q / 8,
+                        p.transpose(-1, -2) @ do])
+    return dqkv.permute(1, 3, 0, 2, 4).reshape(B, s, 3 * K).numpy()
 
 
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
@@ -183,7 +219,7 @@ def _mlp_args(w):
 
 
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
-@pytest.mark.parametrize("s", [9, 17])
+@pytest.mark.parametrize("s", [9, 17, 64, 65, 129])
 def test_mlp_stash_forward_and_backward_match_jax(dtype, s):
     jw, tw = _inputs(300 + s, s, dtype)
     out, pre = tlm.mlp_block_stash_plain(tw["x"], *_mlp_args(tw))

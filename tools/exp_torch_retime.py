@@ -5,19 +5,24 @@ CUDA graph over input copies larger than the L2, no host work in the
 interval), beside the PyTorch call that computes the same function:
 
 * the stand-alone ``layer_norm`` and ``flash_attention`` (rows 18, 13);
-* the training rows at ViT-B/16 B=64 (rows 6, 7, 8, 19, 20, and row 7
-  causal at the text tower's widths) and the forward halves (rows 1, 2);
+* the training rows at ViT-B/16 B=64 (rows 6, 7, 8, 9, 19, 20, and row 7
+  causal at the text tower's widths), the forward halves (rows 1, 2, 3,
+  5; row 1 causal at the text widths), the 12-layer text tower (row 4),
+  the int8 attention half with an int8 and with a bf16 out-projection
+  (row 10, ``int8_qkv``) and the 11-layer int8 tower (row 12);
 * where the checkout has ``ops/gemm.py``: each product triple of the
-  wgmma engine and ``gemm_at`` at the shapes rows 7 and 20 launch them,
-  each beside one cuBLAS call (``torch.matmul``) at the same shape;
+  wgmma engine and ``gemm_at`` at the shapes the rows launch them, each
+  beside one cuBLAS call (``torch.matmul``) at the same shape;
+* where the checkout has ``attn_bwd``: the attention backward's dq and
+  dkv passes on their own;
 * where the checkout's ``gemm_at`` takes ``splits``: each row-chunk
   count at both of row 20's shapes;
 * the fused attention against the fp32 witness (``chip_smoke.py``'s
   ``_attention_fp32``: unrounded probabilities): the bf16 output's
   error, and the int8 block's activation integers that differ from the
   witness's and from the plain version's (``_int8_flips``);
-* the device time by kernel of rows 7 and 20 (torch.profiler, printed as
-  ``[profile]`` lines);
+* the device time by kernel of rows 6, 7, 9 and 20 (torch.profiler,
+  printed as ``[profile]`` lines);
 * the bf16 image encoder's img/s at batch 64 (random-init ViT-B/16, a
   staged batch, host work included as in chip_smoke.py).
 
@@ -87,7 +92,15 @@ def _products(gemm, dev, gen):
          (x, dpre), 2.0 * rows * k * m, lambda a, b: mm(a.t(), b)),
         ("gemm_at yact^T.g [12608,3072]^T x [12608,768]", gemm.gemm_at,
          (dpre, g), 2.0 * rows * k * m, lambda a, b: mm(a.t(), b)),
-    ]
+    ] + ([
+        ("GELU_STASH MLP in [12608,768]x[768,3072] (LN pre-pass + engine)",
+         triple("GELU_STASH"), (x, w1, b1), 2.0 * rows * k * m,
+         lambda a, w, *_: mm(a, w)),
+        ("RESIDUAL MLP out [12608,3072]x[3072,768]", triple("RESIDUAL"),
+         (dpre, w2, b1[:k], x), 2.0 * rows * k * m, lambda a, w, *_: mm(a, w)),
+        ("RESIDUAL out-projection [12608,768]x[768,768]", triple("RESIDUAL"),
+         (g, wo, b1[:k], x), 2.0 * rows * k * k, lambda a, w, *_: mm(a, w)),
+    ] if "RESIDUAL" in gemm.TRIPLES else [])
 
 
 def main() -> int:
@@ -106,6 +119,9 @@ def main() -> int:
     from uml_tpu_torch.ops import attention as at
     from uml_tpu_torch.ops import fused_attention as fa
     from uml_tpu_torch.ops import ln_matmul as lm
+    from uml_tpu_torch.ops import quant as q8
+    from uml_tpu_torch.ops import text_tower as tt
+    from uml_tpu_torch.ops import tower_q8 as tq8
     from uml_tpu_torch.ops.layer_norm import layer_norm
 
     spec = importlib.util.spec_from_file_location(
@@ -141,6 +157,15 @@ def main() -> int:
     row20 = lm.mlp_bwd_dw
     row7_in = (x, g, *attn_v[:3])
     row20_in = (x, g, wv["b1"], wv["w1"], wv["w2"])
+    row6 = lambda *a: fa.attn_block_bwd(*a, heads=12)  # noqa: E731
+    row6_in = (x, g, qkv_v, wv["w_eff"], wv["wo"])
+    mlp_v = (wv["w1"], wv["b1"], wv["w2"], wv["b2"])
+    attn_t = (wt["w_eff"], wt["b_eff"], wt["wo"], wt["bo"])
+    layers = [harness._block_weights(gen, 512, 2048, 512, dev) for _ in range(12)]
+    tower = tuple(torch.stack([layer[n] for layer in layers])
+                  for n in ("w_eff", "b_eff", "wo", "bo", "w1", "b1", "w2", "b2"))
+    q8v = harness._q8_case_weights(gen, 768, 3072, 768, dev)
+    q8_tower = harness._q8_case_weights(gen, 768, 3072, 768, dev, layers=11)
     cases = {
         "layer_norm [64,197,768] bf16": (layer_norm, (x, scale, bias)),
         "F.layer_norm [64,197,768] bf16": (
@@ -156,17 +181,39 @@ def main() -> int:
         "row 1 attn_block": (lambda *a: fa.attn_block(*a, heads=12), (x, *attn_v)),
         "row 2 attn_block_cls": (lambda *a: fa.attn_block_cls(*a, heads=12),
                                  (x, *attn_v)),
-        "row 6 attn_block_bwd": (lambda *a: fa.attn_block_bwd(*a, heads=12),
-                                 (x, g, qkv_v, wv["w_eff"], wv["wo"])),
+        "row 1 causal, text widths": (
+            lambda *a: fa.attn_block(*a, heads=8, causal=True), (xt, *attn_t)),
+        "row 3 mlp_block": (lm.mlp_block, (x, *mlp_v)),
+        "row 4 text_tower": (lambda *a: tt.text_tower(*a, heads=8), (xt, *tower)),
+        "row 5 attn_block_stash": (lambda *a: fa.attn_block_stash(*a, heads=12),
+                                   (x, *attn_v)),
+        "row 6 attn_block_bwd": (row6, row6_in),
         "row 7 attn_block_bwd_recompute": (row7, row7_in),
         "row 7 causal, text widths": (
             lambda *a: fa.attn_block_bwd_recompute(*a, heads=8, causal=True),
             (xt, gt, wt["w_eff"], wt["b_eff"], wt["wo"])),
         "row 8 attn_block_cls_bwd": (lambda *a: fa.attn_block_cls_bwd(*a, heads=12),
                                      (x, g_cls, qkv_c, wv["w_eff"], wv["wo"])),
+        "row 9 mlp_block_stash": (lm.mlp_block_stash, (x, *mlp_v)),
+        "row 10 attn_block_q8": (
+            lambda x_, wq, wsc, be, wo_, wosc, bo: q8.attn_block_q8(
+                x_, wq, wsc, be, (wo_, wosc), bo, heads=12), (x, *q8v[:6])),
+        "row 10 attn_block_q8 int8_qkv": (
+            lambda x_, wq, wsc, be, wo_, bo: q8.attn_block_q8(
+                x_, wq, wsc, be, (wo_,), bo, heads=12, q8_out=False),
+            (x, *q8v[:3], wv["wo"], q8v[5])),
+        "row 12 tower_q8": (lambda *a: tq8.tower_q8(*a, heads=12), (x, *q8_tower)),
         "row 19 mlp_bwd": (lm.mlp_bwd, (x, dy, wv["b1"], wv["w1"])),
         "row 20 mlp_bwd_dw": (row20, row20_in),
     }
+    if hasattr(fa, "attn_bwd"):
+        dattn = torch.matmul(g, wv["wo"].t())
+        _, stats = fa.attn_bwd_plain(qkv_v, dattn, heads=12)
+        cases["attention backward dq pass"] = (
+            lambda q_, d_: fa.attn_bwd(q_, d_, heads=12), (qkv_v, dattn))
+        cases["attention backward dkv pass"] = (
+            lambda q_, d_, s_: fa.attn_bwd(q_, d_, heads=12, stats=s_),
+            (qkv_v, dattn, stats))
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
@@ -197,13 +244,15 @@ def main() -> int:
                     fn, harness._input_copies((a, b_)))
             out[f"gemm_at {tag} splits=auto"] = harness._graph_time_ms(
                 gemm.gemm_at, harness._input_copies((a, b_)))
-    q8v = harness._q8_case_weights(gen, 768, 3072, 768, dev)
     for half, (share, worst) in harness._int8_flips(x, q8v).items():
         out[f"int8 {half}: share differing"] = share
         out[f"int8 {half}: largest difference"] = worst
     for side, err in harness._attention_witness(x, attn_v).items():
         out[f"attention vs fp32 witness, {side}"] = err
+    harness._profile("row 6 attn_block_bwd", lambda: row6(*row6_in), top=12)
     harness._profile("row 7 attn_block_bwd_recompute", lambda: row7(*row7_in),
+                     top=12)
+    harness._profile("row 9 mlp_block_stash", lambda: lm.mlp_block_stash(x, *mlp_v),
                      top=12)
     harness._profile("row 20 mlp_bwd_dw", lambda: row20(*row20_in), top=12)
 

@@ -1,5 +1,5 @@
-// attention: the one attention core of every fused block, and the
-// constants the attention backward (attention_bwd.cuh) shares.
+// attention: the one attention core of every fused block, and the head
+// dim the attention backward (attention_bwd.cuh) shares.
 //
 // The forward attention of the fused blocks is flash_attention.cu's wgmma
 // + TMA kernel (K/V streamed through a 4-stage ring; for these blocks a
@@ -30,10 +30,7 @@
 
 namespace uml {
 
-constexpr int ATT_D = 64;              // head dim (every CLIP / DINO tower)
-constexpr int ATT_BQ = 64;             // query (or key) rows per block of the backward
-constexpr int ATT_THREADS = 128;       // 4 warps x 16 rows
-constexpr int ATT_LDK = ATT_D + 8;     // bf16 elements; padding vs bank conflicts
+constexpr int ATT_D = 64;  // head dim (every CLIP / DINO tower)
 
 // softmax(q k^T / sqrt(D)) v on [B, H, rows, D] bf16 views (strides in
 // elements, multiples of 8; pointers 16-byte aligned): Sq query rows

@@ -8,6 +8,8 @@
 //         h*64, v at 2*H*64 + h*64; the port's stash includes b_eff)
 //   dattn [B, S, H*64] bf16, dO = g . wo^T (ln_gemm with TRANS_B)
 //   dqkv  [B, S, 3*H*64] bf16, written here
+//   stats [B, H, S] float4 (m, 1/l, D, 0), written by the dq pass and read
+//         by the dkv pass
 //
 // The softmax statistics are recomputed from the stash in fp32: the
 // scores, the row max m, l = rowsum(exp(s - m)), exact expf (the forward
@@ -17,31 +19,49 @@
 //   dQ = scale * dS K,  dK = scale * dS^T Q
 // p and dS are rounded to bf16 before their products (the tensor cores
 // take bf16), every product accumulates in fp32, dq/dk/dv are rounded to
-// bf16 once.  (The TPU kernel uses the max-free exp2 with its clamp at
-// 96 and the head-pair lane masks; both are TPU layout choices.)
+// bf16 once.  D is the reference's rowsum(p * dP) in fp32, not
+// FlashAttention-2's rowsum(dO * O) of the bf16 output.  (The TPU kernel
+// uses the max-free exp2 with its clamp at 96 and the head-pair lane
+// masks; both are TPU layout choices.)
 //
 // Two kernels split the work the FlashAttention-2 way, because Hopper's
 // blocks cannot carry a sum between them as the TPU's sequential grid
-// does; both stream the other side in 64-row tiles, so S has no bound:
-//   attn_bwd_dq:  one block per (image, head, 64 query rows), Q and dO of
-//     its rows in shared memory; it walks the key tiles twice, two lanes
-//     per query row (each every other key, one shuffle to combine), the
-//     row's statistics in registers.  Pass 1 takes them online: m, l and
-//     the numerator of D = rowsum(p * dP) = sum_j exp(s_j - m) dP_j / l,
-//     rescaled like l when m grows (the scores S = Q K^T and dP = dO V^T
-//     of each tile).  Pass 2 forms p and dS = p (dP - D) of each tile
-//     again and accumulates dQ = dS K in registers (wmma fragments); it
-//     writes dQ and each row's (m, 1/l, D).  D is the reference's
-//     rowsum(p * dP) in fp32, not FlashAttention-2's rowsum(dO * O) of
-//     the bf16 output.
-//   attn_bwd_dkv: one block per (image, head, 64 key rows): walks the
-//     query tiles, recomputes p and dS of its keys from those statistics,
-//     and accumulates dK and dV in registers (wmma fragments).
-// What bounds them on the H100: per (image, head) at S = 197 they do
-// ~6 x 2 x S x S x 64 FLOPs (30 MFLOP, the dq pass's two walks included)
-// over ~100 KB of qkv/dO, so they are compute- and latency-bound on
-// nvcuda::wmma; a wgmma attention backward is queued (ROADMAP).  attn_bwd_dq
-// takes ~79 KB of shared memory (two blocks per SM) for any S.
+// does; no atomics, no block waits on another, so the sums are the same
+// on every run.  Both run on wgmma with their operands brought in by TMA
+// (hopper.cuh), and both stream the other side in 64-row tiles, so S has
+// no bound:
+//   attn_bwd_dq:  one block per (image, head, 64 query rows): one
+//     warpgroup, Q and dO of its rows resident (TMA, 128-byte swizzle), K
+//     and V tiles through a ring of AB_STAGES stages.  Walk 1 over the key
+//     tiles: S = Q K^T and dP = dO V^T (wgmma, both operands from shared
+//     memory, K-major), the row's m, l and D's numerator sum_j exp(s_j -
+//     m) dP_j taken online on the accumulator registers (a thread holds
+//     two rows: thread-local partial sums, the max reduced in its quad,
+//     the partials rescaled like l when m grows and added in the quad at
+//     the end).  Walk 2 over the same tiles: S and dP again, dS = p (dP -
+//     D) in registers, rounded to bf16 as the register A operand of dQ +=
+//     dS K, K read MN-major from the same stage (the forward's P V).  It
+//     writes dq and each row's (m, 1/l, D).
+//   attn_bwd_dkv: one block per (image, head, 64 key rows): K and V
+//     resident, Q, dO and the statistics rows of each query tile through
+//     the ring.  S^T = K Q^T and dP^T = V dO^T (wgmma from shared memory),
+//     p^T and dS^T in registers from the statistics, then dV += p^T dO and
+//     dK += dS^T Q with p^T and dS^T as register A operands, dO and Q
+//     MN-major from the stage that fed S^T and dP^T.
+// In both, thread 0 of the warpgroup is the producer: a stage is refilled
+// as soon as every warp has passed it (a block barrier), AB_STAGES - 1
+// tiles ahead of the one in use.
+// What bounds them on the H100: per (image, head) at S = 197 (256 with
+// the tiles' padding) the dq pass does 5 and the dkv pass 4 products of
+// 2 x 256 x 256 x 64 FLOPs (~58 GFLOP in all at ViT-B/16 B=64, ~59 us at
+// 989 TFLOP/s) over ~60 MB of qkv, dO and dqkv (~18 us), plus one exact
+// expf per score in each of the three softmax walks: short tiles, little
+// reuse, so latency rather than either peak.  The design keeps every
+// score on the accumulator registers (no score, p or dS tile touches
+// shared memory, unlike the wmma kernels these replace), overlaps one
+// block's softmax with another's products by running three one-warpgroup
+// blocks on each SM (~66-68 KB of shared memory each), and lets TMA bring
+// the next tiles while a tile computes.
 //
 // cls_bwd: the CLS-only layer has one live query row per image, so per
 // (image, head) the scores are one [S] row, dV and dK are outer products
@@ -65,366 +85,320 @@
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
-#include <mma.h>
 #include <stdint.h>
 
+#include <climits>
+
 #include "attention.cuh"
+#include "hopper.cuh"
 #include "ln_gemm.cuh"
 
 namespace uml {
 
-constexpr int ATTB_BK = 64;                 // keys per tile of the dq pass
-constexpr int ATTB_LDS = ATTB_BK + 4;       // fp32 row stride of its score tiles
-constexpr int ATTB_LDT = ATT_BQ + 4;        // fp32 row stride of the dkv kernel's per-warp tiles
+constexpr int AB_ROWS = 64;          // rows of a block's own tile and of each streamed tile
+constexpr int AB_THREADS = 128;      // one warpgroup; thread 0 also issues the copies
+constexpr int AB_STAGES = 3;         // ring depth
+constexpr int AB_BLOCKS_PER_SM = 3;
+constexpr int AB_TILE = AB_ROWS * ATT_D * 2;          // a 64 x 64 bf16 tile: 8 KB
+constexpr int AB_STATS = AB_ROWS * 16;                // 64 rows of (m, 1/l, D, 0): 1 KB
+constexpr int AB_DKV_STAGE = 2 * AB_TILE + AB_STATS;  // Q, dO, stats: the tiles stay 1024-aligned
+// the base is aligned up to 1024 bytes (the swizzle atom) in the kernels
+constexpr size_t AB_DQ_SMEM =
+    1024 + 2 * AB_TILE + (size_t)AB_STAGES * 2 * AB_TILE + 8 * (AB_STAGES + 1);
+constexpr size_t AB_DKV_SMEM =
+    1024 + 2 * AB_TILE + (size_t)AB_STAGES * AB_DKV_STAGE + 8 * (AB_STAGES + 1);
 
-// shared memory of attn_bwd_dq: Q, dO, K, V tiles (bf16), the fp32 scores
-// and dP of the block's rows against one key tile, the bf16 dS tile
-constexpr size_t ATTB_DQ_SMEM = (size_t)4 * ATT_BQ * ATT_LDK * 2 +
-                                (size_t)2 * ATT_BQ * ATTB_LDS * 4 +
-                                (size_t)ATT_BQ * ATT_LDK * 2;
+// d (+)= A . B^T over the head dim: A and B 64 x 64 tiles with the head
+// dim contiguous (K-major both), m64n64k16 in four steps
+static __device__ __forceinline__ void ab_mma_nt(float (&d)[32], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < ATT_D / 16; ++kk)
+    wgmma_ss_n64<0, 0>(d, wgmma_desc(a + kk * 32, 16, 1024), wgmma_desc(b + kk * 32, 16, 1024),
+                       kk > 0);
+}
 
-template <bool CAUSAL>
-__global__ void __launch_bounds__(ATT_THREADS)
-attn_bwd_dq_kernel(const __nv_bfloat16* __restrict__ qkv,
-                   const __nv_bfloat16* __restrict__ dattn,
-                   __nv_bfloat16* __restrict__ dqkv, float4* __restrict__ stats, int S,
-                   int H, float scale) {
-  using namespace nvcuda;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* dOs = Qs + ATT_BQ * ATT_LDK;
-  __nv_bfloat16* Ks = dOs + ATT_BQ * ATT_LDK;
-  __nv_bfloat16* Vs = Ks + ATTB_BK * ATT_LDK;
-  float* Ss = reinterpret_cast<float*>(Vs + ATTB_BK * ATT_LDK);  // scores, later dQ
-  float* dPs = Ss + ATT_BQ * ATTB_LDS;
-  __nv_bfloat16* dSs = reinterpret_cast<__nv_bfloat16*>(dPs + ATT_BQ * ATTB_LDS);
+// d += A . B: A 64 x 64 bf16 in registers (four k16 fragments), B a 64 x 64
+// tile whose rows run along the contraction (MN-major, as the forward's V)
+static __device__ __forceinline__ void ab_mma_rn(float (&d)[32], const uint32_t (&a)[4][4],
+                                                 uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < AB_ROWS / 16; ++kk)
+    wgmma_rs_n64(d, a[kk], wgmma_desc(b + kk * 16 * 128, AB_TILE, 1024));
+}
 
-  const int b = blockIdx.x;
-  const int h = blockIdx.y;
-  const int q0 = blockIdx.z * ATT_BQ;
-  const int hd = H * ATT_D;
-  const long long row_stride = 3LL * hd;
-  const __nv_bfloat16* base = qkv + (long long)b * S * row_stride;
-  const __nv_bfloat16* dbase = dattn + (long long)b * S * hd;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
+// the accumulator's values of column block j, row half r (its elements 4j
+// + 2r, 4j + 2r + 1) into the matching A fragment (hopper.cuh's layouts)
+static __device__ __forceinline__ void ab_pack(uint32_t (&f)[4][4], int j, int r, float lo,
+                                               float hi) {
+  f[j / 2][2 * (j & 1) + r] = bf16x2_bits(lo, hi);
+}
 
-  for (int idx = tid; idx < ATT_BQ * 8; idx += ATT_THREADS) {
-    const int r = idx >> 3, c = (idx & 7) * 8;
-    const int qi = q0 + r;
-    uint4 qv = make_uint4(0, 0, 0, 0), ov = make_uint4(0, 0, 0, 0);
-    if (qi < S) {
-      qv = *reinterpret_cast<const uint4*>(base + qi * row_stride + h * ATT_D + c);
-      ov = *reinterpret_cast<const uint4*>(dbase + (long long)qi * hd + h * ATT_D + c);
+// a thread's rows row0, row0 + 8 of an m64n64 fp32 accumulator, times mul,
+// to dst[row * ld + col] as bf16 (rows < row_end): the values are exchanged
+// within each quad of lanes, so a lane stores 8 bytes and a quad 32
+// contiguous bytes, whole sectors (wgmma_gemm.cuh's epilogue does the same)
+static __device__ __forceinline__ void ab_store(const float (&acc)[32], float mul,
+                                                __nv_bfloat16* dst, long long ld, int row0,
+                                                int row_end, int lane) {
+  const int q = lane & 3;
+  const int src = (lane & ~3) | (2 * (q & 1));
+#pragma unroll
+  for (int j0 = 0; j0 < ATT_D / 8; j0 += 2) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const uint32_t p0 = bf16x2_bits(acc[4 * j0 + 2 * r] * mul, acc[4 * j0 + 2 * r + 1] * mul);
+      const uint32_t p1 =
+          bf16x2_bits(acc[4 * j0 + 4 + 2 * r] * mul, acc[4 * j0 + 4 + 2 * r + 1] * mul);
+      const uint32_t a0 = __shfl_sync(0xffffffffu, p0, src);
+      const uint32_t a1 = __shfl_sync(0xffffffffu, p0, src + 1);
+      const uint32_t b0 = __shfl_sync(0xffffffffu, p1, src);
+      const uint32_t b1 = __shfl_sync(0xffffffffu, p1, src + 1);
+      const int row = row0 + 8 * r;
+      if (row < row_end)
+        *reinterpret_cast<uint2*>(dst + (long long)row * ld + 8 * j0 + 4 * q) =
+            q < 2 ? make_uint2(a0, a1) : make_uint2(b0, b1);
     }
-    *reinterpret_cast<uint4*>(Qs + r * ATT_LDK + c) = qv;
-    *reinterpret_cast<uint4*>(dOs + r * ATT_LDK + c) = ov;
-  }
-  // the statistics of the lane's row (lanes 2r, 2r+1 hold the same):
-  // the running max, the sum of exp(s - m) and that of exp(s - m) dP
-  float row_m = -CUDART_INF_F, row_l = 0.f, row_dn = 0.f;
-  // causal: key tiles past the block's last query row have p = 0
-  const int q_last = min(S, q0 + ATT_BQ) - 1;
-  const int n_tiles = CAUSAL ? q_last / ATTB_BK + 1 : (S + ATTB_BK - 1) / ATTB_BK;
-  // warp w owns query rows 16w .. 16w+15 of the tile
-  const int wr = warp * 16;
-  const bool live = q0 + wr < S;
-
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fq[ATT_D / 16];
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fo[ATT_D / 16];
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> dq[ATT_D / 16];
-#pragma unroll
-  for (int c = 0; c < ATT_D / 16; ++c) wmma::fill_fragment(dq[c], 0.f);
-
-  for (int pass = 0; pass < 2; ++pass) {
-    for (int t = 0; t < n_tiles; ++t) {
-      const int k0 = t * ATTB_BK;
-      __syncthreads();  // the previous tile's K / V reads (and the Q / dO stores) are done
-      for (int idx = tid; idx < ATTB_BK * 8; idx += ATT_THREADS) {
-        const int r = idx >> 3, c = (idx & 7) * 8;
-        uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-        if (k0 + r < S) {
-          const __nv_bfloat16* src = base + (k0 + r) * row_stride + h * ATT_D + c;
-          kv = *reinterpret_cast<const uint4*>(src + hd);
-          vv = *reinterpret_cast<const uint4*>(src + 2 * hd);
-        }
-        *reinterpret_cast<uint4*>(Ks + r * ATT_LDK + c) = kv;
-        *reinterpret_cast<uint4*>(Vs + r * ATT_LDK + c) = vv;
-      }
-      __syncthreads();
-      if (!live) continue;
-      if (pass == 0 && t == 0) {
-#pragma unroll
-        for (int kk = 0; kk < ATT_D / 16; ++kk) {
-          wmma::load_matrix_sync(fq[kk], Qs + wr * ATT_LDK + 16 * kk, ATT_LDK);
-          wmma::load_matrix_sync(fo[kk], dOs + wr * ATT_LDK + 16 * kk, ATT_LDK);
-        }
-      }
-      // S = Q K^T and dP = dO V^T of the warp's 16 rows against the tile
-#pragma unroll
-      for (int n = 0; n < ATTB_BK / 16; ++n) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc_s, acc_p;
-        wmma::fill_fragment(acc_s, 0.f);
-        wmma::fill_fragment(acc_p, 0.f);
-#pragma unroll
-        for (int kk = 0; kk < ATT_D / 16; ++kk) {
-          // K^T and V^T as column-major B operands are K and V row-major
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fk, fv;
-          wmma::load_matrix_sync(fk, Ks + 16 * n * ATT_LDK + 16 * kk, ATT_LDK);
-          wmma::load_matrix_sync(fv, Vs + 16 * n * ATT_LDK + 16 * kk, ATT_LDK);
-          wmma::mma_sync(acc_s, fq[kk], fk, acc_s);
-          wmma::mma_sync(acc_p, fo[kk], fv, acc_p);
-        }
-        wmma::store_matrix_sync(Ss + wr * ATTB_LDS + 16 * n, acc_s, ATTB_LDS,
-                                wmma::mem_row_major);
-        wmma::store_matrix_sync(dPs + wr * ATTB_LDS + 16 * n, acc_p, ATTB_LDS,
-                                wmma::mem_row_major);
-      }
-      __syncwarp();
-      // the lane's row: lanes 2r and 2r+1 share row r of the warp's 16,
-      // each taking every other key of the tile (32 each)
-      {
-        const int r = wr + (lane >> 1);
-        const int qi = q0 + r;
-        const int h2 = lane & 1;
-        const float* srow = Ss + r * ATTB_LDS + h2;
-        const float* prow = dPs + r * ATTB_LDS + h2;
-        // keys k0 + 2c + h2 < S (and, causal, <= qi) are valid
-        const int lim = min(S, CAUSAL ? qi + 1 : S) - k0 - h2;  // 2c < lim
-        if (pass == 0) {
-          float mx = -CUDART_INF_F;
-#pragma unroll 8
-          for (int c = 0; c < ATTB_BK / 2; ++c)
-            if (qi < S && 2 * c < lim) mx = fmaxf(mx, srow[2 * c] * scale);
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-          const float m_new = fmaxf(row_m, mx);
-          // a row with no valid key so far keeps m = -inf, l = 0
-          const float m_use = m_new == -CUDART_INF_F ? 0.f : m_new;
-          float e = 0.f, ed = 0.f;
-#pragma unroll 8
-          for (int c = 0; c < ATTB_BK / 2; ++c) {
-            if (qi < S && 2 * c < lim) {
-              const float x = expf(srow[2 * c] * scale - m_use);
-              e += x;
-              ed += x * prow[2 * c];
-            }
-          }
-          e += __shfl_xor_sync(0xffffffffu, e, 1);
-          ed += __shfl_xor_sync(0xffffffffu, ed, 1);
-          const float alpha = row_m == -CUDART_INF_F ? 0.f : expf(row_m - m_use);
-          row_l = row_l * alpha + e;
-          row_dn = row_dn * alpha + ed;
-          row_m = m_new;
-        } else {
-          const float linv = row_l > 0.f ? 1.f / row_l : 0.f;
-          const float dsum = row_dn * linv;
-          __nv_bfloat16* dsrow = dSs + r * ATT_LDK + h2;
-#pragma unroll 8
-          for (int c = 0; c < ATTB_BK / 2; ++c) {
-            float ds = 0.f;
-            if (qi < S && 2 * c < lim)
-              ds = expf(srow[2 * c] * scale - row_m) * linv * (prow[2 * c] - dsum);
-            dsrow[2 * c] = __float2bfloat16(ds);
-          }
-        }
-      }
-      if (pass == 1) {
-        __syncwarp();
-        // dQ += dS K for the warp's 16 rows
-#pragma unroll
-        for (int kt = 0; kt < ATTB_BK / 16; ++kt) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fs;
-          wmma::load_matrix_sync(fs, dSs + wr * ATT_LDK + 16 * kt, ATT_LDK);
-#pragma unroll
-          for (int c = 0; c < ATT_D / 16; ++c) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fk;
-            wmma::load_matrix_sync(fk, Ks + 16 * kt * ATT_LDK + 16 * c, ATT_LDK);
-            wmma::mma_sync(dq[c], fs, fk, dq[c]);
-          }
-        }
-        __syncwarp();  // dS is read before the next tile's rows overwrite it
-      }
-    }
-  }
-  if (!live) return;
-  // the score tile is free: the warp's dQ rows go there
-#pragma unroll
-  for (int c = 0; c < ATT_D / 16; ++c)
-    wmma::store_matrix_sync(Ss + wr * ATTB_LDS + 16 * c, dq[c], ATTB_LDS, wmma::mem_row_major);
-  __syncwarp();
-  for (int rr = 0; rr < 16; ++rr) {
-    const int qi = q0 + wr + rr;
-    if (qi >= S) break;
-    const float2 o = *reinterpret_cast<const float2*>(Ss + (wr + rr) * ATTB_LDS + 2 * lane);
-    *reinterpret_cast<__nv_bfloat162*>(dqkv + ((long long)b * S + qi) * row_stride + h * ATT_D +
-                                       2 * lane) =
-        __floats2bfloat162_rn(o.x * scale, o.y * scale);
-  }
-  const int qi = q0 + wr + (lane >> 1);
-  if ((lane & 1) == 0 && qi < S) {
-    const float linv = row_l > 0.f ? 1.f / row_l : 0.f;
-    stats[((long long)b * H + h) * S + qi] = make_float4(row_m, linv, row_dn * linv, 0.f);
   }
 }
 
-// shared memory of attn_bwd_dkv: K, V, Q, dO tiles (bf16), per warp the
-// fp32 S^T and dP^T tiles and the bf16 p^T and dS^T tiles, the query
-// tile's statistics
-constexpr size_t ATTB_DKV_SMEM =
-    (size_t)4 * ATT_BQ * ATT_LDK * 2 + (size_t)2 * ATT_BQ * ATTB_LDT * 4 +
-    (size_t)2 * ATT_BQ * ATT_LDK * 2 + (size_t)ATT_BQ * 16;
+template <bool CAUSAL>
+__global__ void __launch_bounds__(AB_THREADS, AB_BLOCKS_PER_SM)
+attn_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                   __nv_bfloat16* __restrict__ dqkv, float4* __restrict__ stats, int S, int H,
+                   float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base, sO = base + AB_TILE;
+  const uint32_t sKV = base + 2 * AB_TILE;              // stage s: K at sKV + 2 s TILE, V after
+  const uint32_t sBar = sKV + AB_STAGES * 2 * AB_TILE;  // full[s] at sBar + 8 s
+  const uint32_t q_bar = sBar + 8 * AB_STAGES;
+
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  // causal: the query tiles with the most keys first
+  const int q0 = (CAUSAL ? (int)gridDim.y - 1 - (int)blockIdx.y : (int)blockIdx.y) * AB_ROWS;
+  // causal: key tiles past the tile's last query row have p = 0
+  const int n_tiles =
+      CAUSAL ? (min(S, q0 + AB_ROWS) - 1) / AB_ROWS + 1 : (S + AB_ROWS - 1) / AB_ROWS;
+  const int slots = 2 * n_tiles;  // slot u: key tile u % n_tiles of walk u / n_tiles
+  const CUtensorMap* map_k = &tk;
+  const CUtensorMap* map_v = &tv;
+  auto load_kv = [&](int u) {
+    const int s = u % AB_STAGES;
+    const uint32_t full = sBar + 8 * s, dst = sKV + s * 2 * AB_TILE;
+    mbar_arrive_expect_tx(full, 2 * AB_TILE);
+    tma_load_4d(dst, map_k, full, 0, (u % n_tiles) * AB_ROWS, h, b);
+    tma_load_4d(dst + AB_TILE, map_v, full, 0, (u % n_tiles) * AB_ROWS, h, b);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < AB_STAGES; ++s) mbar_init(sBar + 8 * s, 1);
+    mbar_init(q_bar, 1);
+    mbar_fence_init();
+    mbar_arrive_expect_tx(q_bar, 2 * AB_TILE);
+    tma_load_4d(sQ, &tq, q_bar, 0, q0, h, b);
+    tma_load_4d(sO, &tdo, q_bar, 0, q0, h, b);
+    for (int u = 0; u < min(slots, AB_STAGES); ++u) load_kv(u);
+  }
+  __syncthreads();
+
+  const int warp = tid / 32, lane = tid & 31;
+  const int row0 = q0 + 16 * warp + (lane >> 2);  // the thread's query rows: row0, row0 + 8
+  const int col0 = 2 * (lane & 3);
+  // per row: the running max (scaled scores), its stand-in for exp (0
+  // while no key is valid), the partial sums of exp(s - m) and of exp(s -
+  // m) dP; after walk 1 1/l and D
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, mu[2] = {0.f, 0.f};
+  float l[2] = {0.f, 0.f}, dn[2] = {0.f, 0.f}, linv[2] = {0.f, 0.f}, dsum[2] = {0.f, 0.f};
+  float dq[32], sc[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+  mbar_wait(q_bar, 0);
+  for (int u = 0; u < slots; ++u) {
+    const int s = u % AB_STAGES, k0 = (u % n_tiles) * AB_ROWS;
+    const uint32_t sK = sKV + s * 2 * AB_TILE;
+    mbar_wait(sBar + 8 * s, (u / AB_STAGES) & 1);
+    wgmma_fence();
+    ab_mma_nt(sc, sQ, sK);
+    ab_mma_nt(dp, sO, sK + AB_TILE);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_regs(sc);
+    wgmma_fence_regs(dp);
+    // edge tiles: key columns >= S and, causal, above the diagonal to -inf
+    if (k0 + AB_ROWS > S || (CAUSAL && k0 + AB_ROWS - 1 > q0)) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = k0 + 8 * (i / 4) + col0 + (i & 1);
+        if (col >= S || (CAUSAL && col > row0 + 8 * ((i >> 1) & 1))) sc[i] = -CUDART_INF_F;
+      }
+    }
+    if (u < n_tiles) {
+      // walk 1: the quad's rows share m, so the thread partials rescale alike
+      float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+      for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r] * scale);
+        mu[r] = m_new == -CUDART_INF_F ? 0.f : m_new;
+        const float alpha = expf(m[r] - mu[r]);  // 0 while m was -inf
+        l[r] *= alpha;
+        dn[r] *= alpha;
+        m[r] = m_new;
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i >> 1) & 1;
+        const float e = expf(sc[i] * scale - mu[r]);
+        l[r] += e;
+        dn[r] += e * dp[i];
+      }
+      if (u == n_tiles - 1) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+          l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+          dn[r] += __shfl_xor_sync(0xffffffffu, dn[r], 1);
+          dn[r] += __shfl_xor_sync(0xffffffffu, dn[r], 2);
+          linv[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
+          dsum[r] = dn[r] * linv[r];
+        }
+      }
+    } else {
+      // walk 2: dS = p (dP - D) as the A operand of dQ += dS K
+      uint32_t f[4][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int i = 4 * j + 2 * r;
+          const float p0 = expf(sc[i] * scale - mu[r]) * linv[r];
+          const float p1 = expf(sc[i + 1] * scale - mu[r]) * linv[r];
+          ab_pack(f, j, r, p0 * (dp[i] - dsum[r]), p1 * (dp[i + 1] - dsum[r]));
+        }
+      }
+      wgmma_fence();
+      ab_mma_rn(dq, f, sK);
+      wgmma_commit();
+      wgmma_wait<0>();
+      wgmma_fence_regs(dq);
+    }
+    __syncthreads();  // every warp is done with stage s: refill it
+    if (tid == 0 && u + AB_STAGES < slots) load_kv(u + AB_STAGES);
+  }
+  const long long ld = 3LL * H * ATT_D;
+  ab_store(dq, scale, dqkv + (long long)b * S * ld + h * ATT_D, ld, row0, S, lane);
+  if ((lane & 3) == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (row0 + 8 * r < S)
+        stats[((long long)b * H + h) * S + row0 + 8 * r] =
+            make_float4(mu[r], linv[r], dsum[r], 0.f);
+  }
+}
 
 template <bool CAUSAL>
-__global__ void __launch_bounds__(ATT_THREADS)
-attn_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ qkv,
-                    const __nv_bfloat16* __restrict__ dattn, const float4* __restrict__ stats,
-                    __nv_bfloat16* __restrict__ dqkv, int S, int H, float scale) {
-  using namespace nvcuda;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Kt = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Vt = Kt + ATT_BQ * ATT_LDK;
-  __nv_bfloat16* Qt = Vt + ATT_BQ * ATT_LDK;
-  __nv_bfloat16* dOt = Qt + ATT_BQ * ATT_LDK;
-  float* St = reinterpret_cast<float*>(dOt + ATT_BQ * ATT_LDK);  // [64 keys][LDT]
-  float* dPt = St + ATT_BQ * ATTB_LDT;
-  __nv_bfloat16* pT = reinterpret_cast<__nv_bfloat16*>(dPt + ATT_BQ * ATTB_LDT);
-  __nv_bfloat16* dST = pT + ATT_BQ * ATT_LDK;
-  float4* qstat = reinterpret_cast<float4*>(dST + ATT_BQ * ATT_LDK);
+__global__ void __launch_bounds__(AB_THREADS, AB_BLOCKS_PER_SM)
+attn_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo,
+                    const __grid_constant__ CUtensorMap tst, __nv_bfloat16* __restrict__ dqkv,
+                    int S, int H, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sK = base, sV = base + AB_TILE;
+  const uint32_t sRing = base + 2 * AB_TILE;  // stage s: Q, dO, stats at sRing + s DKV_STAGE
+  const uint32_t sBar = sRing + AB_STAGES * AB_DKV_STAGE;  // full[s] at sBar + 8 s
+  const uint32_t kv_bar = sBar + 8 * AB_STAGES;
 
-  const int b = blockIdx.x;
-  const int h = blockIdx.y;
-  const int k0 = blockIdx.z * ATT_BQ;
-  const int hd = H * ATT_D;
-  const long long row_stride = 3LL * hd;
-  const __nv_bfloat16* base = qkv + (long long)b * S * row_stride;
-  const __nv_bfloat16* dbase = dattn + (long long)b * S * hd;
-  const float4* sbase = stats + ((long long)b * H + h) * S;
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int wr = warp * 16;  // the warp's 16 key rows of the tile
-  const bool live = k0 + wr < S;
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int k0 = blockIdx.y * AB_ROWS;
+  // causal: the query tiles before the key tile see none of its keys
+  const int t0 = CAUSAL ? (int)blockIdx.y : 0;
+  const int slots = (S + AB_ROWS - 1) / AB_ROWS - t0;  // slot u: query tile t0 + u
+  const CUtensorMap* map_q = &tq;
+  const CUtensorMap* map_do = &tdo;
+  const CUtensorMap* map_st = &tst;
+  auto load_q = [&](int u) {
+    const int s = u % AB_STAGES, qt0 = (t0 + u) * AB_ROWS;
+    const uint32_t full = sBar + 8 * s, dst = sRing + s * AB_DKV_STAGE;
+    mbar_arrive_expect_tx(full, AB_DKV_STAGE);
+    tma_load_4d(dst, map_q, full, 0, qt0, h, b);
+    tma_load_4d(dst + AB_TILE, map_do, full, 0, qt0, h, b);
+    tma_load_4d(dst + 2 * AB_TILE, map_st, full, 0, qt0, h, b);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < AB_STAGES; ++s) mbar_init(sBar + 8 * s, 1);
+    mbar_init(kv_bar, 1);
+    mbar_fence_init();
+    mbar_arrive_expect_tx(kv_bar, 2 * AB_TILE);
+    tma_load_4d(sK, &tk, kv_bar, 0, k0, h, b);
+    tma_load_4d(sV, &tv, kv_bar, 0, k0, h, b);
+    for (int u = 0; u < min(slots, AB_STAGES); ++u) load_q(u);
+  }
+  __syncthreads();
 
-  for (int idx = tid; idx < ATT_BQ * 8; idx += ATT_THREADS) {
-    const int r = idx >> 3, c = (idx & 7) * 8;
-    uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-    if (k0 + r < S) {
-      const __nv_bfloat16* src = base + (k0 + r) * row_stride + h * ATT_D + c;
-      kv = *reinterpret_cast<const uint4*>(src + hd);
-      vv = *reinterpret_cast<const uint4*>(src + 2 * hd);
-    }
-    *reinterpret_cast<uint4*>(Kt + r * ATT_LDK + c) = kv;
-    *reinterpret_cast<uint4*>(Vt + r * ATT_LDK + c) = vv;
-  }
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> dk[ATT_D / 16], dv[ATT_D / 16];
+  const int warp = tid / 32, lane = tid & 31;
+  const int row0 = k0 + 16 * warp + (lane >> 2);  // the thread's key rows: row0, row0 + 8
+  const int col0 = 2 * (lane & 3);
+  float dk[32], dv[32], st[32], dpt[32];
 #pragma unroll
-  for (int c = 0; c < ATT_D / 16; ++c) {
-    wmma::fill_fragment(dk[c], 0.f);
-    wmma::fill_fragment(dv[c], 0.f);
-  }
-
-  for (int q0 = 0; q0 < S; q0 += ATT_BQ) {
-    // causal: a query tile that ends before the key tile starts has p = 0
-    if (CAUSAL && q0 + ATT_BQ <= k0) continue;
-    __syncthreads();  // the previous tile's Q / dO reads are done
-    for (int idx = tid; idx < ATT_BQ * 8; idx += ATT_THREADS) {
-      const int r = idx >> 3, c = (idx & 7) * 8;
-      const int qi = q0 + r;
-      uint4 qv = make_uint4(0, 0, 0, 0), ov = make_uint4(0, 0, 0, 0);
-      if (qi < S) {
-        qv = *reinterpret_cast<const uint4*>(base + qi * row_stride + h * ATT_D + c);
-        ov = *reinterpret_cast<const uint4*>(dbase + (long long)qi * hd + h * ATT_D + c);
-      }
-      *reinterpret_cast<uint4*>(Qt + r * ATT_LDK + c) = qv;
-      *reinterpret_cast<uint4*>(dOt + r * ATT_LDK + c) = ov;
-    }
-    for (int r = tid; r < ATT_BQ; r += ATT_THREADS)
-      qstat[r] = (q0 + r < S) ? sbase[q0 + r] : make_float4(0.f, 0.f, 0.f, 0.f);
-    __syncthreads();
-    if (!live) continue;
-
-    // S^T = K_w Q^T and dP^T = V_w dO^T for the warp's 16 keys x 64 queries
-    {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fk[ATT_D / 16],
-          fv[ATT_D / 16];
+  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+  mbar_wait(kv_bar, 0);
+  for (int u = 0; u < slots; ++u) {
+    const int s = u % AB_STAGES, qt0 = (t0 + u) * AB_ROWS;
+    const uint32_t sQ = sRing + s * AB_DKV_STAGE, sO = sQ + AB_TILE;
+    // the query rows' statistics; rows >= S read as zeros (TMA's fill), so
+    // their p = exp(0 - 0) * 0 = 0 (their Q rows are zeros too)
+    const float4* stat = reinterpret_cast<const float4*>(smem_raw + (sQ + 2 * AB_TILE - raw));
+    mbar_wait(sBar + 8 * s, (u / AB_STAGES) & 1);
+    wgmma_fence();
+    ab_mma_nt(st, sK, sQ);
+    ab_mma_nt(dpt, sV, sO);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_regs(st);
+    wgmma_fence_regs(dpt);
+    // causal: the diagonal tile masks key > query
+    const bool diag = CAUSAL && qt0 < k0 + AB_ROWS;
+    uint32_t fp[4][4], fs[4][4];
 #pragma unroll
-      for (int kk = 0; kk < ATT_D / 16; ++kk) {
-        wmma::load_matrix_sync(fk[kk], Kt + wr * ATT_LDK + 16 * kk, ATT_LDK);
-        wmma::load_matrix_sync(fv[kk], Vt + wr * ATT_LDK + 16 * kk, ATT_LDK);
-      }
+    for (int j = 0; j < 8; ++j) {
+      const int q = qt0 + 8 * j + col0;
+      const float4 s0 = stat[8 * j + col0], s1 = stat[8 * j + col0 + 1];
 #pragma unroll
-      for (int n = 0; n < ATT_BQ / 16; ++n) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc_s, acc_p;
-        wmma::fill_fragment(acc_s, 0.f);
-        wmma::fill_fragment(acc_p, 0.f);
-#pragma unroll
-        for (int kk = 0; kk < ATT_D / 16; ++kk) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fq, fo;
-          wmma::load_matrix_sync(fq, Qt + 16 * n * ATT_LDK + 16 * kk, ATT_LDK);
-          wmma::load_matrix_sync(fo, dOt + 16 * n * ATT_LDK + 16 * kk, ATT_LDK);
-          wmma::mma_sync(acc_s, fk[kk], fq, acc_s);
-          wmma::mma_sync(acc_p, fv[kk], fo, acc_p);
-        }
-        wmma::store_matrix_sync(St + wr * ATTB_LDT + 16 * n, acc_s, ATTB_LDT,
-                                wmma::mem_row_major);
-        wmma::store_matrix_sync(dPt + wr * ATTB_LDT + 16 * n, acc_p, ATTB_LDT,
-                                wmma::mem_row_major);
+      for (int r = 0; r < 2; ++r) {
+        const int i = 4 * j + 2 * r, key = row0 + 8 * r;
+        const float p0 = (diag && key > q) ? 0.f : expf(st[i] * scale - s0.x) * s0.y;
+        const float p1 = (diag && key > q + 1) ? 0.f : expf(st[i + 1] * scale - s1.x) * s1.y;
+        ab_pack(fp, j, r, p0, p1);
+        ab_pack(fs, j, r, p0 * (dpt[i] - s0.z), p1 * (dpt[i + 1] - s1.z));
       }
     }
-    __syncwarp();
-    // p^T and dS^T of the warp's keys, from the query rows' statistics
-    for (int idx = lane; idx < 16 * ATT_BQ; idx += 32) {
-      const int r = idx / ATT_BQ, c = idx % ATT_BQ;
-      const int j = k0 + wr + r, qi = q0 + c;
-      float p = 0.f, ds = 0.f;
-      if (j < S && qi < S && (!CAUSAL || j <= qi)) {
-        const float4 st = qstat[c];
-        p = expf(St[(wr + r) * ATTB_LDT + c] * scale - st.x) * st.y;
-        ds = p * (dPt[(wr + r) * ATTB_LDT + c] - st.z);
-      }
-      pT[(wr + r) * ATT_LDK + c] = __float2bfloat16(p);
-      dST[(wr + r) * ATT_LDK + c] = __float2bfloat16(ds);
-    }
-    __syncwarp();
-    // dV += p^T dO, dK += dS^T Q
-#pragma unroll
-    for (int kk = 0; kk < ATT_BQ / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fp, fs;
-      wmma::load_matrix_sync(fp, pT + wr * ATT_LDK + 16 * kk, ATT_LDK);
-      wmma::load_matrix_sync(fs, dST + wr * ATT_LDK + 16 * kk, ATT_LDK);
-#pragma unroll
-      for (int c = 0; c < ATT_D / 16; ++c) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fo, fq;
-        wmma::load_matrix_sync(fo, dOt + 16 * kk * ATT_LDK + 16 * c, ATT_LDK);
-        wmma::load_matrix_sync(fq, Qt + 16 * kk * ATT_LDK + 16 * c, ATT_LDK);
-        wmma::mma_sync(dv[c], fp, fo, dv[c]);
-        wmma::mma_sync(dk[c], fs, fq, dk[c]);
-      }
-    }
+    wgmma_fence();
+    ab_mma_rn(dv, fp, sO);
+    ab_mma_rn(dk, fs, sQ);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_regs(dv);
+    wgmma_fence_regs(dk);
+    __syncthreads();  // every warp is done with stage s: refill it
+    if (tid == 0 && u + AB_STAGES < slots) load_q(u + AB_STAGES);
   }
-  if (!live) return;
-  __syncwarp();
-#pragma unroll
-  for (int c = 0; c < ATT_D / 16; ++c) {
-    wmma::store_matrix_sync(St + wr * ATTB_LDT + 16 * c, dk[c], ATTB_LDT, wmma::mem_row_major);
-    wmma::store_matrix_sync(dPt + wr * ATTB_LDT + 16 * c, dv[c], ATTB_LDT, wmma::mem_row_major);
-  }
-  __syncwarp();
-  for (int rr = 0; rr < 16; ++rr) {
-    const int j = k0 + wr + rr;
-    if (j >= S) break;
-    const float2 kx = *reinterpret_cast<const float2*>(St + (wr + rr) * ATTB_LDT + 2 * lane);
-    const float2 vx = *reinterpret_cast<const float2*>(dPt + (wr + rr) * ATTB_LDT + 2 * lane);
-    __nv_bfloat16* dst = dqkv + ((long long)b * S + j) * row_stride + h * ATT_D + 2 * lane;
-    *reinterpret_cast<__nv_bfloat162*>(dst + hd) = __floats2bfloat162_rn(kx.x * scale,
-                                                                         kx.y * scale);
-    *reinterpret_cast<__nv_bfloat162*>(dst + 2 * hd) = __floats2bfloat162_rn(vx.x, vx.y);
-  }
+  const long long ld = 3LL * H * ATT_D;
+  __nv_bfloat16* dst = dqkv + (long long)b * S * ld + h * ATT_D;
+  ab_store(dk, scale, dst + H * ATT_D, ld, row0, S, lane);
+  ab_store(dv, 1.f, dst + 2 * H * ATT_D, ld, row0, S, lane);
 }
 
 constexpr int CLSB_THREADS = 128;  // and keys per chunk of the last walk
@@ -602,29 +576,63 @@ ln_bwd_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ dxn
   }
 }
 
+// a [B, S, H, 64] bf16 view (row stride ld elements, heads 64 apart, batch
+// stride S ld) as a 4-d tensor map of (64, S, H, B), boxes of 64 x 64
+static inline bool ab_map(CUtensorMap* map, const void* p, int B, int S, int H, long long ld) {
+  const cuuint64_t dims[4] = {ATT_D, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)ld * 2, ATT_D * 2, (cuuint64_t)S * ld * 2};
+  const cuuint32_t box[4] = {ATT_D, AB_ROWS, 1, 1};
+  return make_tensor_map(map, p, 4, dims, strides, box);
+}
+
+template <bool CAUSAL>
+static cudaError_t launch_attn_bwd_passes(const CUtensorMap (&maps)[5], float4* stats,
+                                          __nv_bfloat16* dqkv, int B, int S, int H, int passes,
+                                          cudaStream_t stream) {
+  static const cudaError_t attr_dq =
+      cudaFuncSetAttribute(attn_bwd_dq_kernel<CAUSAL>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)AB_DQ_SMEM);
+  static const cudaError_t attr_dkv =
+      cudaFuncSetAttribute(attn_bwd_dkv_kernel<CAUSAL>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)AB_DKV_SMEM);
+  UML_TRY(attr_dq);
+  UML_TRY(attr_dkv);
+  const dim3 grid((unsigned)(B * H), (unsigned)((S + AB_ROWS - 1) / AB_ROWS));
+  const float scale = 0.125f;  // 1 / sqrt(64)
+  if (passes & 1) {
+    attn_bwd_dq_kernel<CAUSAL><<<grid, AB_THREADS, AB_DQ_SMEM, stream>>>(
+        maps[0], maps[1], maps[2], maps[3], dqkv, stats, S, H, scale);
+    UML_TRY(cudaGetLastError());
+  }
+  if (passes & 2)
+    attn_bwd_dkv_kernel<CAUSAL><<<grid, AB_THREADS, AB_DKV_SMEM, stream>>>(
+        maps[0], maps[1], maps[2], maps[3], maps[4], dqkv, S, H, scale);
+  return cudaGetLastError();
+}
+
+// The attention backward of B x H heads of 64: passes 1 runs the dq pass
+// (dq into dqkv's q columns, the statistics into stats), 2 the dkv pass
+// (dk, dv from stats), 3 both in turn.  Pointers 16-byte aligned.
 static inline cudaError_t launch_attn_bwd(const __nv_bfloat16* qkv, const __nv_bfloat16* dattn,
                                           float4* stats, __nv_bfloat16* dqkv, int B, int S,
-                                          int H, bool causal, cudaStream_t stream) {
-  const size_t smem = ATTB_DQ_SMEM;
-  const dim3 grid(B, H, (S + ATT_BQ - 1) / ATT_BQ);
-  const float scale = 0.125f;  // 1 / sqrt(64)
-#define UML_ATTB_LAUNCH(C)                                                                    \
-  do {                                                                                        \
-    cudaFuncSetAttribute(attn_bwd_dq_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, \
-                         (int)smem);                                                          \
-    attn_bwd_dq_kernel<C><<<grid, ATT_THREADS, smem, stream>>>(qkv, dattn, dqkv, stats, S, H, \
-                                                               scale);                        \
-    const cudaError_t e = cudaGetLastError();                                                 \
-    if (e != cudaSuccess) return e;                                                           \
-    cudaFuncSetAttribute(attn_bwd_dkv_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, \
-                         (int)ATTB_DKV_SMEM);                                                 \
-    attn_bwd_dkv_kernel<C><<<grid, ATT_THREADS, ATTB_DKV_SMEM, stream>>>(qkv, dattn, stats,   \
-                                                                         dqkv, S, H, scale);  \
-  } while (0)
-  if (causal) UML_ATTB_LAUNCH(true);
-  else UML_ATTB_LAUNCH(false);
-#undef UML_ATTB_LAUNCH
-  return cudaGetLastError();
+                                          int H, bool causal, cudaStream_t stream,
+                                          int passes = 3) {
+  if (B < 1 || S < 1 || H < 1 || (long long)B * H > INT_MAX ||
+      (S + AB_ROWS - 1) / AB_ROWS > 65535 || passes < 1 || passes > 3)
+    return cudaErrorInvalidValue;
+  const long long hd = (long long)H * ATT_D;
+  CUtensorMap maps[5];  // q, k, v, dO, the statistics
+  const cuuint64_t st_dims[4] = {4, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t st_strides[3] = {16, (cuuint64_t)S * 16, (cuuint64_t)H * S * 16};
+  const cuuint32_t st_box[4] = {4, AB_ROWS, 1, 1};
+  if (!ab_map(&maps[0], qkv, B, S, H, 3 * hd) || !ab_map(&maps[1], qkv + hd, B, S, H, 3 * hd) ||
+      !ab_map(&maps[2], qkv + 2 * hd, B, S, H, 3 * hd) ||
+      !ab_map(&maps[3], dattn, B, S, H, hd) ||
+      !make_tensor_map(&maps[4], stats, 4, st_dims, st_strides, st_box,
+                       CU_TENSOR_MAP_DATA_TYPE_FLOAT32, CU_TENSOR_MAP_SWIZZLE_NONE))
+    return cudaErrorInvalidValue;
+  return causal ? launch_attn_bwd_passes<true>(maps, stats, dqkv, B, S, H, passes, stream)
+                : launch_attn_bwd_passes<false>(maps, stats, dqkv, B, S, H, passes, stream);
 }
 
 static inline cudaError_t launch_cls_bwd(const __nv_bfloat16* qkv, const __nv_bfloat16* dattn,

@@ -10,8 +10,9 @@
 // shifts every score of a row by a constant, which the softmax cancels,
 // so both give the same gradients.  Four launches: the LN row pre-pass and
 // the QKV product on the wgmma engine (ln_gemm.cuh, wgmma_gemm.cuh), the
-// attention (flash_attention.cu, for any S), the out-projection ln_gemm
-// with the residual add.
+// attention (flash_attention.cu, for any S), the out-projection with the
+// residual add on the engine (ln_gemm.cuh's (PRO_NONE, EPI_RESIDUAL)
+// triple; for the CLS block the residual rows are S*K apart).
 //
 // Unlike the TPU kernel, which keeps qkv, the scores and the attention
 // output in VMEM, this version round-trips xn, qkv and the attention

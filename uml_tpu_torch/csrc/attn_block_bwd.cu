@@ -40,8 +40,12 @@
 // attn, dattn 19 MB each) beside ~150 GFLOP (the three projections 104,
 // attention 7.6 forward and 19 backward).  Every product runs on the
 // wgmma engine (wgmma_gemm.cuh through ln_gemm.cuh's triples), the
-// attention forward on flash_attention.cu; the attention backward
-// (attention_bwd.cuh, wmma) is what bounds the time now.
+// attention forward on flash_attention.cu, the attention backward's dq
+// and dkv passes on wgmma with TMA-fed operands (attention_bwd.cuh).
+//
+// uml_attn_bwd launches the attention backward's passes on their own, for
+// the card tests and chip_smoke.py to hold and time each; no model calls
+// it.
 
 #include "attention_bwd.cuh"
 #include "blocks.cuh"
@@ -144,4 +148,14 @@ extern "C" int uml_attn_block_cls_bwd(const void* x, const void* g, const void* 
       static_cast<const bf16*>(w_eff), static_cast<const bf16*>(wo), static_cast<bf16*>(dattn),
       static_cast<float*>(dxn), static_cast<bf16*>(dqkv), static_cast<bf16*>(dx),
       static_cast<bf16*>(xn), B, S, K, H, eps, static_cast<cudaStream_t>(stream));
+}
+
+// passes: 1 the dq pass (dq into dqkv's q columns, stats [B*H*S] float4),
+// 2 the dkv pass from stats (dk, dv into dqkv's k and v columns), 3 both
+extern "C" int uml_attn_bwd(const void* qkv, const void* dattn, void* stats, void* dqkv, int B,
+                            int S, int H, int causal, int passes, void* stream) {
+  using bf16 = __nv_bfloat16;
+  return (int)uml::launch_attn_bwd(static_cast<const bf16*>(qkv), static_cast<const bf16*>(dattn),
+                                   static_cast<float4*>(stats), static_cast<bf16*>(dqkv), B, S, H,
+                                   causal != 0, static_cast<cudaStream_t>(stream), passes);
 }

@@ -8,7 +8,7 @@
 // QKV q8_gemm (bf16 epilogue with b_eff), the attention of the bf16 path
 // (flash_attention.cu through attention.cuh), then quantize_rows + the
 // out-projection q8_gemm with the residual epilogue, or the bf16
-// out-projection ln_gemm.
+// out-projection with the residual on the wgmma engine (ln_gemm.cuh).
 //
 // The quantized attention output is the attention kernel's bf16 output,
 // as in uml_tpu's jnp reference (mha_reference returns bf16); the Pallas

@@ -50,30 +50,25 @@ static inline cudaError_t run_attn_block(const __nv_bfloat16* x, const __nv_bflo
                         eps, stream);
 }
 
-// MLP half: out = x + quick_gelu(rawLN(x) . w1 + b1) . w2 + b2
-//   x [rows, K]; w1 [K, M]; w2 [M, K]; hidden [rows, M] is scratch.
+// MLP half: out = x + quick_gelu(rawLN(x) . w1 + b1) . w2 + b2, and with
+// pre non-null the pre-activation stash of the training forward, pre =
+// bf16(rawLN(x) . w1 + b1), which the backward reads (the activation is
+// taken of the unrounded pre).  Three launches, the same with the stash
+// and without: the LN row pre-pass into xn, the MLP in and the MLP out on
+// the wgmma engine.
+//   x [rows, K]; w1 [K, M]; w2 [M, K]; xn [rows, K] and hidden [rows, M]
+//   are scratch; pre [rows, M] or null.
 static inline cudaError_t run_mlp_block(const __nv_bfloat16* x, const __nv_bfloat16* w1,
                                         const float* b1, const __nv_bfloat16* w2,
-                                        const float* b2, __nv_bfloat16* hidden,
-                                        __nv_bfloat16* out, int rows, int K, int M, float eps,
-                                        cudaStream_t stream) {
-  UML_TRY(launch_ln_gemm(x, w1, b1, nullptr, hidden, rows, M, K, 0, PRO_LN, EPI_QUICK_GELU, eps,
-                         stream));
-  return launch_ln_gemm(hidden, w2, b2, x, out, rows, K, M, K, PRO_NONE, EPI_RESIDUAL, eps,
-                        stream);
-}
-
-// MLP half with the pre-activation stash (training forward):
-//   out = x + quick_gelu(pre) . w2 + b2,  pre = rawLN(x) . w1 + b1 -> bf16
-//   hidden [rows, M] is scratch; pre [rows, M] is kept for the backward.
-static inline cudaError_t run_mlp_block_stash(const __nv_bfloat16* x, const __nv_bfloat16* w1,
-                                              const float* b1, const __nv_bfloat16* w2,
-                                              const float* b2, __nv_bfloat16* pre,
-                                              __nv_bfloat16* hidden, __nv_bfloat16* out,
-                                              int rows, int K, int M, float eps,
-                                              cudaStream_t stream) {
-  UML_TRY(launch_ln_gemm(x, w1, b1, nullptr, hidden, rows, M, K, 0, PRO_LN, EPI_GELU_STASH, eps,
-                         stream, false, pre));
+                                        const float* b2, __nv_bfloat16* xn,
+                                        __nv_bfloat16* hidden, __nv_bfloat16* out, int rows,
+                                        int K, int M, float eps, cudaStream_t stream,
+                                        __nv_bfloat16* pre = nullptr) {
+  LnPrologue ops;
+  ops.xn = xn;
+  UML_TRY(launch_ln_gemm(x, w1, b1, nullptr, hidden, rows, M, K, 0, PRO_LN,
+                         pre != nullptr ? EPI_GELU_STASH : EPI_QUICK_GELU, eps, stream, false,
+                         pre, nullptr, ops));
   return launch_ln_gemm(hidden, w2, b2, x, out, rows, K, M, K, PRO_NONE, EPI_RESIDUAL, eps,
                         stream);
 }

@@ -2,7 +2,7 @@
 // mbarriers, TMA tile loads (cp.async.bulk.tensor) and warpgroup MMAs
 // (wgmma.mma_async, bf16 in, fp32 accumulation) with their shared-memory
 // matrix descriptors, and the host side of TMA (the tensor-map encoder).
-// Used by flash_attention.cu and wgmma_gemm.cuh.
+// Used by flash_attention.cu, wgmma_gemm.cuh and attention_bwd.cuh.
 //
 // wgmma accumulator layout (m64nN, fp32): warp w of the warpgroup holds
 // rows 16w .. 16w+15; lane l holds, for each 8-column block j, d[4j],
@@ -258,18 +258,20 @@ static inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a bf16 tensor of `rank` dims (innermost first; strides in bytes of
-// dims 1..rank-1) as a tensor map with boxes of box[] elements, 128-byte
-// swizzle (box[0] = 64 columns = 128 bytes); out-of-bounds elements read
-// as zeros.  False if cuTensorMapEncodeTiled refuses it.
+// a tensor of `rank` dims (innermost first; strides in bytes of dims
+// 1..rank-1) as a tensor map with boxes of box[] elements: by default
+// bf16 with the 128-byte swizzle (box[0] = 64 columns = 128 bytes), or
+// another element type and swizzle; out-of-bounds elements read as
+// zeros.  False if cuTensorMapEncodeTiled refuses it.
 static inline bool make_tensor_map(CUtensorMap* map, const void* ptr, int rank,
                                    const cuuint64_t* dims, const cuuint64_t* strides,
-                                   const cuuint32_t* box) {
+                                   const cuuint32_t* box,
+                                   CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                                   CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank, const_cast<void*>(ptr),
-                dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  return encode(map, type, (cuuint32_t)rank, const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -56,25 +56,30 @@
 //
 // Two mainloops, chosen by the (prologue, epilogue, layout) triple in
 // launch_ln_gemm, for every caller alike (so the stash and the recompute
-// backwards, which share their launches, stay bit-equal):
-// * the wgmma + TMA engine of wgmma_gemm.cuh for the triples of the
-//   training rows: (PRO_LN, EPI_NONE) QKV, (PRO_NONE, EPI_NONE, TRANS_B)
-//   g . wo^T, (PRO_NONE, EPI_F32, TRANS_B) dqkv . W_eff^T, g . w2^T and
-//   dpre . w1^T, (PRO_LN, EPI_DACT_F32) the dW recompute.  Their PRO_LN
-//   prologue is a row pre-pass (ln_rows_kernel, one warp per row): xn =
-//   bf16((x - mean) rstd) written once to the caller's xn buffer
-//   (LnPrologue::xn), with the statistics and the single rounding of the
-//   wmma prologue below, then read by TMA like any operand; the dW
-//   products and the LN backward read that same xn.
+// backwards, which share their launches, stay bit-equal, and so do the
+// MLP forward with and without its stash):
+// * the wgmma + TMA engine of wgmma_gemm.cuh: (PRO_LN, EPI_NONE) QKV,
+//   (PRO_LN, EPI_QUICK_GELU) and (PRO_LN, EPI_GELU_STASH) the MLP in (one
+//   epilogue, OUT_GELU, with or without the stash), (PRO_NONE,
+//   EPI_RESIDUAL) the out-projections and the MLP out, (PRO_NONE,
+//   EPI_NONE, TRANS_B) g . wo^T, (PRO_NONE, EPI_F32, TRANS_B) dqkv .
+//   W_eff^T, g . w2^T and dpre . w1^T, (PRO_LN, EPI_DACT_F32) the dW
+//   recompute.  Their PRO_LN prologue is a row pre-pass (ln_rows_kernel,
+//   one warp per row): xn = bf16((x - mean) rstd) written once to the
+//   caller's xn buffer (LnPrologue::xn), with the statistics and the
+//   single rounding of the wmma prologue below, then read by TMA like any
+//   operand; the dW products and the LN backward read that same xn.
 // * nvcuda::wmma (mma.sync 16x16x16) on 64x64 block tiles with a
-//   register-prefetched K loop for the others (the MLP forward, the
-//   residual out-projections, the affine and add prologues, EPI_DACT),
-//   which recompute the LN statistics in every block column (N/64 reads of
-//   the same rows).  They are queued for the engine (ROADMAP K1).
+//   register-prefetched K loop for the others ((PRO_LN, EPI_DACT) of the
+//   MLP backward, the PRO_LN_AFFINE and PRO_ADD_LN_AFFINE prologues of the
+//   stand-alone ops, EPI_GELU_EXACT), which recompute the LN statistics in
+//   every block column (N/64 reads of the same rows).  They are queued for
+//   the engine (ROADMAP K1).
 //
 // What bounds it on the H100: at ViT-B/16 B=64 the QKV product is
-// 12608 x 768 x 2304 (44.6 GFLOP) over 16 MB of A and 3.5 MB of W, far
-// above the card's ~295 FLOP/byte ridge, so the tensor cores bound it.
+// 12608 x 768 x 2304 (44.6 GFLOP) over 16 MB of A and 3.5 MB of W, each
+// MLP product 59.5 GFLOP: far above the card's ~295 FLOP/byte ridge, so
+// the tensor cores bound them.
 
 #pragma once
 
@@ -402,23 +407,12 @@ ln_gemm_kernel(const __nv_bfloat16* __restrict__ a,
                                 cc) = dpre.u;
       continue;
     }
-    if (EPI == EPI_GELU_STASH) {
-      Pack8 p;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) p.h[j] = __float2bfloat16(v[j]);
-      *reinterpret_cast<uint4*>(aux + (long long)gm * N + n0 + cc) = p.u;
-    }
-    if (EPI == EPI_QUICK_GELU || EPI == EPI_GELU_STASH) {
+    if (EPI == EPI_QUICK_GELU) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) v[j] = v[j] * (1.f / (1.f + expf(-1.702f * v[j])));
     } else if (EPI == EPI_GELU_EXACT) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) v[j] = v[j] * 0.5f * (1.f + erff(v[j] * 0.70710678118654752f));
-    } else if (EPI == EPI_RESIDUAL) {
-      Pack8 rp;
-      rp.u = *reinterpret_cast<const uint4*>(res + (long long)gm * ldres + n0 + cc);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) v[j] += __bfloat162float(rp.h[j]);
     }
     Pack8 o;
 #pragma unroll
@@ -431,8 +425,9 @@ ln_gemm_kernel(const __nv_bfloat16* __restrict__ a,
 // Launch one ln_gemm on `stream`; returns the first launch error.  `pro`
 // is one of PRO_*, `ops` the extra operands of the prologues (for PRO_LN
 // on the engine, the xn buffer [M, K] it writes and reads).  The engine's
-// triples take N and K multiples of 64; the wmma ones N % 64 == 0, K % 32
-// == 0, ldres % 8 == 0 (the Python wrappers check them and raise first).
+// triples take N and K multiples of 64 and an even ldres; the wmma ones
+// N % 64 == 0, K % 32 == 0, ldres % 8 == 0 (the Python wrappers check
+// them and raise first).
 static inline cudaError_t launch_ln_gemm(const __nv_bfloat16* a, const __nv_bfloat16* w,
                                          const float* bias, const void* res, void* out, int M,
                                          int N, int K, long long ldres, int pro, int epi,
@@ -440,13 +435,24 @@ static inline cudaError_t launch_ln_gemm(const __nv_bfloat16* a, const __nv_bflo
                                          __nv_bfloat16* aux = nullptr,
                                          float* colsum_part = nullptr,
                                          LnPrologue ops = LnPrologue{}) {
-  // the training rows' triples: the wgmma + TMA engine
+  // the wgmma + TMA engine
   WggEpilogue ep;
   ep.bias = bias;
   ep.out = out;
   if (pro == PRO_LN && epi == EPI_NONE && !trans_b) {  // QKV
     UML_TRY(launch_ln_rows(a, ops.xn, M, K, eps, stream));
     return launch_wgmma_gemm<false, true, WGG_OUT_BF16>(ops.xn, w, ep, M, N, K, stream);
+  }
+  if (pro == PRO_LN && (epi == EPI_QUICK_GELU || epi == EPI_GELU_STASH) && !trans_b) {  // MLP in
+    if (epi == EPI_GELU_STASH && aux == nullptr) return cudaErrorInvalidValue;
+    UML_TRY(launch_ln_rows(a, ops.xn, M, K, eps, stream));
+    ep.aux = epi == EPI_GELU_STASH ? aux : nullptr;
+    return launch_wgmma_gemm<false, true, WGG_OUT_GELU>(ops.xn, w, ep, M, N, K, stream);
+  }
+  if (pro == PRO_NONE && epi == EPI_RESIDUAL && !trans_b) {  // out-projections, MLP out
+    ep.res = static_cast<const __nv_bfloat16*>(res);
+    ep.ldres = ldres;
+    return launch_wgmma_gemm<false, true, WGG_OUT_RESIDUAL>(a, w, ep, M, N, K, stream);
   }
   if (pro == PRO_NONE && epi == EPI_NONE && trans_b)  // g . wo^T
     return launch_wgmma_gemm<false, false, WGG_OUT_BF16>(a, w, ep, M, N, K, stream);
@@ -470,9 +476,6 @@ static inline cudaError_t launch_ln_gemm(const __nv_bfloat16* a, const __nv_bflo
                                                         ldres, eps, ops);                   \
     return cudaGetLastError();                                                              \
   }
-  UML_GEMM_CASE(PRO_LN, EPI_QUICK_GELU, false)           // MLP in
-  UML_GEMM_CASE(PRO_LN, EPI_GELU_STASH, false)           // MLP in + pre
-  UML_GEMM_CASE(PRO_NONE, EPI_RESIDUAL, false)           // out-proj, MLP out
   UML_GEMM_CASE(PRO_LN, EPI_DACT, false)                 // MLP bwd
   UML_GEMM_CASE(PRO_LN_AFFINE, EPI_NONE, false)          // ln_matmul, ln_qkv_attention
   UML_GEMM_CASE(PRO_LN_AFFINE, EPI_QUICK_GELU, false)    // ln_matmul

@@ -4,14 +4,15 @@
 // every layer in one program with the residual stream resident in VMEM;
 // this first version is a host loop over the layers that launches the
 // causal attention half (4 launches: the LN pre-pass, the QKV product on
-// the wgmma engine, the attention, the out-projection) and the MLP half (2
-// launches) of blocks.cuh per layer, 6 L launches in all.  The residual stays bf16
-// between halves and between layers, exactly the rounding the TPU kernel
-// applies (text_tower.py:104-109, 120-121).
+// the wgmma engine, the attention, the out-projection on the engine) and
+// the MLP half (3 launches: the LN pre-pass into the same xn scratch, both
+// products on the engine) of blocks.cuh per layer, 7 L launches in all.
+// The residual stays bf16 between halves and between layers, exactly the
+// rounding the TPU kernel applies (text_tower.py:104-109, 120-121).
 //
 // What bounds it on the H100: at the text tower's S = 77, K = 512 a layer
 // is ~0.42 GFLOP per sentence; with the hidden, qkv and residual making
-// device-memory round trips and 72 launches per call, small batches are
+// device-memory round trips and 84 launches per call, small batches are
 // launch-bound.  A persistent whole-tower kernel (residual on chip, the
 // next layer's weights prefetched) is a later PR.
 //
@@ -46,8 +47,8 @@ extern "C" int uml_text_tower(const void* x, const void* w_eff, const void* b_ef
         m, static_cast<const bf16*>(w1) + (long long)l * K * M,
         static_cast<const float*>(b1) + (long long)l * M,
         static_cast<const bf16*>(w2) + (long long)l * M * K,
-        static_cast<const float*>(b2) + (long long)l * K, static_cast<bf16*>(hidden), o, rows,
-        K, M, eps, st);
+        static_cast<const float*>(b2) + (long long)l * K, static_cast<bf16*>(xn),
+        static_cast<bf16*>(hidden), o, rows, K, M, eps, st);
     if (e2 != cudaSuccess) return (int)e2;
     cur = o;
   }

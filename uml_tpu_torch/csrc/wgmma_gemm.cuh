@@ -1,15 +1,19 @@
 // wgmma_gemm: C = A . B on Hopper's warpgroup MMAs with the operands
 // brought in by TMA; bf16 operands, fp32 accumulation.
 //
-// The product engine of the training rows: ln_gemm.cuh routes its QKV
-// (PRO_LN, EPI_NONE), g . wo^T (EPI_NONE, TRANS_B), dqkv . W_eff^T /
-// g . w2^T / dpre . w1^T (EPI_F32, TRANS_B) and the MLP dW recompute
-// (PRO_LN, EPI_DACT_F32) triples here, and gemm_at.cuh its weight-gradient
-// products A^T . B.  Those are the products of uml_tpu/ops/
-// fused_attention.py::_block_bwd_kernel (and _block_kernel,
-// _block_kernel_stash, _block_bwd_stash_kernel, _block_bwd_cls_kernel,
-// text_tower.py::_tower_kernel through the shared triples) and of
-// ln_matmul.py::_mlp_bwd_dw_kernel (and _mlp_bwd_kernel's dxn).
+// The product engine of the CLIP layers: ln_gemm.cuh routes its QKV
+// (PRO_LN, EPI_NONE), the MLP in (PRO_LN, EPI_QUICK_GELU / EPI_GELU_STASH),
+// the out-projections and the MLP out (PRO_NONE, EPI_RESIDUAL), g . wo^T
+// (EPI_NONE, TRANS_B), dqkv . W_eff^T / g . w2^T / dpre . w1^T (EPI_F32,
+// TRANS_B) and the MLP dW recompute (PRO_LN, EPI_DACT_F32) triples here,
+// and gemm_at.cuh its weight-gradient products A^T . B.  Those are the
+// products of uml_tpu/ops/fused_attention.py::_block_kernel,
+// _block_cls_kernel, _block_kernel_stash, _block_bwd_kernel,
+// _block_bwd_stash_kernel, _block_bwd_cls_kernel, of ln_matmul.py::
+// _mlp_block_kernel, _mlp_block_kernel_stash, _mlp_bwd_dw_kernel (and
+// _mlp_bwd_kernel's dxn), and of text_tower.py::_tower_kernel and
+// quant.py::_block_q8_kernel's bf16 out-projection through the shared
+// triples.
 //
 // What bounds it on the H100: at ViT-B/16 B=64 every product is 44.6-59.5
 // GFLOP over 20-100 MB, far above the ~295 FLOP/byte ridge: the tensor
@@ -44,7 +48,14 @@
 //   OUT_BF16 (bf16 C), OUT_F32 (fp32 C), OUT_DACT (the MLP backward's
 //   recompute: y = acc + b1, aux = quick_gelu(y), out = dpre = dy *
 //   quick_gelu'(y) as bf16, and the column sums of the fp32 dpre over the
-//   block's 128 rows, reduced in a fixed order, to colsum_part[row tile]).
+//   block's 128 rows, reduced in a fixed order, to colsum_part[row tile]),
+//   OUT_GELU (the MLP in: y = acc + b1, out = quick_gelu(y) of the
+//   unrounded y with the fast exp and reciprocal and, where aux is given,
+//   aux = y, each rounded once) and
+//   OUT_RESIDUAL (out = (acc + b) + res, res bf16 with row stride ldres).
+//   The MLP in writes two [rows, 4K] bf16 tensors (155 MB at ViT-B/16
+//   B=64), the heaviest store traffic of any product here: the
+//   sector-filling stores below carry it.
 // * Split contraction (gemm_at, whose C has few tiles and long K): the
 //   work items z = 0 .. splits-1 of a tile each take a chunk of K; chunk 0
 //   stores to out, chunk z > 0 to slab z-1 of `part`, and the caller adds
@@ -77,14 +88,17 @@ constexpr int WGG_RED_BYTES = 8 * WGG_BN * 4;      // per-warp column sums (OUT_
 constexpr size_t WGG_SMEM =
     1024 + (size_t)WGG_STAGES * WGG_STAGE_BYTES + 16 * WGG_STAGES + WGG_RED_BYTES;
 
-enum { WGG_OUT_BF16 = 0, WGG_OUT_F32 = 1, WGG_OUT_DACT = 2 };
+enum { WGG_OUT_BF16 = 0, WGG_OUT_F32 = 1, WGG_OUT_DACT = 2, WGG_OUT_GELU = 3,
+       WGG_OUT_RESIDUAL = 4 };
 
 struct WggEpilogue {
   const float* bias = nullptr;         // [N] fp32, or null
   void* out = nullptr;                 // [M, N]: bf16 (OUT_BF16, OUT_DACT: dpre) or fp32
   const float* dy = nullptr;           // OUT_DACT: [M, lddy] fp32
   long long lddy = 0;
-  __nv_bfloat16* aux = nullptr;        // OUT_DACT: [M, N] quick_gelu(y)
+  __nv_bfloat16* aux = nullptr;        // OUT_DACT: [M, N] quick_gelu(y); OUT_GELU: y, or null
+  const __nv_bfloat16* res = nullptr;  // OUT_RESIDUAL: [M, ldres] bf16
+  long long ldres = 0;
   float* colsum_part = nullptr;        // OUT_DACT: [ceil(M / 128), N], or null
   int splits = 1;                      // contraction chunks (OUT_F32, no bias)
   float* part = nullptr;               // splits > 1: [splits - 1, M, N] fp32 partials
@@ -218,6 +232,9 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
           if (OUT == WGG_OUT_DACT && row < M && col < N)
             in[jj][r] = __ldg(reinterpret_cast<const float2*>(ep.dy + (long long)row * ep.lddy +
                                                                col));
+          if (OUT == WGG_OUT_RESIDUAL && row < M && col < N)
+            in[jj][r] = __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(
+                ep.res + (long long)row * ep.ldres + col)));
         }
       }
       if constexpr (OUT == WGG_OUT_F32) {
@@ -244,7 +261,8 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
         }
       } else {
         // bf16 results packed two columns a register, [output][jj][r]:
-        // output 0 is out (OUT_BF16) or dpre, output 1 yact (OUT_DACT)
+        // output 0 is out (OUT_BF16, OUT_GELU, OUT_RESIDUAL) or dpre,
+        // output 1 yact (OUT_DACT) or the pre-activation y (OUT_GELU)
         uint32_t pk[2][2][2];
 #pragma unroll
         for (int jj = 0; jj < 2; ++jj) {
@@ -263,6 +281,17 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
             const float v1 = acc[4 * j + 2 * r + 1] + b1;
             if (OUT == WGG_OUT_BF16) {
               pk[0][jj][r] = bf16x2_bits(v0, v1);
+            } else if (OUT == WGG_OUT_RESIDUAL) {
+              pk[0][jj][r] = bf16x2_bits(v0 + in[jj][r].x, v1 + in[jj][r].y);
+            } else if (OUT == WGG_OUT_GELU) {
+              // quick_gelu(y) = y / (1 + exp(-1.702 y)) of the unrounded y,
+              // on the special-function unit (ex2 and rcp, ~2 ulp each,
+              // far inside the bf16 rounding that follows): with K = 768
+              // the epilogue's arithmetic is a large share of a tile, and
+              // the accurate expf and division made the MLP in ~20% slower
+              pk[0][jj][r] = bf16x2_bits(__fdividef(v0, 1.f + __expf(-1.702f * v0)),
+                                         __fdividef(v1, 1.f + __expf(-1.702f * v1)));
+              pk[1][jj][r] = bf16x2_bits(v0, v1);
             } else {
               // quick_gelu'(y) = s (1 + 1.702 y (1 - s)) with one sigmoid s;
               // dy is 0 outside the matrix, so is d there
@@ -296,7 +325,8 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
         const int src = (lane & ~3) | (2 * (q & 1));
         const int col = n0 + 8 * j0 + 4 * q;
 #pragma unroll
-        for (int t = 0; t < (OUT == WGG_OUT_DACT ? 2 : 1); ++t) {
+        for (int t = 0; t < (OUT == WGG_OUT_DACT || OUT == WGG_OUT_GELU ? 2 : 1); ++t) {
+          if (t == 1 && ep.aux == nullptr) break;  // OUT_GELU without the stash
           __nv_bfloat16* dst = t == 0 ? static_cast<__nv_bfloat16*>(ep.out) : ep.aux;
 #pragma unroll
           for (int r = 0; r < 2; ++r) {
@@ -350,6 +380,7 @@ static cudaError_t launch_wgmma_gemm(const __nv_bfloat16* a, const __nv_bfloat16
   if (M < 1 || N < 64 || K < 1 || N % 64 != 0 || (A_MN ? M % 64 != 0 : K % 64 != 0) ||
       ep.splits < 1 || ep.splits > 64 ||
       (ep.splits > 1 && (OUT != WGG_OUT_F32 || ep.part == nullptr || ep.bias != nullptr)) ||
+      (OUT == WGG_OUT_RESIDUAL && (ep.res == nullptr || ep.ldres < N || ep.ldres % 2 != 0)) ||
       reinterpret_cast<uintptr_t>(a) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(b) % 16 != 0)
     return cudaErrorInvalidValue;

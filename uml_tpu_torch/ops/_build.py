@@ -54,10 +54,12 @@ SIGNATURES = {
     # x, g, b1, w1, w2, dy, dpre, yact, dxn, db1_part, dx, xn, dw1, db1,
     # dw2, rows, K, M, eps, stream
     "uml_mlp_bwd_dw": [_P] * 15 + [_I] * 3 + [_F, _P],
-    # x, w1, b1, w2, b2, hidden, out, rows, K, M, eps, stream
-    "uml_mlp_block": [_P] * 7 + [_I] * 3 + [_F, _P],
-    # x, w1, b1, w2, b2, pre, hidden, out, rows, K, M, eps, stream
-    "uml_mlp_block_stash": [_P] * 8 + [_I] * 3 + [_F, _P],
+    # x, w1, b1, w2, b2, xn, hidden, out, rows, K, M, eps, stream
+    "uml_mlp_block": [_P] * 8 + [_I] * 3 + [_F, _P],
+    # x, w1, b1, w2, b2, pre, xn, hidden, out, rows, K, M, eps, stream
+    "uml_mlp_block_stash": [_P] * 9 + [_I] * 3 + [_F, _P],
+    # qkv, dattn, stats, dqkv, B, S, H, causal, passes, stream
+    "uml_attn_bwd": [_P] * 4 + [_I] * 5 + [_P],
     # x, w_eff, b_eff, wo, bo, w1, b1, w2, b2, xn, qkv, attn, hidden, mid,
     # out, B, S, K, H, M, L, eps, stream
     "uml_text_tower": [_P] * 15 + [_I] * 6 + [_F, _P],

@@ -15,8 +15,8 @@ in ``csrc/`` or raises, and counts the launch.
 
 * ``attn_block`` / ``attn_block_cls``: ``csrc/attn_block.cu`` (the LN
   row pre-pass and the QKV product on the wgmma engine, the attention of
-  ``csrc/flash_attention.cu``, the out-projection ln_gemm with the
-  residual).  The CLS variant returns [B, 1, K]: the TPU kernel's
+  ``csrc/flash_attention.cu``, the out-projection with the residual on
+  the engine).  The CLS variant returns [B, 1, K]: the TPU kernel's
   [B, 8, K] (CLS_ROWS = 8) is a sublane tile, and only its row 0 is used.
 * ``attn_block_stash``: the same launches, returning (out, qkv, attn).
   The port's qkv stash includes b_eff; the TPU's is bias-free and its
@@ -35,6 +35,10 @@ in ``csrc/`` or raises, and counts the launch.
   xn, attn), as ``_block_bwd_call`` returns them: it recomputes qkv and
   attn from x with the forward's own launches (so they equal the
   forward's bit for bit), then runs the stash backward on them.
+* ``attn_bwd``: the attention backward's dq pass or dkv pass
+  (``csrc/attention_bwd.cuh``, wgmma with TMA-fed operands) on its own,
+  which the backwards above launch inside their C calls; for the card
+  tests and ``chip_smoke.py`` only.
 * ``AttnBlockFn`` / ``AttnBlockClsFn``: the autograd Functions of the two
   halves; they assemble dW_eff, db_eff, dwo and dbo from the backward's
   outputs as ``_bwd_via_kernel`` does (fused_attention.py:1586-1594), as
@@ -412,6 +416,83 @@ def attn_block_bwd_recompute(x, g, w_eff, b_eff, wo, *, heads: int,
 
 
 attn_block_bwd_recompute.launches = 0
+
+
+def attn_bwd_plain(qkv, dattn, *, heads: int, causal: bool = False,
+                   stats=None):
+    """Plain version of the attention backward's two passes on their own
+    (``csrc/attention_bwd.cuh``; inside ``attn_block_bwd_plain`` they are
+    one step): qkv [B, S, 3*H*64] the stash, dattn [B, S, H*64] = dO.
+
+    ``stats`` None: the dq pass -> (dq [B, S, H*64], stats [B, H, S, 4] =
+    (m, 1/l, D, 0) per query row: the scaled scores' max, the reciprocal
+    of rowsum(exp(s - m)), D = rowsum(p * dP)).  Given those statistics:
+    the dkv pass -> (dk, dv) [B, S, H*64], p = exp(s - m) / l taken from
+    them.  p and dS are rounded to bf16 before their products, as in
+    ``attn_block_bwd_plain``."""
+    b, s, _ = qkv.shape
+    dt = qkv.dtype
+    q, k, v = (t.float() for t in _qkv_heads(qkv, heads))
+    d = q.shape[-1]
+    scale = d ** -0.5
+    do = dattn.view(b, s, heads, d).transpose(1, 2).float()
+    sc = (q @ k.transpose(-1, -2)) * scale
+    if causal:
+        keep = torch.ones(s, s, dtype=torch.bool, device=qkv.device).tril()
+        sc = sc.masked_fill(~keep, float("-inf"))
+    dp = do @ v.transpose(-1, -2)
+
+    def heads_out(t):
+        return t.transpose(1, 2).reshape(b, s, -1).to(dt)
+
+    if stats is None:
+        m = sc.amax(-1, keepdim=True)
+        e = torch.exp(sc - m)
+        linv = 1.0 / e.sum(-1, keepdim=True)
+        dsum = (e * dp).sum(-1, keepdim=True) * linv
+        ds = (e * linv * (dp - dsum)).to(dt).float()
+        stats = torch.cat([m, linv, dsum, torch.zeros_like(m)], dim=-1)
+        return heads_out((ds @ k) * scale), stats
+    m, linv, dsum = (stats[..., i:i + 1] for i in range(3))
+    p = torch.exp(sc - m) * linv
+    ds = (p * (dp - dsum)).to(dt).float()
+    dk = (ds.transpose(-1, -2) @ q) * scale
+    dv = p.to(dt).float().transpose(-1, -2) @ do
+    return heads_out(dk), heads_out(dv)
+
+
+def attn_bwd(qkv, dattn, *, heads: int, causal: bool = False, stats=None):
+    """The attention backward's dq pass (``stats`` None) or dkv pass (from
+    the dq pass's statistics) on its own, as ``attn_bwd_plain``; on a CUDA
+    tensor through ``uml_attn_bwd`` (the kernels ``attn_block_bwd`` and
+    ``attn_block_bwd_recompute`` launch inside their own C calls).  No
+    model calls it: the card tests and ``chip_smoke.py`` hold and time each
+    pass with it."""
+    if qkv.device.type == "cpu":
+        return attn_bwd_plain(qkv, dattn, heads=heads, causal=causal,
+                              stats=stats)
+    b, s, _ = qkv.shape
+    hd = heads * HEAD_DIM
+    dev = qkv.device
+    _build.check_tensor("qkv", qkv, torch.bfloat16, (b, s, 3 * hd), dev)
+    _build.check_tensor("dattn", dattn, torch.bfloat16, (b, s, hd), dev)
+    if stats is not None:
+        _build.check_tensor("stats", stats, torch.float32, (b, heads, s, 4), dev)
+    with torch.cuda.device(dev):
+        dqkv = torch.empty_like(qkv)
+        st = torch.empty((b, heads, s, 4), dtype=torch.float32, device=dev) \
+            if stats is None else stats
+        _build.launch("uml_attn_bwd", qkv.data_ptr(), dattn.data_ptr(),
+                      st.data_ptr(), dqkv.data_ptr(), b, s, heads, int(causal),
+                      1 if stats is None else 2,
+                      torch.cuda.current_stream(dev).cuda_stream)
+    attn_bwd.launches += 1
+    if stats is None:
+        return dqkv[..., :hd], st
+    return dqkv[..., hd:2 * hd], dqkv[..., 2 * hd:]
+
+
+attn_bwd.launches = 0
 
 
 def stash_enabled() -> bool:

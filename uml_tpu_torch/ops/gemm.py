@@ -3,8 +3,8 @@
 ``ln_gemm`` launches one (prologue, epilogue, layout) triple of
 ``csrc/ln_gemm.cuh`` through ``csrc/gemm.cu``, ``gemm_at`` one weight-
 gradient product of ``csrc/gemm_at.cuh``.  They are the products that the
-training rows #6, #7, #8, #19 and #20 (and the forward halves #1, #2, #4,
-#5 through the QKV triple) launch inside their own C calls, on the wgmma
+half-blocks (#1-#5, #9, #10 with a bf16 out-projection) and the training
+rows #6, #7, #8, #19 and #20 launch inside their own C calls, on the wgmma
 engine of ``csrc/wgmma_gemm.cuh``; no model calls these wrappers.  The card
 tests hold each against its plain version, and ``chip_smoke.py`` times
 each beside one cuBLAS call at its shape.
@@ -17,11 +17,19 @@ The triples, as ``(pro, epi, trans_b)``:
   W_eff^T, g . w2^T, dpre . w1^T);
 * ``DACT_F32`` (PRO_LN, EPI_DACT_F32, False): y = bf16(rawLN(a)) @ w +
   bias in fp32 -> (dpre = bf16(dy * quick_gelu'(y)), yact =
-  bf16(quick_gelu(y)), the column sums of the fp32 dpre per 128-row tile).
+  bf16(quick_gelu(y)), the column sums of the fp32 dpre per 128-row tile);
+* ``QUICK_GELU`` (PRO_LN, EPI_QUICK_GELU, False): y = bf16(rawLN(a)) @ w
+  + bias in fp32 -> bf16(quick_gelu(y)) (the MLP in);
+* ``GELU_STASH`` (PRO_LN, EPI_GELU_STASH, False): the same -> (bf16(
+  quick_gelu(y)), bf16(y)), the activation of the unrounded y (the MLP in
+  of the training forward, with its pre-activation stash);
+* ``RESIDUAL`` (PRO_NONE, EPI_RESIDUAL, False): bf16(a @ w + bias + res)
+  with res [M, N] bf16 (the out-projections and the MLP out).
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches the kernel or raises (bf16 operands, N and K multiples of 64;
-gemm_at: P and N multiples of 64, any row count).
+gemm_at: P and N multiples of 64, any row count).  Every triple here runs
+on the engine.
 """
 
 from __future__ import annotations
@@ -29,19 +37,24 @@ from __future__ import annotations
 import torch
 
 from uml_tpu_torch.ops import _build
-from uml_tpu_torch.ops.ln_matmul import act_and_grad, ln_rows_plain
+from uml_tpu_torch.ops.ln_matmul import (act_and_grad, ln_rows_plain,
+                                         quick_gelu_f32)
 
 PRO_NONE, PRO_LN = 0, 1
-EPI_NONE, EPI_F32, EPI_DACT_F32 = 0, 4, 6
+EPI_NONE, EPI_QUICK_GELU, EPI_RESIDUAL, EPI_GELU_STASH = 0, 1, 2, 3
+EPI_F32, EPI_DACT_F32 = 4, 6
 TRIPLES = {"QKV": (PRO_LN, EPI_NONE, False),
            "TRANS_B": (PRO_NONE, EPI_NONE, True),
            "TRANS_B_F32": (PRO_NONE, EPI_F32, True),
-           "DACT_F32": (PRO_LN, EPI_DACT_F32, False)}
+           "DACT_F32": (PRO_LN, EPI_DACT_F32, False),
+           "QUICK_GELU": (PRO_LN, EPI_QUICK_GELU, False),
+           "GELU_STASH": (PRO_LN, EPI_GELU_STASH, False),
+           "RESIDUAL": (PRO_NONE, EPI_RESIDUAL, False)}
 ROW_TILE = 128  # rows of the engine's tile: one column-sum partial each
 MAX_SPLITS = 8  # gemm_at's row chunks at most (GAT_MAX_SPLITS, gemm_at.cuh)
 
 
-def ln_gemm_plain(a, w, bias=None, dy=None, *, triple: str, eps: float = 1e-5):
+def ln_gemm_plain(a, w, bias=None, res=None, *, triple: str, eps: float = 1e-5):
     """Plain version of ``ln_gemm``: fp32 products of the bf16 operands,
     one rounding at the end, as the kernel computes them."""
     pro, epi, trans_b = TRIPLES[triple]
@@ -53,8 +66,13 @@ def ln_gemm_plain(a, w, bias=None, dy=None, *, triple: str, eps: float = 1e-5):
         return y.to(torch.bfloat16)
     if epi == EPI_F32:
         return y
+    if epi == EPI_RESIDUAL:
+        return (y + res.float()).to(torch.bfloat16)
+    if epi in (EPI_QUICK_GELU, EPI_GELU_STASH):
+        out = quick_gelu_f32(y).to(torch.bfloat16)
+        return out if epi == EPI_QUICK_GELU else (out, y.to(torch.bfloat16))
     act, dact = act_and_grad(y)
-    d = dy.float() * dact
+    d = res.float() * dact
     rows = d.shape[0]
     pad = -rows % ROW_TILE
     part = torch.cat([d, d.new_zeros(pad, d.shape[1])]).view(
@@ -62,12 +80,13 @@ def ln_gemm_plain(a, w, bias=None, dy=None, *, triple: str, eps: float = 1e-5):
     return d.to(torch.bfloat16), act.to(torch.bfloat16), part
 
 
-def ln_gemm(a, w, bias=None, dy=None, *, triple: str, eps: float = 1e-5):
+def ln_gemm(a, w, bias=None, res=None, *, triple: str, eps: float = 1e-5):
     """a [M, K] bf16; w [K, N] (or [N, K] for the TRANS_B triples) bf16;
-    bias [N] fp32 or None; dy [M, N] fp32 (DACT_F32) -> the triple's
-    outputs (see the module docstring)."""
+    bias [N] fp32 or None; res: dy [M, N] fp32 (DACT_F32) or the residual
+    [M, N] bf16 (RESIDUAL) -> the triple's outputs (see the module
+    docstring)."""
     if a.device.type == "cpu":
-        return ln_gemm_plain(a, w, bias, dy, triple=triple, eps=eps)
+        return ln_gemm_plain(a, w, bias, res, triple=triple, eps=eps)
     pro, epi, trans_b = TRIPLES[triple]
     m, k = a.shape
     n = w.shape[0] if trans_b else w.shape[1]
@@ -78,25 +97,30 @@ def ln_gemm(a, w, bias=None, dy=None, *, triple: str, eps: float = 1e-5):
     if bias is not None:
         _build.check_tensor("bias", bias, f32, (n,), dev)
     if epi == EPI_DACT_F32:
-        _build.check_tensor("dy", dy, f32, (m, n), dev)
+        _build.check_tensor("dy", res, f32, (m, n), dev)
+    if epi == EPI_RESIDUAL:
+        _build.check_tensor("res", res, bf16, (m, n), dev)
     with torch.cuda.device(dev):
         out = torch.empty((m, n), dtype=f32 if epi == EPI_F32 else bf16,
                           device=dev)
         xn = torch.empty_like(a) if pro == PRO_LN else None
         aux = part = None
-        if epi == EPI_DACT_F32:
+        if epi in (EPI_DACT_F32, EPI_GELU_STASH):
             aux = torch.empty((m, n), dtype=bf16, device=dev)
+        if epi == EPI_DACT_F32:
             part = torch.empty((-(-m // ROW_TILE), n), dtype=f32, device=dev)
 
         def ptr(t):
             return None if t is None else t.data_ptr()
 
         _build.launch("uml_ln_gemm", a.data_ptr(), w.data_ptr(), ptr(bias),
-                      ptr(dy), out.data_ptr(), ptr(aux), ptr(part), ptr(xn),
+                      ptr(res), out.data_ptr(), ptr(aux), ptr(part), ptr(xn),
                       m, n, k, n, pro, epi, int(trans_b), eps,
                       torch.cuda.current_stream(dev).cuda_stream)
     ln_gemm.launches += 1
-    return (out, aux, part) if epi == EPI_DACT_F32 else out
+    if epi == EPI_DACT_F32:
+        return out, aux, part
+    return (out, aux) if epi == EPI_GELU_STASH else out
 
 
 ln_gemm.launches = 0

@@ -8,7 +8,8 @@ The port of uml_tpu/ops/ln_matmul.py::_mlp_block_kernel (its jnp twin is
 ``_mlp_bwd_dw_kernel``.  The ops take the post-fold weights (the LN
 scale/bias folded into w1/b1 by fold_ln_into_matmul): on a CPU tensor
 they run the plain PyTorch versions below, on a CUDA tensor they launch
-``csrc/mlp_block.cu`` (two ln_gemm launches) or ``csrc/mlp_block_bwd.cu``
+``csrc/mlp_block.cu`` (the LN row pre-pass and two products on the wgmma
+engine) or ``csrc/mlp_block_bwd.cu``
 or raise, and count the launch.
 
 * ``mlp_block``: the inference forward.
@@ -137,12 +138,13 @@ def mlp_block(x, w1, b1, w2, b2, *, eps: float = 1e-5):
         return mlp_block_plain(x, w1, b1, w2, b2, eps=eps)
     rows, k, m, bf16, dev = _check_mlp(x, w1, b1, w2, b2)
     with torch.cuda.device(dev):
+        xn = torch.empty_like(x)
         hidden = torch.empty((rows, m), dtype=bf16, device=dev)
         out = torch.empty_like(x)
         _build.launch("uml_mlp_block", x.data_ptr(), w1.data_ptr(),
                       b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-                      hidden.data_ptr(), out.data_ptr(), rows, k, m, eps,
-                      torch.cuda.current_stream(dev).cuda_stream)
+                      xn.data_ptr(), hidden.data_ptr(), out.data_ptr(), rows,
+                      k, m, eps, torch.cuda.current_stream(dev).cuda_stream)
     mlp_block.launches += 1
     return out
 
@@ -191,12 +193,14 @@ def mlp_block_stash(x, w1, b1, w2, b2, *, eps: float = 1e-5):
     rows, k, m, bf16, dev = _check_mlp(x, w1, b1, w2, b2)
     with torch.cuda.device(dev):
         pre = torch.empty((*x.shape[:-1], m), dtype=bf16, device=dev)
+        xn = torch.empty_like(x)
         hidden = torch.empty((rows, m), dtype=bf16, device=dev)
         out = torch.empty_like(x)
         _build.launch("uml_mlp_block_stash", x.data_ptr(), w1.data_ptr(),
                       b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-                      pre.data_ptr(), hidden.data_ptr(), out.data_ptr(), rows,
-                      k, m, eps, torch.cuda.current_stream(dev).cuda_stream)
+                      pre.data_ptr(), xn.data_ptr(), hidden.data_ptr(),
+                      out.data_ptr(), rows, k, m, eps,
+                      torch.cuda.current_stream(dev).cuda_stream)
     mlp_block_stash.launches += 1
     return out, pre
 
