@@ -24,7 +24,10 @@ Phases (any failure exits non-zero; no phase is caught):
    product that the half-blocks (the MLP in with and without its stash,
    the MLP out and the out-projections with the residual) and rows 6, 7,
    8, 19 and 20 launch on the wgmma engine, and gemm_at, on its own
-   through ops/gemm.py; the attention backward's dq and dkv passes on
+   through ops/gemm.py; the int8 products of rows 10-12 (QKV, c_fc,
+   c_proj) on the engine's wgmma s8 instantiation, through
+   ops/gemm.py::q8_gemm, equal to their plain versions bit for bit; the
+   attention backward's dq and dkv passes on
    their own through ops/fused_attention.py::attn_bwd) against its plain PyTorch
    version on the same inputs, within the stated bounds, with its bound
    (the least time the card could take) and a cuBLAS GEMM yardstick at its
@@ -39,7 +42,8 @@ Phases (any failure exits non-zero; no phase is caught):
    end-to-end rates below are host-inclusive on purpose (``_time_ms``).
    The int8 halves
    also compare their activation integers with the plain version's: no
-   integer may differ by more than one step.
+   integer may differ by more than one step.  A profile of one row-19
+   call must show the engine and no wmma ln_gemm_kernel.
 3. main path: the PIL decode rate of data/loader.py on the fixture's
    JPEGs (one worker and one per core), then generate_fewshot and
    features on a synthetic caltech-layout
@@ -53,7 +57,11 @@ Phases (any failure exits non-zero; no phase is caught):
    and 12 mlp_block_q8, no text_tower); then one encode under
    UML_TOWER_Q8=1 launches tower_q8 once and equals the per-layer int8
    output; the int8-vs-bf16 feature cosine (recorded) and the img/s of
-   the bf16, int8 and int8-tower image encoders in the same run.
+   the bf16, int8 and int8-tower image encoders in the same run; a
+   profile of one int8 batch must show the int8 products on the wgmma
+   engine and no wmma s8 kernel, and every int8 weight the layers hand
+   the ops must be a view of the model's K-major cache, which the
+   wrappers read in place (no per-batch transpose).
 3c. non-fused path: build_clip("ViT-B/16", bf16, attn_impl=...) with the
    phase-3 model's weights; one batch of 64 images through
    encode_image_u8 under attn_impl="reference" (12 ln_matmul and 12
@@ -94,8 +102,9 @@ Phases (any failure exits non-zero; no phase is caught):
    ViT-L/14 at full width (S = 257), cut to 4 image layers, against the
    CPU, in the default mode and with both stashes off under
    UML_MLP_BWD=dw.
-5. the products of the engine and the attention backward's passes as
-   one JSON line, the kernel table as one JSON line, the device line last.
+5. the products of the engine (bf16 beside torch.matmul, int8 beside
+   torch._int_mm) and the attention backward's passes as one JSON line,
+   the kernel table as one JSON line, the device line last.
 
 The script needs nothing of JAX.  Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -221,9 +230,13 @@ REL_BOUND = {"attn_block": 1 / 64, "attn_block_cls": 1 / 64,
              "gemm_qkv": 1 / 64, "gemm_g_wo_t": 1 / 64,
              "gemm_dqkv_weff_t": 1e-3, "gemm_g_w2_t": 1e-3,
              "gemm_dpre_w1_t": 1e-3, "gemm_dact": (1 / 64, 1 / 64, 1e-3),
+             "gemm_dact_bf16": (1 / 64, 1 / 64),
              "gemm_at_xn_dpre": 1e-3, "gemm_at_yact_g": 1e-3,
              "gemm_mlp_in": (1 / 64, 1 / 64), "gemm_mlp_out": 1 / 64,
              "gemm_out_proj": 1 / 64,
+             # the int8 products: the integer sum is exact on both sides
+             # and the epilogue rounds step by step alike: bit for bit
+             "q8_gemm_qkv": 0.0, "q8_gemm_fc": 0.0, "q8_gemm_proj": 0.0,
              # the attention backward's passes on their own: dq, dk, dv
              # 1/64 like the half-blocks; the fp32 statistics (m, 1/l, D)
              # differ in summation order only
@@ -231,8 +244,9 @@ REL_BOUND = {"attn_block": 1 / 64, "attn_block_cls": 1 / 64,
 # the products of the wgmma engine and the attention backward's two
 # passes, timed on their own (phase 2)
 PRODUCTS = ("gemm_qkv", "gemm_g_wo_t", "gemm_dqkv_weff_t", "gemm_g_w2_t",
-            "gemm_dpre_w1_t", "gemm_dact", "gemm_at_xn_dpre", "gemm_at_yact_g",
-            "gemm_mlp_in", "gemm_mlp_out", "gemm_out_proj", "attn_bwd_dq",
+            "gemm_dpre_w1_t", "gemm_dact", "gemm_dact_bf16", "gemm_at_xn_dpre",
+            "gemm_at_yact_g", "gemm_mlp_in", "gemm_mlp_out", "gemm_out_proj",
+            "q8_gemm_qkv", "q8_gemm_fc", "q8_gemm_proj", "attn_bwd_dq",
             "attn_bwd_dkv")
 # dense peaks of an H100 SXM at 700 W (NVIDIA's data sheet): the bound of a
 # kernel is max(bytes / PEAK_BYTES, int8 ops / PEAK_INT8 + bf16 FLOPs /
@@ -450,8 +464,10 @@ def _yardstick(m, k, n, int8, dev):
 
 
 def _q8_case_weights(gen, k, m, hd, dev, layers=None):
-    """int8 weights as the model quantizes them: quantize_weight of random
-    fp32 weights; fp32 biases.  Stacked on a layer axis when ``layers``."""
+    """int8 weights as the model quantizes and hands them to the ops:
+    quantize_weight of random fp32 weights, stored K-major ([out, in], as
+    models/clip.py caches them) and passed as [in, out] views; fp32
+    biases.  Stacked on a layer axis when ``layers``."""
     import torch
 
     from uml_tpu_torch.ops.quant import quantize_weight
@@ -460,14 +476,18 @@ def _q8_case_weights(gen, k, m, hd, dev, layers=None):
         out = []
         for shape in ((k, 3 * hd), (hd, k), (k, m), (m, k)):
             w = torch.randn(*shape, generator=gen, device=dev) * shape[0] ** -0.5
-            out += [*quantize_weight(w),
+            wq, wsc = quantize_weight(w)
+            out += [wq.t().contiguous(), wsc,
                     torch.randn(shape[1], generator=gen, device=dev) * 0.02]
         return tuple(out)   # wq, wsc, b_eff, woq, wosc, bo, w1q, ..., b2
 
     if layers is None:
-        return one()
-    per_layer = [one() for _ in range(layers)]
-    return tuple(torch.stack(t) for t in zip(*per_layer))
+        weights = one()
+    else:
+        per_layer = [one() for _ in range(layers)]
+        weights = tuple(torch.stack(t) for t in zip(*per_layer))
+    return tuple(t.transpose(-2, -1) if t.dtype == torch.int8 else t
+                 for t in weights)
 
 
 def _attention_fp32(qkv, heads):
@@ -506,11 +526,13 @@ def _int8_flips(xv, q8v, eps=1e-5):
     attn = attn.transpose(1, 2).reshape(b * s, -1)
     want_attn = q8.quantize_rows(attn.float())[0]
     exact_attn = q8.quantize_rows(_attention_fp32(qkv, 12))[0]
-    got_attn = q8._launch_attn_block_q8(xv, wq, wsc, b_eff, (woq, wosc), bo,
-                                        12, False, True, eps)[1]
+    # the launchers take the K-major weights themselves
+    got_attn = q8._launch_attn_block_q8(xv, wq.t(), wsc, b_eff, (woq.t(), wosc),
+                                        bo, 12, False, True, eps)[1]
     pre = q8.q8_dot(xq, xs, w1q, w1sc) + b1
     want_act = q8.act_quantize_rows(pre.reshape(b * s, -1), "quick_gelu")[0]
-    got_act = q8._launch_mlp_block_q8(xv, w1q, w1sc, b1, w2q, w2sc, b2, eps)[1]
+    got_act = q8._launch_mlp_block_q8(xv, w1q.t(), w1sc, b1, w2q.t(), w2sc, b2,
+                                      eps)[1]
     flips = {}
     for name, got, want in (("attn_out", got_attn, want_attn),
                             ("mlp_hidden", got_act, want_act),
@@ -824,7 +846,20 @@ def phase_kernels():
     wit = _attention_witness(xv, attn_v)
     print(f"[kernels] bf16 attention vs the fp32 witness, max |err| / max: "
           f"card {wit['card']:.6f}, attention_plain {wit['plain']:.6f}")
+    # row 19 runs both products on the engine: no wmma ln_gemm launch
+    names = _kernel_names(_profile("row 19 mlp_bwd",
+                                   lambda: lm.mlp_bwd(xv, dy_v, *mlp_bwd_v)))
+    _check(not any("ln_gemm_kernel" in n for n in names)
+           and sum("wgmma_gemm_kernel" in n for n in names) == 2,
+           ("row 19: the two products on the engine, no wmma", names))
     return results
+
+
+def _kernel_names(rows):
+    """The kernel names of a ``_profile`` result (the port's kernels all
+    appear there; PyTorch's lambda kernels, whose names carry a '#', do
+    not)."""
+    return [key for key, _, _ in rows]
 
 
 def _long_seq_cases(gen, dev, attn_v):
@@ -887,7 +922,10 @@ def _product_cases(gen, dev, xv, g_v, wv, qkv_v):
     recompute (with its LN pre-pass, the fp32 dy read and two outputs
     written), both gemm_at, the MLP in with its pre-activation stash (with
     its LN pre-pass, two outputs written), the MLP out and the
-    out-projection with the residual; then the attention backward's dq
+    out-projection with the residual, row 19's recompute with a bf16 dy;
+    the int8 products (QKV with the bf16 epilogue, c_fc with the fp32 one,
+    c_proj with the residual) on random integers with torch._int_mm at
+    their shape as the yardstick; then the attention backward's dq
     pass and dkv pass (ops/fused_attention.py::attn_bwd) on the plain
     stash's qkv, the dkv pass from the plain dq pass's statistics."""
     import torch
@@ -902,6 +940,7 @@ def _product_cases(gen, dev, xv, g_v, wv, qkv_v):
     dqkv = torch.randn(rows, 3 * k, generator=gen, device=dev).to(bf)
     dpre = torch.randn(rows, m, generator=gen, device=dev).to(bf)
     dy = torch.randn(rows, m, generator=gen, device=dev)
+    dy16 = torch.randn(rows, m, generator=gen, device=dev).to(bf)
     hidden = torch.randn(rows, m, generator=gen, device=dev).to(bf)
     attn = torch.randn(rows, k, generator=gen, device=dev).to(bf)
     dattn = torch.matmul(g_v, wv["wo"].t())
@@ -915,6 +954,24 @@ def _product_cases(gen, dev, xv, g_v, wv, qkv_v):
     def triple(name):
         return (lambda *a: gm.ln_gemm(*a, triple=name),
                 lambda *a: gm.ln_gemm_plain(*a, triple=name))
+
+    def q8_product(n_in, n_out, epi):
+        # row-quantized activations, a K-major weight, scales, bias (and
+        # the residual): the operands of one int8 product of rows 10-12
+        def ints(*shape):
+            return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                                 dtype=torch.int8)
+
+        def scales(n):
+            return torch.rand(n, generator=gen, device=dev) * 0.02 + 1e-3
+
+        ops = (ints(rows, n_in), ints(n_out, n_in), scales(rows), scales(n_out),
+               0.02 * torch.randn(n_out, generator=gen, device=dev))
+        if epi == "RESIDUAL":
+            ops += (torch.randn(rows, n_out, generator=gen, device=dev).to(bf),)
+        return (lambda *a: gm.q8_gemm(*a, epi=epi),
+                lambda *a: gm.q8_gemm_plain(*a, epi=epi), ops, 2.0 * rows * n_in * n_out,
+                0, (rows, n_in, n_out, True))
 
     qkv_f, out_f, fc_f = 2.0 * rows * k * 3 * k, 2.0 * rows * k * k, 2.0 * rows * k * m
     return [
@@ -940,6 +997,11 @@ def _product_cases(gen, dev, xv, g_v, wv, qkv_v):
          fc_f, (rows, m, k, False)),
         ("gemm_out_proj", *triple("RESIDUAL"), (attn, wv["wo"], wv["bo"], x2d), 0,
          out_f, (rows, k, k, False)),
+        ("gemm_dact_bf16", *triple("DACT"), (x2d, wv["w1"], wv["b1"], dy16), 0, fc_f,
+         (rows, k, m, False)),
+        ("q8_gemm_qkv", *q8_product(k, 3 * k, "BF16")),
+        ("q8_gemm_fc", *q8_product(k, m, "F32")),
+        ("q8_gemm_proj", *q8_product(m, k, "RESIDUAL")),
         # the least work of each pass: S, dP and dS . K (dq), S^T, dP^T,
         # P^T . dO and dS^T . Q (dkv), 2 S^2 D FLOPs each a head; the dq
         # pass walks the keys twice (S and dP again), which is not counted
@@ -1248,7 +1310,27 @@ def phase_int8_path(root, sizes, bf16_encoder):
         numbers[f"encoder_img_per_s_bs64_{key}"] = r
         print(f"[int8] image encoder {key}: {ms:.3f} ms per batch of {batch} "
               f"= {r:.1f} img/s")
-    _profile("int8 image encoder", lambda: encoder.encode_staged(staged, n))
+    names = _kernel_names(_profile("int8 image encoder",
+                                   lambda: encoder.encode_staged(staged, n)))
+    # the int8 products on the engine (wgmma s8), none on the old wmma kernel
+    _check(not any("q8_gemm_kernel" in k for k in names)
+           and any("wgmma_gemm_kernel" in k for k in names),
+           ("int8 encoder kernels", names))
+    # no per-batch weight transpose: every int8 weight a layer hands the
+    # ops is a view of its K-major cache, so the wrappers' w.t().contiguous()
+    # is that cache itself, read in place
+    from uml_tpu_torch.models.clip import _in_out
+
+    model = encoder.model
+    blocks = [*model.visual.transformer.resblocks[:-1], *model.transformer.resblocks]
+    with torch.no_grad():
+        views = [w for b in blocks for w in _in_out(b.quantized(model.dtype))
+                 if w.dtype == torch.int8]
+    _check(len(views) == 4 * len(blocks)
+           and all(w.t().contiguous().data_ptr() == w.data_ptr() for w in views),
+           "an int8 weight would be transposed per batch")
+    print(f"[int8] {len(views)} int8 weights of {len(blocks)} layers read in place "
+          f"(K-major caches, no per-batch transpose)")
     return launches, numbers
 
 

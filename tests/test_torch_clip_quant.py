@@ -144,3 +144,59 @@ def test_quantized_weights_follow_load_state_dict(setup):
         model.load_state_dict(sd)
         after = model.encode_image_u8(u8)
     assert not torch.allclose(before, after)
+
+
+def _k_major_want(block, dtype):
+    """quantize_weight(w)[0].t() of each int8 weight the layer quantizes:
+    the LN-folded fp32 QKV and c_fc weights, out_proj and c_proj cast to
+    the compute dtype, all in the [in, out] layout."""
+    from uml_tpu_torch.ops.fused_attention import fold_ln_into_matmul
+    from uml_tpu_torch.ops.quant import quantize_weight
+
+    w_eff, _ = fold_ln_into_matmul(block.ln_1.weight, block.ln_1.bias,
+                                   block.attn.in_proj_weight.t(),
+                                   block.attn.in_proj_bias)
+    w1_eff, _ = fold_ln_into_matmul(block.ln_2.weight, block.ln_2.bias,
+                                    block.mlp.c_fc.weight.t(), block.mlp.c_fc.bias)
+    return [quantize_weight(w)[0].t() for w in
+            (w_eff, block.attn.out_proj.weight.to(dtype).t(), w1_eff,
+             block.mlp.c_proj.weight.to(dtype).t())]
+
+
+INT8_SLOTS = (0, 3, 6, 9)   # wq, woq, w1q, w2q in quantized()'s tuple
+
+
+@pytest.mark.parametrize("tower", ["visual", "text"])
+def test_cached_int8_weights_are_k_major(setup, tower):
+    """The per-layer cache holds each int8 weight once, K-major ([out, in]
+    contiguous, what the card's int8 GEMM reads), equal bit for bit to the
+    transpose of quantize_weight's [in, out] integers; the forward hands
+    the ops [in, out] views of it."""
+    v, _, _ = setup
+    model = _port(v, "int8")
+    blocks = (model.visual.transformer if tower == "visual"
+              else model.transformer).resblocks
+    with torch.no_grad():
+        for block in blocks:
+            cached = block.quantized(torch.bfloat16)
+            want = _k_major_want(block, torch.bfloat16)
+            for slot, w in zip(INT8_SLOTS, want):
+                got = cached[slot]
+                assert got.dtype == torch.int8 and got.is_contiguous()
+                assert torch.equal(got, w), slot
+            assert block.quantized(torch.bfloat16)[0] is cached[0]   # cached
+
+
+def test_stacked_int8_weights_are_k_major(setup):
+    """tower_q8's stacked operands: each int8 weight [L, out, in]
+    contiguous, layer l equal to the per-layer cache's bit for bit."""
+    v, _, _ = setup
+    model = _port(v, "int8")
+    tower = model.visual.transformer
+    with torch.no_grad():
+        stacked = tower.stacked_q8(torch.bfloat16, len(tower.resblocks))
+        for slot in INT8_SLOTS:
+            assert stacked[slot].is_contiguous()
+            for l, block in enumerate(tower.resblocks):
+                want = _k_major_want(block, torch.bfloat16)[INT8_SLOTS.index(slot)]
+                assert torch.equal(stacked[slot][l], want), (slot, l)

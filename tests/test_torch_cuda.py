@@ -7,7 +7,9 @@ on their own; the streaming attention at S from 1 to 2048, head dims 64 and 128,
 also on strided views of a packed qkv; layer_norm at row counts up to
 40,000; each product triple of the wgmma engine and gemm_at at ragged
 row counts and both towers' widths, against an fp32 product of the same
-bf16 operands, gemm_at at every row-chunk count).  Marked ``cuda``: they skip without an NVIDIA GPU (sm_90a) and
+bf16 operands, gemm_at at every row-chunk count; the int8 GEMM at ragged
+row counts and every int8 width, equal to torch._int_mm's integer sum and
+to its plain version bit for bit).  Marked ``cuda``: they skip without an NVIDIA GPU (sm_90a) and
 run on the card with ``python -m pytest tests/test_torch_cuda.py -q``.
 
 Bound: max |kernel - plain| <= 2^-6 * max|plain| (two bf16 ulps of the
@@ -152,7 +154,8 @@ def test_attn_block_q8_integers_within_one_step(dev, s, causal):
     so no integer moves by more than one step."""
     x, w = _x(dev, s), _q8_weights(dev)
     wq, wsc, b_eff, woq, wosc, bo = w[:6]
-    ints = q8._launch_attn_block_q8(x, wq, wsc, b_eff, (woq, wosc), bo, HEADS,
+    ints = q8._launch_attn_block_q8(x, wq.t().contiguous(), wsc, b_eff,
+                                    (woq.t().contiguous(), wosc), bo, HEADS,
                                     causal, True, 1e-5)[1]
     xq, xs = q8.ln_quantize_rows(x.float(), 1e-5)
     qkv = (q8.q8_dot(xq, xs, wq, wsc) + b_eff).to(torch.bfloat16)
@@ -191,6 +194,8 @@ def test_tower_q8_kernel(dev, s):
 
 
 def test_q8_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    from uml_tpu_torch.ops import gemm
+
     x, w = _x(dev, 17), _q8_weights(dev)
     with pytest.raises(TypeError):
         q8.attn_block_q8(x, w[0].float(), *w[1:3], w[3:5], w[5], heads=HEADS)
@@ -198,6 +203,41 @@ def test_q8_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         q8.mlp_block_q8(x, *w[6:], activation="gelu_exact")
     with pytest.raises(RuntimeError, match="inference-only"):
         q8.mlp_block_q8(x.float().requires_grad_(), *w[6:])
+    # the launchers and q8_gemm read the int8 weights K-major: an [in,
+    # out] weight where [out, in] is needed raises
+    w1q, w1sc, b1, w2q, w2sc, b2 = w[6:]
+    with pytest.raises(ValueError):
+        q8._launch_mlp_block_q8(x, w1q, w1sc, b1, w2q.t().contiguous(), w2sc, b2,
+                                1e-5)
+    with pytest.raises(ValueError):
+        q8._launch_attn_block_q8(x, w[0], *w[1:3], (w[3].t().contiguous(), w[4]),
+                                 w[5], HEADS, False, True, 1e-5)
+    a = torch.zeros((17, K), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError):
+        gemm.q8_gemm(a, w1q, torch.ones(17, device=dev), w1sc, b1, epi="F32")
+
+
+@pytest.mark.parametrize("s", [9, 197])
+def test_q8_wrappers_read_a_k_major_view_in_place(dev, s):
+    """A [in, out] view of a K-major weight (what the model passes) and a
+    row-major [in, out] weight (transposed for the call) give the same
+    bits, through the halves and the tower."""
+    x, w = _x(dev, s), _q8_weights(dev)
+
+    def view(t):
+        return t.t().contiguous().t() if t.dtype == torch.int8 else t
+
+    assert torch.equal(q8.mlp_block_q8(x, *w[6:]),
+                       q8.mlp_block_q8(x, *(view(t) for t in w[6:])))
+    assert torch.equal(
+        q8.attn_block_q8(x, *w[:3], w[3:5], w[5], heads=HEADS),
+        q8.attn_block_q8(x, view(w[0]), *w[1:3], (view(w[3]), w[4]), w[5],
+                         heads=HEADS))
+    ws = _q8_weights(dev, layers=2)
+    stacked = tuple(t.transpose(1, 2).contiguous().transpose(1, 2)
+                    if t.dtype == torch.int8 else t for t in ws)
+    assert torch.equal(tq8.tower_q8(x, *ws, heads=HEADS),
+                       tq8.tower_q8(x, *stacked, heads=HEADS))
 
 
 @pytest.mark.parametrize("quant", ["int8", "int8_mlp", "int8_attn", "int8_qkv"])
@@ -649,13 +689,13 @@ def _triple_operands(dev, triple, rows, k):
     K] . W_eff [K, 3K]; TRANS_B g . wo^T; TRANS_B_F32 dqkv [rows, 3K] .
     W_eff^T; DACT_F32 x . w1 [K, 4K] with an fp32 dy; QUICK_GELU and
     GELU_STASH x . w1 (the MLP in); RESIDUAL hidden [rows, 4K] . w2 [4K,
-    K] + x (the MLP out)."""
+    K] + x (the MLP out); DACT x . w1 with a bf16 dy (row 19)."""
     g = torch.Generator().manual_seed(rows + k)
 
     def rnd(*shape, std=1.0, dtype=torch.bfloat16):
         return (torch.randn(*shape, generator=g) * std).to(dtype).to(dev)
 
-    wide = triple in ("DACT_F32", "QUICK_GELU", "GELU_STASH")
+    wide = triple in ("DACT", "DACT_F32", "QUICK_GELU", "GELU_STASH")
     bias = rnd(4 * k if wide else 3 * k, std=0.1, dtype=torch.float32)
     if triple == "QKV":
         return rnd(rows, k), rnd(k, 3 * k, std=k ** -0.5), bias, None
@@ -669,12 +709,13 @@ def _triple_operands(dev, triple, rows, k):
     if triple == "TRANS_B_F32":
         return rnd(rows, 3 * k), rnd(k, 3 * k, std=k ** -0.5), None, None
     return (rnd(rows, k), rnd(k, 4 * k, std=k ** -0.5), bias,
-            rnd(rows, 4 * k, dtype=torch.float32))
+            rnd(rows, 4 * k, dtype=torch.float32 if triple == "DACT_F32"
+                else torch.bfloat16))
 
 
 @pytest.mark.parametrize("k", [768, 512])
 @pytest.mark.parametrize("rows", GEMM_ROWS)
-@pytest.mark.parametrize("triple", ["QKV", "TRANS_B", "TRANS_B_F32", "DACT_F32",
+@pytest.mark.parametrize("triple", ["QKV", "TRANS_B", "TRANS_B_F32", "DACT", "DACT_F32",
                                     "QUICK_GELU", "GELU_STASH", "RESIDUAL"])
 def test_engine_triple_kernel(dev, triple, rows, k):
     from uml_tpu_torch.ops import gemm
@@ -735,3 +776,54 @@ def test_engine_refuses_what_it_does_not_take(dev):
         gemm.ln_gemm(a.float(), _g(dev, (128, 128)).float(), triple="TRANS_B")
     with pytest.raises(ValueError):     # P not a multiple of 64
         gemm.gemm_at(_g(dev, (17, 96)), a)
+
+
+# the int8 GEMM (ops/gemm.py::q8_gemm, wgmma s8 + TMA) at ragged row counts
+# and (K, N) of every int8 product: ViT-B/16 QKV, out-projection, c_fc,
+# c_proj, and the text tower's
+Q8_ROWS = [17, 77 * 4, 12608]
+Q8_WIDTHS = [(768, 2304), (768, 768), (768, 3072), (3072, 768),
+             (512, 1536), (512, 512), (512, 2048), (2048, 512)]
+
+
+def _q8_operands(dev, rows, k, n, seed):
+    g = torch.Generator().manual_seed(seed)
+    a = torch.randint(-127, 128, (rows, k), generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8)
+    rs = torch.rand(rows, generator=g) * 0.02 + 1e-3
+    cs = torch.rand(n, generator=g) * 0.02 + 1e-3
+    bias = torch.randn(n, generator=g) * 0.1
+    res = torch.randn(rows, n, generator=g).to(torch.bfloat16)
+    return tuple(t.to(dev) for t in (a, w, rs, cs, bias, res))
+
+
+@pytest.mark.parametrize("kn", Q8_WIDTHS)
+@pytest.mark.parametrize("rows", Q8_ROWS)
+def test_q8_gemm_equals_int_mm(dev, rows, kn):
+    """Unit scales and a zero bias (Q8_EPI_F32): the output is the exact
+    integer sum as fp32, torch._int_mm's bit for bit."""
+    from uml_tpu_torch.ops import gemm
+
+    k, n = kn
+    a, w, *_ = _q8_operands(dev, rows, k, n, rows + k + n)
+    n0 = gemm.q8_gemm.launches
+    got = gemm.q8_gemm(a, w, torch.ones(rows, device=dev), torch.ones(n, device=dev),
+                       torch.zeros(n, device=dev), epi="F32")
+    assert gemm.q8_gemm.launches == n0 + 1
+    want = torch._int_mm(a, w.t().contiguous()).float()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kn", [(768, 3072), (3072, 768), (512, 1536)])
+@pytest.mark.parametrize("rows", Q8_ROWS)
+@pytest.mark.parametrize("epi", ["BF16", "F32", "RESIDUAL"])
+def test_q8_gemm_epilogues_bit_for_bit(dev, epi, rows, kn):
+    from uml_tpu_torch.ops import gemm
+
+    k, n = kn
+    a, w, rs, cs, bias, res = _q8_operands(dev, rows, k, n, 7 * rows + k)
+    got = gemm.q8_gemm(a, w, rs, cs, bias, res, epi=epi)
+    want = gemm.q8_gemm_plain(a, w, rs, cs, bias, res, epi=epi)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and torch.equal(got, want)

@@ -23,7 +23,16 @@ version; here those are held, at K = 128, 2 heads of 64 and S at the
   atol = rtol = 2e-3), and in both dtypes against the port's
   ``attn_block_bwd_plain`` on the same stash (fp32: 1e-5; bf16: 2^-7 of
   the largest entry, the two evaluate p and D in other orders before one
-  bf16 rounding); the statistics are (m, 1/l, D) of the fp32 softmax.
+  bf16 rounding); the statistics are (m, 1/l, D) of the fp32 softmax;
+* the MLP backward's recompute with a bf16 dy (the DACT triple, row 19's
+  first product), dpre and yact against ``_mlp_bwd_call`` in interpret
+  mode on the same dy (bf16, 2^-6 of the largest entry: the two evaluate
+  the sigmoid and its derivative in other orders before one bf16
+  rounding, the bound tests/test_torch_train_ops.py holds row 19 to);
+* the int8 product on the K-major weight ([N, K], what the card's int8
+  GEMM reads: ``q8_gemm``'s plain version) against ``_q8_dot`` on random
+  int8 operands made with numpy, at both towers' widths: exactly, and
+  each epilogue exactly against the same jnp composition around it.
 """
 
 import jax.numpy as jnp
@@ -33,6 +42,7 @@ import torch
 
 from uml_tpu.ops import fused_attention as jfa
 from uml_tpu.ops import ln_matmul as jlm
+from uml_tpu.ops import quant as jq
 from uml_tpu_torch.ops import fused_attention as tfa
 from uml_tpu_torch.ops import gemm
 from uml_tpu_torch.ops import ln_matmul as tlm
@@ -166,3 +176,59 @@ def test_attn_bwd_statistics_are_the_softmax_of_the_scores(causal):
     want = jnp.stack([sc.max(-1), 1.0 / l, (p / l[..., None] * dp).sum(-1)], -1)
     np.testing.assert_allclose(stats[..., :3].numpy(), np.asarray(want), atol=1e-5,
                                rtol=1e-5)
+
+
+@pytest.mark.parametrize("s", EDGES)
+def test_dact_triple_matches_the_mlp_bwd_kernel(s):
+    """bf16 dy [rows, M] as row 19 takes it -> (dpre, yact)."""
+    jw, tw = _both(_arrays(800 + s, s), "bf16")
+    dy = np.random.default_rng(900 + s).standard_normal((B, s, M)).astype(np.float32)
+    jdy, tdy = jnp.asarray(dy, jnp.bfloat16), torch.tensor(dy).to(torch.bfloat16)
+    x2d = tw["x"].reshape(B * s, K)
+    dpre, yact = gemm.ln_gemm(x2d, tw["w1"], tw["b1"], tdy.reshape(B * s, M),
+                              triple="DACT")
+    assert dpre.dtype == yact.dtype == torch.bfloat16
+    _, _, jdpre, jyact = jlm._mlp_bwd_call(jw["x"], jdy, jw["b1"], jw["w1"], 1e-5,
+                                           "quick_gelu", True)
+    _close(dpre.view(B, s, M), jdpre, "bf16", "dpre", bf16_rel=2.0 ** -6)
+    _close(yact.view(B, s, M), jyact, "bf16", "yact", bf16_rel=2.0 ** -6)
+
+
+# (K, N) of every int8 product: ViT-B/16 QKV, out-projection, c_fc, c_proj;
+# the text tower's
+Q8_WIDTHS = [(768, 2304), (768, 768), (768, 3072), (3072, 768),
+             (512, 1536), (512, 512), (512, 2048), (2048, 512)]
+
+
+@pytest.mark.parametrize("kn", Q8_WIDTHS)
+@pytest.mark.parametrize("epi", ["F32", "BF16", "RESIDUAL"])
+def test_q8_product_on_the_k_major_weight_matches_q8_dot(kn, epi):
+    k, n = kn
+    rows = 17
+    rng = np.random.default_rng(k + n)
+    a = rng.integers(-127, 128, (rows, k), dtype=np.int8)
+    w = rng.integers(-127, 128, (k, n), dtype=np.int8)      # [in, out]
+    rs = rng.uniform(1e-3, 2e-2, rows).astype(np.float32)
+    cs = rng.uniform(1e-3, 2e-2, n).astype(np.float32)
+    bias = (0.1 * rng.standard_normal(n)).astype(np.float32)
+    res = rng.standard_normal((rows, n)).astype(np.float32)
+    w_nk = torch.from_numpy(w).t().contiguous()             # K-major [N, K]
+    got = gemm.q8_gemm(torch.from_numpy(a), w_nk, torch.from_numpy(rs),
+                       torch.from_numpy(cs), torch.from_numpy(bias),
+                       torch.from_numpy(res).to(torch.bfloat16), epi=epi)
+    y = jq._q8_dot(jnp.asarray(a), jnp.asarray(rs)[:, None], jnp.asarray(w),
+                   jnp.asarray(cs))
+    if epi == "F32":
+        # the product itself, with a zero bias: exactly _q8_dot
+        zero = torch.zeros(n)
+        plain = gemm.q8_gemm(torch.from_numpy(a), w_nk, torch.from_numpy(rs),
+                             torch.from_numpy(cs), zero, epi="F32")
+        assert np.array_equal(plain.numpy(), np.asarray(y))
+        want = y + jnp.asarray(bias)
+    elif epi == "BF16":
+        want = (y + jnp.asarray(bias)).astype(jnp.bfloat16)
+    else:
+        want = ((jnp.asarray(res, jnp.bfloat16).astype(jnp.float32) + y)
+                + jnp.asarray(bias)).astype(jnp.bfloat16)
+    assert got.dtype == (torch.float32 if epi == "F32" else torch.bfloat16)
+    assert np.array_equal(got.float().numpy(), np.asarray(want, np.float32))

@@ -9,10 +9,13 @@ interval), beside the PyTorch call that computes the same function:
   causal at the text tower's widths), the forward halves (rows 1, 2, 3,
   5; row 1 causal at the text widths), the 12-layer text tower (row 4),
   the int8 attention half with an int8 and with a bf16 out-projection
-  (row 10, ``int8_qkv``) and the 11-layer int8 tower (row 12);
+  (row 10, ``int8_qkv``), the int8 MLP half (row 11) and the 11-layer
+  int8 tower (row 12);
 * where the checkout has ``ops/gemm.py``: each product triple of the
   wgmma engine and ``gemm_at`` at the shapes the rows launch them, each
-  beside one cuBLAS call (``torch.matmul``) at the same shape;
+  beside one cuBLAS call (``torch.matmul``) at the same shape; where it
+  has ``q8_gemm``, the int8 products (QKV, c_fc, c_proj) beside
+  ``torch._int_mm``;
 * where the checkout has ``attn_bwd``: the attention backward's dq and
   dkv passes on their own;
 * where the checkout's ``gemm_at`` takes ``splits``: each row-chunk
@@ -21,10 +24,11 @@ interval), beside the PyTorch call that computes the same function:
   ``_attention_fp32``: unrounded probabilities): the bf16 output's
   error, and the int8 block's activation integers that differ from the
   witness's and from the plain version's (``_int8_flips``);
-* the device time by kernel of rows 6, 7, 9 and 20 (torch.profiler,
-  printed as ``[profile]`` lines);
-* the bf16 image encoder's img/s at batch 64 (random-init ViT-B/16, a
-  staged batch, host work included as in chip_smoke.py).
+* the device time by kernel of rows 6, 7, 9, 11, 19 and 20
+  (torch.profiler, printed as ``[profile]`` lines);
+* the bf16 and int8 image encoders' img/s at batch 64 (random-init
+  ViT-B/16, a staged batch, host work included as in chip_smoke.py), with
+  a profile of each.
 
 Run it on two checkouts one after the other on the same card to set an
 earlier commit's kernels beside the current ones:
@@ -93,6 +97,10 @@ def _products(gemm, dev, gen):
         ("gemm_at yact^T.g [12608,3072]^T x [12608,768]", gemm.gemm_at,
          (dpre, g), 2.0 * rows * k * m, lambda a, b: mm(a.t(), b)),
     ] + ([
+        ("DACT bf16 dy [12608,768]x[768,3072] (LN pre-pass + engine)",
+         lambda a, w, b, d: gemm.ln_gemm(a, w, b, d, triple="DACT"),
+         (x, w1, b1, dy.to(bf)), 2.0 * rows * k * m, lambda a, w, *_: mm(a, w)),
+    ] if "DACT" in gemm.TRIPLES else []) + ([
         ("GELU_STASH MLP in [12608,768]x[768,3072] (LN pre-pass + engine)",
          triple("GELU_STASH"), (x, w1, b1), 2.0 * rows * k * m,
          lambda a, w, *_: mm(a, w)),
@@ -100,7 +108,33 @@ def _products(gemm, dev, gen):
          (dpre, w2, b1[:k], x), 2.0 * rows * k * m, lambda a, w, *_: mm(a, w)),
         ("RESIDUAL out-projection [12608,768]x[768,768]", triple("RESIDUAL"),
          (g, wo, b1[:k], x), 2.0 * rows * k * k, lambda a, w, *_: mm(a, w)),
-    ] if "RESIDUAL" in gemm.TRIPLES else [])
+    ] if "RESIDUAL" in gemm.TRIPLES else []) + (_q8_products(gemm, dev, gen)
+                                                 if hasattr(gemm, "q8_gemm") else [])
+
+
+def _q8_products(gemm, dev, gen):
+    """The int8 products of rows 10-12 (K-major weights) beside
+    torch._int_mm (a row-major [K, N] weight, as cuBLAS runs it fastest)."""
+    import torch
+
+    rows = 64 * 197
+    out = []
+    for name, k, n, epi in (("QKV", 768, 2304, "BF16"), ("c_fc", 768, 3072, "F32"),
+                            ("c_proj", 3072, 768, "RESIDUAL")):
+        a = torch.randint(-127, 128, (rows, k), generator=gen, device=dev,
+                          dtype=torch.int8)
+        w = torch.randint(-127, 128, (n, k), generator=gen, device=dev,
+                          dtype=torch.int8)
+        rs = torch.rand(rows, generator=gen, device=dev) * 0.02
+        cs = torch.rand(n, generator=gen, device=dev) * 0.02
+        b = torch.randn(n, generator=gen, device=dev) * 0.02
+        ins = (a, w, rs, cs, b) + ((torch.randn(rows, n, generator=gen, device=dev)
+                                    .to(torch.bfloat16),) if epi == "RESIDUAL" else ())
+        w_kn = w.t().contiguous()
+        out.append((f"q8_gemm {name} [{rows},{k}]x[{k},{n}] int8 ({epi})",
+                    lambda *t, e=epi: gemm.q8_gemm(*t, epi=e), ins, 2.0 * rows * k * n,
+                    lambda a_, *_, w_=w_kn: torch._int_mm(a_, w_)))
+    return out
 
 
 def main() -> int:
@@ -164,8 +198,18 @@ def main() -> int:
     layers = [harness._block_weights(gen, 512, 2048, 512, dev) for _ in range(12)]
     tower = tuple(torch.stack([layer[n] for layer in layers])
                   for n in ("w_eff", "b_eff", "wo", "bo", "w1", "b1", "w2", "b2"))
+    try:
+        from uml_tpu_torch.ops import gemm
+    except ImportError:     # a checkout from before the wgmma engine
+        gemm = None
+    # the int8 weights as [in, out] views of K-major tensors (what the
+    # model passes); a checkout from before the int8 engine takes them
+    # row-major
+    kmajor = gemm is not None and hasattr(gemm, "q8_gemm")
     q8v = harness._q8_case_weights(gen, 768, 3072, 768, dev)
     q8_tower = harness._q8_case_weights(gen, 768, 3072, 768, dev, layers=11)
+    if not kmajor:
+        q8v, q8_tower = (tuple(t.contiguous() for t in ws) for ws in (q8v, q8_tower))
     cases = {
         "layer_norm [64,197,768] bf16": (layer_norm, (x, scale, bias)),
         "F.layer_norm [64,197,768] bf16": (
@@ -202,6 +246,7 @@ def main() -> int:
             lambda x_, wq, wsc, be, wo_, bo: q8.attn_block_q8(
                 x_, wq, wsc, be, (wo_,), bo, heads=12, q8_out=False),
             (x, *q8v[:3], wv["wo"], q8v[5])),
+        "row 11 mlp_block_q8": (q8.mlp_block_q8, (x, *q8v[6:])),
         "row 12 tower_q8": (lambda *a: tq8.tower_q8(*a, heads=12), (x, *q8_tower)),
         "row 19 mlp_bwd": (lm.mlp_bwd, (x, dy, wv["b1"], wv["w1"])),
         "row 20 mlp_bwd_dw": (row20, row20_in),
@@ -220,10 +265,6 @@ def main() -> int:
     out = {"card": card, "root": os.path.abspath(args.root)}
     for name, (fn, inputs) in cases.items():
         out[name] = harness._graph_time_ms(fn, harness._input_copies(inputs))
-    try:
-        from uml_tpu_torch.ops import gemm
-    except ImportError:     # a checkout from before the wgmma engine
-        gemm = None
     if gemm is not None:
         for name, fn, inputs, flops, cublas in _products(gemm, dev, gen):
             copies = harness._input_copies(inputs)
@@ -244,7 +285,8 @@ def main() -> int:
                     fn, harness._input_copies((a, b_)))
             out[f"gemm_at {tag} splits=auto"] = harness._graph_time_ms(
                 gemm.gemm_at, harness._input_copies((a, b_)))
-    for half, (share, worst) in harness._int8_flips(x, q8v).items():
+    for half, (share, worst) in (harness._int8_flips(x, q8v).items() if kmajor
+                                 else ()):
         out[f"int8 {half}: share differing"] = share
         out[f"int8 {half}: largest difference"] = worst
     for side, err in harness._attention_witness(x, attn_v).items():
@@ -255,6 +297,10 @@ def main() -> int:
     harness._profile("row 9 mlp_block_stash", lambda: lm.mlp_block_stash(x, *mlp_v),
                      top=12)
     harness._profile("row 20 mlp_bwd_dw", lambda: row20(*row20_in), top=12)
+    harness._profile("row 19 mlp_bwd", lambda: lm.mlp_bwd(x, dy, wv["b1"], wv["w1"]),
+                     top=12)
+    harness._profile("row 11 mlp_block_q8", lambda: q8.mlp_block_q8(x, *q8v[6:]),
+                     top=12)
 
     encoder = ClipEncoder("ViT-B/16", allow_random_init=True)
     u8 = np.random.default_rng(0).integers(0, 256, (64, 224, 224, 3),
@@ -263,6 +309,12 @@ def main() -> int:
     ms = harness._time_ms(lambda: encoder.encode_staged(staged, n), iters=10)
     out["encoder img/s bs64 bf16"] = 64 / (ms / 1e3)
     harness._profile("image encoder", lambda: encoder.encode_staged(staged, n))
+    del encoder
+    encoder = ClipEncoder("ViT-B/16", allow_random_init=True, quant="int8")
+    staged, n = encoder.stage_images(u8)
+    ms = harness._time_ms(lambda: encoder.encode_staged(staged, n), iters=10)
+    out["encoder img/s bs64 int8"] = 64 / (ms / 1e3)
+    harness._profile("int8 image encoder", lambda: encoder.encode_staged(staged, n))
     print(json.dumps(out))
     return 0
 

@@ -24,9 +24,10 @@
 // output through device memory (~100 MB per call); keeping them on chip
 // is the fused kernel of a later PR.
 //
-//   x [B, S, K] bf16; wq [K, 3*H*64] int8; wsc, b_eff [3*H*64] fp32;
-//   wo [H*64, K] int8 (q8_out) or bf16; wosc [K] fp32 (q8_out) or null;
-//   bo [K] fp32; q8, qscale, qkv, attn scratch; out [B, S, K] bf16.
+//   x [B, S, K] bf16; wq [3*H*64, K] int8 (K-major, q8_gemm.cuh); wsc,
+//   b_eff [3*H*64] fp32; wo [K, H*64] int8 (q8_out) or [H*64, K] bf16; wosc
+//   [K] fp32 (q8_out) or null; bo [K] fp32; q8, qscale, qkv, attn scratch;
+//   out [B, S, K] bf16.
 
 #include "blocks.cuh"
 

@@ -76,7 +76,8 @@ static inline cudaError_t run_mlp_block(const __nv_bfloat16* x, const __nv_bfloa
 // Int8 attention half: out = x + MHA(LNquant(x) . wq -> bf16 qkv + b_eff)
 // . wo + bo, wo int8 (q8_out: the attention output row-quantized, wosc its
 // column scales) or bf16 (q8_out false: ln_gemm, wosc unused).
-//   x [B, S, K]; wq [K, 3*H*64] int8; q8 [B*S*max(K, H*64)] int8 and
+//   x [B, S, K]; wq [3*H*64, K] int8, wo [K, H*64] int8 or [H*64, K] bf16
+//   (the int8 weights K-major, q8_gemm.cuh); q8 [B*S*max(K, H*64)] int8 and
 //   qscale [B*S] are scratch for the row-quantized activations (the LN'd x,
 //   then the attention output); qkv [B*S, 3*H*64] and attn [B*S, H*64] are
 //   scratch; out [B, S, K].
@@ -103,7 +104,7 @@ static inline cudaError_t run_attn_block_q8(const __nv_bfloat16* x, const int8_t
 }
 
 // Int8 MLP half: out = x + actquant(LNquant(x) . w1q + b1) . w2q + b2
-//   x [rows, K]; w1q [K, M], w2q [M, K] int8; q8 [rows*max(K, M)] int8 and
+//   x [rows, K]; w1q [M, K], w2q [K, M] int8 (K-major); q8 [rows*max(K, M)] int8 and
 //   qscale [rows] are scratch; pre [rows, M] fp32 is scratch.
 static inline cudaError_t run_mlp_block_q8(const __nv_bfloat16* x, const int8_t* w1q,
                                            const float* w1sc, const float* b1,

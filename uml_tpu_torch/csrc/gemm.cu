@@ -1,12 +1,14 @@
-// uml_ln_gemm / uml_gemm_at: one product of ln_gemm.cuh or gemm_at.cuh on
-// its own.  No model calls them: the half-block entries launch these
-// products inside their own C calls.  They let the card tests and
-// chip_smoke.py hold each (prologue, epilogue, layout) triple of the
-// training rows, and gemm_at, against an fp32 product of the same bf16
-// operands, and time each beside cuBLAS at its shape.
+// uml_ln_gemm / uml_gemm_at / uml_q8_gemm: one product of ln_gemm.cuh,
+// gemm_at.cuh or q8_gemm.cuh on its own.  No model calls them: the
+// half-block entries launch these products inside their own C calls.
+// They let the card tests and chip_smoke.py hold each (prologue,
+// epilogue, layout) triple of the training rows, and gemm_at, against an
+// fp32 product of the same bf16 operands, each int8 epilogue against its
+// plain version bit for bit, and time each beside cuBLAS at its shape.
 
 #include "gemm_at.cuh"
 #include "ln_gemm.cuh"
+#include "q8_gemm.cuh"
 
 extern "C" int uml_ln_gemm(const void* a, const void* w, const void* bias, const void* res,
                            void* out, void* aux, void* colsum_part, void* xn, int M, int N,
@@ -29,4 +31,15 @@ extern "C" int uml_gemm_at(const void* a, const void* b, void* c, void* ws, long
   return (int)uml::launch_gemm_at(static_cast<const bf16*>(a), static_cast<const bf16*>(b),
                                   static_cast<float*>(c), static_cast<float*>(ws), ws_floats, R,
                                   P, N, splits, static_cast<cudaStream_t>(stream));
+}
+
+// a [M, K] int8, w [N, K] int8 (K-major); epi one of Q8_EPI_*
+extern "C" int uml_q8_gemm(const void* a, const void* w, const void* row_scale,
+                           const void* col_scale, const void* bias, const void* res, void* out,
+                           int M, int N, int K, int epi, void* stream) {
+  return (int)uml::launch_q8_gemm(
+      static_cast<const int8_t*>(a), static_cast<const int8_t*>(w),
+      static_cast<const float*>(row_scale), static_cast<const float*>(col_scale),
+      static_cast<const float*>(bias), static_cast<const __nv_bfloat16*>(res), out, M, N, K, epi,
+      static_cast<cudaStream_t>(stream));
 }

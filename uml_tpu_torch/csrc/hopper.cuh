@@ -1,10 +1,11 @@
 // Hopper (sm_90a) building blocks written out in PTX: shared-memory
 // mbarriers, TMA tile loads (cp.async.bulk.tensor) and warpgroup MMAs
-// (wgmma.mma_async, bf16 in, fp32 accumulation) with their shared-memory
-// matrix descriptors, and the host side of TMA (the tensor-map encoder).
-// Used by flash_attention.cu, wgmma_gemm.cuh and attention_bwd.cuh.
+// (wgmma.mma_async, bf16 in with fp32 accumulation, or s8 in with s32)
+// with their shared-memory matrix descriptors, and the host side of TMA
+// (the tensor-map encoder).  Used by flash_attention.cu, wgmma_gemm.cuh
+// (and through it q8_gemm.cuh) and attention_bwd.cuh.
 //
-// wgmma accumulator layout (m64nN, fp32): warp w of the warpgroup holds
+// wgmma accumulator layout (m64nN, fp32 or s32): warp w of the warpgroup holds
 // rows 16w .. 16w+15; lane l holds, for each 8-column block j, d[4j],
 // d[4j+1] at row 16w + l/4, columns 8j + 2(l%4) + {0, 1}, and d[4j+2],
 // d[4j+3] at row 16w + l/4 + 8.  A register A fragment of a k16 step takes
@@ -204,6 +205,40 @@ static __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
         "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_A), "n"(TRANS_B));
+}
+
+template <int N>
+static __device__ __forceinline__ void wgmma_fence_regs(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// d (+)= A . B, m64n128k32, s8 x s8 -> s32 (exact), A and B from shared
+// memory, both K-major: the transpose bits exist for 16-bit types only.
+// A k32 step is 32 bytes of a 128-byte swizzled row, as bf16's k16, so
+// the descriptors step alike; d has the fp32 accumulator's layout.
+static __device__ __forceinline__ void wgmma_ss_n128_s8(int (&d)[64], uint64_t da, uint64_t db,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
+        "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]),
+        "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]),
+        "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
 // d += A . B, m64n128k16: A from registers, B from shared memory, MN-major

@@ -63,18 +63,20 @@
 //   epilogue, OUT_GELU, with or without the stash), (PRO_NONE,
 //   EPI_RESIDUAL) the out-projections and the MLP out, (PRO_NONE,
 //   EPI_NONE, TRANS_B) g . wo^T, (PRO_NONE, EPI_F32, TRANS_B) dqkv .
-//   W_eff^T, g . w2^T and dpre . w1^T, (PRO_LN, EPI_DACT_F32) the dW
-//   recompute.  Their PRO_LN prologue is a row pre-pass (ln_rows_kernel,
-//   one warp per row): xn = bf16((x - mean) rstd) written once to the
-//   caller's xn buffer (LnPrologue::xn), with the statistics and the
-//   single rounding of the wmma prologue below, then read by TMA like any
-//   operand; the dW products and the LN backward read that same xn.
+//   W_eff^T, g . w2^T and dpre . w1^T, (PRO_LN, EPI_DACT) and (PRO_LN,
+//   EPI_DACT_F32) the MLP backward's recompute (OUT_DACT_BF16 with a bf16
+//   dy, OUT_DACT with an fp32 dy and the column sums).  Their PRO_LN prologue is a row pre-pass
+//   (ln_rows_kernel, one warp per row): xn = bf16((x - mean) rstd) written
+//   once to the caller's xn buffer (LnPrologue::xn), with the statistics
+//   and the single rounding of the wmma prologue below, then read by TMA
+//   like any operand; the dW products and the LN backward read that same
+//   xn, which the MLP backwards return.
 // * nvcuda::wmma (mma.sync 16x16x16) on 64x64 block tiles with a
-//   register-prefetched K loop for the others ((PRO_LN, EPI_DACT) of the
-//   MLP backward, the PRO_LN_AFFINE and PRO_ADD_LN_AFFINE prologues of the
-//   stand-alone ops, EPI_GELU_EXACT), which recompute the LN statistics in
-//   every block column (N/64 reads of the same rows).  They are queued for
-//   the engine (ROADMAP K1).
+//   register-prefetched K loop for the PRO_LN_AFFINE and PRO_ADD_LN_AFFINE
+//   prologues of the stand-alone ops (rows 14-17, with EPI_NONE,
+//   EPI_QUICK_GELU or EPI_GELU_EXACT), which recompute the LN statistics
+//   in every block column (N/64 reads of the same rows).  They are queued
+//   for the engine (ROADMAP K1).
 //
 // What bounds it on the H100: at ViT-B/16 B=64 the QKV product is
 // 12608 x 768 x 2304 (44.6 GFLOP) over 16 MB of A and 3.5 MB of W, each
@@ -87,8 +89,6 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "wgmma_gemm.cuh"
 
@@ -136,10 +136,6 @@ union Pack8 {
   __nv_bfloat16 h[8];
 };
 
-// bf16 elements of the W tile in shared memory: [BK][LDB], or with
-// TRANS_B [BN][LDA] (the tile of W^T stored column-major)
-constexpr int GEMM_BS_ELEMS =
-    (GEMM_BK * GEMM_LDB > GEMM_BN * GEMM_LDA) ? GEMM_BK * GEMM_LDB : GEMM_BN * GEMM_LDA;
 
 // The fp32 statistics of one row of x [., K] (K a multiple of 8), one
 // warp: lane l sums columns 8l .. 8l+7 of every 256, then a butterfly.
@@ -199,19 +195,17 @@ static inline cudaError_t launch_ln_rows(const __nv_bfloat16* x, __nv_bfloat16* 
   return cudaGetLastError();
 }
 
-template <int PRO, int EPI, bool TRANS_B>
+template <int PRO, int EPI>
 __global__ void __launch_bounds__(GEMM_THREADS)
 ln_gemm_kernel(const __nv_bfloat16* __restrict__ a,
                const __nv_bfloat16* __restrict__ w,
                const float* __restrict__ bias,
-               const void* __restrict__ res_ptr,
                void* __restrict__ out_ptr,
-               __nv_bfloat16* __restrict__ aux,
-               int M, int N, int K, long long ldres, float eps, LnPrologue pro) {
+               int M, int N, int K, float eps, LnPrologue pro) {
   using namespace nvcuda;
   constexpr bool LN = PRO != PRO_NONE;
   __shared__ __align__(128) __nv_bfloat16 As[GEMM_BM * GEMM_LDA];
-  __shared__ __align__(128) __nv_bfloat16 Bs[GEMM_BS_ELEMS];
+  __shared__ __align__(128) __nv_bfloat16 Bs[GEMM_BK * GEMM_LDB];
   __shared__ __align__(128) float Cs[GEMM_BM * GEMM_LDC];
   __shared__ float row_mean[GEMM_BM];
   __shared__ float row_rstd[GEMM_BM];
@@ -294,14 +288,8 @@ ln_gemm_kernel(const __nv_bfloat16* __restrict__ a,
         ra[i].u = make_uint4(0, 0, 0, 0);
         if (PRO == PRO_ADD_LN_AFFINE) rd[i].u = make_uint4(0, 0, 0, 0);
       }
-      if (TRANS_B) {
-        // W^T tile = rows n0..n0+63 of the [N, K] weight, columns k0..k0+31
-        rb[i].u = *reinterpret_cast<const uint4*>(
-            w + (long long)(n0 + ar) * K + k0 + ac + 8 * i);
-      } else {
-        rb[i].u = *reinterpret_cast<const uint4*>(
-            w + (long long)(k0 + br) * N + n0 + bc + 8 * i);
-      }
+      rb[i].u = *reinterpret_cast<const uint4*>(
+          w + (long long)(k0 + br) * N + n0 + bc + 8 * i);
     }
   };
   auto store_shared = [&]() {
@@ -325,11 +313,7 @@ ln_gemm_kernel(const __nv_bfloat16* __restrict__ a,
         }
       }
       *reinterpret_cast<uint4*>(&As[ar * GEMM_LDA + ac + 8 * i]) = p.u;
-      if (TRANS_B) {
-        *reinterpret_cast<uint4*>(&Bs[ar * GEMM_LDA + ac + 8 * i]) = rb[i].u;
-      } else {
-        *reinterpret_cast<uint4*>(&Bs[br * GEMM_LDB + bc + 8 * i]) = rb[i].u;
-      }
+      *reinterpret_cast<uint4*>(&Bs[br * GEMM_LDB + bc + 8 * i]) = rb[i].u;
     }
   };
 
@@ -350,19 +334,13 @@ ln_gemm_kernel(const __nv_bfloat16* __restrict__ a,
 #pragma unroll
     for (int kk = 0; kk < GEMM_BK; kk += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[2];
-      using BLayout = typename std::conditional<TRANS_B, wmma::col_major, wmma::row_major>::type;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, BLayout> fb[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[2];
 #pragma unroll
       for (int i = 0; i < 2; ++i)
         wmma::load_matrix_sync(fa[i], &As[(wm + 16 * i) * GEMM_LDA + kk], GEMM_LDA);
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        if (TRANS_B) {
-          wmma::load_matrix_sync(fb[j], &Bs[(wn + 16 * j) * GEMM_LDA + kk], GEMM_LDA);
-        } else {
-          wmma::load_matrix_sync(fb[j], &Bs[kk * GEMM_LDB + wn + 16 * j], GEMM_LDB);
-        }
-      }
+      for (int j = 0; j < 2; ++j)
+        wmma::load_matrix_sync(fb[j], &Bs[kk * GEMM_LDB + wn + 16 * j], GEMM_LDB);
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -380,7 +358,6 @@ ln_gemm_kernel(const __nv_bfloat16* __restrict__ a,
   __syncthreads();
 
   // epilogue: 8 consecutive columns per thread per step, 16-byte stores
-  const __nv_bfloat16* res = static_cast<const __nv_bfloat16*>(res_ptr);
   for (int c = tid; c < GEMM_BM * GEMM_BN / 8; c += GEMM_THREADS) {
     const int r = c / (GEMM_BN / 8);
     const int cc = (c % (GEMM_BN / 8)) * 8;
@@ -390,23 +367,6 @@ ln_gemm_kernel(const __nv_bfloat16* __restrict__ a,
 #pragma unroll
     for (int j = 0; j < 8; ++j)
       v[j] = Cs[r * GEMM_LDC + cc + j] + (bias != nullptr ? bias[n0 + cc + j] : 0.f);
-    if (EPI == EPI_DACT) {
-      Pack8 dp;
-      dp.u = *reinterpret_cast<const uint4*>(res + (long long)gm * ldres + n0 + cc);
-      Pack8 act, dpre;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float dy = __bfloat162float(dp.h[j]);
-        const float s = 1.f / (1.f + expf(-1.702f * v[j]));
-        const float d = dy * (s * (1.f + 1.702f * v[j] * (1.f - s)));
-        act.h[j] = __float2bfloat16(v[j] * s);
-        dpre.h[j] = __float2bfloat16(d);
-      }
-      *reinterpret_cast<uint4*>(aux + (long long)gm * N + n0 + cc) = act.u;
-      *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(out_ptr) + (long long)gm * N + n0 +
-                                cc) = dpre.u;
-      continue;
-    }
     if (EPI == EPI_QUICK_GELU) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) v[j] = v[j] * (1.f / (1.f + expf(-1.702f * v[j])));
@@ -426,8 +386,8 @@ ln_gemm_kernel(const __nv_bfloat16* __restrict__ a,
 // is one of PRO_*, `ops` the extra operands of the prologues (for PRO_LN
 // on the engine, the xn buffer [M, K] it writes and reads).  The engine's
 // triples take N and K multiples of 64 and an even ldres; the wmma ones
-// N % 64 == 0, K % 32 == 0, ldres % 8 == 0 (the Python wrappers check
-// them and raise first).
+// N % 64 == 0 and K % 32 == 0 (the Python wrappers check them and raise
+// first).
 static inline cudaError_t launch_ln_gemm(const __nv_bfloat16* a, const __nv_bfloat16* w,
                                          const float* bias, const void* res, void* out, int M,
                                          int N, int K, long long ldres, int pro, int epi,
@@ -458,11 +418,15 @@ static inline cudaError_t launch_ln_gemm(const __nv_bfloat16* a, const __nv_bflo
     return launch_wgmma_gemm<false, false, WGG_OUT_BF16>(a, w, ep, M, N, K, stream);
   if (pro == PRO_NONE && epi == EPI_F32 && trans_b)  // dqkv . W_eff^T, g . w2^T, dpre . w1^T
     return launch_wgmma_gemm<false, false, WGG_OUT_F32>(a, w, ep, M, N, K, stream);
-  if (pro == PRO_LN && epi == EPI_DACT_F32 && !trans_b) {  // MLP bwd, dW
+  if (pro == PRO_LN && (epi == EPI_DACT || epi == EPI_DACT_F32) && !trans_b) {  // MLP bwd
     UML_TRY(launch_ln_rows(a, ops.xn, M, K, eps, stream));
-    ep.dy = static_cast<const float*>(res);
     ep.lddy = ldres;
     ep.aux = aux;
+    if (epi == EPI_DACT) {
+      ep.dy16 = static_cast<const __nv_bfloat16*>(res);
+      return launch_wgmma_gemm<false, true, WGG_OUT_DACT_BF16>(ops.xn, w, ep, M, N, K, stream);
+    }
+    ep.dy = static_cast<const float*>(res);
     ep.colsum_part = colsum_part;
     return launch_wgmma_gemm<false, true, WGG_OUT_DACT>(ops.xn, w, ep, M, N, K, stream);
   }
@@ -470,19 +434,18 @@ static inline cudaError_t launch_ln_gemm(const __nv_bfloat16* a, const __nv_bflo
   if (N % GEMM_BN != 0 || K % GEMM_BK != 0) return cudaErrorInvalidValue;
   const dim3 grid((M + GEMM_BM - 1) / GEMM_BM, N / GEMM_BN);
   const dim3 block(GEMM_THREADS);
-#define UML_GEMM_CASE(P, E, T)                                                              \
-  if (pro == P && epi == E && trans_b == T) {                                               \
-    ln_gemm_kernel<P, E, T><<<grid, block, 0, stream>>>(a, w, bias, res, out, aux, M, N, K, \
-                                                        ldres, eps, ops);                   \
+  if (trans_b) return cudaErrorInvalidValue;
+#define UML_GEMM_CASE(P, E)                                                                 \
+  if (pro == P && epi == E) {                                                               \
+    ln_gemm_kernel<P, E><<<grid, block, 0, stream>>>(a, w, bias, out, M, N, K, eps, ops);   \
     return cudaGetLastError();                                                              \
   }
-  UML_GEMM_CASE(PRO_LN, EPI_DACT, false)                 // MLP bwd
-  UML_GEMM_CASE(PRO_LN_AFFINE, EPI_NONE, false)          // ln_matmul, ln_qkv_attention
-  UML_GEMM_CASE(PRO_LN_AFFINE, EPI_QUICK_GELU, false)    // ln_matmul
-  UML_GEMM_CASE(PRO_LN_AFFINE, EPI_GELU_EXACT, false)
-  UML_GEMM_CASE(PRO_ADD_LN_AFFINE, EPI_NONE, false)      // add_ln_matmul
-  UML_GEMM_CASE(PRO_ADD_LN_AFFINE, EPI_QUICK_GELU, false)
-  UML_GEMM_CASE(PRO_ADD_LN_AFFINE, EPI_GELU_EXACT, false)
+  UML_GEMM_CASE(PRO_LN_AFFINE, EPI_NONE)          // ln_matmul, ln_qkv_attention
+  UML_GEMM_CASE(PRO_LN_AFFINE, EPI_QUICK_GELU)    // ln_matmul
+  UML_GEMM_CASE(PRO_LN_AFFINE, EPI_GELU_EXACT)
+  UML_GEMM_CASE(PRO_ADD_LN_AFFINE, EPI_NONE)      // add_ln_matmul
+  UML_GEMM_CASE(PRO_ADD_LN_AFFINE, EPI_QUICK_GELU)
+  UML_GEMM_CASE(PRO_ADD_LN_AFFINE, EPI_GELU_EXACT)
 #undef UML_GEMM_CASE
   return cudaErrorInvalidValue;
 }

@@ -4,11 +4,14 @@
 //
 // uml_mlp_bwd replaces uml_tpu/ops/ln_matmul.py::_mlp_bwd_kernel (via
 // _mlp_bwd_call, UML_MLP_BWD=kernel).  From x and dy = g . w2^T (computed
-// and rounded to bf16 by the caller, ln_matmul.py:400-402) it computes
-//   1. pre = rawLN(x) . w1 + b1 in fp32, yact = quick_gelu(pre) and
-//      dpre = dy * quick_gelu'(pre), both bf16   (ln_gemm, EPI_DACT)
+// and rounded to bf16 by the caller, ln_matmul.py:400-402) it computes, in
+// four launches with both products on the wgmma engine (wgmma_gemm.cuh):
+//   1. xn = bf16(rawLN(x)) (the row pre-pass), then pre = xn . w1 + b1 in
+//      fp32, yact = quick_gelu(pre) and dpre = dy * quick_gelu'(pre), both
+//      bf16                                      (ln_gemm, EPI_DACT)
 //   2. dxn = dpre . w1^T, kept in fp32           (ln_gemm, TRANS_B, EPI_F32)
-//   3. the LN backward with no residual -> dx_ln, and xn  (ln_bwd)
+//   3. the LN backward with no residual -> dx_ln (ln_bwd; xn is the
+//      pre-pass's, the same statistics and rounding)
 // -> (dx_ln, xn, dpre, yact); the residual, dw1 = xn^T dpre, dw2 = yact^T g
 // and the bias sums stay outside (ln_matmul.py:405-414).
 //
@@ -34,8 +37,6 @@
 // in VMEM; here they make round trips through device memory: dpre and
 // yact bf16 (77.5 MB each) and, in uml_mlp_bwd_dw, the fp32 dy (155 MB),
 // ~0.3 GB a layer.  Keeping the hidden on chip is queued (ROADMAP K8).
-// uml_mlp_bwd's first launch (PRO_LN, EPI_DACT) stays on ln_gemm's wmma
-// tiles; its dxn product runs on the engine.
 
 #include "attention_bwd.cuh"
 #include "blocks.cuh"
@@ -50,11 +51,13 @@ static inline cudaError_t run_mlp_bwd(const __nv_bfloat16* x, const __nv_bfloat1
                                       __nv_bfloat16* dpre, __nv_bfloat16* yact, float* dxn,
                                       __nv_bfloat16* dx_ln, __nv_bfloat16* xn, int rows, int K,
                                       int M, float eps, cudaStream_t stream) {
+  LnPrologue ops;
+  ops.xn = xn;
   UML_TRY(launch_ln_gemm(x, w1, b1, dy, dpre, rows, M, K, M, PRO_LN, EPI_DACT, eps, stream, false,
-                         yact));
+                         yact, nullptr, ops));
   UML_TRY(launch_ln_gemm(dpre, w1, nullptr, nullptr, dxn, rows, K, M, 0, PRO_NONE, EPI_F32, eps,
                          stream, true));
-  return launch_ln_bwd(x, dxn, nullptr, dx_ln, xn, rows, K, 1, eps, stream);
+  return launch_ln_bwd(x, dxn, nullptr, dx_ln, nullptr, rows, K, 1, eps, stream);
 }
 
 // x, g [rows, K] -> dx [rows, K], dw1 [K, M], db1 [M], dw2 [M, K] (fp32);

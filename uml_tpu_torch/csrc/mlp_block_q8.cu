@@ -5,7 +5,8 @@
 // Launches (blocks.cuh::run_mlp_block_q8): ln_quantize_rows, the c_fc
 // q8_gemm with an fp32 epilogue (pre = y + b1), act_quantize_rows
 // (quick_gelu with the scale from the row max of pre), the c_proj q8_gemm
-// with the residual epilogue.  The TPU's slab chunking (UML_Q8_MLP_SLAB)
+// with the residual epilogue; both products on wgmma s8 + TMA (the
+// engine of wgmma_gemm.cuh through q8_gemm.cuh).  The TPU's slab chunking (UML_Q8_MLP_SLAB)
 // is a VMEM choice and is not carried.
 //
 // What bounds it on the H100: at ViT-B/16 B=64 the two int8 products are
@@ -15,9 +16,10 @@
 // TPU kernel keeps it in VMEM; a GEMM whose epilogue owns whole rows
 // (BN = M) would quantize it on chip.
 //
-//   x [rows, K] bf16; w1q [K, M] int8; w1sc, b1 [M] fp32; w2q [M, K] int8;
-//   w2sc, b2 [K] fp32; q8 [rows*max(K, M)] int8, qscale [rows] fp32 and
-//   pre [rows, M] fp32 scratch; out [rows, K] bf16.
+//   x [rows, K] bf16; w1q [M, K] int8; w1sc, b1 [M] fp32; w2q [K, M] int8
+//   (both K-major, q8_gemm.cuh); w2sc, b2 [K] fp32; q8 [rows*max(K, M)]
+//   int8, qscale [rows] fp32 and pre [rows, M] fp32 scratch; out [rows, K]
+//   bf16.
 
 #include "blocks.cuh"
 

@@ -18,10 +18,11 @@
 // 2L round trips of the residual (19.4 MB written and read back per half
 // at B=64) and the 9L launches; that is a later PR.
 //
-//   x [B, S, K]; stacked wq [L, K, 3HD], wsc, b_eff [L, 3HD], woq [L, HD, K],
-//   wosc, bo [L, K], w1q [L, K, M], w1sc, b1 [L, M], w2q [L, M, K],
-//   w2sc, b2 [L, K] with HD = H*64; q8 [B*S*max(K, HD, M)], qscale [B*S],
-//   qkv, attn, pre, mid are scratch; out [B, S, K].
+//   x [B, S, K]; stacked, the int8 weights K-major (q8_gemm.cuh): wq
+//   [L, 3HD, K], wsc, b_eff [L, 3HD], woq [L, K, HD], wosc, bo [L, K], w1q
+//   [L, M, K], w1sc, b1 [L, M], w2q [L, K, M], w2sc, b2 [L, K] with HD =
+//   H*64; q8 [B*S*max(K, HD, M)], qscale [B*S], qkv, attn, pre, mid are
+//   scratch; out [B, S, K].
 
 #include "blocks.cuh"
 

@@ -1,24 +1,26 @@
 // wgmma_gemm: C = A . B on Hopper's warpgroup MMAs with the operands
-// brought in by TMA; bf16 operands, fp32 accumulation.
+// brought in by TMA; bf16 operands with fp32 accumulation, or int8
+// operands with exact s32 accumulation (the OUT_Q8_* epilogues).
 //
 // The product engine of the CLIP layers: ln_gemm.cuh routes its QKV
 // (PRO_LN, EPI_NONE), the MLP in (PRO_LN, EPI_QUICK_GELU / EPI_GELU_STASH),
 // the out-projections and the MLP out (PRO_NONE, EPI_RESIDUAL), g . wo^T
 // (EPI_NONE, TRANS_B), dqkv . W_eff^T / g . w2^T / dpre . w1^T (EPI_F32,
-// TRANS_B) and the MLP dW recompute (PRO_LN, EPI_DACT_F32) triples here,
-// and gemm_at.cuh its weight-gradient products A^T . B.  Those are the
-// products of uml_tpu/ops/fused_attention.py::_block_kernel,
+// TRANS_B) and the MLP backward's recompute (PRO_LN, EPI_DACT with a bf16
+// dy, EPI_DACT_F32 with an fp32 dy) triples here, gemm_at.cuh its
+// weight-gradient products A^T . B, and q8_gemm.cuh every int8 product.
+// Those are the products of uml_tpu/ops/fused_attention.py::_block_kernel,
 // _block_cls_kernel, _block_kernel_stash, _block_bwd_kernel,
 // _block_bwd_stash_kernel, _block_bwd_cls_kernel, of ln_matmul.py::
-// _mlp_block_kernel, _mlp_block_kernel_stash, _mlp_bwd_dw_kernel (and
-// _mlp_bwd_kernel's dxn), and of text_tower.py::_tower_kernel and
-// quant.py::_block_q8_kernel's bf16 out-projection through the shared
-// triples.
+// _mlp_block_kernel, _mlp_block_kernel_stash, _mlp_bwd_kernel,
+// _mlp_bwd_dw_kernel, of text_tower.py::_tower_kernel, and the _q8_dot
+// products of quant.py::_block_q8_kernel, _mlp_q8_kernel and
+// tower_q8.py::_tower_q8_kernel.
 //
 // What bounds it on the H100: at ViT-B/16 B=64 every product is 44.6-59.5
 // GFLOP over 20-100 MB, far above the ~295 FLOP/byte ridge: the tensor
-// cores (45-60 us each at 989 TFLOP/s).  So the design feeds wgmma without
-// a stall:
+// cores (45-60 us each at 989 TFLOP/s bf16, half that at 1,979 int8
+// TOPS).  So the design feeds wgmma without a stall:
 //
 // * A block computes a 128 x 128 tile of C: two consumer warpgroups of 64
 //   rows each issue wgmma.m64n128k16 from shared memory into 64 fp32
@@ -26,8 +28,10 @@
 //   stages of TMA loads in flight (a "full" mbarrier per stage for the
 //   bytes landed, an "empty" one for both warpgroups done with it: one
 //   arrival per consumer warp).  A
-//   stage is 64 of the contraction: one 128-byte-swizzled panel of A and
-//   of B.  The grid is persistent (two blocks per SM, 3 stages each): a
+//   stage is one 128-byte-swizzled panel of A and of B: 64 of the
+//   contraction in bf16, 128 in int8 (wgmma.m64n128k32.s32.s8.s8, the
+//   same 32 bytes a step, so the same descriptors and 16 KB per operand).
+//   The grid is persistent (two blocks per SM, 3 stages each): a
 //   block walks its tiles in turn, its producer runs ahead into the next
 //   tile's stages while the consumers finish the last one, and the other
 //   block's products run under this one's epilogue.
@@ -39,6 +43,9 @@
 //   64 x 64).  The wgmma transpose bits say which (hopper.cuh); an MN-major
 //   descriptor steps 16 contraction rows (2 KB) per k16 and takes the
 //   64-column panel stride as its leading offset, as flash_attention.cu's V.
+//   wgmma's transpose bits exist for 16-bit types only, and TMA does not
+//   transpose: int8 takes A [M, K] and B [N, K], both K-major (the model
+//   keeps its int8 weights [out, in], quantized and cached once).
 // * TMA's zero fill covers the ragged edges: rows of C >= M, columns >= N
 //   (N a multiple of 64, not 128), the contraction past K (gemm_at's rows).
 //   Stores are masked.
@@ -47,12 +54,17 @@
 //   adjacent columns of every 8), bias add in fp32 and one rounding:
 //   OUT_BF16 (bf16 C), OUT_F32 (fp32 C), OUT_DACT (the MLP backward's
 //   recompute: y = acc + b1, aux = quick_gelu(y), out = dpre = dy *
-//   quick_gelu'(y) as bf16, and the column sums of the fp32 dpre over the
-//   block's 128 rows, reduced in a fixed order, to colsum_part[row tile]),
+//   quick_gelu'(y) as bf16, dy fp32 with its row stride, and the column
+//   sums of the fp32 dpre over the block's 128 rows, reduced in a fixed
+//   order, to colsum_part[row tile]), OUT_DACT_BF16 (the same with a bf16
+//   dy and no column sums: row 19's recompute),
 //   OUT_GELU (the MLP in: y = acc + b1, out = quick_gelu(y) of the
 //   unrounded y with the fast exp and reciprocal and, where aux is given,
 //   aux = y, each rounded once) and
-//   OUT_RESIDUAL (out = (acc + b) + res, res bf16 with row stride ldres).
+//   OUT_RESIDUAL (out = (acc + b) + res, res bf16 with row stride ldres),
+//   and the int8 epilogues of q8_gemm.cuh: y = ((float)acc * row_scale) *
+//   col_scale, each step rounded on its own, then OUT_Q8_BF16 bf16(y + b),
+//   OUT_Q8_F32 y + b in fp32, OUT_Q8_RESIDUAL bf16((res + y) + b).
 //   The MLP in writes two [rows, 4K] bf16 tensors (155 MB at ViT-B/16
 //   B=64), the heaviest store traffic of any product here: the
 //   sector-filling stores below carry it.
@@ -68,20 +80,23 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "hopper.cuh"
 
 namespace uml {
 
 constexpr int WGG_BM = 128;
 constexpr int WGG_BN = 128;
-constexpr int WGG_BK = 64;
+constexpr int WGG_BK = 64;                         // bf16 contraction per stage
+constexpr int WGG_ROW_BYTES = 128;                 // a swizzled row: 64 bf16 or 128 int8
 constexpr int WGG_STAGES = 3;
 constexpr int WGG_BLOCKS_PER_SM = 2;
 constexpr int WGG_CONSUMERS = 256;                 // two warpgroups
 constexpr int WGG_THREADS = WGG_CONSUMERS + 32;    // + the producer warp
 constexpr int WGG_PANEL = 64 * 128;                // a 64 x 64 bf16 panel: 8 KB
-constexpr int WGG_A_BYTES = WGG_BM * WGG_BK * 2;   // 16 KB
-constexpr int WGG_B_BYTES = WGG_BN * WGG_BK * 2;   // 16 KB
+constexpr int WGG_A_BYTES = WGG_BM * WGG_ROW_BYTES;  // 16 KB
+constexpr int WGG_B_BYTES = WGG_BN * WGG_ROW_BYTES;  // 16 KB
 constexpr int WGG_STAGE_BYTES = WGG_A_BYTES + WGG_B_BYTES;
 constexpr int WGG_RED_BYTES = 8 * WGG_BN * 4;      // per-warp column sums (OUT_DACT)
 // the base is aligned up to 1024 bytes (the swizzle atom) in the kernel
@@ -89,19 +104,26 @@ constexpr size_t WGG_SMEM =
     1024 + (size_t)WGG_STAGES * WGG_STAGE_BYTES + 16 * WGG_STAGES + WGG_RED_BYTES;
 
 enum { WGG_OUT_BF16 = 0, WGG_OUT_F32 = 1, WGG_OUT_DACT = 2, WGG_OUT_GELU = 3,
-       WGG_OUT_RESIDUAL = 4 };
+       WGG_OUT_RESIDUAL = 4, WGG_OUT_DACT_BF16 = 5, WGG_OUT_Q8_BF16 = 6,
+       WGG_OUT_Q8_F32 = 7, WGG_OUT_Q8_RESIDUAL = 8 };
+
+// the int8 instantiations: s8 operands, s32 accumulators
+static __host__ __device__ constexpr bool wgg_int8(int out) { return out >= WGG_OUT_Q8_BF16; }
 
 struct WggEpilogue {
   const float* bias = nullptr;         // [N] fp32, or null
   void* out = nullptr;                 // [M, N]: bf16 (OUT_BF16, OUT_DACT: dpre) or fp32
   const float* dy = nullptr;           // OUT_DACT: [M, lddy] fp32
+  const __nv_bfloat16* dy16 = nullptr; // OUT_DACT_BF16: [M, lddy] bf16
   long long lddy = 0;
   __nv_bfloat16* aux = nullptr;        // OUT_DACT: [M, N] quick_gelu(y); OUT_GELU: y, or null
-  const __nv_bfloat16* res = nullptr;  // OUT_RESIDUAL: [M, ldres] bf16
+  const __nv_bfloat16* res = nullptr;  // OUT_RESIDUAL, OUT_Q8_RESIDUAL: [M, ldres] bf16
   long long ldres = 0;
   float* colsum_part = nullptr;        // OUT_DACT: [ceil(M / 128), N], or null
   int splits = 1;                      // contraction chunks (OUT_F32, no bias)
   float* part = nullptr;               // splits > 1: [splits - 1, M, N] fp32 partials
+  const float* row_scale = nullptr;    // OUT_Q8_*: [M] fp32
+  const float* col_scale = nullptr;    // OUT_Q8_*: [N] fp32
 };
 
 // two floats as the bits of a bf16 pair (the lower column in the low half)
@@ -110,10 +132,26 @@ static __device__ __forceinline__ uint32_t bf16x2_bits(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
+// The int8 epilogue's fp32 value in the reference's order, every step an
+// explicitly rounded intrinsic (nvcc contracts none into an FMA), so it
+// rounds as the plain PyTorch version does: ((float)acc * row_scale) *
+// col_scale, then (res + y) for OUT_Q8_RESIDUAL, then + b.
+template <int OUT>
+static __device__ __forceinline__ float q8_value(int acc, float rs, float cs, float b,
+                                                 float res) {
+  float v = __fmul_rn(__fmul_rn(__int2float_rn(acc), rs), cs);
+  if (OUT == WGG_OUT_Q8_RESIDUAL) v = __fadd_rn(res, v);
+  return __fadd_rn(v, b);
+}
+
 template <bool A_MN, bool B_MN, int OUT>
 __global__ void __launch_bounds__(WGG_THREADS, WGG_BLOCKS_PER_SM)
 wgmma_gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
                   const WggEpilogue ep, int M, int N, int K) {
+  constexpr bool Q8 = wgg_int8(OUT);
+  static_assert(!Q8 || (!A_MN && !B_MN), "int8 operands are K-major");
+  constexpr int BK = Q8 ? WGG_ROW_BYTES : WGG_BK;  // contraction per stage
+  using Acc = typename std::conditional<Q8, int, float>::type;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -129,7 +167,7 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
   const int tiles_n = (N + WGG_BN - 1) / WGG_BN;
   const int tiles = tiles_n * ((M + WGG_BM - 1) / WGG_BM);
   const int items = tiles * ep.splits;
-  const int kt_all = (K + WGG_BK - 1) / WGG_BK;
+  const int kt_all = (K + BK - 1) / BK;
   const int per = (kt_all + ep.splits - 1) / ep.splits;
 
   if (tid == 0) {
@@ -156,7 +194,7 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
           const uint32_t full = sBar + 8 * s;
           const uint32_t sa = base + s * WGG_STAGE_BYTES;
           const uint32_t sb = sa + WGG_A_BYTES;
-          const int k = (kt0 + t) * WGG_BK;
+          const int k = (kt0 + t) * BK;
           mbar_arrive_expect_tx(full, WGG_STAGE_BYTES);
           if (A_MN) {
             tma_load_2d(sa, &ta, full, m0, k);
@@ -186,9 +224,9 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
     const int tile = item % tiles, split = item / tiles;
     const int n0 = (tile % tiles_n) * WGG_BN, m0 = (tile / tiles_n) * WGG_BM;
     const int kt0 = split * per, nk = min(kt_all, kt0 + per) - kt0;
-    float acc[64];
+    Acc acc[64];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    for (int i = 0; i < 64; ++i) acc[i] = 0;
     for (int t = 0; t < nk; ++t, ++it) {
       const int s = it % WGG_STAGES;
       mbar_wait(sBar + 8 * s, (it / WGG_STAGES) & 1);
@@ -196,14 +234,17 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
       const uint32_t sb = sa + WGG_A_BYTES;
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < WGG_BK / 16; ++kk) {
-        // K-major: 32 bytes along the swizzled 128-byte rows per k16;
-        // MN-major: 16 rows of 128 bytes per k16
+      for (int kk = 0; kk < WGG_ROW_BYTES / 32; ++kk) {
+        // K-major: 32 bytes along the swizzled 128-byte rows per step (k16
+        // bf16, k32 int8); MN-major: 16 rows of 128 bytes per k16
         const uint64_t da = A_MN ? wgmma_desc(sa + wg * WGG_PANEL + kk * 2048, WGG_PANEL, 1024)
                                  : wgmma_desc(sa + wg * 64 * 128 + kk * 32, 16, 1024);
         const uint64_t db = B_MN ? wgmma_desc(sb + kk * 2048, WGG_PANEL, 1024)
                                  : wgmma_desc(sb + kk * 32, 16, 1024);
-        wgmma_ss_n128<A_MN ? 1 : 0, B_MN ? 1 : 0>(acc, da, db, 1);
+        if constexpr (Q8)
+          wgmma_ss_n128_s8(acc, da, db, 1);
+        else
+          wgmma_ss_n128<A_MN ? 1 : 0, B_MN ? 1 : 0>(acc, da, db, 1);
       }
       wgmma_commit();
       wgmma_wait<1>();  // stage t-1's products are done: release it
@@ -220,6 +261,14 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
     // within each quad of lanes so that every store writes whole sectors
     const int row_a = m0 + 64 * wg + 16 * warp + (lane >> 2);  // and row_a + 8
     const int col_a = n0 + 2 * (lane & 3);                     // + 8 j, + {0, 1}
+    constexpr bool RES = OUT == WGG_OUT_RESIDUAL || OUT == WGG_OUT_Q8_RESIDUAL;
+    constexpr bool DACT = OUT == WGG_OUT_DACT || OUT == WGG_OUT_DACT_BF16;
+    float rs[2] = {0.f, 0.f};  // the int8 rows' scales
+    if constexpr (Q8) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (row_a + 8 * r < M) rs[r] = ep.row_scale[row_a + 8 * r];
+    }
 #pragma unroll
     for (int j0 = 0; j0 < WGG_BN / 8; j0 += 2) {
       float2 in[2][2];
@@ -232,12 +281,15 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
           if (OUT == WGG_OUT_DACT && row < M && col < N)
             in[jj][r] = __ldg(reinterpret_cast<const float2*>(ep.dy + (long long)row * ep.lddy +
                                                                col));
-          if (OUT == WGG_OUT_RESIDUAL && row < M && col < N)
+          if (OUT == WGG_OUT_DACT_BF16 && row < M && col < N)
+            in[jj][r] = __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(
+                ep.dy16 + (long long)row * ep.lddy + col)));
+          if (RES && row < M && col < N)
             in[jj][r] = __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(
                 ep.res + (long long)row * ep.ldres + col)));
         }
       }
-      if constexpr (OUT == WGG_OUT_F32) {
+      if constexpr (OUT == WGG_OUT_F32 || OUT == WGG_OUT_Q8_F32) {
         // fp32: a quad's 8-byte stores fill whole sectors as they stand;
         // chunk z > 0 stores to its slab of the partials
         float* dst = split == 0 ? static_cast<float*>(ep.out)
@@ -255,8 +307,14 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
           for (int r = 0; r < 2; ++r) {
             const int row = row_a + 8 * r;
             if (row >= M) continue;
-            *reinterpret_cast<float2*>(dst + (long long)row * N + col) =
-                make_float2(acc[4 * (j0 + jj) + 2 * r] + b0, acc[4 * (j0 + jj) + 2 * r + 1] + b1);
+            const int i = 4 * (j0 + jj) + 2 * r;
+            float2 v;
+            if constexpr (Q8)
+              v = make_float2(q8_value<OUT>(acc[i], rs[r], ep.col_scale[col], b0, 0.f),
+                              q8_value<OUT>(acc[i + 1], rs[r], ep.col_scale[col + 1], b1, 0.f));
+            else
+              v = make_float2(acc[i] + b0, acc[i + 1] + b1);
+            *reinterpret_cast<float2*>(dst + (long long)row * N + col) = v;
           }
         }
       } else {
@@ -269,17 +327,27 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
           const int j = j0 + jj;
           const int col = col_a + 8 * j;
           const bool col_ok = col < N;
-          float b0 = 0.f, b1 = 0.f;
+          float b0 = 0.f, b1 = 0.f, cs0 = 0.f, cs1 = 0.f;
           if (col_ok && ep.bias != nullptr) {
             b0 = ep.bias[col];
             b1 = ep.bias[col + 1];
           }
+          if (Q8 && col_ok) {
+            cs0 = ep.col_scale[col];
+            cs1 = ep.col_scale[col + 1];
+          }
           float c0 = 0.f, c1 = 0.f;
 #pragma unroll
           for (int r = 0; r < 2; ++r) {
-            const float v0 = acc[4 * j + 2 * r] + b0;
-            const float v1 = acc[4 * j + 2 * r + 1] + b1;
-            if (OUT == WGG_OUT_BF16) {
+            float v0, v1;
+            if constexpr (Q8) {
+              v0 = q8_value<OUT>(acc[4 * j + 2 * r], rs[r], cs0, b0, in[jj][r].x);
+              v1 = q8_value<OUT>(acc[4 * j + 2 * r + 1], rs[r], cs1, b1, in[jj][r].y);
+            } else {
+              v0 = acc[4 * j + 2 * r] + b0;
+              v1 = acc[4 * j + 2 * r + 1] + b1;
+            }
+            if (OUT == WGG_OUT_BF16 || Q8) {
               pk[0][jj][r] = bf16x2_bits(v0, v1);
             } else if (OUT == WGG_OUT_RESIDUAL) {
               pk[0][jj][r] = bf16x2_bits(v0 + in[jj][r].x, v1 + in[jj][r].y);
@@ -293,10 +361,13 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
                                          __fdividef(v1, 1.f + __expf(-1.702f * v1)));
               pk[1][jj][r] = bf16x2_bits(v0, v1);
             } else {
-              // quick_gelu'(y) = s (1 + 1.702 y (1 - s)) with one sigmoid s;
-              // dy is 0 outside the matrix, so is d there
-              const float s0 = 1.f / (1.f + expf(-1.702f * v0));
-              const float s1 = 1.f / (1.f + expf(-1.702f * v1));
+              // quick_gelu'(y) = s (1 + 1.702 y (1 - s)) with one sigmoid s,
+              // on the special-function unit as OUT_GELU (2 ulp, far inside
+              // the bf16 rounding that follows: the accurate expf and
+              // division made row 19 ~8% and row 20 ~5% slower); dy is 0
+              // outside the matrix, so is d there
+              const float s0 = __fdividef(1.f, 1.f + __expf(-1.702f * v0));
+              const float s1 = __fdividef(1.f, 1.f + __expf(-1.702f * v1));
               const float d0 = in[jj][r].x * (s0 * (1.f + 1.702f * v0 * (1.f - s0)));
               const float d1 = in[jj][r].y * (s1 * (1.f + 1.702f * v1 * (1.f - s1)));
               pk[0][jj][r] = bf16x2_bits(d0, d1);
@@ -325,7 +396,7 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
         const int src = (lane & ~3) | (2 * (q & 1));
         const int col = n0 + 8 * j0 + 4 * q;
 #pragma unroll
-        for (int t = 0; t < (OUT == WGG_OUT_DACT || OUT == WGG_OUT_GELU ? 2 : 1); ++t) {
+        for (int t = 0; t < (DACT || OUT == WGG_OUT_GELU ? 2 : 1); ++t) {
           if (t == 1 && ep.aux == nullptr) break;  // OUT_GELU without the stash
           __nv_bfloat16* dst = t == 0 ? static_cast<__nv_bfloat16*>(ep.out) : ep.aux;
 #pragma unroll
@@ -370,34 +441,46 @@ static inline int wgmma_block_slots() {
 
 // Launch C = A . B on the engine; returns the launch error.  A_MN: a is
 // [K, M] row-major (the product takes a^T), else [M, K]; B_MN: b is
-// [K, N] row-major, else [N, K] (the product takes b^T).  Takes N a
+// [K, N] row-major, else [N, K] (the product takes b^T).  a and b are
+// bf16, or int8 for the OUT_Q8_* epilogues (both K-major).  Takes N a
 // multiple of 64 and K a multiple of 64 (with A_MN: M a multiple of 64 and
 // any K), pointers 16-byte aligned; refuses anything else.
 template <bool A_MN, bool B_MN, int OUT>
-static cudaError_t launch_wgmma_gemm(const __nv_bfloat16* a, const __nv_bfloat16* b,
-                                     const WggEpilogue& ep, int M, int N, int K,
-                                     cudaStream_t stream) {
+static cudaError_t launch_wgmma_gemm(const void* a, const void* b, const WggEpilogue& ep, int M,
+                                     int N, int K, cudaStream_t stream) {
+  constexpr bool Q8 = wgg_int8(OUT);
+  constexpr int esize = Q8 ? 1 : 2;  // bytes per element
   if (M < 1 || N < 64 || K < 1 || N % 64 != 0 || (A_MN ? M % 64 != 0 : K % 64 != 0) ||
       ep.splits < 1 || ep.splits > 64 ||
       (ep.splits > 1 && (OUT != WGG_OUT_F32 || ep.part == nullptr || ep.bias != nullptr)) ||
-      (OUT == WGG_OUT_RESIDUAL && (ep.res == nullptr || ep.ldres < N || ep.ldres % 2 != 0)) ||
+      ((OUT == WGG_OUT_RESIDUAL || OUT == WGG_OUT_Q8_RESIDUAL) &&
+       (ep.res == nullptr || ep.ldres < N || ep.ldres % 2 != 0)) ||
+      ((OUT == WGG_OUT_DACT || OUT == WGG_OUT_DACT_BF16) &&
+       ((OUT == WGG_OUT_DACT ? ep.dy == nullptr : ep.dy16 == nullptr) || ep.aux == nullptr ||
+        ep.lddy < N || ep.lddy % 2 != 0)) ||
+      (Q8 && (ep.row_scale == nullptr || ep.col_scale == nullptr || ep.bias == nullptr)) ||
       reinterpret_cast<uintptr_t>(a) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(b) % 16 != 0)
     return cudaErrorInvalidValue;
+  const CUtensorMapDataType type =
+      Q8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  // a K-major box is one 128-byte row of the contraction by 128 rows; an
+  // MN-major one 64 columns (128 bytes) by 64 rows of the contraction
+  constexpr cuuint32_t row = WGG_ROW_BYTES / esize;
   CUtensorMap ta, tb;
   {
     const cuuint64_t dims[2] = {A_MN ? (cuuint64_t)M : (cuuint64_t)K,
                                 A_MN ? (cuuint64_t)K : (cuuint64_t)M};
-    const cuuint64_t strides[1] = {dims[0] * 2};
-    const cuuint32_t box[2] = {64, A_MN ? 64u : 128u};
-    if (!make_tensor_map(&ta, a, 2, dims, strides, box)) return cudaErrorInvalidValue;
+    const cuuint64_t strides[1] = {dims[0] * esize};
+    const cuuint32_t box[2] = {row, A_MN ? 64u : 128u};
+    if (!make_tensor_map(&ta, a, 2, dims, strides, box, type)) return cudaErrorInvalidValue;
   }
   {
     const cuuint64_t dims[2] = {B_MN ? (cuuint64_t)N : (cuuint64_t)K,
                                 B_MN ? (cuuint64_t)K : (cuuint64_t)N};
-    const cuuint64_t strides[1] = {dims[0] * 2};
-    const cuuint32_t box[2] = {64, B_MN ? 64u : 128u};
-    if (!make_tensor_map(&tb, b, 2, dims, strides, box)) return cudaErrorInvalidValue;
+    const cuuint64_t strides[1] = {dims[0] * esize};
+    const cuuint32_t box[2] = {row, B_MN ? 64u : 128u};
+    if (!make_tensor_map(&tb, b, 2, dims, strides, box, type)) return cudaErrorInvalidValue;
   }
   static const cudaError_t attr =
       cudaFuncSetAttribute(wgmma_gemm_kernel<A_MN, B_MN, OUT>,

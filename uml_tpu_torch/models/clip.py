@@ -74,7 +74,9 @@ text tower runs per layer, causal, through the same halves (never
 text_tower).  The int8 path folds the LN into the fp32 QKV and c_fc
 weights and quantizes those; out_proj and c_proj are cast to the compute
 dtype first (clip.py:192-199, 234-257); the quantized weights are cached
-like the folded ones.  ``UML_TOWER_Q8=1`` runs the L-1 full int8 image
+like the folded ones, K-major ([out, in], the layout the card's int8
+GEMM reads) and handed to the ops as [in, out] views, so no call
+transposes them.  ``UML_TOWER_Q8=1`` runs the L-1 full int8 image
 layers through tower_q8 in one call ("0" and "auto": per layer, as
 uml_tpu's gate has it).  Inference-only: a quant mode raises when autograd
 would want a gradient.
@@ -211,6 +213,13 @@ class _Cached:
         return self._value
 
 
+def _in_out(q8_weights):
+    """The cached int8 weights, K-major, as [in, out] views: the layout the
+    int8 ops take, which the card's kernels read in place."""
+    return tuple(t.transpose(-2, -1) if t.dtype == torch.int8 else t
+                 for t in q8_weights)
+
+
 def _is_fused(attn_impl: str, ln_matmul_impl: str) -> bool:
     """The half-block kernels run the layers (clip.py:272); otherwise the
     non-fused branch does."""
@@ -272,14 +281,16 @@ class ResidualAttentionBlock(nn.Module):
                      + quantize_weight(self.attn.out_proj.weight.to(dtype).t())
                      + quantize_weight(w1_eff)
                      + quantize_weight(self.mlp.c_proj.weight.to(dtype).t()))
-        wq, wsc, woq, wosc, w1q, w1sc, w2q, w2sc = (t.contiguous()
-                                                    for t in quantized)
+        # each int8 weight stored once K-major, the scales as they are
+        wq, wsc, woq, wosc, w1q, w1sc, w2q, w2sc = (
+            t.t().contiguous() if t.dtype == torch.int8 else t for t in quantized)
         return (wq, wsc, b_eff, woq, wosc, self.attn.out_proj.bias.float(),
                 w1q, w1sc, b1_eff, w2q, w2sc, self.mlp.c_proj.bias.float())
 
     def quantized(self, dtype):
         """(wq, wsc, b_eff, woq, wosc, bo, w1q, w1sc, b1, w2q, w2sc, b2):
-        int8 weights [in, out] with fp32 column scales, fp32 biases;
+        int8 weights K-major ([out, in]: ``quantize_weight(w)[0].t()`` of
+        the [in, out] weight) with fp32 column scales, fp32 biases;
         cached, and inference-only."""
         params = list(self.parameters())
         check_inference("the int8 serving modes", *params)
@@ -292,7 +303,7 @@ class ResidualAttentionBlock(nn.Module):
         caller's request for the plain math (clip.py:225-227): every half
         then runs its plain version, wherever the tensor lies."""
         (wq, wsc, b_eff, woq, wosc, bo, w1q, w1sc, b1, w2q, w2sc,
-         b2) = self.quantized(x.dtype)
+         b2) = _in_out(self.quantized(x.dtype))
         folded = None if halves == Q8_HALVES["int8"] else self.folded(x.dtype)
         plain = "reference" in (self.attn_impl, self.ln_matmul_impl)
         attn_q8, attn, mlp_q8, mlp = (
@@ -406,7 +417,7 @@ class Transformer(nn.Module):
         last = len(self.resblocks) - 1
         if self._use_tower_q8(x, causal, cls_only_last, quant):
             n_full = len(self.resblocks) - (1 if cls_only_last else 0)
-            x = tower_q8(x, *self.stacked_q8(x.dtype, n_full),
+            x = tower_q8(x, *_in_out(self.stacked_q8(x.dtype, n_full)),
                          heads=self.heads)
             if cls_only_last:
                 x = self.resblocks[last](x, cls_only=True)
@@ -451,8 +462,9 @@ class Transformer(nn.Module):
         return ok if env == "1" else ok and x.is_cuda
 
     def stacked_q8(self, dtype, n_layers: int):
-        """The first ``n_layers`` layers' int8 weights stacked on a
-        leading layer axis — the operands of tower_q8 (cached)."""
+        """The first ``n_layers`` layers' int8 weights (K-major, as
+        ``quantized`` holds them) stacked on a leading layer axis — the
+        operands of tower_q8 (cached)."""
         def build():
             per_layer = [b.quantized(dtype) for b in self.resblocks[:n_layers]]
             return tuple(torch.stack(t) for t in zip(*per_layer))

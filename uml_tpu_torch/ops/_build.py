@@ -85,6 +85,8 @@ SIGNATURES = {
     "uml_ln_gemm": [_P] * 8 + [_I] * 3 + [_L] + [_I] * 3 + [_F, _P],
     # a, b, c, ws, ws_floats, R, P, N, splits, stream
     "uml_gemm_at": [_P] * 4 + [_L] + [_I] * 4 + [_P],
+    # a, w, row_scale, col_scale, bias, res, out, M, N, K, epi, stream
+    "uml_q8_gemm": [_P] * 7 + [_I] * 4 + [_P],
     # q, k, v, out, B, H, S, D, causal, then the batch, head and row
     # strides of q, k, v and out (elements), stream
     "uml_flash_attention": [_P] * 4 + [_L, _I, _I, _I, _I] + [_L] * 12 + [_P],

@@ -2,12 +2,14 @@
 
 ``ln_gemm`` launches one (prologue, epilogue, layout) triple of
 ``csrc/ln_gemm.cuh`` through ``csrc/gemm.cu``, ``gemm_at`` one weight-
-gradient product of ``csrc/gemm_at.cuh``.  They are the products that the
-half-blocks (#1-#5, #9, #10 with a bf16 out-projection) and the training
-rows #6, #7, #8, #19 and #20 launch inside their own C calls, on the wgmma
-engine of ``csrc/wgmma_gemm.cuh``; no model calls these wrappers.  The card
-tests hold each against its plain version, and ``chip_smoke.py`` times
-each beside one cuBLAS call at its shape.
+gradient product of ``csrc/gemm_at.cuh``, ``q8_gemm`` one int8 product of
+``csrc/q8_gemm.cuh``.  They are the products that the half-blocks (#1-#5,
+#9, #10 with a bf16 out-projection), the training rows #6, #7, #8, #19
+and #20 and the int8 rows #10-#12 launch inside their own C calls, on the
+wgmma engine of ``csrc/wgmma_gemm.cuh``; no model calls these wrappers.
+The card tests hold each against its plain version, and
+``chip_smoke.py`` times each beside one cuBLAS call at its shape
+(``torch.matmul``, or ``torch._int_mm`` for the int8 products).
 
 The triples, as ``(pro, epi, trans_b)``:
 
@@ -17,7 +19,10 @@ The triples, as ``(pro, epi, trans_b)``:
   W_eff^T, g . w2^T, dpre . w1^T);
 * ``DACT_F32`` (PRO_LN, EPI_DACT_F32, False): y = bf16(rawLN(a)) @ w +
   bias in fp32 -> (dpre = bf16(dy * quick_gelu'(y)), yact =
-  bf16(quick_gelu(y)), the column sums of the fp32 dpre per 128-row tile);
+  bf16(quick_gelu(y)), the column sums of the fp32 dpre per 128-row tile)
+  with dy [M, N] fp32 (row 20);
+* ``DACT`` (PRO_LN, EPI_DACT, False): the same with dy [M, N] bf16 and no
+  column sums -> (dpre, yact) (row 19);
 * ``QUICK_GELU`` (PRO_LN, EPI_QUICK_GELU, False): y = bf16(rawLN(a)) @ w
   + bias in fp32 -> bf16(quick_gelu(y)) (the MLP in);
 * ``GELU_STASH`` (PRO_LN, EPI_GELU_STASH, False): the same -> (bf16(
@@ -28,8 +33,8 @@ The triples, as ``(pro, epi, trans_b)``:
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches the kernel or raises (bf16 operands, N and K multiples of 64;
-gemm_at: P and N multiples of 64, any row count).  Every triple here runs
-on the engine.
+gemm_at: P and N multiples of 64, any row count; q8_gemm: int8 operands,
+the weight K-major [N, K]).  Every triple here runs on the engine.
 """
 
 from __future__ import annotations
@@ -39,13 +44,15 @@ import torch
 from uml_tpu_torch.ops import _build
 from uml_tpu_torch.ops.ln_matmul import (act_and_grad, ln_rows_plain,
                                          quick_gelu_f32)
+from uml_tpu_torch.ops.quant import q8_dot
 
 PRO_NONE, PRO_LN = 0, 1
 EPI_NONE, EPI_QUICK_GELU, EPI_RESIDUAL, EPI_GELU_STASH = 0, 1, 2, 3
-EPI_F32, EPI_DACT_F32 = 4, 6
+EPI_F32, EPI_DACT, EPI_DACT_F32 = 4, 5, 6
 TRIPLES = {"QKV": (PRO_LN, EPI_NONE, False),
            "TRANS_B": (PRO_NONE, EPI_NONE, True),
            "TRANS_B_F32": (PRO_NONE, EPI_F32, True),
+           "DACT": (PRO_LN, EPI_DACT, False),
            "DACT_F32": (PRO_LN, EPI_DACT_F32, False),
            "QUICK_GELU": (PRO_LN, EPI_QUICK_GELU, False),
            "GELU_STASH": (PRO_LN, EPI_GELU_STASH, False),
@@ -73,6 +80,8 @@ def ln_gemm_plain(a, w, bias=None, res=None, *, triple: str, eps: float = 1e-5):
         return out if epi == EPI_QUICK_GELU else (out, y.to(torch.bfloat16))
     act, dact = act_and_grad(y)
     d = res.float() * dact
+    if epi == EPI_DACT:
+        return d.to(torch.bfloat16), act.to(torch.bfloat16)
     rows = d.shape[0]
     pad = -rows % ROW_TILE
     part = torch.cat([d, d.new_zeros(pad, d.shape[1])]).view(
@@ -82,9 +91,9 @@ def ln_gemm_plain(a, w, bias=None, res=None, *, triple: str, eps: float = 1e-5):
 
 def ln_gemm(a, w, bias=None, res=None, *, triple: str, eps: float = 1e-5):
     """a [M, K] bf16; w [K, N] (or [N, K] for the TRANS_B triples) bf16;
-    bias [N] fp32 or None; res: dy [M, N] fp32 (DACT_F32) or the residual
-    [M, N] bf16 (RESIDUAL) -> the triple's outputs (see the module
-    docstring)."""
+    bias [N] fp32 or None; res: dy [M, N] fp32 (DACT_F32) or bf16 (DACT),
+    or the residual [M, N] bf16 (RESIDUAL) -> the triple's outputs (see
+    the module docstring)."""
     if a.device.type == "cpu":
         return ln_gemm_plain(a, w, bias, res, triple=triple, eps=eps)
     pro, epi, trans_b = TRIPLES[triple]
@@ -96,8 +105,9 @@ def ln_gemm(a, w, bias=None, res=None, *, triple: str, eps: float = 1e-5):
     _build.check_tensor("w", w, bf16, (n, k) if trans_b else (k, n), dev)
     if bias is not None:
         _build.check_tensor("bias", bias, f32, (n,), dev)
-    if epi == EPI_DACT_F32:
-        _build.check_tensor("dy", res, f32, (m, n), dev)
+    if epi in (EPI_DACT, EPI_DACT_F32):
+        _build.check_tensor("dy", res, f32 if epi == EPI_DACT_F32 else bf16,
+                            (m, n), dev)
     if epi == EPI_RESIDUAL:
         _build.check_tensor("res", res, bf16, (m, n), dev)
     with torch.cuda.device(dev):
@@ -105,7 +115,7 @@ def ln_gemm(a, w, bias=None, res=None, *, triple: str, eps: float = 1e-5):
                           device=dev)
         xn = torch.empty_like(a) if pro == PRO_LN else None
         aux = part = None
-        if epi in (EPI_DACT_F32, EPI_GELU_STASH):
+        if epi in (EPI_DACT, EPI_DACT_F32, EPI_GELU_STASH):
             aux = torch.empty((m, n), dtype=bf16, device=dev)
         if epi == EPI_DACT_F32:
             part = torch.empty((-(-m // ROW_TILE), n), dtype=f32, device=dev)
@@ -120,7 +130,7 @@ def ln_gemm(a, w, bias=None, res=None, *, triple: str, eps: float = 1e-5):
     ln_gemm.launches += 1
     if epi == EPI_DACT_F32:
         return out, aux, part
-    return (out, aux) if epi == EPI_GELU_STASH else out
+    return (out, aux) if epi in (EPI_DACT, EPI_GELU_STASH) else out
 
 
 ln_gemm.launches = 0
@@ -158,3 +168,50 @@ def gemm_at(a, b, *, splits: int = 0):
 
 
 gemm_at.launches = 0
+
+
+Q8_EPIS = {"BF16": 0, "F32": 1, "RESIDUAL": 2}   # Q8_EPI_* of q8_gemm.cuh
+
+
+def q8_gemm_plain(a, w, row_scale, col_scale, bias, res=None, *, epi: str):
+    """Plain version of ``q8_gemm``: the integer product exact, then the
+    epilogue in q8_gemm.cuh's order, each step rounded on its own."""
+    y = q8_dot(a, row_scale[:, None], w.t(), col_scale)
+    if epi == "RESIDUAL":
+        y = res.float() + y
+    y = y + bias
+    return y if epi == "F32" else y.to(torch.bfloat16)
+
+
+def q8_gemm(a, w, row_scale, col_scale, bias, res=None, *, epi: str):
+    """a [M, K] int8; w [N, K] int8 (K-major: the transpose of the [in,
+    out] kernel); row_scale [M], col_scale [N], bias [N] fp32; res [M, N]
+    bf16 (RESIDUAL) -> [M, N]: bf16(y + b) (BF16), y + b in fp32 (F32) or
+    bf16((res + y) + b) (RESIDUAL), y = ((float)(a . w^T) * row_scale) *
+    col_scale."""
+    if a.device.type == "cpu":
+        return q8_gemm_plain(a, w, row_scale, col_scale, bias, res, epi=epi)
+    m, k = a.shape
+    n = w.shape[0]
+    _build.check_dims(N=n, K=k)
+    i8, f32, dev = torch.int8, torch.float32, a.device
+    _build.check_tensor("a", a, i8, (m, k), dev)
+    _build.check_tensor("w", w, i8, (n, k), dev)
+    _build.check_tensor("row_scale", row_scale, f32, (m,), dev)
+    _build.check_tensor("col_scale", col_scale, f32, (n,), dev)
+    _build.check_tensor("bias", bias, f32, (n,), dev)
+    if epi == "RESIDUAL":
+        _build.check_tensor("res", res, torch.bfloat16, (m, n), dev)
+    with torch.cuda.device(dev):
+        out = torch.empty((m, n), dtype=f32 if epi == "F32" else torch.bfloat16,
+                          device=dev)
+        _build.launch("uml_q8_gemm", a.data_ptr(), w.data_ptr(),
+                      row_scale.data_ptr(), col_scale.data_ptr(),
+                      bias.data_ptr(), None if res is None else res.data_ptr(),
+                      out.data_ptr(), m, n, k, Q8_EPIS[epi],
+                      torch.cuda.current_stream(dev).cuda_stream)
+    q8_gemm.launches += 1
+    return out
+
+
+q8_gemm.launches = 0

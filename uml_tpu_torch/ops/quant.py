@@ -26,6 +26,13 @@ returns q's dtype); the Pallas kernel quantizes its fp32 output instead.
 Wrappers: ``attn_block_q8`` / ``mlp_block_q8`` take the plain version for
 a CPU tensor and launch ``csrc/attn_block_q8.cu`` / ``csrc/mlp_block_q8.cu``
 for a CUDA tensor, or raise; each counts its launches on ``.launches``.
+They take the int8 weights in the JAX [in, out] layout; the kernels read
+them K-major ([out, in]: wgmma takes 8-bit operands K-major only), as
+``w.t().contiguous()``, which is free for a transposed view of a K-major
+tensor (what the model caches: ``models/clip.py::_quantize``) and a copy
+for a row-major [in, out] one.  ``_launch_attn_block_q8`` /
+``_launch_mlp_block_q8`` take the K-major weights themselves and raise on
+an [in, out] shape that differs from it.
 ``ln_attn_block_q8`` / ``ln_mlp_block_q8`` keep uml_tpu's pre-fold
 signatures (quant.py:480-535).  Inference-only, as in uml_tpu
 (quant.py:28-30): every op raises when autograd would want a gradient.
@@ -157,21 +164,22 @@ def check_inference(name: str, *tensors) -> None:
 
 def _launch_attn_block_q8(x, wq, wsc, b_eff, wo_ops, bo, heads, causal,
                           q8_out, eps):
-    """-> (out, q8, qscale): the output and the scratch the launches
-    wrote; q8[:B*S*H*64] then holds the attention output's integers
-    (q8_out) and qscale their row scales."""
+    """The int8 weights K-major: wq [3*H*64, K], woq [K, H*64] (a bf16 wo
+    stays [H*64, K]) -> (out, q8, qscale): the output and the scratch the
+    launches wrote; q8[:B*S*H*64] then holds the attention output's
+    integers (q8_out) and qscale their row scales."""
     b, s, k = x.shape
     hd = heads * HEAD_DIM
     _build.check_dims(K=k)
     bf16, f32, dev = torch.bfloat16, torch.float32, x.device
     _build.check_tensor("x", x, bf16, (b, s, k), dev)
-    _build.check_tensor("wq", wq, torch.int8, (k, 3 * hd), dev)
+    _build.check_tensor("wq", wq, torch.int8, (3 * hd, k), dev)
     _build.check_tensor("wsc", wsc, f32, (3 * hd,), dev)
     _build.check_tensor("b_eff", b_eff, f32, (3 * hd,), dev)
     _build.check_tensor("bo", bo, f32, (k,), dev)
     if q8_out:
         woq, wosc = wo_ops
-        _build.check_tensor("woq", woq, torch.int8, (hd, k), dev)
+        _build.check_tensor("woq", woq, torch.int8, (k, hd), dev)
         _build.check_tensor("wosc", wosc, f32, (k,), dev)
         wo_ptr, wosc_ptr = woq.data_ptr(), wosc.data_ptr()
     else:
@@ -199,13 +207,16 @@ def attn_block_q8(x, wq, wsc, b_eff, wo_ops, bo, *, heads: int,
                   eps: float = 1e-5):
     """x [B,S,K] bf16; wq int8 [K,3*H*64], wsc / b_eff fp32 [3*H*64];
     ``wo_ops`` (woq int8 [H*64,K], wosc fp32 [K]) or (wo bf16 [H*64,K],);
-    bo fp32 [K] -> [B,S,K]."""
+    bo fp32 [K] -> [B,S,K].  The card reads the int8 weights K-major (the
+    module docstring)."""
     check_inference("attn_block_q8", x, b_eff, bo, *wo_ops)
     if x.device.type == "cpu":
         return attn_block_q8_plain(x, wq, wsc, b_eff, wo_ops, bo, heads=heads,
                                    causal=causal, q8_out=q8_out, eps=eps)
-    out, _, _ = _launch_attn_block_q8(x, wq, wsc, b_eff, wo_ops, bo, heads,
-                                      causal, q8_out, eps)
+    if q8_out:
+        wo_ops = (wo_ops[0].t().contiguous(), wo_ops[1])
+    out, _, _ = _launch_attn_block_q8(x, wq.t().contiguous(), wsc, b_eff,
+                                      wo_ops, bo, heads, causal, q8_out, eps)
     attn_block_q8.launches += 1
     return out
 
@@ -214,17 +225,18 @@ attn_block_q8.launches = 0
 
 
 def _launch_mlp_block_q8(x, w1q, w1sc, b1, w2q, w2sc, b2, eps):
-    """-> (out, q8, qscale): q8[:rows*M] then holds the integers of
-    quick_gelu(pre) and qscale their row scales."""
+    """The int8 weights K-major: w1q [M, K], w2q [K, M] -> (out, q8,
+    qscale): q8[:rows*M] then holds the integers of quick_gelu(pre) and
+    qscale their row scales."""
     k = x.shape[-1]
-    m = w1q.shape[-1]
+    m = w1sc.shape[-1]
     _build.check_dims(K=k, M=m)
     f32, dev = torch.float32, x.device
     _build.check_tensor("x", x, torch.bfloat16, x.shape, dev)
-    _build.check_tensor("w1q", w1q, torch.int8, (k, m), dev)
+    _build.check_tensor("w1q", w1q, torch.int8, (m, k), dev)
     _build.check_tensor("w1sc", w1sc, f32, (m,), dev)
     _build.check_tensor("b1", b1, f32, (m,), dev)
-    _build.check_tensor("w2q", w2q, torch.int8, (m, k), dev)
+    _build.check_tensor("w2q", w2q, torch.int8, (k, m), dev)
     _build.check_tensor("w2sc", w2sc, f32, (k,), dev)
     _build.check_tensor("b2", b2, f32, (k,), dev)
     rows = x.numel() // k
@@ -244,7 +256,8 @@ def _launch_mlp_block_q8(x, w1q, w1sc, b1, w2q, w2sc, b2, eps):
 def mlp_block_q8(x, w1q, w1sc, b1, w2q, w2sc, b2, *, eps: float = 1e-5,
                  activation="quick_gelu"):
     """x [..., K] bf16; w1q int8 [K,M], w1sc / b1 fp32 [M]; w2q int8 [M,K],
-    w2sc / b2 fp32 [K] -> [..., K].  The kernel takes quick_gelu only."""
+    w2sc / b2 fp32 [K] -> [..., K].  The kernel takes quick_gelu only and
+    reads the int8 weights K-major (the module docstring)."""
     check_inference("mlp_block_q8", x, b1, b2)
     if x.device.type == "cpu":
         return mlp_block_q8_plain(x, w1q, w1sc, b1, w2q, w2sc, b2, eps=eps,
@@ -252,7 +265,8 @@ def mlp_block_q8(x, w1q, w1sc, b1, w2q, w2sc, b2, *, eps: float = 1e-5,
     if activation != "quick_gelu":
         raise ValueError(f"activation={activation!r}: the CUDA kernel "
                          "takes quick_gelu only")
-    out, _, _ = _launch_mlp_block_q8(x, w1q, w1sc, b1, w2q, w2sc, b2, eps)
+    out, _, _ = _launch_mlp_block_q8(x, w1q.t().contiguous(), w1sc, b1,
+                                     w2q.t().contiguous(), w2sc, b2, eps)
     mlp_block_q8.launches += 1
     return out
 

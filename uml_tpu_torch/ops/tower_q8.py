@@ -18,6 +18,10 @@ quantizes them):
     woq  int8 [L,HD,K],  wosc fp32 [L,K],  bo fp32 [L,K]
     w1q  int8 [L,K,M],   w1sc fp32 [L,M],  b1 fp32 [L,M]
     w2q  int8 [L,M,K],   w2sc fp32 [L,K],  b2 fp32 [L,K]
+
+The kernels read each int8 weight K-major ([L, out, in]) as
+``w.transpose(1, 2).contiguous()``, free for a transposed view of a
+K-major stack (``models/clip.py::stacked_q8``), a copy otherwise.
 """
 
 from __future__ import annotations
@@ -60,19 +64,22 @@ def tower_q8(x, wq, wsc, b_eff, woq, wosc, bo, w1q, w1sc, b1, w2q, w2sc, b2, *,
     _build.check_dims(K=k, M=m)
     if layers < 1:
         raise ValueError("tower_q8 needs at least one layer")
+    # the int8 weights K-major, [L, out, in]
+    wq, woq, w1q, w2q = (t.transpose(1, 2).contiguous()
+                         for t in (wq, woq, w1q, w2q))
     i8, f32, dev = torch.int8, torch.float32, x.device
     for name, t, dtype, shape in (
             ("x", x, torch.bfloat16, (b, s, k)),
-            ("wq", wq, i8, (layers, k, 3 * hd)),
+            ("wq", wq, i8, (layers, 3 * hd, k)),
             ("wsc", wsc, f32, (layers, 3 * hd)),
             ("b_eff", b_eff, f32, (layers, 3 * hd)),
-            ("woq", woq, i8, (layers, hd, k)),
+            ("woq", woq, i8, (layers, k, hd)),
             ("wosc", wosc, f32, (layers, k)),
             ("bo", bo, f32, (layers, k)),
-            ("w1q", w1q, i8, (layers, k, m)),
+            ("w1q", w1q, i8, (layers, m, k)),
             ("w1sc", w1sc, f32, (layers, m)),
             ("b1", b1, f32, (layers, m)),
-            ("w2q", w2q, i8, (layers, m, k)),
+            ("w2q", w2q, i8, (layers, k, m)),
             ("w2sc", w2sc, f32, (layers, k)),
             ("b2", b2, f32, (layers, k))):
         _build.check_tensor(name, t, dtype, shape, dev)
