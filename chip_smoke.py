@@ -168,10 +168,17 @@ PORTS = [
      "uml_tpu/ops/fused_attention.py:143"),
     ("layer_norm", "uml_tpu_torch/csrc/layer_norm.cu",
      "uml_tpu/ops/layer_norm.py:33"),
+    # the QKV product and the attention of rows 1, 2, 4, 5 and 7 (bf16) and
+    # of rows 10 and 12 (int8) as one kernel for S <= 256; the halves count
+    # each launch here too
+    ("qkv_attention", "uml_tpu_torch/csrc/qkv_attention.cu",
+     "uml_tpu/ops/fused_attention.py:394"),
+    ("qkv_attention_q8", "uml_tpu_torch/csrc/qkv_attention.cu",
+     "uml_tpu/ops/quant.py:168"),
 ]
 TRAIN_PORTS = ("attn_block_stash", "attn_block_bwd", "attn_block_cls_bwd",
                "mlp_block_stash")
-Q8_PORTS = ("attn_block_q8", "mlp_block_q8", "tower_q8")
+Q8_PORTS = ("attn_block_q8", "mlp_block_q8", "tower_q8", "qkv_attention_q8")
 RECOMPUTE_PORTS = ("attn_block_bwd_recompute", "mlp_bwd", "mlp_bwd_dw")
 # the non-fused image encode launches the first three; the public ops
 # called on the card the rest (the 2-d ln_matmul is the same wrapper)
@@ -223,6 +230,19 @@ REL_BOUND = {"attn_block": 1 / 64, "attn_block_cls": 1 / 64,
              "attn_block_bwd_recompute_s257": 1 / 64,
              "attn_block_bwd_recompute_s785": 1 / 64,
              "attn_block_bwd_s785": 1 / 64, "attn_block_cls_bwd_s785": 1 / 64,
+             # the fused QKV + attention kernel on its own (attn; qkv and
+             # attn with the stash), and the halves on both sides of its
+             # route: S = 50 (ViT-B/32), 77 causal (text), 197, 256 fused,
+             # 257 the chain
+             "qkv_attention": 1 / 64, "qkv_attention_stash": (1 / 64, 1 / 64),
+             "qkv_attention_cls": 1 / 64, "qkv_attention_q8": 1 / 64,
+             "attn_block_stash_causal": (1 / 64, 1 / 64, 1 / 64),
+             **{f"{row}_{tag}": 1 / 64 for tag in ("s50", "s256") for row in (
+                 "attn_block", "attn_block_cls", "attn_block_q8",
+                 "attn_block_bwd_recompute")},
+             "attn_block_q8_s257": 1 / 64,
+             **{f"attn_block_stash_{tag}": (1 / 64, 1 / 64, 1 / 64)
+                for tag in ("s50", "s256", "s257")},
              # the engine's products against fp32 products of the same
              # bf16 operands: a bf16 output 1/64, an fp32 output 1e-3
              # (summation order, and an LN'd operand that may round to
@@ -552,9 +572,7 @@ def _attention_witness(xv, attn_w, heads=12):
     from uml_tpu_torch.ops import fused_attention as fa
 
     b, s, _ = xv.shape
-    _, qkv, attn = fa._launch_attn_block(xv, *attn_w, heads, False, 1e-5, s,
-                                         entry="uml_attn_block_stash")
-    qkv = qkv.view(b, s, -1)
+    _, qkv, attn = fa.attn_block_stash(xv, *attn_w, heads=heads)
     w = _attention_fp32(qkv, heads)
     plain = fa.attention_plain(*fa._qkv_heads(qkv, heads), causal=False)
     plain = plain.transpose(1, 2).reshape(b * s, -1)
@@ -689,6 +707,28 @@ def phase_kernels():
         ("attn_block_stash", lambda *a: fa.attn_block_stash(*a, heads=12),
          lambda *a: fa.attn_block_stash_plain(*a, heads=12),
          (xv, *attn_v), 0, qkv_f + out_f + attn_f, vit_qkv),
+        ("attn_block_stash_causal",
+         lambda *a: fa.attn_block_stash(*a, heads=8, causal=True),
+         lambda *a: fa.attn_block_stash_plain(*a, heads=8, causal=True),
+         (xt, *attn_t), 0, 2.0 * rows_t * kt * 4 * kt + text_attn_f,
+         (rows_t, kt, 3 * kt, False)),
+        # the fused QKV + attention kernel on its own (after the LN
+        # pre-pass): the main path's inference form, the training stash,
+        # the CLS form (q of the first 64 rows, K and V of all) and int8
+        ("qkv_attention", lambda *a: fa.qkv_attention(*a, heads=12),
+         lambda *a: fa.qkv_attention_plain(*a, heads=12),
+         (xv, *attn_v[:2]), 0, qkv_f + attn_f, vit_qkv),
+        ("qkv_attention_stash", lambda *a: fa.qkv_attention(*a, heads=12, stash=True),
+         lambda *a: fa.qkv_attention_plain(*a, heads=12, stash=True),
+         (xv, *attn_v[:2]), 0, qkv_f + attn_f, vit_qkv),
+        ("qkv_attention_cls", lambda *a: fa.qkv_attention(*a, heads=12, q_rows=1),
+         lambda *a: fa.qkv_attention_plain(*a, heads=12, q_rows=1),
+         (xv, *attn_v[:2]), 0,
+         2.0 * rows * k * 2 * k + 2.0 * b * k * k + _attn_flops(b, s, 12, q_rows=1),
+         vit_qkv),
+        ("qkv_attention_q8", lambda x, wq, wsc, be: q8.qkv_attention_q8(x, wq, wsc, be, heads=12),
+         lambda x, wq, wsc, be: q8.qkv_attention_q8_plain(x, wq, wsc, be, heads=12),
+         (xv, *q8v[:3]), qkv_f, attn_f, (rows, k, 3 * k, True)),
         # dattn = g . wo^T, the attention backward (the recomputed scores,
         # dP, dS . K, dS^T . Q and P^T . dO: 10 S^2 D per head), dxn
         ("attn_block_bwd", lambda *a: fa.attn_block_bwd(*a, heads=12),
@@ -783,6 +823,7 @@ def phase_kernels():
          lambda p: F.scaled_dot_product_attention(*packed_views(p))),
     ]
     cases += (_long_seq_cases(gen, dev, attn_v)
+              + _route_cases(gen, dev, attn_v, q8v)
               + _product_cases(gen, dev, xv, g_v, wv, qkv_v))
     results = {}
     for name, kernel_fn, plain_fn, inputs, ops8, flops16, yard, *library in cases:
@@ -852,6 +893,22 @@ def phase_kernels():
     _check(not any("ln_gemm_kernel" in n for n in names)
            and sum("wgmma_gemm_kernel" in n for n in names) == 2,
            ("row 19: the two products on the engine, no wmma", names))
+    # rows 5 and 10 at S = 197 run the fused QKV + attention kernel: no
+    # flash_attention, and the out-projection is their one engine product
+    for row, fn, out_proj in (
+            ("row 5 attn_block_stash", lambda: fa.attn_block_stash(xv, *attn_v, heads=12),
+             "wgmma_gemm_kernel<false, true, 4>"),
+            ("row 10 attn_block_q8",
+             lambda: q8.attn_block_q8(xv, *q8v[:3], q8v[3:5], q8v[5], heads=12),
+             "wgmma_gemm_kernel<false, false, 8>")):
+        names = _kernel_names(_profile(row, fn))
+        _check(sum("qkv_attention_kernel" in n for n in names) == 1
+               and not any("flash_attention_kernel" in n for n in names)
+               and [n for n in names if "wgmma_gemm_kernel" in n] == [
+                   n for n in names if out_proj in n] and len(
+                   [n for n in names if out_proj in n]) == 1,
+               (f"{row}: the fused kernel and the out-projection only", names))
+    _check_routes(gen, dev)
     return results
 
 
@@ -911,6 +968,100 @@ def _long_seq_cases(gen, dev, attn_v):
                  + 2.5 * _attn_flops(b, s, heads, q_rows=1), (rows, k, 2 * k, False)),
             ]
     return cases
+
+
+def _route_cases(gen, dev, attn_v, q8v):
+    """Phase-2 cases of the attention halves on both sides of the fused
+    kernel's route (csrc/qkv_attention.cu for S <= 256): rows 1, 2, 5, 10
+    and 7 at S = 50 (ViT-B/32: K = 768, 12 heads, B = 64) and S = 256
+    (ViT-B/16 widths, B = 48) on the fused kernel, and rows 5 and 10 at
+    S = 257 (ViT-L/14: K = 1024, 16 heads, B = 48) on the chain, beside
+    rows 1, 2 and 7 at 257 (_long_seq_cases); S = 77 causal and 197 are
+    phase 2's own cases."""
+    import torch
+
+    from uml_tpu_torch.ops import fused_attention as fa
+    from uml_tpu_torch.ops import quant as q8
+
+    bf = torch.bfloat16
+    wl = _block_weights(gen, 1024, 4096, 1024, dev)
+    attn_l = (wl["w_eff"], wl["b_eff"], wl["wo"], wl["bo"])
+    q8l = _q8_case_weights(gen, 1024, 4096, 1024, dev)
+
+    def q8_call(fn, heads):
+        return lambda x, wq, wsc, be, wo, wosc, bo: fn(x, wq, wsc, be, (wo, wosc), bo,
+                                                       heads=heads)
+
+    cases = []
+    for tag, b, s, k, heads, attn, qw in (("s50", 64, 50, 768, 12, attn_v, q8v),
+                                          ("s256", 48, 256, 768, 12, attn_v, q8v),
+                                          ("s257", 48, 257, 1024, 16, attn_l, q8l)):
+        x = torch.randn(b, s, k, generator=gen, device=dev).to(bf)
+        g = torch.randn(b, s, k, generator=gen, device=dev).to(bf)
+        rows = b * s
+        qkv_f, out_f = 2.0 * rows * k * 3 * k, 2.0 * rows * k * k
+        attn_f = _attn_flops(b, s, heads)
+        yard = (rows, k, 3 * k, False)
+        cases += [
+            (f"attn_block_stash_{tag}", lambda *a, h=heads: fa.attn_block_stash(*a, heads=h),
+             lambda *a, h=heads: fa.attn_block_stash_plain(*a, heads=h), (x, *attn), 0,
+             qkv_f + out_f + attn_f, yard),
+            (f"attn_block_q8_{tag}", q8_call(q8.attn_block_q8, heads),
+             q8_call(q8.attn_block_q8_plain, heads), (x, *qw[:6]), qkv_f + out_f, attn_f,
+             (rows, k, 3 * k, True)),
+        ]
+        if tag == "s257":
+            continue
+        cases += [
+            (f"attn_block_{tag}", lambda *a, h=heads: fa.attn_block(*a, heads=h),
+             lambda *a, h=heads: fa.attn_block_plain(*a, heads=h), (x, *attn), 0,
+             qkv_f + out_f + attn_f, yard),
+            (f"attn_block_cls_{tag}", lambda *a, h=heads: fa.attn_block_cls(*a, heads=h),
+             lambda *a, h=heads: fa.attn_block_cls_plain(*a, heads=h), (x, *attn), 0,
+             2.0 * rows * k * 2 * k + 4.0 * b * k * k
+             + _attn_flops(b, s, heads, q_rows=1), yard),
+            (f"attn_block_bwd_recompute_{tag}",
+             lambda *a, h=heads: fa.attn_block_bwd_recompute(*a, heads=h),
+             lambda *a, h=heads: fa.attn_block_bwd_recompute_plain(*a, heads=h),
+             (x, g, *attn[:3]), 0, 2 * qkv_f + out_f + 3.5 * attn_f, yard),
+        ]
+    return cases
+
+
+def _check_routes(gen, dev):
+    """The route each S takes, by the launch counters: the bf16 halves
+    (rows 1, 2, 5 and 7) and the int8 half (row 10) count one launch of
+    the fused kernel each at S = 50, 77 (causal), 197 and 256, none at
+    257."""
+    import torch
+
+    from uml_tpu_torch.ops import fused_attention as fa
+    from uml_tpu_torch.ops import quant as q8
+
+    bf = torch.bfloat16
+    seen = []
+    for s, k, heads, causal in ((50, 768, 12, False), (77, 512, 8, True),
+                                (197, 768, 12, False), (256, 768, 12, False),
+                                (257, 1024, 16, False)):
+        x = torch.randn(2, s, k, generator=gen, device=dev).to(bf)
+        w = _block_weights(gen, k, 4 * k, k, dev)
+        attn = (w["w_eff"], w["b_eff"], w["wo"], w["bo"])
+        qw = _q8_case_weights(gen, k, 4 * k, k, dev)
+        n, n8 = fa.qkv_attention.launches, q8.qkv_attention_q8.launches
+        fa.attn_block(x, *attn, heads=heads, causal=causal)
+        fa.attn_block_stash(x, *attn, heads=heads, causal=causal)
+        fa.attn_block_bwd_recompute(x, x, *attn[:3], heads=heads, causal=causal)
+        halves = 3
+        if not causal:
+            fa.attn_block_cls(x, *attn, heads=heads)
+            halves += 1
+        q8.attn_block_q8(x, *qw[:3], qw[3:5], qw[5], heads=heads, causal=causal)
+        torch.cuda.synchronize()
+        fused = s <= 256
+        got = (fa.qkv_attention.launches - n, q8.qkv_attention_q8.launches - n8)
+        _check(got == (halves * fused, int(fused)), ("route", s, got, fused))
+        seen.append(f"S={s} {'fused' if fused else 'chain'} {got}")
+    print(f"[kernels] attention halves' route by the launch counters: {'; '.join(seen)}")
 
 
 def _product_cases(gen, dev, xv, g_v, wv, qkv_v):
@@ -1035,7 +1186,18 @@ def _wrappers():
             "attn_block_q8": q8.attn_block_q8, "mlp_block_q8": q8.mlp_block_q8,
             "tower_q8": tq8.tower_q8,
             "attn_block_bwd_recompute": fa.attn_block_bwd_recompute,
-            "mlp_bwd": lm.mlp_bwd, "mlp_bwd_dw": lm.mlp_bwd_dw}
+            "mlp_bwd": lm.mlp_bwd, "mlp_bwd_dw": lm.mlp_bwd_dw,
+            "qkv_attention": fa.qkv_attention,
+            "qkv_attention_q8": q8.qkv_attention_q8}
+
+
+def _with_fused(want):
+    """``want`` with the fused QKV + attention kernel's launches: one for
+    each bf16 attention half launched at S <= 256 (every ViT-B/16 and
+    text half here)."""
+    return {**want, "qkv_attention": sum(want.get(k, 0) for k in (
+        "attn_block", "attn_block_cls", "attn_block_stash",
+        "attn_block_bwd_recompute"))}
 
 
 def _counted(fn):
@@ -1207,13 +1369,16 @@ def phase_main_path():
           f"text); launches {launches}")
 
     # expected counts: per image batch 11 full attention halves, 1 CLS
-    # half and 12 MLP halves; one text_tower call per class prompt batch
+    # half and 12 MLP halves; one text_tower call per class prompt batch;
+    # the fused QKV + attention kernel once in each attention half (S =
+    # 197) and in each of the tower's 12 layers (S = 77)
     n_batches = sum(-(-n // batch) for n in (sizes["train"], sizes["val"],
                                            sizes["test"]))
     n_classes = 8
     want = dict.fromkeys(launches, 0)
     want.update({"attn_block": 11 * n_batches, "attn_block_cls": n_batches,
-                 "mlp_block": 12 * n_batches, "text_tower": n_classes})
+                 "mlp_block": 12 * n_batches, "text_tower": n_classes,
+                 "qkv_attention": 12 * n_batches + 12 * n_classes})
     _check(launches == want, (launches, want))
     _check(all(p.device.type == "cuda" for p in encoder.model.parameters()),
            "encoder parameters on the card")
@@ -1261,7 +1426,9 @@ def phase_int8_path(root, sizes, bf16_encoder):
     want = dict.fromkeys(launches, 0)
     want.update({"attn_block_q8": 11 * n_batches + 12 * n_classes,
                  "mlp_block_q8": 11 * n_batches + 12 * n_classes,
-                 "attn_block_cls": n_batches, "mlp_block": n_batches})
+                 "qkv_attention_q8": 11 * n_batches + 12 * n_classes,
+                 "attn_block_cls": n_batches, "qkv_attention": n_batches,
+                 "mlp_block": n_batches})
     _check(launches == want, (launches, want))
     _check(all(p.device.type == "cuda" for p in encoder.model.parameters()),
            "int8 encoder parameters on the card")
@@ -1282,7 +1449,8 @@ def phase_int8_path(root, sizes, bf16_encoder):
     finally:
         os.environ.pop("UML_TOWER_Q8")
     want_tower = dict.fromkeys(tower_launches, 0)
-    want_tower.update({"tower_q8": 1, "attn_block_cls": 1, "mlp_block": 1})
+    want_tower.update({"tower_q8": 1, "qkv_attention_q8": 11, "attn_block_cls": 1,
+                       "qkv_attention": 1, "mlp_block": 1})
     _check(tower_launches == want_tower, (tower_launches, want_tower))
     _check(torch.equal(towered, per_layer), "tower_q8 equals the per-layer path")
     launches["tower_q8"] = tower_launches["tower_q8"]
@@ -1618,14 +1786,16 @@ def phase_train(root, sizes):
                 "attn_block_cls_bwd": fa.attn_block_cls_bwd,
                 "mlp_block_stash": lm.mlp_block_stash,
                 "attn_block_bwd_recompute": fa.attn_block_bwd_recompute,
-                "mlp_bwd": lm.mlp_bwd, "mlp_bwd_dw": lm.mlp_bwd_dw}
+                "mlp_bwd": lm.mlp_bwd, "mlp_bwd_dw": lm.mlp_bwd_dw,
+                "qkv_attention": fa.qkv_attention}
     none = dict.fromkeys(wrappers, 0)
     # frozen path: the three splits encoded once in batches of 128, then
     # head-only steps on the features
     frozen, frozen_wall, _ = _finetune(root, "smoke", wrappers)
     n_enc = sum(-(-sizes[p] // 128) for p in ("train", "val", "test"))
-    _check(frozen == {**none, "attn_block": 11 * n_enc, "attn_block_cls": n_enc,
-                      "mlp_block": 12 * n_enc}, ("smoke launches", frozen))
+    _check(frozen == _with_fused({**none, "attn_block": 11 * n_enc,
+                                  "attn_block_cls": n_enc, "mlp_block": 12 * n_enc}),
+           ("smoke launches", frozen))
 
     # full path: 30 steps at bs 8 through the training kernels; the forward
     # kernels validate (val at iter 0 and for the best model, test at the
@@ -1635,8 +1805,8 @@ def phase_train(root, sizes):
     n_eval = 2 * -(-sizes["val"] // 8) + -(-sizes["test"] // 8)
     evals = {"attn_block": 11 * n_eval, "attn_block_cls": steps + n_eval,
              "mlp_block": 12 * n_eval, "attn_block_cls_bwd": steps}
-    want = {**none, **evals, "attn_block_stash": 11 * steps,
-            "attn_block_bwd": 11 * steps, "mlp_block_stash": 12 * steps}
+    want = _with_fused({**none, **evals, "attn_block_stash": 11 * steps,
+                        "attn_block_bwd": 11 * steps, "mlp_block_stash": 12 * steps})
     _check(full == want, ("smoke_full launches", full, want))
     _check_tower_moved(result, "smoke_full")
 
@@ -1650,9 +1820,9 @@ def phase_train(root, sizes):
             launches, wall, result = _finetune(root, "smoke_full", wrappers,
                                                f"experiments_recompute_{mode}")
         mlp_port = "mlp_bwd" if mode == "kernel" else "mlp_bwd_dw"
-        want = {**none, **evals, "attn_block": 11 * (n_eval + steps),
-                "mlp_block": 12 * (n_eval + steps),
-                "attn_block_bwd_recompute": 11 * steps, mlp_port: 12 * steps}
+        want = _with_fused({**none, **evals, "attn_block": 11 * (n_eval + steps),
+                            "mlp_block": 12 * (n_eval + steps),
+                            "attn_block_bwd_recompute": 11 * steps, mlp_port: 12 * steps})
         _check(launches == want, (f"smoke_full {mode} launches", launches, want))
         _check_tower_moved(result, f"smoke_full UML_MLP_BWD={mode}")
         recompute[mlp_port] = launches[mlp_port]

@@ -3,7 +3,10 @@ PyTorch versions (bf16, small shapes: K=128, 2 heads of 64, S in {9, 17,
 197}, and S = 257 and 785 for the attention halves and the training
 rows, and the 64-row tile edges S in {63, 64, 65, 128, 129} for the MLP
 halves, the attention backwards and the attention backward's two passes
-on their own; the streaming attention at S from 1 to 2048, head dims 64 and 128,
+on their own; the fused QKV + attention kernel and the attention halves
+(rows 1, 2, 5, 7 and 10) at S in {9, 17, 50, 63, 64, 65, 128, 129, 197,
+256, 257}: both sides of its m64 edges and of its route limit, S <= 256,
+with the route each S took read off the launch counters; the streaming attention at S from 1 to 2048, head dims 64 and 128,
 also on strided views of a packed qkv; layer_norm at row counts up to
 40,000; each product triple of the wgmma engine and gemm_at at ragged
 row counts and both towers' widths, against an fp32 product of the same
@@ -73,23 +76,77 @@ def _close(got, want):
     assert err <= REL * want.float().abs().max().item(), err
 
 
-@pytest.mark.parametrize("s", [9, 17, 197, 257, 785])
+SEQ = [9, 17, 50, 63, 64, 65, 128, 129, 197, 256, 257]
+
+
+def _route(counter, n, launches=1):
+    """-> a check that ``counter`` moved by ``launches`` on the fused route
+    (S <= 256) and stayed on the chain."""
+    def check(s):
+        assert counter.launches == n + launches * fa.qkv_attention_fused(s), (
+            s, counter.launches, n)
+    return check
+
+
+@pytest.mark.parametrize("s", sorted(set(SEQ + [785])))
 @pytest.mark.parametrize("causal", [False, True])
 def test_attn_block_kernel(dev, s, causal):
     x, w = _x(dev, s), _weights(dev)
-    n = fa.attn_block.launches
+    n, route = fa.attn_block.launches, _route(fa.qkv_attention, fa.qkv_attention.launches)
     got = fa.attn_block(x, *w[:4], heads=HEADS, causal=causal)
     assert fa.attn_block.launches == n + 1
+    route(s)
     _close(got, fa.attn_block_plain(x, *w[:4], heads=HEADS, causal=causal))
 
 
-@pytest.mark.parametrize("s", [9, 17, 197, 257, 785])
+@pytest.mark.parametrize("s", SEQ + [785])
 def test_attn_block_cls_kernel(dev, s):
+    """#2, and its training form (the CLS forward that keeps its stash,
+    projecting q of every row where the inference form projects the first
+    64)."""
     x, w = _x(dev, s), _weights(dev)
-    n = fa.attn_block_cls.launches
+    n, route = fa.attn_block_cls.launches, _route(fa.qkv_attention, fa.qkv_attention.launches)
     got = fa.attn_block_cls(x, *w[:4], heads=HEADS)
     assert fa.attn_block_cls.launches == n + 1
+    route(s)
     _close(got, fa.attn_block_cls_plain(x, *w[:4], heads=HEADS))
+    stash = fa._attn_block_cls_stash(x, *w[:4], heads=HEADS, eps=1e-5)
+    _close_all(stash, fa.attn_block_stash_plain(x, *w[:4], heads=HEADS, q_rows=1))
+    assert torch.equal(stash[0], got)
+
+
+@pytest.mark.parametrize("s", SEQ[:-1])
+@pytest.mark.parametrize("causal, q_rows", [(False, "all"), (True, "all"),
+                                            (False, "cls")])
+def test_qkv_attention_kernel(dev, s, causal, q_rows):
+    """The fused QKV + attention kernel on its own: attn without the
+    stash, (qkv, attn) with it, each launch counted (the CLS row is never
+    causal)."""
+    x, w = _x(dev, s), _weights(dev)
+    sq = s if q_rows == "all" else 1
+    n = fa.qkv_attention.launches
+    want = fa.qkv_attention_plain(x, *w[:2], heads=HEADS, causal=causal, q_rows=sq,
+                                  stash=True)
+    _close(fa.qkv_attention(x, *w[:2], heads=HEADS, causal=causal, q_rows=sq), want[1])
+    _close_all(fa.qkv_attention(x, *w[:2], heads=HEADS, causal=causal, q_rows=sq,
+                                stash=True), want)
+    assert fa.qkv_attention.launches == n + 2
+
+
+@pytest.mark.parametrize("s", SEQ[:-1])
+@pytest.mark.parametrize("causal", [False, True])
+def test_qkv_attention_q8_kernel(dev, s, causal):
+    x, w = _x(dev, s), _q8_weights(dev)
+    n = q8.qkv_attention_q8.launches
+    got = q8.qkv_attention_q8(x, *w[:3], heads=HEADS, causal=causal)
+    assert q8.qkv_attention_q8.launches == n + 1
+    _close(got, q8.qkv_attention_q8_plain(x, *w[:3], heads=HEADS, causal=causal))
+
+
+def test_qkv_attention_refuses_s_past_its_route(dev):
+    x, w = _x(dev, 257), _weights(dev)
+    with pytest.raises(ValueError, match="S <= 256"):
+        fa.qkv_attention(x, *w[:2], heads=HEADS)
 
 
 @pytest.mark.parametrize("s", [9, 63, 64, 65, 128, 129, 197])
@@ -131,16 +188,18 @@ def _q8_weights(dev, layers=None, seed=0):
     return tuple(torch.stack(t).to(dev) for t in zip(*per_layer))
 
 
-@pytest.mark.parametrize("s", [9, 17, 197])
+@pytest.mark.parametrize("s", SEQ)
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("q8_out", [True, False])
 def test_attn_block_q8_kernel(dev, s, causal, q8_out):
     x, w = _x(dev, s), _q8_weights(dev)
     wo_ops = w[3:5] if q8_out else (_weights(dev)[2],)
-    n = q8.attn_block_q8.launches
+    n, route = q8.attn_block_q8.launches, _route(q8.qkv_attention_q8,
+                                                 q8.qkv_attention_q8.launches)
     got = q8.attn_block_q8(x, *w[:3], wo_ops, w[5], heads=HEADS, causal=causal,
                            q8_out=q8_out)
     assert q8.attn_block_q8.launches == n + 1
+    route(s)
     _close(got, q8.attn_block_q8_plain(x, *w[:3], wo_ops, w[5], heads=HEADS,
                                        causal=causal, q8_out=q8_out))
 
@@ -277,13 +336,15 @@ def _g(dev, shape, seed=2):
     return torch.randn(shape, generator=g).to(torch.bfloat16).to(dev)
 
 
-@pytest.mark.parametrize("s", [9, 17, 197])
+@pytest.mark.parametrize("s", SEQ)
 @pytest.mark.parametrize("causal", [False, True])
 def test_attn_block_stash_kernel(dev, s, causal):
     x, w = _x(dev, s), _weights(dev)
-    n = fa.attn_block_stash.launches
+    n, route = fa.attn_block_stash.launches, _route(fa.qkv_attention,
+                                                    fa.qkv_attention.launches)
     got = fa.attn_block_stash(x, *w[:4], heads=HEADS, causal=causal)
     assert fa.attn_block_stash.launches == n + 1
+    route(s)
     _close_all(got, fa.attn_block_stash_plain(x, *w[:4], heads=HEADS,
                                               causal=causal))
 
@@ -325,16 +386,18 @@ def test_mlp_block_stash_kernel(dev, s):
     assert torch.equal(got[0], lm.mlp_block(x, *w[4:]))
 
 
-@pytest.mark.parametrize("s", [9, 17, 63, 64, 65, 128, 129, 197, 257, 785])
+@pytest.mark.parametrize("s", sorted(set(SEQ + [785])))
 @pytest.mark.parametrize("causal", [False, True])
 def test_attn_block_bwd_recompute_kernel(dev, s, causal):
     """#7, and its recompute equals the forward kernels' qkv and attention
     output bit for bit."""
     x, w = _x(dev, s), _weights(dev)
     g = _g(dev, x.shape)
-    n = fa.attn_block_bwd_recompute.launches
+    n, route = fa.attn_block_bwd_recompute.launches, _route(fa.qkv_attention,
+                                                            fa.qkv_attention.launches)
     got = fa.attn_block_bwd_recompute(x, g, *w[:3], heads=HEADS, causal=causal)
     assert fa.attn_block_bwd_recompute.launches == n + 1
+    route(s)
     _close_all(got, fa.attn_block_bwd_recompute_plain(x, g, *w[:3], heads=HEADS,
                                                       causal=causal))
     _, qkv, attn = fa.attn_block_stash(x, *w[:4], heads=HEADS, causal=causal)

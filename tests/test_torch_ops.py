@@ -4,7 +4,8 @@ Each port's plain PyTorch version (what a CPU tensor runs) is held against
 both the JAX post-fold twin and the JAX Pallas kernel in interpret mode
 (as tests/test_fused_attention.py and tests/test_text_tower.py run it),
 on the same numpy inputs, at small shapes: K=128, 2 heads of 64,
-S in {9, 17}.
+S in {9, 17}; the attention halves' stash and CLS forms also at the
+m64 edges of the fused QKV + attention kernel, S in {64, 65, 129, 197}.
 
 Tolerances: fp32 max abs error 1e-4 (the same math, other summation
 order).  bf16: max abs error 2^-6 * max|reference|, two bf16 ulps of the
@@ -112,6 +113,48 @@ def test_attn_block_cls_matches_row0(dtype, s):
                                     eps=1e-5)[:, :1]
     _assert_close(got, pallas, dtype)
     _assert_close(got, twin, dtype)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s", [64, 65, 129, 197])
+def test_attn_block_stash_matches_twin_and_pallas_at_tile_edges(causal, s):
+    """The stash forward (out, qkv, attn; what the fused kernel's plain
+    version computes) at the m64 edges, bf16, against _block_fwd_stash in
+    interpret mode (its qkv is bias-free: compared with b_eff added) and
+    out against the twin."""
+    rng = np.random.default_rng(400 + s)
+    x = rng.standard_normal((B, s, K)).astype(np.float32)
+    w = _weights(rng)
+    jw, tw = _jax(w, jnp.bfloat16), _torch(w, torch.bfloat16)
+    args_j = (jnp.asarray(x, jnp.bfloat16), jw["w_eff"], jw["b_eff"], jw["wo"],
+              jw["bo"])
+    out, qkv, attn = tfa.attn_block_stash_plain(
+        torch.tensor(x).to(torch.bfloat16), tw["w_eff"], tw["b_eff"], tw["wo"],
+        tw["bo"], heads=HEADS, causal=causal)
+    jout, jqkv, jattn = jfa._block_fwd_stash(*args_j, 1e-5, HEADS, 64, causal, True)
+    _assert_close(out, jout, "bf16")
+    _assert_close(attn, jattn, "bf16")
+    _assert_close(qkv, jqkv.astype(jnp.float32) + jw["b_eff"], "bf16")
+    _assert_close(out, jfa._raw_block_reference(*args_j, heads=HEADS, causal=causal,
+                                                eps=1e-5), "bf16")
+
+
+@pytest.mark.parametrize("s", [64, 65, 129, 197])
+def test_attn_block_cls_matches_row0_at_tile_edges(s):
+    """The CLS half at the m64 edges, bf16: [B,1,K] against row 0 of the
+    JAX CLS kernel in interpret mode and of the twin."""
+    rng = np.random.default_rng(500 + s)
+    x = rng.standard_normal((B, s, K)).astype(np.float32)
+    w = _weights(rng)
+    jw, tw = _jax(w, jnp.bfloat16), _torch(w, torch.bfloat16)
+    args_j = (jnp.asarray(x, jnp.bfloat16), jw["w_eff"], jw["b_eff"], jw["wo"],
+              jw["bo"])
+    got = tfa.attn_block_cls_plain(torch.tensor(x).to(torch.bfloat16), tw["w_eff"],
+                                   tw["b_eff"], tw["wo"], tw["bo"], heads=HEADS)
+    _assert_close(got, jfa._block_cls_fwd(*args_j, 1e-5, HEADS, 64, True)[:, :1],
+                  "bf16")
+    _assert_close(got, jfa._raw_block_reference(*args_j, heads=HEADS, causal=False,
+                                                eps=1e-5)[:, :1], "bf16")
 
 
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])

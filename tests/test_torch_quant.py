@@ -1,7 +1,9 @@
 """The port's int8 (W8A8) ops against uml_tpu.ops.quant on the CPU.
 
-Small shapes: K=128, 2 heads of 64, M=512, S in {9, 17}; inputs from a
-numpy seed, handed to both packages.  Tolerances:
+Small shapes: K=128, 2 heads of 64, M=512, S in {9, 17}, and the int8
+attention half also at the m64 edges of the fused QKV + attention kernel,
+S in {64, 65, 129, 197}; inputs from a numpy seed, handed to both
+packages.  Tolerances:
 
 * quantize_weight: integers and scales bit for bit (the same elementwise
   fp32 math on the same fp32 weights).
@@ -177,6 +179,31 @@ def test_attn_half_matches_reference(s, causal, q8_out):
     assert tq.attn_block_q8.launches == n          # the CPU runs no kernel
     assert got.dtype == torch.bfloat16
     _assert_rel(got, want, REL)
+
+
+@pytest.mark.parametrize("s", [64, 65, 129, 197])
+@pytest.mark.parametrize("causal", [False, True])
+def test_attn_half_matches_reference_at_tile_edges(s, causal):
+    p = _params(7, s)
+    t = _torch(p)
+    want = jq.ln_attn_block_q8_reference(p["x"], p["scale"], p["bias"], p["w"],
+                                         p["kb"], p["wo"], p["bo"], heads=HEADS,
+                                         causal=causal)
+    got = tq.ln_attn_block_q8(t["x"], t["scale"], t["bias"], t["w"], t["kb"],
+                              t["wo"], t["bo"], heads=HEADS, causal=causal)
+    _assert_rel(got, want, REL)
+
+
+@pytest.mark.heavy
+@pytest.mark.parametrize("s", [64, 65, 129, 197])
+def test_attn_half_matches_pallas_interpret_at_tile_edges(s):
+    p = _params(8, s)
+    (wq, wsc), b_eff, (woq, wosc), _, _, _ = _prequantized(p)
+    want = jq._block_q8_fwd(p["x"], wq, wsc, b_eff, (woq, wosc), p["bo"], 1e-5,
+                            HEADS, 64, False, True, q8_out=True)
+    got = tq.attn_block_q8(_torch(p)["x"], _t(wq), _t(wsc), _t(b_eff),
+                           (_t(woq), _t(wosc)), _t(p["bo"]), heads=HEADS)
+    _assert_rel(got, want, 3e-2)
 
 
 @pytest.mark.parametrize("s", [9, 17])

@@ -17,15 +17,17 @@ interval), beside the PyTorch call that computes the same function:
   has ``q8_gemm``, the int8 products (QKV, c_fc, c_proj) beside
   ``torch._int_mm``;
 * where the checkout has ``attn_bwd``: the attention backward's dq and
-  dkv passes on their own;
+  dkv passes on their own; where it has ``qkv_attention``: the fused QKV +
+  attention kernel on its own (bf16, with its stash, int8);
 * where the checkout's ``gemm_at`` takes ``splits``: each row-chunk
   count at both of row 20's shapes;
 * the fused attention against the fp32 witness (``chip_smoke.py``'s
   ``_attention_fp32``: unrounded probabilities): the bf16 output's
   error, and the int8 block's activation integers that differ from the
   witness's and from the plain version's (``_int8_flips``);
-* the device time by kernel of rows 6, 7, 9, 11, 19 and 20
-  (torch.profiler, printed as ``[profile]`` lines);
+* the device time by kernel of rows 1, 2, 5, 6, 7, 9, 10 (with an int8
+  and a bf16 out-projection), 11, 19 and 20 and of row 1 causal at the
+  text widths (torch.profiler, printed as ``[profile]`` lines);
 * the bf16 and int8 image encoders' img/s at batch 64 (random-init
   ViT-B/16, a staged batch, host work included as in chip_smoke.py), with
   a profile of each.
@@ -251,6 +253,14 @@ def main() -> int:
         "row 19 mlp_bwd": (lm.mlp_bwd, (x, dy, wv["b1"], wv["w1"])),
         "row 20 mlp_bwd_dw": (row20, row20_in),
     }
+    if hasattr(fa, "qkv_attention"):
+        cases["qkv_attention (the fused QKV + attention kernel)"] = (
+            lambda *a: fa.qkv_attention(*a, heads=12), (x, *attn_v[:2]))
+        cases["qkv_attention stash"] = (
+            lambda *a: fa.qkv_attention(*a, heads=12, stash=True), (x, *attn_v[:2]))
+        cases["qkv_attention_q8"] = (
+            lambda x_, wq, wsc, be: q8.qkv_attention_q8(x_, wq, wsc, be, heads=12),
+            (x, *q8v[:3]))
     if hasattr(fa, "attn_bwd"):
         dattn = torch.matmul(g, wv["wo"].t())
         _, stats = fa.attn_bwd_plain(qkv_v, dattn, heads=12)
@@ -291,6 +301,11 @@ def main() -> int:
         out[f"int8 {half}: largest difference"] = worst
     for side, err in harness._attention_witness(x, attn_v).items():
         out[f"attention vs fp32 witness, {side}"] = err
+    for name in ("row 1 attn_block", "row 2 attn_block_cls", "row 5 attn_block_stash",
+                 "row 1 causal, text widths", "row 10 attn_block_q8",
+                 "row 10 attn_block_q8 int8_qkv"):
+        fn, inputs = cases[name]
+        harness._profile(name, lambda fn=fn, inputs=inputs: fn(*inputs), top=12)
     harness._profile("row 6 attn_block_bwd", lambda: row6(*row6_in), top=12)
     harness._profile("row 7 attn_block_bwd_recompute", lambda: row7(*row7_in),
                      top=12)

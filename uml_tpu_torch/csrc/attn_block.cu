@@ -8,20 +8,26 @@
 // instead of discarded.  The port's qkv stash includes b_eff (the TPU's
 // is bias-free and its backward re-adds the q-bias); the k-bias only
 // shifts every score of a row by a constant, which the softmax cancels,
-// so both give the same gradients.  Four launches: the LN row pre-pass and
-// the QKV product on the wgmma engine (ln_gemm.cuh, wgmma_gemm.cuh), the
-// attention (flash_attention.cu, for any S), the out-projection with the
-// residual add on the engine (ln_gemm.cuh's (PRO_NONE, EPI_RESIDUAL)
-// triple; for the CLS block the residual rows are S*K apart).
+// so both give the same gradients.
 //
-// Unlike the TPU kernel, which keeps qkv, the scores and the attention
-// output in VMEM, this version round-trips xn, qkv and the attention
-// output through device memory: at ViT-B/16 B=64 that is 19.4 MB of xn,
-// 58.1 MB of qkv written and read back and 19.4 MB of attention output,
-// ~190 MB per layer (~57 us at 3.35 TB/s).  Keeping them on chip is the fused
-// half-block kernel of a later PR.  With q_rows = 1 the QKV ln_gemm still
-// projects q for every row (the TPU kernel projects its 8 CLS rows only):
-// a third of that GEMM, ~0.2 ms of the CLS half's ~0.74 ms at B=64.
+// Three launches for S <= 256 (blocks.cuh::run_attn_block): the LN row
+// pre-pass into xn, qkv_attention.cu (the QKV product and the attention in
+// one kernel, q, k and v of each (image, head) pair in shared memory), the
+// out-projection with the residual add on the wgmma engine (ln_gemm.cuh's
+// (PRO_NONE, EPI_RESIDUAL) triple; for the CLS block the residual rows are
+// S*K apart).  The fused kernel replaces the chain's QKV product and
+// flash_attention.cu, and with them the round trip of qkv through device
+// memory (58.1 MB written and read back at ViT-B/16 B=64): the inference
+// halves write no qkv and the wrappers allocate none; the stash writes it
+// once.  The CLS block without a stash projects q for the first 64 rows
+// only (the TPU kernel projects its 8 CLS rows).  The out-projection stays
+// a launch of its own: it sums over all heads, which no (image, head)
+// block owns.  Above S = 256 the halves keep the chain (the QKV product on
+// the engine, then flash_attention.cu, any S).
+//
+// What bounds it on the H100: at ViT-B/16 B=64 the three products are 59.5
+// GFLOP and the attention 7.6 (~68 us at 989 TFLOP/s); the bytes that must
+// move (x in, out, the weights; xn, the attention output) are ~80 MB.
 
 #include "blocks.cuh"
 

@@ -20,9 +20,10 @@
 // uml_attn_block_bwd_recompute replaces ::_block_bwd_kernel (via
 // _block_bwd_call), the backward with no stash (UML_BWD_STASH=0, and every
 // causal layer): it first recomputes xn, qkv and the attention output with
-// the forward's own launches (run_qkv_attention: the LN row pre-pass, the
-// QKV product on the wgmma engine and flash_attention.cu, on the same
-// inputs, so all three equal the forward's bit for bit), then runs the
+// the forward's own launches (run_qkv_attention: the LN row pre-pass, then
+// qkv_attention.cu writing its qkv stash, or above S = 256 the QKV product
+// on the wgmma engine and flash_attention.cu, on the same inputs, so all
+// three equal the forward's bit for bit), then runs the
 // stash backward above on them; its LN backward skips writing xn, which
 // the pre-pass wrote (the same values: ln_gemm.cuh's ln_row_stats and one
 // rounding).  The
@@ -35,12 +36,13 @@
 // dW_eff = xn^T dqkv, dwo = attn^T g and the bias sums stay outside, as
 // the TPU package leaves them to XLA dots (fused_attention.py:1586-1594).
 //
-// At ViT-B/16 B=64 the recompute's eight launches read and write ~0.35 GB
+// At ViT-B/16 B=64 the recompute's seven launches (eight above S = 256) read and write ~0.35 GB
 // per layer (qkv and dqkv 58 MB each, dxn 39 MB in fp32, x, g, dx, xn,
 // attn, dattn 19 MB each) beside ~150 GFLOP (the three projections 104,
 // attention 7.6 forward and 19 backward).  Every product runs on the
-// wgmma engine (wgmma_gemm.cuh through ln_gemm.cuh's triples), the
-// attention forward on flash_attention.cu, the attention backward's dq
+// wgmma engine (wgmma_gemm.cuh through ln_gemm.cuh's triples) or, the QKV
+// product, in qkv_attention.cu with the attention forward (flash_attention.cu
+// above S = 256), the attention backward's dq
 // and dkv passes on wgmma with TMA-fed operands (attention_bwd.cuh).
 //
 // uml_attn_bwd launches the attention backward's passes on their own, for

@@ -4,30 +4,33 @@
 // row-quantized . int8 W_eff -> bf16 qkv + b_eff) . wo + bo, causal or
 // not, with the out-projection int8 (q8_out: the attention output
 // row-quantized, the serving default) or bf16 (q8_out = 0, the int8_qkv
-// mode).  Launches (blocks.cuh::run_attn_block_q8): ln_quantize_rows, the
-// QKV q8_gemm (bf16 epilogue with b_eff), the attention of the bf16 path
-// (flash_attention.cu through attention.cuh), then quantize_rows + the
-// out-projection q8_gemm with the residual epilogue, or the bf16
-// out-projection with the residual on the wgmma engine (ln_gemm.cuh).
+// mode).  Launches (blocks.cuh::run_attn_block_q8) for S <= 256:
+// ln_quantize_rows, then qkv_attention.cu instantiated over int8 (the QKV
+// product on wgmma s8 with q8_gemm.cuh's bf16 dequantization, so q, k and
+// v equal the chain's qkv bit for bit, kept in shared memory, and the
+// attention on them in the same kernel: no qkv in device memory), then
+// quantize_rows + the out-projection q8_gemm with the residual epilogue,
+// or the bf16 out-projection with the residual on the wgmma engine
+// (ln_gemm.cuh).  The quantization of the attention output needs the
+// whole row (every head), so it and the out-projection stay launches of
+// their own.  Above S = 256: the QKV q8_gemm into a qkv scratch and
+// flash_attention.cu.
 //
-// The quantized attention output is the attention kernel's bf16 output,
-// as in uml_tpu's jnp reference (mha_reference returns bf16); the Pallas
-// kernel quantizes its fp32 output, which can move an integer by a step.
-// The TPU's slab grouping (UML_Q8_SLAB: int8's 32-sublane tile) is a TPU
+// The quantized attention output is the attention's bf16 output, as in
+// uml_tpu's jnp reference (mha_reference returns bf16); the Pallas kernel
+// quantizes its fp32 output, which can move an integer by a step.  The
+// TPU's slab grouping (UML_Q8_SLAB: int8's 32-sublane tile) is a TPU
 // padding choice and is not carried.
 //
 // What bounds it on the H100: at ViT-B/16 B=64 the two int8 products are
 // 59.5 G ops (30 us at the 1,979 TOPS int8 peak) and the attention 7.63
 // GFLOP bf16 (7.7 us at 989 TFLOP/s): ~37.8 us, compute-bound (its
-// minimum traffic, x in and out plus the weights, is ~41 MB, 12 us).  This
-// simple form also round-trips the int8 activations, qkv and the attention
-// output through device memory (~100 MB per call); keeping them on chip
-// is the fused kernel of a later PR.
+// minimum traffic, x in and out plus the weights, is ~41 MB, 12 us).
 //
 //   x [B, S, K] bf16; wq [3*H*64, K] int8 (K-major, q8_gemm.cuh); wsc,
 //   b_eff [3*H*64] fp32; wo [K, H*64] int8 (q8_out) or [H*64, K] bf16; wosc
-//   [K] fp32 (q8_out) or null; bo [K] fp32; q8, qscale, qkv, attn scratch;
-//   out [B, S, K] bf16.
+//   [K] fp32 (q8_out) or null; bo [K] fp32; q8, qscale and attn scratch;
+//   qkv scratch above S = 256, null at or below; out [B, S, K] bf16.
 
 #include "blocks.cuh"
 

@@ -1,31 +1,56 @@
 // Host-side compositions of the hand-written kernels into the CLIP
-// half-blocks (UML_TRY, in ln_gemm.cuh, returns the first launch error).  Each returns the first launch error (cudaGetLastError()
-// after every launch) or cudaSuccess; nothing here synchronises or
-// allocates: the Python wrappers pass every buffer in.
+// half-blocks.  Each returns the first launch error (UML_TRY, in
+// ln_gemm.cuh: cudaGetLastError() after every launch) or cudaSuccess;
+// nothing here synchronises or allocates: the Python wrappers pass every
+// buffer in.
+//
+// The attention halves, bf16 and int8, run three launches for S <= 256
+// (qkv_attention.cuh's route, which the Python wrappers mirror to allocate
+// no qkv scratch on it): the LN row pre-pass (ln_rows_kernel, or
+// ln_quantize_rows in int8), then qkv_attention.cu (the QKV product and
+// the attention in one kernel per call, q, k and v of each (image, head)
+// pair in shared memory, no qkv in device memory unless a caller stashes
+// it), then the out-projection with the residual on the wgmma engine (in
+// int8 after quantize_rows of the attention output): the out-projection
+// sums over every head, which no (image, head) block of the fused kernel
+// owns.  Above S = 256 (q, k and v of one head no longer fit a block's
+// shared memory beside the ring) they keep the chain of hand-written
+// kernels: the QKV product on the engine into a qkv scratch, then
+// flash_attention.cu reading it back (K/V streamed: any S).
 
 #pragma once
 
 #include "attention.cuh"
 #include "ln_gemm.cuh"
 #include "q8_gemm.cuh"
+#include "qkv_attention.cuh"
 #include "quantize.cuh"
 
 namespace uml {
 
 // Attention half: out = x[:, :q_rows] + MHA(rawLN(x) . w_eff + b_eff) . wo + bo
-//   x [B, S, K]; w_eff [K, 3*H*64]; wo [H*64, K]; xn [B*S, K], qkv
-//   [B*S, 3*H*64] and attn [B*q_rows, H*64] are scratch; out [B, q_rows, K].
-//   q_rows is S (every query row) or 1 (the CLS row of the last image layer).
+//   x [B, S, K]; w_eff [K, 3*H*64]; wo [H*64, K]; xn [B*S, K] and attn
+//   [B*q_rows, H*64] are scratch; qkv [B*S, 3*H*64] is the stash (written
+//   where non-null) on the fused route and scratch on the chain (S > 256,
+//   where it must be given); out [B, q_rows, K].  q_rows is S (every query
+//   row) or 1 (the CLS row of the last image layer).
 // The first launches of the attention half: xn = bf16(rawLN(x)) (the row
-// pre-pass), qkv = xn . w_eff + b_eff (the wgmma engine) and attn =
-// MHA(qkv) for the first q_rows query rows (flash_attention.cu).  The
-// recompute backward (attn_block_bwd.cu) runs exactly these launches on the
-// forward's inputs, so its xn, qkv and attn equal the forward's bit for bit.
+// pre-pass), then q, k, v = xn . w_eff + b_eff and attn = MHA(q, k, v) for
+// the first q_rows query rows, fused (S <= 256) or as the chain.  The
+// recompute backward (attn_block_bwd.cu) runs exactly these launches on
+// the forward's inputs, so its xn, qkv and attn equal the forward's bit
+// for bit.
 static inline cudaError_t run_qkv_attention(const __nv_bfloat16* x, const __nv_bfloat16* w_eff,
                                             const float* b_eff, __nv_bfloat16* xn,
                                             __nv_bfloat16* qkv, __nv_bfloat16* attn, int B,
                                             int S, int K, int H, bool causal, int q_rows,
                                             float eps, cudaStream_t stream) {
+  if (qkv_attention_fused(S)) {
+    UML_TRY(launch_ln_rows(x, xn, B * S, K, eps, stream));
+    return launch_qkv_attention(xn, nullptr, w_eff, nullptr, b_eff, qkv, attn, B, S, K, H,
+                                q_rows, causal, false, stream);
+  }
+  if (qkv == nullptr) return cudaErrorInvalidValue;
   LnPrologue ops;
   ops.xn = xn;
   UML_TRY(launch_ln_gemm(x, w_eff, b_eff, nullptr, qkv, B * S, 3 * H * ATT_D, K, 0, PRO_LN,
@@ -79,8 +104,9 @@ static inline cudaError_t run_mlp_block(const __nv_bfloat16* x, const __nv_bfloa
 //   x [B, S, K]; wq [3*H*64, K] int8, wo [K, H*64] int8 or [H*64, K] bf16
 //   (the int8 weights K-major, q8_gemm.cuh); q8 [B*S*max(K, H*64)] int8 and
 //   qscale [B*S] are scratch for the row-quantized activations (the LN'd x,
-//   then the attention output); qkv [B*S, 3*H*64] and attn [B*S, H*64] are
-//   scratch; out [B, S, K].
+//   then the attention output); attn [B*S, H*64] is scratch, and so is qkv
+//   [B*S, 3*H*64] on the chain (S > 256; null on the fused route); out
+//   [B, S, K].
 static inline cudaError_t run_attn_block_q8(const __nv_bfloat16* x, const int8_t* wq,
                                             const float* wsc, const float* b_eff, const void* wo,
                                             const float* wosc, const float* bo, int8_t* q8,
@@ -91,9 +117,15 @@ static inline cudaError_t run_attn_block_q8(const __nv_bfloat16* x, const int8_t
   const int rows = B * S;
   const int hd = H * ATT_D;
   UML_TRY(launch_ln_quantize_rows(x, q8, qscale, rows, K, eps, stream));
-  UML_TRY(launch_q8_gemm(q8, wq, qscale, wsc, b_eff, nullptr, qkv, rows, 3 * hd, K, Q8_EPI_BF16,
-                         stream));
-  UML_TRY(launch_attention(qkv, attn, B, S, H, S, causal, stream));
+  if (qkv_attention_fused(S)) {
+    UML_TRY(launch_qkv_attention(q8, qscale, wq, wsc, b_eff, nullptr, attn, B, S, K, H, S,
+                                 causal, true, stream));
+  } else {
+    if (qkv == nullptr) return cudaErrorInvalidValue;
+    UML_TRY(launch_q8_gemm(q8, wq, qscale, wsc, b_eff, nullptr, qkv, rows, 3 * hd, K,
+                           Q8_EPI_BF16, stream));
+    UML_TRY(launch_attention(qkv, attn, B, S, H, S, causal, stream));
+  }
   if (q8_out) {
     UML_TRY(launch_quantize_rows(attn, q8, qscale, rows, hd, stream));
     return launch_q8_gemm(q8, static_cast<const int8_t*>(wo), qscale, wosc, bo, x, out, rows, K,

@@ -2,23 +2,25 @@
 //
 // Replaces uml_tpu/ops/text_tower.py::_tower_kernel.  The TPU kernel runs
 // every layer in one program with the residual stream resident in VMEM;
-// this first version is a host loop over the layers that launches the
-// causal attention half (4 launches: the LN pre-pass, the QKV product on
-// the wgmma engine, the attention, the out-projection on the engine) and
-// the MLP half (3 launches: the LN pre-pass into the same xn scratch, both
-// products on the engine) of blocks.cuh per layer, 7 L launches in all.
+// this version is a host loop over the layers that launches the causal
+// attention half (3 launches at S <= 256: the LN pre-pass, qkv_attention.cu
+// with q, k and v in shared memory, the out-projection on the engine; the
+// chain of the QKV product and flash_attention.cu above) and the MLP half
+// (3 launches: the LN pre-pass into the same xn scratch, both products on
+// the engine) of blocks.cuh per layer, 6 L launches in all.
 // The residual stays bf16 between halves and between layers, exactly the
 // rounding the TPU kernel applies (text_tower.py:104-109, 120-121).
 //
 // What bounds it on the H100: at the text tower's S = 77, K = 512 a layer
-// is ~0.42 GFLOP per sentence; with the hidden, qkv and residual making
-// device-memory round trips and 84 launches per call, small batches are
+// is ~0.42 GFLOP per sentence; with the hidden and residual making
+// device-memory round trips and 72 launches per call, small batches are
 // launch-bound.  A persistent whole-tower kernel (residual on chip, the
 // next layer's weights prefetched) is a later PR.
 //
 //   x [B, S, K]; stacked weights w_eff [L, K, 3K'], b_eff [L, 3K'],
 //   wo [L, K', K], bo [L, K], w1 [L, K, M], b1 [L, M], w2 [L, M, K],
-//   b2 [L, K] with K' = H*64; xn, qkv, attn, hidden, mid are scratch;
+//   b2 [L, K] with K' = H*64; xn, attn, hidden, mid are scratch, and qkv
+//   above S = 256 (null at or below);
 //   out [B, S, K].
 
 #include "blocks.cuh"

@@ -6,7 +6,8 @@
 // streamed under the current layer's compute.  This first version is a
 // host loop over the layers that makes, per layer, the launches of
 // uml_attn_block_q8 (non-causal, int8 out-projection) and
-// uml_mlp_block_q8, 9 per layer: the same kernels on the same inputs, so
+// uml_mlp_block_q8, 8 per layer at S <= 256: the same kernels on the same
+// inputs (the int8 qkv_attention.cu among them), so
 // its output equals the per-layer int8 path bit for bit.  The residual is
 // bf16 between halves and between layers, the rounding the TPU kernel
 // applies (tower_q8.py:83-86).  The TPU's batch grouping (UML_TOWER_Q8_G)
@@ -16,13 +17,13 @@
 // ops and 84 GFLOP bf16 attention, ~1.08 ms at the int8 and bf16 peaks.  A
 // persistent kernel that keeps the residual on chip would remove the
 // 2L round trips of the residual (19.4 MB written and read back per half
-// at B=64) and the 9L launches; that is a later PR.
+// at B=64) and the 8L launches; that is a later PR.
 //
 //   x [B, S, K]; stacked, the int8 weights K-major (q8_gemm.cuh): wq
 //   [L, 3HD, K], wsc, b_eff [L, 3HD], woq [L, K, HD], wosc, bo [L, K], w1q
 //   [L, M, K], w1sc, b1 [L, M], w2q [L, K, M], w2sc, b2 [L, K] with HD =
-//   H*64; q8 [B*S*max(K, HD, M)], qscale [B*S], qkv, attn, pre, mid are
-//   scratch; out [B, S, K].
+//   H*64; q8 [B*S*max(K, HD, M)], qscale [B*S], attn, pre, mid are
+//   scratch, and qkv above S = 256 (null at or below); out [B, S, K].
 
 #include "blocks.cuh"
 

@@ -63,6 +63,11 @@ SIGNATURES = {
     # x, w_eff, b_eff, wo, bo, w1, b1, w2, b2, xn, qkv, attn, hidden, mid,
     # out, B, S, K, H, M, L, eps, stream
     "uml_text_tower": [_P] * 15 + [_I] * 6 + [_F, _P],
+    # x, w_eff, b_eff, xn, qkv (or null), attn, B, S, K, H, causal, q_rows,
+    # eps, stream
+    "uml_qkv_attention": [_P] * 6 + [_I] * 6 + [_F, _P],
+    # x, wq, wsc, b_eff, q8, qscale, attn, B, S, K, H, causal, eps, stream
+    "uml_qkv_attention_q8": [_P] * 7 + [_I] * 5 + [_F, _P],
     # x, wq, wsc, b_eff, wo, wosc, bo, q8, qscale, qkv, attn, out, B, S, K,
     # H, causal, q8_out, eps, stream
     "uml_attn_block_q8": [_P] * 12 + [_I] * 6 + [_F, _P],
@@ -178,6 +183,12 @@ def launch(name: str, *args) -> None:
     err = getattr(library(), name)(*args)
     if err != 0:
         raise RuntimeError(f"{name} failed: cudaError_t {err}")
+
+
+def ptr(t):
+    """A tensor's device pointer for a C entry point, or None (NULL) for a
+    buffer the call does not take."""
+    return None if t is None else t.data_ptr()
 
 
 def check_tensor(name: str, t, dtype, shape, device) -> None:

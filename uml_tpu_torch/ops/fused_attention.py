@@ -14,10 +14,15 @@ tensor it runs the plain PyTorch version below, written from the jnp twin
 in ``csrc/`` or raises, and counts the launch.
 
 * ``attn_block`` / ``attn_block_cls``: ``csrc/attn_block.cu`` (the LN
-  row pre-pass and the QKV product on the wgmma engine, the attention of
-  ``csrc/flash_attention.cu``, the out-projection with the residual on
-  the engine).  The CLS variant returns [B, 1, K]: the TPU kernel's
-  [B, 8, K] (CLS_ROWS = 8) is a sublane tile, and only its row 0 is used.
+  row pre-pass; for S <= 256 the QKV product and the attention in one
+  kernel, ``csrc/qkv_attention.cu``, with q, k and v in shared memory and
+  no qkv scratch, above that the QKV product on the wgmma engine and
+  ``csrc/flash_attention.cu``; the out-projection with the residual on
+  the engine).  ``qkv_attention_fused`` is the route, as ``blocks.cuh``
+  takes it; each launch of the fused kernel counts on
+  ``qkv_attention.launches`` too.  The CLS variant returns [B, 1, K]: the
+  TPU kernel's [B, 8, K] (CLS_ROWS = 8) is a sublane tile, and only its
+  row 0 is used.
 * ``attn_block_stash``: the same launches, returning (out, qkv, attn).
   The port's qkv stash includes b_eff; the TPU's is bias-free and its
   backward re-adds the q-bias (fused_attention.py:407-410, :1055).  Both
@@ -29,12 +34,16 @@ in ``csrc/`` or raises, and counts the launch.
 * ``attn_block_bwd`` / ``attn_block_cls_bwd``: ``csrc/attn_block_bwd.cu``
   -> (dx, dqkv, xn), as ``_block_bwd_stash_call`` / ``_block_bwd_cls_call``
   return them; the CLS backward reads the qkv that the CLS forward
-  computes for every row (``attn_block_cls`` projects all S rows), so K
-  and V are not recomputed.
+  computes for every row (with its stash, the CLS forward projects all S
+  rows; ``attn_block_cls`` without one projects q for the first 64), so
+  K and V are not recomputed.
 * ``attn_block_bwd_recompute``: ``csrc/attn_block_bwd.cu`` -> (dx, dqkv,
   xn, attn), as ``_block_bwd_call`` returns them: it recomputes qkv and
   attn from x with the forward's own launches (so they equal the
   forward's bit for bit), then runs the stash backward on them.
+* ``qkv_attention``: the fused kernel on its own (the LN pre-pass, then
+  ``uml_qkv_attention``), -> attn, or (qkv, attn) with ``stash``; for the
+  card tests and ``chip_smoke.py``, beside ``qkv_attention_plain``.
 * ``attn_bwd``: the attention backward's dq pass or dkv pass
   (``csrc/attention_bwd.cuh``, wgmma with TMA-fed operands) on its own,
   which the backwards above launch inside their C calls; for the card
@@ -84,6 +93,28 @@ from uml_tpu_torch.ops.ln_matmul import (ln_matmul_plain, raw_layer_norm,
                                          raw_layer_norm_rstd)
 
 HEAD_DIM = 64  # the kernels' head dim (every CLIP tower)
+# the longest S of the fused QKV + attention kernel (csrc/qkv_attention.cuh:
+# q, k and v of one head, 256 rows each, in a block's shared memory)
+QKV_ATTN_MAX_S = 256
+
+
+def qkv_attention_fused(s: int) -> bool:
+    """The route of the attention halves on the card, as csrc/blocks.cuh
+    takes it: S <= 256 runs csrc/qkv_attention.cu (the QKV product and the
+    attention in one kernel, no qkv scratch unless a stash is kept), longer
+    S the chain of the QKV product on the wgmma engine into a qkv scratch
+    and csrc/flash_attention.cu."""
+    return s <= QKV_ATTN_MAX_S
+
+
+def qkv_scratch(b: int, s: int, hd: int, device, stash: bool = False):
+    """The qkv buffer [B*S, 3*hd] bf16 that a half-block's C call takes:
+    the stash where a caller keeps one, the chain's scratch above
+    QKV_ATTN_MAX_S, else None: the fused kernel keeps q, k and v on chip,
+    and the inference halves allocate nothing for them."""
+    if stash or not qkv_attention_fused(s):
+        return torch.empty((b * s, 3 * hd), dtype=torch.bfloat16, device=device)
+    return None
 
 
 def fold_ln_into_matmul(scale, bias, kernel, kbias):
@@ -131,6 +162,16 @@ def _qkv_attention_plain(x, w_eff, b_eff, *, heads, causal, eps, q_rows=None):
     q, k, v = _qkv_heads(qkv, heads)
     attn = attention_plain(q[:, :, :sq], k, v, causal=causal)
     return qkv, attn.transpose(1, 2).reshape(b, sq, -1)
+
+
+def qkv_attention_plain(x, w_eff, b_eff, *, heads: int, causal: bool = False,
+                        eps: float = 1e-5, q_rows=None, stash: bool = False):
+    """Plain PyTorch version of the fused kernel's function: attn
+    [B, sq, H*D] of the half-block's first two steps, or (qkv, attn) with
+    ``stash``."""
+    qkv, attn = _qkv_attention_plain(x, w_eff, b_eff, heads=heads,
+                                     causal=causal, eps=eps, q_rows=q_rows)
+    return (qkv, attn) if stash else attn
 
 
 def attn_block_stash_plain(x, w_eff, b_eff, wo, bo, *, heads: int,
@@ -237,24 +278,27 @@ def _check_fwd(x, w_eff, b_eff, wo, bo, heads):
 
 
 def _launch_attn_block(x, w_eff, b_eff, wo, bo, heads, causal, eps, q_rows,
-                       entry="uml_attn_block"):
-    """-> (out, qkv, attn): the output and the scratch the launches wrote."""
+                       entry="uml_attn_block", stash=False):
+    """-> (out, qkv, attn): the output and the scratch the launches wrote;
+    qkv is None where the fused route keeps it on chip (no ``stash``)."""
     b, s, k, hd = _check_fwd(x, w_eff, b_eff, wo, bo, heads)
     bf16, dev = torch.bfloat16, x.device
     with torch.cuda.device(dev):
         xn = torch.empty_like(x)
-        qkv = torch.empty((b * s, 3 * hd), dtype=bf16, device=dev)
+        qkv = qkv_scratch(b, s, hd, dev, stash)
         attn = torch.empty((b * q_rows, hd), dtype=bf16, device=dev)
         out = torch.empty((b, q_rows, k), dtype=bf16, device=dev)
-        ptrs = (x.data_ptr(), w_eff.data_ptr(), b_eff.data_ptr(),
-                wo.data_ptr(), bo.data_ptr(), xn.data_ptr(), qkv.data_ptr(),
-                attn.data_ptr(), out.data_ptr(), b, s, k, heads, int(causal))
+        ptrs = (*map(_build.ptr, (x, w_eff, b_eff, wo, bo, xn, qkv, attn, out)),
+                b, s, k, heads, int(causal))
         stream = torch.cuda.current_stream(dev).cuda_stream
         if entry == "uml_attn_block":
             _build.launch(entry, *ptrs, q_rows, eps, stream)
         else:
             _build.launch(entry, *ptrs, eps, stream)
-    return out, qkv.view(b, s, 3 * hd), attn.view(b, q_rows, hd)
+    if qkv_attention_fused(s):
+        qkv_attention.launches += 1
+    return (out, None if qkv is None else qkv.view(b, s, 3 * hd),
+            attn.view(b, q_rows, hd))
 
 
 def attn_block(x, w_eff, b_eff, wo, bo, *, heads: int, causal: bool = False,
@@ -296,7 +340,7 @@ def _attn_block_cls_stash(x, w_eff, b_eff, wo, bo, *, heads: int, eps):
         return attn_block_stash_plain(x, w_eff, b_eff, wo, bo, heads=heads,
                                       eps=eps, q_rows=1)
     stash = _launch_attn_block(x, w_eff, b_eff, wo, bo, heads, False, eps,
-                               q_rows=1)
+                               q_rows=1, stash=True)
     attn_block_cls.launches += 1
     return stash
 
@@ -309,7 +353,8 @@ def attn_block_stash(x, w_eff, b_eff, wo, bo, *, heads: int,
         return attn_block_stash_plain(x, w_eff, b_eff, wo, bo, heads=heads,
                                       causal=causal, eps=eps)
     stash = _launch_attn_block(x, w_eff, b_eff, wo, bo, heads, causal, eps,
-                               q_rows=x.shape[1], entry="uml_attn_block_stash")
+                               q_rows=x.shape[1], entry="uml_attn_block_stash",
+                               stash=True)
     attn_block_stash.launches += 1
     return stash
 
@@ -412,10 +457,50 @@ def attn_block_bwd_recompute(x, g, w_eff, b_eff, wo, *, heads: int,
                       dx.data_ptr(), xn.data_ptr(), b, s, k, heads, int(causal),
                       eps, torch.cuda.current_stream(dev).cuda_stream)
     attn_block_bwd_recompute.launches += 1
+    if qkv_attention_fused(s):
+        qkv_attention.launches += 1
     return dx, dqkv, xn, attn
 
 
 attn_block_bwd_recompute.launches = 0
+
+
+def qkv_attention(x, w_eff, b_eff, *, heads: int, causal: bool = False,
+                  eps: float = 1e-5, q_rows=None, stash: bool = False):
+    """The fused QKV + attention kernel on its own (csrc/qkv_attention.cu,
+    after the LN row pre-pass), as ``qkv_attention_plain``: x [B,S,K],
+    w_eff [K,3*H*64], b_eff [3*H*64] fp32 -> attn [B,sq,H*64] (sq = S, or
+    ``q_rows`` = 1 for the CLS row), or (qkv [B,S,3*H*64], attn) with
+    ``stash``.  The half-blocks launch the same kernel inside their own C
+    calls (S <= 256) and count it here too; for the card tests and
+    ``chip_smoke.py``."""
+    if x.device.type == "cpu":
+        return qkv_attention_plain(x, w_eff, b_eff, heads=heads, causal=causal,
+                                   eps=eps, q_rows=q_rows, stash=stash)
+    b, s, k = x.shape
+    hd = heads * HEAD_DIM
+    sq = s if q_rows is None else q_rows
+    if not qkv_attention_fused(s) or sq not in (s, 1) or (causal and sq != s):
+        raise ValueError(f"qkv_attention kernel: S={s} q_rows={sq} causal={causal}; "
+                         f"it takes S <= {QKV_ATTN_MAX_S}, q_rows S or 1 (S when causal)")
+    _build.check_dims(K=k)
+    bf16, dev = torch.bfloat16, x.device
+    _build.check_tensor("x", x, bf16, (b, s, k), dev)
+    _build.check_tensor("w_eff", w_eff, bf16, (k, 3 * hd), dev)
+    _build.check_tensor("b_eff", b_eff, torch.float32, (3 * hd,), dev)
+    with torch.cuda.device(dev):
+        xn = torch.empty_like(x)
+        qkv = qkv_scratch(b, s, hd, dev, stash)
+        attn = torch.empty((b, sq, hd), dtype=bf16, device=dev)
+        _build.launch("uml_qkv_attention",
+                      *map(_build.ptr, (x, w_eff, b_eff, xn, qkv, attn)),
+                      b, s, k, heads, int(causal), sq, eps,
+                      torch.cuda.current_stream(dev).cuda_stream)
+    qkv_attention.launches += 1
+    return (qkv.view(b, s, 3 * hd), attn) if stash else attn
+
+
+qkv_attention.launches = 0
 
 
 def attn_bwd_plain(qkv, dattn, *, heads: int, causal: bool = False,

@@ -26,6 +26,12 @@ returns q's dtype); the Pallas kernel quantizes its fp32 output instead.
 Wrappers: ``attn_block_q8`` / ``mlp_block_q8`` take the plain version for
 a CPU tensor and launch ``csrc/attn_block_q8.cu`` / ``csrc/mlp_block_q8.cu``
 for a CUDA tensor, or raise; each counts its launches on ``.launches``.
+For S <= 256 (``qkv_attention_fused``) the int8 attention half runs its
+QKV product and attention as the int8 instance of ``csrc/qkv_attention.cu``
+(q, k, v in shared memory, no qkv scratch), counted on
+``qkv_attention_q8.launches`` too; ``qkv_attention_q8`` launches that
+kernel on its own (after ``ln_quantize_rows``), beside
+``qkv_attention_q8_plain``.
 They take the int8 weights in the JAX [in, out] layout; the kernels read
 them K-major ([out, in]: wgmma takes 8-bit operands K-major only), as
 ``w.t().contiguous()``, which is free for a transposed view of a K-major
@@ -43,9 +49,10 @@ from __future__ import annotations
 import torch
 
 from uml_tpu_torch.ops import _build
-from uml_tpu_torch.ops.fused_attention import (HEAD_DIM, _qkv_heads,
-                                               attention_plain,
-                                               fold_ln_into_matmul)
+from uml_tpu_torch.ops.fused_attention import (HEAD_DIM, QKV_ATTN_MAX_S,
+                                               _qkv_heads, attention_plain,
+                                               fold_ln_into_matmul,
+                                               qkv_attention_fused, qkv_scratch)
 from uml_tpu_torch.ops.ln_matmul import quick_gelu_f32
 
 INT8_MAX = 127.0
@@ -116,19 +123,25 @@ def q8_dot(xq, row_scale, wq, col_scale):
     return acc.float() * row_scale * col_scale
 
 
+def qkv_attention_q8_plain(x, wq, wsc, b_eff, *, heads: int,
+                           causal: bool = False, eps: float = 1e-5):
+    """Plain PyTorch version of the int8 fused kernel's function: the
+    attention [B, S, H*D] of the int8 QKV product's bf16 qkv + b_eff."""
+    b, s, _ = x.shape
+    xq, xs = ln_quantize_rows(x.float(), eps)
+    qkv = (q8_dot(xq, xs, wq, wsc) + b_eff.float()).to(torch.bfloat16)
+    attn = attention_plain(*_qkv_heads(qkv, heads), causal=causal)
+    return attn.transpose(1, 2).reshape(b, s, -1)
+
+
 def attn_block_q8_plain(x, wq, wsc, b_eff, wo_ops, bo, *, heads: int,
                         causal: bool = False, q8_out: bool = True,
                         eps: float = 1e-5):
     """Plain PyTorch version of the int8 attention half-block:
     x + MHA(LNquant(x) . int8 wq -> bf16 qkv + b_eff) . wo + bo, with
     ``wo_ops`` = (woq int8, wosc fp32) when ``q8_out``, else (wo bf16,)."""
-    b, s, _ = x.shape
-    xf = x.float()
-    xq, xs = ln_quantize_rows(xf, eps)
-    qkv = (q8_dot(xq, xs, wq, wsc) + b_eff.float()).to(torch.bfloat16)
-    q, k, v = _qkv_heads(qkv, heads)
-    attn = attention_plain(q, k, v, causal=causal)
-    attn = attn.transpose(1, 2).reshape(b, s, -1)
+    attn = qkv_attention_q8_plain(x, wq, wsc, b_eff, heads=heads,
+                                  causal=causal, eps=eps)
     if q8_out:
         woq, wosc = wo_ops
         aq, asc = quantize_rows(attn.float())
@@ -136,7 +149,7 @@ def attn_block_q8_plain(x, wq, wsc, b_eff, wo_ops, bo, *, heads: int,
     else:
         (wo,) = wo_ops
         delta = attn.float() @ wo.float()
-    return (xf + delta + bo.float()).to(x.dtype)
+    return (x.float() + delta + bo.float()).to(x.dtype)
 
 
 def mlp_block_q8_plain(x, w1q, w1sc, b1, w2q, w2sc, b2, *, eps: float = 1e-5,
@@ -190,15 +203,17 @@ def _launch_attn_block_q8(x, wq, wsc, b_eff, wo_ops, bo, heads, causal,
     with torch.cuda.device(dev):
         q8 = torch.empty(rows * max(k, hd), dtype=torch.int8, device=dev)
         qscale = torch.empty(rows, dtype=f32, device=dev)
-        qkv = torch.empty((rows, 3 * hd), dtype=bf16, device=dev)
+        qkv = qkv_scratch(b, s, hd, dev)
         attn = torch.empty((rows, hd), dtype=bf16, device=dev)
         out = torch.empty_like(x)
         _build.launch("uml_attn_block_q8", x.data_ptr(), wq.data_ptr(),
                       wsc.data_ptr(), b_eff.data_ptr(), wo_ptr, wosc_ptr,
                       bo.data_ptr(), q8.data_ptr(), qscale.data_ptr(),
-                      qkv.data_ptr(), attn.data_ptr(), out.data_ptr(), b, s, k,
-                      heads, int(causal), int(q8_out), eps,
+                      _build.ptr(qkv), attn.data_ptr(), out.data_ptr(), b, s,
+                      k, heads, int(causal), int(q8_out), eps,
                       torch.cuda.current_stream(dev).cuda_stream)
+    if qkv_attention_fused(s):
+        qkv_attention_q8.launches += 1
     return out, q8, qscale
 
 
@@ -222,6 +237,46 @@ def attn_block_q8(x, wq, wsc, b_eff, wo_ops, bo, *, heads: int,
 
 
 attn_block_q8.launches = 0
+
+
+def qkv_attention_q8(x, wq, wsc, b_eff, *, heads: int, causal: bool = False,
+                     eps: float = 1e-5):
+    """The int8 fused QKV + attention kernel on its own (ln_quantize_rows,
+    then csrc/qkv_attention.cu over int8), as ``qkv_attention_q8_plain``:
+    x [B,S,K] bf16; wq int8 [K,3*H*64] (read K-major, as attn_block_q8
+    does); wsc, b_eff fp32 [3*H*64] -> attn [B,S,H*64] bf16.  The int8
+    attention half launches the same kernel inside its own C call
+    (S <= 256) and counts it here too; for the card tests and
+    ``chip_smoke.py``."""
+    check_inference("qkv_attention_q8", x, b_eff)
+    if x.device.type == "cpu":
+        return qkv_attention_q8_plain(x, wq, wsc, b_eff, heads=heads,
+                                      causal=causal, eps=eps)
+    b, s, k = x.shape
+    hd = heads * HEAD_DIM
+    if not qkv_attention_fused(s):
+        raise ValueError(f"qkv_attention_q8 kernel: S={s}; it takes S <= "
+                         f"{QKV_ATTN_MAX_S}")
+    wq = wq.t().contiguous()
+    _build.check_dims(K=k)
+    f32, dev = torch.float32, x.device
+    _build.check_tensor("x", x, torch.bfloat16, (b, s, k), dev)
+    _build.check_tensor("wq", wq, torch.int8, (3 * hd, k), dev)
+    _build.check_tensor("wsc", wsc, f32, (3 * hd,), dev)
+    _build.check_tensor("b_eff", b_eff, f32, (3 * hd,), dev)
+    with torch.cuda.device(dev):
+        q8 = torch.empty(b * s * k, dtype=torch.int8, device=dev)
+        qscale = torch.empty(b * s, dtype=f32, device=dev)
+        attn = torch.empty((b, s, hd), dtype=torch.bfloat16, device=dev)
+        _build.launch("uml_qkv_attention_q8", x.data_ptr(), wq.data_ptr(),
+                      wsc.data_ptr(), b_eff.data_ptr(), q8.data_ptr(),
+                      qscale.data_ptr(), attn.data_ptr(), b, s, k, heads,
+                      int(causal), eps, torch.cuda.current_stream(dev).cuda_stream)
+    qkv_attention_q8.launches += 1
+    return attn
+
+
+qkv_attention_q8.launches = 0
 
 
 def _launch_mlp_block_q8(x, w1q, w1sc, b1, w2q, w2sc, b2, eps):

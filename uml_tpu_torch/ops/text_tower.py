@@ -5,7 +5,8 @@ The port of uml_tpu/ops/text_tower.py::_tower_kernel.  On a CPU tensor
 as the jnp twin ``text_tower_reference`` composes the per-layer twins); on
 a CUDA tensor it launches ``csrc/text_tower.cu``, one C call that loops
 over the layers and launches the causal attention half and the MLP half
-of each, or raises.  The residual is rounded to the activation dtype
+of each, or raises; each layer's fused QKV + attention kernel (S <= 256)
+counts on ``qkv_attention.launches`` too.  The residual is rounded to the activation dtype
 between halves and between layers, as in the TPU kernel.
 
 ``TextTowerFn`` gives the tower a gradient as uml_tpu's custom_vjp does
@@ -26,7 +27,8 @@ import torch
 
 from uml_tpu_torch.ops import _build
 from uml_tpu_torch.ops._vjp import plain_vjp
-from uml_tpu_torch.ops.fused_attention import HEAD_DIM, attn_block_plain
+from uml_tpu_torch.ops.fused_attention import (HEAD_DIM, attn_block_plain,
+                                               qkv_attention, qkv_scratch)
 from uml_tpu_torch.ops.ln_matmul import mlp_block_plain
 
 
@@ -65,16 +67,18 @@ def text_tower(x, w_eff, b_eff, wo, bo, w1, b1, w2, b2, *, heads: int,
         _build.check_tensor(name, t, dtype, shape, dev)
     with torch.cuda.device(dev):
         xn = torch.empty_like(x)
-        qkv = torch.empty((b * s, 3 * hd), dtype=bf16, device=dev)
+        qkv = qkv_scratch(b, s, hd, dev)
         attn = torch.empty((b * s, hd), dtype=bf16, device=dev)
         hidden = torch.empty((b * s, m), dtype=bf16, device=dev)
         mid = torch.empty_like(x)
         out = torch.empty_like(x)
-        _build.launch("uml_text_tower", *(t.data_ptr() for t in (
+        _build.launch("uml_text_tower", *map(_build.ptr, (
             x, w_eff, b_eff, wo, bo, w1, b1, w2, b2, xn, qkv, attn, hidden,
             mid, out)), b, s, k, heads, m, layers, eps,
             torch.cuda.current_stream(dev).cuda_stream)
     text_tower.launches += 1
+    if qkv is None:
+        qkv_attention.launches += layers
     return out
 
 

@@ -8,7 +8,9 @@ the layers with the bf16 residual between halves and between layers
 (tower_q8.py:83-86, 204-205); on a CUDA tensor it launches
 ``csrc/tower_q8.cu``, one C call that loops over the layers and makes the
 same launches as ``attn_block_q8`` + ``mlp_block_q8``, so on the card its
-output equals the per-layer int8 path bit for bit.  Inference-only.
+output equals the per-layer int8 path bit for bit; each layer's int8
+fused QKV + attention kernel (S <= 256) counts on
+``qkv_attention_q8.launches`` too.  Inference-only.
 
 Weights are stacked per layer, LN-folded and pre-quantized
 (``quantize_weight`` on the fp32 folded weights, as the per-layer path
@@ -29,9 +31,9 @@ from __future__ import annotations
 import torch
 
 from uml_tpu_torch.ops import _build
-from uml_tpu_torch.ops.fused_attention import HEAD_DIM
+from uml_tpu_torch.ops.fused_attention import HEAD_DIM, qkv_scratch
 from uml_tpu_torch.ops.quant import (attn_block_q8_plain, check_inference,
-                                     mlp_block_q8_plain)
+                                     mlp_block_q8_plain, qkv_attention_q8)
 
 
 def supports_tower_q8(k: int, heads: int, head_dim: int, s: int, m: int) -> bool:
@@ -87,16 +89,18 @@ def tower_q8(x, wq, wsc, b_eff, woq, wosc, bo, w1q, w1sc, b1, w2q, w2sc, b2, *,
     with torch.cuda.device(dev):
         q8 = torch.empty(rows * max(k, hd, m), dtype=i8, device=dev)
         qscale = torch.empty(rows, dtype=f32, device=dev)
-        qkv = torch.empty((rows, 3 * hd), dtype=torch.bfloat16, device=dev)
+        qkv = qkv_scratch(b, s, hd, dev)
         attn = torch.empty((rows, hd), dtype=torch.bfloat16, device=dev)
         pre = torch.empty((rows, m), dtype=f32, device=dev)
         mid = torch.empty_like(x)
         out = torch.empty_like(x)
-        _build.launch("uml_tower_q8", *(t.data_ptr() for t in (
+        _build.launch("uml_tower_q8", *map(_build.ptr, (
             x, wq, wsc, b_eff, woq, wosc, bo, w1q, w1sc, b1, w2q, w2sc, b2,
             q8, qscale, qkv, attn, pre, mid, out)), b, s, k, heads, m, layers,
             eps, torch.cuda.current_stream(dev).cuda_stream)
     tower_q8.launches += 1
+    if qkv is None:
+        qkv_attention_q8.launches += layers
     return out
 
 
