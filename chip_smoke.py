@@ -15,7 +15,8 @@ Phases (any failure exits non-zero; no phase is caught):
    out-projection, mlp_block_q8 and the 11-layer tower_q8 at ViT-B/16
    widths, causal attn_block_q8 at the text widths; the stand-alone ops
    of the non-fused branch: ln_matmul 3-d and 2-d with each activation,
-   add_ln_matmul, ln_qkv_attention at both towers' widths, layer_norm in
+   add_ln_matmul, both also at a ragged row count (12,545) and at the text
+   tower's widths, ln_qkv_attention at both towers' widths, layer_norm in
    bf16 and fp32, flash_attention at S=197 and at [8,16,2048,64] causal
    and not, at head dim 128, and on the ViT layer's packed qkv [B, S, 3,
    H, D] read in place by the strided entry; the attention halves, the
@@ -43,7 +44,10 @@ Phases (any failure exits non-zero; no phase is caught):
    The int8 halves
    also compare their activation integers with the plain version's: no
    integer may differ by more than one step.  A profile of one row-19
-   call must show the engine and no wmma ln_gemm_kernel.
+   call must show the engine and no wmma ln_gemm_kernel; profiles of one
+   call of rows 14-17 must show the LN pre-pass, one engine product (and
+   for row 17 the attention) and nothing else: the kernels line names
+   them (``engine_kernels``).
 3. main path: the PIL decode rate of data/loader.py on the fixture's
    JPEGs (one worker and one per core), then generate_fewshot and
    features on a synthetic caltech-layout
@@ -69,9 +73,11 @@ Phases (any failure exits non-zero; no phase is caught):
    64 prompts through encode_text under "reference" (12 and 12, no
    text_tower); per-row cosine against the fused path's features and
    against the same model on the CPU; the img/s of both modes beside the
-   fused encoder's.  Then the public exports of uml_tpu_torch.ops on the
-   card: layer_norm, ln_qkv_attention, multi_head_attention ("auto" at
-   S=2048) and a 2-d ln_matmul; their counters must move.
+   fused encoder's, and a profile of each showing 12 affine and 12 add LN
+   pre-passes a batch and no wmma ln_gemm_kernel.  Then the public
+   exports of uml_tpu_torch.ops on the card: layer_norm, ln_qkv_attention,
+   multi_head_attention ("auto" at S=2048) and a 2-d ln_matmul; their
+   counters must move.
 4. training path: the finetune CLI on the phase-3 fixture and text cache,
    frozen (``--hyperparams smoke``) and full-model (``smoke_full``: the
    ViT-B/16 tower at full width, bs 8, 30 steps), then collect_results
@@ -217,8 +223,11 @@ REL_BOUND = {"attn_block": 1 / 64, "attn_block_cls": 1 / 64,
              # add_ln_matmul is one rounding of the same fp32 sum, and the
              # fp32 layer_norm differs in summation order only: 1e-5
              "ln_matmul": 1 / 64, "ln_matmul_2d": 1 / 64,
-             "ln_matmul_2d_gelu_exact": 1 / 64,
-             "add_ln_matmul": (1e-5, 1 / 64), "ln_qkv_attention": 1 / 64,
+             "ln_matmul_2d_gelu_exact": 1 / 64, "ln_matmul_gelu_exact": 1 / 64,
+             "ln_matmul_ragged": 1 / 64, "ln_matmul_text": 1 / 64,
+             "add_ln_matmul": (1e-5, 1 / 64),
+             "add_ln_matmul_ragged": (1e-5, 1 / 64),
+             "add_ln_matmul_text": (1e-5, 1 / 64), "ln_qkv_attention": 1 / 64,
              "ln_qkv_attention_causal": 1 / 64, "layer_norm": 1 / 64,
              "layer_norm_f32": 1e-5, "flash_attention": 1 / 64,
              "flash_attention_2048": 1 / 64,
@@ -261,6 +270,15 @@ REL_BOUND = {"attn_block": 1 / 64, "attn_block_cls": 1 / 64,
              # 1/64 like the half-blocks; the fp32 statistics (m, 1/l, D)
              # differ in summation order only
              "attn_bwd_dq": (1 / 64, 1e-3), "attn_bwd_dkv": (1 / 64, 1 / 64)}
+# the kernels that rows 14-17 launch, by their names in a profile: the LN
+# pre-pass (ln_rows_kernel<PRO_LN_AFFINE = 2 | PRO_ADD_LN_AFFINE = 3>) and
+# the engine's product (epilogue WGG_OUT_BF16 = 0, OUT_GELU = 3,
+# OUT_GELU_EXACT = 9)
+ENGINE_ROUTES = {
+    "affine": ("ln_rows_kernel<2>", "wgmma_gemm_kernel<false, true, 0>"),
+    "affine_quick_gelu": ("ln_rows_kernel<2>", "wgmma_gemm_kernel<false, true, 3>"),
+    "affine_gelu_exact": ("ln_rows_kernel<2>", "wgmma_gemm_kernel<false, true, 9>"),
+    "add_quick_gelu": ("ln_rows_kernel<3>", "wgmma_gemm_kernel<false, true, 3>")}
 # the products of the wgmma engine and the attention backward's two
 # passes, timed on their own (phase 2)
 PRODUCTS = ("gemm_qkv", "gemm_g_wo_t", "gemm_dqkv_weff_t", "gemm_g_w2_t",
@@ -644,6 +662,7 @@ def phase_kernels():
     qkv_w = (wv["w_eff"], wv["b_eff"])      # used as plain [K, 3K] weights
     fc_w = (wv["w1"], wv["b1"])
     x2d = xv.reshape(rows, k)
+    ragged = rows - 63
     delta_v = torch.randn(b, s, k, generator=gen, device=dev).to(bf)
     x32 = xv.float()
 
@@ -792,6 +811,28 @@ def phase_kernels():
         ("add_ln_matmul", lambda *a: lm.add_ln_matmul(*a, gelu=True),
          lambda *a: lm.add_ln_matmul_plain(*a, activation="quick_gelu"),
          (xv, delta_v, *ln_v, *fc_w), 0, mlp_f / 2, vit_fc),
+        # rows 14-16 on more of the shapes they take: gelu_exact on the 3-d
+        # form, a row count that ends inside the engine's 128-row tile
+        # (12,545 = 98 x 128 + 1), and the text tower's widths (QKV, c_fc)
+        ("ln_matmul_gelu_exact",
+         lambda *a: lm.ln_matmul(*a, activation="gelu_exact"),
+         lambda *a: lm.ln_matmul_plain(*a, activation="gelu_exact"),
+         (xv, *ln_v, *fc_w), 0, mlp_f / 2, vit_fc),
+        ("ln_matmul_ragged", lambda *a: lm.ln_matmul(*a, activation="quick_gelu"),
+         lambda *a: lm.ln_matmul_plain(*a, activation="quick_gelu"),
+         (x2d[:ragged], *ln_v, *fc_w), 0, mlp_f / 2 * ragged / rows,
+         (ragged, k, m, False)),
+        ("add_ln_matmul_ragged", lambda *a: lm.add_ln_matmul(*a, gelu=True),
+         lambda *a: lm.add_ln_matmul_plain(*a, activation="quick_gelu"),
+         (x2d[:ragged], delta_v.view(rows, k)[:ragged], *ln_v, *fc_w), 0,
+         mlp_f / 2 * ragged / rows, (ragged, k, m, False)),
+        ("ln_matmul_text", lm.ln_matmul, lm.ln_matmul_plain,
+         (xt, *ln_t, *attn_t[:2]), 0, 2.0 * rows_t * kt * 3 * kt,
+         (rows_t, kt, 3 * kt, False)),
+        ("add_ln_matmul_text", lambda *a: lm.add_ln_matmul(*a, gelu=True),
+         lambda *a: lm.add_ln_matmul_plain(*a, activation="quick_gelu"),
+         (xt, g_t, *ln_t, layers[0]["w1"], layers[0]["b1"]), 0,
+         2.0 * rows_t * kt * 4 * kt, (rows_t, kt, 4 * kt, False)),
         ("ln_qkv_attention", lambda *a: fa.ln_qkv_attention(*a, heads=12),
          lambda *a: fa.ln_qkv_attention_plain(*a, heads=12),
          (xv, *ln_v, *qkv_w), 0, qkv_f + attn_f, vit_qkv),
@@ -893,6 +934,26 @@ def phase_kernels():
     _check(not any("ln_gemm_kernel" in n for n in names)
            and sum("wgmma_gemm_kernel" in n for n in names) == 2,
            ("row 19: the two products on the engine, no wmma", names))
+    # rows 14-16 launch the LN pre-pass and one engine product and nothing
+    # else, row 17 the attention besides (kept on the kernels line)
+    for row, fn, route in (
+            ("ln_matmul", lambda: lm.ln_matmul(xv, *ln_v, *qkv_w), ENGINE_ROUTES["affine"]),
+            ("ln_matmul_2d",
+             lambda: lm.ln_matmul(x2d, *ln_v, *fc_w, activation="quick_gelu"),
+             ENGINE_ROUTES["affine_quick_gelu"]),
+            ("ln_matmul_gelu_exact",
+             lambda: lm.ln_matmul(xv, *ln_v, *fc_w, activation="gelu_exact"),
+             ENGINE_ROUTES["affine_gelu_exact"]),
+            ("add_ln_matmul", lambda: lm.add_ln_matmul(xv, delta_v, *ln_v, *fc_w, gelu=True),
+             ENGINE_ROUTES["add_quick_gelu"]),
+            ("ln_qkv_attention", lambda: fa.ln_qkv_attention(xv, *ln_v, *qkv_w, heads=12),
+             ENGINE_ROUTES["affine"] + ("flash_attention_kernel",))):
+        names = _kernel_names(_profile(f"{row} (the engine's route)", fn))
+        _check(len(names) == len(route)
+               and all(sum(part in n for n in names) == 1 for part in route)
+               and not any("ln_gemm_kernel" in n for n in names),
+               (f"{row}: the LN pre-pass and the engine only", route, names))
+        results[row]["engine_kernels"] = list(route)
     # rows 5 and 10 at S = 197 run the fused QKV + attention kernel: no
     # flash_attention, and the out-projection is their one engine product
     for row, fn, out_proj in (
@@ -913,9 +974,9 @@ def phase_kernels():
 
 
 def _kernel_names(rows):
-    """The kernel names of a ``_profile`` result (the port's kernels all
-    appear there; PyTorch's lambda kernels, whose names carry a '#', do
-    not)."""
+    """The names of a ``_profile`` result: every kernel, memcpy and memset
+    the card ran (the port's and PyTorch's), no ``record_function``
+    range."""
     return [key for key, _, _ in rows]
 
 
@@ -1579,10 +1640,16 @@ def phase_unfused(fused_encoder):
             numbers[f"unfused_phase_img_per_s_bs64_{key}"] = batch / (ms / 1e3)
             print(f"[unfused] image encoder {key}: {ms:.3f} ms per batch of "
                   f"{batch} = {batch / (ms / 1e3):.1f} img/s")
-        _profile("non-fused image encoder (reference)",
-                 lambda: models["reference"].encode_image_u8(u8))
-        _profile("non-fused image encoder (pallas)",
-                 lambda: models["pallas"].encode_image_u8(u8))
+        # each batch: 12 affine and 12 add LN pre-passes, each before its
+        # engine product; no wmma ln_gemm_kernel
+        for attn_impl, model in models.items():
+            rows = _profile(f"non-fused image encoder ({attn_impl})",
+                            lambda: model.encode_image_u8(u8), reps=3)
+            prepasses = [sum(c for key, _, c in rows if f"ln_rows_kernel<{pro}>" in key) // 3
+                         for pro in (2, 3)]
+            _check(prepasses == [12, 12]
+                   and not any("ln_gemm_kernel" in key for key, _, _ in rows),
+                   (attn_impl, "the LN pre-passes on the engine's route", prepasses))
 
         # the public exports on the card
         gen = torch.Generator(device=dev).manual_seed(3)
@@ -2048,6 +2115,29 @@ def _train_step_rates(bsz, modes, iters=10, clip_kw=None):
     return numbers
 
 
+def _device_rows(events):
+    """(name, self device time in us, count) of every event of a profile's
+    ``key_averages()`` that ran on the card: kernels (PyTorch's elementwise
+    lambdas, ``...{lambda(float)#1}``, among them), memcpys and memsets.
+    Chosen by kind, never by name: only device-side rows count (an aten
+    op's own row would count its kernels a second time), and a
+    ``record_function`` range (``Optimizer.step#AdamW.step``), whose
+    device-side row spans kernels counted in their own rows, is dropped:
+    by ``is_user_annotation`` where the torch build sets it, else by the
+    name its CPU-side event in the same profile carries."""
+    from torch.autograd import DeviceType
+
+    cpu_names = {e.key for e in events if e.device_type != DeviceType.CUDA}
+
+    def annotation(e):
+        flag = getattr(e, "is_user_annotation", None)
+        return e.key in cpu_names if flag is None else flag
+
+    return [(e.key, e.self_device_time_total, e.count) for e in events
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and not annotation(e)]
+
+
 def _profile(what, fn, reps=3, top=10, by_op=False):
     """Device time by kernel over ``reps`` calls (torch.profiler, CUPTI)
     and the device's busy share of the wall time of those calls."""
@@ -2063,15 +2153,7 @@ def _profile(what, fn, reps=3, top=10, by_op=False):
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    # device-side events only (kernels, copies): an aten op's own row
-    # would count its kernels a second time
-    rows = [(e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-            # a record_function range (Optimizer.step#AdamW.step) spans
-            # kernels counted in their own rows
-            and not getattr(e, "is_user_annotation", False)
-            and "#" not in e.key]
+    rows = _device_rows(prof.key_averages())
     busy = sum(t for _, t, _ in rows)
     print(f"[profile] {what}: device busy {busy / reps / 1e3:.3f} ms per call, "
           f"{100 * busy / wall_us:.1f}% of {wall_us / reps / 1e3:.3f} ms wall")
@@ -2163,7 +2245,10 @@ def main() -> int:
                       # LN -> matmul
                       "library_ms": row["library_ms"],
                       "gemm_yardstick": row["yardstick"],
-                      "gemm_yardstick_ms": row["yardstick_ms"]})
+                      "gemm_yardstick_ms": row["yardstick_ms"],
+                      # rows 14-17: the kernels a profile of one call showed
+                      **({"engine_kernels": row["engine_kernels"]}
+                         if "engine_kernels" in row else {})})
     products = [{"name": name, "max_abs_err": kernels[name]["max_abs_err"],
                  "max_rel_err": kernels[name]["max_rel_err"], "ms": kernels[name]["ms"],
                  "plain_ms": kernels[name]["plain_ms"],

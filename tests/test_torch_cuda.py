@@ -8,9 +8,11 @@ on their own; the fused QKV + attention kernel and the attention halves
 256, 257}: both sides of its m64 edges and of its route limit, S <= 256,
 with the route each S took read off the launch counters; the streaming attention at S from 1 to 2048, head dims 64 and 128,
 also on strided views of a packed qkv; layer_norm at row counts up to
-40,000; each product triple of the wgmma engine and gemm_at at ragged
-row counts and both towers' widths, against an fp32 product of the same
-bf16 operands, gemm_at at every row-chunk count; the int8 GEMM at ragged
+40,000; the stand-alone ops of rows 14-17 (the LN pre-pass and the
+engine) at row counts 1 to 4 x 197 and both towers' QKV and c_fc widths,
+every activation; each product triple of the wgmma engine and gemm_at at
+ragged row counts and both towers' widths, against an fp32 product of the
+same bf16 operands, gemm_at at every row-chunk count; the int8 GEMM at ragged
 row counts and every int8 width, equal to torch._int_mm's integer sum and
 to its plain version bit for bit).  Marked ``cuda``: they skip without an NVIDIA GPU (sm_90a) and
 run on the card with ``python -m pytest tests/test_torch_cuda.py -q``.
@@ -523,55 +525,78 @@ def _ln_params(dev, k, seed=3):
             (0.1 * torch.randn(k, generator=g)).to(dev))
 
 
+# rows 14-17 on the engine: the row counts on both sides of its 128-row
+# tile (1, 127, 129, 4 x 197) and the towers' widths (K, N): the test
+# width, the text QKV and c_fc, the ViT-B/16 QKV and c_fc
+LN_LEAD = [(37,), (1,), (127,), (129,), (B, 17), (B, 197), (4, 197)]
+LN_WIDTHS = [(K, M), (512, 1536), (512, 2048), (768, 2304), (768, 3072)]
+
+
+def _ln_operands(dev, lead, k, n, seed):
+    """x [*lead, k], delta like x, the LN (scale, bias) [k] fp32, w [k, n]
+    bf16, b [n] fp32."""
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, std=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=g) * std).to(dtype).to(dev)
+
+    f32 = torch.float32
+    return (rnd(*lead, k), rnd(*lead, k), 1 + rnd(k, std=0.1, dtype=f32),
+            rnd(k, std=0.1, dtype=f32), rnd(k, n, std=k ** -0.5),
+            rnd(n, std=0.1, dtype=f32))
+
+
 @pytest.mark.parametrize("act", [None, "quick_gelu", "gelu_exact"])
-@pytest.mark.parametrize("shape", [(37, K), (B, 17, K), (B, 197, K)])
-def test_ln_matmul_kernel(dev, shape, act):
-    """2-d and 3-d x through one entry, rows not a multiple of the 64-row
+@pytest.mark.parametrize("kn", LN_WIDTHS)
+@pytest.mark.parametrize("lead", LN_LEAD)
+def test_ln_matmul_kernel(dev, lead, kn, act):
+    """2-d and 3-d x through one entry, rows not a multiple of the 128-row
     tile; a 4-d x is rows all the same."""
-    x = _g(dev, shape, seed=4)
-    w = _weights(dev)
-    scale, bias = _ln_params(dev, K)
-    n = lm.ln_matmul.launches
-    got = lm.ln_matmul(x, scale, bias, w[4], w[5], activation=act)
-    assert lm.ln_matmul.launches == n + 1
-    assert got.shape == (*shape[:-1], M)
-    _close(got, lm.ln_matmul_plain(x, scale, bias, w[4], w[5], activation=act))
-    assert torch.equal(got, lm.ln_matmul(x, scale, bias, w[4], w[5],
-                                         activation=act, impl="pallas"))
-    x4 = x.reshape(1, 1, -1, K)
-    assert torch.equal(got.reshape(1, 1, -1, M),
-                       lm.ln_matmul(x4, scale, bias, w[4], w[5], activation=act))
-    assert lm.ln_matmul.launches == n + 3
+    k, n = kn
+    x, _, scale, bias, w, b = _ln_operands(dev, lead, k, n, seed=4 + len(lead))
+    c = lm.ln_matmul.launches
+    got = lm.ln_matmul(x, scale, bias, w, b, activation=act)
+    assert lm.ln_matmul.launches == c + 1
+    assert got.shape == (*lead, n)
+    _close(got, lm.ln_matmul_plain(x, scale, bias, w, b, activation=act))
+    assert torch.equal(got, lm.ln_matmul(x, scale, bias, w, b, activation=act,
+                                         impl="pallas"))
+    x4 = x.reshape(1, 1, -1, k)
+    assert torch.equal(got.reshape(1, 1, -1, n),
+                       lm.ln_matmul(x4, scale, bias, w, b, activation=act))
+    assert lm.ln_matmul.launches == c + 3
 
 
 @pytest.mark.parametrize("act", [None, "quick_gelu", "gelu_exact"])
-@pytest.mark.parametrize("s", [9, 17, 197])
-def test_add_ln_matmul_kernel(dev, s, act):
-    x, delta = _x(dev, s), _g(dev, (B, s, K), seed=5)
-    w = _weights(dev)
-    scale, bias = _ln_params(dev, K)
-    n = lm.add_ln_matmul.launches
-    t, out = lm.add_ln_matmul(x, delta, scale, bias, w[4], w[5], activation=act)
-    assert lm.add_ln_matmul.launches == n + 1
-    t_want, out_want = lm.add_ln_matmul_plain(x, delta, scale, bias, w[4], w[5],
+@pytest.mark.parametrize("kn", LN_WIDTHS)
+@pytest.mark.parametrize("lead", LN_LEAD)
+def test_add_ln_matmul_kernel(dev, lead, kn, act):
+    k, n = kn
+    x, delta, scale, bias, w, b = _ln_operands(dev, lead, k, n, seed=5 + len(lead))
+    c = lm.add_ln_matmul.launches
+    t, out = lm.add_ln_matmul(x, delta, scale, bias, w, b, activation=act)
+    assert lm.add_ln_matmul.launches == c + 1
+    t_want, out_want = lm.add_ln_matmul_plain(x, delta, scale, bias, w, b,
                                               activation=act)
     torch.cuda.synchronize()
     # t is one bf16 rounding of the same fp32 sum: bit for bit
     assert torch.equal(t, t_want)
+    assert torch.equal(t, (x.float() + delta.float()).to(torch.bfloat16))
     _close(out, out_want)
 
 
-@pytest.mark.parametrize("s", [9, 17, 197])
+@pytest.mark.parametrize("bs", [(3, 9), (3, 17), (3, 197), (4, 197), (1, 1),
+                                (1, 127), (1, 129)])
+@pytest.mark.parametrize("kh", [(K, HEADS), (512, 8), (768, 12)])
 @pytest.mark.parametrize("causal", [False, True])
-def test_ln_qkv_attention_kernel(dev, s, causal):
-    x, w = _x(dev, s), _weights(dev)
-    scale, bias = _ln_params(dev, K)
-    n = fa.ln_qkv_attention.launches
-    got = fa.ln_qkv_attention(x, scale, bias, w[0], w[1], heads=HEADS,
-                              causal=causal)
-    assert fa.ln_qkv_attention.launches == n + 1
-    _close(got, fa.ln_qkv_attention_plain(x, scale, bias, w[0], w[1],
-                                          heads=HEADS, causal=causal))
+def test_ln_qkv_attention_kernel(dev, bs, kh, causal):
+    (b, s), (k, heads) = bs, kh
+    x, _, scale, bias, w, wb = _ln_operands(dev, (b, s), k, 3 * heads * 64, seed=s)
+    c = fa.ln_qkv_attention.launches
+    got = fa.ln_qkv_attention(x, scale, bias, w, wb, heads=heads, causal=causal)
+    assert fa.ln_qkv_attention.launches == c + 1
+    _close(got, fa.ln_qkv_attention_plain(x, scale, bias, w, wb, heads=heads,
+                                          causal=causal))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -794,6 +819,29 @@ def test_engine_triple_kernel(dev, triple, rows, k):
         rel = REL if a.dtype == torch.bfloat16 else GEMM_F32_REL
         err = (a.float() - b.float()).abs().max().item()
         assert err <= rel * b.float().abs().max().item(), (triple, err)
+
+
+@pytest.mark.parametrize("k", [768, 512])
+@pytest.mark.parametrize("rows", GEMM_ROWS)
+@pytest.mark.parametrize("triple", ["AFFINE", "AFFINE_QUICK_GELU", "AFFINE_GELU_EXACT",
+                                    "ADD", "ADD_QUICK_GELU", "ADD_GELU_EXACT"])
+def test_affine_engine_triple_kernel(dev, triple, rows, k):
+    """Rows 14-17's triples on their own: the affine or add LN pre-pass,
+    then the engine with the bias and the activation (the c_fc width);
+    the add triples' t bit for bit."""
+    from uml_tpu_torch.ops import gemm
+
+    x, delta, scale, bias, w, b = _ln_operands(dev, (rows,), k, 4 * k, seed=rows + k)
+    kw = {"ln": (scale, bias), "delta": delta if triple.startswith("ADD") else None}
+    n = gemm.ln_gemm.launches
+    got = gemm.ln_gemm(x, w, b, triple=triple, **kw)
+    assert gemm.ln_gemm.launches == n + 1
+    want = gemm.ln_gemm_plain(x, w, b, triple=triple, **kw)
+    torch.cuda.synchronize()
+    if triple.startswith("ADD"):
+        assert torch.equal(got[1], want[1])
+        got, want = got[0], want[0]
+    _close(got, want)
 
 
 @pytest.mark.parametrize("pn", [(768, 3072), (3072, 768), (512, 2048)])

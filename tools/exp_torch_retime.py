@@ -25,12 +25,23 @@ interval), beside the PyTorch call that computes the same function:
   ``_attention_fp32``: unrounded probabilities): the bf16 output's
   error, and the int8 block's activation integers that differ from the
   witness's and from the plain version's (``_int8_flips``);
+* the stand-alone ops of the non-fused branch: ``ln_matmul`` 3-d (the
+  QKV, row 15) and 2-d (c_fc, quick_gelu and gelu_exact, row 14),
+  ``add_ln_matmul`` (c_fc, quick_gelu, row 16) and ``ln_qkv_attention``
+  (row 17, and causal at the text widths), and the bits of their LN
+  operand: each op run with an identity weight and no bias returns the
+  normalized rows exactly, printed as a sha256 (equal digests on two
+  checkouts: the same xn and t);
 * the device time by kernel of rows 1, 2, 5, 6, 7, 9, 10 (with an int8
-  and a bf16 out-projection), 11, 19 and 20 and of row 1 causal at the
-  text widths (torch.profiler, printed as ``[profile]`` lines);
+  and a bf16 out-projection), 11, 14-17, 19 and 20 and of row 1 causal at
+  the text widths (torch.profiler, printed as ``[profile]`` lines);
 * the bf16 and int8 image encoders' img/s at batch 64 (random-init
-  ViT-B/16, a staged batch, host work included as in chip_smoke.py), with
-  a profile of each.
+  ViT-B/16, a staged batch, host work included as in chip_smoke.py), the
+  non-fused encoder's (``attn_impl`` "reference" and "pallas"), the text
+  encoder's prompts/s at 64 prompts, with a profile of each; the
+  full-model train step (chip_smoke.py's ``_train_step_rates``) at bs 64
+  with the stashes, at bs 256 under the default gate and, non-fused, at
+  bs 64.
 
 Run it on two checkouts one after the other on the same card to set an
 earlier commit's kernels beside the current ones:
@@ -46,6 +57,7 @@ and the card's name and power limit).
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib.util
 import inspect
 import json
@@ -151,6 +163,7 @@ def main() -> int:
         print("exp_torch_retime: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.abspath(args.root))
+    from uml_tpu_torch.models.clip import build_clip
     from uml_tpu_torch.models.encoders import ClipEncoder
     from uml_tpu_torch.ops import attention as at
     from uml_tpu_torch.ops import fused_attention as fa
@@ -261,6 +274,21 @@ def main() -> int:
         cases["qkv_attention_q8"] = (
             lambda x_, wq, wsc, be: q8.qkv_attention_q8(x_, wq, wsc, be, heads=12),
             (x, *q8v[:3]))
+    # rows 14-17: the LN affine unfolded, a second residual operand
+    delta = torch.randn(64, 197, 768, generator=gen, device=dev).to(bf)
+    qkv_w, fc_w = (wv["w_eff"], wv["b_eff"]), (wv["w1"], wv["b1"])
+    cases["row 15 ln_matmul 3-d QKV"] = (lm.ln_matmul, (x, scale, bias, *qkv_w))
+    for act in ("quick_gelu", "gelu_exact"):
+        cases[f"row 14 ln_matmul 2-d c_fc {act}"] = (
+            lambda *a, act=act: lm.ln_matmul(*a, activation=act),
+            (x.view(-1, 768), scale, bias, *fc_w))
+    cases["row 16 add_ln_matmul c_fc quick_gelu"] = (
+        lambda *a: lm.add_ln_matmul(*a, gelu=True), (x, delta, scale, bias, *fc_w))
+    cases["row 17 ln_qkv_attention"] = (
+        lambda *a: fa.ln_qkv_attention(*a, heads=12), (x, scale, bias, *qkv_w))
+    cases["row 17 causal, text widths"] = (
+        lambda *a: fa.ln_qkv_attention(*a, heads=8, causal=True),
+        (xt, scale[:512], bias[:512], wt["w_eff"], wt["b_eff"]))
     if hasattr(fa, "attn_bwd"):
         dattn = torch.matmul(g, wv["wo"].t())
         _, stats = fa.attn_bwd_plain(qkv_v, dattn, heads=12)
@@ -301,6 +329,18 @@ def main() -> int:
         out[f"int8 {half}: largest difference"] = worst
     for side, err in harness._attention_witness(x, attn_v).items():
         out[f"attention vs fp32 witness, {side}"] = err
+    # the LN operand of rows 14-16, bit for bit: with w = I and b = 0 the
+    # product returns xn exactly (one nonzero term a column, in fp32)
+    eye, zero = torch.eye(768, device=dev, dtype=bf), torch.zeros(768, device=dev)
+
+    def digest(t):
+        return hashlib.sha256(t.contiguous().view(torch.int16).cpu().numpy()
+                              .tobytes()).hexdigest()
+
+    out["sha256 xn, ln_matmul"] = digest(lm.ln_matmul(x, scale, bias, eye, zero))
+    t_add, xn_add = lm.add_ln_matmul(x, delta, scale, bias, eye, zero)
+    out["sha256 t, add_ln_matmul"] = digest(t_add)
+    out["sha256 xn, add_ln_matmul"] = digest(xn_add)
     for name in ("row 1 attn_block", "row 2 attn_block_cls", "row 5 attn_block_stash",
                  "row 1 causal, text widths", "row 10 attn_block_q8",
                  "row 10 attn_block_q8 int8_qkv"):
@@ -316,6 +356,10 @@ def main() -> int:
                      top=12)
     harness._profile("row 11 mlp_block_q8", lambda: q8.mlp_block_q8(x, *q8v[6:]),
                      top=12)
+    for name in ("row 15 ln_matmul 3-d QKV", "row 14 ln_matmul 2-d c_fc quick_gelu",
+                 "row 16 add_ln_matmul c_fc quick_gelu", "row 17 ln_qkv_attention"):
+        fn, inputs = cases[name]
+        harness._profile(name, lambda fn=fn, inputs=inputs: fn(*inputs), top=12)
 
     encoder = ClipEncoder("ViT-B/16", allow_random_init=True)
     u8 = np.random.default_rng(0).integers(0, 256, (64, 224, 224, 3),
@@ -324,12 +368,33 @@ def main() -> int:
     ms = harness._time_ms(lambda: encoder.encode_staged(staged, n), iters=10)
     out["encoder img/s bs64 bf16"] = 64 / (ms / 1e3)
     harness._profile("image encoder", lambda: encoder.encode_staged(staged, n))
+    prompts = [f"a photo of a class_{i}." for i in range(64)]
+    ms = harness._time_ms(lambda: encoder.encode_texts(prompts), iters=10)
+    out["text prompts/s bs64"] = 64 / (ms / 1e3)
+    harness._profile("text encoder", lambda: encoder.encode_texts(prompts))
     del encoder
     encoder = ClipEncoder("ViT-B/16", allow_random_init=True, quant="int8")
     staged, n = encoder.stage_images(u8)
     ms = harness._time_ms(lambda: encoder.encode_staged(staged, n), iters=10)
     out["encoder img/s bs64 int8"] = 64 / (ms / 1e3)
     harness._profile("int8 image encoder", lambda: encoder.encode_staged(staged, n))
+    del encoder
+    u8_dev = torch.from_numpy(u8.reshape(64, -1)).to(dev)
+    for attn_impl in ("reference", "pallas"):
+        model = build_clip("ViT-B/16", bf, attn_impl=attn_impl).init_random(
+            torch.Generator().manual_seed(0)).to(dev).eval()
+        with torch.no_grad():
+            ms = harness._time_ms(lambda: model.encode_image_u8(u8_dev), iters=10)
+            out[f"non-fused {attn_impl} encoder img/s bs64"] = 64 / (ms / 1e3)
+            harness._profile(f"non-fused image encoder ({attn_impl})",
+                             lambda: model.encode_image_u8(u8_dev))
+        del model
+    torch.cuda.empty_cache()
+    out.update(harness._train_step_rates(64, [("stash", {}, None)]))
+    out.update(harness._train_step_rates(256, [
+        ("gate_default", {"UML_MLP_BWD": "unset"}, None)]))
+    out.update(harness._train_step_rates(64, [("unfused_reference", {}, None)],
+                                         clip_kw={"attn_impl": "reference"}))
     print(json.dumps(out))
     return 0
 

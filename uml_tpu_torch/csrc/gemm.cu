@@ -2,7 +2,7 @@
 // gemm_at.cuh or q8_gemm.cuh on its own.  No model calls them: the
 // half-block entries launch these products inside their own C calls.
 // They let the card tests and chip_smoke.py hold each (prologue,
-// epilogue, layout) triple of the training rows, and gemm_at, against an
+// epilogue, layout) triple of the rows, and gemm_at, against an
 // fp32 product of the same bf16 operands, each int8 epilogue against its
 // plain version bit for bit, and time each beside cuBLAS at its shape.
 
@@ -10,12 +10,19 @@
 #include "ln_gemm.cuh"
 #include "q8_gemm.cuh"
 
+// xn: [M, K] bf16 scratch of the LN prologues; ln_scale, ln_bias: [K]
+// fp32 (the affine prologues); delta, t: [M, K] bf16 (PRO_ADD_LN_AFFINE)
 extern "C" int uml_ln_gemm(const void* a, const void* w, const void* bias, const void* res,
-                           void* out, void* aux, void* colsum_part, void* xn, int M, int N,
-                           int K, long long ldres, int pro, int epi, int trans_b, float eps,
-                           void* stream) {
+                           void* out, void* aux, void* colsum_part, void* xn,
+                           const void* ln_scale, const void* ln_bias, const void* delta, void* t,
+                           int M, int N, int K, long long ldres, int pro, int epi, int trans_b,
+                           float eps, void* stream) {
   using bf16 = __nv_bfloat16;
   uml::LnPrologue ops;
+  ops.delta = static_cast<const bf16*>(delta);
+  ops.scale = static_cast<const float*>(ln_scale);
+  ops.bias = static_cast<const float*>(ln_bias);
+  ops.t_out = static_cast<bf16*>(t);
   ops.xn = static_cast<bf16*>(xn);
   return (int)uml::launch_ln_gemm(static_cast<const bf16*>(a), static_cast<const bf16*>(w),
                                   static_cast<const float*>(bias), res, out, M, N, K, ldres, pro,

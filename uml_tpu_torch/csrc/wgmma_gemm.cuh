@@ -6,15 +6,18 @@
 // (PRO_LN, EPI_NONE), the MLP in (PRO_LN, EPI_QUICK_GELU / EPI_GELU_STASH),
 // the out-projections and the MLP out (PRO_NONE, EPI_RESIDUAL), g . wo^T
 // (EPI_NONE, TRANS_B), dqkv . W_eff^T / g . w2^T / dpre . w1^T (EPI_F32,
-// TRANS_B) and the MLP backward's recompute (PRO_LN, EPI_DACT with a bf16
-// dy, EPI_DACT_F32 with an fp32 dy) triples here, gemm_at.cuh its
-// weight-gradient products A^T . B, and q8_gemm.cuh every int8 product.
-// Those are the products of uml_tpu/ops/fused_attention.py::_block_kernel,
-// _block_cls_kernel, _block_kernel_stash, _block_bwd_kernel,
-// _block_bwd_stash_kernel, _block_bwd_cls_kernel, of ln_matmul.py::
-// _mlp_block_kernel, _mlp_block_kernel_stash, _mlp_bwd_kernel,
-// _mlp_bwd_dw_kernel, of text_tower.py::_tower_kernel, and the _q8_dot
-// products of quant.py::_block_q8_kernel, _mlp_q8_kernel and
+// TRANS_B), the MLP backward's recompute (PRO_LN, EPI_DACT with a bf16
+// dy, EPI_DACT_F32 with an fp32 dy) and the stand-alone ops' (PRO_LN_AFFINE
+// / PRO_ADD_LN_AFFINE with EPI_NONE, EPI_QUICK_GELU, EPI_GELU_EXACT)
+// triples here, gemm_at.cuh its weight-gradient products A^T . B, and
+// q8_gemm.cuh every int8 product.  Those are the products of
+// uml_tpu/ops/fused_attention.py::_block_kernel, _block_cls_kernel,
+// _block_kernel_stash, _block_bwd_kernel, _block_bwd_stash_kernel,
+// _block_bwd_cls_kernel, _kernel, of ln_matmul.py::_mlp_block_kernel,
+// _mlp_block_kernel_stash, _mlp_bwd_kernel, _mlp_bwd_dw_kernel,
+// _ln_matmul_kernel, _ln_matmul_kernel_3d, _add_ln_matmul_kernel, of
+// text_tower.py::_tower_kernel, and the _q8_dot products of
+// quant.py::_block_q8_kernel, _mlp_q8_kernel and
 // tower_q8.py::_tower_q8_kernel.
 //
 // What bounds it on the H100: at ViT-B/16 B=64 every product is 44.6-59.5
@@ -60,7 +63,9 @@
 //   dy and no column sums: row 19's recompute),
 //   OUT_GELU (the MLP in: y = acc + b1, out = quick_gelu(y) of the
 //   unrounded y with the fast exp and reciprocal and, where aux is given,
-//   aux = y, each rounded once) and
+//   aux = y, each rounded once), OUT_GELU_EXACT (out = gelu_exact(y) of
+//   the unrounded y = acc + b, the erf form, rounded once: the stand-alone
+//   ops' exact GELU, and the one DINO's MLP takes) and
 //   OUT_RESIDUAL (out = (acc + b) + res, res bf16 with row stride ldres),
 //   and the int8 epilogues of q8_gemm.cuh: y = ((float)acc * row_scale) *
 //   col_scale, each step rounded on its own, then OUT_Q8_BF16 bf16(y + b),
@@ -105,10 +110,12 @@ constexpr size_t WGG_SMEM =
 
 enum { WGG_OUT_BF16 = 0, WGG_OUT_F32 = 1, WGG_OUT_DACT = 2, WGG_OUT_GELU = 3,
        WGG_OUT_RESIDUAL = 4, WGG_OUT_DACT_BF16 = 5, WGG_OUT_Q8_BF16 = 6,
-       WGG_OUT_Q8_F32 = 7, WGG_OUT_Q8_RESIDUAL = 8 };
+       WGG_OUT_Q8_F32 = 7, WGG_OUT_Q8_RESIDUAL = 8, WGG_OUT_GELU_EXACT = 9 };
 
 // the int8 instantiations: s8 operands, s32 accumulators
-static __host__ __device__ constexpr bool wgg_int8(int out) { return out >= WGG_OUT_Q8_BF16; }
+static __host__ __device__ constexpr bool wgg_int8(int out) {
+  return out == WGG_OUT_Q8_BF16 || out == WGG_OUT_Q8_F32 || out == WGG_OUT_Q8_RESIDUAL;
+}
 
 struct WggEpilogue {
   const float* bias = nullptr;         // [N] fp32, or null
@@ -130,6 +137,13 @@ struct WggEpilogue {
 static __device__ __forceinline__ uint32_t bf16x2_bits(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// The exact GELU of the fp32 y, y * 0.5 * (1 + erf(y / sqrt 2)), on the
+// card's erff (max 2 ulp): the TPU kernel's sigmoid-quintic fit stands in
+// for an erf that Mosaic lacks.
+static __device__ __forceinline__ float gelu_exact(float y) {
+  return y * 0.5f * (1.f + erff(y * 0.70710678118654752f));
 }
 
 // The int8 epilogue's fp32 value in the reference's order, every step an
@@ -319,7 +333,7 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
         }
       } else {
         // bf16 results packed two columns a register, [output][jj][r]:
-        // output 0 is out (OUT_BF16, OUT_GELU, OUT_RESIDUAL) or dpre,
+        // output 0 is out (OUT_BF16, OUT_GELU, OUT_GELU_EXACT, OUT_RESIDUAL) or dpre,
         // output 1 yact (OUT_DACT) or the pre-activation y (OUT_GELU)
         uint32_t pk[2][2][2];
 #pragma unroll
@@ -360,6 +374,8 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
               pk[0][jj][r] = bf16x2_bits(__fdividef(v0, 1.f + __expf(-1.702f * v0)),
                                          __fdividef(v1, 1.f + __expf(-1.702f * v1)));
               pk[1][jj][r] = bf16x2_bits(v0, v1);
+            } else if (OUT == WGG_OUT_GELU_EXACT) {
+              pk[0][jj][r] = bf16x2_bits(gelu_exact(v0), gelu_exact(v1));
             } else {
               // quick_gelu'(y) = s (1 + 1.702 y (1 - s)) with one sigmoid s,
               // on the special-function unit as OUT_GELU (2 ulp, far inside

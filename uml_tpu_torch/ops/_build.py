@@ -77,17 +77,17 @@ SIGNATURES = {
     # x, wq, wsc, b_eff, woq, wosc, bo, w1q, w1sc, b1, w2q, w2sc, b2, q8,
     # qscale, qkv, attn, pre, mid, out, B, S, K, H, M, L, eps, stream
     "uml_tower_q8": [_P] * 20 + [_I] * 6 + [_F, _P],
-    # x, scale, bias, w, b, out, rows, K, M, act, eps, stream
-    "uml_ln_matmul": [_P] * 6 + [_I] * 4 + [_F, _P],
-    # x, delta, scale, bias, w, b, t, out, rows, K, M, act, eps, stream
-    "uml_add_ln_matmul": [_P] * 8 + [_I] * 4 + [_F, _P],
-    # x, scale, bias, w, b, qkv, out, B, S, K, H, causal, eps, stream
-    "uml_ln_qkv_attention": [_P] * 7 + [_I] * 5 + [_F, _P],
+    # x, scale, bias, w, b, xn, out, rows, K, M, act, eps, stream
+    "uml_ln_matmul": [_P] * 7 + [_I] * 4 + [_F, _P],
+    # x, delta, scale, bias, w, b, xn, t, out, rows, K, M, act, eps, stream
+    "uml_add_ln_matmul": [_P] * 9 + [_I] * 4 + [_F, _P],
+    # x, scale, bias, w, b, xn, qkv, out, B, S, K, H, causal, eps, stream
+    "uml_ln_qkv_attention": [_P] * 8 + [_I] * 5 + [_F, _P],
     # x, scale, bias, out, rows, K, is_f32, eps, stream
     "uml_layer_norm": [_P] * 4 + [_L, _I, _I, _F, _P],
-    # a, w, bias, res, out, aux, colsum_part, xn, M, N, K, ldres, pro, epi,
-    # trans_b, eps, stream
-    "uml_ln_gemm": [_P] * 8 + [_I] * 3 + [_L] + [_I] * 3 + [_F, _P],
+    # a, w, bias, res, out, aux, colsum_part, xn, ln_scale, ln_bias, delta,
+    # t, M, N, K, ldres, pro, epi, trans_b, eps, stream
+    "uml_ln_gemm": [_P] * 12 + [_I] * 3 + [_L] + [_I] * 3 + [_F, _P],
     # a, b, c, ws, ws_floats, R, P, N, splits, stream
     "uml_gemm_at": [_P] * 4 + [_L] + [_I] * 4 + [_P],
     # a, w, row_scale, col_scale, bias, res, out, M, N, K, epi, stream

@@ -60,8 +60,10 @@ in ``csrc/`` or raises, and counts the launch.
 
 * ``ln_qkv_attention``: LN (affine) -> packed QKV -> MHA with no
   out-projection, [B, S, K] -> [B, S, H*64]: the port of ``_kernel``
-  (fused_attention.py:143) as ``csrc/ln_qkv_attention.cu`` (the
-  affine-prologue ln_gemm, then the attention of flash_attention.cu).
+  (fused_attention.py:143) as ``csrc/ln_qkv_attention.cu`` (the affine
+  LN pre-pass into an xn scratch and the QKV product on the wgmma engine,
+  the route ``ln_matmul`` takes, then the attention of
+  flash_attention.cu).
   ``impl`` as in uml_tpu: "auto" runs ``ln_qkv_attention_plain`` for a CPU
   tensor and the kernel for a CUDA tensor, "pallas" is the kernel; both
   raise on a CUDA tensor ``supports_fused_attention`` does not take (it
@@ -716,11 +718,12 @@ def _ln_qkv_attention_fwd(x, scale, bias, kernel, kbias, heads, causal, eps):
     _build.check_tensor("kernel", kernel, bf16, (k, 3 * hd), dev)
     _build.check_tensor("kbias", kbias, f32, (3 * hd,), dev)
     with torch.cuda.device(dev):
+        xn = torch.empty((b * s, k), dtype=bf16, device=dev)
         qkv = torch.empty((b * s, 3 * hd), dtype=bf16, device=dev)
         out = torch.empty((b, s, hd), dtype=bf16, device=dev)
         _build.launch("uml_ln_qkv_attention", x.data_ptr(), scale.data_ptr(),
                       bias.data_ptr(), kernel.data_ptr(), kbias.data_ptr(),
-                      qkv.data_ptr(), out.data_ptr(), b, s, k, heads,
+                      xn.data_ptr(), qkv.data_ptr(), out.data_ptr(), b, s, k, heads,
                       int(causal), eps,
                       torch.cuda.current_stream(dev).cuda_stream)
     ln_qkv_attention.launches += 1

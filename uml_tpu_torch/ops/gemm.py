@@ -5,8 +5,9 @@
 gradient product of ``csrc/gemm_at.cuh``, ``q8_gemm`` one int8 product of
 ``csrc/q8_gemm.cuh``.  They are the products that the half-blocks (#1-#5,
 #9, #10 with a bf16 out-projection), the training rows #6, #7, #8, #19
-and #20 and the int8 rows #10-#12 launch inside their own C calls, on the
-wgmma engine of ``csrc/wgmma_gemm.cuh``; no model calls these wrappers.
+and #20, the int8 rows #10-#12 and the stand-alone ops #14-#17 launch
+inside their own C calls, on the wgmma engine of
+``csrc/wgmma_gemm.cuh``; no model calls these wrappers.
 The card tests hold each against its plain version, and
 ``chip_smoke.py`` times each beside one cuBLAS call at its shape
 (``torch.matmul``, or ``torch._int_mm`` for the int8 products).
@@ -29,7 +30,14 @@ The triples, as ``(pro, epi, trans_b)``:
   quick_gelu(y)), bf16(y)), the activation of the unrounded y (the MLP in
   of the training forward, with its pre-activation stash);
 * ``RESIDUAL`` (PRO_NONE, EPI_RESIDUAL, False): bf16(a @ w + bias + res)
-  with res [M, N] bf16 (the out-projections and the MLP out).
+  with res [M, N] bf16 (the out-projections and the MLP out);
+* ``AFFINE``, ``AFFINE_QUICK_GELU``, ``AFFINE_GELU_EXACT`` (PRO_LN_AFFINE,
+  EPI_NONE / EPI_QUICK_GELU / EPI_GELU_EXACT, False): act(bf16(LN_affine(a))
+  @ w + bias) -> bf16, the LN scale and bias ``ln`` applied in the
+  pre-pass (rows 14, 15, and 17's QKV);
+* ``ADD``, ``ADD_QUICK_GELU``, ``ADD_GELU_EXACT`` (PRO_ADD_LN_AFFINE, the
+  same epilogues, False): the same of t32 = a + delta -> (out, bf16(t32))
+  (row 16).
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches the kernel or raises (bf16 operands, N and K multiples of 64;
@@ -42,13 +50,15 @@ from __future__ import annotations
 import torch
 
 from uml_tpu_torch.ops import _build
-from uml_tpu_torch.ops.ln_matmul import (act_and_grad, ln_rows_plain,
-                                         quick_gelu_f32)
+from uml_tpu_torch.ops.ln_matmul import (act_and_grad,
+                                         add_ln_affine_rows_plain,
+                                         gelu_exact_f32, ln_affine_rows_plain,
+                                         ln_rows_plain, quick_gelu_f32)
 from uml_tpu_torch.ops.quant import q8_dot
 
-PRO_NONE, PRO_LN = 0, 1
+PRO_NONE, PRO_LN, PRO_LN_AFFINE, PRO_ADD_LN_AFFINE = 0, 1, 2, 3
 EPI_NONE, EPI_QUICK_GELU, EPI_RESIDUAL, EPI_GELU_STASH = 0, 1, 2, 3
-EPI_F32, EPI_DACT, EPI_DACT_F32 = 4, 5, 6
+EPI_F32, EPI_DACT, EPI_DACT_F32, EPI_GELU_EXACT = 4, 5, 6, 7
 TRIPLES = {"QKV": (PRO_LN, EPI_NONE, False),
            "TRANS_B": (PRO_NONE, EPI_NONE, True),
            "TRANS_B_F32": (PRO_NONE, EPI_F32, True),
@@ -56,28 +66,45 @@ TRIPLES = {"QKV": (PRO_LN, EPI_NONE, False),
            "DACT_F32": (PRO_LN, EPI_DACT_F32, False),
            "QUICK_GELU": (PRO_LN, EPI_QUICK_GELU, False),
            "GELU_STASH": (PRO_LN, EPI_GELU_STASH, False),
-           "RESIDUAL": (PRO_NONE, EPI_RESIDUAL, False)}
+           "RESIDUAL": (PRO_NONE, EPI_RESIDUAL, False),
+           **{f"{name}{tag}": (pro, epi, False)
+              for name, pro in (("AFFINE", PRO_LN_AFFINE),
+                                ("ADD", PRO_ADD_LN_AFFINE))
+              for tag, epi in (("", EPI_NONE), ("_QUICK_GELU", EPI_QUICK_GELU),
+                               ("_GELU_EXACT", EPI_GELU_EXACT))}}
 ROW_TILE = 128  # rows of the engine's tile: one column-sum partial each
 MAX_SPLITS = 8  # gemm_at's row chunks at most (GAT_MAX_SPLITS, gemm_at.cuh)
 
 
-def ln_gemm_plain(a, w, bias=None, res=None, *, triple: str, eps: float = 1e-5):
-    """Plain version of ``ln_gemm``: fp32 products of the bf16 operands,
-    one rounding at the end, as the kernel computes them."""
+def ln_gemm_plain(a, w, bias=None, res=None, *, triple: str, eps: float = 1e-5,
+                  ln=None, delta=None):
+    """Plain version of ``ln_gemm``: the plain form of the triple's LN
+    pre-pass, fp32 products of the bf16 operands, one rounding at the end,
+    as the kernel computes them."""
     pro, epi, trans_b = TRIPLES[triple]
-    x = ln_rows_plain(a, eps) if pro == PRO_LN else a
+    t = None
+    if pro == PRO_LN:
+        x = ln_rows_plain(a, eps)
+    elif pro == PRO_LN_AFFINE:
+        x = ln_affine_rows_plain(a, *ln, eps)
+    elif pro == PRO_ADD_LN_AFFINE:
+        t, x = add_ln_affine_rows_plain(a, delta, *ln, eps)
+    else:
+        x = a
     y = x.float() @ (w.float().t() if trans_b else w.float())
     if bias is not None:
         y = y + bias.float()
-    if epi == EPI_NONE:
-        return y.to(torch.bfloat16)
+    if epi in (EPI_NONE, EPI_QUICK_GELU, EPI_GELU_EXACT):
+        act = {EPI_NONE: lambda v: v, EPI_QUICK_GELU: quick_gelu_f32,
+               EPI_GELU_EXACT: gelu_exact_f32}[epi]
+        out = act(y).to(torch.bfloat16)
+        return out if t is None else (out, t)
     if epi == EPI_F32:
         return y
     if epi == EPI_RESIDUAL:
         return (y + res.float()).to(torch.bfloat16)
-    if epi in (EPI_QUICK_GELU, EPI_GELU_STASH):
-        out = quick_gelu_f32(y).to(torch.bfloat16)
-        return out if epi == EPI_QUICK_GELU else (out, y.to(torch.bfloat16))
+    if epi == EPI_GELU_STASH:
+        return quick_gelu_f32(y).to(torch.bfloat16), y.to(torch.bfloat16)
     act, dact = act_and_grad(y)
     d = res.float() * dact
     if epi == EPI_DACT:
@@ -89,13 +116,16 @@ def ln_gemm_plain(a, w, bias=None, res=None, *, triple: str, eps: float = 1e-5):
     return d.to(torch.bfloat16), act.to(torch.bfloat16), part
 
 
-def ln_gemm(a, w, bias=None, res=None, *, triple: str, eps: float = 1e-5):
+def ln_gemm(a, w, bias=None, res=None, *, triple: str, eps: float = 1e-5,
+            ln=None, delta=None):
     """a [M, K] bf16; w [K, N] (or [N, K] for the TRANS_B triples) bf16;
     bias [N] fp32 or None; res: dy [M, N] fp32 (DACT_F32) or bf16 (DACT),
-    or the residual [M, N] bf16 (RESIDUAL) -> the triple's outputs (see
-    the module docstring)."""
+    or the residual [M, N] bf16 (RESIDUAL); ln: the LN (scale, bias), [K]
+    fp32 each (the AFFINE and ADD triples); delta [M, K] bf16 (the ADD
+    triples) -> the triple's outputs (see the module docstring)."""
     if a.device.type == "cpu":
-        return ln_gemm_plain(a, w, bias, res, triple=triple, eps=eps)
+        return ln_gemm_plain(a, w, bias, res, triple=triple, eps=eps, ln=ln,
+                             delta=delta)
     pro, epi, trans_b = TRIPLES[triple]
     m, k = a.shape
     n = w.shape[0] if trans_b else w.shape[1]
@@ -110,26 +140,34 @@ def ln_gemm(a, w, bias=None, res=None, *, triple: str, eps: float = 1e-5):
                             (m, n), dev)
     if epi == EPI_RESIDUAL:
         _build.check_tensor("res", res, bf16, (m, n), dev)
+    ln_scale = ln_bias = None
+    if pro in (PRO_LN_AFFINE, PRO_ADD_LN_AFFINE):
+        ln_scale, ln_bias = ln
+        _build.check_tensor("ln scale", ln_scale, f32, (k,), dev)
+        _build.check_tensor("ln bias", ln_bias, f32, (k,), dev)
+    if pro == PRO_ADD_LN_AFFINE:
+        _build.check_tensor("delta", delta, bf16, (m, k), dev)
     with torch.cuda.device(dev):
         out = torch.empty((m, n), dtype=f32 if epi == EPI_F32 else bf16,
                           device=dev)
-        xn = torch.empty_like(a) if pro == PRO_LN else None
+        xn = torch.empty_like(a) if pro != PRO_NONE else None
+        t = torch.empty_like(a) if pro == PRO_ADD_LN_AFFINE else None
         aux = part = None
         if epi in (EPI_DACT, EPI_DACT_F32, EPI_GELU_STASH):
             aux = torch.empty((m, n), dtype=bf16, device=dev)
         if epi == EPI_DACT_F32:
             part = torch.empty((-(-m // ROW_TILE), n), dtype=f32, device=dev)
-
-        def ptr(t):
-            return None if t is None else t.data_ptr()
-
+        ptr = _build.ptr
         _build.launch("uml_ln_gemm", a.data_ptr(), w.data_ptr(), ptr(bias),
                       ptr(res), out.data_ptr(), ptr(aux), ptr(part), ptr(xn),
+                      ptr(ln_scale), ptr(ln_bias), ptr(delta), ptr(t),
                       m, n, k, n, pro, epi, int(trans_b), eps,
                       torch.cuda.current_stream(dev).cuda_stream)
     ln_gemm.launches += 1
     if epi == EPI_DACT_F32:
         return out, aux, part
+    if t is not None:
+        return out, t
     return (out, aux) if epi in (EPI_DACT, EPI_GELU_STASH) else out
 
 

@@ -53,15 +53,17 @@ plain version there; anything else, e.g. "reference": the plain version):
 * ``ln_matmul``: act(LN(x) @ w + b), the port of ``_ln_matmul_kernel`` and
   ``_ln_matmul_kernel_3d`` (one entry: a contiguous [B, S, K] is [B*S, K]
   here).  Where the TPU wrapper folds the LN affine into w and b on every
-  call, the kernel applies it in its prologue; ``ln_matmul_plain``, the
-  unfolded ``ln_matmul_reference``, is its twin.
+  call, the LN pre-pass applies it (``ln_affine_rows_plain`` is its plain
+  form), then the wgmma engine runs the product; ``ln_matmul_plain``, the
+  unfolded ``ln_matmul_reference``, is the op's twin.
 * ``add_ln_matmul``: (t, act(LN(t) @ w + b)) with t = x + delta, the port
-  of ``_add_ln_matmul_kernel``: the LN affine applied in the kernel, the
-  statistics those of the unrounded fp32 sum.
+  of ``_add_ln_matmul_kernel``: the pre-pass (``add_ln_affine_rows_plain``)
+  writes t and the affine LN of the unrounded fp32 sum, then the engine's
+  product.
 * activations: None, "quick_gelu" (CLIP), "gelu_exact" (DINO; erf on the
   card, where the TPU kernel fits a sigmoid of a quintic because Mosaic has
   no erf).  The VMEM gate of uml_tpu's ``supports_ln_matmul`` (k*m*2 <=
-  8 MB) is not carried: the kernel streams the weight in tiles.
+  8 MB) is not carried: the engine streams the weight in tiles.
 * gradients: ``LnMatmulFn`` / ``AddLnMatmulFn`` run the kernel forward and
   differentiate the plain twin, recomputed, as uml_tpu's custom_vjp do
   (ln_matmul.py:824-833, :962-971).
@@ -97,6 +99,27 @@ def ln_rows_plain(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     fp32 statistics, rounded once to x's dtype — the operand the wgmma
     engine's QKV and MLP dW products read."""
     return raw_layer_norm(x.float(), eps).to(x.dtype)
+
+
+def ln_affine_rows_plain(x: torch.Tensor, scale, bias,
+                         eps: float = 1e-5) -> torch.Tensor:
+    """Plain version of the affine LN pre-pass (ln_gemm.cuh::ln_rows_kernel
+    <PRO_LN_AFFINE>, rows 14, 15 and 17): the raw LayerNorm of each row
+    with fp32 statistics, times the LN scale plus the LN bias in fp32,
+    rounded once to x's dtype — the operand the wgmma engine reads."""
+    xn = raw_layer_norm(x.float(), eps) * scale.float() + bias.float()
+    return xn.to(x.dtype)
+
+
+def add_ln_affine_rows_plain(x: torch.Tensor, delta: torch.Tensor, scale,
+                             bias, eps: float = 1e-5):
+    """Plain version of the add LN pre-pass (ln_rows_kernel
+    <PRO_ADD_LN_AFFINE>, row 16) -> (t, xn): t32 = x + delta in fp32, t =
+    t32 rounded to x's dtype, and xn the affine LN of the unrounded t32,
+    rounded once."""
+    t32 = x.float() + delta.float()
+    xn = raw_layer_norm(t32, eps) * scale.float() + bias.float()
+    return t32.to(x.dtype), xn.to(x.dtype)
 
 
 def raw_layer_norm_bwd(dxn, xn, rstd):
@@ -433,8 +456,8 @@ _ACT_CODE = {None: 0, "quick_gelu": 1, "gelu_exact": 2}  # csrc/ln_matmul.cu
 
 
 def supports_ln_matmul(k: int, m: int, dtype=torch.bfloat16) -> bool:
-    """What the ln_gemm kernel takes: bf16, K and M multiples of its 64-wide
-    tiles."""
+    """What the pre-pass and the wgmma engine take: bf16, K and M
+    multiples of 64."""
     return dtype == torch.bfloat16 and k % 64 == 0 and m % 64 == 0
 
 
@@ -449,7 +472,9 @@ def ln_matmul_plain(x, scale, bias, w, b, *, eps: float = 1e-5,
 
 def _ln_matmul_fwd(x, scale, bias, w, b, eps, activation):
     """The plain twin for a CPU tensor, the kernel for a CUDA tensor (x
-    [..., K] bf16, w [K, M] bf16; scale, bias, b go in as fp32)."""
+    [..., K] bf16, w [K, M] bf16; scale, bias, b go in as fp32): the affine
+    LN pre-pass into an xn scratch [rows, K], then the product on the
+    wgmma engine with the bias and the activation in its epilogue."""
     if x.device.type == "cpu":
         return ln_matmul_plain(x, scale, bias, w, b, eps=eps,
                                activation=activation)
@@ -462,11 +487,13 @@ def _ln_matmul_fwd(x, scale, bias, w, b, eps, activation):
     _build.check_tensor("bias", bias, f32, (k,), dev)
     _build.check_tensor("w", w, bf16, (k, m), dev)
     _build.check_tensor("b", b, f32, (m,), dev)
+    rows = x.numel() // k
     with torch.cuda.device(dev):
+        xn = torch.empty((rows, k), dtype=bf16, device=dev)
         out = torch.empty((*x.shape[:-1], m), dtype=bf16, device=dev)
         _build.launch("uml_ln_matmul", x.data_ptr(), scale.data_ptr(),
                       bias.data_ptr(), w.data_ptr(), b.data_ptr(),
-                      out.data_ptr(), x.numel() // k, k, m,
+                      xn.data_ptr(), out.data_ptr(), rows, k, m,
                       _ACT_CODE[activation], eps,
                       torch.cuda.current_stream(dev).cuda_stream)
     ln_matmul.launches += 1
@@ -519,7 +546,9 @@ def add_ln_matmul_plain(x, delta, scale, bias, w, b, *, eps: float = 1e-5,
 
 def _add_ln_matmul_fwd(x, delta, scale, bias, w, b, eps, activation):
     """The plain twin for a CPU tensor, the kernel for a CUDA tensor (x,
-    delta [..., K] bf16, w [K, M] bf16; scale, bias, b go in as fp32)."""
+    delta [..., K] bf16, w [K, M] bf16; scale, bias, b go in as fp32): the
+    add LN pre-pass writes t and an xn scratch [rows, K], then the product
+    on the wgmma engine."""
     if x.device.type == "cpu":
         return add_ln_matmul_plain(x, delta, scale, bias, w, b, eps=eps,
                                    activation=activation)
@@ -533,13 +562,15 @@ def _add_ln_matmul_fwd(x, delta, scale, bias, w, b, eps, activation):
     _build.check_tensor("bias", bias, f32, (k,), dev)
     _build.check_tensor("w", w, bf16, (k, m), dev)
     _build.check_tensor("b", b, f32, (m,), dev)
+    rows = x.numel() // k
     with torch.cuda.device(dev):
+        xn = torch.empty((rows, k), dtype=bf16, device=dev)
         t = torch.empty_like(x)
         out = torch.empty((*x.shape[:-1], m), dtype=bf16, device=dev)
         _build.launch("uml_add_ln_matmul", x.data_ptr(), delta.data_ptr(),
                       scale.data_ptr(), bias.data_ptr(), w.data_ptr(),
-                      b.data_ptr(), t.data_ptr(), out.data_ptr(),
-                      x.numel() // k, k, m, _ACT_CODE[activation], eps,
+                      b.data_ptr(), xn.data_ptr(), t.data_ptr(), out.data_ptr(),
+                      rows, k, m, _ACT_CODE[activation], eps,
                       torch.cuda.current_stream(dev).cuda_stream)
     add_ln_matmul.launches += 1
     return t, out
