@@ -9,7 +9,9 @@ Phases (any failure exits non-zero; no phase is caught):
    every hand-written kernel from ``uml_tpu_torch/csrc`` (nvcc, sm_90a).
 2. kernels: each port (attn_block non-causal, attn_block_cls, mlp_block at
    ViT-B/16 widths; causal attn_block and the 12-layer text_tower at the
-   CLIP text widths; the training ports, the recompute backwards
+   CLIP text widths, at B = 64 and at B = 1, the main path's shape (the
+   one-launch tower), and at the ViT-L/14 text widths (K = 768, 12 heads:
+   the chain's route); the training ports, the recompute backwards
    attn_block_bwd_recompute (also causal at the text widths), mlp_bwd and
    mlp_bwd_dw among them; the int8 attn_block_q8 with an int8 and a bf16
    out-projection, mlp_block_q8 and the 11-layer tower_q8 at ViT-B/16
@@ -47,14 +49,20 @@ Phases (any failure exits non-zero; no phase is caught):
    call must show the engine and no wmma ln_gemm_kernel; profiles of one
    call of rows 14-17 must show the LN pre-pass, one engine product (and
    for row 17 the attention) and nothing else: the kernels line names
-   them (``engine_kernels``).
+   them (``engine_kernels``).  A profile of one text_tower call at S = 77
+   (B = 64 and B = 1) must show one device kernel, the tower's; one of
+   attn_block_cls_bwd must show dattn on the engine and the three
+   rank-2H passes of cls_bwd.cuh, and no dense dxn product or LN backward
+   over an fp32 dxn (``profile_kernels`` on the kernels line).
 3. main path: the PIL decode rate of data/loader.py on the fixture's
    JPEGs (one worker and one per core), then generate_fewshot and
    features on a synthetic caltech-layout
    fixture with a random-init ViT-B/16; the .pth caches must hold finite
    width-512 features, the encoder must live on the card, every port's
    launch counter must have moved by the expected count, and the card's
-   features must agree with the same model run on the CPU (plain path).
+   features must agree with the same model run on the CPU (plain path);
+   the image encoder's img/s, and the text encoder's prompts/s at 64
+   prompts and at 1 (one class's prompts, as features calls it).
 3b. int8 main path: features --quant int8 on the same fixture with the
    same checks (per image batch 11 attn_block_q8, 11 mlp_block_q8, 1
    attn_block_cls, 1 mlp_block; per prompt batch 12 causal attn_block_q8
@@ -211,7 +219,8 @@ RECOMPUTE_MODES = {"kernel": {**RECOMPUTE, "UML_MLP_BWD": "kernel"},
 # step (~1/254 of its row's range); 1/16 for the 11-layer int8 tower.
 REL_BOUND = {"attn_block": 1 / 64, "attn_block_cls": 1 / 64,
              "mlp_block": 1 / 64, "attn_block_causal": 1 / 64,
-             "text_tower": 1 / 16, "attn_block_stash": 1 / 64,
+             "text_tower": 1 / 16, "text_tower_b1": 1 / 16,
+             "text_tower_l14": 1 / 16, "attn_block_stash": 1 / 64,
              "attn_block_bwd": 1 / 64, "attn_block_cls_bwd": 1 / 64,
              "mlp_block_stash": 1 / 64, "attn_block_q8": 1 / 64,
              "attn_block_q8_qkv": 1 / 64, "attn_block_q8_causal": 1 / 64,
@@ -279,6 +288,10 @@ ENGINE_ROUTES = {
     "affine_quick_gelu": ("ln_rows_kernel<2>", "wgmma_gemm_kernel<false, true, 3>"),
     "affine_gelu_exact": ("ln_rows_kernel<2>", "wgmma_gemm_kernel<false, true, 9>"),
     "add_quick_gelu": ("ln_rows_kernel<3>", "wgmma_gemm_kernel<false, true, 3>")}
+# the kernels that row 8 launches: dattn = g . wo^T on the engine
+# (OUT_BF16, B_MN false), then cls_bwd.cuh's three passes
+CLS_BWD_KERNELS = ("wgmma_gemm_kernel<false, false, 0>", "cls_attn_bwd_kernel",
+                   "cls_proj_kernel", "cls_rows_kernel")
 # the products of the wgmma engine and the attention backward's two
 # passes, timed on their own (phase 2)
 PRODUCTS = ("gemm_qkv", "gemm_g_wo_t", "gemm_dqkv_weff_t", "gemm_g_w2_t",
@@ -635,6 +648,15 @@ def phase_kernels():
     tower = tuple(torch.stack([l[n] for l in layers]) for n in
                   ("w_eff", "b_eff", "wo", "bo", "w1", "b1", "w2", "b2"))
     attn_t = tower[0][0], tower[1][0], tower[2][0], tower[3][0]
+    # the ViT-L/14 text tower's widths: K = 768, 12 heads, M = 3072 (drawn
+    # from a generator of their own, so every other case's data is drawn
+    # as before)
+    gen_l = torch.Generator(device=dev).manual_seed(1)
+    xt_l = torch.randn(bt, st, 768, generator=gen_l, device=dev).to(bf)
+    layers_l = [_block_weights(gen_l, 768, 3072, 768, dev) for _ in range(12)]
+    tower_l = tuple(torch.stack([l[n] for l in layers_l]) for n in
+                    ("w_eff", "b_eff", "wo", "bo", "w1", "b1", "w2", "b2"))
+    del layers_l
     # the training kernels at the same ViT-B/16 layer: the backward takes
     # the plain stash forward's qkv and a random cotangent
     _, qkv_v, _ = fa.attn_block_stash_plain(xv, *attn_v, heads=12)
@@ -723,6 +745,16 @@ def phase_kernels():
         ("text_tower", lambda *a: text_tower(*a, heads=8),
          lambda *a: text_tower_plain(*a, heads=8), (xt, *tower), 0,
          12 * (text_layer_f + text_attn_f), (rows_t, kt, 4 * kt, False)),
+        # the main path's shape: features encodes one class's prompts a
+        # call, one prompt under the default --text_augmentation
+        ("text_tower_b1", lambda *a: text_tower(*a, heads=8),
+         lambda *a: text_tower_plain(*a, heads=8), (xt[:1].contiguous(), *tower), 0,
+         12 * (text_layer_f + text_attn_f) / bt, (st, kt, 4 * kt, False)),
+        # the ViT-L/14 text widths (K = 768, 12 heads): the chain's route
+        ("text_tower_l14", lambda *a: text_tower(*a, heads=12),
+         lambda *a: text_tower_plain(*a, heads=12), (xt_l, *tower_l), 0,
+         12 * (text_layer_f * 9 / 4 + _attn_flops(bt, st, 12, causal=True)),
+         (rows_t, 768, 3072, False)),
         ("attn_block_stash", lambda *a: fa.attn_block_stash(*a, heads=12),
          lambda *a: fa.attn_block_stash_plain(*a, heads=12),
          (xv, *attn_v), 0, qkv_f + out_f + attn_f, vit_qkv),
@@ -753,8 +785,11 @@ def phase_kernels():
         ("attn_block_bwd", lambda *a: fa.attn_block_bwd(*a, heads=12),
          lambda *a: fa.attn_block_bwd_plain(*a, heads=12),
          (xv, g_v, qkv_v, w_eff, wo), 0, out_f + 2.5 * attn_f + qkv_f, vit_qkv),
-        # one live query row: dqkv is nonzero in K and V of every row and q
-        # of the CLS row, so dxn is a [rows, 2K] x [2K, K] product
+        # one live query row: its bytes bound it (k and v and x read; dqkv,
+        # dx and xn written).  The FLOP term counts dxn as the dense
+        # [rows, 2K] x [2K, K] product over K and V, an upper bound of the
+        # rank-2H form the kernel computes (~0.5 GFLOP), and stays below
+        # the bytes
         ("attn_block_cls_bwd", lambda *a: fa.attn_block_cls_bwd(*a, heads=12),
          lambda *a: fa.attn_block_cls_bwd_plain(*a, heads=12),
          (xv, g_c, qkv_c, w_eff, wo), 0,
@@ -969,6 +1004,25 @@ def phase_kernels():
                    n for n in names if out_proj in n] and len(
                    [n for n in names if out_proj in n]) == 1,
                (f"{row}: the fused kernel and the out-projection only", names))
+    # row 4 at S = 77: one launch of the tower kernel a call, nothing else
+    # (no qkv_attention, no engine product); row 8: dattn on the engine,
+    # then the three passes of cls_bwd.cuh, and no dense dxn product
+    # (OUT_F32) and no LN backward over an fp32 dxn
+    for row, fn in (("text_tower", lambda: text_tower(xt, *tower, heads=8)),
+                    ("text_tower_b1", lambda: text_tower(xt[:1], *tower, heads=8))):
+        rows_p = _profile(f"row 4 {row} (one launch a call)", fn)
+        _check(len(rows_p) == 1 and "text_tower_kernel" in rows_p[0][0]
+               and rows_p[0][2] == 3, (f"{row}: one tower kernel a call", rows_p))
+        results[row]["profile_kernels"] = _kernel_names(rows_p)
+    names = _kernel_names(_profile(
+        "row 8 attn_block_cls_bwd",
+        lambda: fa.attn_block_cls_bwd(xv, g_c, qkv_c, w_eff, wo, heads=12)))
+    _check(len(names) == len(CLS_BWD_KERNELS)
+           and all(sum(part in n for n in names) == 1 for part in CLS_BWD_KERNELS)
+           and not any("wgmma_gemm_kernel<false, false, 1>" in n or "ln_bwd_kernel" in n
+                       for n in names),
+           ("row 8: dattn and the three rank-2H passes only", names))
+    results["attn_block_cls_bwd"]["profile_kernels"] = names
     _check_routes(gen, dev)
     return results
 
@@ -1430,16 +1484,17 @@ def phase_main_path():
           f"text); launches {launches}")
 
     # expected counts: per image batch 11 full attention halves, 1 CLS
-    # half and 12 MLP halves; one text_tower call per class prompt batch;
-    # the fused QKV + attention kernel once in each attention half (S =
-    # 197) and in each of the tower's 12 layers (S = 77)
+    # half and 12 MLP halves; one text_tower call per class prompt batch,
+    # one launch of the tower kernel (S = 77), which launches no
+    # qkv_attention; the fused QKV + attention kernel once in each
+    # attention half (S = 197)
     n_batches = sum(-(-n // batch) for n in (sizes["train"], sizes["val"],
                                            sizes["test"]))
     n_classes = 8
     want = dict.fromkeys(launches, 0)
     want.update({"attn_block": 11 * n_batches, "attn_block_cls": n_batches,
                  "mlp_block": 12 * n_batches, "text_tower": n_classes,
-                 "qkv_attention": 12 * n_batches + 12 * n_classes})
+                 "qkv_attention": 12 * n_batches})
     _check(launches == want, (launches, want))
     _check(all(p.device.type == "cuda" for p in encoder.model.parameters()),
            "encoder parameters on the card")
@@ -1456,13 +1511,16 @@ def phase_main_path():
             "encoder_img_per_s_bs64": batch / (ms / 1e3), **decode}
     print(f"[main] image encoder forward {ms:.3f} ms per batch of {batch} "
           f"= {rate['encoder_img_per_s_bs64']:.1f} img/s")
-    prompts = [f"a photo of a class_{i}." for i in range(batch)]
-    ms_txt = _time_ms(lambda: encoder.encode_texts(prompts), iters=10)
-    rate["text_prompts_per_s_bs64"] = batch / (ms_txt / 1e3)
-    print(f"[main] encode_texts {ms_txt:.3f} ms per {batch} prompts (tokenize, "
-          f"H2D, tower, D2H) = {rate['text_prompts_per_s_bs64']:.1f} prompts/s")
     _profile("image encoder", lambda: encoder.encode_staged(staged, n))
-    _profile("text encoder", lambda: encoder.encode_texts(prompts))
+    # the text encoder at 64 prompts and at 1 (the features CLI's call:
+    # one class's prompts)
+    for n_txt in (batch, 1):
+        prompts = [f"a photo of a class_{i}." for i in range(n_txt)]
+        ms_txt = _time_ms(lambda: encoder.encode_texts(prompts), iters=10)
+        rate[f"text_prompts_per_s_bs{n_txt}"] = n_txt / (ms_txt / 1e3)
+        print(f"[main] encode_texts {ms_txt:.3f} ms per {n_txt} prompts (tokenize, "
+              f"H2D, tower, D2H) = {rate[f'text_prompts_per_s_bs{n_txt}']:.1f} prompts/s")
+        _profile(f"text encoder, {n_txt} prompts", lambda: encoder.encode_texts(prompts))
     return launches, rate, root, sizes, encoder
 
 
@@ -2248,7 +2306,10 @@ def main() -> int:
                       "gemm_yardstick_ms": row["yardstick_ms"],
                       # rows 14-17: the kernels a profile of one call showed
                       **({"engine_kernels": row["engine_kernels"]}
-                         if "engine_kernels" in row else {})})
+                         if "engine_kernels" in row else {}),
+                      # rows 4 and 8: the device kernels of one call
+                      **({"profile_kernels": row["profile_kernels"]}
+                         if "profile_kernels" in row else {})})
     products = [{"name": name, "max_abs_err": kernels[name]["max_abs_err"],
                  "max_rel_err": kernels[name]["max_rel_err"], "ms": kernels[name]["ms"],
                  "plain_ms": kernels[name]["plain_ms"],

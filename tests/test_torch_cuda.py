@@ -16,6 +16,10 @@ same bf16 operands, gemm_at at every row-chunk count; the int8 GEMM at ragged
 row counts and every int8 width, equal to torch._int_mm's integer sum and
 to its plain version bit for bit).  Marked ``cuda``: they skip without an NVIDIA GPU (sm_90a) and
 run on the card with ``python -m pytest tests/test_torch_cuda.py -q``.
+The text tower runs at B in {1, 3, 64} and S in {77, 129}, both sides of
+its route (one launch for S <= 128, the chain above), and at the ViT-B
+text widths at B = 1; the CLS backward is also held to its rank-2H plain
+version.
 
 Bound: max |kernel - plain| <= 2^-6 * max|plain| (two bf16 ulps of the
 largest output; the kernel and the plain version sum in other orders, so
@@ -166,6 +170,47 @@ def test_text_tower_kernel(dev):
     got = tt.text_tower(x, *w, heads=HEADS)
     assert tt.text_tower.launches == n + 1
     _close(got, tt.text_tower_plain(x, *w, heads=HEADS))
+
+
+@pytest.mark.parametrize("b", [1, 3, 64])
+@pytest.mark.parametrize("s", [77, 129])
+def test_text_tower_kernel_on_both_routes(dev, b, s):
+    """The one-launch tower (S <= 128) and the chain (S = 129), told apart
+    by the fused QKV + attention kernel's counter, which only the chain
+    moves; the second call on the same shape reuses the zeroed counters."""
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(b, s, K, generator=g).to(torch.bfloat16).to(dev)
+    w = _weights(dev, layers=3)
+    want = tt.text_tower_plain(x, *w, heads=HEADS)
+    for _ in range(2):
+        n, nq = tt.text_tower.launches, fa.qkv_attention.launches
+        got = tt.text_tower(x, *w, heads=HEADS)
+        assert tt.text_tower.launches == n + 1
+        assert fa.qkv_attention.launches == nq + 3 * (not tt.text_tower_fused(s, K, HEADS))
+        _close(got, want)
+
+
+def test_text_tower_kernel_at_the_clip_text_widths(dev):
+    """K = 512, 8 heads, M = 2048 (the ViT-B text tower) at B = 1: the
+    one-launch route, held to the 12-layer bound of chip_smoke.py (2^-4)."""
+    g = torch.Generator().manual_seed(6)
+    k, heads, m, layers = 512, 8, 2048, 4
+
+    def rnd(*shape, std, dtype=torch.bfloat16):
+        return (torch.randn((layers,) + shape, generator=g) * std).to(dtype).to(dev)
+
+    f32 = torch.float32
+    w = (rnd(k, 3 * k, std=k ** -0.5), rnd(3 * k, std=0.1, dtype=f32),
+         rnd(k, k, std=k ** -0.5), rnd(k, std=0.1, dtype=f32),
+         rnd(k, m, std=k ** -0.5), rnd(m, std=0.1, dtype=f32),
+         rnd(m, k, std=m ** -0.5), rnd(k, std=0.1, dtype=f32))
+    x = torch.randn(1, 77, k, generator=g).to(torch.bfloat16).to(dev)
+    assert tt.text_tower_fused(77, k, heads)
+    got = tt.text_tower(x, *w, heads=heads)
+    want = tt.text_tower_plain(x, *w, heads=heads)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 2.0 ** -4 * want.float().abs().max().item(), err
 
 
 def _q8_weights(dev, layers=None, seed=0):
@@ -374,6 +419,8 @@ def test_attn_block_cls_bwd_kernel(dev, s):
     assert fa.attn_block_cls_bwd.launches == n + 1
     _close_all(got, fa.attn_block_cls_bwd_plain(x, g, qkv, w[0], w[2],
                                                 heads=HEADS))
+    _close_all(got, fa.attn_block_cls_bwd_factored_plain(x, g, qkv, w[0], w[2],
+                                                         heads=HEADS))
 
 
 @pytest.mark.parametrize("s", [9, 63, 64, 65, 128, 129, 197])

@@ -1,8 +1,8 @@
 // attention backward from the stashed qkv, and the LayerNorm backward row
 // pass: the kernel work of the TPU's stash backward of the attention half
 // (uml_tpu/ops/fused_attention.py::_block_bwd_stash_kernel, the body of
-// _block_bwd_one_stash, :1017-1103) and of its CLS-only twin
-// (::_block_bwd_cls_kernel, :1298-1423).
+// _block_bwd_one_stash, :1017-1103), and the LN backward of the
+// non-CLS attention and MLP backwards.
 //
 //   qkv   [B, S, 3*H*64] bf16, the forward's stash (q at h*64, k at H*64 +
 //         h*64, v at 2*H*64 + h*64; the port's stash includes b_eff)
@@ -63,11 +63,8 @@
 // blocks on each SM (~66-68 KB of shared memory each), and lets TMA bring
 // the next tiles while a tile computes.
 //
-// cls_bwd: the CLS-only layer has one live query row per image, so per
-// (image, head) the scores are one [S] row, dV and dK are outer products
-// and dQ is one row; one block per (image, head) on the CUDA cores,
-// walking S three times (the max; the sum and D; then p, dS, dK, dV and
-// dQ in chunks of 128 keys): any S.
+// The CLS-only backward (one live query row per image) has its own
+// kernels in cls_bwd.cuh.
 //
 // ln_bwd: dx = rstd * (dxn - mean(dxn) - xn * mean(dxn * xn)) + g, the LN
 // backward of the prologue (the LN scale/bias are folded into W_eff, so
@@ -401,127 +398,6 @@ attn_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
   ab_store(dv, 1.f, dst + 2 * H * ATT_D, ld, row0, S, lane);
 }
 
-constexpr int CLSB_THREADS = 128;  // and keys per chunk of the last walk
-
-__device__ inline float block_sum(float v, float* red) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  __syncthreads();  // red is free
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float t = 0.f;
-#pragma unroll
-  for (int w = 0; w < CLSB_THREADS / 32; ++w) t += red[w];
-  return t;
-}
-
-__device__ inline float block_max(float v, float* red) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float t = -CUDART_INF_F;
-#pragma unroll
-  for (int w = 0; w < CLSB_THREADS / 32; ++w) t = fmaxf(t, red[w]);
-  return t;
-}
-
-// CLS-only attention backward, one block per (image, head), any S.
-//   dattn [B, H*64] bf16: dO of each image's CLS row
-static __global__ void __launch_bounds__(CLSB_THREADS)
-cls_bwd_kernel(const __nv_bfloat16* __restrict__ qkv, const __nv_bfloat16* __restrict__ dattn,
-               __nv_bfloat16* __restrict__ dqkv, int S, int H, float scale) {
-  __shared__ float q0[ATT_D], dO[ATT_D], dq_part[CLSB_THREADS];
-  // p and dS of the chunk's keys, rounded to bf16 (the operands of the products)
-  __shared__ float pb[CLSB_THREADS], dsb[CLSB_THREADS];
-  __shared__ float red[CLSB_THREADS / 32];
-  const int b = blockIdx.x;
-  const int h = blockIdx.y;
-  const int hd = H * ATT_D;
-  const long long row_stride = 3LL * hd;
-  const __nv_bfloat16* base = qkv + (long long)b * S * row_stride;
-  __nv_bfloat16* dbase = dqkv + (long long)b * S * row_stride;
-  const int tid = threadIdx.x;
-
-  if (tid < ATT_D) {
-    q0[tid] = __bfloat162float(base[h * ATT_D + tid]);
-    dO[tid] = __bfloat162float(dattn[(long long)b * hd + h * ATT_D + tid]);
-  }
-  __syncthreads();
-  // key j's scaled score and dP = dO . v_j
-  auto score = [&](int j, float& sc, float& dp) {
-    const __nv_bfloat16* kr = base + j * row_stride + hd + h * ATT_D;
-    const __nv_bfloat16* vr = kr + hd;
-    float s = 0.f, d = 0.f;
-    for (int c = 0; c < ATT_D; c += 8) {
-      Pack8 kp, vp;
-      kp.u = *reinterpret_cast<const uint4*>(kr + c);
-      vp.u = *reinterpret_cast<const uint4*>(vr + c);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        s += q0[c + i] * __bfloat162float(kp.h[i]);
-        d += dO[c + i] * __bfloat162float(vp.h[i]);
-      }
-    }
-    sc = s * scale;
-    dp = d;
-  };
-  float mx = -CUDART_INF_F;
-  for (int j = tid; j < S; j += CLSB_THREADS) {
-    float sc, dp;
-    score(j, sc, dp);
-    mx = fmaxf(mx, sc);
-  }
-  mx = block_max(mx, red);
-  float sum = 0.f, dn = 0.f;
-  for (int j = tid; j < S; j += CLSB_THREADS) {
-    float sc, dp;
-    score(j, sc, dp);
-    const float e = expf(sc - mx);
-    sum += e;
-    dn += e * dp;
-  }
-  sum = block_sum(sum, red);
-  dn = block_sum(dn, red);
-  const float linv = 1.f / sum;
-  const float dsum = dn * linv;  // D = rowsum(p * dP)
-
-  // in chunks of CLSB_THREADS keys: p and dS, dK and dV rows (outer
-  // products; the q section of rows 1.. is zero), dQ (row 0): thread pair
-  // (c, half) sums half of the keys for column c
-  const int c = tid & (ATT_D - 1), half = tid >> 6;
-  float dq_acc = 0.f;
-  for (int j0 = 0; j0 < S; j0 += CLSB_THREADS) {
-    const int j = j0 + tid;
-    float p = 0.f, ds = 0.f;
-    if (j < S) {
-      float sc, dp;
-      score(j, sc, dp);
-      p = expf(sc - mx) * linv;
-      ds = p * (dp - dsum);
-    }
-    __syncthreads();  // the previous chunk's pb / dsb reads are done
-    pb[tid] = __bfloat162float(__float2bfloat16(p));
-    dsb[tid] = __bfloat162float(__float2bfloat16(ds));
-    __syncthreads();
-    const int n = min(CLSB_THREADS, S - j0);
-    for (int i = half; i < n; i += 2)
-      dq_acc += dsb[i] * __bfloat162float(base[(j0 + i) * row_stride + hd + h * ATT_D + c]);
-    for (int idx = tid; idx < n * ATT_D; idx += CLSB_THREADS) {
-      const int i = idx / ATT_D, cc = idx % ATT_D;
-      __nv_bfloat16* dst = dbase + (j0 + i) * row_stride + h * ATT_D + cc;
-      if (j0 + i > 0) dst[0] = __float2bfloat16(0.f);
-      dst[hd] = __float2bfloat16(dsb[i] * q0[cc] * scale);
-      dst[2 * hd] = __float2bfloat16(pb[i] * dO[cc]);
-    }
-  }
-  dq_part[tid] = dq_acc;
-  __syncthreads();
-  if (tid < ATT_D)
-    dbase[h * ATT_D + tid] = __float2bfloat16((dq_part[tid] + dq_part[tid + ATT_D]) * scale);
-}
-
 constexpr int LNB_THREADS = 128;  // 4 rows per block, one warp each
 
 // LN backward of the raw-LN prologue, one warp per row of x [rows, K]:
@@ -633,13 +509,6 @@ static inline cudaError_t launch_attn_bwd(const __nv_bfloat16* qkv, const __nv_b
     return cudaErrorInvalidValue;
   return causal ? launch_attn_bwd_passes<true>(maps, stats, dqkv, B, S, H, passes, stream)
                 : launch_attn_bwd_passes<false>(maps, stats, dqkv, B, S, H, passes, stream);
-}
-
-static inline cudaError_t launch_cls_bwd(const __nv_bfloat16* qkv, const __nv_bfloat16* dattn,
-                                         __nv_bfloat16* dqkv, int B, int S, int H,
-                                         cudaStream_t stream) {
-  cls_bwd_kernel<<<dim3(B, H), CLSB_THREADS, 0, stream>>>(qkv, dattn, dqkv, S, H, 0.125f);
-  return cudaGetLastError();
 }
 
 static inline cudaError_t launch_ln_bwd(const __nv_bfloat16* x, const float* dxn,

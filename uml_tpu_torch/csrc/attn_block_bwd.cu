@@ -14,8 +14,11 @@
 // whose cotangent has one live row per image: [B, 1, K] here (the TPU's
 // [B, 8, K] is sublane padding).  It reads the qkv the CLS forward
 // computed for every row (attn_block.cu projects q, k and v of all S
-// rows), so K and V are not recomputed; dq is nonzero in row 0 only and
-// g enters dx in row 0 only.
+// rows), so K and V are not recomputed.  After dattn = g . wo^T (the
+// engine, B rows) it runs cls_bwd.cuh's three passes: the attention
+// backward per (image, head), u, w and z per (columns, head), and dxn with
+// the LN backward per row in the factorized rank-2H form, so no product
+// over B S x 3 H 64 is left and no fp32 dxn reaches device memory.
 //
 // uml_attn_block_bwd_recompute replaces ::_block_bwd_kernel (via
 // _block_bwd_call), the backward with no stash (UML_BWD_STASH=0, and every
@@ -51,6 +54,7 @@
 
 #include "attention_bwd.cuh"
 #include "blocks.cuh"
+#include "cls_bwd.cuh"
 
 namespace uml {
 
@@ -91,24 +95,22 @@ static inline cudaError_t run_attn_block_bwd_recompute(
 }
 
 // CLS-only attention half backward: g [B, 1, K] (the CLS row of each
-// image) -> dx [B, S, K], dqkv [B*S, 3*H*64], xn [B, S, K];
-//   dattn [B, H*64] bf16 and dxn [B*S, K] fp32 are scratch.
+// image) -> dx [B, S, K], dqkv [B*S, 3*H*64], xn [B, S, K]; dattn [B,
+// H*64] bf16, coef [B, S, 2H] and proj [B, 3, H, K] fp32 are scratch.
 static inline cudaError_t run_attn_block_cls_bwd(const __nv_bfloat16* x,
                                                  const __nv_bfloat16* g,
                                                  const __nv_bfloat16* qkv,
                                                  const __nv_bfloat16* w_eff,
                                                  const __nv_bfloat16* wo, __nv_bfloat16* dattn,
-                                                 float* dxn, __nv_bfloat16* dqkv,
+                                                 float* coef, float* proj, __nv_bfloat16* dqkv,
                                                  __nv_bfloat16* dx, __nv_bfloat16* xn, int B,
                                                  int S, int K, int H, float eps,
                                                  cudaStream_t stream) {
   const int hd = H * ATT_D;
   UML_TRY(launch_ln_gemm(g, wo, nullptr, nullptr, dattn, B, hd, K, 0, PRO_NONE, EPI_NONE, eps,
                          stream, true));
-  UML_TRY(launch_cls_bwd(qkv, dattn, dqkv, B, S, H, stream));
-  UML_TRY(launch_ln_gemm(dqkv, w_eff, nullptr, nullptr, dxn, B * S, K, 3 * hd, 0, PRO_NONE,
-                         EPI_F32, eps, stream, true));
-  return launch_ln_bwd(x, dxn, g, dx, xn, B * S, K, S, eps, stream);
+  return launch_cls_bwd(x, g, qkv, dattn, w_eff, coef, proj, dqkv, dx, xn, B, S, K, H, eps,
+                        stream);
 }
 
 }  // namespace uml
@@ -141,15 +143,16 @@ extern "C" int uml_attn_block_bwd_recompute(const void* x, const void* g, const 
 }
 
 extern "C" int uml_attn_block_cls_bwd(const void* x, const void* g, const void* qkv,
-                                      const void* w_eff, const void* wo, void* dattn, void* dxn,
-                                      void* dqkv, void* dx, void* xn, int B, int S, int K, int H,
-                                      float eps, void* stream) {
+                                      const void* w_eff, const void* wo, void* dattn, void* coef,
+                                      void* proj, void* dqkv, void* dx, void* xn, int B, int S,
+                                      int K, int H, float eps, void* stream) {
   using bf16 = __nv_bfloat16;
   return (int)uml::run_attn_block_cls_bwd(
       static_cast<const bf16*>(x), static_cast<const bf16*>(g), static_cast<const bf16*>(qkv),
       static_cast<const bf16*>(w_eff), static_cast<const bf16*>(wo), static_cast<bf16*>(dattn),
-      static_cast<float*>(dxn), static_cast<bf16*>(dqkv), static_cast<bf16*>(dx),
-      static_cast<bf16*>(xn), B, S, K, H, eps, static_cast<cudaStream_t>(stream));
+      static_cast<float*>(coef), static_cast<float*>(proj), static_cast<bf16*>(dqkv),
+      static_cast<bf16*>(dx), static_cast<bf16*>(xn), B, S, K, H, eps,
+      static_cast<cudaStream_t>(stream));
 }
 
 // passes: 1 the dq pass (dq into dqkv's q columns, stats [B*H*S] float4),

@@ -43,9 +43,9 @@ SIGNATURES = {
     # x, g, qkv, w_eff, wo, dattn, stats, dxn, dqkv, dx, xn, B, S, K, H,
     # causal, eps, stream
     "uml_attn_block_bwd": [_P] * 11 + [_I] * 5 + [_F, _P],
-    # x, g, qkv, w_eff, wo, dattn, dxn, dqkv, dx, xn, B, S, K, H, eps,
-    # stream
-    "uml_attn_block_cls_bwd": [_P] * 10 + [_I] * 4 + [_F, _P],
+    # x, g, qkv, w_eff, wo, dattn, coef, proj, dqkv, dx, xn, B, S, K, H,
+    # eps, stream
+    "uml_attn_block_cls_bwd": [_P] * 11 + [_I] * 4 + [_F, _P],
     # x, g, w_eff, b_eff, wo, qkv, attn, dattn, stats, dxn, dqkv, dx, xn,
     # B, S, K, H, causal, eps, stream
     "uml_attn_block_bwd_recompute": [_P] * 13 + [_I] * 5 + [_F, _P],
@@ -61,8 +61,9 @@ SIGNATURES = {
     # qkv, dattn, stats, dqkv, B, S, H, causal, passes, stream
     "uml_attn_bwd": [_P] * 4 + [_I] * 5 + [_P],
     # x, w_eff, b_eff, wo, bo, w1, b1, w2, b2, xn, qkv, attn, hidden, mid,
-    # out, B, S, K, H, M, L, eps, stream
-    "uml_text_tower": [_P] * 15 + [_I] * 6 + [_F, _P],
+    # out, plan, counters, partial, B, S, K, H, M, L, n_items, n_counters,
+    # grid, bn, eps, stream
+    "uml_text_tower": [_P] * 18 + [_I] * 10 + [_F, _P],
     # x, w_eff, b_eff, xn, qkv (or null), attn, B, S, K, H, causal, q_rows,
     # eps, stream
     "uml_qkv_attention": [_P] * 6 + [_I] * 6 + [_F, _P],

@@ -36,7 +36,12 @@ in ``csrc/`` or raises, and counts the launch.
   return them; the CLS backward reads the qkv that the CLS forward
   computes for every row (with its stash, the CLS forward projects all S
   rows; ``attn_block_cls`` without one projects q for the first 64), so
-  K and V are not recomputed.
+  K and V are not recomputed.  With one live query row its dxn is a
+  rank-2H product per image (``csrc/cls_bwd.cuh``: dS and p per key and
+  head against per-head K-vectors u = scale q0 Wk^T and w = dO Wv^T, row
+  0 adding dq0 Wq^T), no fp32 dxn in device memory;
+  ``attn_block_cls_bwd_factored_plain`` is that form's math, which the
+  tests hold against the dense ``attn_block_cls_bwd_plain``.
 * ``attn_block_bwd_recompute``: ``csrc/attn_block_bwd.cu`` -> (dx, dqkv,
   xn, attn), as ``_block_bwd_call`` returns them: it recomputes qkv and
   attn from x with the forward's own launches (so they equal the
@@ -98,6 +103,8 @@ HEAD_DIM = 64  # the kernels' head dim (every CLIP tower)
 # the longest S of the fused QKV + attention kernel (csrc/qkv_attention.cuh:
 # q, k and v of one head, 256 rows each, in a block's shared memory)
 QKV_ATTN_MAX_S = 256
+# the most heads the CLS backward takes (csrc/cls_bwd.cuh: CLS_MAX_HEADS)
+CLS_BWD_MAX_HEADS = 32
 
 
 def qkv_attention_fused(s: int) -> bool:
@@ -251,6 +258,53 @@ def attn_block_cls_bwd_plain(x, g, qkv, w_eff, wo, *, heads: int,
     """attn_block_bwd_plain for the CLS block: g [B, 1, K]."""
     return attn_block_bwd_plain(x, g, qkv, w_eff, wo, heads=heads,
                                 causal=False, eps=eps)
+
+
+def attn_block_cls_bwd_factored_plain(x, g, qkv, w_eff, wo, *, heads: int,
+                                      eps: float = 1e-5):
+    """The CLS backward in the rank-2H form of csrc/cls_bwd.cuh, the plain
+    version of its math: -> (dx, dqkv, xn) as attn_block_cls_bwd_plain.
+
+    With one live query row, dk_j = ds_j q0 scale and dv_j = p_j dO, so
+    the k and v parts of dxn row j are sum_h ds_{j,h} u_h + p_{j,h} w_h
+    with u_h = scale q0_h Wk_h^T and w_h = dO_h Wv_h^T; row 0 adds
+    z = dq0 Wq^T.  ds and p are rounded to the weight dtype (the operands
+    of the dense form's products), u, w and z are not, and neither is
+    dxn.  Float64 inputs are computed in float64 throughout (nothing is
+    rounded then), which pins the algebra against the dense form."""
+    b, s, k = x.shape
+    dt = w_eff.dtype
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    hd = heads * HEAD_DIM
+    scale = HEAD_DIM ** -0.5
+    xn32, rstd = raw_layer_norm_rstd(x.to(acc), eps)
+    dattn = (g.to(acc) @ wo.to(acc).t()).to(dt)                 # [B, 1, H*D]
+    q, kk, v = (t.to(acc) for t in _qkv_heads(qkv, heads))       # [B, H, S, D]
+    q0 = q[:, :, 0]                                              # [B, H, D]
+    do = dattn.view(b, heads, HEAD_DIM).to(acc)                  # [B, H, D]
+    sc = torch.einsum("bhd,bhsd->bhs", q0, kk) * scale
+    e = torch.exp(sc - sc.amax(-1, keepdim=True))
+    p = e / e.sum(-1, keepdim=True)
+    dp = torch.einsum("bhd,bhsd->bhs", do, v)
+    ds = (p * (dp - (p * dp).sum(-1, keepdim=True))).to(dt).to(acc)
+    pb = p.to(dt).to(acc)
+    dq0 = (torch.einsum("bhs,bhsd->bhd", ds, kk) * scale).to(dt).to(acc)
+    dk = ds[..., None] * q0[:, :, None] * scale                  # [B, H, S, D]
+    dv = pb[..., None] * do[:, :, None]
+    dq = torch.cat([dq0[:, :, None], dq0.new_zeros(b, heads, s - 1, HEAD_DIM)], 2)
+    dqkv = torch.stack([dq, dk, dv]).permute(1, 3, 0, 2, 4).reshape(
+        b, s, 3 * hd).to(dt)
+
+    wq, wk, wv = (w_eff.to(acc)[:, i * hd:(i + 1) * hd].view(k, heads, HEAD_DIM)
+                  for i in range(3))
+    u = torch.einsum("bhd,khd->bhk", q0 * scale, wk)
+    w = torch.einsum("bhd,khd->bhk", do, wv)
+    z = torch.einsum("bhd,khd->bk", dq0, wq)
+    dxn = torch.einsum("bhs,bhk->bsk", ds, u) + torch.einsum("bhs,bhk->bsk", pb, w)
+    dxn[:, 0] += z
+    dxf = raw_layer_norm_bwd(dxn, xn32, rstd)
+    dxf[:, 0] += g[:, 0].to(acc)
+    return dxf.to(x.dtype), dqkv, xn32.to(x.dtype)
 
 
 def attn_block_bwd_recompute_plain(x, g, w_eff, b_eff, wo, *, heads: int,
@@ -410,22 +464,27 @@ attn_block_bwd.launches = 0
 
 def attn_block_cls_bwd(x, g, qkv, w_eff, wo, *, heads: int, eps: float = 1e-5):
     """Backward of the CLS block from the qkv its forward computed:
-    x [B,S,K], g [B,1,K] -> (dx [B,S,K], dqkv [B,S,3*H*64], xn [B,S,K])."""
+    x [B,S,K], g [B,1,K] -> (dx [B,S,K], dqkv [B,S,3*H*64], xn [B,S,K]).
+    On the card: dattn = g wo^T on the engine, then csrc/cls_bwd.cuh's
+    rank-2H passes (attn_block_cls_bwd_factored_plain is their math)."""
     if x.device.type == "cpu":
         return attn_block_cls_bwd_plain(x, g, qkv, w_eff, wo, heads=heads,
                                         eps=eps)
     b, s, k, hd, bf16, dev = _check_bwd(x, g, qkv, w_eff, wo, heads, 1)
+    if heads > CLS_BWD_MAX_HEADS:
+        raise ValueError(f"attn_block_cls_bwd: {heads} heads, the kernel takes "
+                         f"at most {CLS_BWD_MAX_HEADS}")
+    f32 = torch.float32
     with torch.cuda.device(dev):
         dattn = torch.empty((b, hd), dtype=bf16, device=dev)
-        dxn = torch.empty((b * s, k), dtype=torch.float32, device=dev)
+        coef = torch.empty((b, s, 2 * heads), dtype=f32, device=dev)
+        proj = torch.empty((b, 3, heads, k), dtype=f32, device=dev)
         dqkv = torch.empty((b, s, 3 * hd), dtype=bf16, device=dev)
         dx = torch.empty_like(x)
         xn = torch.empty_like(x)
-        _build.launch("uml_attn_block_cls_bwd", x.data_ptr(), g.data_ptr(),
-                      qkv.data_ptr(), w_eff.data_ptr(), wo.data_ptr(),
-                      dattn.data_ptr(), dxn.data_ptr(), dqkv.data_ptr(),
-                      dx.data_ptr(), xn.data_ptr(), b, s, k, heads, eps,
-                      torch.cuda.current_stream(dev).cuda_stream)
+        _build.launch("uml_attn_block_cls_bwd", *map(_build.ptr, (
+            x, g, qkv, w_eff, wo, dattn, coef, proj, dqkv, dx, xn)),
+            b, s, k, heads, eps, torch.cuda.current_stream(dev).cuda_stream)
     attn_block_cls_bwd.launches += 1
     return dx, dqkv, xn
 
