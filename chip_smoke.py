@@ -44,8 +44,12 @@ Phases (any failure exits non-zero; no phase is caught):
    replays per call; no host work lies inside the interval.  The
    end-to-end rates below are host-inclusive on purpose (``_time_ms``).
    The int8 halves
-   also compare their activation integers with the plain version's: no
-   integer may differ by more than one step.  A profile of one row-19
+   also compare their activation integers with the plain version's, on
+   phase 2's int8 weights and on 8 more draws of them, each from a
+   generator of its own: no integer may differ by more than one step.  A
+   profile of one row-11 call (the int8 MLP half) must show the LN
+   quantize pass, c_fc's row-max and quantizing passes and c_proj, and no
+   pass over an fp32 pre-activation.  A profile of one row-19
    call must show the engine and no wmma ln_gemm_kernel; profiles of one
    call of rows 14-17 must show the LN pre-pass, one engine product (and
    for row 17 the attention) and nothing else: the kernels line names
@@ -71,7 +75,10 @@ Phases (any failure exits non-zero; no phase is caught):
    output; the int8-vs-bf16 feature cosine (recorded) and the img/s of
    the bf16, int8 and int8-tower image encoders in the same run; a
    profile of one int8 batch must show the int8 products on the wgmma
-   engine and no wmma s8 kernel, and every int8 weight the layers hand
+   engine and no wmma s8 kernel, and, per layer and under UML_TOWER_Q8=1,
+   each of the 11 int8 MLP halves the four kernels of row 11 (no
+   act_quantize_rows pass); the peak device memory of one int8 encode,
+   per layer and as the tower; and every int8 weight the layers hand
    the ops must be a view of the model's K-major cache, which the
    wrappers read in place (no per-batch transpose).
 3c. non-fused path: build_clip("ViT-B/16", bf16, attn_impl=...) with the
@@ -275,6 +282,10 @@ REL_BOUND = {"attn_block": 1 / 64, "attn_block_cls": 1 / 64,
              # the int8 products: the integer sum is exact on both sides
              # and the epilogue rounds step by step alike: bit for bit
              "q8_gemm_qkv": 0.0, "q8_gemm_fc": 0.0, "q8_gemm_proj": 0.0,
+             # c_fc's two passes: the row maxima bit for bit; the int8
+             # hidden within one step (torch's quick_gelu on the card may
+             # round an ulp off the kernel's) and its scales within 1e-6
+             "q8_gemm_fc_rowmax": 0.0, "q8_gemm_fc_actq": (1 / 127, 1e-6),
              # the attention backward's passes on their own: dq, dk, dv
              # 1/64 like the half-blocks; the fp32 statistics (m, 1/l, D)
              # differ in summation order only
@@ -288,6 +299,16 @@ ENGINE_ROUTES = {
     "affine_quick_gelu": ("ln_rows_kernel<2>", "wgmma_gemm_kernel<false, true, 3>"),
     "affine_gelu_exact": ("ln_rows_kernel<2>", "wgmma_gemm_kernel<false, true, 9>"),
     "add_quick_gelu": ("ln_rows_kernel<3>", "wgmma_gemm_kernel<false, true, 3>")}
+# the kernels that one int8 MLP half launches (rows 11 and 12): the LN
+# quantize pass, c_fc with the row-max epilogue (WGG_OUT_Q8_ROWMAX = 10)
+# and with the quantizing one (WGG_OUT_Q8_ACTQ = 11), c_proj with the
+# residual (WGG_OUT_Q8_RESIDUAL = 8)
+Q8_MLP_KERNELS = ("ln_quantize_rows_kernel", "wgmma_gemm_kernel<false, false, 10>",
+                  "wgmma_gemm_kernel<false, false, 11>",
+                  "wgmma_gemm_kernel<false, false, 8>")
+# F6: the int8 halves' integers are held on 8 more draws of the int8 case
+# weights, each from a generator of its own
+F6_DRAW_SEEDS = range(1000, 1008)
 # the kernels that row 8 launches: dattn = g . wo^T on the engine
 # (OUT_BF16, B_MN false), then cls_bwd.cuh's three passes
 CLS_BWD_KERNELS = ("wgmma_gemm_kernel<false, false, 0>", "cls_attn_bwd_kernel",
@@ -297,7 +318,8 @@ CLS_BWD_KERNELS = ("wgmma_gemm_kernel<false, false, 0>", "cls_attn_bwd_kernel",
 PRODUCTS = ("gemm_qkv", "gemm_g_wo_t", "gemm_dqkv_weff_t", "gemm_g_w2_t",
             "gemm_dpre_w1_t", "gemm_dact", "gemm_dact_bf16", "gemm_at_xn_dpre",
             "gemm_at_yact_g", "gemm_mlp_in", "gemm_mlp_out", "gemm_out_proj",
-            "q8_gemm_qkv", "q8_gemm_fc", "q8_gemm_proj", "attn_bwd_dq",
+            "q8_gemm_qkv", "q8_gemm_fc", "q8_gemm_proj", "q8_gemm_fc_rowmax",
+            "q8_gemm_fc_actq", "attn_bwd_dq",
             "attn_bwd_dkv")
 # dense peaks of an H100 SXM at 700 W (NVIDIA's data sheet): the bound of a
 # kernel is max(bytes / PEAK_BYTES, int8 ops / PEAK_INT8 + bf16 FLOPs /
@@ -566,16 +588,16 @@ def _int8_flips(xv, q8v, eps=1e-5):
     import torch
 
     from uml_tpu_torch.ops import quant as q8
-    from uml_tpu_torch.ops.fused_attention import _qkv_heads, attention_plain
 
     wq, wsc, b_eff, woq, wosc, bo, w1q, w1sc, b1, w2q, w2sc, b2 = q8v
     b, s, k = xv.shape
     xf = xv.float()
     xq, xs = q8.ln_quantize_rows(xf, eps)
     qkv = (q8.q8_dot(xq, xs, wq, wsc) + b_eff).to(torch.bfloat16)
-    attn = attention_plain(*_qkv_heads(qkv, 12), causal=False)
-    attn = attn.transpose(1, 2).reshape(b * s, -1)
-    want_attn = q8.quantize_rows(attn.float())[0]
+    # the plain version quantizes the attention's fp32 output, as the card
+    # does (qkv_attention_q8_plain: P rounded once against the row's max)
+    attn = q8.qkv_attention_q8_plain(xv, wq, wsc, b_eff, heads=12, eps=eps)
+    want_attn = q8.quantize_rows(attn.reshape(b * s, -1))[0]
     exact_attn = q8.quantize_rows(_attention_fp32(qkv, 12))[0]
     # the launchers take the K-major weights themselves
     got_attn = q8._launch_attn_block_q8(xv, wq.t(), wsc, b_eff, (woq.t(), wosc),
@@ -948,18 +970,26 @@ def phase_kernels():
         print(f"[kernels] flash_attention vs mha_plain {tag}: max_rel_err "
               f"{((a - b_).abs().max() / b_.abs().max()).item():.5f}")
         del a, b_
-    flips = _int8_flips(xv, q8v)
-    for half in ("attn_out", "mlp_hidden"):
-        share, worst = flips[half]
-        print(f"[kernels] int8 integers, {half}: {100 * share:.4f}% differ "
-              f"from the plain version's, largest difference {worst}")
-        _check(worst <= 1, (half, "integer differs by more than one step", worst))
-    # the second witness: both sides against fp32 attention with unrounded
-    # probabilities (recorded, not held)
-    for half in ("attn_out vs fp32", "plain vs fp32"):
-        share, worst = flips[half]
-        print(f"[kernels] int8 integers, {half}: {100 * share:.4f}% differ, "
-              f"largest difference {worst}")
+    # the int8 halves' activation integers on phase 2's draw of the int8
+    # weights and on F6's 8 draws, each from a generator of its own
+    draws = [("phase 2", lambda: q8v)] + [
+        (f"draw {seed}", lambda seed=seed: _q8_case_weights(
+            torch.Generator(device=dev).manual_seed(seed), k, m, k, dev))
+        for seed in F6_DRAW_SEEDS]
+    for tag, weights in draws:
+        flips = _int8_flips(xv, weights())
+        for half in ("attn_out", "mlp_hidden"):
+            share, worst = flips[half]
+            print(f"[kernels] int8 integers ({tag}), {half}: {100 * share:.4f}% "
+                  f"differ from the plain version's, largest difference {worst}")
+            _check(worst <= 1, (tag, half, "integer differs by more than one step",
+                                worst))
+        # the second witness: both sides against fp32 attention with
+        # unrounded probabilities (recorded, not held)
+        for half in ("attn_out vs fp32", "plain vs fp32"):
+            share, worst = flips[half]
+            print(f"[kernels] int8 integers ({tag}), {half}: {100 * share:.4f}% "
+                  f"differ, largest difference {worst}")
     wit = _attention_witness(xv, attn_v)
     print(f"[kernels] bf16 attention vs the fp32 witness, max |err| / max: "
           f"card {wit['card']:.6f}, attention_plain {wit['plain']:.6f}")
@@ -1004,6 +1034,15 @@ def phase_kernels():
                    n for n in names if out_proj in n] and len(
                    [n for n in names if out_proj in n]) == 1,
                (f"{row}: the fused kernel and the out-projection only", names))
+    # row 11: the LN quantize pass, c_fc twice (the row maxima, then the
+    # int8 hidden) and c_proj, and no pass over an fp32 pre-activation
+    names = _kernel_names(_profile("row 11 mlp_block_q8",
+                                   lambda: q8.mlp_block_q8(xv, *q8v[6:])))
+    _check(len(names) == len(Q8_MLP_KERNELS)
+           and all(sum(part in n for n in names) == 1 for part in Q8_MLP_KERNELS)
+           and not any("act_quantize_rows" in n for n in names),
+           ("row 11: ln_quantize_rows, ROWMAX, ACTQ and c_proj only", names))
+    results["mlp_block_q8"]["profile_kernels"] = names
     # row 4 at S = 77: one launch of the tower kernel a call, nothing else
     # (no qkv_attention, no engine product); row 8: dattn on the engine,
     # then the three passes of cls_bwd.cuh, and no dense dxn product
@@ -1190,8 +1229,9 @@ def _product_cases(gen, dev, xv, g_v, wv, qkv_v):
     its LN pre-pass, two outputs written), the MLP out and the
     out-projection with the residual, row 19's recompute with a bf16 dy;
     the int8 products (QKV with the bf16 epilogue, c_fc with the fp32 one,
-    c_proj with the residual) on random integers with torch._int_mm at
-    their shape as the yardstick; then the attention backward's dq
+    c_proj with the residual, c_fc's row-max and quantizing passes) on
+    random integers with torch._int_mm at their shape as the yardstick;
+    then the attention backward's dq
     pass and dkv pass (ops/fused_attention.py::attn_bwd) on the plain
     stash's qkv, the dkv pass from the plain dq pass's statistics."""
     import torch
@@ -1235,6 +1275,12 @@ def _product_cases(gen, dev, xv, g_v, wv, qkv_v):
                0.02 * torch.randn(n_out, generator=gen, device=dev))
         if epi == "RESIDUAL":
             ops += (torch.randn(rows, n_out, generator=gen, device=dev).to(bf),)
+        if epi == "ACTQ":
+            # the row maxima of the ROWMAX pass over the same operands
+            ops += (gm.q8_gemm_plain(*ops, epi="ROWMAX"),)
+            return (lambda *a: gm.q8_gemm(*a[:5], epi=epi, rowmax=a[5]),
+                    lambda *a: gm.q8_gemm_plain(*a[:5], epi=epi, rowmax=a[5]), ops,
+                    2.0 * rows * n_in * n_out, 0, (rows, n_in, n_out, True))
         return (lambda *a: gm.q8_gemm(*a, epi=epi),
                 lambda *a: gm.q8_gemm_plain(*a, epi=epi), ops, 2.0 * rows * n_in * n_out,
                 0, (rows, n_in, n_out, True))
@@ -1268,6 +1314,9 @@ def _product_cases(gen, dev, xv, g_v, wv, qkv_v):
         ("q8_gemm_qkv", *q8_product(k, 3 * k, "BF16")),
         ("q8_gemm_fc", *q8_product(k, m, "F32")),
         ("q8_gemm_proj", *q8_product(m, k, "RESIDUAL")),
+        # the int8 MLP in's two passes: the row maxima, then the int8 hidden
+        ("q8_gemm_fc_rowmax", *q8_product(k, m, "ROWMAX")),
+        ("q8_gemm_fc_actq", *q8_product(k, m, "ACTQ")),
         # the least work of each pass: S, dP and dS . K (dq), S^T, dP^T,
         # P^T . dO and dS^T . Q (dkv), 2 S^2 D FLOPs each a head; the dq
         # pass walks the keys twice (S and dP again), which is not counted
@@ -1590,6 +1639,24 @@ def phase_int8_path(root, sizes, bf16_encoder):
     numbers = {"int8_features_wall_s": wall, "int8_card_vs_cpu_cos_image": cos_img,
                "int8_card_vs_cpu_cos_text": cos_txt,
                "int8_vs_bf16_cos_image": cos_q8}
+    # the device memory of one int8 encode, per layer and as the tower:
+    # held before the call, and the peak during it (the int8 MLP half
+    # allocates no fp32 [rows, M] pre-activation)
+    for key, tower in (("int8", False), ("int8_tower", True)):
+        os.environ["UML_TOWER_Q8"] = "1" if tower else "0"
+        try:
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            encoder.encode_staged(staged, n)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+        finally:
+            os.environ.pop("UML_TOWER_Q8")
+        numbers[f"encoder_peak_mib_bs64_{key}"] = peak / 2 ** 20
+        print(f"[int8] image encoder {key}: torch.cuda.max_memory_allocated "
+              f"{peak / 2 ** 20:.1f} MiB during one encode of {batch}, "
+              f"{held / 2 ** 20:.1f} MiB before it")
     for key, enc, tower in (("bf16", bf16_encoder, False),
                             ("int8", encoder, False),
                             ("int8_tower", encoder, True)):
@@ -1597,12 +1664,31 @@ def phase_int8_path(root, sizes, bf16_encoder):
         numbers[f"encoder_img_per_s_bs64_{key}"] = r
         print(f"[int8] image encoder {key}: {ms:.3f} ms per batch of {batch} "
               f"= {r:.1f} img/s")
-    names = _kernel_names(_profile("int8 image encoder",
-                                   lambda: encoder.encode_staged(staged, n)))
+    rows_p = _profile("int8 image encoder", lambda: encoder.encode_staged(staged, n))
+    names = _kernel_names(rows_p)
     # the int8 products on the engine (wgmma s8), none on the old wmma kernel
     _check(not any("q8_gemm_kernel" in k for k in names)
            and any("wgmma_gemm_kernel" in k for k in names),
            ("int8 encoder kernels", names))
+    # each of the 11 int8 MLP halves launches the LN quantize pass, c_fc's
+    # two passes and c_proj (the attention halves the LN quantize pass and
+    # the out-projection too), and nothing reads an fp32 pre-activation:
+    # per layer and as the tower
+    os.environ["UML_TOWER_Q8"] = "1"
+    try:
+        rows_t = _profile("int8 image encoder, UML_TOWER_Q8=1",
+                          lambda: encoder.encode_staged(staged, n))
+    finally:
+        os.environ.pop("UML_TOWER_Q8")
+    want_calls = dict(zip(Q8_MLP_KERNELS, (22, 11, 11, 22)))
+    for what, prof in (("per layer", rows_p), ("UML_TOWER_Q8=1", rows_t)):
+        calls = {part: sum(c for key, _, c in prof if part in key) // 3
+                 for part in Q8_MLP_KERNELS}
+        _check(calls == want_calls
+               and not any("act_quantize_rows" in key for key, _, _ in prof),
+               (f"int8 encoder {what}: the MLP halves' kernels", calls, want_calls))
+        print(f"[int8] int8 image encoder {what}: per batch {calls}, no "
+              f"act_quantize_rows pass")
     # no per-batch weight transpose: every int8 weight a layer hands the
     # ops is a view of its K-major cache, so the wrappers' w.t().contiguous()
     # is that cache itself, read in place

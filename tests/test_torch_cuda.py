@@ -28,7 +28,11 @@ ports are held to the same bound per half-block (an int8 activation at a
 .5 tie can move by one step, ~1/254 of its row's range) and to 2^-4 for
 the 2-layer int8 tower, whose output must also equal the per-layer int8
 kernels' bit for bit; the int8 attention output's integers may differ from
-the plain version's by one step at most.
+the plain version's by one step at most.  c_fc's two int8 passes (the row
+maxima, then the int8 hidden) against the F32 product followed by the
+plain act_quantize_rows, at rows 197, 12,545 and 12,608: the row maxima
+bit for bit, the scales within rtol 1e-6 and the integers within one step
+on at most 0.1% of them (torch's quick_gelu may round otherwise).
 """
 
 import numpy as np
@@ -254,8 +258,9 @@ def test_attn_block_q8_kernel(dev, s, causal, q8_out):
 @pytest.mark.parametrize("s", [9, 197, 257, 785])
 @pytest.mark.parametrize("causal", [False, True])
 def test_attn_block_q8_integers_within_one_step(dev, s, causal):
-    """The attention output's int8 integers (q8_out) against those of
-    attention_plain on the same qkv: the flash core of the fused blocks
+    """The attention output's int8 integers (q8_out) against those of the
+    plain version on the same inputs, each quantizing the fp32 attention
+    output (qkv_attention_q8_plain): the flash core of the fused blocks
     rounds P once, against each row's final max, as attention_plain does,
     so no integer moves by more than one step."""
     x, w = _x(dev, s), _q8_weights(dev)
@@ -263,10 +268,8 @@ def test_attn_block_q8_integers_within_one_step(dev, s, causal):
     ints = q8._launch_attn_block_q8(x, wq.t().contiguous(), wsc, b_eff,
                                     (woq.t().contiguous(), wosc), bo, HEADS,
                                     causal, True, 1e-5)[1]
-    xq, xs = q8.ln_quantize_rows(x.float(), 1e-5)
-    qkv = (q8.q8_dot(xq, xs, wq, wsc) + b_eff).to(torch.bfloat16)
-    attn = fa.attention_plain(*fa._qkv_heads(qkv, HEADS), causal=causal)
-    want = q8.quantize_rows(attn.transpose(1, 2).reshape(B * s, -1).float())[0]
+    attn = q8.qkv_attention_q8_plain(x, wq, wsc, b_eff, heads=HEADS, causal=causal)
+    want = q8.quantize_rows(attn.reshape(B * s, -1))[0]
     torch.cuda.synchronize()
     diff = (ints[:want.numel()].view_as(want).int() - want.int()).abs()
     assert diff.max().item() <= 1, (s, causal, diff.max().item())
@@ -971,6 +974,41 @@ def test_q8_gemm_equals_int_mm(dev, rows, kn):
     want = torch._int_mm(a, w.t().contiguous()).float()
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+# c_fc's two passes: one image's rows, ViT-B/16 B = 64 and a count that
+# ends inside a 128-row tile; the c_fc widths (K, M) of both towers and a
+# last column tile of 64 (M = 192)
+@pytest.mark.parametrize("km", [(768, 3072), (512, 2048), (128, 192)])
+@pytest.mark.parametrize("rows", [197, 12608, 12545])
+def test_q8_gemm_two_pass_act_quantize_matches_one_pass(dev, rows, km):
+    """c_fc's ROWMAX then ACTQ (the int8 MLP in without an fp32
+    pre-activation) against the one-pass composition on the card: the F32
+    product, then quant.act_quantize_rows of it.  The s32 sum is exact and
+    a max does not depend on its order: the row maxima equal the F32
+    product's bit for bit.  torch's quick_gelu on the card can differ from
+    the kernel's (quantize.cuh's one-pass act pass rounded as the kernel
+    does; tools/exp_torch_q8_mlp.py holds the hidden and its scales to the
+    one-pass kernel's bit for bit at ViT-B/16 B = 64) by an ulp: the scales
+    within rtol 1e-6, the integers equal except one step on at most 0.1%
+    of them, test_torch_quant.py's row-quantizer tolerance."""
+    from uml_tpu_torch.ops import gemm
+
+    k, m = km
+    a, w, rs, cs, bias, _ = _q8_operands(dev, rows, k, m, 11 * rows + m)
+    n0 = gemm.q8_gemm.launches
+    rowmax = gemm.q8_gemm(a, w, rs, cs, bias, epi="ROWMAX")
+    got_q, got_s = gemm.q8_gemm(a, w, rs, cs, bias, epi="ACTQ", rowmax=rowmax)
+    assert gemm.q8_gemm.launches == n0 + 2
+    pre = gemm.q8_gemm(a, w, rs, cs, bias, epi="F32")
+    want_q, want_s = q8.act_quantize_rows(pre, "quick_gelu")
+    torch.cuda.synchronize()
+    assert torch.equal(rowmax, pre.amax(-1))
+    torch.testing.assert_close(got_s, want_s[:, 0], rtol=1e-6, atol=0)
+    assert got_q.dtype == torch.int8
+    diff = (got_q.int() - want_q.int()).abs()
+    assert diff.max().item() <= 1
+    assert (diff > 0).float().mean().item() <= 1e-3
 
 
 @pytest.mark.parametrize("kn", [(768, 3072), (3072, 768), (512, 1536)])

@@ -16,10 +16,11 @@
 // their own.  Above S = 256: the QKV q8_gemm into a qkv scratch and
 // flash_attention.cu.
 //
-// The quantized attention output is the attention's bf16 output, as in
-// uml_tpu's jnp reference (mha_reference returns bf16); the Pallas kernel
-// quantizes its fp32 output, which can move an integer by a step.  The
-// TPU's slab grouping (UML_Q8_SLAB: int8's 32-sublane tile) is a TPU
+// The quantized attention output is the attention's fp32 output, as the
+// Pallas kernel quantizes it (quant.py:216-220; uml_tpu's jnp reference
+// rounds it to bf16 first): near a row's absmax one bf16 ulp is about an
+// int8 step, so two sides that each round to bf16 could land two steps
+// apart.  The TPU's slab grouping (UML_Q8_SLAB: int8's 32-sublane tile) is a TPU
 // padding choice and is not carried.
 //
 // What bounds it on the H100: at ViT-B/16 B=64 the two int8 products are
@@ -29,7 +30,8 @@
 //
 //   x [B, S, K] bf16; wq [3*H*64, K] int8 (K-major, q8_gemm.cuh); wsc,
 //   b_eff [3*H*64] fp32; wo [K, H*64] int8 (q8_out) or [H*64, K] bf16; wosc
-//   [K] fp32 (q8_out) or null; bo [K] fp32; q8, qscale and attn scratch;
+//   [K] fp32 (q8_out) or null; bo [K] fp32; q8, qscale and attn scratch
+//   (attn [B*S, H*64] fp32 with q8_out, bf16 without);
 //   qkv scratch above S = 256, null at or below; out [B, S, K] bf16.
 
 #include "blocks.cuh"
@@ -43,7 +45,7 @@ extern "C" int uml_attn_block_q8(const void* x, const void* wq, const void* wsc,
       static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(wq),
       static_cast<const float*>(wsc), static_cast<const float*>(b_eff), wo,
       static_cast<const float*>(wosc), static_cast<const float*>(bo), static_cast<int8_t*>(q8),
-      static_cast<float*>(qscale), static_cast<__nv_bfloat16*>(qkv),
-      static_cast<__nv_bfloat16*>(attn), static_cast<__nv_bfloat16*>(out), B, S, K, H,
+      static_cast<float*>(qscale), static_cast<__nv_bfloat16*>(qkv), attn,
+      static_cast<__nv_bfloat16*>(out), B, S, K, H,
       causal != 0, q8_out != 0, eps, static_cast<cudaStream_t>(stream));
 }

@@ -104,51 +104,71 @@ static inline cudaError_t run_mlp_block(const __nv_bfloat16* x, const __nv_bfloa
 //   x [B, S, K]; wq [3*H*64, K] int8, wo [K, H*64] int8 or [H*64, K] bf16
 //   (the int8 weights K-major, q8_gemm.cuh); q8 [B*S*max(K, H*64)] int8 and
 //   qscale [B*S] are scratch for the row-quantized activations (the LN'd x,
-//   then the attention output); attn [B*S, H*64] is scratch, and so is qkv
-//   [B*S, 3*H*64] on the chain (S > 256; null on the fused route); out
-//   [B, S, K].
+//   then the attention output); attn [B*S, H*64] is scratch, fp32 with
+//   q8_out (the attention output is quantized before any rounding, as the
+//   TPU kernel quantizes it: a bf16 rounding there gives two sides that
+//   round the same value apart an int8 step each), bf16 without; qkv
+//   [B*S, 3*H*64] is scratch on the chain (S > 256; null on the fused
+//   route); out [B, S, K].
 static inline cudaError_t run_attn_block_q8(const __nv_bfloat16* x, const int8_t* wq,
                                             const float* wsc, const float* b_eff, const void* wo,
                                             const float* wosc, const float* bo, int8_t* q8,
-                                            float* qscale, __nv_bfloat16* qkv,
-                                            __nv_bfloat16* attn, __nv_bfloat16* out, int B,
-                                            int S, int K, int H, bool causal, bool q8_out,
-                                            float eps, cudaStream_t stream) {
+                                            float* qscale, __nv_bfloat16* qkv, void* attn,
+                                            __nv_bfloat16* out, int B, int S, int K, int H,
+                                            bool causal, bool q8_out, float eps,
+                                            cudaStream_t stream) {
   const int rows = B * S;
   const int hd = H * ATT_D;
   UML_TRY(launch_ln_quantize_rows(x, q8, qscale, rows, K, eps, stream));
   if (qkv_attention_fused(S)) {
     UML_TRY(launch_qkv_attention(q8, qscale, wq, wsc, b_eff, nullptr, attn, B, S, K, H, S,
-                                 causal, true, stream));
+                                 causal, true, stream, q8_out));
   } else {
     if (qkv == nullptr) return cudaErrorInvalidValue;
     UML_TRY(launch_q8_gemm(q8, wq, qscale, wsc, b_eff, nullptr, qkv, rows, 3 * hd, K,
                            Q8_EPI_BF16, stream));
-    UML_TRY(launch_attention(qkv, attn, B, S, H, S, causal, stream));
+    UML_TRY(launch_attention(qkv, attn, B, S, H, S, causal, stream, q8_out));
   }
   if (q8_out) {
-    UML_TRY(launch_quantize_rows(attn, q8, qscale, rows, hd, stream));
+    UML_TRY(launch_quantize_rows(static_cast<const float*>(attn), q8, qscale, rows, hd, stream));
     return launch_q8_gemm(q8, static_cast<const int8_t*>(wo), qscale, wosc, bo, x, out, rows, K,
                           hd, Q8_EPI_RESIDUAL, stream);
   }
-  return launch_ln_gemm(attn, static_cast<const __nv_bfloat16*>(wo), bo, x, out, rows, K, hd, K,
+  return launch_ln_gemm(static_cast<const __nv_bfloat16*>(attn),
+                        static_cast<const __nv_bfloat16*>(wo), bo, x, out, rows, K, hd, K,
                         PRO_NONE, EPI_RESIDUAL, eps, stream);
 }
 
 // Int8 MLP half: out = x + actquant(LNquant(x) . w1q + b1) . w2q + b2
-//   x [rows, K]; w1q [M, K], w2q [K, M] int8 (K-major); q8 [rows*max(K, M)] int8 and
-//   qscale [rows] are scratch; pre [rows, M] fp32 is scratch.
+//   x [rows, K]; w1q [M, K], w2q [K, M] int8 (K-major); q8 [rows*(M + K)]
+//   int8 and qscale [2*rows] fp32 are scratch: first the int8 hidden and its
+//   row scales ([rows, M], [rows]: c_proj's operand), then LNquant(x) and
+//   its ([rows, K], [rows]: c_fc's); rowmax [rows] int32 is scratch for
+//   c_fc's row maxima (q8_ordered).
+// Four launches: ln_quantize_rows (which also sets each row's max to
+// -inf); c_fc with the ROWMAX epilogue (each row's max of y + b1, an
+// atomicMax a 128-column tile, its only store: 50 KB at ViT-B/16 B=64);
+// c_fc again with the ACTQ epilogue (the same y + b1 bit for bit,
+// quick_gelu, int8 with the row's scale from that max, as the one-pass act
+// quantization rounded them); c_proj with the residual.  No fp32
+// pre-activation reaches device memory (q8_gemm.cuh says why the product
+// runs twice).
 static inline cudaError_t run_mlp_block_q8(const __nv_bfloat16* x, const int8_t* w1q,
                                            const float* w1sc, const float* b1,
                                            const int8_t* w2q, const float* w2sc,
                                            const float* b2, int8_t* q8, float* qscale,
-                                           float* pre, __nv_bfloat16* out, int rows, int K,
+                                           int* rowmax, __nv_bfloat16* out, int rows, int K,
                                            int M, float eps, cudaStream_t stream) {
-  UML_TRY(launch_ln_quantize_rows(x, q8, qscale, rows, K, eps, stream));
-  UML_TRY(launch_q8_gemm(q8, w1q, qscale, w1sc, b1, nullptr, pre, rows, M, K, Q8_EPI_F32,
-                         stream));
-  UML_TRY(launch_act_quantize_rows(pre, q8, qscale, rows, M, stream));
-  return launch_q8_gemm(q8, w2q, qscale, w2sc, b2, x, out, rows, K, M, Q8_EPI_RESIDUAL, stream);
+  int8_t* hq = q8;
+  float* hs = qscale;
+  int8_t* xq = q8 + (long long)rows * M;
+  float* xs = qscale + rows;
+  UML_TRY(launch_ln_quantize_rows(x, xq, xs, rows, K, eps, stream, rowmax));
+  UML_TRY(launch_q8_gemm(xq, w1q, xs, w1sc, b1, nullptr, nullptr, rows, M, K, Q8_EPI_ROWMAX,
+                         stream, rowmax));
+  UML_TRY(launch_q8_gemm(xq, w1q, xs, w1sc, b1, nullptr, hq, rows, M, K, Q8_EPI_ACTQ, stream,
+                         rowmax, hs));
+  return launch_q8_gemm(hq, w2q, hs, w2sc, b2, x, out, rows, K, M, Q8_EPI_RESIDUAL, stream);
 }
 
 }  // namespace uml

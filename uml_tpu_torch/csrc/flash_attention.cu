@@ -153,9 +153,9 @@ template <int D, bool CAUSAL, bool MAX_FIRST>
 __global__ void __launch_bounds__(FA_THREADS, 1)
 flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
-                       const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
+                       const __grid_constant__ CUtensorMap tv, void* __restrict__ out,
                        int H, int Sq, int S, long long o_b, long long o_h, long long o_r,
-                       float scale_log2) {
+                       float scale_log2, bool out_f32) {
   using C = FaCfg<D>;
   constexpr int BK = C::BK;
   extern __shared__ unsigned char smem_raw[];
@@ -327,7 +327,8 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
   wgmma_fence_regs(o);
   mbar_arrive(empty_bar(n_tiles - 1));
 
-  // out = acc / max(l, 1e-30), two bf16 a store, query rows < Sq only
+  // out = acc / max(l, 1e-30), two bf16 (or fp32: out_f32) a store, query
+  // rows < Sq only
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
@@ -335,11 +336,16 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
     const int row = row0 + 8 * r;
     if (row >= Sq) continue;
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
-    __nv_bfloat16* orow = out + b * o_b + h * o_h + row * o_r + col0;
+    const long long off = b * o_b + h * o_h + row * o_r + col0;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
-          __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+    for (int j = 0; j < D / 8; ++j) {
+      const float v0 = o[4 * j + 2 * r] * inv, v1 = o[4 * j + 2 * r + 1] * inv;
+      if (out_f32)
+        *reinterpret_cast<float2*>(static_cast<float*>(out) + off + 8 * j) = make_float2(v0, v1);
+      else
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) + off + 8 * j) =
+            __floats2bfloat162_rn(v0, v1);
+    }
   }
 }
 
@@ -358,8 +364,8 @@ bool make_map(CUtensorMap* map, const void* ptr, long long B, int H, int S, int 
 
 template <int D, bool CAUSAL, bool MAX_FIRST>
 cudaError_t launch_flash(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
-                         __nv_bfloat16* out, long long B, int H, int Sq, int S, long long o_b,
-                         long long o_h, long long o_r, cudaStream_t stream) {
+                         void* out, long long B, int H, int Sq, int S, long long o_b,
+                         long long o_h, long long o_r, cudaStream_t stream, bool out_f32) {
   const int smem = (int)FaCfg<D>::SMEM;
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_attention_kernel<D, CAUSAL, MAX_FIRST>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -369,7 +375,7 @@ cudaError_t launch_flash(const CUtensorMap& tq, const CUtensorMap& tk, const CUt
   // 1 / sqrt(D) and log2(e) in one factor
   const float scale_log2 = (D == 64 ? 0.125f : 0.08838834764831845f) * 1.4426950408889634f;
   flash_attention_kernel<D, CAUSAL, MAX_FIRST><<<grid, FA_THREADS, smem, stream>>>(
-      tq, tk, tv, out, H, Sq, S, o_b, o_h, o_r, scale_log2);
+      tq, tk, tv, out, H, Sq, S, o_b, o_h, o_r, scale_log2, out_f32);
   return cudaGetLastError();
 }
 
@@ -378,12 +384,12 @@ cudaError_t launch_flash(const CUtensorMap& tq, const CUtensorMap& tk, const CUt
 namespace uml {
 
 cudaError_t launch_flash_attention(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                                   const __nv_bfloat16* v, __nv_bfloat16* out, long long B, int H,
-                                   int Sq, int S, int D, bool causal, long long q_b, long long q_h,
+                                   const __nv_bfloat16* v, void* out, long long B, int H, int Sq,
+                                   int S, int D, bool causal, long long q_b, long long q_h,
                                    long long q_r, long long k_b, long long k_h, long long k_r,
                                    long long v_b, long long v_h, long long v_r, long long o_b,
                                    long long o_h, long long o_r, bool max_first,
-                                   cudaStream_t stream) {
+                                   cudaStream_t stream, bool out_f32) {
   const long long q_tiles = (Sq + FA_BQ - 1) / FA_BQ;
   if ((D != 64 && D != 128) || B < 1 || H < 1 || S < 1 || Sq < 1 || Sq > S ||
       (causal && Sq != S) || B * H > 2147483647LL || q_tiles > 65535)
@@ -402,7 +408,7 @@ cudaError_t launch_flash_attention(const __nv_bfloat16* q, const __nv_bfloat16* 
     return cudaErrorInvalidValue;
 #define UML_FLASH(d, c, mf)                                                          \
   if (D == d && causal == c && max_first == mf)                                      \
-    return launch_flash<d, c, mf>(tq, tk, tv, out, B, H, Sq, S, o_b, o_h, o_r, stream);
+    return launch_flash<d, c, mf>(tq, tk, tv, out, B, H, Sq, S, o_b, o_h, o_r, stream, out_f32);
   UML_FLASH(64, false, false)
   UML_FLASH(64, true, false)
   UML_FLASH(128, false, false)
@@ -428,6 +434,6 @@ extern "C" int uml_flash_attention(const void* q, const void* k, const void* v, 
   using bf16 = __nv_bfloat16;
   return (int)uml::launch_flash_attention(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), B, H, S, S, D, causal != 0, q_b, q_h, q_r, k_b, k_h, k_r, v_b,
-      v_h, v_r, o_b, o_h, o_r, false, static_cast<cudaStream_t>(stream));
+      out, B, H, S, S, D, causal != 0, q_b, q_h, q_r, k_b, k_h, k_r, v_b, v_h, v_r, o_b, o_h,
+      o_r, false, static_cast<cudaStream_t>(stream), false);
 }

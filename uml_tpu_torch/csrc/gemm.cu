@@ -40,13 +40,17 @@ extern "C" int uml_gemm_at(const void* a, const void* b, void* c, void* ws, long
                                   P, N, splits, static_cast<cudaStream_t>(stream));
 }
 
-// a [M, K] int8, w [N, K] int8 (K-major); epi one of Q8_EPI_*
+// a [M, K] int8, w [N, K] int8 (K-major); epi one of Q8_EPI_*; rowmax [M]
+// q8_ordered ints (raised by Q8_EPI_ROWMAX from the caller's initial
+// values, read by Q8_EPI_ACTQ) and qscale [M] fp32 (Q8_EPI_ACTQ) or null
 extern "C" int uml_q8_gemm(const void* a, const void* w, const void* row_scale,
                            const void* col_scale, const void* bias, const void* res, void* out,
-                           int M, int N, int K, int epi, void* stream) {
+                           void* rowmax, void* qscale, int M, int N, int K, int epi,
+                           void* stream) {
   return (int)uml::launch_q8_gemm(
       static_cast<const int8_t*>(a), static_cast<const int8_t*>(w),
       static_cast<const float*>(row_scale), static_cast<const float*>(col_scale),
       static_cast<const float*>(bias), static_cast<const __nv_bfloat16*>(res), out, M, N, K, epi,
-      static_cast<cudaStream_t>(stream));
+      static_cast<cudaStream_t>(stream), static_cast<int*>(rowmax),
+      static_cast<float*>(qscale));
 }

@@ -107,8 +107,9 @@ struct QaArgs {
   const float* row_scale;  // int8: [B*S]
   const float* col_scale;  // int8: [3*H*64]
   __nv_bfloat16* qkv;      // [B, S, 3*H*64] or null
-  __nv_bfloat16* attn;     // [B, q_rows, H*64]
+  void* attn;              // [B, q_rows, H*64] bf16, or fp32 (attn_f32)
   int B, S, K, H, q_rows;
+  bool attn_f32;           // the int8 half quantizes the fp32 output
   float scale_log2;        // 1/sqrt(64) * log2(e)
 };
 
@@ -447,12 +448,17 @@ qkv_attention_kernel(const __grid_constant__ CUtensorMap ta,
         const int row = qrow0 + 8 * r;
         if (row >= a.q_rows) continue;
         const float inv = 1.f / fmaxf(l[r], 1e-30f);
-        __nv_bfloat16* orow =
-            a.attn + ((long long)b * a.q_rows + row) * hd + h * uml::ATT_D + col0;
+        const long long off = ((long long)b * a.q_rows + row) * hd + h * uml::ATT_D + col0;
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
-              __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+        for (int j = 0; j < 8; ++j) {
+          const float v0 = o[4 * j + 2 * r] * inv, v1 = o[4 * j + 2 * r + 1] * inv;
+          if (a.attn_f32)
+            *reinterpret_cast<float2*>(static_cast<float*>(a.attn) + off + 8 * j) =
+                make_float2(v0, v1);
+          else
+            *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(a.attn) + off +
+                                               8 * j) = __floats2bfloat162_rn(v0, v1);
+        }
       }
     }
     // both warpgroups are done with q, k, v (and the epilogue parameters)
@@ -486,8 +492,8 @@ namespace uml {
 
 cudaError_t launch_qkv_attention(const void* a, const float* row_scale, const void* w,
                                  const float* col_scale, const float* bias, __nv_bfloat16* qkv,
-                                 __nv_bfloat16* attn, int B, int S, int K, int H, int q_rows,
-                                 bool causal, bool q8, cudaStream_t stream) {
+                                 void* attn, int B, int S, int K, int H, int q_rows, bool causal,
+                                 bool q8, cudaStream_t stream, bool attn_f32) {
   if (B < 1 || H < 1 || S < 1 || S > QKV_ATTN_MAX_S || K < 64 || K % 64 != 0 ||
       (q_rows != S && q_rows != 1) || (causal && q_rows != S) || bias == nullptr ||
       attn == nullptr || (q8 && (row_scale == nullptr || col_scale == nullptr)) ||
@@ -528,6 +534,7 @@ cudaError_t launch_qkv_attention(const void* a, const float* row_scale, const vo
   args.K = K;
   args.H = H;
   args.q_rows = q_rows;
+  args.attn_f32 = attn_f32;
   args.scale_log2 = 0.125f * 1.4426950408889634f;
   const int nc = S > 128 ? 2 : 1;  // 128-key chunks of the score row
 #define UML_QA(Q, N, C) \
@@ -561,13 +568,14 @@ extern "C" int uml_qkv_attention(const void* x, const void* w_eff, const void* b
   if (err != cudaSuccess) return (int)err;
   return (int)uml::launch_qkv_attention(xn, nullptr, w_eff, nullptr,
                                         static_cast<const float*>(b_eff),
-                                        static_cast<bf16*>(qkv), static_cast<bf16*>(attn), B, S,
-                                        K, H, q_rows, causal != 0, false, st);
+                                        static_cast<bf16*>(qkv), attn, B, S, K, H, q_rows,
+                                        causal != 0, false, st, false);
 }
 
 //   int8: x [B, S, K] bf16; wq [3*H*64, K] int8 (K-major); wsc, b_eff
 //   [3*H*64] fp32; q8 [B*S*K] int8 and qscale [B*S] scratch
-//   (ln_quantize_rows); attn [B, S, H*64].
+//   (ln_quantize_rows); attn [B, S, H*64] fp32 (what the int8 half
+//   quantizes for its out-projection).
 extern "C" int uml_qkv_attention_q8(const void* x, const void* wq, const void* wsc,
                                     const void* b_eff, void* q8, void* qscale, void* attn,
                                     int B, int S, int K, int H, int causal, float eps,
@@ -579,6 +587,6 @@ extern "C" int uml_qkv_attention_q8(const void* x, const void* wq, const void* w
   if (err != cudaSuccess) return (int)err;
   return (int)uml::launch_qkv_attention(
       q8, static_cast<const float*>(qscale), wq, static_cast<const float*>(wsc),
-      static_cast<const float*>(b_eff), nullptr, static_cast<__nv_bfloat16*>(attn), B, S, K, H,
-      S, causal != 0, true, st);
+      static_cast<const float*>(b_eff), nullptr, attn, B, S, K, H, S, causal != 0, true, st,
+      true);
 }

@@ -27,12 +27,14 @@ static inline bool qkv_attention_fused(int S) { return S <= QKV_ATTN_MAX_S; }
 // a = [B*S, K] int8 row-quantized, row_scale [B*S], w = [3*H*64, K] int8
 // K-major, col_scale [3*H*64], the value ((float)acc * row_scale) *
 // col_scale + bias rounded once to bf16, as q8_gemm.cuh's Q8_EPI_BF16.
-// bias [3*H*64] fp32; attn [B, q_rows, H*64] bf16; qkv [B, S, 3*H*64] bf16
-// or null.  Takes S <= 256, K a multiple of 64, pointers 16-byte aligned;
-// returns the launch error.  Defined in qkv_attention.cu.
+// bias [3*H*64] fp32; attn [B, q_rows, H*64] bf16, or fp32 with attn_f32
+// (the int8 half's out-projection quantizes the unrounded output, as the
+// TPU kernel does); qkv [B, S, 3*H*64] bf16 or null.  Takes S <= 256, K a
+// multiple of 64, pointers 16-byte aligned; returns the launch error.
+// Defined in qkv_attention.cu.
 cudaError_t launch_qkv_attention(const void* a, const float* row_scale, const void* w,
                                  const float* col_scale, const float* bias, __nv_bfloat16* qkv,
-                                 __nv_bfloat16* attn, int B, int S, int K, int H, int q_rows,
-                                 bool causal, bool q8, cudaStream_t stream);
+                                 void* attn, int B, int S, int K, int H, int q_rows, bool causal,
+                                 bool q8, cudaStream_t stream, bool attn_f32 = false);
 
 }  // namespace uml

@@ -69,7 +69,12 @@
 //   OUT_RESIDUAL (out = (acc + b) + res, res bf16 with row stride ldres),
 //   and the int8 epilogues of q8_gemm.cuh: y = ((float)acc * row_scale) *
 //   col_scale, each step rounded on its own, then OUT_Q8_BF16 bf16(y + b),
-//   OUT_Q8_F32 y + b in fp32, OUT_Q8_RESIDUAL bf16((res + y) + b).
+//   OUT_Q8_F32 y + b in fp32, OUT_Q8_RESIDUAL bf16((res + y) + b), and the
+//   two passes of the int8 MLP in: OUT_Q8_ROWMAX (each row's max of y + b,
+//   by an atomicMax of the tile's max into one int a row, its only store)
+//   and OUT_Q8_ACTQ (the same y + b recomputed, quick_gelu, and int8 with
+//   the row's scale from that max: no fp32 pre-activation reaches device
+//   memory; q8_gemm.cuh).
 //   The MLP in writes two [rows, 4K] bf16 tensors (155 MB at ViT-B/16
 //   B=64), the heaviest store traffic of any product here: the
 //   sector-filling stores below carry it.
@@ -83,6 +88,7 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -110,11 +116,13 @@ constexpr size_t WGG_SMEM =
 
 enum { WGG_OUT_BF16 = 0, WGG_OUT_F32 = 1, WGG_OUT_DACT = 2, WGG_OUT_GELU = 3,
        WGG_OUT_RESIDUAL = 4, WGG_OUT_DACT_BF16 = 5, WGG_OUT_Q8_BF16 = 6,
-       WGG_OUT_Q8_F32 = 7, WGG_OUT_Q8_RESIDUAL = 8, WGG_OUT_GELU_EXACT = 9 };
+       WGG_OUT_Q8_F32 = 7, WGG_OUT_Q8_RESIDUAL = 8, WGG_OUT_GELU_EXACT = 9,
+       WGG_OUT_Q8_ROWMAX = 10, WGG_OUT_Q8_ACTQ = 11 };
 
 // the int8 instantiations: s8 operands, s32 accumulators
 static __host__ __device__ constexpr bool wgg_int8(int out) {
-  return out == WGG_OUT_Q8_BF16 || out == WGG_OUT_Q8_F32 || out == WGG_OUT_Q8_RESIDUAL;
+  return out == WGG_OUT_Q8_BF16 || out == WGG_OUT_Q8_F32 || out == WGG_OUT_Q8_RESIDUAL ||
+         out == WGG_OUT_Q8_ROWMAX || out == WGG_OUT_Q8_ACTQ;
 }
 
 struct WggEpilogue {
@@ -131,6 +139,9 @@ struct WggEpilogue {
   float* part = nullptr;               // splits > 1: [splits - 1, M, N] fp32 partials
   const float* row_scale = nullptr;    // OUT_Q8_*: [M] fp32
   const float* col_scale = nullptr;    // OUT_Q8_*: [N] fp32
+  int* rowmax = nullptr;               // OUT_Q8_ROWMAX (atomicMax), OUT_Q8_ACTQ (read): [M],
+                                       // each row's max of y + b as q8_ordered ints
+  float* qscale = nullptr;             // OUT_Q8_ACTQ: [M] fp32, the int8 out's row scales
 };
 
 // two floats as the bits of a bf16 pair (the lower column in the low half)
@@ -146,6 +157,51 @@ static __device__ __forceinline__ float gelu_exact(float y) {
   return y * 0.5f * (1.f + erff(y * 0.70710678118654752f));
 }
 
+constexpr float Q8_MAX = 127.f;
+constexpr float QUICK_GELU_LOBE = 0.1654f;  // |quick_gelu's minimum|, padded
+
+// round half up (floor(v + 0.5)), clamped to +-127, as uml_tpu quantizes
+static __device__ __forceinline__ int8_t q8_round(float v) {
+  return (int8_t)fminf(fmaxf(floorf(__fadd_rn(v, 0.5f)), -Q8_MAX), Q8_MAX);
+}
+
+// x * (1 / (1 + exp(-1.702 x))), each step rounded as the plain version's
+static __device__ __forceinline__ float quick_gelu_rn(float x) {
+  return __fmul_rn(x, __fdiv_rn(1.f, __fadd_rn(1.f, expf(__fmul_rn(-1.702f, x)))));
+}
+
+// An fp32 as an int whose signed order is the floats' (an involution: it
+// maps the int back too), so that atomicMax takes a row's max of fp32
+// values; a max does not depend on its order, so the result is
+// deterministic.  Q8_ORDERED_NEG_INF is -inf's, a row max's first value.
+static __host__ __device__ __forceinline__ int q8_ordered(int bits) {
+  return bits ^ ((bits >> 31) & 0x7fffffff);
+}
+constexpr int Q8_ORDERED_NEG_INF = (int)0x807fffff;
+
+// round(quick_gelu_rn(y) / sc) as q8_round rounds it, at a fraction of its
+// cost.  The fast form, y / (1 + 2^(y C)) (C = -1.702 log2 e, the
+// special-function unit's exp2 and reciprocal) times 1 / sc, lies within
+// ~1e-4 of the exact quotient in integer units: its relative error is a
+// few 1e-7 where the quotient is large, and where exp2's argument is large
+// the quotient is y to far below an ulp (y > 0) or far below a step
+// (y < 0).  So it rounds as the exact quotient unless it lies within
+// ACTQ_TIE of a rounding boundary; there (~2e-3 of the values) the exact
+// expression decides, out of line.  No clamp: |quick_gelu(y) / sc| <= 127
+// (sc >= quick_gelu(row max) / 127 and >= 0.1654 / 127, quick_gelu >=
+// -0.1637), so floor(u) lies in [-126, 127] on both paths.
+constexpr float ACTQ_TIE = 1e-3f;
+static __device__ __noinline__ int8_t act_q8_exact(float y, float sc) {
+  return q8_round(__fdiv_rn(quick_gelu_rn(y), sc));
+}
+static __device__ __forceinline__ int8_t act_q8(float y, float sc, float inv) {
+  const float u = __fmaf_rn(__fdividef(y, 1.f + ex2_approx(y * -2.4554669595930156f)), inv,
+                            0.5f);
+  const float f = floorf(u);
+  if (fabsf(u - f - 0.5f) < 0.5f - ACTQ_TIE) return (int8_t)(int)f;
+  return act_q8_exact(y, sc);
+}
+
 // The int8 epilogue's fp32 value in the reference's order, every step an
 // explicitly rounded intrinsic (nvcc contracts none into an FMA), so it
 // rounds as the plain PyTorch version does: ((float)acc * row_scale) *
@@ -156,6 +212,105 @@ static __device__ __forceinline__ float q8_value(int acc, float rs, float cs, fl
   float v = __fmul_rn(__fmul_rn(__int2float_rn(acc), rs), cs);
   if (OUT == WGG_OUT_Q8_RESIDUAL) v = __fadd_rn(res, v);
   return __fadd_rn(v, b);
+}
+
+// OUT_Q8_ROWMAX and OUT_Q8_ACTQ on a thread's accumulators (rows row_a and
+// row_a + 8, columns n0 + 2 (lane % 4) + 8 j + {0, 1}), y = q8_value as
+// OUT_Q8_F32 computes it.  ROWMAX: each row's max of y over the tile's
+// columns (a quad of lanes holds a row of the warp's 16 whole, so the
+// quad's shuffles finish it), then atomicMax into rowmax[row] (ordered
+// ints; the caller initialises them to Q8_ORDERED_NEG_INF).  ACTQ: the
+// int8 of quick_gelu(y) / sc, sc = max(quick_gelu(rowmax), lobe) / 127
+// from the row's max rmx, rounded as the one-pass act quantization
+// rounded it (act_q8), 8 contiguous bytes a lane after an exchange within
+// the quad, and the row scales from the first column tile.
+template <int OUT>
+static __device__ __forceinline__ void q8_act_epilogue(const int (&acc)[64],
+                                                       const WggEpilogue& ep,
+                                                       const float (&rs)[2],
+                                                       const int (&rmx)[2], int row_a, int n0,
+                                                       int M, int N, int lane) {
+  const int q = lane & 3;
+  const int col_a = n0 + 2 * q;
+  if constexpr (OUT == WGG_OUT_Q8_ROWMAX) {
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int j = 0; j < WGG_BN / 8; ++j) {
+      const int col = col_a + 8 * j;
+      if (col >= N) continue;
+      const float b0 = ep.bias[col], b1 = ep.bias[col + 1];
+      const float cs0 = ep.col_scale[col], cs1 = ep.col_scale[col + 1];
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        mx[r] = fmaxf(mx[r], fmaxf(q8_value<OUT>(acc[4 * j + 2 * r], rs[r], cs0, b0, 0.f),
+                                   q8_value<OUT>(acc[4 * j + 2 * r + 1], rs[r], cs1, b1, 0.f)));
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const int row = row_a + 8 * r;
+      if (q == 0 && row < M) atomicMax(ep.rowmax + row, q8_ordered(__float_as_int(mx[r])));
+    }
+  } else {
+    float sc[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      sc[r] = __fdiv_rn(fmaxf(quick_gelu_rn(__int_as_float(q8_ordered(rmx[r]))),
+                              QUICK_GELU_LOBE), Q8_MAX);
+    if (n0 == 0 && q == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (row_a + 8 * r < M) ep.qscale[row_a + 8 * r] = sc[r];
+    }
+    int8_t* out = static_cast<int8_t*>(ep.out);
+    const float inv[2] = {__frcp_rn(sc[0]), __frcp_rn(sc[1])};
+#pragma unroll
+    for (int g = 0; g < WGG_BN / 32; ++g) {
+      // the two int8 of each 8-column block 4g + jj of both rows, then lane
+      // q gathers block 4g + q: in round s it reads, from lane q - s, the
+      // pair that lane sends for block (q - s) + s
+      uint32_t h[2][4];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = 4 * g + jj, col = col_a + 8 * j;
+        float b0 = 0.f, b1 = 0.f, cs0 = 0.f, cs1 = 0.f;
+        if (col < N) {
+          b0 = ep.bias[col];
+          b1 = ep.bias[col + 1];
+          cs0 = ep.col_scale[col];
+          cs1 = ep.col_scale[col + 1];
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float y0 = q8_value<OUT>(acc[4 * j + 2 * r], rs[r], cs0, b0, 0.f);
+          const float y1 = q8_value<OUT>(acc[4 * j + 2 * r + 1], rs[r], cs1, b1, 0.f);
+          h[r][jj] = (uint32_t)(uint8_t)act_q8(y0, sc[r], inv[r]) |
+                     (uint32_t)(uint8_t)act_q8(y1, sc[r], inv[r]) << 8;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        uint32_t w0 = 0u, w1 = 0u;  // bytes 0-3 and 4-7 (lane-dependent
+                                    // slots: selects, not an indexed array)
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          const int sel = (q + s) & 3, from = (q - s) & 3;
+          const uint32_t send = sel == 0 ? h[r][0] : sel == 1 ? h[r][1]
+                                : sel == 2 ? h[r][2] : h[r][3];
+          const uint32_t got = __shfl_sync(0xffffffffu, send, (lane & ~3) | from)
+                               << (16 * (from & 1));
+          if (from < 2)
+            w0 |= got;
+          else
+            w1 |= got;
+        }
+        const int row = row_a + 8 * r, col = n0 + 8 * (4 * g + q);
+        if (row < M && col < N)
+          *reinterpret_cast<uint2*>(out + (long long)row * N + col) = make_uint2(w0, w1);
+      }
+    }
+  }
 }
 
 template <bool A_MN, bool B_MN, int OUT>
@@ -241,6 +396,17 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
     Acc acc[64];
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] = 0;
+    // OUT_Q8_ACTQ: each of the thread's two rows' max of y, which the
+    // ROWMAX pass left; loaded before the products and first read after
+    // them, so the load's latency hides under the mainloop
+    int act_max[2] = {Q8_ORDERED_NEG_INF, Q8_ORDERED_NEG_INF};
+    if constexpr (OUT == WGG_OUT_Q8_ACTQ) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = m0 + 64 * wg + 16 * warp + (lane >> 2) + 8 * r;
+        if (row < M) act_max[r] = __ldg(ep.rowmax + row);
+      }
+    }
     for (int t = 0; t < nk; ++t, ++it) {
       const int s = it % WGG_STAGES;
       mbar_wait(sBar + 8 * s, (it / WGG_STAGES) & 1);
@@ -282,6 +448,10 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
 #pragma unroll
       for (int r = 0; r < 2; ++r)
         if (row_a + 8 * r < M) rs[r] = ep.row_scale[row_a + 8 * r];
+    }
+    if constexpr (OUT == WGG_OUT_Q8_ROWMAX || OUT == WGG_OUT_Q8_ACTQ) {
+      q8_act_epilogue<OUT>(acc, ep, rs, act_max, row_a, n0, M, N, lane);
+      continue;
     }
 #pragma unroll
     for (int j0 = 0; j0 < WGG_BN / 8; j0 += 2) {
@@ -475,6 +645,9 @@ static cudaError_t launch_wgmma_gemm(const void* a, const void* b, const WggEpil
        ((OUT == WGG_OUT_DACT ? ep.dy == nullptr : ep.dy16 == nullptr) || ep.aux == nullptr ||
         ep.lddy < N || ep.lddy % 2 != 0)) ||
       (Q8 && (ep.row_scale == nullptr || ep.col_scale == nullptr || ep.bias == nullptr)) ||
+      (OUT == WGG_OUT_Q8_ROWMAX && ep.rowmax == nullptr) ||
+      (OUT == WGG_OUT_Q8_ACTQ &&
+       (ep.rowmax == nullptr || ep.qscale == nullptr || ep.out == nullptr)) ||
       reinterpret_cast<uintptr_t>(a) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(b) % 16 != 0)
     return cudaErrorInvalidValue;

@@ -72,11 +72,11 @@ SIGNATURES = {
     # x, wq, wsc, b_eff, wo, wosc, bo, q8, qscale, qkv, attn, out, B, S, K,
     # H, causal, q8_out, eps, stream
     "uml_attn_block_q8": [_P] * 12 + [_I] * 6 + [_F, _P],
-    # x, w1q, w1sc, b1, w2q, w2sc, b2, q8, qscale, pre, out, rows, K, M,
-    # eps, stream
+    # x, w1q, w1sc, b1, w2q, w2sc, b2, q8, qscale, rowmax, out, rows, K,
+    # M, eps, stream
     "uml_mlp_block_q8": [_P] * 11 + [_I] * 3 + [_F, _P],
     # x, wq, wsc, b_eff, woq, wosc, bo, w1q, w1sc, b1, w2q, w2sc, b2, q8,
-    # qscale, qkv, attn, pre, mid, out, B, S, K, H, M, L, eps, stream
+    # qscale, qkv, attn, rowmax, mid, out, B, S, K, H, M, L, eps, stream
     "uml_tower_q8": [_P] * 20 + [_I] * 6 + [_F, _P],
     # x, scale, bias, w, b, xn, out, rows, K, M, act, eps, stream
     "uml_ln_matmul": [_P] * 7 + [_I] * 4 + [_F, _P],
@@ -91,8 +91,9 @@ SIGNATURES = {
     "uml_ln_gemm": [_P] * 12 + [_I] * 3 + [_L] + [_I] * 3 + [_F, _P],
     # a, b, c, ws, ws_floats, R, P, N, splits, stream
     "uml_gemm_at": [_P] * 4 + [_L] + [_I] * 4 + [_P],
-    # a, w, row_scale, col_scale, bias, res, out, M, N, K, epi, stream
-    "uml_q8_gemm": [_P] * 7 + [_I] * 4 + [_P],
+    # a, w, row_scale, col_scale, bias, res, out, rowmax, qscale, M, N, K,
+    # epi, stream
+    "uml_q8_gemm": [_P] * 9 + [_I] * 4 + [_P],
     # q, k, v, out, B, H, S, D, causal, then the batch, head and row
     # strides of q, k, v and out (elements), stream
     "uml_flash_attention": [_P] * 4 + [_L, _I, _I, _I, _I] + [_L] * 12 + [_P],

@@ -138,10 +138,11 @@ def fold_ln_into_matmul(scale, bias, kernel, kbias):
     return w_eff, b_eff
 
 
-def attention_plain(q, k, v, *, causal: bool = False):
+def attention_plain(q, k, v, *, causal: bool = False, dtype=None):
     """q [B,H,Sq,D], k/v [B,H,S,D] -> [B,H,Sq,D]: fp32 scores and softmax
     (row max), probabilities rounded to the input dtype unnormalized, the
-    1/rowsum applied to the fp32 P.V — the CUDA kernel's order."""
+    1/rowsum applied to the fp32 P.V — the CUDA kernel's order — and the
+    result rounded to ``dtype`` (q's by default; fp32: no rounding)."""
     d = q.shape[-1]
     s = (q.float() @ k.float().transpose(-1, -2)) * d ** -0.5
     if causal:
@@ -150,7 +151,7 @@ def attention_plain(q, k, v, *, causal: bool = False):
         s = s.masked_fill(~keep, float("-inf"))
     e = torch.exp(s - s.amax(-1, keepdim=True))
     inv = 1.0 / e.sum(-1, keepdim=True)
-    return ((e.to(q.dtype).float() @ v.float()) * inv).to(q.dtype)
+    return ((e.to(q.dtype).float() @ v.float()) * inv).to(dtype or q.dtype)
 
 
 def _qkv_heads(qkv, heads):

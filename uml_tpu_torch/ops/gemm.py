@@ -43,6 +43,10 @@ On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches the kernel or raises (bf16 operands, N and K multiples of 64;
 gemm_at: P and N multiples of 64, any row count; q8_gemm: int8 operands,
 the weight K-major [N, K]).  Every triple here runs on the engine.
+``q8_gemm``'s ROWMAX and ACTQ are the two passes of the int8 MLP in
+(rows #11, #12): each row's max of y + b, then the int8 hidden of
+quick_gelu(y + b) with the row's scale from that max: F32 followed by
+``quant.act_quantize_rows``.
 """
 
 from __future__ import annotations
@@ -54,7 +58,7 @@ from uml_tpu_torch.ops.ln_matmul import (act_and_grad,
                                          add_ln_affine_rows_plain,
                                          gelu_exact_f32, ln_affine_rows_plain,
                                          ln_rows_plain, quick_gelu_f32)
-from uml_tpu_torch.ops.quant import q8_dot
+from uml_tpu_torch.ops.quant import act_quantize_rows, q8_dot
 
 PRO_NONE, PRO_LN, PRO_LN_AFFINE, PRO_ADD_LN_AFFINE = 0, 1, 2, 3
 EPI_NONE, EPI_QUICK_GELU, EPI_RESIDUAL, EPI_GELU_STASH = 0, 1, 2, 3
@@ -208,27 +212,48 @@ def gemm_at(a, b, *, splits: int = 0):
 gemm_at.launches = 0
 
 
-Q8_EPIS = {"BF16": 0, "F32": 1, "RESIDUAL": 2}   # Q8_EPI_* of q8_gemm.cuh
+Q8_EPIS = {"BF16": 0, "F32": 1, "RESIDUAL": 2, "ROWMAX": 3, "ACTQ": 4}  # Q8_EPI_*
 
 
-def q8_gemm_plain(a, w, row_scale, col_scale, bias, res=None, *, epi: str):
+def _ordered(bits):
+    """int32 bits of fp32 values <-> ints whose signed order is the floats'
+    (q8_gemm.cuh's q8_ordered, its own inverse): the form in which the
+    ROWMAX pass keeps each row's max."""
+    return bits ^ ((bits >> 31) & 0x7FFFFFFF)
+
+
+def q8_gemm_plain(a, w, row_scale, col_scale, bias, res=None, *, epi: str,
+                  rowmax=None):
     """Plain version of ``q8_gemm``: the integer product exact, then the
-    epilogue in q8_gemm.cuh's order, each step rounded on its own."""
+    epilogue in q8_gemm.cuh's order, each step rounded on its own.
+    ROWMAX: each row's max of y + b -> [M]; ACTQ: quick_gelu(y + b)
+    quantized per row with the scale from ``rowmax`` (ROWMAX's output;
+    ``quant.act_quantize_rows``' scale) -> (int8 [M, N], scale [M])."""
     y = q8_dot(a, row_scale[:, None], w.t(), col_scale)
     if epi == "RESIDUAL":
         y = res.float() + y
     y = y + bias
+    if epi == "ROWMAX":
+        return y.amax(-1)
+    if epi == "ACTQ":
+        q, scale = act_quantize_rows(y, "quick_gelu", rowmax=rowmax[:, None])
+        return q, scale[:, 0]
     return y if epi == "F32" else y.to(torch.bfloat16)
 
 
-def q8_gemm(a, w, row_scale, col_scale, bias, res=None, *, epi: str):
+def q8_gemm(a, w, row_scale, col_scale, bias, res=None, *, epi: str,
+            rowmax=None):
     """a [M, K] int8; w [N, K] int8 (K-major: the transpose of the [in,
     out] kernel); row_scale [M], col_scale [N], bias [N] fp32; res [M, N]
     bf16 (RESIDUAL) -> [M, N]: bf16(y + b) (BF16), y + b in fp32 (F32) or
     bf16((res + y) + b) (RESIDUAL), y = ((float)(a . w^T) * row_scale) *
-    col_scale."""
+    col_scale; ROWMAX -> each row's max of y + b, [M] fp32; ACTQ with
+    ``rowmax`` (ROWMAX's output) -> (int8 [M, N], fp32 [M]): the int8 MLP
+    hidden and its row scales.  The kernels keep the maxima as ordered
+    ints (``_ordered``); this wrapper converts them."""
     if a.device.type == "cpu":
-        return q8_gemm_plain(a, w, row_scale, col_scale, bias, res, epi=epi)
+        return q8_gemm_plain(a, w, row_scale, col_scale, bias, res, epi=epi,
+                             rowmax=rowmax)
     m, k = a.shape
     n = w.shape[0]
     _build.check_dims(N=n, K=k)
@@ -240,16 +265,30 @@ def q8_gemm(a, w, row_scale, col_scale, bias, res=None, *, epi: str):
     _build.check_tensor("bias", bias, f32, (n,), dev)
     if epi == "RESIDUAL":
         _build.check_tensor("res", res, torch.bfloat16, (m, n), dev)
+    if epi == "ACTQ":
+        _build.check_tensor("rowmax", rowmax, f32, (m,), dev)
     with torch.cuda.device(dev):
-        out = torch.empty((m, n), dtype=f32 if epi == "F32" else torch.bfloat16,
-                          device=dev)
+        out = qscale = None
+        if epi == "ROWMAX":
+            # each row's first value: -inf
+            rowmax = _ordered(torch.full((m,), float("-inf"), device=dev)
+                              .view(torch.int32))
+        elif epi == "ACTQ":
+            rowmax = _ordered(rowmax.view(torch.int32))
+            out = torch.empty((m, n), dtype=i8, device=dev)
+            qscale = torch.empty(m, dtype=f32, device=dev)
+        else:
+            out = torch.empty((m, n), dtype=f32 if epi == "F32" else torch.bfloat16,
+                              device=dev)
         _build.launch("uml_q8_gemm", a.data_ptr(), w.data_ptr(),
                       row_scale.data_ptr(), col_scale.data_ptr(),
-                      bias.data_ptr(), None if res is None else res.data_ptr(),
-                      out.data_ptr(), m, n, k, Q8_EPIS[epi],
+                      bias.data_ptr(), _build.ptr(res), _build.ptr(out),
+                      _build.ptr(rowmax), _build.ptr(qscale), m, n, k, Q8_EPIS[epi],
                       torch.cuda.current_stream(dev).cuda_stream)
     q8_gemm.launches += 1
-    return out
+    if epi == "ROWMAX":
+        return _ordered(rowmax).view(f32)
+    return (out, qscale) if epi == "ACTQ" else out
 
 
 q8_gemm.launches = 0

@@ -19,9 +19,11 @@ math, importing nothing of uml_tpu:
 
 The plain versions compute the integer product in float64, exact below
 2^53 (127^2 * 3072 ~ 4.95e7 is past fp32's 2^24), on the CPU and on the
-card.  The attention output that the out-projection quantizes is the bf16
-output of the attention, as in uml_tpu's jnp reference (``mha_reference``
-returns q's dtype); the Pallas kernel quantizes its fp32 output instead.
+card.  The attention output that the out-projection quantizes is the fp32
+output of the attention, before any rounding, as the Pallas kernel
+quantizes it (uml_tpu's jnp reference rounds it to bf16 first: near a
+row's absmax one bf16 ulp is about an int8 step, so a kernel and its
+plain version that each rounded to bf16 could land two steps apart).
 
 Wrappers: ``attn_block_q8`` / ``mlp_block_q8`` take the plain version for
 a CPU tensor and launch ``csrc/attn_block_q8.cu`` / ``csrc/mlp_block_q8.cu``
@@ -102,16 +104,19 @@ ACTIVATIONS = {None: lambda x: x, "quick_gelu": quick_gelu_f32,
 ACT_NEG_LOBE = {"quick_gelu": 0.1654, "gelu_exact": 0.1718}
 
 
-def act_quantize_rows(pre: torch.Tensor, activation):
+def act_quantize_rows(pre: torch.Tensor, activation, rowmax=None):
     """Quantize act(pre) per row with the scale max(act(rowmax(pre)),
     lobe) / 127: the bounded-lobe GELUs are monotone above their minimum,
     so that bound covers the row without a reduction over act(pre)
-    (quant.py:124-148).  Other activations quantize act(pre) as is."""
+    (quant.py:124-148).  Other activations quantize act(pre) as is.
+    ``rowmax`` [..., 1], where given, is the row's max of ``pre``, found
+    beforehand (the card's c_fc finds it in a pass of its own)."""
     act = ACTIVATIONS[activation]
     if activation not in ACT_NEG_LOBE:
         return quantize_rows(act(pre))
-    amax = torch.clamp(act(pre.amax(-1, keepdim=True)),
-                       min=ACT_NEG_LOBE[activation])
+    if rowmax is None:
+        rowmax = pre.amax(-1, keepdim=True)
+    amax = torch.clamp(act(rowmax), min=ACT_NEG_LOBE[activation])
     scale = amax / INT8_MAX
     return _to_int8(act(pre) / scale), scale
 
@@ -125,12 +130,14 @@ def q8_dot(xq, row_scale, wq, col_scale):
 
 def qkv_attention_q8_plain(x, wq, wsc, b_eff, *, heads: int,
                            causal: bool = False, eps: float = 1e-5):
-    """Plain PyTorch version of the int8 fused kernel's function: the
-    attention [B, S, H*D] of the int8 QKV product's bf16 qkv + b_eff."""
+    """Plain PyTorch version of the int8 fused kernel's function: the fp32
+    attention [B, S, H*D] of the int8 QKV product's bf16 qkv + b_eff (the
+    output the int8 out-projection quantizes)."""
     b, s, _ = x.shape
     xq, xs = ln_quantize_rows(x.float(), eps)
     qkv = (q8_dot(xq, xs, wq, wsc) + b_eff.float()).to(torch.bfloat16)
-    attn = attention_plain(*_qkv_heads(qkv, heads), causal=causal)
+    attn = attention_plain(*_qkv_heads(qkv, heads), causal=causal,
+                           dtype=torch.float32)
     return attn.transpose(1, 2).reshape(b, s, -1)
 
 
@@ -144,11 +151,11 @@ def attn_block_q8_plain(x, wq, wsc, b_eff, wo_ops, bo, *, heads: int,
                                   causal=causal, eps=eps)
     if q8_out:
         woq, wosc = wo_ops
-        aq, asc = quantize_rows(attn.float())
+        aq, asc = quantize_rows(attn)
         delta = q8_dot(aq, asc, woq, wosc)
     else:
         (wo,) = wo_ops
-        delta = attn.float() @ wo.float()
+        delta = attn.to(torch.bfloat16).float() @ wo.float()
     return (x.float() + delta + bo.float()).to(x.dtype)
 
 
@@ -180,7 +187,7 @@ def _launch_attn_block_q8(x, wq, wsc, b_eff, wo_ops, bo, heads, causal,
     """The int8 weights K-major: wq [3*H*64, K], woq [K, H*64] (a bf16 wo
     stays [H*64, K]) -> (out, q8, qscale): the output and the scratch the
     launches wrote; q8[:B*S*H*64] then holds the attention output's
-    integers (q8_out) and qscale their row scales."""
+    integers (q8_out: of its fp32 values) and qscale their row scales."""
     b, s, k = x.shape
     hd = heads * HEAD_DIM
     _build.check_dims(K=k)
@@ -204,7 +211,7 @@ def _launch_attn_block_q8(x, wq, wsc, b_eff, wo_ops, bo, heads, causal,
         q8 = torch.empty(rows * max(k, hd), dtype=torch.int8, device=dev)
         qscale = torch.empty(rows, dtype=f32, device=dev)
         qkv = qkv_scratch(b, s, hd, dev)
-        attn = torch.empty((rows, hd), dtype=bf16, device=dev)
+        attn = torch.empty((rows, hd), dtype=f32 if q8_out else bf16, device=dev)
         out = torch.empty_like(x)
         _build.launch("uml_attn_block_q8", x.data_ptr(), wq.data_ptr(),
                       wsc.data_ptr(), b_eff.data_ptr(), wo_ptr, wosc_ptr,
@@ -244,7 +251,7 @@ def qkv_attention_q8(x, wq, wsc, b_eff, *, heads: int, causal: bool = False,
     """The int8 fused QKV + attention kernel on its own (ln_quantize_rows,
     then csrc/qkv_attention.cu over int8), as ``qkv_attention_q8_plain``:
     x [B,S,K] bf16; wq int8 [K,3*H*64] (read K-major, as attn_block_q8
-    does); wsc, b_eff fp32 [3*H*64] -> attn [B,S,H*64] bf16.  The int8
+    does); wsc, b_eff fp32 [3*H*64] -> attn [B,S,H*64] fp32.  The int8
     attention half launches the same kernel inside its own C call
     (S <= 256) and counts it here too; for the card tests and
     ``chip_smoke.py``."""
@@ -267,7 +274,7 @@ def qkv_attention_q8(x, wq, wsc, b_eff, *, heads: int, causal: bool = False,
     with torch.cuda.device(dev):
         q8 = torch.empty(b * s * k, dtype=torch.int8, device=dev)
         qscale = torch.empty(b * s, dtype=f32, device=dev)
-        attn = torch.empty((b, s, hd), dtype=torch.bfloat16, device=dev)
+        attn = torch.empty((b, s, hd), dtype=f32, device=dev)
         _build.launch("uml_qkv_attention_q8", x.data_ptr(), wq.data_ptr(),
                       wsc.data_ptr(), b_eff.data_ptr(), q8.data_ptr(),
                       qscale.data_ptr(), attn.data_ptr(), b, s, k, heads,
@@ -279,10 +286,20 @@ def qkv_attention_q8(x, wq, wsc, b_eff, *, heads: int, causal: bool = False,
 qkv_attention_q8.launches = 0
 
 
+def mlp_q8_scratch(rows: int, k: int, m: int, dev):
+    """The int8 MLP half's scratch (csrc/blocks.cuh::run_mlp_block_q8): q8
+    int8 [rows * (M + K)] and qscale fp32 [2 * rows] (the int8 hidden and
+    its row scales first, then the LN'd rows and theirs), rowmax int32
+    [rows] (c_fc's row maxima).  No fp32 [rows, M] pre-activation."""
+    return (torch.empty(rows * (m + k), dtype=torch.int8, device=dev),
+            torch.empty(2 * rows, dtype=torch.float32, device=dev),
+            torch.empty(rows, dtype=torch.int32, device=dev))
+
+
 def _launch_mlp_block_q8(x, w1q, w1sc, b1, w2q, w2sc, b2, eps):
     """The int8 weights K-major: w1q [M, K], w2q [K, M] -> (out, q8,
     qscale): q8[:rows*M] then holds the integers of quick_gelu(pre) and
-    qscale their row scales."""
+    qscale[:rows] their row scales (the scratch the launches wrote)."""
     k = x.shape[-1]
     m = w1sc.shape[-1]
     _build.check_dims(K=k, M=m)
@@ -296,14 +313,12 @@ def _launch_mlp_block_q8(x, w1q, w1sc, b1, w2q, w2sc, b2, eps):
     _build.check_tensor("b2", b2, f32, (k,), dev)
     rows = x.numel() // k
     with torch.cuda.device(dev):
-        q8 = torch.empty(rows * max(k, m), dtype=torch.int8, device=dev)
-        qscale = torch.empty(rows, dtype=f32, device=dev)
-        pre = torch.empty((rows, m), dtype=f32, device=dev)
+        q8, qscale, rowmax = mlp_q8_scratch(rows, k, m, dev)
         out = torch.empty_like(x)
         _build.launch("uml_mlp_block_q8", x.data_ptr(), w1q.data_ptr(),
                       w1sc.data_ptr(), b1.data_ptr(), w2q.data_ptr(),
                       w2sc.data_ptr(), b2.data_ptr(), q8.data_ptr(),
-                      qscale.data_ptr(), pre.data_ptr(), out.data_ptr(), rows,
+                      qscale.data_ptr(), rowmax.data_ptr(), out.data_ptr(), rows,
                       k, m, eps, torch.cuda.current_stream(dev).cuda_stream)
     return out, q8, qscale
 

@@ -33,7 +33,8 @@ import torch
 from uml_tpu_torch.ops import _build
 from uml_tpu_torch.ops.fused_attention import HEAD_DIM, qkv_scratch
 from uml_tpu_torch.ops.quant import (attn_block_q8_plain, check_inference,
-                                     mlp_block_q8_plain, qkv_attention_q8)
+                                     mlp_block_q8_plain, mlp_q8_scratch,
+                                     qkv_attention_q8)
 
 
 def supports_tower_q8(k: int, heads: int, head_dim: int, s: int, m: int) -> bool:
@@ -87,16 +88,16 @@ def tower_q8(x, wq, wsc, b_eff, woq, wosc, bo, w1q, w1sc, b1, w2q, w2sc, b2, *,
         _build.check_tensor(name, t, dtype, shape, dev)
     rows = b * s
     with torch.cuda.device(dev):
-        q8 = torch.empty(rows * max(k, hd, m), dtype=i8, device=dev)
-        qscale = torch.empty(rows, dtype=f32, device=dev)
+        # the MLP half's scratch also serves the attention half's int8
+        # rows ([rows, max(K, HD)] <= [rows, M + K]) and scales
+        q8, qscale, rowmax = mlp_q8_scratch(rows, max(k, hd), m, dev)
         qkv = qkv_scratch(b, s, hd, dev)
-        attn = torch.empty((rows, hd), dtype=torch.bfloat16, device=dev)
-        pre = torch.empty((rows, m), dtype=f32, device=dev)
+        attn = torch.empty((rows, hd), dtype=f32, device=dev)
         mid = torch.empty_like(x)
         out = torch.empty_like(x)
         _build.launch("uml_tower_q8", *map(_build.ptr, (
             x, wq, wsc, b_eff, woq, wosc, bo, w1q, w1sc, b1, w2q, w2sc, b2,
-            q8, qscale, qkv, attn, pre, mid, out)), b, s, k, heads, m, layers,
+            q8, qscale, qkv, attn, rowmax, mid, out)), b, s, k, heads, m, layers,
             eps, torch.cuda.current_stream(dev).cuda_stream)
     tower_q8.launches += 1
     if qkv is None:
