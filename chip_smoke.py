@@ -123,7 +123,25 @@ Phases (any failure exits non-zero; no phase is caught):
    ViT-L/14 at full width (S = 257), cut to 4 image layers, against the
    CPU, in the default mode and with both stashes off under
    UML_MLP_BWD=dw.
-5. the products of the engine (bf16 beside torch.matmul, int8 beside
+5. DINO (``[dino]``): features --vision_model vit_base_patch14_dinov2.lvd142m
+   (DINOv2-B/14: K 768, 12 heads, S 257, exact GELU, LN eps 1e-6) with a
+   --language_model name (its files absent: hash-random text features)
+   on the phase-3 fixture at batch 64, in bf16 and with --quant int8: the
+   caches must hold finite width-768 features, the launch counters the
+   layer plan (per image batch 11 attention halves on the chain and 1 CLS
+   half, 12 exact-GELU MLP halves, 12 flash_attention launches inside
+   them; in int8 11 int8 halves of each kind and the bf16 CLS layer), and
+   the card's features must agree with the same model on the CPU (min
+   cosine 0.999); the encoder's img/s and a profile in both modes; then a
+   batch of 4 through DINOv2-L/14 (24 layers, K 1024) and DINO ViT-B/8
+   (S 785), card against CPU.  Phase 2 holds the DINO path's kernels at
+   DINOv2-B/14 B = 64 (rows 1, 2 and 10 on the chain, row 3 and row 11
+   with exact GELU, row 13 at [64, 12, 257, 64] beside SDPA); the int8
+   hidden of row 11 with exact GELU within one step of the plain
+   version's on at most 0.1% of its integers, its scales within rtol
+   1e-6; a profile of one such call shows the LN quantize pass, ROWMAX,
+   the exact-GELU quantizing pass and c_proj.
+6. the products of the engine (bf16 beside torch.matmul, int8 beside
    torch._int_mm) and the attention backward's passes as one JSON line,
    the kernel table as one JSON line, the device line last.
 
@@ -197,6 +215,25 @@ PORTS = [
     ("qkv_attention_q8", "uml_tpu_torch/csrc/qkv_attention.cu",
      "uml_tpu/ops/quant.py:168"),
 ]
+# the DINO slice's entries of the kernel table: (name, the wrapper whose
+# launches the [dino] phase counts, source, TPU kernel it replaces), held
+# and timed at DINOv2-B/14 B = 64 (S = 257: the chain)
+DINO_PORTS = [
+    ("attn_block_dino", "attn_block", "uml_tpu_torch/csrc/attn_block.cu",
+     "uml_tpu/ops/fused_attention.py:313"),
+    ("attn_block_cls_dino", "attn_block_cls", "uml_tpu_torch/csrc/attn_block.cu",
+     "uml_tpu/ops/fused_attention.py:475"),
+    ("mlp_block_dino", "mlp_block", "uml_tpu_torch/csrc/mlp_block.cu",
+     "uml_tpu/ops/ln_matmul.py:90"),
+    ("attn_block_q8_dino", "attn_block_q8", "uml_tpu_torch/csrc/attn_block_q8.cu",
+     "uml_tpu/ops/quant.py:168"),
+    ("mlp_block_q8_dino", "mlp_block_q8", "uml_tpu_torch/csrc/mlp_block_q8.cu",
+     "uml_tpu/ops/quant.py:228"),
+    ("flash_attention_dino", "flash_attention", "uml_tpu_torch/csrc/flash_attention.cu",
+     "uml_tpu/ops/attention.py:90"),
+]
+DINO = "vit_base_patch14_dinov2.lvd142m"
+DINO_LM = "bert-base-uncased"
 TRAIN_PORTS = ("attn_block_stash", "attn_block_bwd", "attn_block_cls_bwd",
                "mlp_block_stash")
 Q8_PORTS = ("attn_block_q8", "mlp_block_q8", "tower_q8", "qkv_attention_q8")
@@ -289,7 +326,9 @@ REL_BOUND = {"attn_block": 1 / 64, "attn_block_cls": 1 / 64,
              # the attention backward's passes on their own: dq, dk, dv
              # 1/64 like the half-blocks; the fp32 statistics (m, 1/l, D)
              # differ in summation order only
-             "attn_bwd_dq": (1 / 64, 1e-3), "attn_bwd_dkv": (1 / 64, 1 / 64)}
+             "attn_bwd_dq": (1 / 64, 1e-3), "attn_bwd_dkv": (1 / 64, 1 / 64),
+             # the DINO path's kernels at DINOv2-B/14 B = 64: as above
+             **{name: 1 / 64 for name, _, _, _ in DINO_PORTS}}
 # the kernels that rows 14-17 launch, by their names in a profile: the LN
 # pre-pass (ln_rows_kernel<PRO_LN_AFFINE = 2 | PRO_ADD_LN_AFFINE = 3>) and
 # the engine's product (epilogue WGG_OUT_BF16 = 0, OUT_GELU = 3,
@@ -306,6 +345,9 @@ ENGINE_ROUTES = {
 Q8_MLP_KERNELS = ("ln_quantize_rows_kernel", "wgmma_gemm_kernel<false, false, 10>",
                   "wgmma_gemm_kernel<false, false, 11>",
                   "wgmma_gemm_kernel<false, false, 8>")
+# the same with exact GELU (DINO): c_fc's quantizing pass WGG_OUT_Q8_ACTQ_GELU
+Q8_MLP_GELU_KERNELS = (*Q8_MLP_KERNELS[:2], "wgmma_gemm_kernel<false, false, 12>",
+                       Q8_MLP_KERNELS[3])
 # F6: the int8 halves' integers are held on 8 more draws of the int8 case
 # weights, each from a generator of its own
 F6_DRAW_SEEDS = range(1000, 1008)
@@ -922,47 +964,9 @@ def phase_kernels():
     ]
     cases += (_long_seq_cases(gen, dev, attn_v)
               + _route_cases(gen, dev, attn_v, q8v)
-              + _product_cases(gen, dev, xv, g_v, wv, qkv_v))
-    results = {}
-    for name, kernel_fn, plain_fn, inputs, ops8, flops16, yard, *library in cases:
-        got = kernel_fn(*inputs)
-        want = plain_fn(*inputs)
-        torch.cuda.synchronize()
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        err, rels = 0.0, []
-        bounds = REL_BOUND[name]
-        bounds = bounds if isinstance(bounds, tuple) else (bounds,) * len(got)
-        for a, b_, bound in zip(got, want, bounds, strict=True):
-            _check(a.shape == b_.shape, (name, a.shape, b_.shape))
-            _check(bool(torch.isfinite(a.float()).all()), f"{name}: non-finite")
-            e = (a.float() - b_.float()).abs().max().item()
-            scale = b_.float().abs().max().item()
-            _check(e <= bound * scale, f"{name}: {e} > {bound} of {scale}")
-            err = max(err, e)
-            rels.append(e / scale)
-        del want
-        rel = max(rels)
-        copies = _input_copies(inputs)
-        ms = _graph_time_ms(kernel_fn, copies)
-        plain_ms = _graph_time_ms(plain_fn, copies)
-        library_ms = _graph_time_ms(library[0], copies) if library else None
-        del copies
-        bound_ms, bound_by = _bound(inputs, got, ops8, flops16)
-        yard_call, yard_ms = _yardstick(*yard[:3], yard[3], dev)
-        print(f"[kernels] {name:20s} shapes {[tuple(a.shape) for a in got]} "
-              f"max_abs_err {err:.5f} max_rel_err {rel:.5f} (bounds "
-              f"{', '.join(f'{x:.1e}' for x in bounds)}; per output "
-              f"{', '.join(f'{r:.2e}' for r in rels)}) kernel {ms:.4f} ms "
-              f"plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) "
-              + (f"yardstick {yard_call} {yard_ms:.4f} ms" if yard_call else
-                 f"library call {library_ms:.4f} ms" if library else
-                 "no yardstick"))
-        results[name] = {"max_abs_err": err, "max_rel_err": rel, "ms": ms,
-                         "plain_ms": plain_ms, "bound_ms": bound_ms,
-                         "bound_by": bound_by, "yardstick": yard_call,
-                         "yardstick_ms": yard_ms, "library_ms": library_ms}
-        del got
+              + _product_cases(gen, dev, xv, g_v, wv, qkv_v)
+              + _dino_cases(dev))
+    results = _hold_and_time(cases, dev)
     # the streaming kernel against the dense twin that keeps its scores in
     # bf16 (mha_plain, the backward's function): recorded, not held
     for tag, qkv in (("S=197", qkv_197), ("S=2048", qkv_2048)):
@@ -1063,6 +1067,57 @@ def phase_kernels():
            ("row 8: dattn and the three rank-2H passes only", names))
     results["attn_block_cls_bwd"]["profile_kernels"] = names
     _check_routes(gen, dev)
+    results["mlp_block_q8_dino"]["profile_kernels"] = _dino_q8_checks(dev)
+    return results
+
+
+def _hold_and_time(cases, dev):
+    """Each case's kernel against its plain version on the same inputs,
+    within its REL_BOUND, then kernel, plain, library call and cuBLAS
+    yardstick graph-timed on the card, with the case's bound -> {name:
+    numbers}."""
+    import torch
+
+    results = {}
+    for name, kernel_fn, plain_fn, inputs, ops8, flops16, yard, *library in cases:
+        got = kernel_fn(*inputs)
+        want = plain_fn(*inputs)
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err, rels = 0.0, []
+        bounds = REL_BOUND[name]
+        bounds = bounds if isinstance(bounds, tuple) else (bounds,) * len(got)
+        for a, b_, bound in zip(got, want, bounds, strict=True):
+            _check(a.shape == b_.shape, (name, a.shape, b_.shape))
+            _check(bool(torch.isfinite(a.float()).all()), f"{name}: non-finite")
+            e = (a.float() - b_.float()).abs().max().item()
+            scale = b_.float().abs().max().item()
+            _check(e <= bound * scale, f"{name}: {e} > {bound} of {scale}")
+            err = max(err, e)
+            rels.append(e / scale)
+        del want
+        rel = max(rels)
+        copies = _input_copies(inputs)
+        ms = _graph_time_ms(kernel_fn, copies)
+        plain_ms = _graph_time_ms(plain_fn, copies)
+        library_ms = _graph_time_ms(library[0], copies) if library else None
+        del copies
+        bound_ms, bound_by = _bound(inputs, got, ops8, flops16)
+        yard_call, yard_ms = _yardstick(*yard[:3], yard[3], dev)
+        print(f"[kernels] {name:20s} shapes {[tuple(a.shape) for a in got]} "
+              f"max_abs_err {err:.5f} max_rel_err {rel:.5f} (bounds "
+              f"{', '.join(f'{x:.1e}' for x in bounds)}; per output "
+              f"{', '.join(f'{r:.2e}' for r in rels)}) kernel {ms:.4f} ms "
+              f"plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) "
+              + (f"yardstick {yard_call} {yard_ms:.4f} ms" if yard_call else
+                 f"library call {library_ms:.4f} ms" if library else
+                 "no yardstick"))
+        results[name] = {"max_abs_err": err, "max_rel_err": rel, "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "yardstick": yard_call,
+                         "yardstick_ms": yard_ms, "library_ms": library_ms}
+        del got
     return results
 
 
@@ -1325,6 +1380,115 @@ def _product_cases(gen, dev, xv, g_v, wv, qkv_v):
         ("attn_bwd_dkv", bwd_pass(fa.attn_bwd), bwd_pass(fa.attn_bwd_plain),
          (qkv_v, dattn, stats), 0, 2.0 * attn_f, (None,) * 4),
     ]
+
+
+def _dino_inputs(dev):
+    """The DINO path's layer at DINOv2-B/14 B = 64 (S = 257, K = 768, 12
+    heads, M = 3072), from a generator of its own (every other case's data
+    is drawn as before): x, the bf16 folded weights, the int8 weights as
+    the model hands them to the ops."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn(64, 257, 768, generator=gen, device=dev).to(torch.bfloat16)
+    return (x, _block_weights(gen, 768, 3072, 768, dev),
+            _q8_case_weights(gen, 768, 3072, 768, dev))
+
+
+def _dino_cases(dev):
+    """Phase-2 cases of the DINO path's kernels at DINOv2-B/14 B = 64 (the
+    entries of DINO_PORTS): the attention halves and the int8 attention
+    half on the chain (S = 257 > 256), the MLP halves with exact GELU and
+    eps 1e-6, and row 13 at [64, 12, 257, 64] beside SDPA."""
+    import torch
+
+    from uml_tpu_torch.ops import attention as at
+    from uml_tpu_torch.ops import fused_attention as fa
+    from uml_tpu_torch.ops import ln_matmul as lm
+    from uml_tpu_torch.ops import quant as q8
+
+    x, wv, q8v = _dino_inputs(dev)
+    b, s, k = x.shape
+    rows, m, eps = b * s, 3072, 1e-6
+    attn_v = (wv["w_eff"], wv["b_eff"], wv["wo"], wv["bo"])
+    mlp_v = (wv["w1"], wv["b1"], wv["w2"], wv["b2"])
+    qkv_f, out_f, mlp_f = 2.0 * rows * k * 3 * k, 2.0 * rows * k * k, 4.0 * rows * k * m
+    attn_f = _attn_flops(b, s, 12)
+    qkv = fa.attn_block_stash_plain(x, *attn_v, heads=12, eps=eps)[1]
+    heads = fa._qkv_heads(qkv, 12)
+    gelu = dict(eps=eps, activation="gelu_exact")
+
+    def q8_attn(fn):
+        return lambda x, wq, wsc, be, wo, wosc, bo: fn(x, wq, wsc, be, (wo, wosc), bo,
+                                                       heads=12, eps=eps)
+
+    return [
+        ("attn_block_dino", lambda *a: fa.attn_block(*a, heads=12, eps=eps),
+         lambda *a: fa.attn_block_plain(*a, heads=12, eps=eps), (x, *attn_v), 0,
+         qkv_f + out_f + attn_f, (rows, k, 3 * k, False)),
+        ("attn_block_cls_dino", lambda *a: fa.attn_block_cls(*a, heads=12, eps=eps),
+         lambda *a: fa.attn_block_cls_plain(*a, heads=12, eps=eps), (x, *attn_v), 0,
+         2.0 * rows * k * 2 * k + 4.0 * b * k * k + _attn_flops(b, s, 12, q_rows=1),
+         (rows, k, 3 * k, False)),
+        ("mlp_block_dino", lambda *a: lm.mlp_block(*a, **gelu),
+         lambda *a: lm.mlp_block_plain(*a, **gelu), (x, *mlp_v), 0, mlp_f,
+         (rows, k, m, False)),
+        ("attn_block_q8_dino", q8_attn(q8.attn_block_q8), q8_attn(q8.attn_block_q8_plain),
+         (x, *q8v[:6]), qkv_f + out_f, attn_f, (rows, k, 3 * k, True)),
+        ("mlp_block_q8_dino", lambda *a: q8.mlp_block_q8(*a, **gelu),
+         lambda *a: q8.mlp_block_q8_plain(*a, **gelu), (x, *q8v[6:]), mlp_f, 0,
+         (rows, k, m, True)),
+        ("flash_attention_dino", at.flash_attention, at.attention_plain,
+         tuple(t.contiguous() for t in heads), 0, attn_f, (None,) * 4,
+         torch.nn.functional.scaled_dot_product_attention),
+    ]
+
+
+def _dino_q8_checks(dev):
+    """Row 11 with exact GELU at DINOv2-B/14 B = 64: the LN-quantized rows
+    (c_fc's operand, left in the scratch) against the plain version's, then
+    the int8 hidden and its row scales against the plain act quantization
+    of the exact pre-activation of the card's own operand (integers within
+    one step on at most 0.1% of them, scales rtol 1e-6: the plain operand
+    can differ from the card's at a .5 tie, which moves a row's max), and
+    a profile of one call: the LN quantize pass, ROWMAX, the exact-GELU
+    quantizing pass and c_proj, nothing else -> the profile's kernel
+    names."""
+    import torch
+
+    from uml_tpu_torch.ops import quant as q8
+
+    x, _, q8v = _dino_inputs(dev)
+    w1q, w1sc, b1, w2q, w2sc, b2 = q8v[6:]
+    rows, k, m, eps = x.shape[0] * x.shape[1], x.shape[2], w1sc.shape[0], 1e-6
+    _, hq, hs = q8._launch_mlp_block_q8(x, w1q.t(), w1sc, b1, w2q.t(), w2sc, b2, eps,
+                                        "gelu_exact")
+    xq, xs = hq[rows * m:rows * (m + k)].view(rows, k), hs[rows:2 * rows, None]
+    want_xq = q8.ln_quantize_rows(x.float().reshape(rows, k), eps)[0]
+    want_q, want_s = q8.act_quantize_rows(q8.q8_dot(xq, xs, w1q, w1sc) + b1,
+                                          "gelu_exact")
+    torch.cuda.synchronize()
+    flips = {}
+    for name, got, want in (("ln_quantize_rows", xq, want_xq),
+                            ("mlp_hidden", hq[:rows * m].view(rows, m), want_q)):
+        diff = (got.int() - want.int()).abs()
+        flips[name] = ((diff > 0).float().mean().item(), diff.max().item())
+    scale_err = ((hs[:rows] - want_s[:, 0]).abs() / want_s[:, 0]).max().item()
+    print(f"[kernels] int8 integers (DINOv2-B/14, exact GELU): "
+          + "; ".join(f"{name} {100 * share:.4f}% differ from the plain version's, "
+                      f"largest difference {worst}" for name, (share, worst) in flips.items())
+          + f"; hidden row scales max rel err {scale_err:.2e}")
+    share, worst = flips["mlp_hidden"]
+    _check(worst <= 1 and share <= 1e-3 and scale_err <= 1e-6
+           and flips["ln_quantize_rows"][1] <= 1,
+           ("row 11 exact GELU: integers or scales", flips, scale_err))
+    names = _kernel_names(_profile(
+        "row 11 mlp_block_q8, exact GELU (DINOv2-B/14)",
+        lambda: q8.mlp_block_q8(x, *q8v[6:], eps=eps, activation="gelu_exact")))
+    _check(len(names) == len(Q8_MLP_GELU_KERNELS)
+           and all(sum(part in n for n in names) == 1 for part in Q8_MLP_GELU_KERNELS),
+           ("row 11 exact GELU: ln_quantize_rows, ROWMAX, ACTQ_GELU, c_proj", names))
+    return names
 
 
 def _wrappers():
@@ -1705,6 +1869,121 @@ def phase_int8_path(root, sizes, bf16_encoder):
     print(f"[int8] {len(views)} int8 weights of {len(blocks)} layers read in place "
           f"(K-major caches, no per-batch transpose)")
     return launches, numbers
+
+
+def _dino_features_args(root, batch, feature_dir, quant):
+    from uml_tpu_torch.cli import features as feat
+
+    args = feat.build_parser().parse_args([
+        "--data_dir", root, "--indices_dir", f"{root}/indices",
+        "--feature_dir", feature_dir, "--dataset", "caltech101",
+        "--vision_model", DINO, "--language_model", DINO_LM,
+        "--allow-random-init", "--train-shot", "16", "--seed", "1",
+        "--text-augmentation", "hand_crafted", "--batch-size", str(batch),
+        "--quant", quant])
+    args.overwrite = False
+    args.force_rerun = False
+    return args
+
+
+def _dino_card_vs_cpu(model, u8, tag):
+    """A DinoViT on the card against a copy of it on the CPU (plain path) on
+    the same uint8 batch -> the smallest per-row cosine of the features."""
+    import torch
+
+    cpu_model = copy.deepcopy(model).to("cpu")
+    with torch.no_grad():
+        got = model.encode_image_u8(u8.to(next(model.parameters()).device))
+        want = cpu_model.encode_image_u8(u8)
+    cos = _rows_cos_min(got, want)
+    print(f"[dino] {tag}: card vs CPU plain path, batch {u8.shape[0]}: min "
+          f"cosine {cos:.6f} (bound {MIN_COSINE})")
+    _check(cos >= MIN_COSINE, (tag, "card vs CPU cosine", cos))
+    return cos
+
+
+def phase_dino(root, sizes):
+    """The DINO slice's main path: features --vision_model DINOv2-B/14 in
+    bf16 and --quant int8 on the phase-3 fixture, then the ViT-L/14 and
+    ViT-B/8 batches -> ({DINO_PORTS name: launches}, numbers)."""
+    import numpy as np
+    import torch
+
+    from uml_tpu_torch.cli import features as feat
+    from uml_tpu_torch.data.feature_cache import img_outdir, load_cache, text_outdir
+    from uml_tpu_torch.data.loader import ImageBatchLoader
+    from uml_tpu_torch.models.dino import load_dino
+
+    batch, n_classes, width = 64, 8, 768
+    n_batches = sum(-(-n // batch) for n in (sizes["train"], sizes["val"],
+                                           sizes["test"]))
+    rng = np.random.default_rng(4)
+    staged_u8 = rng.integers(0, 256, (batch, 224, 224, 3), dtype=np.uint8)
+    numbers, counts = {}, {}
+    for quant in ("none", "int8"):
+        fdir = f"{root}/features_dino_{quant}"
+        args = _dino_features_args(root, batch, fdir, quant)
+        t0 = time.perf_counter()
+        encoder, launches = _counted(lambda: feat.main(args))
+        wall = time.perf_counter() - t0
+        # per image batch: 11 full layers and the CLS layer, every attention
+        # half on the chain (S = 257): the engine's QKV, then flash_attention
+        # (12 a batch, none of the fused kernel); the text side launches
+        # nothing (hash-random features)
+        want = dict.fromkeys(launches, 0)
+        want["flash_attention"] = 12 * n_batches
+        want["attn_block_cls"] = n_batches
+        if quant == "none":
+            want.update({"attn_block": 11 * n_batches, "mlp_block": 12 * n_batches})
+        else:
+            want.update({"attn_block_q8": 11 * n_batches,
+                         "mlp_block_q8": 11 * n_batches, "mlp_block": n_batches})
+        print(f"[dino] features --vision_model {DINO} --quant {quant} CLI "
+              f"{wall:.2f} s; launches { {k: v for k, v in launches.items() if v} }")
+        _check(launches == want, (quant, launches, want))
+        _check(all(p.device.type == "cuda" for p in encoder.model.parameters()),
+               "DINO encoder parameters on the card")
+        img = load_cache(img_outdir(fdir, DINO, "caltech101", "crop", 16, 1, "train"))
+        test = load_cache(img_outdir(fdir, DINO, "caltech101", "crop", 16, 1, "test"))
+        txt = load_cache(text_outdir(fdir, DINO_LM, "caltech101", "hand_crafted"))
+        for name, split, n in (("train", img["train"], sizes["train"]),
+                               ("val", img["val"], sizes["val"]),
+                               ("test", test, sizes["test"])):
+            f = split["features"]
+            _check(f.shape == (n, width) and np.isfinite(f).all(), (name, f.shape))
+        _check(txt["features"].shape == (n_classes, 768)
+               and np.isfinite(txt["features"]).all(), ("text", txt["features"].shape))
+        counts[quant] = launches
+        imgs, _, _ = next(iter(ImageBatchLoader(
+            [{"impath": p, "label": 0} for p in test["paths"][:4]], batch_size=4,
+            num_workers=1)))
+        test_u8 = torch.from_numpy(imgs.reshape(4, -1))
+        numbers[f"dino_card_vs_cpu_cos_{quant}"] = _dino_card_vs_cpu(
+            encoder.model, test_u8, f"DINOv2-B/14 --quant {quant}")
+        staged, n = encoder.stage_images(staged_u8)
+        ms = _time_ms(lambda: encoder.encode_staged(staged, n), iters=10)
+        numbers[f"dino_encoder_img_per_s_bs64_{quant}"] = batch / (ms / 1e3)
+        print(f"[dino] DINOv2-B/14 image encoder --quant {quant}: {ms:.3f} ms per "
+              f"batch of {batch} = {batch / (ms / 1e3):.1f} img/s")
+        _profile(f"DINOv2-B/14 image encoder --quant {quant}",
+                 lambda: encoder.encode_staged(staged, n))
+        del encoder, staged
+    # the other widths and lengths: DINOv2-L/14 (24 layers, K 1024) and
+    # DINO ViT-B/8 (S 785), random weights from the seeded generator
+    for name in ("vit_large_patch14_dinov2.lvd142m", "vit_base_patch8_224_dino"):
+        model = load_dino(name, allow_random_init=True).to("cuda").eval()
+        u8 = torch.from_numpy(rng.integers(0, 256, (4, 224 * 224 * 3), dtype=np.uint8))
+        numbers[f"dino_card_vs_cpu_cos_{name}"] = _dino_card_vs_cpu(model, u8, name)
+        del model
+    # each entry's launches from the run of its mode: the bf16 halves from
+    # the bf16 run, the int8 ones from the int8 run, row 13 from both
+    entries = {}
+    for name, wrapper, _, _ in DINO_PORTS:
+        if wrapper == "flash_attention":
+            entries[name] = sum(c[wrapper] for c in counts.values())
+        else:
+            entries[name] = counts["int8" if "q8" in wrapper else "none"][wrapper]
+    return entries, numbers
 
 
 def _rows_cos_min(a, b):
@@ -2363,6 +2642,8 @@ def main() -> int:
     del encoder
     train_launches, recompute_launches, train_numbers = phase_train(root, sizes)
     rate.update(train_numbers)
+    dino_launches, dino_numbers = phase_dino(root, sizes)
+    rate.update(dino_numbers)
     # each port's launches come from the path it belongs to: the bf16
     # serving kernels from the features run, the int8 ones from the
     # features --quant int8 run and its tower encode, the training kernels
@@ -2373,9 +2654,11 @@ def main() -> int:
                 **{k: int8_launches[k] for k in Q8_PORTS},
                 **{k: train_launches[k] for k in TRAIN_PORTS},
                 **{k: recompute_launches[k] for k in RECOMPUTE_PORTS}}
-    _check(all(launches[name] > 0 for name, _, _ in PORTS), launches)
+    launches.update(dino_launches)
+    _check(all(launches[name] > 0 for name, _, _ in PORTS)
+           and all(dino_launches[name] > 0 for name, _, _, _ in DINO_PORTS), launches)
     table = []
-    for name, source, replaces in PORTS:
+    for name, source, replaces in PORTS + [(n, s, r) for n, _, s, r in DINO_PORTS]:
         row = kernels[name]
         table.append({"name": name, "route": "cuda", "source": source,
                       "replaces": replaces, "launches": launches[name],

@@ -14,7 +14,9 @@ every activation; each product triple of the wgmma engine and gemm_at at
 ragged row counts and both towers' widths, against an fp32 product of the
 same bf16 operands, gemm_at at every row-chunk count; the int8 GEMM at ragged
 row counts and every int8 width, equal to torch._int_mm's integer sum and
-to its plain version bit for bit).  Marked ``cuda``: they skip without an NVIDIA GPU (sm_90a) and
+to its plain version bit for bit; DINO's exact-GELU MLP halves, row 3 at
+K in {384, 768, 1024} and S in {197, 257, 785}, row 11 and c_fc's
+exact-GELU quantizing pass, and a DINOv2 batch against the CPU).  Marked ``cuda``: they skip without an NVIDIA GPU (sm_90a) and
 run on the card with ``python -m pytest tests/test_torch_cuda.py -q``.
 The text tower runs at B in {1, 3, 64} and S in {77, 129}, both sides of
 its route (one launch for S <= 128, the chain above), and at the ViT-B
@@ -168,6 +170,26 @@ def test_mlp_block_kernel(dev, s):
     _close(got, lm.mlp_block_plain(x, *w[4:]))
 
 
+# DINO's widths (ViT-S/14, B/14, L/14) and lengths (257 at 224 / 14, 785
+# at 224 / 8, and the CLIP ViT-B/16 length)
+@pytest.mark.parametrize("k", [384, 768, 1024])
+@pytest.mark.parametrize("s", [197, 257, 785])
+def test_mlp_block_gelu_exact_kernel(dev, k, s):
+    """Row 3 with exact GELU (DINO's MLP half: the engine's OUT_GELU_EXACT
+    on the PRO_LN route), and with no activation at one shape."""
+    g = torch.Generator().manual_seed(k + s)
+    m, f32 = 4 * k, torch.float32
+    x = torch.randn(2, s, k, generator=g).to(torch.bfloat16).to(dev)
+    w = (torch.randn(k, m, generator=g) * k ** -0.5, torch.randn(m, generator=g) * 0.1,
+         torch.randn(m, k, generator=g) * m ** -0.5, torch.randn(k, generator=g) * 0.1)
+    w = tuple(t.to(torch.bfloat16 if t.dim() == 2 else f32).to(dev) for t in w)
+    for act in ("gelu_exact",) + ((None,) if (k, s) == (768, 257) else ()):
+        n = lm.mlp_block.launches
+        got = lm.mlp_block(x, *w, eps=1e-6, activation=act)
+        assert lm.mlp_block.launches == n + 1
+        _close(got, lm.mlp_block_plain(x, *w, eps=1e-6, activation=act))
+
+
 def test_text_tower_kernel(dev):
     x, w = _x(dev, 77), _weights(dev, layers=2)
     n = tt.text_tower.launches
@@ -284,6 +306,93 @@ def test_mlp_block_q8_kernel(dev, s):
     _close(got, q8.mlp_block_q8_plain(x, *w[6:]))
 
 
+@pytest.mark.parametrize("s", [9, 197, 257])
+def test_mlp_block_q8_gelu_exact_kernel(dev, s):
+    """Row 11 with exact GELU (DINO's int8 MLP half: c_fc's ACTQ_GELU
+    pass): the half against its plain version, and its int8 hidden and
+    row scales against the plain act quantization of the exact
+    pre-activation of the card's own LN-quantized operand, read from the
+    scratch (integers within one step on at most 0.1%, scales rtol 1e-6:
+    torch's erf on the card may round an ulp off the kernel's)."""
+    x, w = _x(dev, s), _q8_weights(dev)
+    n = q8.mlp_block_q8.launches
+    got = q8.mlp_block_q8(x, *w[6:], eps=1e-6, activation="gelu_exact")
+    assert q8.mlp_block_q8.launches == n + 1
+    _close(got, q8.mlp_block_q8_plain(x, *w[6:], eps=1e-6, activation="gelu_exact"))
+    w1q, w1sc, b1, w2q, w2sc, b2 = w[6:]
+    _, hq, hs = q8._launch_mlp_block_q8(x, w1q.t().contiguous(), w1sc, b1,
+                                        w2q.t().contiguous(), w2sc, b2, 1e-6,
+                                        "gelu_exact")
+    rows = B * s
+    xq, xs = hq[rows * M:rows * (M + K)].view(rows, K), hs[rows:2 * rows, None]
+    want_q, want_s = q8.act_quantize_rows(q8.q8_dot(xq, xs, w1q, w1sc) + b1,
+                                          "gelu_exact")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(hs[:rows], want_s[:, 0], rtol=1e-6, atol=0)
+    diff = (hq[:rows * M].view(rows, M).int() - want_q.int()).abs()
+    assert diff.max().item() <= 1
+    assert (diff > 0).float().mean().item() <= 1e-3
+
+
+@pytest.mark.parametrize("rows", [197, 16448, 12545])
+def test_q8_gemm_two_pass_act_quantize_gelu_exact(dev, rows):
+    """c_fc's ROWMAX then ACTQ with exact GELU at DINOv2-B/14 widths (K =
+    768, M = 3072; 16,448 rows = 64 images of 257) against the F32 product
+    and the plain act quantization: the test above's tolerances."""
+    from uml_tpu_torch.ops import gemm
+
+    a, w, rs, cs, bias, _ = _q8_operands(dev, rows, 768, 3072, 7 * rows)
+    rowmax = gemm.q8_gemm(a, w, rs, cs, bias, epi="ROWMAX")
+    got_q, got_s = gemm.q8_gemm(a, w, rs, cs, bias, epi="ACTQ", rowmax=rowmax,
+                                activation="gelu_exact")
+    pre = gemm.q8_gemm(a, w, rs, cs, bias, epi="F32")
+    want_q, want_s = q8.act_quantize_rows(pre, "gelu_exact")
+    torch.cuda.synchronize()
+    assert torch.equal(rowmax, pre.amax(-1))
+    torch.testing.assert_close(got_s, want_s[:, 0], rtol=1e-6, atol=0)
+    diff = (got_q.int() - want_q.int()).abs()
+    assert diff.max().item() <= 1
+    assert (diff > 0).float().mean().item() <= 1e-3
+
+
+@pytest.mark.parametrize("quant", ["none", "int8"])
+@pytest.mark.parametrize("return_tokens", [False, True])
+def test_dino_on_the_card_matches_the_cpu(dev, quant, return_tokens):
+    """A DINOv2 encoder batch (the ViT-S/14 widths, K = 384, 6 heads, cut
+    to 2 layers, S = 257: the chain) on the card against the same weights
+    on the CPU, bf16 and int8: per-row cosine >= 0.999; the launches of the
+    layer plan (the last layer CLS-only and bf16 when token-pooled)."""
+    import dataclasses
+
+    from uml_tpu_torch.models.dino import DINO_CONFIGS, DinoViT
+    from uml_tpu_torch.ops import attention as at
+
+    cfg = dataclasses.replace(DINO_CONFIGS["vit_small_patch14_dinov2.lvd142m"][0],
+                              num_layers=2)
+    cpu = DinoViT(cfg, torch.bfloat16, quant=quant).init_random(
+        torch.Generator().manual_seed(0)).requires_grad_(False)
+    gpu = DinoViT(cfg, torch.bfloat16, quant=quant).to(dev).requires_grad_(False)
+    gpu.load_state_dict(cpu.state_dict())
+    u8 = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (4, 224 * 224 * 3), dtype=np.uint8))
+    counters = (fa.attn_block, fa.attn_block_cls, lm.mlp_block, q8.attn_block_q8,
+                q8.mlp_block_q8, at.flash_attention, fa.qkv_attention)
+    before = [c.launches for c in counters]
+    got = gpu.encode_image_u8(u8.to(dev), return_tokens=return_tokens)
+    launched = [c.launches - n for c, n in zip(counters, before)]
+    want = cpu.encode_image_u8(u8, return_tokens=return_tokens)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == ((4, 257, 384) if return_tokens else (4, 384))
+    cls = 0 if return_tokens else 1
+    full = 2 - cls
+    q = quant == "int8"
+    assert launched == [0 if q else full, cls, 2 if not q else cls,
+                        full if q else 0, full if q else 0, 2, 0]
+    a, b = got.float().cpu().reshape(-1, 384), want.float().reshape(-1, 384)
+    cos = ((a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1))).min().item()
+    assert cos >= 0.999, cos
+
+
 @pytest.mark.parametrize("s", [9, 17, 197])
 def test_tower_q8_kernel(dev, s):
     x, w = _x(dev, s), _q8_weights(dev, layers=2)
@@ -309,7 +418,7 @@ def test_q8_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(TypeError):
         q8.attn_block_q8(x, w[0].float(), *w[1:3], w[3:5], w[5], heads=HEADS)
     with pytest.raises(ValueError):
-        q8.mlp_block_q8(x, *w[6:], activation="gelu_exact")
+        q8.mlp_block_q8(x, *w[6:], activation=None)
     with pytest.raises(RuntimeError, match="inference-only"):
         q8.mlp_block_q8(x.float().requires_grad_(), *w[6:])
     # the launchers and q8_gemm read the int8 weights K-major: an [in,

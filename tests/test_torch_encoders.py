@@ -4,10 +4,11 @@ the kernel build's failure mode on a machine without the CUDA toolkit
 
 import hashlib
 
+import numpy as np
 import pytest
 import torch
 
-from uml_tpu_torch.cli import features
+from uml_tpu_torch.cli import features, finetune
 from uml_tpu_torch.core import device
 from uml_tpu_torch.models import encoders
 from uml_tpu_torch.models.clip import CLIP, ClipConfig
@@ -56,19 +57,31 @@ def test_checkpoint_loads_with_sha_check(tmp_path, monkeypatch):
     assert all(torch.equal(sd[k], v) for k, v in model.state_dict().items())
 
 
-@pytest.mark.parametrize("flags,message", [
-    (["--vision_model", "vit_base_patch16_224_dino"], "not ported"),
-    (["--language_model", "gpt2"], "not ported"),
+@pytest.mark.parametrize("cli,flags,message", [
+    # the DINO full-model finetune (the frozen grids run)
+    (finetune, ["--vision_model", "vit_base_patch16_224_dino",
+                "--hyperparams", "smoke_full"], "not ported"),
+    # an HF language model whose files are in the local cache: uml_tpu would
+    # run it, the port refuses, even under --allow-random-init
+    (features, ["--language_model", "gpt2", "--allow-random-init"], "not ported"),
     # uml_tpu's early refusal of a mixed int8 mode for a non-CLIP tower
-    (["--vision_model", "vit_base_patch16_224_dino", "--quant", "int8_qkv"],
-     "int8_qkv"),
-    (["--clip-encoder", "RN50"], "RN towers"),
+    (features, ["--vision_model", "vit_base_patch16_224_dino", "--quant",
+                "int8_qkv"], "int8_qkv"),
+    (features, ["--clip-encoder", "RN50"], "RN towers"),
 ])
-def test_features_refuses_what_is_not_ported(flags, message):
-    args = features.build_parser().parse_args(
-        ["--clip-encoder", "ViT-B/16"] + flags)
+def test_features_refuses_what_is_not_ported(monkeypatch, cli, flags, message):
+    """Each refusal comes before any dataset or model work."""
+    import transformers
+
+    def local_tokenizer(name, **kw):
+        assert kw.get("local_files_only") is True   # never the network
+        return object()
+
+    monkeypatch.setattr(transformers.AutoTokenizer, "from_pretrained",
+                        staticmethod(local_tokenizer))
+    args = cli.build_parser().parse_args(["--clip-encoder", "ViT-B/16"] + flags)
     with pytest.raises(SystemExit, match=message):
-        features.main(args)
+        cli.main(args)
 
 
 def test_default_device_is_the_card_unless_the_cpu_is_asked_for(monkeypatch):
@@ -95,3 +108,27 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
+
+
+def test_language_model_without_local_files(monkeypatch):
+    """No local files for the HF language model: the adapter raises the
+    load error uml_tpu's TextModel raises there, and under
+    allow_random_init takes hash-random 768-wide text features (indices:
+    the prompts' lengths); with no vision model it encodes no image."""
+    import transformers
+
+    def offline(name, **kw):
+        assert kw.get("local_files_only") is True
+        raise OSError(f"{name}: not in the local HF cache")
+
+    monkeypatch.setattr(transformers.AutoTokenizer, "from_pretrained",
+                        staticmethod(offline))
+    monkeypatch.setenv("UML_TORCH_DEVICE", "cpu")
+    with pytest.raises(OSError, match="local HF cache"):
+        features._HFEncoderAdapter(language_model="gpt2")
+    enc = features._HFEncoderAdapter(language_model="gpt2", allow_random_init=True)
+    feats, idx = enc.encode_texts(["a cat", "a dog."])
+    assert feats.shape == (2, 768) and feats.dtype == np.float32
+    assert idx.tolist() == [5, 6]
+    with pytest.raises(RuntimeError, match="vision model"):
+        enc.stage_images(np.zeros((1, 224, 224, 3), np.uint8))

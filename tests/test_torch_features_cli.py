@@ -94,3 +94,99 @@ def test_features_cli_caches_agree(tmp_path, monkeypatch, return_tokens,
     assert ttx["lab2cname"] == jtx["lab2cname"]
     assert ttx["features"].shape == jtx["features"].shape
     assert _cosine_min(ttx["features"], jtx["features"]) >= MIN_COSINE
+
+
+DINO = "vit_base_patch14_dinov2.lvd142m"
+LM = "bert-base-uncased"
+
+
+def tiny_dino(monkeypatch):
+    """Both packages' DINO loaders on one tiny seeded HF Dinov2Model (width
+    128, 2 layers, 2 heads, patch 14, position embeddings for a 112-pixel
+    grid, resampled to 224 by both porters) in place of DINO's published
+    config, the HF load step monkeypatched to return it; the HF language
+    model absent, as on a machine without its files (uml_tpu's TextModel
+    raises the OSError of an offline load, the port's looks in the local
+    cache only)."""
+    import transformers
+    from transformers import Dinov2Config, Dinov2Model
+
+    from uml_tpu.models import dino as jdino
+    from uml_tpu.models import languagemodel as jlm
+    from uml_tpu_torch.models import dino as tdino
+
+    torch.manual_seed(0)
+    hf = Dinov2Model(Dinov2Config(
+        hidden_size=128, num_hidden_layers=2, num_attention_heads=2,
+        image_size=112, patch_size=14, initializer_range=0.1,
+        layerscale_value=0.5)).eval()
+    kw = dict(image_size=224, pretrain_image_size=112)
+    monkeypatch.setitem(jdino.DINO_CONFIGS, DINO,
+                        (jdino.DinoConfig(128, 2, 2, 14, **kw), "tiny/dinov2"))
+    monkeypatch.setitem(tdino.DINO_CONFIGS, DINO,
+                        (tdino.DinoConfig(128, 2, 2, 14, **kw), "tiny/dinov2"))
+    monkeypatch.setattr(transformers.AutoModel, "from_pretrained",
+                        staticmethod(lambda repo, **_: hf))
+
+    def offline(name, *_, **__):
+        raise OSError(f"{name}: not in the local HF cache")
+
+    monkeypatch.setattr(jlm, "TextModel", offline)
+    monkeypatch.setenv("HF_HUB_OFFLINE", "1")
+
+
+@pytest.mark.heavy
+@pytest.mark.parametrize("quant", ["none", "int8"])
+@pytest.mark.parametrize("return_tokens", [False, True])
+def test_features_cli_dino_caches_agree(tmp_path, monkeypatch, return_tokens,
+                                        quant):
+    """--vision_model (DINOv2 at S = 257, exact GELU, eps 1e-6) with
+    --language_model and --allow_random_init: the image caches agree to a
+    per-row cosine of 0.999 in bf16 and int8; the text caches (hash-random
+    features, in one process) are equal."""
+    torch.set_num_threads(1)
+    root = make_caltech_fixture(str(tmp_path / "data"))
+    tiny_dino(monkeypatch)
+    monkeypatch.setenv("UML_TORCH_DEVICE", "cpu")
+    import uml_tpu.native
+
+    monkeypatch.setattr(uml_tpu.native, "native_available", lambda: False)
+    gf.main(gf.build_parser().parse_args([
+        "--data_dir", root, "--indices_dir", f"{root}/indices",
+        "--dataset", "caltech101", "--train-shot", "2", "--seed", "1"]))
+    argv = ["--data_dir", root, "--indices_dir", f"{root}/indices",
+            "--dataset", "caltech101", "--vision_model", DINO,
+            "--language_model", LM, "--allow-random-init",
+            "--train-shot", "2", "--seed", "1", "--text-augmentation",
+            "hand_crafted", "--batch-size", "8", "--num-workers", "2",
+            "--mesh", "off", "--quant", quant] + (
+                ["--return_tokens"] if return_tokens else [])
+    dirs = {}
+    for name, cli in (("jax", jax_features), ("torch", torch_features)):
+        dirs[name] = str(tmp_path / f"features_{name}")
+        args = cli.build_parser().parse_args(argv + ["--feature_dir",
+                                                     dirs[name]])
+        args.overwrite, args.force_rerun = False, False
+        cli.main(args)
+
+    def caches(d):
+        return (load_cache(img_outdir(d, DINO, "caltech101", "crop", 2, 1,
+                                      "train", return_tokens)),
+                load_cache(img_outdir(d, DINO, "caltech101", "crop", 2, 1,
+                                      "test", return_tokens)),
+                load_cache(text_outdir(d, LM, "caltech101", "hand_crafted",
+                                       return_tokens)))
+
+    (jtr, jte, jtx), (ttr, tte, ttx) = caches(dirs["jax"]), caches(dirs["torch"])
+    for j, t in ((jtr["train"], ttr["train"]), (jtr["val"], ttr["val"]),
+                 (jte, tte)):
+        np.testing.assert_array_equal(t["labels"], j["labels"])
+        assert t["paths"] == j["paths"] and t["decoder"] == j["decoder"] == "pil"
+        assert t["features"].shape == j["features"].shape
+        assert t["features"].shape[1:] == ((257, 128) if return_tokens else (128,))
+        assert _cosine_min(t["features"], j["features"]) >= MIN_COSINE
+    assert ttr["lab2cname"] == jtr["lab2cname"]
+    for key in ("labels", "eot_indices", "features"):
+        np.testing.assert_array_equal(ttx[key], jtx[key])
+    assert ttx["prompts"] == jtx["prompts"]
+    assert ttx["lab2cname"] == jtx["lab2cname"]

@@ -170,3 +170,95 @@ def test_finetune_cli_both_packages(tmp_path, monkeypatch, grid):
         assert os.path.relpath(got["best_path"], exp["torch"]) == \
             os.path.relpath(row["best_path"], exp["jax"])
         assert os.path.isfile(got["best_path"])
+
+
+@pytest.mark.heavy
+def test_finetune_cli_frozen_dino_both_packages(tmp_path, monkeypatch):
+    """The frozen DINO finetune (``--vision_model`` with the ``smoke`` grid,
+    crossmodal): UML's head with ``img_proj`` from the DINO width (128 here)
+    into the text width, the text features of the ``--language_model``
+    cache (hash-random, written by the port's ``features``).  Both
+    packages' DINO loaders read one tiny seeded HF checkpoint
+    (tests/test_torch_features_cli.py::tiny_dino), and the port's head
+    starts from uml_tpu's init of the same seed (img_proj is drawn, not
+    set by the zero-shot init).  Held as the CLIP frozen path is held:
+    equal trees, keys, evals and steps, step 0 within 1e-2 (image) and
+    1e-6 (text), the first five steps within 3%, every step within 0.3 of
+    the largest loss."""
+    from tests.test_torch_features_cli import DINO, LM, tiny_dino
+    from uml_tpu.models.uml_head import UMLHead as JaxHead
+    from uml_tpu_torch.models.convert import uml_head_params_from_jax
+    from uml_tpu_torch.models.uml_head import UMLHead
+
+    torch.set_num_threads(1)
+    root = make_caltech_fixture(str(tmp_path / "data"))
+    tiny_dino(monkeypatch)
+    monkeypatch.setenv("UML_TORCH_DEVICE", "cpu")
+    import uml_tpu.native
+
+    monkeypatch.setattr(uml_tpu.native, "native_available", lambda: False)
+
+    def head_from_jax(feat_dim, num_classes, *, text_indim=0,
+                      learnable_temp=False, logit_scale=None, generator=None):
+        head = UMLHead(feat_dim, num_classes, text_indim=text_indim,
+                       learnable_temp=learnable_temp, logit_scale=logit_scale,
+                       generator=generator)
+        params = JaxHead(feat_dim, num_classes, text_indim=text_indim,
+                         learnable_temp=learnable_temp,
+                         logit_scale=logit_scale).init_params(seed=1)
+        head.load_state_tree(uml_head_params_from_jax(
+            {k: np.asarray(v) for k, v in params.items()}))
+        return head
+
+    monkeypatch.setattr(torch_ft, "UMLHead", head_from_jax)
+
+    common = ["--data_dir", root, "--indices_dir", f"{root}/indices",
+              "--feature_dir", f"{root}/features", "--dataset", "caltech101",
+              "--vision_model", DINO, "--language_model", LM,
+              "--allow-random-init", "--train-shot", "2", "--seed", "1",
+              "--mesh", "off"]
+    torch_gf.main(torch_gf.build_parser().parse_args(common[:4] + [
+        "--dataset", "caltech101", "--train-shot", "2", "--seed", "1"]))
+    args = torch_features.build_parser().parse_args(
+        common + ["--text-augmentation", "hand_crafted", "--batch-size", "8",
+                  "--num-workers", "2"])
+    args.overwrite, args.force_rerun = False, False
+    torch_features.main(args)
+
+    exp = {}
+    for name, cli in (("jax", jax_ft), ("torch", torch_ft)):
+        exp[name] = str(tmp_path / f"experiments_{name}")
+        args = cli.build_parser().parse_args(common + [
+            "--result_dir", exp[name], "--text_type", "hand_crafted",
+            "--modality", "crossmodal", "--alpha", "0.5",
+            "--hyperparams", "smoke"])
+        args.overwrite, args.force_rerun = False, False
+        cli.main(args)
+
+    assert _tree(exp["torch"]) == _tree(exp["jax"])
+    run_dir = os.path.join("caltech101-shot_2-seed_1", f"{DINO}-{LM}",
+                           MODALITY_DIR, "zeroshot")
+    (sub,) = [p for p in os.listdir(os.path.join(exp["jax"], run_dir))
+              if p.startswith("optim_")]
+    tests = {name: load_cache(os.path.join(exp[name], run_dir, sub,
+                                           "test_result.pth")) for name in exp}
+    assert tests["torch"].keys() == tests["jax"].keys()
+    assert set(tests["torch"]["model"]) == set(tests["jax"]["model"]) == {
+        "head_w", "img_proj_w"}
+    assert tests["torch"]["model"]["img_proj_w"].shape == (128, 768)
+    assert tests["torch"]["iter"] == tests["jax"]["iter"]
+    logs = {name: _metrics(os.path.join(exp[name], run_dir)) for name in exp}
+    evals = {name: sum("val/val_acc" in row for row in rows)
+             for name, rows in logs.items()}
+    assert evals["torch"] == evals["jax"] >= 1
+    steps = {name: [row for row in rows if "train/image_loss" in row]
+             for name, rows in logs.items()}
+    assert len(steps["torch"]) == len(steps["jax"]) == 200
+    for key, step0_rtol in (("train/image_loss", STEP0_IMAGE_RTOL),
+                            ("train/text_loss", STEP0_TEXT_RTOL)):
+        got = np.array([row[key] for row in steps["torch"]])
+        want = np.array([row[key] for row in steps["jax"]])
+        assert abs(got[0] - want[0]) <= step0_rtol * abs(want[0]), (key, got[0], want[0])
+        np.testing.assert_allclose(got[:5], want[:5], rtol=FIRST_STEPS_RTOL,
+                                   atol=1e-6, err_msg=key)
+        assert np.abs(got - want).max() <= TRAJECTORY_REL * want.max(), key

@@ -75,6 +75,13 @@ def test_module_list_covers_the_stand_alone_ops():
         assert name in MODULES, name
 
 
+def test_module_list_covers_the_dino_slice():
+    """... and the modules of the DINO serving path."""
+    for name in ("uml_tpu_torch.models.dino", "uml_tpu_torch.models.languagemodel",
+                 "uml_tpu_torch.models.convert"):
+        assert name in MODULES, name
+
+
 def test_chip_smoke_source_imports_no_jax_or_uml_tpu():
     tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
     for node in ast.walk(tree):

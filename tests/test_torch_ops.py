@@ -177,6 +177,113 @@ def test_mlp_block_matches_twin_and_pallas(dtype, s):
 
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 @pytest.mark.parametrize("s", [9, 17])
+def test_mlp_block_gelu_exact_matches_reference_and_pallas(dtype, s):
+    """DINO's MLP half (exact GELU): the plain version against
+    mlp_block_reference (the LN unit, so that it is the post-fold function;
+    fp32 1e-4) and against the Pallas kernel in interpret mode, whose
+    sigmoid-quintic fit of GELU errs by up to 7.8e-5 (fp32 5e-4)."""
+    jdt, tdt = DTYPES[dtype]
+    rng = np.random.default_rng(600 + s)
+    x = rng.standard_normal((B, s, K)).astype(np.float32)
+    w = _weights(rng)
+    jw, tw = _jax(w, jdt), _torch(w, tdt)
+    jx = jnp.asarray(x, jdt)
+    got = tlm.mlp_block_plain(torch.tensor(x).to(tdt), tw["w1"], tw["b1"],
+                              tw["w2"], tw["b2"], activation="gelu_exact")
+    ref = jlm.mlp_block_reference(jx, jnp.ones(K), jnp.zeros(K), jw["w1"],
+                                  jw["b1"], jw["w2"], jw["b2"],
+                                  activation="gelu_exact")
+    pallas = jlm._mlp_block_fwd(jx, jw["w1"], jw["b1"], jw["w2"], jw["b2"],
+                                1e-5, "gelu_exact", True)
+    _assert_close(got, ref, dtype)
+    if dtype == "fp32":
+        assert np.abs(got.numpy() - np.asarray(pallas)).max() <= 5e-4
+    else:
+        _assert_close(got, pallas, dtype)
+
+
+def test_ln_mlp_block_defaults_to_no_activation():
+    """ln_mlp_block with no activation is uml_tpu's default, the identity
+    (ln_matmul.py:654-655), on the wrapper and the post-fold op alike."""
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((B, 17, K)).astype(np.float32)
+    scale = (1 + 0.1 * rng.standard_normal(K)).astype(np.float32)
+    bias = (0.1 * rng.standard_normal(K)).astype(np.float32)
+    w = _weights(rng)
+    mnames = ("w1", "b1", "w2", "b2")
+    want = jlm.ln_mlp_block(jnp.asarray(x), jnp.asarray(scale),
+                            jnp.asarray(bias), *(jnp.asarray(w[n]) for n in mnames))
+    got = tlm.ln_mlp_block(torch.tensor(x), torch.tensor(scale),
+                           torch.tensor(bias), *(torch.tensor(w[n]) for n in mnames))
+    _assert_close(got, want, "fp32")
+    _assert_close(got, jlm.mlp_block_reference(
+        jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias),
+        *(jnp.asarray(w[n]) for n in mnames), activation=None), "fp32")
+    tw = _torch(w, torch.float32)
+    plain = tlm.mlp_block(torch.tensor(x), *(tw[n] for n in mnames),
+                          activation=None)
+    _assert_close(plain, jlm._raw_mlp_block_reference(
+        jnp.asarray(x), *(jnp.asarray(w[n]) for n in mnames), eps=1e-5,
+        activation=None), "fp32")
+
+
+@pytest.mark.parametrize("activation", [None, "quick_gelu", "gelu_exact"])
+def test_mlp_wrappers_pass_the_activation_code(monkeypatch, activation):
+    """On a tensor off the CPU (meta tensors here, the C call recorded),
+    mlp_block hands uml_mlp_block the activation code of csrc/ln_gemm.cuh
+    and mlp_block_q8 hands it to uml_mlp_block_q8 (which takes the two
+    GELUs), one argument per SIGNATURES entry."""
+    import contextlib
+    import types
+
+    from uml_tpu_torch.ops import _build
+    from uml_tpu_torch.ops import quant as tq
+
+    calls = []
+    monkeypatch.setattr(_build, "launch", lambda name, *a: calls.append((name, a)))
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+
+    def meta(*shape, dtype=torch.bfloat16):
+        return torch.empty(*shape, dtype=dtype, device="meta")
+
+    f32, i8 = torch.float32, torch.int8
+    x = meta(B, 257, K)
+    tlm.mlp_block(x, meta(K, M), meta(M, dtype=f32), meta(M, K),
+                  meta(K, dtype=f32), activation=activation)
+    code = {None: 0, "quick_gelu": 1, "gelu_exact": 2}[activation]
+    (name, args), = calls
+    assert name == "uml_mlp_block" and len(args) == len(_build.SIGNATURES[name])
+    assert args[8:12] == (B * 257, K, M, code)
+    q8_args = (meta(K, M, dtype=i8), meta(M, dtype=f32), meta(M, dtype=f32),
+               meta(M, K, dtype=i8), meta(K, dtype=f32), meta(K, dtype=f32))
+    if activation is None:
+        with pytest.raises(ValueError, match="ROADMAP"):
+            tq.mlp_block_q8(x, *q8_args, activation=activation)
+        return
+    tq.mlp_block_q8(x, *q8_args, activation=activation)
+    name, args = calls[1]
+    assert name == "uml_mlp_block_q8" and len(args) == len(_build.SIGNATURES[name])
+    assert args[11:15] == (B * 257, K, M, code)
+
+
+def test_mlp_block_fn_refuses_another_activation():
+    """The gradient of the exact-GELU MLP half is not ported: MlpBlockFn
+    raises for it (quick_gelu keeps its default)."""
+    rng = np.random.default_rng(13)
+    tw = _torch(_weights(rng), torch.float32)
+    x = torch.tensor(rng.standard_normal((B, 9, K)), dtype=torch.float32,
+                     requires_grad=True)
+    mlp = (tw["w1"], tw["b1"], tw["w2"], tw["b2"])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tlm.MlpBlockFn.apply(x, *mlp, 1e-5, "gelu_exact")
+    tlm.MlpBlockFn.apply(x, *mlp, 1e-5, "quick_gelu").sum().backward()
+    assert x.grad is not None and torch.isfinite(x.grad).all()
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("s", [9, 17])
 def test_text_tower_matches_reference_and_pallas(dtype, s):
     """L=2 causal layers; the JAX tower kernel runs in interpret mode."""
     jdt, tdt = DTYPES[dtype]
@@ -239,7 +346,8 @@ def test_pre_fold_api_matches_jax_reference(causal):
         *(jnp.asarray(w[n]) for n in mnames), activation="quick_gelu")
     got = tlm.ln_mlp_block(torch.tensor(x), torch.tensor(scale),
                            torch.tensor(bias),
-                           *(torch.tensor(w[n]) for n in mnames))
+                           *(torch.tensor(w[n]) for n in mnames),
+                           activation="quick_gelu")
     _assert_close(got, want, "fp32")
 
 

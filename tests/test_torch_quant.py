@@ -218,6 +218,38 @@ def test_mlp_half_matches_reference(s):
     _assert_rel(got, want, REL)
 
 
+@pytest.mark.parametrize("s", [9, 17])
+def test_mlp_half_gelu_exact_matches_reference(s):
+    """DINO's int8 MLP half (exact GELU) against uml_tpu's jnp reference."""
+    p = _params(13, s)
+    t = _torch(p)
+    want = jq.ln_mlp_block_q8_reference(
+        p["x"], p["scale"], p["bias"], p["w1"], p["b1"], p["w2"], p["b2"],
+        eps=1e-6, activation="gelu_exact")
+    got = tq.ln_mlp_block_q8(t["x"], t["scale"], t["bias"], t["w1"], t["b1"],
+                             t["w2"], t["b2"], eps=1e-6, activation="gelu_exact")
+    _assert_rel(got, want, REL)
+
+
+def test_mlp_half_without_activation_raises():
+    """uml_tpu's default activation (None, the identity) needs each row's
+    abs-max for the int8 hidden: not ported, so the wrapper raises, off the
+    card too (and ln_mlp_block_q8's default with it); the plain version
+    still computes it."""
+    p = _torch(_params(14, 9))
+    with pytest.raises(ValueError, match="ROADMAP"):
+        tq.ln_mlp_block_q8(p["x"], p["scale"], p["bias"], p["w1"], p["b1"],
+                           p["w2"], p["b2"])
+    w1q, w1sc = tq.quantize_weight(p["w1"])
+    w2q, w2sc = tq.quantize_weight(p["w2"])
+    with pytest.raises(ValueError, match="ROADMAP"):
+        tq.mlp_block_q8(p["x"], w1q, w1sc, p["b1"], w2q, w2sc, p["b2"],
+                        activation=None)
+    out = tq.mlp_block_q8_plain(p["x"], w1q, w1sc, p["b1"], w2q, w2sc, p["b2"],
+                                activation=None)
+    assert torch.isfinite(out.float()).all()
+
+
 def _prequantized(p):
     w_eff, b_eff = jax_fold(p["scale"], p["bias"], p["w"], p["kb"])
     w1_eff, b1_eff = jax_fold(p["scale"], p["bias"], p["w1"], p["b1"])
@@ -250,6 +282,20 @@ def test_mlp_half_matches_pallas_interpret():
                           "quick_gelu", True)
     got = tq.mlp_block_q8(_torch(p)["x"], _t(w1q), _t(w1sc), _t(b1_eff),
                           _t(w2q), _t(w2sc), _t(p["b2"]))
+    _assert_rel(got, want, 2e-2)
+
+
+@pytest.mark.heavy
+def test_mlp_half_gelu_exact_matches_pallas_interpret():
+    """Against the Pallas kernel in interpret mode, whose GELU is the
+    sigmoid-quintic fit (2e-2, the bound of the quick_gelu case)."""
+    p = _params(15, 17)
+    _, _, _, (w1q, w1sc), b1_eff, (w2q, w2sc) = _prequantized(p)
+    want = jq._mlp_q8_fwd(p["x"], w1q, w1sc, b1_eff, w2q, w2sc, p["b2"], 1e-6,
+                          "gelu_exact", True)
+    got = tq.mlp_block_q8(_torch(p)["x"], _t(w1q), _t(w1sc), _t(b1_eff),
+                          _t(w2q), _t(w2sc), _t(p["b2"]), eps=1e-6,
+                          activation="gelu_exact")
     _assert_rel(got, want, 2e-2)
 
 

@@ -9,8 +9,8 @@ data      benchmark registry, few-shot splits, templates, descriptors,
           transforms, the uint8 image loader, feature caches
 ops       the hand-written Hopper kernels (``csrc/*.cu``) behind PyTorch
           wrappers, each beside its plain PyTorch version
-models    CLIP ViT + text tower (OpenAI state_dict schema), tokenizer,
-          encoder loading
+models    CLIP ViT + text tower (OpenAI state_dict schema), DINO /
+          DINOv2 ViT, tokenizer, encoder loading
 cli       ``generate_fewshot`` and ``features``
 
 Importing this package imports neither ``jax`` nor ``uml_tpu``; the BPE

@@ -1,4 +1,4 @@
-"""Feature-extraction CLI (CLIP encoders).
+"""Feature-extraction CLI (CLIP and DINO / DINOv2 encoders).
 
 The port of uml_tpu/cli/features.py (flag/behavior parity with the
 reference's vision_language/features.py): extracts and caches frozen-CLIP
@@ -15,12 +15,22 @@ ops.quant, ops.tower_q8 under ``UML_TOWER_Q8=1``); the last image layer
 stays bf16.  The encoder runs on the card; ``UML_TORCH_DEVICE=cpu`` asks
 for the CPU (the kernels' plain PyTorch versions).
 
+``--vision_model`` (a DINO / DINOv2 config of models/dino.py) takes the
+image side, with ``--quant none|int8``, and ``--language_model`` the text
+side (uml_tpu's ``_HFEncoderAdapter``); the caches are named after them.
+The HF language models are not ported (models/languagemodel.py): where a
+model's files are local the run refuses; without them it raises the load
+error, or under ``--allow_random_init`` writes hash-random text features,
+as uml_tpu does on such a machine.
+
     python -m uml_tpu_torch.cli.features -d --dataset caltech101 \\
         --clip-encoder ViT-B/16 --allow-random-init [--quant int8] ...
+    python -m uml_tpu_torch.cli.features -d --dataset caltech101 \\
+        --vision_model vit_base_patch14_dinov2.lvd142m \\
+        --language_model bert-base-uncased --allow-random-init ...
     python -m uml_tpu_torch.cli.features -c configs/features.yaml
 
-Not ported yet (each raises): the DINO / HF language-model encoders
-(``--vision_model`` / ``--language_model``) and a multi-device ``--mesh``.
+Not ported yet (each raises): the RN towers and a multi-device ``--mesh``.
 """
 
 from __future__ import annotations
@@ -29,8 +39,9 @@ import argparse
 import os
 
 import numpy as np
+import torch
 
-from uml_tpu_torch.core.device import check_mesh_flag
+from uml_tpu_torch.core.device import check_mesh_flag, default_device
 from uml_tpu_torch.core.flags import build_shared_parser
 from uml_tpu_torch.core.sweep import run_sweep_cli
 from uml_tpu_torch.data.descriptors import (
@@ -47,6 +58,7 @@ from uml_tpu_torch.data.feature_cache import (
 from uml_tpu_torch.data.fewshot import get_few_shot_benchmark, get_testset
 from uml_tpu_torch.data.loader import ImageBatchLoader
 from uml_tpu_torch.data.templates import get_templates
+from uml_tpu_torch.models.encoders import ClipEncoder
 from uml_tpu_torch.utils.io import makedirs
 from uml_tpu_torch.utils.seeding import cname2lab, set_random_seed
 
@@ -157,7 +169,8 @@ def _should_write(path: str, overwrite: bool, what: str) -> bool:
 
 
 def prepare_image_features(encoder, args, ds, mode="train"):
-    path = img_outdir(args.feature_dir, args.clip_encoder, args.dataset,
+    encoder_name = args.clip_encoder if args.use_clip else args.vision_model
+    path = img_outdir(args.feature_dir, encoder_name, args.dataset,
                       args.image_augmentation, args.train_shot, args.seed,
                       mode, args.return_tokens)
     makedirs(os.path.dirname(path))
@@ -179,8 +192,10 @@ def prepare_image_features(encoder, args, ds, mode="train"):
 
 
 def prepare_text_features(encoder, args, ds):
+    text_encoder_name = args.clip_encoder if args.use_clip else args.language_model
+
     if args.descriptor_type is not None:
-        dpath = descriptor_outdir(args.feature_dir, args.clip_encoder,
+        dpath = descriptor_outdir(args.feature_dir, text_encoder_name,
                                   args.dataset, args.descriptor_type,
                                   args.return_tokens)
         if _should_write(dpath, args.overwrite, "descriptor features"):
@@ -197,7 +212,7 @@ def prepare_text_features(encoder, args, ds):
                                            ds["lab2cname"], args.return_tokens)
             save_cache(features, dpath)
 
-    path = text_outdir(args.feature_dir, args.clip_encoder, args.dataset,
+    path = text_outdir(args.feature_dir, text_encoder_name, args.dataset,
                        args.text_augmentation, args.return_tokens)
     makedirs(os.path.dirname(path))
     if _should_write(path, args.overwrite, "text features"):
@@ -206,9 +221,73 @@ def prepare_text_features(encoder, args, ds):
         save_cache(features, path)
 
 
+class _RandomTextEncoder:
+    """Deterministic hash-random text features for smoke tests when no HF
+    weights are cached (uml_tpu/cli/features.py:326-341; ``hash`` of a str
+    varies between processes unless PYTHONHASHSEED is set)."""
+
+    hidden_size = 768
+
+    def encode(self, texts, return_tokens=False):
+        feats = np.stack([
+            np.random.default_rng(abs(hash(t)) % (2**32))
+            .standard_normal(self.hidden_size).astype(np.float32)
+            for t in texts
+        ])
+        indices = np.asarray([len(t) for t in texts])
+        if return_tokens:
+            return feats[:, None, :], np.ones(len(texts), np.int64)
+        return feats, indices
+
+
+class _HFEncoderAdapter(ClipEncoder):
+    """(DINO / DINOv2 vision, HF language model) pair behind ClipEncoder's
+    API (``stage_images``: pinned host memory, asynchronous copy;
+    ``encode_staged``, ``encode_images``, ``encode_texts``), ``model`` the
+    DinoViT.  Images take the CLIP normalization, folded into the patch
+    embedding, as on the CLIP path (uml_tpu/cli/features.py:344-442)."""
+
+    def __init__(self, vision_model: str = "", language_model: str = "",
+                 allow_random_init: bool = False, device=None,
+                 check_finite: bool = False, quant: str = "none"):
+        from uml_tpu_torch.models.languagemodel import TextModel
+
+        self.device = torch.device(device) if device is not None else default_device()
+        self.check_finite = check_finite
+        self.name = vision_model
+        self.text_model = None
+        self.model = None
+        if language_model:
+            try:
+                self.text_model = TextModel(language_model)
+            except Exception as e:   # SystemExit (files local) passes through
+                if not allow_random_init:
+                    raise
+                print(f"=> [random-init] text encoder for {language_model} "
+                      f"({type(e).__name__}); features are hash-random")
+                self.text_model = _RandomTextEncoder()
+        if vision_model:
+            from uml_tpu_torch.models.dino import load_dino
+
+            self.model = load_dino(vision_model, allow_random_init=allow_random_init,
+                                   quant=quant).to(self.device).eval()
+
+    def encode_texts(self, texts, return_tokens=False):
+        if self.text_model is None:
+            raise RuntimeError("no language model configured (--language_model)")
+        return self.text_model.encode(texts, return_tokens=return_tokens)
+
+    def stage_images(self, imgs_uint8: np.ndarray):
+        if self.model is None:
+            raise RuntimeError("no vision model configured (--vision_model)")
+        return super().stage_images(imgs_uint8)
+
+
 def check_ported(args) -> None:
     """Raise for flags whose code is not ported yet, before any dataset
     or model work."""
+    from uml_tpu_torch.models.languagemodel import refuse_if_local
+
     # uml_tpu's early refusal (features.py:452-457) comes first
     quant = getattr(args, "quant", "none")
     if args.vision_model and quant not in ("none", "int8"):
@@ -216,21 +295,17 @@ def check_ported(args) -> None:
             f"--quant {quant}: the mixed int8 modes (int8_mlp/int8_attn/"
             f"int8_qkv) are CLIP-tower serving modes; "
             f"{args.vision_model} supports --quant none|int8")
-    if args.vision_model or args.language_model:
-        raise SystemExit(
-            "--vision_model/--language_model: the DINO and HF language-model "
-            "encoders are not ported to uml_tpu_torch yet; use the CLIP "
-            "encoders (--clip-encoder)")
-    if args.clip_encoder not in ("ViT-B/16", "ViT-B/32"):
+    if args.language_model:
+        refuse_if_local(args.language_model)
+    uses_clip = not (args.vision_model or args.language_model)
+    if uses_clip and args.clip_encoder not in ("ViT-B/16", "ViT-B/32"):
         raise SystemExit(f"--clip-encoder {args.clip_encoder}: the RN towers "
                          "are not ported to uml_tpu_torch yet")
     check_mesh_flag(args.mesh)
 
 
 def main(args):
-    """Run the extraction; returns the ClipEncoder it used."""
-    from uml_tpu_torch.models.encoders import ClipEncoder
-
+    """Run the extraction; returns the encoder it used."""
     check_ported(args)
     if args.seed >= 0:
         print(f"Setting fixed seed: {args.seed}")
@@ -244,10 +319,19 @@ def main(args):
     else:
         datasets = get_testset(args.dataset, args.data_dir)
 
-    print("=> Using CLIP model")
-    encoder = ClipEncoder(args.clip_encoder,
-                          allow_random_init=args.allow_random_init,
-                          check_finite=args.debug_nans, quant=args.quant)
+    args.use_clip = args.vision_model == "" and args.language_model == ""
+    if args.use_clip:
+        print("=> Using CLIP model")
+        encoder = ClipEncoder(args.clip_encoder,
+                              allow_random_init=args.allow_random_init,
+                              check_finite=args.debug_nans, quant=args.quant)
+    else:
+        print(f"=> Using {args.vision_model} for vision and "
+              f"{args.language_model} for language")
+        encoder = _HFEncoderAdapter(args.vision_model, args.language_model,
+                                    allow_random_init=args.allow_random_init,
+                                    check_finite=args.debug_nans,
+                                    quant=args.quant)
     print(f"=> Encoder on {encoder.device}, quant {args.quant}")
 
     if args.dataset not in IMAGENET_TESTSETS:

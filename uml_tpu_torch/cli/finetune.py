@@ -1,4 +1,4 @@
-"""Supervised UML finetune CLI (CLIP ViT encoders).
+"""Supervised UML finetune CLI (CLIP ViT and frozen DINO encoders).
 
 The port of uml_tpu/cli/finetune.py (flag and artifact parity with the
 reference's vision_language/finetune.py):
@@ -15,7 +15,11 @@ reference's vision_language/finetune.py):
 
 Two paths, as in uml_tpu.  The frozen path (every grid but the
 full-finetune ones) encodes each split once with the frozen CLIP and
-trains the head on the features.  The full path
+trains the head on the features; with ``--vision_model`` the frozen DINO
+encoder does (``features._HFEncoderAdapter``), the text features come
+from the ``--language_model`` cache, and the head is UML's: ``img_proj``
+from the DINO width into the text width (crossmodal) or ``--common_dim``
+(uml_tpu/cli/finetune.py:176-186, 356-364).  The full path
 (``full_ds_full_model_finetune``, ``smoke_full``) streams raw uint8
 batches through the trainable image tower: on the card its layers run the
 training kernels of ``uml_tpu_torch/csrc``.  Which ones is set, as in
@@ -40,8 +44,9 @@ uml_tpu/models/port_torch.py reads), where uml_tpu saves its flax tree.
         --text_type hand_crafted --modality crossmodal --alpha 0.5 \\
         --hyperparams smoke_full ...
 
-Not ported yet (each raises before any work): the DINO / HF encoders,
-the RN towers, a multi-device ``--mesh`` and ``--ckpt_every``.
+Not ported yet (each raises before any work): the DINO full-model
+finetune (the full-finetune grids with ``--vision_model``), the RN towers,
+a multi-device ``--mesh`` and ``--ckpt_every``.
 ``--quant`` other than none raises too: the int8 modes are inference-only
 serving modes of the features CLI (uml_tpu's finetune ignores the flag).
 """
@@ -56,6 +61,7 @@ import sys
 import numpy as np
 import torch
 
+from uml_tpu_torch.cli.features import _HFEncoderAdapter
 from uml_tpu_torch.cli.features import check_ported as check_encoder_ported
 from uml_tpu_torch.core.flags import build_shared_parser
 from uml_tpu_torch.core.sweep import expand_sweep, run_sweep_cli
@@ -67,6 +73,7 @@ from uml_tpu_torch.data.fewshot import (
 )
 from uml_tpu_torch.data.loader import ImageBatchLoader, RawImageStream
 from uml_tpu_torch.models.clip import CLIP_CONFIGS
+from uml_tpu_torch.models.dino import DINO_CONFIGS
 from uml_tpu_torch.models.uml_head import UMLHead, make_uml_clip_head
 from uml_tpu_torch.train.optim import HYPER_DICT, build_optimizer, build_schedule
 from uml_tpu_torch.train.supervised import (
@@ -179,11 +186,23 @@ def setup(datasets, hparams, args):
         img_te, lab_te = _decode_split(datasets["img_te_ds"], args.seed)
         capture = None
     else:
-        # feature-space path, UMLClip semantics (head.py:101-141): shared
-        # head in the CLIP embedding space, fixed exp(logit) scale
-        model = UMLHead(feat_dim=args.text_indim, num_classes=args.nclasses,
-                        text_indim=0, logit_scale=args.logit,
-                        learnable_temp=hparams["learnable_temp"], generator=gen)
+        if args.use_clip:
+            # feature-space path, UMLClip semantics (head.py:101-141):
+            # shared head in the CLIP embedding space, fixed exp(logit)
+            # scale
+            model = UMLHead(feat_dim=args.text_indim, num_classes=args.nclasses,
+                            text_indim=0, logit_scale=args.logit,
+                            learnable_temp=hparams["learnable_temp"],
+                            generator=gen)
+        else:
+            # UML semantics (head.py:39-98): img_proj from the vision dim
+            # into the text dim (crossmodal) or common_dim (unimodal)
+            proj_dim = (args.text_indim if args.modality == "crossmodal"
+                        else args.common_dim)
+            model = UMLHead(feat_dim=args.img_indim, num_classes=args.nclasses,
+                            text_indim=proj_dim,
+                            learnable_temp=hparams["learnable_temp"],
+                            generator=gen)
         # text-only runs never consume the train image stream; only the
         # capture diagnostics need a ~1000-image sample
         train_items = (datasets["img_tr_ds"][:1000]
@@ -278,6 +297,12 @@ def sweep(datasets, hyperparams, args):
 def check_ported(args) -> None:
     """Raise for flags whose code is not ported yet, before any work."""
     check_encoder_ported(args)
+    if args.vision_model and not freezes_backbone(args):
+        raise SystemExit(
+            f"--vision_model {args.vision_model} --hyperparams "
+            f"{args.hyperparams}: the DINO full-model finetune (the exact-GELU "
+            "MLP backward, make_uml_dino_head) is not ported to uml_tpu_torch "
+            "yet (ROADMAP.md, queue 1); the frozen grids run")
     if getattr(args, "quant", "none") != "none":
         raise SystemExit(f"--quant {args.quant}: the int8 modes serve the "
                          "features CLI (inference-only); finetune trains in "
@@ -296,9 +321,11 @@ def main(args):
         print(f"=> Setting fixed seed: {args.seed}")
         set_random_seed(args.seed)
 
-    args.use_clip = True
+    args.use_clip = args.vision_model == "" and args.language_model == ""
+    encoder_name = (args.clip_encoder if args.use_clip
+                    else f"{args.vision_model}-{args.language_model}")
     args.savepath = savedir(
-        args.result_dir, args.dataset, args.clip_encoder, args.train_shot,
+        args.result_dir, args.dataset, encoder_name, args.train_shot,
         args.seed, args.text_type, args.text_shot, args.image_augmentation,
         args.modality, args.classifier_init, args.alpha,
         getattr(args, "text_batch_size", 0) or 0, args.custom_name, args)
@@ -308,7 +335,9 @@ def main(args):
     sys.stdout = Tee(sys.__stdout__, logfile)
     try:
         print("=> Arguments:", args)
-        text_path = text_outdir(args.feature_dir, args.clip_encoder,
+        text_encoder_name = (args.clip_encoder if args.use_clip
+                             else args.language_model)
+        text_path = text_outdir(args.feature_dir, text_encoder_name,
                                 args.dataset, args.text_type)
         print(f"=> Loading text features from: {text_path}")
         tf = load_cache(text_path)
@@ -320,10 +349,18 @@ def main(args):
         datasets = get_few_shot_benchmark(args.data_dir, args.indices_dir,
                                           args.dataset, args.train_shot, args.seed)
         args.nclasses = len(datasets["lab2cname"])
-        args.img_indim = args.text_indim = CLIP_CONFIGS[args.clip_encoder].embed_dim
-        encoder = ClipEncoder(args.clip_encoder,
-                              allow_random_init=args.allow_random_init,
-                              check_finite=args.debug_nans)
+        if args.use_clip:
+            args.img_indim = args.text_indim = CLIP_CONFIGS[args.clip_encoder].embed_dim
+            encoder = ClipEncoder(args.clip_encoder,
+                                  allow_random_init=args.allow_random_init,
+                                  check_finite=args.debug_nans)
+        else:
+            encoder = _HFEncoderAdapter(args.vision_model, "",
+                                        allow_random_init=args.allow_random_init,
+                                        check_finite=args.debug_nans)
+            args.img_indim = DINO_CONFIGS[args.vision_model][0].num_features
+            # the text width comes from the cached LM features themselves
+            args.text_indim = int(tf["features"].shape[-1])
         print(f"=> Encoder on {encoder.device}")
         ds = {
             "img_tr_ds": datasets["train"],

@@ -1,5 +1,5 @@
-// Host-side compositions of the hand-written kernels into the CLIP
-// half-blocks.  Each returns the first launch error (UML_TRY, in
+// Host-side compositions of the hand-written kernels into the CLIP and
+// DINO half-blocks.  Each returns the first launch error (UML_TRY, in
 // ln_gemm.cuh: cudaGetLastError() after every launch) or cudaSuccess;
 // nothing here synchronises or allocates: the Python wrappers pass every
 // buffer in.
@@ -75,25 +75,28 @@ static inline cudaError_t run_attn_block(const __nv_bfloat16* x, const __nv_bflo
                         eps, stream);
 }
 
-// MLP half: out = x + quick_gelu(rawLN(x) . w1 + b1) . w2 + b2, and with
-// pre non-null the pre-activation stash of the training forward, pre =
-// bf16(rawLN(x) . w1 + b1), which the backward reads (the activation is
-// taken of the unrounded pre).  Three launches, the same with the stash
-// and without: the LN row pre-pass into xn, the MLP in and the MLP out on
-// the wgmma engine.
+// MLP half: out = x + act(rawLN(x) . w1 + b1) . w2 + b2, act one of
+// ACT_NONE, ACT_QUICK_GELU (CLIP) and ACT_GELU_EXACT (DINO), and with pre
+// non-null (quick_gelu only) the pre-activation stash of the training
+// forward, pre = bf16(rawLN(x) . w1 + b1), which the backward reads (the
+// activation is taken of the unrounded pre).  Three launches, the same
+// with the stash and without: the LN row pre-pass into xn, the MLP in
+// (the activation in its epilogue) and the MLP out on the wgmma engine.
 //   x [rows, K]; w1 [K, M]; w2 [M, K]; xn [rows, K] and hidden [rows, M]
 //   are scratch; pre [rows, M] or null.
 static inline cudaError_t run_mlp_block(const __nv_bfloat16* x, const __nv_bfloat16* w1,
                                         const float* b1, const __nv_bfloat16* w2,
                                         const float* b2, __nv_bfloat16* xn,
                                         __nv_bfloat16* hidden, __nv_bfloat16* out, int rows,
-                                        int K, int M, float eps, cudaStream_t stream,
+                                        int K, int M, float eps, int act, cudaStream_t stream,
                                         __nv_bfloat16* pre = nullptr) {
+  const int epi = pre != nullptr ? (act == ACT_QUICK_GELU ? EPI_GELU_STASH : -1)
+                                 : act_epilogue(act);
+  if (epi < 0) return cudaErrorInvalidValue;
   LnPrologue ops;
   ops.xn = xn;
-  UML_TRY(launch_ln_gemm(x, w1, b1, nullptr, hidden, rows, M, K, 0, PRO_LN,
-                         pre != nullptr ? EPI_GELU_STASH : EPI_QUICK_GELU, eps, stream, false,
-                         pre, nullptr, ops));
+  UML_TRY(launch_ln_gemm(x, w1, b1, nullptr, hidden, rows, M, K, 0, PRO_LN, epi, eps, stream,
+                         false, pre, nullptr, ops));
   return launch_ln_gemm(hidden, w2, b2, x, out, rows, K, M, K, PRO_NONE, EPI_RESIDUAL, eps,
                         stream);
 }
@@ -139,7 +142,8 @@ static inline cudaError_t run_attn_block_q8(const __nv_bfloat16* x, const int8_t
                         PRO_NONE, EPI_RESIDUAL, eps, stream);
 }
 
-// Int8 MLP half: out = x + actquant(LNquant(x) . w1q + b1) . w2q + b2
+// Int8 MLP half: out = x + actquant(LNquant(x) . w1q + b1) . w2q + b2,
+// the activation ACT_QUICK_GELU (CLIP) or ACT_GELU_EXACT (DINO)
 //   x [rows, K]; w1q [M, K], w2q [K, M] int8 (K-major); q8 [rows*(M + K)]
 //   int8 and qscale [2*rows] fp32 are scratch: first the int8 hidden and its
 //   row scales ([rows, M], [rows]: c_proj's operand), then LNquant(x) and
@@ -148,9 +152,10 @@ static inline cudaError_t run_attn_block_q8(const __nv_bfloat16* x, const int8_t
 // Four launches: ln_quantize_rows (which also sets each row's max to
 // -inf); c_fc with the ROWMAX epilogue (each row's max of y + b1, an
 // atomicMax a 128-column tile, its only store: 50 KB at ViT-B/16 B=64);
-// c_fc again with the ACTQ epilogue (the same y + b1 bit for bit,
-// quick_gelu, int8 with the row's scale from that max, as the one-pass act
-// quantization rounded them); c_proj with the residual.  No fp32
+// c_fc again with the ACTQ (quick_gelu) or ACTQ_GELU (exact GELU)
+// epilogue (the same y + b1 bit for bit, the activation, int8 with the
+// row's scale from that max, as the one-pass act quantization rounded
+// them); c_proj with the residual.  No fp32
 // pre-activation reaches device memory (q8_gemm.cuh says why the product
 // runs twice).
 static inline cudaError_t run_mlp_block_q8(const __nv_bfloat16* x, const int8_t* w1q,
@@ -158,7 +163,8 @@ static inline cudaError_t run_mlp_block_q8(const __nv_bfloat16* x, const int8_t*
                                            const int8_t* w2q, const float* w2sc,
                                            const float* b2, int8_t* q8, float* qscale,
                                            int* rowmax, __nv_bfloat16* out, int rows, int K,
-                                           int M, float eps, cudaStream_t stream) {
+                                           int M, float eps, int act, cudaStream_t stream) {
+  if (act != ACT_QUICK_GELU && act != ACT_GELU_EXACT) return cudaErrorInvalidValue;
   int8_t* hq = q8;
   float* hs = qscale;
   int8_t* xq = q8 + (long long)rows * M;
@@ -166,8 +172,9 @@ static inline cudaError_t run_mlp_block_q8(const __nv_bfloat16* x, const int8_t*
   UML_TRY(launch_ln_quantize_rows(x, xq, xs, rows, K, eps, stream, rowmax));
   UML_TRY(launch_q8_gemm(xq, w1q, xs, w1sc, b1, nullptr, nullptr, rows, M, K, Q8_EPI_ROWMAX,
                          stream, rowmax));
-  UML_TRY(launch_q8_gemm(xq, w1q, xs, w1sc, b1, nullptr, hq, rows, M, K, Q8_EPI_ACTQ, stream,
-                         rowmax, hs));
+  UML_TRY(launch_q8_gemm(xq, w1q, xs, w1sc, b1, nullptr, hq, rows, M, K,
+                         act == ACT_GELU_EXACT ? Q8_EPI_ACTQ_GELU : Q8_EPI_ACTQ, stream, rowmax,
+                         hs));
   return launch_q8_gemm(hq, w2q, hs, w2sc, b2, x, out, rows, K, M, Q8_EPI_RESIDUAL, stream);
 }
 

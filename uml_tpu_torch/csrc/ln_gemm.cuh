@@ -66,7 +66,8 @@
 // their launches, stay bit-equal, and so do the MLP forward with and
 // without its stash): (PRO_LN, EPI_NONE) QKV, (PRO_LN, EPI_QUICK_GELU) and
 // (PRO_LN, EPI_GELU_STASH) the MLP in (one epilogue, OUT_GELU, with or
-// without the stash), (PRO_NONE, EPI_RESIDUAL) the out-projections and the
+// without the stash), (PRO_LN, EPI_GELU_EXACT) DINO's MLP in (OUT_GELU_EXACT),
+// (PRO_NONE, EPI_RESIDUAL) the out-projections and the
 // MLP out, (PRO_NONE, EPI_NONE, TRANS_B) g . wo^T, (PRO_NONE, EPI_F32,
 // TRANS_B) dqkv . W_eff^T, g . w2^T and dpre . w1^T, (PRO_LN, EPI_DACT)
 // and (PRO_LN, EPI_DACT_F32) the MLP backward's recompute (OUT_DACT_BF16
@@ -111,6 +112,17 @@ enum {
 };
 
 enum { PRO_NONE = 0, PRO_LN = 1, PRO_LN_AFFINE = 2, PRO_ADD_LN_AFFINE = 3 };
+
+// The activation codes of the C entries (ln_matmul.cu, mlp_block.cu,
+// mlp_block_q8.cu): none, quick_gelu (CLIP), exact GELU (erf; DINO).
+enum { ACT_NONE = 0, ACT_QUICK_GELU = 1, ACT_GELU_EXACT = 2 };
+
+// an activation code's bf16 epilogue, or -1 for an unknown code
+static inline int act_epilogue(int act) {
+  return act == ACT_NONE ? EPI_NONE
+         : act == ACT_QUICK_GELU ? EPI_QUICK_GELU
+         : act == ACT_GELU_EXACT ? EPI_GELU_EXACT : -1;
+}
 
 // the operands of the prologues (null where a triple takes none)
 struct LnPrologue {
@@ -299,12 +311,13 @@ static inline cudaError_t launch_ln_gemm(const __nv_bfloat16* a, const __nv_bflo
       return launch_wgmma_gemm<false, false, WGG_OUT_F32>(a, w, ep, M, N, K, stream);
     return cudaErrorInvalidValue;
   }
-  // an LN prologue: QKV, the MLP in and the MLP backward's recompute
-  // (PRO_LN), the stand-alone ops of rows 14-17 (the affine prologues)
+  // an LN prologue: QKV, the MLP in (quick_gelu, exact GELU or none) and
+  // the MLP backward's recompute (PRO_LN), the stand-alone ops of rows
+  // 14-17 (the affine prologues)
   const bool routed =
-      !trans_b && (epi == EPI_NONE || epi == EPI_QUICK_GELU ||
-                   (pro == PRO_LN ? epi == EPI_GELU_STASH || epi == EPI_DACT || epi == EPI_DACT_F32
-                                  : epi == EPI_GELU_EXACT));
+      !trans_b && (epi == EPI_NONE || epi == EPI_QUICK_GELU || epi == EPI_GELU_EXACT ||
+                   (pro == PRO_LN &&
+                    (epi == EPI_GELU_STASH || epi == EPI_DACT || epi == EPI_DACT_F32)));
   if (!routed || (epi == EPI_GELU_STASH && aux == nullptr)) return cudaErrorInvalidValue;
   UML_TRY(launch_ln_prepass(a, ops, pro, M, K, eps, stream));
   const __nv_bfloat16* xn = ops.xn;

@@ -35,19 +35,12 @@
 
 #include "ln_gemm.cuh"
 
-namespace {
-
-int epilogue_of(int act) {
-  return act == 1 ? uml::EPI_QUICK_GELU : act == 2 ? uml::EPI_GELU_EXACT : uml::EPI_NONE;
-}
-
-}  // namespace
-
 // xn: [rows, K] bf16 scratch for the normalized rows
 extern "C" int uml_ln_matmul(const void* x, const void* scale, const void* bias, const void* w,
                              const void* b, void* xn, void* out, int rows, int K, int M, int act,
                              float eps, void* stream) {
-  if (act < 0 || act > 2) return (int)cudaErrorInvalidValue;
+  const int epi = uml::act_epilogue(act);
+  if (epi < 0) return (int)cudaErrorInvalidValue;
   uml::LnPrologue ops;
   ops.scale = static_cast<const float*>(scale);
   ops.bias = static_cast<const float*>(bias);
@@ -55,7 +48,7 @@ extern "C" int uml_ln_matmul(const void* x, const void* scale, const void* bias,
   return (int)uml::launch_ln_gemm(
       static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
       static_cast<const float*>(b), nullptr, out, rows, M, K, 0, uml::PRO_LN_AFFINE,
-      epilogue_of(act), eps, static_cast<cudaStream_t>(stream), false, nullptr, nullptr, ops);
+      epi, eps, static_cast<cudaStream_t>(stream), false, nullptr, nullptr, ops);
 }
 
 // xn: [rows, K] bf16 scratch; t: [rows, K] bf16, the output x + delta
@@ -63,7 +56,8 @@ extern "C" int uml_add_ln_matmul(const void* x, const void* delta, const void* s
                                  const void* bias, const void* w, const void* b, void* xn,
                                  void* t, void* out, int rows, int K, int M, int act, float eps,
                                  void* stream) {
-  if (act < 0 || act > 2) return (int)cudaErrorInvalidValue;
+  const int epi = uml::act_epilogue(act);
+  if (epi < 0) return (int)cudaErrorInvalidValue;
   uml::LnPrologue ops;
   ops.delta = static_cast<const __nv_bfloat16*>(delta);
   ops.scale = static_cast<const float*>(scale);
@@ -73,5 +67,5 @@ extern "C" int uml_add_ln_matmul(const void* x, const void* delta, const void* s
   return (int)uml::launch_ln_gemm(
       static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
       static_cast<const float*>(b), nullptr, out, rows, M, K, 0, uml::PRO_ADD_LN_AFFINE,
-      epilogue_of(act), eps, static_cast<cudaStream_t>(stream), false, nullptr, nullptr, ops);
+      epi, eps, static_cast<cudaStream_t>(stream), false, nullptr, nullptr, ops);
 }

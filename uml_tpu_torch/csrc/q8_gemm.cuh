@@ -27,6 +27,8 @@
 //                    max(quick_gelu(rowmax[m]), 0.1654) / 127, rounded
 //                    floor(v / scale + 0.5) and clamped to +-127;
 //                    qscale[m] = that scale (int8 out [M, N], fp32 [M])
+//   Q8_EPI_ACTQ_GELU the same with exact GELU (erf) and its lobe, 0.1718
+//                    (DINO's MLP)
 // Every fp32 operation is an explicitly rounded intrinsic (__fmul_rn,
 // __fadd_rn), so nvcc does not contract them into FMAs and the epilogue
 // rounds as the plain PyTorch version does.  The integer product of int8
@@ -70,13 +72,13 @@
 namespace uml {
 
 enum { Q8_EPI_BF16 = 0, Q8_EPI_F32 = 1, Q8_EPI_RESIDUAL = 2, Q8_EPI_ROWMAX = 3,
-       Q8_EPI_ACTQ = 4 };
+       Q8_EPI_ACTQ = 4, Q8_EPI_ACTQ_GELU = 5 };
 
 // Launch one q8_gemm on `stream`; returns the launch error.  N and K must
 // be multiples of 64, the pointers 16-byte aligned (the Python wrappers
 // check them and raise first).  rowmax [M] (q8_ordered ints):
-// Q8_EPI_ROWMAX raises it, Q8_EPI_ACTQ reads it; qscale: Q8_EPI_ACTQ
-// writes it.
+// Q8_EPI_ROWMAX raises it, Q8_EPI_ACTQ* read it; qscale: Q8_EPI_ACTQ*
+// write it.
 static inline cudaError_t launch_q8_gemm(const int8_t* a, const int8_t* w, const float* row_scale,
                                          const float* col_scale, const float* bias,
                                          const __nv_bfloat16* res, void* out, int M, int N,
@@ -102,6 +104,8 @@ static inline cudaError_t launch_q8_gemm(const int8_t* a, const int8_t* w, const
     return launch_wgmma_gemm<false, false, WGG_OUT_Q8_ROWMAX>(a, w, ep, M, N, K, stream);
   if (epi == Q8_EPI_ACTQ)
     return launch_wgmma_gemm<false, false, WGG_OUT_Q8_ACTQ>(a, w, ep, M, N, K, stream);
+  if (epi == Q8_EPI_ACTQ_GELU)
+    return launch_wgmma_gemm<false, false, WGG_OUT_Q8_ACTQ_GELU>(a, w, ep, M, N, K, stream);
   return cudaErrorInvalidValue;
 }
 

@@ -773,7 +773,7 @@ extern "C" int uml_text_tower(const void* x, const void* w_eff, const void* b_ef
         static_cast<const float*>(b1) + (long long)l * M,
         static_cast<const bf16*>(w2) + (long long)l * M * K,
         static_cast<const float*>(b2) + (long long)l * K, static_cast<bf16*>(xn),
-        static_cast<bf16*>(hidden), o, rows, K, M, eps, st);
+        static_cast<bf16*>(hidden), o, rows, K, M, eps, uml::ACT_QUICK_GELU, st);
     if (e2 != cudaSuccess) return (int)e2;
     cur = o;
   }

@@ -73,7 +73,7 @@ extern "C" int uml_tower_q8(const void* x, const void* wq, const void* wsc, cons
         md, static_cast<const int8_t*>(w1q) + l * k * m, static_cast<const float*>(w1sc) + l * m,
         static_cast<const float*>(b1) + l * m, static_cast<const int8_t*>(w2q) + l * m * k,
         static_cast<const float*>(w2sc) + l * k, static_cast<const float*>(b2) + l * k, q, qs,
-        static_cast<int*>(rowmax), o, rows, K, M, eps, st);
+        static_cast<int*>(rowmax), o, rows, K, M, eps, uml::ACT_QUICK_GELU, st);
     if (e2 != cudaSuccess) return (int)e2;
     cur = o;
   }

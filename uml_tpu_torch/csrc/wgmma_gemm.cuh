@@ -74,7 +74,8 @@
 //   by an atomicMax of the tile's max into one int a row, its only store)
 //   and OUT_Q8_ACTQ (the same y + b recomputed, quick_gelu, and int8 with
 //   the row's scale from that max: no fp32 pre-activation reaches device
-//   memory; q8_gemm.cuh).
+//   memory; q8_gemm.cuh), or OUT_Q8_ACTQ_GELU, the same with exact GELU
+//   (DINO's MLP).
 //   The MLP in writes two [rows, 4K] bf16 tensors (155 MB at ViT-B/16
 //   B=64), the heaviest store traffic of any product here: the
 //   sector-filling stores below carry it.
@@ -117,12 +118,18 @@ constexpr size_t WGG_SMEM =
 enum { WGG_OUT_BF16 = 0, WGG_OUT_F32 = 1, WGG_OUT_DACT = 2, WGG_OUT_GELU = 3,
        WGG_OUT_RESIDUAL = 4, WGG_OUT_DACT_BF16 = 5, WGG_OUT_Q8_BF16 = 6,
        WGG_OUT_Q8_F32 = 7, WGG_OUT_Q8_RESIDUAL = 8, WGG_OUT_GELU_EXACT = 9,
-       WGG_OUT_Q8_ROWMAX = 10, WGG_OUT_Q8_ACTQ = 11 };
+       WGG_OUT_Q8_ROWMAX = 10, WGG_OUT_Q8_ACTQ = 11, WGG_OUT_Q8_ACTQ_GELU = 12 };
+
+// the quantizing passes of the int8 MLP in: quick_gelu (ACTQ) or exact
+// GELU (ACTQ_GELU)
+static __host__ __device__ constexpr bool wgg_actq(int out) {
+  return out == WGG_OUT_Q8_ACTQ || out == WGG_OUT_Q8_ACTQ_GELU;
+}
 
 // the int8 instantiations: s8 operands, s32 accumulators
 static __host__ __device__ constexpr bool wgg_int8(int out) {
   return out == WGG_OUT_Q8_BF16 || out == WGG_OUT_Q8_F32 || out == WGG_OUT_Q8_RESIDUAL ||
-         out == WGG_OUT_Q8_ROWMAX || out == WGG_OUT_Q8_ACTQ;
+         out == WGG_OUT_Q8_ROWMAX || wgg_actq(out);
 }
 
 struct WggEpilogue {
@@ -139,9 +146,9 @@ struct WggEpilogue {
   float* part = nullptr;               // splits > 1: [splits - 1, M, N] fp32 partials
   const float* row_scale = nullptr;    // OUT_Q8_*: [M] fp32
   const float* col_scale = nullptr;    // OUT_Q8_*: [N] fp32
-  int* rowmax = nullptr;               // OUT_Q8_ROWMAX (atomicMax), OUT_Q8_ACTQ (read): [M],
+  int* rowmax = nullptr;               // OUT_Q8_ROWMAX (atomicMax), OUT_Q8_ACTQ* (read): [M],
                                        // each row's max of y + b as q8_ordered ints
-  float* qscale = nullptr;             // OUT_Q8_ACTQ: [M] fp32, the int8 out's row scales
+  float* qscale = nullptr;             // OUT_Q8_ACTQ*: [M] fp32, the int8 out's row scales
 };
 
 // two floats as the bits of a bf16 pair (the lower column in the low half)
@@ -158,7 +165,11 @@ static __device__ __forceinline__ float gelu_exact(float y) {
 }
 
 constexpr float Q8_MAX = 127.f;
-constexpr float QUICK_GELU_LOBE = 0.1654f;  // |quick_gelu's minimum|, padded
+// |the activation's minimum|, padded ~1% (uml_tpu/ops/quant.py:121): the
+// row scale's floor, so that a row whose largest |act| lies on the
+// negative lobe never clips
+constexpr float QUICK_GELU_LOBE = 0.1654f;
+constexpr float GELU_EXACT_LOBE = 0.1718f;
 
 // round half up (floor(v + 0.5)), clamped to +-127, as uml_tpu quantizes
 static __device__ __forceinline__ int8_t q8_round(float v) {
@@ -202,6 +213,13 @@ static __device__ __forceinline__ int8_t act_q8(float y, float sc, float inv) {
   return act_q8_exact(y, sc);
 }
 
+// exact GELU's int8 in the plain version's expression, everywhere (no
+// fast form): round(gelu_exact(y) / sc), |quotient| <= 127 as above
+// (gelu_exact >= -0.1700 > -GELU_EXACT_LOBE)
+static __device__ __forceinline__ int8_t gelu_q8(float y, float sc) {
+  return q8_round(__fdiv_rn(gelu_exact(y), sc));
+}
+
 // The int8 epilogue's fp32 value in the reference's order, every step an
 // explicitly rounded intrinsic (nvcc contracts none into an FMA), so it
 // rounds as the plain PyTorch version does: ((float)acc * row_scale) *
@@ -220,10 +238,12 @@ static __device__ __forceinline__ float q8_value(int acc, float rs, float cs, fl
 // columns (a quad of lanes holds a row of the warp's 16 whole, so the
 // quad's shuffles finish it), then atomicMax into rowmax[row] (ordered
 // ints; the caller initialises them to Q8_ORDERED_NEG_INF).  ACTQ: the
-// int8 of quick_gelu(y) / sc, sc = max(quick_gelu(rowmax), lobe) / 127
-// from the row's max rmx, rounded as the one-pass act quantization
-// rounded it (act_q8), 8 contiguous bytes a lane after an exchange within
-// the quad, and the row scales from the first column tile.
+// int8 of act(y) / sc, sc = max(act(rowmax), lobe) / 127 from the row's
+// max rmx (act quick_gelu, or exact GELU for ACTQ_GELU: both rise
+// monotonically above their one minimum, so that bound covers the row),
+// rounded as the one-pass act quantization rounded it (act_q8, gelu_q8),
+// 8 contiguous bytes a lane after an exchange within the quad, and the row
+// scales from the first column tile.
 template <int OUT>
 static __device__ __forceinline__ void q8_act_epilogue(const int (&acc)[64],
                                                        const WggEpilogue& ep,
@@ -253,11 +273,15 @@ static __device__ __forceinline__ void q8_act_epilogue(const int (&acc)[64],
       if (q == 0 && row < M) atomicMax(ep.rowmax + row, q8_ordered(__float_as_int(mx[r])));
     }
   } else {
+    constexpr bool EXACT = OUT == WGG_OUT_Q8_ACTQ_GELU;
     float sc[2];
 #pragma unroll
-    for (int r = 0; r < 2; ++r)
-      sc[r] = __fdiv_rn(fmaxf(quick_gelu_rn(__int_as_float(q8_ordered(rmx[r]))),
-                              QUICK_GELU_LOBE), Q8_MAX);
+    for (int r = 0; r < 2; ++r) {
+      const float top = __int_as_float(q8_ordered(rmx[r]));
+      sc[r] = __fdiv_rn(EXACT ? fmaxf(gelu_exact(top), GELU_EXACT_LOBE)
+                              : fmaxf(quick_gelu_rn(top), QUICK_GELU_LOBE),
+                        Q8_MAX);
+    }
     if (n0 == 0 && q == 0) {
 #pragma unroll
       for (int r = 0; r < 2; ++r)
@@ -285,8 +309,12 @@ static __device__ __forceinline__ void q8_act_epilogue(const int (&acc)[64],
         for (int r = 0; r < 2; ++r) {
           const float y0 = q8_value<OUT>(acc[4 * j + 2 * r], rs[r], cs0, b0, 0.f);
           const float y1 = q8_value<OUT>(acc[4 * j + 2 * r + 1], rs[r], cs1, b1, 0.f);
-          h[r][jj] = (uint32_t)(uint8_t)act_q8(y0, sc[r], inv[r]) |
-                     (uint32_t)(uint8_t)act_q8(y1, sc[r], inv[r]) << 8;
+          if constexpr (EXACT)
+            h[r][jj] = (uint32_t)(uint8_t)gelu_q8(y0, sc[r]) |
+                       (uint32_t)(uint8_t)gelu_q8(y1, sc[r]) << 8;
+          else
+            h[r][jj] = (uint32_t)(uint8_t)act_q8(y0, sc[r], inv[r]) |
+                       (uint32_t)(uint8_t)act_q8(y1, sc[r], inv[r]) << 8;
         }
       }
 #pragma unroll
@@ -396,11 +424,11 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
     Acc acc[64];
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] = 0;
-    // OUT_Q8_ACTQ: each of the thread's two rows' max of y, which the
+    // OUT_Q8_ACTQ*: each of the thread's two rows' max of y, which the
     // ROWMAX pass left; loaded before the products and first read after
     // them, so the load's latency hides under the mainloop
     int act_max[2] = {Q8_ORDERED_NEG_INF, Q8_ORDERED_NEG_INF};
-    if constexpr (OUT == WGG_OUT_Q8_ACTQ) {
+    if constexpr (wgg_actq(OUT)) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int row = m0 + 64 * wg + 16 * warp + (lane >> 2) + 8 * r;
@@ -449,7 +477,7 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
       for (int r = 0; r < 2; ++r)
         if (row_a + 8 * r < M) rs[r] = ep.row_scale[row_a + 8 * r];
     }
-    if constexpr (OUT == WGG_OUT_Q8_ROWMAX || OUT == WGG_OUT_Q8_ACTQ) {
+    if constexpr (OUT == WGG_OUT_Q8_ROWMAX || wgg_actq(OUT)) {
       q8_act_epilogue<OUT>(acc, ep, rs, act_max, row_a, n0, M, N, lane);
       continue;
     }
@@ -646,7 +674,7 @@ static cudaError_t launch_wgmma_gemm(const void* a, const void* b, const WggEpil
         ep.lddy < N || ep.lddy % 2 != 0)) ||
       (Q8 && (ep.row_scale == nullptr || ep.col_scale == nullptr || ep.bias == nullptr)) ||
       (OUT == WGG_OUT_Q8_ROWMAX && ep.rowmax == nullptr) ||
-      (OUT == WGG_OUT_Q8_ACTQ &&
+      (wgg_actq(OUT) &&
        (ep.rowmax == nullptr || ep.qscale == nullptr || ep.out == nullptr)) ||
       reinterpret_cast<uintptr_t>(a) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(b) % 16 != 0)

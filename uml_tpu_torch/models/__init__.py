@@ -1,1 +1,2 @@
-"""CLIP ViT model, tokenizer, checkpoint reading and encoder loading."""
+"""CLIP ViT and DINO / DINOv2 models, tokenizer, checkpoint reading and
+encoder loading."""

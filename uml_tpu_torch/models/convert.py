@@ -1,12 +1,13 @@
-"""flax CLIP variables -> OpenAI-schema state_dict; UML head trees.
+"""flax CLIP and DINO variables -> the port's state_dicts; UML head trees.
 
 ``state_dict_from_jax`` is the exact inverse of
 uml_tpu.models.port_torch.port_clip_state_dict: it takes the flax variable
 tree of uml_tpu.models.clip.CLIP as numpy arrays and returns the
 state_dict the port's CLIP (and an OpenAI ``.pt``) uses, so the tests can
-give both packages the same weights.  ``uml_head_params_from_jax`` does
-the same for the trainable tree of a uml_tpu UMLHead.  Pure numpy +
-torch: no jax import.
+give both packages the same weights.  ``dino_state_dict_from_jax`` does
+the same for uml_tpu.models.dino.DinoViT and the port's DinoViT,
+``uml_head_params_from_jax`` for the trainable tree of a uml_tpu UMLHead.
+Pure numpy + torch: no jax import.
 """
 
 from __future__ import annotations
@@ -61,6 +62,32 @@ def state_dict_from_jax(variables) -> dict:
     _ln(sd, "ln_final", t["ln_final"])
     sd["text_projection"] = _t(t["text_projection"])
     sd["logit_scale"] = _t(params["logit_scale"])
+    return sd
+
+
+def dino_state_dict_from_jax(variables) -> dict:
+    """{'params': {...}} of uml_tpu's DinoViT -> {key: fp32 tensor} of the
+    port's DinoViT (Linear kernels [in, out] -> weights [out, in], the
+    patch kernel HWIO -> OIHW; LayerScale where the tree has it)."""
+    params = variables["params"]
+    sd = {"patch_embed.weight": _t(np.asarray(
+              params["patch_embed"]["kernel"]).transpose(3, 2, 0, 1)),
+          "patch_embed.bias": _t(params["patch_embed"]["bias"]),
+          "cls_token": _t(params["cls_token"]),
+          "position_embeddings": _t(params["position_embeddings"]),
+          "norm.weight": _t(params["norm"]["scale"]),
+          "norm.bias": _t(params["norm"]["bias"])}
+    n = len([k for k in params if k.startswith("blocks_")])
+    for i in range(n):
+        blk, p = params[f"blocks_{i}"], f"blocks.{i}"
+        for name in ("norm1", "norm2"):
+            sd[f"{p}.{name}.weight"] = _t(blk[name]["scale"])
+            sd[f"{p}.{name}.bias"] = _t(blk[name]["bias"])
+        for name in ("qkv", "attn_out", "fc1", "fc2"):
+            _linear(sd, f"{p}.{name}", blk[name])
+        for name in ("layerscale1", "layerscale2"):
+            if name in blk:
+                sd[f"{p}.{name}"] = _t(blk[name])
     return sd
 
 

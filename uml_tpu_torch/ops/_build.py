@@ -54,8 +54,8 @@ SIGNATURES = {
     # x, g, b1, w1, w2, dy, dpre, yact, dxn, db1_part, dx, xn, dw1, db1,
     # dw2, rows, K, M, eps, stream
     "uml_mlp_bwd_dw": [_P] * 15 + [_I] * 3 + [_F, _P],
-    # x, w1, b1, w2, b2, xn, hidden, out, rows, K, M, eps, stream
-    "uml_mlp_block": [_P] * 8 + [_I] * 3 + [_F, _P],
+    # x, w1, b1, w2, b2, xn, hidden, out, rows, K, M, act, eps, stream
+    "uml_mlp_block": [_P] * 8 + [_I] * 4 + [_F, _P],
     # x, w1, b1, w2, b2, pre, xn, hidden, out, rows, K, M, eps, stream
     "uml_mlp_block_stash": [_P] * 9 + [_I] * 3 + [_F, _P],
     # qkv, dattn, stats, dqkv, B, S, H, causal, passes, stream
@@ -73,8 +73,8 @@ SIGNATURES = {
     # H, causal, q8_out, eps, stream
     "uml_attn_block_q8": [_P] * 12 + [_I] * 6 + [_F, _P],
     # x, w1q, w1sc, b1, w2q, w2sc, b2, q8, qscale, rowmax, out, rows, K,
-    # M, eps, stream
-    "uml_mlp_block_q8": [_P] * 11 + [_I] * 3 + [_F, _P],
+    # M, act, eps, stream
+    "uml_mlp_block_q8": [_P] * 11 + [_I] * 4 + [_F, _P],
     # x, wq, wsc, b_eff, woq, wosc, bo, w1q, w1sc, b1, w2q, w2sc, b2, q8,
     # qscale, qkv, attn, rowmax, mid, out, B, S, K, H, M, L, eps, stream
     "uml_tower_q8": [_P] * 20 + [_I] * 6 + [_F, _P],

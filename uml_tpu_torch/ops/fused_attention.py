@@ -20,7 +20,9 @@ in ``csrc/`` or raises, and counts the launch.
   ``csrc/flash_attention.cu``; the out-projection with the residual on
   the engine).  ``qkv_attention_fused`` is the route, as ``blocks.cuh``
   takes it; each launch of the fused kernel counts on
-  ``qkv_attention.launches`` too.  The CLS variant returns [B, 1, K]: the
+  ``qkv_attention.launches`` too, and each launch of the chain's
+  flash_attention.cu on ``attention.flash_attention.launches``
+  (``count_attention``).  The CLS variant returns [B, 1, K]: the
   TPU kernel's [B, 8, K] (CLS_ROWS = 8) is a sublane tile, and only its
   row 0 is used.
 * ``attn_block_stash``: the same launches, returning (out, qkv, attn).
@@ -114,6 +116,20 @@ def qkv_attention_fused(s: int) -> bool:
     S the chain of the QKV product on the wgmma engine into a qkv scratch
     and csrc/flash_attention.cu."""
     return s <= QKV_ATTN_MAX_S
+
+
+def count_attention(s: int, n: int = 1, fused_counter=None) -> None:
+    """Count the attention kernel that ``n`` attention halves launched
+    inside their C calls: on the fused route (S <= 256) the fused kernel,
+    on ``fused_counter`` (``qkv_attention``, or the int8 wrapper's), on the
+    chain csrc/flash_attention.cu, row 13's kernel, on
+    ``attention.flash_attention``."""
+    if qkv_attention_fused(s):
+        (fused_counter or qkv_attention).launches += n
+    else:
+        from uml_tpu_torch.ops.attention import flash_attention  # (a cycle)
+
+        flash_attention.launches += n
 
 
 def qkv_scratch(b: int, s: int, hd: int, device, stash: bool = False):
@@ -352,8 +368,7 @@ def _launch_attn_block(x, w_eff, b_eff, wo, bo, heads, causal, eps, q_rows,
             _build.launch(entry, *ptrs, q_rows, eps, stream)
         else:
             _build.launch(entry, *ptrs, eps, stream)
-    if qkv_attention_fused(s):
-        qkv_attention.launches += 1
+    count_attention(s)
     return (out, None if qkv is None else qkv.view(b, s, 3 * hd),
             attn.view(b, q_rows, hd))
 
@@ -519,8 +534,7 @@ def attn_block_bwd_recompute(x, g, w_eff, b_eff, wo, *, heads: int,
                       dx.data_ptr(), xn.data_ptr(), b, s, k, heads, int(causal),
                       eps, torch.cuda.current_stream(dev).cuda_stream)
     attn_block_bwd_recompute.launches += 1
-    if qkv_attention_fused(s):
-        qkv_attention.launches += 1
+    count_attention(s)
     return dx, dqkv, xn, attn
 
 

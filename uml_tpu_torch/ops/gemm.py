@@ -25,7 +25,8 @@ The triples, as ``(pro, epi, trans_b)``:
 * ``DACT`` (PRO_LN, EPI_DACT, False): the same with dy [M, N] bf16 and no
   column sums -> (dpre, yact) (row 19);
 * ``QUICK_GELU`` (PRO_LN, EPI_QUICK_GELU, False): y = bf16(rawLN(a)) @ w
-  + bias in fp32 -> bf16(quick_gelu(y)) (the MLP in);
+  + bias in fp32 -> bf16(quick_gelu(y)) (the MLP in); ``GELU_EXACT``
+  (PRO_LN, EPI_GELU_EXACT, False) the same with exact GELU (DINO's MLP in);
 * ``GELU_STASH`` (PRO_LN, EPI_GELU_STASH, False): the same -> (bf16(
   quick_gelu(y)), bf16(y)), the activation of the unrounded y (the MLP in
   of the training forward, with its pre-activation stash);
@@ -45,8 +46,8 @@ gemm_at: P and N multiples of 64, any row count; q8_gemm: int8 operands,
 the weight K-major [N, K]).  Every triple here runs on the engine.
 ``q8_gemm``'s ROWMAX and ACTQ are the two passes of the int8 MLP in
 (rows #11, #12): each row's max of y + b, then the int8 hidden of
-quick_gelu(y + b) with the row's scale from that max: F32 followed by
-``quant.act_quantize_rows``.
+act(y + b) (quick_gelu, or exact GELU for DINO) with the row's scale from
+that max: F32 followed by ``quant.act_quantize_rows``.
 """
 
 from __future__ import annotations
@@ -58,7 +59,7 @@ from uml_tpu_torch.ops.ln_matmul import (act_and_grad,
                                          add_ln_affine_rows_plain,
                                          gelu_exact_f32, ln_affine_rows_plain,
                                          ln_rows_plain, quick_gelu_f32)
-from uml_tpu_torch.ops.quant import act_quantize_rows, q8_dot
+from uml_tpu_torch.ops.quant import Q8_MLP_ACT, act_quantize_rows, q8_dot
 
 PRO_NONE, PRO_LN, PRO_LN_AFFINE, PRO_ADD_LN_AFFINE = 0, 1, 2, 3
 EPI_NONE, EPI_QUICK_GELU, EPI_RESIDUAL, EPI_GELU_STASH = 0, 1, 2, 3
@@ -69,6 +70,7 @@ TRIPLES = {"QKV": (PRO_LN, EPI_NONE, False),
            "DACT": (PRO_LN, EPI_DACT, False),
            "DACT_F32": (PRO_LN, EPI_DACT_F32, False),
            "QUICK_GELU": (PRO_LN, EPI_QUICK_GELU, False),
+           "GELU_EXACT": (PRO_LN, EPI_GELU_EXACT, False),
            "GELU_STASH": (PRO_LN, EPI_GELU_STASH, False),
            "RESIDUAL": (PRO_NONE, EPI_RESIDUAL, False),
            **{f"{name}{tag}": (pro, epi, False)
@@ -213,6 +215,8 @@ gemm_at.launches = 0
 
 
 Q8_EPIS = {"BF16": 0, "F32": 1, "RESIDUAL": 2, "ROWMAX": 3, "ACTQ": 4}  # Q8_EPI_*
+# ACTQ's epilogue by activation: Q8_EPI_ACTQ, Q8_EPI_ACTQ_GELU
+Q8_ACTQ_EPI = {"quick_gelu": 4, "gelu_exact": 5}
 
 
 def _ordered(bits):
@@ -223,11 +227,11 @@ def _ordered(bits):
 
 
 def q8_gemm_plain(a, w, row_scale, col_scale, bias, res=None, *, epi: str,
-                  rowmax=None):
+                  rowmax=None, activation="quick_gelu"):
     """Plain version of ``q8_gemm``: the integer product exact, then the
     epilogue in q8_gemm.cuh's order, each step rounded on its own.
-    ROWMAX: each row's max of y + b -> [M]; ACTQ: quick_gelu(y + b)
-    quantized per row with the scale from ``rowmax`` (ROWMAX's output;
+    ROWMAX: each row's max of y + b -> [M]; ACTQ: act(y + b) quantized
+    per row with the scale from ``rowmax`` (ROWMAX's output;
     ``quant.act_quantize_rows``' scale) -> (int8 [M, N], scale [M])."""
     y = q8_dot(a, row_scale[:, None], w.t(), col_scale)
     if epi == "RESIDUAL":
@@ -236,24 +240,28 @@ def q8_gemm_plain(a, w, row_scale, col_scale, bias, res=None, *, epi: str,
     if epi == "ROWMAX":
         return y.amax(-1)
     if epi == "ACTQ":
-        q, scale = act_quantize_rows(y, "quick_gelu", rowmax=rowmax[:, None])
+        q, scale = act_quantize_rows(y, activation, rowmax=rowmax[:, None])
         return q, scale[:, 0]
     return y if epi == "F32" else y.to(torch.bfloat16)
 
 
 def q8_gemm(a, w, row_scale, col_scale, bias, res=None, *, epi: str,
-            rowmax=None):
+            rowmax=None, activation="quick_gelu"):
     """a [M, K] int8; w [N, K] int8 (K-major: the transpose of the [in,
     out] kernel); row_scale [M], col_scale [N], bias [N] fp32; res [M, N]
     bf16 (RESIDUAL) -> [M, N]: bf16(y + b) (BF16), y + b in fp32 (F32) or
     bf16((res + y) + b) (RESIDUAL), y = ((float)(a . w^T) * row_scale) *
     col_scale; ROWMAX -> each row's max of y + b, [M] fp32; ACTQ with
     ``rowmax`` (ROWMAX's output) -> (int8 [M, N], fp32 [M]): the int8 MLP
-    hidden and its row scales.  The kernels keep the maxima as ordered
-    ints (``_ordered``); this wrapper converts them."""
+    hidden of ``activation`` ('quick_gelu' or 'gelu_exact') and its row
+    scales.  The kernels keep the maxima as ordered ints (``_ordered``);
+    this wrapper converts them."""
+    if activation not in Q8_MLP_ACT:
+        raise ValueError(f"q8_gemm: activation={activation!r}; the ACTQ "
+                         f"epilogue takes {list(Q8_MLP_ACT)}")
     if a.device.type == "cpu":
         return q8_gemm_plain(a, w, row_scale, col_scale, bias, res, epi=epi,
-                             rowmax=rowmax)
+                             rowmax=rowmax, activation=activation)
     m, k = a.shape
     n = w.shape[0]
     _build.check_dims(N=n, K=k)
@@ -283,7 +291,8 @@ def q8_gemm(a, w, row_scale, col_scale, bias, res=None, *, epi: str,
         _build.launch("uml_q8_gemm", a.data_ptr(), w.data_ptr(),
                       row_scale.data_ptr(), col_scale.data_ptr(),
                       bias.data_ptr(), _build.ptr(res), _build.ptr(out),
-                      _build.ptr(rowmax), _build.ptr(qscale), m, n, k, Q8_EPIS[epi],
+                      _build.ptr(rowmax), _build.ptr(qscale), m, n, k,
+                      Q8_ACTQ_EPI[activation] if epi == "ACTQ" else Q8_EPIS[epi],
                       torch.cuda.current_stream(dev).cuda_stream)
     q8_gemm.launches += 1
     if epi == "ROWMAX":

@@ -1,5 +1,5 @@
 """LayerNorm -> matmul ops: the MLP half-block
-x + quick_gelu(rawLN(x) @ w1 + b1) @ w2 + b2 and the stand-alone
+x + act(rawLN(x) @ w1 + b1) @ w2 + b2 and the stand-alone
 ``ln_matmul`` / ``add_ln_matmul`` of the non-fused CLIP branch.
 
 The port of uml_tpu/ops/ln_matmul.py::_mlp_block_kernel (its jnp twin is
@@ -12,7 +12,8 @@ they run the plain PyTorch versions below, on a CUDA tensor they launch
 engine) or ``csrc/mlp_block_bwd.cu``
 or raise, and count the launch.
 
-* ``mlp_block``: the inference forward.
+* ``mlp_block``: the inference forward, with CLIP's quick_gelu (the
+  default), DINO's exact GELU or no activation.
 * ``mlp_block_stash``: the training forward -> (out, pre), pre =
   rawLN(x) @ w1 + b1 rounded to bf16; the activation is taken of the
   unrounded pre, the order of ln_matmul.py:199-204.
@@ -41,8 +42,10 @@ or raise, and count the launch.
   card, ``_vjp.py``).  Unset, it is "kernel" on the card and the plain
   twin on the CPU (``mlp_bwd_mode``).
 
-The MLP half-block's activation is CLIP's quick_gelu, x * sigmoid(1.702 x)
-(ln_matmul.py:678-679).
+The training forms (the stash, the backwards, ``MlpBlockFn``) take CLIP's
+quick_gelu, x * sigmoid(1.702 x) (ln_matmul.py:678-679), only: the
+gradient of DINO's exact-GELU MLP half (the DINO full-model finetune) is
+still to port (ROADMAP.md, queue 1), and ``MlpBlockFn`` raises for it.
 
 The stand-alone ops (``csrc/ln_matmul.cu``), with uml_tpu's signatures and
 ``impl`` values ("auto": the plain version for a CPU tensor, the kernel for
@@ -134,10 +137,39 @@ def quick_gelu_f32(x: torch.Tensor) -> torch.Tensor:
     return x * (1.0 / (1.0 + torch.exp(-1.702 * x)))
 
 
-def mlp_block_plain(x, w1, b1, w2, b2, *, eps: float = 1e-5):
-    """Plain PyTorch version: bf16 (or fp32) operands, fp32 products and
-    statistics, one rounding to the weight dtype before each matmul."""
-    return mlp_block_stash_plain(x, w1, b1, w2, b2, eps=eps)[0]
+def gelu_exact_f32(x: torch.Tensor) -> torch.Tensor:
+    """erf-based GELU (ln_matmul.py:682-684)."""
+    return x * 0.5 * (1.0 + torch.erf(x * 2.0 ** -0.5))
+
+
+ACTIVATIONS = {None: lambda x: x, "quick_gelu": quick_gelu_f32,
+               "gelu_exact": gelu_exact_f32}
+# the C entries' activation codes (csrc/ln_gemm.cuh ACT_*)
+_ACT_CODE = {None: 0, "quick_gelu": 1, "gelu_exact": 2}
+
+
+def _act_code(activation) -> int:
+    if activation not in _ACT_CODE:
+        raise ValueError(f"activation={activation!r}: have {list(_ACT_CODE)}")
+    return _ACT_CODE[activation]
+
+
+def _mlp_plain(x, w1, b1, w2, b2, eps, activation):
+    """-> (out, pre): bf16 (or fp32) operands, fp32 products and
+    statistics, one rounding to the weight dtype before each matmul; the
+    activation of the unrounded fp32 pre."""
+    xf = x.float()
+    xn = raw_layer_norm(xf, eps).to(w1.dtype)
+    pre = xn.float() @ w1.float() + b1.float()
+    y = ACTIVATIONS[activation](pre).to(w2.dtype)
+    out = (xf + y.float() @ w2.float() + b2.float()).to(x.dtype)
+    return out, pre
+
+
+def mlp_block_plain(x, w1, b1, w2, b2, *, eps: float = 1e-5,
+                    activation: str | None = "quick_gelu"):
+    """Plain PyTorch version of ``mlp_block``."""
+    return _mlp_plain(x, w1, b1, w2, b2, eps, activation)[0]
 
 
 def _check_mlp(x, w1, b1, w2, b2):
@@ -154,11 +186,14 @@ def _check_mlp(x, w1, b1, w2, b2):
     return x.numel() // k, k, m, bf16, dev
 
 
-def mlp_block(x, w1, b1, w2, b2, *, eps: float = 1e-5):
+def mlp_block(x, w1, b1, w2, b2, *, eps: float = 1e-5,
+              activation: str | None = "quick_gelu"):
     """x [..., K] bf16; w1 [K, M] bf16 (ln_2-folded); b1 [M] fp32;
-    w2 [M, K] bf16; b2 [K] fp32 -> [..., K]."""
+    w2 [M, K] bf16; b2 [K] fp32 -> [..., K]; ``activation``: None,
+    'quick_gelu' (CLIP) or 'gelu_exact' (DINO)."""
+    act = _act_code(activation)
     if x.device.type == "cpu":
-        return mlp_block_plain(x, w1, b1, w2, b2, eps=eps)
+        return mlp_block_plain(x, w1, b1, w2, b2, eps=eps, activation=activation)
     rows, k, m, bf16, dev = _check_mlp(x, w1, b1, w2, b2)
     with torch.cuda.device(dev):
         xn = torch.empty_like(x)
@@ -167,7 +202,7 @@ def mlp_block(x, w1, b1, w2, b2, *, eps: float = 1e-5):
         _build.launch("uml_mlp_block", x.data_ptr(), w1.data_ptr(),
                       b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
                       xn.data_ptr(), hidden.data_ptr(), out.data_ptr(), rows,
-                      k, m, eps, torch.cuda.current_stream(dev).cuda_stream)
+                      k, m, act, eps, torch.cuda.current_stream(dev).cuda_stream)
     mlp_block.launches += 1
     return out
 
@@ -175,13 +210,16 @@ def mlp_block(x, w1, b1, w2, b2, *, eps: float = 1e-5):
 mlp_block.launches = 0
 
 
-def ln_mlp_block(x, scale, bias, w1, b1, w2, b2, *, eps: float = 1e-5):
-    """x + quick_gelu(LN(x) @ w1 + b1) @ w2 + b2 with the LN affine params
-    folded into w1/b1 first — the signature of uml_tpu's ln_mlp_block."""
+def ln_mlp_block(x, scale, bias, w1, b1, w2, b2, *, eps: float = 1e-5,
+                 activation: str | None = None):
+    """x + act(LN(x) @ w1 + b1) @ w2 + b2 with the LN affine params folded
+    into w1/b1 first — the signature of uml_tpu's ln_mlp_block, whose
+    default activation is None, the identity."""
     from uml_tpu_torch.ops.fused_attention import fold_ln_into_matmul
 
     w1_eff, b1_eff = fold_ln_into_matmul(scale, bias, w1, b1)
-    return mlp_block(x, w1_eff, b1_eff, w2, b2.float(), eps=eps)
+    return mlp_block(x, w1_eff, b1_eff, w2, b2.float(), eps=eps,
+                     activation=activation)
 
 
 MLP_STASH_MAX_BYTES = 256 * 2**20  # per-layer pre-stash cap (see the gate)
@@ -200,11 +238,7 @@ def mlp_stash_enabled(bsz: int, s: int, m: int, itemsize: int) -> bool:
 
 def mlp_block_stash_plain(x, w1, b1, w2, b2, *, eps: float = 1e-5):
     """Plain PyTorch version of the stash forward -> (out, pre)."""
-    xf = x.float()
-    xn = raw_layer_norm(xf, eps).to(w1.dtype)
-    pre = xn.float() @ w1.float() + b1.float()
-    y = quick_gelu_f32(pre).to(w2.dtype)
-    out = (xf + y.float() @ w2.float() + b2.float()).to(x.dtype)
+    out, pre = _mlp_plain(x, w1, b1, w2, b2, eps, "quick_gelu")
     return out, pre.to(x.dtype)
 
 
@@ -408,12 +442,19 @@ def mlp_bwd_mode(x) -> str | None:
 
 
 class MlpBlockFn(torch.autograd.Function):
-    """mlp_block with a gradient: the stash forward and backward under the
-    memory gate, else the inference forward and the backward UML_MLP_BWD
-    picks."""
+    """mlp_block (quick_gelu) with a gradient: the stash forward and
+    backward under the memory gate, else the inference forward and the
+    backward UML_MLP_BWD picks.  Another ``activation`` raises: its
+    backward is not ported."""
 
     @staticmethod
-    def forward(ctx, x, w1, b1, w2, b2, eps):
+    def forward(ctx, x, w1, b1, w2, b2, eps, activation="quick_gelu"):
+        if activation != "quick_gelu":
+            raise NotImplementedError(
+                f"MlpBlockFn: the gradient of the MLP half with activation="
+                f"{activation!r} (the DINO full-model finetune) is not ported "
+                "yet; ROADMAP.md, queue 1: the exact-GELU backward rows 9, "
+                "19 and 20")
         ctx.eps = eps
         if mlp_stash_enabled(x.shape[0], x.shape[1], w1.shape[1],
                              x.element_size()):
@@ -430,29 +471,19 @@ class MlpBlockFn(torch.autograd.Function):
         if len(ctx.saved_tensors) == 6:
             x, w1, b1, w2, b2, pre = ctx.saved_tensors
             return (*mlp_bwd_via_stash(x, g, pre, w1, b1, w2, b2, eps=ctx.eps),
-                    None)
+                    None, None)
         x, w1, b1, w2, b2 = ctx.saved_tensors
         mode = mlp_bwd_mode(x)
         if mode == "dw" and x.dim() == 3:
             return (*mlp_bwd_dw_via_kernel(x, g, w1, b1, w2, b2, eps=ctx.eps),
-                    None)
+                    None, None)
         if mode == "kernel":
             return (*mlp_bwd_via_kernel(x, g, w1, b1, w2, b2, eps=ctx.eps),
-                    None)
+                    None, None)
         eps = ctx.eps
         return (*plain_vjp(lambda *a: mlp_block_plain(*a, eps=eps),
                            ctx.saved_tensors, (g,), ctx.needs_input_grad[:5]),
-                None)
-
-
-def gelu_exact_f32(x: torch.Tensor) -> torch.Tensor:
-    """erf-based GELU (ln_matmul.py:682-684)."""
-    return x * 0.5 * (1.0 + torch.erf(x * 2.0 ** -0.5))
-
-
-ACTIVATIONS = {None: lambda x: x, "quick_gelu": quick_gelu_f32,
-               "gelu_exact": gelu_exact_f32}
-_ACT_CODE = {None: 0, "quick_gelu": 1, "gelu_exact": 2}  # csrc/ln_matmul.cu
+                None, None)
 
 
 def supports_ln_matmul(k: int, m: int, dtype=torch.bfloat16) -> bool:
@@ -494,7 +525,7 @@ def _ln_matmul_fwd(x, scale, bias, w, b, eps, activation):
         _build.launch("uml_ln_matmul", x.data_ptr(), scale.data_ptr(),
                       bias.data_ptr(), w.data_ptr(), b.data_ptr(),
                       xn.data_ptr(), out.data_ptr(), rows, k, m,
-                      _ACT_CODE[activation], eps,
+                      _act_code(activation), eps,
                       torch.cuda.current_stream(dev).cuda_stream)
     ln_matmul.launches += 1
     return out
@@ -570,7 +601,7 @@ def _add_ln_matmul_fwd(x, delta, scale, bias, w, b, eps, activation):
         _build.launch("uml_add_ln_matmul", x.data_ptr(), delta.data_ptr(),
                       scale.data_ptr(), bias.data_ptr(), w.data_ptr(),
                       b.data_ptr(), xn.data_ptr(), t.data_ptr(), out.data_ptr(),
-                      rows, k, m, _ACT_CODE[activation], eps,
+                      rows, k, m, _act_code(activation), eps,
                       torch.cuda.current_stream(dev).cuda_stream)
     add_ln_matmul.launches += 1
     return t, out

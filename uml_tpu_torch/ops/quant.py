@@ -1,9 +1,9 @@
-"""Int8 (W8A8) inference half-blocks of the CLIP layers.
+"""Int8 (W8A8) inference half-blocks of the CLIP and DINO layers.
 
 The port of uml_tpu/ops/quant.py: ``_block_q8_kernel`` (the int8
 attention half, causal or not, with an int8 or a bf16 out-projection) and
-``_mlp_q8_kernel`` (the int8 MLP half, quick_gelu).  Its own copy of the
-math, importing nothing of uml_tpu:
+``_mlp_q8_kernel`` (the int8 MLP half, quick_gelu for CLIP, exact GELU for
+DINO).  Its own copy of the math, importing nothing of uml_tpu:
 
 * weights: symmetric per-output-channel int8 of the LN-folded fp32
   weights (``quantize_weight``), scale = max(absmax, 1e-12) / 127;
@@ -28,6 +28,9 @@ plain version that each rounded to bf16 could land two steps apart).
 Wrappers: ``attn_block_q8`` / ``mlp_block_q8`` take the plain version for
 a CPU tensor and launch ``csrc/attn_block_q8.cu`` / ``csrc/mlp_block_q8.cu``
 for a CUDA tensor, or raise; each counts its launches on ``.launches``.
+``mlp_block_q8`` takes quick_gelu and exact GELU, on the card and off it;
+uml_tpu's identity activation (None) raises: its int8 hidden needs each
+row's abs-max, not the row max that the card's c_fc pass finds.
 For S <= 256 (``qkv_attention_fused``) the int8 attention half runs its
 QKV product and attention as the int8 instance of ``csrc/qkv_attention.cu``
 (q, k, v in shared memory, no qkv scratch), counted on
@@ -53,9 +56,10 @@ import torch
 from uml_tpu_torch.ops import _build
 from uml_tpu_torch.ops.fused_attention import (HEAD_DIM, QKV_ATTN_MAX_S,
                                                _qkv_heads, attention_plain,
+                                               count_attention,
                                                fold_ln_into_matmul,
                                                qkv_attention_fused, qkv_scratch)
-from uml_tpu_torch.ops.ln_matmul import quick_gelu_f32
+from uml_tpu_torch.ops.ln_matmul import gelu_exact_f32, quick_gelu_f32
 
 INT8_MAX = 127.0
 
@@ -92,12 +96,11 @@ def ln_quantize_rows(xf: torch.Tensor, eps: float):
     return _to_int8((xf - mean) * (rstd / scale)), scale
 
 
-def _gelu_exact_f32(x):
-    return x * 0.5 * (1.0 + torch.erf(x * (2.0 ** -0.5)))
-
-
 ACTIVATIONS = {None: lambda x: x, "quick_gelu": quick_gelu_f32,
-               "gelu_exact": _gelu_exact_f32}
+               "gelu_exact": gelu_exact_f32}
+# the activations of the int8 MLP half and their codes (csrc/ln_gemm.cuh
+# ACT_*): those whose negative lobe bounds the row scale from the row max
+Q8_MLP_ACT = {"quick_gelu": 1, "gelu_exact": 2}
 # |global minimum| of each activation's negative lobe, padded ~1% so the
 # bound never under-covers it: quick_gelu bottoms at -0.1637, exact GELU
 # at -0.1700 (quant.py:116-121)
@@ -219,8 +222,7 @@ def _launch_attn_block_q8(x, wq, wsc, b_eff, wo_ops, bo, heads, causal,
                       _build.ptr(qkv), attn.data_ptr(), out.data_ptr(), b, s,
                       k, heads, int(causal), int(q8_out), eps,
                       torch.cuda.current_stream(dev).cuda_stream)
-    if qkv_attention_fused(s):
-        qkv_attention_q8.launches += 1
+    count_attention(s, fused_counter=qkv_attention_q8)
     return out, q8, qscale
 
 
@@ -296,10 +298,12 @@ def mlp_q8_scratch(rows: int, k: int, m: int, dev):
             torch.empty(rows, dtype=torch.int32, device=dev))
 
 
-def _launch_mlp_block_q8(x, w1q, w1sc, b1, w2q, w2sc, b2, eps):
+def _launch_mlp_block_q8(x, w1q, w1sc, b1, w2q, w2sc, b2, eps,
+                         activation="quick_gelu"):
     """The int8 weights K-major: w1q [M, K], w2q [K, M] -> (out, q8,
-    qscale): q8[:rows*M] then holds the integers of quick_gelu(pre) and
-    qscale[:rows] their row scales (the scratch the launches wrote)."""
+    qscale): q8[:rows*M] then holds the integers of act(pre) and
+    qscale[:rows] their row scales, q8[rows*M:] and qscale[rows:] the
+    LN-quantized rows and theirs (the scratch the launches wrote)."""
     k = x.shape[-1]
     m = w1sc.shape[-1]
     _build.check_dims(K=k, M=m)
@@ -319,24 +323,31 @@ def _launch_mlp_block_q8(x, w1q, w1sc, b1, w2q, w2sc, b2, eps):
                       w1sc.data_ptr(), b1.data_ptr(), w2q.data_ptr(),
                       w2sc.data_ptr(), b2.data_ptr(), q8.data_ptr(),
                       qscale.data_ptr(), rowmax.data_ptr(), out.data_ptr(), rows,
-                      k, m, eps, torch.cuda.current_stream(dev).cuda_stream)
+                      k, m, Q8_MLP_ACT[activation], eps,
+                      torch.cuda.current_stream(dev).cuda_stream)
     return out, q8, qscale
 
 
 def mlp_block_q8(x, w1q, w1sc, b1, w2q, w2sc, b2, *, eps: float = 1e-5,
                  activation="quick_gelu"):
     """x [..., K] bf16; w1q int8 [K,M], w1sc / b1 fp32 [M]; w2q int8 [M,K],
-    w2sc / b2 fp32 [K] -> [..., K].  The kernel takes quick_gelu only and
-    reads the int8 weights K-major (the module docstring)."""
+    w2sc / b2 fp32 [K] -> [..., K]; ``activation`` 'quick_gelu' (CLIP) or
+    'gelu_exact' (DINO).  The kernel reads the int8 weights K-major (the
+    module docstring)."""
     check_inference("mlp_block_q8", x, b1, b2)
+    if activation not in Q8_MLP_ACT:
+        raise ValueError(
+            f"mlp_block_q8: activation={activation!r} is not ported (it takes "
+            f"{list(Q8_MLP_ACT)}): without a GELU's lobe bound the int8 hidden "
+            "needs each row's abs-max, which the card's row-max pass does not "
+            "find (ROADMAP.md, queue 1: the int8 MLP half without an "
+            "activation)")
     if x.device.type == "cpu":
         return mlp_block_q8_plain(x, w1q, w1sc, b1, w2q, w2sc, b2, eps=eps,
                                   activation=activation)
-    if activation != "quick_gelu":
-        raise ValueError(f"activation={activation!r}: the CUDA kernel "
-                         "takes quick_gelu only")
     out, _, _ = _launch_mlp_block_q8(x, w1q.t().contiguous(), w1sc, b1,
-                                     w2q.t().contiguous(), w2sc, b2, eps)
+                                     w2q.t().contiguous(), w2sc, b2, eps,
+                                     activation)
     mlp_block_q8.launches += 1
     return out
 

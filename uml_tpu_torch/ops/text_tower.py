@@ -17,7 +17,7 @@ them:
 * any other shape (the ViT-L/14 text tower, K = 768; S > 128): the chain,
   one C call that loops over the layers and launches the causal attention
   half and the MLP half of each; each layer's fused QKV + attention kernel
-  (S <= 256) counts on ``qkv_attention.launches`` too.
+  (S <= 256) counts on ``qkv_attention.launches`` too (``count_attention``).
 
 The residual is rounded to the activation dtype between halves and
 between layers, as in the TPU kernel.
@@ -41,8 +41,7 @@ import torch
 from uml_tpu_torch.ops import _build
 from uml_tpu_torch.ops._vjp import plain_vjp
 from uml_tpu_torch.ops.fused_attention import (HEAD_DIM, attn_block_plain,
-                                               qkv_attention, qkv_attention_fused,
-                                               qkv_scratch)
+                                               count_attention, qkv_scratch)
 from uml_tpu_torch.ops.ln_matmul import mlp_block_plain
 
 
@@ -272,8 +271,8 @@ def text_tower(x, w_eff, b_eff, wo, bo, w1, b1, w2, b2, *, heads: int,
             mid, out, table, counters, partial)), b, s, k, heads, m, layers, n_items,
             n_counters, grid, bn, eps, torch.cuda.current_stream(dev).cuda_stream)
     text_tower.launches += 1
-    if not fused and qkv_attention_fused(s):
-        qkv_attention.launches += layers
+    if not fused:
+        count_attention(s, layers)
     return out
 
 

@@ -10,7 +10,8 @@ the layers with the bf16 residual between halves and between layers
 same launches as ``attn_block_q8`` + ``mlp_block_q8``, so on the card its
 output equals the per-layer int8 path bit for bit; each layer's int8
 fused QKV + attention kernel (S <= 256) counts on
-``qkv_attention_q8.launches`` too.  Inference-only.
+``qkv_attention_q8.launches`` too, the chain's flash_attention.cu (S >
+256) on ``attention.flash_attention.launches``.  Inference-only.
 
 Weights are stacked per layer, LN-folded and pre-quantized
 (``quantize_weight`` on the fp32 folded weights, as the per-layer path
@@ -31,7 +32,8 @@ from __future__ import annotations
 import torch
 
 from uml_tpu_torch.ops import _build
-from uml_tpu_torch.ops.fused_attention import HEAD_DIM, qkv_scratch
+from uml_tpu_torch.ops.fused_attention import (HEAD_DIM, count_attention,
+                                               qkv_scratch)
 from uml_tpu_torch.ops.quant import (attn_block_q8_plain, check_inference,
                                      mlp_block_q8_plain, mlp_q8_scratch,
                                      qkv_attention_q8)
@@ -100,8 +102,7 @@ def tower_q8(x, wq, wsc, b_eff, woq, wosc, bo, w1q, w1sc, b1, w2q, w2sc, b2, *,
             q8, qscale, qkv, attn, rowmax, mid, out)), b, s, k, heads, m, layers,
             eps, torch.cuda.current_stream(dev).cuda_stream)
     tower_q8.launches += 1
-    if qkv is None:
-        qkv_attention_q8.launches += layers
+    count_attention(s, layers, fused_counter=qkv_attention_q8)
     return out
 
 
