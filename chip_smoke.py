@@ -141,6 +141,25 @@ Phases (any failure exits non-zero; no phase is caught):
    version's on at most 0.1% of its integers, its scales within rtol
    1e-6; a profile of one such call shows the LN quantize pass, ROWMAX,
    the exact-GELU quantizing pass and c_proj.
+5b. DINO training (``[dino-train]``): finetune --vision_model
+   vit_base_patch14_dinov2.lvd142m --hyperparams smoke_full (the
+   DINOv2-B/14 tower at full width, bs 8, 30 steps) on the phase-3
+   fixture and the [dino] phase's text cache, with the stashes and then
+   with both off under UML_MLP_BWD=kernel and =dw: per step 11
+   attention halves (stash or recompute) and the CLS half with its
+   backward, 12 exact-GELU MLP halves (rows 9, or 19 / 20), 12 (or 23)
+   flash_attention launches on the chain; the saved model holds head_w,
+   img_proj_w and the DINO backbone, every tensor of which moved.  A
+   profile of one bs-4 step per mode shows the engine's exact-GELU
+   instances (OUT_GELU_EXACT with its stash, OUT_DACT_BF16_EXACT,
+   OUT_DACT_EXACT) and none of the quick_gelu ones.  A bs-4 step card vs
+   CPU in every backward mode (loss within 1%, gradient cosines >= 0.99);
+   the step at bs 64 (stashes on, and both off under UML_MLP_BWD=kernel)
+   and bs 256 (the default gate: no MLP stash, row 19) with its phases,
+   device-busy share and peak memory.
+   Phase 2 holds rows 5-8 at S = 257 and rows 9, 19 and 20 with exact
+   GELU at DINOv2-B/14 B = 64 (the ``*_dino`` entries of DINO_TRAIN_PORTS
+   on the kernel line, their launches from these runs).
 6. the products of the engine (bf16 beside torch.matmul, int8 beside
    torch._int_mm) and the attention backward's passes as one JSON line,
    the kernel table as one JSON line, the device line last.
@@ -232,6 +251,36 @@ DINO_PORTS = [
     ("flash_attention_dino", "flash_attention", "uml_tpu_torch/csrc/flash_attention.cu",
      "uml_tpu/ops/attention.py:90"),
 ]
+# the DINO training slice's entries (the full-model finetune at DINOv2-B/14:
+# rows 5-8 at S = 257, eps 1e-6; rows 9, 19 and 20 with exact GELU): (name,
+# the wrapper whose launches the [dino-train] CLI runs count, the backward
+# mode of that run, source, TPU kernel it replaces), held and timed at
+# B = 64 (16,448 rows)
+DINO_TRAIN_PORTS = [
+    ("attn_block_stash_dino", "attn_block_stash", "default",
+     "uml_tpu_torch/csrc/attn_block.cu", "uml_tpu/ops/fused_attention.py:394"),
+    ("attn_block_bwd_dino", "attn_block_bwd", "default",
+     "uml_tpu_torch/csrc/attn_block_bwd.cu", "uml_tpu/ops/fused_attention.py:1209"),
+    ("attn_block_bwd_recompute_dino", "attn_block_bwd_recompute", "kernel",
+     "uml_tpu_torch/csrc/attn_block_bwd.cu", "uml_tpu/ops/fused_attention.py:722"),
+    ("attn_block_cls_bwd_dino", "attn_block_cls_bwd", "default",
+     "uml_tpu_torch/csrc/attn_block_bwd.cu", "uml_tpu/ops/fused_attention.py:1298"),
+    ("mlp_block_stash_dino", "mlp_block_stash", "default",
+     "uml_tpu_torch/csrc/mlp_block.cu", "uml_tpu/ops/ln_matmul.py:186"),
+    ("mlp_bwd_dino", "mlp_bwd", "kernel",
+     "uml_tpu_torch/csrc/mlp_block_bwd.cu", "uml_tpu/ops/ln_matmul.py:310"),
+    ("mlp_bwd_dw_dino", "mlp_bwd_dw", "dw",
+     "uml_tpu_torch/csrc/mlp_block_bwd.cu", "uml_tpu/ops/ln_matmul.py:417"),
+]
+# the engine's MLP-in and recompute instances a DINO train step must show
+# in each backward mode, and the quick_gelu instances it must not: the
+# exact-GELU stash (WGG_OUT_GELU_EXACT = 9 with aux), OUT_DACT_BF16_EXACT =
+# 14 (row 19), OUT_DACT_EXACT = 13 (row 20), against OUT_GELU = 3,
+# OUT_DACT_BF16 = 5, OUT_DACT = 2
+DINO_TRAIN_ENGINE = {
+    "default": ("wgmma_gemm_kernel<false, true, 9>", "wgmma_gemm_kernel<false, true, 3>"),
+    "kernel": ("wgmma_gemm_kernel<false, true, 14>", "wgmma_gemm_kernel<false, true, 5>"),
+    "dw": ("wgmma_gemm_kernel<false, true, 13>", "wgmma_gemm_kernel<false, true, 2>")}
 DINO = "vit_base_patch14_dinov2.lvd142m"
 DINO_LM = "bert-base-uncased"
 TRAIN_PORTS = ("attn_block_stash", "attn_block_bwd", "attn_block_cls_bwd",
@@ -328,7 +377,8 @@ REL_BOUND = {"attn_block": 1 / 64, "attn_block_cls": 1 / 64,
              # differ in summation order only
              "attn_bwd_dq": (1 / 64, 1e-3), "attn_bwd_dkv": (1 / 64, 1 / 64),
              # the DINO path's kernels at DINOv2-B/14 B = 64: as above
-             **{name: 1 / 64 for name, _, _, _ in DINO_PORTS}}
+             **{name: 1 / 64 for name, _, _, _ in DINO_PORTS},
+             **{name: 1 / 64 for name, _, _, _, _ in DINO_TRAIN_PORTS}}
 # the kernels that rows 14-17 launch, by their names in a profile: the LN
 # pre-pass (ln_rows_kernel<PRO_LN_AFFINE = 2 | PRO_ADD_LN_AFFINE = 3>) and
 # the engine's product (epilogue WGG_OUT_BF16 = 0, OUT_GELU = 3,
@@ -965,7 +1015,7 @@ def phase_kernels():
     cases += (_long_seq_cases(gen, dev, attn_v)
               + _route_cases(gen, dev, attn_v, q8v)
               + _product_cases(gen, dev, xv, g_v, wv, qkv_v)
-              + _dino_cases(dev))
+              + _dino_cases(dev) + _dino_train_cases(dev))
     results = _hold_and_time(cases, dev)
     # the streaming kernel against the dense twin that keeps its scores in
     # bf16 (mha_plain, the backward's function): recorded, not held
@@ -1441,6 +1491,65 @@ def _dino_cases(dev):
         ("flash_attention_dino", at.flash_attention, at.attention_plain,
          tuple(t.contiguous() for t in heads), 0, attn_f, (None,) * 4,
          torch.nn.functional.scaled_dot_product_attention),
+    ]
+
+
+def _dino_train_cases(dev):
+    """Phase-2 cases of the DINO full-model finetune's training rows at
+    DINOv2-B/14 B = 64 (the entries of DINO_TRAIN_PORTS; the layer of
+    ``_dino_inputs``, eps 1e-6): rows 5-8 on the chain (S = 257), rows 9,
+    19 and 20 with exact GELU; the backwards take the plain stash forward's
+    qkv and random cotangents."""
+    import torch
+
+    from uml_tpu_torch.ops import fused_attention as fa
+    from uml_tpu_torch.ops import ln_matmul as lm
+
+    x, wv, _ = _dino_inputs(dev)
+    b, s, k = x.shape
+    rows, m, eps = b * s, 3072, 1e-6
+    gen = torch.Generator(device=dev).manual_seed(3)
+    g = torch.randn(b, s, k, generator=gen, device=dev).to(torch.bfloat16)
+    g1 = torch.randn(b, 1, k, generator=gen, device=dev).to(torch.bfloat16)
+    attn_v = (wv["w_eff"], wv["b_eff"], wv["wo"], wv["bo"])
+    mlp_v = (wv["w1"], wv["b1"], wv["w2"], wv["b2"])
+    qkv = fa.attn_block_stash_plain(x, *attn_v, heads=12, eps=eps)[1]
+    qkv_c = fa.attn_block_stash_plain(x, *attn_v, heads=12, eps=eps, q_rows=1)[1]
+    dy = torch.matmul(g, wv["w2"].t())           # row 19's bf16 dy = g . w2^T
+    qkv_f, out_f, mlp_f = 2.0 * rows * k * 3 * k, 2.0 * rows * k * k, 4.0 * rows * k * m
+    attn_f = _attn_flops(b, s, 12)
+    yard_qkv, yard_fc = (rows, k, 3 * k, False), (rows, k, m, False)
+    att = dict(heads=12, eps=eps)
+    gelu = dict(eps=eps, activation="gelu_exact")
+    return [
+        ("attn_block_stash_dino", lambda *a: fa.attn_block_stash(*a, **att),
+         lambda *a: fa.attn_block_stash_plain(*a, **att), (x, *attn_v), 0,
+         qkv_f + out_f + attn_f, yard_qkv),
+        # dattn = g . wo^T, the attention backward (10 S^2 D per head), dxn
+        ("attn_block_bwd_dino", lambda *a: fa.attn_block_bwd(*a, **att),
+         lambda *a: fa.attn_block_bwd_plain(*a, **att),
+         (x, g, qkv, wv["w_eff"], wv["wo"]), 0, out_f + 2.5 * attn_f + qkv_f, yard_qkv),
+        ("attn_block_bwd_recompute_dino",
+         lambda *a: fa.attn_block_bwd_recompute(*a, **att),
+         lambda *a: fa.attn_block_bwd_recompute_plain(*a, **att),
+         (x, g, *attn_v[:3]), 0, 2 * qkv_f + out_f + 3.5 * attn_f, yard_qkv),
+        # as the ViT-B/16 case: the dense dxn's FLOPs, an upper bound
+        ("attn_block_cls_bwd_dino", lambda *a: fa.attn_block_cls_bwd(*a, **att),
+         lambda *a: fa.attn_block_cls_bwd_plain(*a, **att),
+         (x, g1, qkv_c, wv["w_eff"], wv["wo"]), 0,
+         2.0 * rows * 2 * k * k + 4.0 * b * k * k
+         + 2.5 * _attn_flops(b, s, 12, q_rows=1), (rows, k, 2 * k, False)),
+        ("mlp_block_stash_dino", lambda *a: lm.mlp_block_stash(*a, **gelu),
+         lambda *a: lm.mlp_block_stash_plain(*a, **gelu), (x, *mlp_v), 0, mlp_f,
+         yard_fc),
+        # pre = xn . w1 and dxn = dpre . w1^T
+        ("mlp_bwd_dino", lambda *a: lm.mlp_bwd(*a, **gelu),
+         lambda *a: lm.mlp_bwd_plain(*a, **gelu), (x, dy, wv["b1"], wv["w1"]), 0,
+         mlp_f, yard_fc),
+        # dy, pre, dxn, dw1 and dw2: five [rows] x [K] x [M] products
+        ("mlp_bwd_dw_dino", lambda *a: lm.mlp_bwd_dw(*a, **gelu),
+         lambda *a: lm.mlp_bwd_dw_plain(*a, **gelu),
+         (x, g, wv["b1"], wv["w1"], wv["w2"]), 0, 2.5 * mlp_f, yard_fc),
     ]
 
 
@@ -1986,6 +2095,95 @@ def phase_dino(root, sizes):
     return entries, numbers
 
 
+def phase_dino_train(root, sizes):
+    """The DINO training slice's main path: finetune --vision_model
+    DINOv2-B/14 --hyperparams smoke_full on the phase-3 fixture and the
+    [dino] phase's text cache, with the stashes (rows 5, 6, 8, 9) and with
+    both off under UML_MLP_BWD=kernel (rows 7, 19) and =dw (rows 7, 20);
+    the launch counters of each run, the tower moved, a profile of one
+    step per mode showing the exact-GELU instances; a bs-4 step card vs
+    CPU in every backward mode; the step at bs 64 (stashes on, and the
+    recompute under UML_MLP_BWD=kernel) and bs 256 (the default gate: no
+    MLP stash) -> ({DINO_TRAIN_PORTS name: launches}, numbers)."""
+    from uml_tpu_torch.ops import attention as at
+    from uml_tpu_torch.ops import fused_attention as fa
+    from uml_tpu_torch.ops import ln_matmul as lm
+
+    wrappers = {"attn_block": fa.attn_block, "attn_block_cls": fa.attn_block_cls,
+                "mlp_block": lm.mlp_block, "attn_block_stash": fa.attn_block_stash,
+                "attn_block_bwd": fa.attn_block_bwd,
+                "attn_block_cls_bwd": fa.attn_block_cls_bwd,
+                "mlp_block_stash": lm.mlp_block_stash,
+                "attn_block_bwd_recompute": fa.attn_block_bwd_recompute,
+                "mlp_bwd": lm.mlp_bwd, "mlp_bwd_dw": lm.mlp_bwd_dw,
+                "qkv_attention": fa.qkv_attention,
+                "flash_attention": at.flash_attention}
+    none = dict.fromkeys(wrappers, 0)
+    encoder = ["--vision_model", DINO, "--language_model", DINO_LM,
+               "--feature_dir", f"{root}/features_dino_none"]
+    # 30 steps at bs 8; the evals (val at iter 0 and for the best model,
+    # test at the end) in batches of 8 through the inference halves; every
+    # attention half at S = 257 runs the chain (no fused kernel): one
+    # flash_attention launch each, the recompute backward's included
+    steps = 30
+    n_eval = 2 * -(-sizes["val"] // 8) + -(-sizes["test"] // 8)
+    evals = {"attn_block": 11 * n_eval, "attn_block_cls": steps + n_eval,
+             "mlp_block": 12 * n_eval, "attn_block_cls_bwd": steps,
+             "flash_attention": 12 * (n_eval + steps)}
+    plans = {
+        "default": ({}, {"attn_block_stash": 11 * steps, "attn_block_bwd": 11 * steps,
+                         "mlp_block_stash": 12 * steps}),
+        **{mode: (RECOMPUTE_MODES[mode], {
+            "attn_block": 11 * (n_eval + steps), "mlp_block": 12 * (n_eval + steps),
+            "attn_block_bwd_recompute": 11 * steps,
+            "flash_attention": 12 * (n_eval + steps) + 11 * steps,
+            ("mlp_bwd" if mode == "kernel" else "mlp_bwd_dw"): 12 * steps})
+           for mode in ("kernel", "dw")}}
+    numbers, launches = {}, {}
+    for mode, (env, plan) in plans.items():
+        with _env(env):
+            got, wall, result = _finetune(root, "smoke_full", wrappers,
+                                          f"experiments_dino_{mode}", encoder)
+            want = {**none, **evals, **plan}
+            _check(got == want, (f"DINO smoke_full {mode} launches", got, want))
+            _check_tower_moved(result, f"DINO smoke_full ({mode})", dino=DINO)
+            _check(set(result["model"]) == {"head_w", "img_proj_w", "backbone"},
+                   ("DINO smoke_full model leaves", sorted(result["model"])))
+        launches[mode] = got
+        numbers[f"dino_finetune_smoke_full_{mode}_wall_s"] = wall
+        print(f"[dino-train] finetune --vision_model {DINO} --hyperparams smoke_full "
+              f"({mode}): {wall:.2f} s; launches { {k: v for k, v in got.items() if v} }")
+    # one bs-4 step per mode: the MLP halves ran the exact-GELU instances of
+    # the engine, and no quick_gelu one
+    model, batch = _head_and_batch(4, dino=DINO)
+    model.to("cuda")
+    batch = tuple(t.to("cuda") for t in batch)
+    for mode, (want_kernel, not_kernel) in DINO_TRAIN_ENGINE.items():
+        env = {} if mode == "default" else RECOMPUTE_MODES[mode]
+        with _env(env):
+            names = _kernel_names(_profile(
+                f"DINOv2-B/14 bs-4 train step ({mode})",
+                lambda: _loss(model, batch).backward(), top=6))
+        _check(any(want_kernel in n for n in names)
+               and not any(not_kernel in n for n in names),
+               (f"DINO train step ({mode}): {want_kernel}, no {not_kernel}", names))
+    del model, batch
+    numbers.update(_card_vs_cpu_step("dino_default", dino=DINO))
+    with _env({**RECOMPUTE, "UML_MLP_BWD": "unset"}):
+        numbers.update(_card_vs_cpu_step("dino_recompute_unset", dino=DINO))
+    for mode, env in RECOMPUTE_MODES.items():
+        with _env(env):
+            numbers.update(_card_vs_cpu_step(f"dino_recompute_{mode}", dino=DINO))
+    numbers.update(_train_step_rates(64, [
+        ("stash", {}, None), ("recompute_kernel", RECOMPUTE_MODES["kernel"], None)],
+        dino=DINO, prefix="dino_train"))
+    numbers.update(_train_step_rates(256, [("gate_default", {"UML_MLP_BWD": "unset"},
+                                            None)], dino=DINO, prefix="dino_train"))
+    entries = {name: launches[mode][wrapper]
+               for name, wrapper, mode, _, _ in DINO_TRAIN_PORTS}
+    return entries, numbers
+
+
 def _rows_cos_min(a, b):
     """Smallest per-row cosine of two feature tensors (any device)."""
     return _cos_min(a.float().cpu().numpy(), b.float().cpu().numpy())
@@ -2195,19 +2393,22 @@ def _text_grad_card_vs_cpu():
     return {"text_tower_min_grad_cosine": cosines[worst]}
 
 
-def _finetune(root, grid, wrappers, result_dir="experiments"):
+def _finetune(root, grid, wrappers, result_dir="experiments", encoder=None):
     """One finetune CLI run into ``root/result_dir`` -> (launch counts,
-    wall seconds, the combo's test_result)."""
+    wall seconds, the combo's test_result).  ``encoder``: the CLI's encoder
+    and text-cache flags (default: the ViT-B/16 CLIP and phase 3's
+    caches)."""
     import torch
 
     from uml_tpu_torch.cli import finetune as ft
     from uml_tpu_torch.data.feature_cache import load_cache
 
+    encoder = encoder or ["--clip-encoder", "ViT-B/16", "--feature_dir",
+                          f"{root}/features"]
     args = ft.build_parser().parse_args([
-        "--data_dir", root, "--indices_dir", f"{root}/indices",
-        "--feature_dir", f"{root}/features", "--result_dir",
-        f"{root}/{result_dir}", "--dataset", "caltech101",
-        "--clip-encoder", "ViT-B/16", "--allow-random-init",
+        "--data_dir", root, "--indices_dir", f"{root}/indices", *encoder,
+        "--result_dir", f"{root}/{result_dir}", "--dataset", "caltech101",
+        "--allow-random-init",
         "--train-shot", "16", "--seed", "1", "--text_type", "hand_crafted",
         "--modality", "crossmodal", "--alpha", "1", "--hyperparams", grid])
     args.overwrite = False
@@ -2242,18 +2443,21 @@ def np_flat(v):
     return [float(x) for x in np.asarray(v, np.float64).reshape(-1)]
 
 
-def _check_tower_moved(result, what):
+def _check_tower_moved(result, what, dino=None):
     """The saved best model is the iter-0 snapshot: one adamw step from the
     encoder's random init (generator seed 0); every image-tower tensor
-    must differ from the init."""
+    must differ from the init (``dino``: the DinoViT of that name, every
+    tensor)."""
     import torch
 
     from uml_tpu_torch.models.clip import build_clip
+    from uml_tpu_torch.models.dino import load_dino
 
-    init = build_clip("ViT-B/16").init_random(
-        torch.Generator().manual_seed(0)).state_dict()
+    init = (build_clip("ViT-B/16").init_random(torch.Generator().manual_seed(0))
+            if dino is None else load_dino(dino, allow_random_init=True)).state_dict()
     trained = result["model"]["backbone"]
-    visual = [k for k in init if k.startswith("visual.")]
+    _check(set(trained) == set(init), (what, "backbone keys"))
+    visual = list(init) if dino else [k for k in init if k.startswith("visual.")]
     moved = [k for k in visual
              if (torch.as_tensor(trained[k]) - init[k]).abs().max().item() > 0]
     _check(len(moved) == len(visual), (what, "tower tensors moved", len(moved),
@@ -2369,24 +2573,34 @@ def phase_train(root, sizes):
     return full, recompute, numbers
 
 
-def _head_and_batch(bsz, gen_seed=0, clip_kw=None, config=None):
+def _head_and_batch(bsz, gen_seed=0, clip_kw=None, config=None, dino=None):
     """A random-init ViT-B/16 UML head (bf16 compute, every CLIP leaf
     trainable; ``clip_kw``: build_clip's attn_impl / ln_matmul_impl;
-    ``config``: a ClipConfig in place of ViT-B/16's) and one crossmodal
-    batch of ``bsz`` on the CPU."""
+    ``config``: a ClipConfig in place of ViT-B/16's; ``dino``: the named
+    DinoViT's UML head instead, img_proj into a 768-wide text space, as
+    the DINO finetune builds it) and one crossmodal batch of ``bsz`` on
+    the CPU."""
     import numpy as np
     import torch
 
     from uml_tpu_torch.models.clip import CLIP, build_clip
-    from uml_tpu_torch.models.uml_head import make_uml_clip_head
+    from uml_tpu_torch.models.dino import load_dino
+    from uml_tpu_torch.models.uml_head import make_uml_clip_head, make_uml_dino_head
 
-    clip = (build_clip("ViT-B/16", dtype=torch.bfloat16, **(clip_kw or {}))
-            if config is None else
-            CLIP(config, dtype=torch.bfloat16, **(clip_kw or {}))).init_random(
-        torch.Generator().manual_seed(gen_seed))
-    res, width = clip.config.image_resolution, clip.config.embed_dim
-    model = make_uml_clip_head(clip, 8, freeze_backbone=False,
-                               generator=torch.Generator().manual_seed(1))
+    head_gen = torch.Generator().manual_seed(1)
+    if dino is not None:
+        backbone = load_dino(dino, allow_random_init=True)   # generator seed 0
+        res, width = backbone.config.image_size, 768
+        model = make_uml_dino_head(backbone, 8, text_indim=width,
+                                   freeze_backbone=False, generator=head_gen)
+    else:
+        clip = (build_clip("ViT-B/16", dtype=torch.bfloat16, **(clip_kw or {}))
+                if config is None else
+                CLIP(config, dtype=torch.bfloat16, **(clip_kw or {}))).init_random(
+            torch.Generator().manual_seed(gen_seed))
+        res, width = clip.config.image_resolution, clip.config.embed_dim
+        model = make_uml_clip_head(clip, 8, freeze_backbone=False,
+                                   generator=head_gen)
     rng = np.random.default_rng(gen_seed)
     batch = (torch.from_numpy(rng.integers(0, 256, (bsz, res * res * 3),
                                            dtype=np.uint8)),
@@ -2408,12 +2622,13 @@ def _loss(model, batch):
             + weighted_ce(txt @ model.head_w * s_txt, tlab, tw))
 
 
-def _card_vs_cpu_step(mode, clip_kw=None, config=None):
+def _card_vs_cpu_step(mode, clip_kw=None, config=None, dino=None):
     """One bs-4 forward + backward on the card and on the CPU plain path,
     same weights and batch, in the backward mode the environment sets."""
     import torch
 
-    cpu_model, cpu_batch = _head_and_batch(4, clip_kw=clip_kw, config=config)
+    cpu_model, cpu_batch = _head_and_batch(4, clip_kw=clip_kw, config=config,
+                                           dino=dino)
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
     gpu_batch = tuple(t.to("cuda") for t in cpu_batch)
     losses, grads = [], []
@@ -2428,12 +2643,13 @@ def _card_vs_cpu_step(mode, clip_kw=None, config=None):
     cosines = {}
     for key, g in grads[1].items():
         a, b = grads[0][key], g
-        if key.endswith("attn.in_proj_bias"):
+        if key.endswith(("attn.in_proj_bias", ".qkv.bias")):
             a, b = (torch.cat([t.chunk(3)[0], t.chunk(3)[2]]) for t in (a, b))
         cosines[key] = float((a * b).sum() / (a.norm() * b.norm() + 1e-30))
     worst = min(cosines, key=cosines.get)
     rel = abs(losses[0] - losses[1]) / abs(losses[1])
-    print(f"[train] bs-4 step card vs CPU ({mode}): loss {losses[0]:.6f} vs "
+    tag = "dino-train" if dino else "train"
+    print(f"[{tag}] bs-4 step card vs CPU ({mode}): loss {losses[0]:.6f} vs "
           f"{losses[1]:.6f} (rel {rel:.2e}, bound {STEP_LOSS_RTOL}); "
           f"{len(cosines)} gradient tensors, min cosine "
           f"{cosines[worst]:.6f} ({worst}), bound {STEP_MIN_GRAD_COSINE}")
@@ -2445,18 +2661,22 @@ def _card_vs_cpu_step(mode, clip_kw=None, config=None):
             f"step_min_grad_cosine{suffix}": cosines[worst]}
 
 
-def _train_step_rates(bsz, modes, iters=10, clip_kw=None):
+def _train_step_rates(bsz, modes, iters=10, clip_kw=None, dino=None,
+                      prefix="train"):
     """Steady-state full-model train step (forward, backward, adamw) at
     ``bsz`` on a staged batch, in each mode of ``modes`` ((tag, environment,
     microbatch or None), run in turn on one model), with its peak memory,
-    its phases and a profile."""
+    its phases and a profile; ``dino``: the named DinoViT's head, numbers
+    under ``prefix``."""
     import torch
 
     from uml_tpu_torch.ops import ln_matmul as lm
     from uml_tpu_torch.train.accum import microbatched_step
     from uml_tpu_torch.train.optim import build_optimizer, build_schedule
 
-    model, batch = _head_and_batch(bsz, clip_kw=clip_kw)
+    model, batch = _head_and_batch(bsz, clip_kw=clip_kw, dino=dino)
+    tag_line = "dino-train" if dino else "train"
+    what = f"{dino} " if dino else ""
     model.to("cuda")
     batch = tuple(t.to("cuda") for t in batch)
     opt = build_optimizer("adamw", build_schedule(5e-5, "cosine", 50, 12800),
@@ -2513,10 +2733,10 @@ def _train_step_rates(bsz, modes, iters=10, clip_kw=None):
                       for i in range(3)]
             env_s = " ".join(f"{k}={v}" for k, v in env.items()) or "default env"
             how = f", {bsz // micro} x {micro} through train/accum.py" if micro else ""
-            print(f"[train] full-model train step bs {bsz} {tag} ({env_s}"
+            print(f"[{tag_line}] {what}full-model train step bs {bsz} {tag} ({env_s}"
                   f"{how}): {ms:.3f} ms = {rate:.1f} img/s (forward, backward, "
                   f"adamw; peak memory {peak:.2f} GiB)")
-            print(f"[train] phases on the card's stream (CUDA events): forward "
+            print(f"[{tag_line}] phases on the card's stream (CUDA events): forward "
                   f"{phases[0]:.3f} ms, backward {phases[1]:.3f} ms, adamw "
                   f"{phases[2]:.3f} ms; launches over the {iters} steps: mlp_bwd "
                   f"{mlp_launches[0]}, mlp_bwd_dw {mlp_launches[1]}")
@@ -2525,16 +2745,17 @@ def _train_step_rates(bsz, modes, iters=10, clip_kw=None):
                 _check(mlp_launches[0] > 0 and mlp_launches[1] == 0,
                        ("bs-256 default gate: mlp_bwd", mlp_launches))
             first = tag == "stash"
-            _gemm_classes(f"train step bs {bsz} {tag}",
-                          _profile(f"train step bs {bsz} {tag}", step,
-                                   top=16 if first else 10, by_op=first))
+            rows = _profile(f"{what}train step bs {bsz} {tag}", step,
+                            top=16 if first else 10, by_op=first)
+            _gemm_classes(f"{what}train step bs {bsz} {tag}", rows)
         # the bs-64 stash step keeps the keys of the earlier runs
         key = f"bs{bsz}" if first else f"bs{bsz}_{tag}"
-        numbers.update({f"train_step_ms_{key}": ms, f"train_img_per_s_{key}": rate,
-                        f"train_peak_gib_{key}": peak,
-                        f"train_forward_ms_{key}": phases[0],
-                        f"train_backward_ms_{key}": phases[1],
-                        f"train_adamw_ms_{key}": phases[2]})
+        numbers.update({f"{prefix}_step_ms_{key}": ms, f"{prefix}_img_per_s_{key}": rate,
+                        f"{prefix}_peak_gib_{key}": peak,
+                        f"{prefix}_forward_ms_{key}": phases[0],
+                        f"{prefix}_backward_ms_{key}": phases[1],
+                        f"{prefix}_adamw_ms_{key}": phases[2],
+                        f"{prefix}_device_busy_{key}": _busy_share(rows, ms)})
     return numbers
 
 
@@ -2596,6 +2817,12 @@ def _profile(what, fn, reps=3, top=10, by_op=False):
     return rows
 
 
+def _busy_share(rows, step_ms, reps=3):
+    """The device's busy share of a step: the device time per call of a
+    ``_profile`` of ``reps`` calls over the step's unprofiled time."""
+    return sum(t for _, t, _ in rows) / reps / 1e3 / step_ms
+
+
 def _gemm_classes(what, rows):
     """The device time of a profile's library GEMM kernels (cuBLAS, CUTLASS;
     not the port's ln_gemm / gemm_at) by the number format of their
@@ -2644,6 +2871,8 @@ def main() -> int:
     rate.update(train_numbers)
     dino_launches, dino_numbers = phase_dino(root, sizes)
     rate.update(dino_numbers)
+    dino_train_launches, dino_train_numbers = phase_dino_train(root, sizes)
+    rate.update(dino_train_numbers)
     # each port's launches come from the path it belongs to: the bf16
     # serving kernels from the features run, the int8 ones from the
     # features --quant int8 run and its tower encode, the training kernels
@@ -2655,10 +2884,14 @@ def main() -> int:
                 **{k: train_launches[k] for k in TRAIN_PORTS},
                 **{k: recompute_launches[k] for k in RECOMPUTE_PORTS}}
     launches.update(dino_launches)
+    launches.update(dino_train_launches)
     _check(all(launches[name] > 0 for name, _, _ in PORTS)
-           and all(dino_launches[name] > 0 for name, _, _, _ in DINO_PORTS), launches)
+           and all(dino_launches[name] > 0 for name, _, _, _ in DINO_PORTS)
+           and all(dino_train_launches[name] > 0 for name, *_ in DINO_TRAIN_PORTS),
+           launches)
     table = []
-    for name, source, replaces in PORTS + [(n, s, r) for n, _, s, r in DINO_PORTS]:
+    for name, source, replaces in (PORTS + [(n, s, r) for n, _, s, r in DINO_PORTS]
+                                   + [(n, s, r) for n, _, _, s, r in DINO_TRAIN_PORTS]):
         row = kernels[name]
         table.append({"name": name, "route": "cuda", "source": source,
                       "replaces": replaces, "launches": launches[name],

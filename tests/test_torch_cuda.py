@@ -16,7 +16,9 @@ same bf16 operands, gemm_at at every row-chunk count; the int8 GEMM at ragged
 row counts and every int8 width, equal to torch._int_mm's integer sum and
 to its plain version bit for bit; DINO's exact-GELU MLP halves, row 3 at
 K in {384, 768, 1024} and S in {197, 257, 785}, row 11 and c_fc's
-exact-GELU quantizing pass, and a DINOv2 batch against the CPU).  Marked ``cuda``: they skip without an NVIDIA GPU (sm_90a) and
+exact-GELU quantizing pass, a DINOv2 batch against the CPU, and the
+exact-GELU training rows 9, 19 and 20 at S in {9, 17, 257} with the
+engine's exact-GELU triples).  Marked ``cuda``: they skip without an NVIDIA GPU (sm_90a) and
 run on the card with ``python -m pytest tests/test_torch_cuda.py -q``.
 The text tower runs at B in {1, 3, 64} and S in {77, 129}, both sides of
 its route (one launch for S <= 128, the chain above), and at the ViT-B
@@ -616,6 +618,30 @@ def test_mlp_bwd_dw_kernel(dev, s):
     assert [t.dtype for t in got] == [torch.bfloat16] + [torch.float32] * 3
 
 
+# DINO's training rows with exact GELU and eps 1e-6 (9 the stash forward,
+# 19 and 20 the recompute backwards) at S = 9, 17 and DINOv2's 257
+@pytest.mark.parametrize("s", [9, 17, 257])
+def test_mlp_gelu_exact_training_kernels(dev, s):
+    """Rows 9, 19 and 20 with exact GELU against their plain versions;
+    row 9's out equals row 3's (mlp_block with exact GELU) bit for bit,
+    and the quick_gelu default of each wrapper still runs its own
+    instance (a different result on the same inputs)."""
+    x, w = _x(dev, s), _weights(dev)
+    g, dy = _g(dev, x.shape), _g(dev, (B, s, M))
+    gelu = dict(eps=1e-6, activation="gelu_exact")
+    n = (lm.mlp_block_stash.launches, lm.mlp_bwd.launches, lm.mlp_bwd_dw.launches)
+    stash = lm.mlp_block_stash(x, *w[4:], **gelu)
+    bwd = lm.mlp_bwd(x, dy, w[5], w[4], **gelu)
+    bwd_dw = lm.mlp_bwd_dw(x, g, w[5], w[4], w[6], **gelu)
+    assert (lm.mlp_block_stash.launches, lm.mlp_bwd.launches,
+            lm.mlp_bwd_dw.launches) == tuple(c + 1 for c in n)
+    _close_all(stash, lm.mlp_block_stash_plain(x, *w[4:], **gelu))
+    _close_all(bwd, lm.mlp_bwd_plain(x, dy, w[5], w[4], **gelu))
+    _close_all(bwd_dw, lm.mlp_bwd_dw_plain(x, g, w[5], w[4], w[6], **gelu))
+    assert torch.equal(stash[0], lm.mlp_block(x, *w[4:], **gelu))
+    assert not torch.equal(bwd[2], lm.mlp_bwd(x, dy, w[5], w[4], eps=1e-6)[2])
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     x, w = _x(dev, 17), _weights(dev)
     with pytest.raises(TypeError):
@@ -936,8 +962,11 @@ def _triple_operands(dev, triple, rows, k):
     K] . W_eff [K, 3K]; TRANS_B g . wo^T; TRANS_B_F32 dqkv [rows, 3K] .
     W_eff^T; DACT_F32 x . w1 [K, 4K] with an fp32 dy; QUICK_GELU and
     GELU_STASH x . w1 (the MLP in); RESIDUAL hidden [rows, 4K] . w2 [4K,
-    K] + x (the MLP out); DACT x . w1 with a bf16 dy (row 19)."""
+    K] + x (the MLP out); DACT x . w1 with a bf16 dy (row 19); the
+    exact-GELU twins GELU_EXACT_STASH, DACT_EXACT and DACT_F32_EXACT
+    (DINO's rows 9, 19 and 20) as their quick_gelu triples."""
     g = torch.Generator().manual_seed(rows + k)
+    triple = triple.replace("GELU_EXACT_STASH", "GELU_STASH").replace("_EXACT", "")
 
     def rnd(*shape, std=1.0, dtype=torch.bfloat16):
         return (torch.randn(*shape, generator=g) * std).to(dtype).to(dev)
@@ -963,7 +992,8 @@ def _triple_operands(dev, triple, rows, k):
 @pytest.mark.parametrize("k", [768, 512])
 @pytest.mark.parametrize("rows", GEMM_ROWS)
 @pytest.mark.parametrize("triple", ["QKV", "TRANS_B", "TRANS_B_F32", "DACT", "DACT_F32",
-                                    "QUICK_GELU", "GELU_STASH", "RESIDUAL"])
+                                    "QUICK_GELU", "GELU_STASH", "RESIDUAL",
+                                    "GELU_EXACT_STASH", "DACT_EXACT", "DACT_F32_EXACT"])
 def test_engine_triple_kernel(dev, triple, rows, k):
     from uml_tpu_torch.ops import gemm
 

@@ -329,12 +329,17 @@ def test_load_dino_without_weights(monkeypatch):
 
 
 def test_training_is_refused():
-    """The DINO full-model finetune is not ported: a forward that autograd
-    would differentiate raises; frozen parameters run."""
+    """Training the int8 serving mode is refused (the int8 halves have no
+    gradient): a forward that autograd would differentiate raises, frozen
+    parameters run.  The bf16 / fp32 model trains (the full-model
+    finetune, tests/test_torch_dino_train.py)."""
     cfg = _config(14)
-    model = _port(cfg, _variables(cfg, seed=0))
+    model = _port(cfg, _variables(cfg, seed=0), torch.bfloat16, quant="int8")
     u8 = torch.from_numpy(_images(cfg, 0).reshape(2, -1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="inference-only"):
         model(u8, from_uint8=True)
     model.requires_grad_(False)
     assert model(u8, from_uint8=True).shape == (2, WIDTH)
+    model = _port(cfg, _variables(cfg, seed=0))
+    model(u8, from_uint8=True).sum().backward()
+    assert all(p.grad is not None for p in model.parameters())

@@ -58,9 +58,10 @@ def test_checkpoint_loads_with_sha_check(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("cli,flags,message", [
-    # the DINO full-model finetune (the frozen grids run)
+    # mid-run checkpoints of the finetune, with the DINO full-model grid
+    # (which runs without the flag)
     (finetune, ["--vision_model", "vit_base_patch16_224_dino",
-                "--hyperparams", "smoke_full"], "not ported"),
+                "--hyperparams", "smoke_full", "--ckpt_every", "5"], "not ported"),
     # an HF language model whose files are in the local cache: uml_tpu would
     # run it, the port refuses, even under --allow-random-init
     (features, ["--language_model", "gpt2", "--allow-random-init"], "not ported"),

@@ -269,17 +269,21 @@ def test_mlp_wrappers_pass_the_activation_code(monkeypatch, activation):
 
 
 def test_mlp_block_fn_refuses_another_activation():
-    """The gradient of the exact-GELU MLP half is not ported: MlpBlockFn
-    raises for it (quick_gelu keeps its default)."""
+    """MlpBlockFn trains quick_gelu (its default) and DINO's exact GELU;
+    any other activation, uml_tpu's identity (None) among them, raises
+    before any work."""
     rng = np.random.default_rng(13)
     tw = _torch(_weights(rng), torch.float32)
     x = torch.tensor(rng.standard_normal((B, 9, K)), dtype=torch.float32,
                      requires_grad=True)
     mlp = (tw["w1"], tw["b1"], tw["w2"], tw["b2"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlm.MlpBlockFn.apply(x, *mlp, 1e-5, "gelu_exact")
-    tlm.MlpBlockFn.apply(x, *mlp, 1e-5, "quick_gelu").sum().backward()
-    assert x.grad is not None and torch.isfinite(x.grad).all()
+    for act in (None, "gelu"):
+        with pytest.raises(ValueError, match="training forms"):
+            tlm.MlpBlockFn.apply(x, *mlp, 1e-5, act)
+    for act in ("quick_gelu", "gelu_exact"):
+        x.grad = None
+        tlm.MlpBlockFn.apply(x, *mlp, 1e-5, act).sum().backward()
+        assert x.grad is not None and torch.isfinite(x.grad).all()
 
 
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])

@@ -1,4 +1,4 @@
-"""Supervised UML finetune CLI (CLIP ViT and frozen DINO encoders).
+"""Supervised UML finetune CLI (CLIP ViT and DINO / DINOv2 encoders).
 
 The port of uml_tpu/cli/finetune.py (flag and artifact parity with the
 reference's vision_language/finetune.py):
@@ -21,8 +21,13 @@ from the ``--language_model`` cache, and the head is UML's: ``img_proj``
 from the DINO width into the text width (crossmodal) or ``--common_dim``
 (uml_tpu/cli/finetune.py:176-186, 356-364).  The full path
 (``full_ds_full_model_finetune``, ``smoke_full``) streams raw uint8
-batches through the trainable image tower: on the card its layers run the
-training kernels of ``uml_tpu_torch/csrc``.  Which ones is set, as in
+batches through the trainable image tower, the CLIP's (``make_uml_clip_head``)
+or with ``--vision_model`` the DINO's (``make_uml_dino_head``: UML's head
+with ``img_proj`` into the text width or ``--common_dim``, the text
+features from the ``--language_model`` cache; uml_tpu/cli/finetune.py:
+147-154): on the card its layers run the training kernels of
+``uml_tpu_torch/csrc`` (DINO's MLP halves with exact GELU, eps 1e-6).
+Which ones is set, as in
 uml_tpu, by environment variables, not flags: ``UML_BWD_STASH`` ("1", the
 default: the attention halves stash qkv and the attention output; "0":
 they recompute them in the backward), ``UML_MLP_STASH`` ("auto", the
@@ -37,16 +42,21 @@ the reference does (only for ``linear``).
 (``head_w``, and ``img_proj_w`` / ``img_scale`` / ``txt_scale`` where they
 exist) and, on the full path, ``backbone``: the trained CLIP as an
 OpenAI-schema state_dict (the port's own layout, which
-uml_tpu/models/port_torch.py reads), where uml_tpu saves its flax tree.
+uml_tpu/models/port_torch.py reads), or the trained DinoViT's state_dict,
+where uml_tpu saves its flax tree.
 
     python -m uml_tpu_torch.cli.finetune -d --dataset caltech101 \\
         --clip-encoder ViT-B/16 --train-shot 16 --seed 1 \\
         --text_type hand_crafted --modality crossmodal --alpha 0.5 \\
         --hyperparams smoke_full ...
+    python -m uml_tpu_torch.cli.finetune -d --dataset caltech101 \\
+        --vision_model vit_base_patch14_dinov2.lvd142m \\
+        --language_model bert-base-uncased --train-shot 16 --seed 1 \\
+        --text_type hand_crafted --modality crossmodal --alpha 0.5 \\
+        --hyperparams smoke_full --allow-random-init ...
 
-Not ported yet (each raises before any work): the DINO full-model
-finetune (the full-finetune grids with ``--vision_model``), the RN towers,
-a multi-device ``--mesh`` and ``--ckpt_every``.
+Not ported yet (each raises before any work): the RN towers, a
+multi-device ``--mesh`` and ``--ckpt_every``.
 ``--quant`` other than none raises too: the int8 modes are inference-only
 serving modes of the features CLI (uml_tpu's finetune ignores the flag).
 """
@@ -74,7 +84,8 @@ from uml_tpu_torch.data.fewshot import (
 from uml_tpu_torch.data.loader import ImageBatchLoader, RawImageStream
 from uml_tpu_torch.models.clip import CLIP_CONFIGS
 from uml_tpu_torch.models.dino import DINO_CONFIGS
-from uml_tpu_torch.models.uml_head import UMLHead, make_uml_clip_head
+from uml_tpu_torch.models.uml_head import (UMLHead, make_uml_clip_head,
+                                           make_uml_dino_head)
 from uml_tpu_torch.train.optim import HYPER_DICT, build_optimizer, build_schedule
 from uml_tpu_torch.train.supervised import (
     EVAL_FREQ,
@@ -175,10 +186,20 @@ def setup(datasets, hparams, args):
     if not freezes_backbone(args):
         # full backbone finetuning: raw uint8 batches through a trainable
         # copy of the tower (each combo starts from the encoder's weights)
-        model = make_uml_clip_head(
-            copy.deepcopy(encoder.model), args.nclasses,
-            logit_scale=args.logit, learnable_temp=hparams["learnable_temp"],
-            freeze_backbone=False, generator=gen)
+        if args.use_clip:
+            model = make_uml_clip_head(
+                copy.deepcopy(encoder.model), args.nclasses,
+                logit_scale=args.logit, learnable_temp=hparams["learnable_temp"],
+                freeze_backbone=False, generator=gen)
+        else:
+            # UML semantics with the DINO tower trainable
+            # (uml_tpu/cli/finetune.py:147-154)
+            proj_dim = (args.text_indim if args.modality == "crossmodal"
+                        else args.common_dim)
+            model = make_uml_dino_head(
+                copy.deepcopy(encoder.model), args.nclasses, text_indim=proj_dim,
+                learnable_temp=hparams["learnable_temp"], freeze_backbone=False,
+                generator=gen)
         image_stream = RawImageStream(datasets["img_tr_ds"],
                                       args.image_augmentation, bs,
                                       seed=args.seed)
@@ -297,12 +318,6 @@ def sweep(datasets, hyperparams, args):
 def check_ported(args) -> None:
     """Raise for flags whose code is not ported yet, before any work."""
     check_encoder_ported(args)
-    if args.vision_model and not freezes_backbone(args):
-        raise SystemExit(
-            f"--vision_model {args.vision_model} --hyperparams "
-            f"{args.hyperparams}: the DINO full-model finetune (the exact-GELU "
-            "MLP backward, make_uml_dino_head) is not ported to uml_tpu_torch "
-            "yet (ROADMAP.md, queue 1); the frozen grids run")
     if getattr(args, "quant", "none") != "none":
         raise SystemExit(f"--quant {args.quant}: the int8 modes serve the "
                          "features CLI (inference-only); finetune trains in "

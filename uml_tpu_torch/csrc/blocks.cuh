@@ -77,11 +77,12 @@ static inline cudaError_t run_attn_block(const __nv_bfloat16* x, const __nv_bflo
 
 // MLP half: out = x + act(rawLN(x) . w1 + b1) . w2 + b2, act one of
 // ACT_NONE, ACT_QUICK_GELU (CLIP) and ACT_GELU_EXACT (DINO), and with pre
-// non-null (quick_gelu only) the pre-activation stash of the training
-// forward, pre = bf16(rawLN(x) . w1 + b1), which the backward reads (the
-// activation is taken of the unrounded pre).  Three launches, the same
-// with the stash and without: the LN row pre-pass into xn, the MLP in
-// (the activation in its epilogue) and the MLP out on the wgmma engine.
+// non-null (either GELU; ACT_NONE has no stash) the pre-activation stash
+// of the training forward, pre = bf16(rawLN(x) . w1 + b1), which the
+// backward reads (the activation is taken of the unrounded pre).  Three
+// launches, the same with the stash and without: the LN row pre-pass into
+// xn, the MLP in (the activation in its epilogue) and the MLP out on the
+// wgmma engine.
 //   x [rows, K]; w1 [K, M]; w2 [M, K]; xn [rows, K] and hidden [rows, M]
 //   are scratch; pre [rows, M] or null.
 static inline cudaError_t run_mlp_block(const __nv_bfloat16* x, const __nv_bfloat16* w1,
@@ -90,8 +91,7 @@ static inline cudaError_t run_mlp_block(const __nv_bfloat16* x, const __nv_bfloa
                                         __nv_bfloat16* hidden, __nv_bfloat16* out, int rows,
                                         int K, int M, float eps, int act, cudaStream_t stream,
                                         __nv_bfloat16* pre = nullptr) {
-  const int epi = pre != nullptr ? (act == ACT_QUICK_GELU ? EPI_GELU_STASH : -1)
-                                 : act_epilogue(act);
+  const int epi = pre != nullptr ? act_stash_epilogue(act) : act_epilogue(act);
   if (epi < 0) return cudaErrorInvalidValue;
   LnPrologue ops;
   ops.xn = xn;

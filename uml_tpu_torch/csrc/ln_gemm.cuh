@@ -16,11 +16,11 @@
 //   W   [K, N] bf16, row-major (the JAX / flax kernel layout), or with
 //       TRANS_B [N, K] row-major (the product then takes W^T)
 //   b   [N] fp32, or null for no bias
-//   res [M, N] bf16 with row stride ldres (EPI_RESIDUAL, EPI_DACT), or
-//       fp32 (EPI_DACT_F32)
+//   res [M, N] bf16 with row stride ldres (EPI_RESIDUAL, EPI_DACT(_EXACT)),
+//       or fp32 (EPI_DACT_F32(_EXACT))
 //   out [M, N] bf16, contiguous (fp32 for EPI_F32)
-//   aux [M, N] bf16, contiguous (EPI_GELU_STASH, EPI_DACT, EPI_DACT_F32)
-//   colsum_part [ceil(M / 128), N] fp32, or null (EPI_DACT_F32 only)
+//   aux [M, N] bf16, contiguous (the two stashes and the four DACT epilogues)
+//   colsum_part [ceil(M / 128), N] fp32, or null (EPI_DACT_F32(_EXACT) only)
 //
 // prologue: a row pre-pass (ln_rows_kernel, one warp per row) writes xn
 //   [M, K] once to the caller's buffer (LnPrologue::xn); the product reads
@@ -48,7 +48,8 @@
 //   EPI_RESIDUAL (y + res),
 //   EPI_GELU_STASH (out = quick_gelu(y) and aux = y, the pre-activation
 //   the MLP backward reads; the activation is taken of the unrounded fp32
-//   y, the order of _mlp_block_kernel_stash, ln_matmul.py:199-204), and
+//   y, the order of _mlp_block_kernel_stash, ln_matmul.py:199-204),
+//   EPI_GELU_EXACT_STASH (the same with exact GELU: DINO's MLP in), and
 //   EPI_F32 (y stored in fp32, for the LN backward that follows), and
 //   EPI_DACT / EPI_DACT_F32, the MLP backward's recompute (the bodies of
 //   _mlp_bwd_kernel and _mlp_bwd_dw_kernel, ln_matmul.py:310-533): y is
@@ -58,7 +59,10 @@
 //   s: quick_gelu'(y) = s (1 + 1.702 y (1 - s)) (ln_matmul.py:296-302).
 //   EPI_DACT_F32 also writes the column sums of the fp32 dpre over each
 //   128-row tile to colsum_part[row tile] (db1 is their sum over the row
-//   tiles: a second pass, in a fixed order).
+//   tiles: a second pass, in a fixed order).  EPI_DACT_EXACT and
+//   EPI_DACT_F32_EXACT are the two with exact GELU (DINO): aux = gelu(y) =
+//   y Phi(y), dpre = dy * (Phi(y) + y phi(y)) (ln_matmul.py:303-307, with
+//   the card's erff where the TPU fits erf with a rational).
 //
 // Every triple runs on the wgmma + TMA engine of wgmma_gemm.cuh, one route
 // per (prologue, epilogue, layout) triple in launch_ln_gemm for every
@@ -66,12 +70,15 @@
 // their launches, stay bit-equal, and so do the MLP forward with and
 // without its stash): (PRO_LN, EPI_NONE) QKV, (PRO_LN, EPI_QUICK_GELU) and
 // (PRO_LN, EPI_GELU_STASH) the MLP in (one epilogue, OUT_GELU, with or
-// without the stash), (PRO_LN, EPI_GELU_EXACT) DINO's MLP in (OUT_GELU_EXACT),
+// without the stash), (PRO_LN, EPI_GELU_EXACT) and (PRO_LN,
+// EPI_GELU_EXACT_STASH) DINO's MLP in (OUT_GELU_EXACT, likewise),
 // (PRO_NONE, EPI_RESIDUAL) the out-projections and the
 // MLP out, (PRO_NONE, EPI_NONE, TRANS_B) g . wo^T, (PRO_NONE, EPI_F32,
 // TRANS_B) dqkv . W_eff^T, g . w2^T and dpre . w1^T, (PRO_LN, EPI_DACT)
 // and (PRO_LN, EPI_DACT_F32) the MLP backward's recompute (OUT_DACT_BF16
-// with a bf16 dy, OUT_DACT with an fp32 dy and the column sums), and the
+// with a bf16 dy, OUT_DACT with an fp32 dy and the column sums), (PRO_LN,
+// EPI_DACT_EXACT) and (PRO_LN, EPI_DACT_F32_EXACT) DINO's (OUT_DACT_BF16_EXACT,
+// OUT_DACT_EXACT), and the
 // stand-alone ops (rows 14-17): (PRO_LN_AFFINE | PRO_ADD_LN_AFFINE,
 // EPI_NONE | EPI_QUICK_GELU | EPI_GELU_EXACT) on OUT_BF16, OUT_GELU
 // (no stash) and OUT_GELU_EXACT.  Any other triple is refused.
@@ -108,7 +115,10 @@ enum {
   EPI_F32 = 4,
   EPI_DACT = 5,
   EPI_DACT_F32 = 6,
-  EPI_GELU_EXACT = 7
+  EPI_GELU_EXACT = 7,
+  EPI_GELU_EXACT_STASH = 8,
+  EPI_DACT_EXACT = 9,
+  EPI_DACT_F32_EXACT = 10
 };
 
 enum { PRO_NONE = 0, PRO_LN = 1, PRO_LN_AFFINE = 2, PRO_ADD_LN_AFFINE = 3 };
@@ -122,6 +132,21 @@ static inline int act_epilogue(int act) {
   return act == ACT_NONE ? EPI_NONE
          : act == ACT_QUICK_GELU ? EPI_QUICK_GELU
          : act == ACT_GELU_EXACT ? EPI_GELU_EXACT : -1;
+}
+
+// an activation code's stash epilogue (the training forward), or -1 where
+// it has none (ACT_NONE: uml_tpu stashes only under an activation)
+static inline int act_stash_epilogue(int act) {
+  return act == ACT_QUICK_GELU ? EPI_GELU_STASH
+         : act == ACT_GELU_EXACT ? EPI_GELU_EXACT_STASH : -1;
+}
+
+// an activation code's recompute epilogue of the MLP backward (dy fp32:
+// row 20, with the column sums; bf16: row 19), or -1 where it has none
+static inline int act_dact_epilogue(int act, bool dy_f32) {
+  if (act == ACT_QUICK_GELU) return dy_f32 ? EPI_DACT_F32 : EPI_DACT;
+  if (act == ACT_GELU_EXACT) return dy_f32 ? EPI_DACT_F32_EXACT : EPI_DACT_EXACT;
+  return -1;
 }
 
 // the operands of the prologues (null where a triple takes none)
@@ -314,11 +339,13 @@ static inline cudaError_t launch_ln_gemm(const __nv_bfloat16* a, const __nv_bflo
   // an LN prologue: QKV, the MLP in (quick_gelu, exact GELU or none) and
   // the MLP backward's recompute (PRO_LN), the stand-alone ops of rows
   // 14-17 (the affine prologues)
+  const bool stash = epi == EPI_GELU_STASH || epi == EPI_GELU_EXACT_STASH;
   const bool routed =
       !trans_b && (epi == EPI_NONE || epi == EPI_QUICK_GELU || epi == EPI_GELU_EXACT ||
                    (pro == PRO_LN &&
-                    (epi == EPI_GELU_STASH || epi == EPI_DACT || epi == EPI_DACT_F32)));
-  if (!routed || (epi == EPI_GELU_STASH && aux == nullptr)) return cudaErrorInvalidValue;
+                    (stash || epi == EPI_DACT || epi == EPI_DACT_F32 ||
+                     epi == EPI_DACT_EXACT || epi == EPI_DACT_F32_EXACT)));
+  if (!routed || (stash && aux == nullptr)) return cudaErrorInvalidValue;
   UML_TRY(launch_ln_prepass(a, ops, pro, M, K, eps, stream));
   const __nv_bfloat16* xn = ops.xn;
   switch (epi) {
@@ -329,18 +356,26 @@ static inline cudaError_t launch_ln_gemm(const __nv_bfloat16* a, const __nv_bflo
       ep.aux = epi == EPI_GELU_STASH ? aux : nullptr;
       return launch_wgmma_gemm<false, true, WGG_OUT_GELU>(xn, w, ep, M, N, K, stream);
     case EPI_GELU_EXACT:
+    case EPI_GELU_EXACT_STASH:
+      ep.aux = epi == EPI_GELU_EXACT_STASH ? aux : nullptr;
       return launch_wgmma_gemm<false, true, WGG_OUT_GELU_EXACT>(xn, w, ep, M, N, K, stream);
     case EPI_DACT:
+    case EPI_DACT_EXACT:
       ep.lddy = ldres;
       ep.aux = aux;
       ep.dy16 = static_cast<const __nv_bfloat16*>(res);
-      return launch_wgmma_gemm<false, true, WGG_OUT_DACT_BF16>(xn, w, ep, M, N, K, stream);
-    default:  // EPI_DACT_F32
+      return epi == EPI_DACT
+                 ? launch_wgmma_gemm<false, true, WGG_OUT_DACT_BF16>(xn, w, ep, M, N, K, stream)
+                 : launch_wgmma_gemm<false, true, WGG_OUT_DACT_BF16_EXACT>(xn, w, ep, M, N, K,
+                                                                          stream);
+    default:  // EPI_DACT_F32, EPI_DACT_F32_EXACT
       ep.lddy = ldres;
       ep.aux = aux;
       ep.dy = static_cast<const float*>(res);
       ep.colsum_part = colsum_part;
-      return launch_wgmma_gemm<false, true, WGG_OUT_DACT>(xn, w, ep, M, N, K, stream);
+      return epi == EPI_DACT_F32
+                 ? launch_wgmma_gemm<false, true, WGG_OUT_DACT>(xn, w, ep, M, N, K, stream)
+                 : launch_wgmma_gemm<false, true, WGG_OUT_DACT_EXACT>(xn, w, ep, M, N, K, stream);
   }
 }
 

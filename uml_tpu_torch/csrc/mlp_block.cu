@@ -10,8 +10,10 @@
 // MLP out (hidden . w2 + b2 + x), both on the wgmma + TMA engine
 // (wgmma_gemm.cuh: 128 x 128 tiles, a 3-stage TMA ring, persistent).
 // uml_mlp_block_stash replaces ::_mlp_block_kernel_stash, the training
-// forward: the same launches, whose MLP in also writes pre = rawLN(x) .
-// w1 + b1 in bf16 (EPI_GELU_STASH), which the backward reads instead of
+// forward, with the same activation code (1 quick_gelu, 2 exact GELU; 0
+// has no stash and is refused): the same launches, whose MLP in also
+// writes pre = rawLN(x) . w1 + b1 in bf16 (EPI_GELU_STASH, or
+// EPI_GELU_EXACT_STASH for DINO), which the backward reads instead of
 // recomputing that product; out is the same bits as uml_mlp_block's.
 //
 // What bounds it on the H100: the 119 GFLOP of the two products at
@@ -23,7 +25,8 @@
 // hidden on chip (a fused kernel looping over hidden chunks) is K4.  At
 // DINOv2-B/14 B=64 (S = 257: 16448 rows) the products are 155 GFLOP; the
 // exact GELU costs an erff an element of the 50.5 M hidden values in the
-// MLP in's epilogue, after each tile's products.
+// MLP in's epilogue, after each tile's products; the training forward
+// writes the 101 MB stash besides.
 
 #include "blocks.cuh"
 
@@ -40,12 +43,12 @@ extern "C" int uml_mlp_block(const void* x, const void* w1, const void* b1, cons
 
 extern "C" int uml_mlp_block_stash(const void* x, const void* w1, const void* b1,
                                    const void* w2, const void* b2, void* pre, void* xn,
-                                   void* hidden, void* out, int rows, int K, int M, float eps,
-                                   void* stream) {
+                                   void* hidden, void* out, int rows, int K, int M, int act,
+                                   float eps, void* stream) {
   using bf16 = __nv_bfloat16;
   return (int)uml::run_mlp_block(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w1), static_cast<const float*>(b1),
       static_cast<const bf16*>(w2), static_cast<const float*>(b2), static_cast<bf16*>(xn),
-      static_cast<bf16*>(hidden), static_cast<bf16*>(out), rows, K, M, eps, uml::ACT_QUICK_GELU,
+      static_cast<bf16*>(hidden), static_cast<bf16*>(out), rows, K, M, eps, act,
       static_cast<cudaStream_t>(stream), static_cast<bf16*>(pre));
 }

@@ -2,12 +2,14 @@
 // brought in by TMA; bf16 operands with fp32 accumulation, or int8
 // operands with exact s32 accumulation (the OUT_Q8_* epilogues).
 //
-// The product engine of the CLIP layers: ln_gemm.cuh routes its QKV
-// (PRO_LN, EPI_NONE), the MLP in (PRO_LN, EPI_QUICK_GELU / EPI_GELU_STASH),
+// The product engine of the CLIP and DINO layers: ln_gemm.cuh routes its
+// QKV (PRO_LN, EPI_NONE), the MLP in (PRO_LN, EPI_QUICK_GELU /
+// EPI_GELU_STASH, EPI_GELU_EXACT / EPI_GELU_EXACT_STASH),
 // the out-projections and the MLP out (PRO_NONE, EPI_RESIDUAL), g . wo^T
 // (EPI_NONE, TRANS_B), dqkv . W_eff^T / g . w2^T / dpre . w1^T (EPI_F32,
 // TRANS_B), the MLP backward's recompute (PRO_LN, EPI_DACT with a bf16
-// dy, EPI_DACT_F32 with an fp32 dy) and the stand-alone ops' (PRO_LN_AFFINE
+// dy, EPI_DACT_F32 with an fp32 dy, and their exact-GELU twins
+// EPI_DACT_EXACT, EPI_DACT_F32_EXACT) and the stand-alone ops' (PRO_LN_AFFINE
 // / PRO_ADD_LN_AFFINE with EPI_NONE, EPI_QUICK_GELU, EPI_GELU_EXACT)
 // triples here, gemm_at.cuh its weight-gradient products A^T . B, and
 // q8_gemm.cuh every int8 product.  Those are the products of
@@ -60,12 +62,16 @@
 //   quick_gelu'(y) as bf16, dy fp32 with its row stride, and the column
 //   sums of the fp32 dpre over the block's 128 rows, reduced in a fixed
 //   order, to colsum_part[row tile]), OUT_DACT_BF16 (the same with a bf16
-//   dy and no column sums: row 19's recompute),
+//   dy and no column sums: row 19's recompute), OUT_DACT_EXACT and
+//   OUT_DACT_BF16_EXACT (the same two with DINO's exact GELU: aux =
+//   gelu(y) = y Phi(y), dpre = dy * (Phi(y) + y phi(y)), Phi on the erff of
+//   OUT_GELU_EXACT, phi = exp(-y^2 / 2) / sqrt(2 pi) on the fast exp),
 //   OUT_GELU (the MLP in: y = acc + b1, out = quick_gelu(y) of the
 //   unrounded y with the fast exp and reciprocal and, where aux is given,
 //   aux = y, each rounded once), OUT_GELU_EXACT (out = gelu_exact(y) of
 //   the unrounded y = acc + b, the erf form, rounded once: the stand-alone
-//   ops' exact GELU, and the one DINO's MLP takes) and
+//   ops' exact GELU, and the one DINO's MLP takes; where aux is given, aux
+//   = y as OUT_GELU's stash: DINO's training forward) and
 //   OUT_RESIDUAL (out = (acc + b) + res, res bf16 with row stride ldres),
 //   and the int8 epilogues of q8_gemm.cuh: y = ((float)acc * row_scale) *
 //   col_scale, each step rounded on its own, then OUT_Q8_BF16 bf16(y + b),
@@ -118,7 +124,18 @@ constexpr size_t WGG_SMEM =
 enum { WGG_OUT_BF16 = 0, WGG_OUT_F32 = 1, WGG_OUT_DACT = 2, WGG_OUT_GELU = 3,
        WGG_OUT_RESIDUAL = 4, WGG_OUT_DACT_BF16 = 5, WGG_OUT_Q8_BF16 = 6,
        WGG_OUT_Q8_F32 = 7, WGG_OUT_Q8_RESIDUAL = 8, WGG_OUT_GELU_EXACT = 9,
-       WGG_OUT_Q8_ROWMAX = 10, WGG_OUT_Q8_ACTQ = 11, WGG_OUT_Q8_ACTQ_GELU = 12 };
+       WGG_OUT_Q8_ROWMAX = 10, WGG_OUT_Q8_ACTQ = 11, WGG_OUT_Q8_ACTQ_GELU = 12,
+       WGG_OUT_DACT_EXACT = 13, WGG_OUT_DACT_BF16_EXACT = 14 };
+
+// the MLP backward's recompute: quick_gelu (DACT, DACT_BF16) or exact GELU
+// (DACT_EXACT, DACT_BF16_EXACT); an fp32 dy with the column sums (row 20)
+// or a bf16 dy (row 19)
+static __host__ __device__ constexpr bool wgg_dact_f32(int out) {
+  return out == WGG_OUT_DACT || out == WGG_OUT_DACT_EXACT;
+}
+static __host__ __device__ constexpr bool wgg_dact(int out) {
+  return wgg_dact_f32(out) || out == WGG_OUT_DACT_BF16 || out == WGG_OUT_DACT_BF16_EXACT;
+}
 
 // the quantizing passes of the int8 MLP in: quick_gelu (ACTQ) or exact
 // GELU (ACTQ_GELU)
@@ -135,13 +152,13 @@ static __host__ __device__ constexpr bool wgg_int8(int out) {
 struct WggEpilogue {
   const float* bias = nullptr;         // [N] fp32, or null
   void* out = nullptr;                 // [M, N]: bf16 (OUT_BF16, OUT_DACT: dpre) or fp32
-  const float* dy = nullptr;           // OUT_DACT: [M, lddy] fp32
-  const __nv_bfloat16* dy16 = nullptr; // OUT_DACT_BF16: [M, lddy] bf16
+  const float* dy = nullptr;           // OUT_DACT(_EXACT): [M, lddy] fp32
+  const __nv_bfloat16* dy16 = nullptr; // OUT_DACT_BF16(_EXACT): [M, lddy] bf16
   long long lddy = 0;
-  __nv_bfloat16* aux = nullptr;        // OUT_DACT: [M, N] quick_gelu(y); OUT_GELU: y, or null
+  __nv_bfloat16* aux = nullptr;        // OUT_DACT*: [M, N] act(y); OUT_GELU(_EXACT): y, or null
   const __nv_bfloat16* res = nullptr;  // OUT_RESIDUAL, OUT_Q8_RESIDUAL: [M, ldres] bf16
   long long ldres = 0;
-  float* colsum_part = nullptr;        // OUT_DACT: [ceil(M / 128), N], or null
+  float* colsum_part = nullptr;        // OUT_DACT(_EXACT): [ceil(M / 128), N], or null
   int splits = 1;                      // contraction chunks (OUT_F32, no bias)
   float* part = nullptr;               // splits > 1: [splits - 1, M, N] fp32 partials
   const float* row_scale = nullptr;    // OUT_Q8_*: [M] fp32
@@ -470,7 +487,7 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
     const int row_a = m0 + 64 * wg + 16 * warp + (lane >> 2);  // and row_a + 8
     const int col_a = n0 + 2 * (lane & 3);                     // + 8 j, + {0, 1}
     constexpr bool RES = OUT == WGG_OUT_RESIDUAL || OUT == WGG_OUT_Q8_RESIDUAL;
-    constexpr bool DACT = OUT == WGG_OUT_DACT || OUT == WGG_OUT_DACT_BF16;
+    constexpr bool DACT = wgg_dact(OUT);
     float rs[2] = {0.f, 0.f};  // the int8 rows' scales
     if constexpr (Q8) {
 #pragma unroll
@@ -490,10 +507,10 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
         for (int r = 0; r < 2; ++r) {
           const int row = row_a + 8 * r, col = col_a + 8 * (j0 + jj);
           in[jj][r] = make_float2(0.f, 0.f);
-          if (OUT == WGG_OUT_DACT && row < M && col < N)
+          if (wgg_dact_f32(OUT) && row < M && col < N)
             in[jj][r] = __ldg(reinterpret_cast<const float2*>(ep.dy + (long long)row * ep.lddy +
                                                                col));
-          if (OUT == WGG_OUT_DACT_BF16 && row < M && col < N)
+          if (DACT && !wgg_dact_f32(OUT) && row < M && col < N)
             in[jj][r] = __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(
                 ep.dy16 + (long long)row * ep.lddy + col)));
           if (RES && row < M && col < N)
@@ -532,7 +549,7 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
       } else {
         // bf16 results packed two columns a register, [output][jj][r]:
         // output 0 is out (OUT_BF16, OUT_GELU, OUT_GELU_EXACT, OUT_RESIDUAL) or dpre,
-        // output 1 yact (OUT_DACT) or the pre-activation y (OUT_GELU)
+        // output 1 yact (OUT_DACT*) or the pre-activation y (OUT_GELU, OUT_GELU_EXACT)
         uint32_t pk[2][2][2];
 #pragma unroll
         for (int jj = 0; jj < 2; ++jj) {
@@ -574,6 +591,24 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
               pk[1][jj][r] = bf16x2_bits(v0, v1);
             } else if (OUT == WGG_OUT_GELU_EXACT) {
               pk[0][jj][r] = bf16x2_bits(gelu_exact(v0), gelu_exact(v1));
+              pk[1][jj][r] = bf16x2_bits(v0, v1);
+            } else if (OUT == WGG_OUT_DACT_EXACT || OUT == WGG_OUT_DACT_BF16_EXACT) {
+              // gelu(y) = y Phi(y) and gelu'(y) = Phi(y) + y phi(y): Phi
+              // on erff as gelu_exact takes it (the same bits of yact),
+              // phi(y) = exp(-y^2 / 2) / sqrt(2 pi) on the fast exp (its
+              // relative error, under 1e-7 y^2 + 2 ulp, is < 3e-6 wherever
+              // y phi(y) exceeds 1e-5: far inside the bf16 rounding that
+              // follows); dy is 0 outside the matrix, so is d there
+              const float p0 = 0.5f * (1.f + erff(v0 * 0.70710678118654752f));
+              const float p1 = 0.5f * (1.f + erff(v1 * 0.70710678118654752f));
+              const float d0 =
+                  in[jj][r].x * (p0 + v0 * (__expf(-0.5f * v0 * v0) * 0.3989422804014327f));
+              const float d1 =
+                  in[jj][r].y * (p1 + v1 * (__expf(-0.5f * v1 * v1) * 0.3989422804014327f));
+              pk[0][jj][r] = bf16x2_bits(d0, d1);
+              pk[1][jj][r] = bf16x2_bits(v0 * p0, v1 * p1);
+              c0 += d0;
+              c1 += d1;
             } else {
               // quick_gelu'(y) = s (1 + 1.702 y (1 - s)) with one sigmoid s,
               // on the special-function unit as OUT_GELU (2 ulp, far inside
@@ -590,7 +625,7 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
               c1 += d1;
             }
           }
-          if (OUT == WGG_OUT_DACT) {
+          if (wgg_dact_f32(OUT)) {
             // the warp's 16 rows: the 8 lanes of one column pair, in a fixed tree
 #pragma unroll
             for (int o = 4; o < 32; o <<= 1) {
@@ -610,8 +645,9 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
         const int src = (lane & ~3) | (2 * (q & 1));
         const int col = n0 + 8 * j0 + 4 * q;
 #pragma unroll
-        for (int t = 0; t < (DACT || OUT == WGG_OUT_GELU ? 2 : 1); ++t) {
-          if (t == 1 && ep.aux == nullptr) break;  // OUT_GELU without the stash
+        for (int t = 0; t < (DACT || OUT == WGG_OUT_GELU || OUT == WGG_OUT_GELU_EXACT ? 2 : 1);
+             ++t) {
+          if (t == 1 && ep.aux == nullptr) break;  // OUT_GELU(_EXACT) without the stash
           __nv_bfloat16* dst = t == 0 ? static_cast<__nv_bfloat16*>(ep.out) : ep.aux;
 #pragma unroll
           for (int r = 0; r < 2; ++r) {
@@ -627,7 +663,7 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
         }
       }
     }
-    if (OUT == WGG_OUT_DACT && ep.colsum_part != nullptr) {
+    if (wgg_dact_f32(OUT) && ep.colsum_part != nullptr) {
       // the 8 warps' sums in warp order: one thread per column; the second
       // barrier keeps the next item's sums out until they are read
       named_bar_sync(1, WGG_CONSUMERS);
@@ -669,8 +705,8 @@ static cudaError_t launch_wgmma_gemm(const void* a, const void* b, const WggEpil
       (ep.splits > 1 && (OUT != WGG_OUT_F32 || ep.part == nullptr || ep.bias != nullptr)) ||
       ((OUT == WGG_OUT_RESIDUAL || OUT == WGG_OUT_Q8_RESIDUAL) &&
        (ep.res == nullptr || ep.ldres < N || ep.ldres % 2 != 0)) ||
-      ((OUT == WGG_OUT_DACT || OUT == WGG_OUT_DACT_BF16) &&
-       ((OUT == WGG_OUT_DACT ? ep.dy == nullptr : ep.dy16 == nullptr) || ep.aux == nullptr ||
+      (wgg_dact(OUT) &&
+       ((wgg_dact_f32(OUT) ? ep.dy == nullptr : ep.dy16 == nullptr) || ep.aux == nullptr ||
         ep.lddy < N || ep.lddy % 2 != 0)) ||
       (Q8 && (ep.row_scale == nullptr || ep.col_scale == nullptr || ep.bias == nullptr)) ||
       (OUT == WGG_OUT_Q8_ROWMAX && ep.rowmax == nullptr) ||

@@ -93,10 +93,15 @@ def dino_state_dict_from_jax(variables) -> dict:
 
 def uml_head_params_from_jax(params) -> dict:
     """uml_tpu's UMLHead trainable tree (numpy leaves: head_w, img_proj_w,
-    img_scale, txt_scale, and ``backbone`` = the CLIP variables on the
-    full-model path) -> the tree ``UMLHead.load_state_tree`` reads."""
+    img_scale, txt_scale, and ``backbone`` = the CLIP or DINO variables on
+    the full-model path) -> the tree ``UMLHead.load_state_tree`` reads.  A
+    backbone is DINO's when its tree has no ``visual`` tower (DinoViT's
+    leaves: ``patch_embed``, ``cls_token``, ``blocks_{i}``, ``norm``)."""
     tree = {k: torch.tensor(np.asarray(v, np.float32))   # keeps 0-d scales
             for k, v in params.items() if k != "backbone"}
     if "backbone" in params:
-        tree["backbone"] = state_dict_from_jax(params["backbone"])
+        backbone = params["backbone"]
+        tree["backbone"] = (state_dict_from_jax(backbone)
+                            if "visual" in backbone["params"]
+                            else dino_state_dict_from_jax(backbone))
     return tree

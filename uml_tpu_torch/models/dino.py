@@ -32,6 +32,17 @@ DinoBlock calls its kernels:
   cache of models/clip.py, keyed on every parameter's storage and
   version); the int8 weights are cached K-major ([out, in]) and handed to
   the ops as [in, out] views, which the card's kernels read in place;
+* training (the full-model finetune, when autograd needs a gradient):
+  the LN and LayerScale folds are derived with autograd on every call,
+  never from the cache, and each block runs through the ops' autograd
+  Functions (``AttnBlockFn``, ``AttnBlockClsFn`` for the CLS-only last
+  block, ``MlpBlockFn`` with exact GELU), each with eps 1e-6, as
+  models/clip.py's layers do; so the gradient reaches every parameter:
+  the patch embedding (through ``patch_embed_u8``), the class token, the
+  position embeddings, each block's LN, QKV, out-projection, fc1, fc2 and
+  LayerScales, and the final LN.  Which kernels run is the ops' choice
+  under uml_tpu's switches (UML_BWD_STASH, UML_MLP_STASH, UML_MLP_BWD);
+  ``quant="int8"`` stays inference-only (``check_inference``);
 * the uint8 path folds the CLIP normalization into the patch embedding
   (ops/patch_embed.py, patch 14, 16 or 8); the float path is a strided
   convolution of normalized NHWC pixels;
@@ -42,10 +53,6 @@ Sequence lengths: S = 257 for the DINOv2 configs at 224 / 14, one past the
 fused QKV + attention kernel's route (S <= 256), so every DINOv2 attention
 half takes the chain (the engine's QKV product, then flash_attention.cu);
 S = 785 for DINO ViT-B/8.
-
-Inference only: the DINO full-model finetune needs the exact-GELU
-backward of the MLP half, which is not ported (ROADMAP.md, queue 1), so
-the model raises when autograd would want a gradient.
 
 Weights: ``port_dinov2_state_dict`` reads an HF ``Dinov2Model`` /
 ``ViTModel`` state_dict; ``load_dino`` loads the HF checkpoint from the
@@ -64,9 +71,10 @@ from torch.nn import functional as F
 
 from uml_tpu_torch.models.clip import (LayerNorm, Linear, _Cached, _in_out,
                                        _needs_grad)
-from uml_tpu_torch.ops.fused_attention import (attn_block, attn_block_cls,
+from uml_tpu_torch.ops.fused_attention import (AttnBlockClsFn, AttnBlockFn,
+                                               attn_block, attn_block_cls,
                                                fold_ln_into_matmul)
-from uml_tpu_torch.ops.ln_matmul import mlp_block, raw_layer_norm
+from uml_tpu_torch.ops.ln_matmul import MlpBlockFn, mlp_block, raw_layer_norm
 from uml_tpu_torch.ops.patch_embed import patch_embed_u8
 from uml_tpu_torch.ops.quant import (attn_block_q8, check_inference,
                                      mlp_block_q8, quantize_weight)
@@ -154,8 +162,11 @@ class DinoBlock(nn.Module):
         """(w_eff, b_eff, wo, bo, w1_eff, b1_eff, w2, b2): the LN-folded
         weights in the JAX [in, out] layout, cast to ``dtype`` before the
         fold as uml_tpu does (the LayerScale folded in fp32 first), biases
-        fp32; cached."""
+        fp32.  With autograd (training) they are derived anew, with a
+        gradient to the parameters; otherwise from the cache."""
         params = list(self.parameters())
+        if _needs_grad(*params):
+            return self._fold(dtype)
         return self._folded.get(params, dtype, lambda: self._fold(dtype))
 
     def _quantize(self, dtype):
@@ -194,6 +205,12 @@ class DinoBlock(nn.Module):
             return mlp_block_q8(x, w1q, w1sc, b1, w2q, w2sc, b2, eps=eps,
                                 activation="gelu_exact")
         w_eff, b_eff, wo, bo, w1, b1, w2, b2 = self.folded(x.dtype)
+        if _needs_grad(x, w_eff, b_eff, wo, bo, w1, b1, w2, b2):
+            if cls_only:
+                x = AttnBlockClsFn.apply(x, w_eff, b_eff, wo, bo, heads, eps)
+            else:
+                x = AttnBlockFn.apply(x, w_eff, b_eff, wo, bo, heads, False, eps)
+            return MlpBlockFn.apply(x, w1, b1, w2, b2, eps, "gelu_exact")
         if cls_only:
             x = attn_block_cls(x, w_eff, b_eff, wo, bo, heads=heads, eps=eps)
         else:
@@ -269,12 +286,6 @@ class DinoViT(nn.Module):
                 from_uint8: bool = False):
         if pool not in ("token", "mean"):
             raise ValueError(f"unknown pool {pool!r}")
-        if _needs_grad(*self.parameters()):
-            raise NotImplementedError(
-                "DinoViT is inference-only in uml_tpu_torch: the DINO "
-                "full-model finetune (the exact-GELU MLP backward) is not "
-                "ported yet (ROADMAP.md, queue 1); freeze the parameters or "
-                "run under torch.no_grad()")
         x = self._embed(pixels, from_uint8)
         b, dt = x.shape[0], self.dtype
         cls = self.cls_token.to(dt).expand(b, 1, -1)

@@ -14,17 +14,19 @@ reference's engine/models/head.py):
 
 Where uml_tpu keeps a functional pytree, this is an ``nn.Module``: the
 trainable parameters are the module's parameters that require a
-gradient.  A CLIP ``backbone`` is a submodule; frozen (the feature-space
-path) its parameters are set to ``requires_grad_(False)`` and it runs
-under ``torch.no_grad()``; trainable (the full-model path) every CLIP
-parameter trains, the unused text tower and ``logit_scale`` included, as
-uml_tpu's ``make_uml_clip_head`` puts all of the CLIP variables in the
+gradient.  A CLIP or DINO ``backbone`` is a submodule; frozen (the
+feature-space path) its parameters are set to ``requires_grad_(False)``
+and it runs under ``torch.no_grad()``; trainable (the full-model path)
+every backbone parameter trains (for CLIP the unused text tower and
+``logit_scale`` included), as uml_tpu's ``make_uml_clip_head`` and
+``make_uml_dino_head`` put all of the backbone's variables in the
 trainable tree.
 
 ``state_tree`` / ``load_state_tree`` move the parameters as the tree that
 uml_tpu saves in ``test_result.pth["model"]``: the head leaves under their
-JAX names, and ``backbone`` (full-model path only) as the OpenAI-schema
-state_dict of the port's CLIP.
+JAX names, and ``backbone`` (full-model path only) as the state_dict of
+the port's backbone (the OpenAI schema for CLIP, the port's DinoViT names
+for DINO).
 """
 
 from __future__ import annotations
@@ -41,9 +43,9 @@ HEAD_LEAVES = ("head_w", "img_proj_w", "img_scale", "txt_scale")
 class UMLHead(nn.Module):
     """forward(images_or_feats, text_features) -> (img_logits, txt_logits).
 
-    ``backbone``: a CLIP whose ``encode_image_u8`` maps uint8 images
-    (flat [B, H*W*3] or [B, H, W, 3]) to features; float inputs are taken
-    as precomputed features.  Parameters are drawn from ``generator``
+    ``backbone``: a CLIP or a DinoViT whose ``encode_image_u8`` maps uint8
+    images (flat [B, H*W*3] or [B, H, W, 3]) to features; float inputs are
+    taken as precomputed features.  Parameters are drawn from ``generator``
     (torch-Linear-like uniform, +-1/sqrt(fan_in)); parity with uml_tpu
     comes from loading its parameters (``load_state_tree``), not from the
     random bits.
@@ -92,8 +94,8 @@ class UMLHead(nn.Module):
 
     def state_tree(self) -> dict:
         """Detached CPU copies of the trainable parameters, as uml_tpu's
-        tree: head leaves by name, ``backbone`` the CLIP state_dict when
-        the backbone trains.  The optimizer updates the parameters in
+        tree: head leaves by name, ``backbone`` the backbone's state_dict
+        when it trains.  The optimizer updates the parameters in
         place, so these are clones."""
         tree = {name: getattr(self, name).detach().cpu().clone()
                 for name in HEAD_LEAVES if getattr(self, name, None) is not None}
@@ -163,3 +165,18 @@ def make_uml_clip_head(clip, num_classes: int,
                    learnable_temp=learnable_temp, logit_scale=logit_scale,
                    backbone=clip, freeze_backbone=freeze_backbone,
                    generator=generator)
+
+
+def make_uml_dino_head(dino, num_classes: int, text_indim: int = 0,
+                       learnable_temp: bool = False, freeze_backbone: bool = True,
+                       generator: torch.Generator | None = None) -> UMLHead:
+    """UML with a DINO / DINOv2 backbone (head.py:39-98; uml_tpu's
+    make_uml_dino_head): ``img_proj_w`` from the DINO width into
+    ``text_indim`` when it is positive, the shared head, learnable scales
+    with ``learnable_temp``.  The backbone takes uint8 images through
+    ``encode_image_u8`` (the CLIP normalization folded into the patch
+    embedding); with ``freeze_backbone=False`` (the full-model finetune)
+    every DINO parameter trains."""
+    return UMLHead(dino.num_features, num_classes, text_indim=text_indim,
+                   learnable_temp=learnable_temp, backbone=dino,
+                   freeze_backbone=freeze_backbone, generator=generator)

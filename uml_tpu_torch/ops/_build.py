@@ -49,15 +49,16 @@ SIGNATURES = {
     # x, g, w_eff, b_eff, wo, qkv, attn, dattn, stats, dxn, dqkv, dx, xn,
     # B, S, K, H, causal, eps, stream
     "uml_attn_block_bwd_recompute": [_P] * 13 + [_I] * 5 + [_F, _P],
-    # x, dy, b1, w1, dpre, yact, dxn, dx_ln, xn, rows, K, M, eps, stream
-    "uml_mlp_bwd": [_P] * 9 + [_I] * 3 + [_F, _P],
+    # x, dy, b1, w1, dpre, yact, dxn, dx_ln, xn, rows, K, M, act, eps,
+    # stream
+    "uml_mlp_bwd": [_P] * 9 + [_I] * 4 + [_F, _P],
     # x, g, b1, w1, w2, dy, dpre, yact, dxn, db1_part, dx, xn, dw1, db1,
-    # dw2, rows, K, M, eps, stream
-    "uml_mlp_bwd_dw": [_P] * 15 + [_I] * 3 + [_F, _P],
+    # dw2, rows, K, M, act, eps, stream
+    "uml_mlp_bwd_dw": [_P] * 15 + [_I] * 4 + [_F, _P],
     # x, w1, b1, w2, b2, xn, hidden, out, rows, K, M, act, eps, stream
     "uml_mlp_block": [_P] * 8 + [_I] * 4 + [_F, _P],
-    # x, w1, b1, w2, b2, pre, xn, hidden, out, rows, K, M, eps, stream
-    "uml_mlp_block_stash": [_P] * 9 + [_I] * 3 + [_F, _P],
+    # x, w1, b1, w2, b2, pre, xn, hidden, out, rows, K, M, act, eps, stream
+    "uml_mlp_block_stash": [_P] * 9 + [_I] * 4 + [_F, _P],
     # qkv, dattn, stats, dqkv, B, S, H, causal, passes, stream
     "uml_attn_bwd": [_P] * 4 + [_I] * 5 + [_P],
     # x, w_eff, b_eff, wo, bo, w1, b1, w2, b2, xn, qkv, attn, hidden, mid,

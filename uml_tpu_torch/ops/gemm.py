@@ -24,12 +24,17 @@ The triples, as ``(pro, epi, trans_b)``:
   with dy [M, N] fp32 (row 20);
 * ``DACT`` (PRO_LN, EPI_DACT, False): the same with dy [M, N] bf16 and no
   column sums -> (dpre, yact) (row 19);
+* ``DACT_EXACT``, ``DACT_F32_EXACT`` (PRO_LN, EPI_DACT_EXACT /
+  EPI_DACT_F32_EXACT, False): the two with exact GELU, dpre = bf16(dy *
+  (Phi(y) + y phi(y))), yact = bf16(y Phi(y)) (DINO's rows 19 and 20);
 * ``QUICK_GELU`` (PRO_LN, EPI_QUICK_GELU, False): y = bf16(rawLN(a)) @ w
   + bias in fp32 -> bf16(quick_gelu(y)) (the MLP in); ``GELU_EXACT``
   (PRO_LN, EPI_GELU_EXACT, False) the same with exact GELU (DINO's MLP in);
 * ``GELU_STASH`` (PRO_LN, EPI_GELU_STASH, False): the same -> (bf16(
   quick_gelu(y)), bf16(y)), the activation of the unrounded y (the MLP in
   of the training forward, with its pre-activation stash);
+  ``GELU_EXACT_STASH`` (PRO_LN, EPI_GELU_EXACT_STASH, False) the same with
+  exact GELU (DINO's row 9);
 * ``RESIDUAL`` (PRO_NONE, EPI_RESIDUAL, False): bf16(a @ w + bias + res)
   with res [M, N] bf16 (the out-projections and the MLP out);
 * ``AFFINE``, ``AFFINE_QUICK_GELU``, ``AFFINE_GELU_EXACT`` (PRO_LN_AFFINE,
@@ -64,14 +69,23 @@ from uml_tpu_torch.ops.quant import Q8_MLP_ACT, act_quantize_rows, q8_dot
 PRO_NONE, PRO_LN, PRO_LN_AFFINE, PRO_ADD_LN_AFFINE = 0, 1, 2, 3
 EPI_NONE, EPI_QUICK_GELU, EPI_RESIDUAL, EPI_GELU_STASH = 0, 1, 2, 3
 EPI_F32, EPI_DACT, EPI_DACT_F32, EPI_GELU_EXACT = 4, 5, 6, 7
+EPI_GELU_EXACT_STASH, EPI_DACT_EXACT, EPI_DACT_F32_EXACT = 8, 9, 10
+# the recompute epilogues: their activation, and whether dy is fp32
+DACT_EPIS = {EPI_DACT: ("quick_gelu", False), EPI_DACT_F32: ("quick_gelu", True),
+             EPI_DACT_EXACT: ("gelu_exact", False),
+             EPI_DACT_F32_EXACT: ("gelu_exact", True)}
+STASH_EPIS = {EPI_GELU_STASH: quick_gelu_f32, EPI_GELU_EXACT_STASH: gelu_exact_f32}
 TRIPLES = {"QKV": (PRO_LN, EPI_NONE, False),
            "TRANS_B": (PRO_NONE, EPI_NONE, True),
            "TRANS_B_F32": (PRO_NONE, EPI_F32, True),
            "DACT": (PRO_LN, EPI_DACT, False),
            "DACT_F32": (PRO_LN, EPI_DACT_F32, False),
+           "DACT_EXACT": (PRO_LN, EPI_DACT_EXACT, False),
+           "DACT_F32_EXACT": (PRO_LN, EPI_DACT_F32_EXACT, False),
            "QUICK_GELU": (PRO_LN, EPI_QUICK_GELU, False),
            "GELU_EXACT": (PRO_LN, EPI_GELU_EXACT, False),
            "GELU_STASH": (PRO_LN, EPI_GELU_STASH, False),
+           "GELU_EXACT_STASH": (PRO_LN, EPI_GELU_EXACT_STASH, False),
            "RESIDUAL": (PRO_NONE, EPI_RESIDUAL, False),
            **{f"{name}{tag}": (pro, epi, False)
               for name, pro in (("AFFINE", PRO_LN_AFFINE),
@@ -109,11 +123,12 @@ def ln_gemm_plain(a, w, bias=None, res=None, *, triple: str, eps: float = 1e-5,
         return y
     if epi == EPI_RESIDUAL:
         return (y + res.float()).to(torch.bfloat16)
-    if epi == EPI_GELU_STASH:
-        return quick_gelu_f32(y).to(torch.bfloat16), y.to(torch.bfloat16)
-    act, dact = act_and_grad(y)
+    if epi in STASH_EPIS:
+        return STASH_EPIS[epi](y).to(torch.bfloat16), y.to(torch.bfloat16)
+    activation, dy_f32 = DACT_EPIS[epi]
+    act, dact = act_and_grad(y, activation)
     d = res.float() * dact
-    if epi == EPI_DACT:
+    if not dy_f32:
         return d.to(torch.bfloat16), act.to(torch.bfloat16)
     rows = d.shape[0]
     pad = -rows % ROW_TILE
@@ -125,7 +140,7 @@ def ln_gemm_plain(a, w, bias=None, res=None, *, triple: str, eps: float = 1e-5,
 def ln_gemm(a, w, bias=None, res=None, *, triple: str, eps: float = 1e-5,
             ln=None, delta=None):
     """a [M, K] bf16; w [K, N] (or [N, K] for the TRANS_B triples) bf16;
-    bias [N] fp32 or None; res: dy [M, N] fp32 (DACT_F32) or bf16 (DACT),
+    bias [N] fp32 or None; res: dy [M, N] fp32 (DACT_F32*) or bf16 (DACT*),
     or the residual [M, N] bf16 (RESIDUAL); ln: the LN (scale, bias), [K]
     fp32 each (the AFFINE and ADD triples); delta [M, K] bf16 (the ADD
     triples) -> the triple's outputs (see the module docstring)."""
@@ -141,9 +156,9 @@ def ln_gemm(a, w, bias=None, res=None, *, triple: str, eps: float = 1e-5,
     _build.check_tensor("w", w, bf16, (n, k) if trans_b else (k, n), dev)
     if bias is not None:
         _build.check_tensor("bias", bias, f32, (n,), dev)
-    if epi in (EPI_DACT, EPI_DACT_F32):
-        _build.check_tensor("dy", res, f32 if epi == EPI_DACT_F32 else bf16,
-                            (m, n), dev)
+    part_out = epi in DACT_EPIS and DACT_EPIS[epi][1]   # dy fp32, column sums
+    if epi in DACT_EPIS:
+        _build.check_tensor("dy", res, f32 if part_out else bf16, (m, n), dev)
     if epi == EPI_RESIDUAL:
         _build.check_tensor("res", res, bf16, (m, n), dev)
     ln_scale = ln_bias = None
@@ -159,9 +174,9 @@ def ln_gemm(a, w, bias=None, res=None, *, triple: str, eps: float = 1e-5,
         xn = torch.empty_like(a) if pro != PRO_NONE else None
         t = torch.empty_like(a) if pro == PRO_ADD_LN_AFFINE else None
         aux = part = None
-        if epi in (EPI_DACT, EPI_DACT_F32, EPI_GELU_STASH):
+        if epi in DACT_EPIS or epi in STASH_EPIS:
             aux = torch.empty((m, n), dtype=bf16, device=dev)
-        if epi == EPI_DACT_F32:
+        if part_out:
             part = torch.empty((-(-m // ROW_TILE), n), dtype=f32, device=dev)
         ptr = _build.ptr
         _build.launch("uml_ln_gemm", a.data_ptr(), w.data_ptr(), ptr(bias),
@@ -170,11 +185,11 @@ def ln_gemm(a, w, bias=None, res=None, *, triple: str, eps: float = 1e-5,
                       m, n, k, n, pro, epi, int(trans_b), eps,
                       torch.cuda.current_stream(dev).cuda_stream)
     ln_gemm.launches += 1
-    if epi == EPI_DACT_F32:
+    if part_out:
         return out, aux, part
     if t is not None:
         return out, t
-    return (out, aux) if epi in (EPI_DACT, EPI_GELU_STASH) else out
+    return out if aux is None else (out, aux)
 
 
 ln_gemm.launches = 0

@@ -42,10 +42,13 @@ or raise, and count the launch.
   card, ``_vjp.py``).  Unset, it is "kernel" on the card and the plain
   twin on the CPU (``mlp_bwd_mode``).
 
-The training forms (the stash, the backwards, ``MlpBlockFn``) take CLIP's
-quick_gelu, x * sigmoid(1.702 x) (ln_matmul.py:678-679), only: the
-gradient of DINO's exact-GELU MLP half (the DINO full-model finetune) is
-still to port (ROADMAP.md, queue 1), and ``MlpBlockFn`` raises for it.
+The training forms (the stash, the backwards, ``MlpBlockFn``) take
+``activation``: CLIP's quick_gelu, x * sigmoid(1.702 x) (ln_matmul.py:
+678-679, the default), or DINO's exact GELU, x Phi(x) with the derivative
+Phi(x) + x phi(x) (ln_matmul.py:303-307; erf on the card and in the plain
+versions, where the TPU kernels fit it with a rational).  uml_tpu's
+identity (None) has no stash and no user on a training path here: the
+training forms refuse it.
 
 The stand-alone ops (``csrc/ln_matmul.cu``), with uml_tpu's signatures and
 ``impl`` values ("auto": the plain version for a CPU tensor, the kernel for
@@ -236,17 +239,34 @@ def mlp_stash_enabled(bsz: int, s: int, m: int, itemsize: int) -> bool:
     return bsz * s * m * itemsize <= MLP_STASH_MAX_BYTES
 
 
-def mlp_block_stash_plain(x, w1, b1, w2, b2, *, eps: float = 1e-5):
+TRAIN_ACTIVATIONS = ("quick_gelu", "gelu_exact")
+
+
+def _train_act_code(activation) -> int:
+    """The C entries' code of a training activation; None (the identity)
+    and unknown names raise."""
+    if activation not in TRAIN_ACTIVATIONS:
+        raise ValueError(f"activation={activation!r}: the training forms take "
+                         f"{list(TRAIN_ACTIVATIONS)}")
+    return _ACT_CODE[activation]
+
+
+def mlp_block_stash_plain(x, w1, b1, w2, b2, *, eps: float = 1e-5,
+                          activation: str = "quick_gelu"):
     """Plain PyTorch version of the stash forward -> (out, pre)."""
-    out, pre = _mlp_plain(x, w1, b1, w2, b2, eps, "quick_gelu")
+    _train_act_code(activation)
+    out, pre = _mlp_plain(x, w1, b1, w2, b2, eps, activation)
     return out, pre.to(x.dtype)
 
 
-def mlp_block_stash(x, w1, b1, w2, b2, *, eps: float = 1e-5):
+def mlp_block_stash(x, w1, b1, w2, b2, *, eps: float = 1e-5,
+                    activation: str = "quick_gelu"):
     """The training forward of the MLP half-block: x [B, S, K] ->
     (out [B, S, K], pre [B, S, M])."""
+    act = _train_act_code(activation)
     if x.device.type == "cpu":
-        return mlp_block_stash_plain(x, w1, b1, w2, b2, eps=eps)
+        return mlp_block_stash_plain(x, w1, b1, w2, b2, eps=eps,
+                                     activation=activation)
     rows, k, m, bf16, dev = _check_mlp(x, w1, b1, w2, b2)
     with torch.cuda.device(dev):
         pre = torch.empty((*x.shape[:-1], m), dtype=bf16, device=dev)
@@ -256,7 +276,7 @@ def mlp_block_stash(x, w1, b1, w2, b2, *, eps: float = 1e-5):
         _build.launch("uml_mlp_block_stash", x.data_ptr(), w1.data_ptr(),
                       b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
                       pre.data_ptr(), xn.data_ptr(), hidden.data_ptr(),
-                      out.data_ptr(), rows, k, m, eps,
+                      out.data_ptr(), rows, k, m, act, eps,
                       torch.cuda.current_stream(dev).cuda_stream)
     mlp_block_stash.launches += 1
     return out, pre
@@ -265,23 +285,31 @@ def mlp_block_stash(x, w1, b1, w2, b2, *, eps: float = 1e-5):
 mlp_block_stash.launches = 0
 
 
-def act_and_grad(pre32: torch.Tensor):
-    """(quick_gelu(pre), d quick_gelu(pre) / d pre) in fp32 from one
-    sigmoid (ln_matmul.py:296-302 computes the same two values)."""
+def act_and_grad(pre32: torch.Tensor, activation: str = "quick_gelu"):
+    """(act(pre), d act(pre) / d pre) in fp32 (ln_matmul.py:296-307
+    computes the same two values): quick_gelu from one sigmoid s, s (1 +
+    1.702 x (1 - s)); exact GELU from Phi(x) = (1 + erf(x / sqrt 2)) / 2,
+    x Phi(x) and Phi(x) + x phi(x), phi(x) = exp(-x^2 / 2) / sqrt(2 pi)."""
+    _train_act_code(activation)
+    if activation == "gelu_exact":
+        phi_big = 0.5 * (1.0 + torch.erf(pre32 * 2.0 ** -0.5))
+        phi_small = torch.exp(-0.5 * pre32 * pre32) * 0.3989422804014327
+        return pre32 * phi_big, phi_big + pre32 * phi_small
     s = torch.sigmoid(1.702 * pre32)
     grad = pre32 * (1.0 - s)
     grad.mul_(1.702).add_(1.0).mul_(s)
     return pre32 * s, grad
 
 
-def mlp_bwd_via_stash(x, g, pre, w1, b1, w2, b2, *, eps: float = 1e-5):
+def mlp_bwd_via_stash(x, g, pre, w1, b1, w2, b2, *, eps: float = 1e-5,
+                      activation: str = "quick_gelu"):
     """All five grads of the MLP half-block from the stashed pre ->
     (dx, dw1, db1, dw2, db2); the products take operands in the weight
     dtype and accumulate in fp32 (ln_matmul.py:256-293)."""
     xn32, rstd = raw_layer_norm_rstd(x.float(), eps)
     xnb = xn32.to(w1.dtype)
 
-    act, dact = act_and_grad(pre.float())
+    act, dact = act_and_grad(pre.float(), activation)
     yact = act.to(w2.dtype)
     dpre = torch.matmul(g.to(w2.dtype), w2.t()).float().mul_(dact)   # [..., M]
     dpreb = dpre.to(w1.dtype)
@@ -297,19 +325,20 @@ def mlp_bwd_via_stash(x, g, pre, w1, b1, w2, b2, *, eps: float = 1e-5):
             db2.to(b2.dtype))
 
 
-def _mlp_rows(x, w1, b1, eps):
+def _mlp_rows(x, w1, b1, eps, activation):
     """The recompute shared by the two backward kernels' plain versions:
     -> (xn32, rstd, xnb, act, dact) with pre = xnb @ w1 + b1 in fp32."""
     xn32, rstd = raw_layer_norm_rstd(x.float(), eps)
     xnb = xn32.to(w1.dtype)
-    act, dact = act_and_grad(xnb.float() @ w1.float() + b1.float())
+    act, dact = act_and_grad(xnb.float() @ w1.float() + b1.float(), activation)
     return xn32, rstd, xnb, act, dact
 
 
-def mlp_bwd_plain(x, dy, b1, w1, *, eps: float = 1e-5):
+def mlp_bwd_plain(x, dy, b1, w1, *, eps: float = 1e-5,
+                  activation: str = "quick_gelu"):
     """Plain PyTorch version of _mlp_bwd_kernel: x [..., K], dy [..., M]
     -> (dx_ln, xn, dpre, yact) in x's dtype; dx_ln has no residual."""
-    xn32, rstd, xnb, act, dact = _mlp_rows(x, w1, b1, eps)
+    xn32, rstd, xnb, act, dact = _mlp_rows(x, w1, b1, eps, activation)
     dpre = (dy.float() * dact).to(w1.dtype)
     dxn = dpre.float() @ w1.float().t()
     dx_ln = raw_layer_norm_bwd(dxn, xn32, rstd)
@@ -317,12 +346,13 @@ def mlp_bwd_plain(x, dy, b1, w1, *, eps: float = 1e-5):
             act.to(x.dtype))
 
 
-def mlp_bwd_dw_plain(x, g, b1, w1, w2, *, eps: float = 1e-5):
+def mlp_bwd_dw_plain(x, g, b1, w1, w2, *, eps: float = 1e-5,
+                     activation: str = "quick_gelu"):
     """Plain PyTorch version of _mlp_bwd_dw_kernel: x, g [B, S, K] ->
     (dx [B, S, K] with the residual, dw1 [K, M], db1 [M], dw2 [M, K]),
     the three weight gradients fp32 sums over every row."""
     k, m = w1.shape
-    xn32, rstd, xnb, act, dact = _mlp_rows(x, w1, b1, eps)
+    xn32, rstd, xnb, act, dact = _mlp_rows(x, w1, b1, eps, activation)
     dpre = (g.float() @ w2.float().t()) * dact
     dpreb = dpre.to(w1.dtype)
     dxn = dpreb.float() @ w1.float().t()
@@ -333,12 +363,13 @@ def mlp_bwd_dw_plain(x, g, b1, w1, w2, *, eps: float = 1e-5):
     return dx, dw1, db1, dw2
 
 
-def mlp_bwd(x, dy, b1, w1, *, eps: float = 1e-5):
+def mlp_bwd(x, dy, b1, w1, *, eps: float = 1e-5, activation: str = "quick_gelu"):
     """The MLP half's backward kernel with dy = g @ w2^T given: x [..., K]
     bf16; dy [..., M] bf16; b1 [M] fp32; w1 [K, M] bf16 -> (dx_ln, xn
     [..., K], dpre, yact [..., M])."""
+    act = _train_act_code(activation)
     if x.device.type == "cpu":
-        return mlp_bwd_plain(x, dy, b1, w1, eps=eps)
+        return mlp_bwd_plain(x, dy, b1, w1, eps=eps, activation=activation)
     k, m = w1.shape
     _build.check_dims(K=k, M=m)
     bf16, dev = torch.bfloat16, x.device
@@ -356,7 +387,7 @@ def mlp_bwd(x, dy, b1, w1, *, eps: float = 1e-5):
         _build.launch("uml_mlp_bwd", x.data_ptr(), dy.data_ptr(), b1.data_ptr(),
                       w1.data_ptr(), dpre.data_ptr(), yact.data_ptr(),
                       dxn.data_ptr(), dx_ln.data_ptr(), xn.data_ptr(), rows, k,
-                      m, eps, torch.cuda.current_stream(dev).cuda_stream)
+                      m, act, eps, torch.cuda.current_stream(dev).cuda_stream)
     mlp_bwd.launches += 1
     return dx_ln, xn, dpre, yact
 
@@ -364,12 +395,14 @@ def mlp_bwd(x, dy, b1, w1, *, eps: float = 1e-5):
 mlp_bwd.launches = 0
 
 
-def mlp_bwd_dw(x, g, b1, w1, w2, *, eps: float = 1e-5):
+def mlp_bwd_dw(x, g, b1, w1, w2, *, eps: float = 1e-5,
+               activation: str = "quick_gelu"):
     """The MLP half's backward kernel with the weight gradients inside:
     x, g [B, S, K] bf16; b1 [M] fp32; w1 [K, M], w2 [M, K] bf16 -> (dx
     [B, S, K] bf16, dw1 [K, M], db1 [M], dw2 [M, K] fp32)."""
+    act = _train_act_code(activation)
     if x.device.type == "cpu":
-        return mlp_bwd_dw_plain(x, g, b1, w1, w2, eps=eps)
+        return mlp_bwd_dw_plain(x, g, b1, w1, w2, eps=eps, activation=activation)
     k, m = w1.shape
     _build.check_dims(K=k, M=m)
     f32, bf16, dev = torch.float32, torch.bfloat16, x.device
@@ -396,7 +429,7 @@ def mlp_bwd_dw(x, g, b1, w1, w2, *, eps: float = 1e-5):
                       dpre.data_ptr(), yact.data_ptr(), dxn.data_ptr(),
                       db1_part.data_ptr(), dx.data_ptr(), xn.data_ptr(),
                       dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(), rows, k, m,
-                      eps, torch.cuda.current_stream(dev).cuda_stream)
+                      act, eps, torch.cuda.current_stream(dev).cuda_stream)
     mlp_bwd_dw.launches += 1
     return dx, dw1, db1, dw2
 
@@ -404,14 +437,15 @@ def mlp_bwd_dw(x, g, b1, w1, w2, *, eps: float = 1e-5):
 mlp_bwd_dw.launches = 0
 
 
-def mlp_bwd_via_kernel(x, g, w1, b1, w2, b2, *, eps: float = 1e-5):
+def mlp_bwd_via_kernel(x, g, w1, b1, w2, b2, *, eps: float = 1e-5,
+                       activation: str = "quick_gelu"):
     """All five grads around mlp_bwd, as _mlp_bwd_via_kernel assembles
     them: dy = g @ w2^T rounded to x's dtype, the residual added in fp32
     and rounded once, the dW products over (batch, seq) with fp32
     accumulation cast to the weight dtype -> (dx, dw1, db1, dw2, db2)."""
     k, m = w1.shape
     dy = torch.matmul(g, w2.t()).to(x.dtype)
-    dx_ln, xn, dpre, yact = mlp_bwd(x, dy, b1, w1, eps=eps)
+    dx_ln, xn, dpre, yact = mlp_bwd(x, dy, b1, w1, eps=eps, activation=activation)
     dx = (dx_ln.float() + g.float()).to(x.dtype)
     g2, dpre2 = g.reshape(-1, k), dpre.reshape(-1, m)
     return (dx, torch.matmul(xn.reshape(-1, k).t(), dpre2).to(w1.dtype),
@@ -420,10 +454,11 @@ def mlp_bwd_via_kernel(x, g, w1, b1, w2, b2, *, eps: float = 1e-5):
             g2.sum(0, dtype=torch.float32).to(b2.dtype))
 
 
-def mlp_bwd_dw_via_kernel(x, g, w1, b1, w2, b2, *, eps: float = 1e-5):
+def mlp_bwd_dw_via_kernel(x, g, w1, b1, w2, b2, *, eps: float = 1e-5,
+                          activation: str = "quick_gelu"):
     """All five grads around mlp_bwd_dw (_mlp_bwd_dw_via_kernel): only
     db2 outside; the fp32 dW cast to the weight dtype."""
-    dx, dw1, db1, dw2 = mlp_bwd_dw(x, g, b1, w1, w2, eps=eps)
+    dx, dw1, db1, dw2 = mlp_bwd_dw(x, g, b1, w1, w2, eps=eps, activation=activation)
     db2 = g.reshape(-1, g.shape[-1]).sum(0, dtype=torch.float32)
     return (dx, dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype),
             db2.to(b2.dtype))
@@ -442,46 +477,44 @@ def mlp_bwd_mode(x) -> str | None:
 
 
 class MlpBlockFn(torch.autograd.Function):
-    """mlp_block (quick_gelu) with a gradient: the stash forward and
-    backward under the memory gate, else the inference forward and the
-    backward UML_MLP_BWD picks.  Another ``activation`` raises: its
-    backward is not ported."""
+    """mlp_block with a gradient, for ``activation`` "quick_gelu" (CLIP,
+    the default) or "gelu_exact" (DINO): the stash forward and backward
+    under the memory gate, else the inference forward and the backward
+    UML_MLP_BWD picks, each with that activation.  None (uml_tpu's
+    identity default of ``ln_mlp_block``) raises: no model trains an MLP
+    half without an activation."""
 
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2, eps, activation="quick_gelu"):
-        if activation != "quick_gelu":
-            raise NotImplementedError(
-                f"MlpBlockFn: the gradient of the MLP half with activation="
-                f"{activation!r} (the DINO full-model finetune) is not ported "
-                "yet; ROADMAP.md, queue 1: the exact-GELU backward rows 9, "
-                "19 and 20")
-        ctx.eps = eps
+        _train_act_code(activation)
+        ctx.cfg = (eps, activation)
         if mlp_stash_enabled(x.shape[0], x.shape[1], w1.shape[1],
                              x.element_size()):
-            out, pre = mlp_block_stash(x, w1, b1, w2, b2, eps=eps)
+            out, pre = mlp_block_stash(x, w1, b1, w2, b2, eps=eps,
+                                       activation=activation)
             ctx.save_for_backward(x, w1, b1, w2, b2, pre)
         else:
-            out = mlp_block(x, w1, b1, w2, b2, eps=eps)
+            out = mlp_block(x, w1, b1, w2, b2, eps=eps, activation=activation)
             ctx.save_for_backward(x, w1, b1, w2, b2)
         return out
 
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous()
+        eps, activation = ctx.cfg
+        kw = dict(eps=eps, activation=activation)
         if len(ctx.saved_tensors) == 6:
             x, w1, b1, w2, b2, pre = ctx.saved_tensors
-            return (*mlp_bwd_via_stash(x, g, pre, w1, b1, w2, b2, eps=ctx.eps),
+            return (*mlp_bwd_via_stash(x, g, pre, w1, b1, w2, b2, **kw),
                     None, None)
         x, w1, b1, w2, b2 = ctx.saved_tensors
         mode = mlp_bwd_mode(x)
         if mode == "dw" and x.dim() == 3:
-            return (*mlp_bwd_dw_via_kernel(x, g, w1, b1, w2, b2, eps=ctx.eps),
+            return (*mlp_bwd_dw_via_kernel(x, g, w1, b1, w2, b2, **kw),
                     None, None)
         if mode == "kernel":
-            return (*mlp_bwd_via_kernel(x, g, w1, b1, w2, b2, eps=ctx.eps),
-                    None, None)
-        eps = ctx.eps
-        return (*plain_vjp(lambda *a: mlp_block_plain(*a, eps=eps),
+            return (*mlp_bwd_via_kernel(x, g, w1, b1, w2, b2, **kw), None, None)
+        return (*plain_vjp(lambda *a: mlp_block_plain(*a, **kw),
                            ctx.saved_tensors, (g,), ctx.needs_input_grad[:5]),
                 None, None)
 
