@@ -58,14 +58,31 @@ Phases (any failure exits non-zero; no phase is caught):
    attn_block_cls_bwd must show dattn on the engine and the three
    rank-2H passes of cls_bwd.cuh, and no dense dxn product or LN backward
    over an fp32 dxn (``profile_kernels`` on the kernels line).
-3. main path: the PIL decode rate of data/loader.py on the fixture's
-   JPEGs (one worker and one per core), then generate_fewshot and
+3. main path: the host decoders of data/loader.py on two fixtures of
+   JPEGs (the phase's 240 x 320 noise images and 128 500 x 375 photos,
+   where libjpeg's IDCT scaling applies): the native decoder is built
+   from uml_tpu_torch/native (a failed build where jpeglib.h exists ends
+   the run; without the headers every native rate is "not measured"), its
+   output must equal the reference source's built apart byte for byte on
+   every fixture image, and PIL and native, each in threads and in the
+   spawn pool, decode at one worker and at one per core
+   (``pipeline_host_decode_img_per_s_*``).  Then generate_fewshot and
    features on a synthetic caltech-layout
    fixture with a random-init ViT-B/16; the .pth caches must hold finite
    width-512 features, the encoder must live on the card, every port's
    launch counter must have moved by the expected count, and the card's
-   features must agree with the same model run on the CPU (plain path);
-   the image encoder's img/s, and the text encoder's prompts/s at 64
+   features must agree with the same model run on the CPU (plain path).
+   JPEG to features over 2,048 images at batch 64 in bf16: the parent's
+   per-batch synchronous loop (PIL threads) and the pipelined loop of
+   cli/features.py in threads and in the spawn pool, the pool also with
+   its outputs read at once and only at the end
+   (``pipeline_img_per_s_*``, each with the device's busy share); the
+   features CLI's pipelined caches must equal a batch-by-batch
+   synchronous encode bit for bit, and a pool worker killed halfway
+   through sending a batch must make that iterator raise
+   BrokenProcessPool, and the next extraction rebuild the pool and
+   finish.
+   The image encoder's img/s, and the text encoder's prompts/s at 64
    prompts and at 1 (one class's prompts, as features calls it).
 3b. int8 main path: features --quant int8 on the same fixture with the
    same checks (per image batch 11 attn_block_q8, 11 mlp_block_q8, 1
@@ -160,6 +177,17 @@ Phases (any failure exits non-zero; no phase is caught):
    Phase 2 holds rows 5-8 at S = 257 and rows 9, 19 and 20 with exact
    GELU at DINOv2-B/14 B = 64 (the ``*_dino`` entries of DINO_TRAIN_PORTS
    on the kernel line, their launches from these runs).
+5c. CLIP RN (``[rn]``): features with no --clip-encoder (RN50, the CLI
+   default), random init, on the phase-3 fixture: the caches hold finite
+   width-1024 features and name the decoder that ran, the text tower
+   launched once per class and no other port, and the card's image and
+   text features agree with the same model on the CPU (min cosine
+   0.999, a batch of 4); the same with --quant int8, which the RN models
+   ignore (min cosine to the bf16 caches 0.99999: room for cuDNN to pick
+   another algorithm, not for an int8 path); the frozen finetune
+   (``smoke``) on those caches; RN101 card against CPU on a batch of 4;
+   the RN50 and RN101 image encoders' img/s at batch 64 on a staged
+   batch, with the device's busy share and the peak memory rise.
 6. the products of the engine (bf16 beside torch.matmul, int8 beside
    torch._int_mm) and the attention backward's passes as one JSON line,
    the kernel table as one JSON line, the device line last.
@@ -1677,40 +1705,259 @@ def make_fixture(root, n_classes=8, per_class=(16, 4, 8)):
     return {part: len(v) for part, v in split.items()}
 
 
-def _decode_rates(root, passes=3):
-    """The host's decode rate: data/loader.py's ImageBatchLoader (threaded
-    PIL decode, resize and center crop to 224 x 224 uint8) over every JPEG
-    of the fixture (240 x 320 noise), ``passes`` times, batches of 64, with
-    one worker and with one per core -> {key: img/s}."""
+def _photo_fixture(root, n=128, hw=(375, 500)):
+    """``n`` JPEGs of ``hw`` (500 x 375, the ImageNet-typical size, where
+    the native decoder's IDCT scaling applies): smooth synthetic photos
+    with a little noise, quality 90 -> their paths."""
+    import numpy as np
+    from PIL import Image
+
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(7)
+    yy, xx = np.mgrid[0:hw[0], 0:hw[1]]
+    paths = []
+    for i in range(n):
+        f = rng.uniform(15, 60, 3)
+        arr = np.stack([128 + 100 * np.sin(xx / f[0] + i) * np.cos(yy / f[1]),
+                        128 + 80 * np.cos(xx / f[2] - i),
+                        128 + 90 * np.sin(yy / f[0] + 2 * i)], -1)
+        arr += rng.normal(0, 6, arr.shape)
+        path = os.path.join(root, f"photo_{i:03d}.jpg")
+        Image.fromarray(arr.clip(0, 255).astype(np.uint8)).save(path, quality=90)
+        paths.append(path)
+    return paths
+
+
+def _native_decoder(root):
+    """Build the native decoder from the checkout (uml_tpu_torch/native)
+    and, apart, the reference source uml_tpu/native/jpeg_decoder.cpp ->
+    (the port's decode function, the reference library) or (None, None)
+    with a printed reason where the machine has no libjpeg headers.  A
+    failed build where ``jpeglib.h`` exists ends the run."""
+    from uml_tpu_torch import native
+
+    if not native.native_available():
+        reason = native.unavailable_reason()
+        _check(not os.path.exists("/usr/include/jpeglib.h"),
+               f"native decoder build failed with jpeglib.h present: {reason}")
+        print(f"[main] native decoder: unavailable ({reason}); every native "
+              f"rate below is not measured")
+        return None, None
+    ref = native.load(native.build(
+        src=os.path.join(ROOT, "uml_tpu", "native", "jpeg_decoder.cpp"),
+        lib_path=os.path.join(ROOT, "build", "chip_smoke_ref_native",
+                              "libuml_jpeg.so")))
+    print(f"[main] native decoder: built {native.library_path()}")
+    return native.fast_decode_jpeg, ref
+
+
+def _decode_rates(root, n_images=1024):
+    """The host's decode rates, data/loader.py's ImageBatchLoader (decode,
+    resize and center crop to 224 x 224 uint8, batches of 64) over two
+    fixtures, each repeated to ``n_images``: the phase's 240 x 320 noise
+    JPEGs and 128 500 x 375 photos.  PIL and the native decoder, each in
+    threads and in the spawn pool (warmed first: the pool persists), at
+    one worker and at one per core, with a prefetch window of twice the
+    workers (a worker decodes a whole batch).  The native output must
+    equal the reference source's, built apart, byte for byte on every
+    fixture image -> {key: img/s}."""
     import glob
 
-    from uml_tpu_torch.data.loader import ImageBatchLoader
+    import numpy as np
 
-    items = [{"impath": p, "label": 0} for p in sorted(glob.glob(
-        os.path.join(root, "caltech-101", "101_ObjectCategories", "*", "*.jpg")))]
-    _check(len(items) > 0, "fixture JPEGs")
-    out = {}
-    for workers in (1, os.cpu_count() or 1):
-        t0 = time.perf_counter()
-        n = 0
-        for _ in range(passes):
-            for imgs, _, _ in ImageBatchLoader(items, "crop", 64, num_workers=workers):
-                n += len(imgs)
-        rate = n / (time.perf_counter() - t0)
-        out[f"pil_decode_img_per_s_{workers}w"] = rate
-        print(f"[main] PIL decode (data/loader.py ImageBatchLoader, 240x320 JPEG "
-              f"-> 224x224 crop, batches of 64), {workers} worker(s): {n} images, "
-              f"{rate:.1f} img/s")
+    from uml_tpu_torch import native
+    from uml_tpu_torch.data.loader import ImageBatchLoader
+    from uml_tpu_torch.data.transforms import load_uint8
+
+    gpu = _gpu_line()
+    fixtures = {
+        "240x320": sorted(glob.glob(os.path.join(
+            root, "caltech-101", "101_ObjectCategories", "*", "*.jpg"))),
+        "500x375": _photo_fixture(os.path.join(root, "photos_500x375")),
+    }
+    _check(all(fixtures.values()), "fixture JPEGs")
+    decode, ref = _native_decoder(root)
+    out = {"native_decoder_available": decode is not None}
+    if decode is not None:
+        for name, paths in fixtures.items():
+            gaps = []
+            for p in paths:
+                got = decode(p)
+                _check(np.array_equal(got, native.decode_with(ref, p)),
+                       f"native decode of {p} differs from the reference source's")
+                gaps.append(np.abs(got.astype(int) - load_uint8(p).astype(int)).mean())
+            out[f"native_vs_pil_mean_abs_{name}"] = float(np.mean(gaps))
+            print(f"[main] native decode of the {name} fixture: bytes equal to the "
+                  f"reference source's on {len(paths)} images; mean |native - PIL| "
+                  f"{np.mean(gaps):.3f} / 255")
+    cores = os.cpu_count() or 1
+    kinds = [("pil_thread", False, "thread"), ("pil_process", False, "process")]
+    if decode is not None:
+        kinds += [("native_thread", True, "thread"), ("native_process", True, "process")]
+    for name, paths in fixtures.items():
+        items = [{"impath": paths[i % len(paths)], "label": 0}
+                 for i in range(n_images)]
+        for kind, fast, worker_kind in kinds:
+            for workers in (1, cores):
+                def run():
+                    n = 0
+                    for imgs, _, _ in ImageBatchLoader(
+                            items, "crop", 64, num_workers=workers,
+                            fast_decode=fast, worker_kind=worker_kind,
+                            prefetch=2 * workers):
+                        n += len(imgs)
+                    return n
+                if worker_kind == "process":
+                    run()   # the pool's start (spawn, imports) is set-up
+                t0 = time.perf_counter()
+                n = run()
+                rate = n / (time.perf_counter() - t0)
+                out[f"pipeline_host_decode_img_per_s_{kind}_{name}_{workers}w"] = rate
+                print(f"[main] decode {kind} ({name} JPEG -> 224x224 crop), "
+                      f"{workers} worker(s): {n} images, {rate:.1f} img/s  [{gpu}]")
+        if decode is None:
+            for kind in ("native_thread", "native_process"):
+                print(f"[main] decode {kind} ({name}): not measured (no native "
+                      f"decoder)")
     return out
 
 
-def _features_args(root, batch, feature_dir, quant="none"):
+def _pipeline_rates(encoder, root, sizes, n_images=2048, batch=64):
+    """JPEG to features on the bf16 ViT-B/16 encoder over ``n_images`` (the
+    fixture's JPEGs repeated), batch 64: the parent's loop (PIL threads,
+    4 batches in flight, each batch encoded and read before the next) and
+    the pipelined loop of cli/features.py::image_features in threads and
+    in the spawn pool (UML_DECODE_WORKERS), one worker per core, the pool
+    also with its outputs read at once (``FETCH_WINDOW`` 0) and only at
+    the split's end (2048 / 64 = 32); each timed twice in turns (forward,
+    then backward order); img/s and the device's busy share of each.
+    Then the pipelined features CLI caches must equal a batch-by-batch
+    synchronous encode of the same pixels bit for bit, and a pool worker
+    killed halfway through sending a batch must break that iterator
+    (BrokenProcessPool, no hang) and leave the next extraction to rebuild
+    the pool and finish -> numbers."""
+    import glob
+    import signal
+    from concurrent.futures.process import BrokenProcessPool
+
+    import numpy as np
+
+    from uml_tpu_torch.cli import features as feat
+    from uml_tpu_torch.data import loader as ld
+    from uml_tpu_torch.data.feature_cache import img_outdir, load_cache
+
+    gpu = _gpu_line()
+    cores = os.cpu_count() or 1
+    paths = sorted(glob.glob(os.path.join(
+        root, "caltech-101", "101_ObjectCategories", "*", "*.jpg")))
+    items = [{"impath": paths[i % len(paths)], "label": 0} for i in range(n_images)]
+
+    def parent_loop():
+        for imgs, _, _ in ld.ImageBatchLoader(items, "crop", batch, num_workers=cores,
+                                              fast_decode=False):
+            encoder.encode_images(imgs)
+
+    def pipelined(kind, window=1):
+        def run():
+            default, feat.FETCH_WINDOW = feat.FETCH_WINDOW, window
+            try:
+                with _env({"UML_DECODE_WORKERS": kind}):
+                    return feat.image_features(encoder, items, "crop", batch, cores)
+            finally:
+                feat.FETCH_WINDOW = default
+        return run
+
+    _check(feat.FETCH_WINDOW == 1, "the features loop reads one dispatch late")
+    out = {}
+    results = {}
+    loops = {"parent_sync_pil": parent_loop, "pipelined_thread": pipelined("thread"),
+             "pipelined_process": pipelined("process"),
+             "pipelined_process_window0": pipelined("process", 0),
+             "pipelined_process_window32": pipelined("process", n_images // batch)}
+    walls = {name: [] for name in loops}
+    for fn in loops.values():
+        fn()   # warm: the pool's start, the kernels' first calls
+    # in turns, forward then backward, so host drift hits every loop alike
+    for name in list(loops) + list(loops)[::-1]:
+        t0 = time.perf_counter()
+        results[name] = loops[name]()
+        walls[name].append(time.perf_counter() - t0)
+    for name, fn in loops.items():
+        wall = sum(walls[name]) / len(walls[name])
+        rows = _profile(f"JPEG to features, {name}", fn, reps=1)
+        busy = _busy_share(rows, wall * 1e3, reps=1)
+        out[f"pipeline_img_per_s_{name}"] = n_images / wall
+        out[f"pipeline_device_busy_{name}"] = busy
+        print(f"[main] JPEG to features ({name}, ViT-B/16 bf16, batch {batch}, "
+              f"{cores} workers): {n_images} images in "
+              f"{', '.join(f'{w:.3f}' for w in walls[name])} s = "
+              f"{', '.join(f'{n_images / w:.1f}' for w in walls[name])} img/s, "
+              f"mean {n_images / wall:.1f}, device busy {busy:.3f}  [{gpu}]")
+    _check(all(np.array_equal(results["pipelined_thread"]["features"], r["features"])
+               for name, r in results.items() if name.startswith("pipelined")),
+           "thread and process pipelines, every window, give the same features")
+
+    # the features CLI's caches (pipelined) against a batch-by-batch encode
+    for mode, splits in (("train", ("train", "val")), ("test", (None,))):
+        cache = load_cache(img_outdir(f"{root}/features", "ViT-B/16", "caltech101",
+                                      "crop", 16, 1, mode))
+        for split in splits:
+            c = cache[split] if split else cache
+            feats = [encoder.encode_images(imgs) for imgs, _, _ in ld.ImageBatchLoader(
+                [{"impath": p, "label": 0} for p in c["paths"]], "crop", batch,
+                num_workers=cores)]
+            _check(np.array_equal(c["features"], np.concatenate(feats)),
+                   f"pipelined {split or mode} cache equals the synchronous encode")
+    print("[main] the pipelined caches equal a batch-by-batch synchronous encode "
+          "bit for bit")
+
+    # a pool worker killed halfway through sending a batch (9.6 MB, more
+    # than a pipe holds: with nobody reading, a worker whose first bytes
+    # have arrived sits in its send): that iterator raises, the next
+    # extraction rebuilds the pool
+    def wait_until(cond):
+        for _ in range(600):
+            if cond():
+                return True
+            time.sleep(0.1)
+        return False
+
+    small = items[:6 * batch]
+    it = iter(ld.ImageBatchLoader(small, "crop", batch, num_workers=cores,
+                                  worker_kind="process", prefetch=2))
+    next(it)   # two batches now in flight, unread
+    pool = ld._PROC_POOLS[cores]
+    _check(wait_until(lambda: any(c.poll() for c in pool.conns)), "a worker sending")
+    sending = next(i for i, c in enumerate(pool.conns) if c.poll())
+    os.kill(pool.procs[sending].pid, signal.SIGKILL)
+    t0 = time.perf_counter()
+    try:
+        for _ in it:
+            pass
+        broke = False
+    except BrokenProcessPool:
+        broke = True
+    raised_s = time.perf_counter() - t0
+    _check(broke and pool.broken, "the iterator of the broken pool raised BrokenProcessPool")
+    again = pipelined("process")()
+    _check(ld._PROC_POOLS[cores] is not pool, "the broken pool was rebuilt")
+    _check(np.array_equal(again["features"], results["pipelined_process"]["features"]),
+           "the rebuilt pool's extraction equals the first")
+    print(f"[main] killed one decode worker halfway through sending a batch: "
+          f"that iterator raised BrokenProcessPool after {raised_s:.3f} s; the "
+          f"next extraction rebuilt the pool and finished, features equal")
+    return out
+
+
+def _features_args(root, batch, feature_dir, quant="none", encoder="ViT-B/16"):
+    """The features CLI's flags on the phase-3 fixture; ``encoder`` None
+    leaves out --clip-encoder (the default, RN50)."""
     from uml_tpu_torch.cli import features as feat
 
     args = feat.build_parser().parse_args([
         "--data_dir", root, "--indices_dir", f"{root}/indices",
         "--feature_dir", feature_dir, "--dataset", "caltech101",
-        "--clip-encoder", "ViT-B/16", "--allow-random-init",
+        *(["--clip-encoder", encoder] if encoder else []), "--allow-random-init",
         "--train-shot", "16", "--seed", "1",
         "--text-augmentation", "hand_crafted", "--batch-size", str(batch),
         "--quant", quant])
@@ -1719,26 +1966,26 @@ def _features_args(root, batch, feature_dir, quant="none"):
     return args
 
 
-def _check_caches(feature_dir, sizes, n_classes):
+def _check_caches(feature_dir, sizes, n_classes, encoder="ViT-B/16", width=512):
     """The image caches of the three splits and the text cache hold finite
-    width-512 features -> (train, test, text) caches."""
+    features of ``width`` -> (train, test, text) caches."""
     import numpy as np
 
     from uml_tpu_torch.data.feature_cache import img_outdir, load_cache, text_outdir
 
-    img_path = img_outdir(feature_dir, "ViT-B/16", "caltech101", "crop",
+    img_path = img_outdir(feature_dir, encoder, "caltech101", "crop",
                           16, 1, "train")
-    test_path = img_outdir(feature_dir, "ViT-B/16", "caltech101", "crop",
+    test_path = img_outdir(feature_dir, encoder, "caltech101", "crop",
                            16, 1, "test")
-    txt_path = text_outdir(feature_dir, "ViT-B/16", "caltech101",
+    txt_path = text_outdir(feature_dir, encoder, "caltech101",
                            "hand_crafted")
     img, test, txt = load_cache(img_path), load_cache(test_path), load_cache(txt_path)
     for name, split, n in (("train", img["train"], sizes["train"]),
                            ("val", img["val"], sizes["val"]),
                            ("test", test, sizes["test"])):
         f = split["features"]
-        _check(f.shape == (n, 512) and np.isfinite(f).all(), (name, f.shape))
-    _check(txt["features"].shape == (n_classes, 512)
+        _check(f.shape == (n, width) and np.isfinite(f).all(), (name, f.shape))
+    _check(txt["features"].shape == (n_classes, width)
            and np.isfinite(txt["features"]).all(),
            ("text", txt["features"].shape))
     print(f"[caches] written: {img_path} {test_path} {txt_path}")
@@ -1822,6 +2069,7 @@ def phase_main_path():
            "encoder parameters on the card")
     _, test, _ = _check_caches(args.feature_dir, sizes, n_classes)
     _card_vs_cpu_features(encoder, test["paths"], "main")
+    pipeline = _pipeline_rates(encoder, root, sizes)
 
     # steady-state encoder throughput on a staged batch (decode excluded)
     rng = np.random.default_rng(0)
@@ -1830,7 +2078,7 @@ def phase_main_path():
     ms = _time_ms(lambda: encoder.encode_staged(staged, n), iters=10)
     rate = {"features_wall_s": wall,
             "features_images": sum(sizes.values()),
-            "encoder_img_per_s_bs64": batch / (ms / 1e3), **decode}
+            "encoder_img_per_s_bs64": batch / (ms / 1e3), **decode, **pipeline}
     print(f"[main] image encoder forward {ms:.3f} ms per batch of {batch} "
           f"= {rate['encoder_img_per_s_bs64']:.1f} img/s")
     _profile("image encoder", lambda: encoder.encode_staged(staged, n))
@@ -1978,6 +2226,91 @@ def phase_int8_path(root, sizes, bf16_encoder):
     print(f"[int8] {len(views)} int8 weights of {len(blocks)} layers read in place "
           f"(K-major caches, no per-batch transpose)")
     return launches, numbers
+
+
+def phase_rn(root, sizes):
+    """[rn]: features with no --clip-encoder (RN50, the CLI default), random
+    init, on the phase-3 fixture, in bf16 and with --quant int8 (which the
+    RN models ignore); the frozen finetune on its caches; RN101 on a batch
+    of 4; the RN50 and RN101 image encoders' img/s -> ({text_tower:
+    launches}, numbers)."""
+    import numpy as np
+    import torch
+
+    from uml_tpu_torch import native
+    from uml_tpu_torch.cli import features as feat
+    from uml_tpu_torch.models.encoders import ClipEncoder
+
+    gpu = _gpu_line()
+    batch, n_classes = 64, 8
+    decoder = "native-libjpeg" if native.native_available() else "pil"
+    numbers, caches, counts = {}, {}, {}
+    for quant in ("none", "int8"):
+        fdir = f"{root}/features_rn_{quant}"
+        args = _features_args(root, batch, fdir, quant, encoder=None)
+        _check(args.clip_encoder == "RN50", args.clip_encoder)
+        t0 = time.perf_counter()
+        encoder, launches = _counted(lambda: feat.main(args))
+        wall = time.perf_counter() - t0
+        # the RN image tower runs cuDNN convolutions, no port; the text
+        # tower is one text_tower launch per class
+        want = dict.fromkeys(launches, 0)
+        want["text_tower"] = n_classes
+        print(f"[rn] features (no --clip-encoder: RN50) --quant {quant} CLI "
+              f"{wall:.2f} s; launches { {k: v for k, v in launches.items() if v} }")
+        _check(launches == want, (quant, launches, want))
+        _check(all(p.device.type == "cuda" for p in encoder.model.parameters()),
+               "RN50 encoder parameters on the card")
+        caches[quant] = _check_caches(fdir, sizes, n_classes, "RN50", 1024)
+        img, test, _ = caches[quant]
+        used = {img["train"]["decoder"], img["val"]["decoder"], test["decoder"]}
+        _check(used == {decoder}, (used, decoder))
+        numbers[f"rn50_features_wall_s_{quant}"] = wall
+        if quant == "none":
+            counts = launches
+            cos_img, cos_txt = _card_vs_cpu_features(encoder, test["paths"], "rn")
+            numbers.update(rn50_card_vs_cpu_cos_img=cos_img,
+                           rn50_card_vs_cpu_cos_txt=cos_txt)
+            rn50 = encoder
+        else:
+            del encoder
+    print(f"[rn] the caches say decoder {decoder!r}")
+    (a_img, a_test, a_txt), (b_img, b_test, b_txt) = caches["none"], caches["int8"]
+    cos_q = min(_cos_min(a["features"], b["features"]) for a, b in (
+        (a_img["train"], b_img["train"]), (a_img["val"], b_img["val"]),
+        (a_test, b_test), (a_txt, b_txt)))
+    numbers["rn50_int8_vs_bf16_cos"] = cos_q
+    print(f"[rn] --quant int8 against bf16 (RN ignores the mode): min cosine "
+          f"{cos_q:.7f} (bound 0.99999)")
+    _check(cos_q >= 0.99999, cos_q)
+
+    launches, wall, _ = _finetune(root, "smoke", _wrappers(), "experiments_rn",
+                                  encoder=["--clip-encoder", "RN50", "--feature_dir",
+                                           f"{root}/features_rn_none"])
+    _check(not any(launches.values()), ("frozen RN finetune", launches))
+    numbers["rn50_finetune_smoke_wall_s"] = wall
+
+    rn101 = ClipEncoder("RN101", allow_random_init=True)
+    cos_img, cos_txt = _card_vs_cpu_features(rn101, a_test["paths"], "rn101")
+    numbers.update(rn101_card_vs_cpu_cos_img=cos_img, rn101_card_vs_cpu_cos_txt=cos_txt)
+    u8 = np.random.default_rng(5).integers(0, 256, (batch, 224, 224, 3), dtype=np.uint8)
+    for name, enc in (("RN50", rn50), ("RN101", rn101)):
+        staged, n = enc.stage_images(u8)
+        enc.encode_staged(staged, n)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms = _time_ms(lambda: enc.encode_staged(staged, n), iters=10)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        rows = _profile(f"{name} image encoder", lambda: enc.encode_staged(staged, n))
+        busy = _busy_share(rows, ms)
+        key = name.lower()
+        numbers.update({f"{key}_img_per_s_bs64": batch / (ms / 1e3),
+                        f"{key}_device_busy": busy, f"{key}_peak_rise_mib": peak})
+        print(f"[rn] {name} image encoder {ms:.3f} ms per batch of {batch} = "
+              f"{batch / (ms / 1e3):.1f} img/s, device busy {busy:.3f}, peak "
+              f"memory rise {peak:.1f} MiB  [{gpu}]")
+    return counts, numbers
 
 
 def _dino_features_args(root, batch, feature_dir, quant):
@@ -2791,14 +3124,20 @@ def _profile(what, fn, reps=3, top=10, by_op=False):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    rows = _device_rows(prof.key_averages())
-    busy = sum(t for _, t, _ in rows)
+    # a capture that holds no device event at all is a failed measurement
+    # (seen once on the card, between two full captures): profile again
+    for attempt in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        rows = _device_rows(prof.key_averages())
+        busy = sum(t for _, t, _ in rows)
+        if busy > 0:
+            break
+        print(f"[profile] {what}: the capture holds no device event; profiling again")
     print(f"[profile] {what}: device busy {busy / reps / 1e3:.3f} ms per call, "
           f"{100 * busy / wall_us:.1f}% of {wall_us / reps / 1e3:.3f} ms wall")
     for key, t, count in sorted(rows, key=lambda r: -r[1])[:top]:
@@ -2873,6 +3212,8 @@ def main() -> int:
     rate.update(dino_numbers)
     dino_train_launches, dino_train_numbers = phase_dino_train(root, sizes)
     rate.update(dino_train_numbers)
+    _, rn_numbers = phase_rn(root, sizes)
+    rate.update(rn_numbers)
     # each port's launches come from the path it belongs to: the bf16
     # serving kernels from the features run, the int8 ones from the
     # features --quant int8 run and its tower encode, the training kernels

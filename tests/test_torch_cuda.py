@@ -18,7 +18,10 @@ to its plain version bit for bit; DINO's exact-GELU MLP halves, row 3 at
 K in {384, 768, 1024} and S in {197, 257, 785}, row 11 and c_fc's
 exact-GELU quantizing pass, a DINOv2 batch against the CPU, and the
 exact-GELU training rows 9, 19 and 20 at S in {9, 17, 257} with the
-engine's exact-GELU triples).  Marked ``cuda``: they skip without an NVIDIA GPU (sm_90a) and
+engine's exact-GELU triples).  Also: every attention wrapper refuses head
+dim 32 (F8), and the features loop's staging (the copy stream, the ring of
+four reused pinned buffers, the copy back into pinned memory) gives the
+synchronous encode's features bit for bit.  Marked ``cuda``: they skip without an NVIDIA GPU (sm_90a) and
 run on the card with ``python -m pytest tests/test_torch_cuda.py -q``.
 The text tower runs at B in {1, 3, 64} and S in {77, 129}, both sides of
 its route (one launch for S <= 128, the chain above), and at the ViT-B
@@ -1162,3 +1165,97 @@ def test_q8_gemm_epilogues_bit_for_bit(dev, epi, rows, kn):
     want = gemm.q8_gemm_plain(a, w, rs, cs, bias, res, epi=epi)
     torch.cuda.synchronize()
     assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+def test_kernels_raise_at_head_dim_32(dev):
+    """F8: the wrappers refuse head dim 32 (hidden 64, 2 heads) on a CUDA
+    tensor before any launch; the plain versions take it
+    (tests/test_torch_head_dim.py)."""
+    k, heads, b, s = 64, 2, 2, 9
+    g = torch.Generator().manual_seed(6)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g).to(dtype).to(dev)
+
+    x, grad = rnd(b, s, k), rnd(b, s, k)
+    w_eff, b_eff = rnd(k, 3 * k), rnd(3 * k, dtype=torch.float32)
+    wo, bo = rnd(k, k), rnd(k, dtype=torch.float32)
+    qkv = rnd(b, s, 3 * k)
+    stacked = [rnd(2, k, 3 * k), rnd(2, 3 * k, dtype=torch.float32), rnd(2, k, k),
+               rnd(2, k, dtype=torch.float32), rnd(2, k, 4 * k),
+               rnd(2, 4 * k, dtype=torch.float32), rnd(2, 4 * k, k),
+               rnd(2, k, dtype=torch.float32)]
+    calls = [
+        lambda: fa.attn_block(x, w_eff, b_eff, wo, bo, heads=heads),
+        lambda: fa.attn_block_cls(x, w_eff, b_eff, wo, bo, heads=heads),
+        lambda: fa.attn_block_stash(x, w_eff, b_eff, wo, bo, heads=heads),
+        lambda: fa.attn_block_bwd(x, grad, qkv, w_eff, wo, heads=heads),
+        lambda: fa.attn_block_bwd_recompute(x, grad, w_eff, b_eff, wo, heads=heads),
+        lambda: fa.qkv_attention(x, w_eff, b_eff, heads=heads),
+        lambda: fa.attn_bwd(qkv, qkv[..., :k].contiguous(), heads=heads),
+        lambda: tt.text_tower(x, *stacked, heads=heads),
+        lambda: q8.ln_attn_block_q8(x, torch.ones(k, device=dev),
+                                    torch.zeros(k, device=dev), w_eff.float(),
+                                    b_eff, wo, bo, heads=heads),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match="head dim"):
+            call()
+
+
+def test_pinned_ring_and_copy_stream(dev, tmp_path, monkeypatch):
+    """The features loop's staging on the card: four reused pinned buffers
+    on a copy stream of their own, the forward waiting for each copy, the
+    copy back into pinned memory; the pipelined loop (threads and the
+    spawn pool) equals a synchronous per-batch encode bit for bit."""
+    from PIL import Image
+
+    from uml_tpu_torch.cli import features
+    from uml_tpu_torch.data import loader
+    from uml_tpu_torch.models import encoders
+    from uml_tpu_torch.models.clip import CLIP, ClipConfig
+
+    weights = tmp_path / "weights"
+    weights.mkdir()
+    tiny = ClipConfig(embed_dim=64, image_resolution=224, vision_layers=2,
+                      vision_width=128, vision_patch_size=32,
+                      transformer_width=128, transformer_heads=2,
+                      transformer_layers=1)
+    torch.save(CLIP(tiny).init_random(torch.Generator().manual_seed(4)).state_dict(),
+               str(weights / "ViT-B-32.pt"))
+    monkeypatch.setenv("UML_CLIP_WEIGHTS_DIR", str(weights))
+    monkeypatch.setenv("UML_CLIP_VERIFY_SHA", "0")
+    enc = encoders.ClipEncoder("ViT-B/32", device="cuda")
+    rng = np.random.default_rng(0)
+    batches = [rng.integers(0, 256, (5, 224, 224, 3), dtype=np.uint8)
+               for _ in range(9)]
+    staged = [enc.stage_images(u8) for u8 in batches]
+    assert len({buf.data_ptr() for buf in enc._ring.buffers}) == 4
+    assert all(st.copied is not None for st, _ in staged)
+    for u8, (st, n) in zip(batches, staged):
+        out = enc.encode_staged(st, n)[0]
+        assert torch.equal(st.pixels.cpu(), torch.from_numpy(u8.reshape(5, -1)))
+        with torch.no_grad():
+            want = enc.model.encode_image_u8(torch.from_numpy(u8.reshape(5, -1)).to(dev))
+        assert torch.equal(out, want)
+    pending = [encoders.PendingOutput(*enc.encode_staged(*enc.stage_images(u8)))
+               for u8 in batches]
+    for u8, p in zip(batches, pending):
+        assert p.host.is_pinned()
+        np.testing.assert_array_equal(p.result(), enc.encode_images(u8))
+
+    items = []
+    for i in range(10):
+        path = tmp_path / f"img_{i}.jpg"
+        Image.fromarray(rng.integers(0, 256, (150 + i, 200, 3), dtype=np.uint8)
+                        ).save(path)
+        items.append({"impath": str(path), "label": i % 3})
+    want = np.concatenate([enc.encode_images(u8) for u8, _, _ in
+                           loader.ImageBatchLoader(items, "crop", 4, num_workers=2)])
+    try:
+        for kind in ("thread", "process"):
+            monkeypatch.setenv("UML_DECODE_WORKERS", kind)
+            got = features.image_features(enc, items, "crop", 4, 2)
+            np.testing.assert_array_equal(got["features"], want)
+    finally:
+        loader.shutdown_proc_pools()

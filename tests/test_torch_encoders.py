@@ -68,7 +68,10 @@ def test_checkpoint_loads_with_sha_check(tmp_path, monkeypatch):
     # uml_tpu's early refusal of a mixed int8 mode for a non-CLIP tower
     (features, ["--vision_model", "vit_base_patch16_224_dino", "--quant",
                 "int8_qkv"], "int8_qkv"),
-    (features, ["--clip-encoder", "RN50"], "RN towers"),
+    # the RN towers serve and take the frozen grids; their full-model
+    # finetune (BatchNorm in train mode) is the next slice
+    (finetune, ["--clip-encoder", "RN50", "--hyperparams", "smoke_full"],
+     "RN towers"),
 ])
 def test_features_refuses_what_is_not_ported(monkeypatch, cli, flags, message):
     """Each refusal comes before any dataset or model work."""

@@ -3,8 +3,11 @@
 A seeded tiny OpenAI-schema checkpoint is written as ViT-B-32.pt (patch
 32 at resolution 224, so 50 positions; width 128 with 2 heads and 2
 layers in each tower); both loaders infer that config from its shapes.
-uml_tpu decodes with PIL here (its native decoder is switched off), as
-the port does.  Labels, paths, prompts and EOT indices must be equal;
+Both packages decode with PIL here (their native decoders switched off),
+except in test_features_cli_native_decoder_agrees, where both run the
+native libjpeg decoder (uml_tpu's built from its source into the test's
+directory) and the caches must say so.  Labels, paths, prompts and EOT
+indices must be equal;
 the features, bf16 in both packages, must agree to a per-row cosine of
 0.999 (the packages round intermediates to bf16 at different points), in
 bf16 and in the int8 serving mode (``--quant int8``; the integers of the
@@ -17,6 +20,7 @@ import pytest
 import torch
 
 from tests.test_data_fewshot import make_caltech_fixture
+from tests.test_torch_native import jax_native, native_on  # noqa: F401
 from uml_tpu.cli import features as jax_features
 from uml_tpu.cli import generate_fewshot as gf
 from uml_tpu.data.feature_cache import img_outdir, load_cache, text_outdir
@@ -52,8 +56,10 @@ def test_features_cli_caches_agree(tmp_path, monkeypatch, return_tokens,
     monkeypatch.setenv("UML_CLIP_VERIFY_SHA", "0")
     monkeypatch.setenv("UML_TORCH_DEVICE", "cpu")
     import uml_tpu.native
+    import uml_tpu_torch.native
 
     monkeypatch.setattr(uml_tpu.native, "native_available", lambda: False)
+    monkeypatch.setattr(uml_tpu_torch.native, "native_available", lambda: False)
 
     gf.main(gf.build_parser().parse_args([
         "--data_dir", root, "--indices_dir", f"{root}/indices",
@@ -94,6 +100,45 @@ def test_features_cli_caches_agree(tmp_path, monkeypatch, return_tokens,
     assert ttx["lab2cname"] == jtx["lab2cname"]
     assert ttx["features"].shape == jtx["features"].shape
     assert _cosine_min(ttx["features"], jtx["features"]) >= MIN_COSINE
+
+
+@pytest.mark.heavy
+def test_features_cli_native_decoder_agrees(tmp_path, monkeypatch, jax_native):
+    """Both packages with their native decoders on, as a default run on a
+    machine with g++ and libjpeg goes (``--image_augmentation crop``):
+    the caches say ``decoder: "native-libjpeg"`` on both sides and agree.
+    uml_tpu's library is built from its source into ``tmp_path``."""
+    torch.set_num_threads(1)
+    root = make_caltech_fixture(str(tmp_path / "data"))
+    weights = tmp_path / "weights"
+    weights.mkdir()
+    model = CLIP(TINY_B32).init_random(torch.Generator().manual_seed(1))
+    torch.save(model.state_dict(), str(weights / "ViT-B-32.pt"))
+    monkeypatch.setenv("UML_CLIP_WEIGHTS_DIR", str(weights))
+    monkeypatch.setenv("UML_CLIP_VERIFY_SHA", "0")
+    monkeypatch.setenv("UML_TORCH_DEVICE", "cpu")
+    gf.main(gf.build_parser().parse_args([
+        "--data_dir", root, "--indices_dir", f"{root}/indices",
+        "--dataset", "caltech101", "--train-shot", "2", "--seed", "1"]))
+    argv = ["--data_dir", root, "--indices_dir", f"{root}/indices",
+            "--dataset", "caltech101", "--clip-encoder", "ViT-B/32",
+            "--train-shot", "2", "--seed", "1", "--text-augmentation",
+            "hand_crafted", "--batch-size", "8", "--num-workers", "2",
+            "--mesh", "off"]
+    dirs = {}
+    for name, cli in (("jax", jax_features), ("torch", torch_features)):
+        dirs[name] = str(tmp_path / f"features_{name}")
+        args = cli.build_parser().parse_args(argv + ["--feature_dir", dirs[name]])
+        args.overwrite, args.force_rerun = False, False
+        cli.main(args)
+    for mode in ("train", "test"):
+        j, t = (load_cache(img_outdir(dirs[n], "ViT-B/32", "caltech101", "crop",
+                                      2, 1, mode)) for n in ("jax", "torch"))
+        for jj, tt in ((j["train"], t["train"]), (j["val"], t["val"])) \
+                if mode == "train" else ((j, t),):
+            assert tt["decoder"] == jj["decoder"] == "native-libjpeg"
+            assert tt["paths"] == jj["paths"]
+            assert _cosine_min(tt["features"], jj["features"]) >= MIN_COSINE
 
 
 DINO = "vit_base_patch14_dinov2.lvd142m"
@@ -149,8 +194,10 @@ def test_features_cli_dino_caches_agree(tmp_path, monkeypatch, return_tokens,
     tiny_dino(monkeypatch)
     monkeypatch.setenv("UML_TORCH_DEVICE", "cpu")
     import uml_tpu.native
+    import uml_tpu_torch.native
 
     monkeypatch.setattr(uml_tpu.native, "native_available", lambda: False)
+    monkeypatch.setattr(uml_tpu_torch.native, "native_available", lambda: False)
     gf.main(gf.build_parser().parse_args([
         "--data_dir", root, "--indices_dir", f"{root}/indices",
         "--dataset", "caltech101", "--train-shot", "2", "--seed", "1"]))

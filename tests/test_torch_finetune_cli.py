@@ -6,8 +6,8 @@ each tower; embedding width 512, the ViT-B/32 config's, which both
 finetune CLIs take from the config table).  The port's ``features`` CLI
 writes the text cache; both packages' ``finetune`` read that same cache
 (the interop of the two), with ``--modality crossmodal``, for the frozen
-grid ``smoke`` and the full-model grid ``smoke_full``.  uml_tpu decodes
-with PIL here (its native decoder off), as the port does.
+grid ``smoke`` and the full-model grid ``smoke_full``.  Both packages
+decode with PIL here (their native decoders off).
 
 Equal: the artifact trees, the keys of test_result.pth and results.pth
 (the full path's ``model["backbone"]`` is a flax tree in uml_tpu and an
@@ -89,8 +89,10 @@ def test_finetune_cli_both_packages(tmp_path, monkeypatch, grid):
     monkeypatch.setenv("UML_CLIP_VERIFY_SHA", "0")
     monkeypatch.setenv("UML_TORCH_DEVICE", "cpu")
     import uml_tpu.native
+    import uml_tpu_torch.native
 
     monkeypatch.setattr(uml_tpu.native, "native_available", lambda: False)
+    monkeypatch.setattr(uml_tpu_torch.native, "native_available", lambda: False)
 
     common = ["--data_dir", root, "--indices_dir", f"{root}/indices",
               "--feature_dir", f"{root}/features", "--dataset", "caltech101",
@@ -195,8 +197,10 @@ def test_finetune_cli_frozen_dino_both_packages(tmp_path, monkeypatch):
     tiny_dino(monkeypatch)
     monkeypatch.setenv("UML_TORCH_DEVICE", "cpu")
     import uml_tpu.native
+    import uml_tpu_torch.native
 
     monkeypatch.setattr(uml_tpu.native, "native_available", lambda: False)
+    monkeypatch.setattr(uml_tpu_torch.native, "native_available", lambda: False)
 
     def head_from_jax(feat_dim, num_classes, *, text_indim=0,
                       learnable_temp=False, logit_scale=None, generator=None):

@@ -88,7 +88,8 @@ def test_loader_pixels_equal(data_dir, augmentation):
     the same per-batch augmentation RNG."""
     items = dataset_classes["caltech101"](data_dir).train[:10]
     ours = list(torch_loader.ImageBatchLoader(items, augmentation, 4,
-                                              num_workers=2, seed=3))
+                                              num_workers=2, seed=3,
+                                              fast_decode=False))
     theirs = list(jax_loader.ImageBatchLoader(items, augmentation, 4,
                                               num_workers=2, seed=3,
                                               fast_decode=False))

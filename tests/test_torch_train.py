@@ -120,10 +120,12 @@ def _image_items(root, n_classes=3, per_class=8, size=32):
 
 @pytest.fixture
 def pil_only(monkeypatch):
-    """uml_tpu decodes with PIL, as the port does (its native decoder off)."""
+    """Both packages decode with PIL (their native decoders off)."""
     import uml_tpu.native
+    import uml_tpu_torch.native
 
     monkeypatch.setattr(uml_tpu.native, "native_available", lambda: False)
+    monkeypatch.setattr(uml_tpu_torch.native, "native_available", lambda: False)
 
 
 @pytest.mark.parametrize("augmentation", ["crop", "flip"])

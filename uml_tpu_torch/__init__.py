@@ -7,11 +7,14 @@ core      flags, YAML sweeps, device choice
 utils     IO and seeding helpers
 data      benchmark registry, few-shot splits, templates, descriptors,
           transforms, the uint8 image loader, feature caches
+native    the libjpeg decoder of the host pipeline (C++ built by g++ at
+          first use, bound with ctypes)
 ops       the hand-written Hopper kernels (``csrc/*.cu``) behind PyTorch
           wrappers, each beside its plain PyTorch version
-models    CLIP ViT + text tower (OpenAI state_dict schema), DINO /
-          DINOv2 ViT, tokenizer, encoder loading
-cli       ``generate_fewshot`` and ``features``
+models    CLIP ViT and RN50 / RN101 + text tower (OpenAI state_dict
+          schema), DINO / DINOv2 ViT, tokenizer, encoder loading
+cli       ``generate_fewshot``, ``features``, ``finetune``,
+          ``collect_results``
 
 Importing this package imports neither ``jax`` nor ``uml_tpu``; the BPE
 vocab and the template / descriptor JSONs are read from ``uml_tpu/assets``

@@ -7,13 +7,19 @@ features, CUPL descriptor features — into the reference's ``.pth`` path
 scheme and schema (features.py:32-44, 96-103, 143-149, 180-184), with
 idempotent skip-unless-overwrite semantics.
 
-Pipeline: threaded PIL decode -> uint8 batch -> pinned host->device copy
--> CLIP forward (bf16, hand-written kernels on the card) -> device->host
-copy, one batch in flight while the loader decodes ahead.  ``--quant
-int8|int8_mlp|int8_attn|int8_qkv`` serves the CLIP towers in int8 (W8A8:
-ops.quant, ops.tower_q8 under ``UML_TOWER_Q8=1``); the last image layer
-stays bf16.  The encoder runs on the card; ``UML_TORCH_DEVICE=cpu`` asks
-for the CPU (the kernels' plain PyTorch versions).
+Pipeline, as uml_tpu's: JPEG decode (the native libjpeg decoder for
+``crop``, else PIL; in the spawn pool when the encoder is on the card,
+else in threads; ``UML_DECODE_WORKERS`` overrides) -> uint8 batch -> a
+feeder thread copies it to the card on a stream of its own, from reused
+pinned buffers -> the forward (bf16, hand-written kernels on the card) ->
+a copy back into pinned memory, read one dispatch later.  The CLIP towers
+are ViT-B/16, ViT-B/32 and RN50 / RN101 (``--clip-encoder``, default
+RN50: convolutions through cuDNN, the text tower through the text_tower
+kernel).  ``--quant int8|int8_mlp|int8_attn|int8_qkv`` serves the ViT
+towers in int8 (W8A8: ops.quant, ops.tower_q8 under ``UML_TOWER_Q8=1``);
+the last image layer stays bf16, and the RN models ignore the mode, as in
+uml_tpu.  The encoder runs on the card; ``UML_TORCH_DEVICE=cpu`` asks for
+the CPU (the kernels' plain PyTorch versions).
 
 ``--vision_model`` (a DINO / DINOv2 config of models/dino.py) takes the
 image side, with ``--quant none|int8``, and ``--language_model`` the text
@@ -24,13 +30,15 @@ error, or under ``--allow_random_init`` writes hash-random text features,
 as uml_tpu does on such a machine.
 
     python -m uml_tpu_torch.cli.features -d --dataset caltech101 \\
+        --allow-random-init ...                          # RN50
+    python -m uml_tpu_torch.cli.features -d --dataset caltech101 \\
         --clip-encoder ViT-B/16 --allow-random-init [--quant int8] ...
     python -m uml_tpu_torch.cli.features -d --dataset caltech101 \\
         --vision_model vit_base_patch14_dinov2.lvd142m \\
         --language_model bert-base-uncased --allow-random-init ...
     python -m uml_tpu_torch.cli.features -c configs/features.yaml
 
-Not ported yet (each raises): the RN towers and a multi-device ``--mesh``.
+Not ported yet (it raises): a multi-device ``--mesh``.
 """
 
 from __future__ import annotations
@@ -58,7 +66,7 @@ from uml_tpu_torch.data.feature_cache import (
 from uml_tpu_torch.data.fewshot import get_few_shot_benchmark, get_testset
 from uml_tpu_torch.data.loader import ImageBatchLoader
 from uml_tpu_torch.data.templates import get_templates
-from uml_tpu_torch.models.encoders import ClipEncoder
+from uml_tpu_torch.models.encoders import ClipEncoder, PendingOutput
 from uml_tpu_torch.utils.io import makedirs
 from uml_tpu_torch.utils.seeding import cname2lab, set_random_seed
 
@@ -74,29 +82,105 @@ def build_parser() -> argparse.ArgumentParser:
 # ---------------------------------------------------------------------------
 
 
+# a forward's output is read one dispatch later: the card runs batch i
+# while the host reads batch i - 1 (tools/exp_torch_fetch_window.py times
+# other windows)
+FETCH_WINDOW = 1
+
+
 def image_features(encoder, items, augmentation, batch_size, num_workers,
                    return_tokens=False, seed=0):
     """{'features','labels','paths','decoder'} over a split
-    (features.py:152-184)."""
+    (features.py:152-184), pipelined as uml_tpu's loop is
+    (uml_tpu/cli/features.py:72-180).
+
+    A feeder thread owns the decode iteration and the staging
+    (``encoder.stage_images``: the copy to the device on its own stream);
+    a queue of at most 3 staged batches bounds what waits on the device.
+    The main thread dispatches each forward (``encode_staged``), starts
+    its copy back into pinned memory (PendingOutput) and reads the output
+    ``FETCH_WINDOW`` dispatches later.  The feeder puts its terminal None
+    in a ``finally``, so a decode error reaches the main thread, which
+    re-raises it; an error in the main thread stops the feeder.
+
+    Decode runs in the spawn pool (data/loader.py) when the encoder is on
+    the card and there is more than one worker: there decode is the wall,
+    and decode threads share the GIL with the feeder and the main thread
+    (PERF.md: 1.6-1.8x on the card's host); in threads otherwise.
+    ``UML_DECODE_WORKERS=thread|process`` overrides, as in uml_tpu.  The
+    pool keeps ``max(4, num_workers)`` batches in flight."""
+    import queue
+    import threading
+    from collections import deque
+    from concurrent.futures import ThreadPoolExecutor
+
+    kind = os.environ.get("UML_DECODE_WORKERS") or (
+        "process" if encoder.device.type == "cuda" and num_workers > 1
+        else "thread")
+    # a worker decodes a whole batch: the prefetch window must cover the
+    # workers or some sit idle (bench.py sizes it so as well)
     loader = ImageBatchLoader(items, augmentation, batch_size,
-                              num_workers=num_workers, seed=seed)
+                              worker_kind=kind, num_workers=num_workers,
+                              prefetch=max(4, num_workers), seed=seed)
+    # provenance: the native decode differs pixel-wise from PIL (~2/255
+    # on average); the cache records which one ran
+    decoder = "native-libjpeg" if loader._native is not None else "pil"
     feats, labels, paths = [], [], []
-    for i, (imgs, labs, pths) in enumerate(loader):
-        out = encoder.encode_images(imgs, return_tokens=return_tokens)
-        if return_tokens and i == 0:
-            print("Shape of image patch embeddings:", out.shape)
-        feats.append(out)
-        labels.append(labs)
-        paths.extend(pths)
-        if (i + 1) % 20 == 0:
-            print(f"   ... {i + 1}/{len(loader)} batches")
+    pending = deque()
+
+    def drain(window):
+        while len(pending) > window:
+            out, labs, pths = pending.popleft()
+            feats.append(out.result())
+            labels.append(labs)
+            paths.extend(pths)
+
+    staged_q = queue.Queue(maxsize=3)
+    stop = threading.Event()
+
+    def feed():
+        try:
+            for imgs, labs, pths in loader:
+                if stop.is_set():
+                    break
+                staged_q.put((encoder.stage_images(imgs), labs, pths))
+        finally:
+            staged_q.put(None)
+
+    with ThreadPoolExecutor(max_workers=1) as feeder:
+        feed_fut = feeder.submit(feed)
+        try:
+            i = 0
+            while True:
+                entry = staged_q.get()
+                if entry is None:
+                    feed_fut.result()  # re-raises a decode error
+                    break
+                (batch, n), labs, pths = entry
+                out, n = encoder.encode_staged(batch, n,
+                                               return_tokens=return_tokens)
+                if return_tokens and i == 0:
+                    print("Shape of image patch embeddings:", (n, *out.shape[1:]))
+                pending.append((PendingOutput(out, n), labs, pths))
+                drain(FETCH_WINDOW)
+                i += 1
+                if i % 20 == 0:
+                    print(f"   ... {i}/{len(loader)} batches")
+        finally:
+            # on an error here, let the feeder finish: it may be blocked
+            # on a full queue
+            stop.set()
+            while not feed_fut.done():
+                try:
+                    staged_q.get(timeout=0.1)
+                except queue.Empty:
+                    pass
+    drain(0)
     return {
         "features": np.concatenate(feats, axis=0),
         "labels": np.concatenate(labels, axis=0),
         "paths": paths,
-        # provenance, as uml_tpu records it (its native decoder differs
-        # pixel-wise from PIL); the port decodes with PIL only
-        "decoder": "pil",
+        "decoder": decoder,
     }
 
 
@@ -242,8 +326,8 @@ class _RandomTextEncoder:
 
 class _HFEncoderAdapter(ClipEncoder):
     """(DINO / DINOv2 vision, HF language model) pair behind ClipEncoder's
-    API (``stage_images``: pinned host memory, asynchronous copy;
-    ``encode_staged``, ``encode_images``, ``encode_texts``), ``model`` the
+    API (``stage_images``, ``encode_staged``, ``encode_images``,
+    ``encode_texts``), ``model`` the
     DinoViT.  Images take the CLIP normalization, folded into the patch
     embedding, as on the CLIP path (uml_tpu/cli/features.py:344-442)."""
 
@@ -254,6 +338,7 @@ class _HFEncoderAdapter(ClipEncoder):
 
         self.device = torch.device(device) if device is not None else default_device()
         self.check_finite = check_finite
+        self._ring = None
         self.name = vision_model
         self.text_model = None
         self.model = None
@@ -283,25 +368,27 @@ class _HFEncoderAdapter(ClipEncoder):
         return super().stage_images(imgs_uint8)
 
 
-def check_ported(args) -> None:
-    """Raise for flags whose code is not ported yet, before any dataset
-    or model work."""
+def check_encoders_ported(args) -> None:
+    """Raise for encoder flags whose code is not ported yet (an HF
+    language model with local files, a multi-device ``--mesh``), before
+    any dataset or model work."""
     from uml_tpu_torch.models.languagemodel import refuse_if_local
 
-    # uml_tpu's early refusal (features.py:452-457) comes first
+    if args.language_model:
+        refuse_if_local(args.language_model)
+    check_mesh_flag(args.mesh)
+
+
+def check_ported(args) -> None:
+    """uml_tpu's early refusal of a mixed int8 mode with a non-CLIP tower
+    (features.py:452-457), then check_encoders_ported."""
     quant = getattr(args, "quant", "none")
     if args.vision_model and quant not in ("none", "int8"):
         raise SystemExit(
             f"--quant {quant}: the mixed int8 modes (int8_mlp/int8_attn/"
             f"int8_qkv) are CLIP-tower serving modes; "
             f"{args.vision_model} supports --quant none|int8")
-    if args.language_model:
-        refuse_if_local(args.language_model)
-    uses_clip = not (args.vision_model or args.language_model)
-    if uses_clip and args.clip_encoder not in ("ViT-B/16", "ViT-B/32"):
-        raise SystemExit(f"--clip-encoder {args.clip_encoder}: the RN towers "
-                         "are not ported to uml_tpu_torch yet")
-    check_mesh_flag(args.mesh)
+    check_encoders_ported(args)
 
 
 def main(args):

@@ -1,4 +1,4 @@
-"""Supervised UML finetune CLI (CLIP ViT and DINO / DINOv2 encoders).
+"""Supervised UML finetune CLI (CLIP and DINO / DINOv2 encoders).
 
 The port of uml_tpu/cli/finetune.py (flag and artifact parity with the
 reference's vision_language/finetune.py):
@@ -55,10 +55,13 @@ where uml_tpu saves its flax tree.
         --text_type hand_crafted --modality crossmodal --alpha 0.5 \\
         --hyperparams smoke_full --allow-random-init ...
 
-Not ported yet (each raises before any work): the RN towers, a
-multi-device ``--mesh`` and ``--ckpt_every``.
-``--quant`` other than none raises too: the int8 modes are inference-only
-serving modes of the features CLI (uml_tpu's finetune ignores the flag).
+The CLIP encoders are ViT-B/16, ViT-B/32 and RN50 / RN101 (the default
+``--clip-encoder``); ``--quant`` is accepted and ignored, as uml_tpu's
+finetune ignores it (the int8 modes serve the features CLI only).
+
+Not ported yet (each raises before any work): the RN towers' full-model
+grids (``smoke_full``, ``full_ds_full_model_finetune``: BatchNorm in
+train mode), a multi-device ``--mesh`` and ``--ckpt_every``.
 """
 
 from __future__ import annotations
@@ -72,7 +75,7 @@ import numpy as np
 import torch
 
 from uml_tpu_torch.cli.features import _HFEncoderAdapter
-from uml_tpu_torch.cli.features import check_ported as check_encoder_ported
+from uml_tpu_torch.cli.features import check_encoders_ported
 from uml_tpu_torch.core.flags import build_shared_parser
 from uml_tpu_torch.core.sweep import expand_sweep, run_sweep_cli
 from uml_tpu_torch.data.feature_cache import load_cache, save_cache, text_outdir
@@ -82,7 +85,8 @@ from uml_tpu_torch.data.fewshot import (
     get_few_shot_setup_name,
 )
 from uml_tpu_torch.data.loader import ImageBatchLoader, RawImageStream
-from uml_tpu_torch.models.clip import CLIP_CONFIGS
+from uml_tpu_torch.models.clip import clip_embed_dim
+from uml_tpu_torch.models.clip_resnet import CLIP_RESNET_CONFIGS
 from uml_tpu_torch.models.dino import DINO_CONFIGS
 from uml_tpu_torch.models.uml_head import (UMLHead, make_uml_clip_head,
                                            make_uml_dino_head)
@@ -316,12 +320,18 @@ def sweep(datasets, hyperparams, args):
 
 
 def check_ported(args) -> None:
-    """Raise for flags whose code is not ported yet, before any work."""
-    check_encoder_ported(args)
-    if getattr(args, "quant", "none") != "none":
-        raise SystemExit(f"--quant {args.quant}: the int8 modes serve the "
-                         "features CLI (inference-only); finetune trains in "
-                         "bf16")
+    """Raise for flags whose code is not ported yet, before any work.
+    ``--quant`` is accepted and ignored, as uml_tpu's finetune does (its
+    help: "Extraction-only")."""
+    check_encoders_ported(args)
+    uses_clip = not (args.vision_model or args.language_model)
+    if (uses_clip and args.clip_encoder in CLIP_RESNET_CONFIGS
+            and not freezes_backbone(args)):
+        raise SystemExit(
+            f"--clip-encoder {args.clip_encoder} --hyperparams "
+            f"{args.hyperparams}: the RN towers' full-model finetune "
+            "(BatchNorm in train mode) is not ported to uml_tpu_torch yet; "
+            "it is the next slice (the frozen grids run)")
     if getattr(args, "ckpt_every", 0):
         raise SystemExit("--ckpt_every: mid-run checkpoints (orbax resume in "
                          "uml_tpu) are not ported to uml_tpu_torch yet")
@@ -365,7 +375,7 @@ def main(args):
                                           args.dataset, args.train_shot, args.seed)
         args.nclasses = len(datasets["lab2cname"])
         if args.use_clip:
-            args.img_indim = args.text_indim = CLIP_CONFIGS[args.clip_encoder].embed_dim
+            args.img_indim = args.text_indim = clip_embed_dim(args.clip_encoder)
             encoder = ClipEncoder(args.clip_encoder,
                                   allow_random_init=args.allow_random_init,
                                   check_finite=args.debug_nans)

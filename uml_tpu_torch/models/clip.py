@@ -1,7 +1,8 @@
-"""CLIP ViT in PyTorch: image tower on uint8 pixels, causal text tower.
+"""CLIP in PyTorch: image tower on uint8 pixels, causal text tower.
 
-The port of uml_tpu/models/clip.py for the ViT configs (the RN towers come
-later).  Parameter names and shapes follow
+The port of uml_tpu/models/clip.py: the ViT configs here, the RN50 /
+RN101 image towers in models/clip_resnet.py behind ``ClipResNetModel``
+(the same text tower).  Parameter names and shapes follow
 the OpenAI CLIP state_dict schema (``visual.conv1.weight``,
 ``visual.transformer.resblocks.0.attn.in_proj_weight``, ...), the schema
 that uml_tpu/models/port_torch.py reads, so an OpenAI ``.pt`` loads as is.
@@ -528,7 +529,7 @@ class CLIP(nn.Module):
 
     def __init__(self, config: ClipConfig, dtype=torch.float32,
                  attn_impl: str = "auto", ln_matmul_impl: str = "auto",
-                 quant: str = "none"):
+                 quant: str = "none", visual: nn.Module | None = None):
         super().__init__()
         if quant not in Q8_HALVES:
             raise ValueError(f"Unknown quant mode {quant!r}; have "
@@ -537,7 +538,8 @@ class CLIP(nn.Module):
         self.dtype = dtype
         self.quant = quant
         cfg = config
-        self.visual = VisionTransformer(cfg, attn_impl, ln_matmul_impl)
+        self.visual = (VisionTransformer(cfg, attn_impl, ln_matmul_impl)
+                       if visual is None else visual)
         self.transformer = Transformer(cfg.transformer_width,
                                        cfg.transformer_layers,
                                        cfg.transformer_heads, attn_impl,
@@ -563,15 +565,21 @@ class CLIP(nn.Module):
             with torch.no_grad():
                 p.copy_(torch.randn(p.shape, generator=generator) * std)
 
+        cfg = self.config
         for name, p in self.named_parameters():
             if name.endswith(("in_proj_weight", "out_proj.weight",
-                              "c_fc.weight", "c_proj.weight")):
+                              "c_fc.weight", "c_proj.weight")) and (
+                                  name.startswith(("visual.transformer.",
+                                                   "transformer."))):
                 normal_(p, p.shape[1] ** -0.5)           # [out, in]
-        cfg = self.config
-        normal_(self.visual.conv1.weight, (3 * cfg.vision_patch_size ** 2) ** -0.5)
-        normal_(self.visual.class_embedding, cfg.vision_width ** -0.5)
-        normal_(self.visual.positional_embedding, cfg.vision_width ** -0.5)
-        normal_(self.visual.proj, cfg.vision_width ** -0.5)
+        if isinstance(self.visual, VisionTransformer):
+            normal_(self.visual.conv1.weight,
+                    (3 * cfg.vision_patch_size ** 2) ** -0.5)
+            normal_(self.visual.class_embedding, cfg.vision_width ** -0.5)
+            normal_(self.visual.positional_embedding, cfg.vision_width ** -0.5)
+            normal_(self.visual.proj, cfg.vision_width ** -0.5)
+        else:
+            self.visual.init_random(generator)
         normal_(self.token_embedding.weight, 0.02)
         normal_(self.positional_embedding, 0.01)
         normal_(self.text_projection, cfg.transformer_width ** -0.5)
@@ -606,16 +614,70 @@ class CLIP(nn.Module):
         return (out, eot) if return_eot else out
 
 
+class ClipResNetModel(CLIP):
+    """CLIP with a ModifiedResNet image tower (RN50 / RN101,
+    models/clip_resnet.py) and the text tower of CLIP (clip.py:623-684).
+    It has no int8 mode: both towers serve in the compute dtype, as
+    uml_tpu's RN models do whatever ``--quant`` says."""
+
+    def __init__(self, resnet_config, text_config: ClipConfig,
+                 dtype=torch.float32, attn_impl: str = "auto",
+                 ln_matmul_impl: str = "auto"):
+        from uml_tpu_torch.models.clip_resnet import ModifiedResNet
+
+        super().__init__(text_config, dtype, attn_impl, ln_matmul_impl,
+                         visual=ModifiedResNet(resnet_config))
+        self.resnet_config = resnet_config
+
+    def encode_image_u8(self, images_u8, return_tokens: bool = False):
+        """uint8 flat [B, H*W*3] (square images) or [B, H, W, 3]:
+        normalized, then the ResNet tower."""
+        from uml_tpu_torch.ops.image_norm import normalize_images
+
+        if images_u8.ndim == 2:
+            r = int(round((images_u8.shape[1] // 3) ** 0.5))
+            images_u8 = images_u8.reshape(images_u8.shape[0], r, r, 3)
+        return self.visual(normalize_images(images_u8, self.dtype), self.dtype,
+                           return_tokens=return_tokens)
+
+
+def resnet_text_config(rn) -> ClipConfig:
+    """The text tower of an RN model: width 512, 8 heads, 12 layers,
+    projecting to the tower's output width (clip.py:697-705)."""
+    return ClipConfig(embed_dim=rn.output_dim, image_resolution=rn.image_resolution,
+                      vision_layers=0, vision_width=rn.width, vision_patch_size=0,
+                      transformer_width=512, transformer_heads=8,
+                      transformer_layers=12)
+
+
+def clip_embed_dim(name: str) -> int:
+    """The feature width of a named encoder, without building it
+    (clip.py:686-694)."""
+    from uml_tpu_torch.models.clip_resnet import CLIP_RESNET_CONFIGS
+
+    if name in CLIP_CONFIGS:
+        return CLIP_CONFIGS[name].embed_dim
+    if name in CLIP_RESNET_CONFIGS:
+        return CLIP_RESNET_CONFIGS[name].output_dim
+    raise ValueError(f"Unknown CLIP encoder {name!r}")
+
+
 def build_clip(name: str, dtype=torch.float32, attn_impl: str = "auto",
                ln_matmul_impl: str = "auto", quant: str = "none") -> CLIP:
-    """An uninitialised CLIP of a named ViT config (fill it with
+    """An uninitialised CLIP of a named config (fill it with
     ``init_random`` or ``load_state_dict``).  ``attn_impl`` /
     ``ln_matmul_impl`` as in uml_tpu's build_clip: ("auto" | "fused",
     anything but "reference") keeps the fused half-block path, anything
     else the non-fused branch; ``quant`` a serving mode of Q8_HALVES
-    (unknown modes raise)."""
+    (unknown modes raise), which RN50 / RN101 ignore (clip.py:697-711)."""
+    from uml_tpu_torch.models.clip_resnet import CLIP_RESNET_CONFIGS
+
+    if name in CLIP_RESNET_CONFIGS:
+        rn = CLIP_RESNET_CONFIGS[name]
+        return ClipResNetModel(rn, resnet_text_config(rn), dtype=dtype,
+                               attn_impl=attn_impl, ln_matmul_impl=ln_matmul_impl)
     if name not in CLIP_CONFIGS:
-        raise ValueError(f"Unknown CLIP encoder {name!r}; the port has "
-                         f"{list(CLIP_CONFIGS)} (RN50/RN101 come later)")
+        raise ValueError(f"Unknown CLIP encoder {name!r}; have "
+                         f"{list(CLIP_CONFIGS) + list(CLIP_RESNET_CONFIGS)}")
     return CLIP(CLIP_CONFIGS[name], dtype=dtype, attn_impl=attn_impl,
                 ln_matmul_impl=ln_matmul_impl, quant=quant)

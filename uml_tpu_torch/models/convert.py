@@ -1,10 +1,11 @@
 """flax CLIP and DINO variables -> the port's state_dicts; UML head trees.
 
 ``state_dict_from_jax`` is the exact inverse of
-uml_tpu.models.port_torch.port_clip_state_dict: it takes the flax variable
-tree of uml_tpu.models.clip.CLIP as numpy arrays and returns the
-state_dict the port's CLIP (and an OpenAI ``.pt``) uses, so the tests can
-give both packages the same weights.  ``dino_state_dict_from_jax`` does
+uml_tpu.models.port_torch.port_clip_state_dict (and, for an RN model, of
+port_clip_resnet_checkpoint): it takes the flax variable tree of
+uml_tpu.models.clip.CLIP or ClipResNetModel as numpy arrays and returns
+the state_dict the port's model (and an OpenAI ``.pt``) uses, so the
+tests can give both packages the same weights.  ``dino_state_dict_from_jax`` does
 the same for uml_tpu.models.dino.DinoViT and the port's DinoViT,
 ``uml_head_params_from_jax`` for the trainable tree of a uml_tpu UMLHead.
 Pure numpy + torch: no jax import.
@@ -43,19 +44,58 @@ def _transformer(sd, prefix, tree):
         _linear(sd, f"{p}.mlp.c_proj", blk["c_proj"])
 
 
+def _conv(sd, prefix, tree):
+    sd[f"{prefix}.weight"] = _t(np.asarray(tree["kernel"]).transpose(3, 2, 0, 1))   # HWIO -> OIHW
+
+
+def _bn(sd, prefix, tree):
+    sd[f"{prefix}.weight"] = _t(tree["scale"])
+    sd[f"{prefix}.bias"] = _t(tree["bias"])
+    sd[f"{prefix}.running_mean"] = _t(tree["mean"])
+    sd[f"{prefix}.running_var"] = _t(tree["var"])
+
+
+def resnet_state_dict_from_jax(visual, prefix: str = "visual.") -> dict:
+    """The params of uml_tpu's ModifiedResNet (numpy leaves) -> the port's
+    OpenAI-schema keys under ``prefix``: the inverse of
+    uml_tpu.models.clip_resnet.port_clip_resnet_state_dict (conv kernels
+    HWIO -> OIHW, Dense kernels transposed)."""
+    sd, p = {}, prefix
+    for i in (1, 2, 3):
+        _conv(sd, f"{p}conv{i}", visual[f"conv{i}"])
+        _bn(sd, f"{p}bn{i}", visual[f"bn{i}"])
+    for name in sorted(k for k in visual if k.startswith("layer")):
+        stage, blk = name[len("layer"):].split("_")
+        tree, tp = visual[name], f"{p}layer{stage}.{blk}"
+        for i in (1, 2, 3):
+            _conv(sd, f"{tp}.conv{i}", tree[f"conv{i}"])
+            _bn(sd, f"{tp}.bn{i}", tree[f"bn{i}"])
+        if "downsample_conv" in tree:
+            _conv(sd, f"{tp}.downsample.0", tree["downsample_conv"])
+            _bn(sd, f"{tp}.downsample.1", tree["downsample_bn"])
+    pool = visual["attnpool"]
+    sd[f"{p}attnpool.positional_embedding"] = _t(pool["positional_embedding"])
+    for name in ("q_proj", "k_proj", "v_proj", "c_proj"):
+        _linear(sd, f"{p}attnpool.{name}", pool[name])
+    return sd
+
+
 def state_dict_from_jax(variables) -> dict:
-    """{'params': {...}} of uml_tpu's ViT CLIP -> {key: fp32 tensor}."""
+    """{'params': {...}} of uml_tpu's CLIP (ViT) or ClipResNetModel (RN)
+    -> {key: fp32 tensor}."""
     params = variables["params"]
     v, t = params["visual"], params["text"]
-    sd = {}
-    # HWIO -> OIHW
-    sd["visual.conv1.weight"] = _t(np.asarray(v["patch_embed"]["kernel"]).transpose(3, 2, 0, 1))
-    sd["visual.class_embedding"] = _t(v["class_embedding"])
-    sd["visual.positional_embedding"] = _t(v["positional_embedding"])
-    _ln(sd, "visual.ln_pre", v["ln_pre"])
-    _transformer(sd, "visual.transformer", v["transformer"])
-    _ln(sd, "visual.ln_post", v["ln_post"])
-    sd["visual.proj"] = _t(v["proj"])
+    if "patch_embed" in v:
+        sd = {"visual.conv1.weight": _t(np.asarray(
+            v["patch_embed"]["kernel"]).transpose(3, 2, 0, 1))}   # HWIO -> OIHW
+        sd["visual.class_embedding"] = _t(v["class_embedding"])
+        sd["visual.positional_embedding"] = _t(v["positional_embedding"])
+        _ln(sd, "visual.ln_pre", v["ln_pre"])
+        _transformer(sd, "visual.transformer", v["transformer"])
+        _ln(sd, "visual.ln_post", v["ln_post"])
+        sd["visual.proj"] = _t(v["proj"])
+    else:
+        sd = resnet_state_dict_from_jax(v)
     sd["token_embedding.weight"] = _t(t["token_embedding"]["embedding"])
     sd["positional_embedding"] = _t(t["positional_embedding"])
     _transformer(sd, "transformer", t["transformer"])

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -83,19 +84,91 @@ def load_clip(name: str, dtype=torch.bfloat16,
         torch.Generator().manual_seed(0))
 
 
-class ClipEncoder:
-    """Image/text encoding with a frozen CLIP on one device.
+class StagedBatch(NamedTuple):
+    """A uint8 batch on the device, flat [B, H*W*3], and the event its
+    copy recorded on the copy stream (None on the CPU): the stream that
+    reads ``pixels`` waits for ``copied`` first."""
 
-    ``stage_images`` copies a uint8 batch to the device (pinned host
-    memory, asynchronous copy), ``encode_staged`` runs the forward and
-    returns the device output unfetched; ``encode_images`` /
-    ``encode_texts`` do both and return numpy.  ``check_finite`` raises at
-    the first batch with a non-finite feature (``--debug_nans``).
+    pixels: torch.Tensor
+    copied: object = None
+
+
+class PendingOutput:
+    """A forward's output on its way to the host: ``out`` cast to fp32 on
+    its stream, copied without blocking into pinned memory, and the event
+    that marks the copy's end.  ``result()`` waits for the event before
+    numpy reads the buffer -> float32 [n, ...]."""
+
+    def __init__(self, out: torch.Tensor, n: int):
+        self.n = n
+        out = out.float()
+        if out.is_cuda:
+            self.host = torch.empty(out.shape, dtype=torch.float32,
+                                    pin_memory=True)
+            self.host.copy_(out, non_blocking=True)
+            self.done = torch.cuda.Event()
+            self.done.record(torch.cuda.current_stream(out.device))
+        else:
+            self.host, self.done = out, None
+
+    def result(self) -> np.ndarray:
+        if self.done is not None:
+            self.done.synchronize()
+        return self.host.numpy()[:self.n]
+
+
+class _PinnedRing:
+    """``slots`` pinned host buffers, reused in turn for the host->device
+    copies of a copy stream.  Each slot keeps the event of the last copy
+    out of it; a slot is rewritten only after that copy has ended."""
+
+    def __init__(self, device, slots: int = 4):
+        self.device = device
+        self.stream = torch.cuda.Stream(device)
+        self.buffers = [None] * slots
+        self.events = [None] * slots
+        self.turn = 0
+
+    def copy(self, flat: np.ndarray) -> StagedBatch:
+        i = self.turn
+        self.turn = (i + 1) % len(self.buffers)
+        if self.events[i] is not None:
+            self.events[i].synchronize()
+        buf = self.buffers[i]
+        if buf is None or buf.numel() < flat.size:
+            buf = self.buffers[i] = torch.empty(flat.size, dtype=torch.uint8,
+                                                pin_memory=True)
+        host = buf[:flat.size].view(flat.shape)
+        host.numpy()[...] = flat
+        with torch.cuda.stream(self.stream):
+            pixels = torch.empty(flat.shape, dtype=torch.uint8,
+                                 device=self.device)
+            pixels.copy_(host, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(self.stream)
+        self.events[i] = event
+        return StagedBatch(pixels, event)
+
+
+class ClipEncoder:
+    """Image/text encoding with a frozen CLIP (ViT or RN tower) on one
+    device.
+
+    The image path is split as uml_tpu splits it (encoders.py:161-201):
+    ``stage_images`` copies a uint8 batch to the device, and
+    ``encode_staged`` dispatches the forward and returns the device
+    output unfetched (cli/features.py reads it through a PendingOutput).
+    On the card the host->device copy runs on a stream of its own, out of
+    a ring of four pinned buffers that are reused (an event guards each
+    reuse); the forward's stream waits for the copy's event.  ``encode_images`` / ``encode_texts`` return numpy
+    (synchronous).  ``check_finite`` raises at the first batch with a
+    non-finite feature (``--debug_nans``).
 
     ``model`` is the CLIP on ``device`` (fp32 parameters, forward in
     ``dtype``); the finetune CLI trains a copy of it on the full-model path.
     ``device`` defaults to the card (core.device.default_device);
-    ``quant`` is the int8 serving mode (inference-only).
+    ``quant`` is the int8 serving mode (inference-only; the RN towers
+    ignore it).
     """
 
     def __init__(self, name: str, dtype=torch.bfloat16,
@@ -106,23 +179,36 @@ class ClipEncoder:
         self.model = load_clip(name, dtype, allow_random_init,
                                quant=quant).to(self.device).eval()
         self.check_finite = check_finite
+        self._ring = None
 
     def stage_images(self, imgs_uint8: np.ndarray):
-        """uint8 [B,H,W,3] -> (flat [B, H*W*3] uint8 on the device, B)."""
-        flat = torch.from_numpy(
-            np.ascontiguousarray(imgs_uint8).reshape(imgs_uint8.shape[0], -1))
-        if self.device.type == "cuda":
-            flat = flat.pin_memory().to(self.device, non_blocking=True)
-        return flat, flat.shape[0]
+        """uint8 [B,H,W,3] -> (a StagedBatch of flat [B, H*W*3] uint8 on
+        the device, B).  Transfer only: no forward is dispatched.  (No
+        padding to a fixed batch: nothing here compiles per shape.)"""
+        n = imgs_uint8.shape[0]
+        flat = np.ascontiguousarray(imgs_uint8).reshape(n, -1)
+        if self.device.type != "cuda":
+            return StagedBatch(torch.from_numpy(flat)), n
+        if self._ring is None:
+            self._ring = _PinnedRing(self.device)
+        return self._ring.copy(flat), n
 
     def _checked(self, out):
         if self.check_finite and not bool(torch.isfinite(out).all()):
             raise FloatingPointError(f"{self.name}: non-finite encoder output")
         return out
 
-    def encode_staged(self, batch, n: int, return_tokens: bool = False):
+    def encode_staged(self, batch: StagedBatch, n: int,
+                      return_tokens: bool = False):
+        """Dispatch the forward on a staged batch -> (device output,
+        n), unfetched.  The current stream waits for the batch's copy."""
+        pixels = batch.pixels
+        if batch.copied is not None:
+            stream = torch.cuda.current_stream(pixels.device)
+            stream.wait_event(batch.copied)
+            pixels.record_stream(stream)
         with torch.no_grad():
-            out = self.model.encode_image_u8(batch, return_tokens=return_tokens)
+            out = self.model.encode_image_u8(pixels, return_tokens=return_tokens)
         return self._checked(out), n
 
     def encode_images(self, imgs_uint8: np.ndarray,
@@ -130,7 +216,7 @@ class ClipEncoder:
         """uint8 [B,H,W,3] -> features [B,D] (or tokens [B,S,W]) float32."""
         out, n = self.encode_staged(*self.stage_images(imgs_uint8),
                                     return_tokens=return_tokens)
-        return out.float().cpu().numpy()[:n]
+        return PendingOutput(out, n).result()
 
     def encode_texts(self, texts: list[str], return_tokens: bool = False):
         """list[str] -> (features [N,D] | tokens [N,77,W], eot_indices [N])."""

@@ -101,12 +101,22 @@ from uml_tpu_torch.ops.ln_matmul import (ln_matmul_plain, raw_layer_norm,
                                          raw_layer_norm_bwd,
                                          raw_layer_norm_rstd)
 
-HEAD_DIM = 64  # the kernels' head dim (every CLIP tower)
+HEAD_DIM = 64  # the kernels' head dim (every CLIP and DINO tower)
 # the longest S of the fused QKV + attention kernel (csrc/qkv_attention.cuh:
 # q, k and v of one head, 256 rows each, in a block's shared memory)
 QKV_ATTN_MAX_S = 256
 # the most heads the CLS backward takes (csrc/cls_bwd.cuh: CLS_MAX_HEADS)
 CLS_BWD_MAX_HEADS = 32
+
+
+def check_head_dim(qkv_cols: int, heads: int, what: str) -> None:
+    """The CUDA kernels take head dim HEAD_DIM only: raise for a packed
+    QKV width ``qkv_cols`` (3 * heads * D) with another D.  The plain
+    versions take the head dim from the weights, as uml_tpu's do."""
+    if qkv_cols != 3 * heads * HEAD_DIM:
+        raise ValueError(f"{what}: head dim {qkv_cols / (3 * heads):g} "
+                         f"({heads} heads, QKV width {qkv_cols}); the CUDA "
+                         f"kernels take head dim {HEAD_DIM}")
 
 
 def qkv_attention_fused(s: int) -> bool:
@@ -292,13 +302,14 @@ def attn_block_cls_bwd_factored_plain(x, g, qkv, w_eff, wo, *, heads: int,
     b, s, k = x.shape
     dt = w_eff.dtype
     acc = torch.float64 if x.dtype == torch.float64 else torch.float32
-    hd = heads * HEAD_DIM
-    scale = HEAD_DIM ** -0.5
+    d = w_eff.shape[1] // (3 * heads)
+    hd = heads * d
+    scale = d ** -0.5
     xn32, rstd = raw_layer_norm_rstd(x.to(acc), eps)
     dattn = (g.to(acc) @ wo.to(acc).t()).to(dt)                 # [B, 1, H*D]
     q, kk, v = (t.to(acc) for t in _qkv_heads(qkv, heads))       # [B, H, S, D]
     q0 = q[:, :, 0]                                              # [B, H, D]
-    do = dattn.view(b, heads, HEAD_DIM).to(acc)                  # [B, H, D]
+    do = dattn.view(b, heads, d).to(acc)                         # [B, H, D]
     sc = torch.einsum("bhd,bhsd->bhs", q0, kk) * scale
     e = torch.exp(sc - sc.amax(-1, keepdim=True))
     p = e / e.sum(-1, keepdim=True)
@@ -308,11 +319,11 @@ def attn_block_cls_bwd_factored_plain(x, g, qkv, w_eff, wo, *, heads: int,
     dq0 = (torch.einsum("bhs,bhsd->bhd", ds, kk) * scale).to(dt).to(acc)
     dk = ds[..., None] * q0[:, :, None] * scale                  # [B, H, S, D]
     dv = pb[..., None] * do[:, :, None]
-    dq = torch.cat([dq0[:, :, None], dq0.new_zeros(b, heads, s - 1, HEAD_DIM)], 2)
+    dq = torch.cat([dq0[:, :, None], dq0.new_zeros(b, heads, s - 1, d)], 2)
     dqkv = torch.stack([dq, dk, dv]).permute(1, 3, 0, 2, 4).reshape(
         b, s, 3 * hd).to(dt)
 
-    wq, wk, wv = (w_eff.to(acc)[:, i * hd:(i + 1) * hd].view(k, heads, HEAD_DIM)
+    wq, wk, wv = (w_eff.to(acc)[:, i * hd:(i + 1) * hd].view(k, heads, d)
                   for i in range(3))
     u = torch.einsum("bhd,khd->bhk", q0 * scale, wk)
     w = torch.einsum("bhd,khd->bhk", do, wv)
@@ -340,6 +351,7 @@ def _check_fwd(x, w_eff, b_eff, wo, bo, heads):
     """What the forward kernels take (any S) -> (B, S, K, H*64)."""
     b, s, k = x.shape
     hd = heads * HEAD_DIM
+    check_head_dim(w_eff.shape[-1], heads, "attention half-block kernel")
     _build.check_dims(K=k)
     bf16, dev = torch.bfloat16, x.device
     _build.check_tensor("x", x, bf16, (b, s, k), dev)
@@ -439,6 +451,7 @@ def _check_bwd(x, g, qkv, w_eff, wo, heads, q_rows):
     recompute backward, which takes no stash."""
     b, s, k = x.shape
     hd = heads * HEAD_DIM
+    check_head_dim(w_eff.shape[-1], heads, "attention backward kernel")
     _build.check_dims(K=k)
     bf16, dev = torch.bfloat16, x.device
     _build.check_tensor("x", x, bf16, (b, s, k), dev)
@@ -555,6 +568,7 @@ def qkv_attention(x, w_eff, b_eff, *, heads: int, causal: bool = False,
                                    eps=eps, q_rows=q_rows, stash=stash)
     b, s, k = x.shape
     hd = heads * HEAD_DIM
+    check_head_dim(w_eff.shape[-1], heads, "qkv_attention kernel")
     sq = s if q_rows is None else q_rows
     if not qkv_attention_fused(s) or sq not in (s, 1) or (causal and sq != s):
         raise ValueError(f"qkv_attention kernel: S={s} q_rows={sq} causal={causal}; "
@@ -634,6 +648,7 @@ def attn_bwd(qkv, dattn, *, heads: int, causal: bool = False, stats=None):
                               stats=stats)
     b, s, _ = qkv.shape
     hd = heads * HEAD_DIM
+    check_head_dim(qkv.shape[-1], heads, "attention backward kernel")
     dev = qkv.device
     _build.check_tensor("qkv", qkv, torch.bfloat16, (b, s, 3 * hd), dev)
     _build.check_tensor("dattn", dattn, torch.bfloat16, (b, s, hd), dev)

@@ -55,6 +55,7 @@ import torch
 
 from uml_tpu_torch.ops import _build
 from uml_tpu_torch.ops.fused_attention import (HEAD_DIM, QKV_ATTN_MAX_S,
+                                               check_head_dim,
                                                _qkv_heads, attention_plain,
                                                count_attention,
                                                fold_ln_into_matmul,
@@ -193,6 +194,7 @@ def _launch_attn_block_q8(x, wq, wsc, b_eff, wo_ops, bo, heads, causal,
     integers (q8_out: of its fp32 values) and qscale their row scales."""
     b, s, k = x.shape
     hd = heads * HEAD_DIM
+    check_head_dim(wq.shape[0], heads, "int8 attention half-block kernel")
     _build.check_dims(K=k)
     bf16, f32, dev = torch.bfloat16, torch.float32, x.device
     _build.check_tensor("x", x, bf16, (b, s, k), dev)
@@ -263,6 +265,7 @@ def qkv_attention_q8(x, wq, wsc, b_eff, *, heads: int, causal: bool = False,
                                       causal=causal, eps=eps)
     b, s, k = x.shape
     hd = heads * HEAD_DIM
+    check_head_dim(wq.shape[-1], heads, "qkv_attention_q8 kernel")
     if not qkv_attention_fused(s):
         raise ValueError(f"qkv_attention_q8 kernel: S={s}; it takes S <= "
                          f"{QKV_ATTN_MAX_S}")

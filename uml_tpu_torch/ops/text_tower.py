@@ -41,6 +41,7 @@ import torch
 from uml_tpu_torch.ops import _build
 from uml_tpu_torch.ops._vjp import plain_vjp
 from uml_tpu_torch.ops.fused_attention import (HEAD_DIM, attn_block_plain,
+                                               check_head_dim,
                                                count_attention, qkv_scratch)
 from uml_tpu_torch.ops.ln_matmul import mlp_block_plain
 
@@ -233,6 +234,7 @@ def text_tower(x, w_eff, b_eff, wo, bo, w1, b1, w2, b2, *, heads: int,
     b, s, k = x.shape
     layers, m = w1.shape[0], w1.shape[2]
     hd = heads * HEAD_DIM
+    check_head_dim(w_eff.shape[-1], heads, "text_tower kernel")
     _build.check_dims(K=k, M=m)
     if layers < 1:
         raise ValueError("text_tower needs at least one layer")

@@ -32,7 +32,8 @@ from __future__ import annotations
 import torch
 
 from uml_tpu_torch.ops import _build
-from uml_tpu_torch.ops.fused_attention import (HEAD_DIM, count_attention,
+from uml_tpu_torch.ops.fused_attention import (HEAD_DIM, check_head_dim,
+                                               count_attention,
                                                qkv_scratch)
 from uml_tpu_torch.ops.quant import (attn_block_q8_plain, check_inference,
                                      mlp_block_q8_plain, mlp_q8_scratch,
@@ -66,6 +67,7 @@ def tower_q8(x, wq, wsc, b_eff, woq, wosc, bo, w1q, w1sc, b1, w2q, w2sc, b2, *,
     b, s, k = x.shape
     layers, m = w1q.shape[0], w1q.shape[2]
     hd = heads * HEAD_DIM
+    check_head_dim(wq.shape[-1], heads, "tower_q8 kernel")
     _build.check_dims(K=k, M=m)
     if layers < 1:
         raise ValueError("tower_q8 needs at least one layer")
