@@ -188,6 +188,35 @@ Phases (any failure exits non-zero; no phase is caught):
    (``smoke``) on those caches; RN101 card against CPU on a batch of 4;
    the RN50 and RN101 image encoders' img/s at batch 64 on a staged
    batch, with the device's busy share and the peak memory rise.
+5d. RN training (``[rn-train]``): finetune --clip-encoder RN50
+   --hyperparams smoke_full (the RN50 tower at full width, random init,
+   BatchNorm in train form, bs 8, 30 steps) on the phase-3 fixture and the
+   [rn] phase's text cache: no port launches (cuDNN convolutions, plain
+   BatchNorm), the saved model holds the head and the tower, every tower
+   tensor moved, every BatchNorm layer's running statistics moved, are
+   finite and have variances > 0; one fp32 bs-4 step of RN50 card against
+   CPU (loss within 1%, gradient cosines >= 0.99, the running statistics
+   after the merge within 1e-4 relative); the staged bs-64 train step of
+   RN50 and RN101 (bf16) with its phases, device-busy share and peak
+   memory.
+5e. LLaMA (``[llama]``): the native LlamaEncoder at OpenLLaMA-7B's
+   published widths (hidden 4096, MLP 11008, 32 layers, 32 heads, vocab
+   32000, eps 1e-6), full depth, seeded random weights drawn on the card,
+   in fp32 (TextModel's default) and int8_w, on 8 right-padded prompts of
+   up to 32 token ids: finite pooled features, int8_w's cosine to fp32,
+   the time per call, peak memory and the projections' bytes (int8_w at
+   most 0.27 of fp32's); card against CPU at 2 layers, fp32, at
+   OpenLLaMA-7B's and Mistral-7B's grouped-query widths (MLP 14336, 8 kv
+   heads, eps 1e-5): min cosine 0.9999.
+5f. resume (``[resume]``): the finetune CLI on the frozen ViT-B/16 grid
+   (``smoke``) twice uninterrupted (their spread), then with
+   --ckpt_every 20 in a subprocess killed (SIGKILL) once its first
+   checkpoint is on disk, then rerun: it must resume and save the
+   uninterrupted run's test_result.pth, bit for bit when the two
+   uninterrupted runs are, else within their spread; then train()
+   on RN50 ``smoke_full`` (checkpoints every 15 steps) twice uninterrupted
+   and once stopped at 15 and resumed: the parameters, the BatchNorm
+   statistics and the adamw state at step 30 held the same way.
 6. the products of the engine (bf16 beside torch.matmul, int8 beside
    torch._int_mm) and the attention backward's passes as one JSON line,
    the kernel table as one JSON line, the device line last.
@@ -457,6 +486,8 @@ MIN_COSINE = 0.999
 # aside: their exact gradient is zero, so both are rounding noise)
 STEP_LOSS_RTOL = 1e-2
 STEP_MIN_GRAD_COSINE = 0.99
+# an RN tower's running statistics after one fp32 step, card vs CPU
+BN_STAT_RTOL = 1e-4
 
 
 def _vit_l14_cut():
@@ -1754,7 +1785,8 @@ def _native_decoder(root):
 def _decode_rates(root, n_images=1024):
     """The host's decode rates, data/loader.py's ImageBatchLoader (decode,
     resize and center crop to 224 x 224 uint8, batches of 64) over two
-    fixtures, each repeated to ``n_images``: the phase's 240 x 320 noise
+    fixtures, each repeated to ``n_images`` (a quarter of them at one
+    worker): the phase's 240 x 320 noise
     JPEGs and 128 500 x 375 photos.  PIL and the native decoder, each in
     threads and in the spawn pool (warmed first: the pool persists), at
     one worker and at one per core, with a prefetch window of twice the
@@ -1799,18 +1831,20 @@ def _decode_rates(root, n_images=1024):
                  for i in range(n_images)]
         for kind, fast, worker_kind in kinds:
             for workers in (1, cores):
-                def run():
+                def run(batch_items):
                     n = 0
                     for imgs, _, _ in ImageBatchLoader(
-                            items, "crop", 64, num_workers=workers,
+                            batch_items, "crop", 64, num_workers=workers,
                             fast_decode=fast, worker_kind=worker_kind,
                             prefetch=2 * workers):
                         n += len(imgs)
                     return n
                 if worker_kind == "process":
-                    run()   # the pool's start (spawn, imports) is set-up
+                    run(items[:64])   # the pool's start (spawn, imports) is set-up
+                # one worker decodes a quarter of the images (its rate needs
+                # no more batches to settle, and it runs ~5x longer a batch)
                 t0 = time.perf_counter()
-                n = run()
+                n = run(items if workers > 1 else items[:n_images // 4])
                 rate = n / (time.perf_counter() - t0)
                 out[f"pipeline_host_decode_img_per_s_{kind}_{name}_{workers}w"] = rate
                 print(f"[main] decode {kind} ({name} JPEG -> 224x224 crop), "
@@ -2313,6 +2347,336 @@ def phase_rn(root, sizes):
     return counts, numbers
 
 
+def phase_rn_train(root):
+    """[rn-train]: finetune --clip-encoder RN50 --hyperparams smoke_full (the
+    RN50 tower at full width, random init, bs 8, 30 steps) on the phase-3
+    fixture and the [rn] phase's text cache; the tower and every BatchNorm
+    layer's running statistics moved; one fp32 bs-4 step card vs CPU; the
+    bs-64 train step of RN50 and RN101 -> numbers."""
+    import torch
+
+    gpu = _gpu_line()
+    encoder = ["--clip-encoder", "RN50", "--feature_dir", f"{root}/features_rn_none"]
+    launches, wall, result = _finetune(root, "smoke_full", _wrappers(),
+                                       "experiments_rn_train", encoder)
+    # the RN tower runs cuDNN convolutions and plain BatchNorm; the text
+    # features come from the cache: no port launches
+    _check(not any(launches.values()), ("RN50 smoke_full launches", launches))
+    _check(set(result["model"]) == {"head_w", "backbone"},
+           ("RN50 smoke_full model leaves", sorted(result["model"])))
+    _check_tower_moved(result, "RN50 smoke_full", clip="RN50")
+    from uml_tpu_torch.models.clip import build_clip
+
+    init = build_clip("RN50").init_random(torch.Generator().manual_seed(0)).state_dict()
+    trained = result["model"]["backbone"]
+    stats = [k for k in init if k.endswith(("running_mean", "running_var"))]
+    for key in stats:
+        t = torch.as_tensor(trained[key])
+        _check(bool(torch.isfinite(t).all()) and not torch.equal(t, init[key])
+               and (key.endswith("running_mean") or bool((t > 0).all())),
+               ("RN50 BatchNorm statistic", key))
+    print(f"[rn-train] finetune --clip-encoder RN50 --hyperparams smoke_full: "
+          f"{wall:.2f} s; all {len(stats)} BatchNorm running statistics moved, "
+          f"finite, every variance > 0  [{gpu}]")
+    numbers = {"rn50_finetune_smoke_full_wall_s": wall}
+    # fp32 on both sides: cuDNN's default rounds an fp32 convolution's
+    # operands to TF32, which the 1e-4 bound on the statistics does not
+    # allow, so the card's convolutions run in full fp32 for the check;
+    # the TF32 step is recorded beside it
+    numbers.update(_card_vs_cpu_step("rn50_fp32", clip_name="RN50",
+                                     dtype=torch.float32, tf32_witness=True))
+    for name in ("RN50", "RN101"):
+        numbers.update(_train_step_rates(64, [("default", {}, None)], clip_name=name,
+                                         prefix=f"{name.lower()}_train"))
+    return numbers
+
+
+# OpenLLaMA-7B's published widths (openlm-research/open_llama_7b,
+# config.json) and Mistral-7B-v0.1's grouped-query widths
+OPENLLAMA_7B = dict(vocab_size=32000, hidden_size=4096, intermediate_size=11008,
+                    num_hidden_layers=32, num_attention_heads=32,
+                    num_key_value_heads=32, rms_norm_eps=1e-6)
+MISTRAL_7B = dict(vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+                  num_hidden_layers=32, num_attention_heads=32,
+                  num_key_value_heads=8, rms_norm_eps=1e-5)
+LLAMA_CARD_VS_CPU_COS = 0.9999
+
+
+def _llama_prompts(vocab, n=8, length=32, seed=0):
+    """``n`` rows of up to ``length`` token ids, right-padded, and their
+    attention mask."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(length // 4, length + 1, n)
+    lens[0] = length
+    ids = rng.integers(1, vocab, (n, length))
+    mask = (np.arange(length)[None] < lens[:, None]).astype(np.int64)
+    return ids * mask, mask
+
+
+def _rows_cos(a, b):
+    import torch
+
+    a, b = a.double().cpu(), b.double().cpu()
+    return float(((a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1))).min())
+
+
+def _proj_bytes(state_dict):
+    return sum(v.numel() * v.element_size() for k, v in state_dict.items()
+               if k.endswith(("proj.weight", "kernel_q8", "proj.scale")))
+
+
+def phase_llama():
+    """[llama]: the native LlamaEncoder at OpenLLaMA-7B's published widths,
+    full depth, seeded random weights drawn on the card, fp32 (TextModel's
+    default) and int8_w on 8 padded prompts of up to 32 token ids: pooled
+    features finite, int8_w's cosine to fp32, time per call, peak memory,
+    the projections' bytes; card against CPU at 2 layers, at OpenLLaMA-7B's
+    and Mistral-7B's widths -> numbers."""
+    import dataclasses
+
+    import torch
+
+    from uml_tpu_torch.models.languagemodel import MODEL_ALIASES, TextModel
+    from uml_tpu_torch.models.llama import LlamaConfig, LlamaEncoder
+
+    gpu = _gpu_line()
+    _check(MODEL_ALIASES["openllama7b"] == "openlm-research/open_llama_7b",
+           "openllama7b alias")
+    cfg = LlamaConfig(**OPENLLAMA_7B)
+    ids_np, mask_np = _llama_prompts(cfg.vocab_size)
+    ids, mask = torch.from_numpy(ids_np).cuda(), torch.from_numpy(mask_np).cuda()
+    numbers, pooled = {}, {}
+    with torch.device("meta"):
+        model = LlamaEncoder(cfg)
+    model.to_empty(device="cuda")
+    model.init_random(torch.Generator(device="cuda").manual_seed(0))
+    state_dict = model.state_dict()
+    del model
+    for quant in ("none", "int8_w"):
+        tm = TextModel.native(cfg, state_dict, quant=quant, device="cuda")
+        if quant == "int8_w":
+            del state_dict    # the fp32 weights go; int8_w runs alone
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        weights = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = tm.encode_ids(ids, mask)
+        ms = _time_ms(lambda: tm.encode_ids(ids, mask), iters=5, warmup=1)
+        peak = torch.cuda.max_memory_allocated()
+        _check(out.shape == (8, cfg.hidden_size) and bool(torch.isfinite(out).all()),
+               (quant, "LLaMA pooled features", tuple(out.shape)))
+        pooled[quant] = out
+        key = "fp32" if quant == "none" else quant
+        proj = _proj_bytes(tm.model.state_dict())
+        numbers.update({f"llama7b_{key}_ms_per_call": ms,
+                        f"llama7b_{key}_peak_gib": peak / 2 ** 30,
+                        f"llama7b_{key}_weights_gib": weights / 2 ** 30,
+                        f"llama7b_{key}_proj_gib": proj / 2 ** 30})
+        print(f"[llama] OpenLLaMA-7B widths, {cfg.num_hidden_layers} layers, {key}: "
+              f"{ms:.3f} ms per call "
+              f"of 8 prompts x 32 token ids ({8 * 32 / (ms / 1e3):.1f} tokens/s), "
+              f"weights {weights / 2 ** 30:.2f} GiB (projections "
+              f"{proj / 2 ** 30:.2f} GiB), peak {peak / 2 ** 30:.2f} GiB  [{gpu}]")
+        del tm
+    ratio = numbers["llama7b_int8_w_proj_gib"] / numbers["llama7b_fp32_proj_gib"]
+    cos = _rows_cos(pooled["int8_w"], pooled["none"])
+    numbers.update(llama7b_int8_w_proj_bytes_ratio=ratio, llama7b_int8_w_vs_fp32_cos=cos)
+    print(f"[llama] int8_w against fp32: pooled min cosine {cos:.6f}, projection "
+          f"bytes {ratio:.4f} of fp32's (bound 0.27)")
+    _check(ratio <= 0.27, ("int8_w projection bytes", ratio))
+    del pooled
+    torch.cuda.empty_cache()
+
+    for name, widths in (("openllama7b", OPENLLAMA_7B), ("mistral7b", MISTRAL_7B)):
+        cut = dataclasses.replace(LlamaConfig(**widths), num_hidden_layers=2)
+        model = LlamaEncoder(cut).init_random(torch.Generator().manual_seed(1))
+        cpu_sd = model.state_dict()
+        del model
+        want = TextModel.native(cut, cpu_sd, device="cpu").encode_ids(ids_np, mask_np)
+        card = TextModel.native(cut, {k: v.cuda() for k, v in cpu_sd.items()},
+                                device="cuda")
+        got = card.encode_ids(ids, mask)
+        cos = _rows_cos(got, want)
+        numbers[f"llama_{name}_2layer_card_vs_cpu_cos"] = cos
+        print(f"[llama] {name} widths ({cut.num_attention_heads} heads over "
+              f"{cut.num_key_value_heads} kv heads, eps {cut.rms_norm_eps}), 2 layers, "
+              f"fp32: card against CPU min cosine {cos:.7f} (bound "
+              f"{LLAMA_CARD_VS_CPU_COS})")
+        _check(cos >= LLAMA_CARD_VS_CPU_COS, (name, "card vs CPU cosine", cos))
+        del card, cpu_sd
+        torch.cuda.empty_cache()
+    return numbers
+
+
+def _tree_rel_diff(a, b):
+    """The largest difference of two state trees over their tensors, each
+    over its largest entry (0 if bit-equal)."""
+    import torch
+
+    worst = 0.0
+    for key, x in a.items():
+        if isinstance(x, dict):
+            worst = max(worst, _tree_rel_diff(x, b[key]))
+            continue
+        x, y = torch.as_tensor(x).double(), torch.as_tensor(b[key]).double()
+        if not torch.equal(x, y):
+            worst = max(worst, float((x - y).abs().max() / max(y.abs().max(), 1e-30)))
+    return worst
+
+
+def _held_to_spread(what, resumed, spread):
+    """A resumed run against an uninterrupted one: bit-equal when two
+    uninterrupted runs are, else within their spread."""
+    print(f"[resume] {what}: resumed vs uninterrupted max rel diff {resumed:.3e}; "
+          f"two uninterrupted runs {spread:.3e} (the bound)")
+    _check(resumed <= spread, (what, resumed, spread))
+
+
+def _finetune_subprocess(root, result_dir, extra=(), kill_at_checkpoint=False):
+    """The finetune CLI (frozen ViT-B/16 ``smoke``) in a process of its own
+    -> the checkpoint files on disk when it was killed (SIGKILL) as soon as
+    the first appeared, else its test_result.pth."""
+    import glob
+
+    from uml_tpu_torch.data.feature_cache import load_cache
+
+    argv = _finetune_argv(root, "smoke", result_dir, extra=extra)
+    base = f"{root}/{result_dir}"
+    log_path = f"{base}.log"
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen([sys.executable, "-m", "uml_tpu_torch.cli.finetune",
+                                 "-d", *argv], cwd=ROOT, stdout=log,
+                                stderr=subprocess.STDOUT)
+        try:
+            t0 = time.perf_counter()
+            pattern = f"{base}/**/checkpoints/step_*.pt"
+            while proc.poll() is None:
+                if kill_at_checkpoint and glob.glob(pattern, recursive=True):
+                    break
+                _check(time.perf_counter() - t0 < 300, ("finetune subprocess stalled",
+                                                         log_path))
+                time.sleep(0.01)
+        finally:
+            proc.kill()
+            proc.wait()
+    results = glob.glob(f"{base}/**/test_result.pth", recursive=True)
+    if kill_at_checkpoint:
+        _check(not results, ("the killed run wrote a test_result.pth", log_path))
+        return sorted(glob.glob(pattern, recursive=True))
+    _check(proc.returncode == 0 and len(results) == 1,
+           ("finetune subprocess", proc.returncode, log_path))
+    return load_cache(results[0])
+
+
+def phase_resume(root):
+    """[resume]: the finetune CLI on the frozen ViT-B/16 grid: uninterrupted
+    in a process of its own and in this one (their spread), then with
+    --ckpt_every 20 in a process killed (SIGKILL) once its first checkpoint
+    is on disk, rerun here: held to the first; then train() on the RN50
+    smoke_full grid stopped at 15 of 30 steps and resumed -> numbers."""
+    import glob
+
+    import numpy as np
+    import torch
+
+    from uml_tpu_torch.cli import finetune as ft
+    from uml_tpu_torch.core.checkpoint import TrainCheckpointer
+    from uml_tpu_torch.data.feature_cache import load_cache, text_outdir
+    from uml_tpu_torch.data.fewshot import get_few_shot_benchmark
+    from uml_tpu_torch.data.loader import RawImageStream
+    from uml_tpu_torch.models.encoders import load_clip
+    from uml_tpu_torch.models.uml_head import make_uml_clip_head
+    from uml_tpu_torch.train.optim import HYPER_DICT, build_optimizer, build_schedule
+    from uml_tpu_torch.train.supervised import CyclicBatcher, eval_batches, train
+
+    gpu = _gpu_line()
+    numbers = {}
+    t0 = time.perf_counter()
+    want = _finetune_subprocess(root, "experiments_resume_a")
+    _, _, here = _finetune(root, "smoke", {}, "experiments_resume_b")
+    spread = _tree_rel_diff(here["model"], want["model"])
+    kept = _finetune_subprocess(root, "experiments_resume_c", ["--ckpt_every", "20"],
+                                kill_at_checkpoint=True)
+    _, _, resumed = _finetune(root, "smoke", {}, "experiments_resume_c",
+                              extra=["--ckpt_every", "20"])
+    (log_txt,) = glob.glob(f"{root}/experiments_resume_c/**/log.txt", recursive=True)
+    with open(log_txt) as f:
+        line = [x for x in f if "Resuming from checkpoint" in x]
+    _check(line, "the rerun resumed from a checkpoint")
+    print(f"[resume] frozen ViT-B/16 smoke, --ckpt_every 20: killed with "
+          f"{[os.path.basename(k) for k in kept]} on disk; {line[0].strip()}; "
+          f"{time.perf_counter() - t0:.1f} s for the four runs")
+    diff = _tree_rel_diff(resumed["model"], want["model"])
+    if spread == 0:
+        _check(all(resumed[k] == want[k] for k in ("test_acc", "val_acc", "iter")),
+               ("resumed CLI result", resumed, want))
+    numbers.update(resume_cli_spread=spread, resume_cli_rel_diff=diff)
+    _held_to_spread("frozen ViT-B/16 CLI test_result.pth", diff, spread)
+
+    # train() on the RN50 smoke_full grid: BatchNorm's running statistics,
+    # the optimizer, the schedule and both streams across the resume
+    h = {k: (v[0] if isinstance(v, list) else v) for k, v in HYPER_DICT["smoke_full"].items()}
+    ds = get_few_shot_benchmark(root, f"{root}/indices", "caltech101", 16, 1)
+    tf = load_cache(text_outdir(f"{root}/features_rn_none", "RN50", "caltech101",
+                                "hand_crafted"))
+    n_classes = len(ds["lab2cname"])
+    img_val, lab_val = ft._decode_split(ds["val"], 1)
+    val = eval_batches(img_val, lab_val, h["batch_size"])
+    base = load_clip("RN50", allow_random_init=True)
+    logit = ft.build_parser().parse_args([]).logit
+
+    def run(ckdir, max_iters):
+        model = make_uml_clip_head(copy.deepcopy(base), n_classes, logit_scale=logit,
+                                   freeze_backbone=False,
+                                   generator=torch.Generator().manual_seed(1)).to("cuda")
+        model.zero_shot_init(tf["features"], tf["labels"])
+        opt = build_optimizer(h["optim"], build_schedule(
+            h["lr"], h["lr_scheduler"], h["warmup_iter"], h["max_iter"],
+            h["warmup_type"], h["warmup_min_lr"]), h["weight_decay"])
+        # a checkpoint of the whole CLIP and its adamw state is ~1.2 GB:
+        # every 15 steps, at the stop and at the end
+        train(model, RawImageStream(ds["train"], "crop", h["batch_size"], seed=1),
+              CyclicBatcher(tf["features"].astype(np.float32),
+                            tf["labels"].astype(np.int64), h["batch_size"], seed=2),
+              val, optimizer=opt, max_iters=max_iters, patience=h["patience"],
+              checkpointer=TrainCheckpointer(ckdir), ckpt_every=15)
+        return TrainCheckpointer(ckdir).restore_latest()
+
+    states = {}
+    t0 = time.perf_counter()
+    for tag in ("a", "b"):
+        step, states[tag] = run(f"{root}/resume_rn_{tag}", h["max_iter"])
+        _check(step == h["max_iter"], (tag, step))
+    step, _ = run(f"{root}/resume_rn_c", 15)
+    _check(step == 15, ("RN50 stopped run", step))
+    step, states["c"] = run(f"{root}/resume_rn_c", h["max_iter"])
+    _check(step == h["max_iter"], ("RN50 resumed run", step))
+    print(f"[resume] RN50 smoke_full through train(): {time.perf_counter() - t0:.1f} s "
+          f"for the four runs")
+
+    def split(state):
+        model = state["model"]
+        stats = {k: v for k, v in model.items() if "running_" in k}
+        return {k: v for k, v in model.items() if k not in stats}, stats
+
+    (pa, sa), (pb, sb), (pc, sc) = (split(states[t]) for t in "abc")
+    adamw = {t: states[t]["optimizer"]["state"] for t in "abc"}
+    for key, what, c, a, b in (
+            ("params", "parameters after 30 steps", pc, pa, pb),
+            ("bn_stats", "BatchNorm statistics", sc, sa, sb),
+            ("adamw", "adamw state", adamw["c"], adamw["a"], adamw["b"])):
+        spread, diff = _tree_rel_diff(a, b), _tree_rel_diff(c, a)
+        what = f"RN50 smoke_full {what}"
+        numbers.update({f"resume_rn50_{key}_spread": spread,
+                        f"resume_rn50_{key}_rel_diff": diff})
+        _held_to_spread(what, diff, spread)
+    print(f"[resume] RN50 smoke_full through train(): stopped at 15, resumed to "
+          f"{h['max_iter']}  [{gpu}]")
+    return numbers
+
+
 def _dino_features_args(root, batch, feature_dir, quant):
     from uml_tpu_torch.cli import features as feat
 
@@ -2726,24 +3090,32 @@ def _text_grad_card_vs_cpu():
     return {"text_tower_min_grad_cosine": cosines[worst]}
 
 
-def _finetune(root, grid, wrappers, result_dir="experiments", encoder=None):
-    """One finetune CLI run into ``root/result_dir`` -> (launch counts,
-    wall seconds, the combo's test_result).  ``encoder``: the CLI's encoder
-    and text-cache flags (default: the ViT-B/16 CLIP and phase 3's
-    caches)."""
+def _finetune_argv(root, grid, result_dir, encoder=None, extra=()):
+    """The finetune CLI's flags on the phase-3 fixture into
+    ``root/result_dir``; ``encoder``: the encoder and text-cache flags
+    (default: the ViT-B/16 CLIP and phase 3's caches)."""
+    encoder = encoder or ["--clip-encoder", "ViT-B/16", "--feature_dir",
+                          f"{root}/features"]
+    return ["--data_dir", root, "--indices_dir", f"{root}/indices", *encoder,
+            "--result_dir", f"{root}/{result_dir}", "--dataset", "caltech101",
+            "--allow-random-init",
+            "--train-shot", "16", "--seed", "1", "--text_type", "hand_crafted",
+            "--modality", "crossmodal", "--alpha", "1", "--hyperparams", grid,
+            *extra]
+
+
+def _finetune(root, grid, wrappers, result_dir="experiments", encoder=None,
+              extra=()):
+    """One finetune CLI run into ``root/result_dir`` (``_finetune_argv``,
+    ``extra`` flags appended) -> (launch counts, wall seconds, the combo's
+    test_result)."""
     import torch
 
     from uml_tpu_torch.cli import finetune as ft
     from uml_tpu_torch.data.feature_cache import load_cache
 
-    encoder = encoder or ["--clip-encoder", "ViT-B/16", "--feature_dir",
-                          f"{root}/features"]
-    args = ft.build_parser().parse_args([
-        "--data_dir", root, "--indices_dir", f"{root}/indices", *encoder,
-        "--result_dir", f"{root}/{result_dir}", "--dataset", "caltech101",
-        "--allow-random-init",
-        "--train-shot", "16", "--seed", "1", "--text_type", "hand_crafted",
-        "--modality", "crossmodal", "--alpha", "1", "--hyperparams", grid])
+    args = ft.build_parser().parse_args(
+        _finetune_argv(root, grid, result_dir, encoder, extra))
     args.overwrite = False
     args.force_rerun = False
     for w in wrappers.values():
@@ -2776,21 +3148,24 @@ def np_flat(v):
     return [float(x) for x in np.asarray(v, np.float64).reshape(-1)]
 
 
-def _check_tower_moved(result, what, dino=None):
+def _check_tower_moved(result, what, dino=None, clip="ViT-B/16"):
     """The saved best model is the iter-0 snapshot: one adamw step from the
     encoder's random init (generator seed 0); every image-tower tensor
     must differ from the init (``dino``: the DinoViT of that name, every
-    tensor)."""
+    tensor; ``clip``: the CLIP's name, an RN's BatchNorm statistics
+    included).  An RN attention pool's k_proj bias is left out: the
+    softmax cancels its gradient, so only rounding noise moves it."""
     import torch
 
     from uml_tpu_torch.models.clip import build_clip
     from uml_tpu_torch.models.dino import load_dino
 
-    init = (build_clip("ViT-B/16").init_random(torch.Generator().manual_seed(0))
+    init = (build_clip(clip).init_random(torch.Generator().manual_seed(0))
             if dino is None else load_dino(dino, allow_random_init=True)).state_dict()
     trained = result["model"]["backbone"]
     _check(set(trained) == set(init), (what, "backbone keys"))
-    visual = list(init) if dino else [k for k in init if k.startswith("visual.")]
+    visual = list(init) if dino else [k for k in init if k.startswith("visual.")
+                                      and not k.endswith("attnpool.k_proj.bias")]
     moved = [k for k in visual
              if (torch.as_tensor(trained[k]) - init[k]).abs().max().item() > 0]
     _check(len(moved) == len(visual), (what, "tower tensors moved", len(moved),
@@ -2906,13 +3281,15 @@ def phase_train(root, sizes):
     return full, recompute, numbers
 
 
-def _head_and_batch(bsz, gen_seed=0, clip_kw=None, config=None, dino=None):
+def _head_and_batch(bsz, gen_seed=0, clip_kw=None, config=None, dino=None,
+                    clip_name="ViT-B/16", dtype=None):
     """A random-init ViT-B/16 UML head (bf16 compute, every CLIP leaf
     trainable; ``clip_kw``: build_clip's attn_impl / ln_matmul_impl;
-    ``config``: a ClipConfig in place of ViT-B/16's; ``dino``: the named
-    DinoViT's UML head instead, img_proj into a 768-wide text space, as
-    the DINO finetune builds it) and one crossmodal batch of ``bsz`` on
-    the CPU."""
+    ``config``: a ClipConfig in place of ViT-B/16's; ``clip_name``:
+    another CLIP (RN50 / RN101: BatchNorm in train form); ``dtype``: the
+    compute dtype in place of bf16; ``dino``: the named DinoViT's UML head
+    instead, img_proj into a 768-wide text space, as the DINO finetune
+    builds it) and one crossmodal batch of ``bsz`` on the CPU."""
     import numpy as np
     import torch
 
@@ -2927,9 +3304,10 @@ def _head_and_batch(bsz, gen_seed=0, clip_kw=None, config=None, dino=None):
         model = make_uml_dino_head(backbone, 8, text_indim=width,
                                    freeze_backbone=False, generator=head_gen)
     else:
-        clip = (build_clip("ViT-B/16", dtype=torch.bfloat16, **(clip_kw or {}))
+        dtype = dtype or torch.bfloat16
+        clip = (build_clip(clip_name, dtype=dtype, **(clip_kw or {}))
                 if config is None else
-                CLIP(config, dtype=torch.bfloat16, **(clip_kw or {}))).init_random(
+                CLIP(config, dtype=dtype, **(clip_kw or {}))).init_random(
             torch.Generator().manual_seed(gen_seed))
         res, width = clip.config.image_resolution, clip.config.embed_dim
         model = make_uml_clip_head(clip, 8, freeze_backbone=False,
@@ -2945,43 +3323,91 @@ def _head_and_batch(bsz, gen_seed=0, clip_kw=None, config=None, dino=None):
     return model, batch
 
 
-def _loss(model, batch):
-    """The crossmodal UML loss of train/supervised.py (alpha 1)."""
+def _loss(model, batch, bn_updates=None):
+    """The crossmodal UML loss of train/supervised.py (alpha 1), through
+    the training forward (``bn_updates``, for an RN tower: a list that
+    BatchNorm's train form fills with the new running statistics)."""
     from uml_tpu_torch.train.supervised import weighted_ce
 
     img, lab, w, txt, tlab, tw = batch
     s_img, s_txt = model.scales()
-    return (weighted_ce(model.image_features(img) @ model.head_w * s_img, lab, w)
+    feats = model.image_features(img, bn_updates)
+    return (weighted_ce(feats @ model.head_w * s_img, lab, w)
             + weighted_ce(txt @ model.head_w * s_txt, tlab, tw))
 
 
-def _card_vs_cpu_step(mode, clip_kw=None, config=None, dino=None):
+def _card_vs_cpu_step(mode, clip_kw=None, config=None, dino=None,
+                      clip_name="ViT-B/16", dtype=None, tf32_witness=False):
     """One bs-4 forward + backward on the card and on the CPU plain path,
-    same weights and batch, in the backward mode the environment sets."""
+    same weights and batch, in the backward mode the environment sets; for
+    an RN tower (``clip_name``) also BatchNorm's running statistics after
+    the merge.  ``tf32_witness``: the card's step runs a second time with
+    cuDNN's TF32 convolutions on, its statistics recorded, not held."""
     import torch
 
     cpu_model, cpu_batch = _head_and_batch(4, clip_kw=clip_kw, config=config,
-                                           dino=dino)
+                                           dino=dino, clip_name=clip_name,
+                                           dtype=dtype)
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
     gpu_batch = tuple(t.to("cuda") for t in cpu_batch)
-    losses, grads = [], []
-    for model, batch in ((gpu_model, gpu_batch), (cpu_model, cpu_batch)):
-        loss = _loss(model, batch)
-        loss.backward()
+    runs = [(gpu_model, gpu_batch), (cpu_model, cpu_batch)]
+    if tf32_witness:
+        runs.append((copy.deepcopy(cpu_model).to("cuda"), gpu_batch))
+    losses, grads, stats = [], [], []
+    tf32 = torch.backends.cudnn.allow_tf32
+    for i, (model, batch) in enumerate(runs):
+        if tf32_witness:
+            # the checked card step in full fp32, the witness (third) in TF32
+            torch.backends.cudnn.allow_tf32 = i == 2
+        upd = [] if clip_name.startswith("RN") else None
+        try:
+            loss = _loss(model, batch, upd)
+            loss.backward()
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        if upd is not None:
+            model.merge_bn_updates(upd)
         losses.append(loss.item())
         grads.append({k: p.grad.detach().float().cpu()
                       for k, p in model.named_parameters()
                       if p.grad is not None})
+        stats.append({k: b.detach().float().cpu() for k, b in model.named_buffers()
+                      if k.endswith(("running_mean", "running_var"))})
     _check(grads[0].keys() == grads[1].keys(), "same parameters reached")
     cosines = {}
     for key, g in grads[1].items():
         a, b = grads[0][key], g
+        if key.endswith("attnpool.k_proj.bias"):
+            continue   # an exact zero gradient (the softmax cancels it)
         if key.endswith(("attn.in_proj_bias", ".qkv.bias")):
             a, b = (torch.cat([t.chunk(3)[0], t.chunk(3)[2]]) for t in (a, b))
         cosines[key] = float((a * b).sum() / (a.norm() * b.norm() + 1e-30))
     worst = min(cosines, key=cosines.get)
     rel = abs(losses[0] - losses[1]) / abs(losses[1])
-    tag = "dino-train" if dino else "train"
+    tag = "dino-train" if dino else "rn-train" if clip_name.startswith("RN") else "train"
+    suffix = "" if mode == "default" else f"_{mode}"
+    numbers = {}
+    if stats[1]:
+        # the new running statistics (0.9 old + 0.1 batch) on the card
+        # against the CPU, each tensor's largest difference over its
+        # largest entry
+        def stat_diffs(card):
+            return {k: float((card[k] - v).abs().max() / v.abs().max())
+                    for k, v in stats[1].items()}
+
+        stat_rel = stat_diffs(stats[0])
+        worst_stat = max(stat_rel, key=stat_rel.get)
+        if tf32_witness:
+            witness = max(stat_diffs(stats[2]).values())
+            numbers[f"step_bn_stat_rel_err_tf32{suffix}"] = witness
+            print(f"[{tag}] the same step with cuDNN's TF32 convolutions: "
+                  f"BatchNorm statistics max rel diff {witness:.3e} (recorded)")
+        print(f"[{tag}] bs-4 step card vs CPU ({mode}): {len(stat_rel)} BatchNorm "
+              f"statistics after the merge, max rel diff "
+              f"{stat_rel[worst_stat]:.3e} ({worst_stat}), bound {BN_STAT_RTOL}")
+        _check(stat_rel[worst_stat] <= BN_STAT_RTOL,
+               (mode, "BatchNorm statistics", worst_stat, stat_rel[worst_stat]))
+        numbers[f"step_bn_stat_rel_err{suffix}"] = stat_rel[worst_stat]
     print(f"[{tag}] bs-4 step card vs CPU ({mode}): loss {losses[0]:.6f} vs "
           f"{losses[1]:.6f} (rel {rel:.2e}, bound {STEP_LOSS_RTOL}); "
           f"{len(cosines)} gradient tensors, min cosine "
@@ -2989,27 +3415,30 @@ def _card_vs_cpu_step(mode, clip_kw=None, config=None, dino=None):
     _check(rel <= STEP_LOSS_RTOL, (mode, "bs-4 loss", losses))
     _check(cosines[worst] >= STEP_MIN_GRAD_COSINE, (mode, "gradient cosine",
                                                      worst, cosines[worst]))
-    suffix = "" if mode == "default" else f"_{mode}"
-    return {f"step_loss_rel_err{suffix}": rel,
+    return {**numbers, f"step_loss_rel_err{suffix}": rel,
             f"step_min_grad_cosine{suffix}": cosines[worst]}
 
 
 def _train_step_rates(bsz, modes, iters=10, clip_kw=None, dino=None,
-                      prefix="train"):
+                      prefix="train", clip_name="ViT-B/16"):
     """Steady-state full-model train step (forward, backward, adamw) at
     ``bsz`` on a staged batch, in each mode of ``modes`` ((tag, environment,
     microbatch or None), run in turn on one model), with its peak memory,
-    its phases and a profile; ``dino``: the named DinoViT's head, numbers
-    under ``prefix``."""
+    its phases and a profile; ``dino``: the named DinoViT's head,
+    ``clip_name``: another CLIP (an RN tower's step ends with the merge of
+    its BatchNorm statistics, in the adamw phase), numbers under
+    ``prefix``."""
     import torch
 
     from uml_tpu_torch.ops import ln_matmul as lm
     from uml_tpu_torch.train.accum import microbatched_step
     from uml_tpu_torch.train.optim import build_optimizer, build_schedule
 
-    model, batch = _head_and_batch(bsz, clip_kw=clip_kw, dino=dino)
-    tag_line = "dino-train" if dino else "train"
-    what = f"{dino} " if dino else ""
+    model, batch = _head_and_batch(bsz, clip_kw=clip_kw, dino=dino,
+                                   clip_name=clip_name)
+    tag_line = ("dino-train" if dino else "rn-train" if clip_name.startswith("RN")
+                else "train")
+    what = f"{dino} " if dino else f"{clip_name} " if clip_name != "ViT-B/16" else ""
     model.to("cuda")
     batch = tuple(t.to("cuda") for t in batch)
     opt = build_optimizer("adamw", build_schedule(5e-5, "cosine", 50, 12800),
@@ -3032,8 +3461,9 @@ def _train_step_rates(bsz, modes, iters=10, clip_kw=None, dino=None,
 
             mark(0)
             opt.zero_grad()
+            upd = [] if clip_name.startswith("RN") else None
             if micro is None:
-                loss = _loss(model, batch)
+                loss = _loss(model, batch, upd)
                 mark(1)
                 loss.backward()
             else:
@@ -3044,6 +3474,8 @@ def _train_step_rates(bsz, modes, iters=10, clip_kw=None, dino=None,
                     p.grad.copy_(g)
             mark(2)
             opt.step(next(it))
+            if upd is not None:
+                model.merge_bn_updates(upd)
             mark(3)
 
         with _env(env):
@@ -3198,22 +3630,33 @@ def main() -> int:
         print("chip_smoke: run from a checkout of the repository "
               "(uml_tpu_torch not found)", file=sys.stderr)
         return 2
-    phase_setup()
-    kernels = phase_kernels()
-    launches, rate, root, sizes, encoder = phase_main_path()
-    int8_launches, int8_numbers = phase_int8_path(root, sizes, encoder)
+    t_start = time.perf_counter()
+
+    def timed(phase, *args):
+        t = time.perf_counter()
+        out = phase(*args)
+        print(f"[main] {phase.__name__}: {time.perf_counter() - t:.1f} s")
+        return out
+
+    timed(phase_setup)
+    kernels = timed(phase_kernels)
+    launches, rate, root, sizes, encoder = timed(phase_main_path)
+    int8_launches, int8_numbers = timed(phase_int8_path, root, sizes, encoder)
     rate.update(int8_numbers)
-    unfused_launches, unfused_numbers = phase_unfused(encoder)
+    unfused_launches, unfused_numbers = timed(phase_unfused, encoder)
     rate.update(unfused_numbers)
     del encoder
-    train_launches, recompute_launches, train_numbers = phase_train(root, sizes)
+    train_launches, recompute_launches, train_numbers = timed(phase_train, root, sizes)
     rate.update(train_numbers)
-    dino_launches, dino_numbers = phase_dino(root, sizes)
+    dino_launches, dino_numbers = timed(phase_dino, root, sizes)
     rate.update(dino_numbers)
-    dino_train_launches, dino_train_numbers = phase_dino_train(root, sizes)
+    dino_train_launches, dino_train_numbers = timed(phase_dino_train, root, sizes)
     rate.update(dino_train_numbers)
-    _, rn_numbers = phase_rn(root, sizes)
+    _, rn_numbers = timed(phase_rn, root, sizes)
     rate.update(rn_numbers)
+    rate.update(timed(phase_rn_train, root))
+    rate.update(timed(phase_llama))
+    rate.update(timed(phase_resume, root))
     # each port's launches come from the path it belongs to: the bf16
     # serving kernels from the features run, the int8 ones from the
     # features --quant int8 run and its tower encode, the training kernels
@@ -3260,6 +3703,7 @@ def main() -> int:
                  "bound_by": kernels[name]["bound_by"],
                  "cublas": kernels[name]["yardstick"],
                  "cublas_ms": kernels[name]["yardstick_ms"]} for name in PRODUCTS]
+    print(f"[main] every phase ran in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"throughput": rate}))
     print(json.dumps({"products": products}))
     print(json.dumps({"kernels": table}))

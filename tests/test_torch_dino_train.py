@@ -575,24 +575,22 @@ def test_finetune_cli_dino_full_model(tmp_path, monkeypatch):
     assert not still, still
 
 
-@pytest.mark.parametrize("flags,message", [
-    (["--quant", "int8"], None),
-    (["--ckpt_every", "5"], "not ported"),
-])
-def test_finetune_refuses_int8_and_checkpoints_with_dino(flags, message):
-    """The DINO full-model grid runs, but not with mid-run checkpoints (a
-    refusal before any work).  ``--quant`` is accepted and ignored, as
-    uml_tpu's finetune ignores it: the int8 modes, the mixed ones too,
-    serve the features CLI only."""
+@pytest.mark.parametrize("flags", [["--quant", "int8"], ["--ckpt_every", "5"]])
+def test_finetune_refuses_int8_and_checkpoints_with_dino(flags):
+    """The DINO full-model grid takes both flags before any work:
+    ``--quant`` is accepted and ignored, as uml_tpu's finetune ignores it
+    (the int8 modes, the mixed ones too, serve the features CLI only), and
+    ``--ckpt_every`` saves and resumes (tests/test_torch_checkpoint.py)."""
     from tests.test_torch_features_cli import DINO
     from uml_tpu_torch.cli import finetune as torch_ft
 
     dino = ["--vision_model", DINO, "--hyperparams", "smoke_full", "--mesh", "off"]
-    if message is None:
+    if flags[0] == "--quant":
         for quant in ("int8", "int8_mlp", "int8_attn", "int8_qkv"):
             torch_ft.check_ported(torch_ft.build_parser().parse_args(
                 dino + ["--quant", quant]))
     else:
-        with pytest.raises(SystemExit, match=message):
-            torch_ft.check_ported(torch_ft.build_parser().parse_args(dino + flags))
+        args = torch_ft.build_parser().parse_args(dino + flags)
+        torch_ft.check_ported(args)
+        assert args.ckpt_every == 5
     torch_ft.check_ported(torch_ft.build_parser().parse_args(dino))

@@ -58,34 +58,34 @@ def test_checkpoint_loads_with_sha_check(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("cli,flags,message", [
-    # mid-run checkpoints of the finetune, with the DINO full-model grid
-    # (which runs without the flag)
-    (finetune, ["--vision_model", "vit_base_patch16_224_dino",
-                "--hyperparams", "smoke_full", "--ckpt_every", "5"], "not ported"),
-    # an HF language model whose files are in the local cache: uml_tpu would
-    # run it, the port refuses, even under --allow-random-init
-    (features, ["--language_model", "gpt2", "--allow-random-init"], "not ported"),
     # uml_tpu's early refusal of a mixed int8 mode for a non-CLIP tower
     (features, ["--vision_model", "vit_base_patch16_224_dino", "--quant",
                 "int8_qkv"], "int8_qkv"),
-    # the RN towers serve and take the frozen grids; their full-model
-    # finetune (BatchNorm in train mode) is the next slice
-    (finetune, ["--clip-encoder", "RN50", "--hyperparams", "smoke_full"],
-     "RN towers"),
 ])
 def test_features_refuses_what_is_not_ported(monkeypatch, cli, flags, message):
     """Each refusal comes before any dataset or model work."""
-    import transformers
-
-    def local_tokenizer(name, **kw):
-        assert kw.get("local_files_only") is True   # never the network
-        return object()
-
-    monkeypatch.setattr(transformers.AutoTokenizer, "from_pretrained",
-                        staticmethod(local_tokenizer))
     args = cli.build_parser().parse_args(["--clip-encoder", "ViT-B/16"] + flags)
     with pytest.raises(SystemExit, match=message):
         cli.main(args)
+
+
+@pytest.mark.parametrize("cli,flags", [
+    # mid-run checkpoints of the finetune, with the DINO full-model grid
+    # (tests/test_torch_checkpoint.py resumes such runs)
+    (finetune, ["--vision_model", "vit_base_patch16_224_dino",
+                "--hyperparams", "smoke_full", "--ckpt_every", "5"]),
+    # an HF language model whose files are local: the port runs it
+    # (tests/test_torch_languagemodel.py)
+    (features, ["--language_model", "gpt2", "--allow-random-init"]),
+    # the RN towers' full-model finetune, BatchNorm in train mode
+    # (tests/test_torch_clip_resnet_train.py)
+    (finetune, ["--clip-encoder", "RN50", "--hyperparams", "smoke_full"]),
+], ids=["ckpt_every", "language_model", "rn_smoke_full"])
+def test_formerly_refused_flags_are_accepted(cli, flags):
+    """What the port refused before the RN full-model finetune, the HF
+    language models and the checkpoints landed passes the early check."""
+    args = cli.build_parser().parse_args(["--clip-encoder", "ViT-B/16"] + flags)
+    cli.check_ported(args)
 
 
 def test_default_device_is_the_card_unless_the_cpu_is_asked_for(monkeypatch):

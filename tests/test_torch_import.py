@@ -93,3 +93,10 @@ def test_chip_smoke_source_imports_no_jax_or_uml_tpu():
             continue
         for name in names:
             assert name.split(".")[0] not in ("jax", "flax", "uml_tpu"), name
+
+
+def test_module_list_covers_the_language_model_and_resume_slice():
+    """... and the modules of the LLaMA text encoder and the resume."""
+    for name in ("uml_tpu_torch.models.llama", "uml_tpu_torch.core.checkpoint",
+                 "uml_tpu_torch.core.prng"):
+        assert name in MODULES, name

@@ -24,10 +24,13 @@ the CPU (the kernels' plain PyTorch versions).
 ``--vision_model`` (a DINO / DINOv2 config of models/dino.py) takes the
 image side, with ``--quant none|int8``, and ``--language_model`` the text
 side (uml_tpu's ``_HFEncoderAdapter``); the caches are named after them.
-The HF language models are not ported (models/languagemodel.py): where a
-model's files are local the run refuses; without them it raises the load
-error, or under ``--allow_random_init`` writes hash-random text features,
-as uml_tpu does on such a machine.
+The language model (models/languagemodel.py: BERT / RoBERTa by their CLS
+row, GPT-2 and the other decoders by the masked mean, LLaMA / Mistral
+through the port's LlamaEncoder) loads from local files only and runs on
+the encoder's device in fp32; any ``--quant int8*`` makes the LLaMA
+projections weight-only int8 (``int8_w``).  Without the files it raises
+the load error, or under ``--allow_random_init`` writes hash-random text
+features, as uml_tpu does on such a machine.
 
     python -m uml_tpu_torch.cli.features -d --dataset caltech101 \\
         --allow-random-init ...                          # RN50
@@ -36,6 +39,9 @@ as uml_tpu does on such a machine.
     python -m uml_tpu_torch.cli.features -d --dataset caltech101 \\
         --vision_model vit_base_patch14_dinov2.lvd142m \\
         --language_model bert-base-uncased --allow-random-init ...
+    python -m uml_tpu_torch.cli.features -d --dataset caltech101 \\
+        --vision_model vit_base_patch14_dinov2.lvd142m \\
+        --language_model /path/to/open_llama_7b --quant int8 ...
     python -m uml_tpu_torch.cli.features -c configs/features.yaml
 
 Not ported yet (it raises): a multi-device ``--mesh``.
@@ -329,7 +335,10 @@ class _HFEncoderAdapter(ClipEncoder):
     API (``stage_images``, ``encode_staged``, ``encode_images``,
     ``encode_texts``), ``model`` the
     DinoViT.  Images take the CLIP normalization, folded into the patch
-    embedding, as on the CLIP path (uml_tpu/cli/features.py:344-442)."""
+    embedding, as on the CLIP path (uml_tpu/cli/features.py:344-442).
+    ``text_model`` is a TextModel on the same device (any int8 ``quant``
+    -> its weight-only ``int8_w``), or hash-random features under
+    ``allow_random_init`` when it cannot load."""
 
     def __init__(self, vision_model: str = "", language_model: str = "",
                  allow_random_init: bool = False, device=None,
@@ -344,8 +353,10 @@ class _HFEncoderAdapter(ClipEncoder):
         self.model = None
         if language_model:
             try:
-                self.text_model = TextModel(language_model)
-            except Exception as e:   # SystemExit (files local) passes through
+                self.text_model = TextModel(
+                    language_model, device=self.device,
+                    quant="int8_w" if quant.startswith("int8") else "none")
+            except Exception as e:
                 if not allow_random_init:
                     raise
                 print(f"=> [random-init] text encoder for {language_model} "
@@ -369,13 +380,8 @@ class _HFEncoderAdapter(ClipEncoder):
 
 
 def check_encoders_ported(args) -> None:
-    """Raise for encoder flags whose code is not ported yet (an HF
-    language model with local files, a multi-device ``--mesh``), before
-    any dataset or model work."""
-    from uml_tpu_torch.models.languagemodel import refuse_if_local
-
-    if args.language_model:
-        refuse_if_local(args.language_model)
+    """Raise for encoder flags whose code is not ported yet (a
+    multi-device ``--mesh``), before any dataset or model work."""
     check_mesh_flag(args.mesh)
 
 

@@ -56,12 +56,16 @@ where uml_tpu saves its flax tree.
         --hyperparams smoke_full --allow-random-init ...
 
 The CLIP encoders are ViT-B/16, ViT-B/32 and RN50 / RN101 (the default
-``--clip-encoder``); ``--quant`` is accepted and ignored, as uml_tpu's
-finetune ignores it (the int8 modes serve the features CLI only).
+``--clip-encoder``); on the full path an RN tower trains with BatchNorm
+in its train form (batch statistics normalize; the running statistics
+follow at momentum 0.1 after each optimizer step), in the encoder's
+dtype (bf16), with cuDNN convolutions.  ``--quant`` is accepted and
+ignored, as uml_tpu's finetune ignores it (the int8 modes serve the
+features CLI only).  ``--ckpt_every N`` saves the loop's state every N
+iterations into ``<combo>/checkpoints``, and a rerun of the combo resumes
+from the latest checkpoint (train/supervised.py).
 
-Not ported yet (each raises before any work): the RN towers' full-model
-grids (``smoke_full``, ``full_ds_full_model_finetune``: BatchNorm in
-train mode), a multi-device ``--mesh`` and ``--ckpt_every``.
+Not ported yet (it raises before any work): a multi-device ``--mesh``.
 """
 
 from __future__ import annotations
@@ -76,7 +80,9 @@ import torch
 
 from uml_tpu_torch.cli.features import _HFEncoderAdapter
 from uml_tpu_torch.cli.features import check_encoders_ported
+from uml_tpu_torch.core.checkpoint import TrainCheckpointer
 from uml_tpu_torch.core.flags import build_shared_parser
+from uml_tpu_torch.core.prng import make_rng
 from uml_tpu_torch.core.sweep import expand_sweep, run_sweep_cli
 from uml_tpu_torch.data.feature_cache import load_cache, save_cache, text_outdir
 from uml_tpu_torch.data.fewshot import (
@@ -86,7 +92,6 @@ from uml_tpu_torch.data.fewshot import (
 )
 from uml_tpu_torch.data.loader import ImageBatchLoader, RawImageStream
 from uml_tpu_torch.models.clip import clip_embed_dim
-from uml_tpu_torch.models.clip_resnet import CLIP_RESNET_CONFIGS
 from uml_tpu_torch.models.dino import DINO_CONFIGS
 from uml_tpu_torch.models.uml_head import (UMLHead, make_uml_clip_head,
                                            make_uml_dino_head)
@@ -186,7 +191,7 @@ def setup(datasets, hparams, args):
     bs = hparams["batch_size"]
     encoder = datasets["encoder"]
     text_ds = datasets["text_ds"]
-    gen = torch.Generator().manual_seed(args.seed)
+    gen = make_rng(args.seed)
     if not freezes_backbone(args):
         # full backbone finetuning: raw uint8 batches through a trainable
         # copy of the tower (each combo starts from the encoder's weights)
@@ -272,12 +277,17 @@ def setup(datasets, hparams, args):
     val_batches = eval_batches(img_val, lab_val, bs)
     test_batches = eval_batches(img_te, lab_te, bs)
 
+    # --ckpt_every: mid-run checkpoints in the combo's folder; a rerun of
+    # the combo resumes from the latest (uml_tpu/cli/finetune.py:239-264)
+    ckpt_every = getattr(args, "ckpt_every", 0) or None
+    checkpointer = (TrainCheckpointer(os.path.join(ckpt_dir, "checkpoints"))
+                    if ckpt_every else None)
     result = train(
         model, image_stream, text_stream, val_batches,
         test_batches if args.eval_test else None,
         optimizer=optimizer, max_iters=hparams["max_iter"], alpha=args.alpha,
         eval_freq=EVAL_FREQ, patience=hparams["patience"], capture=capture,
-        logger=logger)
+        logger=logger, checkpointer=checkpointer, ckpt_every=ckpt_every)
     validate = make_validate(model)
     test_loss, test_acc = validate(result["final_params"], test_batches)
     if hasattr(logger, "finish"):
@@ -320,21 +330,10 @@ def sweep(datasets, hyperparams, args):
 
 
 def check_ported(args) -> None:
-    """Raise for flags whose code is not ported yet, before any work.
-    ``--quant`` is accepted and ignored, as uml_tpu's finetune does (its
-    help: "Extraction-only")."""
+    """Raise for flags whose code is not ported yet (a multi-device
+    ``--mesh``), before any work.  ``--quant`` is accepted and ignored, as
+    uml_tpu's finetune does (its help: "Extraction-only")."""
     check_encoders_ported(args)
-    uses_clip = not (args.vision_model or args.language_model)
-    if (uses_clip and args.clip_encoder in CLIP_RESNET_CONFIGS
-            and not freezes_backbone(args)):
-        raise SystemExit(
-            f"--clip-encoder {args.clip_encoder} --hyperparams "
-            f"{args.hyperparams}: the RN towers' full-model finetune "
-            "(BatchNorm in train mode) is not ported to uml_tpu_torch yet; "
-            "it is the next slice (the frozen grids run)")
-    if getattr(args, "ckpt_every", 0):
-        raise SystemExit("--ckpt_every: mid-run checkpoints (orbax resume in "
-                         "uml_tpu) are not ported to uml_tpu_torch yet")
 
 
 def main(args):

@@ -39,6 +39,7 @@ from concurrent.futures.process import BrokenProcessPool
 
 import numpy as np
 
+from uml_tpu_torch.core.prng import epoch_perm, host_rng
 from uml_tpu_torch.data.transforms import load_uint8
 
 _PROC_NATIVE = None  # the decoder of this worker process (None: not probed)
@@ -285,7 +286,7 @@ class RawImageStream:
     """Infinite shuffled raw-image batches for full backbone finetuning
     (uml_tpu/data/loader.py:172-230).
 
-    Each epoch draws a fresh permutation from ``np.random.default_rng(seed)``
+    Each epoch draws a fresh permutation from ``core.prng.host_rng(seed)``
     and decodes with augmentation seeded per (epoch, batch index): the same
     stream as uml_tpu's (``crop`` through the native decoder, as there).
     Yields (uint8 flat [B, H*W*3], labels int64 [B], weights fp32 [B]); a
@@ -297,7 +298,7 @@ class RawImageStream:
         self.items = list(items)
         self.augmentation = augmentation
         self.batch_size = batch_size
-        self.rng = np.random.default_rng(seed)
+        self.rng = host_rng(seed)
         self.num_workers = num_workers
         self.size = size
 
@@ -314,11 +315,11 @@ class RawImageStream:
         epoch = 0
         bpe = (len(self.items) + self.batch_size - 1) // self.batch_size
         while skip_batches >= bpe:
-            self.rng.permutation(len(self.items))
+            epoch_perm(self.rng, len(self.items))
             epoch += 1
             skip_batches -= bpe
         while True:
-            order = self.rng.permutation(len(self.items))
+            order = epoch_perm(self.rng, len(self.items))
             shuffled = [self.items[i] for i in order]
             loader = ImageBatchLoader(
                 shuffled, self.augmentation, self.batch_size,

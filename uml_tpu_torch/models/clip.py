@@ -629,16 +629,19 @@ class ClipResNetModel(CLIP):
                          visual=ModifiedResNet(resnet_config))
         self.resnet_config = resnet_config
 
-    def encode_image_u8(self, images_u8, return_tokens: bool = False):
+    def encode_image_u8(self, images_u8, return_tokens: bool = False,
+                        bn_updates: list | None = None):
         """uint8 flat [B, H*W*3] (square images) or [B, H, W, 3]:
-        normalized, then the ResNet tower."""
+        normalized, then the ResNet tower (clip.py:652); ``bn_updates``: a
+        list for BatchNorm's train form (uml_tpu's ``train_bn=True``,
+        models/clip_resnet.py)."""
         from uml_tpu_torch.ops.image_norm import normalize_images
 
         if images_u8.ndim == 2:
             r = int(round((images_u8.shape[1] // 3) ** 0.5))
             images_u8 = images_u8.reshape(images_u8.shape[0], r, r, 3)
         return self.visual(normalize_images(images_u8, self.dtype), self.dtype,
-                           return_tokens=return_tokens)
+                           return_tokens=return_tokens, bn_updates=bn_updates)
 
 
 def resnet_text_config(rn) -> ClipConfig:

@@ -18,12 +18,24 @@ uml_tpu kernel lives here (uml_tpu computes the convolutions in XLA): the
 convolutions are ``F.conv2d``, cuDNN on the card, in the model's compute
 dtype (bf16 for serving) and in ``channels_last`` there.
 
-BatchNorm is the eval form over the running statistics, ``x * inv +
-(bias - mean * inv)`` with ``inv = scale / sqrt(var + 1e-5)``
-(clip_resnet.py:65-71); the towers fold it into the preceding
-convolution's weight and bias (cached, and derived anew when autograd
-wants a gradient).  The training form of uml_tpu's ``train_bn`` is not
-ported yet.
+BatchNorm has two forms, as uml_tpu's ``FrozenBatchNorm``
+(clip_resnet.py:52-88):
+
+* eval, over the running statistics: ``x * inv + (bias - mean * inv)``
+  with ``inv = scale / sqrt(var + 1e-5)``; the towers fold it into the
+  preceding convolution's weight and bias (cached, keyed on the tensors'
+  version counters so an in-place update rebuilds it, and derived anew
+  when autograd wants a gradient);
+* train (``bn_updates``, a list, passed down the tower: uml_tpu's
+  ``train_bn=True``): conv -> BN -> ReLU unfolded under autograd; the
+  batch statistics in fp32 over every axis but the channel, ``bvar =
+  max(E[x^2] - E[x]^2, 0)``, normalize; the running statistics' new
+  values (momentum 0.1, the unbiased ``bvar * n / (n - 1)``) are appended
+  to ``bn_updates`` as (module, mean, var), and written into the buffers
+  only by ``merge_bn_updates``, after the optimizer step (uml_tpu's
+  "bn_updates" collection and ``UMLHead.merge_bn_updates``).
+  ``F.batch_norm(training=True)`` computes the variance another way, so
+  it is not used.
 """
 
 from __future__ import annotations
@@ -37,6 +49,7 @@ from torch.nn import functional as F
 from uml_tpu_torch.models.clip import Linear, _Cached, _needs_grad
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.1
 
 
 @dataclass(frozen=True)
@@ -77,10 +90,43 @@ class FrozenBatchNorm(nn.Module):
         inv = self.weight.float() / torch.sqrt(self.running_var.float() + BN_EPS)
         return inv, self.bias.float() - self.running_mean.float() * inv
 
-    def forward(self, x):
+    def forward(self, x, bn_updates: list | None = None):
+        if bn_updates is not None:
+            return batch_norm_train(x, self, bn_updates)
         inv, shift = self.scale_shift()
         return (x * inv.to(x.dtype)[:, None, None]
                 + shift.to(x.dtype)[:, None, None])
+
+
+def batch_norm_train(x, bn: FrozenBatchNorm, bn_updates: list):
+    """The train form on NCHW ``x`` (clip_resnet.py:72-87): batch
+    statistics in fp32 normalize, the result in x's dtype; appends (bn,
+    new running mean, new running var) to ``bn_updates`` (no autograd
+    history), leaving the buffers as they are."""
+    xf = x.float()
+    axes = (0, 2, 3)
+    bmean = xf.mean(axes)
+    bvar = torch.clamp((xf * xf).mean(axes) - bmean * bmean, min=0.0)
+    inv = bn.weight.float() / torch.sqrt(bvar + BN_EPS)
+    y = xf * inv[:, None, None] + (bn.bias.float() - bmean * inv)[:, None, None]
+    n = max(x.numel() // x.shape[1], 2)
+    with torch.no_grad():
+        unbiased = bvar * n / (n - 1)
+        new_mean = (1 - BN_MOMENTUM) * bn.running_mean + BN_MOMENTUM * bmean
+        new_var = (1 - BN_MOMENTUM) * bn.running_var + BN_MOMENTUM * unbiased
+    bn_updates.append((bn, new_mean, new_var))
+    return y.to(x.dtype)
+
+
+def merge_bn_updates(bn_updates) -> None:
+    """Write the new running statistics of a train-form forward into the
+    BatchNorm buffers, in place (after the optimizer step; None: no-op).
+    The writes move the buffers' version counters, so the eval form's
+    cached fold rebuilds."""
+    with torch.no_grad():
+        for bn, mean, var in bn_updates or ():
+            bn.running_mean.copy_(mean)
+            bn.running_var.copy_(var)
 
 
 class Conv2d(nn.Module):
@@ -95,11 +141,20 @@ class Conv2d(nn.Module):
         self._folded = _Cached()
 
 
-def conv_bn(x, conv: Conv2d, bn: FrozenBatchNorm, relu: bool = True):
+def conv_bn(x, conv: Conv2d, bn: FrozenBatchNorm, relu: bool = True,
+            bn_updates: list | None = None):
     """bn(conv(x)) as one convolution in x's dtype: the weight scaled by
     inv per output channel, the shift as its bias (folded in fp32, then
-    cast), ReLU after it unless ``relu`` is False."""
+    cast), ReLU after it unless ``relu`` is False.  With ``bn_updates``
+    the train form: the convolution, then BatchNorm on the batch
+    statistics, unfolded."""
     dtype, cuda = x.dtype, x.is_cuda
+    if bn_updates is not None:
+        w = conv.weight.to(dtype)
+        if cuda:
+            w = w.contiguous(memory_format=torch.channels_last)
+        y = bn(F.conv2d(x, w, None, conv.stride, conv.padding), bn_updates)
+        return F.relu(y) if relu else y
 
     def fold():
         inv, shift = bn.scale_shift()
@@ -133,17 +188,18 @@ class Bottleneck(nn.Module):
             self.downsample = nn.ModuleList([Conv2d(in_planes, out, 1),
                                              FrozenBatchNorm(out)])
 
-    def forward(self, x):
-        out = conv_bn(x, self.conv1, self.bn1)
-        out = conv_bn(out, self.conv2, self.bn2)
+    def forward(self, x, bn_updates: list | None = None):
+        out = conv_bn(x, self.conv1, self.bn1, bn_updates=bn_updates)
+        out = conv_bn(out, self.conv2, self.bn2, bn_updates=bn_updates)
         if self.stride > 1:
             out = F.avg_pool2d(out, self.stride)
-        out = conv_bn(out, self.conv3, self.bn3, relu=False)
+        out = conv_bn(out, self.conv3, self.bn3, relu=False, bn_updates=bn_updates)
         identity = x
         if self.downsample is not None:
             if self.stride > 1:
                 identity = F.avg_pool2d(x, self.stride)
-            identity = conv_bn(identity, *self.downsample, relu=False)
+            identity = conv_bn(identity, *self.downsample, relu=False,
+                               bn_updates=bn_updates)
         return F.relu(out + identity)
 
 
@@ -209,17 +265,23 @@ class ModifiedResNet(nn.Module):
         self.attnpool = AttentionPool2d(cfg.image_resolution // 32, w * 32,
                                         cfg.heads, cfg.output_dim)
 
-    def forward(self, pixels, dtype, return_tokens: bool = False):
+    def forward(self, pixels, dtype, return_tokens: bool = False,
+                bn_updates: list | None = None):
         """Normalized pixels [B, H, W, 3] -> features [B, output_dim] fp32,
-        or with ``return_tokens`` the last stage's map as [B, HW, C] fp32."""
+        or with ``return_tokens`` the last stage's map as [B, HW, C] fp32.
+        ``bn_updates``: a list, for BatchNorm's train form (uml_tpu's
+        ``train_bn=True``), which receives every layer's new running
+        statistics."""
         x = pixels.permute(0, 3, 1, 2).to(dtype)
         if x.is_cuda:
             x = x.contiguous(memory_format=torch.channels_last)
-        x = conv_bn(x, self.conv1, self.bn1)
-        x = conv_bn(x, self.conv2, self.bn2)
-        x = conv_bn(x, self.conv3, self.bn3)
+        for conv, bn in ((self.conv1, self.bn1), (self.conv2, self.bn2),
+                         (self.conv3, self.bn3)):
+            x = conv_bn(x, conv, bn, bn_updates=bn_updates)
         x = F.avg_pool2d(x, 2)
-        x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
+        for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
+            for block in stage:
+                x = block(x, bn_updates)
         if return_tokens:
             return x.flatten(2).transpose(1, 2).float()
         return self.attnpool(x)

@@ -7,8 +7,9 @@ uml_tpu.models.clip.CLIP or ClipResNetModel as numpy arrays and returns
 the state_dict the port's model (and an OpenAI ``.pt``) uses, so the
 tests can give both packages the same weights.  ``dino_state_dict_from_jax`` does
 the same for uml_tpu.models.dino.DinoViT and the port's DinoViT,
-``uml_head_params_from_jax`` for the trainable tree of a uml_tpu UMLHead.
-Pure numpy + torch: no jax import.
+``uml_head_params_from_jax`` for the trainable tree of a uml_tpu UMLHead,
+``llama_state_dict_from_jax`` for uml_tpu's LlamaEncoder (float or
+int8_w) and the port's.  Pure numpy + torch: no jax import.
 """
 
 from __future__ import annotations
@@ -145,3 +146,31 @@ def uml_head_params_from_jax(params) -> dict:
                             if "visual" in backbone["params"]
                             else dino_state_dict_from_jax(backbone))
     return tree
+
+
+def llama_state_dict_from_jax(variables) -> dict:
+    """{'params': {...}} of uml_tpu's LlamaEncoder (numpy leaves) -> the
+    port's LlamaEncoder state_dict (HF's names): Dense kernels [in, out]
+    -> weights [out, in] fp32; an int8_w projection's ``kernel_q8`` (int8
+    [in, out]) and ``scale`` carried as they are."""
+    from uml_tpu_torch.models.llama import Q8_PROJS
+
+    params = variables["params"]
+    sd = {"embed_tokens.weight": _t(params["embed_tokens"]["embedding"]),
+          "norm.weight": _t(params["norm"]["weight"])}
+    n = len([k for k in params if k.startswith("layers_")])
+    for i in range(n):
+        layer, p = params[f"layers_{i}"], f"layers.{i}"
+        sd[f"{p}.input_layernorm.weight"] = _t(layer["input_norm"]["weight"])
+        sd[f"{p}.post_attention_layernorm.weight"] = _t(
+            layer["post_attn_norm"]["weight"])
+        for name in Q8_PROJS:
+            key = f"{p}.{'self_attn' if name in Q8_PROJS[:4] else 'mlp'}.{name}"
+            tree = layer[name]
+            if "kernel_q8" in tree:
+                sd[f"{key}.kernel_q8"] = torch.tensor(
+                    np.ascontiguousarray(np.asarray(tree["kernel_q8"], np.int8)))
+                sd[f"{key}.scale"] = _t(tree["scale"])
+            else:
+                sd[f"{key}.weight"] = _t(np.asarray(tree["kernel"]).T)
+    return sd

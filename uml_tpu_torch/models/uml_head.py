@@ -22,6 +22,14 @@ every backbone parameter trains (for CLIP the unused text tower and
 ``make_uml_dino_head`` put all of the backbone's variables in the
 trainable tree.
 
+An RN backbone that trains (``make_uml_clip_head`` with
+``freeze_backbone=False``) runs BatchNorm in its train form when
+``image_features`` is given a ``bn_updates`` list; the running statistics
+are buffers, never in the optimizer, and ``merge_bn_updates`` writes their
+new values (from the pre-step statistics) in place after the optimizer
+step, as uml_tpu merges its "bn_updates" collection
+(train/supervised.py:213-216).
+
 ``state_tree`` / ``load_state_tree`` move the parameters as the tree that
 uml_tpu saves in ``test_result.pth["model"]``: the head leaves under their
 JAX names, and ``backbone`` (full-model path only) as the state_dict of
@@ -36,6 +44,8 @@ import math
 import numpy as np
 import torch
 from torch import nn
+
+from uml_tpu_torch.models.clip_resnet import merge_bn_updates
 
 HEAD_LEAVES = ("head_w", "img_proj_w", "img_scale", "txt_scale")
 
@@ -135,18 +145,27 @@ class UMLHead(nn.Module):
         flat [B, H*W*3] uint8); precomputed features are 2D floats."""
         return x.dim() == 4 or x.dtype == torch.uint8
 
-    def image_features(self, x):
-        """Backbone forward (+ img_proj) -> shared-space features, fp32."""
+    def image_features(self, x, bn_updates: list | None = None):
+        """Backbone forward (+ img_proj) -> shared-space features, fp32.
+        ``bn_updates`` (a trainable RN tower only, uml_head.py:134-148): a
+        list that BatchNorm's train form fills with each layer's new
+        running statistics, for ``merge_bn_updates``."""
         if self.backbone is not None and self.is_images(x):
             if self.freeze_backbone:
                 with torch.no_grad():
                     x = self.backbone.encode_image_u8(x)
-            else:
+            elif bn_updates is None:
                 x = self.backbone.encode_image_u8(x)
+            else:
+                x = self.backbone.encode_image_u8(x, bn_updates=bn_updates)
         x = x.float()
         if self.img_proj_w is not None:
             x = x @ self.img_proj_w
         return x
+
+    # the step writes image_features' new running statistics after the
+    # optimizer step (uml_head.py:150-170)
+    merge_bn_updates = staticmethod(merge_bn_updates)
 
     def forward(self, images_or_feats, text_features=None):
         img_scale, txt_scale = self.scales()
@@ -160,7 +179,10 @@ def make_uml_clip_head(clip, num_classes: int,
                        logit_scale: float = float(np.log(1 / 0.07)),
                        learnable_temp: bool = False, freeze_backbone: bool = True,
                        generator: torch.Generator | None = None) -> UMLHead:
-    """UMLClip: the CLIP image tower + the shared head (head.py:101-141)."""
+    """UMLClip: the CLIP image tower + the shared head (head.py:101-141).
+    An RN tower that trains (``freeze_backbone=False``) runs BatchNorm in
+    its train form where the step passes ``bn_updates``
+    (uml_head.py:200-212)."""
     return UMLHead(clip.config.embed_dim, num_classes, text_indim=0,
                    learnable_temp=learnable_temp, logit_scale=logit_scale,
                    backbone=clip, freeze_backbone=freeze_backbone,

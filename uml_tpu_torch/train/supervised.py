@@ -18,9 +18,21 @@ reference's finetune.py:120-315):
 Batches keep uml_tpu's fixed shapes: a ragged final batch is padded with
 zero sample weights, and every loss and metric is weighted.  Snapshots
 are detached CPU clones (``UMLHead.state_tree``): the optimizer updates
-the parameters in place.  Mid-run checkpoints (uml_tpu's
-``checkpointer`` / ``ckpt_every``) and the data-parallel ``mesh`` are not
-ported yet; the finetune CLI rejects their flags.
+the parameters in place.  A trainable RN tower runs BatchNorm in its
+train form, and its running statistics are written after each optimizer
+step (``bn_updates`` and ``UMLHead.merge_bn_updates``).
+
+Mid-run checkpoints (``checkpointer``, a core.checkpoint.TrainCheckpointer,
+and ``ckpt_every``; uml_tpu/train/supervised.py:297-340, 386-395): after
+the eval of every ``ckpt_every``-th iteration the loop saves the model's
+parameters and buffers (BatchNorm's running statistics among them), the
+optimizer's state, the next iteration (the learning-rate schedule is a
+function of it), the best snapshot with its accuracy, loss and iteration,
+and the early-stopping count.  A run that finds a checkpoint restores it
+and fast-forwards both batch streams (``.skip()``, without touching the
+skipped batches), so the resumed run takes the batches an uninterrupted
+one would.  The data-parallel ``mesh`` is not ported yet; the finetune
+CLI rejects its flag.
 """
 
 from __future__ import annotations
@@ -31,8 +43,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from uml_tpu_torch.core.prng import epoch_perm, host_rng
 from uml_tpu_torch.metrics.alignment import cka as cka_fn
 from uml_tpu_torch.metrics.alignment import mutual_knn as mknn_fn
+from uml_tpu_torch.models.clip import ClipResNetModel
 
 EVAL_FREQ = 100  # parity: finetune.py:30
 
@@ -41,7 +55,7 @@ class CyclicBatcher:
     """Shuffled epoch batches over aligned arrays, cycling forever.
 
     DataLoader(shuffle=True, drop_last=False) semantics: each epoch is a
-    fresh permutation from ``np.random.default_rng(seed)`` (the same
+    fresh permutation from ``core.prng.host_rng(seed)`` (the same
     stream as uml_tpu's); the final partial batch is padded to
     batch_size with zero weights.  Yields (inputs, labels, weights).
     """
@@ -51,7 +65,7 @@ class CyclicBatcher:
         self.inputs = inputs
         self.labels = labels
         self.batch_size = batch_size
-        self.rng = np.random.default_rng(seed)
+        self.rng = host_rng(seed)
 
     def __iter__(self) -> Iterator:
         return self._iterate(0)
@@ -66,10 +80,10 @@ class CyclicBatcher:
         bs = self.batch_size
         bpe = (n + bs - 1) // bs
         while skip_batches >= bpe:
-            self.rng.permutation(n)
+            epoch_perm(self.rng, n)
             skip_batches -= bpe
         while True:
-            perm = self.rng.permutation(n)
+            perm = epoch_perm(self.rng, n)
             for i in range(skip_batches * bs, n, bs):
                 idx = perm[i : i + bs]
                 pad = bs - len(idx)
@@ -178,6 +192,8 @@ def train(
     logger=None,
     validate_fn=None,
     init_params: dict | None = None,
+    checkpointer=None,             # core.checkpoint.TrainCheckpointer
+    ckpt_every: int | None = None,
 ):
     """Train ``model`` (a UMLHead) in place; see the module docstring.
     ``optimizer`` is a train.optim.Optimizer spec, bound here to the
@@ -191,6 +207,9 @@ def train(
 
     has_image = image_stream is not None
     has_text = text_stream is not None
+    # a trainable RN tower runs BatchNorm in its train form
+    train_bn = (has_image and not model.freeze_backbone
+                and isinstance(model.backbone, ClipResNetModel))
     n_class = model.num_classes
     if capture is not None:
         cap_img = torch.as_tensor(np.asarray(capture["image_feats"])).to(device)
@@ -205,7 +224,8 @@ def train(
         image_loss = text_loss = zero
         if has_image:
             img_in, img_labels, img_w = img_b
-            img_feats = model.image_features(img_in)
+            bn_updates = [] if train_bn else None
+            img_feats = model.image_features(img_in, bn_updates)
             img_logits = img_feats @ model.head_w * img_scale
             image_loss = weighted_ce(img_logits, img_labels, img_w)
         if has_text:
@@ -219,6 +239,10 @@ def train(
         # autograd.grad before optimizer.step (finetune.py:190-195)
         img_scale, txt_scale = img_scale.detach().clone(), txt_scale.detach().clone()
         optimizer.step(i)
+        if train_bn:
+            # BatchNorm's running statistics follow momentum, not
+            # gradients: written after the optimizer step
+            model.merge_bn_updates(bn_updates)
 
         metrics = {"train/image_loss": image_loss.detach(),
                    "train/text_loss": text_loss.detach()}
@@ -273,7 +297,41 @@ def train(
            "model_records": []}
     no_improve = 0
     stopped_at = max_iters
-    for i in range(max_iters):
+
+    start_iter = 0
+    if checkpointer is not None:
+        _, state = checkpointer.restore_latest()
+        if state is not None:
+            print(f"=> Resuming from checkpoint at iter {state['iter']}")
+            model.load_state_dict(state["model"])
+            optimizer.torch_optimizer.load_state_dict(state["optimizer"])
+            start_iter = int(state["iter"])
+            no_improve = int(state["no_improve"])
+            if state["best_iter"] >= 0:
+                out.update(iter=int(state["best_iter"]),
+                           val_acc=float(state["best_val_acc"]),
+                           val_loss=float(state["best_val_loss"]),
+                           model=state["best_params"])
+            if has_image:
+                image_iter = image_stream.skip(start_iter)
+            if has_text:
+                text_iter = text_stream.skip(start_iter)
+
+    def save_ckpt(i):
+        if not (checkpointer is not None and ckpt_every
+                and (i + 1) % ckpt_every == 0):
+            return
+        checkpointer.save(i + 1, {
+            "model": model.state_dict(),
+            "optimizer": optimizer.torch_optimizer.state_dict(),
+            "iter": i + 1, "best_params": out["model"],
+            "best_val_acc": out["val_acc"] if out["val_acc"] is not None else -1.0,
+            "best_val_loss": out["val_loss"] if out["val_loss"] is not None else 0.0,
+            "best_iter": out["iter"] if out["iter"] is not None else -1,
+            "no_improve": no_improve,
+        })
+
+    for i in range(start_iter, max_iters):
         img_b = _to_device(next(image_iter), device) if has_image else None
         txt_b = _to_device(next(text_iter), device) if has_text else None
         loss, metrics = step(i, img_b, txt_b)
@@ -304,6 +362,9 @@ def train(
                 print(f"=> Early stopping at Iter {i}")
                 stopped_at = i
                 break
+        # after the eval, so the checkpoint carries this iteration's best
+        # snapshot and early-stopping count (a resume skips that eval)
+        save_ckpt(i)
 
     if out["model"] is None:
         out["model"] = model.state_tree()
