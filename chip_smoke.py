@@ -217,6 +217,24 @@ Phases (any failure exits non-zero; no phase is caught):
    on RN50 ``smoke_full`` (checkpoints every 15 steps) twice uninterrupted
    and once stopped at 15 and resumed: the parameters, the BatchNorm
    statistics and the adamw state at step 30 held the same way.
+5g. MultiBench (``[multibench]``): no kernel of the port runs (uml_tpu's
+   model is plain jnp), and no launch counter may move over the phase.
+   A seeded fixture in the reference schema at MUStARD's published widths
+   (vision 371, audio 81, text 300; T = 50; 414 / 138 / 138 rows, labels
+   +-1) and a MIMIC pickle (static [N, 5], series [N, 24, 12]): the
+   multibench CLI on sarcasm at zdim 300 (5 heads of 60, FF 2048, 5
+   layers, bs 128; learnable positions, 3 epochs, step_k 0, eval every 2
+   batches, --robust_test, --ckpt_every 1), again with --infoNCE_loss, on
+   MIMIC at zdim 40 (2 epochs), then collect_results_mb: finite scores,
+   model.pth with the converter's tree at a fresh model's shapes and every
+   tensor moved; card against CPU in fp32 without dropout from the same
+   weights and batch (bs 128), for both critics: one forward (losses,
+   zx / zy), one gradient, one Adam step (the losses after it), the
+   effective rank; the CLI killed by SIGKILL at its first checkpoint and
+   rerun, held to an uninterrupted run (bit for bit when two uninterrupted
+   runs are); the staged full-width train step with MSE and InfoNCE: ms,
+   its phases (forward, backward, Adam, the metrics with the
+   effective-rank SVD), the device's busy share and the peak memory rise.
 6. the products of the engine (bf16 beside torch.matmul, int8 beside
    torch._int_mm) and the attention backward's passes as one JSON line,
    the kernel table as one JSON line, the device line last.
@@ -2677,6 +2695,375 @@ def phase_resume(root):
     return numbers
 
 
+# MUStARD (sarcasm) at its published widths (uml_tpu's DATASET_CONFIG,
+# MultiBench/main.py:66-105): vision 371, audio 81, text 300, T = 50 steps,
+# 690 rows split 414 / 138 / 138; MIMIC's static [N, 5] and series [N, 24, 12]
+MB_SARCASM_WIDTHS = {"vision": 371, "audio": 81, "text": 300}
+MB_SARCASM_ROWS = {"train": 414, "valid": 138, "test": 138}
+MB_T = 50
+MB_MIMIC_ROWS = 1280
+MB_ZDIM = 300            # the sweep's widest (configs/multibench.yaml)
+MB_MIMIC_ZDIM = 40
+MB_LOSS_RTOL = 1e-4
+MB_EMBED_MIN_COS = 0.9999
+MB_GRAD_MIN_COS = 0.999
+MB_RANK_RTOL = 1e-4
+MB_FLAGS = ["--modality", "xy", "--pos_embd", "--pos_learnable", "--num_epochs", "3",
+            "--step_k", "0", "--eval_freq", "2", "--n_seeds", "1", "--ckpt_every", "1"]
+
+
+def _mb_fixture(root):
+    """Seeded synthetic sarcasm.pkl and im.pk in the reference schema under
+    ``root/data_files``: a shared 8-d latent per row drives every modality
+    (so the probes have something to find), text with leading zero steps
+    on a quarter of the rows (the trim), labels +-1 from the latent."""
+    import pickle
+
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    os.makedirs(f"{root}/data_files", exist_ok=True)
+
+    def split(n):
+        latent = rng.standard_normal((n, 8)).astype(np.float32)
+        out = {}
+        for name, width in MB_SARCASM_WIDTHS.items():
+            mix = rng.standard_normal((8, width)).astype(np.float32)
+            steps = rng.standard_normal((n, MB_T, width)).astype(np.float32)
+            out[name] = (latent @ mix)[:, None, :] + 0.5 * steps
+        lead = rng.integers(0, MB_T // 2, n) * (rng.random(n) < 0.25)
+        for i in np.nonzero(lead)[0]:
+            out["text"][i, : lead[i]] = 0.0
+        out["labels"] = np.where(latent[:, :1] > 0, 1.0, -1.0).astype(np.float32)
+        out["id"] = [f"row{i}" for i in range(n)]
+        return out
+
+    with open(f"{root}/data_files/sarcasm.pkl", "wb") as f:
+        pickle.dump({k: split(n) for k, n in MB_SARCASM_ROWS.items()}, f, protocol=4)
+    n = MB_MIMIC_ROWS
+    latent = rng.standard_normal((n, 4))
+    with open(f"{root}/data_files/im.pk", "wb") as f:
+        pickle.dump({"ep_tdata": (latent @ rng.standard_normal((4, 12)))[:, None, :]
+                     + rng.standard_normal((n, 24, 12)),
+                     "adm_features_all": latent @ rng.standard_normal((4, 5))
+                     + 0.5 * rng.standard_normal((n, 5)),
+                     "adm_labels_all": np.zeros((n, 6)),
+                     "y_icd9": (latent[:, :1] + 0.5 * rng.standard_normal((n, 20))
+                                > 0).astype(np.int64)}, f, protocol=4)
+
+
+def _mb_argv(root, results, ds="sarcasm", zdim=None, extra=()):
+    return [*MB_FLAGS, "--ds_name", ds, "--zdim", str(zdim or MB_ZDIM),
+            "--data_dir", root, "--results_dir", f"{root}/{results}", *extra]
+
+
+def _mb_run(root, results, ds="sarcasm", zdim=None, extra=()):
+    """The multibench CLI in this process -> (wall s, its outs mean, the
+    seed-0 results.pth, model.pth tree)."""
+    import glob
+
+    from uml_tpu_torch.cli import multibench as mb
+    from uml_tpu_torch.data.feature_cache import load_cache
+
+    t0 = time.perf_counter()
+    outs = mb.main(mb.build_parser().parse_args(_mb_argv(root, results, ds, zdim, extra)))
+    wall = time.perf_counter() - t0
+    (seed_dir,) = glob.glob(f"{root}/{results}/**/seed_0", recursive=True)
+    return (wall, outs, load_cache(f"{seed_dir}/results.pth"),
+            load_cache(f"{seed_dir}/model.pth"))
+
+
+def _mb_check_model(tree, xdim, ydim, zdim, what):
+    """model.pth holds the converter's {'params': ...} tree at the shapes of
+    a fresh SeqUML, and every tensor moved from the init (the weights are
+    drawn on the CPU from seed 0)."""
+    import numpy as np
+    import torch
+
+    from uml_tpu_torch.models.convert import seq_uml_state_dict_to_jax
+    from uml_tpu_torch.models.seq_autoencoder import make_seq_uml
+
+    init = make_seq_uml(xdim, ydim, zdim, pos_embd=True, pos_learnable=True)
+    init = seq_uml_state_dict_to_jax(init.init_random(
+        torch.Generator().manual_seed(0)).state_dict())
+
+    def flat(t, prefix=""):
+        for k, v in t.items():
+            if isinstance(v, dict):
+                yield from flat(v, f"{prefix}{k}/")
+            else:
+                yield f"{prefix}{k}", np.asarray(v)
+
+    want, got = dict(flat(init)), dict(flat(tree))
+    _check({k: v.shape for k, v in got.items()} == {k: v.shape for k, v in want.items()},
+           (what, "model.pth tree"))
+    still = [k for k, v in got.items() if np.array_equal(v, want[k])]
+    _check(not still and all(np.isfinite(v).all() for v in got.values()),
+           (what, "parameters that did not move", still))
+    return len(got)
+
+
+def _mb_card_vs_cpu(root, gpu):
+    """One forward with both critics, one gradient and one Adam step of the
+    full-width sarcasm model (zdim 300, dropout 0, bs 128, T 50) on the card
+    and on the CPU from the same weights and batch -> numbers."""
+    import numpy as np
+    import torch
+
+    from uml_tpu_torch.data.affect import AffectBatchStream, load_affect
+    from uml_tpu_torch.models.seq_autoencoder import make_seq_uml
+    from uml_tpu_torch.train.selfsup import SelfSupTrainer
+
+    _check(not torch.backends.cuda.matmul.allow_tf32, "fp32 products without TF32")
+    splits = load_affect(f"{root}/data_files/sarcasm.pkl", "sarcasm", vision_norm=True)
+    data, lengths, _ = next(iter(AffectBatchStream(splits["train"], 128, seed=42).epoch()))
+    batch = (data["vision"], data["text"], lengths["vision"], lengths["text"])
+    numbers = {}
+    for critic in ("mse", "infonce"):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            model = make_seq_uml(371, 300, MB_ZDIM, pos_embd=True, pos_learnable=True,
+                                 info_nce=critic == "infonce", dropout=0.0)
+            trainer = SelfSupTrainer(model, lr=1e-4, seed=0, device=dev)
+            trainer.init()
+            b = trainer.to_device(*batch)
+            trainer.optimizer.zero_grad(set_to_none=False)
+            loss, out = trainer.forward_loss(*b, 1.0, 1.0, None)
+            loss.backward()
+            metrics = trainer.step_metrics(loss, out, *b)
+            grads = {k: p.grad.detach().double().cpu() for k, p in model.named_parameters()}
+            trainer.optimizer.step()
+            with torch.no_grad():
+                after = model(*b)
+            losses = ("loss_x", "loss_y", "loss_private")
+            runs[dev] = {"loss": {k: out[k].detach().item() for k in losses}
+                         | {f"{k}_after_adam": after[k].item() for k in losses},
+                         "z": {k: out[k].detach().double().cpu() for k in ("zx", "zy")},
+                         "rank": float(metrics["train/pred_effective_rank_y"]),
+                         "grads": grads}
+        card, cpu = runs["cuda"], runs["cpu"]
+        loss_rel = {k: abs(card["loss"][k] - v) / abs(v) for k, v in cpu["loss"].items()}
+        z_cos = {k: _rows_cos(card["z"][k].reshape(-1, MB_ZDIM),
+                              v.reshape(-1, MB_ZDIM)) for k, v in cpu["z"].items()}
+        grad_cos = {}
+        for k, g in cpu["grads"].items():
+            a = card["grads"][k]
+            if k.endswith("qkv.bias"):   # the key slice: the softmax cancels its gradient
+                a, g = (torch.cat([t.chunk(3)[0], t.chunk(3)[2]]) for t in (a, g))
+            grad_cos[k] = float((a * g).sum() / (a.norm() * g.norm() + 1e-30))
+        rank_rel = abs(card["rank"] - cpu["rank"]) / cpu["rank"]
+        worst_loss = max(loss_rel, key=loss_rel.get)
+        worst_grad = min(grad_cos, key=grad_cos.get)
+        print(f"[multibench] card vs CPU, {critic}, bs 128 x T {MB_T} at zdim {MB_ZDIM}, fp32, "
+              f"dropout 0: losses {card['loss']} vs {cpu['loss']}, max rel "
+              f"{loss_rel[worst_loss]:.2e} ({worst_loss}, bound {MB_LOSS_RTOL}); zx / zy "
+              f"min row cosine {min(z_cos.values()):.7f} (bound {MB_EMBED_MIN_COS}); "
+              f"{len(grad_cos)} gradient tensors, min cosine {grad_cos[worst_grad]:.7f} "
+              f"({worst_grad}, bound {MB_GRAD_MIN_COS}); effective rank "
+              f"{card['rank']:.4f} vs {cpu['rank']:.4f} (rel {rank_rel:.2e}, bound "
+              f"{MB_RANK_RTOL})  [{gpu}]")
+        _check(loss_rel[worst_loss] <= MB_LOSS_RTOL, (critic, "losses", loss_rel))
+        _check(min(z_cos.values()) >= MB_EMBED_MIN_COS, (critic, "zx / zy", z_cos))
+        _check(grad_cos[worst_grad] >= MB_GRAD_MIN_COS, (critic, worst_grad,
+                                                         grad_cos[worst_grad]))
+        _check(rank_rel <= MB_RANK_RTOL, (critic, "effective rank", rank_rel))
+        numbers.update({f"mb_{critic}_card_vs_cpu_loss_rel": loss_rel[worst_loss],
+                        f"mb_{critic}_card_vs_cpu_z_min_cos": min(z_cos.values()),
+                        f"mb_{critic}_card_vs_cpu_grad_min_cos": grad_cos[worst_grad],
+                        f"mb_{critic}_card_vs_cpu_rank_rel": rank_rel})
+    return numbers
+
+
+def _mb_subprocess_killed(root, results):
+    """The CLI in a process of its own, killed (SIGKILL) as soon as its first
+    checkpoint is on disk -> the checkpoint files then."""
+    import glob
+
+    log_path = f"{root}/{results}.log"
+    pattern = f"{root}/{results}/**/checkpoints/step_*.pt"
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen([sys.executable, "-m", "uml_tpu_torch.cli.multibench",
+                                 "-d", *_mb_argv(root, results)], cwd=ROOT, stdout=log,
+                                stderr=subprocess.STDOUT)
+        try:
+            t0 = time.perf_counter()
+            while proc.poll() is None and not glob.glob(pattern, recursive=True):
+                _check(time.perf_counter() - t0 < 300, ("multibench subprocess stalled",
+                                                         log_path))
+                time.sleep(0.01)
+        finally:
+            proc.kill()
+            proc.wait()
+    kept = sorted(glob.glob(pattern, recursive=True))
+    _check(kept and not glob.glob(f"{root}/{results}/**/results.pth", recursive=True),
+           ("the killed multibench run", kept, log_path))
+    return kept
+
+
+def _mb_forward_flops(b, t, xdim, ydim, zdim, info_nce, layers=5, ff=2048):
+    """The product FLOPs of one SeqUML forward, both branches: the
+    projections in and out, and per layer QKV, the attention's two
+    products, the out-projection and the MLP; InfoNCE's logit matrix."""
+    n = b * t
+    layer = 2 * n * zdim * (3 * zdim + zdim + 2 * ff) + 4 * b * t * t * zdim
+    branch = 2 * n * zdim * zdim + layers * layer
+    flops = 2 * branch + 2 * n * zdim * 2 * (xdim + ydim)
+    if info_nce:
+        flops += 2 * (b * (t - 1)) ** 2 * ydim
+    return flops
+
+
+def _mb_step_timing(root, gpu, iters=10):
+    """The staged full-width sarcasm train step (bs 128, T 50, zdim 300,
+    dropout 0.1 from the card's generator), MSE and InfoNCE: ms per step,
+    the phases on the card's stream (forward, backward, Adam, the metrics
+    with the effective-rank SVD), the device's busy share and the peak
+    memory rise -> numbers."""
+    import torch
+
+    from uml_tpu_torch.data.affect import AffectBatchStream, load_affect
+    from uml_tpu_torch.models.seq_autoencoder import make_seq_uml
+    from uml_tpu_torch.train.selfsup import SelfSupTrainer
+
+    splits = load_affect(f"{root}/data_files/sarcasm.pkl", "sarcasm", vision_norm=True)
+    data, lengths, _ = next(iter(AffectBatchStream(splits["train"], 128, seed=42).epoch()))
+    numbers = {}
+    for critic in ("mse", "infonce"):
+        trainer = SelfSupTrainer(make_seq_uml(371, 300, MB_ZDIM, pos_embd=True,
+                                              pos_learnable=True,
+                                              info_nce=critic == "infonce"),
+                                 lr=1e-4, seed=0, device="cuda")
+        trainer.init()
+        batch = trainer.to_device(data["vision"], data["text"], lengths["vision"],
+                                  lengths["text"])
+        gen = torch.Generator(device="cuda").manual_seed(1)
+
+        def step(marks=None):
+            def mark(i):
+                if marks is not None:
+                    marks[i].record()
+
+            mark(0)
+            trainer.optimizer.zero_grad(set_to_none=False)
+            loss, out = trainer.forward_loss(*batch, 1.0, 1.0, gen)
+            mark(1)
+            loss.backward()
+            mark(2)
+            trainer.optimizer.step()
+            mark(3)
+            metrics = trainer.step_metrics(loss, out, *batch)
+            mark(4)
+            return torch.stack(list(metrics.values())).tolist()
+
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        marks = [[torch.cuda.Event(enable_timing=True) for _ in range(5)]
+                 for _ in range(iters)]
+        t0 = time.perf_counter()
+        for m in marks:
+            step(m)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / iters * 1e3
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        phases = [sum(m[i].elapsed_time(m[i + 1]) for m in marks) / iters
+                  for i in range(4)]
+        rows = _profile(f"multibench train step {critic}", step, top=8)
+        busy = _busy_share(rows, ms)
+        # the backward's products are twice the forward's
+        gflop = _mb_forward_flops(128, MB_T, 371, 300, MB_ZDIM, critic == "infonce") / 1e9
+        print(f"[multibench] {critic}: forward products {gflop:.1f} GFLOP, "
+              f"{gflop / phases[0]:.2f} TFLOP/s in the forward phase, "
+              f"{3 * gflop / (phases[0] + phases[1]):.2f} TFLOP/s over forward and "
+              f"backward (the fp32 peak: 67 TFLOP/s)")
+        print(f"[multibench] full-width sarcasm train step ({critic}, bs 128 x T 50, "
+              f"zdim {MB_ZDIM}, 5 layers, FF 2048, fp32): {ms:.3f} ms (host clock, the "
+              f"metrics' one transfer included); phases on the card's stream: forward "
+              f"{phases[0]:.3f} ms, backward {phases[1]:.3f} ms, Adam {phases[2]:.3f} "
+              f"ms, metrics with the effective-rank SVD {phases[3]:.3f} ms; device busy "
+              f"{100 * busy:.1f}%; peak memory rise {peak:.3f} GiB  [{gpu}]")
+        numbers.update({f"mb_step_ms_{critic}": ms, f"mb_forward_ms_{critic}": phases[0],
+                        f"mb_backward_ms_{critic}": phases[1],
+                        f"mb_adam_ms_{critic}": phases[2],
+                        f"mb_metrics_svd_ms_{critic}": phases[3],
+                        f"mb_device_busy_{critic}": busy,
+                        f"mb_forward_gflop_{critic}": gflop,
+                        f"mb_peak_rise_gib_{critic}": peak})
+        del trainer, batch
+        torch.cuda.empty_cache()
+    return numbers
+
+
+def phase_multibench():
+    """[multibench]: the MultiBench self-supervised path (no kernel of the
+    port) at full width on a seeded MUStARD-schema fixture: the multibench
+    CLI on sarcasm (MSE, then InfoNCE), on MIMIC at zdim 40, then
+    collect_results_mb; card against CPU; a resume after SIGKILL; the
+    staged train step; no port's launch counter may move -> numbers."""
+    gpu = _gpu_line()
+    t_phase = time.perf_counter()
+    root = os.path.join(ROOT, "build", "chip_smoke", "mb")
+    shutil.rmtree(root, ignore_errors=True)
+    _mb_fixture(root)
+    numbers, launches = _counted(lambda: _mb_phase(root, gpu))
+    _check(not any(launches.values()), ("multibench launches", launches))
+    numbers["mb_phase_s"] = time.perf_counter() - t_phase
+    print(f"[multibench] {numbers['mb_phase_s']:.1f} s; launches of every port over "
+          f"the phase: 0")
+    return numbers
+
+
+def _mb_phase(root, gpu):
+    from uml_tpu_torch.cli import collect_results_mb as crm
+
+    numbers = {}
+    runs = {"mse": _mb_run(root, "results_a", extra=["--robust_test"]),
+            "infonce": _mb_run(root, "results_nce", extra=["--infoNCE_loss"]),
+            "mimic": _mb_run(root, "results_mimic", "mimic", MB_MIMIC_ZDIM,
+                             extra=["--num_epochs", "2", "--eval_freq", "4"])}
+    for tag, (wall, outs, result, model) in runs.items():
+        _check(len(outs) == 6 and all(math.isfinite(v) for v in outs.values())
+               and all(math.isfinite(float(v)) for v in result.values()),
+               (tag, "scores", outs, result))
+        dims = (5, 12, MB_MIMIC_ZDIM) if tag == "mimic" else (371, 300, MB_ZDIM)
+        n = _mb_check_model(model, *dims, tag)
+        numbers[f"mb_cli_{tag}_wall_s"] = wall
+        print(f"[multibench] multibench CLI {tag}: {wall:.2f} s; outs {outs}; "
+              f"results.pth {len(result)} finite scores; model.pth {n} tensors, every "
+              f"one moved  [{gpu}]")
+    summary = crm.collect_results(root)
+    _check(sorted(summary) == [("mimic", "xy"), ("sarcasm", "xy")],
+           ("collect_results_mb groups", sorted(summary)))
+    print(f"[multibench] collect_results_mb: groups {sorted(summary)}, "
+          f"{summary[('sarcasm', 'xy')]['configs']} sarcasm configs")
+
+    numbers.update(_mb_card_vs_cpu(root, gpu))
+
+    # resume: a second uninterrupted run (the spread), then one killed at its
+    # first checkpoint and rerun here
+    t0 = time.perf_counter()
+    _, _, result_b, model_b = _mb_run(root, "results_b")
+    kept = _mb_subprocess_killed(root, "results_c")
+    _, _, result_c, model_c = _mb_run(root, "results_c")
+    _, _, result_a, model_a = runs["mse"]
+    for what, a, b, c in (("results.pth", result_a, result_b, result_c),
+                          ("model.pth", model_a, model_b, model_c)):
+        spread, diff = _tree_rel_diff(b, a), _tree_rel_diff(c, a)
+        numbers.update({f"mb_resume_{what[:-4]}_spread": spread,
+                        f"mb_resume_{what[:-4]}_rel_diff": diff})
+        print(f"[multibench] resume after SIGKILL with "
+              f"{[os.path.basename(k) for k in kept]} on disk: {what} resumed vs "
+              f"uninterrupted max rel diff {diff:.3e}; two uninterrupted runs "
+              f"{spread:.3e} (the bound)")
+        _check(diff <= spread, ("multibench resume", what, diff, spread))
+    print(f"[multibench] resume: {time.perf_counter() - t0:.1f} s for the three runs")
+
+    numbers.update(_mb_step_timing(root, gpu))
+    return numbers
+
+
 def _dino_features_args(root, batch, feature_dir, quant):
     from uml_tpu_torch.cli import features as feat
 
@@ -3657,6 +4044,7 @@ def main() -> int:
     rate.update(timed(phase_rn_train, root))
     rate.update(timed(phase_llama))
     rate.update(timed(phase_resume, root))
+    rate.update(timed(phase_multibench))
     # each port's launches come from the path it belongs to: the bf16
     # serving kernels from the features run, the int8 ones from the
     # features --quant int8 run and its tower encode, the training kernels

@@ -100,3 +100,15 @@ def test_module_list_covers_the_language_model_and_resume_slice():
     for name in ("uml_tpu_torch.models.llama", "uml_tpu_torch.core.checkpoint",
                  "uml_tpu_torch.core.prng"):
         assert name in MODULES, name
+
+
+def test_module_list_covers_the_multibench_slice():
+    """... and the 13 modules of the MultiBench self-supervised path."""
+    for name in ("uml_tpu_torch.data.seq_augment", "uml_tpu_torch.data.robustness",
+                 "uml_tpu_torch.data.affect", "uml_tpu_torch.data.mimic",
+                 "uml_tpu_torch.data.preprocess_affect", "uml_tpu_torch.data.text_embed",
+                 "uml_tpu_torch.metrics.alignment", "uml_tpu_torch.models.seq_autoencoder",
+                 "uml_tpu_torch.models.convert", "uml_tpu_torch.train.probes",
+                 "uml_tpu_torch.train.selfsup", "uml_tpu_torch.cli.multibench",
+                 "uml_tpu_torch.cli.collect_results_mb"):
+        assert name in MODULES, name

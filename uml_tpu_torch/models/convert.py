@@ -9,7 +9,11 @@ tests can give both packages the same weights.  ``dino_state_dict_from_jax`` doe
 the same for uml_tpu.models.dino.DinoViT and the port's DinoViT,
 ``uml_head_params_from_jax`` for the trainable tree of a uml_tpu UMLHead,
 ``llama_state_dict_from_jax`` for uml_tpu's LlamaEncoder (float or
-int8_w) and the port's.  Pure numpy + torch: no jax import.
+int8_w) and the port's.  ``seq_uml_state_dict_from_jax`` and its inverse
+``seq_uml_state_dict_to_jax`` carry uml_tpu's SeqUML tree (MultiBench)
+both ways: the inverse is what the multibench CLI writes to model.pth, so
+either package's model.pth loads into the other.  Pure numpy + torch: no
+jax import.
 """
 
 from __future__ import annotations
@@ -174,3 +178,45 @@ def llama_state_dict_from_jax(variables) -> dict:
             else:
                 sd[f"{key}.weight"] = _t(np.asarray(tree["kernel"]).T)
     return sd
+
+
+def seq_uml_state_dict_from_jax(variables) -> dict:
+    """{'params': {...}} of uml_tpu's SeqUML (numpy or tensor leaves) -> the
+    port's SeqUML state_dict: the flax path joined by dots, a Dense kernel
+    [in, out] -> ``weight`` [out, in], ``bias`` as it is, a LayerNorm
+    ``scale`` -> ``weight``, a bare array (``pos_embedding``) as it is."""
+    sd = {}
+
+    def walk(tree, prefix):
+        for name, leaf in tree.items():
+            if isinstance(leaf, dict):
+                walk(leaf, f"{prefix}{name}.")
+            elif name == "kernel":
+                sd[f"{prefix}weight"] = _t(np.asarray(leaf).T)
+            elif name == "scale":
+                sd[f"{prefix}weight"] = _t(leaf)
+            else:
+                sd[f"{prefix}{name}"] = _t(leaf)
+
+    walk(variables["params"], "")
+    return sd
+
+
+def seq_uml_state_dict_to_jax(state_dict) -> dict:
+    """The inverse of ``seq_uml_state_dict_from_jax``: the port's SeqUML
+    state_dict -> {'params': {...}} with numpy fp32 leaves, uml_tpu's names
+    and layout (a 2-d ``weight`` is a Dense kernel, transposed to [in, out];
+    a 1-d one a LayerNorm scale)."""
+    params = {}
+    for key, value in state_dict.items():
+        *path, name = key.split(".")
+        node = params
+        for part in path:
+            node = node.setdefault(part, {})
+        a = value.detach().cpu().float().numpy()
+        if name == "weight":
+            node["kernel" if a.ndim == 2 else "scale"] = np.ascontiguousarray(
+                a.T if a.ndim == 2 else a)
+        else:
+            node[name] = a.copy()
+    return {"params": params}
