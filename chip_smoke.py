@@ -235,6 +235,28 @@ Phases (any failure exits non-zero; no phase is caught):
    runs are); the staged full-width train step with MSE and InfoNCE: ms,
    its phases (forward, backward, Adam, the metrics with the
    effective-rank SVD), the device's busy share and the peak memory rise.
+5h. Gaussian (``[gaussian]``): no kernel of the port runs (uml_tpu's loop
+   is plain jnp), and no launch counter may move over the gaussian CLI
+   at the paper's setting (configs/gaussian.yaml's combo with seed 0 and
+   mode xy: 10,000 steps of batch 512, every step's eval over 2,000
+   rows, the step two CUDA graphs around Adam's eager step); its
+   results.json has uml_tpu's keys and metrics.jsonl a row a step; a
+   100-step call timed and profiled (ms a step, the device's busy share);
+   peak memory; card against CPU over 200 steps from one init and one
+   index stream: losses and CKA within 1e-4 relative, mutual kNN within
+   1e-3.
+5i. Data parallelism (``[parallel]``): features and finetune
+   --hyperparams smoke with --mesh auto against --mesh off on the one
+   card, no process group: the same outputs.  Then a process group of
+   world size 1 over NCCL and create_mesh() over it, passed to each loop
+   as the CLIs pass it: the ViT-B/16 full-model step at batch 64 in each
+   backward mode bit-equal to the step without a mesh (loss, every
+   gradient, every updated parameter), rows 5-9, 19 and 20 launched
+   under the mesh; validate (a ragged batch), features' image_features
+   (the round robin gathered over NCCL) and one selfsup step (InfoNCE,
+   dropout) bit-equal to theirs without it; the step's ms with and
+   without the mesh, the gradient average alone, and a profile of both
+   steps with the device kernels the mesh adds.
 6. the products of the engine (bf16 beside torch.matmul, int8 beside
    torch._int_mm) and the attention backward's passes as one JSON line,
    the kernel table as one JSON line, the device line last.
@@ -3911,27 +3933,383 @@ def _train_step_rates(bsz, modes, iters=10, clip_kw=None, dino=None,
     return numbers
 
 
+GAUSSIAN_CONFIG = os.path.join("configs", "gaussian.yaml")
+GAUSSIAN_KEYS = ["mode", "seed", "val_loss_x", "val_loss_y", "val_cka", "val_mknn",
+                 "num_steps"]     # uml_tpu/cli/gaussian.py's results.json
+GAUSSIAN_CPU_STEPS = 200
+GAUSSIAN_RTOL = 1e-4
+GAUSSIAN_MKNN_ATOL = 1e-3
+
+
+def _gaussian_paper_args(outdir):
+    """The gaussian CLI's args for configs/gaussian.yaml's combo with seed 0
+    and mode xy (the paper's setting), unchanged."""
+    from uml_tpu_torch.cli import gaussian as gcli
+    from uml_tpu_torch.core.sweep import apply_combo, load_sweep
+
+    combo = next(c for c in load_sweep(os.path.join(ROOT, GAUSSIAN_CONFIG))
+                 if c["seed"] == 0 and c["mode"] == "xy")
+    args = apply_combo(gcli.build_parser(), combo)
+    args.outdir, args.overwrite, args.force_rerun = outdir, False, False
+    return args
+
+
+def _gaussian_history(args, device):
+    """train_gaussian from the init of a generator seeded 0 over the
+    paper's pools, GAUSSIAN_CPU_STEPS steps on ``device`` -> its history.
+    (The CPU half runs after the card's timings: a process of its own
+    beside them took the host the card's loop is bound by.)"""
+    import torch
+
+    from uml_tpu_torch.data.gaussian import UnpairedIndexStream, generate_data
+    from uml_tpu_torch.train.gaussian import make_model, train_gaussian
+
+    def dgp(seed, n, attenuate):
+        return generate_data({
+            "seed": seed, "num_samples": n, "dim_c": args.data_dim_common,
+            "dim_x": args.data_dim_x, "dim_y": args.data_dim_y,
+            "dim_obs": args.dim_obs, "noise_std": args.noise_std,
+            "attenuate_x": attenuate, "attenuation": args.attenuation,
+            "shared_latent_distribution_type": "gaussian"})
+
+    n = args.train_num_samples
+    data, val = dgp(42, n, True), dgp(43, args.val_num_samples, False)
+    pools = {"x": data["x"][: n // 2], "y": data["y"][n - n // 2:]}
+    init = make_model(args.dim_obs, args.dim_common, args.dim_latent).init_random(
+        torch.Generator().manual_seed(0)).state_dict()
+    return train_gaussian(
+        make_model(args.dim_obs, args.dim_common, args.dim_latent), pools,
+        val["x"], val["y"], lr=args.lr, batch_size=args.batch_size,
+        num_steps=GAUSSIAN_CPU_STEPS, init_params=init, device=device,
+        stream=UnpairedIndexStream(len(pools["x"]), len(pools["y"]),
+                                   args.batch_size, seed=42)).history
+
+
+def phase_gaussian():
+    """[gaussian]: the gaussian CLI on the card at the paper's setting
+    (configs/gaussian.yaml, seed 0, mode xy: 10,000 steps of batch 512 over
+    10,000 train and 2,000 validation rows), its results.json keys, no
+    port's launch counter moving; card against CPU over 200 steps from one
+    init and one index stream; the steps/s, the device's busy share and
+    the peak memory -> numbers."""
+    import torch
+
+    from uml_tpu_torch.cli import gaussian as gcli
+    from uml_tpu_torch.data.gaussian import UnpairedIndexStream, generate_data
+    from uml_tpu_torch.train.gaussian import make_model, train_gaussian
+
+    import numpy as np
+
+    gpu = _gpu_line()
+    root = os.path.join(ROOT, "build", "chip_smoke", "gaussian")
+    shutil.rmtree(root, ignore_errors=True)
+    args = _gaussian_paper_args(root)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, launches = _counted(lambda: gcli.main(args))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    _check(not any(launches.values()), ("gaussian launches", launches))
+    run_dir = os.path.join(root, f"mode_xy-seed_0-tag_{args.tag}")
+    with open(os.path.join(run_dir, "results.json")) as f:
+        saved = json.load(f)
+    _check(list(saved) == GAUSSIAN_KEYS and saved["num_steps"] == 10_000
+           and all(math.isfinite(saved[k]) for k in GAUSSIAN_KEYS[2:6]), saved)
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        rows = sum(1 for _ in f)
+    _check(rows == 10_000 + 1, ("metrics.jsonl rows", rows))
+    print(f"[gaussian] {gpu}: gaussian CLI (configs/gaussian.yaml, seed 0, xy: "
+          f"dim_obs {args.dim_obs}, dim_common {args.dim_common}, dim_latent "
+          f"{args.dim_latent}, 10,000 steps of {args.batch_size}) {wall:.2f} s; "
+          f"results {saved}; peak memory {peak / 2**20:.1f} MiB; launches 0")
+
+    # the loop alone: one chunk of 100 steps, timed and profiled
+    n = args.train_num_samples
+    data = generate_data({
+        "seed": 42, "num_samples": n, "dim_c": args.data_dim_common,
+        "dim_x": args.data_dim_x, "dim_y": args.data_dim_y, "dim_obs": args.dim_obs,
+        "noise_std": args.noise_std, "attenuate_x": True,
+        "attenuation": args.attenuation, "shared_latent_distribution_type": "gaussian"})
+    val = data["x"][: args.val_num_samples], data["y"][: args.val_num_samples]
+    pools = {"x": data["x"][: n // 2], "y": data["y"][n - n // 2:]}
+
+    def chunk():
+        train_gaussian(make_model(args.dim_obs, args.dim_common, args.dim_latent),
+                       pools, *val, batch_size=args.batch_size, num_steps=100,
+                       chunk=100, stream=UnpairedIndexStream(
+                           len(pools["x"]), len(pools["y"]), args.batch_size, seed=42))
+
+    chunk()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chunk()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / 100
+    busy = _busy_share(_profile("gaussian train_gaussian, 100 steps", chunk), 100 * step_ms)
+    t0 = time.perf_counter()
+    card = _gaussian_history(args, "cuda")
+    t1 = time.perf_counter()
+    cpu = _gaussian_history(args, "cpu")
+    t2 = time.perf_counter()
+    print(f"[gaussian] {GAUSSIAN_CPU_STEPS} steps from one init: card {t1 - t0:.2f} s, "
+          f"CPU {t2 - t1:.2f} s ({torch.get_num_threads()} threads)")
+    rel = max(float(np.max(np.abs(card[k] - cpu[k]) / np.abs(cpu[k])))
+              for k in cpu if k != "val/mknn")
+    mknn = float(np.max(np.abs(card["val/mknn"] - cpu["val/mknn"])))
+    _check(rel <= GAUSSIAN_RTOL and mknn <= GAUSSIAN_MKNN_ATOL, ("card vs CPU", rel, mknn))
+    print(f"[gaussian] {gpu}: {step_ms:.4f} ms a step ({1e3 / step_ms:.1f} steps/s, "
+          f"a step with its eval: val losses, CKA and mutual kNN over "
+          f"{args.val_num_samples} rows), device busy {100 * busy:.1f}%; the CLI "
+          f"{10_000 / wall:.1f} steps/s end to end; card vs CPU over "
+          f"{GAUSSIAN_CPU_STEPS} steps: losses and CKA max rel err {rel:.3e} "
+          f"(<= {GAUSSIAN_RTOL}), mutual kNN max abs err {mknn:.3e} "
+          f"(<= {GAUSSIAN_MKNN_ATOL})")
+    return {"gaussian_cli_s": wall, "gaussian_step_ms": step_ms,
+            "gaussian_cpu_half_s": t2 - t1,
+            "gaussian_steps_per_s": 1e3 / step_ms, "gaussian_device_busy": busy,
+            "gaussian_peak_mib": peak / 2**20, "gaussian_card_vs_cpu_rel": rel,
+            "gaussian_card_vs_cpu_mknn": mknn}
+
+
+# the full-model step's backward modes -> the rows their launches count
+PARALLEL_MODES = {
+    "default": ({}, ("attn_block_stash", "attn_block_bwd", "attn_block_cls_bwd",
+                     "mlp_block_stash")),
+    "recompute_kernel": (RECOMPUTE_MODES["kernel"],
+                         ("attn_block_bwd_recompute", "mlp_bwd")),
+    "recompute_dw": (RECOMPUTE_MODES["dw"], ("attn_block_bwd_recompute", "mlp_bwd_dw")),
+}
+
+
+def _same_step(plain, dp, what):
+    """Two models after one step each: the parameters and their gradients
+    bit-equal -> the number of tensors compared."""
+    import torch
+
+    n = 0
+    for (name, a), b in zip(plain.named_parameters(), dp.parameters(), strict=True):
+        _check(torch.equal(a, b), (what, "parameter", name))
+        _check((a.grad is None) == (b.grad is None)
+               and (a.grad is None or torch.equal(a.grad, b.grad)), (what, "grad", name))
+        n += 1
+    return n
+
+
+def _kernel_diff(what, plain_rows, mesh_rows, reps=3, top=6):
+    """The device kernels whose time per call grows most from the
+    ``plain_rows`` profile to the ``mesh_rows`` one (``_profile`` rows)."""
+    plain = {}
+    for key, t, _ in plain_rows:
+        plain[key] = plain.get(key, 0.0) + t
+    mesh = {}
+    for key, t, _ in mesh_rows:
+        mesh[key] = mesh.get(key, 0.0) + t
+    diff = sorted(((mesh.get(k, 0.0) - plain.get(k, 0.0)) / reps / 1e3, k)
+                  for k in set(plain) | set(mesh))
+    print(f"[parallel] {what}: device time per call, the mesh's minus the plain "
+          f"step's, {sum(d for d, _ in diff):+.3f} ms; the kernels that grow most:")
+    for d, key in diff[::-1][:top]:
+        print(f"[parallel]   {d:+8.3f} ms  {key[:110]}")
+    return sum(d for d, _ in diff)
+
+
+def _selfsup_pair(mesh):
+    """One Adam step of the full-width sarcasm model (zdim 300, InfoNCE,
+    dropout 0.1 from a card generator seeded 0, bs 128) on the [multibench]
+    fixture, without a mesh and over ``mesh``, from one init -> the number
+    of tensors compared; the metrics and parameters bit-equal."""
+    import torch
+
+    from uml_tpu_torch.data.affect import AffectBatchStream, load_affect
+    from uml_tpu_torch.models.seq_autoencoder import make_seq_uml
+    from uml_tpu_torch.train.selfsup import SelfSupTrainer
+
+    root = os.path.join(ROOT, "build", "chip_smoke", "mb")
+    splits = load_affect(f"{root}/data_files/sarcasm.pkl", "sarcasm", vision_norm=True)
+    data, lengths, _ = next(iter(AffectBatchStream(splits["train"], 128, seed=42).epoch()))
+    batch = (data["vision"], data["text"], lengths["vision"], lengths["text"])
+    out = []
+    for m in (None, mesh):
+        model = make_seq_uml(371, 300, MB_ZDIM, pos_embd=True, pos_learnable=True,
+                             info_nce=True, dropout=0.1)
+        trainer = SelfSupTrainer(model, lr=1e-4, seed=0, device="cuda")
+        trainer.init()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        metrics = trainer.train_step(*trainer.to_device(*batch), 1.0, 1.0, gen, mesh=m)
+        out.append((metrics, dict(model.named_parameters())))
+    (m_plain, p_plain), (m_dp, p_dp) = out
+    _check(sorted(m_plain) == sorted(m_dp), (sorted(m_plain), sorted(m_dp)))
+    for k in m_plain:
+        _check(torch.equal(m_plain[k], m_dp[k]), ("selfsup metric", k, m_plain[k], m_dp[k]))
+    for k, v in p_plain.items():
+        _check(torch.equal(v, p_dp[k]), ("selfsup parameter", k))
+    return len(m_plain), len(p_plain)
+
+
+def phase_parallel(root):
+    """[parallel]: a process group of world size 1 over NCCL on the card and
+    create_mesh() over it, passed to each loop as the CLIs pass it: the
+    ViT-B/16 full-model step (batch 64; train/supervised.py, the weights
+    broadcast from rank 0 first) in every backward mode, loss, gradients
+    and updated parameters bit-equal to the step without a mesh, the launch
+    counters of rows 5-9, 19 and 20 moving under the mesh; validate,
+    features' image_features (the round robin and its gather over NCCL)
+    and one selfsup step (InfoNCE's gathered negatives, dropout's global
+    mask) bit-equal to theirs without a mesh; the step's ms with and
+    without it, and a profile of both.  Without the group, before and
+    after it: features and finetune with --mesh auto against --mesh off on
+    the one card, the same outputs -> numbers."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from uml_tpu_torch.cli import features as feat
+    from uml_tpu_torch.core import distributed as ud
+    from uml_tpu_torch.core.meshes import create_mesh, data_size, replicate
+    from uml_tpu_torch.data.feature_cache import load_cache
+    from uml_tpu_torch.parallel.data_parallel import sync_gradients
+    from uml_tpu_torch.train import optim
+    from uml_tpu_torch.train.supervised import eval_batches, make_train_step, make_validate
+
+    gpu = _gpu_line()
+    # one card: --mesh auto starts no process group and runs as --mesh off
+    caches = {}
+    for flag in ("auto", "off"):
+        args = _features_args(root, 64, f"{root}/features_mesh_{flag}")
+        args.mesh = flag
+        encoder = feat.main(args)
+        _check(not dist.is_initialized(), ("a process group after --mesh", flag))
+        caches[flag] = {os.path.relpath(p, f"{root}/features_mesh_{flag}"): load_cache(p)
+                        for p in _pth_files(f"{root}/features_mesh_{flag}")}
+    _check(sorted(caches["auto"]) == sorted(caches["off"]) and caches["off"],
+           sorted(caches["auto"]))
+    for rel in caches["off"]:
+        _check(_tree_equal(caches["auto"][rel], caches["off"][rel]), ("features", rel))
+    items = feat.get_few_shot_benchmark(root, f"{root}/indices", "caltech101", 16,
+                                        1)["train"]
+
+    store = os.path.join(root, "parallel_store")
+    if os.path.exists(store):
+        os.remove(store)
+    with _env({"UML_COORDINATOR": f"file://{store}", "UML_NUM_PROCESSES": "1",
+               "UML_PROCESS_ID": "0"}):
+        _check(ud.maybe_initialize(), "maybe_initialize")
+    mesh = create_mesh()
+    _check(dist.get_backend() == "nccl" and data_size(mesh) == 1
+           and tuple(mesh.mesh_dim_names) == ("data", "model"), mesh)
+    numbers = {}
+    try:
+        feats = [feat.image_features(encoder, items, "crop", 64, 8, seed=1, mesh=m)
+                 for m in (None, mesh)]
+        _check(_tree_equal(feats[0], feats[1]), "image_features over the mesh")
+        del encoder
+        plain, batch = _head_and_batch(64)
+        start = {k: v.clone() for k, v in plain.state_dict().items()}
+        dp = copy.deepcopy(plain)
+        plain.cuda()
+        dp.cuda()
+        host = [t.numpy() for t in batch]
+        img_b, txt_b = host[:3], host[3:]
+
+        def steps(env):
+            out = []
+            for model, m in ((plain, None), (dp, mesh)):
+                model.load_state_dict(start)
+                opt = optim.build_optimizer("adamw", optim.build_schedule(
+                    1e-5, "cosine", 0, 10), 0.05)
+                replicate(m, model)
+                with _env(env):
+                    out.append(make_train_step(model, opt, has_image=True, has_text=True,
+                                               mesh=m))
+            return out
+
+        for mode, (env, rows) in PARALLEL_MODES.items():
+            step_plain, step_dp = steps(env)
+            with _env(env):
+                loss_plain, _ = step_plain(0, img_b, txt_b)
+                (loss_dp, _), launches = _counted(lambda: step_dp(0, img_b, txt_b))
+            _check(torch.equal(loss_plain, loss_dp), (mode, loss_plain, loss_dp))
+            n = _same_step(plain, dp, mode)
+            _check(all(launches[r] > 0 for r in rows), (mode, launches))
+            moved = {r: launches[r] for r in rows}
+            numbers[f"parallel_launches_{mode}"] = moved
+            print(f"[parallel] {mode}: the ViT-B/16 full-model step at batch 64 over "
+                  f"the world-size-1 NCCL mesh: loss {float(loss_dp):.6f} and the "
+                  f"{n} parameters and gradients bit-equal to the step without a "
+                  f"mesh; launches under the mesh {moved}")
+        # validate: a full batch and a ragged one (22 rows of 64 padding)
+        val = eval_batches(np.concatenate([img_b[0], img_b[0][:42]]),
+                           np.concatenate([img_b[1], img_b[1][:42]]), 64)
+        scores = [make_validate(model, m)(None, val) for model, m in ((plain, None), (dp, mesh))]
+        _check(scores[0] == scores[1], ("validate over the mesh", scores))
+        n_metrics, n_params = _selfsup_pair(mesh)
+        print(f"[parallel] over the mesh, bit-equal to the run without it: validate "
+              f"(loss {scores[1][0]:.6f}, acc {scores[1][1]:.4f}, 2 batches of 64, "
+              f"one ragged); image_features of {len(items)} images ({len(feats[1]['features'])} "
+              f"rows, the round robin gathered over NCCL); one selfsup step (sarcasm, "
+              f"zdim 300, InfoNCE, dropout 0.1, bs 128): {n_metrics} metrics and "
+              f"{n_params} parameters")
+        step_plain, step_dp = steps({})
+        for name, fn in (("off", step_plain), ("mesh", step_dp)):
+            ms = _time_ms(lambda: fn(0, img_b, txt_b), iters=5, warmup=2)
+            numbers[f"parallel_step_ms_{name}"] = ms
+        trainable = [p for p in dp.parameters() if p.grad is not None]
+        numbers["parallel_sync_ms"] = _time_ms(
+            lambda: sync_gradients(trainable, mesh), iters=10, warmup=2)
+        print(f"[parallel] {gpu}: ViT-B/16 full-model step bs 64: "
+              f"{numbers['parallel_step_ms_off']:.2f} ms without a mesh, "
+              f"{numbers['parallel_step_ms_mesh']:.2f} ms over the world-size-1 "
+              f"mesh; its gradient average alone (NCCL, "
+              f"{sum(p.grad.numel() for p in trainable) * 4 / 2**20:.1f} MiB of "
+              f"fp32 in 64 MB buckets) {numbers['parallel_sync_ms']:.3f} ms")
+        numbers["parallel_device_ms_added"] = _kernel_diff(
+            "ViT-B/16 full-model step bs 64",
+            _profile("parallel step without a mesh", lambda: step_plain(0, img_b, txt_b),
+                     top=5),
+            _profile("parallel step over the mesh", lambda: step_dp(0, img_b, txt_b),
+                     top=5))
+        del plain, dp
+    finally:
+        dist.destroy_process_group()
+
+    results = {}
+    for flag in ("auto", "off"):
+        _, _, results[flag] = _finetune(root, "smoke", _wrappers(),
+                                        result_dir=f"experiments_mesh_{flag}",
+                                        extra=("--mesh", flag))
+    _check(_tree_equal(results["auto"], results["off"]), "finetune --mesh auto vs off")
+    print(f"[parallel] one card: features --mesh auto wrote the {len(caches['off'])} "
+          f"caches of --mesh off bit for bit; finetune --hyperparams smoke --mesh "
+          f"auto the test_result of --mesh off (test acc "
+          f"{float(results['off']['test_acc']):.4f}); no process group")
+    return {k: v for k, v in numbers.items() if not isinstance(v, dict)}
+
+
+def _pth_files(root):
+    return sorted(os.path.join(d, f) for d, _, files in os.walk(root)
+                  for f in files if f.endswith(".pth"))
+
+
+def _tree_equal(a, b) -> bool:
+    import numpy as np
+    import torch
+
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(_tree_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_tree_equal(x, y) for x, y in zip(a, b))
+    if isinstance(a, (np.ndarray, torch.Tensor)):
+        return np.array_equal(np.asarray(a), np.asarray(b))
+    return a == b
+
+
 def _device_rows(events):
-    """(name, self device time in us, count) of every event of a profile's
-    ``key_averages()`` that ran on the card: kernels (PyTorch's elementwise
-    lambdas, ``...{lambda(float)#1}``, among them), memcpys and memsets.
-    Chosen by kind, never by name: only device-side rows count (an aten
-    op's own row would count its kernels a second time), and a
-    ``record_function`` range (``Optimizer.step#AdamW.step``), whose
-    device-side row spans kernels counted in their own rows, is dropped:
-    by ``is_user_annotation`` where the torch build sets it, else by the
-    name its CPU-side event in the same profile carries."""
-    from torch.autograd import DeviceType
+    """(name, self device time in us, count) of the events of a profile's
+    ``key_averages()`` that ran on the card, chosen by kind
+    (uml_tpu_torch/utils/profiling.py::device_rows)."""
+    from uml_tpu_torch.utils.profiling import device_rows
 
-    cpu_names = {e.key for e in events if e.device_type != DeviceType.CUDA}
-
-    def annotation(e):
-        flag = getattr(e, "is_user_annotation", None)
-        return e.key in cpu_names if flag is None else flag
-
-    return [(e.key, e.self_device_time_total, e.count) for e in events
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-            and not annotation(e)]
+    return device_rows(events)
 
 
 def _profile(what, fn, reps=3, top=10, by_op=False):
@@ -4045,6 +4423,8 @@ def main() -> int:
     rate.update(timed(phase_llama))
     rate.update(timed(phase_resume, root))
     rate.update(timed(phase_multibench))
+    rate.update(timed(phase_gaussian))
+    rate.update(timed(phase_parallel, root))
     # each port's launches come from the path it belongs to: the bf16
     # serving kernels from the features run, the int8 ones from the
     # features --quant int8 run and its tower encode, the training kernels

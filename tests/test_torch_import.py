@@ -112,3 +112,19 @@ def test_module_list_covers_the_multibench_slice():
                  "uml_tpu_torch.train.selfsup", "uml_tpu_torch.cli.multibench",
                  "uml_tpu_torch.cli.collect_results_mb"):
         assert name in MODULES, name
+
+
+GAUSSIAN_AND_PARALLEL = [
+    "uml_tpu_torch.cli.gaussian", "uml_tpu_torch.train.gaussian",
+    "uml_tpu_torch.data.gaussian", "uml_tpu_torch.models.shared_autoencoder",
+    "uml_tpu_torch.models.initializers", "uml_tpu_torch.core.distributed",
+    "uml_tpu_torch.core.meshes", "uml_tpu_torch.parallel",
+    "uml_tpu_torch.parallel.data_parallel", "uml_tpu_torch.utils.profiling",
+]
+
+
+@pytest.mark.parametrize("module", GAUSSIAN_AND_PARALLEL)
+def test_gaussian_and_parallel_modules_are_checked(module):
+    """The Gaussian family, data parallelism and profiling are among the
+    modules the two tests above hold to no jax and no uml_tpu."""
+    assert module in MODULES

@@ -10,12 +10,14 @@
   by both packages' ``evaluate`` gives equal scores; both
   collect_results_mb print the same over uml_tpu's results tree;
 * the MIMIC path through the port's CLI; no card and no UML_TORCH_DEVICE
-  raises, as does --mesh auto over two cards.
+  raises; --mesh auto over two cards starts one process per card from
+  the command line, and none from a Python call of ``main``.
 """
 
 import json
 import os
 import pickle
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -264,6 +266,27 @@ def test_multibench_needs_a_card_or_the_cpu_flag(monkeypatch):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="UML_TORCH_DEVICE=cpu"):
             torch_mb.main(args)
+    from uml_tpu_torch.core import meshes
+    from uml_tpu_torch.core.sweep import run_sweep_cli
+
+    launched = []
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(SystemExit, match="--mesh auto"):
-        torch_mb.main(args)
+    monkeypatch.setattr(meshes, "launch_per_device",
+                        lambda n: launched.append(n) or 0)
+    # a Python call of main takes the job it runs in and starts no process
+    assert meshes.mesh_from_flag("auto") is None
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="UML_TORCH_DEVICE=cpu"):
+            torch_mb.main(args)
+    assert launched == []
+    # the command line starts one process per card, unless a run says off
+    monkeypatch.setattr(sys, "argv", ["multibench", "-d", "--ds_name", "mosi",
+                                      "--mesh", "off"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="UML_TORCH_DEVICE=cpu"):
+            run_sweep_cli(torch_mb.main, torch_mb.build_parser())
+    assert launched == []
+    monkeypatch.setattr(sys, "argv", ["multibench", "-d", "--ds_name", "mosi"])
+    with pytest.raises(SystemExit) as stop:
+        run_sweep_cli(torch_mb.main, torch_mb.build_parser())
+    assert stop.value.code == 0 and launched == [2]

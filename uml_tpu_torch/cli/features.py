@@ -44,7 +44,15 @@ features, as uml_tpu does on such a machine.
         --language_model /path/to/open_llama_7b --quant int8 ...
     python -m uml_tpu_torch.cli.features -c configs/features.yaml
 
-Not ported yet (it raises): a multi-device ``--mesh``.
+``--mesh auto`` (the default) run from the command line on a machine with
+several cards starts one process per card (core.meshes.launch_per_card;
+under torchrun or Slurm the launcher's processes join instead); ``main``
+called from Python takes the job it runs in (core.meshes.mesh_from_flag).  The ranks split the work by loader
+batch and by class, round robin: each rank decodes and encodes only its
+own batches (their augmentation RNG is seeded by the batch index, so the
+pixels are those of a one-process run), and rank 0 assembles every result
+in order and alone writes the caches.  With one card there is no process
+group and the run is the one-process run.
 """
 
 from __future__ import annotations
@@ -55,8 +63,10 @@ import os
 import numpy as np
 import torch
 
-from uml_tpu_torch.core.device import check_mesh_flag, default_device
+from uml_tpu_torch.core.device import default_device
 from uml_tpu_torch.core.flags import build_shared_parser
+from uml_tpu_torch.core.distributed import is_primary
+from uml_tpu_torch.core.meshes import agree, data_rank, data_size, mesh_from_flag
 from uml_tpu_torch.core.sweep import run_sweep_cli
 from uml_tpu_torch.data.descriptors import (
     DESCRIPTOR_DICT,
@@ -73,6 +83,7 @@ from uml_tpu_torch.data.fewshot import get_few_shot_benchmark, get_testset
 from uml_tpu_torch.data.loader import ImageBatchLoader
 from uml_tpu_torch.data.templates import get_templates
 from uml_tpu_torch.models.encoders import ClipEncoder, PendingOutput
+from uml_tpu_torch.parallel.data_parallel import gather_in_order, owns
 from uml_tpu_torch.utils.io import makedirs
 from uml_tpu_torch.utils.seeding import cname2lab, set_random_seed
 
@@ -95,7 +106,7 @@ FETCH_WINDOW = 1
 
 
 def image_features(encoder, items, augmentation, batch_size, num_workers,
-                   return_tokens=False, seed=0):
+                   return_tokens=False, seed=0, mesh=None):
     """{'features','labels','paths','decoder'} over a split
     (features.py:152-184), pipelined as uml_tpu's loop is
     (uml_tpu/cli/features.py:72-180).
@@ -114,7 +125,11 @@ def image_features(encoder, items, augmentation, batch_size, num_workers,
     and decode threads share the GIL with the feeder and the main thread
     (PERF.md: 1.6-1.8x on the card's host); in threads otherwise.
     ``UML_DECODE_WORKERS=thread|process`` overrides, as in uml_tpu.  The
-    pool keeps ``max(4, num_workers)`` batches in flight."""
+    pool keeps ``max(4, num_workers)`` batches in flight.
+
+    With a ``mesh`` this rank runs the batches whose index is its rank
+    modulo the data axis, and rank 0 gets every batch in order (None on
+    the other ranks)."""
     import queue
     import threading
     from collections import deque
@@ -127,19 +142,19 @@ def image_features(encoder, items, augmentation, batch_size, num_workers,
     # workers or some sit idle (bench.py sizes it so as well)
     loader = ImageBatchLoader(items, augmentation, batch_size,
                               worker_kind=kind, num_workers=num_workers,
-                              prefetch=max(4, num_workers), seed=seed)
+                              prefetch=max(4, num_workers), seed=seed,
+                              shard=(None if mesh is None
+                                     else (data_rank(mesh), data_size(mesh))))
     # provenance: the native decode differs pixel-wise from PIL (~2/255
     # on average); the cache records which one ran
     decoder = "native-libjpeg" if loader._native is not None else "pil"
-    feats, labels, paths = [], [], []
+    batches = []  # (features, labels, paths) of each batch, in order
     pending = deque()
 
     def drain(window):
         while len(pending) > window:
             out, labs, pths = pending.popleft()
-            feats.append(out.result())
-            labels.append(labs)
-            paths.extend(pths)
+            batches.append((out.result(), labs, pths))
 
     staged_q = queue.Queue(maxsize=3)
     stop = threading.Event()
@@ -182,27 +197,38 @@ def image_features(encoder, items, augmentation, batch_size, num_workers,
                 except queue.Empty:
                     pass
     drain(0)
+    batches = gather_in_order(mesh, batches)
+    if batches is None:
+        return None
     return {
-        "features": np.concatenate(feats, axis=0),
-        "labels": np.concatenate(labels, axis=0),
-        "paths": paths,
+        "features": np.concatenate([b[0] for b in batches], axis=0),
+        "labels": np.concatenate([b[1] for b in batches], axis=0),
+        "paths": [p for b in batches for p in b[2]],
         "decoder": decoder,
     }
 
 
 def text_features(encoder, dsname, lab2cname, augmentation,
-                  return_tokens=False):
-    """Per-class template prompt features (features.py:107-149)."""
+                  return_tokens=False, mesh=None):
+    """Per-class template prompt features (features.py:107-149).  With a
+    ``mesh`` the classes go round robin over the ranks and rank 0 gets
+    them all in order (None on the other ranks)."""
     templates = get_templates(dsname, augmentation)
-    feats, labels, eots, prompts_dict = [], [], [], {}
-    for label, cname in lab2cname.items():
+    # the dataset's class order comes from a set: rank 0's is everyone's
+    classes = agree(mesh, list(lab2cname.items()))
+    encoded, prompts_dict = [], {}
+    for i, (label, cname) in enumerate(classes):
         text_prompts = [t.format(cname.replace("_", " ")) for t in templates]
-        out, indices = encoder.encode_texts(text_prompts,
-                                            return_tokens=return_tokens)
-        feats.append(out)
-        labels.append(np.full(len(templates), label, dtype=np.int64))
-        eots.append(indices)
         prompts_dict[label] = text_prompts
+        if owns(mesh, i):
+            encoded.append(encoder.encode_texts(text_prompts,
+                                                return_tokens=return_tokens))
+    encoded = gather_in_order(mesh, encoded)
+    if encoded is None:
+        return None
+    feats = [out for out, _ in encoded]
+    eots = [indices for _, indices in encoded]
+    labels = [np.full(len(templates), label, dtype=np.int64) for label, _ in classes]
     return {
         "features": np.concatenate(feats, axis=0),
         "labels": np.concatenate(labels, axis=0),
@@ -212,28 +238,33 @@ def text_features(encoder, dsname, lab2cname, augmentation,
     }
 
 
-def descriptor_features(encoder, descriptors, lab2cname, return_tokens=False):
-    """Per-class CUPL descriptor features (features.py:54-103)."""
+def descriptor_features(encoder, descriptors, lab2cname, return_tokens=False,
+                        mesh=None):
+    """Per-class CUPL descriptor features (features.py:54-103); a ``mesh``
+    splits the classes as ``text_features`` does."""
     cname2lab_dict = cname2lab(lab2cname)
-    feats, labels, eots, prompts_dict = [], [], [], {}
+    matched = []  # (label, descriptions) of the classes the dataset has
     for cls, descriptions in descriptors.items():
         key = cls.replace(" ", "_").lower()
         if key not in cname2lab_dict:
             print(f"[!!!] Class not found in lab2cname dict corresponding to {cls}")
             continue
-        label = cname2lab_dict[key]
-        out, indices = encoder.encode_texts(descriptions,
-                                            return_tokens=return_tokens)
-        feats.append(out)
-        labels.append(np.full(len(descriptions), label, dtype=np.int64))
-        eots.append(indices)
-        prompts_dict[label] = descriptions
-    if not feats:
+        matched.append((cname2lab_dict[key], descriptions))
+    if not matched:
         raise ValueError(
             "No descriptor class matched the dataset's classnames — the "
             "descriptor JSON and the benchmark's lab2cname are disjoint "
             "(wrong dataset, or a custom/synthetic class list)."
         )
+    encoded = gather_in_order(mesh, [
+        encoder.encode_texts(descriptions, return_tokens=return_tokens)
+        for i, (_, descriptions) in enumerate(matched) if owns(mesh, i)])
+    if encoded is None:
+        return None
+    feats = [out for out, _ in encoded]
+    eots = [indices for _, indices in encoded]
+    labels = [np.full(len(d), label, dtype=np.int64) for label, d in matched]
+    prompts_dict = dict(matched)
     return {
         "features": np.concatenate(feats, axis=0),
         "labels": np.concatenate(labels, axis=0),
@@ -249,7 +280,13 @@ def descriptor_features(encoder, descriptors, lab2cname, return_tokens=False):
 # ---------------------------------------------------------------------------
 
 
-def _should_write(path: str, overwrite: bool, what: str) -> bool:
+def _should_write(path: str, overwrite: bool, what: str, mesh=None) -> bool:
+    """Whether to (re)write a cache: rank 0's answer on every rank."""
+    return agree(mesh, _should_write_here(path, overwrite, what)
+                 if is_primary() else None)
+
+
+def _should_write_here(path: str, overwrite: bool, what: str) -> bool:
     if overwrite or not os.path.exists(path):
         reason = "overwrite is set to True" if overwrite else "it does not exist"
         print(f"=> Saving {what} to {path} because {reason}")
@@ -264,31 +301,37 @@ def prepare_image_features(encoder, args, ds, mode="train"):
                       args.image_augmentation, args.train_shot, args.seed,
                       mode, args.return_tokens)
     makedirs(os.path.dirname(path))
-    if not _should_write(path, args.overwrite, "image features"):
+    mesh = getattr(args, "mesh_obj", None)
+    if not _should_write(path, args.overwrite, "image features", mesh):
         return
     if mode == "train":
         features = {
             split: image_features(encoder, ds[split], args.image_augmentation,
                                   args.batch_size, args.num_workers,
-                                  args.return_tokens, args.seed)
+                                  args.return_tokens, args.seed, mesh)
             for split in ("train", "val")
         }
+        if features["train"] is None:
+            return
     else:
         features = image_features(encoder, ds["test"], "crop",
                                   args.batch_size, args.num_workers,
-                                  args.return_tokens, args.seed)
+                                  args.return_tokens, args.seed, mesh)
+        if features is None:
+            return
     features["lab2cname"] = ds.get("lab2cname")
     save_cache(features, path)
 
 
 def prepare_text_features(encoder, args, ds):
     text_encoder_name = args.clip_encoder if args.use_clip else args.language_model
+    mesh = getattr(args, "mesh_obj", None)
 
     if args.descriptor_type is not None:
         dpath = descriptor_outdir(args.feature_dir, text_encoder_name,
                                   args.dataset, args.descriptor_type,
                                   args.return_tokens)
-        if _should_write(dpath, args.overwrite, "descriptor features"):
+        if _should_write(dpath, args.overwrite, "descriptor features", mesh):
             hparams = dict(DESCRIPTOR_DICT[args.descriptor_type])
             fname = os.path.join(args.description_dir, hparams["dirname"],
                                  f"descriptors_{args.dataset}.json")
@@ -299,16 +342,20 @@ def prepare_text_features(encoder, args, ds):
             hparams["dsname"] = args.dataset
             descriptions, _ = load_gpt_descriptions(hparams)
             features = descriptor_features(encoder, descriptions,
-                                           ds["lab2cname"], args.return_tokens)
-            save_cache(features, dpath)
+                                           ds["lab2cname"], args.return_tokens,
+                                           mesh)
+            if features is not None:
+                save_cache(features, dpath)
 
     path = text_outdir(args.feature_dir, text_encoder_name, args.dataset,
                        args.text_augmentation, args.return_tokens)
     makedirs(os.path.dirname(path))
-    if _should_write(path, args.overwrite, "text features"):
+    if _should_write(path, args.overwrite, "text features", mesh):
         features = text_features(encoder, args.dataset, ds["lab2cname"],
-                                 args.text_augmentation, args.return_tokens)
-        save_cache(features, path)
+                                 args.text_augmentation, args.return_tokens,
+                                 mesh)
+        if features is not None:
+            save_cache(features, path)
 
 
 class _RandomTextEncoder:
@@ -379,27 +426,23 @@ class _HFEncoderAdapter(ClipEncoder):
         return super().stage_images(imgs_uint8)
 
 
-def check_encoders_ported(args) -> None:
-    """Raise for encoder flags whose code is not ported yet (a
-    multi-device ``--mesh``), before any dataset or model work."""
-    check_mesh_flag(args.mesh)
-
-
 def check_ported(args) -> None:
     """uml_tpu's early refusal of a mixed int8 mode with a non-CLIP tower
-    (features.py:452-457), then check_encoders_ported."""
+    (features.py:452-457)."""
     quant = getattr(args, "quant", "none")
     if args.vision_model and quant not in ("none", "int8"):
         raise SystemExit(
             f"--quant {quant}: the mixed int8 modes (int8_mlp/int8_attn/"
             f"int8_qkv) are CLIP-tower serving modes; "
             f"{args.vision_model} supports --quant none|int8")
-    check_encoders_ported(args)
 
 
 def main(args):
     """Run the extraction; returns the encoder it used."""
     check_ported(args)
+    args.mesh_obj = mesh_from_flag(args.mesh)
+    if args.mesh_obj is not None:
+        print(f"=> Extraction over {data_size(args.mesh_obj)} ranks")
     if args.seed >= 0:
         print(f"Setting fixed seed: {args.seed}")
         set_random_seed(args.seed)

@@ -65,7 +65,14 @@ features CLI only).  ``--ckpt_every N`` saves the loop's state every N
 iterations into ``<combo>/checkpoints``, and a rerun of the combo resumes
 from the latest checkpoint (train/supervised.py).
 
-Not ported yet (it raises before any work): a multi-device ``--mesh``.
+``--mesh auto`` (the default) run from the command line with several
+cards starts one process per card (core.meshes.launch_per_card) and
+trains data-parallel (train/supervised.py: every rank draws the same
+global batches and steps on its rows); the frozen path's features
+are extracted round robin by loader batch and shared with every rank.
+Rank 0 alone writes ``test_result.pth``, ``results.pth``, ``log.txt``,
+the metrics and the checkpoints; the skip-if-exists check is rank 0's
+answer on every rank.  With one card it is the one-process run.
 """
 
 from __future__ import annotations
@@ -79,9 +86,10 @@ import numpy as np
 import torch
 
 from uml_tpu_torch.cli.features import _HFEncoderAdapter
-from uml_tpu_torch.cli.features import check_encoders_ported
 from uml_tpu_torch.core.checkpoint import TrainCheckpointer
 from uml_tpu_torch.core.flags import build_shared_parser
+from uml_tpu_torch.core.distributed import is_primary
+from uml_tpu_torch.core.meshes import agree, data_rank, data_size, mesh_from_flag
 from uml_tpu_torch.core.prng import make_rng
 from uml_tpu_torch.core.sweep import expand_sweep, run_sweep_cli
 from uml_tpu_torch.data.feature_cache import load_cache, save_cache, text_outdir
@@ -95,6 +103,7 @@ from uml_tpu_torch.models.clip import clip_embed_dim
 from uml_tpu_torch.models.dino import DINO_CONFIGS
 from uml_tpu_torch.models.uml_head import (UMLHead, make_uml_clip_head,
                                            make_uml_dino_head)
+from uml_tpu_torch.parallel.data_parallel import gather_in_order
 from uml_tpu_torch.train.optim import HYPER_DICT, build_optimizer, build_schedule
 from uml_tpu_torch.train.supervised import (
     EVAL_FREQ,
@@ -143,14 +152,18 @@ def savedir(outdir, dataset, encoder, train_shot, seed, text_type, text_shots,
                         mod_name, init_mode)
 
 
-def _extract_split_features(encoder, items, augmentation, batch_size, seed):
-    """Frozen-backbone features of a split."""
-    feats, labels = [], []
-    for imgs, labs, _ in ImageBatchLoader(items, augmentation, batch_size,
-                                          seed=seed):
-        feats.append(encoder.encode_images(imgs))
-        labels.append(labs)
-    return np.concatenate(feats), np.concatenate(labels)
+def _extract_split_features(encoder, items, augmentation, batch_size, seed,
+                            mesh=None):
+    """Frozen-backbone features of a split; with a ``mesh`` the ranks take
+    the loader batches round robin and every rank gets them all."""
+    shard = None if mesh is None else (data_rank(mesh), data_size(mesh))
+    done = gather_in_order(mesh, [
+        (encoder.encode_images(imgs), labs)
+        for imgs, labs, _ in ImageBatchLoader(items, augmentation, batch_size,
+                                              seed=seed, shard=shard)],
+        to_all=True)
+    return (np.concatenate([f for f, _ in done]),
+            np.concatenate([lab for _, lab in done]))
 
 
 def _decode_split(items, seed):
@@ -178,15 +191,17 @@ def setup(datasets, hparams, args):
                    hparams["batch_size"], hparams["max_iter"],
                    hparams["dropout"], hparams["learnable_temp"]))
     makedirs(ckpt_dir)
+    mesh = getattr(args, "mesh_obj", None)
+    primary = is_primary()
     test_path = os.path.join(ckpt_dir, "test_result.pth")
-    if os.path.exists(test_path) and not args.force_rerun:
+    if agree(mesh, os.path.exists(test_path) and not args.force_rerun):
         print(f"=> Skipping {ckpt_dir} as it already exists!")
-        return load_cache(test_path)
+        return agree(mesh, load_cache(test_path) if primary else None)
     print(f"=> Setting up {ckpt_dir}")
 
     logger = init_logger("unpaired_multimodal", config={**vars(args), **hparams},
                          tags=[args.dataset, args.modality, args.hyperparams],
-                         logdir=ckpt_dir)
+                         logdir=ckpt_dir) if primary else None
 
     bs = hparams["batch_size"]
     encoder = datasets["encoder"]
@@ -238,11 +253,11 @@ def setup(datasets, hparams, args):
         train_items = (datasets["img_tr_ds"][:1000]
                        if args.modality == "text" else datasets["img_tr_ds"])
         img_tr, lab_tr = _extract_split_features(
-            encoder, train_items, args.image_augmentation, 128, args.seed)
+            encoder, train_items, args.image_augmentation, 128, args.seed, mesh)
         img_val, lab_val = _extract_split_features(
-            encoder, datasets["img_val_ds"], "crop", 128, args.seed)
+            encoder, datasets["img_val_ds"], "crop", 128, args.seed, mesh)
         img_te, lab_te = _extract_split_features(
-            encoder, datasets["img_te_ds"], "crop", 128, args.seed)
+            encoder, datasets["img_te_ds"], "crop", 128, args.seed, mesh)
         image_stream = CyclicBatcher(img_tr, lab_tr, bs, seed=args.seed)
         capture = {
             "image_feats": img_tr[:1000],
@@ -280,15 +295,17 @@ def setup(datasets, hparams, args):
     # --ckpt_every: mid-run checkpoints in the combo's folder; a rerun of
     # the combo resumes from the latest (uml_tpu/cli/finetune.py:239-264)
     ckpt_every = getattr(args, "ckpt_every", 0) or None
-    checkpointer = (TrainCheckpointer(os.path.join(ckpt_dir, "checkpoints"))
+    checkpointer = (TrainCheckpointer(os.path.join(ckpt_dir, "checkpoints"),
+                                      mesh=mesh)
                     if ckpt_every else None)
     result = train(
         model, image_stream, text_stream, val_batches,
         test_batches if args.eval_test else None,
         optimizer=optimizer, max_iters=hparams["max_iter"], alpha=args.alpha,
         eval_freq=EVAL_FREQ, patience=hparams["patience"], capture=capture,
-        logger=logger, checkpointer=checkpointer, ckpt_every=ckpt_every)
-    validate = make_validate(model)
+        logger=logger, checkpointer=checkpointer, ckpt_every=ckpt_every,
+        mesh=mesh)
+    validate = make_validate(model, mesh)
     test_loss, test_acc = validate(result["final_params"], test_batches)
     if hasattr(logger, "finish"):
         logger.log({"test/test_loss": test_loss, "test/test_acc": test_acc})
@@ -301,8 +318,9 @@ def setup(datasets, hparams, args):
         "iter": result["iter"],
     }
     print(f"=> Test Acc: {test_acc:.4f}")
-    print(f"=> Saving Test Results for hparams to {test_path}")
-    save_cache(test_dict, test_path)
+    if primary:
+        print(f"=> Saving Test Results for hparams to {test_path}")
+        save_cache(test_dict, test_path)
     return test_dict
 
 
@@ -318,8 +336,9 @@ def sweep(datasets, hyperparams, args):
         results["test_acc"].append(out["test_acc"])
         results["val_acc"].append(out["val_acc"])
         results["hparams"].append(combo)
-    print(f"=> Saving results across all hparams to {args.savepath}")
-    save_cache(results, os.path.join(args.savepath, "results.pth"))
+    if is_primary():
+        print(f"=> Saving results across all hparams to {args.savepath}")
+        save_cache(results, os.path.join(args.savepath, "results.pth"))
 
     best_idx = int(np.argmax(results["val_acc"]))
     best = (results["val_acc"][best_idx], results["test_acc"][best_idx],
@@ -330,10 +349,9 @@ def sweep(datasets, hyperparams, args):
 
 
 def check_ported(args) -> None:
-    """Raise for flags whose code is not ported yet (a multi-device
-    ``--mesh``), before any work.  ``--quant`` is accepted and ignored, as
+    """The early check of the flags, before any work.  Every flag is
+    ported: nothing is refused.  ``--quant`` is accepted and ignored, as
     uml_tpu's finetune does (its help: "Extraction-only")."""
-    check_encoders_ported(args)
 
 
 def main(args):
@@ -341,6 +359,9 @@ def main(args):
     from uml_tpu_torch.models.encoders import ClipEncoder
 
     check_ported(args)
+    args.mesh_obj = mesh_from_flag(args.mesh)
+    if args.mesh_obj is not None:
+        print(f"=> Data-parallel training over {data_size(args.mesh_obj)} ranks")
     if args.seed >= 0:
         print(f"=> Setting fixed seed: {args.seed}")
         set_random_seed(args.seed)
@@ -355,8 +376,10 @@ def main(args):
         getattr(args, "text_batch_size", 0) or 0, args.custom_name, args)
     makedirs(args.savepath)
 
-    logfile = open(os.path.join(args.savepath, "log.txt"), "w")
-    sys.stdout = Tee(sys.__stdout__, logfile)
+    logfile = (open(os.path.join(args.savepath, "log.txt"), "w")
+               if is_primary() else None)
+    if logfile is not None:
+        sys.stdout = Tee(sys.__stdout__, logfile)
     try:
         print("=> Arguments:", args)
         text_encoder_name = (args.clip_encoder if args.use_clip
@@ -398,7 +421,8 @@ def main(args):
         print("Done!")
     finally:
         sys.stdout = sys.__stdout__
-        logfile.close()
+        if logfile is not None:
+            logfile.close()
     return results, best_val_acc, best_test_acc
 
 

@@ -6,7 +6,10 @@ tree with [in, out] kernels, written through
 models/convert.py::seq_uml_state_dict_to_jax, so either package's
 model.pth loads into the other).  It runs on the card
 (core.device.default_device; ``UML_TORCH_DEVICE=cpu`` asks for the CPU);
-``--mesh auto`` with several cards raises (one-card port);
+``--mesh auto`` (the default) run from the command line with several
+cards starts one process per card (core.meshes.launch_per_card) and
+trains data-parallel (train/selfsup.py), rank 0 alone logging and
+writing the artifacts; with one card it is the one-process run;
 ``--debug_nans`` raises at the first step whose loss is not finite;
 ``--ckpt_every N`` (any N > 0) saves after every epoch under
 ``seed_*/checkpoints`` and a rerun resumes from the latest.
@@ -34,7 +37,9 @@ import os
 import numpy as np
 
 from uml_tpu_torch.core.checkpoint import TrainCheckpointer
-from uml_tpu_torch.core.device import check_mesh_flag, default_device
+from uml_tpu_torch.core.device import default_device
+from uml_tpu_torch.core.distributed import is_primary
+from uml_tpu_torch.core.meshes import data_size, mesh_from_flag
 from uml_tpu_torch.core.sweep import run_sweep_cli
 from uml_tpu_torch.data.affect import (DATASET_CONFIG, AffectBatchStream, load_affect,
                                        make_robust_tests, map_labels)
@@ -67,9 +72,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--debug_nans", action="store_true", default=False,
                    help="raise at the first step whose loss is not finite")
     p.add_argument("--mesh", type=str, default="auto", choices=["auto", "off"],
-                   help="'auto' with one visible device, or 'off': "
-                        "single-device run; a multi-device mesh is not "
-                        "ported yet and raises")
+                   help="'auto': data parallel over every card, one "
+                        "process per card (started by this command, or by "
+                        "torchrun / Slurm); one card runs alone; 'off': one process "
+                        "on one card")
     p.add_argument("--run_name", type=str, default="")
     p.add_argument("--results_dir", type=str, default="./results")
     p.add_argument("--log_dir", type=str, default="./logs")
@@ -237,7 +243,10 @@ def robust_evaluate(trainer, splits, batch_size, ds_name,
 
 
 def main(args):
-    check_mesh_flag(getattr(args, "mesh", "auto"))
+    mesh = mesh_from_flag(getattr(args, "mesh", "auto"))
+    if mesh is not None:
+        print(f"=> Data-parallel UML steps over {data_size(mesh)} ranks")
+    primary = is_primary()
     device = default_device()
     cfg = DATASET_CONFIG[args.ds_name]
     batch_size = cfg["batch_size"]
@@ -260,7 +269,8 @@ def main(args):
                              config={**vars(args), "seed": seed},
                              tags=[args.ds_name, args.modality,
                                    "self-supervised"],
-                             logdir=seed_dir if not args.debug else None)
+                             logdir=seed_dir if not args.debug else None
+                             ) if primary else None
 
         if args.ds_name == "mimic":
             splits = load_mimic(
@@ -282,7 +292,8 @@ def main(args):
                              pos_learnable=args.pos_learnable,
                              info_nce=args.infoNCE_loss)
         trainer = SelfSupTrainer(model, lr=args.lr, seed=seed, device=device)
-        checkpointer = (TrainCheckpointer(os.path.join(seed_dir, "checkpoints"))
+        checkpointer = (TrainCheckpointer(os.path.join(seed_dir, "checkpoints"),
+                                          mesh=mesh)
                         if args.ckpt_every else None)
         model, score, embeddings = train_selfsup(
             trainer, stream_1, stream_2, eval_streams,
@@ -290,12 +301,14 @@ def main(args):
             step_k=args.step_k, alpha_x=args.alpha_x, alpha_y=args.alpha_y,
             ds_name=args.ds_name, eval_freq=args.eval_freq,
             augment=args.augment, logger=logger, checkpointer=checkpointer,
-            check_finite=args.debug_nans)
+            check_finite=args.debug_nans, mesh=mesh)
 
         print("seed: ", seed, " score: ", score)
         print("=====================================")
         for k in outs:
             outs[k].append(100 * score[k])
+        if not primary:
+            continue
 
         os.makedirs(seed_dir, exist_ok=True)
         save_cache(seq_uml_state_dict_to_jax(model.state_dict()),
@@ -325,8 +338,9 @@ def main(args):
     outs_std = {k: float(np.std(v)) for k, v in outs.items()}
     print("Final scores (mean): ", outs_mean)
     print("Final scores (std): ", outs_std)
-    os.makedirs(results_dir, exist_ok=True)
-    save_cache(outs, os.path.join(results_dir, "results.pth"))
+    if primary:
+        os.makedirs(results_dir, exist_ok=True)
+        save_cache(outs, os.path.join(results_dir, "results.pth"))
     return outs_mean
 
 

@@ -31,13 +31,3 @@ def default_device() -> torch.device:
             "versions of the kernels)")
     return torch.device("cuda")
 
-
-def check_mesh_flag(mesh: str) -> None:
-    """``--mesh``: uml_tpu runs data-parallel over every visible device
-    under 'auto'.  The port runs on one device; a multi-device run is not
-    ported yet, so it raises instead of silently using one card."""
-    if mesh == "auto" and torch.cuda.device_count() > 1:
-        raise SystemExit(
-            f"--mesh auto sees {torch.cuda.device_count()} CUDA devices; "
-            "multi-device extraction is not ported yet. Pass --mesh off "
-            "(or expose one card with CUDA_VISIBLE_DEVICES).")

@@ -129,9 +129,10 @@ def build_shared_parser() -> argparse.ArgumentParser:
                         "build deliberately deviates")
     p.add_argument("--mesh", type=str, default="auto",
                    choices=["auto", "off"],
-                   help="'auto' with one visible device, or 'off': "
-                        "single-device run; a multi-device mesh is not "
-                        "ported yet and raises")
+                   help="'auto': data parallel over every card, one "
+                        "process per card (started by this command, or by "
+                        "torchrun / Slurm); one card runs alone; 'off': one process "
+                        "on one card")
     p.add_argument("--debug_nans", action="store_true", default=False,
                    help="raise as soon as an encoder batch produces a "
                         "non-finite feature")

@@ -98,29 +98,35 @@ def run_sweep_cli(
 
     if outer_args.debug:
         print("Running command-line arguments...")
-        args = finalize(inner_parser.parse_args(remaining))
-        main_fn(args)
-        return
-
-    combos = load_sweep(outer_args.config)
-    print("Total combinations:", len(combos))
-    for i, combo in enumerate(combos):
-        print(f"Combination {i}: {combo}")
-
-    if require_run_flag and not outer_args.run:
-        print("use -r to run experiments")
-        sys.exit(0)
-
-    if outer_args.slurm:
-        job_id = array_task_id()
-        if job_id < 0 or job_id >= len(combos):
-            print("Invalid array task id")
-            sys.exit(1)
-        print(f"=> Running combination {job_id}: {combos[job_id]}")
-        main_fn(finalize(apply_combo(inner_parser, combos[job_id])))
+        runs = [finalize(inner_parser.parse_args(remaining))]
     else:
+        combos = load_sweep(outer_args.config)
+        print("Total combinations:", len(combos))
         for i, combo in enumerate(combos):
+            print(f"Combination {i}: {combo}")
+
+        if require_run_flag and not outer_args.run:
+            print("use -r to run experiments")
+            sys.exit(0)
+
+        if outer_args.slurm:
+            job_id = array_task_id()
+            if job_id < 0 or job_id >= len(combos):
+                print("Invalid array task id")
+                sys.exit(1)
+            print(f"=> Running combination {job_id}: {combos[job_id]}")
+            runs = [finalize(apply_combo(inner_parser, combos[job_id]))]
+        else:
+            runs = [finalize(apply_combo(inner_parser, combo)) for combo in combos]
+
+    # --mesh auto over several cards: one process per card runs this
+    # command line (core.meshes); this one waits for them and exits
+    if any(hasattr(args, "mesh") for args in runs):
+        from uml_tpu_torch.core.meshes import launch_per_card
+
+        launch_per_card([getattr(args, "mesh", "off") for args in runs])
+    for i, args in enumerate(runs):
+        if not outer_args.debug and not outer_args.slurm:
             print(f"=> Running job {i}")
-            args = finalize(apply_combo(inner_parser, combo))
             print(args)
-            main_fn(args)
+        main_fn(args)

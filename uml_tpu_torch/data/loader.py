@@ -213,11 +213,15 @@ class ImageBatchLoader:
     batches are the same as in a full pass).  ``fast_decode`` allows the
     native decoder where it applies (``crop``, a square size);
     ``_native`` is its decode function where this process has it.
+    ``shard=(rank, n)`` yields only the batches whose index is ``rank``
+    modulo ``n`` (one data-parallel rank's share, decoded as in a full
+    pass: the RNG is seeded by the absolute index).
     """
 
     def __init__(self, items, augmentation="crop", batch_size=256,
                  num_workers=16, prefetch=4, seed=0, size=(224, 224),
-                 fast_decode=True, start_batch=0, worker_kind="thread"):
+                 fast_decode=True, start_batch=0, worker_kind="thread",
+                 shard=None):
         self.items = items
         self.augmentation = augmentation
         self.batch_size = batch_size
@@ -230,6 +234,7 @@ class ImageBatchLoader:
             raise ValueError(f"worker_kind {worker_kind!r}: thread/process")
         self.worker_kind = worker_kind
         self.start_batch = start_batch
+        self.shard = shard
         self._native = None
         if fast_decode and augmentation == "crop" and size[0] == size[1]:
             from uml_tpu_torch import native
@@ -238,7 +243,15 @@ class ImageBatchLoader:
                 self._native = native.fast_decode_jpeg
 
     def __len__(self):
-        return (len(self.items) + self.batch_size - 1) // self.batch_size
+        return len(self._batch_indices())
+
+    def _batch_indices(self):
+        n = (len(self.items) + self.batch_size - 1) // self.batch_size
+        indices = range(self.start_batch, n)
+        if self.shard is not None:
+            rank, size = self.shard
+            indices = [i for i in indices if i % size == rank]
+        return list(indices)
 
     def _decode_batch(self, batch_items, batch_idx):
         return _decode_batch_items(batch_items, batch_idx, self.augmentation,
@@ -246,15 +259,15 @@ class ImageBatchLoader:
                                    self._native is not None)
 
     def __iter__(self):
-        s0 = self.start_batch
-        batches = [self.items[i:i + self.batch_size]
-                   for i in range(0, len(self.items), self.batch_size)][s0:]
+        bs = self.batch_size
+        batches = [(i, self.items[i * bs:(i + 1) * bs])
+                   for i in self._batch_indices()]
         if self.worker_kind == "process":
             pool = _proc_pool(max(1, self.num_workers))  # persistent
             # the workers decode natively where this loader does, so that
             # ``decoder`` in the caches names what decoded
             yield from self._pump(
-                batches, s0,
+                batches,
                 lambda b, idx: pool.submit(
                     _decode_batch_items, b, idx, self.augmentation,
                     self.size, self.seed, self._native is not None),
@@ -262,20 +275,20 @@ class ImageBatchLoader:
             return
         with ThreadPoolExecutor(max_workers=max(1, self.num_workers)) as pool:
             yield from self._pump(
-                batches, s0,
+                batches,
                 lambda b, idx: pool.submit(self._decode_batch, b, idx),
                 lambda f: f.result(), lambda fs: [f.cancel() for f in fs])
 
-    def _pump(self, batches, s0, submit, wait, drop):
-        """``prefetch`` batches in flight, yielded in order; what is still
-        in flight when the iteration stops is dropped."""
-        pending = deque(submit(b, s0 + idx)
-                        for idx, b in enumerate(batches[:self.prefetch]))
+    def _pump(self, batches, submit, wait, drop):
+        """``prefetch`` (index, items) batches in flight, yielded in order;
+        what is still in flight when the iteration stops is dropped."""
+        pending = deque(submit(b, idx) for idx, b in batches[:self.prefetch])
         nxt = len(pending)
         try:
             while pending:
                 if nxt < len(batches):
-                    pending.append(submit(batches[nxt], s0 + nxt))
+                    idx, b = batches[nxt]
+                    pending.append(submit(b, idx))
                     nxt += 1
                 yield wait(pending.popleft())
         finally:

@@ -46,7 +46,9 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from uml_tpu_torch.core.meshes import data_size
 from uml_tpu_torch.models.clip import Linear, _Cached, _needs_grad
+from uml_tpu_torch.parallel.data_parallel import active_shard
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
@@ -102,14 +104,26 @@ def batch_norm_train(x, bn: FrozenBatchNorm, bn_updates: list):
     """The train form on NCHW ``x`` (clip_resnet.py:72-87): batch
     statistics in fp32 normalize, the result in x's dtype; appends (bn,
     new running mean, new running var) to ``bn_updates`` (no autograd
-    history), leaving the buffers as they are."""
+    history), leaving the buffers as they are.
+
+    Under data parallelism (parallel/data_parallel.py::global_batch) the
+    statistics are the global batch's: the sums of x and x² over every
+    rank's rows, so every rank writes the same running statistics."""
     xf = x.float()
     axes = (0, 2, 3)
-    bmean = xf.mean(axes)
-    bvar = torch.clamp((xf * xf).mean(axes) - bmean * bmean, min=0.0)
+    n = x.numel() // x.shape[1]
+    shard = active_shard()
+    if shard is None:
+        bmean = xf.mean(axes)
+        sq_mean = (xf * xf).mean(axes)
+    else:
+        n *= data_size(shard.mesh)
+        bmean = shard.sum(xf.sum(axes)) / n
+        sq_mean = shard.sum((xf * xf).sum(axes)) / n
+    bvar = torch.clamp(sq_mean - bmean * bmean, min=0.0)
     inv = bn.weight.float() / torch.sqrt(bvar + BN_EPS)
     y = xf * inv[:, None, None] + (bn.bias.float() - bmean * inv)[:, None, None]
-    n = max(x.numel() // x.shape[1], 2)
+    n = max(n, 2)
     with torch.no_grad():
         unbiased = bvar * n / (n - 1)
         new_mean = (1 - BN_MOMENTUM) * bn.running_mean + BN_MOMENTUM * bmean

@@ -220,3 +220,16 @@ def seq_uml_state_dict_to_jax(state_dict) -> dict:
         else:
             node[name] = a.copy()
     return {"params": params}
+
+
+def shared_autoencoder_from_jax(variables) -> dict:
+    """{'params': {...}} of uml_tpu's SharedAutoencoder -> the port's
+    state_dict: each Dense ``kernel`` [in, out] -> ``weight`` [out, in]
+    (the same walk as ``seq_uml_state_dict_from_jax``)."""
+    return seq_uml_state_dict_from_jax(variables)
+
+
+def shared_autoencoder_to_jax(state_dict) -> dict:
+    """The inverse: the port's SharedAutoencoder state_dict -> uml_tpu's
+    {'params': {...}} tree of numpy fp32 leaves."""
+    return seq_uml_state_dict_to_jax(state_dict)

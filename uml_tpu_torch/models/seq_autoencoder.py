@@ -19,13 +19,16 @@ maps the trees both ways).  Capability parity with MultiBench/models.py:
     padded steps: uml_tpu computes real values there, and they enter
     ``diff_next`` and ``loss_private``;
   * masked ``MSE`` and the fixed-shape ``SequenceInfoNCELoss``
-    (models.py:129-175);
+    (models.py:129-175); their sums, the mask's count and InfoNCE's
+    negatives span the global batch under data parallelism
+    (parallel/data_parallel.py::global_batch), as uml_tpu's do on a mesh;
   * ``SeqUML`` == reference ``UML`` (models.py:178-278), the y branch not
     key-padding masked (the reference's quirk, kept).
 
 fp32 end to end.  Dropout is on only when a ``generator`` is passed: each
-mask is drawn from that ``torch.Generator`` (on the model's device) and
-scaled by 1 / (1 - p), flax's ``nn.Dropout``; jax.random's masks cannot
+mask is drawn from that ``torch.Generator`` (on the model's device; under
+data parallelism the global batch's mask, of which each rank keeps its
+rows) and scaled by 1 / (1 - p), flax's ``nn.Dropout``; jax.random's masks cannot
 be reproduced, so the parity tests set ``dropout`` to 0.  ``init_random``
 draws flax's init distributions (truncated lecun-normal kernels, zero
 biases, unit LayerNorm scales, ``pos_embedding`` normal(1.0)) from a
@@ -41,6 +44,13 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from uml_tpu_torch.ops.attention import mha_plain
+from uml_tpu_torch.parallel.data_parallel import (
+    global_gather,
+    global_mean,
+    global_rows,
+    global_sum,
+    row_offset,
+)
 
 # flax's truncated lecun-normal: N(0, 1) cut at +-2, rescaled to unit
 # variance (jax.nn.initializers.variance_scaling's constant)
@@ -56,9 +66,10 @@ def masked_mse(predictions, targets, mask=None):
     """Parity with models.py:129-143; the denominator counts mask elements
     after the broadcast over the feature dim (the reference's expand_as)."""
     if mask is None:
-        return torch.mean((predictions - targets) ** 2)
+        return global_mean((predictions - targets) ** 2)
     m = mask[..., None].expand(targets.shape).to(predictions.dtype)
-    return torch.sum((predictions - targets) ** 2 * m) / (torch.sum(m) + 1e-8)
+    return (global_sum(torch.sum((predictions - targets) ** 2 * m))
+            / (global_sum(torch.sum(m)) + 1e-8))
 
 
 def sequence_info_nce(predictions, targets, mask=None, temperature=0.07):
@@ -67,26 +78,39 @@ def sequence_info_nce(predictions, targets, mask=None, temperature=0.07):
     keeps its own positive).  predictions / targets [B, T, D], mask bool
     [B, T] (True = valid)."""
     b, t, d = predictions.shape
-    preds = predictions.reshape(b * t, d)
-    targs = targets.reshape(b * t, d)
-    eye = torch.eye(b * t, dtype=torch.bool, device=preds.device)
-    valid = (torch.ones(b * t, dtype=torch.bool, device=preds.device)
-             if mask is None else mask.reshape(b * t))
+    n = b * t
+    preds = predictions.reshape(n, d)
+    targs = targets.reshape(n, d)
+    valid = (torch.ones(n, dtype=torch.bool, device=preds.device)
+             if mask is None else mask.reshape(n))
     preds = preds / (torch.linalg.vector_norm(preds, dim=-1, keepdim=True) + 1e-12)
     targs = targs / (torch.linalg.vector_norm(targs, dim=-1, keepdim=True) + 1e-12)
-    logits = preds @ targs.T / temperature
-    logits = logits.masked_fill(~(valid[None, :] | eye), -1e30)
-    per_row = -torch.diagonal(F.log_softmax(logits, dim=-1))
+    # under data parallelism the negatives are every rank's targets and
+    # row i's positive is column offset + i of the gathered targets
+    targs_all = global_gather(targs)
+    valid_all = global_gather(valid.to(torch.uint8)).bool()
+    rows = torch.arange(n, device=preds.device)
+    cols = rows + row_offset(n)
+    eye = torch.zeros(n, targs_all.shape[0], dtype=torch.bool, device=preds.device)
+    eye[rows, cols] = True
+    logits = preds @ targs_all.T / temperature
+    logits = logits.masked_fill(~(valid_all[None, :] | eye), -1e30)
+    per_row = -F.log_softmax(logits, dim=-1)[rows, cols]
     w = valid.to(predictions.dtype)
-    return torch.sum(per_row * w) / (torch.sum(w) + 1e-8)
+    return global_sum(torch.sum(per_row * w)) / (global_sum(torch.sum(w)) + 1e-8)
 
 
 def dropout(x, p: float, generator):
     """flax ``nn.Dropout``: keep with probability 1 - p, scale by 1 / (1 - p);
-    the identity without a ``generator`` or at p = 0."""
+    the identity without a ``generator`` or at p = 0.  Under data
+    parallelism every rank draws the global batch's mask from the same
+    generator and keeps its rows: the masks of a one-process run."""
     if generator is None or p == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    n = x.shape[0]
+    start = row_offset(n)
+    keep = torch.rand((global_rows(n), *x.shape[1:]), generator=generator,
+                      device=x.device)[start:start + n] >= p
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
                                                         device=x.device))
 
@@ -252,7 +276,7 @@ class SeqUML(nn.Module):
         else:
             loss = critic(recon[:, :-1, :], data[:, 1:, :],
                           mask[:, 1:] if mask is not None else None)
-        diff_next = torch.mean((proj - z) ** 2)
+        diff_next = global_mean((proj - z) ** 2)
         return loss, proj, z, recon, diff_next
 
     def forward(self, x=None, y=None, x_lengths=None, y_lengths=None,
@@ -277,8 +301,8 @@ class SeqUML(nn.Module):
             out["x_private"], out["y_private"] = x_private, y_private
             # models.py:258-262: sum over the batch of the squared mean
             # cross-correlation of the residuals
-            out["loss_private"] = torch.sum(
-                torch.mean(x_private * y_private, dim=(1, 2)) ** 2)
+            out["loss_private"] = global_sum(torch.sum(
+                torch.mean(x_private * y_private, dim=(1, 2)) ** 2))
         return out
 
     def get_embedding(self, x, y):

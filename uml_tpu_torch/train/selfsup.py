@@ -39,12 +39,18 @@ import numpy as np
 import torch
 
 from uml_tpu_torch.core.device import default_device
+from uml_tpu_torch.core.meshes import replicate
 from uml_tpu_torch.data.affect import map_labels
 from uml_tpu_torch.data.seq_augment import augment_single
 from uml_tpu_torch.metrics.alignment import cka as cka_fn
 from uml_tpu_torch.metrics.alignment import compute_effective_rank
 from uml_tpu_torch.metrics.alignment import mutual_knn as mknn_fn
 from uml_tpu_torch.models.seq_autoencoder import SeqUML, length_mask
+from uml_tpu_torch.parallel.data_parallel import (
+    global_gather,
+    global_sum,
+    make_dp_train_step,
+)
 from uml_tpu_torch.train.probes import make_classifier, probe_scores
 
 def _clip01(v):
@@ -63,7 +69,8 @@ def _trivial_loss(data, lengths):
         return torch.zeros((), device=data.device)
     diff = data[:, :-1, :] - data[:, 1:, :]
     m = length_mask(lengths, data.shape[1])[..., None].expand(data.shape).to(data.dtype)
-    return torch.sum(diff ** 2 * m[:, :-1, :]) / (torch.sum(m[:, :-1, :]) + 1e-8)
+    return (global_sum(torch.sum(diff ** 2 * m[:, :-1, :]))
+            / (global_sum(torch.sum(m[:, :-1, :])) + 1e-8))
 
 
 class SelfSupTrainer:
@@ -115,20 +122,30 @@ class SelfSupTrainer:
             metrics["train/diff_next_y"] = out["diff_next_y"].detach()
             m = length_mask(ly, y.shape[1])[..., None].expand(y.shape).to(y.dtype)
             recon = out["y_recon"].detach()[:, :-1, :]
-            metrics["train/recon_y_loss"] = torch.sum(
-                (recon - y[:, 1:, :]) ** 2 * m[:, 1:, :]) / (torch.sum(m[:, 1:, :]) + 1e-8)
-            pred_flat = (recon * m[:, 1:, :]).reshape(-1, recon.shape[-1])
+            metrics["train/recon_y_loss"] = global_sum(torch.sum(
+                (recon - y[:, 1:, :]) ** 2 * m[:, 1:, :])) / (
+                    global_sum(torch.sum(m[:, 1:, :])) + 1e-8)
+            pred_flat = global_gather(
+                (recon * m[:, 1:, :]).reshape(-1, recon.shape[-1]))
             metrics["train/pred_effective_rank_y"] = compute_effective_rank(pred_flat)
         return metrics
 
-    def train_step(self, x, y, lx, ly, alpha_x, alpha_y, generator, mode="xy"):
-        """One Adam step on a batch already on the device -> its metrics
-        (0-d tensors, before the update, as uml_tpu's)."""
-        self.optimizer.zero_grad(set_to_none=False)
-        loss, out = self.forward_loss(x, y, lx, ly, alpha_x, alpha_y, generator, mode)
-        loss.backward()
-        self.optimizer.step()
-        return self.step_metrics(loss, out, x, y, lx, ly, mode)
+    def train_step(self, x, y, lx, ly, alpha_x, alpha_y, generator, mode="xy",
+                   mesh=None):
+        """One Adam step on a global batch already on the device -> its
+        metrics (0-d tensors of the global batch, before the update, as
+        uml_tpu's).  With a ``mesh`` the forward takes this rank's rows
+        and the gradients are averaged over the data axis
+        (parallel.make_dp_train_step)."""
+
+        def loss_fn(x, y, lx, ly):
+            loss, out = self.forward_loss(x, y, lx, ly, alpha_x, alpha_y,
+                                          generator, mode)
+            return loss, self.step_metrics(loss, out, x, y, lx, ly, mode)
+
+        step = make_dp_train_step(loss_fn, mesh, self.model.parameters(),
+                                  self.optimizer)
+        return step(x, y, lx, ly)[1]
 
     # -- embedding extraction ---------------------------------------------
 
@@ -284,16 +301,25 @@ def train_selfsup(
     logger=None,
     checkpointer=None,            # core.checkpoint.TrainCheckpointer
     check_finite: bool = False,
+    mesh=None,                    # core.meshes.create_mesh(): data parallel
 ):
     """-> (the trained model, the final score dict, the capture set's
     pooled-embedding history {'x1': [...], 'x2': [...]} or None).
-    ``check_finite``: raise at the first step whose loss is not finite."""
+    ``check_finite``: raise at the first step whose loss is not finite.
+
+    With a ``mesh`` every rank draws the same batches, the train step
+    splits them over the data axis (train_step), and the model starts
+    from rank 0's weights; the evaluations run whole on every rank, so
+    every decision is taken from values every rank holds.  Every rank's
+    dropout generator has the same seed and draws the global batch's
+    masks (models/seq_autoencoder.py::dropout), so a run with a mesh takes
+    the masks of a run without one."""
     # uml_tpu peeks one batch of each stream for the init shapes; the peek
     # draws one shuffle of each, so it is kept: the epochs then draw the
     # same orders as uml_tpu's
     next(iter(stream_1()))
     next(iter(stream_2()))
-    model = trainer.init()
+    model = replicate(mesh, trainer.init())
 
     cap = None
     if capture:
@@ -355,7 +381,8 @@ def train_selfsup(
                     (trainer.seed * 1_000_003 + epoch * 10_007 + i_batch) % (2**31))
                 x_in = augment_single(x_in, aug_rng)
             batch = trainer.to_device(x_in, db["y"], la["x"], lb["y"])
-            metrics = trainer.train_step(*batch, ax, alpha_y, rng, mode=mode)
+            metrics = trainer.train_step(*batch, ax, alpha_y, rng, mode=mode,
+                                         mesh=mesh)
             if logger is not None or check_finite:
                 values = dict(zip(metrics, torch.stack(list(metrics.values())).tolist()))
                 if check_finite and not np.isfinite(values["train/loss"]):
