@@ -257,6 +257,26 @@ Phases (any failure exits non-zero; no phase is caught):
    dropout) bit-equal to theirs without it; the step's ms with and
    without the mesh, the gradient average alone, and a profile of both
    steps with the device kernels the mesh adds.
+5j. Tensor parallelism (``[tp]``): a process group of world size 1 over
+   NCCL and create_mesh(1, 1); parallel.apply_tp_sharding of each model
+   over it (DTensors gathered whole where the model reads them): the
+   LlamaEncoder at OpenLLaMA-7B's published widths and depth, seeded
+   random weights drawn on the card, fp32 and int8_w, through
+   ``TextModel.native(..., mesh=)``: pooled features bit-equal to those
+   without the mesh, ms a call of both; the ViT-B/16 image encoder in
+   bf16, int8 and int8 with UML_TOWER_Q8=1 (batch 64): features
+   bit-equal, rows 1-3, 10-12 launched as without the mesh, img/s of
+   both; the full-model ViT-B/16 step (batch 64) with TP-applied weights
+   in each backward mode: loss, gradients and updated parameters
+   bit-equal to the step without, rows 5-9, 19 and 20 launched; the
+   step's ms with and without, and a profile of both.  The
+   features CLI with --mesh auto on one card builds no mesh ([parallel]
+   holds its outputs to --mesh off).
+5k. The graft entry (``[graft]``): uml_tpu_torch.graft_entry.entry()'s
+   ViT-B/16 bf16 forward on the card: [8, 512], finite, 11 + 1 attention
+   and 12 MLP halves launched, within cosine 0.999 of the same model on
+   the CPU; then dryrun_multichip(4) on four gloo processes on the CPU,
+   every leg passing.
 6. the products of the engine (bf16 beside torch.matmul, int8 beside
    torch._int_mm) and the attention backward's passes as one JSON line,
    the kernel table as one JSON line, the device line last.
@@ -301,6 +321,11 @@ PORTS = [
     ("attn_block_q8", "uml_tpu_torch/csrc/attn_block_q8.cu",
      "uml_tpu/ops/quant.py:168"),
     ("mlp_block_q8", "uml_tpu_torch/csrc/mlp_block_q8.cu",
+     "uml_tpu/ops/quant.py:228"),
+    # row 11 without an activation (uml_tpu's identity, the default of
+    # ln_mlp_block_q8): c_fc's ROWABSMAX and QUANT passes; no model path
+    # calls it, so its launches come from one public ln_mlp_block_q8 call
+    ("mlp_block_q8_identity", "uml_tpu_torch/csrc/mlp_block_q8.cu",
      "uml_tpu/ops/quant.py:228"),
     ("tower_q8", "uml_tpu_torch/csrc/tower_q8.cu",
      "uml_tpu/ops/tower_q8.py:49"),
@@ -414,7 +439,8 @@ REL_BOUND = {"attn_block": 1 / 64, "attn_block_cls": 1 / 64,
              "attn_block_bwd": 1 / 64, "attn_block_cls_bwd": 1 / 64,
              "mlp_block_stash": 1 / 64, "attn_block_q8": 1 / 64,
              "attn_block_q8_qkv": 1 / 64, "attn_block_q8_causal": 1 / 64,
-             "mlp_block_q8": 1 / 64, "tower_q8": 1 / 16,
+             "mlp_block_q8": 1 / 64, "mlp_block_q8_identity": 1 / 64,
+             "tower_q8": 1 / 16,
              "attn_block_bwd_recompute": 1 / 64,
              "attn_block_bwd_recompute_causal": 1 / 64, "mlp_bwd": 1 / 64,
              "mlp_bwd_dw": 1 / 64,
@@ -495,6 +521,9 @@ Q8_MLP_KERNELS = ("ln_quantize_rows_kernel", "wgmma_gemm_kernel<false, false, 10
 # the same with exact GELU (DINO): c_fc's quantizing pass WGG_OUT_Q8_ACTQ_GELU
 Q8_MLP_GELU_KERNELS = (*Q8_MLP_KERNELS[:2], "wgmma_gemm_kernel<false, false, 12>",
                        Q8_MLP_KERNELS[3])
+# and without an activation: WGG_OUT_Q8_ROWABSMAX = 15, WGG_OUT_Q8_QUANT = 16
+Q8_MLP_IDENTITY_KERNELS = (Q8_MLP_KERNELS[0], "wgmma_gemm_kernel<false, false, 15>",
+                           "wgmma_gemm_kernel<false, false, 16>", Q8_MLP_KERNELS[3])
 # F6: the int8 halves' integers are held on 8 more draws of the int8 case
 # weights, each from a generator of its own
 F6_DRAW_SEEDS = range(1000, 1008)
@@ -807,6 +836,23 @@ def _int8_flips(xv, q8v, eps=1e-5):
     return flips
 
 
+def _identity_flips(xv, q8v, eps=1e-5):
+    """Row 11 without an activation: the int8 hidden of the card (read
+    from the launch's scratch) against quantize_rows of the plain
+    pre-activation -> (share of integers that differ, largest
+    difference)."""
+    from uml_tpu_torch.ops import quant as q8
+
+    w1q, w1sc, b1, w2q, w2sc, b2 = q8v[6:]
+    k = xv.shape[-1]
+    xq, xs = q8.ln_quantize_rows(xv.float().reshape(-1, k), eps)
+    want = q8.quantize_rows(q8.q8_dot(xq, xs, w1q, w1sc) + b1)[0]
+    got = q8._launch_mlp_block_q8(xv, w1q.t(), w1sc, b1, w2q.t(), w2sc, b2, eps,
+                                  None)[1]
+    diff = (got[:want.numel()].view_as(want).int() - want.int()).abs()
+    return (diff > 0).float().mean().item(), diff.max().item()
+
+
 def _attention_witness(xv, attn_w, heads=12):
     """The bf16 attention output of the fused half on the card (its stash)
     and of attention_plain, each against the fp32 witness of the card's own
@@ -1043,6 +1089,9 @@ def phase_kernels():
          (rows_t, kt, 3 * kt, True)),
         ("mlp_block_q8", q8.mlp_block_q8, q8.mlp_block_q8_plain,
          (xv, *q8v[6:]), mlp_f, 0, (rows, k, m, True)),
+        ("mlp_block_q8_identity", lambda *a: q8.mlp_block_q8(*a, activation=None),
+         lambda *a: q8.mlp_block_q8_plain(*a, activation=None),
+         (xv, *q8v[6:]), mlp_f, 0, (rows, k, m, True)),
         ("tower_q8", lambda *a: tq8.tower_q8(*a, heads=12),
          lambda *a: tq8.tower_q8_plain(*a, heads=12), (xv, *q8_tower),
          11 * (qkv_f + out_f + mlp_f), 11 * attn_f, (rows, k, m, True)),
@@ -1137,6 +1186,11 @@ def phase_kernels():
                   f"differ from the plain version's, largest difference {worst}")
             _check(worst <= 1, (tag, half, "integer differs by more than one step",
                                 worst))
+        share, worst = _identity_flips(xv, weights())
+        print(f"[kernels] int8 integers ({tag}), mlp_hidden without an activation: "
+              f"{100 * share:.4f}% differ from the plain version's, largest "
+              f"difference {worst}")
+        _check(worst <= 1, (tag, "identity hidden differs by more than one step", worst))
         # the second witness: both sides against fp32 attention with
         # unrounded probabilities (recorded, not held)
         for half in ("attn_out vs fp32", "plain vs fp32"):
@@ -1196,6 +1250,16 @@ def phase_kernels():
            and not any("act_quantize_rows" in n for n in names),
            ("row 11: ln_quantize_rows, ROWMAX, ACTQ and c_proj only", names))
     results["mlp_block_q8"]["profile_kernels"] = names
+    # without an activation: c_fc's abs-max and quantizing passes in their
+    # place
+    names = _kernel_names(_profile(
+        "row 11 mlp_block_q8, no activation",
+        lambda: q8.mlp_block_q8(xv, *q8v[6:], activation=None)))
+    _check(len(names) == len(Q8_MLP_IDENTITY_KERNELS)
+           and all(sum(part in n for n in names) == 1 for part in Q8_MLP_IDENTITY_KERNELS),
+           ("row 11 without an activation: ln_quantize_rows, ROWABSMAX, QUANT and "
+            "c_proj only", names))
+    results["mlp_block_q8_identity"]["profile_kernels"] = names
     # row 4 at S = 77: one launch of the tower kernel a call, nothing else
     # (no qkv_attention, no engine product); row 8: dattn on the engine,
     # then the three passes of cls_bwd.cuh, and no dense dxn product
@@ -2217,6 +2281,7 @@ def phase_int8_path(root, sizes, bf16_encoder):
     _check(tower_launches == want_tower, (tower_launches, want_tower))
     _check(torch.equal(towered, per_layer), "tower_q8 equals the per-layer path")
     launches["tower_q8"] = tower_launches["tower_q8"]
+    launches["mlp_block_q8_identity"] = _identity_public_call(staged.pixels.device)
     cos_q8 = _cos_min(per_layer.float().cpu().numpy(), bf16.float().cpu().numpy())
     print(f"[int8] UML_TOWER_Q8=1: tower_q8 launched once, features equal "
           f"the per-layer int8 path's; int8 vs bf16 features of the same "
@@ -2300,6 +2365,44 @@ def phase_int8_path(root, sizes, bf16_encoder):
     print(f"[int8] {len(views)} int8 weights of {len(blocks)} layers read in place "
           f"(K-major caches, no per-batch transpose)")
     return launches, numbers
+
+
+def _identity_public_call(dev):
+    """Row 11 without an activation through uml_tpu's public signature,
+    ``ln_mlp_block_q8`` with its default activation (None), at ViT-B/16
+    widths, batch 64: one launch of the int8 MLP half, nothing else, and
+    the output within 1/64 of the plain version on the same folded and
+    quantized weights -> its launches."""
+    import torch
+
+    from uml_tpu_torch.ops import quant as q8
+    from uml_tpu_torch.ops.fused_attention import fold_ln_into_matmul
+
+    gen = torch.Generator(device=dev).manual_seed(20)
+    k, m = 768, 3072
+    x = torch.randn(64, 197, k, generator=gen, device=dev).to(torch.bfloat16)
+    scale = 1 + 0.1 * torch.randn(k, generator=gen, device=dev)
+    bias = 0.05 * torch.randn(k, generator=gen, device=dev)
+    w1 = torch.randn(k, m, generator=gen, device=dev) * k ** -0.5
+    b1 = 0.02 * torch.randn(m, generator=gen, device=dev)
+    w2 = (torch.randn(m, k, generator=gen, device=dev) * m ** -0.5).to(torch.bfloat16)
+    b2 = 0.02 * torch.randn(k, generator=gen, device=dev)
+    with torch.no_grad():
+        got, launches = _counted(lambda: q8.ln_mlp_block_q8(x, scale, bias, w1, b1, w2, b2))
+        w1_eff, b1_eff = fold_ln_into_matmul(scale, bias, w1, b1)
+        w1q, w1sc = q8.quantize_weight(w1_eff)
+        w2q, w2sc = q8.quantize_weight(w2)
+        want = q8.mlp_block_q8_plain(x, w1q, w1sc, b1_eff, w2q, w2sc, b2.float(),
+                                     activation=None)
+    want_launches = dict.fromkeys(launches, 0)
+    want_launches["mlp_block_q8"] = 1
+    _check(launches == want_launches, ("ln_mlp_block_q8's default", launches))
+    err = ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+    _check(err <= 1 / 64, ("ln_mlp_block_q8's default vs plain", err))
+    print(f"[int8] ln_mlp_block_q8 with its default activation (None) at ViT-B/16 "
+          f"widths, batch 64: one int8 MLP half launched, max |kernel - plain| / "
+          f"max |plain| {err:.5f}")
+    return launches["mlp_block_q8"]
 
 
 def phase_rn(root, sizes):
@@ -4095,7 +4198,7 @@ def _same_step(plain, dp, what):
     return n
 
 
-def _kernel_diff(what, plain_rows, mesh_rows, reps=3, top=6):
+def _kernel_diff(what, plain_rows, mesh_rows, reps=3, top=6, tag="parallel"):
     """The device kernels whose time per call grows most from the
     ``plain_rows`` profile to the ``mesh_rows`` one (``_profile`` rows)."""
     plain = {}
@@ -4106,10 +4209,10 @@ def _kernel_diff(what, plain_rows, mesh_rows, reps=3, top=6):
         mesh[key] = mesh.get(key, 0.0) + t
     diff = sorted(((mesh.get(k, 0.0) - plain.get(k, 0.0)) / reps / 1e3, k)
                   for k in set(plain) | set(mesh))
-    print(f"[parallel] {what}: device time per call, the mesh's minus the plain "
+    print(f"[{tag}] {what}: device time per call, the mesh's minus the plain "
           f"step's, {sum(d for d, _ in diff):+.3f} ms; the kernels that grow most:")
     for d, key in diff[::-1][:top]:
-        print(f"[parallel]   {d:+8.3f} ms  {key[:110]}")
+        print(f"[{tag}]   {d:+8.3f} ms  {key[:110]}")
     return sum(d for d, _ in diff)
 
 
@@ -4285,6 +4388,234 @@ def phase_parallel(root):
     return {k: v for k, v in numbers.items() if not isinstance(v, dict)}
 
 
+def _tp_group(root):
+    """A world-size-1 NCCL process group and create_mesh(1, 1) over it."""
+    import torch.distributed as dist
+
+    from uml_tpu_torch.core import distributed as ud
+    from uml_tpu_torch.core.meshes import create_mesh
+
+    store = os.path.join(root, "tp_store")
+    if os.path.exists(store):
+        os.remove(store)
+    with _env({"UML_COORDINATOR": f"file://{store}", "UML_NUM_PROCESSES": "1",
+               "UML_PROCESS_ID": "0"}):
+        _check(ud.maybe_initialize(), "maybe_initialize")
+    mesh = create_mesh(1, 1)
+    _check(dist.get_backend() == "nccl" and tuple(mesh.shape) == (1, 1)
+           and tuple(mesh.mesh_dim_names) == ("data", "model"), mesh)
+    return mesh
+
+
+def _tp_llama(mesh, gpu):
+    """LLaMA-7B's widths and depth through TextModel.native with and
+    without the mesh -> numbers."""
+    import torch
+
+    from uml_tpu_torch.models.languagemodel import TextModel
+    from uml_tpu_torch.models.llama import LlamaConfig, LlamaEncoder
+
+    cfg = LlamaConfig(**OPENLLAMA_7B)
+    ids_np, mask_np = _llama_prompts(cfg.vocab_size)
+    ids, mask = torch.from_numpy(ids_np).cuda(), torch.from_numpy(mask_np).cuda()
+    with torch.device("meta"):
+        model = LlamaEncoder(cfg)
+    model.to_empty(device="cuda")
+    model.init_random(torch.Generator(device="cuda").manual_seed(0))
+    state_dict = model.state_dict()
+    del model
+    numbers = {}
+    for quant in ("none", "int8_w"):
+        out, ms = {}, {}
+        for tag, m in (("off", None), ("tp", mesh)):
+            tm = TextModel.native(cfg, state_dict, quant=quant, device="cuda", mesh=m)
+            out[tag] = tm.encode_ids(ids, mask)
+            ms[tag] = _time_ms(lambda: tm.encode_ids(ids, mask), iters=5, warmup=1)
+            if m is not None:
+                # fp32: the 7 projections' weights; int8_w: their kernel_q8
+                # and the 5 column-parallel scales
+                n_dt = sum(1 for n, _ in [*tm.model.named_parameters(),
+                                          *tm.model.named_buffers()] if "original" in n)
+                _check(n_dt == (7 if quant == "none" else 12) * cfg.num_hidden_layers,
+                       ("sharded projections", quant, n_dt))
+            del tm
+        key = "fp32" if quant == "none" else quant
+        _check(torch.equal(out["off"], out["tp"]), (f"LLaMA-7B {key} over the mesh",
+                                                    (out["off"] - out["tp"]).abs().max()))
+        numbers.update({f"tp_llama7b_{key}_ms_off": ms["off"],
+                        f"tp_llama7b_{key}_ms_tp": ms["tp"]})
+        print(f"[tp] OpenLLaMA-7B widths, 32 layers, {key}: pooled features over the "
+              f"(1, 1) mesh bit-equal to those without it; {ms['off']:.3f} ms a call "
+              f"without, {ms['tp']:.3f} ms with the mesh (8 prompts x 32 ids)  [{gpu}]")
+    return numbers
+
+
+def _tp_encoders(mesh, gpu):
+    """The ViT-B/16 image encoder in bf16, int8 and int8 as the tower, with
+    and without the mesh -> numbers."""
+    import numpy as np
+    import torch
+
+    from uml_tpu_torch.models.encoders import ClipEncoder
+    from uml_tpu_torch.parallel import apply_tp_sharding
+
+    batch = 64
+    u8 = np.random.default_rng(3).integers(0, 256, (batch, 224, 224, 3), dtype=np.uint8)
+    numbers = {}
+    for quant, tower, rows in (("none", "0", ("attn_block", "attn_block_cls", "mlp_block")),
+                               ("int8", "0", ("attn_block_q8", "mlp_block_q8")),
+                               ("int8", "1", ("tower_q8",))):
+        encoder = ClipEncoder("ViT-B/16", allow_random_init=True, quant=quant)
+        staged, n = encoder.stage_images(u8)
+        out, launches, rate = {}, {}, {}
+        with _env({"UML_TOWER_Q8": tower}):
+            for tag in ("off", "tp"):
+                if tag == "tp":
+                    apply_tp_sharding(encoder.model, mesh)
+                (o, _), launches[tag] = _counted(lambda: encoder.encode_staged(staged, n))
+                out[tag] = o.clone()
+                ms = _time_ms(lambda: encoder.encode_staged(staged, n), iters=10)
+                rate[tag] = batch / (ms / 1e3)
+        what = f"ViT-B/16 {quant}" + (" UML_TOWER_Q8=1" if tower == "1" else "")
+        _check(torch.equal(out["off"], out["tp"]), (what, "features over the mesh"))
+        _check(launches["off"] == launches["tp"] and all(launches["tp"][r] > 0 for r in rows),
+               (what, launches))
+        key = quant + ("_tower" if tower == "1" else "")
+        numbers.update({f"tp_encoder_img_per_s_{key}_off": rate["off"],
+                        f"tp_encoder_img_per_s_{key}_tp": rate["tp"]})
+        print(f"[tp] {what} image encoder, batch {batch}: features over the mesh bit-equal; "
+              f"launches {({r: launches['tp'][r] for r in rows})} as without it; "
+              f"{rate['off']:.1f} img/s without, {rate['tp']:.1f} with  [{gpu}]")
+        del encoder
+    return numbers
+
+
+def _tp_step(mesh, gpu):
+    """The ViT-B/16 full-model step (batch 64) with TP-applied weights in
+    each backward mode, bit-equal to the step without -> numbers."""
+    import torch
+
+    from uml_tpu_torch.core.meshes import replicate
+    from uml_tpu_torch.parallel import apply_tp_sharding
+    from uml_tpu_torch.parallel.tensor_parallel import declared_name, local, whole
+    from uml_tpu_torch.train import optim
+    from uml_tpu_torch.train.supervised import make_train_step
+
+    bsz = 64
+    plain, batch = _head_and_batch(bsz)
+    tp = copy.deepcopy(plain)
+    plain.cuda()
+    tp.cuda()
+    apply_tp_sharding(tp.backbone, mesh)
+    host = [t.numpy() for t in batch]
+    img_b, txt_b = host[:3], host[3:]
+
+    def named(model):
+        return [(declared_name(n), p) for n, p in model.named_parameters()]
+
+    numbers = {}
+    start_params = {name: p.detach().clone() for name, p in named(plain)}
+
+    def reset():
+        with torch.no_grad():
+            for model in (plain, tp):
+                for name, p in named(model):
+                    local(p).copy_(start_params[name])
+                    p.grad = None
+
+    def make(model, m, env):
+        opt = optim.build_optimizer("adamw", optim.build_schedule(1e-5, "cosine", 0, 10),
+                                    0.05)
+        replicate(m, model)
+        with _env(env):
+            return make_train_step(model, opt, has_image=True, has_text=True, mesh=m)
+
+    for mode, (env, rows) in PARALLEL_MODES.items():
+        reset()
+        step_plain, step_tp = make(plain, None, env), make(tp, mesh, env)
+        with _env(env):
+            loss_plain, _ = step_plain(0, img_b, txt_b)
+            (loss_tp, _), launches = _counted(lambda: step_tp(0, img_b, txt_b))
+        _check(torch.equal(loss_plain, loss_tp), (mode, loss_plain, loss_tp))
+        n, tp_params = 0, dict(named(tp))
+        _check(sorted(tp_params) == sorted(dict(named(plain))), "the TP model's parameters")
+        for name, a in named(plain):
+            b = tp_params[name]
+            _check(torch.equal(a, whole(b)), (mode, "parameter", name))
+            _check((a.grad is None) == (b.grad is None)
+                   and (a.grad is None or torch.equal(a.grad, whole(b.grad))),
+                   (mode, "grad", name))
+            n += 1
+        _check(all(launches[r] > 0 for r in rows), (mode, launches))
+        numbers[f"tp_step_launches_{mode}"] = {r: launches[r] for r in rows}
+        print(f"[tp] {mode}: the ViT-B/16 full-model step at batch {bsz} with TP-applied "
+              f"weights: loss {float(loss_tp):.6f}, the {n} parameters and gradients "
+              f"bit-equal to the step without; launches {({r: launches[r] for r in rows})}")
+    reset()
+    step_plain, step_tp = make(plain, None, {}), make(tp, mesh, {})
+    for tag, fn in (("off", step_plain), ("tp", step_tp)):
+        numbers[f"tp_step_ms_{tag}"] = _time_ms(lambda: fn(0, img_b, txt_b), iters=5,
+                                                warmup=2)
+    print(f"[tp] {gpu}: ViT-B/16 full-model step bs {bsz}: {numbers['tp_step_ms_off']:.2f} ms "
+          f"without, {numbers['tp_step_ms_tp']:.2f} ms with TP-applied weights")
+    rows = {tag: _profile(f"tp step {tag}", lambda fn=fn: fn(0, img_b, txt_b), top=5)
+            for tag, fn in (("without the mesh", step_plain), ("with TP-applied weights", step_tp))}
+    numbers["tp_step_device_ms_added"] = _kernel_diff(
+        "ViT-B/16 full-model step bs 64 with TP-applied weights", *rows.values(), tag="tp")
+    for tag, prof in rows.items():
+        numbers[f"tp_step_busy_{'tp' if 'TP' in tag else 'off'}"] = _busy_share(
+            prof, numbers[f"tp_step_ms_{'tp' if 'TP' in tag else 'off'}"])
+    return {k: v for k, v in numbers.items() if not isinstance(v, dict)}
+
+
+def phase_tp(root):
+    """[tp] (module docstring, 5j) -> numbers."""
+    import torch.distributed as dist
+
+    gpu = _gpu_line()
+    mesh = _tp_group(root)
+    numbers = {}
+    try:
+        numbers.update(_tp_llama(mesh, gpu))
+        numbers.update(_tp_encoders(mesh, gpu))
+        numbers.update(_tp_step(mesh, gpu))
+    finally:
+        dist.destroy_process_group()
+    return numbers
+
+
+def phase_graft():
+    """[graft] (module docstring, 5k) -> numbers."""
+    import torch
+
+    from uml_tpu_torch import graft_entry
+
+    gpu = _gpu_line()
+    fn, (model, images) = graft_entry.entry()
+    _check(images.is_cuda and next(model.parameters()).is_cuda, "entry() on the card")
+    out, launches = _counted(lambda: fn(model, images))
+    _check(tuple(out.shape) == (8, 512) and bool(torch.isfinite(out).all()),
+           ("entry forward", tuple(out.shape)))
+    want = _with_fused({**dict.fromkeys(launches, 0), "attn_block": 11,
+                        "attn_block_cls": 1, "mlp_block": 12})
+    _check(launches == want, ("entry forward launches", launches, want))
+    ms = _time_ms(lambda: fn(model, images), iters=10)
+    cpu = fn(model.cpu(), images.cpu())
+    cos = _cos_min(out.float().cpu().numpy(), cpu.float().numpy())
+    _check(cos >= MIN_COSINE, ("entry forward card vs CPU", cos))
+    del model
+    print(f"[graft] entry(): ViT-B/16 bf16 forward of 8 uint8 images on the card "
+          f"{tuple(out.shape)}, finite, launches {({k: v for k, v in launches.items() if v})}, "
+          f"{ms:.3f} ms a call; card vs CPU min cosine {cos:.6f}  [{gpu}]")
+    t = time.perf_counter()
+    graft_entry.dryrun_multichip(4)
+    dry = time.perf_counter() - t
+    print(f"[graft] dryrun_multichip(4): every leg ok on four gloo processes on the "
+          f"CPU in {dry:.1f} s")
+    return {"graft_entry_ms": ms, "graft_entry_card_vs_cpu_cos": cos,
+            "graft_dryrun_multichip4_s": dry}
+
+
 def _pth_files(root):
     return sorted(os.path.join(d, f) for d, _, files in os.walk(root)
                   for f in files if f.endswith(".pth"))
@@ -4425,6 +4756,8 @@ def main() -> int:
     rate.update(timed(phase_multibench))
     rate.update(timed(phase_gaussian))
     rate.update(timed(phase_parallel, root))
+    rate.update(timed(phase_tp, root))
+    rate.update(timed(phase_graft))
     # each port's launches come from the path it belongs to: the bf16
     # serving kernels from the features run, the int8 ones from the
     # features --quant int8 run and its tower encode, the training kernels
@@ -4432,7 +4765,7 @@ def main() -> int:
     # finetune runs with both stashes off, the stand-alone ops from the
     # non-fused image encode (attn_impl="pallas") and the public ops' calls
     launches = {**launches, **unfused_launches,
-                **{k: int8_launches[k] for k in Q8_PORTS},
+                **{k: int8_launches[k] for k in (*Q8_PORTS, "mlp_block_q8_identity")},
                 **{k: train_launches[k] for k in TRAIN_PORTS},
                 **{k: recompute_launches[k] for k in RECOMPUTE_PORTS}}
     launches.update(dino_launches)

@@ -339,6 +339,54 @@ def test_mlp_block_q8_gelu_exact_kernel(dev, s):
     assert (diff > 0).float().mean().item() <= 1e-3
 
 
+@pytest.mark.parametrize("s", [9, 197])
+def test_mlp_block_q8_identity_kernel(dev, s):
+    """Row 11 without an activation (uml_tpu's identity: c_fc's ROWABSMAX
+    then QUANT passes): the half against its plain version, and its int8
+    hidden and row scales against ``quantize_rows`` of the pre-activation
+    of the card's own LN-quantized operand, read from the scratch
+    (integers within one step, scales rtol 1e-6)."""
+    x, w = _x(dev, s), _q8_weights(dev)
+    n = q8.mlp_block_q8.launches
+    got = q8.mlp_block_q8(x, *w[6:], activation=None)
+    assert q8.mlp_block_q8.launches == n + 1
+    _close(got, q8.mlp_block_q8_plain(x, *w[6:], activation=None))
+    w1q, w1sc, b1, w2q, w2sc, b2 = w[6:]
+    _, hq, hs = q8._launch_mlp_block_q8(x, w1q.t().contiguous(), w1sc, b1,
+                                        w2q.t().contiguous(), w2sc, b2, 1e-5, None)
+    rows = B * s
+    xq, xs = hq[rows * M:rows * (M + K)].view(rows, K), hs[rows:2 * rows, None]
+    want_q, want_s = q8.quantize_rows(q8.q8_dot(xq, xs, w1q, w1sc) + b1)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(hs[:rows], want_s[:, 0], rtol=1e-6, atol=0)
+    diff = (hq[:rows * M].view(rows, M).int() - want_q.int()).abs()
+    assert diff.max().item() <= 1
+
+
+@pytest.mark.parametrize("rows", [197, 12608])
+def test_q8_gemm_two_pass_quantize_identity(dev, rows):
+    """c_fc's ROWABSMAX then QUANT at ViT-B/16 widths (K = 768, M = 3072;
+    12,608 rows = 64 images of 197) against the F32 product and
+    ``quantize_rows``: the row abs-maxima bit for bit; the scales within
+    rtol 1e-6 and the integers within one step (the kernel divides the
+    abs-max by 127, torch on the card multiplies it by the reciprocal of
+    a scalar divisor, an ulp apart)."""
+    from uml_tpu_torch.ops import gemm
+
+    a, w, rs, cs, bias, _ = _q8_operands(dev, rows, 768, 3072, 11 * rows)
+    absmax = gemm.q8_gemm(a, w, rs, cs, bias, epi="ROWMAX", activation=None)
+    got_q, got_s = gemm.q8_gemm(a, w, rs, cs, bias, epi="ACTQ", rowmax=absmax,
+                                activation=None)
+    pre = gemm.q8_gemm(a, w, rs, cs, bias, epi="F32")
+    want_q, want_s = q8.quantize_rows(pre)
+    torch.cuda.synchronize()
+    assert torch.equal(absmax, pre.abs().amax(-1))
+    torch.testing.assert_close(got_s, want_s[:, 0], rtol=1e-6, atol=0)
+    diff = (got_q.int() - want_q.int()).abs()
+    assert diff.max().item() <= 1
+    assert (diff > 0).float().mean().item() <= 1e-3
+
+
 @pytest.mark.parametrize("rows", [197, 16448, 12545])
 def test_q8_gemm_two_pass_act_quantize_gelu_exact(dev, rows):
     """c_fc's ROWMAX then ACTQ with exact GELU at DINOv2-B/14 widths (K =
@@ -423,7 +471,7 @@ def test_q8_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(TypeError):
         q8.attn_block_q8(x, w[0].float(), *w[1:3], w[3:5], w[5], heads=HEADS)
     with pytest.raises(ValueError):
-        q8.mlp_block_q8(x, *w[6:], activation=None)
+        q8.mlp_block_q8(x, *w[6:], activation="relu")
     with pytest.raises(RuntimeError, match="inference-only"):
         q8.mlp_block_q8(x.float().requires_grad_(), *w[6:])
     # the launchers and q8_gemm read the int8 weights K-major: an [in,

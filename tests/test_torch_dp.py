@@ -529,7 +529,10 @@ def test_mesh_auto_starts_one_process_per_card(tmp_path):
         "def main(args):\n"
         "    mesh = meshes.mesh_from_flag(args.mesh)\n"
         "    rank = meshes.data_rank(mesh)\n"
-        "    print('RANK', rank, meshes.data_size(mesh), flush=True)\n"
+        # one write a line: the two ranks share the pipe, and under
+        # PYTHONUNBUFFERED print writes each of its arguments apart
+        "    sys.stdout.write('RANK %d %d\\n' % (rank, meshes.data_size(mesh)))\n"
+        "    sys.stdout.flush()\n"
         "    sys.exit(3 if rank == 1 else 0)\n"
         "parser = argparse.ArgumentParser()\n"
         "parser.add_argument('--mesh', default='off')\n"

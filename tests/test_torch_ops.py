@@ -231,8 +231,9 @@ def test_ln_mlp_block_defaults_to_no_activation():
 def test_mlp_wrappers_pass_the_activation_code(monkeypatch, activation):
     """On a tensor off the CPU (meta tensors here, the C call recorded),
     mlp_block hands uml_mlp_block the activation code of csrc/ln_gemm.cuh
-    and mlp_block_q8 hands it to uml_mlp_block_q8 (which takes the two
-    GELUs), one argument per SIGNATURES entry."""
+    and mlp_block_q8 hands it to uml_mlp_block_q8 (which takes all three:
+    none, the identity, since row 11's identity instance), one argument
+    per SIGNATURES entry."""
     import contextlib
     import types
 
@@ -258,10 +259,6 @@ def test_mlp_wrappers_pass_the_activation_code(monkeypatch, activation):
     assert args[8:12] == (B * 257, K, M, code)
     q8_args = (meta(K, M, dtype=i8), meta(M, dtype=f32), meta(M, dtype=f32),
                meta(M, K, dtype=i8), meta(K, dtype=f32), meta(K, dtype=f32))
-    if activation is None:
-        with pytest.raises(ValueError, match="ROADMAP"):
-            tq.mlp_block_q8(x, *q8_args, activation=activation)
-        return
     tq.mlp_block_q8(x, *q8_args, activation=activation)
     name, args = calls[1]
     assert name == "uml_mlp_block_q8" and len(args) == len(_build.SIGNATURES[name])

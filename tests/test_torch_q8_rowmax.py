@@ -105,6 +105,32 @@ def test_q8_gemm_rowmax_then_actq_equals_f32_then_act_quantize(m, lobe):
         assert (pre[::2].amax(-1) < 0).all()
 
 
+@pytest.mark.parametrize("m", [3072, 192])
+def test_q8_gemm_abs_max_then_quant_equals_f32_then_quantize_rows(m):
+    """Without an activation (uml_tpu's identity): ``q8_gemm``'s ROWMAX
+    pass keeps each row's max of |y + b| and ACTQ quantizes y + b itself
+    with it, the integers and scales of the F32 product followed by
+    ``quantize_rows``, bit for bit (every other row below zero, so its
+    abs-max is its min)."""
+    rng = np.random.default_rng(3 * m)
+    rows, k = 197, 128
+    a = torch.from_numpy(rng.integers(-127, 128, (rows, k)).astype(np.int8))
+    w = torch.from_numpy(rng.integers(-127, 128, (m, k)).astype(np.int8))
+    rs = torch.from_numpy((rng.random(rows) * 0.02 + 1e-3).astype(np.float32))
+    cs = torch.from_numpy((rng.random(m) * 0.02 + 1e-3).astype(np.float32))
+    bias = torch.from_numpy((0.1 * rng.standard_normal(m)).astype(np.float32))
+    a[::2] = -a[::2].abs() - 1
+    w = w.abs()
+    absmax = gemm.q8_gemm(a, w, rs, cs, bias, epi="ROWMAX", activation=None)
+    q, scale = gemm.q8_gemm(a, w, rs, cs, bias, epi="ACTQ", rowmax=absmax,
+                            activation=None)
+    pre = gemm.q8_gemm(a, w, rs, cs, bias, epi="F32")
+    want_q, want_s = tq.quantize_rows(pre)
+    assert torch.equal(absmax, pre.abs().amax(-1))
+    assert (pre[::2].amax(-1) < 0).all() and (absmax[::2] > 0).all()
+    assert torch.equal(q, want_q) and torch.equal(scale, want_s[:, 0])
+
+
 def test_ordered_ints_keep_the_order_of_the_floats():
     """The ROWMAX pass keeps a row's max as an int whose signed order is the
     floats' (``gemm._ordered``, the kernels' q8_ordered): the map is its own

@@ -231,23 +231,31 @@ def test_mlp_half_gelu_exact_matches_reference(s):
     _assert_rel(got, want, REL)
 
 
-def test_mlp_half_without_activation_raises():
-    """uml_tpu's default activation (None, the identity) needs each row's
-    abs-max for the int8 hidden: not ported, so the wrapper raises, off the
-    card too (and ln_mlp_block_q8's default with it); the plain version
-    still computes it."""
-    p = _torch(_params(14, 9))
-    with pytest.raises(ValueError, match="ROADMAP"):
-        tq.ln_mlp_block_q8(p["x"], p["scale"], p["bias"], p["w1"], p["b1"],
-                           p["w2"], p["b2"])
-    w1q, w1sc = tq.quantize_weight(p["w1"])
-    w2q, w2sc = tq.quantize_weight(p["w2"])
-    with pytest.raises(ValueError, match="ROADMAP"):
-        tq.mlp_block_q8(p["x"], w1q, w1sc, p["b1"], w2q, w2sc, p["b2"],
-                        activation=None)
-    out = tq.mlp_block_q8_plain(p["x"], w1q, w1sc, p["b1"], w2q, w2sc, p["b2"],
-                                activation=None)
-    assert torch.isfinite(out.float()).all()
+@pytest.mark.parametrize("s", [9, 17])
+def test_mlp_half_without_activation_matches_reference(s):
+    """uml_tpu's default activation (None, the identity): the int8 hidden
+    quantized with each row's abs-max (``_quantize_rows``).
+    ``ln_mlp_block_q8``'s default against ``ln_mlp_block_q8_reference``
+    (REL), and the int8 hidden of the port's steps against uml_tpu's on
+    the same inputs: integers at most one step apart on at most 0.1% of
+    the entries (the row quantizers' tie flips), row scales rtol 1e-6."""
+    p = _params(14, s)
+    t = _torch(p)
+    want = jq.ln_mlp_block_q8_reference(p["x"], p["scale"], p["bias"], p["w1"],
+                                        p["b1"], p["w2"], p["b2"])
+    got = tq.ln_mlp_block_q8(t["x"], t["scale"], t["bias"], t["w1"], t["b1"],
+                             t["w2"], t["b2"])
+    _assert_rel(got, want, REL)
+    _, _, _, (w1q, w1sc), b1_eff, _ = _prequantized(p)
+    jxq, jxs = jq._ln_quantize_rows(p["x"].reshape(-1, K).astype(jnp.float32), 1e-5)
+    jhq, jhs = jq._quantize_rows(jq._q8_dot(jxq, jxs, w1q, w1sc) + b1_eff)
+    xq, xs = tq.ln_quantize_rows(t["x"].reshape(-1, K).float(), 1e-5)
+    hq, hs = tq.act_quantize_rows(tq.q8_dot(xq, xs, _t(w1q), _t(w1sc))
+                                  + _t(b1_eff), None)
+    diff = np.abs(hq.numpy().astype(np.int32) - np.asarray(jhq).astype(np.int32))
+    assert diff.max() <= 1, diff.max()
+    assert (diff > 0).mean() <= FLIP_SHARE, (diff > 0).mean()
+    np.testing.assert_allclose(hs.numpy(), np.asarray(jhs), rtol=1e-6, atol=0)
 
 
 def _prequantized(p):
@@ -282,6 +290,20 @@ def test_mlp_half_matches_pallas_interpret():
                           "quick_gelu", True)
     got = tq.mlp_block_q8(_torch(p)["x"], _t(w1q), _t(w1sc), _t(b1_eff),
                           _t(w2q), _t(w2sc), _t(p["b2"]))
+    _assert_rel(got, want, 2e-2)
+
+
+@pytest.mark.heavy
+def test_mlp_half_without_activation_matches_pallas_interpret():
+    """``mlp_block_q8(activation=None)`` against the Pallas kernel's
+    identity instance in interpret mode (2e-2, the bound of the GELU
+    cases)."""
+    p = _params(16, 17)
+    _, _, _, (w1q, w1sc), b1_eff, (w2q, w2sc) = _prequantized(p)
+    want = jq._mlp_q8_fwd(p["x"], w1q, w1sc, b1_eff, w2q, w2sc, p["b2"], 1e-5,
+                          None, True)
+    got = tq.mlp_block_q8(_torch(p)["x"], _t(w1q), _t(w1sc), _t(b1_eff),
+                          _t(w2q), _t(w2sc), _t(p["b2"]), activation=None)
     _assert_rel(got, want, 2e-2)
 
 

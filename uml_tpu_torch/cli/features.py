@@ -66,7 +66,7 @@ import torch
 from uml_tpu_torch.core.device import default_device
 from uml_tpu_torch.core.flags import build_shared_parser
 from uml_tpu_torch.core.distributed import is_primary
-from uml_tpu_torch.core.meshes import agree, data_rank, data_size, mesh_from_flag
+from uml_tpu_torch.core.meshes import agree, barrier, data_rank, data_size, mesh_from_flag
 from uml_tpu_torch.core.sweep import run_sweep_cli
 from uml_tpu_torch.data.descriptors import (
     DESCRIPTOR_DICT,
@@ -384,12 +384,14 @@ class _HFEncoderAdapter(ClipEncoder):
     DinoViT.  Images take the CLIP normalization, folded into the patch
     embedding, as on the CLIP path (uml_tpu/cli/features.py:344-442).
     ``text_model`` is a TextModel on the same device (any int8 ``quant``
-    -> its weight-only ``int8_w``), or hash-random features under
-    ``allow_random_init`` when it cannot load."""
+    -> its weight-only ``int8_w``; a LLaMA-family model tensor-parallel
+    over ``mesh``, as uml_tpu's features.py:364-370 hands it its mesh),
+    or hash-random features under ``allow_random_init`` when it cannot
+    load."""
 
     def __init__(self, vision_model: str = "", language_model: str = "",
                  allow_random_init: bool = False, device=None,
-                 check_finite: bool = False, quant: str = "none"):
+                 check_finite: bool = False, quant: str = "none", mesh=None):
         from uml_tpu_torch.models.languagemodel import TextModel
 
         self.device = torch.device(device) if device is not None else default_device()
@@ -401,7 +403,7 @@ class _HFEncoderAdapter(ClipEncoder):
         if language_model:
             try:
                 self.text_model = TextModel(
-                    language_model, device=self.device,
+                    language_model, device=self.device, mesh=mesh,
                     quant="int8_w" if quant.startswith("int8") else "none")
             except Exception as e:
                 if not allow_random_init:
@@ -467,7 +469,7 @@ def main(args):
         encoder = _HFEncoderAdapter(args.vision_model, args.language_model,
                                     allow_random_init=args.allow_random_init,
                                     check_finite=args.debug_nans,
-                                    quant=args.quant)
+                                    quant=args.quant, mesh=args.mesh_obj)
     print(f"=> Encoder on {encoder.device}, quant {args.quant}")
 
     if args.dataset not in IMAGENET_TESTSETS:
@@ -478,6 +480,9 @@ def main(args):
         print(f"=> Saving ImageNet testset: {args.dataset}, "
               "only preparing image features")
         prepare_image_features(encoder, args, {"test": datasets}, mode="test")
+    # rank 0 writes the caches: no rank returns before they are on disk (a
+    # finetune run next in the same process reads them)
+    barrier(args.mesh_obj)
     print("Done!")
     return encoder
 

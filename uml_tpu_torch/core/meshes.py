@@ -113,14 +113,18 @@ def staged_put(tree, device):
 
 def replicate(mesh, tree):
     """Broadcast every tensor of ``tree`` (or every parameter and buffer
-    of a module) from rank 0 of the data axis, in place; returns it."""
+    of a module) from rank 0 of the data axis, in place; returns it.  A
+    tensor-parallel tensor broadcasts its local shard (rank 0 of the data
+    axis holds the same shard)."""
+    from uml_tpu_torch.parallel.tensor_parallel import local
+
     if mesh is None:
         return tree
     group = data_group(mesh)
     src = dist.get_global_rank(group, 0)
     tensors = []
     if isinstance(tree, torch.nn.Module):
-        tensors = [t.data for t in list(tree.parameters()) + list(tree.buffers())]
+        tensors = [local(t.data) for t in list(tree.parameters()) + list(tree.buffers())]
     else:
         _tree_map(lambda t: tensors.append(t) if torch.is_tensor(t) else None, tree)
     for t in tensors:
@@ -162,21 +166,25 @@ def _free_port() -> int:
 LAUNCH_GRACE_S = 60.0
 
 
-def launch_per_device(n: int) -> int:
-    """Run this process's own command line as ``n`` fresh interpreters,
-    process i on card i, joined as one job through core.distributed's
-    first source.  Waits for all of them (those still running
-    LAUNCH_GRACE_S after one failed are killed) -> the worst exit code."""
-    argv = [sys.executable, *sys.orig_argv[1:]]
+def launch_per_device(n: int, argv=None, env=None) -> int:
+    """Run this process's own command line (or ``argv``) as ``n`` fresh
+    interpreters, process i on card i, joined as one job through
+    core.distributed's first source; ``env`` is added to each process's
+    environment (``UML_TORCH_DEVICE=cpu`` and an empty
+    ``CUDA_VISIBLE_DEVICES``: gloo ranks on the CPU).  Waits for all of
+    them (those still running LAUNCH_GRACE_S after one failed are killed)
+    -> the worst exit code."""
+    argv = argv if argv is not None else [sys.executable, *sys.orig_argv[1:]]
     cards = os.environ.get("CUDA_VISIBLE_DEVICES")
     cards = cards.split(",") if cards else [str(i) for i in range(n)]
     coordinator = f"127.0.0.1:{_free_port()}"
     procs = []
     for i in range(n):
-        env = dict(os.environ, UML_COORDINATOR=coordinator,
-                   UML_NUM_PROCESSES=str(n), UML_PROCESS_ID=str(i),
-                   CUDA_VISIBLE_DEVICES=cards[i])
-        procs.append(subprocess.Popen(argv, env=env))
+        child = dict(os.environ, UML_COORDINATOR=coordinator,
+                     UML_NUM_PROCESSES=str(n), UML_PROCESS_ID=str(i),
+                     CUDA_VISIBLE_DEVICES=cards[i % len(cards)])
+        child.update(env or {})
+        procs.append(subprocess.Popen(argv, env=child))
     deadline = None
     while any(p.poll() is None for p in procs):
         if deadline is None and any(p.returncode not in (None, 0) for p in procs):

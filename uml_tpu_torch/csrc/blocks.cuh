@@ -143,7 +143,8 @@ static inline cudaError_t run_attn_block_q8(const __nv_bfloat16* x, const int8_t
 }
 
 // Int8 MLP half: out = x + actquant(LNquant(x) . w1q + b1) . w2q + b2,
-// the activation ACT_QUICK_GELU (CLIP) or ACT_GELU_EXACT (DINO)
+// the activation ACT_QUICK_GELU (CLIP), ACT_GELU_EXACT (DINO) or ACT_NONE
+// (uml_tpu's identity: the hidden quantized with its rows' abs-max)
 //   x [rows, K]; w1q [M, K], w2q [K, M] int8 (K-major); q8 [rows*(M + K)]
 //   int8 and qscale [2*rows] fp32 are scratch: first the int8 hidden and its
 //   row scales ([rows, M], [rows]: c_proj's operand), then LNquant(x) and
@@ -155,7 +156,9 @@ static inline cudaError_t run_attn_block_q8(const __nv_bfloat16* x, const int8_t
 // c_fc again with the ACTQ (quick_gelu) or ACTQ_GELU (exact GELU)
 // epilogue (the same y + b1 bit for bit, the activation, int8 with the
 // row's scale from that max, as the one-pass act quantization rounded
-// them); c_proj with the residual.  No fp32
+// them); c_proj with the residual.  ACT_NONE runs c_fc with ROWABSMAX
+// (each row's max of |y + b1|) and then QUANT (y + b1 itself, int8 with
+// the scale max(absmax, 1e-12) / 127).  No fp32
 // pre-activation reaches device memory (q8_gemm.cuh says why the product
 // runs twice).
 static inline cudaError_t run_mlp_block_q8(const __nv_bfloat16* x, const int8_t* w1q,
@@ -164,17 +167,20 @@ static inline cudaError_t run_mlp_block_q8(const __nv_bfloat16* x, const int8_t*
                                            const float* b2, int8_t* q8, float* qscale,
                                            int* rowmax, __nv_bfloat16* out, int rows, int K,
                                            int M, float eps, int act, cudaStream_t stream) {
-  if (act != ACT_QUICK_GELU && act != ACT_GELU_EXACT) return cudaErrorInvalidValue;
+  if (act != ACT_NONE && act != ACT_QUICK_GELU && act != ACT_GELU_EXACT)
+    return cudaErrorInvalidValue;
   int8_t* hq = q8;
   float* hs = qscale;
   int8_t* xq = q8 + (long long)rows * M;
   float* xs = qscale + rows;
   UML_TRY(launch_ln_quantize_rows(x, xq, xs, rows, K, eps, stream, rowmax));
-  UML_TRY(launch_q8_gemm(xq, w1q, xs, w1sc, b1, nullptr, nullptr, rows, M, K, Q8_EPI_ROWMAX,
-                         stream, rowmax));
+  UML_TRY(launch_q8_gemm(xq, w1q, xs, w1sc, b1, nullptr, nullptr, rows, M, K,
+                         act == ACT_NONE ? Q8_EPI_ROWABSMAX : Q8_EPI_ROWMAX, stream, rowmax));
   UML_TRY(launch_q8_gemm(xq, w1q, xs, w1sc, b1, nullptr, hq, rows, M, K,
-                         act == ACT_GELU_EXACT ? Q8_EPI_ACTQ_GELU : Q8_EPI_ACTQ, stream, rowmax,
-                         hs));
+                         act == ACT_NONE         ? Q8_EPI_QUANT
+                         : act == ACT_GELU_EXACT ? Q8_EPI_ACTQ_GELU
+                                                 : Q8_EPI_ACTQ,
+                         stream, rowmax, hs));
   return launch_q8_gemm(hq, w2q, hs, w2sc, b2, x, out, rows, K, M, Q8_EPI_RESIDUAL, stream);
 }
 

@@ -1,8 +1,14 @@
 // uml_mlp_block_q8: the int8 (W8A8) MLP half-block of a CLIP or DINO layer.
 //
 // Replaces uml_tpu/ops/quant.py::_mlp_q8_kernel with quick_gelu (act 1,
-// CLIP) or exact GELU (act 2, DINO):
+// CLIP), exact GELU (act 2, DINO) or no activation (act 0, the default of
+// uml_tpu's ln_mlp_block_q8):
 // out = x + actquant(rawLN(x) row-quantized . int8 W1 + b1) . int8 W2 + b2.
+// Without an activation the hidden's row scale comes from its abs-max
+// (_quantize_rows), which no lobe bound gives from the row max: the first
+// c_fc pass keeps each row's max of |pre| (ROWABSMAX) and the second
+// quantizes pre itself with it (QUANT); the same shape and cost as the
+// GELUs' two passes.
 // Launches (blocks.cuh::run_mlp_block_q8): ln_quantize_rows; the c_fc
 // q8_gemm with the ROWMAX epilogue (each row's max of pre = y + b1, an
 // atomicMax of each 128-column tile's); c_fc again with the ACTQ (or
@@ -30,8 +36,7 @@
 //   (both K-major, q8_gemm.cuh); w2sc, b2 [K] fp32; q8 [rows*(M + K)] int8,
 //   qscale [2*rows] fp32 and rowmax [rows] int32 scratch (q8 and qscale
 //   begin with the int8 hidden and its row scales); out [rows, K] bf16;
-//   act 1 or 2 (any other code is refused: no activation, uml_tpu's
-//   identity, needs a row abs-max, which ROWMAX does not find).
+//   act 0, 1 or 2 (any other code is refused).
 
 #include "blocks.cuh"
 

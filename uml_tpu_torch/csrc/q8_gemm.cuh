@@ -29,6 +29,14 @@
 //                    qscale[m] = that scale (int8 out [M, N], fp32 [M])
 //   Q8_EPI_ACTQ_GELU the same with exact GELU (erf) and its lobe, 0.1718
 //                    (DINO's MLP)
+//   Q8_EPI_ROWABSMAX rowmax[m] = max(rowmax[m], max of |y + b| over row m):
+//                    no activation (uml_tpu's identity, _quantize_rows);
+//                    each thread's first value 0, so any initial value of
+//                    -inf or 0 gives the same result
+//   Q8_EPI_QUANT     out = int8 of y + b per row, the scale
+//                    max(rowmax[m], 1e-12) / 127 from ROWABSMAX's abs-max,
+//                    rounded floor(v / scale + 0.5) and clamped to +-127;
+//                    qscale[m] = that scale
 // Every fp32 operation is an explicitly rounded intrinsic (__fmul_rn,
 // __fadd_rn), so nvcc does not contract them into FMAs and the epilogue
 // rounds as the plain PyTorch version does.  The integer product of int8
@@ -36,7 +44,7 @@
 // version's (and torch._int_mm's integer sum) bit for bit.
 //
 // The int8 MLP in (blocks.cuh::run_mlp_block_q8) runs c_fc twice, ROWMAX
-// then ACTQ.  The row's int8 scale needs the max of y + b over all M =
+// then ACTQ (ROWABSMAX then QUANT without an activation).  The row's int8 scale needs the max of y + b over all M =
 // 3,072 columns, which 24 column tiles hold; one pass that stored the fp32
 // pre-activation for a row pass to quantize moved 2 x 155 MB at ViT-B/16
 // B=64 (~92 us at 3.35 TB/s, more than the ~30 us the product's 59.5 G
@@ -72,13 +80,13 @@
 namespace uml {
 
 enum { Q8_EPI_BF16 = 0, Q8_EPI_F32 = 1, Q8_EPI_RESIDUAL = 2, Q8_EPI_ROWMAX = 3,
-       Q8_EPI_ACTQ = 4, Q8_EPI_ACTQ_GELU = 5 };
+       Q8_EPI_ACTQ = 4, Q8_EPI_ACTQ_GELU = 5, Q8_EPI_ROWABSMAX = 6, Q8_EPI_QUANT = 7 };
 
 // Launch one q8_gemm on `stream`; returns the launch error.  N and K must
 // be multiples of 64, the pointers 16-byte aligned (the Python wrappers
 // check them and raise first).  rowmax [M] (q8_ordered ints):
-// Q8_EPI_ROWMAX raises it, Q8_EPI_ACTQ* read it; qscale: Q8_EPI_ACTQ*
-// write it.
+// Q8_EPI_ROW(ABS)MAX raise it, Q8_EPI_ACTQ* and Q8_EPI_QUANT read it;
+// qscale: Q8_EPI_ACTQ* and Q8_EPI_QUANT write it.
 static inline cudaError_t launch_q8_gemm(const int8_t* a, const int8_t* w, const float* row_scale,
                                          const float* col_scale, const float* bias,
                                          const __nv_bfloat16* res, void* out, int M, int N,
@@ -106,6 +114,10 @@ static inline cudaError_t launch_q8_gemm(const int8_t* a, const int8_t* w, const
     return launch_wgmma_gemm<false, false, WGG_OUT_Q8_ACTQ>(a, w, ep, M, N, K, stream);
   if (epi == Q8_EPI_ACTQ_GELU)
     return launch_wgmma_gemm<false, false, WGG_OUT_Q8_ACTQ_GELU>(a, w, ep, M, N, K, stream);
+  if (epi == Q8_EPI_ROWABSMAX)
+    return launch_wgmma_gemm<false, false, WGG_OUT_Q8_ROWABSMAX>(a, w, ep, M, N, K, stream);
+  if (epi == Q8_EPI_QUANT)
+    return launch_wgmma_gemm<false, false, WGG_OUT_Q8_QUANT>(a, w, ep, M, N, K, stream);
   return cudaErrorInvalidValue;
 }
 

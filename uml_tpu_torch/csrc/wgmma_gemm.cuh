@@ -81,7 +81,9 @@
 //   and OUT_Q8_ACTQ (the same y + b recomputed, quick_gelu, and int8 with
 //   the row's scale from that max: no fp32 pre-activation reaches device
 //   memory; q8_gemm.cuh), or OUT_Q8_ACTQ_GELU, the same with exact GELU
-//   (DINO's MLP).
+//   (DINO's MLP); without an activation OUT_Q8_ROWABSMAX (each row's max
+//   of |y + b|) and OUT_Q8_QUANT (y + b itself int8 with that max's
+//   scale).
 //   The MLP in writes two [rows, 4K] bf16 tensors (155 MB at ViT-B/16
 //   B=64), the heaviest store traffic of any product here: the
 //   sector-filling stores below carry it.
@@ -125,7 +127,8 @@ enum { WGG_OUT_BF16 = 0, WGG_OUT_F32 = 1, WGG_OUT_DACT = 2, WGG_OUT_GELU = 3,
        WGG_OUT_RESIDUAL = 4, WGG_OUT_DACT_BF16 = 5, WGG_OUT_Q8_BF16 = 6,
        WGG_OUT_Q8_F32 = 7, WGG_OUT_Q8_RESIDUAL = 8, WGG_OUT_GELU_EXACT = 9,
        WGG_OUT_Q8_ROWMAX = 10, WGG_OUT_Q8_ACTQ = 11, WGG_OUT_Q8_ACTQ_GELU = 12,
-       WGG_OUT_DACT_EXACT = 13, WGG_OUT_DACT_BF16_EXACT = 14 };
+       WGG_OUT_DACT_EXACT = 13, WGG_OUT_DACT_BF16_EXACT = 14, WGG_OUT_Q8_ROWABSMAX = 15,
+       WGG_OUT_Q8_QUANT = 16 };
 
 // the MLP backward's recompute: quick_gelu (DACT, DACT_BF16) or exact GELU
 // (DACT_EXACT, DACT_BF16_EXACT); an fp32 dy with the column sums (row 20)
@@ -137,16 +140,22 @@ static __host__ __device__ constexpr bool wgg_dact(int out) {
   return wgg_dact_f32(out) || out == WGG_OUT_DACT_BF16 || out == WGG_OUT_DACT_BF16_EXACT;
 }
 
-// the quantizing passes of the int8 MLP in: quick_gelu (ACTQ) or exact
-// GELU (ACTQ_GELU)
+// the quantizing passes of the int8 MLP in: quick_gelu (ACTQ), exact
+// GELU (ACTQ_GELU) or no activation (QUANT)
 static __host__ __device__ constexpr bool wgg_actq(int out) {
-  return out == WGG_OUT_Q8_ACTQ || out == WGG_OUT_Q8_ACTQ_GELU;
+  return out == WGG_OUT_Q8_ACTQ || out == WGG_OUT_Q8_ACTQ_GELU || out == WGG_OUT_Q8_QUANT;
+}
+
+// the passes before them, which find each row's max of y + b (ROWMAX, for
+// the GELUs) or of |y + b| (ROWABSMAX, for no activation)
+static __host__ __device__ constexpr bool wgg_rowmax(int out) {
+  return out == WGG_OUT_Q8_ROWMAX || out == WGG_OUT_Q8_ROWABSMAX;
 }
 
 // the int8 instantiations: s8 operands, s32 accumulators
 static __host__ __device__ constexpr bool wgg_int8(int out) {
   return out == WGG_OUT_Q8_BF16 || out == WGG_OUT_Q8_F32 || out == WGG_OUT_Q8_RESIDUAL ||
-         out == WGG_OUT_Q8_ROWMAX || wgg_actq(out);
+         wgg_rowmax(out) || wgg_actq(out);
 }
 
 struct WggEpilogue {
@@ -163,8 +172,9 @@ struct WggEpilogue {
   float* part = nullptr;               // splits > 1: [splits - 1, M, N] fp32 partials
   const float* row_scale = nullptr;    // OUT_Q8_*: [M] fp32
   const float* col_scale = nullptr;    // OUT_Q8_*: [N] fp32
-  int* rowmax = nullptr;               // OUT_Q8_ROWMAX (atomicMax), OUT_Q8_ACTQ* (read): [M],
-                                       // each row's max of y + b as q8_ordered ints
+  int* rowmax = nullptr;               // OUT_Q8_ROW(ABS)MAX (atomicMax), OUT_Q8_ACTQ* and
+                                       // OUT_Q8_QUANT (read): [M], each row's max of y + b
+                                       // (of |y + b|) as q8_ordered ints
   float* qscale = nullptr;             // OUT_Q8_ACTQ*: [M] fp32, the int8 out's row scales
 };
 
@@ -187,6 +197,10 @@ constexpr float Q8_MAX = 127.f;
 // negative lobe never clips
 constexpr float QUICK_GELU_LOBE = 0.1654f;
 constexpr float GELU_EXACT_LOBE = 0.1718f;
+
+// the row scale's floor without an activation: max(absmax, 1e-12) / 127
+// (uml_tpu/ops/quant.py::_quantize_rows)
+constexpr float Q8_MIN_ABSMAX = 1e-12f;
 
 // round half up (floor(v + 0.5)), clamped to +-127, as uml_tpu quantizes
 static __device__ __forceinline__ int8_t q8_round(float v) {
@@ -260,7 +274,13 @@ static __device__ __forceinline__ float q8_value(int acc, float rs, float cs, fl
 // monotonically above their one minimum, so that bound covers the row),
 // rounded as the one-pass act quantization rounded it (act_q8, gelu_q8),
 // 8 contiguous bytes a lane after an exchange within the quad, and the row
-// scales from the first column tile.
+// scales from the first column tile.  Without an activation (uml_tpu's
+// identity, _quantize_rows) ROWABSMAX keeps each row's max of |y| instead:
+// a non-negative float's bits order as ints (q8_ordered leaves them as
+// they are), and every thread's first value is 0, above any initial value
+// of the row; QUANT quantizes y itself with sc = max(absmax, 1e-12) / 127,
+// round(y / sc) in q8_round's explicitly rounded steps, as the plain
+// version divides and rounds.
 template <int OUT>
 static __device__ __forceinline__ void q8_act_epilogue(const int (&acc)[64],
                                                        const WggEpilogue& ep,
@@ -269,8 +289,9 @@ static __device__ __forceinline__ void q8_act_epilogue(const int (&acc)[64],
                                                        int M, int N, int lane) {
   const int q = lane & 3;
   const int col_a = n0 + 2 * q;
-  if constexpr (OUT == WGG_OUT_Q8_ROWMAX) {
-    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  if constexpr (wgg_rowmax(OUT)) {
+    constexpr bool ABS = OUT == WGG_OUT_Q8_ROWABSMAX;
+    float mx[2] = {ABS ? 0.f : -CUDART_INF_F, ABS ? 0.f : -CUDART_INF_F};
 #pragma unroll
     for (int j = 0; j < WGG_BN / 8; ++j) {
       const int col = col_a + 8 * j;
@@ -278,9 +299,15 @@ static __device__ __forceinline__ void q8_act_epilogue(const int (&acc)[64],
       const float b0 = ep.bias[col], b1 = ep.bias[col + 1];
       const float cs0 = ep.col_scale[col], cs1 = ep.col_scale[col + 1];
 #pragma unroll
-      for (int r = 0; r < 2; ++r)
-        mx[r] = fmaxf(mx[r], fmaxf(q8_value<OUT>(acc[4 * j + 2 * r], rs[r], cs0, b0, 0.f),
-                                   q8_value<OUT>(acc[4 * j + 2 * r + 1], rs[r], cs1, b1, 0.f)));
+      for (int r = 0; r < 2; ++r) {
+        float y0 = q8_value<OUT>(acc[4 * j + 2 * r], rs[r], cs0, b0, 0.f);
+        float y1 = q8_value<OUT>(acc[4 * j + 2 * r + 1], rs[r], cs1, b1, 0.f);
+        if constexpr (ABS) {
+          y0 = fabsf(y0);
+          y1 = fabsf(y1);
+        }
+        mx[r] = fmaxf(mx[r], fmaxf(y0, y1));
+      }
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -291,13 +318,17 @@ static __device__ __forceinline__ void q8_act_epilogue(const int (&acc)[64],
     }
   } else {
     constexpr bool EXACT = OUT == WGG_OUT_Q8_ACTQ_GELU;
+    constexpr bool IDENT = OUT == WGG_OUT_Q8_QUANT;
     float sc[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const float top = __int_as_float(q8_ordered(rmx[r]));
-      sc[r] = __fdiv_rn(EXACT ? fmaxf(gelu_exact(top), GELU_EXACT_LOBE)
-                              : fmaxf(quick_gelu_rn(top), QUICK_GELU_LOBE),
-                        Q8_MAX);
+      if constexpr (IDENT)
+        sc[r] = __fdiv_rn(fmaxf(top, Q8_MIN_ABSMAX), Q8_MAX);
+      else
+        sc[r] = __fdiv_rn(EXACT ? fmaxf(gelu_exact(top), GELU_EXACT_LOBE)
+                                : fmaxf(quick_gelu_rn(top), QUICK_GELU_LOBE),
+                          Q8_MAX);
     }
     if (n0 == 0 && q == 0) {
 #pragma unroll
@@ -326,7 +357,10 @@ static __device__ __forceinline__ void q8_act_epilogue(const int (&acc)[64],
         for (int r = 0; r < 2; ++r) {
           const float y0 = q8_value<OUT>(acc[4 * j + 2 * r], rs[r], cs0, b0, 0.f);
           const float y1 = q8_value<OUT>(acc[4 * j + 2 * r + 1], rs[r], cs1, b1, 0.f);
-          if constexpr (EXACT)
+          if constexpr (IDENT)
+            h[r][jj] = (uint32_t)(uint8_t)q8_round(__fdiv_rn(y0, sc[r])) |
+                       (uint32_t)(uint8_t)q8_round(__fdiv_rn(y1, sc[r])) << 8;
+          else if constexpr (EXACT)
             h[r][jj] = (uint32_t)(uint8_t)gelu_q8(y0, sc[r]) |
                        (uint32_t)(uint8_t)gelu_q8(y1, sc[r]) << 8;
           else
@@ -494,7 +528,7 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
       for (int r = 0; r < 2; ++r)
         if (row_a + 8 * r < M) rs[r] = ep.row_scale[row_a + 8 * r];
     }
-    if constexpr (OUT == WGG_OUT_Q8_ROWMAX || wgg_actq(OUT)) {
+    if constexpr (wgg_rowmax(OUT) || wgg_actq(OUT)) {
       q8_act_epilogue<OUT>(acc, ep, rs, act_max, row_a, n0, M, N, lane);
       continue;
     }
@@ -709,7 +743,7 @@ static cudaError_t launch_wgmma_gemm(const void* a, const void* b, const WggEpil
        ((wgg_dact_f32(OUT) ? ep.dy == nullptr : ep.dy16 == nullptr) || ep.aux == nullptr ||
         ep.lddy < N || ep.lddy % 2 != 0)) ||
       (Q8 && (ep.row_scale == nullptr || ep.col_scale == nullptr || ep.bias == nullptr)) ||
-      (OUT == WGG_OUT_Q8_ROWMAX && ep.rowmax == nullptr) ||
+      (wgg_rowmax(OUT) && ep.rowmax == nullptr) ||
       (wgg_actq(OUT) &&
        (ep.rowmax == nullptr || ep.qscale == nullptr || ep.out == nullptr)) ||
       reinterpret_cast<uintptr_t>(a) % 16 != 0 ||

@@ -109,6 +109,7 @@ from uml_tpu_torch.ops.quant import (attn_block_q8, attn_block_q8_plain,
 from uml_tpu_torch.ops.text_tower import (TextTowerFn, supports_text_tower,
                                           text_tower)
 from uml_tpu_torch.ops.tower_q8 import supports_tower_q8, tower_q8
+from uml_tpu_torch.parallel.tensor_parallel import storage_key
 
 # which half-blocks run W8A8 in each serving mode (clip.py:209-212):
 # "attn_qkv" is the int8 QKV with a bf16 out-projection (q8_out=False)
@@ -198,15 +199,17 @@ def _needs_grad(*tensors) -> bool:
 class _Cached:
     """One derived value, rebuilt when any source parameter was replaced
     (storage) or modified in place (version counter), or the dtype
-    changed.  For the inference path only: the value carries no autograd
-    history."""
+    changed; a tensor-parallel parameter by its local shard
+    (parallel.tensor_parallel.storage_key), while ``fn`` reads the
+    parameters whole.  For the inference path only: the value carries no
+    autograd history."""
 
     def __init__(self):
         self._key = None
         self._value = None
 
     def get(self, params, dtype, fn):
-        key = (dtype, tuple((p.data_ptr(), p._version) for p in params))
+        key = (dtype, tuple(storage_key(p) for p in params))
         if key != self._key:
             with torch.no_grad():
                 self._value = fn()

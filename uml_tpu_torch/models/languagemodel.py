@@ -16,7 +16,10 @@ LLaMA / Mistral names, and its load errors raise; otherwise HF's torch
 model here).  Both run on the card (core.device.default_device;
 ``UML_TORCH_DEVICE=cpu`` asks for the CPU), in fp32, uml_tpu's default.
 ``quant="int8_w"`` (native only) quantizes the weights on the host
-before they move to the device.
+before they move to the device.  ``mesh`` (a ``core.meshes.create_mesh``
+mesh; native only, as uml_tpu's languagemodel.py:110-114) shards the
+LlamaEncoder's projections over its ``model`` axis by ``LLAMA_TP_RULES``
+(parallel/tensor_parallel.py); the outputs are those without it.
 
 ``transformers`` is imported only where a model or tokenizer is loaded,
 and only from local files (``local_files_only``): nothing here reaches
@@ -69,15 +72,18 @@ class TextModel:
 
     ``backend`` is "native" for LLaMA / Mistral names, else "torch" (HF's
     model); ``quant`` "none" or "int8_w" (native only, as in uml_tpu);
-    ``device`` defaults to the card.
+    ``device`` defaults to the card; ``mesh``: the native model
+    tensor-parallel over its ``model`` axis.
     """
 
-    def __init__(self, model_name: str, quant: str = "none", device=None):
+    def __init__(self, model_name: str, quant: str = "none", device=None,
+                 mesh=None):
         from transformers import AutoTokenizer
 
         self.model_name = MODEL_ALIASES.get(model_name, model_name)
         self.model_type = model_family(self.model_name)
         self.quant = quant
+        self.mesh = mesh
         self.device = torch.device(device) if device is not None else default_device()
         self.tokenizer = AutoTokenizer.from_pretrained(self.model_name,
                                                        local_files_only=True)
@@ -86,7 +92,9 @@ class TextModel:
         if is_llama_family(self.model_name):
             self._load_native()
             self.backend = "native"
-            print(f"=> Native LlamaEncoder for {self.model_name} on {self.device}")
+            print(f"=> Native LlamaEncoder for {self.model_name} on {self.device}"
+                  + (f" (TP over {dict(zip(mesh.mesh_dim_names, mesh.shape))})"
+                     if mesh is not None else ""))
         else:
             from transformers import AutoModel
 
@@ -96,15 +104,17 @@ class TextModel:
 
     @classmethod
     def native(cls, config, state_dict: dict, quant: str = "none",
-               device=None) -> "TextModel":
+               device=None, mesh=None) -> "TextModel":
         """The native LlamaEncoder of ``config`` over a float state_dict
         (the port's names, models/llama.py), with no tokenizer and no
         ``transformers``: ``encode_ids`` takes the token ids.  With
-        ``int8_w`` the weights are quantized where they lie."""
+        ``int8_w`` the weights are quantized where they lie; with ``mesh``
+        the model is tensor-parallel over its ``model`` axis."""
         self = cls.__new__(cls)
         self.model_name = "llama"
         self.model_type = "decoder"
         self.quant = quant
+        self.mesh = mesh
         self.device = torch.device(device) if device is not None else default_device()
         self.tokenizer = None
         self._set_native(config, state_dict)
@@ -119,6 +129,11 @@ class TextModel:
         self.config = config
         self.model = build_llama(config, state_dict, torch.float32,
                                  self.quant).to(self.device).eval()
+        if self.mesh is not None:
+            from uml_tpu_torch.models.llama import LLAMA_TP_RULES
+            from uml_tpu_torch.parallel import apply_tp_sharding
+
+            apply_tp_sharding(self.model, self.mesh, rules=LLAMA_TP_RULES)
 
     def _load_native(self) -> None:
         """Local HF checkpoint -> the port's LlamaEncoder: ported (and

@@ -18,8 +18,14 @@ Parameter names are HF's (``embed_tokens``, ``layers.{i}.self_attn.q_proj``,
 ``kernel_q8`` [in, out] and a per-column fp32 ``scale``; the products run
 in the compute dtype and the scale rides the output, llama.py:91-124);
 ``quantize_llama_params`` turns a float state_dict into that layout with
-``ops.quant.quantize_weight`` (round half up).  The tensor-parallel rules
-(``LLAMA_TP_RULES``) come with the parallelism slice.
+``ops.quant.quantize_weight`` (round half up).  ``LLAMA_TP_RULES`` are
+the tensor-parallel rules of these names (uml_tpu's llama.py:225-229):
+q / k / v, gate and up column-parallel, o and down row-parallel, applied
+by ``parallel.tensor_parallel.apply_tp_sharding`` (``TextModel(...,
+mesh=)``).  Under them every rank still runs all heads, on weights
+gathered whole where a projection reads them (the module docstring of
+parallel/tensor_parallel.py): no config splits its heads over ranks, so
+the number of kv heads puts no condition on the ``model`` axis.
 """
 
 from __future__ import annotations
@@ -36,6 +42,15 @@ from uml_tpu_torch.ops.attention import mha_plain
 _NEG = -1e30
 Q8_PROJS = ("q_proj", "k_proj", "v_proj", "o_proj",
             "gate_proj", "up_proj", "down_proj")
+
+
+# parallel.tensor_parallel rules over HF's names: int8_w's kernel_q8
+# [in, out] and its scale shard as the float weight [out, in] does
+LLAMA_TP_RULES = [
+    (r"\bq_proj\b|\bk_proj\b|\bv_proj\b", "col"),
+    (r"\bgate_proj\b|\bup_proj\b", "col"),
+    (r"\bo_proj\b|\bdown_proj\b", "row"),
+]
 
 
 @dataclass(frozen=True)
@@ -126,9 +141,9 @@ class Q8Dense(nn.Module):
 def quantize_llama_params(state_dict: dict) -> dict:
     """A float LlamaEncoder state_dict -> the ``quant="int8_w"`` layout:
     each projection's weight [out, in] becomes ``kernel_q8`` int8 [in, out]
-    and ``scale`` fp32 [out] (symmetric per output column,
-    ops.quant.quantize_weight); the embedding and the norms stay float
-    (llama.py:131-146).  Runs where the tensors are."""
+    (contiguous, as uml_tpu keeps it) and ``scale`` fp32 [out] (symmetric
+    per output column, ops.quant.quantize_weight); the embedding and the
+    norms stay float (llama.py:131-146).  Runs where the tensors are."""
     from uml_tpu_torch.ops.quant import quantize_weight
 
     out = {}
@@ -136,7 +151,7 @@ def quantize_llama_params(state_dict: dict) -> dict:
         prefix, _, leaf = key.rpartition(".")
         if leaf == "weight" and prefix.rpartition(".")[2] in Q8_PROJS:
             q, scale = quantize_weight(value.t())
-            out[f"{prefix}.kernel_q8"], out[f"{prefix}.scale"] = q, scale
+            out[f"{prefix}.kernel_q8"], out[f"{prefix}.scale"] = q.contiguous(), scale
         else:
             out[key] = value
     return out

@@ -230,8 +230,10 @@ gemm_at.launches = 0
 
 
 Q8_EPIS = {"BF16": 0, "F32": 1, "RESIDUAL": 2, "ROWMAX": 3, "ACTQ": 4}  # Q8_EPI_*
-# ACTQ's epilogue by activation: Q8_EPI_ACTQ, Q8_EPI_ACTQ_GELU
-Q8_ACTQ_EPI = {"quick_gelu": 4, "gelu_exact": 5}
+# ACTQ's epilogue by activation: Q8_EPI_ACTQ, Q8_EPI_ACTQ_GELU, and
+# Q8_EPI_QUANT without one; ROWMAX's: Q8_EPI_ROWABSMAX without one
+Q8_ACTQ_EPI = {"quick_gelu": 4, "gelu_exact": 5, None: 7}
+Q8_ROWMAX_EPI = {"quick_gelu": 3, "gelu_exact": 3, None: 6}
 
 
 def _ordered(bits):
@@ -245,15 +247,16 @@ def q8_gemm_plain(a, w, row_scale, col_scale, bias, res=None, *, epi: str,
                   rowmax=None, activation="quick_gelu"):
     """Plain version of ``q8_gemm``: the integer product exact, then the
     epilogue in q8_gemm.cuh's order, each step rounded on its own.
-    ROWMAX: each row's max of y + b -> [M]; ACTQ: act(y + b) quantized
-    per row with the scale from ``rowmax`` (ROWMAX's output;
-    ``quant.act_quantize_rows``' scale) -> (int8 [M, N], scale [M])."""
+    ROWMAX: each row's max of y + b (of |y + b| without an activation)
+    -> [M]; ACTQ: act(y + b) quantized per row with the scale from
+    ``rowmax`` (ROWMAX's output; ``quant.act_quantize_rows``' scale) ->
+    (int8 [M, N], scale [M])."""
     y = q8_dot(a, row_scale[:, None], w.t(), col_scale)
     if epi == "RESIDUAL":
         y = res.float() + y
     y = y + bias
     if epi == "ROWMAX":
-        return y.amax(-1)
+        return (y if activation is not None else y.abs()).amax(-1)
     if epi == "ACTQ":
         q, scale = act_quantize_rows(y, activation, rowmax=rowmax[:, None])
         return q, scale[:, 0]
@@ -266,11 +269,12 @@ def q8_gemm(a, w, row_scale, col_scale, bias, res=None, *, epi: str,
     out] kernel); row_scale [M], col_scale [N], bias [N] fp32; res [M, N]
     bf16 (RESIDUAL) -> [M, N]: bf16(y + b) (BF16), y + b in fp32 (F32) or
     bf16((res + y) + b) (RESIDUAL), y = ((float)(a . w^T) * row_scale) *
-    col_scale; ROWMAX -> each row's max of y + b, [M] fp32; ACTQ with
-    ``rowmax`` (ROWMAX's output) -> (int8 [M, N], fp32 [M]): the int8 MLP
-    hidden of ``activation`` ('quick_gelu' or 'gelu_exact') and its row
-    scales.  The kernels keep the maxima as ordered ints (``_ordered``);
-    this wrapper converts them."""
+    col_scale; ROWMAX -> each row's max of y + b, [M] fp32 (of |y + b|
+    with ``activation`` None); ACTQ with ``rowmax`` (ROWMAX's output) ->
+    (int8 [M, N], fp32 [M]): the int8 MLP hidden of ``activation``
+    ('quick_gelu', 'gelu_exact' or None, the identity) and its row scales.
+    The kernels keep the maxima as ordered ints (``_ordered``); this
+    wrapper converts them."""
     if activation not in Q8_MLP_ACT:
         raise ValueError(f"q8_gemm: activation={activation!r}; the ACTQ "
                          f"epilogue takes {list(Q8_MLP_ACT)}")
@@ -293,8 +297,9 @@ def q8_gemm(a, w, row_scale, col_scale, bias, res=None, *, epi: str,
     with torch.cuda.device(dev):
         out = qscale = None
         if epi == "ROWMAX":
-            # each row's first value: -inf
-            rowmax = _ordered(torch.full((m,), float("-inf"), device=dev)
+            # each row's first value: -inf (0 for the abs-max)
+            first = float("-inf") if activation is not None else 0.0
+            rowmax = _ordered(torch.full((m,), first, device=dev)
                               .view(torch.int32))
         elif epi == "ACTQ":
             rowmax = _ordered(rowmax.view(torch.int32))
@@ -307,7 +312,9 @@ def q8_gemm(a, w, row_scale, col_scale, bias, res=None, *, epi: str,
                       row_scale.data_ptr(), col_scale.data_ptr(),
                       bias.data_ptr(), _build.ptr(res), _build.ptr(out),
                       _build.ptr(rowmax), _build.ptr(qscale), m, n, k,
-                      Q8_ACTQ_EPI[activation] if epi == "ACTQ" else Q8_EPIS[epi],
+                      Q8_ACTQ_EPI[activation] if epi == "ACTQ"
+                      else Q8_ROWMAX_EPI[activation] if epi == "ROWMAX"
+                      else Q8_EPIS[epi],
                       torch.cuda.current_stream(dev).cuda_stream)
     q8_gemm.launches += 1
     if epi == "ROWMAX":

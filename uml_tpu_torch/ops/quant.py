@@ -28,9 +28,10 @@ plain version that each rounded to bf16 could land two steps apart).
 Wrappers: ``attn_block_q8`` / ``mlp_block_q8`` take the plain version for
 a CPU tensor and launch ``csrc/attn_block_q8.cu`` / ``csrc/mlp_block_q8.cu``
 for a CUDA tensor, or raise; each counts its launches on ``.launches``.
-``mlp_block_q8`` takes quick_gelu and exact GELU, on the card and off it;
-uml_tpu's identity activation (None) raises: its int8 hidden needs each
-row's abs-max, not the row max that the card's c_fc pass finds.
+``mlp_block_q8`` takes quick_gelu, exact GELU and uml_tpu's identity
+(None, the default of ``ln_mlp_block_q8``), on the card and off it; the
+identity's int8 hidden takes each row's abs-max (``quantize_rows``), which
+the card's first c_fc pass finds for it in place of the row max.
 For S <= 256 (``qkv_attention_fused``) the int8 attention half runs its
 QKV product and attention as the int8 instance of ``csrc/qkv_attention.cu``
 (q, k, v in shared memory, no qkv scratch), counted on
@@ -100,8 +101,9 @@ def ln_quantize_rows(xf: torch.Tensor, eps: float):
 ACTIVATIONS = {None: lambda x: x, "quick_gelu": quick_gelu_f32,
                "gelu_exact": gelu_exact_f32}
 # the activations of the int8 MLP half and their codes (csrc/ln_gemm.cuh
-# ACT_*): those whose negative lobe bounds the row scale from the row max
-Q8_MLP_ACT = {"quick_gelu": 1, "gelu_exact": 2}
+# ACT_*): none (the identity, its row scale from the row's abs-max) and
+# those whose negative lobe bounds the row scale from the row max
+Q8_MLP_ACT = {None: 0, "quick_gelu": 1, "gelu_exact": 2}
 # |global minimum| of each activation's negative lobe, padded ~1% so the
 # bound never under-covers it: quick_gelu bottoms at -0.1637, exact GELU
 # at -0.1700 (quant.py:116-121)
@@ -112,10 +114,14 @@ def act_quantize_rows(pre: torch.Tensor, activation, rowmax=None):
     """Quantize act(pre) per row with the scale max(act(rowmax(pre)),
     lobe) / 127: the bounded-lobe GELUs are monotone above their minimum,
     so that bound covers the row without a reduction over act(pre)
-    (quant.py:124-148).  Other activations quantize act(pre) as is.
-    ``rowmax`` [..., 1], where given, is the row's max of ``pre``, found
-    beforehand (the card's c_fc finds it in a pass of its own)."""
+    (quant.py:124-148).  The identity (None) quantizes pre as
+    ``quantize_rows`` does.  ``rowmax`` [..., 1], where given, is the row's
+    max of ``pre`` (of |pre| for the identity), found beforehand (the
+    card's c_fc finds it in a pass of its own)."""
     act = ACTIVATIONS[activation]
+    if activation is None and rowmax is not None:
+        scale = torch.clamp(rowmax, min=1e-12) / INT8_MAX
+        return _to_int8(pre / scale), scale
     if activation not in ACT_NEG_LOBE:
         return quantize_rows(act(pre))
     if rowmax is None:
@@ -334,17 +340,13 @@ def _launch_mlp_block_q8(x, w1q, w1sc, b1, w2q, w2sc, b2, eps,
 def mlp_block_q8(x, w1q, w1sc, b1, w2q, w2sc, b2, *, eps: float = 1e-5,
                  activation="quick_gelu"):
     """x [..., K] bf16; w1q int8 [K,M], w1sc / b1 fp32 [M]; w2q int8 [M,K],
-    w2sc / b2 fp32 [K] -> [..., K]; ``activation`` 'quick_gelu' (CLIP) or
-    'gelu_exact' (DINO).  The kernel reads the int8 weights K-major (the
-    module docstring)."""
+    w2sc / b2 fp32 [K] -> [..., K]; ``activation`` 'quick_gelu' (CLIP),
+    'gelu_exact' (DINO) or None (the identity).  The kernel reads the int8
+    weights K-major (the module docstring)."""
     check_inference("mlp_block_q8", x, b1, b2)
     if activation not in Q8_MLP_ACT:
-        raise ValueError(
-            f"mlp_block_q8: activation={activation!r} is not ported (it takes "
-            f"{list(Q8_MLP_ACT)}): without a GELU's lobe bound the int8 hidden "
-            "needs each row's abs-max, which the card's row-max pass does not "
-            "find (ROADMAP.md, queue 1: the int8 MLP half without an "
-            "activation)")
+        raise ValueError(f"mlp_block_q8: activation={activation!r}; it takes "
+                         f"{list(Q8_MLP_ACT)}")
     if x.device.type == "cpu":
         return mlp_block_q8_plain(x, w1q, w1sc, b1, w2q, w2sc, b2, eps=eps,
                                   activation=activation)

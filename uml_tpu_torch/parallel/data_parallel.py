@@ -44,6 +44,7 @@ from uml_tpu_torch.core.meshes import (
     maybe_shard_batch,
     row_slice,
 )
+from uml_tpu_torch.parallel.tensor_parallel import local
 
 
 def dp_shardings(mesh):
@@ -223,13 +224,15 @@ def sync_gradients(params, mesh) -> None:
     """Average the gradients over the data axis (sum, then divide by the
     rank count): flattened into buckets of about 64 MB of one dtype, one
     all-reduce a bucket, copied back with one multi-tensor copy; no-op
-    without a mesh."""
+    without a mesh.  A tensor-parallel gradient averages its local shard."""
     if mesh is None:
         return
     n = data_size(mesh)
     group = data_group(mesh)
     buckets, size = {}, {}
-    for g in (p.grad for p in params if p.grad is not None):
+    # a tensor-parallel gradient: this rank's shard, averaged over the
+    # data ranks that hold the same shard
+    for g in (local(p.grad) for p in params if p.grad is not None):
         key = (g.dtype, g.device)
         buckets.setdefault(key, [[]])
         if size.get(key, 0) >= _BUCKET_BYTES:

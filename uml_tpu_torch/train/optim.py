@@ -164,19 +164,24 @@ class Optimizer:
         parameter the loss does not reach (the unused text tower of a
         full-model CLIP head) still takes adamw's decoupled decay, which
         torch would skip for a ``grad`` of None."""
+        from uml_tpu_torch.parallel.tensor_parallel import split_sharded
+
         params = list(params)
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         lr, wd = float(self.schedule(0)), self.weight_decay
+        # tensor-parallel parameters in a group of their own: the
+        # multi-tensor kernels refuse a list that mixes DTensors and tensors
+        groups = split_sharded(params)
         if self.name == "adamw":
-            opt = torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+            opt = torch.optim.AdamW(groups, lr=lr, betas=(0.9, 0.999), eps=1e-8,
                                     weight_decay=wd)
         elif self.name == "adam":
-            opt = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+            opt = torch.optim.Adam(groups, lr=lr, betas=(0.9, 0.999), eps=1e-8,
                                    weight_decay=wd)
         else:
-            opt = torch.optim.SGD(params, lr=lr, momentum=0.9, nesterov=False,
+            opt = torch.optim.SGD(groups, lr=lr, momentum=0.9, nesterov=False,
                                   weight_decay=wd)
         self.torch_optimizer = opt
         return self
