@@ -1,0 +1,33 @@
+"""On the card, at each cell's own size: the control, and the fault
+"half of the batch left out", fail the cell's limits on three seeds.
+
+    python3 -m pytest port_bench/tests -m cuda
+
+Skips without a CUDA device (decided inside the test)."""
+
+import pytest
+import torch
+
+from port_bench import calibrate, compare, harness
+
+SEEDS = (3300000001, 3300000002, 3300000003)
+CELLS = ("clip_vit_b16.train_bs64", "dinov2_vit_b14.train_bs64",
+         "clip_vit_b16.extract_bs64", "clip_vit_b16.train_bs256")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", CELLS)
+def test_control_and_faults_fail_the_limits(name):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    harness.cache_dirs()
+    wl = harness.workload(name)
+    cfg = harness.config(wl["config"])
+    fam = harness.module("families", cfg["family"])
+    readings = (calibrate.train_readings if wl["driver"] == "train_step"
+                else calibrate.extract_readings)
+    device = torch.device("cuda", 0)
+    for seed in SEEDS:
+        for reading, numbers in readings(wl, cfg, fam, seed, device, True):
+            ok, rows = compare.judge(numbers, wl["limits"])
+            assert ok == (reading == "program"), (seed, reading, rows)
