@@ -23,6 +23,7 @@ from uml_tpu_torch.core.device import default_device
 from uml_tpu_torch.models.clip import CLIP, build_clip
 from uml_tpu_torch.models.port_torch import load_clip_checkpoint
 from uml_tpu_torch.models.tokenizer import tokenize
+from uml_tpu_torch.utils.profiling import span
 
 # Official OpenAI checkpoint SHA256 digests (encoders.py:29-36)
 CLIP_SHA256 = {
@@ -112,9 +113,10 @@ class PendingOutput:
             self.host, self.done = out, None
 
     def result(self) -> np.ndarray:
-        if self.done is not None:
-            self.done.synchronize()
-        return self.host.numpy()[:self.n]
+        with span("uml.extract.fetch"):
+            if self.done is not None:
+                self.done.synchronize()
+            return self.host.numpy()[:self.n]
 
 
 class _PinnedRing:
@@ -133,7 +135,8 @@ class _PinnedRing:
         i = self.turn
         self.turn = (i + 1) % len(self.buffers)
         if self.events[i] is not None:
-            self.events[i].synchronize()
+            with span("uml.extract.slot_wait"):
+                self.events[i].synchronize()
         buf = self.buffers[i]
         if buf is None or buf.numel() < flat.size:
             buf = self.buffers[i] = torch.empty(flat.size, dtype=torch.uint8,
@@ -185,13 +188,14 @@ class ClipEncoder:
         """uint8 [B,H,W,3] -> (a StagedBatch of flat [B, H*W*3] uint8 on
         the device, B).  Transfer only: no forward is dispatched.  (No
         padding to a fixed batch: nothing here compiles per shape.)"""
-        n = imgs_uint8.shape[0]
-        flat = np.ascontiguousarray(imgs_uint8).reshape(n, -1)
-        if self.device.type != "cuda":
-            return StagedBatch(torch.from_numpy(flat)), n
-        if self._ring is None:
-            self._ring = _PinnedRing(self.device)
-        return self._ring.copy(flat), n
+        with span("uml.extract.stage"):
+            n = imgs_uint8.shape[0]
+            flat = np.ascontiguousarray(imgs_uint8).reshape(n, -1)
+            if self.device.type != "cuda":
+                return StagedBatch(torch.from_numpy(flat)), n
+            if self._ring is None:
+                self._ring = _PinnedRing(self.device)
+            return self._ring.copy(flat), n
 
     def _checked(self, out):
         if self.check_finite and not bool(torch.isfinite(out).all()):
@@ -202,14 +206,15 @@ class ClipEncoder:
                       return_tokens: bool = False):
         """Dispatch the forward on a staged batch -> (device output,
         n), unfetched.  The current stream waits for the batch's copy."""
-        pixels = batch.pixels
-        if batch.copied is not None:
-            stream = torch.cuda.current_stream(pixels.device)
-            stream.wait_event(batch.copied)
-            pixels.record_stream(stream)
-        with torch.no_grad():
-            out = self.model.encode_image_u8(pixels, return_tokens=return_tokens)
-        return self._checked(out), n
+        with span("uml.extract.encode"):
+            pixels = batch.pixels
+            if batch.copied is not None:
+                stream = torch.cuda.current_stream(pixels.device)
+                stream.wait_event(batch.copied)
+                pixels.record_stream(stream)
+            with torch.no_grad():
+                out = self.model.encode_image_u8(pixels, return_tokens=return_tokens)
+            return self._checked(out), n
 
     def encode_images(self, imgs_uint8: np.ndarray,
                       return_tokens: bool = False) -> np.ndarray:

@@ -222,11 +222,7 @@ def gemm_at(a, b, *, splits: int = 0):
         _build.launch("uml_gemm_at", a.data_ptr(), b.data_ptr(), c.data_ptr(),
                       ws.data_ptr(), slabs * p * n, r, p, n, splits,
                       torch.cuda.current_stream(dev).cuda_stream)
-    gemm_at.launches += 1
     return c
-
-
-gemm_at.launches = 0
 
 
 Q8_EPIS = {"BF16": 0, "F32": 1, "RESIDUAL": 2, "ROWMAX": 3, "ACTQ": 4}  # Q8_EPI_*

@@ -67,6 +67,7 @@ from uml_tpu_torch.parallel.data_parallel import (
     shard_for,
     sync_gradients,
 )
+from uml_tpu_torch.utils.profiling import span
 
 EVAL_FREQ = 100  # parity: finetune.py:30
 
@@ -252,39 +253,50 @@ def make_train_step(model, optimizer, *, has_image, has_text, alpha=1.0,
         return all_sum(parts, mesh) if shard is not None and shard.split else parts
 
     def step(i, img_b, txt_b):
-        optimizer.zero_grad()
+        with span("uml.step"):
+            return _step(i, img_b, txt_b)
+
+    def _step(i, img_b, txt_b):
+        with span("uml.step.optimizer"):
+            optimizer.zero_grad()
         img_scale, txt_scale = model.scales()
         zero = torch.zeros((), device=device)
         image_loss = text_loss = zero
         if has_image:
-            img_shard, (img_in, img_labels, img_w), img_den = place(img_b)
-            bn_updates = [] if train_bn else None
-            with global_batch(img_shard):
-                img_feats = model.image_features(img_in, bn_updates)
-            img_logits = img_feats @ model.head_w * img_scale
-            image_loss = _weighted_loss(img_logits, img_labels, img_w, img_den,
-                                        img_shard)
+            with span("uml.step.place"):
+                img_shard, (img_in, img_labels, img_w), img_den = place(img_b)
+            with span("uml.step.forward"):
+                bn_updates = [] if train_bn else None
+                with global_batch(img_shard):
+                    img_feats = model.image_features(img_in, bn_updates)
+                img_logits = img_feats @ model.head_w * img_scale
+                image_loss = _weighted_loss(img_logits, img_labels, img_w, img_den,
+                                            img_shard)
         if has_text:
-            txt_shard, (txt_feats, txt_labels, txt_w), txt_den = place(txt_b)
-            txt_feats = txt_feats.float()
-            txt_logits = txt_feats @ model.head_w * txt_scale
-            text_loss = _weighted_loss(txt_logits, txt_labels, txt_w, txt_den,
-                                       txt_shard)
+            with span("uml.step.place"):
+                txt_shard, (txt_feats, txt_labels, txt_w), txt_den = place(txt_b)
+            with span("uml.step.forward"):
+                txt_feats = txt_feats.float()
+                txt_logits = txt_feats @ model.head_w * txt_scale
+                text_loss = _weighted_loss(txt_logits, txt_labels, txt_w, txt_den,
+                                           txt_shard)
         loss = img_alpha * image_loss + alpha * text_loss
-        loss.backward()
-        sync_gradients(trainable, mesh)
+        with span("uml.step.backward"):
+            loss.backward()
+            sync_gradients(trainable, mesh)
         # the diagnostics use the PRE-step scales, like the reference's
         # autograd.grad before optimizer.step (finetune.py:190-195)
         img_scale, txt_scale = img_scale.detach().clone(), txt_scale.detach().clone()
-        optimizer.step(i)
-        if train_bn:
-            # BatchNorm's running statistics follow momentum, not
-            # gradients: written after the optimizer step
-            model.merge_bn_updates(bn_updates)
+        with span("uml.step.optimizer"):
+            optimizer.step(i)
+            if train_bn:
+                # BatchNorm's running statistics follow momentum, not
+                # gradients: written after the optimizer step
+                model.merge_bn_updates(bn_updates)
 
         metrics = {"train/image_loss": image_loss.detach(),
                    "train/text_loss": text_loss.detach()}
-        with torch.no_grad():
+        with span("uml.step.metrics"), torch.no_grad():
             if has_image:
                 img_feats, img_logits = img_feats.detach(), img_logits.detach()
                 correct, grad_img, img_sum = reduced(img_shard, _modality_sums(

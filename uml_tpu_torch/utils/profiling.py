@@ -9,6 +9,16 @@ device-time totals.  Device work is chosen by its kind, never by its
 name: kernels, memcpys and memsets count; a ``record_function`` range's
 device-side span, which covers kernels counted in their own rows, and
 every CPU-side event do not.
+
+Spans name the program's own phases (``train/supervised.py``'s step,
+``models/encoders.py``'s extraction pipeline).  ``span(name)`` records
+only while a ``torch.profiler`` recording runs (``trace_and_summarize``'s
+or any other), and costs one check of the profiler's flag otherwise: it
+returns a shared no-op context, reads no clock and allocates nothing.  A
+recorded span opens a ``record_function`` range of its name, so the
+trace shows the phase around the ops it holds, and goes into a bounded
+in-memory buffer (``take_spans``, the last SPAN_CAPACITY) on the wall
+clock.  ``trace_us`` puts a span on a chrome trace's clock.
 """
 
 from __future__ import annotations
@@ -16,8 +26,14 @@ from __future__ import annotations
 import contextlib
 import glob
 import gzip
+import itertools
 import json
-from collections import defaultdict
+import threading
+import time
+from collections import defaultdict, deque
+from typing import NamedTuple
+
+from torch.autograd import profiler as _torch_profiler
 
 # the chrome-trace categories of work that ran on the card
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -67,7 +83,8 @@ def summarize_trace(trace_dir: str, top: int = 15, per_iter: int = 1):
 @contextlib.contextmanager
 def trace_and_summarize(trace_dir: str, iters: int = 1, top: int = 15,
                         quiet: bool = False):
-    """Context manager: profile the body, print a top-kernel table.
+    """Context manager: profile the body, print a top-kernel table.  The
+    program's spans record meanwhile (the trace shows their ranges).
 
         with trace_and_summarize("/tmp/tr", iters=3):
             for _ in range(3):
@@ -87,3 +104,105 @@ def trace_and_summarize(trace_dir: str, iters: int = 1, top: int = 15,
         print(f"--- device top kernels ({trace_dir}, per-iter) ---")
         for name, ms, cnt in rows:
             print(f"{ms:9.2f} ms  x{cnt:4d}  {name}")
+
+
+# ---------------------------------------------------------------- spans
+
+SPAN_CAPACITY = 65536
+
+
+class Span(NamedTuple):
+    """One recorded span: wall-clock ns (``time.time_ns``'s clock) of its
+    entry and exit, its thread (the OS thread id, as a chrome trace's
+    ``tid``), its number (spans are numbered as they open) and the number
+    of the span around it on its thread (None for an outermost one)."""
+
+    name: str
+    start_ns: int
+    end_ns: int
+    tid: int
+    id: int
+    parent: int | None
+
+
+class _NoSpan:
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NO_SPAN = _NoSpan()
+_buffer: deque = deque(maxlen=SPAN_CAPACITY)
+_numbers = itertools.count()
+# per thread: .stack, the numbers of its open spans, and .tid, its OS
+# thread id (read once: get_native_id is a system call)
+_open = threading.local()
+# (time_ns, perf_counter_ns) taken together: spans are timed by
+# perf_counter_ns and put on the wall clock through it; retaken at every
+# outermost span, so the two clocks cannot drift apart over a long run
+_anchor = (time.time_ns(), time.perf_counter_ns())
+
+
+def span(name: str):
+    """A context manager around one phase of the program; see the module
+    docstring."""
+    if not _torch_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return _Span(name)
+
+
+class _Span:
+    __slots__ = ("name", "number", "parent", "start", "range")
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        global _anchor
+        stack = getattr(_open, "stack", None)
+        if stack is None:
+            stack = _open.stack = []
+            _open.tid = threading.get_native_id()
+        if stack:
+            self.parent = stack[-1]
+        else:
+            self.parent = None
+            _anchor = (time.time_ns(), time.perf_counter_ns())
+        self.number = next(_numbers)
+        stack.append(self.number)
+        self.range = _torch_profiler.record_function(self.name)
+        self.range.__enter__()
+        self.start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.perf_counter_ns()
+        self.range.__exit__(*exc)
+        _open.stack.pop()
+        wall, counter = _anchor
+        # a plain tuple, which the garbage collector stops tracking (a
+        # NamedTuple stays tracked, and every full collection scans it)
+        _buffer.append((self.name, wall + self.start - counter, wall + end - counter,
+                        _open.tid, self.number, self.parent))
+        return False
+
+
+def take_spans() -> list:
+    """The recorded spans (``Span``) in the order they closed; empties the
+    buffer (which keeps the last SPAN_CAPACITY)."""
+    out = []
+    while True:
+        try:
+            out.append(Span._make(_buffer.popleft()))
+        except IndexError:
+            return out
+
+
+def trace_us(ns: int, base_ns: int) -> float:
+    """A span's wall-clock ns on the clock of a chrome trace whose
+    ``baseTimeNanoseconds`` is ``base_ns``: the trace's ``ts`` in us."""
+    return (ns - base_ns) / 1e3
