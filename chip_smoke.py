@@ -115,8 +115,9 @@ Phases (any failure exits non-zero; no phase is caught):
    ViT-B/16 tower at full width, bs 8, 30 steps), then collect_results
    over the tree.  The artifacts must hold finite scalars, each path's
    launch counters must have moved by the expected count (per full-model
-   step 11 attn_block_stash, 11 attn_block_bwd, 1 attn_block_cls_bwd and
-   12 mlp_block_stash), and the tower must have moved.  Then smoke_full
+   step 11 attn_block_stash, 11 attn_block_bwd, 1 attn_block_cls_bwd, 12
+   mlp_block_stash and 12 mlp_bwd_via_stash), and the tower must have
+   moved.  Then smoke_full
    twice more with both stashes off (UML_BWD_STASH=0 UML_MLP_STASH=0),
    under UML_MLP_BWD=kernel and =dw: per step 11 attn_block, 11
    attn_block_bwd_recompute, 1 attn_block_cls, 1 attn_block_cls_bwd, 12
@@ -335,6 +336,10 @@ PORTS = [
      "uml_tpu/ops/ln_matmul.py:310"),
     ("mlp_bwd_dw", "uml_tpu_torch/csrc/mlp_block_bwd.cu",
      "uml_tpu/ops/ln_matmul.py:417"),
+    # KS, the stash backward: uml_tpu's is plain jnp that XLA fuses
+    # (_mlp_bwd_via_stash, no Pallas kernel); one C entry here
+    ("mlp_bwd_via_stash", "uml_tpu_torch/csrc/mlp_block_bwd.cu",
+     "uml_tpu/ops/ln_matmul.py:256"),
     ("flash_attention", "uml_tpu_torch/csrc/flash_attention.cu",
      "uml_tpu/ops/attention.py:90"),
     # one C entry, uml_ln_matmul, for the TPU's 2-d and 3-d kernels
@@ -393,6 +398,8 @@ DINO_TRAIN_PORTS = [
      "uml_tpu_torch/csrc/mlp_block_bwd.cu", "uml_tpu/ops/ln_matmul.py:310"),
     ("mlp_bwd_dw_dino", "mlp_bwd_dw", "dw",
      "uml_tpu_torch/csrc/mlp_block_bwd.cu", "uml_tpu/ops/ln_matmul.py:417"),
+    ("mlp_bwd_via_stash_dino", "mlp_bwd_via_stash", "default",
+     "uml_tpu_torch/csrc/mlp_block_bwd.cu", "uml_tpu/ops/ln_matmul.py:256"),
 ]
 # the engine's MLP-in and recompute instances a DINO train step must show
 # in each backward mode, and the quick_gelu instances it must not: the
@@ -406,7 +413,7 @@ DINO_TRAIN_ENGINE = {
 DINO = "vit_base_patch14_dinov2.lvd142m"
 DINO_LM = "bert-base-uncased"
 TRAIN_PORTS = ("attn_block_stash", "attn_block_bwd", "attn_block_cls_bwd",
-               "mlp_block_stash")
+               "mlp_block_stash", "mlp_bwd_via_stash")
 Q8_PORTS = ("attn_block_q8", "mlp_block_q8", "tower_q8", "qkv_attention_q8")
 RECOMPUTE_PORTS = ("attn_block_bwd_recompute", "mlp_bwd", "mlp_bwd_dw")
 # the non-fused image encode launches the first three; the public ops
@@ -443,7 +450,7 @@ REL_BOUND = {"attn_block": 1 / 64, "attn_block_cls": 1 / 64,
              "tower_q8": 1 / 16,
              "attn_block_bwd_recompute": 1 / 64,
              "attn_block_bwd_recompute_causal": 1 / 64, "mlp_bwd": 1 / 64,
-             "mlp_bwd_dw": 1 / 64,
+             "mlp_bwd_dw": 1 / 64, "mlp_bwd_via_stash": 1 / 64,
              # the stand-alone ops: 1/64 like the half-blocks; t of
              # add_ln_matmul is one rounding of the same fp32 sum, and the
              # fp32 layer_norm differs in summation order only: 1e-5
@@ -924,8 +931,10 @@ def phase_kernels():
     g_c = torch.randn(64, 1, 768, generator=gen, device=dev).to(bf)
     g_t = torch.randn(bt, st, kt, generator=gen, device=dev).to(bf)
     w_eff, wo = wv["w_eff"], wv["wo"]
-    # the MLP backward kernels: dy = g . w2^T in bf16 (what mlp_bwd takes)
+    # the MLP backward kernels: dy = g . w2^T in bf16 (what mlp_bwd takes),
+    # and the plain stash forward's pre (what mlp_bwd_via_stash takes)
     dy_v = torch.matmul(g_v, wv["w2"].t())
+    pre_v = lm.mlp_block_stash_plain(xv, *mlp_v)[1]
     mlp_bwd_v = (wv["b1"], wv["w1"])
     # the int8 ports: one quantized ViT-B/16 layer, the 11 full layers of
     # the image tower, one quantized text layer
@@ -1074,6 +1083,9 @@ def phase_kernels():
         # dy, pre, dxn, dw1 and dw2: five [rows] x [K] x [M] products
         ("mlp_bwd_dw", lm.mlp_bwd_dw, lm.mlp_bwd_dw_plain,
          (xv, g_v, *mlp_bwd_v, wv["w2"]), 0, 2.5 * mlp_f, vit_fc),
+        # KS: dy, dxn, dw1 and dw2 from the stash, four such products
+        ("mlp_bwd_via_stash", lm.mlp_bwd_via_stash, lm.mlp_bwd_via_stash_plain,
+         (xv, g_v, pre_v, *mlp_v), 0, 2 * mlp_f, vit_fc),
         ("attn_block_q8", q8_attn_call(q8.attn_block_q8, heads=12),
          q8_attn_call(q8.attn_block_q8_plain, heads=12),
          (xv, *q8v[:6]), qkv_f + out_f, attn_f, (rows, k, 3 * k, True)),
@@ -1679,6 +1691,7 @@ def _dino_train_cases(dev):
     qkv = fa.attn_block_stash_plain(x, *attn_v, heads=12, eps=eps)[1]
     qkv_c = fa.attn_block_stash_plain(x, *attn_v, heads=12, eps=eps, q_rows=1)[1]
     dy = torch.matmul(g, wv["w2"].t())           # row 19's bf16 dy = g . w2^T
+    pre = lm.mlp_block_stash_plain(x, *mlp_v, eps=eps, activation="gelu_exact")[1]
     qkv_f, out_f, mlp_f = 2.0 * rows * k * 3 * k, 2.0 * rows * k * k, 4.0 * rows * k * m
     attn_f = _attn_flops(b, s, 12)
     yard_qkv, yard_fc = (rows, k, 3 * k, False), (rows, k, m, False)
@@ -1713,6 +1726,10 @@ def _dino_train_cases(dev):
         ("mlp_bwd_dw_dino", lambda *a: lm.mlp_bwd_dw(*a, **gelu),
          lambda *a: lm.mlp_bwd_dw_plain(*a, **gelu),
          (x, g, wv["b1"], wv["w1"], wv["w2"]), 0, 2.5 * mlp_f, yard_fc),
+        # KS: dy, dxn, dw1 and dw2 from the stash
+        ("mlp_bwd_via_stash_dino", lambda *a: lm.mlp_bwd_via_stash(*a, **gelu),
+         lambda *a: lm.mlp_bwd_via_stash_plain(*a, **gelu), (x, g, pre, *mlp_v), 0,
+         2 * mlp_f, yard_fc),
     ]
 
 
@@ -1787,6 +1804,7 @@ def _wrappers():
             "tower_q8": tq8.tower_q8,
             "attn_block_bwd_recompute": fa.attn_block_bwd_recompute,
             "mlp_bwd": lm.mlp_bwd, "mlp_bwd_dw": lm.mlp_bwd_dw,
+            "mlp_bwd_via_stash": lm.mlp_bwd_via_stash,
             "qkv_attention": fa.qkv_attention,
             "qkv_attention_q8": q8.qkv_attention_q8}
 
@@ -3325,6 +3343,7 @@ def phase_dino_train(root, sizes):
                 "mlp_block_stash": lm.mlp_block_stash,
                 "attn_block_bwd_recompute": fa.attn_block_bwd_recompute,
                 "mlp_bwd": lm.mlp_bwd, "mlp_bwd_dw": lm.mlp_bwd_dw,
+                "mlp_bwd_via_stash": lm.mlp_bwd_via_stash,
                 "qkv_attention": fa.qkv_attention,
                 "flash_attention": at.flash_attention}
     none = dict.fromkeys(wrappers, 0)
@@ -3341,7 +3360,8 @@ def phase_dino_train(root, sizes):
              "flash_attention": 12 * (n_eval + steps)}
     plans = {
         "default": ({}, {"attn_block_stash": 11 * steps, "attn_block_bwd": 11 * steps,
-                         "mlp_block_stash": 12 * steps}),
+                         "mlp_block_stash": 12 * steps,
+                         "mlp_bwd_via_stash": 12 * steps}),
         **{mode: (RECOMPUTE_MODES[mode], {
             "attn_block": 11 * (n_eval + steps), "mlp_block": 12 * (n_eval + steps),
             "attn_block_bwd_recompute": 11 * steps,
@@ -3701,6 +3721,7 @@ def phase_train(root, sizes):
                 "mlp_block_stash": lm.mlp_block_stash,
                 "attn_block_bwd_recompute": fa.attn_block_bwd_recompute,
                 "mlp_bwd": lm.mlp_bwd, "mlp_bwd_dw": lm.mlp_bwd_dw,
+                "mlp_bwd_via_stash": lm.mlp_bwd_via_stash,
                 "qkv_attention": fa.qkv_attention}
     none = dict.fromkeys(wrappers, 0)
     # frozen path: the three splits encoded once in batches of 128, then
@@ -3720,7 +3741,8 @@ def phase_train(root, sizes):
     evals = {"attn_block": 11 * n_eval, "attn_block_cls": steps + n_eval,
              "mlp_block": 12 * n_eval, "attn_block_cls_bwd": steps}
     want = _with_fused({**none, **evals, "attn_block_stash": 11 * steps,
-                        "attn_block_bwd": 11 * steps, "mlp_block_stash": 12 * steps})
+                        "attn_block_bwd": 11 * steps, "mlp_block_stash": 12 * steps,
+                        "mlp_bwd_via_stash": 12 * steps})
     _check(full == want, ("smoke_full launches", full, want))
     _check_tower_moved(result, "smoke_full")
 

@@ -18,7 +18,9 @@ to its plain version bit for bit; DINO's exact-GELU MLP halves, row 3 at
 K in {384, 768, 1024} and S in {197, 257, 785}, row 11 and c_fc's
 exact-GELU quantizing pass, a DINOv2 batch against the CPU, and the
 exact-GELU training rows 9, 19 and 20 at S in {9, 17, 257} with the
-engine's exact-GELU triples).  Also: every attention wrapper refuses head
+engine's exact-GELU triples; the stash backward, one C entry, under both
+activations at K in {128, 768} and S in {9, 63, 64, 65, 129, 197, 257},
+and MlpBlockFn's stash round trip at the ViT-B widths, B = 64).  Also: every attention wrapper refuses head
 dim 32 (F8), and the features loop's staging (the copy stream, the ring of
 four reused pinned buffers, the copy back into pinned memory) gives the
 synchronous encode's features bit for bit.  Marked ``cuda``: they skip without an NVIDIA GPU (sm_90a) and
@@ -691,6 +693,103 @@ def test_mlp_gelu_exact_training_kernels(dev, s):
     _close_all(bwd_dw, lm.mlp_bwd_dw_plain(x, g, w[5], w[4], w[6], **gelu))
     assert torch.equal(stash[0], lm.mlp_block(x, *w[4:], **gelu))
     assert not torch.equal(bwd[2], lm.mlp_bwd(x, dy, w[5], w[4], eps=1e-6)[2])
+
+
+# the stash backward (KS): dy = g . w2^T on the engine with the stash read
+# in its epilogue, then dxn, the LN backward and the dW products, against
+# its plain twin under both activations, at K 128 and 768 (M = 4K) and S
+# across the 64- and 128-row tile edges that db1's per-tile sums cover
+STASH_BWD = [("quick_gelu", 1e-5), ("gelu_exact", 1e-6)]
+
+
+def _mlp_case(dev, k, s, seed):
+    """x, g [B, s, k] bf16 and (w1, b1, w2, b2) at width k, M = 4k."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, std, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen) * std).to(dtype).to(dev)
+
+    m = 4 * k
+    w = (rnd(k, m, std=k ** -0.5), rnd(m, std=0.1, dtype=torch.float32),
+         rnd(m, k, std=m ** -0.5), rnd(k, std=0.1, dtype=torch.float32))
+    return rnd(B, s, k, std=1.0), rnd(B, s, k, std=1.0), w
+
+
+@pytest.mark.parametrize("activation, eps", STASH_BWD)
+@pytest.mark.parametrize("k", [128, 768])
+@pytest.mark.parametrize("s", [9, 63, 64, 65, 129, 197, 257])
+def test_mlp_bwd_via_stash_kernel(dev, activation, eps, k, s):
+    """One launch a call; dx, dw1, db1, dw2 and db2 within 2^-6 of the
+    plain twin's largest entry each, in the parameters' dtypes."""
+    x, g, w = _mlp_case(dev, k, s, seed=k + s)
+    kw = dict(eps=eps, activation=activation)
+    _, pre = lm.mlp_block_stash_plain(x, *w, **kw)
+    n = lm.mlp_bwd_via_stash.launches
+    got = lm.mlp_bwd_via_stash(x, g, pre, *w, **kw)
+    assert lm.mlp_bwd_via_stash.launches == n + 1
+    _close_all(got, lm.mlp_bwd_via_stash_plain(x, g, pre, *w, **kw))
+    assert [t.dtype for t in got] == [torch.bfloat16, torch.bfloat16, torch.float32,
+                                      torch.bfloat16, torch.float32]
+
+
+def test_mlp_bwd_via_stash_runs_the_twin_on_the_cpu(dev):
+    """A CPU tensor takes the plain twin and launches nothing."""
+    x, g, w = _mlp_case(torch.device("cpu"), K, 17, seed=5)
+    _, pre = lm.mlp_block_stash_plain(x, *w)
+    n = lm.mlp_bwd_via_stash.launches
+    got = lm.mlp_bwd_via_stash(x, g, pre, *w)
+    assert lm.mlp_bwd_via_stash.launches == n
+    want = lm.mlp_bwd_via_stash_plain(x, g, pre, *w)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("s, activation, eps", [(197, *STASH_BWD[0]), (257, *STASH_BWD[1])])
+def test_mlp_block_fn_stash_round_trip_at_full_width(dev, monkeypatch, s, activation, eps):
+    """MlpBlockFn at the ViT-B widths (K 768, M 3072), B = 64: CLIP's S =
+    197 with quick_gelu, DINOv2-B/14's S = 257 with exact GELU.  Under the
+    default gate the stash is on (77.5 and 101 MB a layer): the forward is
+    one stash launch, the backward one uml_mlp_bwd_stash launch, and the
+    five gradients lie within 1e-2 of the largest entry (the bf16 bound of
+    tests/test_torch_train_ops.py) of the plain stash forward and plain
+    twin on their own stash, the pair the CPU tests hold to uml_tpu's
+    _mlp_block_fwd_stash and jax.vjp's _mlp_bwd_via_stash."""
+    monkeypatch.delenv("UML_MLP_STASH", raising=False)
+    gen = torch.Generator().manual_seed(s)
+    k, m = 768, 3072
+
+    def rnd(*shape, std, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen) * std).to(dtype).to(dev)
+
+    x, g = rnd(64, s, k, std=1.0), rnd(64, s, k, std=1.0)
+    w = (rnd(k, m, std=k ** -0.5), rnd(m, std=0.1, dtype=torch.float32),
+         rnd(m, k, std=m ** -0.5), rnd(k, std=0.1, dtype=torch.float32))
+    leaves = [t.clone().requires_grad_(True) for t in (x, *w)]
+    n = (lm.mlp_block_stash.launches, lm.mlp_bwd_via_stash.launches)
+    out = lm.MlpBlockFn.apply(*leaves, eps, activation)
+    out.backward(g)
+    assert (lm.mlp_block_stash.launches, lm.mlp_bwd_via_stash.launches) == (n[0] + 1,
+                                                                            n[1] + 1)
+    kw = dict(eps=eps, activation=activation)
+    _, pre = lm.mlp_block_stash_plain(x, *w, **kw)
+    want = lm.mlp_bwd_via_stash_plain(x, g, pre, *w, **kw)
+    torch.cuda.synchronize()
+    for leaf, ref in zip(leaves, want):
+        assert leaf.grad.shape == ref.shape and leaf.grad.dtype == ref.dtype
+        err = (leaf.grad.float() - ref.float()).abs().max().item()
+        assert err <= 1e-2 * ref.float().abs().max().item(), err
+
+
+def test_mlp_bwd_via_stash_raises_on_what_the_kernel_does_not_take(dev):
+    x, g, w = _mlp_case(dev, K, 17, seed=6)
+    _, pre = lm.mlp_block_stash_plain(x, *w)
+    with pytest.raises(TypeError):      # an fp32 stash
+        lm.mlp_bwd_via_stash(x, g, pre.float(), *w)
+    with pytest.raises(ValueError):     # a cotangent that is not contiguous
+        lm.mlp_bwd_via_stash(x, g.transpose(0, 1).contiguous().transpose(0, 1), pre, *w)
+    with pytest.raises(ValueError):     # a stash of another S
+        lm.mlp_bwd_via_stash(x, g, pre[:, :9].contiguous(), *w)
+    with pytest.raises(ValueError):     # a weight on the CPU
+        lm.mlp_bwd_via_stash(x, g, pre, w[0].cpu(), *w[1:])
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):

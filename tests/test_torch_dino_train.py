@@ -309,6 +309,34 @@ def test_training_wrappers_pass_the_activation_code(recorder, activation, code):
     assert len(recorder) == 3
 
 
+@pytest.mark.parametrize("activation,code", [("quick_gelu", 1), ("gelu_exact", 2)])
+def test_stash_backward_wrapper_passes_the_activation_code(recorder, activation, code):
+    """The stash backward on a tensor off the CPU: one uml_mlp_bwd_stash
+    call with one argument per SIGNATURES entry, the activation code and
+    eps after (rows, K, M), one count on its launch counter, five grads
+    in the parameters' shapes and dtypes; None raises before any call."""
+    s = 257
+    x, g, pre = _meta(B, s, K), _meta(B, s, K), _meta(B, s, M)
+    w1, w2 = _meta(K, M), _meta(M, K)
+    b1, b2 = _meta(M, dtype=torch.float32), _meta(K, dtype=torch.float32)
+    n = tlm.mlp_bwd_via_stash.launches
+    grads = tlm.mlp_bwd_via_stash(x, g, pre, w1, b1, w2, b2, eps=EPS,
+                                  activation=activation)
+    (name, args), = recorder
+    assert name == "uml_mlp_bwd_stash"
+    assert len(args) == len(_build.SIGNATURES[name])
+    assert args[14:19] == (B * s, K, M, code, EPS)
+    assert tlm.mlp_bwd_via_stash.launches == n + 1
+    assert [(t.shape, t.dtype) for t in grads] == [
+        (p.shape, p.dtype) for p in (x, w1, b1, w2, b2)]
+    with pytest.raises(ValueError, match="training forms"):
+        tlm.mlp_bwd_via_stash(x, g, pre, w1, b1, w2, b2, eps=EPS, activation=None)
+    with pytest.raises(ValueError):     # a stash of another width
+        tlm.mlp_bwd_via_stash(x, g, _meta(B, s, 2 * M), w1, b1, w2, b2, eps=EPS,
+                              activation=activation)
+    assert len(recorder) == 1
+
+
 # -- MlpBlockFn --------------------------------------------------------------
 
 def _spy(monkeypatch, names):

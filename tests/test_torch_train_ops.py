@@ -234,6 +234,38 @@ def test_mlp_stash_forward_and_backward_match_jax(dtype, s):
         _close(got, w, dtype, name)
 
 
+# db1 of the stash backward against _mlp_bwd_via_stash on one stash: both
+# sum the unrounded fp32 dpre, so with dy in fp32 on both sides they differ
+# by summation order and the activation's last bits (2e-7 quick_gelu, 2e-6
+# exact GELU at S = 65); a dy rounded to bf16 first (2^-9 an element) moves
+# db1 by ~2e-3 of its largest entry
+DY_F32_REL = 1e-5
+
+
+@pytest.mark.parametrize("activation,eps", [("quick_gelu", 1e-5), ("gelu_exact", 1e-6)])
+def test_mlp_stash_backward_keeps_dy_in_fp32(activation, eps):
+    """The plain twin's dy = g @ w2^T stays fp32, as _mlp_bwd_via_stash's
+    dot (preferred_element_type=f32) does: its db1 lies within DY_F32_REL
+    of the reference's on the same bf16 stash, where the same sum of a dy
+    rounded to bf16 lands farther away."""
+    jw, tw = _inputs(500, 65, "bf16")
+    _, pre = tlm.mlp_block_stash_plain(tw["x"], *_mlp_args(tw), eps=eps,
+                                       activation=activation)
+    jpre = jnp.asarray(pre.float().numpy(), jnp.bfloat16)
+    want = np.asarray(jlm._mlp_bwd_via_stash(jw["x"], jw["g"], jpre, *_mlp_args(jw),
+                                             eps, activation)[2])
+    got = tlm.mlp_bwd_via_stash_plain(tw["x"], tw["g"], pre, *_mlp_args(tw), eps=eps,
+                                      activation=activation)[2]
+    dact = tlm.act_and_grad(pre.float(), activation)[1]
+    dy16 = (tw["g"].float() @ tw["w2"].float().t()).to(torch.bfloat16).float()
+    rounded = (dy16 * dact).reshape(-1, M).sum(0)
+
+    def rel(a):
+        return np.abs(a.numpy() - want).max() / np.abs(want).max()
+
+    assert rel(got) <= DY_F32_REL < rel(rounded), (rel(got), rel(rounded))
+
+
 @pytest.mark.parametrize("bsz,s,m", [(64, 197, 3072), (128, 197, 3072),
                                      (512, 197, 3072), (8, 50, 512)])
 def test_mlp_stash_gate_matches_jax(monkeypatch, bsz, s, m):

@@ -402,7 +402,14 @@ static inline bool make_tensor_map(CUtensorMap* map, const void* ptr, int rank,
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
-  return encode(map, type, (cuuint32_t)rank, const_cast<void*>(ptr), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  const auto run = [&] {
+    return encode(map, type, (cuuint32_t)rank, const_cast<void*>(ptr), dims, strides, box, unit,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  };
+  // the encoder needs a current context, which a thread that has made no
+  // runtime call yet lacks (an autograd worker whose first node is a
+  // port's backward): cudaFree(nullptr) makes the current device's primary
+  // context current, and the encoder runs once more
+  return run() == CUDA_SUCCESS || (cudaFree(nullptr) == cudaSuccess && run() == CUDA_SUCCESS);
 }

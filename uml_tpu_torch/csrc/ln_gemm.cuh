@@ -16,11 +16,12 @@
 //   W   [K, N] bf16, row-major (the JAX / flax kernel layout), or with
 //       TRANS_B [N, K] row-major (the product then takes W^T)
 //   b   [N] fp32, or null for no bias
-//   res [M, N] bf16 with row stride ldres (EPI_RESIDUAL, EPI_DACT(_EXACT)),
-//       or fp32 (EPI_DACT_F32(_EXACT))
+//   res [M, N] bf16 with row stride ldres (EPI_RESIDUAL, EPI_DACT(_EXACT),
+//       EPI_DACT_STASH(_EXACT): the pre stash), or fp32 (EPI_DACT_F32(_EXACT))
 //   out [M, N] bf16, contiguous (fp32 for EPI_F32)
-//   aux [M, N] bf16, contiguous (the two stashes and the four DACT epilogues)
-//   colsum_part [ceil(M / 128), N] fp32, or null (EPI_DACT_F32(_EXACT) only)
+//   aux [M, N] bf16, contiguous (the two stashes and the six DACT epilogues)
+//   colsum_part [ceil(M / 128), N] fp32, or null (EPI_DACT_F32(_EXACT) and
+//       EPI_DACT_STASH(_EXACT) only)
 //
 // prologue: a row pre-pass (ln_rows_kernel, one warp per row) writes xn
 //   [M, K] once to the caller's buffer (LnPrologue::xn); the product reads
@@ -63,6 +64,12 @@
 //   EPI_DACT_F32_EXACT are the two with exact GELU (DINO): aux = gelu(y) =
 //   y Phi(y), dpre = dy * (Phi(y) + y phi(y)) (ln_matmul.py:303-307, with
 //   the card's erff where the TPU fits erf with a rational).
+//   EPI_DACT_STASH and EPI_DACT_STASH_EXACT, the stash backward's dy = g .
+//   w2^T (uml_tpu/ops/ln_matmul.py::_mlp_bwd_via_stash): the fp32
+//   accumulator is dy (no bias), res the bf16 stash pre with row stride
+//   ldres; act and act' of that rounded pre give aux = act(pre) and out =
+//   dpre = dy * act'(pre), both rounded to bf16 once, and the column sums
+//   of the fp32 dpre per 128-row tile as EPI_DACT_F32's.
 //
 // Every triple runs on the wgmma + TMA engine of wgmma_gemm.cuh, one route
 // per (prologue, epilogue, layout) triple in launch_ln_gemm for every
@@ -78,7 +85,8 @@
 // and (PRO_LN, EPI_DACT_F32) the MLP backward's recompute (OUT_DACT_BF16
 // with a bf16 dy, OUT_DACT with an fp32 dy and the column sums), (PRO_LN,
 // EPI_DACT_EXACT) and (PRO_LN, EPI_DACT_F32_EXACT) DINO's (OUT_DACT_BF16_EXACT,
-// OUT_DACT_EXACT), and the
+// OUT_DACT_EXACT), (PRO_NONE, EPI_DACT_STASH | EPI_DACT_STASH_EXACT,
+// TRANS_B) the stash backward's g . w2^T (OUT_DACT_STASH(_EXACT)), and the
 // stand-alone ops (rows 14-17): (PRO_LN_AFFINE | PRO_ADD_LN_AFFINE,
 // EPI_NONE | EPI_QUICK_GELU | EPI_GELU_EXACT) on OUT_BF16, OUT_GELU
 // (no stash) and OUT_GELU_EXACT.  Any other triple is refused.
@@ -118,7 +126,9 @@ enum {
   EPI_GELU_EXACT = 7,
   EPI_GELU_EXACT_STASH = 8,
   EPI_DACT_EXACT = 9,
-  EPI_DACT_F32_EXACT = 10
+  EPI_DACT_F32_EXACT = 10,
+  EPI_DACT_STASH = 11,
+  EPI_DACT_STASH_EXACT = 12
 };
 
 enum { PRO_NONE = 0, PRO_LN = 1, PRO_LN_AFFINE = 2, PRO_ADD_LN_AFFINE = 3 };
@@ -147,6 +157,13 @@ static inline int act_dact_epilogue(int act, bool dy_f32) {
   if (act == ACT_QUICK_GELU) return dy_f32 ? EPI_DACT_F32 : EPI_DACT;
   if (act == ACT_GELU_EXACT) return dy_f32 ? EPI_DACT_F32_EXACT : EPI_DACT_EXACT;
   return -1;
+}
+
+// an activation code's epilogue of the stash backward's dy = g . w2^T, or
+// -1 where it has none
+static inline int act_dact_stash_epilogue(int act) {
+  return act == ACT_QUICK_GELU ? EPI_DACT_STASH
+         : act == ACT_GELU_EXACT ? EPI_DACT_STASH_EXACT : -1;
 }
 
 // the operands of the prologues (null where a triple takes none)
@@ -334,6 +351,17 @@ static inline cudaError_t launch_ln_gemm(const __nv_bfloat16* a, const __nv_bflo
       return launch_wgmma_gemm<false, false, WGG_OUT_BF16>(a, w, ep, M, N, K, stream);
     if (epi == EPI_F32 && trans_b)  // dqkv . W_eff^T, g . w2^T, dpre . w1^T
       return launch_wgmma_gemm<false, false, WGG_OUT_F32>(a, w, ep, M, N, K, stream);
+    if ((epi == EPI_DACT_STASH || epi == EPI_DACT_STASH_EXACT) && trans_b) {
+      // the stash backward's g . w2^T: res is the bf16 pre stash
+      ep.lddy = ldres;
+      ep.aux = aux;
+      ep.dy16 = static_cast<const __nv_bfloat16*>(res);
+      ep.colsum_part = colsum_part;
+      return epi == EPI_DACT_STASH
+                 ? launch_wgmma_gemm<false, false, WGG_OUT_DACT_STASH>(a, w, ep, M, N, K, stream)
+                 : launch_wgmma_gemm<false, false, WGG_OUT_DACT_STASH_EXACT>(a, w, ep, M, N, K,
+                                                                            stream);
+    }
     return cudaErrorInvalidValue;
   }
   // an LN prologue: QKV, the MLP in (quick_gelu, exact GELU or none) and

@@ -9,7 +9,9 @@
 // (EPI_NONE, TRANS_B), dqkv . W_eff^T / g . w2^T / dpre . w1^T (EPI_F32,
 // TRANS_B), the MLP backward's recompute (PRO_LN, EPI_DACT with a bf16
 // dy, EPI_DACT_F32 with an fp32 dy, and their exact-GELU twins
-// EPI_DACT_EXACT, EPI_DACT_F32_EXACT) and the stand-alone ops' (PRO_LN_AFFINE
+// EPI_DACT_EXACT, EPI_DACT_F32_EXACT), the stash backward's g . w2^T
+// (PRO_NONE, EPI_DACT_STASH / EPI_DACT_STASH_EXACT, TRANS_B) and the
+// stand-alone ops' (PRO_LN_AFFINE
 // / PRO_ADD_LN_AFFINE with EPI_NONE, EPI_QUICK_GELU, EPI_GELU_EXACT)
 // triples here, gemm_at.cuh its weight-gradient products A^T . B, and
 // q8_gemm.cuh every int8 product.  Those are the products of
@@ -66,6 +68,10 @@
 //   OUT_DACT_BF16_EXACT (the same two with DINO's exact GELU: aux =
 //   gelu(y) = y Phi(y), dpre = dy * (Phi(y) + y phi(y)), Phi on the erff of
 //   OUT_GELU_EXACT, phi = exp(-y^2 / 2) / sqrt(2 pi) on the fast exp),
+//   OUT_DACT_STASH and OUT_DACT_STASH_EXACT (the stash backward's dy = g .
+//   w2^T: the roles swap, the accumulator is dy and the bf16 tile read
+//   beside it the stashed pre y; the same aux, out and column sums as
+//   OUT_DACT(_EXACT), so dy never leaves the registers),
 //   OUT_GELU (the MLP in: y = acc + b1, out = quick_gelu(y) of the
 //   unrounded y with the fast exp and reciprocal and, where aux is given,
 //   aux = y, each rounded once), OUT_GELU_EXACT (out = gelu_exact(y) of
@@ -128,7 +134,7 @@ enum { WGG_OUT_BF16 = 0, WGG_OUT_F32 = 1, WGG_OUT_DACT = 2, WGG_OUT_GELU = 3,
        WGG_OUT_Q8_F32 = 7, WGG_OUT_Q8_RESIDUAL = 8, WGG_OUT_GELU_EXACT = 9,
        WGG_OUT_Q8_ROWMAX = 10, WGG_OUT_Q8_ACTQ = 11, WGG_OUT_Q8_ACTQ_GELU = 12,
        WGG_OUT_DACT_EXACT = 13, WGG_OUT_DACT_BF16_EXACT = 14, WGG_OUT_Q8_ROWABSMAX = 15,
-       WGG_OUT_Q8_QUANT = 16 };
+       WGG_OUT_Q8_QUANT = 16, WGG_OUT_DACT_STASH = 17, WGG_OUT_DACT_STASH_EXACT = 18 };
 
 // the MLP backward's recompute: quick_gelu (DACT, DACT_BF16) or exact GELU
 // (DACT_EXACT, DACT_BF16_EXACT); an fp32 dy with the column sums (row 20)
@@ -136,8 +142,23 @@ enum { WGG_OUT_BF16 = 0, WGG_OUT_F32 = 1, WGG_OUT_DACT = 2, WGG_OUT_GELU = 3,
 static __host__ __device__ constexpr bool wgg_dact_f32(int out) {
   return out == WGG_OUT_DACT || out == WGG_OUT_DACT_EXACT;
 }
+// the stash backward's dy = g . w2^T: the accumulator is dy, the bf16 tile
+// read beside it the stashed pre-activation (quick_gelu or exact GELU)
+static __host__ __device__ constexpr bool wgg_dact_stash(int out) {
+  return out == WGG_OUT_DACT_STASH || out == WGG_OUT_DACT_STASH_EXACT;
+}
 static __host__ __device__ constexpr bool wgg_dact(int out) {
-  return wgg_dact_f32(out) || out == WGG_OUT_DACT_BF16 || out == WGG_OUT_DACT_BF16_EXACT;
+  return wgg_dact_f32(out) || wgg_dact_stash(out) || out == WGG_OUT_DACT_BF16 ||
+         out == WGG_OUT_DACT_BF16_EXACT;
+}
+// the epilogues that write the column sums of the fp32 dpre per row tile
+static __host__ __device__ constexpr bool wgg_colsum(int out) {
+  return wgg_dact_f32(out) || wgg_dact_stash(out);
+}
+// exact GELU's act and act' (the others take quick_gelu's)
+static __host__ __device__ constexpr bool wgg_dact_exact(int out) {
+  return out == WGG_OUT_DACT_EXACT || out == WGG_OUT_DACT_BF16_EXACT ||
+         out == WGG_OUT_DACT_STASH_EXACT;
 }
 
 // the quantizing passes of the int8 MLP in: quick_gelu (ACTQ), exact
@@ -162,12 +183,14 @@ struct WggEpilogue {
   const float* bias = nullptr;         // [N] fp32, or null
   void* out = nullptr;                 // [M, N]: bf16 (OUT_BF16, OUT_DACT: dpre) or fp32
   const float* dy = nullptr;           // OUT_DACT(_EXACT): [M, lddy] fp32
-  const __nv_bfloat16* dy16 = nullptr; // OUT_DACT_BF16(_EXACT): [M, lddy] bf16
+  const __nv_bfloat16* dy16 = nullptr; // OUT_DACT_BF16(_EXACT): [M, lddy] bf16 dy;
+                                       // OUT_DACT_STASH(_EXACT): the bf16 pre stash
   long long lddy = 0;
   __nv_bfloat16* aux = nullptr;        // OUT_DACT*: [M, N] act(y); OUT_GELU(_EXACT): y, or null
   const __nv_bfloat16* res = nullptr;  // OUT_RESIDUAL, OUT_Q8_RESIDUAL: [M, ldres] bf16
   long long ldres = 0;
-  float* colsum_part = nullptr;        // OUT_DACT(_EXACT): [ceil(M / 128), N], or null
+  float* colsum_part = nullptr;        // OUT_DACT(_EXACT), OUT_DACT_STASH(_EXACT):
+                                       // [ceil(M / 128), N], or null
   int splits = 1;                      // contraction chunks (OUT_F32, no bias)
   float* part = nullptr;               // splits > 1: [splits - 1, M, N] fp32 partials
   const float* row_scale = nullptr;    // OUT_Q8_*: [M] fp32
@@ -626,40 +649,47 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
             } else if (OUT == WGG_OUT_GELU_EXACT) {
               pk[0][jj][r] = bf16x2_bits(gelu_exact(v0), gelu_exact(v1));
               pk[1][jj][r] = bf16x2_bits(v0, v1);
-            } else if (OUT == WGG_OUT_DACT_EXACT || OUT == WGG_OUT_DACT_BF16_EXACT) {
-              // gelu(y) = y Phi(y) and gelu'(y) = Phi(y) + y phi(y): Phi
-              // on erff as gelu_exact takes it (the same bits of yact),
-              // phi(y) = exp(-y^2 / 2) / sqrt(2 pi) on the fast exp (its
-              // relative error, under 1e-7 y^2 + 2 ulp, is < 3e-6 wherever
-              // y phi(y) exceeds 1e-5: far inside the bf16 rounding that
-              // follows); dy is 0 outside the matrix, so is d there
-              const float p0 = 0.5f * (1.f + erff(v0 * 0.70710678118654752f));
-              const float p1 = 0.5f * (1.f + erff(v1 * 0.70710678118654752f));
-              const float d0 =
-                  in[jj][r].x * (p0 + v0 * (__expf(-0.5f * v0 * v0) * 0.3989422804014327f));
-              const float d1 =
-                  in[jj][r].y * (p1 + v1 * (__expf(-0.5f * v1 * v1) * 0.3989422804014327f));
-              pk[0][jj][r] = bf16x2_bits(d0, d1);
-              pk[1][jj][r] = bf16x2_bits(v0 * p0, v1 * p1);
-              c0 += d0;
-              c1 += d1;
             } else {
-              // quick_gelu'(y) = s (1 + 1.702 y (1 - s)) with one sigmoid s,
-              // on the special-function unit as OUT_GELU (2 ulp, far inside
-              // the bf16 rounding that follows: the accurate expf and
-              // division made row 19 ~8% and row 20 ~5% slower); dy is 0
-              // outside the matrix, so is d there
-              const float s0 = __fdividef(1.f, 1.f + __expf(-1.702f * v0));
-              const float s1 = __fdividef(1.f, 1.f + __expf(-1.702f * v1));
-              const float d0 = in[jj][r].x * (s0 * (1.f + 1.702f * v0 * (1.f - s0)));
-              const float d1 = in[jj][r].y * (s1 * (1.f + 1.702f * v1 * (1.f - s1)));
+              // the recompute epilogues: y = v the pre-activation, the tile
+              // read beside it dy; the stash epilogues swap the roles: dy =
+              // v (the product g . w2^T, no bias) and y the stashed bf16 pre
+              // (act and act' of the rounded pre, as uml_tpu's stash
+              // backward takes them)
+              constexpr bool STASH = wgg_dact_stash(OUT);
+              const float y0 = STASH ? in[jj][r].x : v0, y1 = STASH ? in[jj][r].y : v1;
+              const float e0 = STASH ? v0 : in[jj][r].x, e1 = STASH ? v1 : in[jj][r].y;
+              float d0, d1;
+              if constexpr (wgg_dact_exact(OUT)) {
+                // gelu(y) = y Phi(y) and gelu'(y) = Phi(y) + y phi(y): Phi
+                // on erff as gelu_exact takes it (the same bits of yact),
+                // phi(y) = exp(-y^2 / 2) / sqrt(2 pi) on the fast exp (its
+                // relative error, under 1e-7 y^2 + 2 ulp, is < 3e-6
+                // wherever y phi(y) exceeds 1e-5: far inside the bf16
+                // rounding that follows); dy is 0 outside the matrix, so is
+                // d there
+                const float p0 = 0.5f * (1.f + erff(y0 * 0.70710678118654752f));
+                const float p1 = 0.5f * (1.f + erff(y1 * 0.70710678118654752f));
+                d0 = e0 * (p0 + y0 * (__expf(-0.5f * y0 * y0) * 0.3989422804014327f));
+                d1 = e1 * (p1 + y1 * (__expf(-0.5f * y1 * y1) * 0.3989422804014327f));
+                pk[1][jj][r] = bf16x2_bits(y0 * p0, y1 * p1);
+              } else {
+                // quick_gelu'(y) = s (1 + 1.702 y (1 - s)) with one sigmoid
+                // s, on the special-function unit as OUT_GELU (2 ulp, far
+                // inside the bf16 rounding that follows: the accurate expf
+                // and division made row 19 ~8% and row 20 ~5% slower); dy
+                // is 0 outside the matrix, so is d there
+                const float s0 = __fdividef(1.f, 1.f + __expf(-1.702f * y0));
+                const float s1 = __fdividef(1.f, 1.f + __expf(-1.702f * y1));
+                d0 = e0 * (s0 * (1.f + 1.702f * y0 * (1.f - s0)));
+                d1 = e1 * (s1 * (1.f + 1.702f * y1 * (1.f - s1)));
+                pk[1][jj][r] = bf16x2_bits(y0 * s0, y1 * s1);
+              }
               pk[0][jj][r] = bf16x2_bits(d0, d1);
-              pk[1][jj][r] = bf16x2_bits(v0 * s0, v1 * s1);
               c0 += d0;
               c1 += d1;
             }
           }
-          if (wgg_dact_f32(OUT)) {
+          if (wgg_colsum(OUT)) {
             // the warp's 16 rows: the 8 lanes of one column pair, in a fixed tree
 #pragma unroll
             for (int o = 4; o < 32; o <<= 1) {
@@ -697,7 +727,7 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
         }
       }
     }
-    if (wgg_dact_f32(OUT) && ep.colsum_part != nullptr) {
+    if (wgg_colsum(OUT) && ep.colsum_part != nullptr) {
       // the 8 warps' sums in warp order: one thread per column; the second
       // barrier keeps the next item's sums out until they are read
       named_bar_sync(1, WGG_CONSUMERS);

@@ -55,6 +55,9 @@ SIGNATURES = {
     # x, g, b1, w1, w2, dy, dpre, yact, dxn, db1_part, dx, xn, dw1, db1,
     # dw2, rows, K, M, act, eps, stream
     "uml_mlp_bwd_dw": [_P] * 15 + [_I] * 4 + [_F, _P],
+    # x, g, pre, w1, w2, dpre, yact, dxn, db1_part, dx, xn, dw1, db1, dw2,
+    # rows, K, M, act, eps, stream
+    "uml_mlp_bwd_stash": [_P] * 14 + [_I] * 4 + [_F, _P],
     # x, w1, b1, w2, b2, xn, hidden, out, rows, K, M, act, eps, stream
     "uml_mlp_block": [_P] * 8 + [_I] * 4 + [_F, _P],
     # x, w1, b1, w2, b2, pre, xn, hidden, out, rows, K, M, act, eps, stream

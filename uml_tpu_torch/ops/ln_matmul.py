@@ -17,10 +17,13 @@ or raise, and count the launch.
 * ``mlp_block_stash``: the training forward -> (out, pre), pre =
   rawLN(x) @ w1 + b1 rounded to bf16; the activation is taken of the
   unrounded pre, the order of ln_matmul.py:199-204.
-* ``mlp_bwd_via_stash``: the backward from the stash, plain PyTorch as
-  the TPU package leaves it to XLA (``_mlp_bwd_via_stash``,
-  ln_matmul.py:256-293): act and act' are evaluated at the bf16-rounded
-  pre, as the reference does.
+* ``mlp_bwd_via_stash``: the backward from the stash, the port of
+  ``_mlp_bwd_via_stash`` (ln_matmul.py:256-293), which the TPU package
+  leaves to XLA: one launch of ``csrc/mlp_block_bwd.cu``'s
+  ``uml_mlp_bwd_stash`` on a CUDA tensor (dy = g @ w2^T on the wgmma
+  engine, whose epilogue reads the stash), its plain twin
+  ``mlp_bwd_via_stash_plain`` on a CPU tensor; act and act' are
+  evaluated at the bf16-rounded pre, as the reference does.
 * ``mlp_bwd`` (``_mlp_bwd_kernel``, UML_MLP_BWD=kernel): from x and dy =
   g @ w2^T, rounded to bf16 outside, it recomputes pre and returns
   (dx_ln, xn, dpre, yact); ``mlp_bwd_via_kernel`` assembles the five
@@ -301,28 +304,80 @@ def act_and_grad(pre32: torch.Tensor, activation: str = "quick_gelu"):
     return pre32 * s, grad
 
 
-def mlp_bwd_via_stash(x, g, pre, w1, b1, w2, b2, *, eps: float = 1e-5,
-                      activation: str = "quick_gelu"):
-    """All five grads of the MLP half-block from the stashed pre ->
-    (dx, dw1, db1, dw2, db2); the products take operands in the weight
-    dtype and accumulate in fp32 (ln_matmul.py:256-293)."""
+def mlp_bwd_via_stash_plain(x, g, pre, w1, b1, w2, b2, *, eps: float = 1e-5,
+                            activation: str = "quick_gelu"):
+    """Plain PyTorch version of ``mlp_bwd_via_stash``: all five grads of
+    the MLP half-block from the stashed pre -> (dx, dw1, db1, dw2, db2).
+    Every product takes fp32 copies of operands rounded to the weight
+    dtype, so it contracts bf16 values with fp32 accumulation as uml_tpu's
+    dots do (preferred_element_type=f32); dy stays fp32, dpre is rounded
+    before the dxn and dW1 products and db1 sums the unrounded fp32 dpre
+    (ln_matmul.py:256-293)."""
+    _train_act_code(activation)
+    k, m = w1.shape
     xn32, rstd = raw_layer_norm_rstd(x.float(), eps)
-    xnb = xn32.to(w1.dtype)
+    xnb = xn32.to(w1.dtype).float()
 
     act, dact = act_and_grad(pre.float(), activation)
-    yact = act.to(w2.dtype)
-    dpre = torch.matmul(g.to(w2.dtype), w2.t()).float().mul_(dact)   # [..., M]
-    dpreb = dpre.to(w1.dtype)
-    dxn = torch.matmul(dpreb, w1.t()).float()                       # [..., K]
+    yact = act.to(w2.dtype).float()
+    g32 = g.to(w2.dtype).float()
+    dpre = (g32 @ w2.float().t()).mul_(dact)                         # [..., M]
+    dpreb = dpre.to(w1.dtype).float()
+    dxn = dpreb @ w1.float().t()                                     # [..., K]
     dx = (raw_layer_norm_bwd(dxn, xn32, rstd) + g.float()).to(x.dtype)
 
-    k, m = w1.shape
-    dw1 = torch.matmul(xnb.reshape(-1, k).t(), dpreb.reshape(-1, m))
+    dw1 = xnb.reshape(-1, k).t() @ dpreb.reshape(-1, m)
     db1 = dpre.reshape(-1, m).sum(0)
-    dw2 = torch.matmul(yact.reshape(-1, m).t(), g.reshape(-1, k).to(w2.dtype))
+    dw2 = yact.reshape(-1, m).t() @ g32.reshape(-1, k)
     db2 = g.reshape(-1, k).sum(0, dtype=torch.float32)
     return (dx, dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype),
             db2.to(b2.dtype))
+
+
+def mlp_bwd_via_stash(x, g, pre, w1, b1, w2, b2, *, eps: float = 1e-5,
+                      activation: str = "quick_gelu"):
+    """All five grads of the MLP half-block from the stashed pre: x, g
+    [B, S, K] bf16; pre [B, S, M] bf16; w1 [K, M], w2 [M, K] bf16 -> (dx,
+    dw1, db1, dw2, db2).  On a CUDA tensor one launch of the C entry
+    (dx, dw1, db1, dw2 in it, the dW in fp32); db2 and the casts to the
+    parameters' dtypes here, as ``mlp_bwd_dw_via_kernel`` does."""
+    act = _train_act_code(activation)
+    if x.device.type == "cpu":
+        return mlp_bwd_via_stash_plain(x, g, pre, w1, b1, w2, b2, eps=eps,
+                                       activation=activation)
+    k, m = w1.shape
+    _build.check_dims(K=k, M=m)
+    f32, bf16, dev = torch.float32, torch.bfloat16, x.device
+    rows = x.numel() // k
+    _build.check_tensor("x", x, bf16, x.shape, dev)
+    _build.check_tensor("g", g, bf16, x.shape, dev)
+    _build.check_tensor("pre", pre, bf16, (*x.shape[:-1], m), dev)
+    _build.check_tensor("w1", w1, bf16, (k, m), dev)
+    _build.check_tensor("w2", w2, bf16, (m, k), dev)
+    with torch.cuda.device(dev):
+        dpre = torch.empty((rows, m), dtype=bf16, device=dev)
+        yact = torch.empty((rows, m), dtype=bf16, device=dev)
+        dxn = torch.empty((rows, k), dtype=f32, device=dev)
+        # the column sums of dpre per 128-row tile of the wgmma engine
+        db1_part = torch.empty((-(-rows // 128), m), dtype=f32, device=dev)
+        dx = torch.empty_like(x)
+        xn = torch.empty_like(x)
+        dw1 = torch.empty((k, m), dtype=f32, device=dev)
+        db1 = torch.empty((m,), dtype=f32, device=dev)
+        dw2 = torch.empty((m, k), dtype=f32, device=dev)
+        _build.launch("uml_mlp_bwd_stash", x.data_ptr(), g.data_ptr(),
+                      pre.data_ptr(), w1.data_ptr(), w2.data_ptr(),
+                      dpre.data_ptr(), yact.data_ptr(), dxn.data_ptr(),
+                      db1_part.data_ptr(), dx.data_ptr(), xn.data_ptr(),
+                      dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(), rows, k, m,
+                      act, eps, torch.cuda.current_stream(dev).cuda_stream)
+    mlp_bwd_via_stash.launches += 1
+    db2 = g.reshape(-1, k).sum(0, dtype=torch.float32)
+    return (dx, dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype),
+            db2.to(b2.dtype))
+
+
+mlp_bwd_via_stash.launches = 0
 
 
 def _mlp_rows(x, w1, b1, eps, activation):
