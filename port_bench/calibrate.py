@@ -4,18 +4,9 @@
         --seeds 101 102 ... --control-seeds 101 102 103
 
 For each seed, at the cell's own sizes and through the cell's own timed
-path (no measured window: the readings need none):
-
-* train cells: the program's first three steps against the plain
-  reference (the lower readings); at the control seeds the reference in
-  float8 e4m3 products put in the program's place (the control), and the
-  reference with the mean taken over half of each image batch (the fault
-  "half of the batch left out").  A state left unchanged reads 1 on
-  ``change_gap`` by its measure and needs no run.
-* the extraction cell: the program's features of a pass over the pool
-  against the reference; at the control seeds the program's own int8
-  serving path (``quant="int8"``, the features CLI's ``--quant int8``)
-  and the float8 reference.
+path (no measured window: the readings need none), the cell's driver's
+``readings``: the program's (the lower readings) and, at the control
+seeds, the control's and the faults'.
 
 One JSON line per reading on standard output, and all of them in
 ``--out`` when given.
@@ -30,58 +21,7 @@ import time
 
 import torch
 
-from port_bench import compare, harness
-from port_bench.drivers import extract, train_step
-from port_bench.reference import precision
-from port_bench.reference.uml import features
-
-
-def train_readings(wl, cfg, fam, seed, device, control: bool) -> list:
-    sd = fam.state_dict(cfg, seed, device)
-    img_b, txt_b, rows, labels = train_step.pools(wl, cfg, fam, seed, device, sd)
-    head, optimizer, step = train_step.build(wl, cfg, fam, seed, device, sd, rows, labels)
-    del sd
-    leaf_names = [k for k, p in head.named_parameters() if p.requires_grad]
-    prog_units, ref_units = fam.units(leaf_names)
-    prog = train_step.first_steps(head, optimizer, step, img_b, txt_b, 3, prog_units)
-    del head, optimizer, step
-    harness.free(device)
-    args = (wl, cfg, fam, seed, device, img_b, txt_b, rows, labels, ref_units)
-    ref = train_step.reference(*args)
-    def numbers(got):
-        return {**compare.train_numbers(got, ref), "losses": got["losses"],
-                "ref_losses": ref["losses"]}
-
-    out = [("program", numbers(prog))]
-    if control:
-        out.append(("control_fp8", numbers(train_step.reference(*args, mm="fp8"))))
-        out.append(("fault_half_batch", numbers(
-            train_step.reference(*args, rows=wl["batch"] // 2))))
-    return out
-
-
-def extract_readings(wl, cfg, fam, seed, device, control: bool) -> list:
-    images = extract.pool(wl, cfg, fam, seed, device)
-    sd = fam.state_dict(cfg, seed, device)
-    model = fam.build_backbone(cfg, sd, device)
-    del sd
-    picked = list(range(len(images)))
-    out = []
-    for name, quant in (("program", "none"),) + ((("control_int8", "int8"),) if control else ()):
-        enc = extract.encoder(model, device, quant)
-        res = extract.pass_batches(enc, images, len(images))
-        out.append((name, extract.reference_gaps(wl, cfg, fam, seed, device, images, res,
-                                                 picked)))
-    if control:
-        sd = fam.image_tower_keys(fam.state_dict(cfg, seed, device))
-        with precision.strict_fp32():
-            fp8 = {i: features(fam.reference_features, cfg, sd, torch.from_numpy(images[i]).to(device),
-                               precision.MATMULS["fp8"]).cpu().numpy() for i in picked}
-        out.append(("control_fp8", extract.reference_gaps(
-            wl, cfg, fam, seed, device, images, fp8, picked)))
-    del model
-    harness.free(device)
-    return out
+from port_bench import harness
 
 
 def main(argv=None) -> int:
@@ -99,7 +39,7 @@ def main(argv=None) -> int:
     wl = harness.workload(args.workload)
     cfg = harness.config(wl["config"])
     fam = harness.module("families", cfg["family"])
-    readings = train_readings if wl["driver"] == "train_step" else extract_readings
+    readings = harness.module("drivers", wl["driver"]).readings
     rows = []
     for seed in args.seeds:
         t = time.perf_counter()

@@ -25,15 +25,17 @@ them.  Units the reference's loss does not reach (the CLIP text tower
 and ``logit_scale``, which the full-model finetune hands to adamw as the
 program does) have no reference gradient and fall under that rule.
 
-The extraction cell's numbers, over a sample of the fetched batches:
-``feature_nmse``, the mean over the sample's images of the normalised
-squared error ||f - r||^2 / ||r||^2, and ``feature_gap``, the widest
-relative L2 gap ||f - r|| / ||r|| of one image.
+The extraction cells' numbers, over a sample of the fetched batches (or
+calls): ``feature_nmse``, the mean over the sample's rows (images or
+texts) of the normalised squared error ||f - r||^2 / ||r||^2, and
+``feature_gap``, the widest relative L2 gap ||f - r|| / ||r|| of one row.
 """
 
 from __future__ import annotations
 
 import statistics
+
+import numpy as np
 
 EXCLUDE_BELOW = 1e-3
 
@@ -67,6 +69,15 @@ def feature_numbers(prog, ref) -> dict:
     gap = (prog - ref).norm(dim=1) / ref.norm(dim=1).clamp(min=1e-30)
     return {"feature_gap": float(gap.max()), "feature_nmse": float((gap * gap).mean()),
             "feature_gap_mean": float(gap.mean())}
+
+
+def sample(seed: int, n: int, k: int) -> list:
+    """The window's answers to compare, of ``n``: ``k`` drawn from the
+    seed, the last always among them."""
+    rng = np.random.default_rng(seed)
+    pick = set(rng.choice(n, size=min(k, n), replace=False).tolist())
+    pick.add(n - 1)
+    return sorted(pick)
 
 
 def judge(numbers: dict, limits: dict) -> tuple[bool, list]:

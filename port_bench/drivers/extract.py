@@ -103,15 +103,6 @@ def pass_batches(enc, images, count: int) -> dict:
     return pipe.results
 
 
-def sample(seed: int, n_batches: int, k: int) -> list:
-    """Window batches to compare: ``k`` drawn from the seed, the last
-    always among them."""
-    rng = np.random.default_rng(seed)
-    pick = set(rng.choice(n_batches, size=min(k, n_batches), replace=False).tolist())
-    pick.add(n_batches - 1)
-    return sorted(pick)
-
-
 def reference_gaps(wl, cfg, fam, seed, device, images, results, picked, mm="fp32"):
     """The compared numbers of the picked batches' features."""
     sd = fam.image_tower_keys(fam.state_dict(cfg, seed, device))
@@ -160,12 +151,13 @@ def run(wl, cfg, fam, seed, seconds, trace, device, t0) -> dict:
 
     del enc
     harness.free(device)
-    picked = sample(seed, pipe.j, wl["check_batches"])
+    picked = compare.sample(seed, pipe.j, wl["check_batches"])
     numbers = reference_gaps(wl, cfg, fam, seed, device, images, pipe.results, picked)
 
     n = pipe.j
     ops = flops.extract(fam.forward_ops(cfg, wl["batch"]), fam.feature_width(cfg),
                         wl["batch"])
+    peak_flops = flops.peak_flops(cfg["compute_dtype"])
     return {
         "e2e": {"extract_img_per_s": (len(pipe.results) * wl["batch"] / span, "img/s"),
                 "setup_s": (setup_s, "s")},
@@ -174,7 +166,8 @@ def run(wl, cfg, fam, seed, seconds, trace, device, t0) -> dict:
         "memory_peak_bytes": peak,
         "layer": {"kind": "extract", "trace": summary, "steps": n, "window_s": span,
                   "model_flops": flops.model_flops(ops),
-                  "least_s": flops.least_seconds(ops), "route": route,
+                  "peak_flops": peak_flops,
+                  "least_s": flops.least_seconds(ops, peak_flops), "route": route,
                   "stage_ms": statistics.median(pipe.stage) * 1e3,
                   "dispatch_ms": statistics.median(pipe.dispatch) * 1e3},
         "notes": ["[setup] " + ", ".join(f"{k} {v:.3f} s" for k, v in marks.items()),
@@ -183,3 +176,31 @@ def run(wl, cfg, fam, seed, seconds, trace, device, t0) -> dict:
                   f"[compare] mean feature gap {numbers['feature_gap_mean']}, widest "
                   f"{numbers['feature_gap']}"],
     }
+
+
+def readings(wl, cfg, fam, seed, device, control: bool) -> list:
+    """The program's features of a pass over the pool against the
+    reference; with ``control``, the program's own int8 serving path
+    (``quant="int8"``, the features CLI's ``--quant int8``) and the float8
+    reference."""
+    images = pool(wl, cfg, fam, seed, device)
+    sd = fam.state_dict(cfg, seed, device)
+    model = fam.build_backbone(cfg, sd, device)
+    del sd
+    picked = list(range(len(images)))
+    out = []
+    for name, quant in (("program", "none"),) + ((("control_int8", "int8"),) if control else ()):
+        enc = encoder(model, device, quant)
+        res = pass_batches(enc, images, len(images))
+        out.append((name, reference_gaps(wl, cfg, fam, seed, device, images, res, picked)))
+    if control:
+        sd = fam.image_tower_keys(fam.state_dict(cfg, seed, device))
+        with precision.strict_fp32():
+            fp8 = {i: features(fam.reference_features, cfg, sd,
+                               torch.from_numpy(images[i]).to(device),
+                               precision.MATMULS["fp8"]).cpu().numpy() for i in picked}
+        out.append(("control_fp8", reference_gaps(
+            wl, cfg, fam, seed, device, images, fp8, picked)))
+    del model
+    harness.free(device)
+    return out

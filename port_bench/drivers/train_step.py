@@ -246,6 +246,7 @@ def run(wl, cfg, fam, seed, seconds, trace, device, t0) -> dict:
     ops = flops.train_step(fam.forward_ops(cfg, wl["batch"]), fam.feature_width(cfg),
                            wl["batch"], wl["text_batch"], wl["classes"],
                            fam.text_width(cfg), n_params, n_tower)
+    peak_flops = flops.peak_flops(cfg["compute_dtype"])
     return {
         "e2e": {"train_samples_per_s": (steps * wl["batch"] / span, "samples/s"),
                 "train_step_p95_ms": (harness.percentile(win["times"], 95) * 1e3, "ms"),
@@ -255,7 +256,8 @@ def run(wl, cfg, fam, seed, seconds, trace, device, t0) -> dict:
         "memory_peak_bytes": peak,
         "layer": {"kind": "train", "trace": summary, "steps": steps, "window_s": span,
                   "model_flops": flops.model_flops(ops),
-                  "least_s": flops.least_seconds(ops), "route": route},
+                  "peak_flops": peak_flops,
+                  "least_s": flops.least_seconds(ops, peak_flops), "route": route},
         "notes": ["[setup] " + ", ".join(f"{k} {v:.3f} s" for k, v in marks.items()),
                   f"[route] launches per step: {route}",
                   f"[steps] {steps} in {span:.4f} s; median "
@@ -268,3 +270,33 @@ def run(wl, cfg, fam, seed, seconds, trace, device, t0) -> dict:
                   f"{numbers['worst_change_unit']}",
                   f"[compare] losses program {prog['losses']} reference {ref['losses']}"],
     }
+
+
+def readings(wl, cfg, fam, seed, device, control: bool) -> list:
+    """The lower readings, the program's first three steps against the plain
+    reference; with ``control``, the reference in float8 e4m3 products put
+    in the program's place (the control) and the reference with the mean
+    taken over half of each image batch (the fault "half of the batch left
+    out").  A state left unchanged reads 1 on ``change_gap`` by its measure
+    and needs no run."""
+    sd = fam.state_dict(cfg, seed, device)
+    img_b, txt_b, rows, labels = pools(wl, cfg, fam, seed, device, sd)
+    head, optimizer, step = build(wl, cfg, fam, seed, device, sd, rows, labels)
+    del sd
+    leaf_names = [k for k, p in head.named_parameters() if p.requires_grad]
+    prog_units, ref_units = fam.units(leaf_names)
+    prog = first_steps(head, optimizer, step, img_b, txt_b, 3, prog_units)
+    del head, optimizer, step
+    harness.free(device)
+    args = (wl, cfg, fam, seed, device, img_b, txt_b, rows, labels, ref_units)
+    ref = reference(*args)
+    def numbers(got):
+        return {**compare.train_numbers(got, ref), "losses": got["losses"],
+                "ref_losses": ref["losses"]}
+
+    out = [("program", numbers(prog))]
+    if control:
+        out.append(("control_fp8", numbers(reference(*args, mm="fp8"))))
+        out.append(("fault_half_batch", numbers(
+            reference(*args, rows=wl["batch"] // 2))))
+    return out

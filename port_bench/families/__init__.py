@@ -13,5 +13,11 @@
 * ``reference_features``: the plain float32 forward
   (``reference/<family>.py``).
 
+A text-only family (``llama_encoder``) has no image tower, head or
+units: ``build_text_model`` (the program's TextModel), ``vocab``,
+``feature_width``, ``forward_ops(cfg, lengths)`` of one call's real
+tokens, ``counters`` and ``reference_features`` (ids and mask to the
+pooled features).
+
 A new configuration of a family is a data file only; a new family is a
 file here and its plain forward under ``reference/``."""

@@ -48,4 +48,5 @@ def vit_counters() -> dict:
         "mlp_block": ln_matmul.mlp_block.launches,
         "mlp_bwd": ln_matmul.mlp_bwd.launches,
         "mlp_bwd_dw": ln_matmul.mlp_bwd_dw.launches,
+        "mlp_bwd_via_stash": ln_matmul.mlp_bwd_via_stash.launches,
     }

@@ -3,14 +3,18 @@
 The count is the work the result needs, whatever implements it: each
 input of an op read once and each output written once, products as
 2 x M x N x K floating-point operations, no recompute.  Activations and
-the products' operands are bfloat16 (2 bytes), as the configurations
-state; parameters, their gradients and AdamW's state are float32.
+the products' operands are bfloat16 (2 bytes), as the ViT configurations
+state; parameters, their gradients and AdamW's state are float32.  A
+float32 configuration (the text encoder's) counts 4-byte activations.
 
 An op is (name, flops, bytes).  ``least_seconds`` is the sum, op by op,
 of max(flops / peak, bytes / bandwidth), the H100 SXM's published dense
-bfloat16 rate and HBM3 bandwidth at its 700 W limit.  ``model_flops`` is
-the products' operations alone (attention's two included), forward and
-backward: the count behind ``mfu``.  Only products carry operations;
+rate of the configuration's compute type and HBM3 bandwidth at its 700 W
+limit: bfloat16's 989 TFLOP/s, and for float32 the dense TF32 tensor
+rate, 494.7 TFLOP/s, above anything a float32-faithful program reaches
+(``peak_flops``).  ``model_flops`` is the products' operations alone
+(attention's two included), forward and backward: the count behind
+``mfu``.  Only products carry operations;
 layer norms, casts and other elementwise passes carry bytes alone, and
 AdamW, whose operations are no model's, is left out of ``model_flops``.
 
@@ -24,15 +28,27 @@ around a tower are the same for every family.
 from __future__ import annotations
 
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 494.7e12
 HBM_BYTES_PER_S = 3.35e12
 ACT = 2     # bfloat16
-PARAM = 4   # float32
+FP32 = 4
+PARAM = FP32
+
+
+def peak_flops(compute_dtype: str) -> float:
+    """The dense tensor peak a configuration's products are held to."""
+    return {"bfloat16": PEAK_BF16_FLOPS, "float32": PEAK_TF32_FLOPS}[compute_dtype]
+
+
+def product(name, rows, k, n, nbytes, extra_in=0):
+    """A product [rows, k] @ [k, n] (+ a residual read in) of ``nbytes``
+    elements: bytes of the activation in, the weight, the output, and the
+    residual."""
+    return (name, 2.0 * rows * k * n, nbytes * (rows * k + k * n + rows * n) + extra_in)
 
 
 def _mm(name, rows, k, n, extra_in=0):
-    """A product [rows, k] @ [k, n] (+ a residual read in): bytes of the
-    activation in, the weight, the output, and the residual."""
-    return (name, 2.0 * rows * k * n, ACT * (rows * k + k * n + rows * n) + extra_in)
+    return product(name, rows, k, n, ACT, extra_in)
 
 
 def layer_forward(sh: dict, batch: int, cls_only: bool = False) -> list:
@@ -115,5 +131,5 @@ def model_flops(ops: list) -> float:
     return sum(f for name, f, _ in ops if name != "adamw")
 
 
-def least_seconds(ops: list) -> float:
-    return sum(max(f / PEAK_BF16_FLOPS, b / HBM_BYTES_PER_S) for _, f, b in ops)
+def least_seconds(ops: list, peak: float) -> float:
+    return sum(max(f / peak, b / HBM_BYTES_PER_S) for _, f, b in ops)

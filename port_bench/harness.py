@@ -123,35 +123,42 @@ def trace_spans(run_one, count: int, span: str, device) -> dict | None:
 
     The first segment traces the device alone: its busy time, window,
     idle share and top operations, with the host paying only CUPTI's
-    cost of each launch.  The second adds the host's op ranges, which
-    cost host time of every op: its device time is split by launch into
-    forward, backward and optimizer, and its idle gaps are named by what
-    the host thread was doing.  Each trace is written under TMPDIR and
-    deleted once read."""
+    cost of each launch; its chrome trace (``device_trace``) and the
+    program's spans recorded in it (``spans``, port_bench/spans.py) are
+    kept for the span readers and notes.  The second adds the host's op
+    ranges, which cost host time of every op: its device time is split by
+    launch into forward, backward and optimizer, and its idle gaps are
+    named by what the host thread was doing; its spans are dropped.  Each
+    trace is written under TMPDIR and deleted once read."""
     import shutil
     import tempfile
 
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from port_bench import trace
+    from port_bench import spans, trace
 
     acts = {"device": [ProfilerActivity.CUDA],
             "host": [ProfilerActivity.CPU, ProfilerActivity.CUDA]}
-    got = {}
+    got, kept = {}, {}
     tmp = tempfile.mkdtemp(prefix="port_bench_trace_")
     try:
         for key, activities in acts.items():
             sync(device)
+            spans.take()
             with profile(activities=activities) as prof:
                 for _ in range(count):
                     with record_function(span):
                         run_one()
                 sync(device)
+            kept[key] = spans.take()
             path = os.path.join(tmp, f"{key}.json")
             prof.export_chrome_trace(path)
-            got[key] = trace.summarize(trace.load(path), count,
+            data = trace.load(path)
+            got[key] = trace.summarize(data["traceEvents"], count,
                                        span if key == "host" else None)
+            if key == "device":
+                kept["trace"] = data
             os.remove(path)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -159,7 +166,8 @@ def trace_spans(run_one, count: int, span: str, device) -> dict | None:
     if dev is None or host is None or dev["busy_s"] <= 0:
         return None
     return {**dev, "split_s": host["split_s"], "split_busy_s": host["busy_s"],
-            "idle_gaps": host["idle_gaps"]}
+            "idle_gaps": host["idle_gaps"], "spans": kept["device"],
+            "device_trace": kept["trace"]}
 
 
 def counter_delta(before: dict, after: dict, per: int) -> dict:

@@ -2,8 +2,6 @@
 
 from __future__ import annotations
 
-from port_bench.flops import PEAK_BF16_FLOPS
-
 # the forward / backward / optimizer split is reported only where the
 # trace attributes all but this share of the busy time to a launch
 MAX_UNATTRIBUTED = 0.01
@@ -36,10 +34,10 @@ def roofline(run: dict, kind: str):
 
 def mfu(run: dict, kind: str):
     """Model FLOPs of the window's completed spans over the window's
-    seconds at the bfloat16 peak, in %."""
+    seconds at the peak of the run's compute type (``peak_flops``), in %."""
     if run.get("kind") != kind or not run.get("steps"):
         return None
-    return 100.0 * run["model_flops"] * run["steps"] / (run["window_s"] * PEAK_BF16_FLOPS)
+    return 100.0 * run["model_flops"] * run["steps"] / (run["window_s"] * run["peak_flops"])
 
 
 def idle(run: dict, kind: str):

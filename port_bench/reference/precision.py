@@ -7,7 +7,8 @@ each operand of every product is rounded under a per-tensor scale that
 maps its largest magnitude to the format's largest finite value, to e4m3
 (448) in the forward and for the forward operands the backward reuses,
 and to e5m2 (57344) for the incoming gradient, whose range is wider; the
-products accumulate in float32.
+products accumulate in float32.  The text encoder states float32, and its
+control (``tf32_matmul``) is the same product in TF32, the step below it.
 """
 
 from __future__ import annotations
@@ -68,4 +69,14 @@ def fp8_matmul(a, b):
     return _Fp8Matmul.apply(a, b)
 
 
-MATMULS = {"fp32": matmul, "fp8": fp8_matmul}
+def tf32_matmul(a, b):
+    """The product with TF32 on, whatever the flags around it say."""
+    flag = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return torch.matmul(a, b)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+
+
+MATMULS = {"fp32": matmul, "fp8": fp8_matmul, "tf32": tf32_matmul}

@@ -74,7 +74,7 @@ def result_line(out: dict, trace: bool, device) -> dict:
 
 def main(argv=None) -> int:
     args = parse(argv)
-    from port_bench import harness
+    from port_bench import harness, spans
 
     harness.cache_dirs()
     wl = harness.workload(args.workload)
@@ -105,6 +105,7 @@ def main(argv=None) -> int:
                          f"{summary['busy_s']} s of {summary['window_s']} s; split "
                          f"{split}; unattributed share "
                          f"{split['unattributed'] / max(summary['split_busy_s'], 1e-30)}")
+            notes += spans.notes(out["layer"])
     for note in notes:
         print(note, file=sys.stderr)
     for name, value, limit in out["checks"]:

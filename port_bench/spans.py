@@ -7,19 +7,14 @@ while a ``torch.profiler`` recording runs, so both traced segments of
 ``harness.trace_spans`` record them, and the window none: ``uml.step``
 and its ``place`` / ``forward`` / ``backward`` / ``optimizer`` /
 ``metrics`` children around each train step, ``uml.extract.stage`` (with
-``slot_wait`` inside), ``encode`` and ``fetch`` around each batch.  The
-readers take the spans of the first segment, the device alone: there the
+``slot_wait`` inside), ``encode`` and ``fetch`` around each batch.
+``trace_spans`` keeps the first segment's, the device alone (there the
 host pays CUPTI's cost only, not the host ops' profiling, which doubles
-a step's host time in the second.  A program that records no spans gives
-every reader None.
-
-    python3 -m port_bench.spans --workload clip_vit_b16.train_bs64 \\
-        --seed 1234 --seconds 51
-
-runs the cell as ``port_bench.run --trace 1`` does, keeps the device-only
-segment's chrome trace as it is read, and prints the ``[spans]`` notes
-after the result line: host ms a step by span (self), and that
-segment's device idle ms a step by the span the host was in.
+a step's host time in the second), with that segment's chrome trace; the
+readers and the ``[spans]`` notes, which ``port_bench.run`` prints in
+every ``--trace 1`` run, take them from the run's ``trace``.  A program
+that records no spans, or a run whose path has none (the text encoder's),
+gives every reader None.
 """
 
 from __future__ import annotations
@@ -27,7 +22,6 @@ from __future__ import annotations
 import bisect
 import json
 import statistics
-import sys
 from collections import defaultdict
 
 # the span that opens each step or batch, by a run's kind
@@ -35,35 +29,27 @@ ROOT = {"train": "uml.step", "extract": "uml.extract.stage"}
 OUTSIDE = "outside the program"
 
 
-def spans(run: dict) -> list:
-    """The program's spans of the run's traced segments: taken from the
-    program by the first reader and kept in ``run["spans"]`` for the
-    others ([] from a program without spans)."""
-    if "spans" not in run:
-        try:
-            from uml_tpu_torch.utils.profiling import take_spans
-        except ImportError:
-            run["spans"] = []
-        else:
-            run["spans"] = take_spans()
-    return run["spans"]
+def take() -> list:
+    """The spans the program recorded since the last take ([] from a
+    program without spans)."""
+    try:
+        from uml_tpu_torch.utils.profiling import take_spans
+    except ImportError:
+        return []
+    return take_spans()
 
 
 def device_segment(run: dict, kind: str):
     """The spans of the first traced segment (the device alone), or None:
-    the segments run ``n`` steps or batches each, so the run holds 2n
-    root spans, and the first segment runs from the first root to the
-    (n+1)-th."""
+    the segment runs ``n`` steps or batches, so it holds ``n`` root
+    spans."""
     t = run.get("trace")
-    if run.get("kind") != kind or not t or t["n_spans"] <= 0:
+    if run.get("kind") != kind or kind not in ROOT or not t or t["n_spans"] <= 0:
         return None
-    n = t["n_spans"]
-    got = spans(run)
-    roots = sorted(s.start_ns for s in got if s.name == ROOT[kind])
-    if len(roots) != 2 * n:
+    got = t.get("spans") or []
+    if sum(s.name == ROOT[kind] for s in got) != t["n_spans"]:
         return None
-    lo, hi = roots[0], roots[n]
-    return [s for s in got if lo <= s.start_ns < hi]
+    return got
 
 
 def per_unit_ms(run: dict, kind: str, name: str):
@@ -119,21 +105,20 @@ def idle_by_span(events, base_ns: int, segment, n: int, root: str) -> dict:
     ranges = [(trace_us(s.start_ns, base_ns), trace_us(s.end_ns, base_ns), s.name)
               for s in segment if s.tid in tids]
     out = defaultdict(float)
-    for s, t in gaps:
-        mid = (s + t) / 2
-        inner = [r for r in ranges if r[0] <= mid <= r[1]]
-        name = min(inner, key=lambda r: r[1] - r[0])[2] if inner else OUTSIDE
+    for (s, t), name in zip(gaps, trace.innermost(ranges, [(s + t) / 2 for s, t in gaps],
+                                                  OUTSIDE)):
         out[name] += (t - s) / 1e3 / n
     return dict(out)
 
 
-def notes(run: dict, device_trace: dict) -> list:
-    """The ``[spans]`` notes of a traced run, given the device-only
-    segment's chrome trace (the whole file)."""
+def notes(run: dict) -> list:
+    """The ``[spans]`` notes of a traced run, from the device-only
+    segment's spans and chrome trace."""
     kind = run.get("kind")
-    segment = device_segment(run, kind) if kind in ROOT else None
+    segment = device_segment(run, kind)
     if not segment:
         return ["[spans] the traced segments hold no program spans"]
+    device_trace = run["trace"]["device_trace"]
     n = run["trace"]["n_spans"]
     own = self_ms(segment, n)
     idle = idle_by_span(device_trace["traceEvents"], device_trace["baseTimeNanoseconds"],
@@ -147,38 +132,3 @@ def notes(run: dict, device_trace: dict) -> list:
         + f"; sum {sum(idle.values()):.4f}, the segment's idle "
         f"{(t['window_s'] - t['busy_s']) * 1e3 / n:.4f}",
     ]
-
-
-def main(argv=None) -> int:
-    """A --trace 1 run of one cell (port_bench.run.main) that keeps the
-    device-only segment's trace and the readers' run as they pass, then
-    prints the [spans] notes on standard error."""
-    from port_bench import harness, run, trace
-
-    argv = list(sys.argv[1:] if argv is None else argv)
-    kept = {}
-    load, per_layer = trace.load, harness.per_layer
-
-    def keep_trace(path):
-        with open(path) as f:
-            data = json.load(f)
-        kept.setdefault("trace", data)          # the first segment's
-        return data["traceEvents"]
-
-    def keep_run(layer):
-        kept["run"] = layer
-        return per_layer(layer)
-
-    trace.load, harness.per_layer = keep_trace, keep_run
-    try:
-        rc = run.main([*argv, "--trace", "1"])
-    finally:
-        trace.load, harness.per_layer = load, per_layer
-    if rc == 0 and "trace" in kept and "run" in kept:
-        for note in notes(kept["run"], kept["trace"]):
-            print(note, file=sys.stderr)
-    return rc
-
-
-if __name__ == "__main__":
-    sys.exit(main())

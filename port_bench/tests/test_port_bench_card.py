@@ -1,5 +1,6 @@
-"""On the card, at each cell's own size: the control, and the fault
-"half of the batch left out", fail the cell's limits on three seeds.
+"""On the card, at each cell's own size: the control, and the faults
+("half of the batch left out", the text cell's "pads counted in the
+mean"), fail the cell's limits on three seeds.
 
     python3 -m pytest port_bench/tests -m cuda
 
@@ -8,11 +9,12 @@ Skips without a CUDA device (decided inside the test)."""
 import pytest
 import torch
 
-from port_bench import calibrate, compare, harness
+from port_bench import compare, harness
 
 SEEDS = (3300000001, 3300000002, 3300000003)
 CELLS = ("clip_vit_b16.train_bs64", "dinov2_vit_b14.train_bs64",
-         "clip_vit_b16.extract_bs64", "clip_vit_b16.train_bs256")
+         "clip_vit_b16.extract_bs64", "clip_vit_b16.train_bs256",
+         "dinov2_vit_b14.extract_bs64", "mistral_7b.text_cupl30")
 
 
 @pytest.mark.cuda
@@ -24,8 +26,7 @@ def test_control_and_faults_fail_the_limits(name):
     wl = harness.workload(name)
     cfg = harness.config(wl["config"])
     fam = harness.module("families", cfg["family"])
-    readings = (calibrate.train_readings if wl["driver"] == "train_step"
-                else calibrate.extract_readings)
+    readings = harness.module("drivers", wl["driver"]).readings
     device = torch.device("cuda", 0)
     for seed in SEEDS:
         for reading, numbers in readings(wl, cfg, fam, seed, device, True):

@@ -58,7 +58,7 @@ def test_new_metric_file_is_read_without_an_edit(bench_copy):
         'def read(run):\n'
         '    return run["window_s"] * 1e3 if run.get("kind") == "train" else None\n')
     run = {"kind": "train", "window_s": 2.0, "steps": 10, "model_flops": 1e12,
-           "trace": None}
+           "peak_flops": 989e12, "trace": None}
     got = harness.per_layer(run)
     assert got["host_wait_ms.train"] == {"value": 2000.0, "unit": "ms"}
     assert "mfu.train" in got
@@ -68,9 +68,15 @@ def test_new_metric_file_is_read_without_an_edit(bench_copy):
 
 
 def test_every_metric_reader_declares_a_unit():
+    """Every file of metrics/ is a reader with a unit, and the readers are
+    the benchmark's per-layer metrics, unit for unit."""
     readers = harness.metric_readers()
-    assert len(readers) == 12
+    files = glob.glob(os.path.join(harness.BENCH, "metrics", "[!_]*.py"))
+    assert len(readers) == len(files)
     assert all(isinstance(m.UNIT, str) and callable(m.read) for m in readers.values())
+    with open(os.path.join(harness.CHECKOUT, "BENCHMARK.json")) as f:
+        per_layer = {m["name"]: m["unit"] for m in json.load(f)["per_layer"]}
+    assert per_layer == {name: m.UNIT for name, m in readers.items()}
 
 
 TOY_FAMILY = '''"""A family a later change adds: a tower of one product."""
@@ -137,7 +143,7 @@ def test_new_family_is_files_only(toy_family):
 # the configuration keys and family names that only families/,
 # reference/<family>.py and the data files may hold
 FAMILY_WORDS = ("vision_width", "hidden_size", "image_resolution", "image_size",
-                "embed_dim", '"clip_vit"', '"dinov2"')
+                "embed_dim", "vocab_size", '"clip_vit"', '"dinov2"', '"llama_encoder"')
 
 
 def test_shared_files_name_no_family():

@@ -22,6 +22,8 @@ TRAIN = [(tiny.clip_cfg, "clip_vit_b16.train_bs64"),
          (tiny.dino_cfg, "dinov2_vit_b14.train_bs64"),
          (tiny.clip_cfg, "clip_vit_b16.train_bs256")]
 EXTRACT = (tiny.clip_cfg, "clip_vit_b16.extract_bs64")
+DINO_EXTRACT = (tiny.dino_cfg, "dinov2_vit_b14.extract_bs64")
+TEXT = (tiny.text_cfg, "mistral_7b.text_cupl30")
 
 
 def _run(make_cfg, name, limits=None):
@@ -43,7 +45,7 @@ def _limits(make_cfg, name):
     return _sound[name]
 
 
-@pytest.mark.parametrize("make_cfg,name", TRAIN + [EXTRACT])
+@pytest.mark.parametrize("make_cfg,name", TRAIN + [EXTRACT, DINO_EXTRACT, TEXT])
 def test_sound_run_passes_its_own_limits(make_cfg, name):
     out = _run(make_cfg, name, _limits(make_cfg, name))
     assert out["correct"], out["checks"]
@@ -87,10 +89,11 @@ def _half_rows_lost(out):
 
 
 @pytest.mark.parametrize("alter", [_rows_swapped, _half_rows_lost])
-def test_extract_answer_altered_is_not_correct(monkeypatch, alter):
+@pytest.mark.parametrize("cell", [EXTRACT, DINO_EXTRACT])
+def test_extract_answer_altered_is_not_correct(monkeypatch, alter, cell):
     from uml_tpu_torch.models.encoders import ClipEncoder
 
-    limits = _limits(*EXTRACT)
+    limits = _limits(*cell)
     encode = ClipEncoder.encode_staged
 
     def altered(self, batch, n, return_tokens=False):
@@ -98,8 +101,42 @@ def test_extract_answer_altered_is_not_correct(monkeypatch, alter):
         return alter(out), n
 
     monkeypatch.setattr(ClipEncoder, "encode_staged", altered)
-    out = _run(*EXTRACT, limits)
+    out = _run(*cell, limits)
     assert not out["correct"], out["checks"]
+
+
+@pytest.mark.parametrize("alter", [_rows_swapped, _half_rows_lost])
+def test_text_answer_altered_is_not_correct(monkeypatch, alter):
+    from uml_tpu_torch.models.languagemodel import TextModel
+
+    limits = _limits(*TEXT)
+    encode = TextModel.encode_ids
+
+    def altered(self, input_ids, attention_mask, return_tokens=False):
+        return alter(encode(self, input_ids, attention_mask, return_tokens))
+
+    monkeypatch.setattr(TextModel, "encode_ids", altered)
+    out = _run(*TEXT, limits)
+    assert not out["correct"], out["checks"]
+
+
+def _pads_counted(self, input_ids, attention_mask, return_tokens=False):
+    """The fault "pads counted in the mean": the last hidden state pooled
+    over every position of the padded rows."""
+    ids = torch.as_tensor(input_ids, dtype=torch.long, device=self.device)
+    mask = torch.as_tensor(attention_mask, dtype=torch.long, device=self.device)
+    with torch.no_grad():
+        return self.model(ids, mask).float().mean(1)
+
+
+def test_text_pads_counted_is_not_correct(monkeypatch):
+    from uml_tpu_torch.models.languagemodel import TextModel
+
+    limits = _limits(*TEXT)
+    monkeypatch.setattr(TextModel, "encode_ids", _pads_counted)
+    out = _run(*TEXT, limits)
+    assert not out["correct"], out["checks"]
+    assert out["numbers"]["feature_nmse"] > 100 * limits["feature_nmse"]
 
 
 def test_judge_fails_a_limit_not_set_and_a_nan():

@@ -74,4 +74,28 @@ def test_step_is_three_forwards_of_products():
 
 def test_least_time_is_the_slower_bound_op_by_op():
     ops = [("a", 989e12, 0.0), ("b", 0.0, 3.35e12), ("c", 989e12, 2 * 3.35e12)]
-    assert flops.least_seconds(ops) == pytest.approx(1 + 1 + 2)
+    assert flops.least_seconds(ops, flops.PEAK_BF16_FLOPS) == pytest.approx(1 + 1 + 2)
+
+
+def test_mistral_call_by_hand():
+    """Real tokens only: two rows of 3 and 5 tokens, causal pairs 6 + 15."""
+    cfg = harness.config("mistral_7b")
+    fam = harness.module("families", cfg["family"])
+    d, m, kv, layers = 4096, 14336, 1024, 32
+    ops = fam.forward_ops(cfg, [3, 5])
+    n, pairs = 8, 6 + 15
+    per_token = 2 * (d * d + 2 * d * kv + d * d + 3 * d * m)
+    assert flops.model_flops(ops) == layers * (n * per_token + 4 * pairs * d)
+    # every layer weight read once: 27.9 GB a call
+    weights = 4 * layers * (2 * d * d + 2 * d * kv + 3 * d * m)
+    assert weights == pytest.approx(27.92e9, rel=1e-3)
+    # activations, 4 bytes: each op's input read and output written once,
+    # the residual read by the two products that add it
+    per_layer = ((n * d + n * (d + 2 * kv)) + (n * d + 2 * n * kv + n * d)
+                 + 3 * n * d + (n * d + n * m) + (n * m + 2 * n * d))
+    acts = 2 * n * d + layers * per_layer + (n * d + 2 * d)
+    assert sum(b for _, _, b in ops) == 4 * acts + weights
+    # float32 products are held to the TF32 tensor peak
+    peak = flops.peak_flops(cfg["compute_dtype"])
+    assert peak == 494.7e12
+    assert flops.least_seconds(ops, peak) >= weights / flops.HBM_BYTES_PER_S

@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from port_bench import compare, harness
-from port_bench.drivers import extract, train_step
+from port_bench.drivers import extract, extract_text, train_step
 from port_bench.reference import precision
 from port_bench.reference.uml import features
 from port_bench.tests import tiny
@@ -67,3 +67,35 @@ def test_bf16_within_rounding_and_fp8_control_further(make_cfg, name):
     prog, control = _numbers(make_cfg(), name)
     assert prog["loss_gap"] < 0.02 and prog["grad_gap"] < 0.05
     assert max(control[k] / prog[k] for k in ("loss_gap", "grad_gap", "change_gap")) > 3
+
+
+def test_llama_encoder_fp32_agrees():
+    """The program's TextModel against the plain reference: 2 layers,
+    hidden 64, 4 heads over 2 kv heads, left-padded rows of unequal
+    length, seeded weights."""
+    cfg = tiny.text_cfg()
+    fam = harness.module("families", cfg["family"])
+    wl = tiny.cell("mistral_7b.text_cupl30")
+    calls = extract_text.pool(wl, fam.vocab(cfg), 5)
+    ids, mask, lengths = calls[0]
+    assert len(set(lengths)) > 1 and mask[:, 0].min() == 0 and mask[:, -1].min() == 1
+    sd = fam.state_dict(cfg, 5, CPU)
+    tm = fam.build_text_model(cfg, sd, CPU)
+    got = torch.cat([torch.from_numpy(extract_text.encode(tm, c)) for c in calls])
+    want = extract_text.reference(cfg, fam, 5, CPU, calls, range(len(calls)))
+    assert got.shape == (len(calls) * 30, 64)
+    assert compare.feature_numbers(got, want)["feature_gap"] < 1e-5
+
+
+def test_llama_reference_reads_no_pad():
+    """A row's features do not move when its pads' ids change."""
+    cfg = tiny.text_cfg()
+    fam = harness.module("families", cfg["family"])
+    ids, mask, _ = extract_text.pool(tiny.cell("mistral_7b.text_cupl30"), 100, 9)[0]
+    sd = fam.state_dict(cfg, 9, CPU)
+    ids, mask = torch.from_numpy(ids), torch.from_numpy(mask)
+    other = torch.where(mask.bool(), ids, torch.full_like(ids, 57))
+    with precision.strict_fp32():
+        a = fam.reference_features(sd, ids, mask, cfg, precision.matmul)
+        b = fam.reference_features(sd, other, mask, cfg, precision.matmul)
+    assert torch.equal(a, b)

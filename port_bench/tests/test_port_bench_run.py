@@ -27,7 +27,9 @@ from port_bench.run import run_cell
 from port_bench.tests import tiny
 for cfg, name in ((tiny.clip_cfg(), "clip_vit_b16.train_bs64"),
                   (tiny.dino_cfg(), "dinov2_vit_b14.train_bs64"),
-                  (tiny.clip_cfg(), "clip_vit_b16.extract_bs64")):
+                  (tiny.clip_cfg(), "clip_vit_b16.extract_bs64"),
+                  (tiny.dino_cfg(), "dinov2_vit_b14.extract_bs64"),
+                  (tiny.text_cfg(), "mistral_7b.text_cupl30")):
     run_cell(tiny.cell(name), cfg, 5, 0.2, False, torch.device("cpu"), time.perf_counter())
 assert "uml_tpu_torch" in sys.modules
 print("FORBIDDEN", harness.forbidden_modules())

@@ -2,9 +2,10 @@
 small synthetic chrome trace of the device alone."""
 
 import pytest
-from torch.profiler import ProfilerActivity, profile
+import torch
+from torch.profiler import ProfilerActivity
 
-from port_bench import harness, spans
+from port_bench import harness, spans, trace
 from uml_tpu_torch.utils import profiling
 from uml_tpu_torch.utils.profiling import Span
 
@@ -31,14 +32,13 @@ def _span(ids, name, start_us, end_us, parent=None, tid=MAIN):
 
 
 def train_spans():
-    """Two steps of the device-only segment (0-100 and 100-199 us), then
-    two of the host segment (from 1000 us), their phases twice as long."""
+    """The device-only segment's two steps (0-100 and 100-199 us)."""
     ids, out = _Ids(), []
-    for t0, t1, k in [(0, 100, 1.0), (100, 199, 1.0), (1000, 1200, 2.0), (1200, 1400, 2.0)]:
+    for t0, t1 in [(0, 100), (100, 199)]:
         root = _span(ids, "uml.step", t0, t1)
         out.append(root)
         for name, a, b in PHASES:
-            out.append(_span(ids, name, t0 + a * k, t0 + b * k, root.id))
+            out.append(_span(ids, name, t0 + a, t0 + b, root.id))
     # a span on another thread covers the device segment
     out.append(_span(ids, "uml.elsewhere", 0, 210, tid=OTHER))
     return out
@@ -64,8 +64,8 @@ def read(name, run):
 
 
 def train_run(got):
-    return {"kind": "train", "spans": got,
-            "trace": {"n_spans": 2, "window_s": 210e-6, "busy_s": 111e-6}}
+    return {"kind": "train", "trace": {"n_spans": 2, "window_s": 210e-6, "busy_s": 111e-6,
+                                       "spans": got, "device_trace": device_trace()}}
 
 
 def test_train_readers_take_the_device_segment():
@@ -82,11 +82,10 @@ def test_train_readers_take_the_device_segment():
 
 
 def extract_spans():
-    """Two batches a segment: stage (with a slot wait), encode, and the
-    fetch of the batch before, except in the first segment's first
-    batch; the host segment's fetches are slower."""
+    """The device-only segment's three batches: stage (with a slot wait),
+    encode, and the fetch of the batch before, from the second batch."""
     ids, out = _Ids(), []
-    for b, t0 in enumerate([0, 100, 1000, 1100]):
+    for b, t0 in enumerate([0, 100, 200]):
         stage = _span(ids, "uml.extract.stage", t0, t0 + 20)
         out += [stage, _span(ids, "uml.extract.slot_wait", t0 + 5, t0 + 9, stage.id),
                 _span(ids, "uml.extract.encode", t0 + 20, t0 + 60)]
@@ -96,30 +95,52 @@ def extract_spans():
 
 
 def test_fetch_wait_is_the_median_fetch_of_the_device_segment():
-    run = {"kind": "extract", "spans": extract_spans(),
-           "trace": {"n_spans": 2, "window_s": 1.0, "busy_s": 0.5}}
-    assert read("fetch_wait_ms.extract", run) == pytest.approx(0.030)
+    run = {"kind": "extract",
+           "trace": {"n_spans": 3, "window_s": 1.0, "busy_s": 0.5, "spans": extract_spans()}}
+    # the median of the two fetches, 30 and 39 us
+    assert read("fetch_wait_ms.extract", run) == pytest.approx(0.0345)
     assert read("dispatch_ms.train", run) is None
 
 
-@pytest.mark.parametrize("got", [[], train_spans()[:18]])
-def test_without_both_segments_spans_no_number(got):
+@pytest.mark.parametrize("got", [[], train_spans()[:9]])
+def test_without_the_segments_spans_no_number(got):
     """A program without spans (the parent of this benchmark's readers),
-    or a run whose root spans are not two segments' worth."""
+    or a run whose root spans are not the segment's steps."""
     run = train_run(got)
     for name in ("dispatch_ms.train", "place_ms.train", "diagnostics_ms.train"):
         assert read(name, run) is None
 
 
-def test_the_first_reader_takes_the_programs_spans():
-    profiling.take_spans()
-    with profile(activities=[ProfilerActivity.CPU]):
+def test_trace_spans_keeps_the_device_segments_spans(monkeypatch):
+    """trace_spans keeps the spans of its first segment and that segment's
+    chrome trace, and drops the second's (the profiler on the host alone
+    here, and the trace's summary stubbed: there is no device)."""
+    real = torch.profiler.profile
+    monkeypatch.setattr(torch.profiler, "profile",
+                        lambda activities: real(activities=[ProfilerActivity.CPU]))
+    monkeypatch.setattr(trace, "summarize", lambda events, n, name=None: {
+        "busy_s": 1.0, "window_s": 2.0, "n_spans": n, "split_s": {"unattributed": 0.0},
+        "idle_gaps": [], "top_ops": []})
+    steps = []
+
+    def one():
         with profiling.span("uml.step"):
-            pass
-    run = {"kind": "train", "trace": None}
-    assert [s.name for s in spans.spans(run)] == ["uml.step"]
+            steps.append(len(steps))
+
+    profiling.take_spans()
+    with profiling.span("uml.step"):
+        pass
+    got = harness.trace_spans(one, 3, "port_bench.step", torch.device("cpu"))
+    assert steps == [0, 1, 2, 3, 4, 5]
+    assert [s.name for s in got["spans"]] == ["uml.step"] * 3
+    # the kept trace is the first segment's: it holds the kept spans
+    data = got["device_trace"]
+    timed = [e for e in data["traceEvents"] if e.get("ph") == "X" and "ts" in e]
+    lo = min(float(e["ts"]) for e in timed)
+    hi = max(float(e["ts"]) + float(e.get("dur", 0)) for e in timed)
+    for s in got["spans"]:
+        assert lo <= profiling.trace_us(s.start_ns, data["baseTimeNanoseconds"]) <= hi
     assert profiling.take_spans() == []
-    assert spans.spans(run) is run["spans"]
 
 
 def test_idle_is_named_by_the_innermost_span_and_adds_up():
@@ -147,9 +168,11 @@ def test_self_ms_leaves_out_the_children():
 
 
 def test_notes_name_both_sums():
-    lines = spans.notes(train_run(train_spans()), device_trace())
+    lines = spans.notes(train_run(train_spans()))
     assert lines[0].startswith("[spans] host ms a step by span (self): {")
     assert lines[1].startswith("[spans] device idle ms a step by span: {")
     assert lines[1].endswith("sum 0.0495, the segment's idle 0.0495")
-    assert spans.notes(train_run([]), device_trace()) == [
+    assert spans.notes(train_run([])) == [
+        "[spans] the traced segments hold no program spans"]
+    assert spans.notes({"kind": "text", "trace": {"n_spans": 10, "spans": []}}) == [
         "[spans] the traced segments hold no program spans"]

@@ -71,7 +71,7 @@ def test_overlap_of_two_classes_is_shared():
 def test_summary_window_gaps_and_ops(tmp_path):
     path = tmp_path / "t.json"
     path.write_text(json.dumps({"traceEvents": synthetic()}))
-    s = trace.summarize(trace.load(str(path)), 2, "port_bench.step")
+    s = trace.summarize(trace.load(str(path))["traceEvents"], 2, "port_bench.step")
     assert s["window_s"] == pytest.approx(150e-6)
     assert s["busy_s"] == pytest.approx(60e-6)
     assert s["kernel_s"] == pytest.approx((20 + 15 + 10 + 5) * 1e-6)

@@ -24,8 +24,17 @@ def dino_cfg() -> dict:
     return cfg
 
 
+def text_cfg() -> dict:
+    """Mistral-7B's schema at hidden 64, 2 layers, 4 heads over 2 kv heads."""
+    cfg = harness.config("mistral_7b")
+    cfg.update(hidden_size=64, intermediate_size=128, num_hidden_layers=2,
+               num_attention_heads=4, num_key_value_heads=2, vocab_size=100)
+    return cfg
+
+
 def cell(name: str) -> dict:
-    """The cell's file at batch 8, 10 classes, a pool of 4, its limits."""
+    """The cell's file at batch 8, 10 classes, a pool of 4 (batches or
+    classes), its limits."""
     wl = copy.deepcopy(harness.workload(name))
-    wl.update(batch=8, text_batch=8, pool_batches=4, classes=10)
+    wl.update(batch=8, text_batch=8, pool_batches=4, pool_classes=4, classes=10)
     return wl

@@ -25,6 +25,7 @@ classes add up to the busy time.
 from __future__ import annotations
 
 import bisect
+import heapq
 import json
 from collections import defaultdict
 
@@ -34,9 +35,10 @@ HOST_CATS = ("cpu_op", "user_annotation", "cuda_runtime", "cuda_driver")
 CLASSES = ("forward", "backward", "optimizer", "unattributed")
 
 
-def load(path: str) -> list:
+def load(path: str) -> dict:
+    """A chrome trace file: ``traceEvents`` and ``baseTimeNanoseconds``."""
     with open(path) as f:
-        return json.load(f)["traceEvents"]
+        return json.load(f)
 
 
 def _span(e):
@@ -177,15 +179,32 @@ def idle_gaps(classed, host, lo: float, hi: float, n: int = 10) -> list:
         cur = max(cur, t)
     if hi > cur:
         gaps.append((cur, hi))
+    names = innermost(host, [(s + t) / 2 for s, t in gaps], "idle: host outside any range")
     agg = defaultdict(float)
-    for s, t in gaps:
-        mid = (s + t) / 2
-        inner = [r for r in host if r[0] <= mid <= r[1]]
-        name = (min(inner, key=lambda r: r[1] - r[0])[2] if inner
-                else "idle: host outside any range")
+    for (s, t), name in zip(gaps, names):
         agg[name] += t - s
     rows = sorted(agg.items(), key=lambda kv: -kv[1])[:n]
     return [[name[:160], us / 1e6] for name, us in rows]
+
+
+def innermost(ranges, points, outside: str) -> list:
+    """For each point, the name of the shortest of ``ranges`` ([(start,
+    end, name)]) that covers it (the first in their order among equals),
+    else ``outside``: one sweep over the points in order, the ranges begun
+    by then on a heap by length, those ended before the point dropped."""
+    order = sorted(range(len(ranges)), key=lambda k: ranges[k][0])
+    heap, i, out = [], 0, [outside] * len(points)
+    for p in sorted(range(len(points)), key=points.__getitem__):
+        x = points[p]
+        while i < len(order) and ranges[order[i]][0] <= x:
+            k = order[i]
+            heapq.heappush(heap, (ranges[k][1] - ranges[k][0], k))
+            i += 1
+        while heap and ranges[heap[0][1]][1] < x:
+            heapq.heappop(heap)
+        if heap:
+            out[p] = ranges[heap[0][1]][2]
+    return out
 
 
 def summarize(events, n_spans: int, span_name: str | None = None) -> dict | None:
