@@ -31,7 +31,11 @@ Phases (any failure exits non-zero; no phase is caught):
    c_proj) on the engine's wgmma s8 instantiation, through
    ops/gemm.py::q8_gemm, equal to their plain versions bit for bit; the
    attention backward's dq and dkv passes on
-   their own through ops/fused_attention.py::attn_bwd) against its plain PyTorch
+   their own through ops/fused_attention.py::attn_bwd; the grouped expert
+   kernel moe_gemm, both launches of one DeepSeek-V2-Lite MoE layer at
+   the benchmark cell's 6,840 routed rows over 64 experts, uneven, four
+   empty, in float32 against one cuBLAS product a projection an expert
+   within 1e-5, its bound at float32's FMA rate, 67 TFLOP/s) against its plain PyTorch
    version on the same inputs, within the stated bounds, with its bound
    (the least time the card could take) and a cuBLAS GEMM yardstick at its
    largest product (layer_norm and flash_attention: the one PyTorch call
@@ -208,7 +212,9 @@ Phases (any failure exits non-zero; no phase is caught):
    the time per call, peak memory and the projections' bytes (int8_w at
    most 0.27 of fp32's); card against CPU at 2 layers, fp32, at
    OpenLLaMA-7B's and Mistral-7B's grouped-query widths (MLP 14336, 8 kv
-   heads, eps 1e-5): min cosine 0.9999.
+   heads, eps 1e-5): min cosine 0.9999; and at DeepSeek-V2-Lite's widths,
+   its dense layer and one MoE layer, with moe_gemm's launches of one
+   call counted (two a MoE layer: the kernel table's count).
 5f. resume (``[resume]``): the finetune CLI on the frozen ViT-B/16 grid
    (``smoke``) twice uninterrupted (their spread), then with
    --ckpt_every 20 in a subprocess killed (SIGKILL) once its first
@@ -262,9 +268,12 @@ Phases (any failure exits non-zero; no phase is caught):
    NCCL and create_mesh(1, 1); parallel.apply_tp_sharding of each model
    over it (DTensors gathered whole where the model reads them): the
    LlamaEncoder at OpenLLaMA-7B's published widths and depth, seeded
-   random weights drawn on the card, fp32 and int8_w, through
-   ``TextModel.native(..., mesh=)``: pooled features bit-equal to those
-   without the mesh, ms a call of both; the ViT-B/16 image encoder in
+   random weights drawn on the card, fp32 and int8_w, built by
+   ``TextModel.native`` and sharded by apply_tp_sharding (7 / 12 tensors
+   a layer): pooled features bit-equal to those without the mesh, ms a
+   call of both; ``TextModel.native(..., mesh=)`` over the same mesh
+   shards nothing (its model axis is one wide) and is bit-equal too; the
+   ViT-B/16 image encoder in
    bf16, int8 and int8 with UML_TOWER_Q8=1 (batch 64): features
    bit-equal, rows 1-3, 10-12 launched as without the mesh, img/s of
    both; the full-model ViT-B/16 step (batch 64) with TP-applied weights
@@ -291,6 +300,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import functools
+import itertools
 import json
 import math
 import os
@@ -360,6 +370,9 @@ PORTS = [
      "uml_tpu/ops/fused_attention.py:394"),
     ("qkv_attention_q8", "uml_tpu_torch/csrc/qkv_attention.cu",
      "uml_tpu/ops/quant.py:168"),
+    # DeepSeek-V2's routed experts, two launches a MoE layer: uml_tpu has
+    # no mixture of experts, so the kernel replaces none of its kernels
+    ("moe_gemm", "uml_tpu_torch/csrc/moe_gemm.cu", "none"),
 ]
 # the DINO slice's entries of the kernel table: (name, the wrapper whose
 # launches the [dino] phase counts, source, TPU kernel it replaces), held
@@ -506,6 +519,11 @@ REL_BOUND = {"attn_block": 1 / 64, "attn_block_cls": 1 / 64,
              # 1/64 like the half-blocks; the fp32 statistics (m, 1/l, D)
              # differ in summation order only
              "attn_bwd_dq": (1 / 64, 1e-3), "attn_bwd_dkv": (1 / 64, 1 / 64),
+             # the grouped expert products, float32 on both sides (FFMA
+             # against cuBLAS SGEMM, TF32 off): they differ in summation
+             # order only, as the fp32 layer_norm, for the SwiGLU's
+             # activation and the down product of the kernel's own
+             "moe_gemm": (1e-5, 1e-5),
              # the DINO path's kernels at DINOv2-B/14 B = 64: as above
              **{name: 1 / 64 for name, _, _, _ in DINO_PORTS},
              **{name: 1 / 64 for name, _, _, _, _ in DINO_TRAIN_PORTS}}
@@ -551,6 +569,9 @@ PRODUCTS = ("gemm_qkv", "gemm_g_wo_t", "gemm_dqkv_weff_t", "gemm_g_w2_t",
 # PEAK_BF16), bytes = every input read once and every output written once
 PEAK_BYTES = 3.35e12
 PEAK_BF16 = 989e12
+# the float32 FMA rate off the tensor cores (the same data sheet): the
+# grouped expert kernel's products are FFMA
+PEAK_FP32 = 67e12
 PEAK_INT8 = 1979e12
 L2_BYTES = 50 * 2 ** 20
 # card vs CPU plain path on the same random-init ViT-B/16 (bf16 both):
@@ -729,11 +750,12 @@ def _block_weights(gen, k, m, hd, dev):
     )
 
 
-def _bound(inputs, outputs, int8_ops=0.0, bf16_flops=0.0):
-    """-> (bound ms, "bytes" or "operations") for one call."""
+def _bound(inputs, outputs, int8_ops=0.0, bf16_flops=0.0, flops_peak=PEAK_BF16):
+    """-> (bound ms, "bytes" or "operations") for one call; the FLOPs at
+    ``flops_peak`` (bf16's unless the case runs at another rate)."""
     nbytes = sum(t.numel() * t.element_size() for t in (*inputs, *outputs))
     t_bytes = nbytes / PEAK_BYTES
-    t_ops = int8_ops / PEAK_INT8 + bf16_flops / PEAK_BF16
+    t_ops = int8_ops / PEAK_INT8 + bf16_flops / flops_peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
                                        else "operations")
 
@@ -1177,6 +1199,8 @@ def phase_kernels():
               + _product_cases(gen, dev, xv, g_v, wv, qkv_v)
               + _dino_cases(dev) + _dino_train_cases(dev))
     results = _hold_and_time(cases, dev)
+    del cases
+    results.update(_hold_and_time(_moe_gemm_cases(dev), dev, flops_peak=PEAK_FP32))
     # the streaming kernel against the dense twin that keeps its scores in
     # bf16 (mha_plain, the backward's function): recorded, not held
     for tag, qkv in (("S=197", qkv_197), ("S=2048", qkv_2048)):
@@ -1296,11 +1320,54 @@ def phase_kernels():
     return results
 
 
-def _hold_and_time(cases, dev):
+# one DeepSeek-V2-Lite MoE layer's routed rows at the benchmark cell's
+# load (30 rows of ~38 padded tokens, top-6: ~6,840 rows over 64
+# experts): uneven, four experts empty, partial tiles
+MOE_SIZES = [0, 1, 63, 64, 65, 700, 0, 129, 0, 3, 0, 250] + [107] * 51 + [108]
+
+
+def _moe_gemm_cases(dev):
+    """The grouped expert kernel at DeepSeek-V2-Lite's widths and the
+    cell's load (MOE_SIZES): both launches of one MoE layer, SwiGLU's gate
+    and up products K 2048 -> N 1408, then the down product 1408 -> 2048,
+    against moe_gemm_plain (one cuBLAS product a projection an expert).
+    Its FLOPs count at float32's FMA rate; its bytes are every expert's
+    weights read once and the rows in and out once -> cases of
+    ``_hold_and_time``."""
+    import torch
+
+    from uml_tpu_torch.ops import moe_gemm as mg
+
+    gen = torch.Generator(device=dev).manual_seed(26)
+    k, m, g = 2048, 1408, len(MOE_SIZES)
+    r = sum(MOE_SIZES)
+    a = torch.randn(r, k, generator=gen, device=dev)
+    w_gate, w_up = (torch.randn(g, m, k, generator=gen, device=dev) * k ** -0.5
+                    for _ in range(2))
+    w_down = torch.randn(g, k, m, generator=gen, device=dev) * m ** -0.5
+    offsets = torch.tensor([0, *itertools.accumulate(MOE_SIZES)], dtype=torch.int32,
+                           device=dev)
+    # the pointer tables, made outside any graph capture (the weights take
+    # more than twice the L2, so the timing has one copy of the inputs)
+    tables = {w.data_ptr(): mg.expert_table(list(w)) for w in (w_gate, w_up, w_down)}
+
+    def kernel(a, offsets, w_gate, w_up, w_down):
+        act = mg.moe_gemm(a, offsets, tables[w_gate.data_ptr()], m, tables[w_up.data_ptr()])
+        return act, mg.moe_gemm(act, offsets, tables[w_down.data_ptr()], k)
+
+    def plain(a, offsets, w_gate, w_up, w_down):
+        act = mg.moe_gemm_plain(a, MOE_SIZES, list(w_gate), list(w_up))
+        return act, mg.moe_gemm_plain(act, MOE_SIZES, list(w_down))
+
+    return [("moe_gemm", kernel, plain, (a, offsets, w_gate, w_up, w_down), 0,
+             6.0 * r * k * m, (None,) * 4)]
+
+
+def _hold_and_time(cases, dev, flops_peak=PEAK_BF16):
     """Each case's kernel against its plain version on the same inputs,
     within its REL_BOUND, then kernel, plain, library call and cuBLAS
-    yardstick graph-timed on the card, with the case's bound -> {name:
-    numbers}."""
+    yardstick graph-timed on the card, with the case's bound (its FLOPs
+    at ``flops_peak``) -> {name: numbers}."""
     import torch
 
     results = {}
@@ -1328,7 +1395,7 @@ def _hold_and_time(cases, dev):
         plain_ms = _graph_time_ms(plain_fn, copies)
         library_ms = _graph_time_ms(library[0], copies) if library else None
         del copies
-        bound_ms, bound_by = _bound(inputs, got, ops8, flops16)
+        bound_ms, bound_by = _bound(inputs, got, ops8, flops16, flops_peak)
         yard_call, yard_ms = _yardstick(*yard[:3], yard[3], dev)
         print(f"[kernels] {name:20s} shapes {[tuple(a.shape) for a in got]} "
               f"max_abs_err {err:.5f} max_rel_err {rel:.5f} (bounds "
@@ -1789,6 +1856,7 @@ def _wrappers():
     from uml_tpu_torch.ops import text_tower as tt
     from uml_tpu_torch.ops import attention as at
     from uml_tpu_torch.ops import layer_norm
+    from uml_tpu_torch.ops import moe_gemm as mg
     from uml_tpu_torch.ops import tower_q8 as tq8
 
     return {"flash_attention": at.flash_attention, "ln_matmul": lm.ln_matmul,
@@ -1806,7 +1874,7 @@ def _wrappers():
             "mlp_bwd": lm.mlp_bwd, "mlp_bwd_dw": lm.mlp_bwd_dw,
             "mlp_bwd_via_stash": lm.mlp_bwd_via_stash,
             "qkv_attention": fa.qkv_attention,
-            "qkv_attention_q8": q8.qkv_attention_q8}
+            "qkv_attention_q8": q8.qkv_attention_q8, "moe_gemm": mg.moe_gemm}
 
 
 def _with_fused(want):
@@ -2588,13 +2656,56 @@ def _proj_bytes(state_dict):
                if k.endswith(("proj.weight", "kernel_q8", "proj.scale")))
 
 
+def _deepseek_cut(ids_np, mask_np):
+    """DeepSeek-V2-Lite at its published widths cut to 2 layers (the dense
+    first layer and one MoE layer of 64 experts, top-6), seeded random
+    weights, through TextModel.native on the card and on the CPU: the
+    moe_gemm launches of one call on the card, counted from 0 just before
+    it (two a MoE layer), and the pooled features' min cosine to the CPU's
+    -> (numbers, {port: launches})."""
+    import dataclasses
+
+    import torch
+
+    from uml_tpu_torch.models.deepseek_v2 import DeepseekV2Config, DeepseekV2Encoder
+    from uml_tpu_torch.models.languagemodel import TextModel
+
+    cut = dataclasses.replace(DeepseekV2Config(), num_hidden_layers=2)
+    with torch.device("meta"):
+        shapes = DeepseekV2Encoder(cut).state_dict()
+    gen = torch.Generator().manual_seed(2)
+    cpu_sd = {name: (1.0 + 0.1 * torch.randn(t.shape, generator=gen)
+                     if name.endswith("norm.weight") else
+                     torch.randn(t.shape, generator=gen) * t.shape[-1] ** -0.5)
+              for name, t in shapes.items()}
+    want = TextModel.native(cut, cpu_sd, device="cpu").encode_ids(ids_np, mask_np)
+    card = TextModel.native(cut, {k: v.cuda() for k, v in cpu_sd.items()}, device="cuda")
+    ids, mask = torch.from_numpy(ids_np).cuda(), torch.from_numpy(mask_np).cuda()
+    card.encode_ids(ids, mask)          # the expert tables are made at the first call
+    got, launches = _counted(lambda: card.encode_ids(ids, mask))
+    moe_layers = sum(cut.is_moe(i) for i in range(cut.num_hidden_layers))
+    _check(launches["moe_gemm"] == 2 * moe_layers,
+           ("DeepSeek-V2-Lite: two moe_gemm launches a MoE layer", launches["moe_gemm"]))
+    cos = _rows_cos(got, want)
+    print(f"[llama] DeepSeek-V2-Lite widths, 2 layers (dense, MoE of {cut.n_routed_experts} "
+          f"experts, top-{cut.num_experts_per_tok}), fp32: {launches['moe_gemm']} moe_gemm "
+          f"launches a call; card against CPU min cosine {cos:.7f} (bound "
+          f"{LLAMA_CARD_VS_CPU_COS})")
+    _check(cos >= LLAMA_CARD_VS_CPU_COS, ("DeepSeek-V2-Lite card vs CPU cosine", cos))
+    del card, cpu_sd
+    torch.cuda.empty_cache()
+    return ({"deepseek_v2_lite_2layer_card_vs_cpu_cos": cos},
+            {"moe_gemm": launches["moe_gemm"]})
+
+
 def phase_llama():
     """[llama]: the native LlamaEncoder at OpenLLaMA-7B's published widths,
     full depth, seeded random weights drawn on the card, fp32 (TextModel's
     default) and int8_w on 8 padded prompts of up to 32 token ids: pooled
     features finite, int8_w's cosine to fp32, time per call, peak memory,
     the projections' bytes; card against CPU at 2 layers, at OpenLLaMA-7B's
-    and Mistral-7B's widths -> numbers."""
+    and Mistral-7B's widths, and at DeepSeek-V2-Lite's with moe_gemm's
+    launches (``_deepseek_cut``) -> (numbers, {port: launches})."""
     import dataclasses
 
     import torch
@@ -2668,7 +2779,9 @@ def phase_llama():
         _check(cos >= LLAMA_CARD_VS_CPU_COS, (name, "card vs CPU cosine", cos))
         del card, cpu_sd
         torch.cuda.empty_cache()
-    return numbers
+    deepseek_numbers, launches = _deepseek_cut(ids_np, mask_np)
+    numbers.update(deepseek_numbers)
+    return numbers, launches
 
 
 def _tree_rel_diff(a, b):
@@ -4430,12 +4543,15 @@ def _tp_group(root):
 
 
 def _tp_llama(mesh, gpu):
-    """LLaMA-7B's widths and depth through TextModel.native with and
-    without the mesh -> numbers."""
+    """LLaMA-7B's widths and depth through TextModel.native, without the
+    mesh, with parallel.apply_tp_sharding over it, and with the mesh
+    handed to TextModel.native (whose model axis is one wide, so it
+    stays unsharded) -> numbers."""
     import torch
 
     from uml_tpu_torch.models.languagemodel import TextModel
-    from uml_tpu_torch.models.llama import LlamaConfig, LlamaEncoder
+    from uml_tpu_torch.models.llama import LLAMA_TP_RULES, LlamaConfig, LlamaEncoder
+    from uml_tpu_torch.parallel import apply_tp_sharding
 
     cfg = LlamaConfig(**OPENLLAMA_7B)
     ids_np, mask_np = _llama_prompts(cfg.vocab_size)
@@ -4447,28 +4563,36 @@ def _tp_llama(mesh, gpu):
     state_dict = model.state_dict()
     del model
     numbers = {}
+    # fp32: the 7 projections' weights; int8_w: their kernel_q8 and the 5
+    # column-parallel scales
+    per_layer = {"none": 7, "int8_w": 12}
     for quant in ("none", "int8_w"):
         out, ms = {}, {}
-        for tag, m in (("off", None), ("tp", mesh)):
-            tm = TextModel.native(cfg, state_dict, quant=quant, device="cuda", mesh=m)
+        for tag in ("off", "tp", "native_mesh"):
+            tm = TextModel.native(cfg, state_dict, quant=quant, device="cuda",
+                                  mesh=mesh if tag == "native_mesh" else None)
+            if tag == "tp":
+                apply_tp_sharding(tm.model, mesh, rules=LLAMA_TP_RULES)
             out[tag] = tm.encode_ids(ids, mask)
             ms[tag] = _time_ms(lambda: tm.encode_ids(ids, mask), iters=5, warmup=1)
-            if m is not None:
-                # fp32: the 7 projections' weights; int8_w: their kernel_q8
-                # and the 5 column-parallel scales
-                n_dt = sum(1 for n, _ in [*tm.model.named_parameters(),
-                                          *tm.model.named_buffers()] if "original" in n)
-                _check(n_dt == (7 if quant == "none" else 12) * cfg.num_hidden_layers,
-                       ("sharded projections", quant, n_dt))
+            n_dt = sum(1 for n, _ in [*tm.model.named_parameters(),
+                                      *tm.model.named_buffers()] if "original" in n)
+            want = per_layer[quant] * cfg.num_hidden_layers if tag == "tp" else 0
+            _check(n_dt == want, ("sharded projections", quant, tag, n_dt, want))
             del tm
         key = "fp32" if quant == "none" else quant
-        _check(torch.equal(out["off"], out["tp"]), (f"LLaMA-7B {key} over the mesh",
-                                                    (out["off"] - out["tp"]).abs().max()))
+        for tag in ("tp", "native_mesh"):
+            _check(torch.equal(out["off"], out[tag]),
+                   (f"LLaMA-7B {key} {tag}", (out["off"] - out[tag]).abs().max()))
         numbers.update({f"tp_llama7b_{key}_ms_off": ms["off"],
-                        f"tp_llama7b_{key}_ms_tp": ms["tp"]})
-        print(f"[tp] OpenLLaMA-7B widths, 32 layers, {key}: pooled features over the "
-              f"(1, 1) mesh bit-equal to those without it; {ms['off']:.3f} ms a call "
-              f"without, {ms['tp']:.3f} ms with the mesh (8 prompts x 32 ids)  [{gpu}]")
+                        f"tp_llama7b_{key}_ms_tp": ms["tp"],
+                        f"tp_llama7b_{key}_ms_native_mesh": ms["native_mesh"]})
+        print(f"[tp] OpenLLaMA-7B widths, 32 layers, {key}: pooled features with "
+              f"apply_tp_sharding over the (1, 1) mesh ({per_layer[quant]} sharded tensors "
+              f"a layer) and through TextModel.native(..., mesh=) (unsharded: its model "
+              f"axis is one wide) bit-equal to those without it; {ms['off']:.3f} ms a call "
+              f"without, {ms['tp']:.3f} ms sharded, {ms['native_mesh']:.3f} ms through "
+              f"TextModel.native with the mesh (8 prompts x 32 ids)  [{gpu}]")
     return numbers
 
 
@@ -4773,7 +4897,8 @@ def main() -> int:
     _, rn_numbers = timed(phase_rn, root, sizes)
     rate.update(rn_numbers)
     rate.update(timed(phase_rn_train, root))
-    rate.update(timed(phase_llama))
+    llama_numbers, llama_launches = timed(phase_llama)
+    rate.update(llama_numbers)
     rate.update(timed(phase_resume, root))
     rate.update(timed(phase_multibench))
     rate.update(timed(phase_gaussian))
@@ -4785,8 +4910,9 @@ def main() -> int:
     # features --quant int8 run and its tower encode, the training kernels
     # from the full-model finetune run, the recompute backwards from the
     # finetune runs with both stashes off, the stand-alone ops from the
-    # non-fused image encode (attn_impl="pallas") and the public ops' calls
-    launches = {**launches, **unfused_launches,
+    # non-fused image encode (attn_impl="pallas") and the public ops' calls,
+    # the grouped expert kernel from DeepSeek-V2-Lite's text encode
+    launches = {**launches, **unfused_launches, **llama_launches,
                 **{k: int8_launches[k] for k in (*Q8_PORTS, "mlp_block_q8_identity")},
                 **{k: train_launches[k] for k in TRAIN_PORTS},
                 **{k: recompute_launches[k] for k in RECOMPUTE_PORTS}}

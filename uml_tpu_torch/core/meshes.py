@@ -54,6 +54,11 @@ def data_size(mesh) -> int:
     return 1 if mesh is None else mesh.size(0)
 
 
+def model_size(mesh) -> int:
+    """Ranks on the model axis (1 without a mesh)."""
+    return 1 if mesh is None else mesh.size(1)
+
+
 def data_rank(mesh) -> int:
     return 0 if mesh is None else mesh.get_local_rank(DATA_AXIS)
 

@@ -4,22 +4,29 @@ The port of uml_tpu/models/languagemodel.py (capability parity with the
 reference's engine/models/languagemodel.py:10-62):
 
 * the encoder family (BERT / RoBERTa / DeBERTa) -> the CLS row;
-* the decoder family (LLaMA / Mistral / GPT-2 / OPT / Bloom) -> the
-  attention-masked mean of the last hidden state; pad token := eos;
+* the decoder family (LLaMA / Mistral / DeepSeek / GPT-2 / OPT / Bloom)
+  -> the attention-masked mean of the last hidden state; pad token := eos;
 * ``return_tokens``: the token-level states (a decoder's pads zeroed) and
   each row's token count; otherwise the indices are ``len(text)`` in
   characters (the reference's quirk, features.py:74-76).
 
-The model: ``native``, the port's LlamaEncoder (models/llama.py), for
-LLaMA / Mistral names, and its load errors raise; otherwise HF's torch
-``AutoModel`` (uml_tpu's ``flax`` and ``torch`` branches are both that
-model here).  Both run on the card (core.device.default_device;
-``UML_TORCH_DEVICE=cpu`` asks for the CPU), in fp32, uml_tpu's default.
-``quant="int8_w"`` (native only) quantizes the weights on the host
-before they move to the device.  ``mesh`` (a ``core.meshes.create_mesh``
-mesh; native only, as uml_tpu's languagemodel.py:110-114) shards the
-LlamaEncoder's projections over its ``model`` axis by ``LLAMA_TP_RULES``
-(parallel/tensor_parallel.py); the outputs are those without it.
+The model: ``native``, the port's own encoder, for LLaMA / Mistral /
+DeepSeek names, by the checkpoint's ``model_type``: LlamaEncoder
+(models/llama.py) for ``llama`` / ``mistral``, DeepseekV2Encoder
+(models/deepseek_v2.py) for ``deepseek_v2``; its load errors raise.
+Otherwise HF's torch ``AutoModel`` (uml_tpu's ``flax`` and ``torch``
+branches are both that model here).  Both run on the card
+(core.device.default_device; ``UML_TORCH_DEVICE=cpu`` asks for the CPU),
+in fp32, uml_tpu's default.
+``quant="int8_w"`` (LlamaEncoder only) quantizes the weights on the
+host before they move to the device.  ``mesh`` (a
+``core.meshes.create_mesh`` mesh; native only, as uml_tpu's
+languagemodel.py:110-114) shards the LlamaEncoder's projections over its
+``model`` axis by ``LLAMA_TP_RULES`` (parallel/tensor_parallel.py) where
+that axis is wider than 1 (a one-wide axis would only gather every weight
+whole on every call); the outputs are those without it.  The
+DeepseekV2Encoder raises on ``int8_w`` and on a ``model`` axis wider than
+1, and runs unsharded under a one-wide one.
 
 ``transformers`` is imported only where a model or tokenizer is loaded,
 and only from local files (``local_files_only``): nothing here reaches
@@ -27,8 +34,8 @@ the network.  Without ``transformers`` or without the files, the
 constructor raises the load error, which the features CLI under
 ``--allow_random_init`` turns into hash-random text features, as uml_tpu
 does.  ``TextModel.native`` builds the native encoder from a LlamaConfig
-and a state_dict with no ``transformers`` at all, and ``encode_ids``
-encodes token ids that are already made.
+or a DeepseekV2Config and a state_dict with no ``transformers`` at all, and ``encode_ids``
+encodes token ids that are already made (span ``uml.text.encode``).
 """
 
 from __future__ import annotations
@@ -37,9 +44,10 @@ import numpy as np
 import torch
 
 from uml_tpu_torch.core.device import default_device
+from uml_tpu_torch.utils.profiling import span
 
 _ENCODER_KEYS = ("bert", "roberta", "deberta")
-_DECODER_KEYS = ("llama", "mistral", "gpt2", "opt", "bloom")
+_DECODER_KEYS = ("llama", "mistral", "deepseek", "gpt2", "opt", "bloom")
 
 MODEL_ALIASES = {
     "bloom0.56b": "bigscience/bloom-560m",
@@ -50,6 +58,7 @@ MODEL_ALIASES = {
     "openllama7b": "openlm-research/open_llama_7b",
     "openllama13b": "openlm-research/open_llama_13b",
     "mistral7b": "mistralai/Mistral-7B-v0.1",
+    "deepseek-v2-lite": "deepseek-ai/DeepSeek-V2-Lite",
 }
 
 
@@ -62,18 +71,21 @@ def model_family(model_name: str) -> str:
     raise ValueError(f"Unsupported model type: {model_name!r}")
 
 
-def is_llama_family(model_name: str) -> bool:
+def is_native(model_name: str) -> bool:
+    """Names the port's own encoders run (``_load_native`` picks the
+    encoder by the checkpoint's ``model_type``)."""
     name = model_name.lower()
-    return any(k in name for k in ("llama", "mistral"))
+    return any(k in name for k in ("llama", "mistral", "deepseek"))
 
 
 class TextModel:
     """Tokenizer + model + pooling (uml_tpu's TextModel).
 
-    ``backend`` is "native" for LLaMA / Mistral names, else "torch" (HF's
-    model); ``quant`` "none" or "int8_w" (native only, as in uml_tpu);
-    ``device`` defaults to the card; ``mesh``: the native model
-    tensor-parallel over its ``model`` axis.
+    ``backend`` is "native" for LLaMA / Mistral / DeepSeek names, else
+    "torch" (HF's model); ``quant`` "none" or "int8_w" (LlamaEncoder only,
+    as in uml_tpu); ``device`` defaults to the card; ``mesh``: the native
+    model tensor-parallel over its ``model`` axis where that is wider
+    than 1.
     """
 
     def __init__(self, model_name: str, quant: str = "none", device=None,
@@ -89,12 +101,12 @@ class TextModel:
                                                        local_files_only=True)
         if self.model_type == "decoder" and self.tokenizer.pad_token is None:
             self.tokenizer.pad_token = self.tokenizer.eos_token
-        if is_llama_family(self.model_name):
+        if is_native(self.model_name):
             self._load_native()
             self.backend = "native"
-            print(f"=> Native LlamaEncoder for {self.model_name} on {self.device}"
-                  + (f" (TP over {dict(zip(mesh.mesh_dim_names, mesh.shape))})"
-                     if mesh is not None else ""))
+            print(f"=> Native {type(self.model).__name__} for {self.model_name} on "
+                  f"{self.device}" + (f" (TP over {dict(zip(mesh.mesh_dim_names, mesh.shape))})"
+                                      if self._sharded() else ""))
         else:
             from transformers import AutoModel
 
@@ -105,13 +117,17 @@ class TextModel:
     @classmethod
     def native(cls, config, state_dict: dict, quant: str = "none",
                device=None, mesh=None) -> "TextModel":
-        """The native LlamaEncoder of ``config`` over a float state_dict
-        (the port's names, models/llama.py), with no tokenizer and no
+        """The native encoder of ``config`` (a LlamaConfig or a
+        DeepseekV2Config) over a float state_dict (the port's names,
+        models/llama.py, models/deepseek_v2.py), with no tokenizer and no
         ``transformers``: ``encode_ids`` takes the token ids.  With
         ``int8_w`` the weights are quantized where they lie; with ``mesh``
-        the model is tensor-parallel over its ``model`` axis."""
+        the model is tensor-parallel over its ``model`` axis where that is
+        wider than 1."""
+        from uml_tpu_torch.models.deepseek_v2 import DeepseekV2Config
+
         self = cls.__new__(cls)
-        self.model_name = "llama"
+        self.model_name = "deepseek_v2" if isinstance(config, DeepseekV2Config) else "llama"
         self.model_type = "decoder"
         self.quant = quant
         self.mesh = mesh
@@ -121,31 +137,60 @@ class TextModel:
         self.backend = "native"
         return self
 
+    def _sharded(self) -> bool:
+        from uml_tpu_torch.core.meshes import model_size
+
+        return model_size(self.mesh) > 1
+
+    def _check_deepseek(self) -> None:
+        if self.quant != "none":
+            raise NotImplementedError(
+                f"TextModel: quant {self.quant!r} is not supported for DeepSeek-V2 "
+                "(only LLaMA / Mistral take int8_w)")
+        if self._sharded():
+            raise NotImplementedError(
+                "TextModel: DeepSeek-V2 runs on one device; the mesh's model axis is "
+                f"{dict(zip(self.mesh.mesh_dim_names, self.mesh.shape))}")
+
     def _set_native(self, config, state_dict: dict) -> None:
+        from uml_tpu_torch.models.deepseek_v2 import DeepseekV2Config, build_deepseek_v2
         from uml_tpu_torch.models.llama import build_llama, quantize_llama_params
 
+        self.config = config
+        if isinstance(config, DeepseekV2Config):
+            self._check_deepseek()
+            self.model = build_deepseek_v2(config, state_dict).to(self.device).eval()
+            return
         if self.quant == "int8_w":
             state_dict = quantize_llama_params(state_dict)
-        self.config = config
         self.model = build_llama(config, state_dict, torch.float32,
                                  self.quant).to(self.device).eval()
-        if self.mesh is not None:
+        if self._sharded():
             from uml_tpu_torch.models.llama import LLAMA_TP_RULES
             from uml_tpu_torch.parallel import apply_tp_sharding
 
             apply_tp_sharding(self.model, self.mesh, rules=LLAMA_TP_RULES)
 
     def _load_native(self) -> None:
-        """Local HF checkpoint -> the port's LlamaEncoder: ported (and
-        for int8_w quantized) on the host, then moved to the device."""
+        """Local HF checkpoint -> the port's encoder of its ``model_type``:
+        ported (and for int8_w quantized) on the host, then moved to the
+        device."""
         from transformers import AutoConfig, AutoModel
 
+        from uml_tpu_torch.models.deepseek_v2 import DeepseekV2Config, port_hf_deepseek_v2
         from uml_tpu_torch.models.llama import LlamaConfig, port_hf_llama
 
-        cfg = LlamaConfig.from_hf(AutoConfig.from_pretrained(
-            self.model_name, local_files_only=True))
+        hf_cfg = AutoConfig.from_pretrained(self.model_name, local_files_only=True)
+        if hf_cfg.model_type == "deepseek_v2":
+            cfg, port = DeepseekV2Config.from_hf(hf_cfg), port_hf_deepseek_v2
+            self._check_deepseek()
+        elif hf_cfg.model_type in ("llama", "mistral"):
+            cfg, port = LlamaConfig.from_hf(hf_cfg), port_hf_llama
+        else:
+            raise NotImplementedError(f"TextModel: no native encoder for {self.model_name!r} "
+                                      f"(model_type {hf_cfg.model_type!r})")
         hf = AutoModel.from_pretrained(self.model_name, local_files_only=True)
-        state_dict = port_hf_llama(hf.state_dict(), cfg)
+        state_dict = port(hf.state_dict(), cfg)
         del hf
         self._set_native(cfg, state_dict)
 
@@ -160,9 +205,9 @@ class TextModel:
         pooled features [B, D] fp32 on the device (uml_tpu's pooling,
         languagemodel.py:196-217), or with ``return_tokens`` the states
         [B, T, D] (a decoder's pads zeroed)."""
-        ids = torch.as_tensor(input_ids, dtype=torch.long, device=self.device)
-        mask = torch.as_tensor(attention_mask, dtype=torch.long, device=self.device)
-        with torch.no_grad():
+        with span("uml.text.encode"), torch.no_grad():
+            ids = torch.as_tensor(input_ids, dtype=torch.long, device=self.device)
+            mask = torch.as_tensor(attention_mask, dtype=torch.long, device=self.device)
             if self.backend == "native":
                 hidden = self.model(ids, mask)
             else:

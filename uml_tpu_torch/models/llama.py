@@ -157,6 +157,18 @@ def quantize_llama_params(state_dict: dict) -> dict:
     return out
 
 
+def swiglu_mlp(c_in: int, width: int, dense=Dense) -> nn.ModuleDict:
+    """The SwiGLU MLP's projections under HF's names."""
+    return nn.ModuleDict({"gate_proj": dense(c_in, width), "up_proj": dense(c_in, width),
+                          "down_proj": dense(width, c_in)})
+
+
+def swiglu(mlp, y, dtype):
+    """down(silu(gate(y)) * up(y)) in ``dtype``."""
+    act = F.silu(mlp["gate_proj"](y, dtype)) * mlp["up_proj"](y, dtype)
+    return mlp["down_proj"](act, dtype)
+
+
 class LlamaBlock(nn.Module):
     def __init__(self, cfg: LlamaConfig, quant: str = "none"):
         super().__init__()
@@ -170,9 +182,7 @@ class LlamaBlock(nn.Module):
             "q_proj": dense(k, h * d), "k_proj": dense(k, kvh * d),
             "v_proj": dense(k, kvh * d), "o_proj": dense(h * d, k)})
         self.post_attention_layernorm = RMSNorm(k, cfg.rms_norm_eps)
-        self.mlp = nn.ModuleDict({
-            "gate_proj": dense(k, m), "up_proj": dense(k, m),
-            "down_proj": dense(m, k)})
+        self.mlp = swiglu_mlp(k, m, dense)
 
     def forward(self, x, mask, dtype):
         cfg = self.cfg
@@ -190,10 +200,7 @@ class LlamaBlock(nn.Module):
             v = v.repeat_interleave(h // kvh, dim=1)
         out = mha_plain(q, k, v, mask=mask).transpose(1, 2).reshape(b, s, h * d)
         x = x + attn["o_proj"](out, dtype)
-        y = self.post_attention_layernorm(x)
-        mlp = self.mlp
-        act = F.silu(mlp["gate_proj"](y, dtype)) * mlp["up_proj"](y, dtype)
-        return x + mlp["down_proj"](act, dtype)
+        return x + swiglu(self.mlp, self.post_attention_layernorm(x), dtype)
 
 
 class LlamaEncoder(nn.Module):

@@ -34,6 +34,9 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 # name -> argtypes; every function returns a cudaError_t as int
 SIGNATURES = {
+    # a, w0 table, w1 table (or null), offsets, c, groups, tiles, N, K,
+    # swiglu, stream
+    "uml_moe_gemm": [_P] * 5 + [_I] * 5 + [_P],
     # x, w_eff, b_eff, wo, bo, xn, qkv, attn, out, B, S, K, H, causal,
     # q_rows, eps, stream
     "uml_attn_block": [_P] * 9 + [_I] * 6 + [_F, _P],

@@ -56,9 +56,12 @@ def _masked_softmax_weights(scores, causal: bool, mask=None):
     return e / e.sum(-1, keepdim=True)
 
 
-def mha_plain(q, k, v, *, causal: bool = False, mask=None):
-    """Dense attention. q, k, v: [B, H, S, D]; mask: additive [S, S] or None."""
-    scale = q.shape[-1] ** -0.5
+def mha_plain(q, k, v, *, causal: bool = False, mask=None, scale=None):
+    """Dense attention. q, k, v: [B, H, S, D] (v's D may differ); mask:
+    additive [S, S] or None; ``scale`` the scores' factor, q's D^-1/2 by
+    default."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
     scores = torch.matmul(q, k.transpose(-1, -2)) * scale
     weights = _masked_softmax_weights(scores, causal, mask)
     return torch.matmul(weights.to(q.dtype), v)
